@@ -1,0 +1,117 @@
+"""Single-device FFC trainer (port of ``vlsfr_tpu/train/trainer.py``).
+
+What this port runs: the FFC head on one device, synthetic (raw-pixel) or
+record-store data, the host DCP planner, print-window logging and the
+plateau LR scale. What it does not run yet, and refuses rather than fakes:
+checkpoints and resume, in-training eval, the softmax head, pretrained
+backbones and multi-device meshes.
+"""
+
+from __future__ import annotations
+
+import tempfile
+
+import torch
+
+from vlsfr_tpu_torch.config import Config
+from vlsfr_tpu_torch.core.dcp import DCPManager
+from vlsfr_tpu_torch.core.ffc import create_ffc_state, make_train_step
+from vlsfr_tpu_torch.data.pipeline import FFCPipeline
+from vlsfr_tpu_torch.data.records import MultiSourceReader
+from vlsfr_tpu_torch.models import create_net, native_image_size
+from vlsfr_tpu_torch.optim import PlateauController, make_schedule
+from vlsfr_tpu_torch.utils.device import resolve_device
+from vlsfr_tpu_torch.utils.metrics import MetricsLogger, Throughput, logger
+
+
+def _refuse_unported(cfg: Config) -> None:
+    for what, on in (
+            ("pool.head='full_softmax'", cfg.pool.head != "ffc"),
+            ("train.eval_freq > 0 (in-training eval)", cfg.train.eval_freq > 0),
+            ("train.eval_bin", bool(cfg.train.eval_bin)),
+            ("train.pretrained_model_path", bool(cfg.train.pretrained_model_path)),
+            ("mesh.model > 1", cfg.mesh.model > 1),
+            ("mesh.data > 1", cfg.mesh.data > 1)):
+        if on:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+class Trainer:
+    """``Trainer(cfg, device=...)`` builds data, models and state;
+    ``train()`` runs the epochs. Runs on ``cuda`` unless ``device`` says
+    otherwise."""
+
+    def __init__(self, cfg: Config, reader: MultiSourceReader | None = None, device=None):
+        _refuse_unported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.image_size = cfg.data.image_size or native_image_size(cfg.model.net_type)
+        self._tmpdir = None
+        if reader is None:
+            if cfg.data.synthetic:
+                from vlsfr_tpu_torch.data.synthetic import generate_synthetic_store
+
+                self._tmpdir = tempfile.TemporaryDirectory(prefix="vlsfr_torch_syn_")
+                generate_synthetic_store(
+                    self._tmpdir.name, num_ids=cfg.data.synthetic_ids,
+                    images_per_id=cfg.data.synthetic_images_per_id,
+                    image_size=self.image_size, seed=cfg.data.seed,
+                    hard=cfg.data.synthetic_hard)
+                cfg.data.sources = [self._tmpdir.name]
+            reader = MultiSourceReader(cfg.data.sources)
+        self.reader = reader
+        self.record_limit = None
+        if cfg.train.holdout_records > 0:
+            self.record_limit = max(len(reader) - cfg.train.holdout_records,
+                                    cfg.data.batch_size)
+        self.pipeline = FFCPipeline(reader, cfg.data.batch_size, self.image_size,
+                                    seed=cfg.data.seed, num_workers=cfg.data.num_workers,
+                                    prefetch=cfg.data.prefetch, record_limit=self.record_limit)
+        self.dcp = DCPManager(cfg.pool.queue_size)
+        self.steps_per_epoch = max(cfg.train.steps_per_epoch or self.pipeline.steps_per_epoch(), 1)
+        self.schedule = make_schedule(cfg.optim, self.steps_per_epoch)
+        self.plateau = PlateauController(patience=cfg.optim.patience, min_lr=cfg.optim.lr_min,
+                                         base_lr=cfg.optim.lr)
+        self.metrics = MetricsLogger(cfg.train.log_dir or f"{cfg.train.saved_dir}/logs")
+        with torch.random.fork_rng(devices=[]):  # model init from the seed, isolated
+            torch.manual_seed(cfg.data.seed)
+            model = create_net(cfg.model.net_type, feat_dim=cfg.model.feat_dim,
+                               dtype=cfg.model.dtype, dropout=cfg.model.dropout,
+                               image_size=self.image_size, bn_stats_rows=cfg.model.bn_stats_rows)
+        self.state = create_ffc_state(model, cfg, device=self.device, seed=cfg.data.seed)
+        self.train_step = make_train_step(cfg, self.schedule)
+        logger.info("no checkpoints are written: checkpoint/resume is not ported yet")
+
+    def train(self, max_steps: int | None = None) -> dict:
+        """Run ``optim.epochs`` epochs (or stop after ``max_steps`` steps);
+        returns the last print window's metrics (with its ``epoch`` and
+        ``images_per_sec``) plus ``final_step``."""
+        cfg = self.cfg
+        thr = Throughput()
+        last: dict = {}
+        gstep = 0
+        for epoch in range(cfg.optim.epochs):
+            left = None if max_steps is None else max_steps - gstep
+            if left is not None and left <= 0:
+                break
+            for batch in self.pipeline.epoch_iter(epoch, stop_step=left):
+                idx = self.dcp.plan_step(batch.x_label, batch.y_label)
+                m = self.train_step(self.state, batch.x, batch.y, idx, self.plateau.scale)
+                thr.update(batch.x.shape[0] * 2)
+                gstep += 1
+                if gstep % cfg.train.print_freq == 0 or gstep == max_steps:
+                    m = {k: float(v) for k, v in m.items()}  # one sync per window
+                    last = dict(m, epoch=epoch, images_per_sec=thr.value())
+                    self.metrics.log(gstep, last)
+                    if cfg.optim.scheduler == "plateau":
+                        self.plateau.observe(m["loss"])
+                    thr.reset()
+        return dict(last, final_step=gstep)
+
+    def close(self):
+        self.pipeline.close()
+        self.metrics.close()
+        self.reader.close()
+        if self._tmpdir is not None:
+            self._tmpdir.cleanup()
+            self._tmpdir = None
