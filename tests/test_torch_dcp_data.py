@@ -13,6 +13,8 @@ import torch
 from vlsfr_tpu.config import Config as JConfig
 from vlsfr_tpu.core.dcp import DCPManager as JDCP
 from vlsfr_tpu.data.pipeline import InstanceStream as JInstance
+from vlsfr_tpu.data.pipeline import InstancePipeline as JInstancePipeline
+from vlsfr_tpu.data.pipeline import _rng as j_rng
 from vlsfr_tpu.data.pipeline import PairStream as JPair
 from vlsfr_tpu.data.records import MultiSourceReader as JReader
 from vlsfr_tpu.optim import PlateauController as JPlateau
@@ -20,7 +22,13 @@ from vlsfr_tpu.optim import make_optimizer as j_make_optimizer
 from vlsfr_tpu.optim import make_schedule as j_make_schedule
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import DCPManager
-from vlsfr_tpu_torch.data.pipeline import FFCPipeline, InstanceStream, PairStream, decode_image
+from vlsfr_tpu_torch.data.pipeline import (
+    FFCPipeline,
+    InstancePipeline,
+    InstanceStream,
+    PairStream,
+    decode_image,
+)
 from vlsfr_tpu_torch.data.records import MultiSourceReader
 from vlsfr_tpu_torch.data.synthetic import generate_synthetic_store
 from vlsfr_tpu_torch.optim import PlateauController, make_optimizer, make_schedule, set_learning_rate
@@ -77,6 +85,38 @@ def test_index_plans_match_jax(raw_store):
                     np.testing.assert_array_equal(a, b)
     mine.close()
     ref.close()
+
+
+def test_instance_pipeline_plans_match_jax(raw_store):
+    """The full-softmax pipeline draws the same records, labels and flips
+    per (seed, epoch, step) as the JAX package's ``InstancePipeline``, and
+    its batches are those records, decoded and flipped."""
+    mine, ref = MultiSourceReader([raw_store]), JReader([raw_store], native=False)
+    pipe = InstancePipeline(mine, 6, 16, seed=5, num_workers=2, prefetch=1, record_limit=30)
+    jpipe = JInstancePipeline(ref, 6, 16, seed=5, num_workers=1, record_limit=30)
+    try:
+        assert pipe.steps_per_epoch() == jpipe.steps_per_epoch() == 5
+        assert jpipe.num_class == 13
+        for epoch in range(2):
+            for step in range(pipe.steps_per_epoch()):
+                idx, flips, labels = pipe.batch_plan(epoch, step)
+                jidx = jpipe.instance.batch_indices(epoch, step)
+                np.testing.assert_array_equal(idx, jidx)
+                np.testing.assert_array_equal(labels, np.asarray(ref.labels[jidx], np.int32))
+                np.testing.assert_array_equal(
+                    flips, j_rng(5, epoch, step, 0xF12).random(len(jidx)) < 0.5)
+        batches = list(pipe.epoch_iter(1, start_step=3))
+        assert [b.step for b in batches] == [3, 4]
+        idx, flips, labels = pipe.batch_plan(1, 3)
+        img = decode_image(mine.payload(int(idx[0])), 16)
+        want = (img[:, ::-1] if flips[0] else img).astype(np.float32) * 0.0078125 - 127.5 * 0.0078125
+        np.testing.assert_allclose(batches[0].images[0], want, atol=1e-6)
+        np.testing.assert_array_equal(batches[0].labels, labels)
+    finally:
+        pipe.close()
+        jpipe.close()
+        mine.close()
+        ref.close()
 
 
 def test_raw_pipeline_batches(raw_store):
@@ -163,6 +203,8 @@ def test_sgd_trajectory_matches_optax(nesterov, weight_decay, momentum, rng):
      "--loss_type", "SV", "--margin", "0.3", "--scale", "64", "--print_freq", "5",
      "--synthetic", "--sources", "a", "b", "--set", "pool.fuse_forward=true",
      "--set", "optim.lr=0.05"],
+    ["--head", "full_softmax", "--net_type", "toy", "--synthetic", "--set", "pool.num_classes=200",
+     "--set", "pool.use_fused=on", "--set", "pool.fused_update=off"],
 ])
 def test_cli_flags_match_train_py(argv):
     """The port's CLI maps the flags of the JAX package's train.py onto the

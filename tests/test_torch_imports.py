@@ -30,7 +30,9 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert res["banned"] == []
     for want in ("vlsfr_tpu_torch.ops.twin_margin", "vlsfr_tpu_torch.core.ffc",
                  "vlsfr_tpu_torch.train.trainer", "vlsfr_tpu_torch.train.cli",
-                 "vlsfr_tpu_torch.models.from_jax", "vlsfr_tpu_torch.data.pipeline"):
+                 "vlsfr_tpu_torch.models.from_jax", "vlsfr_tpu_torch.data.pipeline",
+                 "vlsfr_tpu_torch.ops.margin_stream", "vlsfr_tpu_torch.parallel.partial_fc",
+                 "vlsfr_tpu_torch.train.softmax_head"):
         assert want in res["modules"]
 
 

@@ -42,16 +42,13 @@
 //    v (view 2) row; q1 is never read.
 //  * Target columns are excluded from the stream and the top-k; the
 //    target term scale*phi(gt) joins at the merge (gt comes from outside).
+//  * Shared with margin_ce.cu (margin_common.cuh): the margin transform,
+//    the streamed (max, sumexp) and top-k, the partial merge, d_cos of a
+//    column and the shared-memory tile product.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "margin_common.cuh"
 
 namespace {
-
-constexpr int KMAX = 16;
-constexpr float NEG_INF_F = -1e30f;  // top-k fill value (vlsfr NEG_INF)
-constexpr float KTH_TIE_TOL = 1e-6f;
-constexpr int LOSS_AM = 0, LOSS_ARC = 1, LOSS_SV = 2;
 
 struct Args {
   const float* q0;
@@ -70,51 +67,11 @@ struct Args {
   float margin, scale, mask_svfc, cos_m, sin_m;
 };
 
-__device__ __forceinline__ float phi_target(float gt, const Args& a) {
-  if (a.loss_type == LOSS_AM) return gt - a.margin;
-  if (a.loss_type == LOSS_ARC) {
-    const float gc = fminf(fmaxf(gt, -0.999999f), 0.999999f);
-    const float sn = sqrtf(1.0f - gc * gc);
-    return gc * a.cos_m - sn * a.sin_m;
-  }
-  return gt > a.margin ? gt - a.margin : gt;
-}
-
 // dot product in index order, the same FMA chain as the GEMM tiles
 __device__ __forceinline__ float row_dot(const float* x, const float* y, int n) {
   float acc = 0.f;
   for (int i = 0; i < n; ++i) acc = fmaf(x[i], y[i], acc);
   return acc;
-}
-
-__device__ __forceinline__ void stream_update(float c, float gt, const Args& a, float& m,
-                                              float& s) {
-  float mod = c;
-  if (a.loss_type == LOSS_SV && c > gt - a.margin) mod = a.mask_svfc * c + a.mask_svfc - 1.0f;
-  const float z = a.scale * mod;
-  if (z > m) {
-    s = s * expf(m - z) + 1.0f;
-    m = z;
-  } else {
-    s += expf(z - m);
-  }
-}
-
-// values-only top-k, descending; `kth` mirrors tk[k - 1] so the common
-// rejection is one compare and tk stays in registers (constant indices)
-__device__ __forceinline__ void topk_insert(float (&tk)[KMAX], float& kth, float x, int k) {
-  if (!(x > kth)) return;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k && x > tk[j]) {
-      const float t = tk[j];
-      tk[j] = x;
-      x = t;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j)
-    if (j == k - 1) kth = tk[j];
 }
 
 // per-tile write plan: last0/lastb[d * TC + c] = highest writer index (in
@@ -146,7 +103,6 @@ __device__ __forceinline__ void mark_writes(const Args& a, long long t0, int* la
 
 constexpr int F_ROWS = 256, F_TC = 64, F_DK = 16, F_THREADS = 256;
 constexpr int F_ALD = F_ROWS + 4, F_BLD = F_TC + 4, F_CLD = F_TC + 1;
-constexpr int F_PART = 2 + KMAX;  // (m, s, top-k) per (view, row)
 constexpr size_t F_SMEM =
     sizeof(float) * (F_DK * F_ALD + F_DK * F_BLD + F_ROWS * F_CLD) + sizeof(int) * (4 * F_TC + 1);
 
@@ -183,38 +139,9 @@ __global__ void __launch_bounds__(F_THREADS)
   for (long long t0 = c_begin; t0 < c_end; t0 += F_TC) {
     mark_writes<F_TC>(a, t0, last0, lastb, written);
 
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < a.D; k0 += F_DK) {
-#pragma unroll
-      for (int l = 0; l < F_ROWS * F_DK / F_THREADS; ++l) {
-        const int idx = l * F_THREADS + tid, row = idx / F_DK, kk = idx % F_DK;
-        As[kk * F_ALD + row] = row < a.R ? a.E[(long long)row * a.D + k0 + kk] : 0.f;
-      }
-#pragma unroll
-      for (int l = 0; l < F_TC * F_DK / F_THREADS; ++l) {
-        const int idx = l * F_THREADS + tid, c = idx / F_DK, kk = idx % F_DK;
-        const long long gc = t0 + c;
-        Bs[kk * F_BLD + c] = gc < c_end ? a.q0[gc * a.D + k0 + kk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < F_DK; ++kk) {
-        float av[8], bv[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) av[i] = As[kk * F_ALD + ty + 32 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = Bs[kk * F_BLD + tx + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+    float acc[8][8], n2;
+    tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 32, 8, false>(
+        acc, n2, As, Bs, a.E, 0, a.R, a.q0, t0, c_end, a.D, ty, tx);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -243,8 +170,8 @@ __global__ void __launch_bounds__(F_THREADS)
   }
 
   if (row_ok) {
-    float* p0 = part + (((long long)blockIdx.x * 2 + 0) * a.R + r) * F_PART;
-    float* p1 = part + (((long long)blockIdx.x * 2 + 1) * a.R + r) * F_PART;
+    float* p0 = part + (((long long)blockIdx.x * 2 + 0) * a.R + r) * PART;
+    float* p1 = part + (((long long)blockIdx.x * 2 + 1) * a.R + r) * PART;
     p0[0] = m0;
     p0[1] = s0;
     p1[0] = m1;
@@ -267,42 +194,10 @@ __global__ void quad_fwd_merge_kernel(Args a, int nblk, const float* part, float
   float M = -INFINITY, S = 0.f;
   float tk[KMAX];
   for (int j = 0; j < KMAX; ++j) tk[j] = NEG_INF_F;
-  for (int blk = 0; blk < nblk; ++blk) {
-    const float* p = part + (((long long)blk * 2 + v) * a.R + r) * F_PART;
-    const float pm = p[0], ps = p[1];
-    if (ps > 0.f) {
-      if (pm > M) {
-        S = S * expf(M - pm) + ps;
-        M = pm;
-      } else {
-        S += ps * expf(pm - M);
-      }
-    }
-    for (int j = 0; j < a.k; ++j) {
-      float x = p[2 + j];
-      if (!(x > tk[a.k - 1])) break;  // partial lists are sorted descending
-      for (int i = 0; i < a.k; ++i) {
-        if (x > tk[i]) {
-          const float t = tk[i];
-          tk[i] = x;
-          x = t;
-        }
-      }
-    }
-  }
-  const float lse = S > 0.f ? M + logf(S) : -INFINITY;
-  const bool pos = a.labels[r] >= 0;
+  for (int blk = 0; blk < nblk; ++blk)
+    merge_partial(part + (((long long)blk * 2 + v) * a.R + r) * PART, a.k, M, S, tk);
   const float zt = a.scale * phi_target(a.gt[v * a.R + r], a);
-  float lz = lse;
-  if (pos) {
-    const float mf = fmaxf(lse, zt);
-    lz = mf + logf(expf(lse - mf) + expf(zt - mf));
-  }
-  float hinge = 0.f;
-  for (int j = 0; j < a.k; ++j) hinge += fmaxf(tk[j], 0.f);
-  ce[idx] = pos ? lz - zt : 0.f;
-  neg[idx] = pos ? 0.f : hinge / (float)a.k;
-  logz[idx] = lz;
+  finalize_row(M, S, tk, a.k, a.labels[r] >= 0, zt, ce[idx], neg[idx], logz[idx]);
   for (int j = 0; j < a.k; ++j) topk[(long long)idx * a.k + j] = tk[j];
 }
 
@@ -319,18 +214,6 @@ struct BwdRows {
   const float* dce;   // [2][R], 0 on outlier rows
   const float* dneg;  // [2][R], 0 on positive rows
 };
-
-__device__ __forceinline__ float dcos_view(float c, float gt, float logz, float kth, float dce,
-                                           float dneg, bool pos, const Args& a) {
-  float mod = c, fac = 1.f;
-  if (a.loss_type == LOSS_SV && c > gt - a.margin) {
-    mod = a.mask_svfc * c + a.mask_svfc - 1.0f;
-    fac = a.mask_svfc;
-  }
-  float d = expf(a.scale * mod - logz) * dce * a.scale * fac;
-  if (!pos && c >= kth - KTH_TIE_TOL && c > 0.f) d += dneg / (float)a.k;
-  return d;
-}
 
 __global__ void __launch_bounds__(B_THREADS)
     quad_bwd_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg, float* part) {
@@ -385,39 +268,9 @@ __global__ void __launch_bounds__(B_THREADS)
     mark_writes<B_TC>(a, t0, last0, lastb, written);
     const bool any_w = *written != 0;
 
-    float acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < a.D; k0 += B_DK) {
-#pragma unroll
-      for (int l = 0; l < B_RB * B_DK / B_THREADS; ++l) {
-        const int idx = l * B_THREADS + tid, row = idx / B_DK, kk = idx % B_DK;
-        const int gr = r_base + row;
-        As[kk * B_ALD + row] = gr < a.R ? a.E[(long long)gr * a.D + k0 + kk] : 0.f;
-      }
-#pragma unroll
-      for (int l = 0; l < B_TC * B_DK / B_THREADS; ++l) {
-        const int idx = l * B_THREADS + tid, c = idx / B_DK, kk = idx % B_DK;
-        const long long gc = t0 + c;
-        Bs[kk * B_BLD + c] = gc < c_end ? a.q0[gc * a.D + k0 + kk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < B_DK; ++kk) {
-        float av[2], bv[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) av[i] = As[kk * B_ALD + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk * B_BLD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+    float acc[2][4], n2;
+    tile_gemm<B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16, false>(
+        acc, n2, As, Bs, a.E, r_base, a.R, a.q0, t0, c_end, a.D, ty, tx);
 
     // d_cos, routed per view to the row that view scores against
 #pragma unroll
@@ -438,10 +291,10 @@ __global__ void __launch_bounds__(B_THREADS)
             if (i0 >= 0) c1 = row_dot(e_row, a.G + (long long)(dirr[i] * a.B + i0) * a.D, a.D);
             c2 = ib >= 0 ? row_dot(e_row, a.V + (long long)(dirr[i] * a.B + ib) * a.D, a.D) : c1;
           }
-          float d1 = dcos_view(c1, gtv[i][0], lzv[i][0], kthv[i][0], dcev[i][0], dnegv[i][0],
-                               pos[i], a);
-          const float d2 = dcos_view(c2, gtv[i][1], lzv[i][1], kthv[i][1], dcev[i][1],
-                                     dnegv[i][1], pos[i], a);
+          float d1 = dcos_col(c1, gtv[i][0], lzv[i][0], kthv[i][0], dcev[i][0], dnegv[i][0],
+                              !pos[i], a);
+          const float d2 = dcos_col(c2, gtv[i][1], lzv[i][1], kthv[i][1], dcev[i][1],
+                                    dnegv[i][1], !pos[i], a);
           if (ib >= 0) dv = d2; else d1 += d2;  // view 2 reads view 1's row
           if (i0 >= 0) dg = d1; else dq = d1;
         }

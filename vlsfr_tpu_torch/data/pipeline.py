@@ -1,4 +1,4 @@
-"""FFC input pipeline: deterministic samplers, host decode, async prefetch
+"""Input pipelines: deterministic samplers, host decode, async prefetch
 (port of ``vlsfr_tpu/data/pipeline.py``).
 
 Per-step FFC batch composition (reference main.py:53-60):
@@ -6,10 +6,11 @@ Per-step FFC batch composition (reference main.py:53-60):
     x = [pair_img1 ; instance_half1]   x_label = [pair_ids ; labels_half1]
     y = [pair_img2 ; instance_half2]   y_label = [pair_ids ; labels_half2]
 
-``InstanceStream`` and ``PairStream`` are the JAX package's index plans,
-keyed on ``(seed, epoch, step)`` with the same counter-based numpy RNG, so
-both packages draw identical records and flips for a step
-(tests/test_torch_dcp_data.py). Decode reads the raw payloads written by
+The full-softmax head takes plain (image, label) batches from
+``InstancePipeline``. ``InstanceStream`` and ``PairStream`` are the JAX
+package's index plans, keyed on ``(seed, epoch, step)`` with the same
+counter-based numpy RNG, so both packages draw identical records and flips
+for a step (tests/test_torch_dcp_data.py). Decode reads the raw payloads written by
 ``data/synthetic.py``; a JPEG payload needs ``cv2`` and raises a clear
 error without it. Batches are NHWC float32, normalised (x − 127.5)/128.
 """
@@ -211,38 +212,95 @@ class FFCPipeline:
     def epoch_iter(self, epoch: int, start_step: int = 0, stop_step: int | None = None):
         """Yield FFCBatch for steps [start_step, stop_step) of ``epoch``
         (default: to the end of the epoch) with background prefetch."""
-        end = self.steps_per_epoch() if stop_step is None else min(stop_step,
-                                                                   self.steps_per_epoch())
-        q: queue.Queue = queue.Queue(maxsize=max(self.prefetch, 1))
-        stop = threading.Event()
+        return _prefetch_iter(self, epoch, start_step, stop_step)
 
-        def producer():
-            try:
-                for s in range(start_step, end):
-                    if stop.is_set():
-                        return
-                    q.put(self.make_batch(epoch, s))
-                q.put(None)
-            except BaseException as e:  # hand the failure to the consumer
-                q.put(e)
+    def close(self):
+        self.pool.shutdown(wait=True)
 
-        t = threading.Thread(target=producer, daemon=True)
-        t.start()
+
+def _prefetch_iter(pipe, epoch: int, start_step: int, stop_step: int | None):
+    """Batches ``pipe.make_batch(epoch, s)`` for s in [start_step, stop_step)
+    (default: to the end of the epoch); a producer thread keeps
+    ``pipe.prefetch`` of them ready while the device runs."""
+    spe = pipe.steps_per_epoch()
+    end = spe if stop_step is None else min(stop_step, spe)
+    q: queue.Queue = queue.Queue(maxsize=max(pipe.prefetch, 1))
+    stop = threading.Event()
+
+    def producer():
         try:
-            while True:
-                item = q.get()
-                if item is None:
+            for s in range(start_step, end):
+                if stop.is_set():
                     return
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
-        finally:
-            stop.set()
-            while t.is_alive():
-                try:
-                    q.get_nowait()
-                except queue.Empty:
-                    t.join(timeout=0.05)
+                q.put(pipe.make_batch(epoch, s))
+            q.put(None)
+        except BaseException as e:  # hand the failure to the consumer
+            q.put(e)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        while t.is_alive():
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                t.join(timeout=0.05)
+
+
+@dataclass
+class InstanceBatch:
+    """One full-softmax step batch (host numpy, NHWC)."""
+
+    images: np.ndarray  # [B, H, W, 3] float32
+    labels: np.ndarray  # [B] int32
+    epoch: int
+    step: int
+
+
+class InstancePipeline:
+    """Plain (image, label) batches for full-softmax training: the shuffled
+    ``InstanceStream`` with a random flip per image."""
+
+    def __init__(self, reader: MultiSourceReader, batch_size: int, image_size: int,
+                 seed: int = 0, num_workers: int = 8, prefetch: int = 2,
+                 record_limit: int | None = None):
+        self.reader = reader
+        self.batch_size = batch_size
+        self.image_size = image_size
+        self.seed = seed
+        self.instance = InstanceStream(reader, batch_size, seed, record_limit=record_limit)
+        self.pool = ThreadPoolExecutor(max_workers=max(num_workers, 1))
+        self.prefetch = prefetch
+
+    def steps_per_epoch(self) -> int:
+        return self.instance.steps_per_epoch()
+
+    def batch_plan(self, epoch: int, step: int):
+        """(records, flips, labels) of a step."""
+        idx = self.instance.batch_indices(epoch, step)
+        labels = np.asarray(self.reader.labels[idx], dtype=np.int32)
+        flips = _rng(self.seed, epoch, step, 0xF12).random(len(idx)) < 0.5
+        return idx, flips, labels
+
+    def make_batch(self, epoch: int, step: int) -> InstanceBatch:
+        idx, flips, labels = self.batch_plan(epoch, step)
+        imgs = list(self.pool.map(
+            lambda rec, flip: normalize(decode_image(self.reader.payload(int(rec)),
+                                                     self.image_size), flip), idx, flips))
+        return InstanceBatch(images=np.stack(imgs), labels=labels, epoch=epoch, step=step)
+
+    def epoch_iter(self, epoch: int, start_step: int = 0, stop_step: int | None = None):
+        """Yield InstanceBatch for steps [start_step, stop_step) of ``epoch``."""
+        return _prefetch_iter(self, epoch, start_step, stop_step)
 
     def close(self):
         self.pool.shutdown(wait=True)

@@ -2,8 +2,9 @@
 
 Each ``vlsfr_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``csrc/build/lib<name>-<hash>.so``
-at first use (the hash is of the source, so an edited kernel rebuilds),
-then loaded with ``ctypes``. Nothing here runs at import time; the CPU
+at first use (the hash is of the source and the shared ``csrc/*.cuh``
+headers, so an edited kernel or header rebuilds), then loaded with
+``ctypes``. Nothing here runs at import time; the CPU
 tests never build anything.
 """
 
@@ -18,6 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
+SOURCES = ("quad_margin", "margin_ce")  # csrc/<name>.cu, each its own library
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -34,11 +36,20 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(names: list[str]) -> dict[str, str]:
+def start_nvcc(src: Path, out: Path) -> subprocess.Popen:
+    """An ``nvcc`` process building ``src`` (a .cu file; its quoted includes
+    resolve beside it) into the shared library ``out``."""
+    return subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every named source that is not built yet, one ``nvcc``
     process per source, all started together. Returns each new build's
     compiler output (the ``-Xptxas -v`` register/shared-memory report)."""
@@ -49,9 +60,7 @@ def build_all(names: list[str]) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
+        procs[name] = (start_nvcc(CSRC / f"{name}.cu", tmp), tmp, out)
     logs = {}
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()

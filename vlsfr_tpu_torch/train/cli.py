@@ -8,6 +8,8 @@ and ``--device`` (default ``cuda``; ``cpu`` must be asked for).
 
     python -m vlsfr_tpu_torch.train --net_type ir50 --queue_size 1048576 \\
         --batch_size 128 --synthetic --set pool.fuse_forward=true
+    python -m vlsfr_tpu_torch.train --net_type ir50 --head full_softmax \\
+        --batch_size 128 --synthetic --set pool.num_classes=1048576
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
-"""Single-device FFC trainer (port of ``vlsfr_tpu/train/trainer.py``).
+"""Single-device trainer (port of ``vlsfr_tpu/train/trainer.py``).
 
-What this port runs: the FFC head on one device, synthetic (raw-pixel) or
-record-store data, the host DCP planner, print-window logging and the
-plateau LR scale. What it does not run yet, and refuses rather than fakes:
-checkpoints and resume, in-training eval, the softmax head, pretrained
-backbones and multi-device meshes.
+What this port runs: the FFC head (``pool.head='ffc'``, with the host DCP
+planner) or the full-softmax classifier head (``'full_softmax'``,
+``train/softmax_head.py``) on one device, synthetic (raw-pixel) or
+record-store data, print-window logging and the plateau LR scale. What it
+does not run yet, and refuses rather than fakes: checkpoints and resume,
+in-training eval, pretrained backbones and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -16,17 +17,25 @@ import torch
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import DCPManager
 from vlsfr_tpu_torch.core.ffc import create_ffc_state, make_train_step
-from vlsfr_tpu_torch.data.pipeline import FFCPipeline
+from vlsfr_tpu_torch.data.pipeline import FFCPipeline, InstancePipeline
 from vlsfr_tpu_torch.data.records import MultiSourceReader
 from vlsfr_tpu_torch.models import create_net, native_image_size
 from vlsfr_tpu_torch.optim import PlateauController, make_schedule
+from vlsfr_tpu_torch.train.softmax_head import (
+    check_ported,
+    create_softmax_state,
+    make_softmax_train_step,
+)
 from vlsfr_tpu_torch.utils.device import resolve_device
 from vlsfr_tpu_torch.utils.metrics import MetricsLogger, Throughput, logger
 
 
 def _refuse_unported(cfg: Config) -> None:
+    if cfg.pool.head not in ("ffc", "full_softmax"):
+        raise ValueError(f"pool.head must be ffc or full_softmax, got {cfg.pool.head!r}")
+    if cfg.pool.head == "full_softmax":
+        check_ported(cfg)
     for what, on in (
-            ("pool.head='full_softmax'", cfg.pool.head != "ffc"),
             ("train.eval_freq > 0 (in-training eval)", cfg.train.eval_freq > 0),
             ("train.eval_bin", bool(cfg.train.eval_bin)),
             ("train.pretrained_model_path", bool(cfg.train.pretrained_model_path)),
@@ -64,10 +73,14 @@ class Trainer:
         if cfg.train.holdout_records > 0:
             self.record_limit = max(len(reader) - cfg.train.holdout_records,
                                     cfg.data.batch_size)
-        self.pipeline = FFCPipeline(reader, cfg.data.batch_size, self.image_size,
-                                    seed=cfg.data.seed, num_workers=cfg.data.num_workers,
-                                    prefetch=cfg.data.prefetch, record_limit=self.record_limit)
-        self.dcp = DCPManager(cfg.pool.queue_size)
+        self.is_ffc = cfg.pool.head == "ffc"
+        pipe = FFCPipeline if self.is_ffc else InstancePipeline
+        self.pipeline = pipe(reader, cfg.data.batch_size, self.image_size, seed=cfg.data.seed,
+                             num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
+                             record_limit=self.record_limit)
+        self.dcp = DCPManager(cfg.pool.queue_size) if self.is_ffc else None
+        if not self.is_ffc and cfg.pool.num_classes <= 0:
+            cfg.pool.num_classes = reader.num_class
         self.steps_per_epoch = max(cfg.train.steps_per_epoch or self.pipeline.steps_per_epoch(), 1)
         self.schedule = make_schedule(cfg.optim, self.steps_per_epoch)
         self.plateau = PlateauController(patience=cfg.optim.patience, min_lr=cfg.optim.lr_min,
@@ -78,8 +91,13 @@ class Trainer:
             model = create_net(cfg.model.net_type, feat_dim=cfg.model.feat_dim,
                                dtype=cfg.model.dtype, dropout=cfg.model.dropout,
                                image_size=self.image_size, bn_stats_rows=cfg.model.bn_stats_rows)
-        self.state = create_ffc_state(model, cfg, device=self.device, seed=cfg.data.seed)
-        self.train_step = make_train_step(cfg, self.schedule)
+        if self.is_ffc:
+            self.state = create_ffc_state(model, cfg, device=self.device, seed=cfg.data.seed)
+            self.train_step = make_train_step(cfg, self.schedule)
+        else:
+            self.state = create_softmax_state(model, cfg, cfg.pool.num_classes,
+                                              device=self.device, seed=cfg.data.seed)
+            self.train_step = make_softmax_train_step(cfg, self.schedule)
         logger.info("no checkpoints are written: checkpoint/resume is not ported yet")
 
     def train(self, max_steps: int | None = None) -> dict:
@@ -95,9 +113,14 @@ class Trainer:
             if left is not None and left <= 0:
                 break
             for batch in self.pipeline.epoch_iter(epoch, stop_step=left):
-                idx = self.dcp.plan_step(batch.x_label, batch.y_label)
-                m = self.train_step(self.state, batch.x, batch.y, idx, self.plateau.scale)
-                thr.update(batch.x.shape[0] * 2)
+                if self.is_ffc:
+                    idx = self.dcp.plan_step(batch.x_label, batch.y_label)
+                    m = self.train_step(self.state, batch.x, batch.y, idx, self.plateau.scale)
+                    thr.update(batch.x.shape[0] * 2)
+                else:
+                    m = self.train_step(self.state, batch.images, batch.labels,
+                                        self.plateau.scale)
+                    thr.update(batch.images.shape[0])
                 gstep += 1
                 if gstep % cfg.train.print_freq == 0 or gstep == max_steps:
                     m = {k: float(v) for k, v in m.items()}  # one sync per window
