@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It drives both ported paths, each with its kernels' launch counters set to
+It drives every ported path, each with its kernels' launch counters set to
 0 just before the run and read just after. Phases (any failure raises and
 exits non-zero; nothing is caught):
 
@@ -22,9 +22,10 @@ FFC slice (the fused-pool FFC step, ir50, 2^20-slot f32 queue):
    ce / neg / logz 1e-4 absolute and top-k 1e-5 (f32 sums in another order
    over 2^20 columns); d_emb 1e-4 × max|d_emb|; d_gt 1e-5;
 4. timing — CUDA events over repeated launches: each kernel, its plain
-   version, and a PyTorch composition of the forward's function
-   (matmul + logsumexp + topk) as a yardstick; the bound is the larger of
-   FLOP / 67 TFLOP/s (f32, no tensor cores) and bytes / 3.35 TB/s;
+   version, and a PyTorch composition of the same function as a yardstick
+   (forward: matmul + logsumexp + topk; backward: the cosine recompute and
+   d_cos @ queue over a materialised [2b, Q] d_cos); the bound is the
+   larger of FLOP / 67 TFLOP/s (f32, no tensor cores) and bytes / 3.35 TB/s;
 5. training — the port's ``Trainer`` on the slice config (ir50, 512-d,
    batch 128, 2^20-slot f32 queue, Arc, fuse_forward, bf16 compute) over a
    raw-pixel synthetic store, a few steps: each quad kernel must launch
@@ -50,7 +51,31 @@ Softmax slice (the full-softmax head, ir50, 2^20 classes, f32 classifier):
    then route A trains 4 steps through ``Trainer.train`` and route B 2:
    each must launch its kernels once per step;
 10. profile — two warm route-A steps, as phase 6;
-11. the ``kernels`` JSON line, then the device JSON line last.
+Sparse-classifier routes (D: sparse-d_w streaming at sparse_grad_rate 0.05,
+E: partial-FC at sample_rate 0.1, both with sparse row updates):
+11. parity — the forward with tile statistics and the sparse backward
+   against their plain versions at full width (B = 128, D = 512, C = 2^20,
+   tile 512, Arc, k = 1, a repeated label): ce / neg / logz / top-k as in
+   phase 7, maxcos 1e-5 and maxz 32 × 1e-5 absolute; M = 128 tiles picked
+   from the PLAIN statistics with a seeded random fill, and both backward
+   versions given those same tiles; the d_w rows per row set (the rows
+   that hold a batch label / the others) to 1e-4 × the set's max, d_emb's
+   streamed part to 1e-4 × its max, d_gt 1e-5; then AM, SV and k = 3 with
+   outlier rows at C = 4096, and Arc at C = 4000 (a ragged last tile);
+12. timing — the sparse kernel, its plain version, a cuBLAS composition
+   (index_select of the rows, three matmuls, the elementwise d_cos) and
+   its bound; the forward with and without statistics, in turns;
+13. training, route D — at sparse_grad_rate 1.0 (every tile, weight 1,
+   so the gradient is exact) its first step against route B's from phase 9
+   (loss 1e-5 relative, classifier per row set); then 4 steps at 0.05
+   through ``Trainer.train``, each of margin_ce_fwd (with statistics),
+   margin_ce_bwd (the exact d_emb) and margin_ce_bwd_sparse launching once
+   per step; one more step after which the rows not selected must be
+   bit-unchanged and the selected ones must equal an f64 plain update from
+   the step's d_w rows (catch-up included); a profile of two warm steps;
+14. training, route E — 2 steps: finite loss, 104,857 sampled classes, no
+   margin_ce launch;
+15. the ``kernels`` JSON line, then the device JSON line last.
 
 The script imports nothing of JAX. Without a CUDA device it exits non-zero
 before printing any result.
@@ -76,6 +101,9 @@ SLICE = dict(b=128, d=512, q=1 << 20, k=10)
 SOFTMAX = dict(b=128, d=512, c=1 << 20)
 TRAIN_STEPS = 4
 ROUTE_B_STEPS = 2
+ROUTE_E_STEPS = 2
+SPARSE_RATE = 0.05  # route D's pool.sparse_grad_rate: 128 of 2048 tiles
+SAMPLE_RATE = 0.1  # route E's pool.sample_rate: 104,857 sampled classes
 
 
 def smi_line() -> str:
@@ -208,7 +236,14 @@ def timing(queue, packed, kw, dce, dneg, fwd_plain):
         torch.topk(cos, kw["k"], dim=1)
 
     out["quad_fwd"]["library_ms"] = cuda_ms(library_fwd, 5, 1)
-    out["quad_bwd"]["library_ms"] = None
+    d_cos = torch.randn((r_, q), device=E.device).mul_(1e-4)  # [2b, Q] f32: 1 GB
+
+    def library_bwd():  # the cosine recompute and d_emb = d_cos @ queue
+        torch.matmul(E, q0.T)
+        torch.matmul(d_cos, q0)
+
+    out["quad_bwd"]["library_ms"] = cuda_ms(library_bwd, 5, 1)
+    del d_cos
     vec_bytes = 4 * (3 * r_ * d + 6 * r_)  # E, G, V + the [R] / [2, R] row vectors
     q0_bytes = 4 * q * d
     fwd_flop = 2.0 * r_ * d * q
@@ -217,12 +252,15 @@ def timing(queue, packed, kw, dce, dneg, fwd_plain):
     bwd_bytes = q0_bytes + vec_bytes + 4 * 8 * r_ + 4 * (r_ * d + 2 * r_)
     out["quad_fwd"].update(bound(fwd_flop, fwd_bytes))
     out["quad_bwd"].update(bound(bwd_flop, bwd_bytes))
+    print_times(out)
+    return out
+
+
+def print_times(out: dict) -> None:
     for name, v in out.items():
-        lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.3f}"
         print(f"  {name}: ms={v['ms']:.3f} bound_ms={v['bound_ms']:.3f} ({v['bound_by']}: "
               f"{v['flop']:.3e} FLOP, {v['bytes']:.3e} B) plain_ms={v['plain_ms']:.3f} "
-              f"library_ms={lib}")
-    return out
+              f"library_ms={v['library_ms']:.3f}")
 
 
 def kernel_family(name: str) -> str:
@@ -479,14 +517,11 @@ def softmax_timing(emb, w, mom, labels, d_ce, d_neg, kw, gt, logz, topk):
     out["margin_ce_bwd"].update(bound(3 * product, 8 * c * d + vecs + 4 * b + 4 * b * d))
     out["margin_ce_bwd_fused_sgd"].update(
         bound(3 * product + 8.0 * c * d, 16 * c * d + vecs + 4 * b + 8 * b * d))
-    for name, v in out.items():
-        print(f"  {name}: ms={v['ms']:.3f} bound_ms={v['bound_ms']:.3f} ({v['bound_by']}: "
-              f"{v['flop']:.3e} FLOP, {v['bytes']:.3e} B) plain_ms={v['plain_ms']:.3f} "
-              f"library_ms={v['library_ms']:.3f}")
+    print_times(out)
     return out
 
 
-def softmax_trainer(route_a: bool, saved_dir: str):
+def softmax_trainer(saved_dir: str, *overrides: str):
     from vlsfr_tpu_torch.config import Config
     from vlsfr_tpu_torch.train.trainer import Trainer
 
@@ -496,32 +531,29 @@ def softmax_trainer(route_a: bool, saved_dir: str):
         f"pool.num_classes={SOFTMAX['c']}", "pool.classifier_dtype=float32",
         "pool.classifier_mom_dtype=float32", "loss.loss_type=Arc", "loss.margin=0.5",
         "loss.scale=32", "data.synthetic_ids=200", "data.synthetic_images_per_id=3",
-        "data.num_workers=4", "train.print_freq=1", "optim.lr=0.1",
-        f"pool.fused_update={'auto' if route_a else 'off'}"])
+        "data.num_workers=4", "train.print_freq=1", "optim.lr=0.1", *overrides])
     cfg.data.synthetic = True
     cfg.train.saved_dir = saved_dir
-    trainer = Trainer(cfg)  # the normal entry point; runs on cuda
-    if (trainer.state.classifier_mom is not None) != route_a:
-        raise RuntimeError(f"route {'A' if route_a else 'B'} was not selected")
-    return trainer
+    return Trainer(cfg)  # the normal entry point; runs on cuda
 
 
-def softmax_train_phase(card: str):
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return softmax_routes(card, tmp)
-
-
-def softmax_routes(card: str, tmp: str):
-    """Routes B and A through the Trainer; A's first step against B's."""
+def softmax_train_phase(card: str, tmp: str):
+    """Routes B and A through the Trainer; A's first step against B's.
+    Returns the launch counts and route B's first step (loss, the
+    classifier before and after it, on the host, and the batch's labels)
+    for route D's check."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
     from vlsfr_tpu_torch.utils import parity
 
     print("  route B (pool.fused_update=off): one step from the seed on batch (0, 0)")
-    trainer = softmax_trainer(route_a=False, saved_dir=tmp)
+    trainer = softmax_trainer(tmp, "pool.fused_update=off")
+    if trainer.state.classifier_mom is not None:
+        raise RuntimeError("route B was not selected")
     batch = trainer.pipeline.make_batch(0, 0)
     w0 = trainer.state.classifier.detach().clone()
     loss_b = float(trainer.train_step(trainer.state, batch.images, batch.labels, 1.0)["loss"])
     w_b = trainer.state.classifier.detach().clone()
+    ref_b = dict(loss=loss_b, w0=w0.cpu(), w=w_b.cpu(), labels=torch.from_numpy(batch.labels))
     tms.reset_launch_counts()
     out_b = trainer.train(max_steps=ROUTE_B_STEPS)
     torch.cuda.synchronize()
@@ -533,12 +565,15 @@ def softmax_routes(card: str, tmp: str):
     print(f"  route B {ROUTE_B_STEPS} steps: {json.dumps(out_b)}")
     print(f"  margin_ce launches in the route-B run: {launches_b}")
     if launches_b != {"margin_ce_fwd": ROUTE_B_STEPS, "margin_ce_bwd": ROUTE_B_STEPS,
-                      "margin_ce_bwd_fused_sgd": 0} or not math.isfinite(out_b["loss"]):
+                      "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 0} \
+            or not math.isfinite(out_b["loss"]):
         raise RuntimeError(f"route B must launch fwd and bwd once per step: {launches_b}")
 
     print("  route A (the default): the same step from the same seed")
-    trainer = softmax_trainer(route_a=True, saved_dir=tmp)
+    trainer = softmax_trainer(tmp)
     try:
+        if trainer.state.classifier_mom is None:
+            raise RuntimeError("route A was not selected")
         batch = trainer.pipeline.make_batch(0, 0)
         loss_a = float(trainer.train_step(trainer.state, batch.images, batch.labels,
                                           1.0)["loss"])
@@ -567,24 +602,250 @@ def softmax_routes(card: str, tmp: str):
         print(f"  route A {TRAIN_STEPS} steps: {json.dumps(out)}")
         print(f"  margin_ce launches in the route-A run: {launches}")
         if launches != {"margin_ce_fwd": TRAIN_STEPS, "margin_ce_bwd": 0,
-                        "margin_ce_bwd_fused_sgd": TRAIN_STEPS}:
+                        "margin_ce_bwd_fused_sgd": TRAIN_STEPS, "margin_ce_bwd_sparse": 0}:
             raise RuntimeError(f"route A must launch fwd and fused once per step: {launches}")
         if not (math.isfinite(out["loss"]) and out["loss"] > 0
                 and out["final_step"] == TRAIN_STEPS
                 and bool(torch.isfinite(trainer.state.classifier[:65536]).all())):
             raise RuntimeError(f"route A did not produce a finite loss and classifier: {out}")
-        step_ms = 128 / out["images_per_sec"] * 1e3
-        print(f"  route A step time {step_ms:.1f} ms (last window, {card}); {TRAIN_STEPS} steps "
-              f"{wall:.2f} s wall incl. first-step warm-up; peak memory "
-              f"{peak / 2**30:.2f} GiB ({card})")
+        print_step(f"route A", out, wall, peak, card)
         print("== phase 10: profile of two more route-A steps")
-        state, scale = trainer.state, trainer.plateau.scale
-        profile_steps(lambda b: trainer.train_step(state, b.images, b.labels, scale),
-                      [trainer.pipeline.make_batch(0, s) for s in range(2)])
+        profile_trainer(trainer)
     finally:
         trainer.close()
     launches["margin_ce_bwd"] = launches_b["margin_ce_bwd"]  # the route-B run's count
+    return launches, ref_b
+
+
+def print_step(route: str, out: dict, wall: float, peak: int, card: str) -> None:
+    step_ms = SOFTMAX["b"] / out["images_per_sec"] * 1e3
+    print(f"  {route} step time {step_ms:.1f} ms (last window, {card}); {out['final_step']} "
+          f"steps {wall:.2f} s wall incl. first-step warm-up; peak memory "
+          f"{peak / 2**30:.2f} GiB ({card})")
+
+
+def profile_trainer(trainer) -> None:
+    state, scale = trainer.state, trainer.plateau.scale
+    profile_steps(lambda b: trainer.train_step(state, b.images, b.labels, scale),
+                  [trainer.pipeline.make_batch(0, s) for s in range(2)])
+
+
+def free_trainer(trainer) -> None:
+    trainer.close()
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def route_d_rows() -> int:
+    """The classifier rows route D gives a gradient each step at
+    SPARSE_RATE, from the trainer's own geometry and tile budget (65,536
+    at the slice's width)."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    tile, n_tiles = tms.sparse_bwd_geometry(SOFTMAX["b"], SOFTMAX["d"], SOFTMAX["c"])
+    return tile * tms.sparse_m_tiles(SPARSE_RATE, n_tiles, SOFTMAX["b"])
+
+
+def check_sparse(c: int, loss_type: str, k: int, frac_outlier: float, seed: int):
+    """The forward with statistics and the sparse backward against their
+    plain versions on one case (``parity.sparse_path_checks``); raises
+    above a limit. Returns the case, the tiles and the max errors."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.utils import parity
+
+    emb, w, mom, labels, d_ce, d_neg, kw = softmax_case(c, loss_type, k, frac_outlier, seed)
+    del mom
+    b, d = emb.shape
+    tile, n_tiles = tms.sparse_bwd_geometry(b, d, c)
+    m = tms.sparse_m_tiles(SPARSE_RATE, n_tiles, b)
+    gen = torch.Generator(device=emb.device).manual_seed(seed)
+    u = torch.rand((n_tiles,), generator=gen, device=emb.device)
+    checks, tile_idx, (gt, logz, topk) = parity.sparse_path_checks(emb, w, labels, d_ce, d_neg,
+                                                                    kw, tile, m, u)
+    torch.cuda.synchronize()
+    print(f"    tile {tile}, {m} of {n_tiles} tiles selected from the plain statistics")
+    for ch in checks:
+        print("    " + parity.describe(ch))
+    bad = parity.failures(checks)
+    if bad:
+        raise RuntimeError("forward statistics / sparse backward disagree: "
+                           + "; ".join(map(parity.describe, bad)))
+    errs = {"stats": max(ch["err"] for ch in checks if ch["name"] in ("maxz", "maxcos")),
+            "sparse": max(ch["err"] for ch in checks if ch["name"].startswith("sparse"))}
+    return (emb, w, labels, d_ce, d_neg, kw, tile, tile_idx, gt, logz, topk), errs
+
+
+def sparse_timing(emb, w, labels, d_ce, d_neg, kw, tile, tile_idx, gt, logz, topk):
+    """The sparse kernel, its plain version, a cuBLAS composition of the
+    same function (a yardstick the port never calls) and its bound; the
+    forward with and without statistics, in turns."""
+    import torch.nn.functional as F
+
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    b, d = emb.shape
+    m = tile_idx.shape[0]
+    ncols = m * tile
+    args = (emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx)
+    out = dict(ms=cuda_ms(lambda: tms.margin_ce_bwd_sparse(*args, tile=tile, **kw), 10),
+               plain_ms=cuda_ms(lambda: tms.margin_ce_bwd_sparse_plain(*args, tile=tile, **kw),
+                                3, 1))
+    cols = (tile_idx.long()[:, None] * tile
+            + torch.arange(tile, device=emb.device)[None, :]).reshape(-1)
+    scale = kw["scale"]
+
+    def library_sparse():  # the gather reference's composition in cuBLAS f32
+        wn = F.normalize(torch.index_select(w, 0, cols), dim=1)
+        d_cos = torch.exp(scale * torch.matmul(emb, wn.T) - logz[:, None])
+        d_cos.mul_(d_ce[:, None] * scale)
+        torch.matmul(d_cos, wn)
+        torch.matmul(d_cos.T, emb)
+
+    out["library_ms"] = cuda_ms(library_sparse, 10, 1)
+    # three products over the selected columns; W tiles read, d_w rows
+    # written, emb and the row vectors read, d_emb written
+    out.update(bound(3 * 2.0 * b * d * ncols, 8 * ncols * d + 4 * (b * d + 4 * b) + 4 * m
+                     + 4 * b * d))
+    print_times({"margin_ce_bwd_sparse": out})
+    def fwd(with_stats):
+        return lambda: tms.margin_ce_fwd(emb, w, labels, gt, with_stats=with_stats, tile=tile,
+                                         **kw)
+
+    t = [cuda_ms(fwd(ws), 10) for ws in (False, True, True, False)]
+    print(f"  margin_ce_fwd without / with statistics, in turns: {t[0]:.3f} / {t[1]:.3f} / "
+          f"{t[2]:.3f} / {t[3]:.3f} ms")
+    return {"margin_ce_bwd_sparse": out}
+
+
+def route_d_phase(card: str, tmp: str, ref_b: dict) -> dict:
+    """Route D against route B's first step at rate 1.0, then 4 steps at
+    SPARSE_RATE, the row-update check on one more step and a profile."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.train import softmax_head
+    from vlsfr_tpu_torch.utils import parity
+
+    print("  route D at pool.sparse_grad_rate=1.0 (every tile, weight 1): the first step of "
+          "phase 9's route B")
+    trainer = softmax_trainer(tmp, "pool.sparse_update=true", "pool.sparse_grad_rate=1.0")
+    try:
+        batch = trainer.pipeline.make_batch(0, 0)
+        m = trainer.train_step(trainer.state, batch.images, batch.labels, 1.0)
+        loss_d = float(m["loss"])
+        w0, w_b = ref_b["w0"].cuda(), ref_b["w"].cuda()
+        if m["grad_rows"] != SOFTMAX["c"] or not torch.equal(ref_b["labels"],
+                                                             torch.from_numpy(batch.labels)):
+            raise RuntimeError(f"route D at rate 1.0 must cover every row of the same batch: {m}")
+        checks = parity.by_rows("classifier D vs B", trainer.state.classifier, w_b, w_b - w0,
+                                ref_b["labels"], 1e-4, rounding=2.0)
+        print(f"    first-step loss D {loss_d:.6f} B {ref_b['loss']:.6f} (1e-5 relative); the "
+              f"sparse kernel + sparse row update against the dense kernel + torch SGD, per row "
+              f"set, 1e-4 x max|w' - w| + 2 f32 eps x max|w'|:")
+        for c in checks:
+            print("      " + parity.describe(c))
+        if not abs(loss_d - ref_b["loss"]) <= 1e-5 * abs(ref_b["loss"]) or parity.failures(checks):
+            raise RuntimeError("route D at rate 1.0 disagrees with route B's first step")
+        del w0, w_b
+    finally:
+        free_trainer(trainer)
+
+    print(f"  route D at pool.sparse_grad_rate={SPARSE_RATE}: {TRAIN_STEPS} steps")
+    trainer = softmax_trainer(tmp, "pool.sparse_update=true",
+                              f"pool.sparse_grad_rate={SPARSE_RATE}")
+    try:
+        state = trainer.state
+        tms.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = trainer.train(max_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(tms.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  route D {TRAIN_STEPS} steps: {json.dumps(out)}")
+        print(f"  margin_ce launches in the route-D run: {launches}")
+        if launches != {"margin_ce_fwd": TRAIN_STEPS, "margin_ce_bwd": TRAIN_STEPS,
+                        "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": TRAIN_STEPS}:
+            raise RuntimeError(f"route D must launch fwd, bwd and sparse once per step: {launches}")
+        if not (math.isfinite(out["loss"]) and out["loss"] > 0
+                and out["grad_rows"] == route_d_rows() and out["final_step"] == TRAIN_STEPS):
+            raise RuntimeError(f"route D did not produce a finite loss over {route_d_rows()} "
+                               f"rows: {out}")
+        print_step("route D", out, wall, peak, card)
+        check_row_update(trainer, softmax_head)
+        print("== phase 13b: profile of two more route-D steps")
+        profile_trainer(trainer)
+    finally:
+        free_trainer(trainer)
     return launches
+
+
+def check_row_update(trainer, softmax_head) -> None:
+    """One more route-D step: the rows not selected (last-visit not this
+    step) are bit-unchanged, classifier and momentum; the selected rows
+    equal an f64 plain update from the pre-step state and the step's d_w
+    rows (recorded), catch-up over each row's gap included."""
+    state = trainer.state
+    s = state.step
+    w_before, mom_before = state.classifier.clone(), state.classifier_mom.clone()
+    last_before = state.classifier_last.clone()
+    rec = {}
+    update = softmax_head.sparse_sgd_rows
+
+    def recording(w, mom, idx, grad_rows, **kw):
+        rec.update(idx=idx.clone(), grad=grad_rows.clone(), **kw)
+        return update(w, mom, idx, grad_rows, **kw)
+
+    softmax_head.sparse_sgd_rows = recording
+    try:
+        batch = trainer.pipeline.make_batch(0, TRAIN_STEPS % trainer.steps_per_epoch)
+        trainer.train_step(state, batch.images, batch.labels, trainer.plateau.scale)
+    finally:
+        softmax_head.sparse_sgd_rows = update
+    sel = state.classifier_last == s
+    changed = ((state.classifier != w_before).any(dim=1)
+               | (state.classifier_mom != mom_before).any(dim=1))
+    n_sel, stray = int(sel.sum()), int((changed & ~sel).sum())
+    idx = rec["idx"].long()
+    mu, nesterov, wd, lr = rec["momentum"], rec["nesterov"], rec["weight_decay"], rec["lr"]
+    w0, m0 = w_before[idx].double(), mom_before[idx].double()
+    gap = (s - last_before[idx].double() - 1).clamp(min=0)[:, None]
+    geo = mu * (1 - mu ** gap) / (1 - mu)
+    catchup = (mu * geo if nesterov else geo) * m0
+    g = rec["grad"].double() + wd * w0
+    m_new = mu * (mu ** gap) * m0 + g
+    w_want = w0 - lr * ((g + mu * m_new if nesterov else m_new) + catchup)
+    err = float((state.classifier[idx].double() - w_want).abs().max())
+    limit = 1e-5 * float((w_want - w0).abs().max()) + 4 * 1.19e-7 * float(w_want.abs().max())
+    print(f"  one more step: {n_sel} rows selected (gaps {int(gap.min())}-{int(gap.max())} "
+          f"steps), {stray} other rows changed (0 allowed); selected rows against an f64 plain "
+          f"update: max |err| {err:.3e} <= {limit:.3e} (1e-5 x max|w' - w| + 4 f32 eps x max|w'|)")
+    if n_sel != route_d_rows() or stray or not err <= limit:
+        raise RuntimeError("route D's row update touched other rows or disagrees")
+
+
+def route_e_phase(card: str, tmp: str) -> None:
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    trainer = softmax_trainer(tmp, f"pool.sample_rate={SAMPLE_RATE}", "pool.sparse_update=true")
+    try:
+        tms.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = trainer.train(max_steps=ROUTE_E_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  route E {ROUTE_E_STEPS} steps: {json.dumps(out)}")
+        print(f"  margin_ce launches in the route-E run: {dict(tms.LAUNCH_COUNTS)}")
+        want_s = max(SOFTMAX["b"], int(SOFTMAX["c"] * SAMPLE_RATE))
+        if any(tms.LAUNCH_COUNTS.values()) or not (
+                math.isfinite(out["loss"]) and out["loss"] > 0
+                and out["sampled_classes"] == want_s and out["final_step"] == ROUTE_E_STEPS):
+            raise RuntimeError(f"route E must train {want_s} sampled classes, no margin_ce: {out}")
+        print_step("route E", out, wall, peak, card)
+    finally:
+        free_trainer(trainer)
 
 
 def main() -> int:
@@ -641,8 +902,31 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("== phase 9: softmax training through the Trainer")
-    launches.update(softmax_train_phase(card))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        print("== phase 9: softmax training through the Trainer")
+        softmax_launches, ref_b = softmax_train_phase(card, tmp)
+        launches.update(softmax_launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("== phase 11: forward statistics and sparse backward parity at full width; limits "
+              "in the module docstring")
+        full, sp_errs = check_sparse(SOFTMAX["c"], "Arc", 1, 0.0, seed=4)
+        for c, loss_type, k, frac in ((4096, "AM", 1, 0.0), (4096, "SV", 1, 0.0),
+                                      (4096, "Arc", 3, 0.3), (4000, "Arc", 1, 0.0)):
+            print(f"  C={c} {loss_type} k={k}:")
+            check_sparse(c, loss_type, k, frac, seed=5)
+
+        print("== phase 12: sparse backward timing (full width)")
+        times.update(sparse_timing(*full))
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("== phase 13: route D (sparse d_w) through the Trainer")
+        launches["margin_ce_bwd_sparse"] = route_d_phase(card, tmp, ref_b)["margin_ce_bwd_sparse"]
+        print("== phase 14: route E (partial-FC sampling, sparse rows) through the Trainer")
+        route_e_phase(card, tmp)
 
     fwd_keys = ("ce", "neg", "logz", "topk")
     kernels = []
@@ -650,10 +934,11 @@ def main() -> int:
             ("quad_fwd", "quad_margin", "twin_margin.py:1840", max(errs[k] for k in fwd_keys)),
             ("quad_bwd", "quad_margin", "twin_margin.py:1891", errs["d_emb"]),
             ("margin_ce_fwd", "margin_ce", "margin_pallas.py:390",
-             max(serrs[k] for k in fwd_keys)),
+             max([serrs[k] for k in fwd_keys] + [sp_errs["stats"]])),
             ("margin_ce_bwd", "margin_ce", "margin_pallas.py:557", serrs["margin_ce_bwd"]),
             ("margin_ce_bwd_fused_sgd", "margin_ce", "margin_pallas.py:803",
-             serrs["margin_ce_bwd_fused_sgd"])):
+             serrs["margin_ce_bwd_fused_sgd"]),
+            ("margin_ce_bwd_sparse", "margin_ce", "margin_pallas.py:1447", sp_errs["sparse"])):
         t = times[name]
         if launches[name] < 1:
             raise RuntimeError(f"{name} was not launched on its path")

@@ -205,6 +205,9 @@ def test_sgd_trajectory_matches_optax(nesterov, weight_decay, momentum, rng):
      "--set", "optim.lr=0.05"],
     ["--head", "full_softmax", "--net_type", "toy", "--synthetic", "--set", "pool.num_classes=200",
      "--set", "pool.use_fused=on", "--set", "pool.fused_update=off"],
+    ["--head", "full_softmax", "--net_type", "ir50", "--batch_size", "128", "--synthetic",
+     "--set", "pool.num_classes=1048576", "--set", "pool.sparse_update=true",
+     "--set", "pool.sparse_grad_rate=0.05"],
 ])
 def test_cli_flags_match_train_py(argv):
     """The port's CLI maps the flags of the JAX package's train.py onto the

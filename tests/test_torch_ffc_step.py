@@ -134,8 +134,8 @@ def test_entry_points_refuse_without_card_or_unported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_ffc_state(create_net("toy", feat_dim=8), cfg)
-    for bad in (["pool.head=full_softmax", "pool.sample_rate=0.1"], ["train.eval_freq=10"],
-                ["mesh.model=2"]):
+    for bad in (["pool.head=full_softmax", "pool.classifier_dtype=bfloat16"],
+                ["train.eval_freq=10"], ["mesh.model=2"]):
         with pytest.raises(NotImplementedError):
             Trainer(Config().apply_overrides(bad), device="cpu")
     for bad in (["pool.queue_dtype=int8"], ["pool.gallery_int8=true"]):

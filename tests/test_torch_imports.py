@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "vlsfr_tpu_torch.train.trainer", "vlsfr_tpu_torch.train.cli",
                  "vlsfr_tpu_torch.models.from_jax", "vlsfr_tpu_torch.data.pipeline",
                  "vlsfr_tpu_torch.ops.margin_stream", "vlsfr_tpu_torch.parallel.partial_fc",
-                 "vlsfr_tpu_torch.train.softmax_head"):
+                 "vlsfr_tpu_torch.train.softmax_head", "vlsfr_tpu_torch.train.sparse_classifier"):
         assert want in res["modules"]
 
 

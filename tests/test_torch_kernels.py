@@ -13,6 +13,9 @@ last-writer rule, no kernel launch on CPU tensors).
 Kernel tolerances (f32 FMA in another summation order than cuBLAS, over up
 to Q or C columns; scale·cos turns a 1e-7 cosine difference into a 3e-6
 relative one in p): ce / neg / logz 1e-4 absolute, top-k 1e-5, d_gt 1e-5;
+the forward's tile statistics maxcos 1e-5 and maxz scale × 1e-5; the
+sparse backward on the kernel's and the plain version's common tile_idx,
+its d_w rows per row set as below, d_emb on its streamed part, d_gt 1e-5;
 quad d_emb 1e-4 × its max. The softmax kernels' gradients are held where
 the kernel computes them alone (``vlsfr_tpu_torch/utils/parity.py``): d_emb
 to 1e-4 × the max of its streamed part (less the target term both sides add
@@ -271,7 +274,29 @@ def test_softmax_kernels_match_plain(loss_type, b, c, d, k, frac_outlier):
     checks = bwd + fused
     assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
     assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 1, "margin_ce_bwd": 2,
-                                 "margin_ce_bwd_fused_sgd": 1}
+                                 "margin_ce_bwd_fused_sgd": 1, "margin_ce_bwd_sparse": 0}
+
+
+def _build_faulty(tmp_path, faults):
+    """{"real": the built margin_ce library, name: a copy built with that
+    fault's source edit} — the copies compiled in parallel into tmp_path."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "margin_ce.cu").read_text()
+    procs = {}
+    for name, (old, new) in faults.items():
+        assert src.count(old) == 1, name
+        out = tmp_path / name
+        out.mkdir()
+        shutil.copy(cuda_build.CSRC / "margin_common.cuh", out)
+        (out / "margin_ce.cu").write_text(src.replace(old, new))
+        procs[name] = cuda_build.start_nvcc(out / "margin_ce.cu", out / "libmargin_ce.so")
+    libs = {"real": tms._lib()}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, log
+        libs[name] = ctypes.CDLL(str(tmp_path / name / "libmargin_ce.so"))
+    return libs
 
 
 # source edits that break the d_w pass: each must fail the checks above
@@ -294,19 +319,7 @@ def test_softmax_checks_reject_planted_faults(tmp_path, monkeypatch):
     from vlsfr_tpu_torch.ops import cuda_build
 
     dev = _cuda()
-    src = (cuda_build.CSRC / "margin_ce.cu").read_text()
-    procs = {}
-    for name, (old, new) in PLANTED_FAULTS.items():
-        assert src.count(old) == 1, name
-        out = tmp_path / name
-        out.mkdir()
-        shutil.copy(cuda_build.CSRC / "margin_common.cuh", out)
-        (out / "margin_ce.cu").write_text(src.replace(old, new))
-        procs[name] = cuda_build.start_nvcc(out / "margin_ce.cu", out / "libmargin_ce.so")
-    real = tms._lib()
-    for proc in procs.values():
-        log, _ = proc.communicate()
-        assert proc.returncode == 0, log
+    libs = _build_faulty(tmp_path, PLANTED_FAULTS)
 
     b, c, d = 128, 1 << 20, 512
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -322,8 +335,7 @@ def test_softmax_checks_reject_planted_faults(tmp_path, monkeypatch):
     _, _, logz, topk = tms.margin_ce_fwd_plain(emb, w0, labels, gt, **kw)
 
     failed = {}
-    for name in ("real", *PLANTED_FAULTS):
-        lib = real if name == "real" else ctypes.CDLL(str(tmp_path / name / "libmargin_ce.so"))
+    for name, lib in libs.items():
         monkeypatch.setitem(cuda_build._LOADED, "margin_ce", lib)
         w, mom = w0.clone(), mom0.clone()
         bwd, fused = parity.margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce,
@@ -359,8 +371,102 @@ def test_margin_softmax_autograd_on_card_matches_cpu():
         loss.backward()
         outs.append((float(loss.detach()), e.grad.cpu(), ww.grad.cpu(), dict(tms.LAUNCH_COUNTS)))
     (lk, ek, wk, ck), (lp, ep, wp, cp) = outs
-    assert ck == {"margin_ce_fwd": 1, "margin_ce_bwd": 1, "margin_ce_bwd_fused_sgd": 0}
-    assert cp == {"margin_ce_fwd": 0, "margin_ce_bwd": 0, "margin_ce_bwd_fused_sgd": 0}
+    assert ck == {"margin_ce_fwd": 1, "margin_ce_bwd": 1, "margin_ce_bwd_fused_sgd": 0,
+                  "margin_ce_bwd_sparse": 0}
+    assert cp == {"margin_ce_fwd": 0, "margin_ce_bwd": 0, "margin_ce_bwd_fused_sgd": 0,
+                  "margin_ce_bwd_sparse": 0}
     np.testing.assert_allclose(lk, lp, rtol=1e-5)
     np.testing.assert_allclose(ek.numpy(), ep.numpy(), atol=1e-4 * float(ep.abs().max()))
     np.testing.assert_allclose(wk.numpy(), wp.numpy(), atol=1e-4 * float(wp.abs().max()))
+
+
+def test_sparse_row_set_checks_catch_a_fault_on_the_other_rows():
+    """The sparse layout's label rows (``parity.sparse_label_rows``): the
+    row-set checks pass the plain d_w rows against themselves and fail
+    rows that take 1.1 × the streamed d_w off the label rows, naming
+    those rows. The plain version stands in for the kernel."""
+    emb, w, _, labels, d_ce, d_neg = make_softmax_case(7, 8, 600, 32, 1, 0.0)
+    labels[3] = 590  # a label in the ragged last tile (600 = 9·64 + 24)
+    kw = dict(loss_type="Arc", margin=0.5, scale=32.0, k=1, mask_svfc=1.2)
+    gt = tms.compute_gt(emb, w, labels)
+    _, _, logz, topk, maxz, maxcos = tms.margin_ce_fwd_plain(emb, w, labels, gt, with_stats=True,
+                                                             tile=64, **kw)
+    tile_idx, _ = tms.select_relevant_tiles(maxz, maxcos, logz, topk, labels, 8, 64)
+    _, dw, _ = tms._sparse_parts_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx,
+                                       tile=64, **kw)
+    is_label = parity.sparse_label_rows(labels, tile_idx, 64)
+    assert int(is_label.sum()) == len(set(labels.tolist()))  # every target tile is selected
+    bad = torch.where(is_label[:, None], dw, 1.1 * dw)
+    assert not parity.failures(parity.by_rows("d_w", dw.clone(), dw, dw, labels, 1e-4,
+                                              is_label=is_label))
+    failed = parity.failures(parity.by_rows("d_w", bad, dw, dw, labels, 1e-4, is_label=is_label))
+    assert [c["name"] for c in failed] == ["d_w (other rows)"]
+
+
+SPARSE_CASES = [("Arc", 128, 1 << 20, 512, 1, 0.0, 512), ("AM", 64, 3001, 128, 3, 0.3, 128),
+                ("SV", 8, 700, 64, 3, 0.3, 64), ("Arc", 128, 40000, 512, 16, 0.2, 512)]
+
+
+def _stats_and_sparse_checks(emb, w, labels, d_ce, d_neg, kw, tile, seed=0):
+    """``parity.sparse_path_checks`` with M = max(n_tiles / 16, B) tiles
+    and a seeded random fill."""
+    n_tiles = -(-w.shape[0] // tile)
+    gen = torch.Generator(device=emb.device).manual_seed(seed)
+    u = torch.rand((n_tiles,), generator=gen, device=emb.device)
+    m = min(n_tiles, max(n_tiles // 16, emb.shape[0]))
+    return parity.sparse_path_checks(emb, w, labels, d_ce, d_neg, kw, tile, m, u)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_type,b,c,d,k,frac_outlier,tile", SPARSE_CASES)
+def test_stats_and_sparse_kernels_match_plain(loss_type, b, c, d, k, frac_outlier, tile):
+    dev = _cuda()
+    emb, w, _, labels, d_ce, d_neg = make_softmax_case(0, b, c, d, k, frac_outlier, dev)
+    kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
+    tms.reset_launch_counts()
+    checks = _stats_and_sparse_checks(emb, w, labels, d_ce, d_neg, kw, tile)
+    torch.cuda.synchronize()
+    for ch in checks:
+        print(parity.describe(ch))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    # the sparse kernel runs twice: through the wrapper, and for its parts
+    assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 1, "margin_ce_bwd": 0,
+                                 "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 2}
+
+
+# source edits that break the sparse backward: each must fail the checks above
+SPARSE_FAULTS = {
+    "no_dwl_add": ("if (tgt[b] == t) g += dwl[(long long)b * a.D + d];",
+                   "if (tgt[b] == t) g += 0.f;"),
+    "tile_off_by_one": (
+        "return a.sel == nullptr ? l : (long long)a.sel[l / a.sel_tile] * a.sel_tile + l % "
+        "a.sel_tile;",
+        "return a.sel == nullptr ? l : (long long)(a.sel[l / a.sel_tile] + 1) * a.sel_tile + l % "
+        "a.sel_tile;"),
+}
+
+
+@pytest.mark.gpu
+def test_sparse_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """At chip_smoke.py's full width (B = 128, D = 512, C = 2^20, tile 512,
+    M = 128, Arc, k = 1, a repeated label) the checks pass the real kernel
+    and fail a margin_ce.cu whose d_w pass drops the label rows' d_wl and
+    one whose tile indirection is off by one tile."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, SPARSE_FAULTS)
+    emb, w, _, labels, d_ce, d_neg = make_softmax_case(2, 128, 1 << 20, 512, 1, 0.0, dev)
+    kw = dict(loss_type="Arc", margin=0.5, scale=32.0, k=1, mask_svfc=1.2)
+    failed = {}
+    for name, lib in libs.items():
+        monkeypatch.setitem(cuda_build._LOADED, "margin_ce", lib)
+        checks = _stats_and_sparse_checks(emb, w, labels, d_ce, d_neg, kw, 512)
+        for ch in checks:
+            print(f"{name}: {parity.describe(ch)}")
+        failed[name] = {ch["name"] for ch in parity.failures(checks)}
+    print({name: sorted(f) for name, f in failed.items()})
+    assert failed["real"] == set()
+    assert "sparse d_w (label rows)" in failed["no_dwl_add"]
+    assert {"sparse d_w (other rows)", "sparse d_emb",
+            "sparse d_emb (streamed)"} <= failed["tile_off_by_one"]

@@ -4,12 +4,19 @@ against the JAX package's ``make_softmax_train_step``.
 Three-step trajectories on the toy net in f32 (feat 32, batch 8, 96
 classes, one fixed batch with a repeated class: the setup of
 tests/test_fused_update.py), with the JAX-initialised backbone, BN
-statistics and classifier injected into the port, over the three ported
-routes: A (fused-SGD streaming, ``use_fused=on``, ``fused_update=auto``),
-B (streaming + SGD, ``fused_update=off``) and C (dense, ``use_fused=off``).
-Each step compares loss, ce, train_acc and lr; after three steps the
-classifier, route A's classifier momentum and the backbone parameters and
-BN statistics. On the CPU every kernel wrapper runs its plain version.
+statistics and classifier injected into the port, over routes A
+(fused-SGD streaming, ``use_fused=on``, ``fused_update=auto``), B
+(streaming + SGD, ``fused_update=off``) and C (dense, ``use_fused=off``);
+and at 8192 classes over route D (sparse-d_w streaming, ``use_fused=on``,
+``sparse_update``, ``sparse_grad_rate=0.25``: 16 tiles of 512, 8 selected,
+so truncation, the random fill and the importance weights all take part)
+and route E (partial-FC, ``sample_rate=0.1``, with ``sparse_update`` and
+with the dense optimizer). Routes D and E take JAX's own random draws
+(monkeypatched into ``tile_fill_draws`` / ``sample_draws``). Each step
+compares loss, ce, train_acc and lr; after three steps the classifier, the
+classifier momentum (routes A, D, sparse E), the last-visit steps
+(exactly) and the backbone parameters and BN statistics. On the CPU every
+kernel wrapper runs its plain version.
 
 Tolerances: losses 1e-5 relative, train_acc 1e-6; backbone 1e-5 relative
 + 2e-5 absolute (tests/test_torch_ffc_step.py: XLA's and PyTorch's CPU
@@ -20,7 +27,13 @@ on the 0.01·N(0, 1) rows at init, so the classifier carries f32 noise of
 ~1e-5 of its update (measured: 1.0e-5 to 1.2e-5 on all three routes,
 against updates of 3 to 6). Route A's momentum is held to 1e-4 × max|mom|:
 it sums the three steps' gradients without the lr factor, and on a target
-row the streamed and label-row terms partly cancel (measured: 2.5e-5).
+row the streamed and label-row terms partly cancel (measured: 2.5e-5). On
+routes D and E the same noise is there from the first step (1.3e-5 ×
+max|w − w₀| on all three at this batch) and grows over the three steps on
+route D's importance-weighted rows (measured 2.5e-5 at step 3; 0.5e-5 and
+1.4e-5 with two other batches), so their classifier is held to 4e-5 ×
+max|w − w₀|; their momentum to 1e-4 × max|mom| as route A's (measured
+3.7e-5 on D, 2.8e-5 on E).
 """
 
 import jax
@@ -40,6 +53,7 @@ from vlsfr_tpu_torch.models import create_net
 from vlsfr_tpu_torch.models.from_jax import load_flax_variables, state_dict_from_flax
 from vlsfr_tpu_torch.ops import margin_stream as tms
 from vlsfr_tpu_torch.optim import make_schedule
+from vlsfr_tpu_torch.train import softmax_head
 from vlsfr_tpu_torch.train.softmax_head import (
     _fused_update_on,
     create_softmax_state,
@@ -53,21 +67,52 @@ BASE = ["model.net_type=toy", f"model.feat_dim={D}", "model.dtype=float32",
 ROUTES = {"A": ["pool.use_fused=on", "pool.fused_update=auto"],
           "B": ["pool.use_fused=on", "pool.fused_update=off"],
           "C": ["pool.use_fused=off"]}
+SPARSE_C = 8192  # below pool.streaming_threshold: route D sets use_fused=on
+SPARSE_ROUTES = {
+    "D": ["pool.use_fused=on", "pool.sparse_update=true", "pool.sparse_grad_rate=0.25"],
+    "E": ["pool.sample_rate=0.1", "pool.sparse_update=true"],
+    "E-dense": ["pool.sample_rate=0.1"]}
+NO_LAUNCH = {"margin_ce_fwd": 0, "margin_ce_bwd": 0, "margin_ce_bwd_fused_sgd": 0,
+             "margin_ce_bwd_sparse": 0}
 
 
-def _jax_and_port(route):
-    ov = BASE + ROUTES[route]
+def _jax_and_port(route, c=C):
+    ov = BASE + (ROUTES[route] if route in ROUTES else SPARSE_ROUTES[route])
+    ov += [f"pool.num_classes={c}"]
     jcfg, cfg = JConfig().apply_overrides(ov), Config().apply_overrides(ov)
     jmodel = j_create_net("toy", feat_dim=D)
     jopt = j_make_optimizer(jcfg.optim)
-    jstate = j_create_state(jax.random.PRNGKey(0), jmodel, jcfg, jopt, SIZE, C)
+    jstate = j_create_state(jax.random.PRNGKey(0), jmodel, jcfg, jopt, SIZE, c)
     jstep = jax.jit(j_make_step(jmodel, jcfg, jopt, j_make_schedule(jcfg.optim, 100)))
     backbone = load_flax_variables(create_net("toy", feat_dim=D),
                                    jax.device_get(jstate.params["backbone"]),
                                    jax.device_get(jstate.batch_stats))
-    state = create_softmax_state(backbone, cfg, C, device="cpu",
+    state = create_softmax_state(backbone, cfg, c, device="cpu",
                                  classifier=torch.from_numpy(np.array(jstate.params["classifier"])))
     return jstate, jstep, state, make_softmax_train_step(cfg, make_schedule(cfg.optim, 100))
+
+
+def _jax_draws(monkeypatch):
+    """The port's two draw functions return JAX's draws for the step: the
+    uniform tile fill of ``fold_in(PRNGKey(23), step)`` and the sampled
+    negatives of ``fold_in(PRNGKey(17), step)``."""
+    def tile_fill(step, n, device):
+        key = jax.random.fold_in(jax.random.PRNGKey(23), step)
+        return torch.from_numpy(np.array(jax.random.uniform(key, (n,)))).to(device)
+
+    def sample(step, n, c, device):
+        key = jax.random.fold_in(jax.random.PRNGKey(17), step)
+        return torch.from_numpy(np.array(jax.random.randint(key, (n,), 0, c))).to(device)
+
+    monkeypatch.setattr(softmax_head, "tile_fill_draws", tile_fill)
+    monkeypatch.setattr(softmax_head, "sample_draws", sample)
+
+
+def _assert_backbone(state, jstate):
+    want = state_dict_from_flax(state.backbone, jax.device_get(jstate.params["backbone"]),
+                                jax.device_get(jstate.batch_stats))
+    for k, v in state.backbone.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-5, atol=2e-5, err_msg=k)
 
 
 @pytest.mark.parametrize("route", ["A", "B", "C"])
@@ -95,13 +140,46 @@ def test_trajectory_matches_jax(route, rng):
         jmom = np.asarray(jstate.opt_state["classifier_mom"])
         np.testing.assert_allclose(state.classifier_mom.numpy(), jmom,
                                    atol=1e-4 * np.abs(jmom).max())
-    want = state_dict_from_flax(state.backbone, jax.device_get(jstate.params["backbone"]),
-                                jax.device_get(jstate.batch_stats))
-    for k, v in state.backbone.state_dict().items():
-        np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-5, atol=2e-5, err_msg=k)
+    _assert_backbone(state, jstate)
     assert state.step == 3
-    assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 0, "margin_ce_bwd": 0,
-                                 "margin_ce_bwd_fused_sgd": 0}  # CPU: plain versions only
+    assert tms.LAUNCH_COUNTS == NO_LAUNCH  # CPU: plain versions only
+
+
+@pytest.mark.parametrize("route", list(SPARSE_ROUTES))
+def test_sparse_route_trajectory_matches_jax(route, rng, monkeypatch):
+    """Routes D, E (sparse row update) and E with the dense optimizer:
+    three steps against JAX's, on JAX's draws."""
+    _jax_draws(monkeypatch)
+    jstate, jstep, state, step = _jax_and_port(route, SPARSE_C)
+    sparse = route != "E-dense"
+    assert (state.classifier_last is not None) == sparse
+    assert state.classifier.requires_grad != sparse
+    w0 = np.array(jstate.params["classifier"])
+    images = rng.standard_normal((B, SIZE, SIZE, 3)).astype(np.float32)
+    labels = rng.integers(0, SPARSE_C, B).astype(np.int32)
+    labels[1] = labels[0]
+    tms.reset_launch_counts()
+    for s in range(3):
+        jstate, jm = jstep(jstate, jnp.asarray(images), jnp.asarray(labels), 1.0)
+        m = step(state, images, labels, 1.0)
+        for k in ("loss", "ce", "lr"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-5, err_msg=f"{k}@{s}")
+        assert float(m["train_acc"]) == pytest.approx(float(jm["train_acc"]), abs=1e-6)
+        extra = "grad_rows" if route == "D" else "sampled_classes"
+        assert m[extra] == int(jm[extra]) == (8 * 512 if route == "D" else 819)
+    jw = np.asarray(jstate.params["classifier"])
+    np.testing.assert_allclose(state.classifier.detach().numpy(), jw,
+                               atol=4e-5 * np.abs(jw - w0).max())
+    if sparse:
+        jmom = np.asarray(jstate.opt_state["classifier_mom"])
+        np.testing.assert_allclose(state.classifier_mom.numpy(), jmom,
+                                   atol=1e-4 * np.abs(jmom).max())
+        np.testing.assert_array_equal(state.classifier_last.numpy(),
+                                      np.asarray(jstate.opt_state["classifier_last"]))
+        moved = (np.abs(jw - w0).max(axis=1) > 0).sum()
+        assert 0 < moved < SPARSE_C  # only the selected rows moved
+    _assert_backbone(state, jstate)
+    assert tms.LAUNCH_COUNTS == NO_LAUNCH
 
 
 def test_route_a_matches_route_b():
@@ -155,11 +233,39 @@ def test_trainer_synthetic_cpu_run(fused_update, tmp_path):
     assert out["final_step"] == 4 and trainer.state.step == 4
     assert np.isfinite(out["loss"]) and out["loss"] > 0
     assert (trainer.state.classifier_mom is not None) == (fused_update == "auto")
-    assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 0, "margin_ce_bwd": 0,
-                                 "margin_ce_bwd_fused_sgd": 0}
+    assert tms.LAUNCH_COUNTS == NO_LAUNCH
 
 
-@pytest.mark.parametrize("bad", [["pool.sample_rate=0.1"], ["pool.sparse_update=true"],
+@pytest.mark.parametrize("route", ["D", "E"])
+def test_trainer_sparse_routes_cpu_run(route, tmp_path):
+    """Routes D and E through the Trainer on the CPU (asked for); without
+    a card and without ``device="cpu"`` the Trainer raises."""
+    from vlsfr_tpu_torch.train.trainer import Trainer
+
+    cfg = Config().apply_overrides(
+        ["model.net_type=toy", "model.feat_dim=16", "data.batch_size=8", "data.image_size=16",
+         "data.synthetic_ids=30", "data.synthetic_images_per_id=3", "data.num_workers=2",
+         "model.dtype=float32", "train.print_freq=2", "pool.head=full_softmax",
+         "optim.lr=0.01", *SPARSE_ROUTES[route]])
+    cfg.data.synthetic = True
+    cfg.train.saved_dir = str(tmp_path)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(cfg)
+    tms.reset_launch_counts()
+    trainer = Trainer(cfg, device="cpu")
+    try:
+        out = trainer.train(max_steps=4)
+    finally:
+        trainer.close()
+    assert out["final_step"] == 4 and np.isfinite(out["loss"]) and out["loss"] > 0
+    assert int(trainer.state.classifier_last.max()) == 3  # rows visited at the last step
+    assert out["grad_rows" if route == "D" else "sampled_classes"] > 0
+    assert tms.LAUNCH_COUNTS == NO_LAUNCH
+
+
+@pytest.mark.parametrize("bad", [["pool.classifier_mom_dtype=bfloat16"],
+                                 ["pool.classifier_dtype=bfloat16", "pool.sparse_update=true"],
                                  ["pool.classifier_dtype=bfloat16"], ["mesh.model=2"]])
 def test_unported_options_raise(bad):
     cfg = Config().apply_overrides(BASE + ROUTES["A"] + bad)

@@ -15,10 +15,13 @@ path are hand-written CUDA in ``csrc/``, built with ``nvcc`` at first use.
     core/       — LRU, DCP planner, FFC train step
     data/       — record store, synthetic raw-pixel store, FFC pipeline
     models/     — toy and IResNet backbones, flax→torch weight carrier
-    ops/        — dense margin losses, the quad head and its CUDA kernels
+    ops/        — dense margin losses, the quad head, the streaming
+                  margin-softmax (dense and sparse d_w) and their CUDA kernels
     optim/      — SGD and schedules
-    train/      — single-device FFC trainer
-    utils/      — metrics logging, device resolution
+    parallel/   — the full-softmax loss and partial-FC class sampling
+    train/      — single-device trainer: FFC and full-softmax heads, sparse
+                  classifier row updates
+    utils/      — metrics logging, device resolution, kernel parity checks
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,16 @@
 // Streaming margin-softmax cross-entropy over a [C, D] classifier for NVIDIA
-// Hopper (sm_90a): forward, backward, and backward with the classifier's
-// SGD-momentum update fused in.
+// Hopper (sm_90a): forward (optionally with per-tile statistics), backward,
+// backward with the classifier's SGD-momentum update fused in, and the
+// backward over selected class tiles only (sparse d_w).
 //
 // Replaces the TPU kernels in vlsfr_tpu/ops/margin_pallas.py:
 //   pallas_margin_ce_fwd (:390)           -> margin_ce_fwd_launch
 //   pallas_margin_ce_bwd (:557)           -> margin_ce_bwd_launch
 //   pallas_margin_ce_bwd_fused_sgd (:803) -> margin_ce_bwd_fused_sgd_launch
-// Semantics are those of the scan references _stream_fwd / _stream_bwd and
-// apply_sgd_dense there; the plain PyTorch versions beside the wrappers
+//   pallas_margin_ce_bwd_sparse (:1447)   -> margin_ce_bwd_sparse_launch
+// Semantics are those of the scan references _stream_fwd / _stream_bwd,
+// the gather reference _sparse_bwd_gather and apply_sgd_dense there; the
+// plain PyTorch versions beside the wrappers
 // (vlsfr_tpu_torch/ops/margin_stream.py *_plain) compute the same functions.
 //
 // Layout: emb [B][D] f32 (B <= 128, D a multiple of 64 up to 512), W and
@@ -38,6 +41,12 @@
 //    tile's columns into per-row (max, sumexp) and a register top-k. The
 //    target column is left out of both and joins at the merge as
 //    scale * phi(gt) (gt comes from outside, as in JAX).
+//  * Forward statistics (only when asked for): the same two threads per
+//    row also take, per 64-column half tile, the row's max of z (scale *
+//    phi(gt) at the target column) and of the raw cosine (the target's own
+//    included) into a [2][C/64][B] scratch; a third launch reduces them to
+//    the caller's stats tile (a multiple of 64), so the block column ranges
+//    need not align with it. Without statistics nothing of this runs.
 //  * Backward, d_emb pass: a block owns 32 rows x a column range, so its
 //    d_emb partial [32, D] lives in registers (64 per thread at D = 512).
 //    Per 64-column tile: cos [32, 64] -> d_cos -> d_cos @ w_hat.
@@ -54,6 +63,16 @@
 //    written in place over the rows it has just read. The d_emb pass runs
 //    first in stream order and reads W before any of it is written. Every
 //    row decays every step: no relevance gate skips a tile.
+//  * Sparse backward: both passes walk M * tile logical columns instead of
+//    C. Each 64-column tile maps through tile_idx [M] (device memory, read
+//    by every block: the counterpart of scalar prefetch) onto the class
+//    rows it stands for; tile is a multiple of 64, so no 64-column tile
+//    straddles two selected tiles. d_w rows are written in logical order
+//    (rows past C in a ragged last tile as 0); the owner of a row's target
+//    column also writes d_gt[b], that column's dz, for the caller's target
+//    term. Bound at B = 128, D = 512, M * tile = 65,536: three products
+//    2.58e10 FLOP >= 0.385 ms against 0.27 GB (W tiles read, d_w rows
+//    written, 0.080 ms): compute-bound; the recompute adds a fourth.
 
 #include "margin_common.cuh"
 
@@ -68,6 +87,11 @@ struct Args {
   const float* gt;
   int k, loss_type;
   float margin, scale, mask_svfc, cos_m, sin_m;
+  // the backward's column space: C class columns, or (sparse) ncols =
+  // M * sel_tile logical columns, tile i standing for class tile sel[i]
+  const int* sel;  // nullptr: dense
+  int sel_tile;
+  long long ncols;
 };
 
 struct BwdRows {
@@ -94,14 +118,31 @@ __device__ __forceinline__ float dcos_of(float c, long long col, int label, floa
   return col == (long long)label ? 0.f : dcos_col(c, gt, logz, kth, dce, dneg, label < 0, a);
 }
 
+// the class column of logical column l (itself unless tiles are selected)
+__device__ __forceinline__ long long phys_col(const Args& a, long long l) {
+  return a.sel == nullptr ? l : (long long)a.sel[l / a.sel_tile] * a.sel_tile + l % a.sel_tile;
+}
+
+// how many of the tc columns from logical t0 (class column p0) exist: not
+// past the block's range, not past C; none for a selected tile index outside
+// [0, ceil(C / tile)), whose rows are then written as 0 and whose W is not read
+__device__ __forceinline__ int valid_cols(const Args& a, long long t0, long long p0,
+                                          long long c_end, int tc) {
+  return p0 < 0 ? 0 : (int)max(0LL, min((long long)tc, min(c_end - t0, a.C - p0)));
+}
+
 // ---------------------------------------------------------------- forward
 
 constexpr int F_ROWS = 128, F_TC = 128, F_DK = 16, F_THREADS = 256;
 constexpr int F_ALD = F_ROWS + 4, F_BLD = F_TC + 4, F_CLD = F_TC + 1;
 constexpr size_t F_SMEM = sizeof(float) * (F_DK * F_ALD + F_DK * F_BLD + F_ROWS * F_CLD + F_TC);
+constexpr int STAT_COLS = 64;  // columns per statistics partial: one thread's half tile
+static_assert(F_TC / 2 == STAT_COLS, "a statistics partial is one thread's half tile");
 
+// stats: nullptr, or the [2][ceil(C / 64)][B] scratch of per-64-column maxima
+// (z first, then the raw cosine)
 __global__ void __launch_bounds__(F_THREADS)
-    margin_fwd_kernel(Args a, long long cols_per_blk, float* part) {
+    margin_fwd_kernel(Args a, long long cols_per_blk, float* part, float* stats) {
   extern __shared__ float smem[];
   float* As = smem;                   // emb chunk, k-major [F_DK][F_ALD]
   float* Bs = As + F_DK * F_ALD;      // W chunk, k-major [F_DK][F_BLD]
@@ -117,6 +158,8 @@ __global__ void __launch_bounds__(F_THREADS)
   const bool row_ok = r < a.B;
   const int label = row_ok ? a.labels[r] : -1;
   const float gt = row_ok ? a.gt[r] : 0.f;
+  const float zt = a.scale * phi_target(gt, a);  // the target column's z, for the statistics
+  const long long n64 = (a.C + STAT_COLS - 1) / STAT_COLS;
   float m = -INFINITY, s = 0.f, kth = NEG_INF_F;
   float tk[KMAX];
 #pragma unroll
@@ -143,6 +186,22 @@ __global__ void __launch_bounds__(F_THREADS)
         const float cv = Cs[r * F_CLD + c];
         stream_update(cv, gt, a, m, s);
         topk_insert(tk, kth, cv, a.k);
+      }
+      if (stats != nullptr) {  // the target column counts here, as in _stream_fwd
+        float zm = -INFINITY, cm = -INFINITY;
+        for (int c = half * (F_TC / 2); c < c_hi; ++c) {
+          const float cv = Cs[r * F_CLD + c];
+          float mod = cv;
+          if (a.loss_type == LOSS_SV && cv > gt - a.margin)
+            mod = a.mask_svfc * cv + a.mask_svfc - 1.0f;
+          zm = fmaxf(zm, t0 + c == (long long)label ? zt : a.scale * mod);
+          cm = fmaxf(cm, cv);
+        }
+        const long long g = t0 / STAT_COLS + half;
+        if (g < n64) {  // a half tile past C holds no column and is not written
+          stats[g * a.B + r] = zm;
+          stats[(n64 + g) * a.B + r] = cm;
+        }
       }
     }
     __syncthreads();  // Cs and inv are rebuilt by the next tile
@@ -172,6 +231,24 @@ __global__ void margin_fwd_merge_kernel(Args a, int nparts, const float* part, f
   for (int j = 0; j < a.k; ++j) topk[(long long)r * a.k + j] = tk[j];
 }
 
+// one thread per (stats tile, row): maxz / maxcos [n_tiles][B] as the max
+// of the tile's per-64-column partials
+__global__ void margin_fwd_stats_kernel(int B, long long n64, int per_tile, long long n_tiles,
+                                        const float* stats, float* maxz, float* maxcos) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n_tiles * B) return;
+  const long long t = idx / B;
+  const int r = (int)(idx % B);
+  const long long g_end = min(n64, (t + 1) * per_tile);
+  float zm = -INFINITY, cm = -INFINITY;
+  for (long long g = t * per_tile; g < g_end; ++g) {
+    zm = fmaxf(zm, stats[g * B + r]);
+    cm = fmaxf(cm, stats[(n64 + g) * B + r]);
+  }
+  maxz[idx] = zm;
+  maxcos[idx] = cm;
+}
+
 // ------------------------------------------------------ backward: d_emb pass
 
 constexpr int B_RB = 32, B_TC = 64, B_DK = 16, B_THREADS = 256, B_JMAX = 8;  // D <= 64 * 8
@@ -190,7 +267,7 @@ __global__ void __launch_bounds__(B_THREADS)
   const int rg = blockIdx.x % n_rg, chunk = blockIdx.x / n_rg;
   const int r_base = rg * B_RB;
   const long long c_begin = (long long)chunk * cols_per_chunk;
-  const long long c_end = min(a.C, c_begin + cols_per_chunk);
+  const long long c_end = min(a.ncols, c_begin + cols_per_chunk);
   const int nj = a.D / 64;
 
   // cos / d_cos map: rows ty + 16i (i < 2), cols tx + 16j (j < 4)
@@ -219,9 +296,11 @@ __global__ void __launch_bounds__(B_THREADS)
     for (int j = 0; j < B_JMAX; ++j) acc2[i][j] = 0.f;
 
   for (long long t0 = c_begin; t0 < c_end; t0 += B_TC) {
+    const long long p0 = phys_col(a, t0);
+    const int n = valid_cols(a, t0, p0, c_end, B_TC);
     float acc[2][4], n2;
     tile_gemm<B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16, true>(
-        acc, n2, As, Bs, a.emb, r_base, a.B, a.w, t0, c_end, a.D, ty, tx);
+        acc, n2, As, Bs, a.emb, r_base, a.B, a.w, p0, p0 + n, a.D, ty, tx);
     if (tid < B_TC) inv[tid] = inv_norm(n2);
     __syncthreads();
 
@@ -230,10 +309,9 @@ __global__ void __launch_bounds__(B_THREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const long long gc = t0 + c;
         float d = 0.f;
-        if (ok[i] && gc < c_end)
-          d = dcos_of(acc[i][j] * inv[c], gc, lab[i], gtv[i], lzv[i], kthv[i], dcev[i],
+        if (ok[i] && c < n)
+          d = dcos_of(acc[i][j] * inv[c], p0 + c, lab[i], gtv[i], lzv[i], kthv[i], dcev[i],
                       dnegv[i], a) * inv[c];  // folds w_hat = inv * w into the product
         Dq[(ty + 16 * i) * B_CLD + c] = d;
       }
@@ -241,9 +319,8 @@ __global__ void __launch_bounds__(B_THREADS)
     __syncthreads();
 
     // d_emb += (d_cos * inv) @ (raw W rows of this tile)
-    const int n = (int)min((long long)B_TC, c_end - t0);
     for (int c = 0; c < n; ++c) {
-      const float* wrow = a.w + (t0 + c) * a.D + dx;
+      const float* wrow = a.w + (p0 + c) * a.D + dx;
       float wv[B_JMAX];
 #pragma unroll
       for (int j = 0; j < B_JMAX; ++j) wv[j] = j < nj ? __ldg(wrow + 64 * j) : 0.f;
@@ -288,11 +365,13 @@ constexpr size_t W_SMEM =
     sizeof(int) * (2 * W_ROWS + 1);
 
 // Each column's owner adds d_wl [B][D] (the label rows' gradient) for every
-// batch row labelled with it. fused == 0: write d_w to dw. Otherwise apply
-// the SGD update to sgd.w and sgd.mom in place (dw unused).
+// batch row labelled with it. fused == 0: write d_w to dw (row by logical
+// column). Otherwise apply the SGD update to sgd.w and sgd.mom in place (dw
+// unused). dgt: nullptr, or [B] zeros where the owner of a row's target
+// column writes that column's dz.
 __global__ void __launch_bounds__(W_THREADS)
     margin_bwd_dw_kernel(Args a, BwdRows br, long long cols_per_blk, const float* dwl, float* dw,
-                         Sgd sgd, int fused) {
+                         Sgd sgd, int fused, float* dgt) {
   extern __shared__ float smem[];
   float* As = smem;                      // emb chunk, k-major [W_DK][W_ALD]
   float* Bs = As + W_DK * W_ALD;         // W chunk, k-major [W_DK][W_BLD]
@@ -312,7 +391,7 @@ __global__ void __launch_bounds__(W_THREADS)
 
   const int tid = threadIdx.x;
   const long long c_begin = (long long)blockIdx.x * cols_per_blk;
-  const long long c_end = min(a.C, c_begin + cols_per_blk);
+  const long long c_end = min(a.ncols, c_begin + cols_per_blk);
   for (int b = tid; b < W_ROWS; b += W_THREADS) {
     const bool ok = b < a.B;
     r_lab[b] = ok ? a.labels[b] : -1;
@@ -327,19 +406,24 @@ __global__ void __launch_bounds__(W_THREADS)
   const int tx = tid & 15, ty = tid >> 4;
 
   for (long long t0 = c_begin; t0 < c_end; t0 += W_TC) {
-    const int n = (int)min((long long)W_TC, c_end - t0);
+    const long long p0 = phys_col(a, t0);
+    const int nl = (int)min((long long)W_TC, c_end - t0);  // output rows of this tile
+    const int n = valid_cols(a, t0, p0, c_end, W_TC);       // ... that stand for a class
     if (tid == 0) *any_tgt = 0;
     __syncthreads();
     if (tid < W_ROWS) {
-      const long long off = (long long)r_lab[tid] - t0;
+      const long long off = (long long)r_lab[tid] - p0;
       const bool in = r_lab[tid] >= 0 && off >= 0 && off < n;
       tgt[tid] = in ? (int)off : -1;
       if (in) *any_tgt = 1;  // every writer stores the same value
+      if (in && dgt != nullptr)  // the target column's dz: (p_t - 1) d_ce scale
+        dgt[tid] = (expf(a.scale * phi_target(r_gt[tid], a) - r_lz[tid]) - 1.f) * r_dce[tid] *
+                   a.scale;
     }
 
     float acc[8][4], n2;
     tile_gemm<W_ROWS, W_TC, W_DK, W_THREADS, W_ALD, W_BLD, 8, 4, 16, 16, true>(
-        acc, n2, As, Bs, a.emb, 0, a.B, a.w, t0, c_end, a.D, ty, tx);
+        acc, n2, As, Bs, a.emb, 0, a.B, a.w, p0, p0 + n, a.D, ty, tx);
     if (tid < W_TC) inv[tid] = inv_norm(n2);
     __syncthreads();
 
@@ -353,7 +437,7 @@ __global__ void __launch_bounds__(W_THREADS)
         float d = 0.f;
         if (b < a.B && c < n) {
           const float cv = acc[i][j] * inv[c];
-          d = dcos_of(cv, t0 + c, r_lab[b], r_gt[b], r_lz[b], r_kth[b], r_dce[b], r_dneg[b], a);
+          d = dcos_of(cv, p0 + c, r_lab[b], r_gt[b], r_lz[b], r_kth[b], r_dce[b], r_dneg[b], a);
           sp[j] = fmaf(d, cv, sp[j]);
         }
         Dc[b * W_CLD + c] = d;
@@ -396,12 +480,17 @@ __global__ void __launch_bounds__(W_THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int t = ty + 16 * i;
-        if (t >= n) continue;
+        if (t >= nl) continue;
         const float iv = inv[t], sd = sdot[t];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int d = dc0 + tx + 16 * j;
-          const long long off = (t0 + t) * a.D + d;
+          const long long off_out = (t0 + t) * a.D + d;  // the output row: logical column
+          if (t >= n) {  // a selected ragged last tile's rows past C
+            dw[off_out] = 0.f;
+            continue;
+          }
+          const long long off = (p0 + t) * a.D + d;  // the class row
           const float wv = a.w[off];  // plain load: the fused pass overwrites this row
           float g = iv * (acc3[i][j] - wv * iv * sd);
           if (tile_tgt) {
@@ -409,7 +498,7 @@ __global__ void __launch_bounds__(W_THREADS)
               if (tgt[b] == t) g += dwl[(long long)b * a.D + d];
           }
           if (!fused) {
-            dw[off] = g;
+            dw[off_out] = g;
             continue;
           }
           if (sgd.wd != 0.f) g = g + sgd.wd * wv;
@@ -445,13 +534,17 @@ Args make_args(const float* emb, const float* w, long long C, int D, int B, cons
   a.mask_svfc = mask_svfc;
   a.cos_m = cos_m;
   a.sin_m = sin_m;
+  a.sel = nullptr;
+  a.sel_tile = 0;
+  a.ncols = C;
   return a;
 }
 
 // both backward passes: d_emb (row groups + merge), then d_w (column owners)
 int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
                long long cols_per_chunk, float* d_emb, int dw_nblk, long long dw_cols_per_blk,
-               const float* dwl, float* dw, const Sgd& sgd, int fused, cudaStream_t st) {
+               const float* dwl, float* dw, const Sgd& sgd, int fused, float* dgt,
+               cudaStream_t st) {
   const int n_rg = (a.B + B_RB - 1) / B_RB;
   margin_bwd_demb_kernel<<<nchunk * n_rg, B_THREADS, B_SMEM, st>>>(a, br, cols_per_chunk, n_rg,
                                                                     part);
@@ -466,7 +559,7 @@ int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
                              (int)W_SMEM);
   if (err != cudaSuccess) return (int)err;
   margin_bwd_dw_kernel<<<dw_nblk, W_THREADS, W_SMEM, st>>>(a, br, dw_cols_per_blk, dwl, dw,
-                                                           sgd, fused);
+                                                           sgd, fused, dgt);
   return (int)cudaGetLastError();
 }
 
@@ -487,18 +580,26 @@ extern "C" {
 const char* margin_ce_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // forward: nblk column ranges of cols_per_blk (a multiple of 128) columns;
-// part is [2 * nblk][B][2 + 16] f32 scratch; outputs [B] and [B][k]
+// part is [2 * nblk][B][2 + 16] f32 scratch; outputs [B] and [B][k]. With
+// stats (else nullptr): [2][ceil(C / 64)][B] f32 scratch, and the outputs
+// maxz / maxcos [ceil(C / stats_tile)][B] (stats_tile a multiple of 64)
 int margin_ce_fwd_launch(MCE_COMMON_PARAMS, float* part, int nblk, long long cols_per_blk,
-                         float* ce, float* neg, float* logz, float* topk, void* stream) {
+                         float* ce, float* neg, float* logz, float* topk, float* stats,
+                         int stats_tile, float* maxz, float* maxcos, void* stream) {
   const Args a = make_args(MCE_COMMON_ARGS);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(margin_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
   if (err != cudaSuccess) return (int)err;
-  margin_fwd_kernel<<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part);
+  margin_fwd_kernel<<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part, stats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   margin_fwd_merge_kernel<<<(B + 127) / 128, 128, 0, st>>>(a, 2 * nblk, part, ce, neg, logz,
                                                            topk);
+  if ((err = cudaGetLastError()) != cudaSuccess || stats == nullptr) return (int)err;
+  const long long n64 = (C + STAT_COLS - 1) / STAT_COLS;
+  const long long n_tiles = (C + stats_tile - 1) / stats_tile, n = n_tiles * B;
+  margin_fwd_stats_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      B, n64, stats_tile / STAT_COLS, n_tiles, stats, maxz, maxcos);
   return (int)cudaGetLastError();
 }
 
@@ -511,7 +612,7 @@ int margin_ce_bwd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, float* dw, const flo
   const BwdRows br = {logz, kth, dce, dneg};
   const Sgd none = {nullptr, nullptr, 0.f, 0.f, 0.f, 0};
   return launch_bwd(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl,
-                    dw, none, 0, (cudaStream_t)stream);
+                    dw, none, 0, nullptr, (cudaStream_t)stream);
 }
 
 // fused backward: w_upd (== w) and mom are updated in place; d_wl [B][D]
@@ -522,7 +623,26 @@ int margin_ce_bwd_fused_sgd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, float* w_u
   const BwdRows br = {logz, kth, dce, dneg};
   const Sgd sgd = {w_upd, mom, lr, momentum, weight_decay, nesterov};
   return launch_bwd(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl,
-                    nullptr, sgd, 1, (cudaStream_t)stream);
+                    nullptr, sgd, 1, nullptr, (cudaStream_t)stream);
+}
+
+// sparse backward over the M tiles tile_idx [M] (distinct, each below
+// ceil(C / tile)) of tile columns each, tile a multiple of 64: ncols =
+// M * tile logical columns; part is [nchunk][B][D] scratch over them; d_w
+// rows [ncols][D] f32 in tile_idx order, the label rows' d_wl [B][D] added
+// by their owners; d_gt [B] zeros, the target column's dz written where
+// its tile is selected
+int margin_ce_bwd_sparse_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, const int* tile_idx, int tile,
+                                long long ncols, float* dw_rows, const float* dwl, float* dgt,
+                                void* stream) {
+  Args a = make_args(MCE_COMMON_ARGS);
+  a.sel = tile_idx;
+  a.sel_tile = tile;
+  a.ncols = ncols;
+  const BwdRows br = {logz, kth, dce, dneg};
+  const Sgd none = {nullptr, nullptr, 0.f, 0.f, 0.f, 0};
+  return launch_bwd(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl,
+                    dw_rows, none, 0, dgt, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -6,12 +6,19 @@ with the margin transform, scaled CE on rows with a class label and the
 hard-negative term on outlier rows (``label == -1``), without ever holding
 the ``[B, C]`` logits (0.5 GB at B = 128, C = 2^20).
 
-Kernel boundary. ``margin_ce_fwd``, ``margin_ce_bwd`` and
-``margin_ce_bwd_fused_sgd`` keep the JAX functions' arguments and outputs
-(``pallas_margin_ce_fwd`` / ``_bwd`` / ``_bwd_fused_sgd``). For CUDA
-tensors they launch the hand-written kernels in ``csrc/margin_ce.cu``; for
-CPU tensors they run the plain PyTorch versions beside them
-(``*_plain``, chunked over C). There is no other route and no switch.
+Kernel boundary. ``margin_ce_fwd`` (with ``with_stats`` also the per-tile
+row maxima), ``margin_ce_bwd``, ``margin_ce_bwd_fused_sgd`` and
+``margin_ce_bwd_sparse`` keep the JAX functions' arguments and outputs
+(``pallas_margin_ce_fwd`` / ``_bwd`` / ``_bwd_fused_sgd`` /
+``_bwd_sparse``). For CUDA tensors they launch the hand-written kernels in
+``csrc/margin_ce.cu``; for CPU tensors they run the plain PyTorch versions
+beside them (``*_plain``). There is no other route and no switch.
+
+Sparse d_w (``streaming_sparse_margin_grads``): the forward's tile
+statistics pick the M class tiles whose d_w can matter
+(``select_relevant_tiles``, targets forced, random fill from draws the
+caller passes in) and the sparse backward computes the d_w rows of those
+tiles only, scaled by their importance weights.
 
 Around the kernels, as in JAX, plain torch does the B-row work: the target
 cosines ``gt`` (``compute_gt``) and the target-column gradient — the
@@ -45,7 +52,9 @@ from vlsfr_tpu_torch.ops.margin import (
 )
 
 KMAX = 16  # largest hard_neg the kernels keep a register top-k for
-LAUNCH_COUNTS = {"margin_ce_fwd": 0, "margin_ce_bwd": 0, "margin_ce_bwd_fused_sgd": 0}
+RANDOM_FILL_FRAC = 0.5  # share of the sparse tile budget the random fill boosts
+LAUNCH_COUNTS = {"margin_ce_fwd": 0, "margin_ce_bwd": 0, "margin_ce_bwd_fused_sgd": 0,
+                 "margin_ce_bwd_sparse": 0}
 
 
 def reset_launch_counts() -> None:
@@ -79,13 +88,27 @@ def _mask_cotangents(labels, d_ce, d_neg):
             torch.where(pos, zero, d_neg.float()).contiguous())
 
 
+def _target_dz(gt, logz, d_ce, *, loss_type, margin, scale):
+    """dz at the target column, (p_t − 1)·d_ce·scale with p_t from the
+    outside gt (``d_ce`` comes masked)."""
+    p_t = torch.exp(scale * phi_target(gt, loss_type, margin) - logz)
+    return (p_t - 1.0) * d_ce * scale
+
+
 def _target_rows(emb, w, labels, gt, logz, d_ce, *, loss_type, margin, scale):
     """The target column's gradient from the pre-update label rows:
     (its ``d_emb`` term [B, D], the label rows' gradient ``d_wl`` [B, D]).
     ``d_ce`` comes masked; both terms are 0 on outlier rows."""
+    d_gt = _target_dz(gt, logz, d_ce, loss_type=loss_type, margin=margin,
+                      scale=scale) * phi_prime(gt, loss_type, margin)
+    return _label_rows_grad(emb, w, labels, d_gt)
+
+
+def _label_rows_grad(emb, w, labels, d_gt):
+    """(d_emb term [B, D], label rows' gradient d_wl [B, D]) of a gradient
+    ``d_gt`` [B] on the target cosines (φ′ included), through the gather of
+    the normalised label rows; both 0 on outlier rows."""
     pos1 = (labels >= 0).float()[:, None]
-    p_t = torch.exp(scale * phi_target(gt, loss_type, margin) - logz)
-    d_gt = (p_t - 1.0) * d_ce * scale * phi_prime(gt, loss_type, margin)
     wl = w[labels.clamp(min=0).long()].float()
     wln = _normalize_rows(wl)
     d_wln = d_gt[:, None] * emb.float() * pos1
@@ -110,7 +133,7 @@ def _sgd_rows(w, mom, d_w, lr, *, momentum, nesterov, weight_decay):
 
 
 # ----------------------------------------------------------------------
-# plain versions of the three kernels (chunked over C)
+# plain versions of the dense kernels (chunked over C)
 # ----------------------------------------------------------------------
 
 
@@ -119,34 +142,48 @@ def _chunk_cos(emb32, w, lo, hi):
     return emb32 @ wn.T, wn
 
 
-def _chunk_dcos(cos, lo, labels, gt, logz, kth, d_ce, d_neg, *, loss_type, margin, scale, k,
-                mask_svfc):
-    """d loss / d cos over one chunk of columns, 0 at the target column
-    (its gradient joins through d_gt). ``d_ce``/``d_neg`` come masked."""
-    col = torch.arange(lo, lo + cos.shape[1], device=cos.device)
+def _dcos(cos, col, labels, gt, logz, kth, d_ce, d_neg, *, loss_type, margin, scale, k,
+          mask_svfc, valid=None):
+    """d loss / d cos over the columns ``col`` [n] (``cos`` [B, n]), 0 at
+    the target column (its gradient joins through d_gt) and at columns past
+    the class axis (``valid`` False). ``d_ce``/``d_neg`` come masked."""
     is_target = col[None, :] == labels[:, None].long()
-    valid = torch.ones_like(is_target)
+    valid = torch.ones_like(is_target) if valid is None else valid[None, :].expand_as(is_target)
     mod = tile_modified(cos, is_target, gt[:, None], valid, loss_type, margin, mask_svfc)
     dz = torch.exp(scale * mod - logz[:, None]) * d_ce[:, None] * scale
     if loss_type == "SV":
         hard = cos > (gt[:, None] - margin)
         dz = torch.where(hard, dz * mask_svfc, dz)
-    d_cos = torch.where(is_target, torch.zeros_like(dz), dz)
+    zero = torch.zeros_like(dz)
+    d_cos = torch.where(is_target, zero, dz)
     in_topk = (cos >= kth[:, None] - KTH_TIE_TOL) & (cos > 0) & (labels < 0)[:, None]
-    return d_cos + torch.where(in_topk, d_neg[:, None] / k, torch.zeros_like(dz))
+    return torch.where(valid, d_cos + torch.where(in_topk, d_neg[:, None] / k, zero), zero)
 
 
-def _chunk_dw(d_cos, emb32, wn, lo, hi, w):
-    """d_w = inv·(d_ŵ − ŵ⟨d_ŵ, ŵ⟩): the row normalisation's backward."""
+def _rows_dw(d_cos, emb32, wn, w_rows):
+    """d_w = inv·(d_ŵ − ŵ⟨d_ŵ, ŵ⟩) of the raw rows ``w_rows``: the row
+    normalisation's backward."""
     d_wn = d_cos.T @ emb32
-    inv = torch.rsqrt(w[lo:hi].float().square().sum(dim=-1, keepdim=True).clamp(min=1e-24))
+    inv = torch.rsqrt(w_rows.float().square().sum(dim=-1, keepdim=True).clamp(min=1e-24))
     return inv * (d_wn - wn * (d_wn * wn).sum(dim=-1, keepdim=True))
 
 
+def _tile_max(x, tile):
+    """[B, n] → [ceil(n / tile), B]: the row maxima of each ``tile``
+    columns, a ragged last tile padded with NEG_INF."""
+    pad = (-x.shape[1]) % tile
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=NEG_INF)
+    return x.view(x.shape[0], -1, tile).amax(dim=-1).T
+
+
 def margin_ce_fwd_plain(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
-                        chunk=32768):
+                        with_stats=False, tile=512, chunk=32768):
     """Plain PyTorch version of the forward kernel; same inputs and outputs
-    as ``margin_ce_fwd`` (the scan reference ``_stream_fwd``)."""
+    as ``margin_ce_fwd`` (the scan reference ``_stream_fwd``). With
+    ``with_stats`` also (maxz, maxcos) [n_tiles, B]: per ``tile`` classes,
+    each row's max of scale·mod (scale·φ(gt) at the target) and of the raw
+    cosines (the target's own included)."""
     b = emb.shape[0]
     c = w.shape[0]
     dev = emb.device
@@ -154,6 +191,9 @@ def margin_ce_fwd_plain(emb, w, labels, gt, *, loss_type, margin, scale, k, mask
     m = torch.full((b,), NEG_INF, device=dev)
     s = torch.zeros((b,), device=dev)
     topk = torch.full((b, k), NEG_INF, device=dev)
+    if with_stats:
+        chunk = max(chunk // tile, 1) * tile  # a chunk holds whole stats tiles
+        maxz, maxcos = [], []
     for lo in range(0, c, chunk):
         hi = min(c, lo + chunk)
         cos, _ = _chunk_cos(emb32, w, lo, hi)
@@ -169,10 +209,15 @@ def margin_ce_fwd_plain(emb, w, labels, gt, *, loss_type, margin, scale, k, mask
         # never compare gt against a recomputation of itself
         cand = torch.where(is_target, torch.full_like(cos, NEG_INF), cos)
         topk = torch.topk(torch.cat([topk, cand], dim=1), k, dim=1).values
+        if with_stats:
+            maxz.append(_tile_max(z, tile))
+            maxcos.append(_tile_max(cos, tile))
     logz = m + torch.log(s)
     pos = labels >= 0
     ce = torch.where(pos, logz - scale * phi_target(gt, loss_type, margin), torch.zeros_like(logz))
     neg = torch.where(pos, torch.zeros_like(logz), topk.clamp(min=0.0).mean(dim=-1))
+    if with_stats:
+        return ce, neg, logz, topk, torch.cat(maxz), torch.cat(maxcos)
     return ce, neg, logz, topk
 
 
@@ -190,10 +235,11 @@ def margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_typ
     for lo in range(0, c, chunk):
         hi = min(c, lo + chunk)
         cos, wn = _chunk_cos(emb32, w, lo, hi)
-        d_cos = _chunk_dcos(cos, lo, labels, gt, logz, kth, d_ce, d_neg, **kw)
+        d_cos = _dcos(cos, torch.arange(lo, hi, device=w.device), labels, gt, logz, kth, d_ce,
+                      d_neg, **kw)
         d_emb += d_cos @ wn
         if grad_w:
-            d_w[lo:hi] = _chunk_dw(d_cos, emb32, wn, lo, hi, w)
+            d_w[lo:hi] = _rows_dw(d_cos, emb32, wn, w[lo:hi])
     # the target tail (``pallas_margin_ce_bwd``'s XLA tail): d_gt into d_emb
     # and, as a scatter-add, into the label rows of d_w — two rows sharing a
     # class both add
@@ -222,14 +268,126 @@ def margin_ce_bwd_fused_sgd_plain(emb, w, mom, labels, gt, logz, topk, d_ce, d_n
     for lo in range(0, c, chunk):
         hi = min(c, lo + chunk)
         cos, wn = _chunk_cos(emb32, w, lo, hi)
-        d_cos = _chunk_dcos(cos, lo, labels, gt, logz, kth, d_ce, d_neg, **kw)
+        d_cos = _dcos(cos, torch.arange(lo, hi, device=w.device), labels, gt, logz, kth, d_ce,
+                      d_neg, **kw)
         d_emb += d_cos @ wn
-        d_w = _chunk_dw(d_cos, emb32, wn, lo, hi, w)
+        d_w = _rows_dw(d_cos, emb32, wn, w[lo:hi])
         mine = (lab >= lo) & (lab < hi)  # target rows of this chunk: a sum per class
         d_w.index_add_(0, lab[mine] - lo, d_wl[mine])
         _sgd_rows(w[lo:hi], mom[lo:hi], d_w, lr, momentum=momentum, nesterov=nesterov,
                   weight_decay=weight_decay)
     return (d_emb + emb_term).to(emb.dtype), w, mom
+
+
+# ----------------------------------------------------------------------
+# sparse d_w: the forward's tile statistics → the selected tiles' rows
+# ----------------------------------------------------------------------
+
+
+def sparse_bwd_geometry(b: int, d: int, c: int, tile: int = 512) -> tuple[int, int]:
+    """(tile, n_tiles) of the sparse backward, as the JAX package clamps
+    them (``margin_pallas.sparse_bwd_geometry``), so callers size
+    ``m_tiles`` (rate × n_tiles) as it does."""
+    max_tile = max(256, int((11 * 2**20) // (16 * d + 24 * b)) // 128 * 128)
+    tile = min(tile, max_tile)
+    return tile, (c + tile - 1) // tile
+
+
+def sparse_m_tiles(rate: float, n_tiles: int, b: int) -> int:
+    """Route D's tile budget at ``pool.sparse_grad_rate`` = ``rate``
+    (``softmax_head.py`` in the JAX package): targets are forced, so it
+    holds at least one tile per batch row."""
+    return min(n_tiles, max(int(round(rate * n_tiles)), b, 8))
+
+
+def select_relevant_tiles(maxz, maxcos, logz, topk, labels, m_tiles: int, tile: int, u=None):
+    """The ``m_tiles`` class tiles whose d_w can matter this step, and the
+    importance weight of each (``margin_pallas.select_relevant_tiles``).
+
+    Score per tile: its softmax-mass bound max_row(maxz − logz), + 1e6 if
+    it holds a top-k member of an outlier row, + 1e4 if its uniform draw
+    ``u`` [n_tiles] is below RANDOM_FILL_FRAC·m/n_tiles (the random fill; no
+    fill without ``u``), and 1e9 for every target tile. ``idx`` [M] int32
+    are the M highest scores, equal scores in index order (``lax.top_k``'s
+    order: a stable descending sort, since ``torch.topk`` promises none).
+    Forced tiles (score ≥ 1e6) weigh 1; the others weigh their stratum's
+    population over its selected count (above / below the −20 gate), at
+    least 1, so the expected update matches the dense one."""
+    n_tiles = maxz.shape[0]
+    pos = labels >= 0
+    kth = topk[:, -1]
+    rel = (maxz - logz[None, :]).amax(dim=1)
+    topk_hit = ((maxcos >= kth[None, :] - KTH_TIE_TOL) & (maxcos > 0.0) & ~pos[None, :]).any(1)
+    score = rel + torch.where(topk_hit, 1e6, 0.0)
+    if u is not None:
+        p = _f32(RANDOM_FILL_FRAC * m_tiles / max(n_tiles, 1))
+        score = torch.where(u < p, score + 1e4, score)
+    tgt_tiles = torch.where(pos, labels.long() // tile, 0)
+    score = score.scatter_reduce(0, tgt_tiles, torch.where(pos, 1e9, -math.inf), "amax")
+    idx = torch.sort(score, descending=True, stable=True).indices[:m_tiles]
+    forced = score >= 1e6
+    above = (rel > -20.0) & ~forced
+    below = ~above & ~forced
+    w_above = above.sum().float() / above[idx].sum().clamp(min=1).float()
+    w_below = below.sum().float() / below[idx].sum().clamp(min=1).float()
+    weight = torch.where(forced[idx], 1.0,
+                         torch.where(above[idx], w_above.clamp(min=1.0), w_below.clamp(min=1.0)))
+    return idx.to(torch.int32), weight
+
+
+def _label_flat_pos(labels, tile_idx, tile):
+    """(present [B], flat [B]): whether a row's label lies in a selected
+    tile, and its row in the [M·tile] layout (the first selected tile that
+    holds it, as ``_sparse_tail``'s argmax)."""
+    safe = labels.clamp(min=0).long()
+    match = tile_idx.long()[None, :] == (safe // tile)[:, None]
+    present = match.any(dim=1) & (labels >= 0)
+    return present, match.int().argmax(dim=1) * tile + safe % tile
+
+
+def _sparse_parts_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *, loss_type,
+                        margin, scale, k, mask_svfc, tile):
+    """The plain sparse backward before its target term: (d_emb's streamed
+    part [B, D] f32, d_w rows [M·tile, D] with the label rows' d_wl added,
+    d_gt [B]: the target column's dz where its tile is selected, else 0)."""
+    c = w.shape[0]
+    emb32 = emb.float()
+    d_ce, d_neg = _mask_cotangents(labels, d_ce, d_neg)
+    col = (tile_idx.long()[:, None] * tile
+           + torch.arange(tile, device=w.device)[None, :]).reshape(-1)
+    valid = (col >= 0) & (col < c)  # rows past C, or of a tile index out of range, are zero
+    w_sel = torch.where(valid[:, None], w[col.clamp(0, c - 1)].float(), 0.0)
+    wn = _normalize_rows(w_sel)
+    cos = emb32 @ wn.T
+    d_cos = _dcos(cos, col, labels, gt, logz, topk[:, -1], d_ce, d_neg, loss_type=loss_type,
+                  margin=margin, scale=scale, k=k, mask_svfc=mask_svfc, valid=valid)
+    d_w_rows = _rows_dw(d_cos, emb32, wn, w_sel)
+    present, flat = _label_flat_pos(labels, tile_idx, tile)
+    d_gt = torch.where(present, _target_dz(gt, logz, d_ce, loss_type=loss_type, margin=margin,
+                                           scale=scale), 0.0)
+    _, d_wl = _label_rows_grad(emb, w, labels, d_gt * phi_prime(gt, loss_type, margin))
+    d_w_rows.index_add_(0, flat[present], d_wl[present])
+    return d_cos @ wn, d_w_rows, d_gt
+
+
+def _with_target_term(d_emb, emb, w, labels, gt, d_gt, loss_type, margin):
+    """d_emb plus the target column's term, φ′(gt)·d_gt through the label
+    rows (``_sparse_tail``'s d_emb_extra)."""
+    term, _ = _label_rows_grad(emb, w, labels, d_gt * phi_prime(gt, loss_type, margin))
+    return (d_emb + term).to(emb.dtype)
+
+
+def margin_ce_bwd_sparse_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *,
+                               loss_type, margin, scale, k, mask_svfc, tile):
+    """Plain PyTorch version of ``margin_ce_bwd_sparse`` (the gather
+    reference ``_sparse_bwd_gather`` and ``_sparse_tail``): one pass over
+    the gathered columns of the selected tiles. Returns (d_emb [B, D]
+    truncated to those tiles, d_w rows [M·tile, D] in ``tile_idx`` order;
+    the label rows' target gradient added, rows past C zero)."""
+    d_emb, d_w_rows, d_gt = _sparse_parts_plain(
+        emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, loss_type=loss_type, margin=margin,
+        scale=scale, k=k, mask_svfc=mask_svfc, tile=tile)
+    return _with_target_term(d_emb, emb, w, labels, gt, d_gt, loss_type, margin), d_w_rows
 
 
 # ----------------------------------------------------------------------
@@ -240,6 +398,7 @@ _LOSS_CODE = {"AM": 0, "Arc": 1, "SV": 2}
 _F_TC = 128  # columns per forward tile
 _B_TC = 64  # columns per backward tile
 _B_RB = 32  # rows per d_emb block (row group)
+_STAT_COLS = 64  # columns per forward statistics partial (half an _F_TC tile)
 _MAX_ROWS = 128  # batch rows the kernels hold per block
 _P = ctypes.c_void_p
 _COMMON_ARGTYPES = [
@@ -262,14 +421,19 @@ def _lib():
     if not getattr(lib, "_vlsfr_typed", False):
         lib.margin_ce_fwd_launch.argtypes = _COMMON_ARGTYPES + [
             _P, ctypes.c_int, ctypes.c_longlong,  # part, nblk, cols_per_blk
-            _P, _P, _P, _P, _P]  # ce, neg, logz, topk, stream
+            _P, _P, _P, _P,  # ce, neg, logz, topk
+            _P, ctypes.c_int, _P, _P,  # stats scratch (or None), stats tile, maxz, maxcos
+            _P]  # stream
         lib.margin_ce_bwd_launch.argtypes = _BWD_ARGTYPES + [_P, _P, _P]  # d_w, d_wl, stream
         lib.margin_ce_bwd_fused_sgd_launch.argtypes = _BWD_ARGTYPES + [
             _P, _P, _P,  # w (updated in place), mom (in place), d_wl
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,  # lr, mu, nesterov, wd
             _P]  # stream
+        lib.margin_ce_bwd_sparse_launch.argtypes = _BWD_ARGTYPES + [
+            _P, ctypes.c_int, ctypes.c_longlong,  # tile_idx, tile, M * tile
+            _P, _P, _P, _P]  # d_w rows, d_wl, d_gt, stream
         for fn in (lib.margin_ce_fwd_launch, lib.margin_ce_bwd_launch,
-                   lib.margin_ce_bwd_fused_sgd_launch):
+                   lib.margin_ce_bwd_fused_sgd_launch, lib.margin_ce_bwd_sparse_launch):
             fn.restype = ctypes.c_int
         lib.margin_ce_error_string.argtypes = [ctypes.c_int]
         lib.margin_ce_error_string.restype = ctypes.c_char_p
@@ -329,8 +493,11 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc):
-    """Streaming forward: (ce [B], neg [B], logz [B], topk [B, k]).
+def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
+                  with_stats=False, tile=512):
+    """Streaming forward: (ce [B], neg [B], logz [B], topk [B, k]), and with
+    ``with_stats`` also (maxz, maxcos) [ceil(C / tile), B], the per-tile row
+    maxima that feed ``select_relevant_tiles``.
 
     Replaces ``vlsfr_tpu/ops/margin_pallas.py:pallas_margin_ce_fwd``. Bound
     on an H100 at the slice shapes (B = 128, D = 512, C = 2^20): 2·B·D·C =
@@ -339,35 +506,48 @@ def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc)
     (csrc/margin_ce.cu): each block streams a contiguous column range with
     every batch row resident, so each W tile is read once; per-row running
     (max, sumexp) and a register top-k go to a per-block partial that a
-    second launch merges in a fixed order.
+    second launch merges in a fixed order. The statistics are per-64-column
+    maxima (target column included) written beside the stream, reduced to
+    ``tile`` columns (a multiple of 64) by a third launch; without
+    ``with_stats`` none of that runs.
     """
     _check_inputs(emb, w, labels, gt, k, loss_type)
     if not emb.is_cuda:
         return margin_ce_fwd_plain(emb, w, labels, gt, loss_type=loss_type, margin=margin,
-                                   scale=scale, k=k, mask_svfc=mask_svfc)
+                                   scale=scale, k=k, mask_svfc=mask_svfc, with_stats=with_stats,
+                                   tile=tile)
+    if with_stats and tile % _STAT_COLS:
+        raise ValueError(f"the stats tile must be a multiple of {_STAT_COLS}, got {tile}")
     lib = _lib()
     b, dev = emb.shape[0], emb.device
-    nblk, per = _split_columns(w.shape[0], _F_TC, 2 * _sms(dev))
+    c = w.shape[0]
+    nblk, per = _split_columns(c, _F_TC, 2 * _sms(dev))
     part = torch.empty((2 * nblk, b, 2 + KMAX), device=dev)
     ce, neg, logz = (torch.empty((b,), device=dev) for _ in range(3))
     topk = torch.empty((b, k), device=dev)
+    stats, stat_ptrs = [], [None, None, None]  # scratch, maxz, maxcos
+    if with_stats:
+        stats = [torch.empty((2, -(-c // _STAT_COLS), b), device=dev),
+                 *(torch.empty((-(-c // tile), b), device=dev) for _ in range(2))]
+        stat_ptrs = [s.data_ptr() for s in stats]
     err = lib.margin_ce_fwd_launch(
         *_common_args(emb, w, labels, gt, k, loss_type, margin, scale, mask_svfc),
         part.data_ptr(), nblk, per, ce.data_ptr(), neg.data_ptr(), logz.data_ptr(),
-        topk.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        topk.data_ptr(), stat_ptrs[0], tile, *stat_ptrs[1:],
+        torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(lib, err, "margin_ce_fwd")
     LAUNCH_COUNTS["margin_ce_fwd"] += 1
-    return ce, neg, logz, topk
+    return (ce, neg, logz, topk, *stats[1:])
 
 
-def _bwd_geometry(emb, w):
+def _bwd_geometry(emb, ncols):
     """(d_emb partial buffer, nchunk, cols per chunk, d_w blocks, cols per
-    d_w block) of the two backward passes."""
+    d_w block) of the two backward passes over ``ncols`` columns."""
     b, d = emb.shape
     sms = _sms(emb.device)
     n_rg = -(-b // _B_RB)
-    nchunk, per = _split_columns(w.shape[0], _B_TC, max(4 * sms // n_rg, 1))
-    nblk, per_w = _split_columns(w.shape[0], _B_TC, 2 * sms)
+    nchunk, per = _split_columns(ncols, _B_TC, max(4 * sms // n_rg, 1))
+    nblk, per_w = _split_columns(ncols, _B_TC, 2 * sms)
     return torch.empty((nchunk, b, d), device=emb.device), nchunk, per, nblk, per_w
 
 
@@ -404,7 +584,7 @@ def margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_type, mar
     emb_term, d_wl = _target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=loss_type,
                                   margin=margin, scale=scale)
     d_wl = d_wl.contiguous()
-    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w)
+    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w.shape[0])
     d_emb = torch.empty_like(emb)
     d_w = torch.empty_like(w) if grad_w else None
     err = lib.margin_ce_bwd_launch(
@@ -452,7 +632,7 @@ def margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr
     emb_term, d_wl = _target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=loss_type,
                                   margin=margin, scale=scale)
     d_wl = d_wl.contiguous()
-    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w)
+    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w.shape[0])
     d_emb = torch.empty_like(emb)
     err = lib.margin_ce_bwd_fused_sgd_launch(
         *_common_args(emb, w, labels, gt, k, loss_type, margin, scale, mask_svfc),
@@ -464,6 +644,66 @@ def margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr
     _check_launch(lib, err, "margin_ce_bwd_fused_sgd")
     LAUNCH_COUNTS["margin_ce_bwd_fused_sgd"] += 1
     return (d_emb + emb_term).to(emb.dtype), w, mom
+
+
+def margin_ce_bwd_sparse(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *, loss_type,
+                         margin, scale, k, mask_svfc, tile):
+    """Backward over the M selected class tiles only: (d_emb [B, D] summed
+    over those tiles, d_w rows [M·tile, D] f32 in ``tile_idx`` order), the
+    label rows' target gradient added to the rows of the selected tiles that
+    hold them, rows past C zero. ``tile_idx`` [M] int32 holds distinct tile
+    indices; a tile index outside [0, ceil(C / tile)) gives zero rows.
+
+    Replaces ``vlsfr_tpu/ops/margin_pallas.py:pallas_margin_ce_bwd_sparse``.
+    Bound on an H100 at the route-D shapes (B = 128, D = 512, M·tile =
+    65,536): three products 2.58e10 FLOP (~0.385 ms at the f32 rate)
+    against 134 MB of W tiles read and 134 MB of d_w rows written
+    (~0.080 ms): compute-bound. Design: margin_ce_bwd's two passes run over
+    the M·tile logical columns, each 64-column tile mapped through
+    ``tile_idx`` (read by every block, the counterpart of scalar prefetch)
+    onto its class rows: a row-grouped d_emb pass with partials summed in a
+    fixed order, and a column-owned pass that recomputes cos and d_cos,
+    writes each d_w row once (its owner adding the label rows' d_wl in
+    batch order) and writes d_gt, the target column's dz, for the rows
+    whose target it owns. No float atomics.
+    """
+    m = tile_idx.shape[0]
+    _check_inputs(emb, w, labels, gt, k, loss_type,
+                  extra=(*_bwd_extra(logz, topk, emb.shape[0], k),
+                         ("tile_idx", tile_idx, torch.int32, (m,))))
+    kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc,
+              tile=tile)
+    parts = _sparse_parts_cuda if emb.is_cuda else _sparse_parts_plain
+    d_emb, d_w_rows, d_gt = parts(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, **kw)
+    return _with_target_term(d_emb, emb, w, labels, gt, d_gt, loss_type, margin), d_w_rows
+
+
+def _sparse_parts_cuda(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *, loss_type,
+                       margin, scale, k, mask_svfc, tile):
+    """``_sparse_parts_plain``'s outputs from the kernel."""
+    if tile % _B_TC:
+        raise ValueError(f"the sparse backward's tile must be a multiple of {_B_TC}, got {tile}")
+    m = tile_idx.shape[0]
+    d_ce_m, d_neg_m = _mask_cotangents(labels, d_ce, d_neg)
+    kth = topk[:, -1].contiguous()
+    lib = _lib()
+    dev = emb.device
+    _, d_wl = _target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=loss_type, margin=margin,
+                           scale=scale)
+    d_wl = d_wl.contiguous()
+    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, m * tile)
+    d_emb = torch.empty_like(emb)
+    d_w_rows = torch.empty((m * tile, emb.shape[1]), device=dev)
+    d_gt = torch.zeros_like(gt)  # rows whose target tile is not selected keep 0
+    err = lib.margin_ce_bwd_sparse_launch(
+        *_common_args(emb, w, labels, gt, k, loss_type, margin, scale, mask_svfc),
+        logz.data_ptr(), kth.data_ptr(), d_ce_m.data_ptr(), d_neg_m.data_ptr(),
+        part.data_ptr(), nchunk, per, d_emb.data_ptr(), nblk, per_w,
+        tile_idx.data_ptr(), tile, m * tile, d_w_rows.data_ptr(), d_wl.data_ptr(),
+        d_gt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(lib, err, "margin_ce_bwd_sparse")
+    LAUNCH_COUNTS["margin_ce_bwd_sparse"] += 1
+    return d_emb, d_w_rows, d_gt
 
 
 # ----------------------------------------------------------------------
@@ -541,3 +781,39 @@ def streaming_margin_grads_fused_sgd(emb, w, mom, labels, d_ce, d_neg, lr, *, mo
                                             momentum=momentum, nesterov=nesterov,
                                             weight_decay=weight_decay, **kw)
     return ce, neg, topk, gt, d_emb, w, mom
+
+
+def streaming_sparse_margin_grads(emb, w, labels, d_ce, d_neg, *, m_tiles, loss_type="Arc",
+                                  margin=0.5, scale=32.0, hard_neg=1, mask_svfc=1.2, tile=512,
+                                  u=None, exact_demb=True):
+    """One explicit forward + backward with a SPARSE classifier gradient,
+    outside autograd (``margin_pallas.streaming_sparse_margin_grads``): the
+    exact loss from the streaming forward with tile statistics, the
+    ``m_tiles`` tiles ``select_relevant_tiles`` picks (``u`` [n_tiles] the
+    uniform draws of its random fill, or None for none), their d_w rows
+    scaled by the tiles' importance weights, and d_emb — exact from
+    ``margin_ce_bwd(grad_w=False)`` with ``exact_demb``, else the sparse
+    backward's truncated one.
+
+    Returns (ce, neg, topk, gt, d_emb, row_idx [M·tile] int32, d_w_rows
+    [M·tile, D]); ``row_idx`` entries are unique, those ≥ C are padding for
+    the update to drop (``train/sparse_classifier.sparse_sgd_rows``)."""
+    emb = emb.float().contiguous()
+    labels = labels.to(torch.int32)
+    b, d = emb.shape
+    tile, n_tiles = sparse_bwd_geometry(b, d, w.shape[0], tile)
+    kw = dict(loss_type=loss_type, margin=float(margin), scale=float(scale), k=int(hard_neg),
+              mask_svfc=float(mask_svfc))
+    gt = compute_gt(emb, w, labels)
+    ce, neg, logz, topk, maxz, maxcos = margin_ce_fwd(emb, w, labels, gt, with_stats=True,
+                                                      tile=tile, **kw)
+    tile_idx, tile_weight = select_relevant_tiles(maxz, maxcos, logz, topk, labels,
+                                                  min(m_tiles, n_tiles), tile, u=u)
+    d_emb, d_w_rows = margin_ce_bwd_sparse(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx,
+                                           tile=tile, **kw)
+    d_w_rows.mul_(tile_weight.repeat_interleave(tile)[:, None])
+    if exact_demb:
+        d_emb, _ = margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, grad_w=False, **kw)
+    row_idx = (tile_idx[:, None] * tile
+               + torch.arange(tile, dtype=torch.int32, device=emb.device)[None, :]).reshape(-1)
+    return ce, neg, topk, gt, d_emb, row_idx, d_w_rows

@@ -5,22 +5,56 @@ One classifier ``[num_classes, feat_dim]`` whose rows are normalised on
 every forward (ArcFace convention), and the full-softmax margin loss over
 it: the dense branch materialises the ``[B, C]`` cosines, the streaming
 branch never does (``ops/margin_stream.py``, the CUDA kernels on the card).
-Sharding the class axis over devices (``mesh``) and partial-FC class
-sampling (``sample_classes``, and the denominator mask it needs) are not
-ported yet.
+Partial-FC sampling (arXiv 2010.05222): ``sample_classes`` builds the
+step's class set (unique positives plus random negatives, duplicates
+masked out of the denominator through ``col_mask``). Sharding the class
+axis over devices (``mesh``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vlsfr_tpu_torch.ops.margin import margin_logits
+from vlsfr_tpu_torch.ops.margin import NEG_INF, margin_logits
 from vlsfr_tpu_torch.ops.margin_stream import MarginSoftmax
 
 
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("a class-sharded classifier (mesh) is not ported yet")
+
+
+def sample_classes(labels: torch.Tensor, num_classes: int, num_sampled: int,
+                   rand: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The partial-FC sampled class set (``partial_fc.sample_classes``):
+    every class contributes at most one column to the CE denominator.
+
+    ``rand`` [S − B] are the random negatives' class draws in [0, C) (the
+    caller's; JAX draws them with ``jax.random.randint``), None when
+    S = B. Returns:
+
+    * ``sampled`` [S] int32 — the batch labels, then the sorted draws;
+      invalid positions keep a real id (safe to gather) for the caller to
+      mask or drop;
+    * ``local_labels`` [B] int32 — each row's target position in
+      ``sampled``: its label's first occurrence in the batch;
+    * ``valid`` [S] bool — False for a repeated batch label, a draw equal
+      to the previous (sorted) draw, and a draw equal to a batch label.
+    """
+    b = labels.shape[0]
+    labels = labels.to(torch.int32)
+    eq = labels[:, None] == labels[None, :]
+    first = eq.int().argmax(dim=1).to(torch.int32)  # the first match
+    pos_valid = first == torch.arange(b, dtype=torch.int32, device=labels.device)
+    if num_sampled - b > 0:
+        rand = torch.sort(rand.to(torch.int32)).values
+        rand_valid = torch.cat([torch.ones(1, dtype=torch.bool, device=rand.device),
+                                rand[1:] != rand[:-1]])
+        rand_valid &= ~(rand[:, None] == labels[None, :]).any(dim=1)
+    else:
+        rand = torch.zeros((0,), dtype=torch.int32, device=labels.device)
+        rand_valid = torch.zeros((0,), dtype=torch.bool, device=labels.device)
+    return torch.cat([labels, rand]), first, torch.cat([pos_valid, rand_valid])
 
 
 def l2_normalize_rows(w: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -36,15 +70,19 @@ def cosine_logits(emb: torch.Tensor, weights: torch.Tensor, mesh=None) -> torch.
 
 
 def margin_softmax_loss(emb, weights, labels, *, loss_type="Arc", margin=0.5, scale=32.0,
-                        mask_svfc=1.2, mesh=None, streaming=False):
+                        mask_svfc=1.2, mesh=None, streaming=False, col_mask=None):
     """Full-softmax ArcFace/AM/SV loss over ``num_classes = weights.shape[0]``.
 
     Labels are class ids (no outlier rows). Returns (mean CE, metrics with
     ``ce`` and ``train_acc``). With ``streaming`` the class axis is streamed
     and ``train_acc`` is ``gt >= top1`` of the target-excluded running
-    top-1 (ties count as correct); the dense branch takes the argmax."""
+    top-1 (ties count as correct); the dense branch takes the argmax.
+    ``col_mask`` [C] (dense branch only) takes columns out of the
+    denominator and out of the argmax (partial-FC duplicate masking)."""
     _refuse_mesh(mesh)
     if streaming:
+        if col_mask is not None:
+            raise ValueError("col_mask is a dense (sampled) path feature")
         ce, _neg, top1, gt = MarginSoftmax.apply(emb.float().contiguous(), weights, labels,
                                                  loss_type, float(margin), float(scale), 1,
                                                  float(mask_svfc))
@@ -52,6 +90,8 @@ def margin_softmax_loss(emb, weights, labels, *, loss_type="Arc", margin=0.5, sc
         acc = (gt >= top1[:, 0]).float().mean()
         return loss, {"ce": loss.detach(), "train_acc": acc}
     logits = cosine_logits(emb, weights)
+    if col_mask is not None:
+        logits = torch.where(col_mask[None, :], logits, NEG_INF)
     modified = margin_logits(logits, labels, loss_type=loss_type, margin=margin,
                              mask_svfc=mask_svfc) * scale
     logz = torch.logsumexp(modified, dim=-1)
@@ -59,3 +99,20 @@ def margin_softmax_loss(emb, weights, labels, *, loss_type="Arc", margin=0.5, sc
     acc = (logits.argmax(dim=-1) == labels.long()).float().mean()
     loss = ce.mean()
     return loss, {"ce": loss.detach(), "train_acc": acc.detach()}
+
+
+def sampled_margin_softmax_loss(emb, weights, labels, rand, num_sampled: int, *, loss_type="Arc",
+                                margin=0.5, scale=32.0, mask_svfc=1.2):
+    """Partial-FC class sampling (``partial_fc.sampled_margin_softmax_loss``):
+    the CE denominator over the batch's classes plus the random negatives
+    ``rand`` [num_sampled − B] (``sample_classes``), duplicates masked, so
+    the classifier product and its gradient touch ``num_sampled`` rows.
+    Gradients reach the sampled rows through the gather; masked columns
+    get exact zeros. Returns (mean CE, metrics with ``sampled_classes``)."""
+    if num_sampled < emb.shape[0]:
+        raise ValueError("num_sampled must cover the batch's positives")
+    sampled, local_labels, valid = sample_classes(labels, weights.shape[0], num_sampled, rand)
+    loss, metrics = margin_softmax_loss(emb, weights[sampled.long()], local_labels,
+                                        loss_type=loss_type, margin=margin, scale=scale,
+                                        mask_svfc=mask_svfc, col_mask=valid)
+    return loss, dict(metrics, sampled_classes=num_sampled)

@@ -10,6 +10,10 @@ and ``--device`` (default ``cuda``; ``cpu`` must be asked for).
         --batch_size 128 --synthetic --set pool.fuse_forward=true
     python -m vlsfr_tpu_torch.train --net_type ir50 --head full_softmax \\
         --batch_size 128 --synthetic --set pool.num_classes=1048576
+    # the softmax head's sparse routes: D (sparse d_w) or E (partial-FC)
+    python -m vlsfr_tpu_torch.train --net_type ir50 --head full_softmax \\
+        --batch_size 128 --synthetic --set pool.num_classes=1048576 \\
+        --set pool.sparse_update=true    # or: --set pool.sample_rate=0.1
 """
 
 from __future__ import annotations

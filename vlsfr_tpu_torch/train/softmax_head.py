@@ -2,7 +2,7 @@
 ``vlsfr_tpu/train/softmax_head.py``, single device).
 
 One backbone, one classifier ``[num_classes, feat_dim]`` (rows normalised
-on every forward) and the margin-softmax CE, on one of three routes:
+on every forward) and the margin-softmax CE, on one of five routes:
 
 * A. fused-SGD streaming — the default at ``num_classes >=
   pool.streaming_threshold`` with SGD and no gradient clipping: the head
@@ -13,11 +13,27 @@ on every forward) and the margin-softmax CE, on one of three routes:
   ``pool.fused_update=off`` or gradient clipping: ``MarginSoftmax``
   forward and backward, a dense d_w, one SGD over backbone and classifier;
 * C. dense — below the threshold or ``pool.use_fused=off``: the ``[B, C]``
-  cosines in plain PyTorch.
+  cosines in plain PyTorch;
+* D. sparse-d_w streaming — streaming with ``pool.sparse_update``: the
+  exact loss, the classifier gradient truncated to the most relevant class
+  tiles (``ops/margin_stream.streaming_sparse_margin_grads``, rate
+  ``pool.sparse_grad_rate``), the exact d_emb, and a sparse row update;
+* E. partial-FC sampling — ``pool.sample_rate > 0``: the CE denominator
+  over the batch's classes plus sampled negatives
+  (``parallel/partial_fc.sample_classes``), with a sparse row update
+  (``pool.sparse_update``) or the dense optimizer.
 
-Not ported yet, and refused: the sparse-d_w streaming head
-(``pool.sparse_update``), partial-FC sampling (``pool.sample_rate > 0``),
-bf16 classifier or momentum storage, and a class-sharded mesh.
+Routes D and E with ``sparse_update`` keep the classifier outside the
+optimizer with a bare f32 momentum buffer and a per-row last-visit step
+(``train/sparse_classifier.py``). Their random draws — route D's random
+tile fill, route E's sampled negatives — come from ``tile_fill_draws`` and
+``sample_draws``: a generator on the classifier's device seeded from a
+fixed seed and the step (JAX folds the step into ``PRNGKey(23)`` and
+``PRNGKey(17)``; the two give other numbers, and the tests feed JAX's draws
+to both).
+
+Not ported yet, and refused: bf16 classifier storage, bf16 momentum on
+route A, and a class-sharded mesh.
 """
 
 from __future__ import annotations
@@ -28,11 +44,37 @@ import torch
 from torch import nn
 
 from vlsfr_tpu_torch.config import Config
-from vlsfr_tpu_torch.ops.margin_stream import streaming_margin_grads_fused_sgd
+from vlsfr_tpu_torch.ops.margin_stream import (
+    sparse_bwd_geometry,
+    sparse_m_tiles,
+    streaming_margin_grads_fused_sgd,
+    streaming_sparse_margin_grads,
+)
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
-from vlsfr_tpu_torch.parallel.partial_fc import margin_softmax_loss
+from vlsfr_tpu_torch.parallel.partial_fc import margin_softmax_loss, sample_classes
+from vlsfr_tpu_torch.train.sparse_classifier import sparse_sgd_rows
 from vlsfr_tpu_torch.utils.device import resolve_device
+
+TILE_FILL_SEED = 23  # route D's random tile fill (JAX: PRNGKey(23) folded with the step)
+SAMPLE_SEED = 17  # route E's sampled negatives (JAX: PRNGKey(17) folded with the step)
+
+
+def _step_generator(seed: int, step: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + int(step))
+
+
+def tile_fill_draws(step: int, n_tiles: int, device) -> torch.Tensor:
+    """Route D's uniform draws [n_tiles] f32 in [0, 1) for step ``step``."""
+    return torch.rand((n_tiles,), generator=_step_generator(TILE_FILL_SEED, step, device),
+                      device=device)
+
+
+def sample_draws(step: int, n: int, num_classes: int, device) -> torch.Tensor:
+    """Route E's negative class draws [n] int32 in [0, num_classes) for
+    step ``step``."""
+    return torch.randint(0, num_classes, (n,), generator=_step_generator(SAMPLE_SEED, step, device),
+                         device=device, dtype=torch.int32)
 
 
 @dataclass
@@ -42,9 +84,10 @@ class SoftmaxState:
 
     step: int
     backbone: nn.Module
-    classifier: torch.Tensor  # [C, D] f32; a leaf with a gradient on routes B and C
-    optimizer: torch.optim.Optimizer  # backbone, plus the classifier on routes B and C
-    classifier_mom: torch.Tensor | None = None  # route A: [C, D], updated in place
+    classifier: torch.Tensor  # [C, D] f32; a leaf with a gradient on routes B, C and dense E
+    optimizer: torch.optim.Optimizer  # backbone, plus the classifier on routes B, C, dense E
+    classifier_mom: torch.Tensor | None = None  # routes A, D, sparse E: [C, D] f32, in place
+    classifier_last: torch.Tensor | None = None  # routes D, sparse E: [C] int32 last-visit step
 
 
 def _streaming_on(cfg: Config) -> bool:
@@ -70,14 +113,20 @@ def _fused_update_on(cfg: Config) -> bool:
     return eligible
 
 
+def _sparse_classifier_mode(cfg: Config) -> bool:
+    """True on routes D and sparse E: the classifier is updated by
+    ``sparse_sgd_rows`` with a bare momentum buffer, outside the
+    optimizer."""
+    if not cfg.pool.sparse_update:
+        return False
+    return cfg.pool.sample_rate > 0 or _streaming_on(cfg)
+
+
 def check_ported(cfg: Config) -> None:
     """Raise NotImplementedError for an option of this head that is not
     ported yet."""
     pool = cfg.pool
     for what, on in (
-            ("pool.sample_rate > 0 (partial-FC sampling)", pool.sample_rate > 0),
-            ("pool.sparse_update with the streaming head (sparse d_w)",
-             pool.sparse_update and _streaming_on(cfg)),
             ("pool.classifier_dtype=bfloat16", pool.classifier_dtype != "float32"),
             ("pool.classifier_mom_dtype=bfloat16",
              pool.classifier_mom_dtype != "float32" and _fused_update_on(cfg)),
@@ -90,9 +139,10 @@ def create_softmax_state(model: nn.Module, cfg: Config, num_classes: int, *, dev
                          seed: int = 0, classifier: torch.Tensor | None = None) -> SoftmaxState:
     """Backbone = ``model`` on the device, a classifier drawn as 0.01·N(0, 1)
     from a generator seeded with ``seed`` (or ``classifier`` as given), and
-    the optimizer; on route A a zero momentum buffer beside the classifier
-    (optax's trace starts at zero too). Runs on ``cuda`` unless ``device``
-    says otherwise; raises without a card."""
+    the optimizer; on routes A, D and sparse E a zero f32 momentum buffer
+    beside the classifier (optax's trace starts at zero too), on D and
+    sparse E also a zero last-visit step per row. Runs on ``cuda`` unless
+    ``device`` says otherwise; raises without a card."""
     check_ported(cfg)
     dev = resolve_device(device)
     backbone = model.to(dev)
@@ -102,10 +152,13 @@ def create_softmax_state(model: nn.Module, cfg: Config, num_classes: int, *, dev
                                  device=dev).mul_(0.01)
     else:
         classifier = classifier.to(dev, torch.float32).contiguous()
-    if _fused_update_on(cfg):
+    if _fused_update_on(cfg) or _sparse_classifier_mode(cfg):
+        last = None
+        if _sparse_classifier_mode(cfg):
+            last = torch.zeros((num_classes,), dtype=torch.int32, device=dev)
         return SoftmaxState(step=0, backbone=backbone, classifier=classifier,
                             optimizer=make_optimizer(cfg.optim, backbone.parameters()),
-                            classifier_mom=torch.zeros_like(classifier))
+                            classifier_mom=torch.zeros_like(classifier), classifier_last=last)
     classifier.requires_grad_(True)
     return SoftmaxState(step=0, backbone=backbone, classifier=classifier,
                         optimizer=make_optimizer(cfg.optim, [*backbone.parameters(), classifier]))
@@ -118,11 +171,66 @@ def make_softmax_train_step(cfg: Config, schedule):
     check_ported(cfg)
     streaming = _streaming_on(cfg)
     fused = _fused_update_on(cfg)
+    sparse = _sparse_classifier_mode(cfg)
+    c = cfg.pool.num_classes
     loss_kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
                    mask_svfc=cfg.loss.mask_svfc)
     sgd_kw = dict(momentum=cfg.optim.momentum, nesterov=cfg.optim.nesterov,
                   weight_decay=cfg.optim.weight_decay)
     grad_clip = cfg.optim.grad_clip
+    num_sampled = 0
+    if cfg.pool.sample_rate > 0:  # route E
+        num_sampled = max(cfg.data.batch_size, int(c * cfg.pool.sample_rate))
+    elif streaming and cfg.pool.sparse_update:  # route D
+        tile, n_tiles = sparse_bwd_geometry(cfg.data.batch_size, cfg.model.feat_dim, c)
+        m_tiles = sparse_m_tiles(cfg.pool.sparse_grad_rate, n_tiles, cfg.data.batch_size)
+
+    def head(state, emb, labels, lr, dev) -> tuple[torch.Tensor, dict]:
+        """The head's loss and metrics; the backbone's gradient is in place
+        afterwards, and on routes A and D the classifier's update too."""
+        b = emb.shape[0]
+        if num_sampled:  # route E
+            rand = sample_draws(state.step, num_sampled - b, c, dev)
+            sampled, local_labels, valid = sample_classes(labels, c, num_sampled, rand)
+            w_sub = state.classifier[sampled.long()]
+            if sparse:
+                w_sub = w_sub.detach().requires_grad_(True)
+            loss, metrics = margin_softmax_loss(emb, w_sub, local_labels, col_mask=valid,
+                                                **loss_kw)
+            loss.backward()
+            if sparse:  # masked columns carry exact-zero gradients: route them to the drop
+                with torch.no_grad():
+                    sparse_sgd_rows(state.classifier, state.classifier_mom,
+                                    torch.where(valid, sampled, c), w_sub.grad, lr=lr,
+                                    last_visit=state.classifier_last, step=state.step, **sgd_kw)
+            return loss, dict(metrics, sampled_classes=num_sampled)
+        if not (fused or sparse):  # routes B and C
+            loss, metrics = margin_softmax_loss(emb, state.classifier, labels,
+                                                streaming=streaming, **loss_kw)
+            loss.backward()
+            return loss, metrics
+        # routes A and D: loss = mean(ce), analytic output cotangents (no outlier rows)
+        d_ce = torch.full((b,), 1.0 / b, device=dev)
+        d_neg = torch.zeros_like(d_ce)
+        with torch.no_grad():
+            if fused:
+                ce, _neg, topk, gt, d_emb, _, _ = streaming_margin_grads_fused_sgd(
+                    emb.detach(), state.classifier, state.classifier_mom, labels, d_ce, d_neg, lr,
+                    hard_neg=1, **sgd_kw, **loss_kw)
+            else:
+                ce, _neg, topk, gt, d_emb, row_idx, d_w_rows = streaming_sparse_margin_grads(
+                    emb.detach(), state.classifier, labels, d_ce, d_neg, m_tiles=m_tiles,
+                    hard_neg=1, tile=tile, u=tile_fill_draws(state.step, n_tiles, dev),
+                    **loss_kw)
+        emb.backward(d_emb.to(emb.dtype))
+        loss = ce.mean()
+        metrics = {"ce": loss, "train_acc": (gt >= topk[:, 0]).float().mean()}
+        if not fused:
+            with torch.no_grad():  # row_idx entries >= C (padding) are dropped
+                sparse_sgd_rows(state.classifier, state.classifier_mom, row_idx, d_w_rows, lr=lr,
+                                last_visit=state.classifier_last, step=state.step, **sgd_kw)
+            metrics["grad_rows"] = row_idx.shape[0]
+        return loss, metrics
 
     def step(state: SoftmaxState, images, labels, lr_scale: float = 1.0) -> dict:
         dev = state.classifier.device
@@ -132,22 +240,7 @@ def make_softmax_train_step(cfg: Config, schedule):
         opt.zero_grad(set_to_none=True)
         lr = float(schedule(state.step)) * float(lr_scale)
         state.backbone.train()
-        emb = state.backbone(images)
-        if fused:
-            # loss = mean(ce): analytic output cotangents (no outlier rows)
-            b = emb.shape[0]
-            d_ce = torch.full((b,), 1.0 / b, device=dev)
-            with torch.no_grad():
-                ce, _neg, topk, gt, d_emb, _, _ = streaming_margin_grads_fused_sgd(
-                    emb.detach(), state.classifier, state.classifier_mom, labels, d_ce,
-                    torch.zeros_like(d_ce), lr, hard_neg=1, **sgd_kw, **loss_kw)
-            emb.backward(d_emb.to(emb.dtype))
-            loss = ce.mean()
-            metrics = {"ce": loss, "train_acc": (gt >= topk[:, 0]).float().mean()}
-        else:
-            loss, metrics = margin_softmax_loss(emb, state.classifier, labels,
-                                                streaming=streaming, **loss_kw)
-            loss.backward()
+        loss, metrics = head(state, state.backbone(images), labels, lr, dev)
         with torch.no_grad():
             params = [p for group in opt.param_groups for p in group["params"]]
             for p in params:
@@ -159,7 +252,6 @@ def make_softmax_train_step(cfg: Config, schedule):
         set_learning_rate(opt, lr)
         opt.step()
         state.step += 1
-        return {"loss": loss.detach(), "ce": metrics["ce"], "train_acc": metrics["train_acc"],
-                "lr": lr}
+        return dict(metrics, loss=loss.detach(), lr=lr)
 
     return step

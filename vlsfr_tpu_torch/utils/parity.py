@@ -11,6 +11,10 @@ rounding of the stored output (``rounding`` × f32 eps × its largest value:
 the kernel and the plain version round the same sums in another order and
 with or without FMA).
 
+A sparse backward's d_w rows follow the selected tiles' layout, so its
+label rows are the rows of that layout that hold a batch label
+(``sparse_label_rows``).
+
 Used by ``chip_smoke.py`` and the tests in ``tests/test_torch_kernels.py``.
 """
 
@@ -37,15 +41,30 @@ def whole(name: str, got, want, ref, rtol: float, rounding: float = 2.0) -> dict
     return {"name": name, "err": float((got - want).abs().max()), "limit": limit}
 
 
-def by_rows(name: str, got, want, ref, labels, rtol: float, rounding: float = 0.0) -> list[dict]:
+def sparse_label_rows(labels: torch.Tensor, tile_idx: torch.Tensor, tile: int) -> torch.Tensor:
+    """[M·tile] bool: the rows of a sparse backward's d_w layout (the
+    selected tiles in ``tile_idx`` order) that hold a batch label."""
+    from vlsfr_tpu_torch.ops.margin_stream import _label_flat_pos
+
+    present, flat = _label_flat_pos(labels, tile_idx, tile)
+    mask = torch.zeros(tile_idx.shape[0] * tile, dtype=torch.bool, device=labels.device)
+    mask[flat[present]] = True
+    return mask
+
+
+def by_rows(name: str, got, want, ref, labels, rtol: float, rounding: float = 0.0,
+            is_label=None) -> list[dict]:
     """max |got − want| on the label rows and on the other rows of [C, D]
     tensors, each against rtol × max |ref| + rounding × eps × max |want|
     over the same rows. One entry per non-empty row set, with the set's
-    max |ref| and max |want| beside its error and limit."""
+    max |ref| and max |want| beside its error and limit. ``is_label``
+    [rows] bool names the label rows where they are not the class ids
+    (a sparse layout: ``sparse_label_rows``)."""
     err = (got - want).abs().amax(dim=1)
     ref_max = ref.abs().amax(dim=1)
     out_max = want.abs().amax(dim=1)
-    is_label = label_rows(got.shape[0], labels.to(got.device))
+    if is_label is None:
+        is_label = label_rows(got.shape[0], labels.to(got.device))
     out = []
     for rows, mask in (("label rows", is_label), ("other rows", ~is_label)):
         if not bool(mask.any()):
@@ -105,6 +124,66 @@ def margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, kw: d
         raise RuntimeError("margin_ce_bwd_fused_sgd did not update W and mom in place")
     fused = [whole("fused d_emb", de_k, de_p, de_p - emb_term, 1e-4)]
     return bwd, fused + sgd_update(w_k, mom_k, w_p, mom_p, mom0, labels, lr, sgd["momentum"])
+
+
+def fwd_stats_checks(maxz_k, maxcos_k, maxz_p, maxcos_p, scale: float,
+                     tol: float = 1e-5) -> list[dict]:
+    """The forward's tile statistics against the plain ones: maxcos to
+    ``tol`` absolute (f32 cosines summed in another order), maxz = scale ×
+    a cosine (or scale·φ(gt)) to scale × ``tol``."""
+    return [{"name": "maxcos", "err": float((maxcos_k - maxcos_p).abs().max()), "limit": tol},
+            {"name": "maxz", "err": float((maxz_k - maxz_p).abs().max()), "limit": scale * tol}]
+
+
+def margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, kw: dict,
+                                tile: int) -> list[dict]:
+    """The sparse backward against its plain version on the same
+    ``tile_idx``. The wrapper ``margin_ce_bwd_sparse`` (what route D calls)
+    against ``margin_ce_bwd_sparse_plain``: the whole d_emb to 1e-4 × its
+    streamed part's max (the target term, which plain torch adds on both
+    sides, left out of the reference) + 2 f32 eps; the d_w rows by row set
+    (the rows that hold a batch label / the others) to 1e-4 × the set's
+    max|d_w|. Then the kernel's parts before the target term: the streamed
+    d_emb alone, to the same limit, and d_gt, the target column's dz, to
+    1e-5 × max(1, max|d_gt|) (one exp in another library)."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    args = (emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx)
+    sde_p, _, dgt_p = tms._sparse_parts_plain(*args, tile=tile, **kw)
+    de_k, dw_k = tms.margin_ce_bwd_sparse(*args, tile=tile, **kw)
+    de_p, dw_p = tms.margin_ce_bwd_sparse_plain(*args, tile=tile, **kw)
+    out = [whole("sparse d_emb", de_k, de_p, sde_p, 1e-4)]
+    out += by_rows("sparse d_w", dw_k, dw_p, dw_p, labels, 1e-4,
+                   is_label=sparse_label_rows(labels, tile_idx, tile))
+    del dw_k, dw_p
+    sde_k, _, dgt_k = tms._sparse_parts_cuda(*args, tile=tile, **kw)
+    out.append(whole("sparse d_emb (streamed)", sde_k, sde_p, sde_p, 1e-4))
+    out.append({"name": "sparse d_gt", "err": float((dgt_k - dgt_p).abs().max()),
+                "limit": 1e-5 * max(1.0, float(dgt_p.abs().max()))})
+    return out
+
+
+def sparse_path_checks(emb, w, labels, d_ce, d_neg, kw: dict, tile: int, m_tiles: int, u):
+    """Route D's kernels against their plain versions on one case: the
+    forward with statistics (ce / neg / logz 1e-4 and top-k 1e-5 absolute,
+    then ``fwd_stats_checks``), tiles selected from the PLAIN statistics
+    (``u`` the random fill's draws), and the sparse backward on those same
+    tiles (``margin_ce_bwd_sparse_checks``), so selection noise cannot mask
+    a kernel fault. Returns (checks, tile_idx, (gt, logz, topk))."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    gt = tms.compute_gt(emb, w, labels)
+    got = tms.margin_ce_fwd(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
+    want = tms.margin_ce_fwd_plain(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
+    checks = [{"name": name, "err": float((g - wn).abs().max()), "limit": tol}
+              for name, g, wn, tol in zip(("ce", "neg", "logz", "topk"), got, want,
+                                          (1e-4, 1e-4, 1e-4, 1e-5))]
+    checks += fwd_stats_checks(got[4], got[5], want[4], want[5], kw["scale"])
+    _, _, logz, topk, maxz, maxcos = want
+    tile_idx, _ = tms.select_relevant_tiles(maxz, maxcos, logz, topk, labels, m_tiles, tile, u=u)
+    checks += margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx,
+                                          kw, tile)
+    return checks, tile_idx, (gt, logz, topk)
 
 
 def failures(checks: list[dict]) -> list[dict]:
