@@ -75,7 +75,30 @@ E: partial-FC at sample_rate 0.1, both with sparse row updates):
    the step's d_w rows (catch-up included); a profile of two warm steps;
 14. training, route E — 2 steps: finite loss, 104,857 sampled classes, no
    margin_ce launch;
-15. the ``kernels`` JSON line, then the device JSON line last.
+Sharded FFC slice (the FFC step model-sharded, ``pool.force_sharded`` on one
+card over a real NCCL group of one):
+15. parity — the partial kernels at the FFC slice's full width (phase 3's
+   case, its slots spread over the queue by an odd multiplier so that every
+   block owns targets and some row's target and write lie in different
+   blocks): the queue as one block of 2^20 and as four emulated shards of
+   2^18, each block's kernels against their plain versions and the blocks
+   merged as the collectives merge them against quad_fwd / quad_bwd on the
+   whole queue (``vlsfr_tpu_torch/utils/parity.py: quad_shard_checks``,
+   limits there); then AM and SV at Q = 4096 in four blocks;
+16. timing — both partial kernels over a 2^20 block (world 1) and a 2^18
+   block (a 4-card shard): kernel, plain version, the phase-4 yardstick over
+   the block, bound;
+17. training — ``Trainer`` with ``pool.force_sharded=true``: its first step
+   against the single-shard Trainer's first step from the same seed and
+   batch, both with an f32 backbone (loss 1e-5 relative, probe parameters
+   and BN statistics 1e-5 relative + 2e-5 absolute, the queue after the
+   write bit-equal; bf16 compute rounds each weight gradient to 8 bits,
+   which would hide the head behind its rounding); then, on the slice's
+   bf16 config, 4
+   steps through ``Trainer.train``, each partial kernel launching once per
+   step and quad_fwd / quad_bwd never; step time, peak memory and a profile
+   of two warm steps (NCCL's share included); the process group destroyed;
+18. the ``kernels`` JSON line, then the device JSON line last.
 
 The script imports nothing of JAX. Without a CUDA device it exits non-zero
 before printing any result.
@@ -104,6 +127,8 @@ ROUTE_B_STEPS = 2
 ROUTE_E_STEPS = 2
 SPARSE_RATE = 0.05  # route D's pool.sparse_grad_rate: 128 of 2048 tiles
 SAMPLE_RATE = 0.1  # route E's pool.sample_rate: 104,857 sampled classes
+SHARDS = 4  # the emulated shards of phase 15: a 4-card run's 2^18-slot blocks
+SLOT_MULT = 0x9E3779B1  # odd: slot -> slot * SLOT_MULT mod Q permutes a 2^k queue
 
 
 def smi_line() -> str:
@@ -126,14 +151,15 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def make_case(q: int, b: int, d: int, k: int, loss_type: str, seed: int):
-    """Packed kernel inputs from a realistic write plan: the port's DCP
-    planner after a few warm-up steps (pool hits, seen flags, in-pool probe
-    labels), with one label three times in each gallery half so two writes
-    land on the same (row, slot)."""
+def raw_case(q: int, b: int, d: int, seed: int):
+    """A queue, probes, gallery rows and a realistic write plan: the port's
+    DCP planner after a few warm-up steps (pool hits, seen flags, in-pool
+    probe labels), with one label three times in each gallery half so two
+    writes land on the same (row, slot). Returns the queue, the generator
+    (for more draws) and (p_x, p_y, g_a, g_b, plan_a, plan_b, labels_a,
+    labels_b)."""
     from vlsfr_tpu_torch.core.dcp import DCPManager
     from vlsfr_tpu_torch.core.ffc import init_queue
-    from vlsfr_tpu_torch.ops import twin_margin as ttm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -159,12 +185,20 @@ def make_case(q: int, b: int, d: int, k: int, loss_type: str, seed: int):
     pa = (t(plan.a.rows), t(plan.a.cols), t(plan.a.seen))
     pb = (t(plan.b.rows), t(plan.b.cols), t(plan.b.seen))
     la, lb = t(plan.a.fake_labels), t(plan.b.fake_labels)
+    return queue, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb)
+
+
+def make_case(q: int, b: int, d: int, k: int, loss_type: str, seed: int):
+    """Packed kernel inputs of ``raw_case``, and cotangents."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    queue, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb) = raw_case(q, b, d, seed)
     packed = ttm.pack_dirs(p_x, p_y, ttm.dir_inputs(queue, g_a, *pa),
                            ttm.dir_inputs(queue, g_b, *pb), la, lb,
                            ttm.compute_twin_gt(p_x, queue, g_a, *pa, la),
                            ttm.compute_twin_gt(p_y, queue, g_b, *pb, lb))
     kw = dict(b=b, loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
-    cot = torch.randn((4, 2 * b), generator=gen, device=dev) / b
+    cot = torch.randn((4, 2 * b), generator=gen, device=queue.device) / b
     pos = (packed[6] >= 0)[None, :]
     dce = torch.where(pos, cot[:2], 0.0).contiguous()
     dneg = torch.where(pos, 0.0, cot[2:]).contiguous()
@@ -273,6 +307,8 @@ def kernel_family(name: str) -> str:
         return "convolution / GEMM"
     if any(s in low for s in ("elementwise", "reduce", "batch_norm", "softmax")):
         return "elementwise / reduce"
+    if "nccl" in low:
+        return "NCCL collectives"
     if "memcpy" in low or "memset" in low:
         return "copies"
     return "other"
@@ -323,9 +359,10 @@ def profile_steps(run_step, batches) -> None:
         print(f"    {ms:9.3f} ms  x{count:<5d} {name[:110]}")
 
 
-def train_phase(card: str):
+def ffc_trainer(saved_dir: str, *overrides: str):
+    """The FFC slice's Trainer (ir50, 512-d, batch 128, 2^20-slot f32 queue,
+    Arc, fuse_forward, bf16 compute) over a raw-pixel synthetic store."""
     from vlsfr_tpu_torch.config import Config
-    from vlsfr_tpu_torch.ops import twin_margin as ttm
     from vlsfr_tpu_torch.train.trainer import Trainer
 
     cfg = Config().apply_overrides([
@@ -333,12 +370,18 @@ def train_phase(card: str):
         "data.batch_size=128", "data.image_size=112", f"pool.queue_size={1 << 20}",
         "pool.queue_dtype=float32", "loss.loss_type=Arc", "loss.margin=0.5", "loss.scale=32",
         "pool.fuse_forward=true", "data.synthetic_ids=200", "data.synthetic_images_per_id=3",
-        "data.num_workers=4", "train.print_freq=1", "optim.lr=0.1"])
+        "data.num_workers=4", "train.print_freq=1", "optim.lr=0.1", *overrides])
     cfg.data.synthetic = True
+    cfg.train.saved_dir = saved_dir
+    return Trainer(cfg)  # the normal entry point; runs on cuda
+
+
+def train_phase(card: str):
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        cfg.train.saved_dir = tmp
         torch.cuda.reset_peak_memory_stats()
-        trainer = Trainer(cfg)  # the normal entry point; runs on cuda
+        trainer = ffc_trainer(tmp)
         try:
             if trainer.steps_per_epoch < TRAIN_STEPS:
                 raise RuntimeError(f"the store holds {trainer.steps_per_epoch} steps, "
@@ -369,7 +412,8 @@ def train_phase(card: str):
 def check_training(trainer, out: dict, launches: dict) -> None:
     """Finite loss, one launch of each quad kernel per step, unit rows in
     the queue, and probe embeddings that agree with the same net on the CPU."""
-    if not all(n == TRAIN_STEPS for n in launches.values()):
+    if launches != {"quad_fwd": TRAIN_STEPS, "quad_bwd": TRAIN_STEPS, "quad_partial_fwd": 0,
+                    "quad_partial_bwd": 0}:
         raise RuntimeError(f"each quad kernel must launch once per step: {launches}")
     if not (math.isfinite(out["loss"]) and out["loss"] > 0 and out["final_step"] == TRAIN_STEPS):
         raise RuntimeError(f"training did not produce a finite loss: {out}")
@@ -848,6 +892,191 @@ def route_e_phase(card: str, tmp: str) -> None:
         free_trainer(trainer)
 
 
+def shard_case(q: int, loss_type: str, seed: int):
+    """``raw_case`` with its slots moved by slot -> slot·SLOT_MULT mod q (a
+    permutation: duplicates, written labels and pool hits keep their
+    structure) so that the targets spread over the SHARDS blocks; asserts
+    that every block owns targets and that some row's target and write lie
+    in different blocks. Returns quad_shard_checks's inputs and the loss
+    arguments."""
+    b, d, k = SLICE["b"], SLICE["d"], SLICE["k"]
+    queue, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb) = raw_case(q, b, d, seed)
+    move = lambda c: torch.where(c >= 0, (c.long() * SLOT_MULT) % q, c.long()).to(c.dtype)  # noqa: E731
+    pa, pb = (pa[0], move(pa[1]), pa[2]), (pb[0], move(pb[1]), pb[2])
+    la, lb = move(la), move(lb)
+    c_local = q // SHARDS
+    labels = torch.cat([la, lb])
+    owners = set((labels[labels >= 0] // c_local).tolist())
+    split = ((la >= 0) & (la // c_local != pa[1] // c_local)).any()
+    if owners != set(range(SHARDS)) or not split:
+        raise RuntimeError(f"the case must put targets in every block ({sorted(owners)}) and a "
+                           f"row's target and write in different blocks ({bool(split)})")
+    cot = torch.randn((4, 2 * b), generator=gen, device=queue.device) / b
+    pos = (labels >= 0)[None, :]
+    dce = torch.where(pos, cot[:2], 0.0).contiguous()
+    dneg = torch.where(pos, 0.0, cot[2:]).contiguous()
+    kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
+    print(f"  case Q={q} {loss_type}: {int(pos.sum())}/{2 * b} in-pool probe rows, targets in "
+          f"all {SHARDS} blocks")
+    return (p_x, p_y, queue, g_a, g_b, pa, pb, la, lb, dce, dneg), kw
+
+
+def shard_parity(case, kw, n_shards: int) -> dict:
+    """quad_shard_checks on one case; raises above a limit. Returns the
+    max errors of the partial forward (state and top-k) and backward
+    (d_emb)."""
+    from vlsfr_tpu_torch.utils import parity
+
+    checks = parity.quad_shard_checks(*case, kw, n_shards=n_shards)
+    torch.cuda.synchronize()
+    for c in checks:
+        print("    " + parity.describe(c))
+    bad = parity.failures(checks)
+    if bad:
+        raise RuntimeError("the sharded quad head disagrees: "
+                           + "; ".join(map(parity.describe, bad)))
+    errs = lambda *keys: max(c["err"] for c in checks  # noqa: E731
+                             if c["name"].startswith("block") and c["name"].endswith(keys))
+    return {"quad_partial_fwd": errs("m + log s", "top-k"),
+            "quad_partial_bwd": errs("d_emb", "d_gt")}
+
+
+def partial_timing(case, kw) -> dict:
+    """Both partial kernels over a 2^20 block (world 1) and a 2^18 block (a
+    4-card shard): kernel, plain version, the phase-4 yardstick over the
+    block, and the bound. Returns {(name, columns): times}."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.parallel.sharded_quad import shard_inputs
+
+    p_x, p_y, queue, g_a, g_b, pa, pb, la, lb, dce, dneg = case
+    b, q = p_x.shape[0], queue.shape[1]
+    labels = torch.cat([la, lb]).to(torch.int32)
+    out = {}
+    for n in (1, SHARDS):
+        q_l = queue[:, :q // n]
+        si = shard_inputs(p_x, p_y, q_l, 0, g_a, g_b, pa, pb, la, lb)
+        if n == 1:  # the global gt, logz and kth, from the whole queue as one block
+            gt = si.gt_parts
+            m, s, t = ttm.quad_partial_fwd(*si.kernel_args(q_l), gt, b=b, bp=b, **kw)
+            logz, topk = ttm.finalize_fwd(m, s, t, labels, gt, loss_type=kw["loss_type"],
+                                          margin=kw["margin"], scale=kw["scale"])[2:]
+            kth = topk[:, :, -1].contiguous()
+        args, pkw = si.kernel_args(q_l), dict(b=b, bp=b, **kw)
+        bwd_args = (*args, gt, logz, kth, dce, dneg)
+        q0 = q_l[0]
+        r_, d = si.E.shape
+        cols = q0.shape[0]
+        fwd = dict(ms=cuda_ms(lambda: ttm.quad_partial_fwd(*args, gt, **pkw), 10),
+                   plain_ms=cuda_ms(lambda: ttm.quad_partial_fwd_plain(*args, gt, **pkw), 3, 1))
+        bwd = dict(ms=cuda_ms(lambda: ttm.quad_partial_bwd(*bwd_args, **pkw), 10),
+                   plain_ms=cuda_ms(lambda: ttm.quad_partial_bwd_plain(*bwd_args, **pkw), 3, 1))
+
+        def library_fwd():  # yardsticks only: the port never calls these
+            cos = torch.matmul(si.E, q0.T)
+            torch.logsumexp(kw["scale"] * cos, dim=1)
+            torch.topk(cos, kw["k"], dim=1)
+
+        d_cos = torch.randn((r_, cols), device=q0.device).mul_(1e-4)
+
+        def library_bwd():
+            torch.matmul(si.E, q0.T)
+            torch.matmul(d_cos, q0)
+
+        fwd["library_ms"] = cuda_ms(library_fwd, 5, 1)
+        bwd["library_ms"] = cuda_ms(library_bwd, 5, 1)
+        del d_cos
+        vec_bytes = 4 * (3 * r_ * d + 6 * r_)  # E, G, V + the [R] / [2, R] row vectors
+        q0_bytes = 4 * cols * d
+        fwd.update(bound(2.0 * r_ * d * cols, q0_bytes + vec_bytes + 4 * 2 * r_ * (2 + kw["k"])))
+        bwd.update(bound(4.0 * r_ * d * cols,
+                         q0_bytes + vec_bytes + 4 * 8 * r_ + 4 * (r_ * d + 2 * r_)))
+        print(f"  a block of {cols} columns:")
+        print_times({"quad_partial_fwd": fwd, "quad_partial_bwd": bwd})
+        out[("quad_partial_fwd", cols)], out[("quad_partial_bwd", cols)] = fwd, bwd
+    return out
+
+
+def sharded_first_step(tmp: str) -> None:
+    """The force_sharded Trainer's first step against the single-shard
+    Trainer's, from phase 5's seed and batch with an f32 backbone: under
+    bf16 compute a weight gradient is rounded to 8 bits, so the last-bit
+    differences of the two heads' d_emb (a torch finalize against the
+    kernel's) move a parameter by up to lr·2^-8·|g|, far above the limits;
+    in f32 the comparison sees the head."""
+    import torch.distributed as dist
+
+    def first_step(*overrides):
+        trainer = ffc_trainer(tmp, "model.dtype=float32", *overrides)
+        try:
+            if overrides and (trainer.mesh is None or dist.get_backend() != "nccl"
+                              or dist.get_world_size() != 1):
+                raise RuntimeError("the sharded route did not run over an NCCL group of one")
+            batch = trainer.pipeline.make_batch(0, 0)
+            idx = trainer.dcp.plan_step(batch.x_label, batch.y_label)
+            loss = float(trainer.train_step(trainer.state, batch.x, batch.y, idx, 1.0)["loss"])
+            params = {k: v.detach().clone() for k, v in trainer.state.probe.state_dict().items()}
+            return loss, params, trainer.state.queue.clone()
+        finally:
+            free_trainer(trainer)
+
+    loss_ref, params_ref, queue_ref = first_step()
+    loss, params, queue = first_step("pool.force_sharded=true")
+    worst = max(float(((v.double() - params_ref[k].double()).abs()
+                       - 1e-5 * params_ref[k].double().abs()).max()) for k, v in params.items())
+    same_queue = torch.equal(queue, queue_ref)
+    print(f"  first step (f32 backbone), sharded against single-shard: loss {loss:.6f} / "
+          f"{loss_ref:.6f} (1e-5 relative); probe parameters and BN statistics "
+          f"max(|diff| - 1e-5 |ref|) {worst:.3e} <= 2e-5; queue after the write bit-equal: "
+          f"{same_queue}")
+    if not (abs(loss - loss_ref) <= 1e-5 * abs(loss_ref) and worst <= 2e-5 and same_queue):
+        raise RuntimeError("the sharded first step disagrees with the single-shard step")
+
+
+def sharded_train_phase(card: str, tmp: str) -> dict:
+    """The sharded first step against the single-shard one, then the
+    force_sharded Trainer (the slice's bf16 config) 4 steps, a profile, and
+    the process group destroyed. Returns the launch counts of the 4-step
+    run."""
+    import torch.distributed as dist
+
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    sharded_first_step(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = ffc_trainer(tmp, "pool.force_sharded=true")
+    try:
+        ttm.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = trainer.train(max_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ttm.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {TRAIN_STEPS} sharded steps: {json.dumps(out)}")
+        print(f"  quad launches in the sharded run: {launches}")
+        want = {"quad_fwd": 0, "quad_bwd": 0, "quad_partial_fwd": TRAIN_STEPS,
+                "quad_partial_bwd": TRAIN_STEPS}
+        if launches != want or not (math.isfinite(out["loss"]) and out["loss"] > 0
+                                    and out["final_step"] == TRAIN_STEPS):
+            raise RuntimeError(f"the sharded step must launch each partial kernel once per "
+                               f"step and no quad kernel: {launches}, {out}")
+        step_ms = 2 * SLICE["b"] / out["images_per_sec"] * 1e3
+        print(f"  sharded step time {step_ms:.1f} ms (last window, {card}); {TRAIN_STEPS} steps "
+              f"{wall:.2f} s wall incl. the first window; peak memory {peak / 2**30:.2f} GiB "
+              f"({card})")
+        print("== phase 17b: profile of two more sharded steps")
+        state, scale = trainer.state, trainer.plateau.scale
+        profile_steps(lambda b: trainer.train_step(state, b.x, b.y, trainer.dcp.plan_step(
+            b.x_label, b.y_label), scale), [trainer.pipeline.make_batch(0, s) for s in range(2)])
+    finally:
+        free_trainer(trainer)
+    if dist.is_initialized():
+        raise RuntimeError("the process group outlived its trainer")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -927,6 +1156,30 @@ def main() -> int:
         launches["margin_ce_bwd_sparse"] = route_d_phase(card, tmp, ref_b)["margin_ce_bwd_sparse"]
         print("== phase 14: route E (partial-FC sampling, sparse rows) through the Trainer")
         route_e_phase(card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("== phase 15: partial quad kernels and the shard merge at full width; limits in "
+              "vlsfr_tpu_torch/utils/parity.py")
+        full, kw = shard_case(SLICE["q"], "Arc", seed=6)
+        for n in (1, SHARDS):
+            print(f"  the queue as {n} block(s) of {SLICE['q'] // n} columns:")
+            for name, err in shard_parity(full, kw, n).items():
+                errs[name] = max(errs.get(name, 0.0), err)
+        for loss_type in ("AM", "SV"):
+            print(f"  Q=4096 {loss_type} in {SHARDS} blocks:")
+            shard_parity(*shard_case(4096, loss_type, seed=7), SHARDS)
+
+        print("== phase 16: partial quad timing (full width, one block and one 4-card shard)")
+        ptimes = partial_timing(full, kw)
+        times.update({name: t for (name, cols), t in ptimes.items() if cols == SLICE["q"]})
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("== phase 17: the sharded FFC step (pool.force_sharded) through the Trainer")
+        sharded = sharded_train_phase(card, tmp)
+        launches.update({k: sharded[k] for k in ("quad_partial_fwd", "quad_partial_bwd")})
 
     fwd_keys = ("ce", "neg", "logz", "topk")
     kernels = []
@@ -938,7 +1191,10 @@ def main() -> int:
             ("margin_ce_bwd", "margin_ce", "margin_pallas.py:557", serrs["margin_ce_bwd"]),
             ("margin_ce_bwd_fused_sgd", "margin_ce", "margin_pallas.py:803",
              serrs["margin_ce_bwd_fused_sgd"]),
-            ("margin_ce_bwd_sparse", "margin_ce", "margin_pallas.py:1447", sp_errs["sparse"])):
+            ("margin_ce_bwd_sparse", "margin_ce", "margin_pallas.py:1447", sp_errs["sparse"]),
+            ("quad_partial_fwd", "quad_margin", "twin_margin.py:1676", errs["quad_partial_fwd"]),
+            ("quad_partial_bwd", "quad_margin", "twin_margin.py:1748",
+             errs["quad_partial_bwd"])):
         t = times[name]
         if launches[name] < 1:
             raise RuntimeError(f"{name} was not launched on its path")

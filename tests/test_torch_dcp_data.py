@@ -208,6 +208,8 @@ def test_sgd_trajectory_matches_optax(nesterov, weight_decay, momentum, rng):
     ["--head", "full_softmax", "--net_type", "ir50", "--batch_size", "128", "--synthetic",
      "--set", "pool.num_classes=1048576", "--set", "pool.sparse_update=true",
      "--set", "pool.sparse_grad_rate=0.05"],
+    ["--net_type", "ir50", "--queue_size", "1048576", "--batch_size", "128", "--synthetic",
+     "--set", "mesh.model=4", "--set", "mesh.data=1", "--set", "pool.force_sharded=true"],
 ])
 def test_cli_flags_match_train_py(argv):
     """The port's CLI maps the flags of the JAX package's train.py onto the

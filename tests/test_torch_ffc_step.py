@@ -42,6 +42,7 @@ B, Q, D, SIZE = 8, 64, 16, 16
 OVERRIDES = ["model.net_type=toy", f"model.feat_dim={D}", f"pool.queue_size={Q}",
              "model.dtype=float32", "pool.momentum=0.9", "optim.lr=0.05",
              "loss.scale=32", "pool.hard_neg=4"]
+NO_LAUNCH = {"quad_fwd": 0, "quad_bwd": 0, "quad_partial_fwd": 0, "quad_partial_bwd": 0}
 
 
 @pytest.mark.parametrize("use_fused", ["on", "off"])
@@ -88,7 +89,7 @@ def test_trajectory_matches_jax(use_fused, fuse_forward, rng):
             np.testing.assert_allclose(v.numpy(), gwant[k].numpy(), rtol=1e-5, atol=2e-5,
                                        err_msg=f"gallery {k}@{s}")
     assert state.step == 3
-    assert ttm.LAUNCH_COUNTS == {"quad_fwd": 0, "quad_bwd": 0}  # CPU: plain versions only
+    assert ttm.LAUNCH_COUNTS == NO_LAUNCH  # CPU: plain versions only
 
 
 def test_write_rows_last_writer_wins():
@@ -122,7 +123,7 @@ def test_trainer_synthetic_cpu_run(use_fused, tmp_path):
         trainer.close()
     assert out["final_step"] == 4 and trainer.state.step == 4
     assert np.isfinite(out["loss"]) and out["loss"] > 0
-    assert ttm.LAUNCH_COUNTS == {"quad_fwd": 0, "quad_bwd": 0}
+    assert ttm.LAUNCH_COUNTS == NO_LAUNCH
 
 
 def test_entry_points_refuse_without_card_or_unported():
@@ -135,9 +136,15 @@ def test_entry_points_refuse_without_card_or_unported():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_ffc_state(create_net("toy", feat_dim=8), cfg)
     for bad in (["pool.head=full_softmax", "pool.classifier_dtype=bfloat16"],
-                ["train.eval_freq=10"], ["mesh.model=2"]):
+                ["train.eval_freq=10"], ["mesh.data=2"]):
         with pytest.raises(NotImplementedError):
             Trainer(Config().apply_overrides(bad), device="cpu")
+    # the sharded head runs one process per card: mesh.model=2 in one process
+    with pytest.raises(ValueError, match="torchrun --standalone --nproc_per_node=2"):
+        Trainer(cfg.apply_overrides(["mesh.model=2", "pool.use_fused=on"]), device="cpu")
+    if not torch.cuda.is_available():  # the sharded route too runs on cuda unless asked
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(Config().apply_overrides(["pool.use_fused=on", "pool.force_sharded=true"]))
     for bad in (["pool.queue_dtype=int8"], ["pool.gallery_int8=true"]):
         with pytest.raises(NotImplementedError):
             make_train_step(Config().apply_overrides(bad), lambda s: 0.1)

@@ -1,6 +1,7 @@
 """The port imports torch and numpy only: importing every module of
 ``vlsfr_tpu_torch`` in a fresh interpreter loads no JAX-family module and
-nothing of ``vlsfr_tpu``, builds nothing and needs no card."""
+nothing of ``vlsfr_tpu``, builds nothing, creates no process group and
+needs no card."""
 
 import json
 import subprocess
@@ -11,6 +12,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
+import torch.distributed as dist
 import vlsfr_tpu_torch
 names = ["vlsfr_tpu_torch"]
 for m in pkgutil.walk_packages(vlsfr_tpu_torch.__path__, "vlsfr_tpu_torch."):
@@ -19,7 +21,7 @@ for n in names:
     importlib.import_module(n)
 banned = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "vlsfr_tpu"))
-print(json.dumps({"modules": names, "banned": banned}))
+print(json.dumps({"modules": names, "banned": banned, "group": dist.is_initialized()}))
 """
 
 
@@ -28,11 +30,15 @@ def test_port_imports_no_jax_and_no_reference_package():
                          text=True, timeout=300, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["banned"] == []
+    assert res["group"] is False  # importing creates no process group
     for want in ("vlsfr_tpu_torch.ops.twin_margin", "vlsfr_tpu_torch.core.ffc",
                  "vlsfr_tpu_torch.train.trainer", "vlsfr_tpu_torch.train.cli",
                  "vlsfr_tpu_torch.models.from_jax", "vlsfr_tpu_torch.data.pipeline",
                  "vlsfr_tpu_torch.ops.margin_stream", "vlsfr_tpu_torch.parallel.partial_fc",
-                 "vlsfr_tpu_torch.train.softmax_head", "vlsfr_tpu_torch.train.sparse_classifier"):
+                 "vlsfr_tpu_torch.train.softmax_head", "vlsfr_tpu_torch.train.sparse_classifier",
+                 "vlsfr_tpu_torch.parallel.distributed", "vlsfr_tpu_torch.parallel.mesh",
+                 "vlsfr_tpu_torch.parallel._shard_common",
+                 "vlsfr_tpu_torch.parallel.sharded_quad"):
         assert want in res["modules"]
 
 

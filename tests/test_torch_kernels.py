@@ -94,7 +94,7 @@ def test_written_column_uses_last_writer():
                                       torch.zeros(2 * b, dtype=torch.int32), b, 0, q)
     assert int(last0[0, 5]) == 1 and int(last0[1, 3]) == 3 and int(lastb.max()) == -1
     c1, _ = ttm._written_cos(torch.zeros(2 * b, q), E, G, torch.zeros(2 * b, d), last0,
-                             lastb, b)
+                             lastb, b, b)
     assert float(c1[0, 5]) == 0.75
 
 
@@ -104,7 +104,8 @@ def test_cpu_tensors_never_launch():
     _, _, logz, topk = ttm.quad_fwd(packed[0], queue, *packed[1:], **kw)
     ttm.quad_bwd(packed[0], queue, *packed[1:], logz, topk[:, :, -1].contiguous(), dce, dneg,
                  **kw)
-    assert ttm.LAUNCH_COUNTS == {"quad_fwd": 0, "quad_bwd": 0}
+    assert ttm.LAUNCH_COUNTS == {"quad_fwd": 0, "quad_bwd": 0, "quad_partial_fwd": 0,
+                                 "quad_partial_bwd": 0}
 
 
 def _cuda():
@@ -158,7 +159,8 @@ def test_quad_add_margin_on_card_launches_each_kernel_once():
     (lo_a, lo_b), acc = ttm.quad_add_margin(px, py, queue, ga, gb, pa, pb, la, lb,
                                             with_acc=True, **mk)
     (lo_a + lo_b).backward()
-    assert ttm.LAUNCH_COUNTS == {"quad_fwd": 1, "quad_bwd": 1}
+    assert ttm.LAUNCH_COUNTS == {"quad_fwd": 1, "quad_bwd": 1, "quad_partial_fwd": 0,
+                                 "quad_partial_bwd": 0}
     cpu = lambda t: t.detach().cpu()  # noqa: E731
     px_c = cpu(px).requires_grad_(True)
     py_c = cpu(py).requires_grad_(True)
@@ -171,6 +173,107 @@ def test_quad_add_margin_on_card_launches_each_kernel_once():
     np.testing.assert_allclose(float(acc), float(cacc), atol=1e-7)
     scale = float(px_c.grad.abs().max())
     np.testing.assert_allclose(px.grad.cpu().numpy(), px_c.grad.numpy(), atol=1e-4 * scale)
+
+
+# ----------------------------------------------------------------------
+# the quad head's partial kernels (the model-sharded head)
+# ----------------------------------------------------------------------
+
+
+def make_shard_case(seed, b, q, d, device="cpu", bp=None, n_shards=4):
+    """Probes and a write plan over a queue of q slots cut into n_shards
+    blocks, bp writes (default b) per direction: a duplicate slot, labels
+    in every block, outlier rows, a label this step writes, and a row whose
+    target and write sit in different blocks. Cotangents [2, 2b] masked
+    with the positive rows."""
+    rng = np.random.default_rng(seed)
+    bp = b if bp is None else bp
+    c_local = q // n_shards
+    unit = lambda x: (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    queue = t(unit(rng.standard_normal((2, q, d))))
+    embs, gs, plans, labs = [], [], [], []
+    for _ in range(2):
+        rows = rng.integers(0, 2, bp).astype(np.int32)
+        cols = rng.integers(0, q, bp).astype(np.int32)
+        rows[1], cols[1] = rows[0], cols[0]
+        seen = (rng.random(bp) < 0.5).astype(np.float32)
+        labels = rng.integers(0, q, b).astype(np.int32)
+        labels[:n_shards] = np.arange(n_shards) * c_local + rng.integers(0, c_local, n_shards)
+        labels[n_shards] = cols[2]  # a written slot
+        cols[3] = (labels[0] + c_local) % q  # row 0's target and this write: other blocks
+        labels[rng.random(b) < 0.25] = -1
+        labels[n_shards + 1] = -1
+        embs.append(t(unit(rng.standard_normal((b, d)))))
+        gs.append(t(unit(rng.standard_normal((bp, d)))))
+        plans.append((t(rows), t(cols), t(seen)))
+        labs.append(t(labels))
+    pos = torch.cat(labs)[None, :] >= 0
+    cot = t((rng.standard_normal((4, 2 * b)) / b).astype(np.float32))
+    dce = torch.where(pos, cot[:2], 0.0).contiguous()
+    dneg = torch.where(pos, 0.0, cot[2:]).contiguous()
+    return (embs[0], embs[1], queue, gs[0], gs[1], plans[0], plans[1], labs[0], labs[1], dce,
+            dneg)
+
+
+def shard_kw(loss_type, k=5):
+    return dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
+
+
+@pytest.mark.parametrize("loss_type", ["Arc", "AM", "SV"])
+def test_emulated_shards_match_the_whole_queue_cpu(loss_type):
+    """On the CPU (plain versions): the queue cut into 4 blocks, merged as
+    the collectives merge them, equals the single-device head on the whole
+    queue — the check chip_smoke.py makes on the card at full width."""
+    case = make_shard_case(4, b=8, q=160, d=16)
+    checks = parity.quad_shard_checks(*case, shard_kw(loss_type), n_shards=4)
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert ttm.LAUNCH_COUNTS["quad_partial_fwd"] == ttm.LAUNCH_COUNTS["quad_partial_bwd"] == 0
+
+
+SHARD_CASES = [("Arc", 64, 4096, 128, 1), ("Arc", 64, 4096, 128, 4), ("AM", 32, 2000, 64, 4),
+               ("SV", 32, 2048, 64, 4), ("Arc", 128, 40000, 512, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_type,b,q,d,n_shards", SHARD_CASES)
+def test_partial_kernels_and_merge_match_plain_and_whole(loss_type, b, q, d, n_shards):
+    dev = _cuda()
+    ttm.reset_launch_counts()
+    checks = parity.quad_shard_checks(*make_shard_case(5, b, q, d, device=dev, n_shards=n_shards),
+                                      shard_kw(loss_type, k=10), n_shards=n_shards)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert ttm.LAUNCH_COUNTS["quad_partial_fwd"] == 2 * n_shards  # merge input + checks
+    assert ttm.LAUNCH_COUNTS["quad_partial_bwd"] == n_shards
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_type", ["Arc", "SV"])
+def test_partial_kernels_with_more_writes_than_probes(loss_type):
+    """bp = 16 writes against b = 8 probes per direction, every sentinel
+    (writes of other blocks, outliers, targets owned elsewhere), on block 1
+    of 4: kernel against plain."""
+    from vlsfr_tpu_torch.parallel.sharded_quad import shard_inputs
+
+    dev = _cuda()
+    (ex, ey, queue, ga, gb, pa, pb, la, lb, dce, dneg) = make_shard_case(
+        6, b=8, q=2048, d=128, device=dev, bp=16)
+    c_local = 512
+    q_l = queue[:, c_local:2 * c_local]
+    si = shard_inputs(ex, ey, q_l, c_local, ga, gb, pa, pb, la, lb)
+    assert {-2, -1} <= set(si.labels.tolist()) and (si.lcol == -1).any() and (si.lcol >= 0).any()
+    kw = shard_kw(loss_type, k=10)
+    gt = torch.rand((2, 16), device=dev) - 0.2
+    logz = torch.full((2, 16), kw["scale"], device=dev)
+    kth = torch.full((2, 16), 0.1, device=dev)
+    checks, _ = parity.quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
 
 
 # ----------------------------------------------------------------------

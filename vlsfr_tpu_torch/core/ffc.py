@@ -11,17 +11,24 @@ One step of the FFC twin network over a host-planned ``StepIndices``:
 3. the two directional losses: at ``pool.queue_size >=
    pool.streaming_threshold`` (``use_fused='auto'``) the fused quad head
    (ops/twin_margin.py, CUDA kernels on the card), else the dense head;
+   with a mesh whose ``model`` axis is > 1, or ``pool.force_sharded``, the
+   fused head runs model-sharded (parallel/sharded_quad.py): each rank
+   holds one block [2, Q/m, D] of the queue;
 4. backward, then direction B's queue write IN PLACE on the [2, Q, D]
-   queue (after the backward, which still reads the pre-write queue),
-   last writer wins among duplicate slots;
+   queue (or the rank's block of it) after the backward, which still reads
+   the pre-write queue; last writer wins among duplicate slots;
 5. lr = schedule(step) × plateau scale, SGD step.
 
 Direction A's writes are never persisted (the reference's rollback pass).
+On a mesh every rank runs the same step on the same batch and plan; the
+head's collectives make its gradient the same on every rank, so the probe
+parameters stay equal across ranks.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,6 +41,7 @@ from vlsfr_tpu_torch.ops.margin import add_margin, default_hard_neg
 from vlsfr_tpu_torch.ops.twin_margin import quad_add_margin
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
+from vlsfr_tpu_torch.parallel.sharded_quad import make_sharded_quad_loss
 from vlsfr_tpu_torch.utils.device import resolve_device
 
 
@@ -44,7 +52,7 @@ class FFCState:
     step: int
     probe: nn.Module
     gallery: nn.Module  # EMA copy of the probe; never optimised
-    queue: torch.Tensor  # [2, Q, D] L2-normalised rows
+    queue: torch.Tensor  # [2, Q, D] L2-normalised rows; on a mesh this rank's [2, Q/m, D] block
     optimizer: torch.optim.Optimizer
 
 
@@ -66,14 +74,17 @@ def scatter_mask(seen: torch.Tensor, cols: torch.Tensor, queue_size: int) -> tor
 
 
 def write_rows_(queue: torch.Tensor, g: torch.Tensor, rows: torch.Tensor,
-                cols: torch.Tensor) -> torch.Tensor:
+                cols: torch.Tensor, col0: int = 0) -> torch.Tensor:
     """``queue[rows, cols] = g`` in place, the highest batch index winning
-    among duplicate (row, col) entries — resolved here, because an indexed
-    write with duplicate indices leaves the winner undefined on CUDA."""
-    key = rows.long() * queue.shape[1] + cols.long()
+    among duplicate (row, col) entries — resolved here, over the whole
+    plan, because an indexed write with duplicate indices leaves the winner
+    undefined on CUDA. ``queue`` may be a block of the queue starting at
+    slot ``col0``: then only the plan's columns inside it are written."""
+    key = cols.long() * 2 + rows.long()
     later = torch.triu(key[:, None] == key[None, :], diagonal=1).any(dim=1)
-    keep = torch.nonzero(~later).flatten()
-    queue[rows.long()[keep], cols.long()[keep]] = g[keep].to(queue.dtype)
+    lcol = cols.long() - col0
+    keep = torch.nonzero(~later & (lcol >= 0) & (lcol < queue.shape[1])).flatten()
+    queue[rows.long()[keep], lcol[keep]] = g[keep].to(queue.dtype)
     return queue
 
 
@@ -113,21 +124,40 @@ def use_fused_head(cfg: Config) -> bool:
     return cfg.pool.use_fused == "on"
 
 
-def make_train_step(cfg: Config, schedule):
+def use_sharded_head(cfg: Config) -> bool:
+    """The fused head over the mesh's ``model`` axis (``core/ffc.py:221``
+    of the JAX package): a model axis > 1, or ``pool.force_sharded`` to run
+    the sharded path on one device."""
+    return use_fused_head(cfg) and (cfg.mesh.model > 1 or cfg.pool.force_sharded)
+
+
+def make_train_step(cfg: Config, schedule, mesh=None):
     """``step(state, x, y, idx, lr_scale) -> metrics``: runs one FFC step,
     updating ``state`` in place. ``x``/``y`` are NHWC batches (numpy or
-    tensors), ``idx`` the host plan for this step."""
+    tensors), ``idx`` the host plan for this step. The sharded head
+    (``use_sharded_head``) needs the ``mesh`` (parallel/mesh.py) its state
+    was made for."""
     pool = cfg.pool
     for flag, on in (("pool.queue_dtype != float32", pool.queue_dtype != "float32"),
                      ("pool.queue_int8_compute", pool.queue_int8_compute),
-                     ("pool.gallery_int8", pool.gallery_int8),
-                     ("pool.force_sharded", pool.force_sharded)):
+                     ("pool.gallery_int8", pool.gallery_int8)):
         if on:
             raise NotImplementedError(f"{flag} is not ported yet")
     hard_neg = pool.hard_neg if pool.hard_neg > 0 else default_hard_neg(pool.queue_size)
     use_quad = use_fused_head(cfg)
     loss_kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
                    hard_neg=hard_neg, mask_svfc=cfg.loss.mask_svfc)
+    col0, quad_loss = 0, functools.partial(quad_add_margin, with_acc=True, **loss_kw)
+    if use_sharded_head(cfg):
+        if mesh is None:
+            raise ValueError("the sharded FFC head (mesh.model > 1 or pool.force_sharded) "
+                             "needs the mesh: make_train_step(cfg, schedule, mesh)")
+        col0, _ = mesh.queue_block(pool.queue_size)
+        quad_loss = make_sharded_quad_loss(mesh, with_acc=True, **loss_kw)
+    elif cfg.mesh.model > 1:
+        raise NotImplementedError("mesh.model > 1 with the dense FFC head (pool.use_fused off, "
+                                  "or queue_size below pool.streaming_threshold) is not "
+                                  "ported yet")
     m = pool.momentum
     fuse_fwd = pool.fuse_forward
     grad_clip = cfg.optim.grad_clip
@@ -158,10 +188,9 @@ def make_train_step(cfg: Config, schedule):
             with torch.no_grad():
                 g_x = gallery(x)
         if use_quad:
-            (loss_a, loss_b), train_acc = quad_add_margin(
+            (loss_a, loss_b), train_acc = quad_loss(
                 p_x, p_y, state.queue, g_y, g_x, (ia.rows, ia.cols, ia.seen),
-                (ib.rows, ib.cols, ib.seen), ia.fake_labels, ib.fake_labels,
-                with_acc=True, **loss_kw)
+                (ib.rows, ib.cols, ib.seen), ia.fake_labels, ib.fake_labels)
             new_queue = None
         else:
             loss_a, _, acc_a = directional_loss(p_x, g_y, state.queue, ia.rows, ia.cols,
@@ -177,7 +206,7 @@ def make_train_step(cfg: Config, schedule):
         with torch.no_grad():
             if new_queue is None:
                 # the backward is done with the pre-write queue: write in place
-                write_rows_(state.queue, g_x, ib.rows, ib.cols)
+                write_rows_(state.queue, g_x, ib.rows, ib.cols, col0)
             else:
                 state.queue = new_queue
             params = list(probe.parameters())
@@ -205,14 +234,21 @@ def make_train_step(cfg: Config, schedule):
     return step
 
 
-def create_ffc_state(model: nn.Module, cfg: Config, *, device=None, seed: int = 0) -> FFCState:
+def create_ffc_state(model: nn.Module, cfg: Config, *, device=None, seed: int = 0,
+                     mesh=None) -> FFCState:
     """Probe = ``model`` on the device, gallery = its copy, a fresh queue
     from a generator seeded with ``seed`` and the optimizer. Runs on
-    ``cuda`` unless ``device`` says otherwise; raises without a card."""
+    ``cuda`` unless ``device`` says otherwise; raises without a card. With
+    a ``mesh`` the state keeps this rank's block of the queue: the whole
+    queue is drawn as on one device (so the blocks are its slices, bit for
+    bit) and the rest is freed."""
     dev = resolve_device(device)
     probe = model.to(dev)
     gallery = copy.deepcopy(probe).requires_grad_(False)
     gen = torch.Generator(device=dev).manual_seed(seed)
     queue = init_queue(cfg.pool.queue_size, cfg.model.feat_dim, device=dev, generator=gen)
+    if mesh is not None and mesh.model > 1:
+        c0, c_local = mesh.queue_block(cfg.pool.queue_size)
+        queue = queue[:, c0:c0 + c_local].clone()
     return FFCState(step=0, probe=probe, gallery=gallery, queue=queue,
                     optimizer=make_optimizer(cfg.optim, probe.parameters()))

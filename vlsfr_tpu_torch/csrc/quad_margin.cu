@@ -2,16 +2,33 @@
 // both queue views in one pass over q0, forward and backward.
 //
 // Replaces the TPU kernels vlsfr_tpu/ops/twin_margin.py:pallas_quad_fwd
-// (:1840) and :pallas_quad_bwd (:1891). Semantics are those of the scan
-// reference _twin_stream_fwd / _twin_stream_bwd there; the plain PyTorch
-// versions beside the wrappers (vlsfr_tpu_torch/ops/twin_margin.py
-// quad_fwd_plain / quad_bwd_plain) compute the same function.
+// (:1840) and :pallas_quad_bwd (:1891), and their per-shard forms
+// :pallas_quad_partial_fwd (:1676) and :pallas_quad_partial_bwd (:1748).
+// Semantics are those of the scan reference _twin_stream_fwd /
+// _twin_stream_bwd there; the plain PyTorch versions beside the wrappers
+// (vlsfr_tpu_torch/ops/twin_margin.py quad_[partial_]fwd_plain /
+// quad_[partial_]bwd_plain) compute the same function.
 //
 // Layout ("packed"): probe rows E [R = 2B, D], rows [0, B) direction A and
-// [B, 2B) direction B; G (gallery writes), V (view-2 write values) [R, D];
-// rows / cols / blend / labels [R] int32; gt [2][R] (view-major); q0 is
-// plane 0 of the [2, Q, D] queue. All arithmetic is IEEE f32 FMA — no
-// TF32, no tensor cores (a later optimisation).
+// [B, 2B) direction B; the writes of each direction come apart from its
+// probes, BP per direction (BP = B on one device; under a data axis a shard
+// holds B / data probes but the whole write plan): G (gallery writes), V
+// (view-2 write values) [2 BP, D], rows / cols / blend [2 BP] int32;
+// labels [R] int32; gt [2][R] (view-major); q0 is plane 0 of the queue (of
+// the shard's block of it, for the partial forms). All arithmetic is IEEE
+// f32 FMA — no TF32, no tensor cores (a later optimisation).
+//
+// The partial forms (the model-sharded head, parallel/sharded_quad.py)
+// take shard-local columns and labels: a write column of -1 belongs to
+// another shard and never matches a column here; a label of -1 is an
+// outlier row and -2 a positive row whose target lies on another shard, so
+// only the owner excludes the target column and only the owner's d_gt is
+// nonzero (the caller sums d_gt over the shards). The partial forward
+// writes each row's merged (max, sumexp, top-k) without the finalize; the
+// caller merges the shards' states and adds the target term. The partial
+// backward is the backward kernel fed the GLOBAL logz, kth and cotangents
+// (d_neg zero on every globally positive row, so a -2 row's outlier test
+// adds nothing).
 //
 // Bound (H100 SXM, 67 TFLOP/s f32, 3.35 TB/s) at R = 256, D = 512,
 // Q = 2^20: the forward's 2*R*D*Q = 2.75e11 FLOP take >= 4.1 ms while its
@@ -63,6 +80,7 @@ struct Args {
   const int* labels;
   const float* gt;  // [2][R]
   int B, R, k;
+  int BP;  // writes per direction (G, V, rows, cols, blend hold 2 BP)
   int loss_type;
   float margin, scale, mask_svfc, cos_m, sin_m;
 };
@@ -87,10 +105,10 @@ __device__ __forceinline__ void mark_writes(const Args& a, long long t0, int* la
   }
   if (tid == 0) *written = 0;
   __syncthreads();
-  for (int e = tid; e < a.R; e += blockDim.x) {
-    const long long off = (long long)a.cols[e] - t0;
+  for (int e = tid; e < 2 * a.BP; e += blockDim.x) {
+    const long long off = (long long)a.cols[e] - t0;  // a column of -1 never matches
     if (off >= 0 && off < TC) {
-      const int d = e / a.B, i = e - d * a.B;
+      const int d = e / a.BP, i = e - d * a.BP;
       if (a.rows[e] == 0) atomicMax(&last0[d * TC + off], i);
       if (a.blend[e] > 0) atomicMax(&lastb[d * TC + off], i);
       *written = 1;  // every writer stores the same value
@@ -157,8 +175,8 @@ __global__ void __launch_bounds__(F_THREADS)
         float c1 = Cs[r * F_CLD + c], c2 = c1;
         if (any_w) {
           const int i0 = last0[dir * F_TC + c], ib = lastb[dir * F_TC + c];
-          if (i0 >= 0) c1 = row_dot(e_row, a.G + (long long)(dir * a.B + i0) * a.D, a.D);
-          c2 = ib >= 0 ? row_dot(e_row, a.V + (long long)(dir * a.B + ib) * a.D, a.D) : c1;
+          if (i0 >= 0) c1 = row_dot(e_row, a.G + (long long)(dir * a.BP + i0) * a.D, a.D);
+          c2 = ib >= 0 ? row_dot(e_row, a.V + (long long)(dir * a.BP + ib) * a.D, a.D) : c1;
         }
         stream_update(c1, gt0, a, m0, s0);
         topk_insert(tk0, kth0, c1, a.k);
@@ -184,20 +202,41 @@ __global__ void __launch_bounds__(F_THREADS)
   }
 }
 
-// one thread per (view, row): merge the block partials in block order and
-// finalize ce / neg / logz / top-k
+// (M, S, top-k) of (view v, row r): the block partials merged in block
+// order; (-inf, 0) when the row has no column
+__device__ __forceinline__ void merge_blocks(const Args& a, int nblk, const float* part, int v,
+                                             int r, float& M, float& S, float (&tk)[KMAX]) {
+  M = -INFINITY;
+  S = 0.f;
+  for (int j = 0; j < KMAX; ++j) tk[j] = NEG_INF_F;
+  for (int blk = 0; blk < nblk; ++blk)
+    merge_partial(part + (((long long)blk * 2 + v) * a.R + r) * PART, a.k, M, S, tk);
+}
+
+// one thread per (view, row): merge the block partials and finalize
+// ce / neg / logz / top-k
 __global__ void quad_fwd_merge_kernel(Args a, int nblk, const float* part, float* ce, float* neg,
                                       float* logz, float* topk) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // v * R + r
   if (idx >= 2 * a.R) return;
   const int v = idx / a.R, r = idx - v * a.R;
-  float M = -INFINITY, S = 0.f;
-  float tk[KMAX];
-  for (int j = 0; j < KMAX; ++j) tk[j] = NEG_INF_F;
-  for (int blk = 0; blk < nblk; ++blk)
-    merge_partial(part + (((long long)blk * 2 + v) * a.R + r) * PART, a.k, M, S, tk);
+  float M, S, tk[KMAX];
+  merge_blocks(a, nblk, part, v, r, M, S, tk);
   const float zt = a.scale * phi_target(a.gt[v * a.R + r], a);
   finalize_row(M, S, tk, a.k, a.labels[r] >= 0, zt, ce[idx], neg[idx], logz[idx]);
+  for (int j = 0; j < a.k; ++j) topk[(long long)idx * a.k + j] = tk[j];
+}
+
+// the partial form: the shard's merged (m, s, top-k) of the negative
+// stream, no target term and no finalize
+__global__ void quad_partial_merge_kernel(Args a, int nblk, const float* part, float* m, float* s,
+                                          float* topk) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // v * R + r
+  if (idx >= 2 * a.R) return;
+  float M, S, tk[KMAX];
+  merge_blocks(a, nblk, part, idx / a.R, idx % a.R, M, S, tk);
+  m[idx] = M;
+  s[idx] = S;
   for (int j = 0; j < a.k; ++j) topk[(long long)idx * a.k + j] = tk[j];
 }
 
@@ -288,8 +327,8 @@ __global__ void __launch_bounds__(B_THREADS)
             const float* e_row = a.E + (long long)gr * a.D;
             i0 = last0[dirr[i] * B_TC + c];
             ib = lastb[dirr[i] * B_TC + c];
-            if (i0 >= 0) c1 = row_dot(e_row, a.G + (long long)(dirr[i] * a.B + i0) * a.D, a.D);
-            c2 = ib >= 0 ? row_dot(e_row, a.V + (long long)(dirr[i] * a.B + ib) * a.D, a.D) : c1;
+            if (i0 >= 0) c1 = row_dot(e_row, a.G + (long long)(dirr[i] * a.BP + i0) * a.D, a.D);
+            c2 = ib >= 0 ? row_dot(e_row, a.V + (long long)(dirr[i] * a.BP + ib) * a.D, a.D) : c1;
           }
           float d1 = dcos_col(c1, gtv[i][0], lzv[i][0], kthv[i][0], dcev[i][0], dnegv[i][0],
                               !pos[i], a);
@@ -329,14 +368,14 @@ __global__ void __launch_bounds__(B_THREADS)
           const int i0 = last0[d * B_TC + c], ib = lastb[d * B_TC + c];
           if (i0 >= 0) {
             const float coef = Dg[lr * B_CLD + c];
-            const float* g = a.G + (long long)(d * a.B + i0) * a.D + dx;
+            const float* g = a.G + (long long)(d * a.BP + i0) * a.D + dx;
 #pragma unroll
             for (int j = 0; j < B_JMAX; ++j)
               if (j < nj) acc2[i][j] = fmaf(coef, g[64 * j], acc2[i][j]);
           }
           if (ib >= 0) {
             const float coef = Dv[lr * B_CLD + c];
-            const float* vv = a.V + (long long)(d * a.B + ib) * a.D + dx;
+            const float* vv = a.V + (long long)(d * a.BP + ib) * a.D + dx;
 #pragma unroll
             for (int j = 0; j < B_JMAX; ++j)
               if (j < nj) acc2[i][j] = fmaf(coef, vv[64 * j], acc2[i][j]);
@@ -378,7 +417,7 @@ __global__ void quad_bwd_merge_kernel(Args a, BwdRows br, int nchunk, const floa
 
 Args make_args(const float* q0, long long Q, int D, const float* E, const float* G,
                const float* V, const int* rows, const int* cols, const int* blend,
-               const int* labels, const float* gt, int B, int R, int k, int loss_type,
+               const int* labels, const float* gt, int B, int BP, int R, int k, int loss_type,
                float margin, float scale, float mask_svfc, float cos_m, float sin_m) {
   Args a;
   a.q0 = q0;
@@ -393,6 +432,7 @@ Args make_args(const float* q0, long long Q, int D, const float* E, const float*
   a.labels = labels;
   a.gt = gt;
   a.B = B;
+  a.BP = BP;
   a.R = R;
   a.k = k;
   a.loss_type = loss_type;
@@ -404,16 +444,26 @@ Args make_args(const float* q0, long long Q, int D, const float* E, const float*
   return a;
 }
 
+// the forward's block pass over nblk column ranges into part
+cudaError_t launch_fwd_blocks(const Args& a, float* part, int nblk, long long cols_per_blk,
+                              cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(quad_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  if (err != cudaSuccess) return err;
+  quad_fwd_kernel<<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 #define QUAD_COMMON_PARAMS                                                                     \
   const float *q0, long long Q, int D, const float *E, const float *G, const float *V,       \
       const int *rows, const int *cols, const int *blend, const int *labels, const float *gt, \
-      int B, int R, int k, int loss_type, float margin, float scale, float mask_svfc,         \
+      int B, int BP, int R, int k, int loss_type, float margin, float scale, float mask_svfc, \
       float cos_m, float sin_m
-#define QUAD_COMMON_ARGS \
-  q0, Q, D, E, G, V, rows, cols, blend, labels, gt, B, R, k, loss_type, margin, scale, mask_svfc, \
-      cos_m, sin_m
+#define QUAD_COMMON_ARGS                                                                    \
+  q0, Q, D, E, G, V, rows, cols, blend, labels, gt, B, BP, R, k, loss_type, margin, scale, \
+      mask_svfc, cos_m, sin_m
 
 extern "C" {
 
@@ -425,17 +475,28 @@ int quad_fwd_launch(QUAD_COMMON_PARAMS, float* part, int nblk, long long cols_pe
                     float* ce, float* neg, float* logz, float* topk, void* stream) {
   const Args a = make_args(QUAD_COMMON_ARGS);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(quad_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  cudaError_t err = launch_fwd_blocks(a, part, nblk, cols_per_blk, st);
   if (err != cudaSuccess) return (int)err;
-  quad_fwd_kernel<<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   quad_fwd_merge_kernel<<<(2 * R + 127) / 128, 128, 0, st>>>(a, nblk, part, ce, neg, logz, topk);
   return (int)cudaGetLastError();
 }
 
-// backward: nchunk column ranges x ceil(R / 32) row groups; part is
-// [nchunk][R][D] f32 scratch; outputs d_emb [R][D] and d_gt [2][R]
+// partial forward over a shard's block (Q = its columns, shard-local cols
+// and labels): the same block pass, then m, s [2][R] and topk [2][R][k]
+int quad_partial_fwd_launch(QUAD_COMMON_PARAMS, float* part, int nblk, long long cols_per_blk,
+                            float* m, float* s, float* topk, void* stream) {
+  const Args a = make_args(QUAD_COMMON_ARGS);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = launch_fwd_blocks(a, part, nblk, cols_per_blk, st);
+  if (err != cudaSuccess) return (int)err;
+  quad_partial_merge_kernel<<<(2 * R + 127) / 128, 128, 0, st>>>(a, nblk, part, m, s, topk);
+  return (int)cudaGetLastError();
+}
+
+// backward (and the partial backward, with a shard's block, shard-local
+// cols and labels and the global row vectors): nchunk column ranges x
+// ceil(R / 32) row groups; part is [nchunk][R][D] f32 scratch; outputs
+// d_emb [R][D] and d_gt [2][R]
 int quad_bwd_launch(QUAD_COMMON_PARAMS, const float* logz, const float* kth, const float* dce,
                     const float* dneg, float* part, int nchunk, long long cols_per_chunk,
                     float* d_emb, float* dgt, void* stream) {

@@ -13,12 +13,22 @@ batch index (the reference's sequential last-write-wins).
 
 Kernel boundary. ``quad_fwd`` / ``quad_bwd`` work on the PACKED layout:
 both directions' probes stacked into ``E`` [R = 2b, D] (rows [0, b) are
-direction A, [b, 2b) direction B), with ``G``, ``V``, ``rows``, ``cols``,
-``blend``, ``labels`` stacked the same way and per-view row vectors as
-[2, R] (index 0 = view 1, 1 = view 2). For CUDA tensors they launch the
-hand-written kernels in ``csrc/quad_margin.cu``; for CPU tensors they run
-the plain PyTorch versions beside them (``quad_fwd_plain`` /
+direction A, [b, 2b) direction B), with ``labels`` stacked the same way,
+the writes ``G``, ``V``, ``rows``, ``cols``, ``blend`` stacked per direction
+too ([2 bp, ...], bp = b writes per direction on one device) and per-view
+row vectors as [2, R] (index 0 = view 1, 1 = view 2). For CUDA tensors they
+launch the hand-written kernels in ``csrc/quad_margin.cu``; for CPU tensors
+they run the plain PyTorch versions beside them (``quad_fwd_plain`` /
 ``quad_bwd_plain``). There is no other route and no switch.
+
+The per-shard forms ``quad_partial_fwd`` / ``quad_partial_bwd`` (the
+model-sharded head, ``parallel/sharded_quad.py``) take plane 0 of one
+shard's queue block, shard-local write columns (-1: another shard's) and
+labels (-1: outlier; -2: a positive row whose target is on another shard),
+and bp writes per direction apart from the b probes. The forward returns
+the shard's negative-stream state (m, s, top-k) for the collective merge;
+the backward takes the GLOBAL logz, kth and cotangents and returns the
+shard's d_emb partial and its owner-only d_gt.
 
 Around the kernels, as in JAX, plain torch computes the target cosines
 (``compute_twin_gt``), the write values (``dir_inputs``) and the φ'(gt)
@@ -51,7 +61,7 @@ from vlsfr_tpu_torch.ops.margin import (
 )
 
 KMAX = 16  # largest hard_neg the kernels keep a register top-k for
-LAUNCH_COUNTS = {"quad_fwd": 0, "quad_bwd": 0}
+LAUNCH_COUNTS = {"quad_fwd": 0, "quad_bwd": 0, "quad_partial_fwd": 0, "quad_partial_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -154,39 +164,42 @@ def reduce_margin_dir(ce1, neg1, ce2, neg2, labels):
 # ----------------------------------------------------------------------
 
 
-def _chunk_writers(rows, cols, blend, b, lo, hi):
-    """Per direction, the last parity-0 writer and last blend writer of
-    each column in [lo, hi): two [2, hi - lo] int64 arrays, −1 = none."""
+def _chunk_writers(rows, cols, blend, bp, lo, hi):
+    """Per direction (``bp`` writes each), the last parity-0 writer and
+    last blend writer of each column in [lo, hi): two [2, hi - lo] int64
+    arrays, −1 = none. A column of −1 (another shard's write) never
+    matches."""
     n = hi - lo
     dev = cols.device
     last0 = torch.full((2, n), -1, dtype=torch.long, device=dev)
     lastb = torch.full((2, n), -1, dtype=torch.long, device=dev)
-    idx = torch.arange(b, device=dev)
+    idx = torch.arange(bp, device=dev)
     for d in range(2):
-        c = cols[d * b:(d + 1) * b].long() - lo
-        inr = (c >= 0) & (c < n)
-        for last, sel in ((last0, rows[d * b:(d + 1) * b] == 0),
-                          (lastb, blend[d * b:(d + 1) * b] > 0)):
+        ws = slice(d * bp, (d + 1) * bp)
+        c = cols[ws].long() - lo
+        inr = (cols[ws] >= 0) & (c >= 0) & (c < n)
+        for last, sel in ((last0, rows[ws] == 0), (lastb, blend[ws] > 0)):
             m = inr & sel
             last[d].scatter_reduce_(0, c[m], idx[m], reduce="amax")
     return last0, lastb
 
 
-def _written_cos(cos, E, G, V, last0, lastb, b):
+def _written_cos(cos, E, G, V, last0, lastb, b, bp):
     """(view-1 cos, view-2 cos) of one chunk: written columns are replaced
-    by the probe's dots with the written rows (g, or v for blend slots)."""
+    by the probe's dots with the written rows (g, or v for blend slots).
+    Probe rows come b per direction, writes bp."""
     c1 = cos.clone()
     for d in range(2):
-        rs = slice(d * b, (d + 1) * b)
+        rs, ws = slice(d * b, (d + 1) * b), slice(d * bp, (d + 1) * bp)
         j0 = torch.nonzero(last0[d] >= 0).flatten()
         if j0.numel():
-            c1[rs, j0] = E[rs] @ G[rs][last0[d, j0]].T
+            c1[rs, j0] = E[rs] @ G[ws][last0[d, j0]].T
     c2 = c1.clone()
     for d in range(2):
-        rs = slice(d * b, (d + 1) * b)
+        rs, ws = slice(d * b, (d + 1) * b), slice(d * bp, (d + 1) * bp)
         jb = torch.nonzero(lastb[d] >= 0).flatten()
         if jb.numel():
-            c2[rs, jb] = E[rs] @ V[rs][lastb[d, jb]].T
+            c2[rs, jb] = E[rs] @ V[ws][lastb[d, jb]].T
     return c1, c2
 
 
@@ -194,17 +207,29 @@ def quad_fwd_plain(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, m
                    scale, k, mask_svfc, chunk=32768):
     """Plain PyTorch version of the forward kernel; same inputs and outputs
     as ``quad_fwd``."""
+    m, s, topk = quad_partial_fwd_plain(E, q[0], G, V, rows, cols, blend, labels, gt, b=b, bp=b,
+                                        loss_type=loss_type, margin=margin, scale=scale, k=k,
+                                        mask_svfc=mask_svfc, chunk=chunk)
+    return finalize_fwd(m, s, topk, labels, gt, loss_type=loss_type, margin=margin, scale=scale)
+
+
+def quad_partial_fwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_type,
+                           margin, scale, k, mask_svfc, chunk=32768):
+    """Plain PyTorch version of the partial forward kernel: the running
+    (max, sumexp) of the target-excluded z and the top-k cosines of each
+    (view, row) over the columns of ``q0`` [Q, D]; ``quad_partial_fwd``'s
+    inputs and outputs. (−inf, 0) where a row has no column."""
     r_, _ = E.shape
-    n_q = q.shape[1]
+    n_q = q0.shape[0]
     dev = E.device
     m = torch.full((2, r_), -math.inf, device=dev)
     s = torch.zeros((2, r_), device=dev)
     topk = torch.full((2, r_, k), NEG_INF, device=dev)
     for lo in range(0, n_q, chunk):
         hi = min(n_q, lo + chunk)
-        cos = E @ q[0, lo:hi].float().T
-        last0, lastb = _chunk_writers(rows, cols, blend, b, lo, hi)
-        views = _written_cos(cos, E, G, V, last0, lastb, b)
+        cos = E @ q0[lo:hi].float().T
+        last0, lastb = _chunk_writers(rows, cols, blend, bp, lo, hi)
+        views = _written_cos(cos, E, G, V, last0, lastb, b, bp)
         neg_ok = torch.arange(lo, hi, device=dev)[None, :] != labels[:, None].long()
         for v, cv in enumerate(views):
             mod = sv_boost(cv, gt[v][:, None], margin, mask_svfc)[0] if loss_type == "SV" else cv
@@ -215,11 +240,12 @@ def quad_fwd_plain(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, m
             m[v] = m_new
             cand = torch.where(neg_ok, cv, torch.full_like(cv, NEG_INF))
             topk[v] = torch.topk(torch.cat([topk[v], cand], dim=1), k, dim=1).values
-    return _finalize_fwd(m, s, topk, labels, gt, loss_type=loss_type, margin=margin,
-                         scale=scale)
+    return m, s, topk
 
 
-def _finalize_fwd(m, s, topk, labels, gt, *, loss_type, margin, scale):
+def finalize_fwd(m, s, topk, labels, gt, *, loss_type, margin, scale):
+    """(ce, neg, logz, topk) from the negative stream's (m, s, top-k): the
+    target term scale·φ(gt) joins the logsumexp on positive rows."""
     lse_neg = torch.where(s > 0, m + torch.log(s), torch.full_like(s, -math.inf))
     zt = scale * phi_target(gt, loss_type, margin)
     pos = (labels >= 0)[None, :]
@@ -245,17 +271,27 @@ def quad_bwd_plain(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dn
                    loss_type, margin, scale, k, mask_svfc, chunk=32768):
     """Plain PyTorch version of the backward kernel; same inputs and
     outputs as ``quad_bwd``."""
+    return quad_partial_bwd_plain(E, q[0], G, V, rows, cols, blend, labels, gt, logz, kth, dce,
+                                  dneg, b=b, bp=b, loss_type=loss_type, margin=margin,
+                                  scale=scale, k=k, mask_svfc=mask_svfc, chunk=chunk)
+
+
+def quad_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
+                           b, bp, loss_type, margin, scale, k, mask_svfc, chunk=32768):
+    """Plain PyTorch version of the partial backward kernel: d_emb over the
+    columns of ``q0`` and d_gt where the (shard-local) label is ≥ 0;
+    ``quad_partial_bwd``'s inputs and outputs."""
     r_, d_ = E.shape
-    n_q = q.shape[1]
+    n_q = q0.shape[0]
     dev = E.device
     d_emb = torch.zeros((r_, d_), device=dev)
     pos = (labels >= 0)[:, None]
     kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
     for lo in range(0, n_q, chunk):
         hi = min(n_q, lo + chunk)
-        w = q[0, lo:hi].float()
-        last0, lastb = _chunk_writers(rows, cols, blend, b, lo, hi)
-        c1, c2 = _written_cos(E @ w.T, E, G, V, last0, lastb, b)
+        w = q0[lo:hi].float()
+        last0, lastb = _chunk_writers(rows, cols, blend, bp, lo, hi)
+        c1, c2 = _written_cos(E @ w.T, E, G, V, last0, lastb, b, bp)
         neg_ok = torch.arange(lo, hi, device=dev)[None, :] != labels[:, None].long()
         dc = [torch.where(neg_ok,
                           _dcos(cv, gt[v][:, None], logz[v][:, None], kth[v][:, None],
@@ -263,16 +299,16 @@ def quad_bwd_plain(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dn
                           torch.zeros_like(cv))
               for v, cv in enumerate((c1, c2))]
         for d in range(2):
-            rs = slice(d * b, (d + 1) * b)
+            rs, ws = slice(d * b, (d + 1) * b), slice(d * bp, (d + 1) * bp)
             j0 = torch.nonzero(last0[d] >= 0).flatten()
             jb = torch.nonzero(lastb[d] >= 0).flatten()
             if not (j0.numel() or jb.numel()):
                 d_emb[rs] += (dc[0][rs] + dc[1][rs]) @ w
                 continue
             w0e = w.clone()
-            w0e[j0] = G[rs][last0[d, j0]]
+            w0e[j0] = G[ws][last0[d, j0]]
             wbe = w0e.clone()
-            wbe[jb] = V[rs][lastb[d, jb]]
+            wbe[jb] = V[ws][lastb[d, jb]]
             d_emb[rs] += dc[0][rs] @ w0e + dc[1][rs] @ wbe
     zt = scale * phi_target(gt, loss_type, margin)
     dgt = torch.where((labels >= 0)[None, :], (torch.exp(zt - logz) - 1.0) * dce * scale,
@@ -293,7 +329,7 @@ _FWD_ARGTYPES = [
     _P, _P, _P,  # E, G, V
     _P, _P, _P, _P,  # rows, cols, blend, labels
     _P,  # gt [2, R]
-    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, R, k
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, bp, R, k
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,  # loss, margin, scale, svfc
     ctypes.c_float, ctypes.c_float,  # cos(margin), sin(margin)
 ]
@@ -304,10 +340,10 @@ def _lib():
 
     lib = load_library("quad_margin")
     if not getattr(lib, "_vlsfr_typed", False):
-        lib.quad_fwd_launch.argtypes = _FWD_ARGTYPES + [
-            _P, ctypes.c_int, ctypes.c_longlong,  # part, nblk, cols_per_blk
-            _P, _P, _P, _P, _P]  # ce, neg, logz, topk, stream
-        lib.quad_fwd_launch.restype = ctypes.c_int
+        blocks = [_P, ctypes.c_int, ctypes.c_longlong]  # part, nblk, cols_per_blk
+        lib.quad_fwd_launch.argtypes = _FWD_ARGTYPES + blocks + [_P] * 5  # ce neg logz topk stream
+        lib.quad_partial_fwd_launch.argtypes = _FWD_ARGTYPES + blocks + [_P] * 4  # m s topk stream
+        lib.quad_fwd_launch.restype = lib.quad_partial_fwd_launch.restype = ctypes.c_int
         lib.quad_bwd_launch.argtypes = _FWD_ARGTYPES + [
             _P, _P, _P, _P,  # logz, kth, dce, dneg [2, R]
             _P, ctypes.c_int, ctypes.c_longlong,  # part, nchunk, cols_per_chunk
@@ -325,21 +361,30 @@ def _check(lib, err: int, what: str) -> None:
                            f"{lib.quad_error_string(err).decode()} (cudaError {err})")
 
 
-def _check_packed(E, q, G, V, rows, cols, blend, labels, gt, b, k, loss_type, extra=()):
+def _check_queue(q, d_):
+    if q.dim() != 3 or q.shape[0] != 2 or q.shape[2] != d_:
+        raise ValueError(f"queue must be [2, Q, {d_}], got {tuple(q.shape)}")
+
+
+def _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, extra=()):
+    """Types, shapes, device and (for the card) contiguity of the packed
+    inputs: ``q0`` is the streamed queue plane [Q, D], b probes and bp
+    writes per direction."""
     if loss_type not in LOSS_TYPES:
         raise ValueError(f"loss_type must be AM | Arc | SV, got {loss_type!r}")
     r_, d_ = E.shape
     if r_ != 2 * b:
         raise ValueError(f"E has {r_} rows, expected 2*b = {2 * b}")
-    if q.dim() != 3 or q.shape[0] != 2 or q.shape[2] != d_:
-        raise ValueError(f"queue must be [2, Q, {d_}], got {tuple(q.shape)}")
+    if q0.dim() != 2 or q0.shape[1] != d_:
+        raise ValueError(f"the queue plane must be [Q, {d_}], got {tuple(q0.shape)}")
     if not 1 <= k <= KMAX:
         raise ValueError(f"hard_neg k={k} outside [1, {KMAX}]")
+    rw = 2 * bp
     for name, t, dt, shape in (
-            ("E", E, torch.float32, (r_, d_)), ("queue", q, torch.float32, tuple(q.shape)),
-            ("G", G, torch.float32, (r_, d_)), ("V", V, torch.float32, (r_, d_)),
-            ("rows", rows, torch.int32, (r_,)), ("cols", cols, torch.int32, (r_,)),
-            ("blend", blend, torch.int32, (r_,)), ("labels", labels, torch.int32, (r_,)),
+            ("E", E, torch.float32, (r_, d_)), ("queue", q0, torch.float32, tuple(q0.shape)),
+            ("G", G, torch.float32, (rw, d_)), ("V", V, torch.float32, (rw, d_)),
+            ("rows", rows, torch.int32, (rw,)), ("cols", cols, torch.int32, (rw,)),
+            ("blend", blend, torch.int32, (rw,)), ("labels", labels, torch.int32, (r_,)),
             ("gt", gt, torch.float32, (2, r_)), *extra):
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
@@ -347,6 +392,12 @@ def _check_packed(E, q, G, V, rows, cols, blend, labels, gt, b, k, loss_type, ex
             raise ValueError(f"{name} is on {t.device}, E on {E.device}")
         if E.is_cuda and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _bwd_vectors(E, logz, kth, dce, dneg):
+    vec = (2, E.shape[0])
+    return (("logz", logz, torch.float32, vec), ("kth", kth, torch.float32, vec),
+            ("dce", dce, torch.float32, vec), ("dneg", dneg, torch.float32, vec))
 
 
 def _cuda_shape_limits(E, b):
@@ -357,12 +408,12 @@ def _cuda_shape_limits(E, b):
                          f"D={d_}")
 
 
-def _common_args(E, q, G, V, rows, cols, blend, labels, gt, b, k, loss_type, margin,
+def _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
                  scale, mask_svfc):
-    return (q.data_ptr(), q.shape[1], E.shape[1], E.data_ptr(), G.data_ptr(), V.data_ptr(),
+    return (q0.data_ptr(), q0.shape[0], E.shape[1], E.data_ptr(), G.data_ptr(), V.data_ptr(),
             rows.data_ptr(), cols.data_ptr(), blend.data_ptr(), labels.data_ptr(),
-            gt.data_ptr(), b, E.shape[0], k, _LOSS_CODE[loss_type], margin, scale, mask_svfc,
-            _f32(math.cos(margin)), _f32(math.sin(margin)))
+            gt.data_ptr(), b, bp, E.shape[0], k, _LOSS_CODE[loss_type], margin, scale,
+            mask_svfc, _f32(math.cos(margin)), _f32(math.sin(margin)))
 
 
 def _split_columns(n_q, n_parts):
@@ -370,6 +421,48 @@ def _split_columns(n_q, n_parts):
     tiles = -(-n_q // _F_TC)
     per = -(-tiles // max(min(n_parts, tiles), 1)) * _F_TC
     return -(-n_q // per), per
+
+
+def _fwd_launch(entry, n_vec, E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_type,
+                margin, scale, k, mask_svfc):
+    """Launch ``entry`` (the forward or its partial form): the block pass
+    over q0, then the merge. Returns n_vec [2, R] outputs and topk [2, R, k]."""
+    _cuda_shape_limits(E, b)
+    lib = _lib()
+    r_ = E.shape[0]
+    sms = torch.cuda.get_device_properties(E.device).multi_processor_count
+    nblk, per = _split_columns(q0.shape[0], 2 * sms)
+    part = torch.empty((nblk, 2, r_, 2 + KMAX), device=E.device)
+    vecs = [torch.empty((2, r_), device=E.device) for _ in range(n_vec)]
+    topk = torch.empty((2, r_, k), device=E.device)
+    stream = torch.cuda.current_stream(E.device).cuda_stream
+    err = getattr(lib, entry)(
+        *_common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
+                      scale, mask_svfc),
+        part.data_ptr(), nblk, per, *(v.data_ptr() for v in vecs), topk.data_ptr(), stream)
+    _check(lib, err, entry)
+    return (*vecs, topk)
+
+
+def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b, bp,
+                loss_type, margin, scale, k, mask_svfc):
+    _cuda_shape_limits(E, b)
+    lib = _lib()
+    r_ = E.shape[0]
+    sms = torch.cuda.get_device_properties(E.device).multi_processor_count
+    n_rg = -(-r_ // _B_RB)
+    nchunk, per = _split_columns(q0.shape[0], max(4 * sms // n_rg, 1))
+    part = torch.empty((nchunk, r_, E.shape[1]), device=E.device)
+    d_emb = torch.empty_like(E)
+    dgt = torch.empty((2, r_), device=E.device)
+    stream = torch.cuda.current_stream(E.device).cuda_stream
+    err = lib.quad_bwd_launch(
+        *_common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
+                      scale, mask_svfc),
+        logz.data_ptr(), kth.data_ptr(), dce.data_ptr(), dneg.data_ptr(),
+        part.data_ptr(), nchunk, per, d_emb.data_ptr(), dgt.data_ptr(), stream)
+    _check(lib, err, "quad_bwd")
+    return d_emb, dgt
 
 
 def quad_fwd(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, margin, scale, k,
@@ -387,28 +480,15 @@ def quad_fwd(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, margin,
     (max, sumexp) and a register top-k, and writes a per-block partial;
     a second launch merges the partials in a fixed order (deterministic).
     """
-    _check_packed(E, q, G, V, rows, cols, blend, labels, gt, b, k, loss_type)
+    _check_queue(q, E.shape[1])
+    _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type)
+    kw = dict(b=b, loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
     if not E.is_cuda:
-        return quad_fwd_plain(E, q, G, V, rows, cols, blend, labels, gt, b=b,
-                              loss_type=loss_type, margin=margin, scale=scale, k=k,
-                              mask_svfc=mask_svfc)
-    _cuda_shape_limits(E, b)
-    lib = _lib()
-    r_ = E.shape[0]
-    sms = torch.cuda.get_device_properties(E.device).multi_processor_count
-    nblk, per = _split_columns(q.shape[1], 2 * sms)
-    part = torch.empty((nblk, 2, r_, 2 + KMAX), device=E.device)
-    ce, neg, logz = (torch.empty((2, r_), device=E.device) for _ in range(3))
-    topk = torch.empty((2, r_, k), device=E.device)
-    stream = torch.cuda.current_stream(E.device).cuda_stream
-    err = lib.quad_fwd_launch(
-        *_common_args(E, q, G, V, rows, cols, blend, labels, gt, b, k, loss_type, margin,
-                      scale, mask_svfc),
-        part.data_ptr(), nblk, per, ce.data_ptr(), neg.data_ptr(), logz.data_ptr(),
-        topk.data_ptr(), stream)
-    _check(lib, err, "quad_fwd")
+        return quad_fwd_plain(E, q, G, V, rows, cols, blend, labels, gt, **kw)
+    out = _fwd_launch("quad_fwd_launch", 3, E, q[0], G, V, rows, cols, blend, labels, gt, bp=b,
+                      **kw)
     LAUNCH_COUNTS["quad_fwd"] += 1
-    return ce, neg, logz, topk
+    return out
 
 
 def quad_bwd(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b,
@@ -426,32 +506,66 @@ def quad_bwd(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
     q0 tile through L2. A second launch sums the partials in a fixed
     order — no float atomics, bit-stable run to run.
     """
-    r_ = E.shape[0]
-    vec = (2, r_)
-    _check_packed(E, q, G, V, rows, cols, blend, labels, gt, b, k, loss_type,
-                  extra=(("logz", logz, torch.float32, vec), ("kth", kth, torch.float32, vec),
-                         ("dce", dce, torch.float32, vec), ("dneg", dneg, torch.float32, vec)))
+    _check_queue(q, E.shape[1])
+    _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type,
+                  extra=_bwd_vectors(E, logz, kth, dce, dneg))
+    kw = dict(b=b, loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
     if not E.is_cuda:
         return quad_bwd_plain(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg,
-                              b=b, loss_type=loss_type, margin=margin, scale=scale, k=k,
-                              mask_svfc=mask_svfc)
-    _cuda_shape_limits(E, b)
-    lib = _lib()
-    sms = torch.cuda.get_device_properties(E.device).multi_processor_count
-    n_rg = -(-r_ // _B_RB)
-    nchunk, per = _split_columns(q.shape[1], max(4 * sms // n_rg, 1))
-    part = torch.empty((nchunk, r_, E.shape[1]), device=E.device)
-    d_emb = torch.empty_like(E)
-    dgt = torch.empty(vec, device=E.device)
-    stream = torch.cuda.current_stream(E.device).cuda_stream
-    err = lib.quad_bwd_launch(
-        *_common_args(E, q, G, V, rows, cols, blend, labels, gt, b, k, loss_type, margin,
-                      scale, mask_svfc),
-        logz.data_ptr(), kth.data_ptr(), dce.data_ptr(), dneg.data_ptr(),
-        part.data_ptr(), nchunk, per, d_emb.data_ptr(), dgt.data_ptr(), stream)
-    _check(lib, err, "quad_bwd")
+                              **kw)
+    out = _bwd_launch(E, q[0], G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, bp=b,
+                      **kw)
     LAUNCH_COUNTS["quad_bwd"] += 1
-    return d_emb, dgt
+    return out
+
+
+def quad_partial_fwd(E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_type, margin,
+                     scale, k, mask_svfc):
+    """One shard's forward over its block's plane 0 ``q0`` [Q/m, D], with
+    shard-local cols / labels (module docstring), b probes and bp writes
+    per direction and the GLOBAL gt. Returns (m, s) [2, R] and topk
+    [2, R, k]: each (view, row)'s negative-stream state, target excluded on
+    its owner, for ``parallel/_shard_common.merge_partials``.
+
+    Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_quad_partial_fwd``.
+    Bound as ``quad_fwd``'s over the block: 2·R·D·Q/m FLOP (4.1 ms at
+    Q/m = 2^20, 1.0 ms at 2^18). Design: ``quad_fwd``'s block pass, then a
+    merge of the block partials in block order without the finalize.
+    """
+    _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type)
+    kw = dict(b=b, bp=bp, loss_type=loss_type, margin=margin, scale=scale, k=k,
+              mask_svfc=mask_svfc)
+    if not E.is_cuda:
+        return quad_partial_fwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, **kw)
+    out = _fwd_launch("quad_partial_fwd_launch", 2, E, q0, G, V, rows, cols, blend, labels, gt,
+                      **kw)
+    LAUNCH_COUNTS["quad_partial_fwd"] += 1
+    return out
+
+
+def quad_partial_bwd(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b,
+                     bp, loss_type, margin, scale, k, mask_svfc):
+    """One shard's backward over its block's plane 0 ``q0``, fed the GLOBAL
+    logz, kth and cotangents (``dce`` zero on outlier rows, ``dneg`` on
+    every globally positive row). Returns the shard's d_emb partial [R, D]
+    (before the φ'(gt) tail) and d_gt [2, R], nonzero only where the
+    shard-local label is ≥ 0 — the owner; summed over the shards it is the
+    global d_gt.
+
+    Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_quad_partial_bwd``.
+    Bound: 4·R·D·Q/m FLOP (8.2 ms at Q/m = 2^20, 2.1 ms at 2^18). Design:
+    ``quad_bwd``'s kernels over the block.
+    """
+    _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
+                  extra=_bwd_vectors(E, logz, kth, dce, dneg))
+    kw = dict(b=b, bp=bp, loss_type=loss_type, margin=margin, scale=scale, k=k,
+              mask_svfc=mask_svfc)
+    if not E.is_cuda:
+        return quad_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth,
+                                      dce, dneg, **kw)
+    out = _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, **kw)
+    LAUNCH_COUNTS["quad_partial_bwd"] += 1
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -541,6 +655,12 @@ def quad_add_margin(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, lab
     out = QuadMargin.apply(emb_x, emb_y, queue, g_a.detach(), g_b.detach(), rows_a, cols_a,
                            seen_a, rows_b, cols_b, seen_b, labels_a, labels_b, loss_type,
                            float(margin), float(scale), int(hard_neg), float(mask_svfc))
+    return reduce_quad_outputs(out, labels_a, labels_b, with_acc)
+
+
+def reduce_quad_outputs(out, labels_a, labels_b, with_acc):
+    """(loss_a, loss_b)[, acc] from the ten per-row outputs of the quad
+    head: (ce1, neg1, ce2, neg2) per direction and the two hit vectors."""
     ce1a, neg1a, ce2a, neg2a, ce1b, neg1b, ce2b, neg2b, hit_a, hit_b = out
     losses = (reduce_margin_dir(ce1a, neg1a, ce2a, neg2a, labels_a),
               reduce_margin_dir(ce1b, neg1b, ce2b, neg2b, labels_b))

@@ -14,6 +14,11 @@ and ``--device`` (default ``cuda``; ``cpu`` must be asked for).
     python -m vlsfr_tpu_torch.train --net_type ir50 --head full_softmax \\
         --batch_size 128 --synthetic --set pool.num_classes=1048576 \\
         --set pool.sparse_update=true    # or: --set pool.sample_rate=0.1
+    # the FFC head model-sharded: one process per card (N cards), or the
+    # same path in one process with --set pool.force_sharded=true
+    torchrun --standalone --nproc_per_node=N -m vlsfr_tpu_torch.train \\
+        --net_type ir50 --queue_size 1048576 --batch_size 128 --synthetic \\
+        --set mesh.model=N --set mesh.data=1
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import argparse
 
 from vlsfr_tpu_torch.config import Config
+from vlsfr_tpu_torch.parallel.distributed import is_lead_host
 from vlsfr_tpu_torch.train.trainer import Trainer
 
 
@@ -75,7 +81,9 @@ def main(argv=None):
     cfg, device = build_config(argv)
     trainer = Trainer(cfg, device=device)
     try:
-        print("training done:", trainer.train())
+        out = trainer.train()
+        if is_lead_host():
+            print("training done:", out)
     finally:
         trainer.close()
 

@@ -1,11 +1,16 @@
-"""Single-device trainer (port of ``vlsfr_tpu/train/trainer.py``).
+"""The trainer (port of ``vlsfr_tpu/train/trainer.py``).
 
 What this port runs: the FFC head (``pool.head='ffc'``, with the host DCP
 planner) or the full-softmax classifier head (``'full_softmax'``,
 ``train/softmax_head.py``) on one device, synthetic (raw-pixel) or
-record-store data, print-window logging and the plateau LR scale. What it
-does not run yet, and refuses rather than fakes: checkpoints and resume,
-in-training eval, pretrained backbones and multi-device meshes.
+record-store data, print-window logging and the plateau LR scale; and the
+FFC head model-sharded over ``mesh.model`` ranks of a ``torch.distributed``
+group (one process per card under ``torchrun``, or
+``pool.force_sharded`` in one process). Every rank runs the same pipeline
+and DCP planner (the labels stay global, as in JAX) and holds one block of
+the queue; only rank 0 logs. What it does not run yet, and refuses rather
+than fakes: checkpoints and resume, in-training eval, pretrained
+backbones, the data axis (``mesh.data > 1``) and the sharded softmax head.
 """
 
 from __future__ import annotations
@@ -16,11 +21,13 @@ import torch
 
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import DCPManager
-from vlsfr_tpu_torch.core.ffc import create_ffc_state, make_train_step
+from vlsfr_tpu_torch.core.ffc import create_ffc_state, make_train_step, use_sharded_head
 from vlsfr_tpu_torch.data.pipeline import FFCPipeline, InstancePipeline
 from vlsfr_tpu_torch.data.records import MultiSourceReader
 from vlsfr_tpu_torch.models import create_net, native_image_size
 from vlsfr_tpu_torch.optim import PlateauController, make_schedule
+from vlsfr_tpu_torch.parallel import distributed
+from vlsfr_tpu_torch.parallel.mesh import check_shape, make_mesh
 from vlsfr_tpu_torch.train.softmax_head import (
     check_ported,
     create_softmax_state,
@@ -39,7 +46,6 @@ def _refuse_unported(cfg: Config) -> None:
             ("train.eval_freq > 0 (in-training eval)", cfg.train.eval_freq > 0),
             ("train.eval_bin", bool(cfg.train.eval_bin)),
             ("train.pretrained_model_path", bool(cfg.train.pretrained_model_path)),
-            ("mesh.model > 1", cfg.mesh.model > 1),
             ("mesh.data > 1", cfg.mesh.data > 1)):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -47,13 +53,27 @@ def _refuse_unported(cfg: Config) -> None:
 
 class Trainer:
     """``Trainer(cfg, device=...)`` builds data, models and state;
-    ``train()`` runs the epochs. Runs on ``cuda`` unless ``device`` says
-    otherwise."""
+    ``train()`` runs the epochs; ``close()`` releases them (and the process
+    group, if this trainer created it). Runs on ``cuda`` unless ``device``
+    says otherwise; a sharded run on the rank's card, ``cuda:LOCAL_RANK``."""
 
     def __init__(self, cfg: Config, reader: MultiSourceReader | None = None, device=None):
         _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh, self._owns_group = None, False
+        if cfg.pool.head == "ffc" and use_sharded_head(cfg):
+            check_shape(cfg.mesh.data, cfg.mesh.model)  # before anything is created
+            self.device = distributed.local_device(self.device)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+                if cfg.mesh.model > 1:
+                    # the replicated backbone work must give every rank the
+                    # same bits: cuDNN's atomics-based algorithms would let
+                    # the ranks' parameters drift apart
+                    torch.backends.cudnn.deterministic = True
+            self._owns_group = distributed.initialize(self.device.type)
+            self.mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)
         self.image_size = cfg.data.image_size or native_image_size(cfg.model.net_type)
         self._tmpdir = None
         if reader is None:
@@ -85,15 +105,18 @@ class Trainer:
         self.schedule = make_schedule(cfg.optim, self.steps_per_epoch)
         self.plateau = PlateauController(patience=cfg.optim.patience, min_lr=cfg.optim.lr_min,
                                          base_lr=cfg.optim.lr)
-        self.metrics = MetricsLogger(cfg.train.log_dir or f"{cfg.train.saved_dir}/logs")
+        self.is_lead = distributed.is_lead_host()
+        self.metrics = MetricsLogger(
+            (cfg.train.log_dir or f"{cfg.train.saved_dir}/logs") if self.is_lead else "")
         with torch.random.fork_rng(devices=[]):  # model init from the seed, isolated
             torch.manual_seed(cfg.data.seed)
             model = create_net(cfg.model.net_type, feat_dim=cfg.model.feat_dim,
                                dtype=cfg.model.dtype, dropout=cfg.model.dropout,
                                image_size=self.image_size, bn_stats_rows=cfg.model.bn_stats_rows)
         if self.is_ffc:
-            self.state = create_ffc_state(model, cfg, device=self.device, seed=cfg.data.seed)
-            self.train_step = make_train_step(cfg, self.schedule)
+            self.state = create_ffc_state(model, cfg, device=self.device, seed=cfg.data.seed,
+                                          mesh=self.mesh)
+            self.train_step = make_train_step(cfg, self.schedule, mesh=self.mesh)
         else:
             self.state = create_softmax_state(model, cfg, cfg.pool.num_classes,
                                               device=self.device, seed=cfg.data.seed)
@@ -125,7 +148,8 @@ class Trainer:
                 if gstep % cfg.train.print_freq == 0 or gstep == max_steps:
                     m = {k: float(v) for k, v in m.items()}  # one sync per window
                     last = dict(m, epoch=epoch, images_per_sec=thr.value())
-                    self.metrics.log(gstep, last)
+                    if self.is_lead:
+                        self.metrics.log(gstep, last)
                     if cfg.optim.scheduler == "plateau":
                         self.plateau.observe(m["loss"])
                     thr.reset()
@@ -138,3 +162,6 @@ class Trainer:
         if self._tmpdir is not None:
             self._tmpdir.cleanup()
             self._tmpdir = None
+        if self._owns_group:
+            distributed.destroy()
+            self._owns_group = False

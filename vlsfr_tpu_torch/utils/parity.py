@@ -15,6 +15,18 @@ A sparse backward's d_w rows follow the selected tiles' layout, so its
 label rows are the rows of that layout that hold a batch label
 (``sparse_label_rows``).
 
+The model-sharded quad head is held on one card by emulated shards
+(``quad_shard_checks``): the queue cut into blocks, each block's partial
+kernels against their plain versions (``quad_partial_checks``), and the
+blocks merged as the collectives would merge them against the
+single-device kernels on the whole queue. Limits: the partial state
+m + log s and ce / neg / logz 1e-4 absolute, m scale × 1e-5 (the top-k
+limit through z = scale·cos), top-k 1e-5 (f32 sums in another order);
+d_emb 1e-4 × its max; d_gt 1e-5. logz is held on the in-pool rows, the
+only rows the loss reads it on: on outlier rows SV's logz depends on a gt
+the loss never uses, which the single-device head takes from slot 0 and
+the sharded head sets to 0.
+
 Used by ``chip_smoke.py`` and the tests in ``tests/test_torch_kernels.py``.
 """
 
@@ -184,6 +196,100 @@ def sparse_path_checks(emb, w, labels, d_ce, d_neg, kw: dict, tile: int, m_tiles
     checks += margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx,
                                           kw, tile)
     return checks, tile_idx, (gt, logz, topk)
+
+
+def _err(name: str, got, want, limit: float) -> dict:
+    return {"name": name, "err": float((got - want).abs().max()) if got.numel() else 0.0,
+            "limit": limit}
+
+
+def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = ""):
+    """Both partial kernels against their plain versions on one shard's
+    inputs ``si`` (``parallel/sharded_quad.shard_inputs``) over its block
+    ``q_l``, with the global gt, logz, kth and cotangents. Returns (checks,
+    the kernel's (d_emb, d_gt))."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    args = si.kernel_args(q_l)
+    pkw = dict(b=si.E.shape[0] // 2, bp=si.rows.shape[0] // 2, **kw)
+    m_k, s_k, t_k = ttm.quad_partial_fwd(*args, gt, **pkw)
+    m_p, s_p, t_p = ttm.quad_partial_fwd_plain(*args, gt, **pkw)
+    seen = s_p > 0
+    checks = [
+        {"name": f"{tag}partial rows with a column", "limit": 0.0,
+         "err": float((seen != (s_k > 0)).sum())},
+        _err(f"{tag}partial m", m_k[seen], m_p[seen], kw["scale"] * 1e-5),
+        _err(f"{tag}partial m + log s", (m_k + torch.log(s_k))[seen],
+             (m_p + torch.log(s_p))[seen], 1e-4),
+        _err(f"{tag}partial top-k", t_k, t_p, 1e-5)]
+    d_k, g_k = ttm.quad_partial_bwd(*args, gt, logz, kth, dce, dneg, **pkw)
+    d_p, g_p = ttm.quad_partial_bwd_plain(*args, gt, logz, kth, dce, dneg, **pkw)
+    checks += [_err(f"{tag}partial d_emb", d_k, d_p, 1e-4 * float(d_p.abs().max())),
+               _err(f"{tag}partial d_gt", g_k, g_p, 1e-5)]
+    return checks, (d_k, g_k)
+
+
+def quad_shard_checks(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, labels_b, dce,
+                      dneg, kw: dict, n_shards: int):
+    """The sharded quad head emulated in one process: ``queue`` cut into
+    ``n_shards`` blocks, the gt parts summed (the all_reduce), each block's
+    partial kernels held to their plain versions, the block states merged
+    (``merge_partials``, the all_gather) and finalized, and the summed d_gt
+    and d_emb with the owners' tails (the backward's all_reduces), against
+    ``quad_fwd`` / ``quad_bwd`` + tail on the whole queue. ``dce`` /
+    ``dneg`` are [2, 2b], masked with the positive rows. Returns the
+    checks."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.parallel._shard_common import merge_partials
+    from vlsfr_tpu_torch.parallel.sharded_quad import owner_tail, shard_inputs
+
+    b, q = emb_x.shape[0], queue.shape[1]
+    lt, mg, k = kw["loss_type"], kw["margin"], kw["k"]
+    packed = ttm.pack_dirs(emb_x, emb_y, ttm.dir_inputs(queue, g_a, *plan_a),
+                           ttm.dir_inputs(queue, g_b, *plan_b), labels_a, labels_b,
+                           ttm.compute_twin_gt(emb_x, queue, g_a, *plan_a, labels_a),
+                           ttm.compute_twin_gt(emb_y, queue, g_b, *plan_b, labels_b))
+    E, rest, labels = packed[0], packed[1:], packed[6]
+    ce_w, neg_w, logz_w, topk_w = ttm.quad_fwd(E, queue, *rest, b=b, **kw)
+    c_local = q // n_shards
+    blocks = [queue[:, j * c_local:(j + 1) * c_local] for j in range(n_shards)]
+    sis = [shard_inputs(emb_x, emb_y, q_l, j * c_local, g_a, g_b, plan_a, plan_b, labels_a,
+                        labels_b) for j, q_l in enumerate(blocks)]
+    gt = sum(si.gt_parts for si in sis)
+    pos = labels >= 0
+    # the kernels' block states, merged: the global logz and kth every
+    # block's backward takes
+    states = [ttm.quad_partial_fwd(*si.kernel_args(q_l), gt, b=b, bp=b, **kw)
+              for si, q_l in zip(sis, blocks)]
+    m, s, t = merge_partials(*(torch.stack(x) for x in zip(*states)), k)
+    ce, neg, logz, topk = ttm.finalize_fwd(m, s, t, labels, gt, loss_type=lt, margin=mg,
+                                           scale=kw["scale"])
+    kth = topk[:, :, -1].contiguous()
+    checks, d_tot, dgt_sum = [], 0.0, 0.0
+    for j, (si, q_l) in enumerate(zip(sis, blocks)):
+        c, (d_k, g_k) = quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw,
+                                                tag=f"block {j}/{n_shards} ")
+        checks += c
+        d_tot, dgt_sum = d_tot + d_k, dgt_sum + g_k
+    for si in sis:  # each owner's tail, from the summed d_gt
+        d_tot = owner_tail(d_tot, dgt_sum, gt, si, lt, mg)
+    d_w, dgt_w = ttm.quad_bwd(E, queue, *rest, logz_w, topk_w[:, :, -1].contiguous(), dce, dneg,
+                              b=b, **kw)
+    sa, sb = slice(0, b), slice(b, 2 * b)
+    d_whole = torch.cat([
+        ttm.twin_gt_tail(emb_x, queue, g_a, *plan_a, labels_a, packed[7][0, sa], packed[7][1, sa],
+                         dgt_w[0, sa], dgt_w[1, sa], d_w[sa], lt, mg),
+        ttm.twin_gt_tail(emb_y, queue, g_b, *plan_b, labels_b, packed[7][0, sb], packed[7][1, sb],
+                         dgt_w[0, sb], dgt_w[1, sb], d_w[sb], lt, mg)]).float()
+    tag = f"{n_shards} blocks merged vs the whole queue: "
+    checks += [
+        _err(tag + "ce", ce, ce_w, 1e-4), _err(tag + "neg", neg, neg_w, 1e-4),
+        _err(tag + "logz (in-pool rows)", logz[:, pos], logz_w[:, pos], 1e-4),
+        _err(tag + "top-k", topk, topk_w, 1e-5),
+        _err(tag + "d_gt", dgt_sum, dgt_w, 1e-5),
+        _err(tag + "d_emb with the owners' tails", d_tot, d_whole,
+             1e-4 * float(d_whole.abs().max()))]
+    return checks
 
 
 def failures(checks: list[dict]) -> list[dict]:
