@@ -98,7 +98,34 @@ card over a real NCCL group of one):
    steps through ``Trainer.train``, each partial kernel launching once per
    step and quad_fwd / quad_bwd never; step time, peak memory and a profile
    of two warm steps (NCCL's share included); the process group destroyed;
-18. the ``kernels`` JSON line, then the device JSON line last.
+Class-sharded softmax head (routes A, B and D over a class-sharded classifier,
+``make_softmax_train_step(..., mesh=)`` on one card over an NCCL group of one):
+18. parity — the partial margin_ce kernels against their plain versions at
+   full width (B = 128, D = 512, k = 1, Arc, scale 32, margin 0.5, a
+   repeated label): the classifier as one 2^20 block, then a 5,000,000-class
+   classifier as 4 emulated blocks of 1,250,000 (one card's block of the
+   shipped ``configs/partial_fc_ir50_5m_ids.json``; ragged last tiles), each
+   block's kernels against their plain versions and the blocks merged as
+   the collectives merge them against margin_ce_fwd / margin_ce_bwd on the
+   whole classifier (``vlsfr_tpu_torch/utils/parity.py: margin_shard_checks``,
+   limits there); on one emulated block with its −2 rows, the fused-SGD
+   kernel and margin_ce_bwd with ``pos_rows`` and route D's forward with
+   statistics, selection and sparse backward against their plain versions;
+   then AM and SV (and Arc at k = 3 with outlier rows) at C = 4096 in 4
+   blocks;
+19. timing — both partial kernels over a 2^20 block and a 1,250,000 block:
+   kernel, plain version, a cuBLAS composition as a yardstick, bound;
+20. training — ``make_softmax_train_step(cfg, schedule, mesh=<NCCL group of
+   one>)`` on the softmax slice (ir50, 2^20 f32 classes) for routes A, B and
+   D: each first step against the single-device route's first step from the
+   same seed and batch on an f32 backbone (loss 1e-5 relative, classifier
+   per row set as phase 9, backbone parameters 1e-5 relative + 2e-5
+   absolute); then on the bf16 config route A 4 steps, B and D 2 each, each
+   step launching its kernels once (A: margin_partial_fwd and the fused
+   kernel; B: both partial kernels; D: the forward with statistics, the
+   sparse kernel and margin_ce_bwd); step time, peak memory, and a profile
+   of two warm route-A steps (NCCL's share included); the group destroyed;
+then the ``kernels`` JSON line (ten kernels), and the device JSON line last.
 
 The script imports nothing of JAX. Without a CUDA device it exits non-zero
 before printing any result.
@@ -128,6 +155,8 @@ ROUTE_E_STEPS = 2
 SPARSE_RATE = 0.05  # route D's pool.sparse_grad_rate: 128 of 2048 tiles
 SAMPLE_RATE = 0.1  # route E's pool.sample_rate: 104,857 sampled classes
 SHARDS = 4  # the emulated shards of phase 15: a 4-card run's 2^18-slot blocks
+SHIPPED_CLASSES = 5_000_000  # configs/partial_fc_ir50_5m_ids.json: mesh.model = 4
+CLASS_SHARDS = 4  # its blocks of 1,250,000 classes, emulated in phase 18
 SLOT_MULT = 0x9E3779B1  # odd: slot -> slot * SLOT_MULT mod Q permutes a 2^k queue
 
 
@@ -609,7 +638,8 @@ def softmax_train_phase(card: str, tmp: str):
     print(f"  route B {ROUTE_B_STEPS} steps: {json.dumps(out_b)}")
     print(f"  margin_ce launches in the route-B run: {launches_b}")
     if launches_b != {"margin_ce_fwd": ROUTE_B_STEPS, "margin_ce_bwd": ROUTE_B_STEPS,
-                      "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 0} \
+                      "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 0,
+                      "margin_partial_fwd": 0, "margin_partial_bwd": 0} \
             or not math.isfinite(out_b["loss"]):
         raise RuntimeError(f"route B must launch fwd and bwd once per step: {launches_b}")
 
@@ -646,7 +676,8 @@ def softmax_train_phase(card: str, tmp: str):
         print(f"  route A {TRAIN_STEPS} steps: {json.dumps(out)}")
         print(f"  margin_ce launches in the route-A run: {launches}")
         if launches != {"margin_ce_fwd": TRAIN_STEPS, "margin_ce_bwd": 0,
-                        "margin_ce_bwd_fused_sgd": TRAIN_STEPS, "margin_ce_bwd_sparse": 0}:
+                        "margin_ce_bwd_fused_sgd": TRAIN_STEPS, "margin_ce_bwd_sparse": 0,
+                        "margin_partial_fwd": 0, "margin_partial_bwd": 0}:
             raise RuntimeError(f"route A must launch fwd and fused once per step: {launches}")
         if not (math.isfinite(out["loss"]) and out["loss"] > 0
                 and out["final_step"] == TRAIN_STEPS
@@ -809,7 +840,8 @@ def route_d_phase(card: str, tmp: str, ref_b: dict) -> dict:
         print(f"  route D {TRAIN_STEPS} steps: {json.dumps(out)}")
         print(f"  margin_ce launches in the route-D run: {launches}")
         if launches != {"margin_ce_fwd": TRAIN_STEPS, "margin_ce_bwd": TRAIN_STEPS,
-                        "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": TRAIN_STEPS}:
+                        "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": TRAIN_STEPS,
+                        "margin_partial_fwd": 0, "margin_partial_bwd": 0}:
             raise RuntimeError(f"route D must launch fwd, bwd and sparse once per step: {launches}")
         if not (math.isfinite(out["loss"]) and out["loss"] > 0
                 and out["grad_rows"] == route_d_rows() and out["final_step"] == TRAIN_STEPS):
@@ -1077,6 +1109,248 @@ def sharded_train_phase(card: str, tmp: str) -> dict:
     return launches
 
 
+def class_shard_parity(c: int, loss_type: str, k: int, frac_outlier: float, n_shards: int,
+                       seed: int):
+    """``parity.margin_shard_checks`` on one softmax case cut into
+    ``n_shards`` blocks; raises above a limit. Returns the case with the
+    merged (gt, logz, topk), and the max errors of the partial kernels."""
+    from vlsfr_tpu_torch.parallel._shard_common import localize_labels
+    from vlsfr_tpu_torch.utils import parity
+
+    emb, w, mom, labels, d_ce, d_neg, kw = softmax_case(c, loss_type, k, frac_outlier, seed)
+    cl = c // n_shards
+    for j in range(n_shards):
+        ll, _ = localize_labels(j * cl, cl, labels)
+        if n_shards > 1 and not ((ll >= 0).any() and (ll == -2).any()):
+            raise RuntimeError(f"block {j} must own targets and see rows owned elsewhere")
+    checks, (gt, logz, topk) = parity.margin_shard_checks(emb, w, labels, d_ce, d_neg, kw,
+                                                          n_shards)
+    torch.cuda.synchronize()
+    for ch in checks:
+        print("    " + parity.describe(ch))
+    bad = parity.failures(checks)
+    if bad:
+        raise RuntimeError("the class-sharded softmax head disagrees: "
+                           + "; ".join(map(parity.describe, bad)))
+    errs = lambda *keys: max(ch["err"] for ch in checks  # noqa: E731
+                             if any(f"partial {key}" in ch["name"] for key in keys))
+    return ((emb, w, mom, labels, d_ce, d_neg, kw, gt, logz, topk),
+            {"margin_partial_fwd": errs("m + log s", "top-k"),
+             "margin_partial_bwd": errs("d_emb", "d_w")})
+
+
+def block_pos_rows_parity(case, n_shards: int, j: int = 1) -> None:
+    """On emulated block ``j`` with its block-local labels (−2 rows), the
+    merged gt / logz / top-k and the global positive rows as ``pos_rows``:
+    margin_ce_bwd (both grad_w) and the fused-SGD kernel (route A), and
+    route D's forward with statistics, selection and sparse backward, each
+    against its plain version; raises above a limit."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.parallel._shard_common import localize_labels
+    from vlsfr_tpu_torch.utils import parity
+
+    emb, w, mom, labels, d_ce, d_neg, kw, gt, logz, topk = case
+    b, d = emb.shape
+    cl = w.shape[0] // n_shards
+    rows = slice(j * cl, (j + 1) * cl)
+    ll, _ = localize_labels(j * cl, cl, labels)
+    pos = labels >= 0
+    print(f"  block {j}: {int((ll >= 0).sum())} owned rows, {int((ll == -2).sum())} rows owned "
+          f"elsewhere (-2)")
+    bwd, fused = parity.margin_ce_bwd_checks(emb, w[rows].clone(), mom[rows].clone(), ll, gt, logz,
+                                             topk, d_ce, d_neg, kw, LR, SGD, pos_rows=pos)
+    tile, n_tiles = tms.sparse_bwd_geometry(b, d, cl)
+    m = tms.sparse_m_tiles(SPARSE_RATE, n_tiles, b)
+    u = torch.rand((n_tiles,), generator=torch.Generator(device=emb.device).manual_seed(j),
+                   device=emb.device)
+    sparse, _, _ = parity.sparse_path_checks(emb, w[rows], ll, d_ce, d_neg, kw, tile, m, u,
+                                             pos_rows=pos, gt=gt)
+    torch.cuda.synchronize()
+    print(f"    route D on the block: tile {tile}, {m} of {n_tiles} tiles")
+    checks = bwd + fused + sparse
+    for ch in checks:
+        print("    " + parity.describe(ch))
+    bad = parity.failures(checks)
+    if bad:
+        raise RuntimeError("a pos_rows kernel disagrees on a block: "
+                           + "; ".join(map(parity.describe, bad)))
+
+
+def margin_partial_timing(case) -> dict:
+    """Both partial margin_ce kernels over a 2^20 block (world 1 at the
+    slice's width) and a 1,250,000 block (one card's block of the shipped
+    5M config): kernel, plain version, a cuBLAS composition (a yardstick the
+    port never calls) and the bound. Returns {(name, columns): times}."""
+    import torch.nn.functional as F
+
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.parallel._shard_common import localize_labels
+
+    emb, w, _, labels, d_ce, d_neg, kw, gt, logz, topk = case
+    b, d = emb.shape
+    k = kw["k"]
+    kth = topk[:, -1].contiguous()
+    d_ce_m, d_neg_m = tms._mask_cotangents(labels >= 0, d_ce, d_neg)
+    out = {}
+    for cols in (SOFTMAX["c"], SHIPPED_CLASSES // CLASS_SHARDS):
+        blk = w[:cols]
+        ll, _ = localize_labels(0, cols, labels)
+        _, d_wl = tms._target_rows(emb, blk, ll, gt, logz, d_ce_m, loss_type=kw["loss_type"],
+                                   margin=kw["margin"], scale=kw["scale"])
+        fargs, bargs = (emb, blk, ll, gt), (emb, blk, ll, gt, logz, kth, d_ce_m, d_neg_m, d_wl)
+        fwd = dict(ms=cuda_ms(lambda: tms.margin_partial_fwd(*fargs, **kw), 10),
+                   plain_ms=cuda_ms(lambda: tms.margin_partial_fwd_plain(*fargs, **kw), 3, 1))
+        bwd = dict(ms=cuda_ms(lambda: tms.margin_partial_bwd(*bargs, **kw), 5),
+                   plain_ms=cuda_ms(lambda: tms.margin_partial_bwd_plain(*bargs, **kw), 3, 1))
+
+        def library_fwd():  # yardsticks only: the port never calls these
+            cos = emb @ F.normalize(blk, dim=1).T
+            torch.logsumexp(kw["scale"] * cos, dim=1)
+            torch.topk(cos, k, dim=1)
+
+        wn = F.normalize(blk, dim=1)
+        d_cos = torch.randn((b, cols), device=emb.device).mul_(1e-4)
+
+        def library_bwd():
+            torch.matmul(d_cos, wn)
+            torch.matmul(d_cos.T, emb)
+
+        fwd["library_ms"] = cuda_ms(library_fwd, 5, 1)
+        bwd["library_ms"] = cuda_ms(library_bwd, 5, 1)
+        del wn, d_cos
+        product = 2.0 * b * d * cols
+        vecs = 4 * (b * d + 2 * b)  # emb; labels, gt
+        fwd.update(bound(product, 4 * cols * d + vecs + 4 * b * (2 + k)))
+        # W read and d_w written; emb and d_wl read, d_emb written; the [B] vectors
+        bwd.update(bound(3 * product, 8 * cols * d + 12 * b * d + 4 * 7 * b))
+        print(f"  a block of {cols} classes:")
+        print_times({"margin_partial_fwd": fwd, "margin_partial_bwd": bwd})
+        out[("margin_partial_fwd", cols)], out[("margin_partial_bwd", cols)] = fwd, bwd
+    return out
+
+
+SHARDED_ROUTES = {"A": (), "B": ("pool.fused_update=off",),
+                  "D": ("pool.sparse_update=true", f"pool.sparse_grad_rate={SPARSE_RATE}")}
+
+
+def sharded_softmax_run(tmp: str, route: str, mesh, *overrides: str):
+    """The single-device softmax Trainer of ``route`` (its data pipeline,
+    schedule and seeded backbone) and, from its backbone before any step
+    and the classifier the same seed draws, the class-sharded state and
+    step on ``mesh``. Returns (trainer, sharded state, sharded step)."""
+    from vlsfr_tpu_torch.train.softmax_head import create_softmax_state, make_softmax_train_step
+
+    trainer = softmax_trainer(tmp, *SHARDED_ROUTES[route], *overrides)
+    cfg = trainer.cfg
+    state = create_softmax_state(copy.deepcopy(trainer.state.backbone), cfg,
+                                 cfg.pool.num_classes, seed=cfg.data.seed, mesh=mesh)
+    return trainer, state, make_softmax_train_step(cfg, trainer.schedule, mesh=mesh)
+
+
+def sharded_softmax_first_step(tmp: str, route: str, mesh) -> None:
+    """The sharded route's first step against the single-device route's
+    first step from the same seed and batch, on an f32 backbone (phase 17's
+    reason): loss 1e-5 relative, the classifier per row set (1e-4 x
+    max|w' - w| + 2 f32 eps x max|w'|, as phase 9), backbone parameters and
+    BN statistics 1e-5 relative + 2e-5 absolute."""
+    from vlsfr_tpu_torch.utils import parity
+
+    trainer, state, step = sharded_softmax_run(tmp, route, mesh, "model.dtype=float32")
+    try:
+        if not torch.equal(state.classifier, trainer.state.classifier.detach()):
+            raise RuntimeError("the sharded state's block is not the seeded classifier")
+        batch = trainer.pipeline.make_batch(0, 0)
+        w0 = state.classifier.detach().clone()
+        loss_ref = float(trainer.train_step(trainer.state, batch.images, batch.labels,
+                                            1.0)["loss"])
+        loss = float(step(state, batch.images, batch.labels, 1.0)["loss"])
+        w_ref = trainer.state.classifier.detach()
+        checks = parity.by_rows(f"route {route} classifier, sharded vs single",
+                                state.classifier.detach(), w_ref, w_ref - w0,
+                                torch.from_numpy(batch.labels), 1e-4, rounding=2.0)
+        ref = trainer.state.backbone.state_dict()
+        worst = max(float(((v.double() - ref[k].double()).abs() - 1e-5 * ref[k].double().abs())
+                          .max()) for k, v in state.backbone.state_dict().items())
+        print(f"  route {route} first step (f32 backbone), sharded against single-device: loss "
+              f"{loss:.6f} / {loss_ref:.6f} (1e-5 relative); backbone max(|diff| - 1e-5 |ref|) "
+              f"{worst:.3e} <= 2e-5")
+        for ch in checks:
+            print("    " + parity.describe(ch))
+        if not (abs(loss - loss_ref) <= 1e-5 * abs(loss_ref) and worst <= 2e-5) \
+                or parity.failures(checks):
+            raise RuntimeError(f"the sharded route {route}'s first step disagrees")
+    finally:
+        free_trainer(trainer)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+SHARDED_LAUNCHES = {  # route: {kernel: launches per step}
+    "A": {"margin_partial_fwd": 1, "margin_ce_bwd_fused_sgd": 1},
+    "B": {"margin_partial_fwd": 1, "margin_partial_bwd": 1},
+    "D": {"margin_ce_fwd": 1, "margin_ce_bwd_sparse": 1, "margin_ce_bwd": 1},
+}
+
+
+def sharded_softmax_phase(card: str, tmp: str) -> dict:
+    """Phase 20: the first steps, then route A 4 steps, B and D 2 each on
+    the bf16 config over an NCCL group of one, with launch counts, step
+    time, peak memory and a profile of two warm route-A steps. Returns the
+    launch counts of the A and B runs."""
+    import torch.distributed as dist
+
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.parallel import distributed
+    from vlsfr_tpu_torch.parallel.mesh import make_mesh
+
+    if not distributed.initialize("cuda"):
+        raise RuntimeError("a process group outlived its phase")
+    try:
+        mesh = make_mesh(1, 1)
+        if dist.get_backend() != "nccl" or mesh.model != 1:
+            raise RuntimeError("the sharded routes must run over an NCCL group of one")
+        for route in SHARDED_ROUTES:
+            sharded_softmax_first_step(tmp, route, mesh)
+        launches = {}
+        for route, n in (("A", TRAIN_STEPS), ("B", ROUTE_B_STEPS), ("D", ROUTE_B_STEPS)):
+            trainer, state, step = sharded_softmax_run(tmp, route, mesh)
+            trainer.state = None  # the single-device state is not used here
+            gc.collect()
+            torch.cuda.empty_cache()
+            try:
+                batches = [trainer.pipeline.make_batch(0, s) for s in range(n)]
+                tms.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                for bt in batches:
+                    t0 = time.perf_counter()
+                    m = step(state, bt.images, bt.labels, 1.0)
+                    loss = float(m["loss"])
+                    torch.cuda.synchronize()
+                    step_ms = (time.perf_counter() - t0) * 1e3
+                got = dict(tms.LAUNCH_COUNTS)
+                peak = torch.cuda.max_memory_allocated()
+                want = {name: n * SHARDED_LAUNCHES[route].get(name, 0) for name in got}
+                print(f"  sharded route {route}, {n} steps: last loss {loss:.6f}, last step "
+                      f"{step_ms:.1f} ms ({card}), peak memory {peak / 2**30:.2f} GiB ({card})")
+                print(f"  launches: {got}")
+                if got != want or not math.isfinite(loss) or loss <= 0:
+                    raise RuntimeError(f"sharded route {route} must launch {want}: {got}")
+                launches[route] = got
+                if route == "A":
+                    print("== phase 20b: profile of two more sharded route-A steps")
+                    profile_steps(lambda bt: step(state, bt.images, bt.labels, 1.0),
+                                  [trainer.pipeline.make_batch(0, s) for s in range(2)])
+            finally:
+                free_trainer(trainer)
+                del state, step
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        distributed.destroy()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1180,6 +1454,34 @@ def main() -> int:
         print("== phase 17: the sharded FFC step (pool.force_sharded) through the Trainer")
         sharded = sharded_train_phase(card, tmp)
         launches.update({k: sharded[k] for k in ("quad_partial_fwd", "quad_partial_bwd")})
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("== phase 18: partial margin_ce kernels and the class-shard merge at full width; "
+              "limits in vlsfr_tpu_torch/utils/parity.py")
+        print(f"  the classifier as 1 block of {SOFTMAX['c']} classes:")
+        perrs = class_shard_parity(SOFTMAX["c"], "Arc", 1, 0.0, 1, seed=8)[1]
+        print(f"  {SHIPPED_CLASSES} classes as {CLASS_SHARDS} blocks of "
+              f"{SHIPPED_CLASSES // CLASS_SHARDS}:")
+        full, errs4 = class_shard_parity(SHIPPED_CLASSES, "Arc", 1, 0.0, CLASS_SHARDS, seed=9)
+        perrs = {name: max(perrs[name], errs4[name]) for name in perrs}
+        block_pos_rows_parity(full, CLASS_SHARDS)
+        for loss_type, k, frac in (("AM", 1, 0.0), ("SV", 1, 0.0), ("Arc", 3, 0.3)):
+            print(f"  C=4096 {loss_type} k={k} in {CLASS_SHARDS} blocks:")
+            class_shard_parity(4096, loss_type, k, frac, CLASS_SHARDS, seed=10)
+
+        print("== phase 19: partial margin_ce timing (a 2^20 block and a 1,250,000 block)")
+        ptimes = margin_partial_timing(full)
+        times.update({name: t for (name, cols), t in ptimes.items() if cols == SOFTMAX["c"]})
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("== phase 20: the class-sharded softmax head (make_softmax_train_step with a mesh)")
+        sharded = sharded_softmax_phase(card, tmp)
+        launches["margin_partial_fwd"] = sharded["A"]["margin_partial_fwd"]
+        launches["margin_partial_bwd"] = sharded["B"]["margin_partial_bwd"]
+        errs.update(perrs)
 
     fwd_keys = ("ce", "neg", "logz", "topk")
     kernels = []
@@ -1194,7 +1496,10 @@ def main() -> int:
             ("margin_ce_bwd_sparse", "margin_ce", "margin_pallas.py:1447", sp_errs["sparse"]),
             ("quad_partial_fwd", "quad_margin", "twin_margin.py:1676", errs["quad_partial_fwd"]),
             ("quad_partial_bwd", "quad_margin", "twin_margin.py:1748",
-             errs["quad_partial_bwd"])):
+             errs["quad_partial_bwd"]),
+            ("margin_partial_fwd", "margin_ce", "margin_pallas.py:991", errs["margin_partial_fwd"]),
+            ("margin_partial_bwd", "margin_ce", "margin_pallas.py:1036",
+             errs["margin_partial_bwd"])):
         t = times[name]
         if launches[name] < 1:
             raise RuntimeError(f"{name} was not launched on its path")

@@ -377,7 +377,8 @@ def test_softmax_kernels_match_plain(loss_type, b, c, d, k, frac_outlier):
     checks = bwd + fused
     assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
     assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 1, "margin_ce_bwd": 2,
-                                 "margin_ce_bwd_fused_sgd": 1, "margin_ce_bwd_sparse": 0}
+                                 "margin_ce_bwd_fused_sgd": 1, "margin_ce_bwd_sparse": 0,
+                                 "margin_partial_fwd": 0, "margin_partial_bwd": 0}
 
 
 def _build_faulty(tmp_path, faults):
@@ -475,9 +476,8 @@ def test_margin_softmax_autograd_on_card_matches_cpu():
         outs.append((float(loss.detach()), e.grad.cpu(), ww.grad.cpu(), dict(tms.LAUNCH_COUNTS)))
     (lk, ek, wk, ck), (lp, ep, wp, cp) = outs
     assert ck == {"margin_ce_fwd": 1, "margin_ce_bwd": 1, "margin_ce_bwd_fused_sgd": 0,
-                  "margin_ce_bwd_sparse": 0}
-    assert cp == {"margin_ce_fwd": 0, "margin_ce_bwd": 0, "margin_ce_bwd_fused_sgd": 0,
-                  "margin_ce_bwd_sparse": 0}
+                  "margin_ce_bwd_sparse": 0, "margin_partial_fwd": 0, "margin_partial_bwd": 0}
+    assert not any(cp.values())
     np.testing.assert_allclose(lk, lp, rtol=1e-5)
     np.testing.assert_allclose(ek.numpy(), ep.numpy(), atol=1e-4 * float(ep.abs().max()))
     np.testing.assert_allclose(wk.numpy(), wp.numpy(), atol=1e-4 * float(wp.abs().max()))
@@ -534,7 +534,8 @@ def test_stats_and_sparse_kernels_match_plain(loss_type, b, c, d, k, frac_outlie
     assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
     # the sparse kernel runs twice: through the wrapper, and for its parts
     assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 1, "margin_ce_bwd": 0,
-                                 "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 2}
+                                 "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 2,
+                                 "margin_partial_fwd": 0, "margin_partial_bwd": 0}
 
 
 # source edits that break the sparse backward: each must fail the checks above
@@ -573,3 +574,103 @@ def test_sparse_checks_reject_planted_faults(tmp_path, monkeypatch):
     assert "sparse d_w (label rows)" in failed["no_dwl_add"]
     assert {"sparse d_w (other rows)", "sparse d_emb",
             "sparse d_emb (streamed)"} <= failed["tile_off_by_one"]
+
+
+# ----------------------------------------------------------------------
+# the softmax head's partial kernels (the class-sharded head)
+# ----------------------------------------------------------------------
+
+
+def make_class_shard_case(seed, b, c, d, k, frac_outlier, n_shards, device="cpu"):
+    """``make_softmax_case`` with the targets spread so that every one of
+    ``n_shards`` blocks owns some (rows 0 and 1 one class in block 0) and
+    every block sees rows owned elsewhere (−2 there)."""
+    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(seed, b, c, d, k, frac_outlier, device)
+    cl = c // n_shards
+    spread = torch.arange(n_shards, dtype=torch.int32, device=labels.device) * cl + cl // 3
+    labels[2:2 + n_shards] = spread
+    pos = labels >= 0
+    d_ce, d_neg = torch.where(pos, 1.0 / b, 0.0), torch.where(pos, 0.0, 1.0 / b)
+    return emb, w, mom, labels, d_ce, d_neg
+
+
+@pytest.mark.parametrize("loss_type,k,frac_outlier", [("Arc", 1, 0.0), ("AM", 3, 0.3),
+                                                      ("SV", 3, 0.3)])
+def test_emulated_class_shards_match_the_whole_classifier_cpu(loss_type, k, frac_outlier):
+    """On the CPU (plain versions): the classifier cut into 4 blocks, merged
+    as the collectives merge them, equals the single-device head on the
+    whole classifier — the check chip_smoke.py makes on the card at full
+    width."""
+    emb, w, _, labels, d_ce, d_neg = make_class_shard_case(8, 16, 4000, 32, k, frac_outlier, 4)
+    kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
+    tms.reset_launch_counts()
+    checks, _ = parity.margin_shard_checks(emb, w, labels, d_ce, d_neg, kw, n_shards=4)
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert not any(tms.LAUNCH_COUNTS.values())
+
+
+CLASS_SHARD_CASES = [("Arc", 128, 40000, 512, 1, 0.0, 4), ("Arc", 128, 40000, 512, 16, 0.2, 1),
+                     ("AM", 64, 3000, 128, 3, 0.3, 4), ("SV", 8, 700, 64, 3, 0.3, 4),
+                     ("Arc", 128, 1_000_000, 512, 1, 0.0, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_type,b,c,d,k,frac_outlier,n_shards", CLASS_SHARD_CASES)
+def test_partial_margin_kernels_and_merge_match_plain_and_whole(loss_type, b, c, d, k,
+                                                                frac_outlier, n_shards):
+    """``margin_partial_fwd`` / ``_bwd`` against their plain versions on
+    each block (ragged last tiles: 10,000, 750, 175 and 250,000 columns),
+    and the blocks merged against margin_ce_fwd / margin_ce_bwd on the whole
+    classifier."""
+    dev = _cuda()
+    emb, w, _, labels, d_ce, d_neg = make_class_shard_case(9, b, c, d, k, frac_outlier, n_shards,
+                                                           dev)
+    kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
+    tms.reset_launch_counts()
+    checks, _ = parity.margin_shard_checks(emb, w, labels, d_ce, d_neg, kw, n_shards=n_shards)
+    torch.cuda.synchronize()
+    for c_ in checks:
+        print(parity.describe(c_))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 1, "margin_ce_bwd": 1,
+                                 "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 0,
+                                 "margin_partial_fwd": 2 * n_shards,  # merge input + checks
+                                 "margin_partial_bwd": n_shards}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_type", ["Arc", "SV"])
+def test_pos_rows_kernels_with_minus2_rows_on_every_block(loss_type):
+    """Each of 4 blocks with its block-local labels (−2 rows on every
+    block), the merged global gt / logz / top-k and the global positive
+    rows as ``pos_rows``: margin_ce_bwd (both grad_w) and the fused-SGD
+    kernel against their plain versions (route A's and route D's exact
+    d_emb), and route D's forward with statistics, selection and sparse
+    backward."""
+    from vlsfr_tpu_torch.parallel._shard_common import localize_labels
+
+    dev = _cuda()
+    b, c, d, n = 128, 40000, 512, 4
+    emb, w, mom, labels, d_ce, d_neg = make_class_shard_case(10, b, c, d, 1, 0.0, n, dev)
+    kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=1, mask_svfc=1.2)
+    _, (gt, logz, topk) = parity.margin_shard_checks(emb, w, labels, d_ce, d_neg, kw, n_shards=n)
+    pos = labels >= 0
+    cl = c // n
+    for j in range(n):
+        ll, _ = localize_labels(j * cl, cl, labels)
+        assert (ll == -2).any() and (ll >= 0).any()
+        blk = w[j * cl:(j + 1) * cl].clone()
+        bwd, fused = parity.margin_ce_bwd_checks(emb, blk, mom[j * cl:(j + 1) * cl].clone(), ll,
+                                                 gt, logz, topk, d_ce, d_neg, kw, LR, SGD,
+                                                 pos_rows=pos)
+        tile, n_tiles = tms.sparse_bwd_geometry(b, d, cl)
+        u = torch.rand((n_tiles,), generator=torch.Generator(device=dev).manual_seed(j),
+                       device=dev)
+        sparse, _, _ = parity.sparse_path_checks(emb, w[j * cl:(j + 1) * cl], ll, d_ce, d_neg,
+                                                 kw, tile, tms.sparse_m_tiles(0.25, n_tiles, b),
+                                                 u, pos_rows=pos, gt=gt)
+        torch.cuda.synchronize()
+        checks = bwd + fused + sparse
+        for c_ in checks:
+            print(f"block {j}: {parity.describe(c_)}")
+        assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]

@@ -250,8 +250,7 @@ def test_cpu_tensors_never_launch_and_bf16_refused(rng):
                                          torch.zeros(b), 0.1, momentum=0.9, nesterov=True,
                                          weight_decay=1e-4)
     tms.fused_add_margin(t(emb).requires_grad_(True), t(w), t(labels), hard_neg=1).backward()
-    assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 0, "margin_ce_bwd": 0,
-                                 "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 0}
+    assert not any(tms.LAUNCH_COUNTS.values())
     kw = kw_for("Arc", 1)
     gt = tms.compute_gt(t(emb), t(w), t(labels))
     with pytest.raises(NotImplementedError):

@@ -196,7 +196,7 @@ def _composition_rank(rank, world, store, case_path, out_dir):
     try:
         mesh = make_mesh(1, world)
         case = dict(np.load(case_path))
-        c0, c_local = mesh.queue_block(case["queue"].shape[1])
+        c0, c_local = mesh.class_block(case["queue"].shape[1])
         q_l = T(np.ascontiguousarray(case["queue"][:, c0:c0 + c_local]))
         out = {}
         for lt in LOSS_TYPES:
@@ -332,7 +332,7 @@ def _trajectory_rank(rank, world, store, tmp):
         data = dict(np.load(os.path.join(tmp, "data.npz")))
         probe = create_net("toy", feat_dim=D)
         probe.load_state_dict({k[6:]: T(v) for k, v in init.items() if k.startswith("probe/")})
-        c0, c_local = mesh.queue_block(Q)
+        c0, c_local = mesh.class_block(Q)
         state = FFCState(step=0, probe=probe,
                          gallery=copy.deepcopy(probe).requires_grad_(False),
                          queue=T(np.ascontiguousarray(init["queue"][:, c0:c0 + c_local])),

@@ -73,7 +73,7 @@ SPARSE_ROUTES = {
     "E": ["pool.sample_rate=0.1", "pool.sparse_update=true"],
     "E-dense": ["pool.sample_rate=0.1"]}
 NO_LAUNCH = {"margin_ce_fwd": 0, "margin_ce_bwd": 0, "margin_ce_bwd_fused_sgd": 0,
-             "margin_ce_bwd_sparse": 0}
+             "margin_ce_bwd_sparse": 0, "margin_partial_fwd": 0, "margin_partial_bwd": 0}
 
 
 def _jax_and_port(route, c=C):
@@ -96,8 +96,10 @@ def _jax_draws(monkeypatch):
     """The port's two draw functions return JAX's draws for the step: the
     uniform tile fill of ``fold_in(PRNGKey(23), step)`` and the sampled
     negatives of ``fold_in(PRNGKey(17), step)``."""
-    def tile_fill(step, n, device):
+    def tile_fill(step, n, device, rank=None):
         key = jax.random.fold_in(jax.random.PRNGKey(23), step)
+        if rank is not None:  # a rank of a mesh folds in its model index
+            key = jax.random.fold_in(key, rank)
         return torch.from_numpy(np.array(jax.random.uniform(key, (n,)))).to(device)
 
     def sample(step, n, c, device):
@@ -266,13 +268,32 @@ def test_trainer_sparse_routes_cpu_run(route, tmp_path):
 
 @pytest.mark.parametrize("bad", [["pool.classifier_mom_dtype=bfloat16"],
                                  ["pool.classifier_dtype=bfloat16", "pool.sparse_update=true"],
-                                 ["pool.classifier_dtype=bfloat16"], ["mesh.model=2"]])
+                                 ["pool.classifier_dtype=bfloat16"],
+                                 ["mesh.model=2", "pool.use_fused=off"],
+                                 ["mesh.model=2", "pool.sample_rate=0.1"], ["mesh.data=2"]])
 def test_unported_options_raise(bad):
+    """Still refused: bf16 storage, routes C and E on a class-sharded mesh
+    (routes A, B and D run there), and the data axis."""
     cfg = Config().apply_overrides(BASE + ROUTES["A"] + bad)
     with pytest.raises(NotImplementedError):
         create_softmax_state(create_net("toy", feat_dim=D), cfg, C, device="cpu")
     with pytest.raises(NotImplementedError):
         make_softmax_train_step(cfg, lambda s: 0.1)
+
+
+def test_kernel_batch_limit_and_missing_mesh():
+    """On a card the margin_ce kernels take at most 128 rows: a larger
+    batch on a kernel route is refused up front (the CPU's plain versions
+    take any); a config at mesh.model > 1 without its mesh is refused."""
+    cfg = Config().apply_overrides(BASE + ROUTES["A"] + ["data.batch_size=512"])
+    softmax_head.check_ported(cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="128 rows"):
+        softmax_head.check_ported(cfg, torch.device("cuda"))
+    softmax_head.check_ported(Config().apply_overrides(BASE + ROUTES["C"] +
+                                                       ["data.batch_size=512"]), "cuda")
+    with pytest.raises(ValueError, match="needs the mesh"):
+        make_softmax_train_step(Config().apply_overrides(BASE + ROUTES["A"] + ["mesh.model=2"]),
+                                lambda s: 0.1)
 
 
 def test_fused_update_eligibility():

@@ -152,7 +152,7 @@ def make_train_step(cfg: Config, schedule, mesh=None):
         if mesh is None:
             raise ValueError("the sharded FFC head (mesh.model > 1 or pool.force_sharded) "
                              "needs the mesh: make_train_step(cfg, schedule, mesh)")
-        col0, _ = mesh.queue_block(pool.queue_size)
+        col0, _ = mesh.class_block(pool.queue_size)
         quad_loss = make_sharded_quad_loss(mesh, with_acc=True, **loss_kw)
     elif cfg.mesh.model > 1:
         raise NotImplementedError("mesh.model > 1 with the dense FFC head (pool.use_fused off, "
@@ -248,7 +248,7 @@ def create_ffc_state(model: nn.Module, cfg: Config, *, device=None, seed: int = 
     gen = torch.Generator(device=dev).manual_seed(seed)
     queue = init_queue(cfg.pool.queue_size, cfg.model.feat_dim, device=dev, generator=gen)
     if mesh is not None and mesh.model > 1:
-        c0, c_local = mesh.queue_block(cfg.pool.queue_size)
+        c0, c_local = mesh.class_block(cfg.pool.queue_size)
         queue = queue[:, c0:c0 + c_local].clone()
     return FFCState(step=0, probe=probe, gallery=gallery, queue=queue,
                     optimizer=make_optimizer(cfg.optim, probe.parameters()))

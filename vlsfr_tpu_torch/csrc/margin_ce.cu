@@ -1,16 +1,20 @@
 // Streaming margin-softmax cross-entropy over a [C, D] classifier for NVIDIA
 // Hopper (sm_90a): forward (optionally with per-tile statistics), backward,
-// backward with the classifier's SGD-momentum update fused in, and the
-// backward over selected class tiles only (sparse d_w).
+// backward with the classifier's SGD-momentum update fused in, the
+// backward over selected class tiles only (sparse d_w), and the forward and
+// backward of one block of a class-sharded classifier.
 //
 // Replaces the TPU kernels in vlsfr_tpu/ops/margin_pallas.py:
 //   pallas_margin_ce_fwd (:390)           -> margin_ce_fwd_launch
 //   pallas_margin_ce_bwd (:557)           -> margin_ce_bwd_launch
 //   pallas_margin_ce_bwd_fused_sgd (:803) -> margin_ce_bwd_fused_sgd_launch
 //   pallas_margin_ce_bwd_sparse (:1447)   -> margin_ce_bwd_sparse_launch
+//   pallas_margin_partial_fwd (:991)      -> margin_partial_fwd_launch
+//   pallas_margin_partial_bwd (:1036)     -> margin_partial_bwd_launch
 // Semantics are those of the scan references _stream_fwd / _stream_bwd,
-// the gather reference _sparse_bwd_gather and apply_sgd_dense there; the
-// plain PyTorch versions beside the wrappers
+// the gather reference _sparse_bwd_gather and apply_sgd_dense there, and
+// of vlsfr_tpu/parallel/sharded_margin.py's _local_partials /
+// dense_local_bwd_scan; the plain PyTorch versions beside the wrappers
 // (vlsfr_tpu_torch/ops/margin_stream.py *_plain) compute the same functions.
 //
 // Layout: emb [B][D] f32 (B <= 128, D a multiple of 64 up to 512), W and
@@ -73,6 +77,18 @@
 //    term. Bound at B = 128, D = 512, M * tile = 65,536: three products
 //    2.58e10 FLOP >= 0.385 ms against 0.27 GB (W tiles read, d_w rows
 //    written, 0.080 ms): compute-bound; the recompute adds a fourth.
+//  * One block of a class-sharded classifier (labels block-local: -1 an
+//    outlier, -2 a positive row whose target another block owns, >= 0 an
+//    owned target; gt, and backward logz / kth, global). The forward is the
+//    forward's block pass; its merge folds the partials in the same fixed
+//    order, then folds the owned target term scale * phi(gt) into (M, S),
+//    and writes the raw (M, S, top-k) for the merge across ranks instead of
+//    finalizing. The backward is the two backward passes as they are; the
+//    caller masks d_ce / d_neg with the GLOBAL positive rows (a -2 row's
+//    outlier test then adds d_neg = 0), and the owner's label-row gradient
+//    d_wl is added by the owner block. Bound
+//    at B = 128, D = 512 over a block of C_l columns: forward 2*B*D*C_l FLOP
+//    (2^20: 2.05 ms), backward with d_w 3x that (6.15 ms): compute-bound.
 
 #include "margin_common.cuh"
 
@@ -228,6 +244,24 @@ __global__ void margin_fwd_merge_kernel(Args a, int nparts, const float* part, f
     merge_partial(part + ((long long)q * a.B + r) * PART, a.k, M, S, tk);
   const float zt = a.scale * phi_target(a.gt[r], a);
   finalize_row(M, S, tk, a.k, a.labels[r] >= 0, zt, ce[r], neg[r], logz[r]);
+  for (int j = 0; j < a.k; ++j) topk[(long long)r * a.k + j] = tk[j];
+}
+
+// one thread per row: merge the partials in order into the block's raw
+// (m, s, top-k); a row that owns its target (label >= 0) folds in
+// scale * phi(gt), the column the block pass left out
+__global__ void margin_partial_merge_kernel(Args a, int nparts, const float* part, float* m,
+                                            float* s, float* topk) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= a.B) return;
+  float M = -INFINITY, S = 0.f;
+  float tk[KMAX];
+  for (int j = 0; j < KMAX; ++j) tk[j] = NEG_INF_F;
+  for (int q = 0; q < nparts; ++q)
+    merge_partial(part + ((long long)q * a.B + r) * PART, a.k, M, S, tk);
+  if (a.labels[r] >= 0) lse_fold(a.scale * phi_target(a.gt[r], a), 1.f, M, S);
+  m[r] = M;
+  s[r] = S;
   for (int j = 0; j < a.k; ++j) topk[(long long)r * a.k + j] = tk[j];
 }
 
@@ -643,6 +677,33 @@ int margin_ce_bwd_sparse_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, const int* ti
   const Sgd none = {nullptr, nullptr, 0.f, 0.f, 0.f, 0};
   return launch_bwd(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl,
                     dw_rows, none, 0, dgt, (cudaStream_t)stream);
+}
+
+// one block's forward: the forward's block pass, then the partial merge into
+// the raw m, s [B] and topk [B][k] (labels block-local, gt global)
+int margin_partial_fwd_launch(MCE_COMMON_PARAMS, float* part, int nblk, long long cols_per_blk,
+                              float* m, float* s, float* topk, void* stream) {
+  const Args a = make_args(MCE_COMMON_ARGS);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaFuncSetAttribute(margin_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  margin_fwd_kernel<<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part, nullptr);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  margin_partial_merge_kernel<<<(B + 127) / 128, 128, 0, st>>>(a, 2 * nblk, part, m, s, topk);
+  return (int)cudaGetLastError();
+}
+
+// one block's backward against the global logz / kth and cotangents masked
+// with the global positive rows: d_emb's streamed part; d_w [C][D] with the
+// owned label rows' d_wl [B][D] added by their owners, or both nullptr
+int margin_partial_bwd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, float* dw, const float* dwl,
+                              void* stream) {
+  const Args a = make_args(MCE_COMMON_ARGS);
+  const BwdRows br = {logz, kth, dce, dneg};
+  const Sgd none = {nullptr, nullptr, 0.f, 0.f, 0.f, 0};
+  return launch_bwd(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl,
+                    dw, none, 0, nullptr, (cudaStream_t)stream);
 }
 
 }  // extern "C"

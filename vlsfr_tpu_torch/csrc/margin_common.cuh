@@ -67,10 +67,8 @@ __device__ __forceinline__ void topk_insert(float (&tk)[KMAX], float& kth, float
     if (j == k - 1) kth = tk[j];
 }
 
-// fold one block's partial p = (m, s, top-k descending) into (M, S, tk)
-__device__ __forceinline__ void merge_partial(const float* p, int k, float& M, float& S,
-                                              float (&tk)[KMAX]) {
-  const float pm = p[0], ps = p[1];
+// fold a logsumexp state (pm, ps), ps > 0 or nothing, into (M, S)
+__device__ __forceinline__ void lse_fold(float pm, float ps, float& M, float& S) {
   if (ps > 0.f) {
     if (pm > M) {
       S = S * expf(M - pm) + ps;
@@ -79,6 +77,12 @@ __device__ __forceinline__ void merge_partial(const float* p, int k, float& M, f
       S += ps * expf(pm - M);
     }
   }
+}
+
+// fold one block's partial p = (m, s, top-k descending) into (M, S, tk)
+__device__ __forceinline__ void merge_partial(const float* p, int k, float& M, float& S,
+                                              float (&tk)[KMAX]) {
+  lse_fold(p[0], p[1], M, S);
   for (int j = 0; j < k; ++j) {
     float x = p[2 + j];
     if (!(x > tk[k - 1])) break;  // partial lists are sorted descending

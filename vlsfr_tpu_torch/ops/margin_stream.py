@@ -7,12 +7,15 @@ hard-negative term on outlier rows (``label == -1``), without ever holding
 the ``[B, C]`` logits (0.5 GB at B = 128, C = 2^20).
 
 Kernel boundary. ``margin_ce_fwd`` (with ``with_stats`` also the per-tile
-row maxima), ``margin_ce_bwd``, ``margin_ce_bwd_fused_sgd`` and
-``margin_ce_bwd_sparse`` keep the JAX functions' arguments and outputs
-(``pallas_margin_ce_fwd`` / ``_bwd`` / ``_bwd_fused_sgd`` /
-``_bwd_sparse``). For CUDA tensors they launch the hand-written kernels in
-``csrc/margin_ce.cu``; for CPU tensors they run the plain PyTorch versions
-beside them (``*_plain``). There is no other route and no switch.
+row maxima), ``margin_ce_bwd``, ``margin_ce_bwd_fused_sgd``,
+``margin_ce_bwd_sparse``, ``margin_partial_fwd`` and ``margin_partial_bwd``
+keep the JAX functions' arguments and outputs (``pallas_margin_ce_fwd`` /
+``_bwd`` / ``_bwd_fused_sgd`` / ``_bwd_sparse``,
+``pallas_margin_partial_fwd`` / ``_bwd``; the partial backward also takes
+the owner's label-row gradient ``d_wl`` to add in its d_w pass). For CUDA
+tensors they launch the hand-written kernels in ``csrc/margin_ce.cu``; for
+CPU tensors they run the plain PyTorch versions beside them (``*_plain``).
+There is no other route and no switch.
 
 Sparse d_w (``streaming_sparse_margin_grads``): the forward's tile
 statistics pick the M class tiles whose d_w can matter
@@ -32,6 +35,16 @@ tile that carries no softmax mass (every row's z − logz ≤ −20, no target,
 no top-k member). Neither the plain versions nor the CUDA kernels apply
 that gate: every column's terms are computed, as in the scan reference
 ``_stream_bwd``.
+
+One block of a class-sharded classifier (``parallel/sharded_margin.py``,
+``sharded_fused.py``, ``sharded_sparse.py``): ``margin_partial_fwd`` /
+``margin_partial_bwd`` (``pallas_margin_partial_fwd`` / ``_bwd``) stream
+the block against a global ``gt`` (and, backward, a global ``logz`` /
+``kth``). Labels are block-local: −1 an outlier row, −2 a positive row
+whose target another block owns, ≥ 0 an owned target column. A −2 row is
+positive globally, so the callers pass the global positive rows as
+``pos_rows`` wherever the cotangents are masked; the target terms stay on
+the owner, whose label is the only one that is ≥ 0.
 """
 
 from __future__ import annotations
@@ -54,7 +67,7 @@ from vlsfr_tpu_torch.ops.margin import (
 KMAX = 16  # largest hard_neg the kernels keep a register top-k for
 RANDOM_FILL_FRAC = 0.5  # share of the sparse tile budget the random fill boosts
 LAUNCH_COUNTS = {"margin_ce_fwd": 0, "margin_ce_bwd": 0, "margin_ce_bwd_fused_sgd": 0,
-                 "margin_ce_bwd_sparse": 0}
+                 "margin_ce_bwd_sparse": 0, "margin_partial_fwd": 0, "margin_partial_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -79,13 +92,27 @@ def compute_gt(emb, w, labels):
     return (emb.float() * _normalize_rows(w[labels.clamp(min=0).long()])).sum(dim=-1)
 
 
-def _mask_cotangents(labels, d_ce, d_neg):
-    """ce ≡ 0 on outlier rows and neg ≡ 0 on positive rows: their
-    cotangents must not leak."""
-    pos = labels >= 0
-    zero = torch.zeros((), device=labels.device)
+def _positive(labels, pos_rows):
+    """The positive rows: ``labels >= 0``, or ``pos_rows`` [B] bool where
+    the labels are block-local (a −2 row is positive)."""
+    return labels >= 0 if pos_rows is None else pos_rows
+
+
+def _mask_cotangents(pos, d_ce, d_neg):
+    """ce ≡ 0 on outlier rows and neg ≡ 0 on positive rows (``pos``):
+    their cotangents must not leak."""
+    zero = torch.zeros((), device=pos.device)
     return (torch.where(pos, d_ce.float(), zero).contiguous(),
             torch.where(pos, zero, d_neg.float()).contiguous())
+
+
+def ce_and_neg(logz, topk, labels, gt, *, loss_type, margin, scale):
+    """ce = logz − scale·φ(gt) on positive rows, neg = the mean clipped
+    top-k on outlier rows, each 0 on the other rows."""
+    pos = labels >= 0
+    zero = torch.zeros_like(logz)
+    return (torch.where(pos, logz - scale * phi_target(gt, loss_type, margin), zero),
+            torch.where(pos, zero, topk.clamp(min=0.0).mean(dim=-1)))
 
 
 def _target_dz(gt, logz, d_ce, *, loss_type, margin, scale):
@@ -93,6 +120,13 @@ def _target_dz(gt, logz, d_ce, *, loss_type, margin, scale):
     outside gt (``d_ce`` comes masked)."""
     p_t = torch.exp(scale * phi_target(gt, loss_type, margin) - logz)
     return (p_t - 1.0) * d_ce * scale
+
+
+def _owned_target_dz(labels, gt, logz, d_ce, *, loss_type, margin, scale):
+    """``_target_dz`` on the rows whose target column this block holds
+    (label ≥ 0), 0 elsewhere: the partial backward's d_gt_raw."""
+    return torch.where(labels >= 0, _target_dz(gt, logz, d_ce, loss_type=loss_type,
+                                               margin=margin, scale=scale), 0.0)
 
 
 def _target_rows(emb, w, labels, gt, logz, d_ce, *, loss_type, margin, scale):
@@ -177,13 +211,12 @@ def _tile_max(x, tile):
     return x.view(x.shape[0], -1, tile).amax(dim=-1).T
 
 
-def margin_ce_fwd_plain(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
-                        with_stats=False, tile=512, chunk=32768):
-    """Plain PyTorch version of the forward kernel; same inputs and outputs
-    as ``margin_ce_fwd`` (the scan reference ``_stream_fwd``). With
-    ``with_stats`` also (maxz, maxcos) [n_tiles, B]: per ``tile`` classes,
-    each row's max of scale·mod (scale·φ(gt) at the target) and of the raw
-    cosines (the target's own included)."""
+def _stream_plain(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
+                  with_stats=False, tile=512, chunk=32768):
+    """The online softmax over w's columns, chunk by chunk: (m [B], s [B],
+    topk [B, k]), the target column of a row with label ≥ 0 streamed in
+    band as scale·φ(gt) and kept out of the top-k; with ``with_stats``
+    also (maxz, maxcos) [n_tiles, B]."""
     b = emb.shape[0]
     c = w.shape[0]
     dev = emb.device
@@ -212,23 +245,43 @@ def margin_ce_fwd_plain(emb, w, labels, gt, *, loss_type, margin, scale, k, mask
         if with_stats:
             maxz.append(_tile_max(z, tile))
             maxcos.append(_tile_max(cos, tile))
-    logz = m + torch.log(s)
-    pos = labels >= 0
-    ce = torch.where(pos, logz - scale * phi_target(gt, loss_type, margin), torch.zeros_like(logz))
-    neg = torch.where(pos, torch.zeros_like(logz), topk.clamp(min=0.0).mean(dim=-1))
     if with_stats:
-        return ce, neg, logz, topk, torch.cat(maxz), torch.cat(maxcos)
-    return ce, neg, logz, topk
+        return m, s, topk, torch.cat(maxz), torch.cat(maxcos)
+    return m, s, topk
 
 
-def margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_type, margin, scale,
-                        k, mask_svfc, grad_w=True, chunk=32768):
-    """Plain PyTorch version of ``margin_ce_bwd``: (d_emb [B, D], d_w
-    [C, D] f32 or None with ``grad_w=False``), the target tail included."""
+def margin_ce_fwd_plain(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
+                        with_stats=False, tile=512, chunk=32768):
+    """Plain PyTorch version of the forward kernel; same inputs and outputs
+    as ``margin_ce_fwd`` (the scan reference ``_stream_fwd``). With
+    ``with_stats`` also (maxz, maxcos) [n_tiles, B]: per ``tile`` classes,
+    each row's max of scale·mod (scale·φ(gt) at the target) and of the raw
+    cosines (the target's own included)."""
+    m, s, topk, *stats = _stream_plain(emb, w, labels, gt, loss_type=loss_type, margin=margin,
+                                       scale=scale, k=k, mask_svfc=mask_svfc,
+                                       with_stats=with_stats, tile=tile, chunk=chunk)
+    logz = m + torch.log(s)
+    ce, neg = ce_and_neg(logz, topk, labels, gt, loss_type=loss_type, margin=margin, scale=scale)
+    return (ce, neg, logz, topk, *stats)
+
+
+def margin_partial_fwd_plain(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
+                             chunk=32768):
+    """Plain PyTorch version of ``margin_partial_fwd`` (the scan fallback
+    ``sharded_margin._local_partials``): the block's raw (m, s, topk), the
+    owned target column (label ≥ 0) in (m, s) as scale·φ(gt)."""
+    return _stream_plain(emb, w, labels, gt, loss_type=loss_type, margin=margin, scale=scale, k=k,
+                         mask_svfc=mask_svfc, chunk=chunk)
+
+
+def margin_partial_bwd_plain(emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl, *, loss_type,
+                             margin, scale, k, mask_svfc, grad_w=True, chunk=32768):
+    """Plain PyTorch version of ``margin_partial_bwd`` (the scan twin
+    ``sharded_margin.dense_local_bwd_scan``, plus ``d_wl``): (d_emb's
+    streamed part [B, D] f32, the block's d_w [C, D] f32 or None, d_gt_raw
+    [B]); ``d_wl`` rows added to the owned label rows of d_w."""
     c = w.shape[0]
     emb32 = emb.float()
-    d_ce, d_neg = _mask_cotangents(labels, d_ce, d_neg)
-    kth = topk[:, -1]
     kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
     d_emb = torch.zeros_like(emb32)
     d_w = torch.empty((c, w.shape[1]), device=w.device) if grad_w else None
@@ -240,25 +293,37 @@ def margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_typ
         d_emb += d_cos @ wn
         if grad_w:
             d_w[lo:hi] = _rows_dw(d_cos, emb32, wn, w[lo:hi])
+    if grad_w:  # a scatter-add: two rows sharing a class both add
+        own = labels >= 0
+        d_w.index_add_(0, labels[own].long(), d_wl[own])
+    return d_emb, d_w, _owned_target_dz(labels, gt, logz, d_ce, loss_type=loss_type,
+                                        margin=margin, scale=scale)
+
+
+def margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_type, margin, scale,
+                        k, mask_svfc, grad_w=True, pos_rows=None, chunk=32768):
+    """Plain PyTorch version of ``margin_ce_bwd``: (d_emb [B, D], d_w
+    [C, D] f32 or None with ``grad_w=False``), the target tail included."""
+    d_ce, d_neg = _mask_cotangents(_positive(labels, pos_rows), d_ce, d_neg)
     # the target tail (``pallas_margin_ce_bwd``'s XLA tail): d_gt into d_emb
-    # and, as a scatter-add, into the label rows of d_w — two rows sharing a
-    # class both add
+    # and into the label rows of d_w
     emb_term, d_wl = _target_rows(emb, w, labels, gt, logz, d_ce, loss_type=loss_type,
                                   margin=margin, scale=scale)
-    if grad_w:
-        d_w.index_add_(0, labels.clamp(min=0).long(), d_wl)
+    d_emb, d_w, _ = margin_partial_bwd_plain(
+        emb, w, labels, gt, logz, topk[:, -1], d_ce, d_neg, d_wl, loss_type=loss_type,
+        margin=margin, scale=scale, k=k, mask_svfc=mask_svfc, grad_w=grad_w, chunk=chunk)
     return (d_emb + emb_term).to(emb.dtype), d_w
 
 
 def margin_ce_bwd_fused_sgd_plain(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr, *,
                                   momentum, nesterov, weight_decay, loss_type, margin, scale, k,
-                                  mask_svfc, chunk=32768):
+                                  mask_svfc, pos_rows=None, chunk=32768):
     """Plain PyTorch version of ``margin_ce_bwd_fused_sgd``; updates ``w``
     and ``mom`` IN PLACE, chunk by chunk, each chunk's rows after its
     d_emb contribution is taken. Returns (d_emb, w, mom)."""
     c = w.shape[0]
     emb32 = emb.float()
-    d_ce, d_neg = _mask_cotangents(labels, d_ce, d_neg)
+    d_ce, d_neg = _mask_cotangents(_positive(labels, pos_rows), d_ce, d_neg)
     kth = topk[:, -1]
     emb_term, d_wl = _target_rows(emb, w, labels, gt, logz, d_ce, loss_type=loss_type,
                                   margin=margin, scale=scale)
@@ -300,7 +365,8 @@ def sparse_m_tiles(rate: float, n_tiles: int, b: int) -> int:
     return min(n_tiles, max(int(round(rate * n_tiles)), b, 8))
 
 
-def select_relevant_tiles(maxz, maxcos, logz, topk, labels, m_tiles: int, tile: int, u=None):
+def select_relevant_tiles(maxz, maxcos, logz, topk, labels, m_tiles: int, tile: int, u=None,
+                          pos_rows=None):
     """The ``m_tiles`` class tiles whose d_w can matter this step, and the
     importance weight of each (``margin_pallas.select_relevant_tiles``).
 
@@ -312,12 +378,15 @@ def select_relevant_tiles(maxz, maxcos, logz, topk, labels, m_tiles: int, tile: 
     order: a stable descending sort, since ``torch.topk`` promises none).
     Forced tiles (score ≥ 1e6) weigh 1; the others weigh their stratum's
     population over its selected count (above / below the −20 gate), at
-    least 1, so the expected update matches the dense one."""
+    least 1, so the expected update matches the dense one. With
+    block-local labels, ``pos_rows`` names the positive rows for the top-k
+    test; only owned targets (label ≥ 0) are forced."""
     n_tiles = maxz.shape[0]
     pos = labels >= 0
     kth = topk[:, -1]
     rel = (maxz - logz[None, :]).amax(dim=1)
-    topk_hit = ((maxcos >= kth[None, :] - KTH_TIE_TOL) & (maxcos > 0.0) & ~pos[None, :]).any(1)
+    outlier = ~_positive(labels, pos_rows)
+    topk_hit = ((maxcos >= kth[None, :] - KTH_TIE_TOL) & (maxcos > 0.0) & outlier[None, :]).any(1)
     score = rel + torch.where(topk_hit, 1e6, 0.0)
     if u is not None:
         p = _f32(RANDOM_FILL_FRAC * m_tiles / max(n_tiles, 1))
@@ -346,13 +415,13 @@ def _label_flat_pos(labels, tile_idx, tile):
 
 
 def _sparse_parts_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *, loss_type,
-                        margin, scale, k, mask_svfc, tile):
+                        margin, scale, k, mask_svfc, tile, pos_rows=None):
     """The plain sparse backward before its target term: (d_emb's streamed
     part [B, D] f32, d_w rows [M·tile, D] with the label rows' d_wl added,
     d_gt [B]: the target column's dz where its tile is selected, else 0)."""
     c = w.shape[0]
     emb32 = emb.float()
-    d_ce, d_neg = _mask_cotangents(labels, d_ce, d_neg)
+    d_ce, d_neg = _mask_cotangents(_positive(labels, pos_rows), d_ce, d_neg)
     col = (tile_idx.long()[:, None] * tile
            + torch.arange(tile, device=w.device)[None, :]).reshape(-1)
     valid = (col >= 0) & (col < c)  # rows past C, or of a tile index out of range, are zero
@@ -378,7 +447,7 @@ def _with_target_term(d_emb, emb, w, labels, gt, d_gt, loss_type, margin):
 
 
 def margin_ce_bwd_sparse_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *,
-                               loss_type, margin, scale, k, mask_svfc, tile):
+                               loss_type, margin, scale, k, mask_svfc, tile, pos_rows=None):
     """Plain PyTorch version of ``margin_ce_bwd_sparse`` (the gather
     reference ``_sparse_bwd_gather`` and ``_sparse_tail``): one pass over
     the gathered columns of the selected tiles. Returns (d_emb [B, D]
@@ -386,7 +455,7 @@ def margin_ce_bwd_sparse_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile
     the label rows' target gradient added, rows past C zero)."""
     d_emb, d_w_rows, d_gt = _sparse_parts_plain(
         emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, loss_type=loss_type, margin=margin,
-        scale=scale, k=k, mask_svfc=mask_svfc, tile=tile)
+        scale=scale, k=k, mask_svfc=mask_svfc, tile=tile, pos_rows=pos_rows)
     return _with_target_term(d_emb, emb, w, labels, gt, d_gt, loss_type, margin), d_w_rows
 
 
@@ -432,8 +501,13 @@ def _lib():
         lib.margin_ce_bwd_sparse_launch.argtypes = _BWD_ARGTYPES + [
             _P, ctypes.c_int, ctypes.c_longlong,  # tile_idx, tile, M * tile
             _P, _P, _P, _P]  # d_w rows, d_wl, d_gt, stream
+        lib.margin_partial_fwd_launch.argtypes = _COMMON_ARGTYPES + [
+            _P, ctypes.c_int, ctypes.c_longlong,  # part, nblk, cols_per_blk
+            _P, _P, _P, _P]  # m, s, topk, stream
+        lib.margin_partial_bwd_launch.argtypes = _BWD_ARGTYPES + [_P, _P, _P]  # d_w, d_wl, stream
         for fn in (lib.margin_ce_fwd_launch, lib.margin_ce_bwd_launch,
-                   lib.margin_ce_bwd_fused_sgd_launch, lib.margin_ce_bwd_sparse_launch):
+                   lib.margin_ce_bwd_fused_sgd_launch, lib.margin_ce_bwd_sparse_launch,
+                   lib.margin_partial_fwd_launch, lib.margin_partial_bwd_launch):
             fn.restype = ctypes.c_int
         lib.margin_ce_error_string.argtypes = [ctypes.c_int]
         lib.margin_ce_error_string.restype = ctypes.c_char_p
@@ -476,7 +550,7 @@ def _check_inputs(emb, w, labels, gt, k, loss_type, extra=()):
                          f"width that is a multiple of 64 up to 512; got B={b}, D={d}")
 
 
-def _common_args(emb, w, labels, gt, k, loss_type, margin, scale, mask_svfc):
+def _common_args(emb, w, labels, gt, *, k, loss_type, margin, scale, mask_svfc):
     return (emb.data_ptr(), w.data_ptr(), w.shape[0], emb.shape[1], emb.shape[0],
             labels.data_ptr(), gt.data_ptr(), k, _LOSS_CODE[loss_type], margin, scale, mask_svfc,
             _f32(math.cos(margin)), _f32(math.sin(margin)))
@@ -531,13 +605,48 @@ def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
                  *(torch.empty((-(-c // tile), b), device=dev) for _ in range(2))]
         stat_ptrs = [s.data_ptr() for s in stats]
     err = lib.margin_ce_fwd_launch(
-        *_common_args(emb, w, labels, gt, k, loss_type, margin, scale, mask_svfc),
+        *_common_args(emb, w, labels, gt, k=k, loss_type=loss_type, margin=margin, scale=scale,
+                      mask_svfc=mask_svfc),
         part.data_ptr(), nblk, per, ce.data_ptr(), neg.data_ptr(), logz.data_ptr(),
         topk.data_ptr(), stat_ptrs[0], tile, *stat_ptrs[1:],
         torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(lib, err, "margin_ce_fwd")
     LAUNCH_COUNTS["margin_ce_fwd"] += 1
     return (ce, neg, logz, topk, *stats[1:])
+
+
+def margin_partial_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc):
+    """One class block's raw online-softmax state against the global target
+    cosines ``gt``: (m [B], s [B], topk [B, k]), logsumexp = m + log s over
+    the block's columns, the owned target column (label ≥ 0) in it as
+    scale·φ(gt), and the top-k of the block's non-target cosines. Labels
+    are block-local (−1 outlier, −2 a target another block owns).
+
+    Replaces ``vlsfr_tpu/ops/margin_pallas.py:pallas_margin_partial_fwd``.
+    Bound on an H100 at B = 128, D = 512 over a block of C_l columns:
+    2·B·D·C_l FLOP (2^20: 1.37e11, ~2.05 ms at the f32 rate) against
+    4·C_l·D bytes of W (2.15 GB, ~0.64 ms): compute-bound. Design:
+    ``margin_ce_fwd``'s block pass (each block a column range with every
+    batch row resident, a per-block (max, sumexp, top-k) partial) and a
+    merge launch that folds the partials in a fixed order, then the owned
+    target term, and writes the raw state instead of finalizing it: the
+    blocks' states merge across ranks (``parallel/_shard_common.py``)."""
+    _check_inputs(emb, w, labels, gt, k, loss_type)
+    kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
+    if not emb.is_cuda:
+        return margin_partial_fwd_plain(emb, w, labels, gt, **kw)
+    lib = _lib()
+    b, dev = emb.shape[0], emb.device
+    nblk, per = _split_columns(w.shape[0], _F_TC, 2 * _sms(dev))
+    part = torch.empty((2 * nblk, b, 2 + KMAX), device=dev)
+    m, s = (torch.empty((b,), device=dev) for _ in range(2))
+    topk = torch.empty((b, k), device=dev)
+    err = lib.margin_partial_fwd_launch(
+        *_common_args(emb, w, labels, gt, **kw), part.data_ptr(), nblk, per, m.data_ptr(),
+        s.data_ptr(), topk.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(lib, err, "margin_partial_fwd")
+    LAUNCH_COUNTS["margin_partial_fwd"] += 1
+    return m, s, topk
 
 
 def _bwd_geometry(emb, ncols):
@@ -555,10 +664,30 @@ def _bwd_extra(logz, topk, b, k):
     return (("logz", logz, torch.float32, (b,)), ("topk", topk, torch.float32, (b, k)))
 
 
+def _launch_bwd(name, emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl, grad_w, kw):
+    """One launch of the two-pass backward entry ``<name>_launch`` over all
+    of w's columns, cotangents masked: (d_emb's streamed part [B, D], d_w
+    [C, D] with ``d_wl`` added to the label rows, or None)."""
+    lib = _lib()
+    dev = emb.device
+    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w.shape[0])
+    d_emb = torch.empty_like(emb)
+    d_w = torch.empty_like(w) if grad_w else None
+    err = getattr(lib, f"{name}_launch")(
+        *_common_args(emb, w, labels, gt, **kw), logz.data_ptr(), kth.data_ptr(),
+        d_ce.data_ptr(), d_neg.data_ptr(), part.data_ptr(), nchunk, per, d_emb.data_ptr(), nblk,
+        per_w, d_w.data_ptr() if grad_w else None, d_wl.data_ptr() if grad_w else None,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(lib, err, name)
+    LAUNCH_COUNTS[name] += 1
+    return d_emb, d_w
+
+
 def margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_type, margin, scale, k,
-                  mask_svfc, grad_w=True):
+                  mask_svfc, grad_w=True, pos_rows=None):
     """Streaming backward: re-streams W and returns (d_emb [B, D], d_w
     [C, D] f32, or None with ``grad_w=False``), the target tail included.
+    ``pos_rows``: the positive rows where the labels are block-local.
 
     Replaces ``vlsfr_tpu/ops/margin_pallas.py:pallas_margin_ce_bwd``. Bound
     on an H100 at the slice shapes with ``grad_w``: three products (cosine
@@ -573,37 +702,63 @@ def margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_type, mar
     run.
     """
     _check_inputs(emb, w, labels, gt, k, loss_type, extra=_bwd_extra(logz, topk, emb.shape[0], k))
+    kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
     if not emb.is_cuda:
         return margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, grad_w=grad_w,
-                                   loss_type=loss_type, margin=margin, scale=scale, k=k,
-                                   mask_svfc=mask_svfc)
-    d_ce_m, d_neg_m = _mask_cotangents(labels, d_ce, d_neg)
-    kth = topk[:, -1].contiguous()
-    lib = _lib()
-    dev = emb.device
+                                   pos_rows=pos_rows, **kw)
+    d_ce_m, d_neg_m = _mask_cotangents(_positive(labels, pos_rows), d_ce, d_neg)
     emb_term, d_wl = _target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=loss_type,
                                   margin=margin, scale=scale)
-    d_wl = d_wl.contiguous()
-    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w.shape[0])
-    d_emb = torch.empty_like(emb)
-    d_w = torch.empty_like(w) if grad_w else None
-    err = lib.margin_ce_bwd_launch(
-        *_common_args(emb, w, labels, gt, k, loss_type, margin, scale, mask_svfc),
-        logz.data_ptr(), kth.data_ptr(), d_ce_m.data_ptr(), d_neg_m.data_ptr(),
-        part.data_ptr(), nchunk, per, d_emb.data_ptr(), nblk, per_w,
-        d_w.data_ptr() if grad_w else None, d_wl.data_ptr() if grad_w else None,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(lib, err, "margin_ce_bwd")
-    LAUNCH_COUNTS["margin_ce_bwd"] += 1
+    d_emb, d_w = _launch_bwd("margin_ce_bwd", emb, w, labels, gt, logz, topk[:, -1].contiguous(),
+                             d_ce_m, d_neg_m, d_wl.contiguous(), grad_w, kw)
     return (d_emb + emb_term).to(emb.dtype), d_w
 
 
+def margin_partial_bwd(emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl, *, loss_type, margin,
+                       scale, k, mask_svfc, grad_w=True):
+    """One class block's streaming backward against the global ``gt``,
+    ``logz`` and ``kth`` [B], with cotangents that arrive masked by the
+    global positive rows: (d_emb's streamed part over the block [B, D] f32,
+    the block's d_w [C_l, D] f32 or None with ``grad_w=False``, d_gt_raw
+    [B] = the target column's dz on the rows whose target the block owns,
+    else 0). The caller routes d_gt through the label rows: ``d_wl`` [B, D],
+    the owner's label-row gradient (0 on rows it does not own), is added to
+    the owned label rows of d_w by their owner, in batch order, and the
+    d_emb term is the caller's.
+
+    Replaces ``vlsfr_tpu/ops/margin_pallas.py:pallas_margin_partial_bwd``.
+    Bound on an H100 at B = 128, D = 512 with ``grad_w``: three products,
+    6·B·D·C_l FLOP (2^20: 4.12e11, ~6.15 ms at the f32 rate) against W read
+    + d_w written, 8·C_l·D bytes (4.3 GB, ~1.28 ms): compute-bound. Design:
+    ``margin_ce_bwd``'s two passes (row-grouped d_emb partials summed in a
+    fixed order; column-owned d_w rows written once) on the block; the
+    target column's dz is B-row torch work beside it, as the single-device
+    tail is."""
+    b = emb.shape[0]
+    vec = lambda name, t: (name, t, torch.float32, (b,))  # noqa: E731
+    extra = [vec("logz", logz), vec("kth", kth), vec("d_ce", d_ce), vec("d_neg", d_neg),
+             ("d_wl", d_wl, torch.float32, tuple(emb.shape))]
+    _check_inputs(emb, w, labels, gt, k, loss_type, extra=extra)
+    kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
+    if not emb.is_cuda:
+        return margin_partial_bwd_plain(emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl,
+                                        grad_w=grad_w, **kw)
+    d_emb, d_w = _launch_bwd("margin_partial_bwd", emb, w, labels, gt, logz, kth, d_ce, d_neg,
+                             d_wl, grad_w, kw)
+    return d_emb, d_w, _owned_target_dz(labels, gt, logz, d_ce, loss_type=loss_type,
+                                        margin=margin, scale=scale)
+
+
 def margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr, *, momentum,
-                            nesterov, weight_decay, loss_type, margin, scale, k, mask_svfc):
+                            nesterov, weight_decay, loss_type, margin, scale, k, mask_svfc,
+                            pos_rows=None):
     """Streaming backward with the classifier's SGD-momentum update fused
     in: returns (d_emb [B, D], w, mom), where ``w`` and ``mom`` are updated
     IN PLACE to exactly what optax's wd → trace(μ, nesterov) → (−lr) chain
     makes of the dense d_w. The dense d_w never exists in device memory.
+    ``pos_rows`` (one block of a class-sharded classifier, labels
+    block-local): the global positive rows, whose softmax gradient exists
+    on every block; the target tail stays on the owner (label ≥ 0).
 
     Replaces ``vlsfr_tpu/ops/margin_pallas.py:pallas_margin_ce_bwd_fused_sgd``.
     Bound on an H100 at the slice shapes: 4.12e11 FLOP (~6.15 ms at the f32
@@ -624,8 +779,8 @@ def margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr
         return margin_ce_bwd_fused_sgd_plain(
             emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr, momentum=momentum,
             nesterov=nesterov, weight_decay=weight_decay, loss_type=loss_type, margin=margin,
-            scale=scale, k=k, mask_svfc=mask_svfc)
-    d_ce_m, d_neg_m = _mask_cotangents(labels, d_ce, d_neg)
+            scale=scale, k=k, mask_svfc=mask_svfc, pos_rows=pos_rows)
+    d_ce_m, d_neg_m = _mask_cotangents(_positive(labels, pos_rows), d_ce, d_neg)
     kth = topk[:, -1].contiguous()
     lib = _lib()
     dev = emb.device
@@ -635,7 +790,8 @@ def margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr
     part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w.shape[0])
     d_emb = torch.empty_like(emb)
     err = lib.margin_ce_bwd_fused_sgd_launch(
-        *_common_args(emb, w, labels, gt, k, loss_type, margin, scale, mask_svfc),
+        *_common_args(emb, w, labels, gt, k=k, loss_type=loss_type, margin=margin, scale=scale,
+                      mask_svfc=mask_svfc),
         logz.data_ptr(), kth.data_ptr(), d_ce_m.data_ptr(), d_neg_m.data_ptr(),
         part.data_ptr(), nchunk, per, d_emb.data_ptr(), nblk, per_w,
         w.data_ptr(), mom.data_ptr(), d_wl.data_ptr(), float(lr), float(momentum),
@@ -647,12 +803,13 @@ def margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr
 
 
 def margin_ce_bwd_sparse(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *, loss_type,
-                         margin, scale, k, mask_svfc, tile):
+                         margin, scale, k, mask_svfc, tile, pos_rows=None):
     """Backward over the M selected class tiles only: (d_emb [B, D] summed
     over those tiles, d_w rows [M·tile, D] f32 in ``tile_idx`` order), the
     label rows' target gradient added to the rows of the selected tiles that
     hold them, rows past C zero. ``tile_idx`` [M] int32 holds distinct tile
     indices; a tile index outside [0, ceil(C / tile)) gives zero rows.
+    ``pos_rows``: the positive rows where the labels are block-local.
 
     Replaces ``vlsfr_tpu/ops/margin_pallas.py:pallas_margin_ce_bwd_sparse``.
     Bound on an H100 at the route-D shapes (B = 128, D = 512, M·tile =
@@ -672,19 +829,19 @@ def margin_ce_bwd_sparse(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, 
                   extra=(*_bwd_extra(logz, topk, emb.shape[0], k),
                          ("tile_idx", tile_idx, torch.int32, (m,))))
     kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc,
-              tile=tile)
+              tile=tile, pos_rows=pos_rows)
     parts = _sparse_parts_cuda if emb.is_cuda else _sparse_parts_plain
     d_emb, d_w_rows, d_gt = parts(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, **kw)
     return _with_target_term(d_emb, emb, w, labels, gt, d_gt, loss_type, margin), d_w_rows
 
 
 def _sparse_parts_cuda(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *, loss_type,
-                       margin, scale, k, mask_svfc, tile):
+                       margin, scale, k, mask_svfc, tile, pos_rows=None):
     """``_sparse_parts_plain``'s outputs from the kernel."""
     if tile % _B_TC:
         raise ValueError(f"the sparse backward's tile must be a multiple of {_B_TC}, got {tile}")
     m = tile_idx.shape[0]
-    d_ce_m, d_neg_m = _mask_cotangents(labels, d_ce, d_neg)
+    d_ce_m, d_neg_m = _mask_cotangents(_positive(labels, pos_rows), d_ce, d_neg)
     kth = topk[:, -1].contiguous()
     lib = _lib()
     dev = emb.device
@@ -696,7 +853,8 @@ def _sparse_parts_cuda(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *,
     d_w_rows = torch.empty((m * tile, emb.shape[1]), device=dev)
     d_gt = torch.zeros_like(gt)  # rows whose target tile is not selected keep 0
     err = lib.margin_ce_bwd_sparse_launch(
-        *_common_args(emb, w, labels, gt, k, loss_type, margin, scale, mask_svfc),
+        *_common_args(emb, w, labels, gt, k=k, loss_type=loss_type, margin=margin, scale=scale,
+                      mask_svfc=mask_svfc),
         logz.data_ptr(), kth.data_ptr(), d_ce_m.data_ptr(), d_neg_m.data_ptr(),
         part.data_ptr(), nchunk, per, d_emb.data_ptr(), nblk, per_w,
         tile_idx.data_ptr(), tile, m * tile, d_w_rows.data_ptr(), d_wl.data_ptr(),
@@ -756,6 +914,12 @@ def fused_add_margin(emb, w, labels, *, loss_type="Arc", margin=0.5, scale=32.0,
     ``ops.margin.add_margin``, streaming over the class axis."""
     ce, neg, _topk = fused_margin_softmax(emb, w, labels, loss_type, margin, scale, hard_neg,
                                           mask_svfc)
+    return reduce_margin_loss(ce, neg, labels)
+
+
+def reduce_margin_loss(ce, neg, labels):
+    """Mean CE over positive rows + mean hard-negative term over outlier
+    rows, each 0 when its row set is empty."""
     pos = (labels >= 0).float()
     n_pos, n_out = pos.sum(), (1.0 - pos).sum()
     zero = ce.new_zeros(())

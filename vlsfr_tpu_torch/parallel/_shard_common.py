@@ -1,5 +1,6 @@
-"""Per-shard machinery of the model-sharded FFC head (port of
-``vlsfr_tpu/parallel/_shard_common.py``).
+"""Per-shard machinery of the model-sharded heads (port of
+``vlsfr_tpu/parallel/_shard_common.py``; the label and merge pieces also
+serve the class-sharded softmax head).
 
 Each rank holds one contiguous block [2, Q/m, D] of the queue (first slot
 ``c0``) and the whole step's write plans and labels, which it localizes
@@ -24,19 +25,24 @@ def carriers(g, rows, cols, seen):
     return g.float(), rows.to(torch.int32), cols.to(torch.int32), seen.float()
 
 
+def localize_labels(c0: int, c_local: int, labels):
+    """Shard-local labels of the block [c0, c0 + c_local): −1 = global
+    outlier, −2 = a positive row whose target another shard owns (the split
+    keeps the kernels' positive test right for outliers). Returns (local
+    labels int32, owned)."""
+    ll = labels - c0
+    owned = (ll >= 0) & (ll < c_local)
+    return torch.where(labels < 0, -1, torch.where(owned, ll, -2)).to(torch.int32), owned
+
+
 def localize(c0: int, c_local: int, cols_i, labels):
     """Shard-local coordinates of the block [c0, c0 + c_local): write
-    columns (−1 = another shard's) and labels (−1 = global outlier, −2 =
-    a positive row whose target another shard owns — the split keeps the
-    kernels' positive test right for outliers). Returns (lcol, in_range,
-    local labels, owned)."""
+    columns (−1 = another shard's) and labels (``localize_labels``).
+    Returns (lcol, in_range, local labels, owned)."""
     lcol = cols_i - c0
     in_range = (lcol >= 0) & (lcol < c_local)
     lcol = torch.where(in_range, lcol, -1).to(torch.int32)
-    ll = labels - c0
-    owned = (ll >= 0) & (ll < c_local)
-    ll = torch.where(labels < 0, -1, torch.where(owned, ll, -2)).to(torch.int32)
-    return lcol, in_range, ll, owned
+    return (lcol, in_range, *localize_labels(c0, c_local, labels))
 
 
 def effective_label_rows(q_l, g32, rows_i, cols_i, seen_f, labels, owned, ll):

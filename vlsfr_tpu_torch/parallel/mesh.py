@@ -1,9 +1,10 @@
 """The device mesh of the port (counterpart of ``vlsfr_tpu/parallel/mesh.py``).
 
-JAX's mesh is ("data", "model"); the port runs the ``model`` axis — the
-DCP queue's class axis split over the ranks of the default process group,
-one contiguous block of Q / model slots per rank, in rank order (JAX's
-``P(None, "model", None)``). The ``data`` axis is not ported yet.
+JAX's mesh is ("data", "model"); the port runs the ``model`` axis — a class
+axis (the DCP queue's slots, or the softmax classifier's rows) split over
+the ranks of the default process group, one contiguous block of size /
+model per rank, in rank order (JAX's ``P(None, "model", None)`` and
+``P("model", None)``). The ``data`` axis is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,12 +22,13 @@ class Mesh:
     rank: int
     group: dist.ProcessGroup
 
-    def queue_block(self, queue_size: int) -> tuple[int, int]:
-        """(first slot, slots) of this rank's block of the queue."""
-        if queue_size % self.model:
-            raise ValueError(f"pool.queue_size={queue_size} must be a multiple of "
-                             f"mesh.model={self.model}")
-        c_local = queue_size // self.model
+    def class_block(self, size: int, what: str = "pool.queue_size") -> tuple[int, int]:
+        """(first index, length) of this rank's block of a class axis of
+        ``size`` (``what`` names it in the error: the axis must split
+        evenly)."""
+        if size % self.model:
+            raise ValueError(f"{what}={size} must be a multiple of mesh.model={self.model}")
+        c_local = size // self.model
         return self.rank * c_local, c_local
 
 

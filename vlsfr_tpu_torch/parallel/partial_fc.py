@@ -1,5 +1,4 @@
-"""Margin-softmax classifier loss (port of ``vlsfr_tpu/parallel/partial_fc.py``,
-single-device part).
+"""Margin-softmax classifier loss (port of ``vlsfr_tpu/parallel/partial_fc.py``).
 
 One classifier ``[num_classes, feat_dim]`` whose rows are normalised on
 every forward (ArcFace convention), and the full-softmax margin loss over
@@ -7,8 +6,10 @@ it: the dense branch materialises the ``[B, C]`` cosines, the streaming
 branch never does (``ops/margin_stream.py``, the CUDA kernels on the card).
 Partial-FC sampling (arXiv 2010.05222): ``sample_classes`` builds the
 step's class set (unique positives plus random negatives, duplicates
-masked out of the denominator through ``col_mask``). Sharding the class
-axis over devices (``mesh``) is not ported yet.
+masked out of the denominator through ``col_mask``). With a ``mesh`` the
+streaming branch runs class-sharded (``parallel/sharded_margin.py``: each
+rank holds a block of the classifier); the dense branch on a mesh (JAX's
+GSPMD-sharded cosines) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ import torch
 
 from vlsfr_tpu_torch.ops.margin import NEG_INF, margin_logits
 from vlsfr_tpu_torch.ops.margin_stream import MarginSoftmax
+from vlsfr_tpu_torch.parallel.sharded_margin import ShardedMarginSoftmax
 
 
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
-        raise NotImplementedError("a class-sharded classifier (mesh) is not ported yet")
+        raise NotImplementedError("a class-sharded classifier on the dense head (mesh) is not "
+                                  "ported yet")
 
 
 def sample_classes(labels: torch.Tensor, num_classes: int, num_sampled: int,
@@ -78,18 +81,22 @@ def margin_softmax_loss(emb, weights, labels, *, loss_type="Arc", margin=0.5, sc
     and ``train_acc`` is ``gt >= top1`` of the target-excluded running
     top-1 (ties count as correct); the dense branch takes the argmax.
     ``col_mask`` [C] (dense branch only) takes columns out of the
-    denominator and out of the argmax (partial-FC duplicate masking)."""
-    _refuse_mesh(mesh)
+    denominator and out of the argmax (partial-FC duplicate masking). With
+    a ``mesh`` (streaming only) ``weights`` is this rank's block of the
+    classifier and the loss and metrics are the whole classifier's."""
     if streaming:
         if col_mask is not None:
             raise ValueError("col_mask is a dense (sampled) path feature")
-        ce, _neg, top1, gt = MarginSoftmax.apply(emb.float().contiguous(), weights, labels,
-                                                 loss_type, float(margin), float(scale), 1,
-                                                 float(mask_svfc))
+        args = (emb.float().contiguous(), weights, labels, loss_type, float(margin), float(scale),
+                1, float(mask_svfc))
+        if mesh is None:
+            ce, _neg, top1, gt = MarginSoftmax.apply(*args)
+        else:
+            ce, _neg, top1, gt = ShardedMarginSoftmax.apply(*args, mesh)
         loss = ce.mean()
         acc = (gt >= top1[:, 0]).float().mean()
         return loss, {"ce": loss.detach(), "train_acc": acc}
-    logits = cosine_logits(emb, weights)
+    logits = cosine_logits(emb, weights, mesh)
     if col_mask is not None:
         logits = torch.where(col_mask[None, :], logits, NEG_INF)
     modified = margin_logits(logits, labels, loss_type=loss_type, margin=margin,

@@ -104,7 +104,7 @@ class ShardedQuadMargin(torch.autograd.Function):
     def forward(ctx, emb_x, emb_y, q_l, g_a, g_b, rows_a, cols_a, seen_a, rows_b, cols_b,
                 seen_b, labels_a, labels_b, mesh, kw):
         b = emb_x.shape[0]
-        c0, _ = mesh.queue_block(q_l.shape[1] * mesh.model)
+        c0, _ = mesh.class_block(q_l.shape[1] * mesh.model)
         si = shard_inputs(emb_x, emb_y, q_l, c0, g_a, g_b, (rows_a, cols_a, seen_a),
                           (rows_b, cols_b, seen_b), labels_a, labels_b)
         gt = si.gt_parts.clone()

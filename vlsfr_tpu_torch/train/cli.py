@@ -19,6 +19,11 @@ and ``--device`` (default ``cuda``; ``cpu`` must be asked for).
     torchrun --standalone --nproc_per_node=N -m vlsfr_tpu_torch.train \\
         --net_type ir50 --queue_size 1048576 --batch_size 128 --synthetic \\
         --set mesh.model=N --set mesh.data=1
+    # the softmax head class-sharded (routes A, B with fused_update=off,
+    # D with sparse_update): one block of the classifier per card
+    torchrun --standalone --nproc_per_node=N -m vlsfr_tpu_torch.train \\
+        --net_type ir50 --head full_softmax --batch_size 128 --synthetic \\
+        --set pool.num_classes=1048576 --set mesh.model=N --set mesh.data=1
 """
 
 from __future__ import annotations

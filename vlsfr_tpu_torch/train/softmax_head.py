@@ -1,5 +1,5 @@
 """Full-softmax margin-classifier training (port of
-``vlsfr_tpu/train/softmax_head.py``, single device).
+``vlsfr_tpu/train/softmax_head.py``).
 
 One backbone, one classifier ``[num_classes, feat_dim]`` (rows normalised
 on every forward) and the margin-softmax CE, on one of five routes:
@@ -32,19 +32,31 @@ fixed seed and the step (JAX folds the step into ``PRNGKey(23)`` and
 ``PRNGKey(17)``; the two give other numbers, and the tests feed JAX's draws
 to both).
 
+Class-sharded (a ``mesh``: ``parallel/mesh.py``, one rank per block of
+C / mesh.model classifier rows, as JAX routes at ``mesh.model > 1``), routes
+A, B and D run per block with collective merges
+(``parallel/sharded_fused.py``, ``partial_fc.margin_softmax_loss`` with the
+mesh, ``parallel/sharded_sparse.py``): the state holds the rank's block of
+the classifier the single-device init draws, its momentum and last-visit
+steps; route D's random fill draws per rank.
+
 Not ported yet, and refused: bf16 classifier storage, bf16 momentum on
-route A, and a class-sharded mesh.
+route A, routes C and E on a mesh, the data axis, and batches above the
+margin_ce kernels' 128 rows on a card.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.ops.margin_stream import (
+    _MAX_ROWS,
     sparse_bwd_geometry,
     sparse_m_tiles,
     streaming_margin_grads_fused_sgd,
@@ -53,6 +65,8 @@ from vlsfr_tpu_torch.ops.margin_stream import (
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
 from vlsfr_tpu_torch.parallel.partial_fc import margin_softmax_loss, sample_classes
+from vlsfr_tpu_torch.parallel.sharded_fused import sharded_margin_grads_fused_sgd
+from vlsfr_tpu_torch.parallel.sharded_sparse import sharded_sparse_margin_grads
 from vlsfr_tpu_torch.train.sparse_classifier import sparse_sgd_rows
 from vlsfr_tpu_torch.utils.device import resolve_device
 
@@ -60,13 +74,18 @@ TILE_FILL_SEED = 23  # route D's random tile fill (JAX: PRNGKey(23) folded with 
 SAMPLE_SEED = 17  # route E's sampled negatives (JAX: PRNGKey(17) folded with the step)
 
 
-def _step_generator(seed: int, step: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + int(step))
+def _step_generator(seed: int, step: int, device, rank: int | None = None) -> torch.Generator:
+    key = seed * 1_000_003 + int(step)
+    if rank is not None:
+        key = key * 65_537 + rank + 1
+    return torch.Generator(device=device).manual_seed(key)
 
 
-def tile_fill_draws(step: int, n_tiles: int, device) -> torch.Tensor:
-    """Route D's uniform draws [n_tiles] f32 in [0, 1) for step ``step``."""
-    return torch.rand((n_tiles,), generator=_step_generator(TILE_FILL_SEED, step, device),
+def tile_fill_draws(step: int, n_tiles: int, device, rank: int | None = None) -> torch.Tensor:
+    """Route D's uniform draws [n_tiles] f32 in [0, 1) for step ``step``;
+    on a mesh of more than one rank, rank ``rank``'s own (JAX folds the
+    model index into the step's key)."""
+    return torch.rand((n_tiles,), generator=_step_generator(TILE_FILL_SEED, step, device, rank),
                       device=device)
 
 
@@ -80,7 +99,8 @@ def sample_draws(step: int, n: int, num_classes: int, device) -> torch.Tensor:
 @dataclass
 class SoftmaxState:
     """The training state: modules, classifier and optimizer live on one
-    device."""
+    device; on a mesh the classifier (and its momentum and last-visit
+    steps) is this rank's block of C / mesh.model rows."""
 
     step: int
     backbone: nn.Module
@@ -122,29 +142,41 @@ def _sparse_classifier_mode(cfg: Config) -> bool:
     return cfg.pool.sample_rate > 0 or _streaming_on(cfg)
 
 
-def check_ported(cfg: Config) -> None:
+def check_ported(cfg: Config, device=None) -> None:
     """Raise NotImplementedError for an option of this head that is not
-    ported yet."""
+    ported yet; with a CUDA ``device`` also for a batch the margin_ce
+    kernels do not take."""
     pool = cfg.pool
+    sharded = cfg.mesh.model > 1
+    on_kernels = (_streaming_on(cfg) and pool.sample_rate == 0 and device is not None
+                  and torch.device(device).type == "cuda")
     for what, on in (
             ("pool.classifier_dtype=bfloat16", pool.classifier_dtype != "float32"),
             ("pool.classifier_mom_dtype=bfloat16",
              pool.classifier_mom_dtype != "float32" and _fused_update_on(cfg)),
-            ("mesh.model > 1 (class-sharded classifier)", cfg.mesh.model > 1)):
+            ("mesh.data > 1 (the data axis)", cfg.mesh.data > 1),
+            ("mesh.model > 1 on the dense head (route C)",
+             sharded and not _streaming_on(cfg) and pool.sample_rate == 0),
+            ("mesh.model > 1 with partial-FC sampling (route E)", sharded and pool.sample_rate > 0),
+            (f"data.batch_size={cfg.data.batch_size} above the margin_ce kernels' {_MAX_ROWS} "
+             f"rows", on_kernels and cfg.data.batch_size > _MAX_ROWS)):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
 def create_softmax_state(model: nn.Module, cfg: Config, num_classes: int, *, device=None,
-                         seed: int = 0, classifier: torch.Tensor | None = None) -> SoftmaxState:
+                         seed: int = 0, classifier: torch.Tensor | None = None,
+                         mesh=None) -> SoftmaxState:
     """Backbone = ``model`` on the device, a classifier drawn as 0.01·N(0, 1)
     from a generator seeded with ``seed`` (or ``classifier`` as given), and
     the optimizer; on routes A, D and sparse E a zero f32 momentum buffer
     beside the classifier (optax's trace starts at zero too), on D and
-    sparse E also a zero last-visit step per row. Runs on ``cuda`` unless
-    ``device`` says otherwise; raises without a card."""
-    check_ported(cfg)
+    sparse E also a zero last-visit step per row. With a ``mesh`` the state
+    keeps this rank's block of that classifier (and a momentum and
+    last-visit block). Runs on ``cuda`` unless ``device`` says otherwise;
+    raises without a card."""
     dev = resolve_device(device)
+    check_ported(cfg, dev)
     backbone = model.to(dev)
     if classifier is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -152,10 +184,13 @@ def create_softmax_state(model: nn.Module, cfg: Config, num_classes: int, *, dev
                                  device=dev).mul_(0.01)
     else:
         classifier = classifier.to(dev, torch.float32).contiguous()
+    if mesh is not None:
+        c0, c_local = mesh.class_block(num_classes, "pool.num_classes")
+        classifier = classifier[c0:c0 + c_local].clone()
     if _fused_update_on(cfg) or _sparse_classifier_mode(cfg):
         last = None
         if _sparse_classifier_mode(cfg):
-            last = torch.zeros((num_classes,), dtype=torch.int32, device=dev)
+            last = torch.zeros((classifier.shape[0],), dtype=torch.int32, device=dev)
         return SoftmaxState(step=0, backbone=backbone, classifier=classifier,
                             optimizer=make_optimizer(cfg.optim, backbone.parameters()),
                             classifier_mom=torch.zeros_like(classifier), classifier_last=last)
@@ -164,25 +199,42 @@ def create_softmax_state(model: nn.Module, cfg: Config, num_classes: int, *, dev
                         optimizer=make_optimizer(cfg.optim, [*backbone.parameters(), classifier]))
 
 
-def make_softmax_train_step(cfg: Config, schedule):
+def make_softmax_train_step(cfg: Config, schedule, mesh=None):
     """``step(state, images, labels, lr_scale) -> metrics``: one step of the
     route the config selects, updating ``state`` in place. ``images`` are
-    an NHWC batch, ``labels`` class ids (numpy or tensors)."""
+    an NHWC batch, ``labels`` class ids (numpy or tensors). With a ``mesh``
+    (``parallel/mesh.py``) routes A, B and D run class-sharded over it, on
+    the state ``create_softmax_state(..., mesh=mesh)`` makes; the config's
+    ``mesh.model > 1`` needs one."""
     check_ported(cfg)
     streaming = _streaming_on(cfg)
     fused = _fused_update_on(cfg)
     sparse = _sparse_classifier_mode(cfg)
     c = cfg.pool.num_classes
+    c0, c_local, draw_rank = 0, c, None
+    if mesh is None and cfg.mesh.model > 1:
+        raise ValueError("the class-sharded softmax head (mesh.model > 1) needs the mesh: "
+                         "make_softmax_train_step(cfg, schedule, mesh)")
+    if mesh is not None:
+        if not streaming or cfg.pool.sample_rate > 0:
+            raise NotImplementedError("a class-sharded classifier on the dense head (route C) or "
+                                      "with partial-FC sampling (route E) is not ported yet")
+        c0, c_local = mesh.class_block(c, "pool.num_classes")
+        draw_rank = mesh.rank if mesh.model > 1 else None
     loss_kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
                    mask_svfc=cfg.loss.mask_svfc)
     sgd_kw = dict(momentum=cfg.optim.momentum, nesterov=cfg.optim.nesterov,
                   weight_decay=cfg.optim.weight_decay)
+    fused_head, sparse_head = streaming_margin_grads_fused_sgd, streaming_sparse_margin_grads
+    if mesh is not None:
+        fused_head = partial(sharded_margin_grads_fused_sgd, mesh=mesh)
+        sparse_head = partial(sharded_sparse_margin_grads, mesh=mesh)
     grad_clip = cfg.optim.grad_clip
     num_sampled = 0
     if cfg.pool.sample_rate > 0:  # route E
         num_sampled = max(cfg.data.batch_size, int(c * cfg.pool.sample_rate))
-    elif streaming and cfg.pool.sparse_update:  # route D
-        tile, n_tiles = sparse_bwd_geometry(cfg.data.batch_size, cfg.model.feat_dim, c)
+    elif streaming and cfg.pool.sparse_update:  # route D, over this rank's block on a mesh
+        tile, n_tiles = sparse_bwd_geometry(cfg.data.batch_size, cfg.model.feat_dim, c_local)
         m_tiles = sparse_m_tiles(cfg.pool.sparse_grad_rate, n_tiles, cfg.data.batch_size)
 
     def head(state, emb, labels, lr, dev) -> tuple[torch.Tensor, dict]:
@@ -206,7 +258,7 @@ def make_softmax_train_step(cfg: Config, schedule):
             return loss, dict(metrics, sampled_classes=num_sampled)
         if not (fused or sparse):  # routes B and C
             loss, metrics = margin_softmax_loss(emb, state.classifier, labels,
-                                                streaming=streaming, **loss_kw)
+                                                streaming=streaming, mesh=mesh, **loss_kw)
             loss.backward()
             return loss, metrics
         # routes A and D: loss = mean(ce), analytic output cotangents (no outlier rows)
@@ -214,23 +266,37 @@ def make_softmax_train_step(cfg: Config, schedule):
         d_neg = torch.zeros_like(d_ce)
         with torch.no_grad():
             if fused:
-                ce, _neg, topk, gt, d_emb, _, _ = streaming_margin_grads_fused_sgd(
+                ce, _neg, topk, gt, d_emb, _, _ = fused_head(
                     emb.detach(), state.classifier, state.classifier_mom, labels, d_ce, d_neg, lr,
                     hard_neg=1, **sgd_kw, **loss_kw)
             else:
-                ce, _neg, topk, gt, d_emb, row_idx, d_w_rows = streaming_sparse_margin_grads(
+                ce, _neg, topk, gt, d_emb, row_idx, d_w_rows = sparse_head(
                     emb.detach(), state.classifier, labels, d_ce, d_neg, m_tiles=m_tiles,
-                    hard_neg=1, tile=tile, u=tile_fill_draws(state.step, n_tiles, dev),
+                    hard_neg=1, tile=tile, u=tile_fill_draws(state.step, n_tiles, dev, draw_rank),
                     **loss_kw)
         emb.backward(d_emb.to(emb.dtype))
         loss = ce.mean()
         metrics = {"ce": loss, "train_acc": (gt >= topk[:, 0]).float().mean()}
         if not fused:
             with torch.no_grad():  # row_idx entries >= C (padding) are dropped
+                if mesh is not None:  # the rank's rows, numbered in its block
+                    row_idx = torch.where(row_idx < c, row_idx - c0, c_local)
                 sparse_sgd_rows(state.classifier, state.classifier_mom, row_idx, d_w_rows, lr=lr,
                                 last_visit=state.classifier_last, step=state.step, **sgd_kw)
-            metrics["grad_rows"] = row_idx.shape[0]
+            metrics["grad_rows"] = row_idx.shape[0] * (1 if mesh is None else mesh.model)
         return loss, metrics
+
+    def global_norm(params, classifier):
+        """The gradients' global norm; on a mesh the classifier blocks'
+        squares are summed over the group once, the replicated backbone's
+        taken once."""
+        sq = sum(p.grad.square().sum() for p in params if p is not classifier)
+        if classifier.requires_grad:
+            block = classifier.grad.square().sum()
+            if mesh is not None:
+                dist.all_reduce(block, group=mesh.group)
+            sq = sq + block
+        return torch.sqrt(sq)
 
     def step(state: SoftmaxState, images, labels, lr_scale: float = 1.0) -> dict:
         dev = state.classifier.device
@@ -247,8 +313,7 @@ def make_softmax_train_step(cfg: Config, schedule):
                 if p.grad is None:  # unused parameters still decay, as in optax
                     p.grad = torch.zeros_like(p)
             if grad_clip > 0:
-                norm = torch.sqrt(sum(p.grad.square().sum() for p in params))
-                clip_by_global_norm_(params, grad_clip, norm)
+                clip_by_global_norm_(params, grad_clip, global_norm(params, state.classifier))
         set_learning_rate(opt, lr)
         opt.step()
         state.step += 1

@@ -3,14 +3,16 @@
 What this port runs: the FFC head (``pool.head='ffc'``, with the host DCP
 planner) or the full-softmax classifier head (``'full_softmax'``,
 ``train/softmax_head.py``) on one device, synthetic (raw-pixel) or
-record-store data, print-window logging and the plateau LR scale; and the
-FFC head model-sharded over ``mesh.model`` ranks of a ``torch.distributed``
-group (one process per card under ``torchrun``, or
-``pool.force_sharded`` in one process). Every rank runs the same pipeline
-and DCP planner (the labels stay global, as in JAX) and holds one block of
-the queue; only rank 0 logs. What it does not run yet, and refuses rather
+record-store data, print-window logging and the plateau LR scale; and
+either head model-sharded over ``mesh.model`` ranks of a
+``torch.distributed`` group (one process per card under ``torchrun``; the
+FFC head also with ``pool.force_sharded`` in one process): the FFC head's
+queue or the softmax head's classifier split into one block per rank.
+Every rank runs the same pipeline (and DCP planner; the labels stay global,
+as in JAX); only rank 0 logs. What it does not run yet, and refuses rather
 than fakes: checkpoints and resume, in-training eval, pretrained
-backbones, the data axis (``mesh.data > 1``) and the sharded softmax head.
+backbones, the data axis (``mesh.data > 1``) and the softmax head's
+routes C and E on a mesh.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh, self._owns_group = None, False
-        if cfg.pool.head == "ffc" and use_sharded_head(cfg):
+        if use_sharded_head(cfg) if cfg.pool.head == "ffc" else cfg.mesh.model > 1:
             check_shape(cfg.mesh.data, cfg.mesh.model)  # before anything is created
             self.device = distributed.local_device(self.device)
             if self.device.type == "cuda":
@@ -119,8 +121,9 @@ class Trainer:
             self.train_step = make_train_step(cfg, self.schedule, mesh=self.mesh)
         else:
             self.state = create_softmax_state(model, cfg, cfg.pool.num_classes,
-                                              device=self.device, seed=cfg.data.seed)
-            self.train_step = make_softmax_train_step(cfg, self.schedule)
+                                              device=self.device, seed=cfg.data.seed,
+                                              mesh=self.mesh)
+            self.train_step = make_softmax_train_step(cfg, self.schedule, mesh=self.mesh)
         logger.info("no checkpoints are written: checkpoint/resume is not ported yet")
 
     def train(self, max_steps: int | None = None) -> dict:

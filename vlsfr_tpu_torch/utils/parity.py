@@ -27,6 +27,17 @@ only rows the loss reads it on: on outlier rows SV's logz depends on a gt
 the loss never uses, which the single-device head takes from slot 0 and
 the sharded head sets to 0.
 
+The class-sharded softmax head is held the same way
+(``margin_shard_checks``): the classifier cut into blocks, each block's
+partial kernels against their plain versions (``margin_partial_checks``:
+the state as the quad partials', d_emb 1e-4 × its max, d_w by row set —
+the block's owned label rows / the others — 1e-4 × the set's max,
+d_gt_raw 1e-5 × max(1, its max)), and the blocks merged as the collectives
+would merge them against ``margin_ce_fwd`` / ``margin_ce_bwd`` on the whole
+classifier: ce / neg / logz 1e-4, top-k 1e-5, d_emb 1e-4 × its streamed
+part's max + 2 f32 eps, and each block of d_w by row set against the
+whole d_w's rows.
+
 Used by ``chip_smoke.py`` and the tests in ``tests/test_torch_kernels.py``.
 """
 
@@ -103,18 +114,22 @@ def sgd_update(w_k, mom_k, w_p, mom_p, mom0, labels, lr: float, momentum: float,
 
 
 def margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, kw: dict, lr: float,
-                         sgd: dict) -> tuple[list[dict], list[dict]]:
+                         sgd: dict, pos_rows=None) -> tuple[list[dict], list[dict]]:
     """The margin_ce backward kernels against their plain versions on one
     case, from the forward's ``logz`` / ``topk``: (``margin_ce_bwd``'s
     checks — d_emb without and with d_w, and d_w by row set; the fused
     kernel's — d_emb, then w' and mom' by row set). d_emb is held to its
     streamed part, 1e-4 × max|d_emb − the target term|; d_w to 1e-4 × the
     set's max|d_w|; w' and mom' as ``sgd_update``. W and mom are updated in
-    place by the fused kernel; the plain version gets clones taken before."""
+    place by the fused kernel; the plain version gets clones taken before.
+    ``pos_rows``: the global positive rows of a block with block-local
+    labels (one block of a class-sharded classifier)."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
 
-    emb_term, _ = tms._target_rows(emb, w, labels, gt, logz, d_ce, loss_type=kw["loss_type"],
+    d_ce_m, _ = tms._mask_cotangents(tms._positive(labels, pos_rows), d_ce, d_neg)
+    emb_term, _ = tms._target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=kw["loss_type"],
                                    margin=kw["margin"], scale=kw["scale"])
+    kw = dict(kw, pos_rows=pos_rows)
     bwd = []
     for grad_w in (False, True):
         de_k, dw_k = tms.margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg,
@@ -148,7 +163,7 @@ def fwd_stats_checks(maxz_k, maxcos_k, maxz_p, maxcos_p, scale: float,
 
 
 def margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, kw: dict,
-                                tile: int) -> list[dict]:
+                                tile: int, pos_rows=None) -> list[dict]:
     """The sparse backward against its plain version on the same
     ``tile_idx``. The wrapper ``margin_ce_bwd_sparse`` (what route D calls)
     against ``margin_ce_bwd_sparse_plain``: the whole d_emb to 1e-4 × its
@@ -157,10 +172,12 @@ def margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, til
     (the rows that hold a batch label / the others) to 1e-4 × the set's
     max|d_w|. Then the kernel's parts before the target term: the streamed
     d_emb alone, to the same limit, and d_gt, the target column's dz, to
-    1e-5 × max(1, max|d_gt|) (one exp in another library)."""
+    1e-5 × max(1, max|d_gt|) (one exp in another library). ``pos_rows`` as
+    in ``margin_ce_bwd_checks``."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
 
     args = (emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx)
+    kw = dict(kw, pos_rows=pos_rows)
     sde_p, _, dgt_p = tms._sparse_parts_plain(*args, tile=tile, **kw)
     de_k, dw_k = tms.margin_ce_bwd_sparse(*args, tile=tile, **kw)
     de_p, dw_p = tms.margin_ce_bwd_sparse_plain(*args, tile=tile, **kw)
@@ -175,16 +192,20 @@ def margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, til
     return out
 
 
-def sparse_path_checks(emb, w, labels, d_ce, d_neg, kw: dict, tile: int, m_tiles: int, u):
+def sparse_path_checks(emb, w, labels, d_ce, d_neg, kw: dict, tile: int, m_tiles: int, u,
+                       pos_rows=None, gt=None):
     """Route D's kernels against their plain versions on one case: the
     forward with statistics (ce / neg / logz 1e-4 and top-k 1e-5 absolute,
     then ``fwd_stats_checks``), tiles selected from the PLAIN statistics
     (``u`` the random fill's draws), and the sparse backward on those same
     tiles (``margin_ce_bwd_sparse_checks``), so selection noise cannot mask
-    a kernel fault. Returns (checks, tile_idx, (gt, logz, topk))."""
+    a kernel fault. One block of a class-sharded classifier passes its
+    block-local labels, the global positive rows ``pos_rows`` and the
+    global ``gt``. Returns (checks, tile_idx, (gt, logz, topk))."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
 
-    gt = tms.compute_gt(emb, w, labels)
+    if gt is None:
+        gt = tms.compute_gt(emb, w, labels)
     got = tms.margin_ce_fwd(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
     want = tms.margin_ce_fwd_plain(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
     checks = [{"name": name, "err": float((g - wn).abs().max()), "limit": tol}
@@ -192,9 +213,10 @@ def sparse_path_checks(emb, w, labels, d_ce, d_neg, kw: dict, tile: int, m_tiles
                                           (1e-4, 1e-4, 1e-4, 1e-5))]
     checks += fwd_stats_checks(got[4], got[5], want[4], want[5], kw["scale"])
     _, _, logz, topk, maxz, maxcos = want
-    tile_idx, _ = tms.select_relevant_tiles(maxz, maxcos, logz, topk, labels, m_tiles, tile, u=u)
+    tile_idx, _ = tms.select_relevant_tiles(maxz, maxcos, logz, topk, labels, m_tiles, tile, u=u,
+                                            pos_rows=pos_rows)
     checks += margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx,
-                                          kw, tile)
+                                          kw, tile, pos_rows=pos_rows)
     return checks, tile_idx, (gt, logz, topk)
 
 
@@ -290,6 +312,86 @@ def quad_shard_checks(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, l
         _err(tag + "d_emb with the owners' tails", d_tot, d_whole,
              1e-4 * float(d_whole.abs().max()))]
     return checks
+
+
+def margin_partial_checks(emb, w_l, ll, gt, logz, kth, d_ce, d_neg, d_wl, kw: dict,
+                          tag: str = ""):
+    """Both partial margin_ce kernels against their plain versions on one
+    block ``w_l`` with block-local labels ``ll``, the global gt / logz /
+    kth, cotangents masked with the global positive rows and the owner's
+    label-row gradient ``d_wl``. Returns (checks, the kernel's (m, s, topk),
+    the kernel's (d_emb, d_w))."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    m_k, s_k, t_k = tms.margin_partial_fwd(emb, w_l, ll, gt, **kw)
+    m_p, s_p, t_p = tms.margin_partial_fwd_plain(emb, w_l, ll, gt, **kw)
+    seen = s_p > 0
+    checks = [
+        {"name": f"{tag}partial rows with a column", "limit": 0.0,
+         "err": float((seen != (s_k > 0)).sum())},
+        _err(f"{tag}partial m", m_k[seen], m_p[seen], kw["scale"] * 1e-5),
+        _err(f"{tag}partial m + log s", (m_k + torch.log(s_k))[seen],
+             (m_p + torch.log(s_p))[seen], 1e-4),
+        _err(f"{tag}partial top-k", t_k, t_p, 1e-5)]
+    args = (emb, w_l, ll, gt, logz, kth, d_ce, d_neg, d_wl)
+    d_k, w_k, g_k = tms.margin_partial_bwd(*args, **kw)
+    d_p, w_p, g_p = tms.margin_partial_bwd_plain(*args, **kw)
+    checks.append(_err(f"{tag}partial d_emb", d_k, d_p, 1e-4 * float(d_p.abs().max())))
+    checks += by_rows(f"{tag}partial d_w", w_k, w_p, w_p, ll, 1e-4)
+    del w_p
+    checks.append(_err(f"{tag}partial d_gt_raw", g_k, g_p,
+                       1e-5 * max(1.0, float(g_p.abs().max()))))
+    return checks, (m_k, s_k, t_k), (d_k, w_k)
+
+
+def margin_shard_checks(emb, w, labels, d_ce, d_neg, kw: dict, n_shards: int):
+    """The class-sharded softmax head emulated in one process: ``w`` cut
+    into ``n_shards`` blocks (C divisible by it, as the mesh requires), the
+    owners' target cosines summed (the all_reduce), each block's partial
+    kernels held to their plain versions (``margin_partial_checks``), the
+    block states merged (``merge_partials``, the all_gather) and the blocks'
+    d_emb with the owners' tails summed (the all_reduce), against
+    ``margin_ce_fwd`` / ``margin_ce_bwd`` on the whole classifier; each
+    block's d_w against the whole d_w's rows, by row set. Returns (checks,
+    the merged (gt, logz, topk) every block's backward takes)."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.parallel._shard_common import localize_labels, merge_partials
+
+    c = w.shape[0]
+    if c % n_shards:
+        raise ValueError(f"{c} classes do not split into {n_shards} blocks")
+    cl = c // n_shards
+    lt = dict(loss_type=kw["loss_type"], margin=kw["margin"], scale=kw["scale"])
+    gt_w = tms.compute_gt(emb, w, labels)
+    ce_w, neg_w, logz_w, topk_w = tms.margin_ce_fwd(emb, w, labels, gt_w, **kw)
+    de_w, dw_w = tms.margin_ce_bwd(emb, w, labels, gt_w, logz_w, topk_w, d_ce, d_neg, **kw)
+    pos = labels >= 0
+    d_ce_m, d_neg_m = tms._mask_cotangents(pos, d_ce, d_neg)
+    term_w, _ = tms._target_rows(emb, w, labels, gt_w, logz_w, d_ce_m, **lt)
+    blocks = [(w[j * cl:(j + 1) * cl], *localize_labels(j * cl, cl, labels))
+              for j in range(n_shards)]
+    gt = sum(torch.where(owned, tms.compute_gt(emb, blk, ll), 0.0) for blk, ll, owned in blocks)
+    states = [tms.margin_partial_fwd(emb, blk, ll, gt, **kw) for blk, ll, _ in blocks]
+    m, s, topk = merge_partials(*(torch.stack(x) for x in zip(*states)), kw["k"])
+    logz = m + torch.log(s)
+    ce, neg = tms.ce_and_neg(logz, topk, labels, gt, **lt)
+    kth = topk[:, -1].contiguous()
+    checks, d_tot = [], 0.0
+    for j, (blk, ll, _) in enumerate(blocks):
+        term, d_wl = tms._target_rows(emb, blk, ll, gt, logz, d_ce_m, **lt)
+        tag = f"block {j}/{n_shards} "
+        c_j, _, (d_k, w_k) = margin_partial_checks(emb, blk, ll, gt, logz, kth, d_ce_m, d_neg_m,
+                                                   d_wl.contiguous(), kw, tag=tag)
+        checks += c_j
+        d_tot = d_tot + d_k + term
+        rows = dw_w[j * cl:(j + 1) * cl]
+        checks += by_rows(f"{tag}d_w vs the whole d_w", w_k, rows, rows, ll, 1e-4)
+        del w_k
+    tag = f"{n_shards} blocks merged vs the whole classifier: "
+    checks += [_err(tag + "ce", ce, ce_w, 1e-4), _err(tag + "neg", neg, neg_w, 1e-4),
+               _err(tag + "logz", logz, logz_w, 1e-4), _err(tag + "top-k", topk, topk_w, 1e-5),
+               whole(tag + "d_emb with the owners' tails", d_tot, de_w, de_w - term_w, 1e-4)]
+    return checks, (gt, logz, topk)
 
 
 def failures(checks: list[dict]) -> list[dict]:
