@@ -125,7 +125,33 @@ Class-sharded softmax head (routes A, B and D over a class-sharded classifier,
    kernel; B: both partial kernels; D: the forward with statistics, the
    sparse kernel and margin_ce_bwd); step time, peak memory, and a profile
    of two warm route-A steps (NCCL's share included); the group destroyed;
-then the ``kernels`` JSON line (ten kernels), and the device JSON line last.
+The 10M-identity int8 pool (the quad kernels' bf16, int8 and int8-compute
+forms; ``capacity_10m_int8c``: ir50, 10,485,760-slot int8 queue, int8
+compute):
+21. parity — each form's quad_fwd / quad_bwd kernel against its plain
+   version: int8c and int8 storage at Q = 10,485,760, bf16 at 4,194,304,
+   with phase 3's write plan (a duplicate slot), then AM and SV at 4096;
+   int8c's dot bit for bit (the kernels' clean cosines with unit scales
+   against torch._int_mm); limits printed
+   with their reasons (``utils/parity.py``);
+22. timing — each form's kernels at full width: kernel, plain version,
+   yardsticks (bf16 matmul over int8 -> bf16 chunks scaled after the dot,
+   torch._int_mm chunks for int8c, bf16 matmul for bf16; then logsumexp and
+   top-k), and the bound at the H100's dense tensor-core rates (989 TFLOP/s
+   bf16, 1,979 TOPS int8) or 3.35 TB/s;
+23. partial kernels — each form as one block of the whole queue and as 4
+   emulated blocks (2,621,440 slots at 10,485,760), merged against quad_fwd
+   / quad_bwd (``quad_shard_checks``), then AM and SV at 4096; their timing
+   over one 4-card block;
+24. training — ``Trainer`` on capacity_10m_int8c, 4 steps, each int8c kernel
+   once per step, step time, peak memory, a profile of two warm steps; after
+   one more step every written slot holds quantize_rows(g) bit for bit and
+   every live row dequantises to unit norm within 1e-4; ``pool.force_sharded``
+   on the same config over an NCCL group of one, its first step against the
+   single-shard first step on an f32 backbone, then 2 steps; int8 storage at
+   2^20 and bf16 at 4,194,304, single and force-sharded, 2 steps each;
+then the ``kernels`` JSON line (22 entries: the ten f32 kernels and the
+twelve forms), and the device JSON line last.
 
 The script imports nothing of JAX. Without a CUDA device it exits non-zero
 before printing any result.
@@ -146,6 +172,8 @@ import numpy as np
 import torch
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM tensor cores, dense
+PEAK_INT8_OPS = 1979e12  # H100 SXM tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 SLICE = dict(b=128, d=512, q=1 << 20, k=10)
 SOFTMAX = dict(b=128, d=512, c=1 << 20)
@@ -158,6 +186,8 @@ SHARDS = 4  # the emulated shards of phase 15: a 4-card run's 2^18-slot blocks
 SHIPPED_CLASSES = 5_000_000  # configs/partial_fc_ir50_5m_ids.json: mesh.model = 4
 CLASS_SHARDS = 4  # its blocks of 1,250,000 classes, emulated in phase 18
 SLOT_MULT = 0x9E3779B1  # odd: slot -> slot * SLOT_MULT mod Q permutes a 2^k queue
+FORM_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
+               "int8c": torch.int8}
 
 
 def smi_line() -> str:
@@ -180,19 +210,20 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / n
 
 
-def raw_case(q: int, b: int, d: int, seed: int):
+def raw_case(q: int, b: int, d: int, seed: int, form: str = "f32"):
     """A queue, probes, gallery rows and a realistic write plan: the port's
     DCP planner after a few warm-up steps (pool hits, seen flags, in-pool
     probe labels), with one label three times in each gallery half so two
-    writes land on the same (row, slot). Returns the queue, the generator
-    (for more draws) and (p_x, p_y, g_a, g_b, plan_a, plan_b, labels_a,
-    labels_b)."""
+    writes land on the same (row, slot). The queue is stored as ``form``
+    says (f32, bf16, or int8 with its scales for int8 / int8c). Returns the
+    queue, its scales (None for float queues), the generator (for more
+    draws) and (p_x, p_y, g_a, g_b, plan_a, plan_b, labels_a, labels_b)."""
     from vlsfr_tpu_torch.core.dcp import DCPManager
     from vlsfr_tpu_torch.core.ffc import init_queue
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    queue = init_queue(q, d, device=dev, generator=gen)
+    queue, scales = init_queue(q, d, device=dev, generator=gen, dtype=FORM_DTYPES[form])
     rng = np.random.default_rng(seed)
     dcp = DCPManager(q)
     n_ids = 4 * b
@@ -214,25 +245,30 @@ def raw_case(q: int, b: int, d: int, seed: int):
     pa = (t(plan.a.rows), t(plan.a.cols), t(plan.a.seen))
     pb = (t(plan.b.rows), t(plan.b.cols), t(plan.b.seen))
     la, lb = t(plan.a.fake_labels), t(plan.b.fake_labels)
-    return queue, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb)
+    return queue, scales, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb)
 
 
-def make_case(q: int, b: int, d: int, k: int, loss_type: str, seed: int):
-    """Packed kernel inputs of ``raw_case``, and cotangents."""
+def make_case(q: int, b: int, d: int, k: int, loss_type: str, seed: int, form: str = "f32"):
+    """Packed kernel inputs of ``raw_case``, and cotangents; ``kw`` carries
+    the form's plane-0 scales and int8-compute probes."""
     from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 
-    queue, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb) = raw_case(q, b, d, seed)
-    packed = ttm.pack_dirs(p_x, p_y, ttm.dir_inputs(queue, g_a, *pa),
-                           ttm.dir_inputs(queue, g_b, *pb), la, lb,
-                           ttm.compute_twin_gt(p_x, queue, g_a, *pa, la),
-                           ttm.compute_twin_gt(p_y, queue, g_b, *pb, lb))
+    queue, qs, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb) = raw_case(q, b, d, seed, form)
+    packed = ttm.pack_dirs(p_x, p_y, ttm.dir_inputs(queue, g_a, *pa, qs),
+                           ttm.dir_inputs(queue, g_b, *pb, qs), la, lb,
+                           ttm.compute_twin_gt(p_x, queue, g_a, *pa, la, qs),
+                           ttm.compute_twin_gt(p_y, queue, g_b, *pb, lb, qs))
     kw = dict(b=b, loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
+    if form != "f32":
+        kw.update(qscales=None if qs is None else qs[0],
+                  e8=quantize_rows(packed[0]) if form == "int8c" else None)
     cot = torch.randn((4, 2 * b), generator=gen, device=queue.device) / b
     pos = (packed[6] >= 0)[None, :]
     dce = torch.where(pos, cot[:2], 0.0).contiguous()
     dneg = torch.where(pos, 0.0, cot[2:]).contiguous()
     n_pos = int(pos.sum())
-    print(f"  case Q={q} {loss_type}: {n_pos}/{2 * b} in-pool probe rows, "
+    print(f"  case Q={q} {loss_type} {form}: {n_pos}/{2 * b} in-pool probe rows, "
           f"{int(packed[5].sum())} blend writes")
     return queue, packed, kw, dce, dneg
 
@@ -268,10 +304,12 @@ def check_pair(queue, packed, kw, dce, dneg):
     return want, errs
 
 
-def bound(flop: float, nbytes: float) -> dict:
+def bound(flop: float, nbytes: float, ops_ms: float | None = None) -> dict:
     """The least time the card could take: the larger of FLOP at the f32
-    rate and bytes at the HBM rate, and which of the two it is."""
-    t_ops, t_bytes = flop / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    rate (or ``ops_ms``, the operations' time at their own rates) and bytes
+    at the HBM rate, and which of the two it is."""
+    t_ops = flop / PEAK_F32_FLOPS * 1e3 if ops_ms is None else ops_ms
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
             else "bytes", "flop": flop, "bytes": nbytes}
 
@@ -438,11 +476,15 @@ def train_phase(card: str):
     return launches
 
 
+def only_launched(launches: dict, want: dict) -> bool:
+    """The launch counts are ``want`` and 0 for every other kernel form."""
+    return all(n == want.get(name, 0) for name, n in launches.items())
+
+
 def check_training(trainer, out: dict, launches: dict) -> None:
     """Finite loss, one launch of each quad kernel per step, unit rows in
     the queue, and probe embeddings that agree with the same net on the CPU."""
-    if launches != {"quad_fwd": TRAIN_STEPS, "quad_bwd": TRAIN_STEPS, "quad_partial_fwd": 0,
-                    "quad_partial_bwd": 0}:
+    if not only_launched(launches, {"quad_fwd": TRAIN_STEPS, "quad_bwd": TRAIN_STEPS}):
         raise RuntimeError(f"each quad kernel must launch once per step: {launches}")
     if not (math.isfinite(out["loss"]) and out["loss"] > 0 and out["final_step"] == TRAIN_STEPS):
         raise RuntimeError(f"training did not produce a finite loss: {out}")
@@ -924,7 +966,7 @@ def route_e_phase(card: str, tmp: str) -> None:
         free_trainer(trainer)
 
 
-def shard_case(q: int, loss_type: str, seed: int):
+def shard_case(q: int, loss_type: str, seed: int, form: str = "f32"):
     """``raw_case`` with its slots moved by slot -> slot·SLOT_MULT mod q (a
     permutation: duplicates, written labels and pool hits keep their
     structure) so that the targets spread over the SHARDS blocks; asserts
@@ -932,7 +974,7 @@ def shard_case(q: int, loss_type: str, seed: int):
     in different blocks. Returns quad_shard_checks's inputs and the loss
     arguments."""
     b, d, k = SLICE["b"], SLICE["d"], SLICE["k"]
-    queue, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb) = raw_case(q, b, d, seed)
+    queue, qs, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb) = raw_case(q, b, d, seed, form)
     move = lambda c: torch.where(c >= 0, (c.long() * SLOT_MULT) % q, c.long()).to(c.dtype)  # noqa: E731
     pa, pb = (pa[0], move(pa[1]), pa[2]), (pb[0], move(pb[1]), pb[2])
     la, lb = move(la), move(lb)
@@ -948,8 +990,10 @@ def shard_case(q: int, loss_type: str, seed: int):
     dce = torch.where(pos, cot[:2], 0.0).contiguous()
     dneg = torch.where(pos, 0.0, cot[2:]).contiguous()
     kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
-    print(f"  case Q={q} {loss_type}: {int(pos.sum())}/{2 * b} in-pool probe rows, targets in "
-          f"all {SHARDS} blocks")
+    print(f"  case Q={q} {loss_type} {form}: {int(pos.sum())}/{2 * b} in-pool probe rows, "
+          f"targets in all {SHARDS} blocks")
+    if form != "f32":
+        kw = dict(kw, qscales=qs, int8_compute=form == "int8c")
     return (p_x, p_y, queue, g_a, g_b, pa, pb, la, lb, dce, dneg), kw
 
 
@@ -959,7 +1003,9 @@ def shard_parity(case, kw, n_shards: int) -> dict:
     (d_emb)."""
     from vlsfr_tpu_torch.utils import parity
 
-    checks = parity.quad_shard_checks(*case, kw, n_shards=n_shards)
+    fkw = {k: kw[k] for k in ("qscales", "int8_compute") if k in kw}
+    kw = {k: v for k, v in kw.items() if k not in fkw}
+    checks = parity.quad_shard_checks(*case, kw, n_shards=n_shards, **fkw)
     torch.cuda.synchronize()
     for c in checks:
         print("    " + parity.describe(c))
@@ -1088,10 +1134,10 @@ def sharded_train_phase(card: str, tmp: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
         print(f"  {TRAIN_STEPS} sharded steps: {json.dumps(out)}")
         print(f"  quad launches in the sharded run: {launches}")
-        want = {"quad_fwd": 0, "quad_bwd": 0, "quad_partial_fwd": TRAIN_STEPS,
-                "quad_partial_bwd": TRAIN_STEPS}
-        if launches != want or not (math.isfinite(out["loss"]) and out["loss"] > 0
-                                    and out["final_step"] == TRAIN_STEPS):
+        want = {"quad_partial_fwd": TRAIN_STEPS, "quad_partial_bwd": TRAIN_STEPS}
+        if not only_launched(launches, want) or not (
+                math.isfinite(out["loss"]) and out["loss"] > 0
+                and out["final_step"] == TRAIN_STEPS):
             raise RuntimeError(f"the sharded step must launch each partial kernel once per "
                                f"step and no quad kernel: {launches}, {out}")
         step_ms = 2 * SLICE["b"] / out["images_per_sec"] * 1e3
@@ -1351,6 +1397,373 @@ def sharded_softmax_phase(card: str, tmp: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# the 10M-identity int8 pool: the quad kernels' bf16, int8 and int8c forms
+# ----------------------------------------------------------------------
+
+# the forms' full-width queues: capacity_10m_int8c's 10,485,760 slots for
+# the int8 forms, and the JAX package's measured bf16 pool (4,194,304)
+FORM_Q = {"int8c": 10 << 20, "int8": 10 << 20, "bf16": 4 << 20}
+FORMS = ("int8c", "int8", "bf16")
+CAPACITY = ("pool.queue_size=10485760", "pool.queue_dtype=int8", "pool.queue_int8_compute=true")
+FORM_TRAIN = {"int8c": CAPACITY, "int8": (f"pool.queue_size={1 << 20}", "pool.queue_dtype=int8"),
+              "bf16": (f"pool.queue_size={4 << 20}", "pool.queue_dtype=bfloat16")}
+FORM_STEPS = 2  # steps of each form's short training runs (phase 24)
+
+
+def form_limits() -> None:
+    from vlsfr_tpu_torch.utils import parity
+
+    print("  limits: ce / neg / logz 1e-4 absolute and top-k 1e-5 (f32 sums of exact "
+          "bf16 / int8 products in another order over the queue); d_gt 1e-5; d_emb in two "
+          f"parts: at most {parity.STRADDLE_ROWS} rows beyond {parity.DEMB_TIGHT:g} x its max "
+          f"and none beyond {parity.ROUNDED_DEMB_RTOL:g} x its max (both sides round each "
+          "d_cos to bf16 before its product with a row; where the kernel's f32 d_cos and the "
+          "plain version's straddle a bf16 boundary one term moves by up to 2^-8 of itself, "
+          "which moves one row; a kernel that skips a rounding moves every row); the "
+          "int8-compute dot bit for bit (limit 0): the kernels' own clean cosines with unit "
+          "scales against torch._int_mm, with the real scales against the plain version")
+
+
+def form_parity(form: str, q: int, loss_type: str, seed: int):
+    """``parity.quad_checks`` on one case of the form (and, for int8c, the
+    int8 dot over the first 65,536 slots: ``parity.int8_dot_checks``);
+    raises above a limit. Returns the case, the plain forward's outputs and
+    the max errors of the forward and the backward."""
+    from vlsfr_tpu_torch.utils import parity
+
+    case = make_case(q, SLICE["b"], SLICE["d"], SLICE["k"], loss_type, seed, form)
+    checks, want = parity.quad_checks(*case)
+    queue, kw = case[0], case[2]
+    if form == "int8c":
+        n = min(q, 65536)
+        checks += parity.int8_dot_checks(*kw["e8"], queue[0, :n], kw["qscales"][:n],
+                                         f"first {n:,} slots: ")
+    torch.cuda.synchronize()
+    for c in checks:
+        print("    " + parity.describe(c))
+    bad = parity.failures(checks)
+    if bad:
+        raise RuntimeError(f"the {form} quad kernels disagree with their plain versions: "
+                           + "; ".join(map(parity.describe, bad)))
+    err = {c["name"]: c["err"] for c in checks}
+    return case, want, {"fwd": max(err[k] for k in ("ce", "neg", "logz", "top-k")),
+                        "bwd": max(err["d_emb"], err["d_gt"])}
+
+
+def form_bound(form: str, fwd: bool, r_: int, d: int, q: int, k: int) -> dict:
+    """The least time of one pass of the form at the H100's dense rates:
+    the dots on the tensor cores that the TPU kernel's matrix unit stands
+    for (int8 compute: the forward's dot and the backward's recompute at
+    the int8 rate, the backward's d_emb dot at bf16; bf16 and int8
+    storage: bf16), against the bytes (the plane, its scales, the [R, D]
+    operands and the per-row vectors and outputs)."""
+    dot = 2.0 * r_ * d * q
+    item = 1 if form in ("int8", "int8c") else 2
+    nbytes = item * q * d + (4 * q if item == 1 else 0) + 4 * 3 * r_ * d + 4 * 6 * r_
+    if form == "int8c":
+        nbytes += r_ * d + 4 * r_  # E8, se
+    if fwd:
+        nbytes += 4 * 2 * r_ * (3 + k)
+        ops_ms = dot / (PEAK_INT8_OPS if form == "int8c" else PEAK_BF16_FLOPS) * 1e3
+        return bound(dot, nbytes, ops_ms)
+    nbytes += 4 * 8 * r_ + 4 * (r_ * d + 2 * r_)
+    ops_ms = (dot / PEAK_INT8_OPS + dot / PEAK_BF16_FLOPS if form == "int8c"
+              else 2 * dot / PEAK_BF16_FLOPS) * 1e3
+    return bound(2 * dot, nbytes, ops_ms)
+
+
+def library_passes(form: str, E, q0, qs, e8, scale: float, k: int, chunk: int = 1 << 20):
+    """One PyTorch call per chunk of the same work as the kernels, as
+    yardsticks the port never calls: the forward's dot (bf16 matmul over
+    int8 -> bf16 rows scaled after the dot; torch._int_mm for int8
+    compute; bf16 matmul for a bf16 queue), logsumexp and top-k; the
+    backward's recompute and d_cos @ rows in bf16."""
+    n_q = q0.shape[0]
+    Eb = E.bfloat16()
+    d_cos = torch.randn((E.shape[0], chunk), device=E.device).mul_(1e-4).bfloat16()
+
+    def cos(lo, hi):
+        w = q0[lo:hi]
+        if form == "int8c":
+            acc = torch._int_mm(e8[0], w.T)
+            return acc.float() * (e8[1][:, None] * qs[None, lo:hi]), w.bfloat16()
+        wb = w.bfloat16()
+        c = torch.matmul(Eb, wb.T).float()
+        return (c * qs[None, lo:hi] if form == "int8" else c), wb
+
+    def fwd():
+        for lo in range(0, n_q, chunk):
+            c, _ = cos(lo, min(n_q, lo + chunk))
+            torch.logsumexp(scale * c, dim=1)
+            torch.topk(c, k, dim=1)
+
+    def bwd():
+        for lo in range(0, n_q, chunk):
+            hi = min(n_q, lo + chunk)
+            _, wb = cos(lo, hi)
+            torch.matmul(d_cos[:, :hi - lo], wb)
+
+    return fwd, bwd
+
+
+def form_timing(form: str, case, want) -> dict:
+    """Each form's kernels at full width: kernel, plain version, the
+    library yardsticks, and the bound."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    queue, packed, kw, dce, dneg = case
+    E, rest = packed[0], packed[1:]
+    r_, d = E.shape
+    q = queue.shape[1]
+    logz, kth = want[2], want[3][:, :, -1].contiguous()
+    fwd = dict(ms=cuda_ms(lambda: ttm.quad_fwd(E, queue, *rest, **kw), 3, 1),
+               plain_ms=cuda_ms(lambda: ttm.quad_fwd_plain(E, queue, *rest, **kw), 1, 0))
+    bwd = dict(ms=cuda_ms(lambda: ttm.quad_bwd(E, queue, *rest, logz, kth, dce, dneg, **kw), 3, 1),
+               plain_ms=cuda_ms(lambda: ttm.quad_bwd_plain(E, queue, *rest, logz, kth, dce, dneg,
+                                                           **kw), 1, 0))
+    lib_fwd, lib_bwd = library_passes(form, E, queue[0], kw.get("qscales"), kw.get("e8"),
+                                      kw["scale"], kw["k"])
+    fwd["library_ms"] = cuda_ms(lib_fwd, 2, 1)
+    bwd["library_ms"] = cuda_ms(lib_bwd, 2, 1)
+    fwd.update(form_bound(form, True, r_, d, q, kw["k"]))
+    bwd.update(form_bound(form, False, r_, d, q, kw["k"]))
+    out = {f"quad_fwd[{form}]": fwd, f"quad_bwd[{form}]": bwd}
+    print_times(out)
+    return out
+
+
+def form_partial_timing(form: str, case, kw) -> dict:
+    """Both partial kernels of the form over one card's block of a 4-card
+    run (Q / 4 slots): kernel, plain version, the yardsticks over the
+    block, and the bound."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.parallel.sharded_quad import shard_inputs
+
+    p_x, p_y, queue, g_a, g_b, pa, pb, la, lb, dce, dneg = case
+    b, q = p_x.shape[0], queue.shape[1]
+    qs = kw.get("qscales")
+    int8c = kw.get("int8_compute", False)
+    lkw = {k_: v for k_, v in kw.items() if k_ not in ("qscales", "int8_compute")}
+    labels = torch.cat([la, lb]).to(torch.int32)
+    whole = shard_inputs(p_x, p_y, queue, 0, g_a, g_b, pa, pb, la, lb, qs, int8c)
+    gt = whole.gt_parts
+    m, s_, t = ttm.quad_partial_fwd(*whole.kernel_args(queue), gt, b=b, bp=b, **lkw,
+                                    **whole.form_kw())
+    logz, topk = ttm.finalize_fwd(m, s_, t, labels, gt, loss_type=lkw["loss_type"],
+                                  margin=lkw["margin"], scale=lkw["scale"])[2:]
+    kth = topk[:, :, -1].contiguous()
+    del whole
+    cols = q // SHARDS
+    q_l = queue[:, :cols]
+    si = shard_inputs(p_x, p_y, q_l, 0, g_a, g_b, pa, pb, la, lb,
+                      None if qs is None else qs[:, :cols], int8c)
+    args, pkw = si.kernel_args(q_l), dict(b=b, bp=b, **lkw, **si.form_kw())
+    bwd_args = (*args, gt, logz, kth, dce, dneg)
+    fwd = dict(ms=cuda_ms(lambda: ttm.quad_partial_fwd(*args, gt, **pkw), 3, 1),
+               plain_ms=cuda_ms(lambda: ttm.quad_partial_fwd_plain(*args, gt, **pkw), 1, 0))
+    bwd = dict(ms=cuda_ms(lambda: ttm.quad_partial_bwd(*bwd_args, **pkw), 3, 1),
+               plain_ms=cuda_ms(lambda: ttm.quad_partial_bwd_plain(*bwd_args, **pkw), 1, 0))
+    lib_fwd, lib_bwd = library_passes(form, si.E, q_l[0], si.qs0,
+                                      None if si.e8q is None else (si.e8q, si.e8s),
+                                      lkw["scale"], lkw["k"])
+    fwd["library_ms"] = cuda_ms(lib_fwd, 2, 1)
+    bwd["library_ms"] = cuda_ms(lib_bwd, 2, 1)
+    r_, d = si.E.shape
+    fwd.update(form_bound(form, True, r_, d, cols, lkw["k"]))
+    bwd.update(form_bound(form, False, r_, d, cols, lkw["k"]))
+    out = {f"quad_partial_fwd[{form}]": fwd, f"quad_partial_bwd[{form}]": bwd}
+    print(f"  {form}: a block of {cols} columns:")
+    print_times(out)
+    return out
+
+
+class WriteRecorder:
+    """Wraps ``core.ffc.write_rows_`` to keep the last write's arguments."""
+
+    def __init__(self, ffc):
+        self.ffc, self.orig, self.last = ffc, ffc.write_rows_, None
+
+    def __enter__(self):
+        def record(queue, g, rows, cols, col0=0, scales=None):
+            self.last = (g.detach().clone(), rows.clone(), cols.clone(), col0)
+            return self.orig(queue, g, rows, cols, col0, scales)
+
+        self.ffc.write_rows_ = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ffc.write_rows_ = self.orig
+
+
+def check_int8_queue(state, write) -> None:
+    """Every slot the last step wrote holds quantize_rows(g) of its last
+    writer, rows and scales bit for bit; every live row dequantises to a
+    unit vector within 1e-4 (the whole queue, in chunks)."""
+    from vlsfr_tpu_torch.ops.qqueue import dequant_rows, quantize_rows
+
+    g, rows, cols, col0 = write
+    q_rows, s_rows = quantize_rows(g)
+    key = cols.long() * 2 + rows.long()
+    last = ~torch.triu(key[:, None] == key[None, :], diagonal=1).any(dim=1)
+    r, c = rows.long()[last], cols.long()[last] - col0
+    ok_q = torch.equal(state.queue[r, c], q_rows[last])
+    ok_s = torch.equal(state.queue_scales[r, c], s_rows[last])
+    worst, n_live = 0.0, 0
+    for lo in range(0, state.queue.shape[1], 1 << 20):
+        qs = state.queue_scales[:, lo:lo + (1 << 20)]
+        nrm = torch.linalg.vector_norm(dequant_rows(state.queue[:, lo:lo + (1 << 20)], qs), dim=-1)
+        live = qs > 0
+        n_live += int(live.sum())
+        worst = max(worst, float((nrm[live] - 1.0).abs().max()))
+    print(f"  the step's {int(last.sum())} written slots hold quantize_rows(g) bit for bit: rows "
+          f"{ok_q}, scales {ok_s}; {n_live} live rows dequantise to unit norm within "
+          f"{worst:.2e} (limit 1e-4)")
+    if not (ok_q and ok_s and worst <= 1e-4):
+        raise RuntimeError("the int8 queue does not hold what the step wrote")
+
+
+def form_first_step(tmp: str, form: str) -> None:
+    """The force_sharded Trainer's first step against the single-shard
+    Trainer's on the form's config, from one seed and batch with an f32
+    backbone (as phase 17): loss 1e-5 relative, parameters and BN
+    statistics 1e-5 relative + 2e-5 absolute, the queue (and scales) after
+    the write bit-equal."""
+    import torch.distributed as dist
+
+    def first_step(*overrides):
+        trainer = ffc_trainer(tmp, "model.dtype=float32", *FORM_TRAIN[form], *overrides)
+        try:
+            if overrides and (trainer.mesh is None or dist.get_backend() != "nccl"
+                              or dist.get_world_size() != 1):
+                raise RuntimeError("the sharded route did not run over an NCCL group of one")
+            batch = trainer.pipeline.make_batch(0, 0)
+            idx = trainer.dcp.plan_step(batch.x_label, batch.y_label)
+            loss = float(trainer.train_step(trainer.state, batch.x, batch.y, idx, 1.0)["loss"])
+            params = {k: v.detach().clone() for k, v in trainer.state.probe.state_dict().items()}
+            st = trainer.state
+            return loss, params, st.queue.clone(), st.queue_scales
+        finally:
+            free_trainer(trainer)
+
+    loss_ref, params_ref, queue_ref, scales_ref = first_step()
+    loss, params, queue, scales = first_step("pool.force_sharded=true")
+    worst = max(float(((v.double() - params_ref[k].double()).abs()
+                       - 1e-5 * params_ref[k].double().abs()).max()) for k, v in params.items())
+    same = torch.equal(queue, queue_ref) and (scales is None or torch.equal(scales, scales_ref))
+    print(f"  {form} first step (f32 backbone), sharded against single-shard: loss {loss:.6f} / "
+          f"{loss_ref:.6f} (1e-5 relative); probe parameters and BN statistics "
+          f"max(|diff| - 1e-5 |ref|) {worst:.3e} <= 2e-5; queue and scales after the write "
+          f"bit-equal: {same}")
+    if not (abs(loss - loss_ref) <= 1e-5 * abs(loss_ref) and worst <= 2e-5 and same):
+        raise RuntimeError(f"the sharded {form} first step disagrees with the single-shard step")
+    del queue, queue_ref, scales, scales_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def form_train(card: str, tmp: str, form: str, steps: int, *overrides: str,
+               profile: bool = False, check_queue: bool = False) -> dict:
+    """``steps`` steps of the form's config through ``Trainer.train``, each
+    of the form's kernels (single-shard or, with ``pool.force_sharded``, the
+    partial ones) launching once per step. Returns the launch counts."""
+    from vlsfr_tpu_torch.core import ffc
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    sharded = "pool.force_sharded=true" in overrides
+    trainer = ffc_trainer(tmp, *FORM_TRAIN[form], *overrides)
+    try:
+        ttm.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = trainer.train(max_steps=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ttm.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        kinds = ("quad_partial_fwd", "quad_partial_bwd") if sharded else ("quad_fwd", "quad_bwd")
+        want = {ttm.kernel_name(k_, form): steps for k_ in kinds}
+        tag = f"{form}{' sharded' if sharded else ''}"
+        print(f"  {tag}, {steps} steps: {json.dumps(out)}")
+        print(f"  launches: { {k_: v for k_, v in launches.items() if v} }")
+        if not only_launched(launches, want) or not (
+                math.isfinite(out["loss"]) and out["loss"] > 0 and out["final_step"] == steps):
+            raise RuntimeError(f"each {form} kernel must launch once per step: {launches}, {out}")
+        step_ms = 2 * SLICE["b"] / out["images_per_sec"] * 1e3
+        print(f"  {tag} step time {step_ms:.1f} ms (last window, {card}); {steps} steps "
+              f"{wall:.2f} s wall incl. the first window; peak memory {peak / 2**30:.2f} GiB "
+              f"({card})")
+        if check_queue:
+            # a whole batch the run has not trained on: the epoch's last step
+            batch = trainer.pipeline.make_batch(1, trainer.pipeline.steps_per_epoch() - 1)
+            with WriteRecorder(ffc) as rec:
+                trainer.train_step(trainer.state, batch.x, batch.y,
+                                   trainer.dcp.plan_step(batch.x_label, batch.y_label), 1.0)
+            check_int8_queue(trainer.state, rec.last)
+        if profile:
+            print(f"== phase 24b: profile of two more {tag} steps")
+            state, scale = trainer.state, trainer.plateau.scale
+            profile_steps(lambda b: trainer.train_step(state, b.x, b.y, trainer.dcp.plan_step(
+                b.x_label, b.y_label), scale), [trainer.pipeline.make_batch(1, s)
+                                                for s in range(2)])
+    finally:
+        free_trainer(trainer)
+    return {k_: v for k_, v in launches.items() if v}
+
+
+def forms_phases(card: str, tmp: str) -> tuple[dict, dict, dict]:
+    """Phases 21-24. Returns (times, max errors, launch counts) by kernel
+    entry name."""
+    times, errs, launches = {}, {}, {}
+    print("== phase 21: the quad kernels' bf16, int8 and int8c forms at full width")
+    form_limits()
+    full = {}
+    for form in FORMS:
+        case, want, e = form_parity(form, FORM_Q[form], "Arc", seed=11)
+        errs[f"quad_fwd[{form}]"], errs[f"quad_bwd[{form}]"] = e["fwd"], e["bwd"]
+        full[form] = (case, want)
+        print(f"== phase 22: {form} timing (Q = {FORM_Q[form]})")
+        times.update(form_timing(form, case, want))
+        del case, want
+        full.pop(form)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for loss_type in ("AM", "SV"):
+            e = form_parity(form, 4096, loss_type, seed=12)[2]
+            errs[f"quad_fwd[{form}]"] = max(errs[f"quad_fwd[{form}]"], e["fwd"])
+            errs[f"quad_bwd[{form}]"] = max(errs[f"quad_bwd[{form}]"], e["bwd"])
+
+    print("== phase 23: the forms' partial kernels and the shard merge at full width; limits "
+          "in vlsfr_tpu_torch/utils/parity.py")
+    for form in FORMS:
+        q = FORM_Q[form]
+        case, kw = shard_case(q, "Arc", seed=13, form=form)
+        for n in (1, SHARDS):
+            print(f"  {form}: the queue as {n} block(s) of {q // n} columns:")
+            for name, err in shard_parity(case, kw, n).items():
+                key = f"{name}[{form}]"
+                errs[key] = max(errs.get(key, 0.0), err)
+        times.update(form_partial_timing(form, case, kw))
+        del case, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+        for loss_type in ("AM", "SV"):
+            print(f"  {form}: Q=4096 {loss_type} in {SHARDS} blocks:")
+            shard_parity(*shard_case(4096, loss_type, seed=14, form=form), SHARDS)
+
+    print("== phase 24: capacity_10m_int8c (ir50, 10,485,760-slot int8 queue, int8 compute) "
+          "through the Trainer")
+    launches.update(form_train(card, tmp, "int8c", TRAIN_STEPS, profile=True, check_queue=True))
+    form_first_step(tmp, "int8c")
+    launches.update(form_train(card, tmp, "int8c", FORM_STEPS, "pool.force_sharded=true"))
+    for form in ("int8", "bf16"):
+        print(f"  {form}: the single-shard and the force-sharded Trainer, {FORM_STEPS} steps each")
+        launches.update(form_train(card, tmp, form, FORM_STEPS,
+                                   check_queue=form == "int8"))
+        launches.update(form_train(card, tmp, form, FORM_STEPS, "pool.force_sharded=true"))
+    return times, errs, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1482,6 +1895,13 @@ def main() -> int:
         launches["margin_partial_fwd"] = sharded["A"]["margin_partial_fwd"]
         launches["margin_partial_bwd"] = sharded["B"]["margin_partial_bwd"]
         errs.update(perrs)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ftimes, ferrs, flaunches = forms_phases(card, tmp)
+        times.update(ftimes)
+        errs.update(ferrs)
+        launches.update(flaunches)
 
     fwd_keys = ("ce", "neg", "logz", "topk")
     kernels = []
@@ -1499,9 +1919,14 @@ def main() -> int:
              errs["quad_partial_bwd"]),
             ("margin_partial_fwd", "margin_ce", "margin_pallas.py:991", errs["margin_partial_fwd"]),
             ("margin_partial_bwd", "margin_ce", "margin_pallas.py:1036",
-             errs["margin_partial_bwd"])):
+             errs["margin_partial_bwd"]),
+            *((f"{name}[{form}]", "quad_margin", replaces, errs[f"{name}[{form}]"])
+              for form in FORMS for name, replaces in (
+                  ("quad_fwd", "twin_margin.py:1840"), ("quad_bwd", "twin_margin.py:1891"),
+                  ("quad_partial_fwd", "twin_margin.py:1676"),
+                  ("quad_partial_bwd", "twin_margin.py:1748")))):
         t = times[name]
-        if launches[name] < 1:
+        if launches.get(name, 0) < 1:
             raise RuntimeError(f"{name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"vlsfr_tpu_torch/csrc/{src}.cu",
@@ -1509,6 +1934,8 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": err, "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    if len(kernels) != 22:
+        raise RuntimeError(f"the kernels line must list 22 entries, has {len(kernels)}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -235,3 +235,36 @@ def test_config_tree_and_overrides_match_jax(tmp_path):
     mine.save(path)
     assert Config.load(path).to_dict() == JConfig.load(path).to_dict()
     assert jax.default_backend() == "cpu"
+
+
+def test_cli_config_keeps_the_files_values():
+    """With ``--config`` only the flags given on the command line replace
+    the file's values; JAX's train.py writes every flag's default over
+    the file (r50 on a 1000-slot queue from configs/ffc_10m_ids.json)."""
+    import train as jtrain
+    from vlsfr_tpu_torch.train.cli import build_config
+
+    argv = ["--config", "configs/ffc_10m_ids.json", "--set", "mesh.model=1", "--set",
+            "data.batch_size=128", "--set", "train.eval_freq=0", "--synthetic"]
+    cfg, _ = build_config(argv)
+    assert (cfg.model.net_type, cfg.pool.queue_size, cfg.pool.queue_dtype) == (
+        "ir50", 10485760, "int8")
+    assert cfg.pool.queue_int8_compute and cfg.data.synthetic
+    assert (cfg.data.batch_size, cfg.mesh.model, cfg.train.eval_freq) == (128, 1, 0)
+    assert cfg.pool.momentum == 0.99 and cfg.train.print_freq == 100
+    assert build_config(argv + ["--queue_size", "64"])[0].pool.queue_size == 64
+    ref = jtrain.build_config(argv)
+    assert (ref.model.net_type, ref.pool.queue_size) == ("r50", 1000)
+
+
+def test_pair_stream_wraps_over_a_short_tail(raw_store):
+    """A record limit that leaves fewer identities than a pair batch: the
+    batch wraps around them as often as it takes (the stream kept only one
+    extra pass, and left the rest of the batch unset)."""
+    mine = MultiSourceReader([raw_store])
+    ps = PairStream(mine, 8, 3, record_limit=4)  # identities 0 and 1 only
+    labels, rec1, rec2 = ps.batch(0, 0)
+    assert len(labels) == 8 and set(labels.tolist()) <= {0, 1}
+    assert rec1.max() < 4 and rec2.max() < 4 and rec1.min() >= 0
+    assert (mine.labels[rec1] == labels).all() and (mine.labels[rec2] == labels).all()
+    mine.close()

@@ -16,7 +16,9 @@ relative one in p): ce / neg / logz 1e-4 absolute, top-k 1e-5, d_gt 1e-5;
 the forward's tile statistics maxcos 1e-5 and maxz scale × 1e-5; the
 sparse backward on the kernel's and the plain version's common tile_idx,
 its d_w rows per row set as below, d_emb on its streamed part, d_gt 1e-5;
-quad d_emb 1e-4 × its max. The softmax kernels' gradients are held where
+quad d_emb 1e-4 × its max (f32 queue; the bf16 and int8 forms' in two
+parts, ``parity.rounded_demb``: at most 8 rows beyond 1e-5 × max, none
+beyond 2^-7 × max); the int8-compute dot bit for bit. The softmax kernels' gradients are held where
 the kernel computes them alone (``vlsfr_tpu_torch/utils/parity.py``): d_emb
 to 1e-4 × the max of its streamed part (less the target term both sides add
 in plain torch); d_w, w' and mom' per row set — the batch's label rows and
@@ -35,13 +37,22 @@ import torch
 
 from vlsfr_tpu_torch.ops import margin_stream as tms
 from vlsfr_tpu_torch.ops import twin_margin as ttm
+from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 from vlsfr_tpu_torch.utils import parity
 
 
-def make_packed(seed, b, q, d, k, device="cpu", loss_type="Arc"):
+def make_packed(seed, b, q, d, k, device="cpu", loss_type="Arc", form="f32"):
+    """A quad case in the packed layout; ``form`` stores the queue as f32,
+    bf16 or int8 (int8c: int8 with the probes quantised), and ``kw`` then
+    carries the form's ``qscales`` and ``e8``."""
     rng = np.random.default_rng(seed)
     unit = lambda x: (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
     queue = torch.from_numpy(unit(rng.standard_normal((2, q, d)))).to(device)
+    qscales = None
+    if form == "bf16":
+        queue = queue.bfloat16()
+    elif form in ("int8", "int8c"):
+        queue, qscales = quantize_rows(queue)
     dirs = []
     for _ in range(2):
         p = unit(rng.standard_normal((b, d)))
@@ -55,11 +66,14 @@ def make_packed(seed, b, q, d, k, device="cpu", loss_type="Arc"):
         labels[2] = -1
         dirs.append([torch.from_numpy(x).to(device) for x in (p, g, rows, cols, seen, labels)])
     (pa, pb) = dirs
-    packed = ttm.pack_dirs(pa[0], pb[0], ttm.dir_inputs(queue, *pa[1:5]),
-                           ttm.dir_inputs(queue, *pb[1:5]), pa[5], pb[5],
-                           ttm.compute_twin_gt(pa[0], queue, *pa[1:]),
-                           ttm.compute_twin_gt(pb[0], queue, *pb[1:]))
+    packed = ttm.pack_dirs(pa[0], pb[0], ttm.dir_inputs(queue, *pa[1:5], qscales),
+                           ttm.dir_inputs(queue, *pb[1:5], qscales), pa[5], pb[5],
+                           ttm.compute_twin_gt(pa[0], queue, *pa[1:], qscales),
+                           ttm.compute_twin_gt(pb[0], queue, *pb[1:], qscales))
     kw = dict(b=b, loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
+    if form != "f32":
+        kw.update(qscales=None if qscales is None else qscales[0],
+                  e8=quantize_rows(packed[0]) if form == "int8c" else None)
     r = 2 * b
     cot = torch.from_numpy((rng.standard_normal((4, r)) / b).astype(np.float32)).to(device)
     pos = (packed[6] >= 0)[None, :]
@@ -104,8 +118,7 @@ def test_cpu_tensors_never_launch():
     _, _, logz, topk = ttm.quad_fwd(packed[0], queue, *packed[1:], **kw)
     ttm.quad_bwd(packed[0], queue, *packed[1:], logz, topk[:, :, -1].contiguous(), dce, dneg,
                  **kw)
-    assert ttm.LAUNCH_COUNTS == {"quad_fwd": 0, "quad_bwd": 0, "quad_partial_fwd": 0,
-                                 "quad_partial_bwd": 0}
+    assert not any(ttm.LAUNCH_COUNTS.values())
 
 
 def _cuda():
@@ -159,8 +172,8 @@ def test_quad_add_margin_on_card_launches_each_kernel_once():
     (lo_a, lo_b), acc = ttm.quad_add_margin(px, py, queue, ga, gb, pa, pb, la, lb,
                                             with_acc=True, **mk)
     (lo_a + lo_b).backward()
-    assert ttm.LAUNCH_COUNTS == {"quad_fwd": 1, "quad_bwd": 1, "quad_partial_fwd": 0,
-                                 "quad_partial_bwd": 0}
+    assert ttm.LAUNCH_COUNTS == dict(dict.fromkeys(ttm.LAUNCH_COUNTS, 0), quad_fwd=1,
+                                     quad_bwd=1)
     cpu = lambda t: t.detach().cpu()  # noqa: E731
     px_c = cpu(px).requires_grad_(True)
     py_c = cpu(py).requires_grad_(True)
@@ -381,25 +394,26 @@ def test_softmax_kernels_match_plain(loss_type, b, c, d, k, frac_outlier):
                                  "margin_partial_fwd": 0, "margin_partial_bwd": 0}
 
 
-def _build_faulty(tmp_path, faults):
-    """{"real": the built margin_ce library, name: a copy built with that
-    fault's source edit} — the copies compiled in parallel into tmp_path."""
+def _build_faulty(tmp_path, faults, source="margin_ce"):
+    """{"real": the built library of ``csrc/<source>.cu``, name: a copy
+    built with that fault's source edit} — the copies compiled in parallel
+    into tmp_path."""
     from vlsfr_tpu_torch.ops import cuda_build
 
-    src = (cuda_build.CSRC / "margin_ce.cu").read_text()
+    src = (cuda_build.CSRC / f"{source}.cu").read_text()
     procs = {}
     for name, (old, new) in faults.items():
         assert src.count(old) == 1, name
         out = tmp_path / name
         out.mkdir()
         shutil.copy(cuda_build.CSRC / "margin_common.cuh", out)
-        (out / "margin_ce.cu").write_text(src.replace(old, new))
-        procs[name] = cuda_build.start_nvcc(out / "margin_ce.cu", out / "libmargin_ce.so")
-    libs = {"real": tms._lib()}
+        (out / f"{source}.cu").write_text(src.replace(old, new))
+        procs[name] = cuda_build.start_nvcc(out / f"{source}.cu", out / f"lib{source}.so")
+    libs = {"real": cuda_build.load_library(source)}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, log
-        libs[name] = ctypes.CDLL(str(tmp_path / name / "libmargin_ce.so"))
+        libs[name] = ctypes.CDLL(str(tmp_path / name / f"lib{source}.so"))
     return libs
 
 
@@ -674,3 +688,154 @@ def test_pos_rows_kernels_with_minus2_rows_on_every_block(loss_type):
         for c_ in checks:
             print(f"block {j}: {parity.describe(c_)}")
         assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+
+
+# ----------------------------------------------------------------------
+# the quad kernels' bf16, int8 and int8-compute forms
+# ----------------------------------------------------------------------
+
+FORMS = ("bf16", "int8", "int8c")
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_form_plain_versions_are_chunk_invariant(form):
+    """The rounded forms' plain versions over chunks of 64 and of 1024
+    columns (the backward's rounding follows 64-column tiles, so a chunk
+    is a whole number of tiles)."""
+    queue, packed, kw, dce, dneg = make_packed(1, b=8, q=300, d=64, k=4, form=form)
+    E, rest = packed[0], packed[1:]
+    a = ttm.quad_fwd_plain(E, queue, *rest, chunk=64, **kw)
+    b = ttm.quad_fwd_plain(E, queue, *rest, chunk=1024, **kw)
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=2e-5)
+    kth = b[3][:, :, -1].contiguous()
+    g1 = ttm.quad_bwd_plain(E, queue, *rest, b[2], kth, dce, dneg, chunk=64, **kw)
+    g2 = ttm.quad_bwd_plain(E, queue, *rest, b[2], kth, dce, dneg, chunk=1024, **kw)
+    for x, y in zip(g1, g2):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=3e-5)
+
+
+FORM_CASES = [(f, lt, b, q, d, k) for f in FORMS
+              for lt, b, q, d, k in (("Arc", 64, 5000, 128, 10), ("SV", 64, 5000, 128, 10),
+                                     ("AM", 128, 40000, 512, 16))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,loss_type,b,q,d,k", FORM_CASES)
+def test_cuda_form_kernels_match_plain(form, loss_type, b, q, d, k):
+    """Each form's quad_fwd / quad_bwd kernel against its plain version
+    (limits in ``utils/parity.py``), and each launching its own counter."""
+    dev = _cuda()
+    queue, packed, kw, dce, dneg = make_packed(0, b, q, d, k, device=dev, loss_type=loss_type,
+                                               form=form)
+    ttm.reset_launch_counts()
+    checks, _ = parity.quad_checks(queue, packed, kw, dce, dneg)
+    if form == "int8c":
+        checks += parity.int8_dot_checks(*kw["e8"], queue[0], kw["qscales"])
+    torch.cuda.synchronize()
+    for c in checks:
+        print(form, parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("quad_fwd", form)] == 1
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("quad_bwd", form)] == 1
+    assert sum(ttm.LAUNCH_COUNTS.values()) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", FORMS)
+def test_form_partial_kernels_and_merge_match_plain_and_whole(form):
+    dev = _cuda()
+    (ex, ey, queue, ga, gb, pa, pb, la, lb, dce, dneg) = make_shard_case(
+        5, 64, 4096, 128, device=dev, n_shards=4)
+    qs = None
+    if form == "bf16":
+        queue = queue.bfloat16()
+    else:
+        queue, qs = quantize_rows(queue)
+    ttm.reset_launch_counts()
+    checks = parity.quad_shard_checks(ex, ey, queue, ga, gb, pa, pb, la, lb, dce, dneg,
+                                      shard_kw("Arc", k=10), n_shards=4, qscales=qs,
+                                      int8_compute=form == "int8c")
+    torch.cuda.synchronize()
+    for c in checks:
+        print(form, parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("quad_partial_fwd", form)] == 8
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("quad_partial_bwd", form)] == 4
+
+
+@pytest.mark.parametrize("loss_type,b,q,d,k", [("Arc", 64, 5000, 128, 10),
+                                               ("SV", 64, 5000, 128, 10),
+                                               ("AM", 32, 3000, 64, 4)])
+def test_rounded_demb_check_rejects_a_missing_rounding(loss_type, b, q, d, k):
+    """``parity.rounded_demb`` on the plain versions: the bf16 form's d_emb
+    against the same dots on an f32 queue holding the bf16 values (the
+    probes and writes rounded as the bf16 form rounds them), where d_cos is
+    never rounded. The count of rows beyond DEMB_TIGHT × max fails; the
+    all-rows limit of 2^-7 × max alone would pass it."""
+    queue, packed, kw, dce, dneg = make_packed(0, b, q, d, k, loss_type=loss_type, form="bf16")
+    E, rest = packed[0], packed[1:]
+    _, _, logz, topk = ttm.quad_fwd_plain(E, queue, *rest, **kw)
+    kth = topk[:, :, -1].contiguous()
+    d_round, _ = ttm.quad_bwd_plain(E, queue, *rest, logz, kth, dce, dneg, **kw)
+    bf = lambda t: t.bfloat16().float()  # noqa: E731
+    d_unround, _ = ttm.quad_bwd_plain(bf(E), queue.float(), bf(rest[0]), bf(rest[1]), *rest[2:],
+                                      logz, kth, dce, dneg, **kw)
+    count, every_row = parity.rounded_demb("d_emb", d_unround, d_round)
+    assert count["err"] > 4 * count["limit"], parity.describe(count)
+    assert every_row["err"] <= every_row["limit"], parity.describe(every_row)
+    assert not parity.failures(parity.rounded_demb("d_emb", d_round.clone(), d_round))
+
+
+# source edits of quad_margin.cu that the rounded forms' checks must reject
+QUAD_FORM_FAULTS = {
+    # clean tiles: d_cos (× the int8 scale) not rounded to bf16
+    "no_clean_dcos_rounding": ("dq = SCALED ? bf16r(d * sc) : bf16r(d);",
+                               "dq = SCALED ? d * sc : d;"),
+    # bf16 queue, written tiles: each view's d_cos not rounded
+    "bf16_written_unrounded": ("d1 = bf16r(d1);\n              d2 = bf16r(d2);", "(void)0;"),
+    # int8 tile loader: every row reads its first words again
+    "int8_word_offset": ("X[g * words + k0 + kk]", "X[g * words + kk]"),
+}
+
+
+@pytest.mark.gpu
+def test_form_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """The rounded forms' checks (``parity.quad_checks`` with
+    ``rounded_demb``, and ``int8_dot_checks`` for int8c) pass the real
+    kernels and fail a quad_margin.cu that skips the clean tiles' bf16
+    rounding of d_cos (every form), one that skips the bf16 written tiles'
+    (bf16), and one whose int8 loader reads the wrong words (int8c), at
+    Arc, b = 64, Q = 5000, D = 128 and AM, b = 128, Q = 40000, D = 512.
+    Prints each reading. Not planted: Arc / AM's combined clean-tile d_cos
+    replaced by the sum of the two views' — the same function up to f32
+    rounding, which no limit tells from another summation order; the CPU
+    tests hold the plain version's form to the Pallas kernel's."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, QUAD_FORM_FAULTS, source="quad_margin")
+    failed = {}
+    for form in FORMS:
+        for lt, b, q, d, k in (("Arc", 64, 5000, 128, 10), ("AM", 128, 40000, 512, 16)):
+            case = make_packed(3, b, q, d, k, device=dev, loss_type=lt, form=form)
+            queue, kw = case[0], case[2]
+            for name, lib in libs.items():
+                monkeypatch.setitem(cuda_build._LOADED, "quad_margin", lib)
+                checks, _ = parity.quad_checks(*case)
+                if form == "int8c":
+                    checks += parity.int8_dot_checks(*kw["e8"], queue[0], kw["qscales"])
+                torch.cuda.synchronize()
+                for c in checks:
+                    print(f"{name} {form} {lt}: {parity.describe(c)}")
+                failed[name, form, lt] = {c["name"] for c in parity.failures(checks)}
+    rows = f"d_emb rows beyond {parity.DEMB_TIGHT:g} x max"
+    for form in FORMS:
+        for lt in ("Arc", "AM"):
+            assert failed["real", form, lt] == set()
+            assert rows in failed["no_clean_dcos_rounding", form, lt]
+    assert rows in failed["bf16_written_unrounded", "bf16", "Arc"]
+    assert rows in failed["bf16_written_unrounded", "bf16", "AM"]
+    for lt in ("Arc", "AM"):
+        assert {"int8 raw dot (kernel, forward tiles)",
+                "int8 raw dot (kernel, backward tiles)"} <= failed["int8_word_offset", "int8c", lt]

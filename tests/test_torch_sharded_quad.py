@@ -42,6 +42,7 @@ from vlsfr_tpu_torch.parallel.mesh import make_mesh
 from vlsfr_tpu_torch.parallel.sharded_quad import make_sharded_quad_loss
 
 LOSS_TYPES = ("Arc", "AM", "SV")
+INT8C_LOSS_TYPES = ("Arc", "SV")
 LOSS_KW = dict(margin=0.5, scale=24.0, hard_neg=5)  # tests/test_sharded_quad.py's
 T = torch.from_numpy
 
@@ -198,19 +199,24 @@ def _composition_rank(rank, world, store, case_path, out_dir):
         case = dict(np.load(case_path))
         c0, c_local = mesh.class_block(case["queue"].shape[1])
         q_l = T(np.ascontiguousarray(case["queue"][:, c0:c0 + c_local]))
+        q8_l = T(np.ascontiguousarray(case["queue8"][:, c0:c0 + c_local]))
+        s8_l = T(np.ascontiguousarray(case["scales8"][:, c0:c0 + c_local]))
         out = {}
-        for lt in LOSS_TYPES:
+        runs = [(lt, lt, q_l, None, False) for lt in LOSS_TYPES]
+        runs += [(f"int8c-{lt}", lt, q8_l, s8_l, True) for lt in INT8C_LOSS_TYPES]
+        for key, lt, queue, qscales, int8c in runs:
             px = T(case["emb_x"]).requires_grad_(True)
             py = T(case["emb_y"]).requires_grad_(True)
-            fn = make_sharded_quad_loss(mesh, loss_type=lt, with_acc=True, **LOSS_KW)
-            (la, lb), acc = fn(px, py, q_l, T(case["g_a"]), T(case["g_b"]),
+            fn = make_sharded_quad_loss(mesh, loss_type=lt, with_acc=True, int8_compute=int8c,
+                                        **LOSS_KW)
+            (la, lb), acc = fn(px, py, queue, T(case["g_a"]), T(case["g_b"]),
                                tuple(T(case[f"{k}A"]) for k in ("rows", "cols", "seen")),
                                tuple(T(case[f"{k}B"]) for k in ("rows", "cols", "seen")),
-                               T(case["labA"]), T(case["labB"]))
+                               T(case["labA"]), T(case["labB"]), qscales=qscales)
             (la + lb).backward()
-            out.update({f"{lt}/la": la.detach().numpy(), f"{lt}/lb": lb.detach().numpy(),
-                        f"{lt}/acc": acc.numpy(), f"{lt}/gx": px.grad.numpy(),
-                        f"{lt}/gy": py.grad.numpy()})
+            out.update({f"{key}/la": la.detach().numpy(), f"{key}/lb": lb.detach().numpy(),
+                        f"{key}/acc": acc.numpy(), f"{key}/gx": px.grad.numpy(),
+                        f"{key}/gy": py.grad.numpy()})
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         distributed.destroy()
@@ -219,15 +225,21 @@ def _composition_rank(rank, world, store, case_path, out_dir):
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
     """The test_sharded_quad.py case, and every rank's losses and d_emb
-    from 4 spawned gloo ranks (one spawn for the three loss types)."""
+    from 4 spawned gloo ranks (one spawn for the three loss types on the f32
+    queue and for Arc and SV on its int8 form with int8 compute)."""
+    import jax.numpy as jnp
+
     from test_sharded_quad import make_case
+    from vlsfr_tpu.ops.qqueue import quantize_rows
 
     tmp = tmp_path_factory.mktemp("world4")
     case = make_case(np.random.default_rng(0))
     (emb_x, emb_y, queue, g_a, g_b, (rA, cA, sA), (rB, cB, sB), labA, labB) = case
+    queue8, scales8 = (np.asarray(x) for x in quantize_rows(jnp.asarray(queue)))
     path = str(tmp / "case.npz")
     np.savez(path, emb_x=emb_x, emb_y=emb_y, queue=queue, g_a=g_a, g_b=g_b, rowsA=rA, colsA=cA,
-             seenA=sA, rowsB=rB, colsB=cB, seenB=sB, labA=labA, labB=labB)
+             seenA=sA, rowsB=rB, colsB=cB, seenB=sB, labA=labA, labB=labB, queue8=queue8,
+             scales8=scales8)
     _spawn(_composition_rank, 4, str(tmp / "store"), path, str(tmp))
     return case, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(4)]
 
@@ -274,6 +286,47 @@ def test_world4_composition_matches_jax(loss_type, world4):
         for key in ("la", "lb", "acc", "gx", "gy"):  # every rank holds the same result
             np.testing.assert_array_equal(r[f"{loss_type}/{key}"],
                                           ranks[0][f"{loss_type}/{key}"])
+
+
+@pytest.mark.parametrize("loss_type", INT8C_LOSS_TYPES)
+def test_world4_int8c_composition_matches_jax(loss_type, world4):
+    """The int8 queue with int8 compute over 4 gloo ranks against JAX's
+    sharded head on its Pallas partial kernels (interpret mode, the 64-
+    column tile the port's kernels use; each block holds 32 slots, one
+    tile on both sides, so the backward rounds d_cos at the same points):
+    losses rel 1e-4 and d_emb atol 3e-5, as the f32 case above."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from test_sharded_quad import place
+    from vlsfr_tpu.ops.qqueue import quantize_rows
+    from vlsfr_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from vlsfr_tpu.parallel.sharded_quad import make_sharded_quad_loss as j_sharded
+
+    case, ranks = world4
+    q_int, q_s = quantize_rows(jnp.asarray(case[2]))
+    mesh = j_make_mesh(1, 4, devices=jax.devices()[:4])
+    fn = j_sharded(mesh, loss_type=loss_type, margin=0.5, scale=24.0, hard_neg=5, tile=64,
+                   use_pallas=True, interpret=True, int8_compute=True)
+    placed = place(mesh, case)
+    q_l = jax.device_put(q_int, NamedSharding(mesh, P(None, "model", None)))
+    s_l = jax.device_put(q_s, NamedSharding(mesh, P(None, "model")))
+
+    def sharded(ex, ey):
+        return fn(ex, ey, q_l, *placed[3:], qscales=s_l)
+
+    la, lb = jax.jit(sharded)(*placed[:2])
+    gx, gy = jax.jit(jax.grad(lambda ex, ey: sum(sharded(ex, ey)), argnums=(0, 1)))(*placed[:2])
+    key = f"int8c-{loss_type}"
+    for r in ranks:
+        assert float(r[f"{key}/la"]) == pytest.approx(float(la), rel=1e-4)
+        assert float(r[f"{key}/lb"]) == pytest.approx(float(lb), rel=1e-4)
+        np.testing.assert_allclose(r[f"{key}/gx"], np.asarray(gx), atol=3e-5)
+        np.testing.assert_allclose(r[f"{key}/gy"], np.asarray(gy), atol=3e-5)
+        for k in ("la", "lb", "acc", "gx", "gy"):  # every rank holds the same result
+            np.testing.assert_array_equal(r[f"{key}/{k}"], ranks[0][f"{key}/{k}"])
 
 
 @pytest.mark.parametrize("loss_type", LOSS_TYPES)

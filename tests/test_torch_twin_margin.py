@@ -65,9 +65,9 @@ def torch_quad(queue, da, db, kw):
     q, (px, ga, ra, ca, sa, la), (py, gb, rb, cb, sb, lb) = t[0], t[1:7], t[7:]
     px.requires_grad_(True)
     py.requires_grad_(True)
-    out = ttm.QuadMargin.apply(px, py, q, ga, gb, ra, ca, sa, rb, cb, sb, la, lb,
+    out = ttm.QuadMargin.apply(px, py, q, None, ga, gb, ra, ca, sa, rb, cb, sb, la, lb,
                                kw["loss_type"], kw["margin"], kw["scale"], kw["hard_neg"],
-                               kw["mask_svfc"])
+                               kw["mask_svfc"], False)
     return out, px, py
 
 
@@ -217,6 +217,8 @@ def test_wrappers_reject_bad_inputs(rng):
         ttm.quad_fwd(E.double(), *args, k=3, **kw)
     with pytest.raises(ValueError):
         ttm.quad_fwd(E, *args, k=3, **dict(kw, loss_type="Cos"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # an int8 plane without its scales
+        ttm.quad_fwd(E, args[0].to(torch.int8), *args[1:], k=3, **kw)
+    with pytest.raises(ValueError, match="int8_compute requires an int8-stored queue"):
         ttm.quad_add_margin(E[:8], E[8:], torch.from_numpy(queue).bfloat16(), E[:8], E[8:],
-                            args[3:6], args[3:6], args[6][:8], args[6][:8])
+                            args[3:6], args[3:6], args[6][:8], args[6][:8], int8_compute=True)

@@ -16,7 +16,11 @@ One step of the FFC twin network over a host-planned ``StepIndices``:
    holds one block [2, Q/m, D] of the queue;
 4. backward, then direction B's queue write IN PLACE on the [2, Q, D]
    queue (or the rank's block of it) after the backward, which still reads
-   the pre-write queue; last writer wins among duplicate slots;
+   the pre-write queue; last writer wins among duplicate slots. A bf16
+   queue stores the rounded rows; an int8 queue (``pool.queue_dtype=int8``,
+   ops/qqueue.py) stores each written row quantised afresh, with its scale
+   in ``queue_scales`` [2, Q], and with ``pool.queue_int8_compute`` the
+   head's streamed dots run int8 × int8;
 5. lr = schedule(step) × plateau scale, SGD step.
 
 Direction A's writes are never persisted (the reference's rollback pass).
@@ -38,6 +42,7 @@ from torch import nn
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import PassIndices, StepIndices
 from vlsfr_tpu_torch.ops.margin import add_margin, default_hard_neg
+from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 from vlsfr_tpu_torch.ops.twin_margin import quad_add_margin
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
@@ -54,16 +59,55 @@ class FFCState:
     gallery: nn.Module  # EMA copy of the probe; never optimised
     queue: torch.Tensor  # [2, Q, D] L2-normalised rows; on a mesh this rank's [2, Q/m, D] block
     optimizer: torch.optim.Optimizer
+    # [2, Q] (or the rank's [2, Q/m]) per-row dequant scales of an int8
+    # queue (ops/qqueue.py); None for float queues
+    queue_scales: torch.Tensor | None = None
+
+
+QUEUE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+INIT_CHUNK = 1 << 16  # rows per draw of the queue
 
 
 def init_queue(queue_size: int, feat_dim: int, *, device, generator: torch.Generator | None = None,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Uniform[0, 1) rows L2-normalised over features, built in place (one
-    [2, Q, D] allocation: 4.3 GB at 2^20 slots × 512)."""
-    if dtype != torch.float32:
-        raise NotImplementedError("bf16 and int8 queues are not ported yet")
-    x = torch.rand((2, queue_size, feat_dim), generator=generator, device=device)
-    return x.div_(torch.linalg.vector_norm(x, dim=-1, keepdim=True))
+               dtype: torch.dtype = torch.float32, block: tuple[int, int] | None = None):
+    """Uniform[0, 1) rows L2-normalised over features, drawn INIT_CHUNK rows
+    at a time, so no f32 copy of a bf16 or int8 queue exists (42.9 GB at
+    10,485,760 slots × 512, against 10.7 GB int8). Returns ``(queue,
+    scales)``: the [2, Q, D] queue in ``dtype`` and, for int8, its [2, Q]
+    scales (``quantize_rows``; None otherwise). With ``block = (c0, n)``
+    only the slots [c0, c0 + n) are kept, every chunk being drawn all the
+    same, so a block is the queue's slice bit for bit."""
+    c0, n = (0, queue_size) if block is None else block
+    queue = torch.empty((2, n, feat_dim), dtype=dtype, device=device)
+    scales = torch.empty((2, n), device=device) if dtype == torch.int8 else None
+    for lo in range(0, queue_size, INIT_CHUNK):
+        hi = min(queue_size, lo + INIT_CHUNK)
+        x = torch.rand((2, hi - lo, feat_dim), generator=generator, device=device)
+        a, e = max(lo, c0), min(hi, c0 + n)
+        if a >= e:
+            continue
+        x = x[:, a - lo:e - lo]
+        x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        if scales is None:
+            queue[:, a - c0:e - c0] = x.to(dtype)
+        else:
+            queue[:, a - c0:e - c0], scales[:, a - c0:e - c0] = quantize_rows(x)
+    return queue, scales
+
+
+def state_from_jax(queue, scales=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """A JAX state's queue and scales (numpy arrays, from ``np.asarray`` of
+    the JAX arrays) as the port's tensors, dtype kept: a bf16 array
+    carries ml_dtypes' bfloat16, which ``torch.from_numpy`` refuses, so it
+    goes through its uint16 bits."""
+    import numpy as np
+
+    q = np.array(queue)  # a writable copy
+    if q.dtype.name == "bfloat16":
+        t = torch.from_numpy(q.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(q)
+    return t, None if scales is None else torch.from_numpy(np.array(scales))
 
 
 def scatter_mask(seen: torch.Tensor, cols: torch.Tensor, queue_size: int) -> torch.Tensor:
@@ -74,17 +118,26 @@ def scatter_mask(seen: torch.Tensor, cols: torch.Tensor, queue_size: int) -> tor
 
 
 def write_rows_(queue: torch.Tensor, g: torch.Tensor, rows: torch.Tensor,
-                cols: torch.Tensor, col0: int = 0) -> torch.Tensor:
+                cols: torch.Tensor, col0: int = 0, scales: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """``queue[rows, cols] = g`` in place, the highest batch index winning
     among duplicate (row, col) entries — resolved here, over the whole
     plan, because an indexed write with duplicate indices leaves the winner
     undefined on CUDA. ``queue`` may be a block of the queue starting at
-    slot ``col0``: then only the plan's columns inside it are written."""
+    slot ``col0``: then only the plan's columns inside it are written. An
+    int8 queue takes ``quantize_rows(g)`` into its rows and ``scales``,
+    with the same winner for both; a bf16 queue the rounded rows."""
     key = cols.long() * 2 + rows.long()
     later = torch.triu(key[:, None] == key[None, :], diagonal=1).any(dim=1)
     lcol = cols.long() - col0
     keep = torch.nonzero(~later & (lcol >= 0) & (lcol < queue.shape[1])).flatten()
-    queue[rows.long()[keep], lcol[keep]] = g[keep].to(queue.dtype)
+    r, c = rows.long()[keep], lcol[keep]
+    if queue.dtype == torch.int8:
+        q_rows, s_rows = quantize_rows(g[keep])
+        queue[r, c] = q_rows
+        scales[r, c] = s_rows
+    else:
+        queue[r, c] = g[keep].to(queue.dtype)
     return queue
 
 
@@ -131,6 +184,28 @@ def use_sharded_head(cfg: Config) -> bool:
     return use_fused_head(cfg) and (cfg.mesh.model > 1 or cfg.pool.force_sharded)
 
 
+def check_queue_config(cfg: Config) -> None:
+    """JAX's queue configuration errors (``vlsfr_tpu/core/ffc.py``
+    ``make_ffc_loss_fn``), with its messages."""
+    pool = cfg.pool
+    if pool.queue_dtype not in QUEUE_DTYPES:
+        raise ValueError(f"pool.queue_dtype must be one of {sorted(QUEUE_DTYPES)}, "
+                         f"got {pool.queue_dtype!r}")
+    if pool.queue_dtype == "int8" and not use_fused_head(cfg):
+        raise ValueError(
+            "queue_dtype=int8 requires the fused streaming head (the dense "
+            "path materializes blended [Q, D] copies the int8 layout exists "
+            "to avoid) — set pool.use_fused='on' or raise queue_size past "
+            "pool.streaming_threshold")
+    if pool.queue_int8_compute and pool.queue_dtype != "int8":
+        raise ValueError("pool.queue_int8_compute requires pool.queue_dtype='int8'")
+    # checked as JAX checks it; the port's kernels tile by 64 columns
+    # whatever it says (ops/twin_margin.py module docstring)
+    if pool.queue_tile > 0 and pool.queue_size % pool.queue_tile != 0:
+        raise ValueError(f"pool.queue_tile={pool.queue_tile} must divide "
+                         f"pool.queue_size={pool.queue_size}")
+
+
 def make_train_step(cfg: Config, schedule, mesh=None):
     """``step(state, x, y, idx, lr_scale) -> metrics``: runs one FFC step,
     updating ``state`` in place. ``x``/``y`` are NHWC batches (numpy or
@@ -138,22 +213,24 @@ def make_train_step(cfg: Config, schedule, mesh=None):
     (``use_sharded_head``) needs the ``mesh`` (parallel/mesh.py) its state
     was made for."""
     pool = cfg.pool
-    for flag, on in (("pool.queue_dtype != float32", pool.queue_dtype != "float32"),
-                     ("pool.queue_int8_compute", pool.queue_int8_compute),
-                     ("pool.gallery_int8", pool.gallery_int8)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet")
+    if pool.gallery_int8:
+        raise NotImplementedError("pool.gallery_int8 is not ported yet")
+    check_queue_config(cfg)
     hard_neg = pool.hard_neg if pool.hard_neg > 0 else default_hard_neg(pool.queue_size)
     use_quad = use_fused_head(cfg)
     loss_kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
                    hard_neg=hard_neg, mask_svfc=cfg.loss.mask_svfc)
-    col0, quad_loss = 0, functools.partial(quad_add_margin, with_acc=True, **loss_kw)
+    int8_compute = pool.queue_int8_compute
+    col0 = 0
+    quad_loss = functools.partial(quad_add_margin, with_acc=True, int8_compute=int8_compute,
+                                  **loss_kw)
     if use_sharded_head(cfg):
         if mesh is None:
             raise ValueError("the sharded FFC head (mesh.model > 1 or pool.force_sharded) "
                              "needs the mesh: make_train_step(cfg, schedule, mesh)")
         col0, _ = mesh.class_block(pool.queue_size)
-        quad_loss = make_sharded_quad_loss(mesh, with_acc=True, **loss_kw)
+        quad_loss = make_sharded_quad_loss(mesh, with_acc=True, int8_compute=int8_compute,
+                                           **loss_kw)
     elif cfg.mesh.model > 1:
         raise NotImplementedError("mesh.model > 1 with the dense FFC head (pool.use_fused off, "
                                   "or queue_size below pool.streaming_threshold) is not "
@@ -190,7 +267,8 @@ def make_train_step(cfg: Config, schedule, mesh=None):
         if use_quad:
             (loss_a, loss_b), train_acc = quad_loss(
                 p_x, p_y, state.queue, g_y, g_x, (ia.rows, ia.cols, ia.seen),
-                (ib.rows, ib.cols, ib.seen), ia.fake_labels, ib.fake_labels)
+                (ib.rows, ib.cols, ib.seen), ia.fake_labels, ib.fake_labels,
+                qscales=state.queue_scales)
             new_queue = None
         else:
             loss_a, _, acc_a = directional_loss(p_x, g_y, state.queue, ia.rows, ia.cols,
@@ -206,7 +284,7 @@ def make_train_step(cfg: Config, schedule, mesh=None):
         with torch.no_grad():
             if new_queue is None:
                 # the backward is done with the pre-write queue: write in place
-                write_rows_(state.queue, g_x, ib.rows, ib.cols, col0)
+                write_rows_(state.queue, g_x, ib.rows, ib.cols, col0, state.queue_scales)
             else:
                 state.queue = new_queue
             params = list(probe.parameters())
@@ -237,18 +315,23 @@ def make_train_step(cfg: Config, schedule, mesh=None):
 def create_ffc_state(model: nn.Module, cfg: Config, *, device=None, seed: int = 0,
                      mesh=None) -> FFCState:
     """Probe = ``model`` on the device, gallery = its copy, a fresh queue
-    from a generator seeded with ``seed`` and the optimizer. Runs on
-    ``cuda`` unless ``device`` says otherwise; raises without a card. With
-    a ``mesh`` the state keeps this rank's block of the queue: the whole
-    queue is drawn as on one device (so the blocks are its slices, bit for
-    bit) and the rest is freed."""
+    (``pool.queue_dtype``, with its scales when int8) from a generator
+    seeded with ``seed`` and the optimizer. Runs on ``cuda`` unless
+    ``device`` says otherwise; raises without a card. With a ``mesh`` the
+    state keeps this rank's block of the queue: the whole queue is drawn as
+    on one device (so the blocks are its slices, bit for bit) and only the
+    block is kept."""
+    check_queue_config(cfg)
     dev = resolve_device(device)
     probe = model.to(dev)
     gallery = copy.deepcopy(probe).requires_grad_(False)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    queue = init_queue(cfg.pool.queue_size, cfg.model.feat_dim, device=dev, generator=gen)
+    block = None
     if mesh is not None and mesh.model > 1:
-        c0, c_local = mesh.class_block(cfg.pool.queue_size)
-        queue = queue[:, c0:c0 + c_local].clone()
+        block = mesh.class_block(cfg.pool.queue_size)
+    queue, scales = init_queue(cfg.pool.queue_size, cfg.model.feat_dim, device=dev,
+                               generator=gen, dtype=QUEUE_DTYPES[cfg.pool.queue_dtype],
+                               block=block)
     return FFCState(step=0, probe=probe, gallery=gallery, queue=queue,
-                    optimizer=make_optimizer(cfg.optim, probe.parameters()))
+                    optimizer=make_optimizer(cfg.optim, probe.parameters()),
+                    queue_scales=scales)

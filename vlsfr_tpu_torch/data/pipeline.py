@@ -131,8 +131,8 @@ class PairStream:
             )
         perm = self._perm_cache[1]
         chosen = perm[sub_step * b : sub_step * b + b]
-        if len(chosen) < b:
-            chosen = np.concatenate([chosen, perm[: b - len(chosen)]])
+        if len(chosen) < b:  # wrap around, over as many passes as it takes
+            chosen = np.concatenate([chosen, np.resize(perm, b - len(chosen))])
         labels = self.identities[chosen]
         rec1 = np.empty(b, dtype=np.int64)
         rec2 = np.empty(b, dtype=np.int64)

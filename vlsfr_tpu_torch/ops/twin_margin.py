@@ -32,7 +32,38 @@ shard's d_emb partial and its owner-only d_gt.
 
 Around the kernels, as in JAX, plain torch computes the target cosines
 (``compute_twin_gt``), the write values (``dir_inputs``) and the φ'(gt)
-tail of the gradient (``twin_gt_tail``) — all B-row work.
+tail of the gradient (``twin_gt_tail``) — all B-row work, exact f32 on the
+(dequantised) rows.
+
+Queue forms. The kernels take the queue plane as f32, bf16 or int8; an
+int8 plane comes with its per-row scales ``qscales`` [Q] (ops/qqueue.py),
+and the int8-compute form also with the probes quantised per row,
+``e8 = (E8 int8 [R, D], se f32 [R])``. Each rounds where the JAX kernel
+rounds (``vlsfr_tpu/ops/twin_margin.py:_cos_tile``, ``_demb_clean``,
+``_int8_written_cos`` / ``_demb``, ``effective_tile_views``):
+
+* every dot operand that is not int8 is rounded to bf16 — the probes, the
+  write rows G and V — and products accumulate in f32;
+* int8 storage: cos = (bf16(E)·int8) · s_col; int8 compute: cos =
+  f32(E8·int8, an exact int32 sum) · (se_row · s_col);
+* written columns: bf16(E)·bf16(g or v);
+* the backward rounds d_cos to bf16 before its product with the rows (int8
+  queues: bf16(d_cos · s_col)·int8). Within a 64-column tile that holds
+  none of the direction's writes, Arc and AM take d_cos of both views in
+  one combined form (JAX's ``_quad_dir_bwd_shared`` clean tile) and SV the
+  sum of the two views; a tile that holds a write routes each view's
+  d_cos to the row that view scores against, rounding as JAX's written
+  tile does (bf16 queue: each view's d_cos alone; int8: the sum routed to
+  the int8 row, g or v). The f32 form keeps f32 throughout.
+
+The clean / written choice of the backward is made per tile of TILE = 64
+columns, JAX's per tile of its ``queue_tile`` (``pool.queue_tile``; 0, the
+shipped configs' value, picks its own). So the rounding points are JAX's
+exactly where JAX runs at ``queue_tile=64``, as the tests run it; at
+another tile a tile that JAX calls written holds columns that the port
+calls clean, and d_emb differs there by the bf16 rounding of d_cos, up to
+2^-8 of a term. ``pool.queue_tile`` is checked (it must divide the queue)
+and otherwise unused.
 
 The negative stream. Every loss type's logsumexp is split into the
 NON-target columns (streamed, target excluded) and the target term
@@ -59,14 +90,39 @@ from vlsfr_tpu_torch.ops.margin import (
     phi_target,
     sv_boost,
 )
+from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 
 KMAX = 16  # largest hard_neg the kernels keep a register top-k for
-LAUNCH_COUNTS = {"quad_fwd": 0, "quad_bwd": 0, "quad_partial_fwd": 0, "quad_partial_bwd": 0}
+TILE = 64  # columns per kernel tile; the backward's rounding follows it
+FORMS = ("f32", "bf16", "int8", "int8c")
+KERNELS = ("quad_fwd", "quad_bwd", "quad_partial_fwd", "quad_partial_bwd")
+
+
+def kernel_name(kernel: str, form: str) -> str:
+    """The launch counter of one form of a kernel: ``quad_fwd`` (f32),
+    ``quad_fwd[bf16]``, ``quad_fwd[int8]``, ``quad_fwd[int8c]``."""
+    return kernel if form == "f32" else f"{kernel}[{form}]"
+
+
+LAUNCH_COUNTS = {kernel_name(k, f): 0 for k in KERNELS for f in FORMS}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCH_COUNTS:
         LAUNCH_COUNTS[name] = 0
+
+
+def queue_form(plane: torch.Tensor, e8=None) -> str:
+    """The kernel form a queue plane's dtype (and the int8-compute probes)
+    selects."""
+    if plane.dtype == torch.int8:
+        return "int8" if e8 is None else "int8c"
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}.get(plane.dtype, "?")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest, ties to even), kept in f32."""
+    return x.to(torch.bfloat16).float()
 
 
 # ----------------------------------------------------------------------
@@ -109,36 +165,47 @@ def effective_rows(w0, w1, col_ids, g, rows, cols, seen):
     return w0_eff, torch.where(hit[:, None], w1_eff, w0_eff)
 
 
-def _label_rows(queue, g, rows, cols, seen, labels):
+def plane_rows(queue, qscales, plane: int, idx):
+    """f32 rows ``idx`` of one queue plane — a B-row gather; the planes are
+    never copied — dequantised with their scales for an int8 queue
+    (``qscales`` [2, Q]; None for float queues)."""
+    r = queue[plane][idx].float()
+    if qscales is not None:
+        r = r * qscales[plane][idx].float()[:, None]
+    return r
+
+
+def _label_rows(queue, g, rows, cols, seen, labels, qscales=None):
     safe = labels.clamp(min=0).long()
-    r0 = queue[0][safe].float()  # B-row gathers; the planes are never copied
-    r1 = queue[1][safe].float()
+    r0 = plane_rows(queue, qscales, 0, safe)
+    r1 = plane_rows(queue, qscales, 1, safe)
     return effective_rows(r0, r1, safe, g.float(), rows.long(), cols.long(), seen.float())
 
 
-def compute_twin_gt(emb, queue, g, rows, cols, seen, labels):
+def compute_twin_gt(emb, queue, g, rows, cols, seen, labels, qscales=None):
     """(gt1, gt2): target cosines against both effective views."""
-    r0_eff, rb_eff = _label_rows(queue, g, rows, cols, seen, labels)
+    r0_eff, rb_eff = _label_rows(queue, g, rows, cols, seen, labels, qscales)
     e = emb.float()
     return (e * r0_eff).sum(-1), (e * rb_eff).sum(-1)
 
 
 def twin_gt_tail(emb, queue, g, rows, cols, seen, labels, gt1, gt2, dgt1, dgt2, d_emb,
-                 loss_type, margin):
+                 loss_type, margin, qscales=None):
     """Route the φ'(gt)·d_gt paths into d_emb via the effective label rows."""
-    r0_eff, rb_eff = _label_rows(queue, g, rows, cols, seen, labels)
+    r0_eff, rb_eff = _label_rows(queue, g, rows, cols, seen, labels, qscales)
     pos = (labels >= 0).float()[:, None]
     d_emb = d_emb + (dgt1 * phi_prime(gt1, loss_type, margin))[:, None] * r0_eff * pos
     d_emb = d_emb + (dgt2 * phi_prime(gt2, loss_type, margin))[:, None] * rb_eff * pos
     return d_emb.to(emb.dtype)
 
 
-def dir_inputs(queue, g, rows, cols, seen):
+def dir_inputs(queue, g, rows, cols, seen, qscales=None):
     """(g32, rows_i, cols_i, v, blend) carrier pack for one direction."""
     cols_i = cols.to(torch.int32)
     rows_i = rows.to(torch.int32)
     g32 = g.float()
-    v, blend = twin_write_values(queue[1][cols_i.long()], g32, rows_i, cols_i, seen.float())
+    v, blend = twin_write_values(plane_rows(queue, qscales, 1, cols_i.long()), g32, rows_i,
+                                 cols_i, seen.float())
     return g32, rows_i, cols_i, v, blend
 
 
@@ -184,6 +251,21 @@ def _chunk_writers(rows, cols, blend, bp, lo, hi):
     return last0, lastb
 
 
+def _tile_hits(cols, bp, lo, hi):
+    """[2, hi - lo] bool: whether the TILE-column tile (aligned to the
+    block's first column) that holds each column of [lo, hi) holds a write
+    of the direction, whatever its parity and blend (JAX's per-tile
+    ``tile_hit``). ``lo`` is a multiple of TILE."""
+    n = hi - lo
+    n_t = -(-n // TILE)
+    hit = torch.zeros((2, n_t), dtype=torch.bool, device=cols.device)
+    for d in range(2):
+        c = cols[d * bp:(d + 1) * bp].long() - lo
+        c = c[(c >= 0) & (c < n) & (cols[d * bp:(d + 1) * bp] >= 0)]
+        hit[d, c // TILE] = True
+    return hit.repeat_interleave(TILE, dim=1)[:, :n]
+
+
 def _written_cos(cos, E, G, V, last0, lastb, b, bp):
     """(view-1 cos, view-2 cos) of one chunk: written columns are replaced
     by the probe's dots with the written rows (g, or v for blend slots).
@@ -203,33 +285,66 @@ def _written_cos(cos, E, G, V, last0, lastb, b, bp):
     return c1, c2
 
 
+def _dot_operands(E, G, V, q0):
+    """The probe and write rows as the dots read them: as given on an f32
+    queue, rounded to bf16 on every other form."""
+    if q0.dtype == torch.float32:
+        return E, G, V
+    return _bf16(E), _bf16(G), _bf16(V)
+
+
+def _clean_cos(E, w, s, e8):
+    """[R, n] cosines of the (operand-rounded) probes against the stored
+    rows ``w`` [n, D]: int8 rows are scaled per column after the dot
+    (``s``); int8 compute dots the quantised probes (an exact integer sum
+    in f32: |products| <= 127², sums < 2^24 at D <= 1024)."""
+    wf = w.float()
+    if e8 is not None:
+        return (e8[0].float() @ wf.T) * (e8[1][:, None] * s[None, :])
+    cos = E @ wf.T
+    return cos if s is None else cos * s[None, :]
+
+
+def _check_form(q0, qscales, e8):
+    form = queue_form(q0, e8)
+    if form == "?":
+        raise ValueError(f"the queue plane must be float32, bfloat16 or int8, got {q0.dtype}")
+    if (form in ("int8", "int8c")) != (qscales is not None):
+        raise ValueError("an int8 queue plane takes its scales (qscales), a float one none")
+    return form
+
+
 def quad_fwd_plain(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, margin,
-                   scale, k, mask_svfc, chunk=32768):
+                   scale, k, mask_svfc, qscales=None, e8=None, chunk=32768):
     """Plain PyTorch version of the forward kernel; same inputs and outputs
     as ``quad_fwd``."""
     m, s, topk = quad_partial_fwd_plain(E, q[0], G, V, rows, cols, blend, labels, gt, b=b, bp=b,
                                         loss_type=loss_type, margin=margin, scale=scale, k=k,
-                                        mask_svfc=mask_svfc, chunk=chunk)
+                                        mask_svfc=mask_svfc, qscales=qscales, e8=e8,
+                                        chunk=chunk)
     return finalize_fwd(m, s, topk, labels, gt, loss_type=loss_type, margin=margin, scale=scale)
 
 
 def quad_partial_fwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_type,
-                           margin, scale, k, mask_svfc, chunk=32768):
+                           margin, scale, k, mask_svfc, qscales=None, e8=None, chunk=32768):
     """Plain PyTorch version of the partial forward kernel: the running
     (max, sumexp) of the target-excluded z and the top-k cosines of each
     (view, row) over the columns of ``q0`` [Q, D]; ``quad_partial_fwd``'s
     inputs and outputs. (−inf, 0) where a row has no column."""
+    _check_form(q0, qscales, e8)
     r_, _ = E.shape
     n_q = q0.shape[0]
     dev = E.device
+    Eo, Go, Vo = _dot_operands(E, G, V, q0)
     m = torch.full((2, r_), -math.inf, device=dev)
     s = torch.zeros((2, r_), device=dev)
     topk = torch.full((2, r_, k), NEG_INF, device=dev)
     for lo in range(0, n_q, chunk):
         hi = min(n_q, lo + chunk)
-        cos = E @ q0[lo:hi].float().T
+        sc = None if qscales is None else qscales[lo:hi]
+        cos = _clean_cos(Eo, q0[lo:hi], sc, e8)
         last0, lastb = _chunk_writers(rows, cols, blend, bp, lo, hi)
-        views = _written_cos(cos, E, G, V, last0, lastb, b, bp)
+        views = _written_cos(cos, Eo, Go, Vo, last0, lastb, b, bp)
         neg_ok = torch.arange(lo, hi, device=dev)[None, :] != labels[:, None].long()
         for v, cv in enumerate(views):
             mod = sv_boost(cv, gt[v][:, None], margin, mask_svfc)[0] if loss_type == "SV" else cv
@@ -267,41 +382,99 @@ def _dcos(c, gt_col, logz, kth, dce, dneg, pos, *, loss_type, margin, scale, k, 
     return d + torch.where(in_topk, dneg / k, torch.zeros_like(d))
 
 
+def _combined_dcos(cos, logz, kth, dce, dneg, *, scale, k):
+    """Arc / AM: d_cos of both views of a column that neither view
+    overrides, in one form (JAX's ``_quad_dir_bwd_shared`` clean tile):
+    exp(z − ref)·c12 plus each view's hard-negative term, z = scale·cos,
+    ref = min(logz1, logz2)."""
+    ref = torch.minimum(logz[0], logz[1])[:, None]
+    c12 = (dce[0][:, None] * torch.exp(ref - logz[0][:, None])
+           + dce[1][:, None] * torch.exp(ref - logz[1][:, None])) * scale
+    z = scale * cos
+    dc = torch.exp(z - ref) * c12
+    inv_k = _f32(1.0 / k)
+    for v in range(2):
+        zthr = torch.clamp(scale * (kth[v] - KTH_TIE_TOL), min=1e-20)[:, None]
+        dc = dc + torch.where(z >= zthr, (dneg[v] * inv_k)[:, None], torch.zeros_like(dc))
+    return dc
+
+
 def quad_bwd_plain(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b,
-                   loss_type, margin, scale, k, mask_svfc, chunk=32768):
+                   loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None, chunk=32768):
     """Plain PyTorch version of the backward kernel; same inputs and
     outputs as ``quad_bwd``."""
     return quad_partial_bwd_plain(E, q[0], G, V, rows, cols, blend, labels, gt, logz, kth, dce,
                                   dneg, b=b, bp=b, loss_type=loss_type, margin=margin,
-                                  scale=scale, k=k, mask_svfc=mask_svfc, chunk=chunk)
+                                  scale=scale, k=k, mask_svfc=mask_svfc, qscales=qscales, e8=e8,
+                                  chunk=chunk)
+
+
+def _demb_coefs(d1, d2, o0, ob, hit, clean, s):
+    """One direction's d_cos coefficients of a chunk on a bf16 or int8
+    plane (module docstring): (to the stored rows, to the parity-0 writes
+    g, to the blend writes v), each rounded to bf16 as the JAX kernel
+    rounds it. ``o0`` / ``ob``: the column is overridden in view 1 / view
+    2; ``hit``: its tile holds a write of the direction; ``clean``: the
+    combined d_cos of a clean tile; ``s``: int8 column scales or None."""
+    zero = torch.zeros_like(d1)
+    if s is None:  # bf16: each view's d_cos rounded alone
+        r1, r2 = _bf16(d1), _bf16(d2)
+        a = torch.where(ob, r1, r1 + r2)  # view 2 reads view 1's row
+        cq = torch.where(hit, torch.where(o0, zero, a), _bf16(clean))
+        return cq, torch.where(o0, a, zero), torch.where(ob, r2, zero)
+    a = torch.where(ob, d1, d1 + d2)
+    cq = _bf16(torch.where(hit, torch.where(o0, zero, a), clean) * s[None, :])
+    return cq, _bf16(torch.where(o0, a, zero)), _bf16(torch.where(ob, d2, zero))
 
 
 def quad_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
-                           b, bp, loss_type, margin, scale, k, mask_svfc, chunk=32768):
+                           b, bp, loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None,
+                           chunk=32768):
     """Plain PyTorch version of the partial backward kernel: d_emb over the
     columns of ``q0`` and d_gt where the (shard-local) label is ≥ 0;
     ``quad_partial_bwd``'s inputs and outputs."""
+    form = _check_form(q0, qscales, e8)
+    if form != "f32" and chunk % TILE:
+        raise ValueError(f"chunk={chunk} must be a multiple of the {TILE}-column tile")
     r_, d_ = E.shape
     n_q = q0.shape[0]
     dev = E.device
+    Eo, Go, Vo = _dot_operands(E, G, V, q0)
     d_emb = torch.zeros((r_, d_), device=dev)
     pos = (labels >= 0)[:, None]
     kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
     for lo in range(0, n_q, chunk):
         hi = min(n_q, lo + chunk)
         w = q0[lo:hi].float()
+        sc = None if qscales is None else qscales[lo:hi]
+        cos = _clean_cos(Eo, w, sc, e8)
         last0, lastb = _chunk_writers(rows, cols, blend, bp, lo, hi)
-        c1, c2 = _written_cos(E @ w.T, E, G, V, last0, lastb, b, bp)
+        c1, c2 = _written_cos(cos, Eo, Go, Vo, last0, lastb, b, bp)
         neg_ok = torch.arange(lo, hi, device=dev)[None, :] != labels[:, None].long()
         dc = [torch.where(neg_ok,
                           _dcos(cv, gt[v][:, None], logz[v][:, None], kth[v][:, None],
                                 dce[v][:, None], dneg[v][:, None], pos, **kw),
                           torch.zeros_like(cv))
               for v, cv in enumerate((c1, c2))]
+        if form != "f32":
+            if loss_type == "SV":
+                clean = dc[0] + dc[1]
+            else:
+                clean = torch.where(neg_ok, _combined_dcos(cos, logz, kth, dce, dneg,
+                                                           scale=scale, k=k),
+                                    torch.zeros_like(cos))
+            hits = _tile_hits(cols, bp, lo, hi)
         for d in range(2):
             rs, ws = slice(d * b, (d + 1) * b), slice(d * bp, (d + 1) * bp)
             j0 = torch.nonzero(last0[d] >= 0).flatten()
             jb = torch.nonzero(lastb[d] >= 0).flatten()
+            if form != "f32":
+                cq, cg, cv = _demb_coefs(dc[0][rs], dc[1][rs], (last0[d] >= 0)[None, :],
+                                         (lastb[d] >= 0)[None, :], hits[d][None, :],
+                                         clean[rs], sc)
+                d_emb[rs] += (cq @ w + cg[:, j0] @ Go[ws][last0[d, j0]]
+                              + cv[:, jb] @ Vo[ws][lastb[d, jb]])
+                continue
             if not (j0.numel() or jb.numel()):
                 d_emb[rs] += (dc[0][rs] + dc[1][rs]) @ w
                 continue
@@ -321,7 +494,7 @@ def quad_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth
 # ----------------------------------------------------------------------
 
 _LOSS_CODE = {"AM": 0, "Arc": 1, "SV": 2}
-_F_TC = 64  # columns per tile of both kernels
+_FORM_CODE = {form: i for i, form in enumerate(FORMS)}
 _B_RB = 32  # rows per backward block (row group)
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [
@@ -332,6 +505,7 @@ _FWD_ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, bp, R, k
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,  # loss, margin, scale, svfc
     ctypes.c_float, ctypes.c_float,  # cos(margin), sin(margin)
+    _P, _P, _P, ctypes.c_int,  # int8 column scales [Q], E8 [R, D], se [R]; the form
 ]
 
 
@@ -349,6 +523,8 @@ def _lib():
             _P, ctypes.c_int, ctypes.c_longlong,  # part, nchunk, cols_per_chunk
             _P, _P, _P]  # d_emb, dgt, stream
         lib.quad_bwd_launch.restype = ctypes.c_int
+        lib.quad_clean_cos_launch.argtypes = _FWD_ARGTYPES + [ctypes.c_int, _P, _P]
+        lib.quad_clean_cos_launch.restype = ctypes.c_int
         lib.quad_error_string.argtypes = [ctypes.c_int]
         lib.quad_error_string.restype = ctypes.c_char_p
         lib._vlsfr_typed = True
@@ -366,10 +542,12 @@ def _check_queue(q, d_):
         raise ValueError(f"queue must be [2, Q, {d_}], got {tuple(q.shape)}")
 
 
-def _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, extra=()):
+def _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
+                  qscales=None, e8=None, extra=()) -> str:
     """Types, shapes, device and (for the card) contiguity of the packed
     inputs: ``q0`` is the streamed queue plane [Q, D], b probes and bp
-    writes per direction."""
+    writes per direction; an int8 plane's ``qscales`` [Q] and the
+    int8-compute probes ``e8``. Returns the form."""
     if loss_type not in LOSS_TYPES:
         raise ValueError(f"loss_type must be AM | Arc | SV, got {loss_type!r}")
     r_, d_ = E.shape
@@ -379,19 +557,26 @@ def _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_typ
         raise ValueError(f"the queue plane must be [Q, {d_}], got {tuple(q0.shape)}")
     if not 1 <= k <= KMAX:
         raise ValueError(f"hard_neg k={k} outside [1, {KMAX}]")
+    form = _check_form(q0, qscales, e8)
     rw = 2 * bp
+    opt = []
+    if qscales is not None:
+        opt.append(("qscales", qscales, torch.float32, (q0.shape[0],)))
+    if e8 is not None:
+        opt += [("E8", e8[0], torch.int8, (r_, d_)), ("se", e8[1], torch.float32, (r_,))]
     for name, t, dt, shape in (
-            ("E", E, torch.float32, (r_, d_)), ("queue", q0, torch.float32, tuple(q0.shape)),
+            ("E", E, torch.float32, (r_, d_)), ("queue", q0, q0.dtype, tuple(q0.shape)),
             ("G", G, torch.float32, (rw, d_)), ("V", V, torch.float32, (rw, d_)),
             ("rows", rows, torch.int32, (rw,)), ("cols", cols, torch.int32, (rw,)),
             ("blend", blend, torch.int32, (rw,)), ("labels", labels, torch.int32, (r_,)),
-            ("gt", gt, torch.float32, (2, r_)), *extra):
+            ("gt", gt, torch.float32, (2, r_)), *opt, *extra):
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected {dt} {shape}, got {t.dtype} {tuple(t.shape)}")
         if t.device != E.device:
             raise ValueError(f"{name} is on {t.device}, E on {E.device}")
         if E.is_cuda and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return form
 
 
 def _bwd_vectors(E, logz, kth, dce, dneg):
@@ -409,22 +594,30 @@ def _cuda_shape_limits(E, b):
 
 
 def _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
-                 scale, mask_svfc):
-    return (q0.data_ptr(), q0.shape[0], E.shape[1], E.data_ptr(), G.data_ptr(), V.data_ptr(),
+                 scale, mask_svfc, qscales, e8):
+    """The launch entries' leading arguments. E, G and V go to the kernel
+    as its dots read them (``_dot_operands``); returns the tensors that
+    must outlive the launch, and the arguments."""
+    Eo, Go, Vo = _dot_operands(E, G, V, q0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    e8q, e8s = (None, None) if e8 is None else e8
+    args = (q0.data_ptr(), q0.shape[0], E.shape[1], Eo.data_ptr(), Go.data_ptr(), Vo.data_ptr(),
             rows.data_ptr(), cols.data_ptr(), blend.data_ptr(), labels.data_ptr(),
             gt.data_ptr(), b, bp, E.shape[0], k, _LOSS_CODE[loss_type], margin, scale,
-            mask_svfc, _f32(math.cos(margin)), _f32(math.sin(margin)))
+            mask_svfc, _f32(math.cos(margin)), _f32(math.sin(margin)), ptr(qscales), ptr(e8q),
+            ptr(e8s), _FORM_CODE[queue_form(q0, e8)])
+    return (Eo, Go, Vo), args
 
 
 def _split_columns(n_q, n_parts):
     """(parts, columns per part): a tile-multiple split of [0, Q)."""
-    tiles = -(-n_q // _F_TC)
-    per = -(-tiles // max(min(n_parts, tiles), 1)) * _F_TC
+    tiles = -(-n_q // TILE)
+    per = -(-tiles // max(min(n_parts, tiles), 1)) * TILE
     return -(-n_q // per), per
 
 
 def _fwd_launch(entry, n_vec, E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_type,
-                margin, scale, k, mask_svfc):
+                margin, scale, k, mask_svfc, qscales, e8):
     """Launch ``entry`` (the forward or its partial form): the block pass
     over q0, then the merge. Returns n_vec [2, R] outputs and topk [2, R, k]."""
     _cuda_shape_limits(E, b)
@@ -436,16 +629,16 @@ def _fwd_launch(entry, n_vec, E, q0, G, V, rows, cols, blend, labels, gt, *, b, 
     vecs = [torch.empty((2, r_), device=E.device) for _ in range(n_vec)]
     topk = torch.empty((2, r_, k), device=E.device)
     stream = torch.cuda.current_stream(E.device).cuda_stream
-    err = getattr(lib, entry)(
-        *_common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
-                      scale, mask_svfc),
-        part.data_ptr(), nblk, per, *(v.data_ptr() for v in vecs), topk.data_ptr(), stream)
+    _keep, args = _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
+                               margin, scale, mask_svfc, qscales, e8)
+    err = getattr(lib, entry)(*args, part.data_ptr(), nblk, per,
+                              *(v.data_ptr() for v in vecs), topk.data_ptr(), stream)
     _check(lib, err, entry)
     return (*vecs, topk)
 
 
 def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b, bp,
-                loss_type, margin, scale, k, mask_svfc):
+                loss_type, margin, scale, k, mask_svfc, qscales, e8):
     _cuda_shape_limits(E, b)
     lib = _lib()
     r_ = E.shape[0]
@@ -456,95 +649,109 @@ def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg
     d_emb = torch.empty_like(E)
     dgt = torch.empty((2, r_), device=E.device)
     stream = torch.cuda.current_stream(E.device).cuda_stream
-    err = lib.quad_bwd_launch(
-        *_common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
-                      scale, mask_svfc),
-        logz.data_ptr(), kth.data_ptr(), dce.data_ptr(), dneg.data_ptr(),
-        part.data_ptr(), nchunk, per, d_emb.data_ptr(), dgt.data_ptr(), stream)
+    _keep, args = _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
+                               margin, scale, mask_svfc, qscales, e8)
+    err = lib.quad_bwd_launch(*args, logz.data_ptr(), kth.data_ptr(), dce.data_ptr(),
+                              dneg.data_ptr(), part.data_ptr(), nchunk, per, d_emb.data_ptr(),
+                              dgt.data_ptr(), stream)
     _check(lib, err, "quad_bwd")
     return d_emb, dgt
 
 
 def quad_fwd(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, margin, scale, k,
-             mask_svfc):
+             mask_svfc, qscales=None, e8=None):
     """Streaming forward of both directions × both views over q0.
 
-    Returns (ce, neg, logz) [2, R] and topk [2, R, k] (view-major).
+    Returns (ce, neg, logz) [2, R] and topk [2, R, k] (view-major). ``q``
+    is f32, bf16 or int8; an int8 queue takes plane 0's scales ``qscales``
+    [Q], and the int8-compute form also ``e8`` (module docstring).
 
     Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_quad_fwd``. Bound on an
-    H100 at the slice shapes (R = 256, D = 512, Q = 2^20): 2·R·D·Q =
+    H100 at the slice shapes (R = 256, D = 512, Q = 2^20, f32): 2·R·D·Q =
     2.75e11 FLOP of f32 dot products over 2.15 GB of q0 — compute-bound at
     the 67 TFLOP/s f32 rate (~4.1 ms) rather than at 3.35 TB/s (~0.64 ms).
+    The other forms' bounds take the tensor cores' dense rates (989
+    TFLOP/s bf16, 1,979 TOPS int8) the TPU kernel's matrix unit stands for:
+    int8 compute at Q = 10,485,760 is HBM-bound (5.37 GB, ~1.6 ms).
     Design (csrc/quad_margin.cu): one block per contiguous column range
     reads each q0 tile once for all 2b probe rows, keeps per-row running
     (max, sumexp) and a register top-k, and writes a per-block partial;
     a second launch merges the partials in a fixed order (deterministic).
+    The forms differ in the tile loader and the dot (f32 FMA over
+    bf16-rounded operands, exact in f32; int8 ``__dp4a`` into int32).
     """
     _check_queue(q, E.shape[1])
-    _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type)
-    kw = dict(b=b, loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
+    form = _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type,
+                         qscales, e8)
+    kw = dict(b=b, loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc,
+              qscales=qscales, e8=e8)
     if not E.is_cuda:
         return quad_fwd_plain(E, q, G, V, rows, cols, blend, labels, gt, **kw)
     out = _fwd_launch("quad_fwd_launch", 3, E, q[0], G, V, rows, cols, blend, labels, gt, bp=b,
                       **kw)
-    LAUNCH_COUNTS["quad_fwd"] += 1
+    LAUNCH_COUNTS[kernel_name("quad_fwd", form)] += 1
     return out
 
 
 def quad_bwd(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b,
-             loss_type, margin, scale, k, mask_svfc):
+             loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None):
     """Streaming backward: re-streams q0 and returns (d_emb [R, D] — the
     q0/g/v paths, before the φ'(gt) tail — and d_gt [2, R]). ``dce`` /
-    ``dneg`` come pre-masked (0 on outlier / positive rows).
+    ``dneg`` come pre-masked (0 on outlier / positive rows). Forms as
+    ``quad_fwd``'s.
 
     Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_quad_bwd``. Bound on an
-    H100 at the slice shapes: 2 × 2.75e11 FLOP (cosine recompute + the
-    d_cos @ q0 product) ≈ 8.2 ms at the 67 TFLOP/s f32 rate; q0's 2.15 GB
-    read once is 0.64 ms. Design: each block owns 32 probe rows × one
-    column range, so its d_emb partial [32, D] lives in registers; the row
-    groups of one column range are adjacent in launch order and share the
-    q0 tile through L2. A second launch sums the partials in a fixed
-    order — no float atomics, bit-stable run to run.
+    H100 at the slice shapes (f32): 2 × 2.75e11 FLOP (cosine recompute +
+    the d_cos @ q0 product) ≈ 8.2 ms at the 67 TFLOP/s f32 rate; q0's
+    2.15 GB read once is 0.64 ms. Design: each block owns 32 probe rows ×
+    one column range, so its d_emb partial [32, D] lives in registers; the
+    row groups of one column range are adjacent in launch order and share
+    the q0 tile through L2. A second launch sums the partials in a fixed
+    order — no float atomics, bit-stable run to run. The recompute runs the
+    forward's operation chain, so the top-k tie test sees the same bits.
     """
     _check_queue(q, E.shape[1])
-    _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type,
-                  extra=_bwd_vectors(E, logz, kth, dce, dneg))
-    kw = dict(b=b, loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
+    form = _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type,
+                         qscales, e8, extra=_bwd_vectors(E, logz, kth, dce, dneg))
+    kw = dict(b=b, loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc,
+              qscales=qscales, e8=e8)
     if not E.is_cuda:
         return quad_bwd_plain(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg,
                               **kw)
     out = _bwd_launch(E, q[0], G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, bp=b,
                       **kw)
-    LAUNCH_COUNTS["quad_bwd"] += 1
+    LAUNCH_COUNTS[kernel_name("quad_bwd", form)] += 1
     return out
 
 
 def quad_partial_fwd(E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_type, margin,
-                     scale, k, mask_svfc):
-    """One shard's forward over its block's plane 0 ``q0`` [Q/m, D], with
-    shard-local cols / labels (module docstring), b probes and bp writes
-    per direction and the GLOBAL gt. Returns (m, s) [2, R] and topk
-    [2, R, k]: each (view, row)'s negative-stream state, target excluded on
-    its owner, for ``parallel/_shard_common.merge_partials``.
+                     scale, k, mask_svfc, qscales=None, e8=None):
+    """One shard's forward over its block's plane 0 ``q0`` [Q/m, D] (with
+    its scales ``qscales`` [Q/m] when int8), with shard-local cols / labels
+    (module docstring), b probes and bp writes per direction and the
+    GLOBAL gt. Returns (m, s) [2, R] and topk [2, R, k]: each (view, row)'s
+    negative-stream state, target excluded on its owner, for
+    ``parallel/_shard_common.merge_partials``.
 
     Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_quad_partial_fwd``.
-    Bound as ``quad_fwd``'s over the block: 2·R·D·Q/m FLOP (4.1 ms at
+    Bound as ``quad_fwd``'s over the block: 2·R·D·Q/m FLOP (f32: 4.1 ms at
     Q/m = 2^20, 1.0 ms at 2^18). Design: ``quad_fwd``'s block pass, then a
     merge of the block partials in block order without the finalize.
     """
-    _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type)
+    form = _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
+                         qscales, e8)
     kw = dict(b=b, bp=bp, loss_type=loss_type, margin=margin, scale=scale, k=k,
-              mask_svfc=mask_svfc)
+              mask_svfc=mask_svfc, qscales=qscales, e8=e8)
     if not E.is_cuda:
         return quad_partial_fwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, **kw)
     out = _fwd_launch("quad_partial_fwd_launch", 2, E, q0, G, V, rows, cols, blend, labels, gt,
                       **kw)
-    LAUNCH_COUNTS["quad_partial_fwd"] += 1
+    LAUNCH_COUNTS[kernel_name("quad_partial_fwd", form)] += 1
     return out
 
 
 def quad_partial_bwd(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b,
-                     bp, loss_type, margin, scale, k, mask_svfc):
+                     bp, loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None):
     """One shard's backward over its block's plane 0 ``q0``, fed the GLOBAL
     logz, kth and cotangents (``dce`` zero on outlier rows, ``dneg`` on
     every globally positive row). Returns the shard's d_emb partial [R, D]
@@ -553,18 +760,43 @@ def quad_partial_bwd(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce,
     global d_gt.
 
     Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_quad_partial_bwd``.
-    Bound: 4·R·D·Q/m FLOP (8.2 ms at Q/m = 2^20, 2.1 ms at 2^18). Design:
-    ``quad_bwd``'s kernels over the block.
+    Bound: 4·R·D·Q/m FLOP (f32: 8.2 ms at Q/m = 2^20, 2.1 ms at 2^18).
+    Design: ``quad_bwd``'s kernels over the block.
     """
-    _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
-                  extra=_bwd_vectors(E, logz, kth, dce, dneg))
+    form = _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
+                         qscales, e8, extra=_bwd_vectors(E, logz, kth, dce, dneg))
     kw = dict(b=b, bp=bp, loss_type=loss_type, margin=margin, scale=scale, k=k,
-              mask_svfc=mask_svfc)
+              mask_svfc=mask_svfc, qscales=qscales, e8=e8)
     if not E.is_cuda:
         return quad_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth,
                                       dce, dneg, **kw)
     out = _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, **kw)
-    LAUNCH_COUNTS["quad_partial_bwd"] += 1
+    LAUNCH_COUNTS[kernel_name("quad_partial_bwd", form)] += 1
+    return out
+
+
+def clean_cos(E, q0, *, qscales=None, e8=None, bwd_tiles: bool = False):
+    """[R, Q] cosines of the probes ``E`` [R, D] against the plane ``q0``
+    [Q, D] as the kernels' clean tiles form them (no writes, no targets),
+    with the forward's tiling or, with ``bwd_tiles``, the backward's
+    recompute. A parity probe that exposes the dot both kernels share; no
+    training path calls it. CPU tensors: the plain version (``_clean_cos``
+    on the form's dot operands)."""
+    _check_form(q0, qscales, e8)
+    r_ = E.shape[0]
+    if not E.is_cuda:
+        return _clean_cos(_dot_operands(E, E, E, q0)[0], q0, qscales, e8)
+    if r_ > 256:
+        raise ValueError(f"the kernels' tiles take up to 256 probe rows, got {r_}")
+    lib = _lib()
+    idx = torch.zeros(2, dtype=torch.int32, device=E.device)  # no writes, no labels read
+    gt = torch.zeros((2, r_), device=E.device)
+    _keep, args = _common_args(E, q0, E, E, idx, idx, idx, idx, gt, max(r_ // 2, 1), 1, 1, "Arc",
+                               0.5, 1.0, 1.0, qscales, e8)
+    out = torch.empty((r_, q0.shape[0]), device=E.device)
+    err = lib.quad_clean_cos_launch(*args, int(bwd_tiles), out.data_ptr(),
+                                    torch.cuda.current_stream(E.device).cuda_stream)
+    _check(lib, err, "quad_clean_cos")
     return out
 
 
@@ -587,24 +819,29 @@ def pack_dirs(emb_x, emb_y, dir_a, dir_b, labels_a, labels_b, gts_a, gts_b):
 class QuadMargin(torch.autograd.Function):
     """Both FFC directions' per-row (ce1, neg1, ce2, neg2) plus the
     streaming top-1 hits, differentiable w.r.t. the two probe embeddings
-    only (mirrors ``fused_quad_margin``; no queue or gallery gradient)."""
+    only (mirrors ``fused_quad_margin``; no queue or gallery gradient).
+    ``qscales`` [2, Q] are an int8 queue's scales (None for float queues);
+    ``int8_compute`` quantises the probes for the streamed dots."""
 
     @staticmethod
-    def forward(ctx, emb_x, emb_y, queue, g_a, g_b, rows_a, cols_a, seen_a, rows_b, cols_b,
-                seen_b, labels_a, labels_b, loss_type, margin, scale, hard_neg, mask_svfc):
+    def forward(ctx, emb_x, emb_y, queue, qscales, g_a, g_b, rows_a, cols_a, seen_a, rows_b,
+                cols_b, seen_b, labels_a, labels_b, loss_type, margin, scale, hard_neg,
+                mask_svfc, int8_compute):
         b = emb_x.shape[0]
+        gts_a = compute_twin_gt(emb_x, queue, g_a, rows_a, cols_a, seen_a, labels_a, qscales)
+        gts_b = compute_twin_gt(emb_y, queue, g_b, rows_b, cols_b, seen_b, labels_b, qscales)
+        packed = pack_dirs(emb_x, emb_y, dir_inputs(queue, g_a, rows_a, cols_a, seen_a, qscales),
+                           dir_inputs(queue, g_b, rows_b, cols_b, seen_b, qscales),
+                           labels_a, labels_b, gts_a, gts_b)
+        e8 = quantize_rows(packed[0]) if int8_compute else (None, None)  # JAX's _e8_operands
         kw = dict(b=b, loss_type=loss_type, margin=margin, scale=scale, k=hard_neg,
                   mask_svfc=mask_svfc)
-        gts_a = compute_twin_gt(emb_x, queue, g_a, rows_a, cols_a, seen_a, labels_a)
-        gts_b = compute_twin_gt(emb_y, queue, g_b, rows_b, cols_b, seen_b, labels_b)
-        packed = pack_dirs(emb_x, emb_y, dir_inputs(queue, g_a, rows_a, cols_a, seen_a),
-                           dir_inputs(queue, g_b, rows_b, cols_b, seen_b),
-                           labels_a, labels_b, gts_a, gts_b)
-        ce, neg, logz, topk = quad_fwd(packed[0], queue, *packed[1:], **kw)
+        ce, neg, logz, topk = quad_fwd(packed[0], queue, *packed[1:], **kw,
+                                       **_form_kw(qscales, e8))
         labels = packed[6]
         hit = ((packed[7][0] + KTH_TIE_TOL >= topk[0, :, 0]) & (labels >= 0)).float()
-        ctx.save_for_backward(emb_x, emb_y, queue, g_a, g_b, rows_a, cols_a, seen_a,
-                              rows_b, cols_b, seen_b, labels_a, labels_b, logz, topk,
+        ctx.save_for_backward(emb_x, emb_y, queue, qscales, *e8, g_a, g_b, rows_a, cols_a,
+                              seen_a, rows_b, cols_b, seen_b, labels_a, labels_b, logz, topk,
                               *packed)
         ctx.kw = kw
         ctx.mark_non_differentiable(hit)
@@ -616,8 +853,9 @@ class QuadMargin(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *cots):
-        (emb_x, emb_y, queue, g_a, g_b, rows_a, cols_a, seen_a, rows_b, cols_b, seen_b,
-         labels_a, labels_b, logz, topk, E, G, V, rows, cols, blend, labels, gt) = ctx.saved_tensors
+        (emb_x, emb_y, queue, qscales, e8q, e8s, g_a, g_b, rows_a, cols_a, seen_a, rows_b,
+         cols_b, seen_b, labels_a, labels_b, logz, topk, E, G, V, rows, cols, blend, labels,
+         gt) = ctx.saved_tensors
         kw = ctx.kw
         b = kw["b"]
         zeros = E.new_zeros(b)
@@ -630,14 +868,21 @@ class QuadMargin(torch.autograd.Function):
         dneg = torch.where(pos, torch.zeros_like(dneg), dneg).contiguous()
         kth = topk[:, :, -1].contiguous()
         d_emb, dgt = quad_bwd(E, queue, G, V, rows, cols, blend, labels, gt, logz, kth, dce,
-                              dneg, **kw)
+                              dneg, **kw, **_form_kw(qscales, (e8q, e8s)))
         lt, mg = kw["loss_type"], kw["margin"]
         sa, sb = slice(0, b), slice(b, 2 * b)
-        d_x = twin_gt_tail(emb_x, queue, g_a, rows_a, cols_a, seen_a, labels_a,
-                           gt[0, sa], gt[1, sa], dgt[0, sa], dgt[1, sa], d_emb[sa], lt, mg)
-        d_y = twin_gt_tail(emb_y, queue, g_b, rows_b, cols_b, seen_b, labels_b,
-                           gt[0, sb], gt[1, sb], dgt[0, sb], dgt[1, sb], d_emb[sb], lt, mg)
-        return (d_x, d_y) + (None,) * 16
+        d_x = twin_gt_tail(emb_x, queue, g_a, rows_a, cols_a, seen_a, labels_a, gt[0, sa],
+                           gt[1, sa], dgt[0, sa], dgt[1, sa], d_emb[sa], lt, mg, qscales)
+        d_y = twin_gt_tail(emb_y, queue, g_b, rows_b, cols_b, seen_b, labels_b, gt[0, sb],
+                           gt[1, sb], dgt[0, sb], dgt[1, sb], d_emb[sb], lt, mg, qscales)
+        return (d_x, d_y) + (None,) * 18
+
+
+def _form_kw(qscales, e8) -> dict:
+    """The kernels' form arguments: plane 0's scales of a [2, Q] scale
+    array, and the int8-compute probes (a pair of None when off)."""
+    return dict(qscales=None if qscales is None else qscales[0],
+                e8=None if e8[0] is None else e8)
 
 
 def quad_add_margin(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, labels_b, *,
@@ -645,16 +890,20 @@ def quad_add_margin(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, lab
                     with_acc=False, qscales=None, int8_compute=False):
     """(loss_a, loss_b): both FFC directional losses with ONE streaming
     pass over q0 per forward and backward. ``with_acc`` also returns the
-    combined streaming top-1 accuracy over both directions' in-pool rows."""
-    if qscales is not None or int8_compute or queue.dtype != torch.float32:
-        raise NotImplementedError(
-            "int8 and bf16 queues (qscales, int8_compute) are not ported yet; "
-            "the quad head takes a float32 queue")
+    combined streaming top-1 accuracy over both directions' in-pool rows.
+    ``qscales`` [2, Q] carries an int8 queue's per-row scales;
+    ``int8_compute`` quantises the probes per row and streams the clean
+    dots int8 × int8 → int32 (gt, the overrides and d_emb stay as in int8
+    storage)."""
+    if int8_compute and qscales is None:
+        raise ValueError("int8_compute requires an int8-stored queue "
+                         "(pool.queue_dtype='int8')")
     rows_a, cols_a, seen_a = plan_a
     rows_b, cols_b, seen_b = plan_b
-    out = QuadMargin.apply(emb_x, emb_y, queue, g_a.detach(), g_b.detach(), rows_a, cols_a,
-                           seen_a, rows_b, cols_b, seen_b, labels_a, labels_b, loss_type,
-                           float(margin), float(scale), int(hard_neg), float(mask_svfc))
+    out = QuadMargin.apply(emb_x, emb_y, queue, qscales, g_a.detach(), g_b.detach(), rows_a,
+                           cols_a, seen_a, rows_b, cols_b, seen_b, labels_a, labels_b, loss_type,
+                           float(margin), float(scale), int(hard_neg), float(mask_svfc),
+                           bool(int8_compute))
     return reduce_quad_outputs(out, labels_a, labels_b, with_acc)
 
 

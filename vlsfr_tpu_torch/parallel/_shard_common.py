@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from vlsfr_tpu_torch.ops.twin_margin import effective_rows, twin_write_values
+from vlsfr_tpu_torch.ops.twin_margin import effective_rows, plane_rows, twin_write_values
 
 
 def carriers(g, rows, cols, seen):
@@ -45,13 +45,15 @@ def localize(c0: int, c_local: int, cols_i, labels):
     return (lcol, in_range, *localize_labels(c0, c_local, labels))
 
 
-def effective_label_rows(q_l, g32, rows_i, cols_i, seen_f, labels, owned, ll):
+def effective_label_rows(q_l, g32, rows_i, cols_i, seen_f, labels, owned, ll, qs_l=None):
     """The owner's effective label rows (r0e, rbe): its block's label rows
-    with this step's writes applied, matched on GLOBAL slot ids (rows of
-    non-owned labels are block row 0, never used). Collective-free."""
+    (dequantised with the block's scales ``qs_l`` [2, Q/m] for an int8
+    queue) with this step's writes applied, matched on GLOBAL slot ids
+    (rows of non-owned labels are block row 0, never used).
+    Collective-free."""
     safe = torch.where(owned, ll, 0).long()
-    r0 = q_l[0][safe].float()
-    r1 = q_l[1][safe].float()
+    r0 = plane_rows(q_l, qs_l, 0, safe)
+    r1 = plane_rows(q_l, qs_l, 1, safe)
     gids = torch.where(owned, labels, -1).long()
     return effective_rows(r0, r1, gids, g32, rows_i.long(), cols_i.long(), seen_f)
 
@@ -64,12 +66,12 @@ def owned_gt_parts(emb32, r0e, rbe, owned):
                         torch.where(owned, (emb32 * rbe).sum(-1), zero)])
 
 
-def shard_write_values(q_l, g32, rows_i, cols_i, seen_f, lcol, in_range):
-    """Local-range q1 gather + the shared ``twin_write_values``:
-    out-of-shard entries gather block row 0 — never selected, because no
-    local column matches their slot. The same-slot structure inside
-    ``twin_write_values`` uses GLOBAL columns (exact)."""
-    q1_rows = q_l[1][torch.where(in_range, lcol, 0).long()]
+def shard_write_values(q_l, g32, rows_i, cols_i, seen_f, lcol, in_range, qs_l=None):
+    """Local-range q1 gather (dequantised for an int8 block) + the shared
+    ``twin_write_values``: out-of-shard entries gather block row 0 — never
+    selected, because no local column matches their slot. The same-slot
+    structure inside ``twin_write_values`` uses GLOBAL columns (exact)."""
+    q1_rows = plane_rows(q_l, qs_l, 1, torch.where(in_range, lcol, 0).long())
     return twin_write_values(q1_rows, g32, rows_i, cols_i, seen_f)
 
 

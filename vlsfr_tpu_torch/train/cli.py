@@ -24,6 +24,13 @@ and ``--device`` (default ``cuda``; ``cpu`` must be asked for).
     torchrun --standalone --nproc_per_node=N -m vlsfr_tpu_torch.train \\
         --net_type ir50 --head full_softmax --batch_size 128 --synthetic \\
         --set pool.num_classes=1048576 --set mesh.model=N --set mesh.data=1
+    # the 10M-identity int8 pool (int8 queue, int8 compute) on one card
+    python -m vlsfr_tpu_torch.train --net_type ir50 --batch_size 128 \\
+        --queue_size 10485760 --synthetic --set pool.queue_dtype=int8 \\
+        --set pool.queue_int8_compute=true
+    python -m vlsfr_tpu_torch.train --config configs/ffc_10m_ids.json \\
+        --set mesh.model=1 --set data.batch_size=128 --set train.eval_freq=0 \\
+        --synthetic
 """
 
 from __future__ import annotations
@@ -35,25 +42,41 @@ from vlsfr_tpu_torch.parallel.distributed import is_lead_host
 from vlsfr_tpu_torch.train.trainer import Trainer
 
 
+# flag -> (config field, the reference CLI's default)
+_FLAGS = {
+    "saved_dir": ("train.saved_dir", "checkpoint"),
+    "net_type": ("model.net_type", "r50"),
+    "queue_size": ("pool.queue_size", 1000),
+    "print_freq": ("train.print_freq", 1000),
+    "pretrained_model_path": ("train.pretrained_model_path", ""),
+    "batch_size": ("data.batch_size", 64),
+    "alpha": ("pool.momentum", 0.99),
+    "loss_type": ("loss.loss_type", "Arc"),
+    "margin": ("loss.margin", 0.5),
+    "scale": ("loss.scale", 32.0),
+    "neg_margin": ("loss.neg_margin", 0.25),
+    "feat_dim": ("model.feat_dim", 512),
+    "head": ("pool.head", "ffc"),
+}
+
+
 def build_config(argv=None) -> tuple[Config, str]:
+    """The config: ``--config`` (or the defaults), then the reference's
+    flags, then ``--set`` overrides. Without ``--config`` every flag takes
+    the reference CLI's default, as JAX's ``train.py`` does; with it only
+    the flags given on the command line replace the file's values (JAX's
+    ``train.py`` writes every flag's default over the file: with
+    ``--config configs/ffc_10m_ids.json`` it would train r50 on a
+    1000-slot queue)."""
     ap = argparse.ArgumentParser(description="very large scale face recognition (PyTorch)")
-    ap.add_argument("--saved_dir", type=str, default="checkpoint")
-    ap.add_argument("--net_type", type=str, default="r50")
-    ap.add_argument("--queue_size", type=int, default=1000)
-    ap.add_argument("--print_freq", type=int, default=1000)
-    ap.add_argument("--pretrained_model_path", type=str, default="")
-    ap.add_argument("--batch_size", type=int, default=64)
-    ap.add_argument("--alpha", type=float, default=0.99, help="gallery EMA momentum")
-    ap.add_argument("--loss_type", type=str, default="Arc", choices=["Arc", "AM", "SV"])
-    ap.add_argument("--margin", type=float, default=0.5)
-    ap.add_argument("--scale", type=float, default=32.0)
-    ap.add_argument("--neg_margin", type=float, default=0.25)
-    ap.add_argument("--feat_dim", type=int, default=512)
-    ap.add_argument("--sources", nargs="*", default=[], help="record store dirs")
+    choices = {"loss_type": ["Arc", "AM", "SV"], "head": ["ffc", "full_softmax"]}
+    for flag, (_, default) in _FLAGS.items():
+        ap.add_argument(f"--{flag}", type=type(default), default=None, choices=choices.get(flag),
+                        help="gallery EMA momentum" if flag == "alpha" else None)
+    ap.add_argument("--sources", nargs="*", default=None, help="record store dirs")
     ap.add_argument("--optim_config", type=str, default="",
                     help="reference-format typed-JSON optimizer config")
     ap.add_argument("--config", type=str, default="", help="full JSON config file")
-    ap.add_argument("--head", type=str, default="ffc", choices=["ffc", "full_softmax"])
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--set", dest="overrides", action="append", default=[],
                     metavar="SECTION.KEY=VALUE")
@@ -61,21 +84,17 @@ def build_config(argv=None) -> tuple[Config, str]:
     args = ap.parse_args(argv)
 
     cfg = Config.load(args.config) if args.config else Config()
-    cfg.train.saved_dir = args.saved_dir
-    cfg.model.net_type = args.net_type
-    cfg.model.feat_dim = args.feat_dim
-    cfg.pool.queue_size = args.queue_size
-    cfg.pool.momentum = args.alpha
-    cfg.pool.head = args.head
-    cfg.train.print_freq = args.print_freq
-    cfg.train.pretrained_model_path = args.pretrained_model_path
-    cfg.data.batch_size = args.batch_size
-    cfg.data.sources = list(args.sources)
-    cfg.data.synthetic = args.synthetic
-    cfg.loss.loss_type = args.loss_type
-    cfg.loss.margin = args.margin
-    cfg.loss.scale = args.scale
-    cfg.loss.neg_margin = args.neg_margin
+    for flag, (field, default) in _FLAGS.items():
+        value = getattr(args, flag)
+        if value is None and not args.config:
+            value = default
+        if value is not None:
+            section, key = field.split(".")
+            setattr(getattr(cfg, section), key, value)
+    if args.sources is not None or not args.config:
+        cfg.data.sources = list(args.sources or [])
+    if args.synthetic or not args.config:
+        cfg.data.synthetic = args.synthetic
     if args.optim_config:
         cfg.apply_reference_optim_config(args.optim_config)
     cfg.apply_overrides(args.overrides)

@@ -128,10 +128,12 @@ class Trainer:
 
     def train(self, max_steps: int | None = None) -> dict:
         """Run ``optim.epochs`` epochs (or stop after ``max_steps`` steps);
-        returns the last print window's metrics (with its ``epoch`` and
-        ``images_per_sec``) plus ``final_step``."""
+        returns the last print window's metrics (with its ``epoch``,
+        ``images_per_sec`` and ``images_per_sec_chip``) plus ``final_step``.
+        On a mesh every rank trains the same batch, so the rate per card is
+        the group's rate over its ``mesh.model`` cards."""
         cfg = self.cfg
-        thr = Throughput()
+        thr = Throughput(1 if self.mesh is None else self.mesh.model)
         last: dict = {}
         gstep = 0
         for epoch in range(cfg.optim.epochs):
@@ -150,7 +152,8 @@ class Trainer:
                 gstep += 1
                 if gstep % cfg.train.print_freq == 0 or gstep == max_steps:
                     m = {k: float(v) for k, v in m.items()}  # one sync per window
-                    last = dict(m, epoch=epoch, images_per_sec=thr.value())
+                    ips, ips_chip = thr.value()
+                    last = dict(m, epoch=epoch, images_per_sec=ips, images_per_sec_chip=ips_chip)
                     if self.is_lead:
                         self.metrics.log(gstep, last)
                     if cfg.optim.scheduler == "plateau":

@@ -17,9 +17,11 @@ if not logger.handlers:
 
 
 class Throughput:
-    """images/sec over a rolling window (one device)."""
+    """images/sec (/card) over a rolling window: ``value()`` returns the
+    rate and the rate per card of ``num_chips``."""
 
-    def __init__(self):
+    def __init__(self, num_chips: int = 1):
+        self.num_chips = max(num_chips, 1)
         self.reset()
 
     def reset(self):
@@ -29,8 +31,9 @@ class Throughput:
     def update(self, n_images: int):
         self._images += n_images
 
-    def value(self) -> float:
-        return self._images / max(time.perf_counter() - self._t0, 1e-9)
+    def value(self) -> tuple[float, float]:
+        ips = self._images / max(time.perf_counter() - self._t0, 1e-9)
+        return ips, ips / self.num_chips
 
 
 class MetricsLogger:

@@ -38,6 +38,33 @@ classifier: ce / neg / logz 1e-4, top-k 1e-5, d_emb 1e-4 × its streamed
 part's max + 2 f32 eps, and each block of d_w by row set against the
 whole d_w's rows.
 
+The quad kernels on one card (``quad_checks``): ce / neg / logz 1e-4
+absolute and top-k 1e-5 (f32 sums in another order over up to 10M
+columns), d_gt 1e-5; d_emb 1e-4 × its max on an f32 queue. On the bf16 and
+int8 forms both sides round each d_cos to bf16 before its product with a
+row (module docstring of ``ops/twin_margin.py``); the kernel's f32 d_cos
+differs from the plain version's in the last bits (expf, sums in another
+order), and where the two straddle a bf16 rounding boundary one term of
+d_emb moves by one bf16 ulp, up to 2^-8 of itself. A straddle moves the
+D features of one row, and in a row that one column dominates it can move
+them by ~1e-3 of d_emb's max. So d_emb is held in two parts
+(``rounded_demb``): at most STRADDLE_ROWS = 8 rows may be further than
+DEMB_TIGHT = 1e-5 × max from the plain version, and no row further than
+ROUNDED_DEMB_RTOL = 2^-7 × max (one bf16 ulp of two such terms). A kernel
+that skips a rounding moves most rows by ~2^-9 of their terms and fails
+the first part. On an H100 over chip_smoke.py's phase-21 and phase-23
+cases (256 rows) the kernels put at most 3 rows beyond 1e-5 × max; copies
+that skip the clean tiles' or the bf16 written tiles' rounding put tens
+to hundreds there (``tests/test_torch_kernels.py::
+test_form_checks_reject_planted_faults`` plants both).
+
+The int8-compute dot is an exact integer sum (``int8_dot_checks``): the
+kernels' own clean cosines (``ops/twin_margin.clean_cos``, the tile code
+the forward and the backward's recompute run) with unit scales are f32 of
+the raw int32 accumulator and equal the integer product bit for bit; with
+the real scales they equal the plain version's f32(acc) · (se · s) bit for
+bit.
+
 Used by ``chip_smoke.py`` and the tests in ``tests/test_torch_kernels.py``.
 """
 
@@ -46,6 +73,10 @@ from __future__ import annotations
 import torch
 
 F32_EPS = torch.finfo(torch.float32).eps
+# d_emb of the bf16 / int8 quad forms (module docstring, ``rounded_demb``)
+ROUNDED_DEMB_RTOL = 2.0**-7
+DEMB_TIGHT = 1e-5
+STRADDLE_ROWS = 8
 
 
 def label_rows(n_rows: int, labels: torch.Tensor) -> torch.Tensor:
@@ -225,6 +256,71 @@ def _err(name: str, got, want, limit: float) -> dict:
             "limit": limit}
 
 
+def quad_checks(queue, packed, kw: dict, dce, dneg, tag: str = ""):
+    """``quad_fwd`` / ``quad_bwd`` against their plain versions on one case
+    in the packed layout (``kw`` holds the form's ``qscales`` / ``e8``).
+    Returns (checks, the plain forward's outputs)."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    E, rest = packed[0], packed[1:]
+    got = ttm.quad_fwd(E, queue, *rest, **kw)
+    want = ttm.quad_fwd_plain(E, queue, *rest, **kw)
+    checks = [_err(f"{tag}{name}", g, w, tol) for name, g, w, tol in
+              zip(("ce", "neg", "logz", "top-k"), got, want, (1e-4, 1e-4, 1e-4, 1e-5))]
+    logz, kth = want[2], want[3][:, :, -1].contiguous()
+    d_k, g_k = ttm.quad_bwd(E, queue, *rest, logz, kth, dce, dneg, **kw)
+    d_p, g_p = ttm.quad_bwd_plain(E, queue, *rest, logz, kth, dce, dneg, **kw)
+    checks += demb_checks(f"{tag}d_emb", d_k, d_p, queue.dtype)
+    checks.append(_err(f"{tag}d_gt", g_k, g_p, 1e-5))
+    return checks, want
+
+
+def demb_checks(name: str, got, want, dtype) -> list[dict]:
+    """A quad backward's d_emb against the plain one: 1e-4 × its max on an
+    f32 queue, ``rounded_demb`` on the others."""
+    if dtype == torch.float32:
+        return [_err(name, got, want, 1e-4 * float(want.abs().max()))]
+    return rounded_demb(name, got, want)
+
+
+def rounded_demb(name: str, got, want) -> list[dict]:
+    """d_emb of a rounded quad form in two parts (module docstring): the
+    count of rows further than DEMB_TIGHT × max |want| from the plain
+    version, at most STRADDLE_ROWS, and the largest error of any row, at
+    most ROUNDED_DEMB_RTOL × max |want|."""
+    top = float(want.abs().max())
+    row_err = (got - want).abs().amax(dim=1)
+    return [{"name": f"{name} rows beyond {DEMB_TIGHT:g} x max", "count": True,
+             "err": float((row_err > DEMB_TIGHT * top).sum()), "limit": float(STRADDLE_ROWS)},
+            {"name": name, "err": float(row_err.max()), "limit": ROUNDED_DEMB_RTOL * top}]
+
+
+def int8_dot_checks(E8, se, w8, qs, tag: str = "") -> list[dict]:
+    """The int8-compute dot of the quantised probes ``(E8, se)`` with an
+    int8 plane ``w8`` (scales ``qs``), each bit-equal (limit 0): the plain
+    version's f32 product against the integer product (``torch._int_mm``
+    on the card); on the card also the kernels' clean cosines
+    (``clean_cos``) in the forward's and the backward's tiling, with unit
+    scales against the integer product, and with the real scales against
+    the plain version's."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    exact = (torch._int_mm(E8, w8.T) if E8.is_cuda else E8.long() @ w8.long().T).float()
+    checks = [_err(f"{tag}int8 raw dot (plain version)", E8.float() @ w8.float().T, exact, 0.0)]
+    if not E8.is_cuda:
+        return checks
+    E, plain = E8.float(), ttm._clean_cos(None, w8, qs, (E8, se))
+    ones_r, ones_q = torch.ones_like(se), torch.ones_like(qs)
+    for tiles, bwd in (("forward", False), ("backward", True)):
+        raw = ttm.clean_cos(E, w8, qscales=ones_q, e8=(E8, ones_r), bwd_tiles=bwd)
+        checks.append(_err(f"{tag}int8 raw dot (kernel, {tiles} tiles)", raw, exact, 0.0))
+        del raw
+        cos = ttm.clean_cos(E, w8, qscales=qs, e8=(E8, se), bwd_tiles=bwd)
+        checks.append(_err(f"{tag}int8c clean cos (kernel, {tiles} tiles)", cos, plain, 0.0))
+        del cos
+    return checks
+
+
 def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = ""):
     """Both partial kernels against their plain versions on one shard's
     inputs ``si`` (``parallel/sharded_quad.shard_inputs``) over its block
@@ -233,7 +329,7 @@ def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = 
     from vlsfr_tpu_torch.ops import twin_margin as ttm
 
     args = si.kernel_args(q_l)
-    pkw = dict(b=si.E.shape[0] // 2, bp=si.rows.shape[0] // 2, **kw)
+    pkw = dict(b=si.E.shape[0] // 2, bp=si.rows.shape[0] // 2, **kw, **si.form_kw())
     m_k, s_k, t_k = ttm.quad_partial_fwd(*args, gt, **pkw)
     m_p, s_p, t_p = ttm.quad_partial_fwd_plain(*args, gt, **pkw)
     seen = s_p > 0
@@ -246,42 +342,49 @@ def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = 
         _err(f"{tag}partial top-k", t_k, t_p, 1e-5)]
     d_k, g_k = ttm.quad_partial_bwd(*args, gt, logz, kth, dce, dneg, **pkw)
     d_p, g_p = ttm.quad_partial_bwd_plain(*args, gt, logz, kth, dce, dneg, **pkw)
-    checks += [_err(f"{tag}partial d_emb", d_k, d_p, 1e-4 * float(d_p.abs().max())),
-               _err(f"{tag}partial d_gt", g_k, g_p, 1e-5)]
+    checks += demb_checks(f"{tag}partial d_emb", d_k, d_p, q_l.dtype)
+    checks.append(_err(f"{tag}partial d_gt", g_k, g_p, 1e-5))
     return checks, (d_k, g_k)
 
 
 def quad_shard_checks(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, labels_b, dce,
-                      dneg, kw: dict, n_shards: int):
+                      dneg, kw: dict, n_shards: int, qscales=None, int8_compute=False):
     """The sharded quad head emulated in one process: ``queue`` cut into
     ``n_shards`` blocks, the gt parts summed (the all_reduce), each block's
     partial kernels held to their plain versions, the block states merged
     (``merge_partials``, the all_gather) and finalized, and the summed d_gt
     and d_emb with the owners' tails (the backward's all_reduces), against
     ``quad_fwd`` / ``quad_bwd`` + tail on the whole queue. ``dce`` /
-    ``dneg`` are [2, 2b], masked with the positive rows. Returns the
-    checks."""
+    ``dneg`` are [2, 2b], masked with the positive rows. An int8 queue
+    comes with its [2, Q] ``qscales`` (and may run ``int8_compute``).
+    Returns the checks."""
     from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.ops.qqueue import quantize_rows
     from vlsfr_tpu_torch.parallel._shard_common import merge_partials
     from vlsfr_tpu_torch.parallel.sharded_quad import owner_tail, shard_inputs
 
     b, q = emb_x.shape[0], queue.shape[1]
     lt, mg, k = kw["loss_type"], kw["margin"], kw["k"]
-    packed = ttm.pack_dirs(emb_x, emb_y, ttm.dir_inputs(queue, g_a, *plan_a),
-                           ttm.dir_inputs(queue, g_b, *plan_b), labels_a, labels_b,
-                           ttm.compute_twin_gt(emb_x, queue, g_a, *plan_a, labels_a),
-                           ttm.compute_twin_gt(emb_y, queue, g_b, *plan_b, labels_b))
+    qs = qscales
+    packed = ttm.pack_dirs(emb_x, emb_y, ttm.dir_inputs(queue, g_a, *plan_a, qs),
+                           ttm.dir_inputs(queue, g_b, *plan_b, qs), labels_a, labels_b,
+                           ttm.compute_twin_gt(emb_x, queue, g_a, *plan_a, labels_a, qs),
+                           ttm.compute_twin_gt(emb_y, queue, g_b, *plan_b, labels_b, qs))
     E, rest, labels = packed[0], packed[1:], packed[6]
-    ce_w, neg_w, logz_w, topk_w = ttm.quad_fwd(E, queue, *rest, b=b, **kw)
+    fkw = dict(qscales=None if qs is None else qs[0],
+               e8=quantize_rows(E) if int8_compute else None)
+    ce_w, neg_w, logz_w, topk_w = ttm.quad_fwd(E, queue, *rest, b=b, **kw, **fkw)
     c_local = q // n_shards
     blocks = [queue[:, j * c_local:(j + 1) * c_local] for j in range(n_shards)]
     sis = [shard_inputs(emb_x, emb_y, q_l, j * c_local, g_a, g_b, plan_a, plan_b, labels_a,
-                        labels_b) for j, q_l in enumerate(blocks)]
+                        labels_b, None if qs is None else qs[:, j * c_local:(j + 1) * c_local],
+                        int8_compute)
+           for j, q_l in enumerate(blocks)]
     gt = sum(si.gt_parts for si in sis)
     pos = labels >= 0
     # the kernels' block states, merged: the global logz and kth every
     # block's backward takes
-    states = [ttm.quad_partial_fwd(*si.kernel_args(q_l), gt, b=b, bp=b, **kw)
+    states = [ttm.quad_partial_fwd(*si.kernel_args(q_l), gt, b=b, bp=b, **kw, **si.form_kw())
               for si, q_l in zip(sis, blocks)]
     m, s, t = merge_partials(*(torch.stack(x) for x in zip(*states)), k)
     ce, neg, logz, topk = ttm.finalize_fwd(m, s, t, labels, gt, loss_type=lt, margin=mg,
@@ -296,13 +399,13 @@ def quad_shard_checks(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, l
     for si in sis:  # each owner's tail, from the summed d_gt
         d_tot = owner_tail(d_tot, dgt_sum, gt, si, lt, mg)
     d_w, dgt_w = ttm.quad_bwd(E, queue, *rest, logz_w, topk_w[:, :, -1].contiguous(), dce, dneg,
-                              b=b, **kw)
+                              b=b, **kw, **fkw)
     sa, sb = slice(0, b), slice(b, 2 * b)
     d_whole = torch.cat([
         ttm.twin_gt_tail(emb_x, queue, g_a, *plan_a, labels_a, packed[7][0, sa], packed[7][1, sa],
-                         dgt_w[0, sa], dgt_w[1, sa], d_w[sa], lt, mg),
+                         dgt_w[0, sa], dgt_w[1, sa], d_w[sa], lt, mg, qs),
         ttm.twin_gt_tail(emb_y, queue, g_b, *plan_b, labels_b, packed[7][0, sb], packed[7][1, sb],
-                         dgt_w[0, sb], dgt_w[1, sb], d_w[sb], lt, mg)]).float()
+                         dgt_w[0, sb], dgt_w[1, sb], d_w[sb], lt, mg, qs)]).float()
     tag = f"{n_shards} blocks merged vs the whole queue: "
     checks += [
         _err(tag + "ce", ce, ce_w, 1e-4), _err(tag + "neg", neg, neg_w, 1e-4),
@@ -400,4 +503,6 @@ def failures(checks: list[dict]) -> list[dict]:
 
 
 def describe(c: dict) -> str:
+    if c.get("count"):
+        return f"{c['name']}: {c['err']:.0f} <= {c['limit']:.0f}"
     return f"{c['name']}: max |kernel - plain| {c['err']:.3e} <= {c['limit']:.3e}"
