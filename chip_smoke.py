@@ -150,8 +150,42 @@ compute):
    on the same config over an NCCL group of one, its first step against the
    single-shard first step on an f32 backbone, then 2 steps; int8 storage at
    2^20 and bf16 at 4,194,304, single and force-sharded, 2 steps each;
-then the ``kernels`` JSON line (22 entries: the ten f32 kernels and the
-twelve forms), and the device JSON line last.
+   phases 21-23 hold and time the rounded forms' backward at the tile their
+   step requests (2048 at pool.queue_tile = 0), which resolves as in JAX to
+   2048 columns at 10,485,760 int8 slots and 1024 at 4,194,304 bf16 slots;
+The twin FFC head (``twin_add_margin``, ``directional_loss(use_fused=True)``,
+``make_sharded_twin_loss``; tools/bench_sharded_twin.py's widths, b = 128,
+D = 512, 2^20 slots, f32 and bf16 queues):
+25. parity — twin_fwd / twin_bwd against their plain versions at full
+   width (k = 10, Arc, scale 32, margin 0.5, one direction of phase 3's DCP
+   write plan with its duplicate slot, labels at written slots with 25 %
+   outliers), f32 and bf16 at the tile request 512 (resolved as JAX
+   resolves it), then AM and SV at Q = 4096 and bf16 at a request of 2048
+   (resolved 1024); limits as phase 21's (``parity.twin_checks``);
+26. partial kernels — the queue as one block and as 4 emulated blocks of
+   2^18, each block's twin partial kernels against their plain versions
+   and the merged blocks against twin_fwd / twin_bwd on the whole queue
+   (``parity.twin_shard_checks``), then AM and SV at 4096 in 4 blocks;
+27. timing — each twin kernel at full width (the partial ones over the
+   2^20 queue as one block and over one 2^18 block, whose times the
+   kernels line lists), its plain version, a PyTorch yardstick (forward: matmul +
+   logsumexp + topk; backward: the recompute and d_cos @ q0) and its bound
+   (f32 FLOP at 67 TFLOP/s, bf16 dots at 989 TFLOP/s, against bytes);
+28. the slice — an ir50 probe and gallery in f32, one DCP batch pair at
+   batch 128 on the Trainer's 2^20 f32 queue: directions A and B through
+   directional_loss(use_fused=True, defer_scatter=True) against
+   quad_add_margin on the same inputs (losses 1e-5 relative, probe
+   parameter gradients 1e-5 relative + 2e-5 absolute), twin_fwd and
+   twin_bwd launching once per directional loss and no quad kernel; the
+   same through make_sharded_twin_loss over an NCCL group of one against
+   twin_add_margin (losses 1e-5 relative, the head's d_emb at phase 25's
+   limits), each partial kernel once per direction; then on the queue's
+   bf16 copy: losses 1e-5 relative and the head's d_emb by
+   ``parity.rounded_demb`` against the quad at the same tile request and
+   at the step's own (2048, resolved 1024), and the sharded twin as above;
+then the ``kernels`` JSON line (30 entries: the ten f32 kernels, the
+twelve quad forms and the twin kernels in f32 and bf16), and the device
+JSON line last.
 
 The script imports nothing of JAX. Without a CUDA device it exits non-zero
 before printing any result.
@@ -160,6 +194,7 @@ before printing any result.
 from __future__ import annotations
 
 import copy
+import functools
 import gc
 import json
 import math
@@ -997,15 +1032,15 @@ def shard_case(q: int, loss_type: str, seed: int, form: str = "f32"):
     return (p_x, p_y, queue, g_a, g_b, pa, pb, la, lb, dce, dneg), kw
 
 
-def shard_parity(case, kw, n_shards: int) -> dict:
-    """quad_shard_checks on one case; raises above a limit. Returns the
-    max errors of the partial forward (state and top-k) and backward
-    (d_emb)."""
+def shard_parity(case, kw, n_shards: int, tile: int = 512) -> dict:
+    """quad_shard_checks on one case (the backward's tile request
+    ``tile``); raises above a limit. Returns the max errors of the partial
+    forward (state and top-k) and backward (d_emb)."""
     from vlsfr_tpu_torch.utils import parity
 
     fkw = {k: kw[k] for k in ("qscales", "int8_compute") if k in kw}
     kw = {k: v for k, v in kw.items() if k not in fkw}
-    checks = parity.quad_shard_checks(*case, kw, n_shards=n_shards, **fkw)
+    checks = parity.quad_shard_checks(*case, kw, n_shards=n_shards, tile=tile, **fkw)
     torch.cuda.synchronize()
     for c in checks:
         print("    " + parity.describe(c))
@@ -1404,6 +1439,10 @@ def sharded_softmax_phase(card: str, tmp: str) -> dict:
 # the forms' full-width queues: capacity_10m_int8c's 10,485,760 slots for
 # the int8 forms, and the JAX package's measured bf16 pool (4,194,304)
 FORM_Q = {"int8c": 10 << 20, "int8": 10 << 20, "bf16": 4 << 20}
+# their step's kernel tile request (core/ffc.quad_tile at pool.queue_tile =
+# 0): the backward rounds per tile as JAX resolves it, 2048 columns for the
+# int8 forms at 10,485,760 and 1024 for bf16 at 4,194,304
+FORM_TILE = 2048
 FORMS = ("int8c", "int8", "bf16")
 CAPACITY = ("pool.queue_size=10485760", "pool.queue_dtype=int8", "pool.queue_int8_compute=true")
 FORM_TRAIN = {"int8c": CAPACITY, "int8": (f"pool.queue_size={1 << 20}", "pool.queue_dtype=int8"),
@@ -1426,14 +1465,19 @@ def form_limits() -> None:
 
 
 def form_parity(form: str, q: int, loss_type: str, seed: int):
-    """``parity.quad_checks`` on one case of the form (and, for int8c, the
-    int8 dot over the first 65,536 slots: ``parity.int8_dot_checks``);
-    raises above a limit. Returns the case, the plain forward's outputs and
-    the max errors of the forward and the backward."""
+    """``parity.quad_checks`` on one case of the form at FORM_TILE (and,
+    for int8c, the int8 dot over the first 65,536 slots:
+    ``parity.int8_dot_checks``); raises above a limit. Returns the case,
+    the plain forward's outputs and the max errors of the forward and the
+    backward."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
     from vlsfr_tpu_torch.utils import parity
 
     case = make_case(q, SLICE["b"], SLICE["d"], SLICE["k"], loss_type, seed, form)
-    checks, want = parity.quad_checks(*case)
+    print(f"  rounding tile: {FORM_TILE} requested, "
+          f"{ttm.round_tile(q, SLICE['b'], SLICE['d'], FORM_TILE, case[0].element_size())} "
+          f"resolved")
+    checks, want = parity.quad_checks(*case, tile=FORM_TILE)
     queue, kw = case[0], case[2]
     if form == "int8c":
         n = min(q, 65536)
@@ -1519,9 +1563,10 @@ def form_timing(form: str, case, want) -> dict:
     logz, kth = want[2], want[3][:, :, -1].contiguous()
     fwd = dict(ms=cuda_ms(lambda: ttm.quad_fwd(E, queue, *rest, **kw), 3, 1),
                plain_ms=cuda_ms(lambda: ttm.quad_fwd_plain(E, queue, *rest, **kw), 1, 0))
-    bwd = dict(ms=cuda_ms(lambda: ttm.quad_bwd(E, queue, *rest, logz, kth, dce, dneg, **kw), 3, 1),
+    bwd = dict(ms=cuda_ms(lambda: ttm.quad_bwd(E, queue, *rest, logz, kth, dce, dneg, **kw,
+                                               tile=FORM_TILE), 3, 1),
                plain_ms=cuda_ms(lambda: ttm.quad_bwd_plain(E, queue, *rest, logz, kth, dce, dneg,
-                                                           **kw), 1, 0))
+                                                           **kw, tile=FORM_TILE), 1, 0))
     lib_fwd, lib_bwd = library_passes(form, E, queue[0], kw.get("qscales"), kw.get("e8"),
                                       kw["scale"], kw["k"])
     fwd["library_ms"] = cuda_ms(lib_fwd, 2, 1)
@@ -1562,8 +1607,9 @@ def form_partial_timing(form: str, case, kw) -> dict:
     bwd_args = (*args, gt, logz, kth, dce, dneg)
     fwd = dict(ms=cuda_ms(lambda: ttm.quad_partial_fwd(*args, gt, **pkw), 3, 1),
                plain_ms=cuda_ms(lambda: ttm.quad_partial_fwd_plain(*args, gt, **pkw), 1, 0))
-    bwd = dict(ms=cuda_ms(lambda: ttm.quad_partial_bwd(*bwd_args, **pkw), 3, 1),
-               plain_ms=cuda_ms(lambda: ttm.quad_partial_bwd_plain(*bwd_args, **pkw), 1, 0))
+    bwd = dict(ms=cuda_ms(lambda: ttm.quad_partial_bwd(*bwd_args, **pkw, tile=FORM_TILE), 3, 1),
+               plain_ms=cuda_ms(lambda: ttm.quad_partial_bwd_plain(*bwd_args, **pkw,
+                                                                   tile=FORM_TILE), 1, 0))
     lib_fwd, lib_bwd = library_passes(form, si.E, q_l[0], si.qs0,
                                       None if si.e8q is None else (si.e8q, si.e8s),
                                       lkw["scale"], lkw["k"])
@@ -1740,7 +1786,7 @@ def forms_phases(card: str, tmp: str) -> tuple[dict, dict, dict]:
         case, kw = shard_case(q, "Arc", seed=13, form=form)
         for n in (1, SHARDS):
             print(f"  {form}: the queue as {n} block(s) of {q // n} columns:")
-            for name, err in shard_parity(case, kw, n).items():
+            for name, err in shard_parity(case, kw, n, FORM_TILE).items():
                 key = f"{name}[{form}]"
                 errs[key] = max(errs.get(key, 0.0), err)
         times.update(form_partial_timing(form, case, kw))
@@ -1749,7 +1795,7 @@ def forms_phases(card: str, tmp: str) -> tuple[dict, dict, dict]:
         torch.cuda.empty_cache()
         for loss_type in ("AM", "SV"):
             print(f"  {form}: Q=4096 {loss_type} in {SHARDS} blocks:")
-            shard_parity(*shard_case(4096, loss_type, seed=14, form=form), SHARDS)
+            shard_parity(*shard_case(4096, loss_type, seed=14, form=form), SHARDS, FORM_TILE)
 
     print("== phase 24: capacity_10m_int8c (ir50, 10,485,760-slot int8 queue, int8 compute) "
           "through the Trainer")
@@ -1762,6 +1808,408 @@ def forms_phases(card: str, tmp: str) -> tuple[dict, dict, dict]:
                                    check_queue=form == "int8"))
         launches.update(form_train(card, tmp, form, FORM_STEPS, "pool.force_sharded=true"))
     return times, errs, launches
+
+
+# ----------------------------------------------------------------------
+# the twin FFC head: twin_add_margin, directional_loss(use_fused=True),
+# make_sharded_twin_loss
+# ----------------------------------------------------------------------
+
+# tools/bench_sharded_twin.py's widths: b = 128, D = 512, 2^20 slots, f32
+# and bf16 queues, Arc; JAX's default twin tile request
+TWIN_Q = 1 << 20
+TWIN_FORMS = ("f32", "bf16")
+TWIN_TILE = 512
+
+
+def twin_case(q: int, loss_type: str, seed: int, form: str):
+    """One direction of ``raw_case`` (its DCP write plan, a duplicate
+    slot) with labels at written slots and 25 % outliers, as
+    tools/bench_sharded_twin.py:45-50 builds them; the in-pool probes near
+    their written rows (0.9 cosine on average), so that the target term
+    carries weight in logz (random probes leave it ~e^-15 of the sum).
+    Returns (queue, the twin kernels' inputs, kw, dce, dneg) and the raw
+    (emb, g, plan, labels)."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    b, d = SLICE["b"], SLICE["d"]
+    queue, _, gen, (p_x, _, g_a, _, pa, _, _, _) = raw_case(q, b, d, seed, form)
+    rng = np.random.default_rng(seed)
+    out = torch.from_numpy(rng.random(b) < 0.25).to(queue.device)
+    labels = torch.where(out, -1, pa[1].long()).to(torch.int32)
+    near = g_a + torch.randn((b, d), generator=gen, device=queue.device) * (0.5 / math.sqrt(d))
+    near = near / torch.linalg.vector_norm(near, dim=-1, keepdim=True)
+    p_x = torch.where((labels >= 0)[:, None], near, p_x)
+    g32, rows_i, cols_i, v, blend = ttm.dir_inputs(queue, g_a, *pa)
+    gt = torch.stack(ttm.compute_twin_gt(p_x, queue, g_a, *pa, labels))
+    inputs = tuple(x.contiguous() for x in (p_x, g32, v, rows_i, cols_i, blend.to(torch.int32),
+                                            labels, gt))
+    kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=SLICE["k"], mask_svfc=1.2)
+    cot = torch.randn((4, b), generator=gen, device=queue.device) / b
+    pos = (labels >= 0)[None, :]
+    dce = torch.where(pos, cot[:2], 0.0).contiguous()
+    dneg = torch.where(pos, 0.0, cot[2:]).contiguous()
+    print(f"  case Q={q} {loss_type} {form}: {int(pos.sum())}/{b} in-pool probe rows, "
+          f"{int(blend.sum())} blend writes")
+    return (queue, inputs, kw, dce, dneg), (p_x, g_a, pa, labels)
+
+
+def report(checks, what: str) -> None:
+    from vlsfr_tpu_torch.utils import parity
+
+    torch.cuda.synchronize()
+    for c in checks:
+        print("    " + parity.describe(c))
+    bad = parity.failures(checks)
+    if bad:
+        raise RuntimeError(f"{what} disagree: " + "; ".join(map(parity.describe, bad)))
+
+
+def twin_parity(case, tile: int = TWIN_TILE):
+    """``parity.twin_checks`` on one case; raises above a limit. Returns
+    the plain forward's outputs and the max errors of the forward and the
+    backward."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.utils import parity
+
+    queue = case[0]
+    rt = ttm.round_tile(queue.shape[1], SLICE["b"], SLICE["d"], tile, queue.element_size())
+    print(f"  rounding tile: {tile} requested, {rt} resolved")
+    checks, want = parity.twin_checks(*case, tile=tile)
+    report(checks, "the twin kernels")
+    err = {c["name"]: c["err"] for c in checks}
+    return want, {"fwd": max(err[k] for k in ("ce", "neg", "logz", "top-k")),
+                  "bwd": max(err["d_emb"], err["d_gt"])}
+
+
+def twin_bound(form: str, fwd: bool, r_: int, d: int, q: int, k: int) -> dict:
+    """The least time of one twin pass: f32 dots at 67 TFLOP/s, bf16 dots at
+    the tensor cores' 989 TFLOP/s (``form_bound``), against the bytes."""
+    if form == "bf16":
+        return form_bound("bf16", fwd, r_, d, q, k)
+    nbytes = 4 * q * d + 4 * 3 * r_ * d + 4 * 6 * r_
+    if fwd:
+        return bound(2.0 * r_ * d * q, nbytes + 4 * 2 * r_ * (3 + k))
+    return bound(4.0 * r_ * d * q, nbytes + 4 * 8 * r_ + 4 * (r_ * d + 2 * r_))
+
+
+def twin_library(E, q0, scale: float, k: int, chunk: int = 1 << 20):
+    """Yardsticks the port never calls: the forward's matmul (bf16 for a
+    bf16 plane), logsumexp and top-k; the backward's recompute and d_cos @
+    q0, per chunk of columns."""
+    n_q = q0.shape[0]
+    Eo = E.bfloat16() if q0.dtype == torch.bfloat16 else E
+    d_cos = torch.randn((E.shape[0], min(chunk, n_q)), device=E.device).mul_(1e-4).to(Eo.dtype)
+
+    def fwd():
+        for lo in range(0, n_q, chunk):
+            c = torch.matmul(Eo, q0[lo:lo + chunk].T).float()
+            torch.logsumexp(scale * c, dim=1)
+            torch.topk(c, k, dim=1)
+
+    def bwd():
+        for lo in range(0, n_q, chunk):
+            w = q0[lo:lo + chunk]
+            torch.matmul(Eo, w.T)
+            torch.matmul(d_cos[:, :w.shape[0]], w)
+
+    return fwd, bwd
+
+
+def twin_timing(form: str, case, want) -> dict:
+    """Phase 27 for one form: twin_fwd / twin_bwd at full width (kernel,
+    plain version, yardstick, bound)."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    queue, inputs, kw, dce, dneg = case
+    E, rest = inputs[0], inputs[1:]
+    r_, d = E.shape
+    q = queue.shape[1]
+    logz, kth = want[2], want[3][:, :, -1].contiguous()
+    bargs = (E, queue, *rest, logz, kth, dce, dneg)
+    fwd = dict(ms=cuda_ms(lambda: ttm.twin_fwd(E, queue, *rest, **kw), 10),
+               plain_ms=cuda_ms(lambda: ttm.twin_fwd_plain(E, queue, *rest, **kw), 3, 1))
+    bwd = dict(ms=cuda_ms(lambda: ttm.twin_bwd(*bargs, **kw, tile=TWIN_TILE), 10),
+               plain_ms=cuda_ms(lambda: ttm.twin_bwd_plain(*bargs, **kw, tile=TWIN_TILE), 3, 1))
+    lib_fwd, lib_bwd = twin_library(E, queue[0], kw["scale"], kw["k"])
+    fwd["library_ms"] = cuda_ms(lib_fwd, 5, 1)
+    bwd["library_ms"] = cuda_ms(lib_bwd, 5, 1)
+    fwd.update(twin_bound(form, True, r_, d, q, kw["k"]))
+    bwd.update(twin_bound(form, False, r_, d, q, kw["k"]))
+    name = lambda k_: k_ if form == "f32" else f"{k_}[{form}]"  # noqa: E731
+    out = {name("twin_fwd"): fwd, name("twin_bwd"): bwd}
+    print_times(out)
+    print_override_share(name("twin_fwd"), fwd["ms"], E, queue, rest, kw)
+    return out
+
+
+def print_override_share(name: str, ms: float, E, queue, rest, kw) -> None:
+    """The twin forward on the same inputs with every write and target
+    taken away (write columns and labels −1): the time the written tiles'
+    override path adds. The port's DCP planner hands out consecutive
+    slots, so a step's writes sit in a few tiles of one block."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    G, V, rows, cols, blend, labels, gt = rest
+    bare = (G, V, rows, torch.full_like(cols, -1), blend, torch.full_like(labels, -1), gt)
+    fn = ttm.twin_fwd if queue.dim() == 3 else ttm.twin_partial_fwd
+    bare_ms = cuda_ms(lambda: fn(E, queue, *bare, **kw), 10)
+    local = cols[cols >= 0]
+    where = f"{int(local.min())}-{int(local.max())}" if local.numel() else "none"
+    print(f"  {name} without the step's writes and targets: {bare_ms:.3f} ms (with them "
+          f"{ms:.3f}; the written slots here: {where})")
+
+
+def twin_partial_timing(form: str, case, raw, want) -> dict:
+    """The twin partial kernels over the whole queue as one block (world 1)
+    and over one card's block of a 4-card run (2^18 of 2^20 slots), fed the
+    whole queue's global row vectors: kernel, plain version, yardstick over
+    the block, bound. Returns the 2^18 block's times."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.parallel.sharded_twin import twin_shard_inputs
+
+    queue, inputs, kw, dce, dneg = case
+    emb, g, plan, labels = raw
+    gt, logz, kth = inputs[7], want[2], want[3][:, :, -1].contiguous()
+    name = lambda k_: k_ if form == "f32" else f"{k_}[{form}]"  # noqa: E731
+    for n in (1, SHARDS):
+        cols = queue.shape[1] // n
+        q_l = queue[:, :cols]
+        si = twin_shard_inputs(emb, q_l, 0, g, *plan, labels)
+        args = si.kernel_args(q_l)
+        bargs = (*args, gt, logz, kth, dce, dneg)
+        fwd = dict(ms=cuda_ms(lambda: ttm.twin_partial_fwd(*args, gt, **kw), 10),
+                   plain_ms=cuda_ms(lambda: ttm.twin_partial_fwd_plain(*args, gt, **kw), 3, 1))
+        bwd = dict(ms=cuda_ms(lambda: ttm.twin_partial_bwd(*bargs, **kw, tile=TWIN_TILE), 10),
+                   plain_ms=cuda_ms(lambda: ttm.twin_partial_bwd_plain(*bargs, **kw,
+                                                                       tile=TWIN_TILE), 3, 1))
+        lib_fwd, lib_bwd = twin_library(si.E, q_l[0], kw["scale"], kw["k"])
+        fwd["library_ms"] = cuda_ms(lib_fwd, 5, 1)
+        bwd["library_ms"] = cuda_ms(lib_bwd, 5, 1)
+        r_, d = si.E.shape
+        fwd.update(twin_bound(form, True, r_, d, cols, kw["k"]))
+        bwd.update(twin_bound(form, False, r_, d, cols, kw["k"]))
+        out = {name("twin_partial_fwd"): fwd, name("twin_partial_bwd"): bwd}
+        print(f"  {form}: a block of {cols} columns:")
+        print_times(out)
+        print_override_share(name("twin_partial_fwd"), fwd["ms"], si.E, q_l[0], (*args[2:], gt),
+                             kw)
+    return out
+
+
+def twin_shard_parity(case, raw, n_shards: int) -> dict:
+    """``parity.twin_shard_checks`` on one case; raises above a limit.
+    Returns the max errors of the partial forward and backward."""
+    from vlsfr_tpu_torch.utils import parity
+
+    queue, _, kw, dce, dneg = case
+    emb, g, plan, labels = raw
+    checks = parity.twin_shard_checks(emb, queue, g, plan, labels, dce, dneg, kw, n_shards,
+                                      tile=TWIN_TILE)
+    report(checks, "the sharded twin head")
+    errs = lambda *keys: max(c["err"] for c in checks  # noqa: E731
+                             if c["name"].startswith("block") and c["name"].endswith(keys))
+    return {"twin_partial_fwd": errs("m + log s", "top-k"),
+            "twin_partial_bwd": errs("d_emb", "d_gt")}
+
+
+def unported_bounds() -> None:
+    """The bounds of the two TPU kernels still to port, from the shapes
+    their JAX tools run (no kernel runs here): ``conv3x3_pallas`` at
+    tools/bench_conv.py's three bf16 NHWC shapes (y and the weights
+    written / read once; the Σy, Σy² epilogue adds 2 × Cout f32), and
+    tools/probe_int8_mxu.py's chained [128, 512] · [512 × 1024, 512]ᵀ dots
+    in int8 → int32, bf16 → f32 and int8-stored bf16 dots."""
+    for b, h, w, c in ((128, 56, 56, 64), (128, 112, 112, 64), (128, 28, 28, 128)):
+        flop = 2.0 * b * h * w * 9 * c * c
+        nbytes = 2 * 2 * b * h * w * c + 2 * 9 * c * c + 2 * 4 * c
+        v = bound(flop, nbytes, flop / PEAK_BF16_FLOPS * 1e3)
+        print(f"  conv3x3_pallas [{b}, {h}, {w}, {c}] bf16: bound_ms={v['bound_ms']:.4f} "
+              f"({v['bound_by']}: {flop:.4e} FLOP, {nbytes:.4e} B)")
+    b, d, t, nt = 128, 512, 1024, 512
+    ops = 2.0 * b * d * t * nt
+    for what, item, peak in (("int8 x int8 -> int32", 1, PEAK_INT8_OPS),
+                             ("bf16 x bf16 -> f32", 2, PEAK_BF16_FLOPS),
+                             ("int8 stored, bf16 dot", 1, PEAK_BF16_FLOPS)):
+        nbytes = item * (nt * t * d + b * d) + 4 * b * t
+        v = bound(ops, nbytes, ops / peak * 1e3)
+        print(f"  probe_int8_mxu {what}: bound_ms={v['bound_ms']:.4f} ({v['bound_by']}: "
+              f"{ops:.4e} operations, {nbytes:.4e} B)")
+
+
+def twin_kernel_phases() -> tuple[dict, dict]:
+    """Phases 25-27. Returns (times, max errors) by kernel entry name."""
+    times, errs = {}, {}
+    name = lambda k_, form: k_ if form == "f32" else f"{k_}[{form}]"  # noqa: E731
+    print("== phase 25: twin parity at full width; limits in vlsfr_tpu_torch/utils/parity.py "
+          "(the quad's: ce / neg / logz 1e-4, top-k 1e-5, d_gt 1e-5, d_emb 1e-4 x max on f32, "
+          "parity.rounded_demb on bf16)")
+    for form in TWIN_FORMS:
+        case, raw = twin_case(TWIN_Q, "Arc", seed=15, form=form)
+        want, e = twin_parity(case)
+        errs[name("twin_fwd", form)], errs[name("twin_bwd", form)] = e["fwd"], e["bwd"]
+        print(f"== phase 26: {form} twin partial kernels, the queue as 1 block and as "
+              f"{SHARDS} blocks of {TWIN_Q // SHARDS}")
+        for n in (1, SHARDS):
+            print(f"  {form}: {n} block(s):")
+            for k_, err in twin_shard_parity(case, raw, n).items():
+                errs[name(k_, form)] = max(errs.get(name(k_, form), 0.0), err)
+        print(f"== phase 27: {form} twin timing (Q = {TWIN_Q})")
+        times.update(twin_timing(form, case, want))
+        times.update(twin_partial_timing(form, case, raw, want))
+        del case, raw, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        for loss_type in ("AM", "SV"):
+            e = twin_parity(twin_case(4096, loss_type, seed=16, form=form)[0])
+            errs[name("twin_fwd", form)] = max(errs[name("twin_fwd", form)], e[1]["fwd"])
+            errs[name("twin_bwd", form)] = max(errs[name("twin_bwd", form)], e[1]["bwd"])
+            print(f"  {form}: Q=4096 {loss_type} in {SHARDS} blocks:")
+            twin_shard_parity(*twin_case(4096, loss_type, seed=17, form=form), SHARDS)
+    print("  bf16 at a resolved tile other than 512 (2048 requested, Q = 65,536):")
+    _, e = twin_parity(twin_case(1 << 16, "Arc", seed=18, form="bf16")[0], tile=2048)
+    errs["twin_bwd[bf16]"] = max(errs["twin_bwd[bf16]"], e["bwd"])
+    print("  the bounds of the TPU kernels still to port (H100 SXM dense rates):")
+    unported_bounds()
+    return times, errs
+
+
+def twin_slice_losses(trainer, batch, idx, queue, head: str, mesh=None, tile: int = TWIN_TILE):
+    """Both directional losses of one batch pair and its plan ``idx`` on
+    ``queue`` through ``head``: "twin" (directional_loss(use_fused=True,
+    defer_scatter=True) per direction), "sharded" (the same with
+    make_sharded_twin_loss over ``mesh``) or "quad" (quad_add_margin at the
+    tile request ``tile``). Returns (loss_a, loss_b, the probe's parameter
+    gradients, the head's d_emb [2b, D], the launch counts of the head)."""
+    from vlsfr_tpu_torch.core.ffc import _pass_to, directional_loss
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.parallel.sharded_twin import make_sharded_twin_loss
+
+    st, dev = trainer.state, queue.device
+    ia, ib = _pass_to(idx.a, dev), _pass_to(idx.b, dev)
+    x, y = (torch.as_tensor(a).to(dev) for a in (batch.x, batch.y))
+    b = x.shape[0]
+    kw = dict(loss_type="Arc", margin=0.5, scale=32.0, hard_neg=SLICE["k"], mask_svfc=1.2)
+    st.probe.train()
+    st.gallery.train()
+    st.probe.zero_grad(set_to_none=True)
+    p_xy = st.probe(torch.cat([x, y]))
+    with torch.no_grad():
+        g_yx = st.gallery(torch.cat([y, x]))
+    p_head = p_xy.detach().requires_grad_(True)  # the head's d_emb, then the backbone's
+    p_x, p_y, g_y, g_x = p_head[:b], p_head[b:], g_yx[:b], g_yx[b:]
+    ttm.reset_launch_counts()
+    if head == "quad":
+        (la, lb), _ = ttm.quad_add_margin(p_x, p_y, queue, g_y, g_x, (ia.rows, ia.cols, ia.seen),
+                                          (ib.rows, ib.cols, ib.seen), ia.fake_labels,
+                                          ib.fake_labels, tile=tile, with_acc=True, **kw)
+    else:
+        fn = None if mesh is None else make_sharded_twin_loss(mesh, with_acc=True, tile=tile,
+                                                              **kw)
+        la, plan_a, _ = directional_loss(p_x, g_y, queue, ia.rows, ia.cols, ia.seen,
+                                         ia.fake_labels, use_fused=True, sharded_loss_fn=fn,
+                                         defer_scatter=True, with_acc=True, **kw)
+        lb, plan_b, _ = directional_loss(p_y, g_x, queue, ib.rows, ib.cols, ib.seen,
+                                         ib.fake_labels, use_fused=True, sharded_loss_fn=fn,
+                                         defer_scatter=True, with_acc=True, **kw)
+        if not (torch.equal(plan_b[0], g_x) and torch.equal(plan_b[2], ib.cols)):
+            raise RuntimeError("directional_loss(defer_scatter=True) must return the write plan")
+    (la + lb).backward()
+    launches = dict(ttm.LAUNCH_COUNTS)
+    p_xy.backward(p_head.grad)
+    torch.cuda.synchronize()
+    grads = {k_: v.grad.detach().clone() for k_, v in st.probe.named_parameters()
+             if v.grad is not None}
+    return float(la.detach()), float(lb.detach()), grads, p_head.grad.detach().clone(), launches
+
+
+def twin_slice_phase(card: str, tmp: str) -> dict:
+    """Phase 28: the twin slice end to end on an ir50 probe and gallery in
+    f32, one DCP batch pair at batch 128, the 2^20 f32 queue, then its bf16
+    copy. Returns the twin launch counts of the twin runs."""
+    from vlsfr_tpu_torch.parallel import distributed
+    from vlsfr_tpu_torch.parallel.mesh import make_mesh
+    from vlsfr_tpu_torch.utils import parity
+
+    kernels = ("twin_fwd", "twin_bwd", "twin_partial_fwd", "twin_partial_bwd")
+    trainer = ffc_trainer(tmp, "model.dtype=float32")
+    launches = {}
+    try:
+        for s_ in range(3):  # warm the pool: pool hits, seen flags and blend writes
+            bt = trainer.pipeline.make_batch(0, s_)
+            trainer.dcp.plan_step(bt.x_label, bt.y_label)
+        batch = trainer.pipeline.make_batch(0, 3)
+        idx = trainer.dcp.plan_step(batch.x_label, batch.y_label)
+        print(f"  the batch pair: {int((idx.a.fake_labels >= 0).sum())} + "
+              f"{int((idx.b.fake_labels >= 0).sum())} in-pool probe rows, "
+              f"{int(idx.a.seen.sum())} + {int(idx.b.seen.sum())} pool hits")
+        run = functools.partial(twin_slice_losses, trainer, batch, idx)
+        q32 = trainer.state.queue
+        for form, queue in (("f32", q32), ("bf16", None)):
+            if queue is None:
+                queue = q32.bfloat16()
+            name = lambda k_: k_ if form == "f32" else f"{k_}[{form}]"  # noqa: E731
+            t0 = time.perf_counter()
+            la, lb, g_t, d_t, got = run(queue, "twin")
+            wall = (time.perf_counter() - t0) * 1e3
+            want = {name(k_): 2 for k_ in ("twin_fwd", "twin_bwd")}
+            print(f"  {form} twin: losses A {la:.6f} B {lb:.6f}; launches "
+                  f"{ {k_: v for k_, v in got.items() if v} }; forward + backward "
+                  f"{wall:.1f} ms ({card})")
+            if not only_launched(got, want):
+                raise RuntimeError(f"each directional loss must launch twin_fwd and twin_bwd "
+                                   f"once and no quad kernel: {got}")
+            launches.update(want)
+            qa, qb, g_q, d_q, _ = run(queue, "quad", tile=TWIN_TILE)
+            rel = max(abs(la - qa) / abs(qa), abs(lb - qb) / abs(qb))
+            print(f"  {form} quad (tile {TWIN_TILE}): losses A {qa:.6f} B {qb:.6f}; max "
+                  f"relative difference {rel:.3e} <= 1e-5")
+            if not rel <= 1e-5:
+                raise RuntimeError(f"the {form} twin pair's losses disagree with the quad's")
+            if form == "f32":
+                worst = max(float(((v.double() - g_q[k_].double()).abs()
+                                   - 1e-5 * g_q[k_].double().abs()).max())
+                            for k_, v in g_t.items())
+                print(f"  f32 probe parameter gradients, twin against quad: "
+                      f"max(|diff| - 1e-5 |quad|) {worst:.3e} <= 2e-5")
+                if not worst <= 2e-5:
+                    raise RuntimeError("the twin pair's gradients disagree with the quad's")
+            else:
+                checks = parity.rounded_demb("head d_emb, twin vs quad (both tile 512)", d_t, d_q)
+                report(checks, "the bf16 twin pair's head d_emb and the quad's")
+                qa2, qb2, _, d_q2, _ = run(queue, "quad", tile=FORM_TILE)
+                rel2 = max(abs(la - qa2) / abs(qa2), abs(lb - qb2) / abs(qb2))
+                print(f"  bf16 quad at the step's tile request {FORM_TILE} (d_cos rounded on "
+                      f"other tiles): losses max relative difference {rel2:.3e} <= 1e-5")
+                if not rel2 <= 1e-5:
+                    raise RuntimeError("the bf16 twin pair's losses disagree with the quad's")
+                report(parity.rounded_demb(f"head d_emb, twin ({TWIN_TILE}) vs quad "
+                                           f"({FORM_TILE})", d_t, d_q2),
+                       "the bf16 twin pair's head d_emb and the quad's at its own tile")
+            if not distributed.initialize("cuda"):
+                raise RuntimeError("a process group outlived its phase")
+            try:
+                mesh = make_mesh(1, 1)
+                sa, sb, _, d_s, got = run(queue, "sharded", mesh=mesh)
+            finally:
+                distributed.destroy()
+            want = {name(k_): 2 for k_ in ("twin_partial_fwd", "twin_partial_bwd")}
+            rel = max(abs(sa - la) / abs(la), abs(sb - lb) / abs(lb))
+            print(f"  {form} sharded twin (NCCL group of one): losses A {sa:.6f} B {sb:.6f}, "
+                  f"max relative difference to twin_add_margin {rel:.3e} <= 1e-5; launches "
+                  f"{ {k_: v for k_, v in got.items() if v} }")
+            checks = parity.demb_checks("head d_emb, sharded vs single", d_s, d_t, queue.dtype)
+            report(checks, f"the {form} sharded twin head")
+            if not (rel <= 1e-5 and only_launched(got, want)):
+                raise RuntimeError(f"the {form} sharded twin must match twin_add_margin and "
+                                   f"launch each partial kernel once per direction: {got}")
+            launches.update(want)
+            del queue
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        free_trainer(trainer)
+    return {k_: v for k_, v in launches.items() if k_.split("[")[0] in kernels}
 
 
 def main() -> int:
@@ -1902,6 +2350,16 @@ def main() -> int:
         times.update(ftimes)
         errs.update(ferrs)
         launches.update(flaunches)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ttimes, terrs = twin_kernel_phases()
+        times.update(ttimes)
+        errs.update(terrs)
+        print("== phase 28: the twin slice (ir50 f32 probe and gallery, batch 128, the 2^20 f32 "
+              "queue, then its bf16 copy): directional_loss(use_fused=True) and "
+              "make_sharded_twin_loss against quad_add_margin and twin_add_margin")
+        launches.update(twin_slice_phase(card, tmp))
 
     fwd_keys = ("ce", "neg", "logz", "topk")
     kernels = []
@@ -1924,7 +2382,13 @@ def main() -> int:
               for form in FORMS for name, replaces in (
                   ("quad_fwd", "twin_margin.py:1840"), ("quad_bwd", "twin_margin.py:1891"),
                   ("quad_partial_fwd", "twin_margin.py:1676"),
-                  ("quad_partial_bwd", "twin_margin.py:1748")))):
+                  ("quad_partial_bwd", "twin_margin.py:1748"))),
+            *((name if form == "f32" else f"{name}[{form}]", "quad_margin", replaces,
+               errs[name if form == "f32" else f"{name}[{form}]"])
+              for form in TWIN_FORMS for name, replaces in (
+                  ("twin_fwd", "twin_margin.py:786"), ("twin_bwd", "twin_margin.py:910"),
+                  ("twin_partial_fwd", "twin_margin.py:984"),
+                  ("twin_partial_bwd", "twin_margin.py:1042")))):
         t = times[name]
         if launches.get(name, 0) < 1:
             raise RuntimeError(f"{name} was not launched on its path")
@@ -1934,8 +2398,8 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": err, "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    if len(kernels) != 22:
-        raise RuntimeError(f"the kernels line must list 22 entries, has {len(kernels)}")
+    if len(kernels) != 30:
+        raise RuntimeError(f"the kernels line must list 30 entries, has {len(kernels)}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

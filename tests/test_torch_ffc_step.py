@@ -160,6 +160,24 @@ def test_entry_points_refuse_without_card_or_unported():
     assert np.isfinite(float(m["loss"])) and state.queue.dtype == torch.int8
 
 
+def test_fused_batch_above_kernel_rows_refused_up_front():
+    """On a card the fused head's kernels take 128 rows per direction: the
+    Trainer and ``create_ffc_state`` refuse a larger batch before anything
+    is built (the CPU's plain versions take any; the dense head takes any
+    batch on either device)."""
+    from vlsfr_tpu_torch.core.ffc import check_kernel_batch
+
+    fused = Config().apply_overrides(["data.batch_size=512", "pool.use_fused=on"])
+    check_kernel_batch(fused, "cpu")
+    with pytest.raises(NotImplementedError, match="512 above the fused FFC head's kernels' "
+                                                  "128 rows per direction is not ported"):
+        check_kernel_batch(fused, torch.device("cuda"))
+    check_kernel_batch(Config().apply_overrides(["data.batch_size=512", "pool.use_fused=off"]),
+                       "cuda")
+    check_kernel_batch(Config().apply_overrides(["data.batch_size=128", "pool.use_fused=on"]),
+                       "cuda")
+
+
 class Pinned(torch.nn.Module):
     """A net whose output carries the bits of ``target`` while its gradient
     flows through ``net``: out + (target − out), exact (Sterbenz) where the

@@ -38,7 +38,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "vlsfr_tpu_torch.train.softmax_head", "vlsfr_tpu_torch.train.sparse_classifier",
                  "vlsfr_tpu_torch.parallel.distributed", "vlsfr_tpu_torch.parallel.mesh",
                  "vlsfr_tpu_torch.parallel._shard_common",
-                 "vlsfr_tpu_torch.parallel.sharded_quad", "vlsfr_tpu_torch.parallel.sharded_margin",
+                 "vlsfr_tpu_torch.parallel.sharded_quad", "vlsfr_tpu_torch.parallel.sharded_twin",
+                 "vlsfr_tpu_torch.parallel.sharded_margin",
                  "vlsfr_tpu_torch.parallel.sharded_fused",
                  "vlsfr_tpu_torch.parallel.sharded_sparse"):
         assert want in res["modules"]

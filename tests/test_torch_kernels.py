@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (the quad head's and the streaming softmax's)
-against their plain PyTorch versions.
+"""The port's CUDA kernels (the quad and twin heads' and the streaming
+softmax's) against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so the ``gpu`` tests run
 on a machine with a card and no JAX:
@@ -18,7 +18,8 @@ sparse backward on the kernel's and the plain version's common tile_idx,
 its d_w rows per row set as below, d_emb on its streamed part, d_gt 1e-5;
 quad d_emb 1e-4 × its max (f32 queue; the bf16 and int8 forms' in two
 parts, ``parity.rounded_demb``: at most 8 rows beyond 1e-5 × max, none
-beyond 2^-7 × max); the int8-compute dot bit for bit. The softmax kernels' gradients are held where
+beyond 2^-7 × max); the int8-compute dot bit for bit; the twin kernels as
+the quad's (``parity.twin_checks``). The softmax kernels' gradients are held where
 the kernel computes them alone (``vlsfr_tpu_torch/utils/parity.py``): d_emb
 to 1e-4 × the max of its streamed part (less the target term both sides add
 in plain torch); d_w, w' and mom' per row set — the batch's label rows and
@@ -700,8 +701,8 @@ FORMS = ("bf16", "int8", "int8c")
 @pytest.mark.parametrize("form", FORMS)
 def test_form_plain_versions_are_chunk_invariant(form):
     """The rounded forms' plain versions over chunks of 64 and of 1024
-    columns (the backward's rounding follows 64-column tiles, so a chunk
-    is a whole number of tiles)."""
+    columns (the backward's rounding follows the rounding tile, whatever
+    the chunk)."""
     queue, packed, kw, dce, dneg = make_packed(1, b=8, q=300, d=64, k=4, form=form)
     E, rest = packed[0], packed[1:]
     a = ttm.quad_fwd_plain(E, queue, *rest, chunk=64, **kw)
@@ -806,7 +807,8 @@ def test_form_checks_reject_planted_faults(tmp_path, monkeypatch):
     kernels and fail a quad_margin.cu that skips the clean tiles' bf16
     rounding of d_cos (every form), one that skips the bf16 written tiles'
     (bf16), and one whose int8 loader reads the wrong words (int8c), at
-    Arc, b = 64, Q = 5000, D = 128 and AM, b = 128, Q = 40000, D = 512.
+    Arc, b = 64, Q = 5000, D = 128 and AM, b = 128, Q = 40000, D = 512,
+    with the rounding tile at 64 columns (so that tiles are clean).
     Prints each reading. Not planted: Arc / AM's combined clean-tile d_cos
     replaced by the sum of the two views' — the same function up to f32
     rounding, which no limit tells from another summation order; the CPU
@@ -822,7 +824,7 @@ def test_form_checks_reject_planted_faults(tmp_path, monkeypatch):
             queue, kw = case[0], case[2]
             for name, lib in libs.items():
                 monkeypatch.setitem(cuda_build._LOADED, "quad_margin", lib)
-                checks, _ = parity.quad_checks(*case)
+                checks, _ = parity.quad_checks(*case, tile=64)
                 if form == "int8c":
                     checks += parity.int8_dot_checks(*kw["e8"], queue[0], kw["qscales"])
                 torch.cuda.synchronize()
@@ -839,3 +841,156 @@ def test_form_checks_reject_planted_faults(tmp_path, monkeypatch):
     for lt in ("Arc", "AM"):
         assert {"int8 raw dot (kernel, forward tiles)",
                 "int8 raw dot (kernel, backward tiles)"} <= failed["int8_word_offset", "int8c", lt]
+
+
+# ----------------------------------------------------------------------
+# the twin kernels
+# ----------------------------------------------------------------------
+
+
+def make_twin(seed, b, q, d, k, device="cpu", loss_type="Arc", form="f32"):
+    """One direction's twin case (E, G, V, rows, cols, blend, labels, gt),
+    a duplicate slot, outliers and in-pool labels on written slots, their
+    probes near the written rows; the queue f32 or bf16; masked cotangents
+    [2, b]."""
+    rng = np.random.default_rng(seed)
+    unit = lambda x: (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
+    queue = torch.from_numpy(unit(rng.standard_normal((2, q, d)))).to(device)
+    if form == "bf16":
+        queue = queue.bfloat16()
+    rows = rng.integers(0, 2, b).astype(np.int32)
+    cols = rng.integers(0, q, b).astype(np.int32)
+    rows[1], cols[1] = rows[0], cols[0]
+    seen = (rng.random(b) < 0.5).astype(np.float32)
+    labels = cols.copy()
+    labels[rng.random(b) < 0.3] = -1
+    labels[2] = -1
+    p, g = unit(rng.standard_normal((b, d))), unit(rng.standard_normal((b, d)))
+    # in-pool probes near their own writes: the target term then carries
+    # weight in logz (random probes leave it ~e^-15 of the sum)
+    own = labels >= 0
+    p[own] = unit(g[own] + 0.5 * rng.standard_normal((int(own.sum()), d)) / np.sqrt(d))
+    t = [torch.from_numpy(x).to(device) for x in (p, g, rows, cols, seen, labels)]
+    g32, rows_i, cols_i, v, blend = ttm.dir_inputs(queue, *t[1:5])
+    gt = torch.stack(ttm.compute_twin_gt(t[0], queue, *t[1:6]))
+    inputs = tuple(x.contiguous() for x in (t[0], g32, v, rows_i, cols_i, blend.to(torch.int32),
+                                            t[5].to(torch.int32), gt))
+    kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
+    cot = torch.from_numpy((rng.standard_normal((4, b)) / b).astype(np.float32)).to(device)
+    pos = (inputs[6] >= 0)[None, :]
+    dce = torch.where(pos, cot[:2], 0.0).contiguous()
+    dneg = torch.where(pos, 0.0, cot[2:]).contiguous()
+    return queue, inputs, kw, dce, dneg, (t, labels)
+
+
+TWIN_CASES = [(f, lt, b, q, d, k, tile) for f in ("f32", "bf16")
+              for lt, b, q, d, k, tile in (("Arc", 64, 5000, 128, 10, 512),
+                                           ("SV", 64, 5000, 128, 10, 64),
+                                           ("AM", 128, 40000, 512, 16, 2048))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,loss_type,b,q,d,k,tile", TWIN_CASES)
+def test_cuda_twin_kernels_match_plain(form, loss_type, b, q, d, k, tile):
+    """twin_fwd / twin_bwd against their plain versions (``parity.twin_checks``),
+    each launching its own counter once."""
+    dev = _cuda()
+    queue, inputs, kw, dce, dneg, _ = make_twin(0, b, q, d, k, device=dev, loss_type=loss_type,
+                                                form=form)
+    ttm.reset_launch_counts()
+    checks, _ = parity.twin_checks(queue, inputs, kw, dce, dneg, tile=tile)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(form, loss_type, parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("twin_fwd", form)] == 1
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("twin_bwd", form)] == 1
+    assert sum(ttm.LAUNCH_COUNTS.values()) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,loss_type", [("f32", "Arc"), ("f32", "SV"), ("bf16", "Arc")])
+def test_twin_partial_kernels_and_merge_match_plain_and_whole(form, loss_type):
+    """The twin partial kernels over 4 emulated blocks against their plain
+    versions, and the merged blocks against twin_fwd / twin_bwd on the
+    whole queue (``parity.twin_shard_checks``)."""
+    dev = _cuda()
+    queue, inputs, kw, dce, dneg, (t, _) = make_twin(5, 64, 4096, 128, 10, device=dev,
+                                                     loss_type=loss_type, form=form)
+    ttm.reset_launch_counts()
+    checks = parity.twin_shard_checks(t[0], queue, t[1], t[2:5], t[5], dce, dneg, kw, 4)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(form, loss_type, parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("twin_partial_fwd", form)] == 4
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("twin_partial_bwd", form)] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+def test_twin_add_margin_on_card_matches_cpu(form):
+    """twin_add_margin and its autograd on the card against the same call
+    on CPU copies (the plain versions): loss 1e-5 relative, d_emb 1e-4 ×
+    its max (f32) or ``rounded_demb`` (bf16); each twin kernel once."""
+    dev = _cuda()
+    queue, _, kw, _, _, (t, _) = make_twin(7, 128, 20000, 256, 10, device=dev, form=form)
+    lkw = dict(loss_type="Arc", margin=0.5, scale=32.0, hard_neg=10, mask_svfc=1.2)
+    res = []
+    ttm.reset_launch_counts()
+    for to in (lambda x: x, lambda x: x.cpu()):
+        emb = to(t[0]).clone().requires_grad_(True)
+        loss, acc = ttm.twin_add_margin(emb, to(queue), *(to(x) for x in t[1:]), with_acc=True,
+                                        **lkw)
+        loss.backward()
+        res.append((float(loss.detach()), float(acc), emb.grad.cpu()))
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("twin_fwd", form)] == 1
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("twin_bwd", form)] == 1
+    (lk, ak, gk), (lp, ap, gp) = res
+    assert lk == pytest.approx(lp, rel=1e-5) and ak == pytest.approx(ap, abs=1e-6)
+    checks = parity.demb_checks("d_emb", gk, gp, queue.dtype)
+    assert not parity.failures(checks), [parity.describe(c) for c in checks]
+
+
+# source edits of quad_margin.cu that the twin checks must reject
+TWIN_FAULTS = {
+    # the twin forward leaves the target column out of its stream
+    "twin_target_not_streamed": ("stream_z(zt0, m0, s0);\n    stream_z(zt1, m1, s1);",
+                                 "(void)0;"),
+    # the backward chooses its rounding per 64-column tile, not per rounding tile
+    "rounding_per_64_columns": ("const bool hit = written[2 + dirr[i]] != 0;",
+                                "const bool hit = w64;"),
+}
+
+
+@pytest.mark.gpu
+def test_twin_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """``parity.twin_checks`` and ``twin_shard_checks`` pass the real
+    kernels and fail a quad_margin.cu whose twin forward leaves the target
+    out of the stream (ce / logz, the partial state) and one whose backward
+    rounds per 64 columns on a bf16 queue at a 512-column rounding tile
+    (``rounded_demb``; b = 128, Q = 65,536, D = 512, Arc). Prints each
+    reading."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, TWIN_FAULTS, source="quad_margin")
+    failed = {}
+    for form in ("f32", "bf16"):
+        queue, inputs, kw, dce, dneg, (t, _) = make_twin(3, 128, 1 << 16, 512, 10, device=dev,
+                                                         form=form)
+        for name, lib in libs.items():
+            monkeypatch.setitem(cuda_build._LOADED, "quad_margin", lib)
+            checks, _ = parity.twin_checks(queue, inputs, kw, dce, dneg, tile=512)
+            checks += parity.twin_shard_checks(t[0], queue, t[1], t[2:5], t[5], dce, dneg, kw, 4)
+            torch.cuda.synchronize()
+            for c in checks:
+                print(f"{name} {form}: {parity.describe(c)}")
+            failed[name, form] = {c["name"] for c in parity.failures(checks)}
+    rows = f"d_emb rows beyond {parity.DEMB_TIGHT:g} x max"
+    for form in ("f32", "bf16"):
+        assert failed["real", form] == set()
+        assert {"ce", "logz", "block 0/4 partial m + log s"} <= failed[
+            "twin_target_not_streamed", form]
+    assert rows in failed["rounding_per_64_columns", "bf16"]
+    assert failed["rounding_per_64_columns", "f32"] == set()  # f32 rounds nothing

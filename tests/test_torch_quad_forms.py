@@ -6,17 +6,21 @@ On the CPU the port's wrappers run their plain versions; these round where
 the JAX kernels round (the module docstring of the port's twin_margin.py):
 bf16 dot operands with f32 sums, int8 rows scaled after the dot, the
 int8-compute dot of the quantised probes as an exact integer sum, and the
-backward's d_cos rounded to bf16 per 64-column tile as JAX's tile of 64
-does. Both sides round at the same points, so what is left is the order
-of f32 sums and, rarely, a d_cos whose last f32 bits differ landing on the
-other side of a bf16 rounding boundary. Limits: per-row values (ce, neg,
-logz) 1e-5 relative + 1e-5 absolute; top-k 1e-6; d_emb 1e-5 × its max;
-d_gt 1e-5; the int8-compute raw dot bit for bit. The scale is 32, a power
-of two, so JAX's z = f32(acc) · ((se · 32) · s) is the port's
-32 · (f32(acc) · (se · s)) exactly.
+backward's d_cos rounded to bf16 per tile of JAX's kernel, the tile both
+sides resolve from the same request (``round_tile``). Both sides round at
+the same points, so what is left is the order of f32 sums and, rarely, a
+d_cos whose last f32 bits differ landing on the other side of a bf16
+rounding boundary. Limits: per-row values (ce, neg, logz) 1e-5 relative +
+1e-5 absolute; top-k 1e-6; d_emb 1e-5 × its max; d_gt 1e-5; the
+int8-compute raw dot bit for bit. The scale is 32, a power of two, so
+JAX's z = f32(acc) · ((se · 32) · s) is the port's 32 · (f32(acc) · (se ·
+s)) exactly.
 
 Sizes are tests/test_qqueue.py's (b = 16 probes per direction, q = 512
-slots, d = 128), with the JAX tile at 64 columns.
+slots, d = 128), with the tile at 64 columns, and again at tiles that
+resolve to 256 and 512 columns (the shipped configs resolve 1024 and
+2048); a backward that rounds per 64 columns there fails
+``parity.rounded_demb`` against JAX.
 """
 
 import functools
@@ -71,17 +75,17 @@ def interpret(fn):
     return functools.partial(fn, interpret=True)
 
 
-def pallas_kw(loss_type, form, qs):
-    return dict(loss_type=loss_type, margin=0.5, scale=SCALE, k=K, mask_svfc=1.2, tile=TILE,
+def pallas_kw(loss_type, form, qs, tile=TILE):
+    return dict(loss_type=loss_type, margin=0.5, scale=SCALE, k=K, mask_svfc=1.2, tile=tile,
                 interpret=True, qscales=qs, int8_compute=form == "int8c")
 
 
-def port_quad(tq, tqs, da, db, loss_type, form):
+def port_quad(tq, tqs, da, db, loss_type, form, tile=TILE):
     """QuadMargin outputs (8 per-row values and 2 hits) with leaf probes."""
     t = [torch.from_numpy(x) for x in (*da, *db)]
     px, py = t[0].clone().requires_grad_(True), t[6].clone().requires_grad_(True)
     out = ttm.QuadMargin.apply(px, py, tq, tqs, t[1], t[7], t[2], t[3], t[4], t[8], t[9], t[10],
-                               t[5], t[11], loss_type, 0.5, SCALE, K, 1.2, form == "int8c")
+                               t[5], t[11], loss_type, 0.5, SCALE, K, 1.2, form == "int8c", tile)
     return out, px, py
 
 
@@ -90,6 +94,21 @@ def port_quad(tq, tqs, da, db, loss_type, form):
 def test_quad_forms_match_pallas_interpret(form, loss_type, rng):
     """The forward's per-row values, logz and top-k, and the backward's
     d_emb (with the φ'(gt) tail), against pallas_quad_fwd / _bwd."""
+    forms_against_pallas(form, loss_type, rng, TILE)
+
+
+@pytest.mark.parametrize("tile", [256, 512])
+@pytest.mark.parametrize("form", FORMS)
+def test_quad_forms_match_pallas_interpret_at_rounding_tile(form, tile, rng):
+    """As above (Arc) with JAX's kernel tile at 256 and 512 columns (512:
+    what ``pool.queue_tile = 0`` picks at 512 slots): the port resolves the
+    same tile from the same request and rounds d_cos per that tile."""
+    jtile = jtm._fit_tile(Q, jtm._twin_tile(B, D, tile, 1 if form != "bf16" else 2))
+    assert jtile == tile == ttm.round_tile(Q, B, D, tile, 1 if form != "bf16" else 2)
+    forms_against_pallas(form, "Arc", rng, tile)
+
+
+def forms_against_pallas(form, loss_type, rng, tile):
     jq, qs = make_queue(rng, form)
     da, db = make_dir(rng), make_dir(rng)
     j = [jnp.asarray(x) for x in (*da, *db)]
@@ -97,11 +116,11 @@ def test_quad_forms_match_pallas_interpret(form, loss_type, rng):
     py, gb, rb, cb, sb, lb = j[6:]
     gts_a = jtm.compute_twin_gt(px, jq, ga, ra, ca, sa, la, qscales=qs)
     gts_b = jtm.compute_twin_gt(py, jq, gb, rb, cb, sb, lb, qscales=qs)
-    pk = pallas_kw(loss_type, form, qs)
+    pk = pallas_kw(loss_type, form, qs, tile)
     out_p, res_p = jtm.pallas_quad_fwd(px, py, jq, ga, gb, (ra, ca, sa), (rb, cb, sb), la, lb,
                                        gts_a, gts_b, **pk)
     tq, tqs = state_from_jax(np.asarray(jq), None if qs is None else np.asarray(qs))
-    out_t, tx, ty = port_quad(tq, tqs, da, db, loss_type, form)
+    out_t, tx, ty = port_quad(tq, tqs, da, db, loss_type, form, tile)
     for got, want in zip(out_t[:8], out_p):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
@@ -185,7 +204,7 @@ def test_quad_add_margin_forms_match_jax(form, rng, monkeypatch):
     (ta, tb), tacc = ttm.quad_add_margin(
         px, py, tq, t(1, da), t(1, db), (t(2, da), t(3, da), t(4, da)),
         (t(2, db), t(3, db), t(4, db)), t(5, da), t(5, db), with_acc=True, qscales=tqs,
-        int8_compute=int8c, **kw)
+        int8_compute=int8c, tile=TILE, **kw)
     (ta + 2.0 * tb).backward()
     np.testing.assert_allclose(float(ta.detach()), float(la), rtol=1e-5)
     np.testing.assert_allclose(float(tb.detach()), float(lb), rtol=1e-5)
@@ -238,6 +257,19 @@ def test_partial_forms_match_pallas_interpret(form, loss_type, rng):
     pallas_quad_partial_fwd / _bwd (more writes than probes: bp = 8,
     b = 4). JAX's fixed-reference body keeps m = scale, so the state is
     held as m + log s."""
+    partial_forms_against_pallas(form, loss_type, rng, TILE)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_partial_forms_match_pallas_interpret_at_rounding_tile(form, rng):
+    """As above (Arc) at JAX's default tile request of 512, which both
+    sides resolve over the block of 128 slots and max(b, bp) rows to 128
+    columns."""
+    assert ttm.round_tile(C_LOCAL, 8, D, 512, 2 if form == "bf16" else 1) == C_LOCAL
+    partial_forms_against_pallas(form, "Arc", rng, 512)
+
+
+def partial_forms_against_pallas(form, loss_type, rng, tile):
     b, bp = 4, 8
     jq, qs = make_queue(rng, form, q=C_LOCAL)
     da, db = (partial_dir(rng, jq, qs, b, bp) for _ in range(2))
@@ -255,7 +287,7 @@ def test_partial_forms_match_pallas_interpret(form, loss_type, rng):
                        jnp.asarray(dd["lcol"]), jnp.asarray(dd["v"]), jnp.asarray(dd["blend"]),
                        jnp.asarray(dd["ll"]), jnp.asarray(dd["gts"][0]),
                        jnp.asarray(dd["gts"][1]))
-    pk = pallas_kw(loss_type, form, qs)
+    pk = pallas_kw(loss_type, form, qs, tile)
     pk["mxu_bf16"] = form == "bf16"
     parts = jtm.pallas_quad_partial_fwd(jnp.asarray(da["emb"]), jnp.asarray(db["emb"]), jq,
                                         jdir(da), jdir(db), **pk)
@@ -274,7 +306,7 @@ def test_partial_forms_match_pallas_interpret(form, loss_type, rng):
     dce, dneg = np.where(pos, cot[:2], 0.0), np.where(pos, 0.0, cot[2:])
     f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))  # noqa: E731
     d_emb, dgt = ttm.quad_partial_bwd(E, tq[0], G, V, rows, lcol, blend, ll, gt, f32(logz),
-                                      f32(kth), f32(dce), f32(dneg), **kw, **fkw)
+                                      f32(kth), f32(dce), f32(dneg), **kw, **fkw, tile=tile)
     glob = lambda rs: tuple(jnp.asarray(x) for x in (  # noqa: E731
         logz[0, rs], logz[1, rs], kth[0, rs], kth[1, rs], dce[0, rs], dneg[0, rs], dce[1, rs],
         dneg[1, rs]))
@@ -286,3 +318,36 @@ def test_partial_forms_match_pallas_interpret(form, loss_type, rng):
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * np.abs(want).max())
     np.testing.assert_allclose(dgt.numpy(), np.stack([np.concatenate([dg1a, dg1b]),
                                                       np.concatenate([dg2a, dg2b])]), atol=1e-5)
+
+
+def test_64_column_rounding_fails_at_a_wider_tile(rng):
+    """The repair's witness: on a bf16 queue of 2048 slots with JAX's tile
+    at 512, many 64-column tiles hold none of a direction's writes while
+    their 512-column tile does. A backward that chooses its rounding per
+    64 columns (the port before the repair) fails ``rounded_demb`` against
+    pallas_quad_bwd there; the port at the same tile request passes."""
+    q = 2048
+    jq, qs = make_queue(rng, "bf16", q=q)
+    da, db = make_dir(rng, q=q), make_dir(rng, q=q)
+    j = [jnp.asarray(x) for x in (*da, *db)]
+    px, ga, ra, ca, sa, la = j[:6]
+    py, gb, rb, cb, sb, lb = j[6:]
+    gts_a = jtm.compute_twin_gt(px, jq, ga, ra, ca, sa, la)
+    gts_b = jtm.compute_twin_gt(py, jq, gb, rb, cb, sb, lb)
+    pk = pallas_kw("Arc", "bf16", None, 512)
+    _, res_p = jtm.pallas_quad_fwd(px, py, jq, ga, gb, (ra, ca, sa), (rb, cb, sb), la, lb,
+                                   gts_a, gts_b, **pk)
+    cots = [(rng.standard_normal(B) / B).astype(np.float32) for _ in range(8)]
+    c = [jnp.asarray(x) for x in cots]
+    want = np.concatenate([np.asarray(x) for x in jtm.pallas_quad_bwd(
+        px, py, jq, ga, gb, (ra, ca, sa), (rb, cb, sb), la, lb, gts_a, gts_b, res_p[:4],
+        res_p[4:], tuple(c[:4]), tuple(c[4:]), **pk)])
+    tq, _ = state_from_jax(np.asarray(jq))
+    bad = {}
+    for tile in (TILE, 512):
+        out_t, tx, ty = port_quad(tq, None, da, db, "Arc", "bf16", tile)
+        torch.autograd.backward(list(out_t[:8]), [torch.from_numpy(x) for x in cots])
+        got = torch.cat([tx.grad, ty.grad])
+        bad[tile] = parity.failures(parity.rounded_demb("d_emb", got, torch.from_numpy(want)))
+    assert bad[TILE], "the 64-column rule should not pass at JAX's 512-column tile"
+    assert not bad[512], bad[512]

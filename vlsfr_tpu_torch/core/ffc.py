@@ -13,7 +13,8 @@ One step of the FFC twin network over a host-planned ``StepIndices``:
    (ops/twin_margin.py, CUDA kernels on the card), else the dense head;
    with a mesh whose ``model`` axis is > 1, or ``pool.force_sharded``, the
    fused head runs model-sharded (parallel/sharded_quad.py): each rank
-   holds one block [2, Q/m, D] of the queue;
+   holds one block [2, Q/m, D] of the queue. The rounded queue forms'
+   backward rounds per tile of ``quad_tile`` as JAX computes it;
 4. backward, then direction B's queue write IN PLACE on the [2, Q, D]
    queue (or the rank's block of it) after the backward, which still reads
    the pre-write queue; last writer wins among duplicate slots. A bf16
@@ -43,7 +44,7 @@ from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import PassIndices, StepIndices
 from vlsfr_tpu_torch.ops.margin import add_margin, default_hard_neg
 from vlsfr_tpu_torch.ops.qqueue import quantize_rows
-from vlsfr_tpu_torch.ops.twin_margin import quad_add_margin
+from vlsfr_tpu_torch.ops.twin_margin import MAX_ROWS, quad_add_margin, twin_add_margin
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
 from vlsfr_tpu_torch.parallel.sharded_quad import make_sharded_quad_loss
@@ -142,19 +143,53 @@ def write_rows_(queue: torch.Tensor, g: torch.Tensor, rows: torch.Tensor,
 
 
 def directional_loss(p, g, queue, rows, cols, seen, fake_labels, *, loss_type, margin, scale,
-                     hard_neg, mask_svfc=1.2, with_acc=False):
-    """Dense head, one direction: write the gallery embeddings into a copy
-    of the queue, score the probes against both views, sum the two margin
-    losses. Returns (loss, written_queue[, acc])."""
+                     hard_neg, mask_svfc=1.2, use_fused=False, sharded_loss_fn=None,
+                     defer_scatter=False, with_acc=False):
+    """One direction: write the gallery embeddings, score the probes
+    against both queue views, sum the two margin losses (JAX's
+    ``directional_loss``). Returns (loss, written_queue[, acc]).
+
+    The dense head writes into a copy of the queue and materialises the
+    [B, Q] logits. With ``use_fused`` the twin head streams both views
+    with the writes applied in registers (``ops/twin_margin.twin_add_margin``:
+    the twin CUDA kernels on the card), or ``sharded_loss_fn(p, queue, g,
+    rows, cols, seen, labels)`` does (``parallel/sharded_twin.py``, over
+    this rank's block ``queue``); with ``defer_scatter`` the second result
+    is the write plan ``(g, rows, cols)`` for the caller to apply after the
+    backward, else the written copy of the queue. A sharded loss needs
+    ``defer_scatter``: the plan holds global slots, and only the caller
+    knows where its block starts (``mesh.class_block``)."""
     g = g.detach()
+    kw = dict(loss_type=loss_type, margin=margin, scale=scale, hard_neg=hard_neg,
+              mask_svfc=mask_svfc)
+    if use_fused:
+        if sharded_loss_fn is not None:
+            if not defer_scatter:
+                raise ValueError(
+                    "sharded_loss_fn needs defer_scatter=True: the queue is this rank's "
+                    "block and the write plan's slots are global, so the caller applies "
+                    "the plan at its block's first slot (mesh.class_block)")
+            out = sharded_loss_fn(p, queue, g, rows, cols, seen, fake_labels)
+            if with_acc and not isinstance(out, tuple):
+                raise TypeError(
+                    "with_acc=True but sharded_loss_fn returned a bare loss "
+                    "— construct it with with_acc=True as well "
+                    "(parallel/sharded_twin.py, sharded_quad.py)")
+        else:
+            out = twin_add_margin(p, queue, g, rows, cols, seen, fake_labels, with_acc=with_acc,
+                                  **kw)
+        loss, acc = out if with_acc else (out, None)
+        if defer_scatter:
+            new_queue = (g, rows, cols)
+        else:
+            new_queue = write_rows_(queue.clone(), g, rows, cols)
+        return (loss, new_queue, acc) if with_acc else (loss, new_queue)
     new_queue = write_rows_(queue.clone(), g, rows, cols)
     q = queue.shape[1]
     mask = scatter_mask(seen, cols, q)[:, None]
     weight = mask * new_queue[1] + (1.0 - mask) * new_queue[0]
     cos1 = p.float() @ new_queue[0].float().T
     cos2 = p.float() @ weight.float().T
-    kw = dict(loss_type=loss_type, margin=margin, scale=scale, hard_neg=hard_neg,
-              mask_svfc=mask_svfc)
     loss = add_margin(cos1, fake_labels, **kw) + add_margin(cos2, fake_labels, **kw)
     if not with_acc:
         return loss, new_queue
@@ -199,11 +234,30 @@ def check_queue_config(cfg: Config) -> None:
             "pool.streaming_threshold")
     if pool.queue_int8_compute and pool.queue_dtype != "int8":
         raise ValueError("pool.queue_int8_compute requires pool.queue_dtype='int8'")
-    # checked as JAX checks it; the port's kernels tile by 64 columns
-    # whatever it says (ops/twin_margin.py module docstring)
     if pool.queue_tile > 0 and pool.queue_size % pool.queue_tile != 0:
         raise ValueError(f"pool.queue_tile={pool.queue_tile} must divide "
                          f"pool.queue_size={pool.queue_size}")
+
+
+def quad_tile(cfg: Config) -> int:
+    """The fused head's kernel tile request, as JAX's ``make_ffc_loss_fn``
+    computes it: ``pool.queue_tile``, or at 0 2048 when the queue divides
+    by 1024 and 512 otherwise (the kernels then resolve it,
+    ``ops/twin_margin.round_tile``)."""
+    if cfg.pool.queue_tile > 0:
+        return cfg.pool.queue_tile
+    return 2048 if cfg.pool.queue_size % 1024 == 0 else 512
+
+
+def check_kernel_batch(cfg: Config, device) -> None:
+    """Refuse, before anything is built, a batch above the fused head's
+    kernels' rows per direction on a card (the CPU's plain versions take
+    any)."""
+    on_kernels = use_fused_head(cfg) and torch.device(device).type == "cuda"
+    if on_kernels and cfg.data.batch_size > MAX_ROWS:
+        raise NotImplementedError(
+            f"data.batch_size={cfg.data.batch_size} above the fused FFC head's kernels' "
+            f"{MAX_ROWS} rows per direction is not ported yet")
 
 
 def make_train_step(cfg: Config, schedule, mesh=None):
@@ -221,16 +275,17 @@ def make_train_step(cfg: Config, schedule, mesh=None):
     loss_kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
                    hard_neg=hard_neg, mask_svfc=cfg.loss.mask_svfc)
     int8_compute = pool.queue_int8_compute
+    tile = quad_tile(cfg)
     col0 = 0
     quad_loss = functools.partial(quad_add_margin, with_acc=True, int8_compute=int8_compute,
-                                  **loss_kw)
+                                  tile=tile, **loss_kw)
     if use_sharded_head(cfg):
         if mesh is None:
             raise ValueError("the sharded FFC head (mesh.model > 1 or pool.force_sharded) "
                              "needs the mesh: make_train_step(cfg, schedule, mesh)")
         col0, _ = mesh.class_block(pool.queue_size)
         quad_loss = make_sharded_quad_loss(mesh, with_acc=True, int8_compute=int8_compute,
-                                           **loss_kw)
+                                           tile=tile, **loss_kw)
     elif cfg.mesh.model > 1:
         raise NotImplementedError("mesh.model > 1 with the dense FFC head (pool.use_fused off, "
                                   "or queue_size below pool.streaming_threshold) is not "
@@ -323,6 +378,7 @@ def create_ffc_state(model: nn.Module, cfg: Config, *, device=None, seed: int = 
     block is kept."""
     check_queue_config(cfg)
     dev = resolve_device(device)
+    check_kernel_batch(cfg, dev)
     probe = model.to(dev)
     gallery = copy.deepcopy(probe).requires_grad_(False)
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -38,18 +38,22 @@ __device__ __forceinline__ float phi_target(float gt, const A& a) {
   return gt > a.margin ? gt - a.margin : gt;
 }
 
-// one non-target column into a row's running (max, sumexp) of z = scale * mod
-template <class A>
-__device__ __forceinline__ void stream_update(float c, float gt, const A& a, float& m, float& s) {
-  float mod = c;
-  if (a.loss_type == LOSS_SV && c > gt - a.margin) mod = a.mask_svfc * c + a.mask_svfc - 1.0f;
-  const float z = a.scale * mod;
+// one logit z into a row's running (max, sumexp)
+__device__ __forceinline__ void stream_z(float z, float& m, float& s) {
   if (z > m) {
     s = s * expf(m - z) + 1.0f;
     m = z;
   } else {
     s += expf(z - m);
   }
+}
+
+// one non-target column into a row's running (max, sumexp) of z = scale * mod
+template <class A>
+__device__ __forceinline__ void stream_update(float c, float gt, const A& a, float& m, float& s) {
+  float mod = c;
+  if (a.loss_type == LOSS_SV && c > gt - a.margin) mod = a.mask_svfc * c + a.mask_svfc - 1.0f;
+  stream_z(a.scale * mod, m, s);
 }
 
 // values-only top-k, descending; `kth` mirrors tk[k - 1] so the common

@@ -1,13 +1,17 @@
-// Fused quad FFC head for NVIDIA Hopper (sm_90a): both FFC directions x
-// both queue views in one pass over q0, forward and backward.
+// Fused FFC heads for NVIDIA Hopper (sm_90a): the quad head (both FFC
+// directions x both queue views in one pass over q0) and the twin head (one
+// direction x both views), forward and backward.
 //
 // Replaces the TPU kernels vlsfr_tpu/ops/twin_margin.py:pallas_quad_fwd
-// (:1840) and :pallas_quad_bwd (:1891), and their per-shard forms
-// :pallas_quad_partial_fwd (:1676) and :pallas_quad_partial_bwd (:1748).
+// (:1840) and :pallas_quad_bwd (:1891), their per-shard forms
+// :pallas_quad_partial_fwd (:1676) and :pallas_quad_partial_bwd (:1748), and
+// the twin kernels :pallas_twin_fwd (:786), :pallas_twin_bwd (:910),
+// :pallas_twin_partial_fwd (:984) and :pallas_twin_partial_bwd (:1042).
 // Semantics are those of the scan reference _twin_stream_fwd /
 // _twin_stream_bwd there; the plain PyTorch versions beside the wrappers
 // (vlsfr_tpu_torch/ops/twin_margin.py quad_[partial_]fwd_plain /
-// quad_[partial_]bwd_plain) compute the same function.
+// quad_[partial_]bwd_plain, twin_[partial_]fwd_plain /
+// twin_[partial_]bwd_plain) compute the same functions.
 //
 // Layout ("packed"): probe rows E [R = 2B, D], rows [0, B) direction A and
 // [B, 2B) direction B; the writes of each direction come apart from its
@@ -15,8 +19,10 @@
 // holds B / data probes but the whole write plan): G (gallery writes), V
 // (view-2 write values) [2 BP, D], rows / cols / blend [2 BP] int32;
 // labels [R] int32; gt [2][R] (view-major); q0 is plane 0 of the queue (of
-// the shard's block of it, for the partial forms). All arithmetic is IEEE
-// f32 FMA or exact int32 — no TF32, no tensor cores (a later optimisation).
+// the shard's block of it, for the partial forms). The twin head takes the
+// same layout with one direction (R = B probes, BP writes; ND = 1). All
+// arithmetic is IEEE f32 FMA or exact int32 — no TF32, no tensor cores (a
+// later optimisation).
 //
 // Queue forms (template FORM; the wrapper's module docstring has the JAX
 // rounding points each follows):
@@ -31,10 +37,14 @@
 //           cos = f32(acc) * (se[row] * qs[col]).
 // Written columns dot the bf16-rounded E with the bf16-rounded G / V rows in
 // every form but F32. The backward rounds d_cos to bf16 before its product
-// with a stored row (INT8/INT8C: bf16(d_cos * qs[col]) times the int8 row);
-// a 64-column tile holding none of the direction's writes takes Arc/AM's
-// combined d_cos of both views (exp(z - ref) * c12 + the hard-negative
-// terms) and SV's sum of the two views, a tile holding a write routes each
+// with a stored row (INT8/INT8C: bf16(d_cos * qs[col]) times the int8 row).
+// The clean / written choice is JAX's, per tile of its kernel: the rounding
+// tile rtile (a multiple of 64, resolved by the wrapper as JAX resolves its
+// tile) — a 64-column compute tile is "written" when its direction writes
+// any column of the enclosing [floor(t0 / rtile) * rtile, + rtile) span. A
+// clean tile takes the quad's Arc/AM combined d_cos of both views
+// (exp(z - ref) * c12 + the hard-negative terms), and the quad's SV and the
+// twin's sum of the two views, rounded once; a written tile routes each
 // view's d_cos to the row that view reads (BF16 rounds each view alone).
 //
 // The partial forms (the model-sharded head, parallel/sharded_quad.py)
@@ -76,8 +86,17 @@
 //    each direction (shared-memory atomicMax on the index: deterministic).
 //    A written column's cosine is the probe's dot with that g (view 1) or
 //    v (view 2) row; q1 is never read.
-//  * Target columns are excluded from the stream and the top-k; the
+//  * Quad: target columns are excluded from the stream and the top-k; the
 //    target term scale*phi(gt) joins at the merge (gt comes from outside).
+//    Twin (a.twin): the block holding the target column adds z =
+//    scale*phi(gt) to its stream, as JAX's twin kernels do, after its other
+//    columns (the sum's order; see quad_fwd_kernel), so the merge adds
+//    nothing (the partial form: only the owner shard sees its target); the
+//    top-k still excludes it. d_gt is the target column's dz, (exp(z_t - logz) - 1) *
+//    d_ce * scale, on rows whose (shard-local) label is >= 0 — the one
+//    nonzero term of JAX's in-kernel sum; the quad computes the same.
+//  * The forward block holds 256 probe rows (the quad's 2B) or, for R <=
+//    128 (the twin's B), 128, so a twin tile costs half a quad tile.
 //  * Shared with margin_ce.cu (margin_common.cuh): the margin transform,
 //    the streamed (max, sumexp) and top-k, the partial merge, d_cos of a
 //    column and the shared-memory tile product.
@@ -108,12 +127,15 @@ struct Args {
   const int* labels;
   const float* gt;  // [2][R]
   int B, R, k;
-  int BP;  // writes per direction (G, V, rows, cols, blend hold 2 BP)
+  int BP;  // writes per direction (G, V, rows, cols, blend hold ND BP)
+  int ND;  // directions: 2 (quad, R = 2 B) or 1 (twin, R = B)
   int loss_type;
   float margin, scale, mask_svfc, cos_m, sin_m;
   const float* qs;         // INT8 / INT8C: q0's per-row scales [Q]
   const signed char* E8;   // INT8C: the quantised probes [R][D]
   const float* se;         // INT8C: their scales [R]
+  int rtile;               // the backward's rounding tile, a multiple of 64
+  int twin;                // the twin head: the target column in the stream
 };
 
 // dot product in index order, the same FMA chain as the GEMM tiles
@@ -125,7 +147,8 @@ __device__ __forceinline__ float row_dot(const float* x, const float* y, int n) 
 
 // per-tile write plan: last0/lastb[d * TC + c] = highest writer index (in
 // direction d) of column t0 + c, or -1; written[d] = whether the tile holds
-// any write of direction d (whatever its parity and blend).
+// any write of direction d (whatever its parity and blend), written[2 + d]
+// whether the rounding tile around it does (header).
 template <int TC>
 __device__ __forceinline__ void mark_writes(const Args& a, long long t0, int* last0, int* lastb,
                                             int* written) {
@@ -134,16 +157,19 @@ __device__ __forceinline__ void mark_writes(const Args& a, long long t0, int* la
     last0[i] = -1;
     lastb[i] = -1;
   }
-  if (tid < 2) written[tid] = 0;
+  if (tid < 4) written[tid] = 0;
   __syncthreads();
-  for (int e = tid; e < 2 * a.BP; e += blockDim.x) {
-    const long long off = (long long)a.cols[e] - t0;  // a column of -1 never matches
+  const long long span0 = t0 / a.rtile * a.rtile;
+  for (int e = tid; e < a.ND * a.BP; e += blockDim.x) {
+    const long long col = a.cols[e];  // a column of -1 never matches
+    const long long off = col - t0;
+    const int d = e / a.BP, i = e - d * a.BP;
     if (off >= 0 && off < TC) {
-      const int d = e / a.BP, i = e - d * a.BP;
       if (a.rows[e] == 0) atomicMax(&last0[d * TC + off], i);
       if (a.blend[e] > 0) atomicMax(&lastb[d * TC + off], i);
       written[d] = 1;  // every writer stores the same value
     }
+    if (col >= span0 && col < span0 + a.rtile) written[2 + d] = 1;
   }
   __syncthreads();
 }
@@ -238,22 +264,26 @@ __device__ __forceinline__ void cos_tile(const Args& a, float (&acc)[TI][TJ], fl
 // ---------------------------------------------------------------- forward
 
 // F_DK f32 features (or, for INT8C, F_DK int32 words of 4 int8 features)
-// per shared-memory stage
+// per shared-memory stage; a block holds ROWS = 256 or 128 probe rows
 constexpr int F_ROWS = 256, F_TC = 64, F_DK = 16, F_THREADS = 256;
 constexpr int F_ALD = F_ROWS + 4, F_BLD = F_TC + 4, F_CLD = F_TC + 1;
-constexpr size_t F_SMEM =
-    sizeof(float) * (F_DK * F_ALD + F_DK * F_BLD + F_ROWS * F_CLD) + sizeof(int) * (4 * F_TC + 2);
+template <int ROWS>
+constexpr size_t f_smem() {
+  return sizeof(float) * (F_DK * (ROWS + 4) + F_DK * F_BLD + ROWS * F_CLD) +
+         sizeof(int) * (4 * F_TC + 4);
+}
 
-template <int FORM>
+template <int FORM, int ROWS>
 __global__ void __launch_bounds__(F_THREADS)
     quad_fwd_kernel(Args a, long long cols_per_blk, float* part) {
+  constexpr int ALD = ROWS + 4, TI = ROWS / 32;
   extern __shared__ float smem[];
-  float* As = smem;               // E chunk, k-major [F_DK][F_ALD]
-  float* Bs = As + F_DK * F_ALD;  // q0 chunk, k-major [F_DK][F_BLD]
-  float* Cs = Bs + F_DK * F_BLD;  // cosine tile [F_ROWS][F_CLD]
-  int* last0 = reinterpret_cast<int*>(Cs + F_ROWS * F_CLD);
+  float* As = smem;               // E chunk, k-major [F_DK][ALD]
+  float* Bs = As + F_DK * ALD;    // q0 chunk, k-major [F_DK][F_BLD]
+  float* Cs = Bs + F_DK * F_BLD;  // cosine tile [ROWS][F_CLD]
+  int* last0 = reinterpret_cast<int*>(Cs + ROWS * F_CLD);
   int* lastb = last0 + 2 * F_TC;
-  int* written = lastb + 2 * F_TC;  // [2]
+  int* written = lastb + 2 * F_TC;  // [4]
 
   const int tid = threadIdx.x;
   const int tx = tid & 7, ty = tid >> 3;  // GEMM outputs: rows ty + 32i, cols tx + 8j
@@ -266,6 +296,7 @@ __global__ void __launch_bounds__(F_THREADS)
   const int label = row_ok ? a.labels[r] : -1;
   const float gt0 = row_ok ? a.gt[r] : 0.f;
   const float gt1 = row_ok ? a.gt[a.R + r] : 0.f;
+  const float zt0 = a.scale * phi_target(gt0, a), zt1 = a.scale * phi_target(gt1, a);
   float m0 = -INFINITY, s0 = 0.f, m1 = -INFINITY, s1 = 0.f;
   float tk0[KMAX], tk1[KMAX];
 #pragma unroll
@@ -278,11 +309,11 @@ __global__ void __launch_bounds__(F_THREADS)
   for (long long t0 = c_begin; t0 < c_end; t0 += F_TC) {
     mark_writes<F_TC>(a, t0, last0, lastb, written);
 
-    float acc[8][8];
-    cos_tile<FORM, F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 32, 8>(a, acc, As, Bs, 0, t0,
-                                                                             c_end, ty, tx);
+    float acc[TI][8];
+    cos_tile<FORM, ROWS, F_TC, F_DK, F_THREADS, ALD, F_BLD, TI, 8, 32, 8>(a, acc, As, Bs, 0, t0,
+                                                                          c_end, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < TI; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) Cs[(ty + 32 * i) * F_CLD + tx + 8 * j] = acc[i][j];
     __syncthreads();
@@ -292,7 +323,7 @@ __global__ void __launch_bounds__(F_THREADS)
       const float* e_row = a.E + (long long)r * a.D;
       const int n = (int)min((long long)F_TC, c_end - t0);
       for (int c = 0; c < n; ++c) {
-        if (t0 + c == (long long)label) continue;  // target: joins at the merge
+        if (t0 + c == (long long)label) continue;  // the target: after the pass (twin) or merge
         float c1 = Cs[r * F_CLD + c], c2 = c1;
         if (any_w) {
           const int i0 = last0[dir * F_TC + c], ib = lastb[dir * F_TC + c];
@@ -306,6 +337,14 @@ __global__ void __launch_bounds__(F_THREADS)
       }
     }
     __syncthreads();  // Cs / write plan are rebuilt by the next tile
+  }
+  if (row_ok && a.twin && label >= c_begin && label < c_end) {
+    // the twin's target term z = scale * phi(gt), folded in after the
+    // block's columns: streamed first, a dominant z would leave each later
+    // column's e^(z - m) below half an ulp of s, and lose them (a bias of
+    // up to ~1e-4 in logz at 4,000 columns a block)
+    stream_z(zt0, m0, s0);
+    stream_z(zt1, m1, s1);
   }
 
   if (row_ok) {
@@ -335,7 +374,8 @@ __device__ __forceinline__ void merge_blocks(const Args& a, int nblk, const floa
 }
 
 // one thread per (view, row): merge the block partials and finalize
-// ce / neg / logz / top-k
+// ce / neg / logz / top-k (the twin's (M, S) hold the target term already:
+// logz = M + log S)
 __global__ void quad_fwd_merge_kernel(Args a, int nblk, const float* part, float* ce, float* neg,
                                       float* logz, float* topk) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;  // v * R + r
@@ -344,7 +384,12 @@ __global__ void quad_fwd_merge_kernel(Args a, int nblk, const float* part, float
   float M, S, tk[KMAX];
   merge_blocks(a, nblk, part, v, r, M, S, tk);
   const float zt = a.scale * phi_target(a.gt[v * a.R + r], a);
-  finalize_row(M, S, tk, a.k, a.labels[r] >= 0, zt, ce[idx], neg[idx], logz[idx]);
+  const bool pos = a.labels[r] >= 0;
+  finalize_row(M, S, tk, a.k, pos && !a.twin, zt, ce[idx], neg[idx], logz[idx]);
+  if (a.twin && pos) {
+    ce[idx] = logz[idx] - zt;
+    neg[idx] = 0.f;
+  }
   for (int j = 0; j < a.k; ++j) topk[(long long)idx * a.k + j] = tk[j];
 }
 
@@ -366,7 +411,7 @@ __global__ void quad_partial_merge_kernel(Args a, int nblk, const float* part, f
 constexpr int B_RB = 32, B_TC = 64, B_DK = 16, B_THREADS = 256, B_JMAX = 8;  // D <= 64 * 8
 constexpr int B_ALD = B_RB + 4, B_BLD = B_TC + 4, B_CLD = B_TC + 1;
 constexpr size_t B_SMEM = sizeof(float) * (B_DK * B_ALD + B_DK * B_BLD + 3 * B_RB * B_CLD) +
-                          sizeof(int) * (4 * B_TC + 2);
+                          sizeof(int) * (4 * B_TC + 4);
 
 struct BwdRows {
   const float* logz;  // [2][R]
@@ -393,7 +438,7 @@ __global__ void __launch_bounds__(B_THREADS)
   float* Dv = Dg + B_RB * B_CLD;   // ... to the view-2 write v
   int* last0 = reinterpret_cast<int*>(Dv + B_RB * B_CLD);
   int* lastb = last0 + 2 * B_TC;
-  int* written = lastb + 2 * B_TC;  // [2]
+  int* written = lastb + 2 * B_TC;  // [4]
 
   const int tid = threadIdx.x;
   const int rg = blockIdx.x % n_rg, chunk = blockIdx.x / n_rg;
@@ -454,7 +499,8 @@ __global__ void __launch_bounds__(B_THREADS)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int lr = ty + 16 * i, gr = r_base + lr;
-      const bool hit = written[dirr[i]] != 0;  // the tile holds a write of the row's direction
+      const bool w64 = written[dirr[i]] != 0;      // this tile holds a write of the row's direction
+      const bool hit = written[2 + dirr[i]] != 0;  // ... its rounding tile does
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
@@ -463,7 +509,7 @@ __global__ void __launch_bounds__(B_THREADS)
         if (ok[i] && gc < c_end && gc != (long long)lab[i]) {
           float c1 = acc[i][j], c2 = c1;
           int i0 = -1, ib = -1;
-          if (hit) {
+          if (w64) {
             const float* e_row = a.E + (long long)gr * a.D;
             i0 = last0[dirr[i] * B_TC + c];
             ib = lastb[dirr[i] * B_TC + c];
@@ -473,7 +519,7 @@ __global__ void __launch_bounds__(B_THREADS)
           const float sc = SCALED ? a.qs[gc] : 1.f;
           if (ROUND && !hit) {  // clean tile: both views read the stored row
             float d;
-            if (a.loss_type == LOSS_SV) {
+            if (a.loss_type == LOSS_SV || a.twin) {
               d = dcos_col(c1, gtv[i][0], lzv[i][0], kthv[i][0], dcev[i][0], dnegv[i][0],
                            !pos[i], a) +
                   dcos_col(c1, gtv[i][1], lzv[i][1], kthv[i][1], dcev[i][1], dnegv[i][1],
@@ -563,8 +609,9 @@ __global__ void __launch_bounds__(B_THREADS)
   }
 }
 
-// d_emb = sum of the chunk partials in chunk order; d_gt analytic:
-// (exp(scale*phi(gt_v) - logz_v) - 1) * d_ce_v * scale on positive rows
+// d_emb = sum of the chunk partials in chunk order; d_gt, the target
+// column's dz: (exp(scale*phi(gt_v) - logz_v) - 1) * d_ce_v * scale on rows
+// whose (shard-local) label is >= 0
 __global__ void quad_bwd_merge_kernel(Args a, BwdRows br, int nchunk, const float* part,
                                       float* d_emb, float* dgt) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -585,7 +632,7 @@ Args make_args(const void* q0, long long Q, int D, const float* E, const float* 
                const float* V, const int* rows, const int* cols, const int* blend,
                const int* labels, const float* gt, int B, int BP, int R, int k, int loss_type,
                float margin, float scale, float mask_svfc, float cos_m, float sin_m,
-               const float* qs, const signed char* E8, const float* se) {
+               const float* qs, const signed char* E8, const float* se, int rtile, int twin) {
   Args a;
   a.q0 = q0;
   a.Q = Q;
@@ -600,6 +647,7 @@ Args make_args(const void* q0, long long Q, int D, const float* E, const float* 
   a.gt = gt;
   a.B = B;
   a.BP = BP;
+  a.ND = R / B;
   a.R = R;
   a.k = k;
   a.loss_type = loss_type;
@@ -611,17 +659,27 @@ Args make_args(const void* q0, long long Q, int D, const float* E, const float* 
   a.qs = qs;
   a.E8 = E8;
   a.se = se;
+  a.rtile = rtile;
+  a.twin = twin;
   return a;
+}
+
+template <int FORM, int ROWS>
+cudaError_t launch_fwd_rows(const Args& a, float* part, int nblk, long long cols_per_blk,
+                            cudaStream_t st) {
+  constexpr size_t smem = f_smem<ROWS>();
+  cudaError_t err = cudaFuncSetAttribute(quad_fwd_kernel<FORM, ROWS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  quad_fwd_kernel<FORM, ROWS><<<nblk, F_THREADS, smem, st>>>(a, cols_per_blk, part);
+  return cudaGetLastError();
 }
 
 template <int FORM>
 cudaError_t launch_fwd_form(const Args& a, float* part, int nblk, long long cols_per_blk,
                             cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(quad_fwd_kernel<FORM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
-  if (err != cudaSuccess) return err;
-  quad_fwd_kernel<FORM><<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part);
-  return cudaGetLastError();
+  if (a.R <= 128) return launch_fwd_rows<FORM, 128>(a, part, nblk, cols_per_blk, st);
+  return launch_fwd_rows<FORM, F_ROWS>(a, part, nblk, cols_per_blk, st);
 }
 
 // the forward's block pass over nblk column ranges into part
@@ -689,17 +747,18 @@ cudaError_t launch_clean_cos_form(const Args& a, int bwd_tiles, float* out, cuda
       const int *rows, const int *cols, const int *blend, const int *labels, const float *gt, \
       int B, int BP, int R, int k, int loss_type, float margin, float scale, float mask_svfc, \
       float cos_m, float sin_m, const float *qs, const signed char *E8, const float *se,     \
-      int form
+      int form, int rtile, int twin
 #define QUAD_COMMON_ARGS                                                                    \
   q0, Q, D, E, G, V, rows, cols, blend, labels, gt, B, BP, R, k, loss_type, margin, scale, \
-      mask_svfc, cos_m, sin_m, qs, E8, se
+      mask_svfc, cos_m, sin_m, qs, E8, se, rtile, twin
 
 extern "C" {
 
 const char* quad_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// forward: nblk column ranges of cols_per_blk (a multiple of 64) columns;
-// part is [nblk][2][R][2 + 16] f32 scratch; outputs [2][R] and [2][R][k]
+// forward (quad, or twin with twin = 1): nblk column ranges of cols_per_blk
+// (a multiple of 64) columns; part is [nblk][2][R][2 + 16] f32 scratch;
+// outputs [2][R] and [2][R][k]
 int quad_fwd_launch(QUAD_COMMON_PARAMS, float* part, int nblk, long long cols_per_blk,
                     float* ce, float* neg, float* logz, float* topk, void* stream) {
   const Args a = make_args(QUAD_COMMON_ARGS);

@@ -1,6 +1,7 @@
-"""The fused quad FFC head: both directions × both queue views in one pass
-over q0 per forward and per backward (port of the quad part of
-``vlsfr_tpu/ops/twin_margin.py``).
+"""The fused FFC heads (port of ``vlsfr_tpu/ops/twin_margin.py``): the quad
+head, both directions × both queue views in one pass over q0 per forward
+and per backward, and the twin head, one direction × both views (the
+reference's ``directional_loss`` surface, ``twin_add_margin``).
 
 Each FFC step scores two probes (direction A: probe(x) vs the writes of
 gallery(y); direction B: probe(y) vs gallery(x)) against two views of the
@@ -20,6 +21,13 @@ row vectors as [2, R] (index 0 = view 1, 1 = view 2). For CUDA tensors they
 launch the hand-written kernels in ``csrc/quad_margin.cu``; for CPU tensors
 they run the plain PyTorch versions beside them (``quad_fwd_plain`` /
 ``quad_bwd_plain``). There is no other route and no switch.
+
+The twin kernels ``twin_fwd`` / ``twin_bwd`` take the same layout with
+one direction: E [b, D], the direction's writes [bp, D] and [bp], labels
+[b], per-view rows [2, b]. Their partial forms ``twin_partial_fwd`` /
+``twin_partial_bwd`` serve ``parallel/sharded_twin.py``. The twin kernels
+take f32 and bf16 queues; int8 queues run through the quad head only, as
+in JAX.
 
 The per-shard forms ``quad_partial_fwd`` / ``quad_partial_bwd`` (the
 model-sharded head, ``parallel/sharded_quad.py``) take plane 0 of one
@@ -48,30 +56,34 @@ rounds (``vlsfr_tpu/ops/twin_margin.py:_cos_tile``, ``_demb_clean``,
   f32(E8·int8, an exact int32 sum) · (se_row · s_col);
 * written columns: bf16(E)·bf16(g or v);
 * the backward rounds d_cos to bf16 before its product with the rows (int8
-  queues: bf16(d_cos · s_col)·int8). Within a 64-column tile that holds
-  none of the direction's writes, Arc and AM take d_cos of both views in
-  one combined form (JAX's ``_quad_dir_bwd_shared`` clean tile) and SV the
-  sum of the two views; a tile that holds a write routes each view's
-  d_cos to the row that view scores against, rounding as JAX's written
-  tile does (bf16 queue: each view's d_cos alone; int8: the sum routed to
-  the int8 row, g or v). The f32 form keeps f32 throughout.
+  queues: bf16(d_cos · s_col)·int8). Within a tile that holds none of the
+  direction's writes, the quad's Arc and AM take d_cos of both views in
+  one combined form (JAX's ``_quad_dir_bwd_shared`` clean tile), the
+  quad's SV and the twin the sum of the two views, rounded once; a tile
+  that holds a write routes each view's d_cos to the row that view scores
+  against, rounding as JAX's written tile does (bf16 queue: each view's
+  d_cos alone; int8: the sum routed to the int8 row, g or v). The f32 form
+  keeps f32 throughout.
 
-The clean / written choice of the backward is made per tile of TILE = 64
-columns, JAX's per tile of its ``queue_tile`` (``pool.queue_tile``; 0, the
-shipped configs' value, picks its own). So the rounding points are JAX's
-exactly where JAX runs at ``queue_tile=64``, as the tests run it; at
-another tile a tile that JAX calls written holds columns that the port
-calls clean, and d_emb differs there by the bf16 rounding of d_cos, up to
-2^-8 of a term. ``pool.queue_tile`` is checked (it must divide the queue)
-and otherwise unused.
+The rounding tile. JAX makes the clean / written choice per tile of its
+kernel, ``_fit_tile(c, _twin_tile(b, d, tile, itemsize))`` of the
+requested ``tile`` (``pool.queue_tile``, or the step's own choice at 0):
+2048 columns for capacity_10m_int8c, 1024 for a bf16 queue of 4,194,304
+slots. The backward wrappers take the same ``tile`` and resolve it the
+same way (``round_tile``: over b rows per direction, over max(b, bp) and
+the block's columns for the partial forms); the kernels keep their
+64-column compute tile and call a 64-column tile written when the
+direction writes a column of its enclosing rounding tile. A resolved tile
+must be a multiple of 64 (JAX's TPU path only makes multiples of 128).
 
-The negative stream. Every loss type's logsumexp is split into the
+The negative stream. The quad splits every loss type's logsumexp into the
 NON-target columns (streamed, target excluded) and the target term
-``scale·φ(gt)`` joined analytically at the end — the scan reference
-(``_twin_stream_fwd``) puts φ(gt) at the target column, which is the same
-sum. The top-k of hard negatives also excludes the target, so the
-train-accuracy hit test ``gt + KTH_TIE_TOL >= topk[:, 0]`` never compares
-gt against a recomputation of itself.
+``scale·φ(gt)`` joined analytically at the end. The twin streams the
+target column as z = scale·φ(gt) (JAX's twin kernels), so nothing is
+added after the stream or the shards' merge, and its d_gt is that
+column's dz. Both top-k lists exclude the target, so the train-accuracy
+hit test ``gt + KTH_TIE_TOL >= topk[:, 0]`` never compares gt against a
+recomputation of itself.
 """
 
 from __future__ import annotations
@@ -93,9 +105,11 @@ from vlsfr_tpu_torch.ops.margin import (
 from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 
 KMAX = 16  # largest hard_neg the kernels keep a register top-k for
-TILE = 64  # columns per kernel tile; the backward's rounding follows it
+TILE = 64  # columns per kernel tile; a rounding tile is a multiple of it
 FORMS = ("f32", "bf16", "int8", "int8c")
 KERNELS = ("quad_fwd", "quad_bwd", "quad_partial_fwd", "quad_partial_bwd")
+TWIN_FORMS = ("f32", "bf16")
+TWIN_KERNELS = ("twin_fwd", "twin_bwd", "twin_partial_fwd", "twin_partial_bwd")
 
 
 def kernel_name(kernel: str, form: str) -> str:
@@ -105,6 +119,7 @@ def kernel_name(kernel: str, form: str) -> str:
 
 
 LAUNCH_COUNTS = {kernel_name(k, f): 0 for k in KERNELS for f in FORMS}
+LAUNCH_COUNTS.update({kernel_name(k, f): 0 for k in TWIN_KERNELS for f in TWIN_FORMS})
 
 
 def reset_launch_counts() -> None:
@@ -123,6 +138,48 @@ def queue_form(plane: torch.Tensor, e8=None) -> str:
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bf16 (to nearest, ties to even), kept in f32."""
     return x.to(torch.bfloat16).float()
+
+
+def fit_tile(c: int, tile: int) -> int:
+    """The largest 128-multiple <= ``tile`` that divides ``c``, else
+    ``tile`` (JAX's ``vlsfr_tpu/ops/margin_pallas.py:_fit_tile``)."""
+    for t in range(tile // 128 * 128, 0, -128):
+        if c % t == 0:
+            return t
+    return tile
+
+
+def twin_tile(b: int, d: int, tile: int, qbytes: int = 4) -> int:
+    """``tile`` clamped as JAX's ``_twin_tile`` clamps it to its kernels'
+    VMEM budget (one double-buffered queue tile of ``qbytes`` per element,
+    the [b, D] operands and ~8 [b, tile] buffers; int8 at b <= 128 admits
+    2048)."""
+    fixed = 24 * b * d
+    per_col = 2 * qbytes * d + 40 * b
+    max_tile = max(256, int((11 * 2**20 - fixed) // per_col) // 128 * 128)
+    if qbytes == 1 and b <= 128:
+        max_tile = max(max_tile, 2048)
+    return min(tile, max_tile)
+
+
+def round_tile(c: int, b: int, d: int, tile: int, qbytes: int) -> int:
+    """The rounding tile of a backward over ``c`` columns of a plane with
+    ``qbytes`` per element, b rows (max(b, bp) for the partial forms):
+    the tile JAX's kernel runs for the requested ``tile``. Refuses a tile
+    that is not a multiple of the kernels' 64 columns."""
+    t = fit_tile(c, twin_tile(b, d, tile, qbytes))
+    if t <= 0 or t % TILE:
+        raise ValueError(f"tile={tile} resolves to a rounding tile of {t} columns over {c}; "
+                         f"it must be a positive multiple of {TILE}")
+    return t
+
+
+def _rounding_tile(q0, b: int, bp: int, tile: int) -> int:
+    """The rounding tile of a backward over the plane ``q0`` [n, D];
+    ``TILE`` on an f32 plane, which rounds nothing."""
+    if q0.dtype == torch.float32:
+        return TILE
+    return round_tile(q0.shape[0], max(b, bp), q0.shape[1], tile, q0.element_size())
 
 
 # ----------------------------------------------------------------------
@@ -227,21 +284,22 @@ def reduce_margin_dir(ce1, neg1, ce2, neg2, labels):
 
 
 # ----------------------------------------------------------------------
-# plain versions of the two kernels (packed layout, chunked over Q)
+# plain versions of the kernels (packed layout, chunked over Q)
 # ----------------------------------------------------------------------
 
 
 def _chunk_writers(rows, cols, blend, bp, lo, hi):
     """Per direction (``bp`` writes each), the last parity-0 writer and
-    last blend writer of each column in [lo, hi): two [2, hi - lo] int64
+    last blend writer of each column in [lo, hi): two [nd, hi - lo] int64
     arrays, −1 = none. A column of −1 (another shard's write) never
     matches."""
     n = hi - lo
+    nd = cols.shape[0] // bp
     dev = cols.device
-    last0 = torch.full((2, n), -1, dtype=torch.long, device=dev)
-    lastb = torch.full((2, n), -1, dtype=torch.long, device=dev)
+    last0 = torch.full((nd, n), -1, dtype=torch.long, device=dev)
+    lastb = torch.full((nd, n), -1, dtype=torch.long, device=dev)
     idx = torch.arange(bp, device=dev)
-    for d in range(2):
+    for d in range(nd):
         ws = slice(d * bp, (d + 1) * bp)
         c = cols[ws].long() - lo
         inr = (cols[ws] >= 0) & (c >= 0) & (c < n)
@@ -251,33 +309,33 @@ def _chunk_writers(rows, cols, blend, bp, lo, hi):
     return last0, lastb
 
 
-def _tile_hits(cols, bp, lo, hi):
-    """[2, hi - lo] bool: whether the TILE-column tile (aligned to the
-    block's first column) that holds each column of [lo, hi) holds a write
-    of the direction, whatever its parity and blend (JAX's per-tile
-    ``tile_hit``). ``lo`` is a multiple of TILE."""
-    n = hi - lo
-    n_t = -(-n // TILE)
-    hit = torch.zeros((2, n_t), dtype=torch.bool, device=cols.device)
-    for d in range(2):
-        c = cols[d * bp:(d + 1) * bp].long() - lo
-        c = c[(c >= 0) & (c < n) & (cols[d * bp:(d + 1) * bp] >= 0)]
-        hit[d, c // TILE] = True
-    return hit.repeat_interleave(TILE, dim=1)[:, :n]
+def _tile_hits(cols, bp, lo, hi, rtile):
+    """[nd, hi - lo] bool: whether the rounding tile [⌊c/T⌋·T, +T) holding
+    each column c of [lo, hi) holds a write of the direction, whatever its
+    parity and blend (JAX's per-tile ``tile_hit``; T = ``rtile``). A column
+    of −1 never counts."""
+    nd = cols.shape[0] // bp
+    span = torch.arange(lo, hi, device=cols.device) // rtile
+    hit = torch.empty((nd, hi - lo), dtype=torch.bool, device=cols.device)
+    for d in range(nd):
+        c = cols[d * bp:(d + 1) * bp].long()
+        hit[d] = torch.isin(span, c[c >= 0] // rtile)
+    return hit
 
 
 def _written_cos(cos, E, G, V, last0, lastb, b, bp):
     """(view-1 cos, view-2 cos) of one chunk: written columns are replaced
     by the probe's dots with the written rows (g, or v for blend slots).
     Probe rows come b per direction, writes bp."""
+    nd = E.shape[0] // b
     c1 = cos.clone()
-    for d in range(2):
+    for d in range(nd):
         rs, ws = slice(d * b, (d + 1) * b), slice(d * bp, (d + 1) * bp)
         j0 = torch.nonzero(last0[d] >= 0).flatten()
         if j0.numel():
             c1[rs, j0] = E[rs] @ G[ws][last0[d, j0]].T
     c2 = c1.clone()
-    for d in range(2):
+    for d in range(nd):
         rs, ws = slice(d * b, (d + 1) * b), slice(d * bp, (d + 1) * bp)
         jb = torch.nonzero(lastb[d] >= 0).flatten()
         if jb.numel():
@@ -314,6 +372,42 @@ def _check_form(q0, qscales, e8):
     return form
 
 
+def _stream_plain(E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_type, margin,
+                  scale, k, mask_svfc, qscales=None, e8=None, chunk=32768, twin=False):
+    """The running (max, sumexp) of z and the top-k cosines of each (view,
+    row) over the columns of ``q0`` [n, D]; (−inf, 0) where a row has no
+    column. The quad excludes the target column from the stream, the twin
+    (``twin``) streams it as z = scale·φ(gt); neither puts it in the
+    top-k."""
+    _check_form(q0, qscales, e8)
+    r_, _ = E.shape
+    n_q = q0.shape[0]
+    dev = E.device
+    Eo, Go, Vo = _dot_operands(E, G, V, q0)
+    # the target column's z: scale·φ(gt) in the twin, none in the quad
+    zt = scale * phi_target(gt, loss_type, margin) if twin else torch.full_like(gt, -math.inf)
+    m = torch.full((2, r_), -math.inf, device=dev)
+    s = torch.zeros((2, r_), device=dev)
+    topk = torch.full((2, r_, k), NEG_INF, device=dev)
+    for lo in range(0, n_q, chunk):
+        hi = min(n_q, lo + chunk)
+        sc = None if qscales is None else qscales[lo:hi]
+        cos = _clean_cos(Eo, q0[lo:hi], sc, e8)
+        last0, lastb = _chunk_writers(rows, cols, blend, bp, lo, hi)
+        views = _written_cos(cos, Eo, Go, Vo, last0, lastb, b, bp)
+        is_target = torch.arange(lo, hi, device=dev)[None, :] == labels[:, None].long()
+        for v, cv in enumerate(views):
+            mod = sv_boost(cv, gt[v][:, None], margin, mask_svfc)[0] if loss_type == "SV" else cv
+            z = torch.where(is_target, zt[v][:, None].expand_as(mod), scale * mod)
+            m_new = torch.maximum(m[v], z.max(dim=1).values)
+            ref = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+            s[v] = s[v] * torch.exp(m[v] - ref) + torch.exp(z - ref[:, None]).sum(dim=1)
+            m[v] = m_new
+            cand = torch.where(is_target, torch.full_like(cv, NEG_INF), cv)
+            topk[v] = torch.topk(torch.cat([topk[v], cand], dim=1), k, dim=1).values
+    return m, s, topk
+
+
 def quad_fwd_plain(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, margin,
                    scale, k, mask_svfc, qscales=None, e8=None, chunk=32768):
     """Plain PyTorch version of the forward kernel; same inputs and outputs
@@ -331,31 +425,9 @@ def quad_partial_fwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp,
     (max, sumexp) of the target-excluded z and the top-k cosines of each
     (view, row) over the columns of ``q0`` [Q, D]; ``quad_partial_fwd``'s
     inputs and outputs. (−inf, 0) where a row has no column."""
-    _check_form(q0, qscales, e8)
-    r_, _ = E.shape
-    n_q = q0.shape[0]
-    dev = E.device
-    Eo, Go, Vo = _dot_operands(E, G, V, q0)
-    m = torch.full((2, r_), -math.inf, device=dev)
-    s = torch.zeros((2, r_), device=dev)
-    topk = torch.full((2, r_, k), NEG_INF, device=dev)
-    for lo in range(0, n_q, chunk):
-        hi = min(n_q, lo + chunk)
-        sc = None if qscales is None else qscales[lo:hi]
-        cos = _clean_cos(Eo, q0[lo:hi], sc, e8)
-        last0, lastb = _chunk_writers(rows, cols, blend, bp, lo, hi)
-        views = _written_cos(cos, Eo, Go, Vo, last0, lastb, b, bp)
-        neg_ok = torch.arange(lo, hi, device=dev)[None, :] != labels[:, None].long()
-        for v, cv in enumerate(views):
-            mod = sv_boost(cv, gt[v][:, None], margin, mask_svfc)[0] if loss_type == "SV" else cv
-            z = torch.where(neg_ok, scale * mod, torch.full_like(mod, -math.inf))
-            m_new = torch.maximum(m[v], z.max(dim=1).values)
-            ref = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
-            s[v] = s[v] * torch.exp(m[v] - ref) + torch.exp(z - ref[:, None]).sum(dim=1)
-            m[v] = m_new
-            cand = torch.where(neg_ok, cv, torch.full_like(cv, NEG_INF))
-            topk[v] = torch.topk(torch.cat([topk[v], cand], dim=1), k, dim=1).values
-    return m, s, topk
+    return _stream_plain(E, q0, G, V, rows, cols, blend, labels, gt, b=b, bp=bp,
+                         loss_type=loss_type, margin=margin, scale=scale, k=k,
+                         mask_svfc=mask_svfc, qscales=qscales, e8=e8, chunk=chunk)
 
 
 def finalize_fwd(m, s, topk, labels, gt, *, loss_type, margin, scale):
@@ -366,6 +438,17 @@ def finalize_fwd(m, s, topk, labels, gt, *, loss_type, margin, scale):
     pos = (labels >= 0)[None, :]
     mf = torch.maximum(lse_neg, zt)
     logz = torch.where(pos, mf + torch.log(torch.exp(lse_neg - mf) + torch.exp(zt - mf)), lse_neg)
+    ce = torch.where(pos, logz - zt, torch.zeros_like(logz))
+    neg = torch.where(pos, torch.zeros_like(logz), topk.clamp(min=0.0).mean(dim=-1))
+    return ce, neg, logz, topk
+
+
+def finalize_twin(m, s, topk, labels, gt, *, loss_type, margin, scale):
+    """(ce, neg, logz, topk) from the twin stream's (m, s, top-k), whose
+    sum holds the target term already: logz = m + log s."""
+    logz = torch.where(s > 0, m + torch.log(s), torch.full_like(s, -math.inf))
+    zt = scale * phi_target(gt, loss_type, margin)
+    pos = (labels >= 0)[None, :]
     ce = torch.where(pos, logz - zt, torch.zeros_like(logz))
     neg = torch.where(pos, torch.zeros_like(logz), topk.clamp(min=0.0).mean(dim=-1))
     return ce, neg, logz, topk
@@ -400,13 +483,14 @@ def _combined_dcos(cos, logz, kth, dce, dneg, *, scale, k):
 
 
 def quad_bwd_plain(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b,
-                   loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None, chunk=32768):
+                   loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None, tile=512,
+                   chunk=32768):
     """Plain PyTorch version of the backward kernel; same inputs and
     outputs as ``quad_bwd``."""
     return quad_partial_bwd_plain(E, q[0], G, V, rows, cols, blend, labels, gt, logz, kth, dce,
                                   dneg, b=b, bp=b, loss_type=loss_type, margin=margin,
                                   scale=scale, k=k, mask_svfc=mask_svfc, qscales=qscales, e8=e8,
-                                  chunk=chunk)
+                                  tile=tile, chunk=chunk)
 
 
 def _demb_coefs(d1, d2, o0, ob, hit, clean, s):
@@ -414,8 +498,9 @@ def _demb_coefs(d1, d2, o0, ob, hit, clean, s):
     plane (module docstring): (to the stored rows, to the parity-0 writes
     g, to the blend writes v), each rounded to bf16 as the JAX kernel
     rounds it. ``o0`` / ``ob``: the column is overridden in view 1 / view
-    2; ``hit``: its tile holds a write of the direction; ``clean``: the
-    combined d_cos of a clean tile; ``s``: int8 column scales or None."""
+    2; ``hit``: its rounding tile holds a write of the direction;
+    ``clean``: the d_cos of a clean tile; ``s``: int8 column scales or
+    None."""
     zero = torch.zeros_like(d1)
     if s is None:  # bf16: each view's d_cos rounded alone
         r1, r2 = _bf16(d1), _bf16(d2)
@@ -429,14 +514,26 @@ def _demb_coefs(d1, d2, o0, ob, hit, clean, s):
 
 def quad_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
                            b, bp, loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None,
-                           chunk=32768):
+                           tile=512, chunk=32768):
     """Plain PyTorch version of the partial backward kernel: d_emb over the
     columns of ``q0`` and d_gt where the (shard-local) label is ≥ 0;
     ``quad_partial_bwd``'s inputs and outputs."""
+    return _bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, b=b,
+                      bp=bp, loss_type=loss_type, margin=margin, scale=scale, k=k,
+                      mask_svfc=mask_svfc, qscales=qscales, e8=e8,
+                      rtile=_rounding_tile(q0, b, bp, tile), chunk=chunk)
+
+
+def _bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b, bp,
+               loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None, rtile=TILE,
+               chunk=32768, twin=False):
+    """d_emb over the columns of ``q0`` (the q0 / g / v paths) and d_gt,
+    the target column's dz, where the (shard-local) label is ≥ 0, with the
+    clean / written choice per rounding tile ``rtile``. The twin's clean
+    tile sums the two views' d_cos for every loss type."""
     form = _check_form(q0, qscales, e8)
-    if form != "f32" and chunk % TILE:
-        raise ValueError(f"chunk={chunk} must be a multiple of the {TILE}-column tile")
     r_, d_ = E.shape
+    nd = r_ // b
     n_q = q0.shape[0]
     dev = E.device
     Eo, Go, Vo = _dot_operands(E, G, V, q0)
@@ -457,14 +554,14 @@ def quad_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth
                           torch.zeros_like(cv))
               for v, cv in enumerate((c1, c2))]
         if form != "f32":
-            if loss_type == "SV":
+            if twin or loss_type == "SV":
                 clean = dc[0] + dc[1]
             else:
                 clean = torch.where(neg_ok, _combined_dcos(cos, logz, kth, dce, dneg,
                                                            scale=scale, k=k),
                                     torch.zeros_like(cos))
-            hits = _tile_hits(cols, bp, lo, hi)
-        for d in range(2):
+            hits = _tile_hits(cols, bp, lo, hi, rtile)
+        for d in range(nd):
             rs, ws = slice(d * b, (d + 1) * b), slice(d * bp, (d + 1) * bp)
             j0 = torch.nonzero(last0[d] >= 0).flatten()
             jb = torch.nonzero(lastb[d] >= 0).flatten()
@@ -489,6 +586,47 @@ def quad_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth
     return d_emb, dgt
 
 
+def twin_fwd_plain(E, q, G, V, rows, cols, blend, labels, gt, *, loss_type, margin, scale, k,
+                   mask_svfc, chunk=32768):
+    """Plain PyTorch version of the twin forward kernel; same inputs and
+    outputs as ``twin_fwd``."""
+    m, s, topk = twin_partial_fwd_plain(E, q[0], G, V, rows, cols, blend, labels, gt,
+                                        loss_type=loss_type, margin=margin, scale=scale, k=k,
+                                        mask_svfc=mask_svfc, chunk=chunk)
+    return finalize_twin(m, s, topk, labels, gt, loss_type=loss_type, margin=margin, scale=scale)
+
+
+def twin_partial_fwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, *, loss_type, margin,
+                           scale, k, mask_svfc, chunk=32768):
+    """Plain PyTorch version of the twin partial forward kernel: each
+    (view, row)'s raw (max, sumexp) over the block ``q0`` [n, D], target
+    included where the row's (shard-local) label is here, and its
+    target-excluded top-k; ``twin_partial_fwd``'s inputs and outputs."""
+    return _stream_plain(E, q0, G, V, rows, cols, blend, labels, gt, b=E.shape[0],
+                         bp=rows.shape[0], loss_type=loss_type, margin=margin, scale=scale, k=k,
+                         mask_svfc=mask_svfc, chunk=chunk, twin=True)
+
+
+def twin_bwd_plain(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
+                   loss_type, margin, scale, k, mask_svfc, tile=512, chunk=32768):
+    """Plain PyTorch version of the twin backward kernel; same inputs and
+    outputs as ``twin_bwd``."""
+    return twin_partial_bwd_plain(E, q[0], G, V, rows, cols, blend, labels, gt, logz, kth, dce,
+                                  dneg, loss_type=loss_type, margin=margin, scale=scale, k=k,
+                                  mask_svfc=mask_svfc, tile=tile, chunk=chunk)
+
+
+def twin_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
+                           loss_type, margin, scale, k, mask_svfc, tile=512, chunk=32768):
+    """Plain PyTorch version of the twin partial backward kernel;
+    ``twin_partial_bwd``'s inputs and outputs."""
+    b, bp = E.shape[0], rows.shape[0]
+    return _bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, b=b,
+                      bp=bp, loss_type=loss_type, margin=margin, scale=scale, k=k,
+                      mask_svfc=mask_svfc, rtile=_rounding_tile(q0, b, bp, tile), chunk=chunk,
+                      twin=True)
+
+
 # ----------------------------------------------------------------------
 # the CUDA kernels (csrc/quad_margin.cu)
 # ----------------------------------------------------------------------
@@ -506,6 +644,7 @@ _FWD_ARGTYPES = [
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,  # loss, margin, scale, svfc
     ctypes.c_float, ctypes.c_float,  # cos(margin), sin(margin)
     _P, _P, _P, ctypes.c_int,  # int8 column scales [Q], E8 [R, D], se [R]; the form
+    ctypes.c_int, ctypes.c_int,  # the rounding tile; the twin head
 ]
 
 
@@ -543,22 +682,23 @@ def _check_queue(q, d_):
 
 
 def _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
-                  qscales=None, e8=None, extra=()) -> str:
+                  qscales=None, e8=None, extra=(), nd=2) -> str:
     """Types, shapes, device and (for the card) contiguity of the packed
     inputs: ``q0`` is the streamed queue plane [Q, D], b probes and bp
-    writes per direction; an int8 plane's ``qscales`` [Q] and the
-    int8-compute probes ``e8``. Returns the form."""
+    writes per direction, ``nd`` directions (2: the quad, 1: the twin); an
+    int8 plane's ``qscales`` [Q] and the int8-compute probes ``e8``.
+    Returns the form."""
     if loss_type not in LOSS_TYPES:
         raise ValueError(f"loss_type must be AM | Arc | SV, got {loss_type!r}")
     r_, d_ = E.shape
-    if r_ != 2 * b:
-        raise ValueError(f"E has {r_} rows, expected 2*b = {2 * b}")
+    if r_ != nd * b:
+        raise ValueError(f"E has {r_} rows, expected {nd}*b = {nd * b}")
     if q0.dim() != 2 or q0.shape[1] != d_:
         raise ValueError(f"the queue plane must be [Q, {d_}], got {tuple(q0.shape)}")
     if not 1 <= k <= KMAX:
         raise ValueError(f"hard_neg k={k} outside [1, {KMAX}]")
     form = _check_form(q0, qscales, e8)
-    rw = 2 * bp
+    rw = nd * bp
     opt = []
     if qscales is not None:
         opt.append(("qscales", qscales, torch.float32, (q0.shape[0],)))
@@ -585,16 +725,19 @@ def _bwd_vectors(E, logz, kth, dce, dneg):
             ("dce", dce, torch.float32, vec), ("dneg", dneg, torch.float32, vec))
 
 
+MAX_ROWS = 128  # probe rows per direction the kernels take
+
+
 def _cuda_shape_limits(E, b):
     d_ = E.shape[1]
-    if b > 128 or d_ % 64 or d_ > 512:
-        raise ValueError(f"the quad kernels take b <= 128 rows per direction and a "
-                         f"feature width that is a multiple of 64 up to 512; got b={b}, "
+    if b > MAX_ROWS or d_ % 64 or d_ > 512:
+        raise ValueError(f"the quad and twin kernels take b <= {MAX_ROWS} rows per direction "
+                         f"and a feature width that is a multiple of 64 up to 512; got b={b}, "
                          f"D={d_}")
 
 
 def _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
-                 scale, mask_svfc, qscales, e8):
+                 scale, mask_svfc, qscales, e8, rtile=TILE, twin=False):
     """The launch entries' leading arguments. E, G and V go to the kernel
     as its dots read them (``_dot_operands``); returns the tensors that
     must outlive the launch, and the arguments."""
@@ -605,7 +748,7 @@ def _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type
             rows.data_ptr(), cols.data_ptr(), blend.data_ptr(), labels.data_ptr(),
             gt.data_ptr(), b, bp, E.shape[0], k, _LOSS_CODE[loss_type], margin, scale,
             mask_svfc, _f32(math.cos(margin)), _f32(math.sin(margin)), ptr(qscales), ptr(e8q),
-            ptr(e8s), _FORM_CODE[queue_form(q0, e8)])
+            ptr(e8s), _FORM_CODE[queue_form(q0, e8)], rtile, int(twin))
     return (Eo, Go, Vo), args
 
 
@@ -617,9 +760,10 @@ def _split_columns(n_q, n_parts):
 
 
 def _fwd_launch(entry, n_vec, E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_type,
-                margin, scale, k, mask_svfc, qscales, e8):
-    """Launch ``entry`` (the forward or its partial form): the block pass
-    over q0, then the merge. Returns n_vec [2, R] outputs and topk [2, R, k]."""
+                margin, scale, k, mask_svfc, qscales=None, e8=None, twin=False):
+    """Launch ``entry`` (the forward or its partial form, of the quad or,
+    with ``twin``, the twin head): the block pass over q0, then the merge.
+    Returns n_vec [2, R] outputs and topk [2, R, k]."""
     _cuda_shape_limits(E, b)
     lib = _lib()
     r_ = E.shape[0]
@@ -630,7 +774,7 @@ def _fwd_launch(entry, n_vec, E, q0, G, V, rows, cols, blend, labels, gt, *, b, 
     topk = torch.empty((2, r_, k), device=E.device)
     stream = torch.cuda.current_stream(E.device).cuda_stream
     _keep, args = _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
-                               margin, scale, mask_svfc, qscales, e8)
+                               margin, scale, mask_svfc, qscales, e8, twin=twin)
     err = getattr(lib, entry)(*args, part.data_ptr(), nblk, per,
                               *(v.data_ptr() for v in vecs), topk.data_ptr(), stream)
     _check(lib, err, entry)
@@ -638,7 +782,8 @@ def _fwd_launch(entry, n_vec, E, q0, G, V, rows, cols, blend, labels, gt, *, b, 
 
 
 def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b, bp,
-                loss_type, margin, scale, k, mask_svfc, qscales, e8):
+                loss_type, margin, scale, k, mask_svfc, rtile, qscales=None, e8=None,
+                twin=False):
     _cuda_shape_limits(E, b)
     lib = _lib()
     r_ = E.shape[0]
@@ -650,7 +795,7 @@ def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg
     dgt = torch.empty((2, r_), device=E.device)
     stream = torch.cuda.current_stream(E.device).cuda_stream
     _keep, args = _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
-                               margin, scale, mask_svfc, qscales, e8)
+                               margin, scale, mask_svfc, qscales, e8, rtile, twin)
     err = lib.quad_bwd_launch(*args, logz.data_ptr(), kth.data_ptr(), dce.data_ptr(),
                               dneg.data_ptr(), part.data_ptr(), nchunk, per, d_emb.data_ptr(),
                               dgt.data_ptr(), stream)
@@ -694,11 +839,12 @@ def quad_fwd(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, margin,
 
 
 def quad_bwd(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b,
-             loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None):
+             loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None, tile=512):
     """Streaming backward: re-streams q0 and returns (d_emb [R, D] — the
     q0/g/v paths, before the φ'(gt) tail — and d_gt [2, R]). ``dce`` /
     ``dneg`` come pre-masked (0 on outlier / positive rows). Forms as
-    ``quad_fwd``'s.
+    ``quad_fwd``'s; the rounded forms round d_cos per rounding tile of the
+    requested ``tile`` (``round_tile`` over Q columns and b rows).
 
     Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_quad_bwd``. Bound on an
     H100 at the slice shapes (f32): 2 × 2.75e11 FLOP (cosine recompute +
@@ -715,11 +861,12 @@ def quad_bwd(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
                          qscales, e8, extra=_bwd_vectors(E, logz, kth, dce, dneg))
     kw = dict(b=b, loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc,
               qscales=qscales, e8=e8)
+    rtile = _rounding_tile(q[0], b, b, tile)
     if not E.is_cuda:
-        return quad_bwd_plain(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg,
-                              **kw)
+        return _bwd_plain(E, q[0], G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg,
+                          bp=b, rtile=rtile, **kw)
     out = _bwd_launch(E, q[0], G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, bp=b,
-                      **kw)
+                      rtile=rtile, **kw)
     LAUNCH_COUNTS[kernel_name("quad_bwd", form)] += 1
     return out
 
@@ -751,7 +898,8 @@ def quad_partial_fwd(E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_
 
 
 def quad_partial_bwd(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b,
-                     bp, loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None):
+                     bp, loss_type, margin, scale, k, mask_svfc, qscales=None, e8=None,
+                     tile=512):
     """One shard's backward over its block's plane 0 ``q0``, fed the GLOBAL
     logz, kth and cotangents (``dce`` zero on outlier rows, ``dneg`` on
     every globally positive row). Returns the shard's d_emb partial [R, D]
@@ -761,17 +909,137 @@ def quad_partial_bwd(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce,
 
     Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_quad_partial_bwd``.
     Bound: 4·R·D·Q/m FLOP (f32: 8.2 ms at Q/m = 2^20, 2.1 ms at 2^18).
-    Design: ``quad_bwd``'s kernels over the block.
+    Design: ``quad_bwd``'s kernels over the block; the rounding tile is
+    resolved over the block's columns and max(b, bp) rows, as JAX's.
     """
     form = _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
                          qscales, e8, extra=_bwd_vectors(E, logz, kth, dce, dneg))
     kw = dict(b=b, bp=bp, loss_type=loss_type, margin=margin, scale=scale, k=k,
               mask_svfc=mask_svfc, qscales=qscales, e8=e8)
+    rtile = _rounding_tile(q0, b, bp, tile)
     if not E.is_cuda:
-        return quad_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth,
-                                      dce, dneg, **kw)
-    out = _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, **kw)
+        return _bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg,
+                          rtile=rtile, **kw)
+    out = _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg,
+                      rtile=rtile, **kw)
     LAUNCH_COUNTS[kernel_name("quad_partial_bwd", form)] += 1
+    return out
+
+
+def _check_twin(E, q0, G, V, rows, cols, blend, labels, gt, k, loss_type, extra=()) -> str:
+    """``_check_packed`` for one direction (b = E's rows, bp = the writes);
+    the twin kernels take f32 and bf16 planes."""
+    if queue_form(q0) not in TWIN_FORMS:
+        raise ValueError(f"the twin kernels take float32 or bfloat16 queue planes, got "
+                         f"{q0.dtype} (int8 queues run through the quad head)")
+    return _check_packed(E, q0, G, V, rows, cols, blend, labels, gt, E.shape[0],
+                         rows.shape[0], k, loss_type, extra=extra, nd=1)
+
+
+def twin_fwd(E, q, G, V, rows, cols, blend, labels, gt, *, loss_type, margin, scale, k,
+             mask_svfc):
+    """Streaming forward of one FFC direction × both views over q0: E [b,
+    D] probes, the direction's writes G, V [bp, D], rows / cols / blend
+    [bp], labels [b], gt [2, b]. Returns (ce, neg, logz) [2, b] and topk
+    [2, b, k], view-major; the target column streams z = scale·φ(gt), the
+    top-k excludes it. ``q`` is f32 or bf16 (bf16: the dots' operands
+    rounded as the quad's).
+
+    Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_twin_fwd``. Bound on an
+    H100 at b = 128, D = 512, Q = 2^20: f32 2·b·D·Q = 1.37e11 FLOP at 67
+    TFLOP/s, 2.05 ms; bf16 the 1.07e9 B of q0 at 3.35 TB/s, 0.32 ms (its
+    dot at the 989 TFLOP/s tensor-core rate takes 0.14). Design: the quad
+    forward's kernel (csrc/quad_margin.cu) with a 128-row block, one
+    direction, and the target column in the stream.
+    """
+    _check_queue(q, E.shape[1])
+    form = _check_twin(E, q[0], G, V, rows, cols, blend, labels, gt, k, loss_type)
+    kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
+    if not E.is_cuda:
+        return twin_fwd_plain(E, q, G, V, rows, cols, blend, labels, gt, **kw)
+    out = _fwd_launch("quad_fwd_launch", 3, E, q[0], G, V, rows, cols, blend, labels, gt,
+                      b=E.shape[0], bp=rows.shape[0], twin=True, **kw)
+    LAUNCH_COUNTS[kernel_name("twin_fwd", form)] += 1
+    return out
+
+
+def twin_bwd(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, loss_type,
+             margin, scale, k, mask_svfc, tile=512):
+    """Streaming backward of one direction: (d_emb [b, D] — the q0/g/v
+    paths, before the φ'(gt) tail — and d_gt [2, b], the target column's
+    dz). ``dce`` / ``dneg`` [2, b] come pre-masked (0 on outlier /
+    positive rows). A bf16 queue rounds d_cos per rounding tile of
+    ``tile`` (``round_tile``: JAX's default 512 resolves to 512 at
+    Q = 2^20).
+
+    Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_twin_bwd``. Bound at
+    b = 128, D = 512, Q = 2^20: f32 4·b·D·Q = 2.75e11 FLOP, 4.10 ms; bf16
+    q0's 1.07e9 B, 0.32 ms (its two dots at the tensor-core rate 0.28).
+    Design: the quad backward's kernel with one direction (32-row groups,
+    d_emb partials in registers, a fixed-order merge).
+    """
+    _check_queue(q, E.shape[1])
+    form = _check_twin(E, q[0], G, V, rows, cols, blend, labels, gt, k, loss_type,
+                       extra=_bwd_vectors(E, logz, kth, dce, dneg))
+    return _twin_bwd_route(form, "twin_bwd", E, q[0], G, V, rows, cols, blend, labels, gt, logz,
+                           kth, dce, dneg, loss_type=loss_type, margin=margin, scale=scale, k=k,
+                           mask_svfc=mask_svfc, tile=tile)
+
+
+def twin_partial_fwd(E, q0, G, V, rows, cols, blend, labels, gt, *, loss_type, margin, scale, k,
+                     mask_svfc):
+    """One shard's twin forward over its block's plane 0 ``q0`` [Q/m, D],
+    with shard-local write columns (−1: another shard's) and labels (−1
+    outlier, −2 owned elsewhere), bp writes apart from the b probes and the
+    GLOBAL gt. Returns each (view, row)'s raw (m, s) [2, b] — the target
+    term included on its owner only — and target-excluded topk [2, b, k],
+    for ``parallel/_shard_common.merge_partials``.
+
+    Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_twin_partial_fwd``.
+    Bound: ``twin_fwd``'s over the block (a quarter at 2^18 of 2^20).
+    Design: ``twin_fwd``'s block pass, then a merge in block order without
+    the finalize.
+    """
+    form = _check_twin(E, q0, G, V, rows, cols, blend, labels, gt, k, loss_type)
+    kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
+    if not E.is_cuda:
+        return twin_partial_fwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, **kw)
+    out = _fwd_launch("quad_partial_fwd_launch", 2, E, q0, G, V, rows, cols, blend, labels, gt,
+                      b=E.shape[0], bp=rows.shape[0], twin=True, **kw)
+    LAUNCH_COUNTS[kernel_name("twin_partial_fwd", form)] += 1
+    return out
+
+
+def twin_partial_bwd(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
+                     loss_type, margin, scale, k, mask_svfc, tile=512):
+    """One shard's twin backward over its block, fed the GLOBAL gt, logz,
+    kth and cotangents (masked with the GLOBAL positive rows). Returns the
+    shard's d_emb partial [b, D] (before the φ'(gt) tail) and its raw d_gt
+    [2, b], nonzero on the owner only; the rounding tile is resolved over
+    the block's columns and max(b, bp) rows.
+
+    Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_twin_partial_bwd``.
+    Bound: ``twin_bwd``'s over the block. Design: ``twin_bwd``'s kernels
+    over the block.
+    """
+    form = _check_twin(E, q0, G, V, rows, cols, blend, labels, gt, k, loss_type,
+                       extra=_bwd_vectors(E, logz, kth, dce, dneg))
+    return _twin_bwd_route(form, "twin_partial_bwd", E, q0, G, V, rows, cols, blend, labels, gt,
+                           logz, kth, dce, dneg, loss_type=loss_type, margin=margin, scale=scale,
+                           k=k, mask_svfc=mask_svfc, tile=tile)
+
+
+def _twin_bwd_route(form, name, E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce,
+                    dneg, *, tile, **kw):
+    """The twin backward over the plane ``q0``: the plain version for CPU
+    tensors, the kernel (counted under ``name``) for CUDA tensors."""
+    b, bp = E.shape[0], rows.shape[0]
+    rtile = _rounding_tile(q0, b, bp, tile)
+    args = (E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg)
+    if not E.is_cuda:
+        return _bwd_plain(*args, b=b, bp=bp, rtile=rtile, twin=True, **kw)
+    out = _bwd_launch(*args, b=b, bp=bp, rtile=rtile, twin=True, **kw)
+    LAUNCH_COUNTS[kernel_name(name, form)] += 1
     return out
 
 
@@ -821,12 +1089,13 @@ class QuadMargin(torch.autograd.Function):
     streaming top-1 hits, differentiable w.r.t. the two probe embeddings
     only (mirrors ``fused_quad_margin``; no queue or gallery gradient).
     ``qscales`` [2, Q] are an int8 queue's scales (None for float queues);
-    ``int8_compute`` quantises the probes for the streamed dots."""
+    ``int8_compute`` quantises the probes for the streamed dots; ``tile``
+    sets the backward's rounding tile (``quad_bwd``)."""
 
     @staticmethod
     def forward(ctx, emb_x, emb_y, queue, qscales, g_a, g_b, rows_a, cols_a, seen_a, rows_b,
                 cols_b, seen_b, labels_a, labels_b, loss_type, margin, scale, hard_neg,
-                mask_svfc, int8_compute):
+                mask_svfc, int8_compute, tile=512):
         b = emb_x.shape[0]
         gts_a = compute_twin_gt(emb_x, queue, g_a, rows_a, cols_a, seen_a, labels_a, qscales)
         gts_b = compute_twin_gt(emb_y, queue, g_b, rows_b, cols_b, seen_b, labels_b, qscales)
@@ -843,7 +1112,7 @@ class QuadMargin(torch.autograd.Function):
         ctx.save_for_backward(emb_x, emb_y, queue, qscales, *e8, g_a, g_b, rows_a, cols_a,
                               seen_a, rows_b, cols_b, seen_b, labels_a, labels_b, logz, topk,
                               *packed)
-        ctx.kw = kw
+        ctx.kw, ctx.tile = kw, tile
         ctx.mark_non_differentiable(hit)
         out = []
         for lo in (0, b):
@@ -868,14 +1137,14 @@ class QuadMargin(torch.autograd.Function):
         dneg = torch.where(pos, torch.zeros_like(dneg), dneg).contiguous()
         kth = topk[:, :, -1].contiguous()
         d_emb, dgt = quad_bwd(E, queue, G, V, rows, cols, blend, labels, gt, logz, kth, dce,
-                              dneg, **kw, **_form_kw(qscales, (e8q, e8s)))
+                              dneg, **kw, **_form_kw(qscales, (e8q, e8s)), tile=ctx.tile)
         lt, mg = kw["loss_type"], kw["margin"]
         sa, sb = slice(0, b), slice(b, 2 * b)
         d_x = twin_gt_tail(emb_x, queue, g_a, rows_a, cols_a, seen_a, labels_a, gt[0, sa],
                            gt[1, sa], dgt[0, sa], dgt[1, sa], d_emb[sa], lt, mg, qscales)
         d_y = twin_gt_tail(emb_y, queue, g_b, rows_b, cols_b, seen_b, labels_b, gt[0, sb],
                            gt[1, sb], dgt[0, sb], dgt[1, sb], d_emb[sb], lt, mg, qscales)
-        return (d_x, d_y) + (None,) * 18
+        return (d_x, d_y) + (None,) * 19
 
 
 def _form_kw(qscales, e8) -> dict:
@@ -887,14 +1156,15 @@ def _form_kw(qscales, e8) -> dict:
 
 def quad_add_margin(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, labels_b, *,
                     loss_type="Arc", margin=0.5, scale=32.0, hard_neg=10, mask_svfc=1.2,
-                    with_acc=False, qscales=None, int8_compute=False):
+                    tile=512, with_acc=False, qscales=None, int8_compute=False):
     """(loss_a, loss_b): both FFC directional losses with ONE streaming
     pass over q0 per forward and backward. ``with_acc`` also returns the
     combined streaming top-1 accuracy over both directions' in-pool rows.
     ``qscales`` [2, Q] carries an int8 queue's per-row scales;
     ``int8_compute`` quantises the probes per row and streams the clean
     dots int8 × int8 → int32 (gt, the overrides and d_emb stay as in int8
-    storage)."""
+    storage). ``tile`` is JAX's kernel tile request: the rounded forms'
+    backward rounds d_cos per tile as JAX resolves it (``round_tile``)."""
     if int8_compute and qscales is None:
         raise ValueError("int8_compute requires an int8-stored queue "
                          "(pool.queue_dtype='int8')")
@@ -903,7 +1173,7 @@ def quad_add_margin(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, lab
     out = QuadMargin.apply(emb_x, emb_y, queue, qscales, g_a.detach(), g_b.detach(), rows_a,
                            cols_a, seen_a, rows_b, cols_b, seen_b, labels_a, labels_b, loss_type,
                            float(margin), float(scale), int(hard_neg), float(mask_svfc),
-                           bool(int8_compute))
+                           bool(int8_compute), int(tile))
     return reduce_quad_outputs(out, labels_a, labels_b, with_acc)
 
 
@@ -917,3 +1187,72 @@ def reduce_quad_outputs(out, labels_a, labels_b, with_acc):
         n_pos = ((labels_a >= 0).float().sum() + (labels_b >= 0).float().sum()).clamp(min=1.0)
         return losses, ((hit_a.sum() + hit_b.sum()) / n_pos).detach()
     return losses
+
+
+class TwinMargin(torch.autograd.Function):
+    """One FFC direction's per-row (ce1, neg1, ce2, neg2) over the two
+    queue views and the streaming top-1 hit (view 1), differentiable
+    w.r.t. ``emb`` only (mirrors JAX's ``fused_twin_margin``; the queue
+    and the gallery rows are constants). f32 and bf16 queues."""
+
+    @staticmethod
+    def forward(ctx, emb, queue, g, rows, cols, seen, labels, loss_type, margin, scale, hard_neg,
+                mask_svfc, tile):
+        gt1, gt2 = compute_twin_gt(emb, queue, g, rows, cols, seen, labels)
+        g32, rows_i, cols_i, v, blend = (x.contiguous()
+                                         for x in dir_inputs(queue, g, rows, cols, seen))
+        E = emb.float().contiguous()
+        lab = labels.to(torch.int32).contiguous()
+        gt = torch.stack([gt1, gt2])
+        kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=hard_neg,
+                  mask_svfc=mask_svfc)
+        ce, neg, logz, topk = twin_fwd(E, queue, g32, v, rows_i, cols_i, blend, lab, gt, **kw)
+        hit = ((gt1 + KTH_TIE_TOL >= topk[0, :, 0]) & (labels >= 0)).float()
+        ctx.save_for_backward(emb, queue, g, rows, cols, seen, labels, E, g32, v, rows_i, cols_i,
+                              blend, lab, gt, logz, topk)
+        ctx.kw, ctx.tile = kw, tile
+        ctx.mark_non_differentiable(hit)
+        return ce[0], neg[0], ce[1], neg[1], hit
+
+    @staticmethod
+    def backward(ctx, dce1, dneg1, dce2, dneg2, _dhit):
+        (emb, queue, g, rows, cols, seen, labels, E, g32, v, rows_i, cols_i, blend, lab, gt,
+         logz, topk) = ctx.saved_tensors
+        kw = ctx.kw
+        zeros = E.new_zeros(E.shape[0])
+        c = [zeros if x is None else x.float() for x in (dce1, dneg1, dce2, dneg2)]
+        pos = (lab >= 0)[None, :]
+        dce = torch.where(pos, torch.stack([c[0], c[2]]), 0.0).contiguous()
+        dneg = torch.where(pos, 0.0, torch.stack([c[1], c[3]])).contiguous()
+        kth = topk[:, :, -1].contiguous()
+        d_emb, dgt = twin_bwd(E, queue, g32, v, rows_i, cols_i, blend, lab, gt, logz, kth, dce,
+                              dneg, tile=ctx.tile, **kw)
+        d = twin_gt_tail(emb, queue, g, rows, cols, seen, labels, gt[0], gt[1], dgt[0], dgt[1],
+                         d_emb, kw["loss_type"], kw["margin"])
+        return (d,) + (None,) * 12
+
+
+def twin_add_margin(emb, queue, g, rows, cols, seen, labels, *, loss_type="Arc", margin=0.5,
+                    scale=32.0, hard_neg=10, mask_svfc=1.2, tile=512, with_acc=False):
+    """One FFC directional loss, add_margin(view 1) + add_margin(view 2),
+    both views streamed in one pass with this step's writes applied in
+    registers (JAX's ``twin_add_margin``). ``queue`` is the [2, Q, D]
+    queue, f32 or bf16; ``tile`` is JAX's kernel tile request (the bf16
+    backward's rounding tile, ``round_tile``). ``with_acc`` also returns
+    the streaming top-1 accuracy over in-pool rows (view 1). The device
+    of the tensors chooses the route: the CUDA kernels for CUDA tensors,
+    their plain versions for CPU tensors."""
+    if queue.dtype == torch.int8:
+        raise ValueError(
+            "int8 queues run through the quad route only (quad_add_margin "
+            "/ parallel.sharded_quad) — core/ffc.py routes every fused "
+            "config there; the legacy twin composition has no scales "
+            "plumbing.")
+    ce1, neg1, ce2, neg2, hit1 = TwinMargin.apply(
+        emb, queue, g.detach(), rows, cols, seen, labels, loss_type, float(margin), float(scale),
+        int(hard_neg), float(mask_svfc), int(tile))
+    loss = reduce_margin_dir(ce1, neg1, ce2, neg2, labels)
+    if with_acc:
+        n_pos = (labels >= 0).float().sum().clamp(min=1.0)
+        return loss, (hit1.sum() / n_pos).detach()
+    return loss

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from vlsfr_tpu_torch.ops.margin import phi_prime
 from vlsfr_tpu_torch.ops.twin_margin import effective_rows, plane_rows, twin_write_values
 
 
@@ -64,6 +65,15 @@ def owned_gt_parts(emb32, r0e, rbe, owned):
     zero = emb32.new_zeros(())
     return torch.stack([torch.where(owned, (emb32 * r0e).sum(-1), zero),
                         torch.where(owned, (emb32 * rbe).sum(-1), zero)])
+
+
+def owner_tail(d_emb, dgt, gt, owned, r0e, rbe, loss_type, margin):
+    """d_emb + the φ'(gt)·d_gt paths (``dgt``, ``gt`` [2, rows], global)
+    through the effective label rows, on the rows whose target this shard
+    owns."""
+    own = owned.float()[:, None]
+    d_emb = d_emb + (dgt[0] * phi_prime(gt[0], loss_type, margin))[:, None] * r0e * own
+    return d_emb + (dgt[1] * phi_prime(gt[1], loss_type, margin))[:, None] * rbe * own
 
 
 def shard_write_values(q_l, g32, rows_i, cols_i, seen_f, lcol, in_range, qs_l=None):

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
-from vlsfr_tpu_torch.ops.margin import KTH_TIE_TOL, phi_prime
+from vlsfr_tpu_torch.ops.margin import KTH_TIE_TOL
 from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 from vlsfr_tpu_torch.ops.twin_margin import (
     finalize_fwd,
@@ -48,6 +48,7 @@ from vlsfr_tpu_torch.parallel._shard_common import (
     effective_label_rows,
     localize,
     owned_gt_parts,
+    owner_tail,
     shard_write_values,
 )
 
@@ -103,21 +104,13 @@ def shard_inputs(emb_x, emb_y, q_l, c0, g_a, g_b, plan_a, plan_b, labels_a, labe
                        None if qs_l is None else qs_l[0], *e8)
 
 
-def owner_tail(d_emb, dgt, gt, si: ShardInputs, loss_type, margin):
-    """d_emb + the φ'(gt)·d_gt paths through the effective label rows, on
-    the rows whose target this shard owns."""
-    own = si.owned.float()[:, None]
-    d_emb = d_emb + (dgt[0] * phi_prime(gt[0], loss_type, margin))[:, None] * si.r0e * own
-    return d_emb + (dgt[1] * phi_prime(gt[1], loss_type, margin))[:, None] * si.rbe * own
-
-
 class ShardedQuadMargin(torch.autograd.Function):
     """``ops/twin_margin.QuadMargin`` over the mesh: the same ten per-row
     outputs, from this rank's queue block and the group's collectives."""
 
     @staticmethod
     def forward(ctx, emb_x, emb_y, q_l, qs_l, g_a, g_b, rows_a, cols_a, seen_a, rows_b, cols_b,
-                seen_b, labels_a, labels_b, mesh, kw, int8_compute):
+                seen_b, labels_a, labels_b, mesh, kw, int8_compute, tile):
         b = emb_x.shape[0]
         c0, _ = mesh.class_block(q_l.shape[1] * mesh.model)
         si = shard_inputs(emb_x, emb_y, q_l, c0, g_a, g_b, (rows_a, cols_a, seen_a),
@@ -132,7 +125,7 @@ class ShardedQuadMargin(torch.autograd.Function):
                                            margin=kw["margin"], scale=kw["scale"])
         hit = ((gt[0] + KTH_TIE_TOL >= topk[0, :, 0]) & (labels >= 0)).float()
         ctx.save_for_backward(q_l, gt, logz, topk, labels, *si)
-        ctx.mesh, ctx.pkw, ctx.dtypes = mesh, pkw, (emb_x.dtype, emb_y.dtype)
+        ctx.mesh, ctx.pkw, ctx.dtypes, ctx.tile = mesh, pkw, (emb_x.dtype, emb_y.dtype), tile
         ctx.mark_non_differentiable(hit)
         out = []
         for lo in (0, b):
@@ -158,30 +151,32 @@ class ShardedQuadMargin(torch.autograd.Function):
         dneg = torch.where(pos, torch.zeros_like(dneg), dneg).contiguous()
         kth = topk[:, :, -1].contiguous()
         d_emb, dgt = quad_partial_bwd(*si.kernel_args(q_l), gt, logz, kth, dce, dneg, **pkw,
-                                      **si.form_kw())
+                                      **si.form_kw(), tile=ctx.tile)
         dist.all_reduce(dgt, group=group)  # owner-only values → the global d_gt
-        d_emb = owner_tail(d_emb, dgt, gt, si, pkw["loss_type"], pkw["margin"])
+        d_emb = owner_tail(d_emb, dgt, gt, si.owned, si.r0e, si.rbe, pkw["loss_type"],
+                           pkw["margin"])
         dist.all_reduce(d_emb, group=group)
         dt_x, dt_y = ctx.dtypes
-        return (d_emb[:b].to(dt_x), d_emb[b:].to(dt_y)) + (None,) * 15
+        return (d_emb[:b].to(dt_x), d_emb[b:].to(dt_y)) + (None,) * 16
 
 
 def make_sharded_quad_loss(mesh, *, loss_type="Arc", margin=0.5, scale=32.0, hard_neg=10,
-                           mask_svfc=1.2, with_acc=False, int8_compute=False):
+                           mask_svfc=1.2, tile=512, with_acc=False, int8_compute=False):
     """``loss_fn(emb_x, emb_y, q_l, g_a, g_b, plan_a, plan_b, labels_a,
     labels_b, qscales=None)`` -> (loss_a, loss_b)[, acc]:
     ``quad_add_margin``'s signature and result, with this rank's queue
     block ``q_l`` [2, Q/m, D] (and, for an int8 queue, its scales'
     block [2, Q/m]) in place of the queue. Plans and labels are the whole
     step's (global slot ids). ``int8_compute`` takes effect on int8 blocks
-    only, as in JAX."""
+    only, as in JAX; ``tile`` is JAX's kernel tile request, resolved over
+    each block (``ops/twin_margin.round_tile``)."""
     kw = dict(loss_type=loss_type, margin=float(margin), scale=float(scale), k=int(hard_neg),
               mask_svfc=float(mask_svfc))
 
     def loss_fn(emb_x, emb_y, q_l, g_a, g_b, plan_a, plan_b, labels_a, labels_b, qscales=None):
         out = ShardedQuadMargin.apply(emb_x, emb_y, q_l, qscales, g_a.detach(), g_b.detach(),
                                       *plan_a, *plan_b, labels_a, labels_b, mesh, kw,
-                                      bool(int8_compute))
+                                      bool(int8_compute), int(tile))
         return reduce_quad_outputs(out, labels_a, labels_b, with_acc)
 
     return loss_fn

@@ -23,7 +23,12 @@ import torch
 
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import DCPManager
-from vlsfr_tpu_torch.core.ffc import create_ffc_state, make_train_step, use_sharded_head
+from vlsfr_tpu_torch.core.ffc import (
+    check_kernel_batch,
+    create_ffc_state,
+    make_train_step,
+    use_sharded_head,
+)
 from vlsfr_tpu_torch.data.pipeline import FFCPipeline, InstancePipeline
 from vlsfr_tpu_torch.data.records import MultiSourceReader
 from vlsfr_tpu_torch.models import create_net, native_image_size
@@ -63,6 +68,8 @@ class Trainer:
         _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        if cfg.pool.head == "ffc":
+            check_kernel_batch(cfg, self.device)
         self.mesh, self._owns_group = None, False
         if use_sharded_head(cfg) if cfg.pool.head == "ffc" else cfg.mesh.model > 1:
             check_shape(cfg.mesh.data, cfg.mesh.model)  # before anything is created

@@ -256,10 +256,11 @@ def _err(name: str, got, want, limit: float) -> dict:
             "limit": limit}
 
 
-def quad_checks(queue, packed, kw: dict, dce, dneg, tag: str = ""):
+def quad_checks(queue, packed, kw: dict, dce, dneg, tag: str = "", tile: int = 512):
     """``quad_fwd`` / ``quad_bwd`` against their plain versions on one case
-    in the packed layout (``kw`` holds the form's ``qscales`` / ``e8``).
-    Returns (checks, the plain forward's outputs)."""
+    in the packed layout (``kw`` holds the form's ``qscales`` / ``e8``;
+    ``tile`` the backward's tile request). Returns (checks, the plain
+    forward's outputs)."""
     from vlsfr_tpu_torch.ops import twin_margin as ttm
 
     E, rest = packed[0], packed[1:]
@@ -268,8 +269,8 @@ def quad_checks(queue, packed, kw: dict, dce, dneg, tag: str = ""):
     checks = [_err(f"{tag}{name}", g, w, tol) for name, g, w, tol in
               zip(("ce", "neg", "logz", "top-k"), got, want, (1e-4, 1e-4, 1e-4, 1e-5))]
     logz, kth = want[2], want[3][:, :, -1].contiguous()
-    d_k, g_k = ttm.quad_bwd(E, queue, *rest, logz, kth, dce, dneg, **kw)
-    d_p, g_p = ttm.quad_bwd_plain(E, queue, *rest, logz, kth, dce, dneg, **kw)
+    d_k, g_k = ttm.quad_bwd(E, queue, *rest, logz, kth, dce, dneg, **kw, tile=tile)
+    d_p, g_p = ttm.quad_bwd_plain(E, queue, *rest, logz, kth, dce, dneg, **kw, tile=tile)
     checks += demb_checks(f"{tag}d_emb", d_k, d_p, queue.dtype)
     checks.append(_err(f"{tag}d_gt", g_k, g_p, 1e-5))
     return checks, want
@@ -321,7 +322,8 @@ def int8_dot_checks(E8, se, w8, qs, tag: str = "") -> list[dict]:
     return checks
 
 
-def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = ""):
+def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = "",
+                        tile: int = 512):
     """Both partial kernels against their plain versions on one shard's
     inputs ``si`` (``parallel/sharded_quad.shard_inputs``) over its block
     ``q_l``, with the global gt, logz, kth and cotangents. Returns (checks,
@@ -340,15 +342,16 @@ def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = 
         _err(f"{tag}partial m + log s", (m_k + torch.log(s_k))[seen],
              (m_p + torch.log(s_p))[seen], 1e-4),
         _err(f"{tag}partial top-k", t_k, t_p, 1e-5)]
-    d_k, g_k = ttm.quad_partial_bwd(*args, gt, logz, kth, dce, dneg, **pkw)
-    d_p, g_p = ttm.quad_partial_bwd_plain(*args, gt, logz, kth, dce, dneg, **pkw)
+    d_k, g_k = ttm.quad_partial_bwd(*args, gt, logz, kth, dce, dneg, **pkw, tile=tile)
+    d_p, g_p = ttm.quad_partial_bwd_plain(*args, gt, logz, kth, dce, dneg, **pkw, tile=tile)
     checks += demb_checks(f"{tag}partial d_emb", d_k, d_p, q_l.dtype)
     checks.append(_err(f"{tag}partial d_gt", g_k, g_p, 1e-5))
     return checks, (d_k, g_k)
 
 
 def quad_shard_checks(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, labels_b, dce,
-                      dneg, kw: dict, n_shards: int, qscales=None, int8_compute=False):
+                      dneg, kw: dict, n_shards: int, qscales=None, int8_compute=False,
+                      tile: int = 512):
     """The sharded quad head emulated in one process: ``queue`` cut into
     ``n_shards`` blocks, the gt parts summed (the all_reduce), each block's
     partial kernels held to their plain versions, the block states merged
@@ -356,12 +359,13 @@ def quad_shard_checks(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, l
     and d_emb with the owners' tails (the backward's all_reduces), against
     ``quad_fwd`` / ``quad_bwd`` + tail on the whole queue. ``dce`` /
     ``dneg`` are [2, 2b], masked with the positive rows. An int8 queue
-    comes with its [2, Q] ``qscales`` (and may run ``int8_compute``).
-    Returns the checks."""
+    comes with its [2, Q] ``qscales`` (and may run ``int8_compute``);
+    ``tile`` is the backward's tile request, resolved per block as on the
+    whole queue. Returns the checks."""
     from vlsfr_tpu_torch.ops import twin_margin as ttm
     from vlsfr_tpu_torch.ops.qqueue import quantize_rows
-    from vlsfr_tpu_torch.parallel._shard_common import merge_partials
-    from vlsfr_tpu_torch.parallel.sharded_quad import owner_tail, shard_inputs
+    from vlsfr_tpu_torch.parallel._shard_common import merge_partials, owner_tail
+    from vlsfr_tpu_torch.parallel.sharded_quad import shard_inputs
 
     b, q = emb_x.shape[0], queue.shape[1]
     lt, mg, k = kw["loss_type"], kw["margin"], kw["k"]
@@ -393,13 +397,13 @@ def quad_shard_checks(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, l
     checks, d_tot, dgt_sum = [], 0.0, 0.0
     for j, (si, q_l) in enumerate(zip(sis, blocks)):
         c, (d_k, g_k) = quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw,
-                                                tag=f"block {j}/{n_shards} ")
+                                            tag=f"block {j}/{n_shards} ", tile=tile)
         checks += c
         d_tot, dgt_sum = d_tot + d_k, dgt_sum + g_k
     for si in sis:  # each owner's tail, from the summed d_gt
-        d_tot = owner_tail(d_tot, dgt_sum, gt, si, lt, mg)
+        d_tot = owner_tail(d_tot, dgt_sum, gt, si.owned, si.r0e, si.rbe, lt, mg)
     d_w, dgt_w = ttm.quad_bwd(E, queue, *rest, logz_w, topk_w[:, :, -1].contiguous(), dce, dneg,
-                              b=b, **kw, **fkw)
+                              b=b, **kw, **fkw, tile=tile)
     sa, sb = slice(0, b), slice(b, 2 * b)
     d_whole = torch.cat([
         ttm.twin_gt_tail(emb_x, queue, g_a, *plan_a, labels_a, packed[7][0, sa], packed[7][1, sa],
@@ -414,6 +418,101 @@ def quad_shard_checks(emb_x, emb_y, queue, g_a, g_b, plan_a, plan_b, labels_a, l
         _err(tag + "d_gt", dgt_sum, dgt_w, 1e-5),
         _err(tag + "d_emb with the owners' tails", d_tot, d_whole,
              1e-4 * float(d_whole.abs().max()))]
+    return checks
+
+
+def twin_checks(queue, inputs, kw: dict, dce, dneg, tag: str = "", tile: int = 512):
+    """``twin_fwd`` / ``twin_bwd`` against their plain versions on one
+    direction's inputs (E, G, V, rows, cols, blend, labels, gt), with the
+    quad's limits: ce / neg / logz 1e-4, top-k 1e-5, d_gt 1e-5, d_emb 1e-4
+    × its max on an f32 queue and ``rounded_demb`` on a bf16 one. Returns
+    (checks, the plain forward's outputs)."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    E, rest = inputs[0], inputs[1:]
+    got = ttm.twin_fwd(E, queue, *rest, **kw)
+    want = ttm.twin_fwd_plain(E, queue, *rest, **kw)
+    checks = [_err(f"{tag}{name}", g, w, tol) for name, g, w, tol in
+              zip(("ce", "neg", "logz", "top-k"), got, want, (1e-4, 1e-4, 1e-4, 1e-5))]
+    logz, kth = want[2], want[3][:, :, -1].contiguous()
+    d_k, g_k = ttm.twin_bwd(E, queue, *rest, logz, kth, dce, dneg, **kw, tile=tile)
+    d_p, g_p = ttm.twin_bwd_plain(E, queue, *rest, logz, kth, dce, dneg, **kw, tile=tile)
+    checks += demb_checks(f"{tag}d_emb", d_k, d_p, queue.dtype)
+    checks.append(_err(f"{tag}d_gt", g_k, g_p, 1e-5))
+    return checks, want
+
+
+def twin_shard_checks(emb, queue, g, plan, labels, dce, dneg, kw: dict, n_shards: int,
+                      tile: int = 512):
+    """The sharded twin head emulated in one process, as
+    ``quad_shard_checks``: each block's twin partial kernels against their
+    plain versions (the state as the quad partials', d_emb by
+    ``demb_checks``, raw d_gt 1e-5), and the blocks merged
+    (``merge_partials``, ``finalize_twin``; summed d_gt and d_emb with the
+    owners' tails) against ``twin_fwd`` / ``twin_bwd`` + tail on the whole
+    queue: ce / neg / logz (in-pool rows) 1e-4, top-k 1e-5, d_gt 1e-5,
+    d_emb 1e-4 × its max (f32) or ``rounded_demb`` (bf16). ``dce`` /
+    ``dneg`` are [2, b], masked with the positive rows. Returns the
+    checks."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.parallel._shard_common import merge_partials, owner_tail
+    from vlsfr_tpu_torch.parallel.sharded_twin import twin_shard_inputs
+
+    q = queue.shape[1]
+    lt, mg, k = kw["loss_type"], kw["margin"], kw["k"]
+    lab = labels.to(torch.int32)
+    g32, rows_i, cols_i, v, blend = ttm.dir_inputs(queue, g, *plan)
+    gt_w = torch.stack(ttm.compute_twin_gt(emb, queue, g, *plan, labels))
+    whole_in = (emb.float().contiguous(), g32, v, rows_i, cols_i, blend.to(torch.int32), lab,
+                gt_w)
+    ce_w, neg_w, logz_w, topk_w = ttm.twin_fwd(whole_in[0], queue, *whole_in[1:], **kw)
+    c_local = q // n_shards
+    blocks = [queue[:, j * c_local:(j + 1) * c_local] for j in range(n_shards)]
+    sis = [twin_shard_inputs(emb, q_l, j * c_local, g, *plan, labels)
+           for j, q_l in enumerate(blocks)]
+    gt = sum(si.gt_parts for si in sis)
+    pos = lab >= 0
+    checks = []
+    states = []
+    for j, (si, q_l) in enumerate(zip(sis, blocks)):
+        args = si.kernel_args(q_l)
+        m_k, s_k, t_k = ttm.twin_partial_fwd(*args, gt, **kw)
+        m_p, s_p, t_p = ttm.twin_partial_fwd_plain(*args, gt, **kw)
+        seen = s_p > 0
+        tag = f"block {j}/{n_shards} "
+        checks += [
+            {"name": f"{tag}partial rows with a column", "limit": 0.0,
+             "err": float((seen != (s_k > 0)).sum())},
+            _err(f"{tag}partial m + log s", (m_k + torch.log(s_k))[seen],
+                 (m_p + torch.log(s_p))[seen], 1e-4),
+            _err(f"{tag}partial top-k", t_k, t_p, 1e-5)]
+        states.append((m_k, s_k, t_k))
+    m, s, t = merge_partials(*(torch.stack(x) for x in zip(*states)), k)
+    ce, neg, logz, topk = ttm.finalize_twin(m, s, t, lab, gt, loss_type=lt, margin=mg,
+                                            scale=kw["scale"])
+    kth = topk[:, :, -1].contiguous()
+    d_tot, dgt_sum = 0.0, 0.0
+    for j, (si, q_l) in enumerate(zip(sis, blocks)):
+        args = (*si.kernel_args(q_l), gt, logz, kth, dce, dneg)
+        d_k, g_k = ttm.twin_partial_bwd(*args, **kw, tile=tile)
+        d_p, g_p = ttm.twin_partial_bwd_plain(*args, **kw, tile=tile)
+        tag = f"block {j}/{n_shards} "
+        checks += demb_checks(f"{tag}partial d_emb", d_k, d_p, q_l.dtype)
+        checks.append(_err(f"{tag}partial d_gt", g_k, g_p, 1e-5))
+        d_tot, dgt_sum = d_tot + d_k, dgt_sum + g_k
+    for si in sis:  # each owner's tail, from the summed d_gt
+        d_tot = owner_tail(d_tot, dgt_sum, gt, si.owned, si.r0e, si.rbe, lt, mg)
+    d_w, dgt_w = ttm.twin_bwd(whole_in[0], queue, *whole_in[1:], logz_w,
+                              topk_w[:, :, -1].contiguous(), dce, dneg, **kw, tile=tile)
+    d_whole = ttm.twin_gt_tail(emb, queue, g, *plan, labels, gt_w[0], gt_w[1], dgt_w[0],
+                               dgt_w[1], d_w, lt, mg).float()
+    tag = f"{n_shards} blocks merged vs the whole queue: "
+    checks += [
+        _err(tag + "ce", ce, ce_w, 1e-4), _err(tag + "neg", neg, neg_w, 1e-4),
+        _err(tag + "logz (in-pool rows)", logz[:, pos], logz_w[:, pos], 1e-4),
+        _err(tag + "top-k", topk, topk_w, 1e-5),
+        _err(tag + "d_gt", dgt_sum, dgt_w, 1e-5),
+        *demb_checks(tag + "d_emb with the owners' tails", d_tot, d_whole, queue.dtype)]
     return checks
 
 
