@@ -183,9 +183,46 @@ D = 512, 2^20 slots, f32 and bf16 queues):
    bf16 copy: losses 1e-5 relative and the head's d_emb by
    ``parity.rounded_demb`` against the quad at the same tile request and
    at the step's own (2048, resolved 1024), and the sharded twin as above;
-then the ``kernels`` JSON line (30 entries: the ten f32 kernels, the
-twelve quad forms and the twin kernels in f32 and bf16), and the device
-JSON line last.
+The softmax head's bf16 classifier (``softmax_1m_bf16``: ir50, 2^20 bf16
+classes, bf16 momentum, fused SGD; the JAX bench suite's row):
+29. parity — the six margin_ce kernels' bf16 forms against their plain
+   versions at full width (B = 128, D = 512, C = 2^20, Arc, k = 1, a
+   repeated label, a 0.01·N(0, 1) classifier and momentum, lr 0.1, μ 0.9
+   Nesterov, wd 1e-4): the forward, the backward and the fused kernel in
+   the (w, mom) pairs (bf16, bf16), (bf16, f32) and (f32, bf16), each also
+   with the momentum scaled by 1e-4 at lr 100 so that the gradient and the
+   decay move w' and mom' on every row; AM, SV and
+   Arc k = 3 with outlier rows at C = 4096; route D's forward with its
+   statistics tile (512) and the sparse backward over 65,536 rows; the
+   partial kernels over a 2^20 block and 4 emulated blocks of 1,250,000
+   merged against the whole-classifier kernels; limits printed with their
+   reasons (``vlsfr_tpu_torch/utils/parity.py``); then three copies of
+   margin_ce.cu built with planted faults (a W operand left unrounded, the
+   stored row rounded and scaled afterwards, w' rounded twice), each of
+   which the checks must reject;
+30. timing — each bf16 form at full width: kernel, plain version, a PyTorch
+   composition on the tensor cores (bf16 matmuls with f32 accumulation,
+   logsumexp, topk, the SGD chain) and the bound (bytes at 3.35 TB/s
+   against the dots at 989 TFLOP/s; the f32 classifier beside a bf16
+   momentum at the f32 rate);
+31. training — softmax_1m_bf16 through ``Trainer``: its first step against
+   the plain composition of the same step on the same recorded inputs (the
+   loss 1e-5 relative, the step's forward by ``parity.rounded_fwd_checks``,
+   then on its logz and top-k the classifier by ``parity.bf16_ulps``
+   outside the rows whose d_w straddled and the momentum by
+   ``parity.bf16_fresh_state``), then 4 steps (step
+   time, peak memory, a finite loss, each kernel form once per step, a
+   profile of two warm steps); route A with (bf16, f32) and (f32, bf16),
+   route B and route D at a bf16 classifier, 2 steps each;
+32. the class-sharded routes A, B and D at a bf16 classifier over an NCCL
+   group of one: each first step (f32 backbone) against the single-device
+   route's (loss 1e-5 relative, the classifier bit for bit, the momentum
+   by ``parity.bf16_fresh_state`` or per row set, the backbone as phase
+   20's),
+   then 2 steps each with the partial kernels' launch counts;
+then the ``kernels`` JSON line (38 entries: the ten f32 kernels, the
+twelve quad forms, the twin kernels in f32 and bf16, and the eight bf16
+forms of the margin_ce kernels), and the device JSON line last.
 
 The script imports nothing of JAX. Without a CUDA device it exits non-zero
 before printing any result.
@@ -541,6 +578,12 @@ def check_training(trainer, out: dict, launches: dict) -> None:
     print(f"  queue rows unit; card/CPU embedding cosine >= {agree:.5f}")
 
 
+def margin_launches(tms, **counts) -> dict:
+    """margin_stream's launch counters as a run that launched ``counts``
+    (by kernel form) and nothing else leaves them."""
+    return dict(dict.fromkeys(tms.LAUNCH_COUNTS, 0), **counts)
+
+
 def softmax_case(c: int, loss_type: str, k: int, frac_outlier: float, seed: int):
     """Unit embeddings [128, 512], a 0.01·N(0, 1) classifier and momentum
     [c, 512], labels with one class twice (rows 0 and 1) and optionally
@@ -697,7 +740,7 @@ def softmax_train_phase(card: str, tmp: str):
 
     print("  route B (pool.fused_update=off): one step from the seed on batch (0, 0)")
     trainer = softmax_trainer(tmp, "pool.fused_update=off")
-    if trainer.state.classifier_mom is not None:
+    if not trainer.state.classifier.requires_grad:  # B: the classifier in autograd
         raise RuntimeError("route B was not selected")
     batch = trainer.pipeline.make_batch(0, 0)
     w0 = trainer.state.classifier.detach().clone()
@@ -713,17 +756,16 @@ def softmax_train_phase(card: str, tmp: str):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  route B {ROUTE_B_STEPS} steps: {json.dumps(out_b)}")
-    print(f"  margin_ce launches in the route-B run: {launches_b}")
-    if launches_b != {"margin_ce_fwd": ROUTE_B_STEPS, "margin_ce_bwd": ROUTE_B_STEPS,
-                      "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 0,
-                      "margin_partial_fwd": 0, "margin_partial_bwd": 0} \
+    print(f"  margin_ce launches in the route-B run: { {k: v for k, v in launches_b.items() if v} }")
+    if launches_b != margin_launches(tms, margin_ce_fwd=ROUTE_B_STEPS,
+                                     margin_ce_bwd=ROUTE_B_STEPS) \
             or not math.isfinite(out_b["loss"]):
         raise RuntimeError(f"route B must launch fwd and bwd once per step: {launches_b}")
 
     print("  route A (the default): the same step from the same seed")
     trainer = softmax_trainer(tmp)
     try:
-        if trainer.state.classifier_mom is None:
+        if trainer.state.classifier.requires_grad:
             raise RuntimeError("route A was not selected")
         batch = trainer.pipeline.make_batch(0, 0)
         loss_a = float(trainer.train_step(trainer.state, batch.images, batch.labels,
@@ -751,10 +793,9 @@ def softmax_train_phase(card: str, tmp: str):
         launches = dict(tms.LAUNCH_COUNTS)
         peak = torch.cuda.max_memory_allocated()
         print(f"  route A {TRAIN_STEPS} steps: {json.dumps(out)}")
-        print(f"  margin_ce launches in the route-A run: {launches}")
-        if launches != {"margin_ce_fwd": TRAIN_STEPS, "margin_ce_bwd": 0,
-                        "margin_ce_bwd_fused_sgd": TRAIN_STEPS, "margin_ce_bwd_sparse": 0,
-                        "margin_partial_fwd": 0, "margin_partial_bwd": 0}:
+        print(f"  margin_ce launches in the route-A run: { {k: v for k, v in launches.items() if v} }")
+        if launches != margin_launches(tms, margin_ce_fwd=TRAIN_STEPS,
+                                       margin_ce_bwd_fused_sgd=TRAIN_STEPS):
             raise RuntimeError(f"route A must launch fwd and fused once per step: {launches}")
         if not (math.isfinite(out["loss"]) and out["loss"] > 0
                 and out["final_step"] == TRAIN_STEPS
@@ -915,10 +956,9 @@ def route_d_phase(card: str, tmp: str, ref_b: dict) -> dict:
         launches = dict(tms.LAUNCH_COUNTS)
         peak = torch.cuda.max_memory_allocated()
         print(f"  route D {TRAIN_STEPS} steps: {json.dumps(out)}")
-        print(f"  margin_ce launches in the route-D run: {launches}")
-        if launches != {"margin_ce_fwd": TRAIN_STEPS, "margin_ce_bwd": TRAIN_STEPS,
-                        "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": TRAIN_STEPS,
-                        "margin_partial_fwd": 0, "margin_partial_bwd": 0}:
+        print(f"  margin_ce launches in the route-D run: { {k: v for k, v in launches.items() if v} }")
+        if launches != margin_launches(tms, margin_ce_fwd=TRAIN_STEPS, margin_ce_bwd=TRAIN_STEPS,
+                                       margin_ce_bwd_sparse=TRAIN_STEPS):
             raise RuntimeError(f"route D must launch fwd, bwd and sparse once per step: {launches}")
         if not (math.isfinite(out["loss"]) and out["loss"] > 0
                 and out["grad_rows"] == route_d_rows() and out["final_step"] == TRAIN_STEPS):
@@ -1328,6 +1368,14 @@ def sharded_softmax_run(tmp: str, route: str, mesh, *overrides: str):
     return trainer, state, make_softmax_train_step(cfg, trainer.schedule, mesh=mesh)
 
 
+def backbone_gap(state, trainer) -> float:
+    """max(|diff| - 1e-5 |ref|) over the backbone's parameters and BN
+    statistics of ``state`` against the single-device Trainer's."""
+    ref = trainer.state.backbone.state_dict()
+    return max(float(((v.double() - ref[k].double()).abs() - 1e-5 * ref[k].double().abs())
+                     .max()) for k, v in state.backbone.state_dict().items())
+
+
 def sharded_softmax_first_step(tmp: str, route: str, mesh) -> None:
     """The sharded route's first step against the single-device route's
     first step from the same seed and batch, on an f32 backbone (phase 17's
@@ -1349,9 +1397,7 @@ def sharded_softmax_first_step(tmp: str, route: str, mesh) -> None:
         checks = parity.by_rows(f"route {route} classifier, sharded vs single",
                                 state.classifier.detach(), w_ref, w_ref - w0,
                                 torch.from_numpy(batch.labels), 1e-4, rounding=2.0)
-        ref = trainer.state.backbone.state_dict()
-        worst = max(float(((v.double() - ref[k].double()).abs() - 1e-5 * ref[k].double().abs())
-                          .max()) for k, v in state.backbone.state_dict().items())
+        worst = backbone_gap(state, trainer)
         print(f"  route {route} first step (f32 backbone), sharded against single-device: loss "
               f"{loss:.6f} / {loss_ref:.6f} (1e-5 relative); backbone max(|diff| - 1e-5 |ref|) "
               f"{worst:.3e} <= 2e-5")
@@ -2212,6 +2258,561 @@ def twin_slice_phase(card: str, tmp: str) -> dict:
     return {k_: v for k_, v in launches.items() if k_.split("[")[0] in kernels}
 
 
+# ----------------------------------------------------------------------
+# the softmax head's bf16 classifier (softmax_1m_bf16: ir50, 2^20 bf16
+# classes, bf16 momentum, fused SGD)
+# ----------------------------------------------------------------------
+
+BF16 = ("pool.classifier_dtype=bfloat16",)
+# phase 29's second fused case: at LR and a 0.01-scale momentum the gradient
+# and wd·w of an unlabelled row fall below one bf16 spacing of w and mom, so
+# w' / mom' there only show that they stayed; with the momentum scaled down
+# and a large lr, lr·wd·w (1 % of w) and lr·d_w move w', and g moves mom'
+MOVING_MOM, MOVING_LR = 1e-4, 100.0
+FUSED_PAIRS = {"bf16,bf16": (torch.bfloat16, torch.bfloat16),
+               "bf16,f32": (torch.bfloat16, torch.float32),
+               "f32,bf16": (torch.float32, torch.bfloat16)}
+# source edits of csrc/margin_ce.cu that break the bf16 form, each of which
+# the bf16 checks must reject (vlsfr_tpu_torch/utils/parity.py)
+BF16_FAULTS = {
+    "skips the W operand's rounding": ("    return bf16r(wn);", "    return wn;"),
+    "rounds the stored row and scales afterwards": (
+        "    return bf16r(wn);", "    return bf16r(__bfloat162float(y)) * inv[row];"),
+    "rounds new_w twice": (
+        "          store_as(w_upd + off, wv - sgd.lr * upd);",
+        "          store_as(w_upd + off, wv + bf16r(-sgd.lr * upd));"),
+}
+
+
+def bf16_case(c: int, loss_type: str, k: int, frac_outlier: float, seed: int,
+              pair: str = "bf16,bf16"):
+    """``softmax_case`` with the classifier and momentum stored in the
+    pair's dtypes (the f32 draw cast, as JAX casts its init)."""
+    emb, w, mom, labels, d_ce, d_neg, kw = softmax_case(c, loss_type, k, frac_outlier, seed)
+    w_dt, m_dt = FUSED_PAIRS[pair]
+    return emb, w.to(w_dt), mom.to(m_dt), labels, d_ce, d_neg, kw
+
+
+def bf16_softmax_checks(case, tag: str, lr: float = LR) -> dict:
+    """The forward (bf16 classifier) and both backward kernels against their
+    plain versions on one case (``parity.margin_ce_bwd_checks``: the bf16
+    forms' limits; the fused update at ``lr``); raises above a limit.
+    Returns the max errors by kernel form, and the forward's (gt, logz,
+    topk)."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.utils import parity
+
+    emb, w, mom, labels, d_ce, d_neg, kw = case
+    gt = tms.compute_gt(emb, w, labels)
+    got = tms.margin_ce_fwd(emb, w, labels, gt, **kw)
+    want = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
+    rounded = w.dtype == torch.bfloat16
+    fwd = (parity.rounded_fwd_checks(got, want) if rounded else
+           [parity._err(n, g, wn, t) for n, g, wn, t in
+            zip(("ce", "neg", "logz", "top-k"), got, want, (1e-4, 1e-4, 1e-4, 1e-5))])
+    logz, topk = want[2], want[3]
+    del got, want
+    bwd, fused = parity.margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg,
+                                             kw, lr, SGD)
+    print(f"  {tag}:")
+    report(fwd + bwd + fused, f"the bf16 margin_ce forms ({tag})")
+    value = lambda checks: max((c["err"] for c in checks if not c.get("count")  # noqa: E731
+                                and not c.get("excess")), default=0.0)
+    pair = ",".join("bf16" if t.dtype == torch.bfloat16 else "f32" for t in (w, mom))
+    out = {f"margin_ce_bwd_fused_sgd[{pair}]": value(fused)}
+    if rounded:
+        out.update({"margin_ce_fwd[bf16]": value(fwd), "margin_ce_bwd[bf16]": value(bwd)})
+    return out, (gt, logz, topk)
+
+
+def start_faulty_builds(tmp: str) -> dict:
+    """One nvcc per planted fault of BF16_FAULTS, all started together:
+    {fault: (process, library path)}."""
+    import pathlib
+    import shutil
+
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "margin_ce.cu").read_text()
+    procs = {}
+    for i, (name, (old, new)) in enumerate(BF16_FAULTS.items()):
+        if src.count(old) != 1:
+            raise RuntimeError(f"the planted fault {name!r} does not match margin_ce.cu once")
+        out = pathlib.Path(tmp) / f"fault{i}"
+        out.mkdir()
+        shutil.copy(cuda_build.CSRC / "margin_common.cuh", out)
+        (out / "margin_ce.cu").write_text(src.replace(old, new))
+        procs[name] = (cuda_build.start_nvcc(out / "margin_ce.cu", out / "libmargin_ce.so"),
+                       out / "libmargin_ce.so")
+    return procs
+
+
+def check_planted_faults(procs: dict) -> None:
+    """Each faulty margin_ce.cu, built, at full width (B = 128, D = 512,
+    C = 2^20, Arc, bf16 classifier and momentum) against the plain versions:
+    the forward's checks must fail for the two operand faults, the fused
+    update's w' count for the twice-rounded update; the real library passes
+    the same checks (phase 29)."""
+    import ctypes
+
+    from vlsfr_tpu_torch.ops import cuda_build
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.utils import parity
+
+    emb, w, mom, labels, d_ce, d_neg, kw = bf16_case(SOFTMAX["c"], "Arc", 1, 0.0, seed=21)
+    gt = tms.compute_gt(emb, w, labels)
+    want = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
+    logz, topk = want[2], want[3]
+    w0, mom0 = w.clone(), mom.clone()
+    tms.margin_ce_bwd_fused_sgd_plain(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, LR,
+                                      **SGD, **kw)
+    w_p = w
+    real = cuda_build._LOADED.get("margin_ce")
+    try:
+        for name, (proc, lib_path) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for the planted fault {name!r}:\n{log}")
+            cuda_build._LOADED["margin_ce"] = ctypes.CDLL(str(lib_path))
+            got = tms.margin_ce_fwd(emb, w0, labels, gt, **kw)
+            w_k, mom_k = w0.clone(), mom0.clone()
+            tms.margin_ce_bwd_fused_sgd(emb, w_k, mom_k, labels, gt, logz, topk, d_ce, d_neg, LR,
+                                        **SGD, **kw)
+            checks = parity.rounded_fwd_checks(got, want) + parity.bf16_ulps("w'", w_k, w_p, w0)
+            failed = parity.failures(checks)
+            print(f"  planted fault ({name}): fails "
+                  + "; ".join(parity.describe(c) for c in failed))
+            must = "w' elements apart" if name == "rounds new_w twice" else "top-k"
+            if not any(c["name"] == must for c in failed):
+                raise RuntimeError(f"the bf16 checks pass a margin_ce.cu that {name}")
+            del got, w_k, mom_k
+    finally:
+        if real is None:
+            cuda_build._LOADED.pop("margin_ce", None)
+        else:
+            cuda_build._LOADED["margin_ce"] = real
+
+
+def bf16_parity_phase(tmp: str) -> dict:
+    """Phase 29: the bf16 forms at full width, each against its plain
+    version; the planted faults. Returns the max errors by kernel form."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.utils import parity
+
+    procs = start_faulty_builds(tmp)
+    errs = {}
+    for pair in FUSED_PAIRS:
+        for moving in (False, True):
+            case = bf16_case(SOFTMAX["c"], "Arc", 1, 0.0, 2, pair)
+            tag = f"C={SOFTMAX['c']} Arc k=1, (w, mom) = ({pair})"
+            if moving:  # g and wd·w move w' and mom' on every row (module docstring)
+                case = (*case[:2], (case[2].float() * MOVING_MOM).to(case[2].dtype), *case[3:])
+                tag += f", momentum x {MOVING_MOM:g}, lr {MOVING_LR:g}"
+            e, _ = bf16_softmax_checks(case, tag, MOVING_LR if moving else LR)
+            errs.update({k: max(v, errs.get(k, 0.0)) for k, v in e.items()})
+            del case
+            gc.collect()
+            torch.cuda.empty_cache()
+    for loss_type, k, frac in (("AM", 1, 0.0), ("SV", 1, 0.0), ("Arc", 3, 0.3)):
+        bf16_softmax_checks(bf16_case(4096, loss_type, k, frac, 3),
+                            f"C=4096 {loss_type} k={k} (bf16, bf16)")
+    emb, w, _, labels, d_ce, d_neg, kw = bf16_case(SOFTMAX["c"], "Arc", 1, 0.0, 4)
+    b, d = emb.shape
+    tile, n_tiles = tms.sparse_bwd_geometry(b, d, SOFTMAX["c"])
+    m = tms.sparse_m_tiles(SPARSE_RATE, n_tiles, b)
+    print(f"  route D's pieces: the forward with statistics (tile {tile}) and the sparse "
+          f"backward over {m} of {n_tiles} tiles ({m * tile} rows)")
+    u = torch.rand((n_tiles,), generator=torch.Generator(device=emb.device).manual_seed(4),
+                   device=emb.device)
+    checks, tile_idx, (gt, logz, topk) = parity.sparse_path_checks(emb, w, labels, d_ce, d_neg,
+                                                                    kw, tile, m, u)
+    report(checks, "the bf16 forward statistics / sparse backward")
+    errs["margin_ce_bwd_sparse[bf16]"] = max(c["err"] for c in checks if c["name"].startswith(
+        "sparse") and not c.get("count") and not c.get("excess"))
+    errs["margin_ce_fwd[bf16]"] = max(errs["margin_ce_fwd[bf16]"], max(
+        c["err"] for c in checks if c["name"] in ("maxz", "maxcos")))
+    sparse_case = (emb, w, labels, d_ce, d_neg, kw, tile, tile_idx, gt, logz, topk)
+    for c, n in ((SOFTMAX["c"], 1), (SHIPPED_CLASSES, CLASS_SHARDS)):
+        print(f"  the partial kernels, the bf16 classifier as {n} block(s) of {c // n}:")
+        e, w, mom, labels, d_ce, d_neg, kw = bf16_case(c, "Arc", 1, 0.0, 8 + n)
+        checks, _ = parity.margin_shard_checks(e, w, labels, d_ce, d_neg, kw, n)
+        report(checks, "the bf16 partial kernels")
+        for key, names in (("margin_partial_fwd[bf16]", ("m + log s", "top-k")),
+                           ("margin_partial_bwd[bf16]", ("d_emb", "d_w"))):
+            errs[key] = max(errs.get(key, 0.0), max(
+                ch["err"] for ch in checks if any(f"partial {x}" in ch["name"] for x in names)
+                and not ch.get("count") and not ch.get("excess")))
+        del e, w, mom
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("  planted faults of the bf16 form (margin_ce.cu copies built at the start of this "
+          "phase):")
+    check_planted_faults(procs)
+    return errs, sparse_case
+
+
+
+def bf16_timing_phase(sparse_case) -> dict:
+    """Phase 30: each bf16 form at full width: kernel, plain version, a
+    PyTorch composition on the tensor cores (bf16 matmuls, f32 accumulate;
+    the port never calls it) and the bound: bytes at 3.35 TB/s against the
+    dots at 989 TFLOP/s (bf16), or at the f32 rate for the f32 classifier
+    beside a bf16 momentum."""
+    import torch.nn.functional as F
+
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.parallel._shard_common import localize_labels
+
+    out = {}
+    emb, w, mom, labels, d_ce, d_neg, kw = bf16_case(SOFTMAX["c"], "Arc", 1, 0.0, 13)
+    b, d = emb.shape
+    c, k = w.shape[0], kw["k"]
+    gt = tms.compute_gt(emb, w, labels)
+    _, _, logz, topk = tms.margin_ce_fwd(emb, w, labels, gt, **kw)
+    args, bargs = (emb, w, labels, gt), (emb, w, labels, gt, logz, topk, d_ce, d_neg)
+    product = 2.0 * b * d * c
+    vecs = 4 * (b * d + 4 * b)
+    wb = w.bfloat16()
+    eb = emb.bfloat16()
+
+    def lib_fwd(blk=wb):  # yardsticks only: the port never calls these
+        cos = (eb @ F.normalize(blk.float(), dim=1).bfloat16().T).float()
+        torch.logsumexp(kw["scale"] * cos, dim=1)
+        torch.topk(cos, k, dim=1)
+
+    d_cos = torch.randn((b, c), device=emb.device).mul_(1e-4).bfloat16()
+    wn = F.normalize(w.float(), dim=1).bfloat16()
+
+    def lib_bwd():
+        torch.matmul(d_cos, wn).float()
+        return torch.matmul(d_cos.T, eb).float()
+
+    out["margin_ce_fwd[bf16]"] = dict(
+        ms=cuda_ms(lambda: tms.margin_ce_fwd(*args, **kw), 10),
+        plain_ms=cuda_ms(lambda: tms.margin_ce_fwd_plain(*args, **kw), 3, 1),
+        library_ms=cuda_ms(lib_fwd, 5, 1),
+        **bound(product, 2 * c * d + vecs + 4 * b * (3 + k), product / PEAK_BF16_FLOPS * 1e3))
+    out["margin_ce_bwd[bf16]"] = dict(
+        ms=cuda_ms(lambda: tms.margin_ce_bwd(*bargs, **kw), 5),
+        plain_ms=cuda_ms(lambda: tms.margin_ce_bwd_plain(*bargs, **kw), 3, 1),
+        library_ms=cuda_ms(lib_bwd, 5, 1),
+        **bound(3 * product, 6 * c * d + vecs + 4 * b + 4 * b * d,
+                3 * product / PEAK_BF16_FLOPS * 1e3))
+    for pair, (w_dt, m_dt) in FUSED_PAIRS.items():
+        w_s, mom_s = w.to(w_dt), mom.to(m_dt)
+        wi, mi = w_s.element_size(), mom_s.element_size()
+        ops_ms = 3 * product / (PEAK_BF16_FLOPS if w_dt == torch.bfloat16
+                                else PEAK_F32_FLOPS) * 1e3
+
+        def lib_fused():  # the bf16 products, then the SGD chain in f32 stored back
+            g = lib_bwd().add_(w_s.float(), alpha=SGD["weight_decay"])
+            m_new = mom_s.float().mul_(SGD["momentum"]).add_(g)
+            w_s.copy_(w_s.float().sub_(g.add_(m_new, alpha=SGD["momentum"]), alpha=LR))
+            mom_s.copy_(m_new)
+
+        fused = lambda: tms.margin_ce_bwd_fused_sgd(emb, w_s, mom_s, labels, gt, logz,  # noqa
+                                                    topk, d_ce, d_neg, LR, **SGD, **kw)
+        plain = lambda: tms.margin_ce_bwd_fused_sgd_plain(emb, w_s, mom_s, labels, gt,  # noqa
+                                                          logz, topk, d_ce, d_neg, LR, **SGD,
+                                                          **kw)
+        out[f"margin_ce_bwd_fused_sgd[{pair}]"] = dict(
+            ms=cuda_ms(fused, 5), plain_ms=cuda_ms(plain, 3, 1),
+            library_ms=cuda_ms(lib_fused, 3, 1),
+            **bound(3 * product + 8.0 * c * d, 2 * (wi + mi) * c * d + vecs + 4 * b + 8 * b * d,
+                    ops_ms))
+        del w_s, mom_s
+        gc.collect()
+        torch.cuda.empty_cache()
+    semb, sw, slabels, sd_ce, sd_neg, skw, tile, tile_idx, sgt, slogz, stopk = sparse_case
+    ncols = tile_idx.shape[0] * tile
+    sargs = (semb, sw, slabels, sgt, slogz, stopk, sd_ce, sd_neg, tile_idx)
+    cols = (tile_idx.long()[:, None] * tile
+            + torch.arange(tile, device=emb.device)[None, :]).reshape(-1)
+
+    def lib_sparse():
+        wn_s = F.normalize(torch.index_select(sw, 0, cols).float(), dim=1).bfloat16()
+        dc = torch.exp(skw["scale"] * (semb.bfloat16() @ wn_s.T).float() - slogz[:, None])
+        dc = dc.mul_(sd_ce[:, None] * skw["scale"]).bfloat16()
+        torch.matmul(dc, wn_s).float()
+        torch.matmul(dc.T, semb.bfloat16()).float()
+
+    sp = 2.0 * b * d * ncols
+    out["margin_ce_bwd_sparse[bf16]"] = dict(
+        ms=cuda_ms(lambda: tms.margin_ce_bwd_sparse(*sargs, tile=tile, **skw), 10),
+        plain_ms=cuda_ms(lambda: tms.margin_ce_bwd_sparse_plain(*sargs, tile=tile, **skw), 3, 1),
+        library_ms=cuda_ms(lib_sparse, 10, 1),
+        **bound(3 * sp, 6 * ncols * d + 4 * (b * d + 4 * b) + 4 * tile_idx.shape[0] + 4 * b * d,
+                3 * sp / PEAK_BF16_FLOPS * 1e3))
+    kth = topk[:, -1].contiguous()
+    d_ce_m, d_neg_m = tms._mask_cotangents(labels >= 0, d_ce, d_neg)
+    ll, _ = localize_labels(0, c, labels)
+    _, d_wl = tms._target_rows(emb, w, ll, gt, logz, d_ce_m, loss_type=kw["loss_type"],
+                               margin=kw["margin"], scale=kw["scale"])
+    fargs, pargs = (emb, w, ll, gt), (emb, w, ll, gt, logz, kth, d_ce_m, d_neg_m, d_wl)
+    out["margin_partial_fwd[bf16]"] = dict(
+        ms=cuda_ms(lambda: tms.margin_partial_fwd(*fargs, **kw), 10),
+        plain_ms=cuda_ms(lambda: tms.margin_partial_fwd_plain(*fargs, **kw), 3, 1),
+        library_ms=cuda_ms(lib_fwd, 5, 1),
+        **bound(product, 2 * c * d + 4 * (b * d + 2 * b) + 4 * b * (2 + k),
+                product / PEAK_BF16_FLOPS * 1e3))
+    out["margin_partial_bwd[bf16]"] = dict(
+        ms=cuda_ms(lambda: tms.margin_partial_bwd(*pargs, **kw), 5),
+        plain_ms=cuda_ms(lambda: tms.margin_partial_bwd_plain(*pargs, **kw), 3, 1),
+        library_ms=cuda_ms(lib_bwd, 5, 1),
+        **bound(3 * product, 6 * c * d + 12 * b * d + 4 * 7 * b,
+                3 * product / PEAK_BF16_FLOPS * 1e3))
+    del d_cos, wn
+    print_times(out)
+    return out
+
+
+def bf16_first_step(tmp: str) -> None:
+    """softmax_1m_bf16's first step through the Trainer against the plain
+    composition of the same step on the same inputs: the embeddings, the
+    classifier and momentum before it and the lr the step handed its head
+    (recorded). The loss against margin_ce_fwd_plain's (1e-5 relative) and
+    the step's forward (margin_ce_fwd again on those inputs: the kernel's
+    outputs are bit-stable) by ``parity.rounded_fwd_checks``; then the
+    update against margin_ce_bwd_fused_sgd_plain on the step's logz and
+    top-k (on the plain forward's, whose last bits differ, more terms of
+    bf16(d_cos) straddle: read on an H100, 405 momentum rows of 2^20 past
+    d_w's tight limit). The classifier by ``parity.bf16_ulps``
+    from the classifier before the step, outside the rows whose d_w
+    straddled (margin_ce_bwd against its plain version on the same inputs,
+    ``parity.straddled_rows``); the momentum, bf16(g) after a zero start, by
+    ``parity.bf16_fresh_state``."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.train import softmax_head
+    from vlsfr_tpu_torch.utils import parity
+
+    rec = {}
+    head = softmax_head.streaming_margin_grads_fused_sgd
+
+    def recording(emb, w, mom, labels, d_ce, d_neg, lr, **kw):
+        rec.update(args=[x.clone() for x in (emb, w, mom, labels, d_ce, d_neg)], lr=lr, kw=kw)
+        return head(emb, w, mom, labels, d_ce, d_neg, lr, **kw)
+
+    softmax_head.streaming_margin_grads_fused_sgd = recording
+    try:
+        trainer = softmax_trainer(tmp, *BF16, "pool.classifier_mom_dtype=bfloat16",
+                                  "pool.fused_update=on")
+    finally:
+        softmax_head.streaming_margin_grads_fused_sgd = head
+    try:
+        st = trainer.state
+        if (st.classifier.dtype, st.classifier_mom.dtype) != (torch.bfloat16, torch.bfloat16):
+            raise RuntimeError("softmax_1m_bf16 must hold a bf16 classifier and momentum")
+        batch = trainer.pipeline.make_batch(0, 0)
+        loss = float(trainer.train_step(st, batch.images, batch.labels, 1.0)["loss"])
+        emb, w0, mom0, labels, d_ce, d_neg = rec["args"]
+        kw = rec["kw"]
+        fkw = dict(loss_type=kw["loss_type"], margin=float(kw["margin"]),
+                   scale=float(kw["scale"]), k=int(kw["hard_neg"]),
+                   mask_svfc=float(kw["mask_svfc"]))
+        emb = emb.float().contiguous()
+        labels = labels.to(torch.int32)
+        gt = tms.compute_gt(emb, w0, labels)
+        want = tms.margin_ce_fwd_plain(emb, w0, labels, gt, **fkw)
+        got = tms.margin_ce_fwd(emb, w0, labels, gt, **fkw)  # the step's forward, bit-stable
+        checks = parity.rounded_fwd_checks(got, want)
+        loss_p = float(want[0].mean())
+        logz, topk = got[2], got[3]
+        w_p, mom_p = w0.clone(), mom0.clone()
+        tms.margin_ce_bwd_fused_sgd_plain(emb, w_p, mom_p, labels, gt, logz, topk, d_ce, d_neg,
+                                          rec["lr"], momentum=kw["momentum"],
+                                          nesterov=kw["nesterov"],
+                                          weight_decay=kw["weight_decay"], **fkw)
+        bwd = (emb, w0, labels, gt, logz, topk, d_ce, d_neg)
+        _, dw_k = tms.margin_ce_bwd(*bwd, **fkw)
+        _, dw_p = tms.margin_ce_bwd_plain(*bwd, **fkw)
+        straddled = parity.straddled_rows(dw_k, dw_p, labels)
+        del dw_k, dw_p
+        checks += parity.bf16_ulps("classifier", st.classifier, w_p, w0, straddled)
+        checks += parity.bf16_fresh_state("momentum", st.classifier_mom, mom_p, labels)
+        print(f"  rows whose d_w straddled a bf16 boundary: {int(straddled.sum())} of "
+              f"{straddled.numel()}")
+        print(f"  first step: loss {loss:.6f} against the plain composition's {loss_p:.6f} "
+              f"(1e-5 relative); the forward, then the classifier and momentum against the "
+              f"plain update on the step's forward:")
+        report(checks, "softmax_1m_bf16's first step")
+        if not abs(loss - loss_p) <= 1e-5 * abs(loss_p):
+            raise RuntimeError("softmax_1m_bf16's first-step loss disagrees")
+    finally:
+        free_trainer(trainer)
+        rec.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+BF16_TRAIN = {  # run: (overrides, steps, {kernel form: launches per step})
+    "softmax_1m_bf16 (route A, bf16 momentum)": (
+        (*BF16, "pool.classifier_mom_dtype=bfloat16", "pool.fused_update=on"), TRAIN_STEPS,
+        {"margin_ce_fwd[bf16]": 1, "margin_ce_bwd_fused_sgd[bf16,bf16]": 1}),
+    "route A, bf16 classifier, f32 momentum": (
+        (*BF16, "pool.fused_update=on"), ROUTE_B_STEPS,
+        {"margin_ce_fwd[bf16]": 1, "margin_ce_bwd_fused_sgd[bf16,f32]": 1}),
+    "route A, f32 classifier, bf16 momentum": (
+        ("pool.classifier_mom_dtype=bfloat16", "pool.fused_update=on"), ROUTE_B_STEPS,
+        {"margin_ce_fwd": 1, "margin_ce_bwd_fused_sgd[f32,bf16]": 1}),
+    "route B, bf16 classifier": (
+        (*BF16, "pool.fused_update=off"), ROUTE_B_STEPS,
+        {"margin_ce_fwd[bf16]": 1, "margin_ce_bwd[bf16]": 1}),
+    "route D, bf16 classifier": (
+        (*BF16, "pool.sparse_update=true", f"pool.sparse_grad_rate={SPARSE_RATE}"), ROUTE_B_STEPS,
+        {"margin_ce_fwd[bf16]": 1, "margin_ce_bwd[bf16]": 1, "margin_ce_bwd_sparse[bf16]": 1}),
+}
+
+
+def bf16_train_phase(card: str, tmp: str) -> dict:
+    """Phase 31: softmax_1m_bf16's first step against the plain composition,
+    then each BF16_TRAIN run through ``Trainer.train`` with its launch
+    counts, step time and peak memory. Returns the launches by kernel form
+    (each form from its run)."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    bf16_first_step(tmp)
+    launches = {}
+    for run, (overrides, n, per_step) in BF16_TRAIN.items():
+        trainer = softmax_trainer(tmp, *overrides)
+        try:
+            tms.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = trainer.train(max_steps=n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(tms.LAUNCH_COUNTS)
+            peak = torch.cuda.max_memory_allocated()
+            want = {name: n * per_step.get(name, 0) for name in got}
+            print(f"  {run}, {n} steps: {json.dumps(out)}")
+            print(f"  launches: { {k: v for k, v in got.items() if v} }")
+            if got != want or not (math.isfinite(out["loss"]) and out["loss"] > 0
+                                   and out["final_step"] == n):
+                raise RuntimeError(f"{run} must launch {want} and train to a finite loss: "
+                                   f"{got}, {out}")
+            print_step(run, out, wall, peak, card)
+            for name in per_step:
+                launches.setdefault(name, got[name])
+            if run.startswith("softmax_1m_bf16"):
+                print("== phase 31b: profile of two more softmax_1m_bf16 steps")
+                profile_trainer(trainer)
+        finally:
+            free_trainer(trainer)
+    return launches
+
+
+BF16_SHARDED_LAUNCHES = {  # route: {kernel form: launches per step}
+    "A": {"margin_partial_fwd[bf16]": 1, "margin_ce_bwd_fused_sgd[bf16,bf16]": 1},
+    "B": {"margin_partial_fwd[bf16]": 1, "margin_partial_bwd[bf16]": 1},
+    "D": {"margin_ce_fwd[bf16]": 1, "margin_ce_bwd_sparse[bf16]": 1, "margin_ce_bwd[bf16]": 1},
+}
+
+
+def bf16_sharded_phase(card: str, tmp: str) -> dict:
+    """Phase 32: the class-sharded routes A (bf16 momentum), B and D at a
+    bf16 classifier over an NCCL group of one: each first step against the
+    single-device route's first step from the same seed and batch on an f32
+    backbone: loss 1e-5 relative, the classifier bit for bit, its momentum
+    (bf16 on A, B's trace, D's f32) by ``parity.bf16_fresh_state`` or per
+    row set to 1e-4 x its max, and the backbone as phase 20's (1e-5
+    relative + 2e-5 absolute); then 2 steps each on the bf16 config with the
+    partial kernels' launch counts. Returns the launches by kernel form of
+    the B run (and A's)."""
+    import torch.distributed as dist
+
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.parallel import distributed
+    from vlsfr_tpu_torch.parallel.mesh import make_mesh
+    from vlsfr_tpu_torch.utils import parity
+
+    extra = {"A": ("pool.classifier_mom_dtype=bfloat16",), "B": (), "D": ()}
+    if not distributed.initialize("cuda"):
+        raise RuntimeError("a process group outlived its phase")
+    launches = {}
+    try:
+        mesh = make_mesh(1, 1)
+        if dist.get_backend() != "nccl" or mesh.model != 1:
+            raise RuntimeError("the sharded routes must run over an NCCL group of one")
+        for route in ("A", "B", "D"):
+            trainer, state, step = sharded_softmax_run(tmp, route, mesh, "model.dtype=float32",
+                                                       *BF16, *extra[route])
+            try:
+                w0 = state.classifier.detach().clone()
+                if not torch.equal(w0, trainer.state.classifier.detach()):
+                    raise RuntimeError("the sharded state's block is not the seeded classifier")
+                batch = trainer.pipeline.make_batch(0, 0)
+                loss_ref = float(trainer.train_step(trainer.state, batch.images, batch.labels,
+                                                    1.0)["loss"])
+                loss = float(step(state, batch.images, batch.labels, 1.0)["loss"])
+                w_ref, w1 = trainer.state.classifier.detach(), state.classifier.detach()
+                m_ref, m1 = trainer.state.classifier_mom, state.classifier_mom
+                name = f"route {route} momentum, sharded vs single"
+                labels = torch.from_numpy(batch.labels).to(m_ref.device)
+                checks = (parity.bf16_fresh_state(name, m1, m_ref, labels)
+                          if m_ref.dtype == torch.bfloat16 else
+                          parity.by_rows(name, m1, m_ref, m_ref, labels, 1e-4, rounding=2.0))
+                same = bool(torch.equal(w1, w_ref))
+                worst = backbone_gap(state, trainer)
+                print(f"  route {route} first step (f32 backbone, bf16 classifier), sharded "
+                      f"against single-device: loss {loss:.6f} / {loss_ref:.6f} (1e-5 "
+                      f"relative); classifier bit-equal: {same}; momentum bit-equal: "
+                      f"{bool(torch.equal(m1, m_ref))}; backbone max(|diff| - 1e-5 |ref|) "
+                      f"{worst:.3e} <= 2e-5")
+                report(checks, f"the sharded bf16 route {route}'s first step")
+                if not (abs(loss - loss_ref) <= 1e-5 * abs(loss_ref) and same and worst <= 2e-5):
+                    raise RuntimeError(f"the sharded bf16 route {route}'s first step disagrees")
+            finally:
+                free_trainer(trainer)
+                del state, step
+                gc.collect()
+                torch.cuda.empty_cache()
+        for route in ("A", "B", "D"):
+            trainer, state, step = sharded_softmax_run(tmp, route, mesh, *BF16, *extra[route])
+            trainer.state = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            try:
+                batches = [trainer.pipeline.make_batch(0, s) for s in range(ROUTE_B_STEPS)]
+                tms.reset_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                for bt in batches:
+                    t0 = time.perf_counter()
+                    loss = float(step(state, bt.images, bt.labels, 1.0)["loss"])
+                    torch.cuda.synchronize()
+                    step_ms = (time.perf_counter() - t0) * 1e3
+                got = dict(tms.LAUNCH_COUNTS)
+                peak = torch.cuda.max_memory_allocated()
+                want = {k: ROUTE_B_STEPS * BF16_SHARDED_LAUNCHES[route].get(k, 0) for k in got}
+                print(f"  sharded bf16 route {route}, {ROUTE_B_STEPS} steps: last loss "
+                      f"{loss:.6f}, last step {step_ms:.1f} ms ({card}), peak memory "
+                      f"{peak / 2**30:.2f} GiB ({card})")
+                print(f"  launches: { {k: v for k, v in got.items() if v} }")
+                if got != want or not math.isfinite(loss) or loss <= 0:
+                    raise RuntimeError(f"sharded bf16 route {route} must launch {want}: {got}")
+                for name in BF16_SHARDED_LAUNCHES[route]:
+                    if name.startswith("margin_partial"):
+                        launches.setdefault(name, got[name])
+            finally:
+                free_trainer(trainer)
+                del state, step
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        distributed.destroy()
+    return launches
+
+
+BF16_KERNELS = (  # the kernels line's bf16 forms: (name, the TPU kernel it replaces)
+    ("margin_ce_fwd[bf16]", "margin_pallas.py:390"),
+    ("margin_ce_bwd[bf16]", "margin_pallas.py:557"),
+    ("margin_ce_bwd_fused_sgd[bf16,bf16]", "margin_pallas.py:803"),
+    ("margin_ce_bwd_fused_sgd[bf16,f32]", "margin_pallas.py:803"),
+    ("margin_ce_bwd_fused_sgd[f32,bf16]", "margin_pallas.py:803"),
+    ("margin_ce_bwd_sparse[bf16]", "margin_pallas.py:1447"),
+    ("margin_partial_fwd[bf16]", "margin_pallas.py:991"),
+    ("margin_partial_bwd[bf16]", "margin_pallas.py:1036"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2360,6 +2961,25 @@ def main() -> int:
               "queue, then its bf16 copy): directional_loss(use_fused=True) and "
               "make_sharded_twin_loss against quad_add_margin and twin_add_margin")
         launches.update(twin_slice_phase(card, tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        print("== phase 29: the bf16 classifier's margin_ce forms at full width (B = 128, D = "
+              "512, C = 2^20, Arc; limits in vlsfr_tpu_torch/utils/parity.py)")
+        berrs, sparse_case = bf16_parity_phase(tmp)
+        errs.update(berrs)
+        print("== phase 30: the bf16 forms' timing (full width)")
+        times.update(bf16_timing_phase(sparse_case))
+        del sparse_case
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("== phase 31: softmax_1m_bf16 (ir50, batch 128, bf16 compute, 2^20 bf16 classes, "
+              "bf16 momentum, fused SGD) through the Trainer; routes A at the other dtype pairs, "
+              "B and D at a bf16 classifier")
+        launches.update(bf16_train_phase(card, tmp))
+        print("== phase 32: the class-sharded routes A, B and D at a bf16 classifier over an "
+              "NCCL group of one")
+        launches.update(bf16_sharded_phase(card, tmp))
 
     fwd_keys = ("ce", "neg", "logz", "topk")
     kernels = []
@@ -2388,7 +3008,8 @@ def main() -> int:
               for form in TWIN_FORMS for name, replaces in (
                   ("twin_fwd", "twin_margin.py:786"), ("twin_bwd", "twin_margin.py:910"),
                   ("twin_partial_fwd", "twin_margin.py:984"),
-                  ("twin_partial_bwd", "twin_margin.py:1042")))):
+                  ("twin_partial_bwd", "twin_margin.py:1042"))),
+            *((name, "margin_ce", replaces, errs[name]) for name, replaces in BF16_KERNELS)):
         t = times[name]
         if launches.get(name, 0) < 1:
             raise RuntimeError(f"{name} was not launched on its path")
@@ -2398,8 +3019,8 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": err, "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    if len(kernels) != 30:
-        raise RuntimeError(f"the kernels line must list 30 entries, has {len(kernels)}")
+    if len(kernels) != 38:
+        raise RuntimeError(f"the kernels line must list 38 entries, has {len(kernels)}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -370,6 +370,7 @@ SOFTMAX_CASES = [("Arc", 128, 5000, 512, 1, 0.0), ("AM", 64, 3001, 128, 3, 0.3),
 
 SGD = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
 LR = 0.1
+NO_MARGIN_LAUNCH = dict.fromkeys(tms.LAUNCH_COUNTS, 0)
 
 
 @pytest.mark.gpu
@@ -390,9 +391,45 @@ def test_softmax_kernels_match_plain(loss_type, b, c, d, k, frac_outlier):
                                              kw, LR, SGD)
     checks = bwd + fused
     assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
-    assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 1, "margin_ce_bwd": 2,
-                                 "margin_ce_bwd_fused_sgd": 1, "margin_ce_bwd_sparse": 0,
-                                 "margin_partial_fwd": 0, "margin_partial_bwd": 0}
+    assert tms.LAUNCH_COUNTS == dict(NO_MARGIN_LAUNCH, margin_ce_fwd=1, margin_ce_bwd=2,
+                                     margin_ce_bwd_fused_sgd=1)
+
+
+BF16_PAIRS = {"bf16,bf16": (torch.bfloat16, torch.bfloat16),
+              "bf16,f32": (torch.bfloat16, torch.float32),
+              "f32,bf16": (torch.float32, torch.bfloat16)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(BF16_PAIRS))
+@pytest.mark.parametrize("loss_type,k,frac_outlier", [("Arc", 1, 0.0), ("SV", 3, 0.3)])
+def test_bf16_softmax_kernels_match_plain(pair, loss_type, k, frac_outlier):
+    """The bf16 classifier's forms (B = 128, D = 512, C = 5000) against their
+    plain versions with the bf16 checks of utils/parity.py: the forward, the
+    backward, the fused kernel in the (w, mom) pair, and route D's forward
+    statistics and sparse backward; each launch counted under its form."""
+    dev = _cuda()
+    w_dt, m_dt = BF16_PAIRS[pair]
+    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(1, 128, 5000, 512, k, frac_outlier, dev)
+    w, mom = w.to(w_dt), mom.to(m_dt)
+    kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
+    gt = tms.compute_gt(emb, w, labels)
+    tms.reset_launch_counts()
+    got = tms.margin_ce_fwd(emb, w, labels, gt, **kw)
+    want = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
+    checks = parity.rounded_fwd_checks(got, want) if w_dt == torch.bfloat16 else []
+    bwd, fused = parity.margin_ce_bwd_checks(emb, w, mom, labels, gt, want[2], want[3], d_ce,
+                                             d_neg, kw, LR, SGD)
+    checks += bwd + fused
+    if w_dt == torch.bfloat16:
+        u = torch.rand((10,), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        checks += parity.sparse_path_checks(emb, w, labels, d_ce, d_neg, kw, 512, 8, u)[0]
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert tms.LAUNCH_COUNTS[f"margin_ce_bwd_fused_sgd[{pair}]"] == 1
+    if w_dt == torch.bfloat16:
+        assert tms.LAUNCH_COUNTS["margin_ce_fwd[bf16]"] == 2
+        assert tms.LAUNCH_COUNTS["margin_ce_bwd_sparse[bf16]"] == 2
+        assert not any(tms.LAUNCH_COUNTS[name] for name in tms.KERNELS)  # no f32 form
 
 
 def _build_faulty(tmp_path, faults, source="margin_ce"):
@@ -490,8 +527,7 @@ def test_margin_softmax_autograd_on_card_matches_cpu():
         loss.backward()
         outs.append((float(loss.detach()), e.grad.cpu(), ww.grad.cpu(), dict(tms.LAUNCH_COUNTS)))
     (lk, ek, wk, ck), (lp, ep, wp, cp) = outs
-    assert ck == {"margin_ce_fwd": 1, "margin_ce_bwd": 1, "margin_ce_bwd_fused_sgd": 0,
-                  "margin_ce_bwd_sparse": 0, "margin_partial_fwd": 0, "margin_partial_bwd": 0}
+    assert ck == dict(NO_MARGIN_LAUNCH, margin_ce_fwd=1, margin_ce_bwd=1)
     assert not any(cp.values())
     np.testing.assert_allclose(lk, lp, rtol=1e-5)
     np.testing.assert_allclose(ek.numpy(), ep.numpy(), atol=1e-4 * float(ep.abs().max()))
@@ -548,9 +584,7 @@ def test_stats_and_sparse_kernels_match_plain(loss_type, b, c, d, k, frac_outlie
         print(parity.describe(ch))
     assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
     # the sparse kernel runs twice: through the wrapper, and for its parts
-    assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 1, "margin_ce_bwd": 0,
-                                 "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 2,
-                                 "margin_partial_fwd": 0, "margin_partial_bwd": 0}
+    assert tms.LAUNCH_COUNTS == dict(NO_MARGIN_LAUNCH, margin_ce_fwd=1, margin_ce_bwd_sparse=2)
 
 
 # source edits that break the sparse backward: each must fail the checks above
@@ -647,10 +681,9 @@ def test_partial_margin_kernels_and_merge_match_plain_and_whole(loss_type, b, c,
     for c_ in checks:
         print(parity.describe(c_))
     assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
-    assert tms.LAUNCH_COUNTS == {"margin_ce_fwd": 1, "margin_ce_bwd": 1,
-                                 "margin_ce_bwd_fused_sgd": 0, "margin_ce_bwd_sparse": 0,
-                                 "margin_partial_fwd": 2 * n_shards,  # merge input + checks
-                                 "margin_partial_bwd": n_shards}
+    assert tms.LAUNCH_COUNTS == dict(NO_MARGIN_LAUNCH, margin_ce_fwd=1, margin_ce_bwd=1,
+                                     margin_partial_fwd=2 * n_shards,  # merge input + checks
+                                     margin_partial_bwd=n_shards)
 
 
 @pytest.mark.gpu

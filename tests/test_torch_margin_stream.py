@@ -253,7 +253,13 @@ def test_cpu_tensors_never_launch_and_bf16_refused(rng):
     assert not any(tms.LAUNCH_COUNTS.values())
     kw = kw_for("Arc", 1)
     gt = tms.compute_gt(t(emb), t(w), t(labels))
-    with pytest.raises(NotImplementedError):
-        tms.margin_ce_fwd(t(emb), t(w).bfloat16(), t(labels), gt, **kw)
+    # a bf16 classifier runs (its bf16 form); a bf16 embedding and a float16
+    # classifier are refused: the kernels take an f32 embedding and an f32 or
+    # bf16 classifier
+    tms.margin_ce_fwd(t(emb), t(w).bfloat16(), t(labels), gt, **kw)
+    with pytest.raises(ValueError):
+        tms.margin_ce_fwd(t(emb).bfloat16(), t(w), t(labels), gt, **kw)
+    with pytest.raises(ValueError):
+        tms.margin_ce_fwd(t(emb), t(w).half(), t(labels), gt, **kw)
     with pytest.raises(ValueError):
         tms.margin_ce_fwd(t(emb), t(w), t(labels), gt, **kw_for("Arc", 17))

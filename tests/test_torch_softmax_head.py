@@ -34,6 +34,11 @@ route D's importance-weighted rows (measured 2.5e-5 at step 3; 0.5e-5 and
 1.4e-5 with two other batches), so their classifier is held to 4e-5 ×
 max|w − w₀|; their momentum to 1e-4 × max|mom| as route A's (measured
 3.7e-5 on D, 2.8e-5 on E).
+
+At a bf16 classifier (``test_bf16_trajectory_matches_jax``) every route
+runs again against JAX's step on its Pallas kernels in interpret mode: the
+first step to the element (the rounding points), the next two within bf16
+noise (the test's docstring has each limit and reading).
 """
 
 import jax
@@ -72,12 +77,11 @@ SPARSE_ROUTES = {
     "D": ["pool.use_fused=on", "pool.sparse_update=true", "pool.sparse_grad_rate=0.25"],
     "E": ["pool.sample_rate=0.1", "pool.sparse_update=true"],
     "E-dense": ["pool.sample_rate=0.1"]}
-NO_LAUNCH = {"margin_ce_fwd": 0, "margin_ce_bwd": 0, "margin_ce_bwd_fused_sgd": 0,
-             "margin_ce_bwd_sparse": 0, "margin_partial_fwd": 0, "margin_partial_bwd": 0}
+NO_LAUNCH = dict.fromkeys(tms.LAUNCH_COUNTS, 0)
 
 
-def _jax_and_port(route, c=C):
-    ov = BASE + (ROUTES[route] if route in ROUTES else SPARSE_ROUTES[route])
+def _jax_and_port(route, c=C, extra=()):
+    ov = BASE + (ROUTES[route] if route in ROUTES else SPARSE_ROUTES[route]) + list(extra)
     ov += [f"pool.num_classes={c}"]
     jcfg, cfg = JConfig().apply_overrides(ov), Config().apply_overrides(ov)
     jmodel = j_create_net("toy", feat_dim=D)
@@ -88,8 +92,14 @@ def _jax_and_port(route, c=C):
                                    jax.device_get(jstate.params["backbone"]),
                                    jax.device_get(jstate.batch_stats))
     state = create_softmax_state(backbone, cfg, c, device="cpu",
-                                 classifier=torch.from_numpy(np.array(jstate.params["classifier"])))
+                                 classifier=_torch_of(jstate.params["classifier"]))
     return jstate, jstep, state, make_softmax_train_step(cfg, make_schedule(cfg.optim, 100))
+
+
+def _torch_of(x):
+    """A JAX array as a torch tensor of its dtype (bf16 exactly)."""
+    t = torch.from_numpy(np.array(jnp.asarray(x).astype(jnp.float32)))
+    return t.bfloat16() if x.dtype == jnp.bfloat16 else t
 
 
 def _jax_draws(monkeypatch):
@@ -120,7 +130,7 @@ def _assert_backbone(state, jstate):
 @pytest.mark.parametrize("route", ["A", "B", "C"])
 def test_trajectory_matches_jax(route, rng):
     jstate, jstep, state, step = _jax_and_port(route)
-    assert (state.classifier_mom is not None) == (route == "A")
+    assert state.classifier.requires_grad == (route != "A")  # A: outside autograd
     w0 = np.array(jstate.params["classifier"])
     images = rng.standard_normal((B, SIZE, SIZE, 3)).astype(np.float32)
     labels = rng.integers(0, C, B).astype(np.int32)
@@ -138,10 +148,11 @@ def test_trajectory_matches_jax(route, rng):
     jw = np.asarray(jstate.params["classifier"])
     np.testing.assert_allclose(state.classifier.detach().numpy(), jw,
                                atol=2e-5 * np.abs(jw - w0).max())
-    if route == "A":
-        jmom = np.asarray(jstate.opt_state["classifier_mom"])
-        np.testing.assert_allclose(state.classifier_mom.numpy(), jmom,
-                                   atol=1e-4 * np.abs(jmom).max())
+    opt = jstate.opt_state  # route A's bare momentum; B and C: optax's trace of the leaf
+    jmom = np.asarray(opt["classifier_mom"] if route == "A"
+                      else opt.inner_state[1].trace["classifier"])
+    np.testing.assert_allclose(state.classifier_mom.numpy(), jmom,
+                               atol=1e-4 * np.abs(jmom).max())
     _assert_backbone(state, jstate)
     assert state.step == 3
     assert tms.LAUNCH_COUNTS == NO_LAUNCH  # CPU: plain versions only
@@ -234,7 +245,7 @@ def test_trainer_synthetic_cpu_run(fused_update, tmp_path):
         trainer.close()
     assert out["final_step"] == 4 and trainer.state.step == 4
     assert np.isfinite(out["loss"]) and out["loss"] > 0
-    assert (trainer.state.classifier_mom is not None) == (fused_update == "auto")
+    assert trainer.state.classifier.requires_grad == (fused_update == "off")  # B, or A
     assert tms.LAUNCH_COUNTS == NO_LAUNCH
 
 
@@ -266,14 +277,16 @@ def test_trainer_sparse_routes_cpu_run(route, tmp_path):
     assert tms.LAUNCH_COUNTS == NO_LAUNCH
 
 
-@pytest.mark.parametrize("bad", [["pool.classifier_mom_dtype=bfloat16"],
-                                 ["pool.classifier_dtype=bfloat16", "pool.sparse_update=true"],
-                                 ["pool.classifier_dtype=bfloat16"],
+@pytest.mark.parametrize("bad", [["mesh.model=2", "pool.use_fused=off",
+                                  "pool.classifier_mom_dtype=bfloat16"],
+                                 ["mesh.model=2", "pool.sample_rate=0.1", "pool.sparse_update=true",
+                                  "pool.classifier_dtype=bfloat16"],
+                                 ["mesh.data=2", "pool.classifier_dtype=bfloat16"],
                                  ["mesh.model=2", "pool.use_fused=off"],
                                  ["mesh.model=2", "pool.sample_rate=0.1"], ["mesh.data=2"]])
 def test_unported_options_raise(bad):
-    """Still refused: bf16 storage, routes C and E on a class-sharded mesh
-    (routes A, B and D run there), and the data axis."""
+    """Still refused, at an f32 or a bf16 classifier: routes C and E on a
+    class-sharded mesh (routes A, B and D run there), and the data axis."""
     cfg = Config().apply_overrides(BASE + ROUTES["A"] + bad)
     with pytest.raises(NotImplementedError):
         create_softmax_state(create_net("toy", feat_dim=D), cfg, C, device="cpu")
@@ -375,3 +388,111 @@ def test_drift_batch_is_f32_rounding_at_a_prelu_kink(lr):
     finally:
         hook.remove()
     assert parted_at == (2 if lr == 0.05 else None)
+
+
+# ----------------------------------------------------------------------
+# the bf16 classifier (pool.classifier_dtype = bfloat16)
+# ----------------------------------------------------------------------
+
+BF16 = ["pool.classifier_dtype=bfloat16"]
+BF16_ROUTES = {  # route: (classes, the f32 test's route, bf16 overrides)
+    "A": (C, "A", BF16 + ["pool.classifier_mom_dtype=bfloat16"]), "B": (C, "B", BF16),
+    "C": (C, "C", BF16), "D": (SPARSE_C, "D", BF16), "E": (SPARSE_C, "E", BF16),
+    "E-dense": (SPARSE_C, "E-dense", BF16)}
+BF16_NOISE = 2.0**-4  # classifier / momentum after three steps, × max|w − w₀| / max|mom|
+E_FIRST_STEP_SHARE = 2.0**-6  # route E's first-step elements apart (the test's docstring)
+
+
+@pytest.fixture
+def jax_on_pallas(monkeypatch):
+    """JAX's softmax head on its Pallas kernels in interpret mode, as on a
+    TPU: its CPU routes take the scan references, which do not round at a
+    bf16 classifier."""
+    from vlsfr_tpu.ops import margin_pallas as jmp
+
+    def interp(name):
+        fn = getattr(jmp, name)
+        return lambda *a, **k: fn(*a, interpret=True, **k)
+
+    fwd, bwd = interp("pallas_margin_ce_fwd"), interp("pallas_margin_ce_bwd")
+    for name, fn in (("pallas_margin_ce_fwd", fwd), ("pallas_margin_ce_bwd", bwd),
+                     ("pallas_margin_ce_bwd_fused_sgd", interp("pallas_margin_ce_bwd_fused_sgd")),
+                     ("pallas_margin_ce_bwd_sparse", interp("pallas_margin_ce_bwd_sparse")),
+                     ("_stream_fwd", fwd), ("_stream_bwd", bwd)):
+        monkeypatch.setattr(jmp, name, fn)
+    for name in ("streaming_margin_grads_fused_sgd", "streaming_sparse_margin_grads"):
+        fn = getattr(jmp, name)
+        monkeypatch.setattr(jmp, name, lambda *a, _fn=fn, **k: _fn(*a, use_pallas=True, **k))
+
+
+@pytest.mark.parametrize("route", list(BF16_ROUTES))
+def test_bf16_trajectory_matches_jax(route, rng, monkeypatch, jax_on_pallas):
+    """Routes A (bf16 momentum), B, C, D, E and E with the dense optimizer
+    at a bf16 classifier: three steps against JAX's train step on its
+    Pallas kernels (interpret mode), on JAX's draws.
+
+    The first step starts from the same bf16 classifier and batch: the
+    losses 1e-5 relative, and on routes A-D the updated classifier (and
+    route A's bf16 momentum) equal except a counted few elements one bf16
+    spacing apart (``parity.bf16_ulps``; measured 0, 0, 2 and 0 elements),
+    which pins the rounding points: the kernels' bf16 forms, optax's chain
+    on a bf16 leaf (``sgd_leaf_``) and route D's twice-rounded row write.
+    On route E JAX's bf16 autograd rounds the normalisation's two cotangent
+    terms, which nearly cancel, each to bf16, so an f32 difference upstream
+    (the convolutions sum in another order) flips some terms' rounding:
+    measured 1,118 (sparse) and 27 (dense) of 262,144 elements apart, held
+    to E_FIRST_STEP_SHARE = 2^-6 of them.
+
+    After it the trajectories carry bf16 noise: an element one spacing
+    apart moves 2^-8 of itself, and at this toy's lr the classifier rows
+    grow ~500× in three steps (1/‖w‖ ≈ 17 at init). Measured after three
+    steps: losses up to 2.1e-4 relative (held to 1e-3); the classifier up
+    to 1.1 % of max|w − w₀| and the momentum up to 0.6 % of max|mom|
+    (held to BF16_NOISE = 2^-4); the backbone up to 3.8e-3 beyond 1e-5
+    relative (held to 1e-5 relative + 1e-2 absolute); train_acc equal."""
+    from vlsfr_tpu_torch.utils import parity
+
+    c, base, extra = BF16_ROUTES[route]
+    _jax_draws(monkeypatch)
+    jstate, jstep, state, step = _jax_and_port(base, c, extra)
+    assert state.classifier.dtype == torch.bfloat16
+    # route A's momentum in pool.classifier_mom_dtype, D's and E's f32, and on
+    # routes B, C and dense E optax's trace in the classifier's bf16
+    want_mom = torch.float32 if route in ("D", "E") else torch.bfloat16
+    assert state.classifier_mom.dtype == want_mom
+    w0 = _torch_of(jstate.params["classifier"])
+    images = rng.standard_normal((B, SIZE, SIZE, 3)).astype(np.float32)
+    labels = rng.integers(0, c, B).astype(np.int32)
+    labels[1] = labels[0]
+    tms.reset_launch_counts()
+    for s in range(3):
+        jstate, jm = jstep(jstate, jnp.asarray(images), jnp.asarray(labels), 1.0)
+        m = step(state, images, labels, 1.0)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5 if s == 0 else 1e-3, err_msg=f"loss@{s}")
+        assert float(m["train_acc"]) == pytest.approx(float(jm["train_acc"]), abs=1e-6)
+        if s:
+            continue
+        w1 = state.classifier.detach()
+        checks = parity.bf16_ulps("w'", w1, _torch_of(jstate.params["classifier"]), w0)
+        if route == "A":
+            checks += parity.bf16_ulps("mom'", state.classifier_mom,
+                                       _torch_of(jstate.opt_state["classifier_mom"]),
+                                       torch.zeros_like(w0))
+        if route.startswith("E"):
+            checks = [dict(checks[0], limit=E_FIRST_STEP_SHARE * w1.numel())]
+        bad = parity.failures(checks)
+        assert not bad, "; ".join(map(parity.describe, bad))
+    jw = _torch_of(jstate.params["classifier"]).float()
+    w = state.classifier.detach().float()
+    assert float((w - jw).abs().max()) <= BF16_NOISE * float((jw - w0.float()).abs().max())
+    opt = jstate.opt_state
+    jmom = _torch_of(opt["classifier_mom"] if isinstance(opt, dict)
+                     else opt.inner_state[1].trace["classifier"]).float()
+    assert float((state.classifier_mom.float() - jmom).abs().max()) <= (
+        BF16_NOISE * float(jmom.abs().max()))
+    want = state_dict_from_flax(state.backbone, jax.device_get(jstate.params["backbone"]),
+                                jax.device_get(jstate.batch_stats))
+    for k, v in state.backbone.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), want[k].numpy(), rtol=1e-5, atol=1e-2, err_msg=k)
+    assert tms.LAUNCH_COUNTS == NO_LAUNCH

@@ -17,17 +17,41 @@
 // dense_local_bwd_scan; the plain PyTorch versions beside the wrappers
 // (vlsfr_tpu_torch/ops/margin_stream.py *_plain) compute the same functions.
 //
-// Layout: emb [B][D] f32 (B <= 128, D a multiple of 64 up to 512), W and
-// mom [C][D] f32, labels [B] int32 (-1 = outlier row), gt / logz / kth /
-// d_ce / d_neg [B] f32 (d_ce 0 on outlier rows, d_neg 0 on positive rows).
-// Column offsets are 64-bit (C * D passes 2^31 at 5M classes). All
-// arithmetic is IEEE f32 FMA: no TF32, no tensor cores (later work).
+// Layout: emb [B][D] f32 (B <= 128, D a multiple of 64 up to 512), W [C][D]
+// f32 or bf16, mom [C][D] f32 or bf16 (the fused kernel), labels [B] int32
+// (-1 = outlier row), gt / logz / kth / d_ce / d_neg [B] f32 (d_ce 0 on
+// outlier rows, d_neg 0 on positive rows). Column offsets are 64-bit (C * D
+// passes 2^31 at 5M classes). All arithmetic is IEEE f32 FMA: no TF32, no
+// tensor cores (later work).
+//
+// Forms (template TW, the stored W type; TM, the fused kernel's momentum
+// type), as JAX selects them from w.dtype (mxu_bf16, _mxu_pair):
+//  * f32 W: f32 throughout; the forward scales each raw dot by 1/||w_j||.
+//  * bf16 W: both operands of every dot are rounded to bf16 and summed in
+//    f32. The W operand is the NORMALISED row, bf16(w_j * inv_j), not the
+//    stored one, so inv_j comes first: inv_norm_bf16_kernel writes
+//    1 / ||w_j|| per logical column into a scratch the wrapper passes (the
+//    squares summed in f64, exact for bf16 values, one rounding to f32, as
+//    the plain version's bf16_row_inv). The wrapper passes emb already
+//    rounded to bf16 (held in f32): every use of emb here is an operand of a
+//    dot. The backward rounds d_cos to bf16 before both products; the
+//    normalisation backprop takes <d_w_hat, w_hat> against the UNROUNDED
+//    w_hat, summed as sum_b bf16(d_cos[b, t]) <bf16(emb_b), w_hat_t> (a
+//    second accumulator beside the cosine in the d_w pass's tile product).
+//    A product of two bf16 values is exact in f32, so f32 FMA over the
+//    rounded operands is the MXU's bf16 dot up to the order of the sums.
+//    d_w is stored in f32. The fused update computes in f32 from the stored
+//    W and mom and rounds w' and mom' once each to their storage types.
 //
 // Bound (H100 SXM, 67 TFLOP/s f32, 3.35 TB/s) at B = 128, D = 512,
 // C = 2^20: forward 2*B*D*C = 1.37e11 FLOP >= 2.05 ms against 2.15 GB of W
 // (0.64 ms); backward three such products, 4.12e11 FLOP >= 6.15 ms, against
 // 4.3 GB (W read, d_w written) or, fused, 8.6 GB (W and mom read and
-// written, 2.56 ms). All three are compute-bound.
+// written, 2.56 ms). All three are compute-bound. The bf16 forms' dots at
+// 989 TFLOP/s against bytes: forward 0.32 ms (1.07 GB of W), backward
+// 0.96 ms (W read, f32 d_w written), fused 1.28 ms (bf16 mom) or 1.92 ms
+// (f32 mom): bytes-bound, far from what f32 FMA over the rounded operands
+// reaches (wgmma is later work).
 //
 // Design.
 //  * The TPU walked the class tiles in order and carried (max, sumexp,
@@ -90,13 +114,16 @@
 //    at B = 128, D = 512 over a block of C_l columns: forward 2*B*D*C_l FLOP
 //    (2^20: 2.05 ms), backward with d_w 3x that (6.15 ms): compute-bound.
 
+#include <type_traits>
+
 #include "margin_common.cuh"
 
 namespace {
 
 struct Args {
-  const float* emb;
-  const float* w;
+  const float* emb;  // bf16 W: rounded to bf16 by the wrapper
+  const void* w;     // [C][D] float or __nv_bfloat16
+  const float* inv;  // bf16 W: 1 / ||w|| per logical column; f32 W: nullptr
   long long C;
   int D, B;
   const int* labels;
@@ -118,14 +145,25 @@ struct BwdRows {
 };
 
 struct Sgd {
-  float* w;    // == Args::w, updated in place
-  float* mom;  // updated in place
+  void* w;    // == Args::w, updated in place
+  void* mom;  // updated in place, float or __nv_bfloat16
   float lr, mu, wd;
   int nesterov;
 };
 
-// 1 / ||w_j|| as the JAX package normalises rows: rsqrt(max(||w||^2, 1e-24))
+// 1 / ||w_j|| as the JAX package normalises f32 rows: rsqrt(max(||w||^2, 1e-24))
 __device__ __forceinline__ float inv_norm(float n2) { return rsqrtf(fmaxf(n2, 1e-24f)); }
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+template <class TW>
+__device__ __forceinline__ const TW* wrows(const Args& a) {
+  return static_cast<const TW*>(a.w);
+}
 
 // d loss / d cos of one non-padding column; 0 at the target column, whose
 // gradient joins outside through d_gt
@@ -147,6 +185,40 @@ __device__ __forceinline__ int valid_cols(const Args& a, long long t0, long long
   return p0 < 0 ? 0 : (int)max(0LL, min((long long)tc, min(c_end - t0, a.C - p0)));
 }
 
+// one warp per logical column: inv[l] = 1 / ||w_j|| of its class row j (0
+// for a column that stands for no class): the squares summed in f64, exact
+// for bf16 values in any order, so the sum does not depend on the lanes'
+// order; max(., 1e-24), 1 / sqrt in f64, one rounding to f32
+__global__ void inv_norm_bf16_kernel(Args a, float* inv) {
+  const long long l = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (l >= a.ncols) return;
+  const long long j = phys_col(a, l);
+  const bool ok = j >= 0 && j < a.C;
+  const __nv_bfloat16* row = wrows<__nv_bfloat16>(a) + (ok ? j : 0) * a.D;
+  double n2 = 0.0;
+  if (ok)
+    for (int k = lane; k < a.D; k += 32) {
+      const double x = (double)__bfloat162float(row[k]);
+      n2 += x * x;
+    }
+  for (int o = 16; o > 0; o >>= 1) n2 += __shfl_down_sync(0xffffffffu, n2, o);
+  if (lane == 0) inv[l] = ok ? (float)(1.0 / sqrt(fmax(n2, 1e-24))) : 0.f;
+}
+
+// the bf16 form's staging of a W element for tile_gemm: w_hat = w * inv of
+// its row in f32, kept unrounded in wn (for <d_w_hat, w_hat>, TWIN), and the
+// operand bf16(w_hat). inv is indexed from the tile's first row.
+template <bool KEEP>
+struct StageNormBf16 {
+  static constexpr bool TWIN = KEEP;
+  const float* inv;
+  __device__ __forceinline__ float operator()(__nv_bfloat16 y, int row, float& wn) const {
+    wn = __bfloat162float(y) * inv[row];
+    return bf16r(wn);
+  }
+};
+
 // ---------------------------------------------------------------- forward
 
 constexpr int F_ROWS = 128, F_TC = 128, F_DK = 16, F_THREADS = 256;
@@ -157,8 +229,10 @@ static_assert(F_TC / 2 == STAT_COLS, "a statistics partial is one thread's half 
 
 // stats: nullptr, or the [2][ceil(C / 64)][B] scratch of per-64-column maxima
 // (z first, then the raw cosine)
+template <class TW>
 __global__ void __launch_bounds__(F_THREADS)
     margin_fwd_kernel(Args a, long long cols_per_blk, float* part, float* stats) {
+  constexpr bool BF16 = !std::is_same<TW, float>::value;
   extern __shared__ float smem[];
   float* As = smem;                   // emb chunk, k-major [F_DK][F_ALD]
   float* Bs = As + F_DK * F_ALD;      // W chunk, k-major [F_DK][F_BLD]
@@ -182,16 +256,28 @@ __global__ void __launch_bounds__(F_THREADS)
   for (int j = 0; j < KMAX; ++j) tk[j] = NEG_INF_F;
 
   for (long long t0 = c_begin; t0 < c_end; t0 += F_TC) {
-    float acc[8][8], n2;
-    tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16, true>(
-        acc, n2, As, Bs, a.emb, 0, a.B, a.w, t0, c_end, a.D, ty, tx);
-    if (tid < F_TC) inv[tid] = inv_norm(n2);
-    __syncthreads();
+    float acc[8][8];
+    if constexpr (BF16) {  // the dots of the rounded operands are the cosines
+      float n2;
+      tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16, false>(
+          acc, n2, As, Bs, a.emb, 0, a.B, wrows<TW>(a), t0, c_end, a.D, ty, tx,
+          StageNormBf16<false>{a.inv + t0});
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        Cs[(ty + 16 * i) * F_CLD + tx + 16 * j] = acc[i][j] * inv[tx + 16 * j];
+        for (int j = 0; j < 8; ++j) Cs[(ty + 16 * i) * F_CLD + tx + 16 * j] = acc[i][j];
+    } else {
+      float n2;
+      tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16, true>(
+          acc, n2, As, Bs, a.emb, 0, a.B, wrows<TW>(a), t0, c_end, a.D, ty, tx);
+      if (tid < F_TC) inv[tid] = inv_norm(n2);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          Cs[(ty + 16 * i) * F_CLD + tx + 16 * j] = acc[i][j] * inv[tx + 16 * j];
+    }
     __syncthreads();
 
     if (row_ok) {
@@ -289,8 +375,11 @@ constexpr int B_RB = 32, B_TC = 64, B_DK = 16, B_THREADS = 256, B_JMAX = 8;  // 
 constexpr int B_ALD = B_RB + 4, B_BLD = B_TC + 4, B_CLD = B_TC + 1;
 constexpr size_t B_SMEM = sizeof(float) * (B_DK * B_ALD + B_DK * B_BLD + B_RB * B_CLD + B_TC);
 
+template <class TW>
 __global__ void __launch_bounds__(B_THREADS)
     margin_bwd_demb_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg, float* part) {
+  constexpr bool BF16 = !std::is_same<TW, float>::value;
+  const TW* W = wrows<TW>(a);
   extern __shared__ float smem[];
   float* As = smem;                // emb row-group chunk, k-major [B_DK][B_ALD]
   float* Bs = As + B_DK * B_ALD;   // W chunk, k-major [B_DK][B_BLD]
@@ -332,10 +421,19 @@ __global__ void __launch_bounds__(B_THREADS)
   for (long long t0 = c_begin; t0 < c_end; t0 += B_TC) {
     const long long p0 = phys_col(a, t0);
     const int n = valid_cols(a, t0, p0, c_end, B_TC);
-    float acc[2][4], n2;
-    tile_gemm<B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16, true>(
-        acc, n2, As, Bs, a.emb, r_base, a.B, a.w, p0, p0 + n, a.D, ty, tx);
-    if (tid < B_TC) inv[tid] = inv_norm(n2);
+    float acc[2][4];
+    if constexpr (BF16) {
+      float n2;
+      tile_gemm<B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16, false>(
+          acc, n2, As, Bs, a.emb, r_base, a.B, W, p0, p0 + n, a.D, ty, tx,
+          StageNormBf16<false>{a.inv + t0});
+      if (tid < B_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
+    } else {
+      float n2;
+      tile_gemm<B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16, true>(
+          acc, n2, As, Bs, a.emb, r_base, a.B, W, p0, p0 + n, a.D, ty, tx);
+      if (tid < B_TC) inv[tid] = inv_norm(n2);
+    }
     __syncthreads();
 
 #pragma unroll
@@ -344,20 +442,29 @@ __global__ void __launch_bounds__(B_THREADS)
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         float d = 0.f;
-        if (ok[i] && c < n)
-          d = dcos_of(acc[i][j] * inv[c], p0 + c, lab[i], gtv[i], lzv[i], kthv[i], dcev[i],
-                      dnegv[i], a) * inv[c];  // folds w_hat = inv * w into the product
+        if (ok[i] && c < n) {
+          if constexpr (BF16)  // the cosine as it is; d_cos rounded
+            d = bf16r(dcos_of(acc[i][j], p0 + c, lab[i], gtv[i], lzv[i], kthv[i], dcev[i],
+                              dnegv[i], a));
+          else  // folds w_hat = inv * w into the product
+            d = dcos_of(acc[i][j] * inv[c], p0 + c, lab[i], gtv[i], lzv[i], kthv[i], dcev[i],
+                        dnegv[i], a) * inv[c];
+        }
         Dq[(ty + 16 * i) * B_CLD + c] = d;
       }
     }
     __syncthreads();
 
-    // d_emb += (d_cos * inv) @ (raw W rows of this tile)
+    // d_emb += (d_cos * inv) @ (raw W rows of this tile); bf16 W: bf16(d_cos)
+    // @ bf16(w_hat) rows
     for (int c = 0; c < n; ++c) {
-      const float* wrow = a.w + (p0 + c) * a.D + dx;
+      const TW* wrow = W + (p0 + c) * a.D + dx;
       float wv[B_JMAX];
 #pragma unroll
-      for (int j = 0; j < B_JMAX; ++j) wv[j] = j < nj ? __ldg(wrow + 64 * j) : 0.f;
+      for (int j = 0; j < B_JMAX; ++j) {
+        wv[j] = j < nj ? to_f32(__ldg(wrow + 64 * j)) : 0.f;
+        if constexpr (BF16) wv[j] = bf16r(wv[j] * inv[c]);
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float d = Dq[(ry * 8 + i) * B_CLD + c];
@@ -397,15 +504,21 @@ constexpr size_t W_SMEM =
     sizeof(float) * (W_DK * W_ALD + W_DK * W_BLD + W_ROWS * W_CLD + W_ROWS * W_ELD +
                      16 * W_TC + 2 * W_TC + 5 * W_ROWS) +
     sizeof(int) * (2 * W_ROWS + 1);
+constexpr size_t W_SMEM_BF16 = W_SMEM + sizeof(float) * W_DK * W_BLD;  // + Bu
 
 // Each column's owner adds d_wl [B][D] (the label rows' gradient) for every
 // batch row labelled with it. fused == 0: write d_w to dw (row by logical
-// column). Otherwise apply the SGD update to sgd.w and sgd.mom in place (dw
-// unused). dgt: nullptr, or [B] zeros where the owner of a row's target
-// column writes that column's dz.
+// column). Otherwise apply the SGD update to sgd.w and sgd.mom (type TM) in
+// place (dw unused). dgt: nullptr, or [B] zeros where the owner of a row's
+// target column writes that column's dz.
+template <class TW, class TM>
 __global__ void __launch_bounds__(W_THREADS)
     margin_bwd_dw_kernel(Args a, BwdRows br, long long cols_per_blk, const float* dwl, float* dw,
                          Sgd sgd, int fused, float* dgt) {
+  constexpr bool BF16 = !std::is_same<TW, float>::value;
+  const TW* W = wrows<TW>(a);
+  TW* w_upd = static_cast<TW*>(sgd.w);
+  TM* mom = static_cast<TM*>(sgd.mom);
   extern __shared__ float smem[];
   float* As = smem;                      // emb chunk, k-major [W_DK][W_ALD]
   float* Bs = As + W_DK * W_ALD;         // W chunk, k-major [W_DK][W_BLD]
@@ -422,6 +535,7 @@ __global__ void __launch_bounds__(W_THREADS)
   int* r_lab = reinterpret_cast<int*>(r_dneg + W_ROWS);
   int* tgt = r_lab + W_ROWS;             // [W_ROWS] label - t0 if in this tile, else -1
   int* any_tgt = tgt + W_ROWS;
+  float* Bu = reinterpret_cast<float*>(any_tgt + 1);  // bf16 W: unrounded w_hat [W_DK][W_BLD]
 
   const int tid = threadIdx.x;
   const long long c_begin = (long long)blockIdx.x * cols_per_blk;
@@ -455,10 +569,21 @@ __global__ void __launch_bounds__(W_THREADS)
                    a.scale;
     }
 
-    float acc[8][4], n2;
-    tile_gemm<W_ROWS, W_TC, W_DK, W_THREADS, W_ALD, W_BLD, 8, 4, 16, 16, true>(
-        acc, n2, As, Bs, a.emb, 0, a.B, a.w, p0, p0 + n, a.D, ty, tx);
-    if (tid < W_TC) inv[tid] = inv_norm(n2);
+    // acc: the cosines (f32 W: raw dots); bf16 W: ce, the dots of the rounded
+    // emb with the unrounded w_hat, for <d_w_hat, w_hat>
+    float acc[8][4], ce[8][4];
+    if constexpr (BF16) {
+      float n2;
+      tile_gemm<W_ROWS, W_TC, W_DK, W_THREADS, W_ALD, W_BLD, 8, 4, 16, 16, false>(
+          acc, n2, As, Bs, a.emb, 0, a.B, W, p0, p0 + n, a.D, ty, tx,
+          StageNormBf16<true>{a.inv + t0}, ce, Bu);
+      if (tid < W_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
+    } else {
+      float n2;
+      tile_gemm<W_ROWS, W_TC, W_DK, W_THREADS, W_ALD, W_BLD, 8, 4, 16, 16, true>(
+          acc, n2, As, Bs, a.emb, 0, a.B, W, p0, p0 + n, a.D, ty, tx);
+      if (tid < W_TC) inv[tid] = inv_norm(n2);
+    }
     __syncthreads();
 
     float sp[4] = {0.f, 0.f, 0.f, 0.f};
@@ -470,9 +595,14 @@ __global__ void __launch_bounds__(W_THREADS)
         const int c = tx + 16 * j;
         float d = 0.f;
         if (b < a.B && c < n) {
-          const float cv = acc[i][j] * inv[c];
+          const float cv = BF16 ? acc[i][j] : acc[i][j] * inv[c];
           d = dcos_of(cv, p0 + c, r_lab[b], r_gt[b], r_lz[b], r_kth[b], r_dce[b], r_dneg[b], a);
-          sp[j] = fmaf(d, cv, sp[j]);
+          if constexpr (BF16) {
+            d = bf16r(d);
+            sp[j] = fmaf(d, ce[i][j], sp[j]);
+          } else {
+            sp[j] = fmaf(d, cv, sp[j]);
+          }
         }
         Dc[b * W_CLD + c] = d;
       }
@@ -525,7 +655,7 @@ __global__ void __launch_bounds__(W_THREADS)
             continue;
           }
           const long long off = (p0 + t) * a.D + d;  // the class row
-          const float wv = a.w[off];  // plain load: the fused pass overwrites this row
+          const float wv = to_f32(W[off]);  // plain load: the fused pass overwrites this row
           float g = iv * (acc3[i][j] - wv * iv * sd);
           if (tile_tgt) {
             for (int b = 0; b < a.B; ++b)
@@ -538,11 +668,11 @@ __global__ void __launch_bounds__(W_THREADS)
           if (sgd.wd != 0.f) g = g + sgd.wd * wv;
           float mn = g, upd = g;
           if (sgd.mu != 0.f) {
-            mn = sgd.mu * sgd.mom[off] + g;
+            mn = sgd.mu * to_f32(mom[off]) + g;
             upd = sgd.nesterov ? g + sgd.mu * mn : mn;
           }
-          sgd.mom[off] = mn;
-          sgd.w[off] = wv - sgd.lr * upd;
+          store_as(mom + off, mn);  // each rounded once to its storage type
+          store_as(w_upd + off, wv - sgd.lr * upd);
         }
       }
     }
@@ -550,12 +680,13 @@ __global__ void __launch_bounds__(W_THREADS)
   }
 }
 
-Args make_args(const float* emb, const float* w, long long C, int D, int B, const int* labels,
-               const float* gt, int k, int loss_type, float margin, float scale, float mask_svfc,
-               float cos_m, float sin_m) {
+Args make_args(const float* emb, const void* w, const float* inv, long long C, int D, int B,
+               const int* labels, const float* gt, int k, int loss_type, float margin,
+               float scale, float mask_svfc, float cos_m, float sin_m) {
   Args a;
   a.emb = emb;
   a.w = w;
+  a.inv = inv;
   a.C = C;
   a.D = D;
   a.B = B;
@@ -574,37 +705,85 @@ Args make_args(const float* emb, const float* w, long long C, int D, int B, cons
   return a;
 }
 
+// bf16 W: fill a.inv (1 / ||w|| per logical column) before the passes read it
+int launch_inv(const Args& a, cudaStream_t st) {
+  const long long threads = a.ncols * 32;
+  inv_norm_bf16_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(a,
+                                                                          const_cast<float*>(a.inv));
+  return (int)cudaGetLastError();
+}
+
+// the forward's block pass over nblk column ranges
+template <class TW>
+int launch_fwd_pass(const Args& a, int nblk, long long cols_per_blk, float* part, float* stats,
+                    cudaStream_t st) {
+  if (!std::is_same<TW, float>::value) {
+    const int err = launch_inv(a, st);
+    if (err != 0) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(margin_fwd_kernel<TW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  margin_fwd_kernel<TW><<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part, stats);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_pass_form(int w_bf16, const Args& a, int nblk, long long cols_per_blk,
+                         float* part, float* stats, cudaStream_t st) {
+  return w_bf16 ? launch_fwd_pass<__nv_bfloat16>(a, nblk, cols_per_blk, part, stats, st)
+                : launch_fwd_pass<float>(a, nblk, cols_per_blk, part, stats, st);
+}
+
 // both backward passes: d_emb (row groups + merge), then d_w (column owners)
+template <class TW, class TM>
 int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
                long long cols_per_chunk, float* d_emb, int dw_nblk, long long dw_cols_per_blk,
                const float* dwl, float* dw, const Sgd& sgd, int fused, float* dgt,
                cudaStream_t st) {
+  cudaError_t err;
+  if (!std::is_same<TW, float>::value) {
+    const int e = launch_inv(a, st);
+    if (e != 0) return e;
+  }
   const int n_rg = (a.B + B_RB - 1) / B_RB;
-  margin_bwd_demb_kernel<<<nchunk * n_rg, B_THREADS, B_SMEM, st>>>(a, br, cols_per_chunk, n_rg,
-                                                                    part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  margin_bwd_demb_kernel<TW><<<nchunk * n_rg, B_THREADS, B_SMEM, st>>>(a, br, cols_per_chunk,
+                                                                        n_rg, part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long n = (long long)a.B * a.D;
   margin_bwd_demb_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(nchunk, n, part,
                                                                             d_emb);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (dw == nullptr && !fused) return 0;  // grad_w=False
-  err = cudaFuncSetAttribute(margin_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)W_SMEM);
+  const size_t smem = std::is_same<TW, float>::value ? W_SMEM : W_SMEM_BF16;
+  err = cudaFuncSetAttribute(margin_bwd_dw_kernel<TW, TM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  margin_bwd_dw_kernel<<<dw_nblk, W_THREADS, W_SMEM, st>>>(a, br, dw_cols_per_blk, dwl, dw,
-                                                           sgd, fused, dgt);
+  margin_bwd_dw_kernel<TW, TM><<<dw_nblk, W_THREADS, smem, st>>>(a, br, dw_cols_per_blk, dwl,
+                                                                 dw, sgd, fused, dgt);
   return (int)cudaGetLastError();
+}
+
+// the unfused backward of either W form (the momentum type is unused)
+int launch_bwd_form(int w_bf16, const Args& a, const BwdRows& br, float* part, int nchunk,
+                    long long cols_per_chunk, float* d_emb, int dw_nblk,
+                    long long dw_cols_per_blk, const float* dwl, float* dw, float* dgt,
+                    cudaStream_t st) {
+  const Sgd none = {nullptr, nullptr, 0.f, 0.f, 0.f, 0};
+  return w_bf16 ? launch_bwd<__nv_bfloat16, float>(a, br, part, nchunk, cols_per_chunk, d_emb,
+                                                   dw_nblk, dw_cols_per_blk, dwl, dw, none, 0,
+                                                   dgt, st)
+                : launch_bwd<float, float>(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk,
+                                           dw_cols_per_blk, dwl, dw, none, 0, dgt, st);
 }
 
 }  // namespace
 
 #define MCE_COMMON_PARAMS                                                                       \
-  const float *emb, const float *w, long long C, int D, int B, const int *labels,              \
-      const float *gt, int k, int loss_type, float margin, float scale, float mask_svfc,        \
-      float cos_m, float sin_m
+  const float *emb, const void *w, int w_bf16, float *inv, long long C, int D, int B,          \
+      const int *labels, const float *gt, int k, int loss_type, float margin, float scale,      \
+      float mask_svfc, float cos_m, float sin_m
 #define MCE_COMMON_ARGS \
-  emb, w, C, D, B, labels, gt, k, loss_type, margin, scale, mask_svfc, cos_m, sin_m
+  emb, w, inv, C, D, B, labels, gt, k, loss_type, margin, scale, mask_svfc, cos_m, sin_m
 #define MCE_BWD_PARAMS                                                                          \
   const float *logz, const float *kth, const float *dce, const float *dneg, float *part,        \
       int nchunk, long long cols_per_chunk, float *d_emb, int dw_nblk, long long dw_cols_per_blk
@@ -612,6 +791,10 @@ int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
 extern "C" {
 
 const char* margin_ce_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// Every entry takes W as f32 (w_bf16 = 0, inv nullptr) or bf16 (w_bf16 = 1,
+// emb rounded to bf16 by the caller, inv a float scratch of one entry per
+// logical column: C, or M * tile for the sparse backward).
 
 // forward: nblk column ranges of cols_per_blk (a multiple of 128) columns;
 // part is [2 * nblk][B][2 + 16] f32 scratch; outputs [B] and [B][k]. With
@@ -622,14 +805,12 @@ int margin_ce_fwd_launch(MCE_COMMON_PARAMS, float* part, int nblk, long long col
                          int stats_tile, float* maxz, float* maxcos, void* stream) {
   const Args a = make_args(MCE_COMMON_ARGS);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(margin_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  margin_fwd_kernel<<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part, stats);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int e = launch_fwd_pass_form(w_bf16, a, nblk, cols_per_blk, part, stats, st);
+  if (e != 0) return e;
   margin_fwd_merge_kernel<<<(B + 127) / 128, 128, 0, st>>>(a, 2 * nblk, part, ce, neg, logz,
                                                            topk);
-  if ((err = cudaGetLastError()) != cudaSuccess || stats == nullptr) return (int)err;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || stats == nullptr) return (int)err;
   const long long n64 = (C + STAT_COLS - 1) / STAT_COLS;
   const long long n_tiles = (C + stats_tile - 1) / stats_tile, n = n_tiles * B;
   margin_fwd_stats_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
@@ -644,20 +825,26 @@ int margin_ce_bwd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, float* dw, const flo
                          void* stream) {
   const Args a = make_args(MCE_COMMON_ARGS);
   const BwdRows br = {logz, kth, dce, dneg};
-  const Sgd none = {nullptr, nullptr, 0.f, 0.f, 0.f, 0};
-  return launch_bwd(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl,
-                    dw, none, 0, nullptr, (cudaStream_t)stream);
+  return launch_bwd_form(w_bf16, a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk,
+                         dw_cols_per_blk, dwl, dw, nullptr, (cudaStream_t)stream);
 }
 
-// fused backward: w_upd (== w) and mom are updated in place; d_wl [B][D]
-int margin_ce_bwd_fused_sgd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, float* w_upd, float* mom,
-                                   const float* dwl, float lr, float momentum, int nesterov,
-                                   float weight_decay, void* stream) {
+// fused backward: w_upd (== w) and mom (bf16 when mom_bf16) are updated in
+// place; d_wl [B][D]
+int margin_ce_bwd_fused_sgd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, void* w_upd, void* mom,
+                                   int mom_bf16, const float* dwl, float lr, float momentum,
+                                   int nesterov, float weight_decay, void* stream) {
   const Args a = make_args(MCE_COMMON_ARGS);
   const BwdRows br = {logz, kth, dce, dneg};
   const Sgd sgd = {w_upd, mom, lr, momentum, weight_decay, nesterov};
-  return launch_bwd(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl,
-                    nullptr, sgd, 1, nullptr, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+#define MCE_FUSED(TW, TM)                                                                      \
+  launch_bwd<TW, TM>(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl, \
+                     nullptr, sgd, 1, nullptr, st)
+  if (w_bf16) return mom_bf16 ? MCE_FUSED(__nv_bfloat16, __nv_bfloat16)
+                              : MCE_FUSED(__nv_bfloat16, float);
+  return mom_bf16 ? MCE_FUSED(float, __nv_bfloat16) : MCE_FUSED(float, float);
+#undef MCE_FUSED
 }
 
 // sparse backward over the M tiles tile_idx [M] (distinct, each below
@@ -674,9 +861,8 @@ int margin_ce_bwd_sparse_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, const int* ti
   a.sel_tile = tile;
   a.ncols = ncols;
   const BwdRows br = {logz, kth, dce, dneg};
-  const Sgd none = {nullptr, nullptr, 0.f, 0.f, 0.f, 0};
-  return launch_bwd(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl,
-                    dw_rows, none, 0, dgt, (cudaStream_t)stream);
+  return launch_bwd_form(w_bf16, a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk,
+                         dw_cols_per_blk, dwl, dw_rows, dgt, (cudaStream_t)stream);
 }
 
 // one block's forward: the forward's block pass, then the partial merge into
@@ -685,11 +871,8 @@ int margin_partial_fwd_launch(MCE_COMMON_PARAMS, float* part, int nblk, long lon
                               float* m, float* s, float* topk, void* stream) {
   const Args a = make_args(MCE_COMMON_ARGS);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(margin_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  margin_fwd_kernel<<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part, nullptr);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int e = launch_fwd_pass_form(w_bf16, a, nblk, cols_per_blk, part, nullptr, st);
+  if (e != 0) return e;
   margin_partial_merge_kernel<<<(B + 127) / 128, 128, 0, st>>>(a, 2 * nblk, part, m, s, topk);
   return (int)cudaGetLastError();
 }
@@ -701,9 +884,8 @@ int margin_partial_bwd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, float* dw, cons
                               void* stream) {
   const Args a = make_args(MCE_COMMON_ARGS);
   const BwdRows br = {logz, kth, dce, dneg};
-  const Sgd none = {nullptr, nullptr, 0.f, 0.f, 0.f, 0};
-  return launch_bwd(a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk, dw_cols_per_blk, dwl,
-                    dw, none, 0, nullptr, (cudaStream_t)stream);
+  return launch_bwd_form(w_bf16, a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk,
+                         dw_cols_per_blk, dwl, dw, nullptr, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,10 @@ step's class set (unique positives plus random negatives, duplicates
 masked out of the denominator through ``col_mask``). With a ``mesh`` the
 streaming branch runs class-sharded (``parallel/sharded_margin.py``: each
 rank holds a block of the classifier); the dense branch on a mesh (JAX's
-GSPMD-sharded cosines) is not ported yet.
+GSPMD-sharded cosines) is not ported yet. A bf16 classifier needs no kernel
+here: its rows promote to f32 where they are normalised, so the cosines
+are f32 and the gradient returns to the rows in bf16, as JAX's promotion
+does.
 """
 
 from __future__ import annotations

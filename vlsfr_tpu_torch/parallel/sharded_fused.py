@@ -10,7 +10,8 @@ partial forward and the collective merge (``sharded_margin.block_gt`` /
 the global positive rows as ``pos_rows`` (a −2 row keeps its softmax
 gradient here; the target tail runs on the owner only), then one
 all_reduce of d_emb. The data axis (JAX's all_gather of the embeddings over
-``data``) is not ported.
+``data``) is not ported. A bf16 block (and a bf16 or f32 momentum block)
+takes the kernels' bf16 forms; the merges and d_emb stay f32.
 """
 
 from __future__ import annotations

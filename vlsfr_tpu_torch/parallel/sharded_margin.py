@@ -100,4 +100,6 @@ class ShardedMarginSoftmax(torch.autograd.Function):
                                            grad_w=ctx.needs_input_grad[1], **kw)
         d_emb = d_emb + emb_term
         dist.all_reduce(d_emb, group=ctx.mesh.group)
+        if d_w is not None:  # the kernels store f32; JAX casts to the block's dtype
+            d_w = d_w.to(w_l.dtype)
         return (d_emb.to(ctx.dtype), d_w) + (None,) * 7

@@ -19,7 +19,9 @@ it keeps the block-local labels (−2 for such a row) and passes the global
 positive rows as ``pos_rows`` to the selector (top-k test), the sparse
 backward and the exact d_emb (cotangent masking). One difference follows:
 an outlier row (label −1) keeps its hard-negative d_neg push here, where
-JAX's sentinel drops it; full-softmax training has no outlier rows.
+JAX's sentinel drops it; full-softmax training has no outlier rows. A bf16
+block takes the kernels' bf16 forms; the merges, the selection and the d_w
+rows stay f32.
 """
 
 from __future__ import annotations

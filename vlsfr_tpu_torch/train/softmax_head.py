@@ -9,9 +9,10 @@ on every forward) and the margin-softmax CE, on one of five routes:
   runs outside autograd (``ops/margin_stream.streaming_margin_grads_fused_sgd``),
   the classifier and its bare momentum buffer are updated IN PLACE inside
   the streaming backward, and ``d_emb`` is fed back into the backbone;
-* B. streaming + ``torch.optim.SGD`` — streaming with
-  ``pool.fused_update=off`` or gradient clipping: ``MarginSoftmax``
-  forward and backward, a dense d_w, one SGD over backbone and classifier;
+* B. streaming + SGD — streaming with ``pool.fused_update=off`` or
+  gradient clipping: ``MarginSoftmax`` forward and backward, a dense d_w,
+  ``torch.optim.SGD`` on the backbone and optax's chain on the classifier
+  (``optim/optimizers.sgd_leaf_``);
 * C. dense — below the threshold or ``pool.use_fused=off``: the ``[B, C]``
   cosines in plain PyTorch;
 * D. sparse-d_w streaming — streaming with ``pool.sparse_update``: the
@@ -25,7 +26,18 @@ on every forward) and the margin-softmax CE, on one of five routes:
 
 Routes D and E with ``sparse_update`` keep the classifier outside the
 optimizer with a bare f32 momentum buffer and a per-row last-visit step
-(``train/sparse_classifier.py``). Their random draws — route D's random
+(``train/sparse_classifier.py``).
+
+The classifier is stored in ``pool.classifier_dtype`` (float32 or
+bfloat16), drawn as JAX draws it: f32 0.01·N(0, 1), then cast, here in
+chunks of rows so the f32 draw never exists whole. Route A's momentum is
+stored in ``pool.classifier_mom_dtype``; routes D and sparse E keep f32
+momentum for a bf16 classifier, as JAX does. On routes B, C and dense E
+the classifier is updated by ``optim/optimizers.sgd_leaf_``, optax's chain
+in the leaf's dtype (``torch.optim.SGD``, which keeps the backbone, rounds
+elsewhere than optax on a bf16 leaf), with its trace in that dtype as
+``classifier_mom``; gradient clipping takes the classifier's share of the
+global norm and clips it in its dtype as optax does. Their random draws — route D's random
 tile fill, route E's sampled negatives — come from ``tile_fill_draws`` and
 ``sample_draws``: a generator on the classifier's device seeded from a
 fixed seed and the step (JAX folds the step into ``PRNGKey(23)`` and
@@ -40,9 +52,8 @@ mesh, ``parallel/sharded_sparse.py``): the state holds the rank's block of
 the classifier the single-device init draws, its momentum and last-visit
 steps; route D's random fill draws per rank.
 
-Not ported yet, and refused: bf16 classifier storage, bf16 momentum on
-route A, routes C and E on a mesh, the data axis, and batches above the
-margin_ce kernels' 128 rows on a card.
+Not ported yet, and refused: routes C and E on a mesh, the data axis, and
+batches above the margin_ce kernels' 128 rows on a card.
 """
 
 from __future__ import annotations
@@ -63,7 +74,7 @@ from vlsfr_tpu_torch.ops.margin_stream import (
     streaming_sparse_margin_grads,
 )
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
-from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
+from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_, sgd_leaf_
 from vlsfr_tpu_torch.parallel.partial_fc import margin_softmax_loss, sample_classes
 from vlsfr_tpu_torch.parallel.sharded_fused import sharded_margin_grads_fused_sgd
 from vlsfr_tpu_torch.parallel.sharded_sparse import sharded_sparse_margin_grads
@@ -72,6 +83,8 @@ from vlsfr_tpu_torch.utils.device import resolve_device
 
 TILE_FILL_SEED = 23  # route D's random tile fill (JAX: PRNGKey(23) folded with the step)
 SAMPLE_SEED = 17  # route E's sampled negatives (JAX: PRNGKey(17) folded with the step)
+INIT_ROWS = 1 << 18  # classifier rows drawn at a time (512 MiB of f32 at 512 features)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _step_generator(seed: int, step: int, device, rank: int | None = None) -> torch.Generator:
@@ -104,9 +117,12 @@ class SoftmaxState:
 
     step: int
     backbone: nn.Module
-    classifier: torch.Tensor  # [C, D] f32; a leaf with a gradient on routes B, C and dense E
-    optimizer: torch.optim.Optimizer  # backbone, plus the classifier on routes B, C, dense E
-    classifier_mom: torch.Tensor | None = None  # routes A, D, sparse E: [C, D] f32, in place
+    # [C, D] in pool.classifier_dtype; a leaf with a gradient on routes B, C and dense E
+    classifier: torch.Tensor
+    optimizer: torch.optim.Optimizer  # the backbone
+    # [C, D], in place: route A's momentum (pool.classifier_mom_dtype), routes D and
+    # sparse E's (f32), or on routes B, C and dense E the trace in the classifier's dtype
+    classifier_mom: torch.Tensor | None = None
     classifier_last: torch.Tensor | None = None  # routes D, sparse E: [C] int32 last-visit step
 
 
@@ -150,10 +166,11 @@ def check_ported(cfg: Config, device=None) -> None:
     sharded = cfg.mesh.model > 1
     on_kernels = (_streaming_on(cfg) and pool.sample_rate == 0 and device is not None
                   and torch.device(device).type == "cuda")
+    for name in ("classifier_dtype", "classifier_mom_dtype"):
+        if getattr(pool, name) not in DTYPES:
+            raise ValueError(f"pool.{name} must be float32 or bfloat16, got "
+                             f"{getattr(pool, name)!r}")
     for what, on in (
-            ("pool.classifier_dtype=bfloat16", pool.classifier_dtype != "float32"),
-            ("pool.classifier_mom_dtype=bfloat16",
-             pool.classifier_mom_dtype != "float32" and _fused_update_on(cfg)),
             ("mesh.data > 1 (the data axis)", cfg.mesh.data > 1),
             ("mesh.model > 1 on the dense head (route C)",
              sharded and not _streaming_on(cfg) and pool.sample_rate == 0),
@@ -164,39 +181,66 @@ def check_ported(cfg: Config, device=None) -> None:
             raise NotImplementedError(f"{what} is not ported yet")
 
 
+def init_classifier(num_classes: int, feat_dim: int, dtype: torch.dtype, *, device,
+                    generator: torch.Generator, block: tuple[int, int] | None = None):
+    """The classifier as JAX initialises it, f32 0.01·N(0, 1) cast to
+    ``dtype``, drawn INIT_ROWS rows at a time so the f32 draw never exists
+    whole (8 GiB at 4M × 512). With ``block = (c0, n)`` only the rows
+    [c0, c0 + n) are kept, every chunk being drawn all the same, so a
+    block is the whole classifier's slice bit for bit."""
+    c0, n = (0, num_classes) if block is None else block
+    out = torch.empty((n, feat_dim), dtype=dtype, device=device)
+    for lo in range(0, num_classes, INIT_ROWS):
+        hi = min(num_classes, lo + INIT_ROWS)
+        x = torch.randn((hi - lo, feat_dim), generator=generator, device=device).mul_(0.01)
+        a, e = max(lo, c0), min(hi, c0 + n)
+        if a < e:
+            out[a - c0:e - c0] = x[a - lo:e - lo]
+    return out
+
+
 def create_softmax_state(model: nn.Module, cfg: Config, num_classes: int, *, device=None,
                          seed: int = 0, classifier: torch.Tensor | None = None,
                          mesh=None) -> SoftmaxState:
-    """Backbone = ``model`` on the device, a classifier drawn as 0.01·N(0, 1)
-    from a generator seeded with ``seed`` (or ``classifier`` as given), and
-    the optimizer; on routes A, D and sparse E a zero f32 momentum buffer
-    beside the classifier (optax's trace starts at zero too), on D and
-    sparse E also a zero last-visit step per row. With a ``mesh`` the state
-    keeps this rank's block of that classifier (and a momentum and
-    last-visit block). Runs on ``cuda`` unless ``device`` says otherwise;
-    raises without a card."""
+    """Backbone = ``model`` on the device, a classifier in
+    ``pool.classifier_dtype`` drawn as 0.01·N(0, 1) from a generator seeded
+    with ``seed`` (``init_classifier``; or ``classifier`` as given, in its
+    own dtype), and the optimizer; on routes A, D and sparse E a zero
+    momentum buffer beside the classifier (optax's trace starts at zero
+    too; route A's in ``pool.classifier_mom_dtype``, D's and E's f32), on D
+    and sparse E also a zero last-visit step per row; on routes B, C and
+    dense E a zero trace in the classifier's dtype when ``optim.momentum``
+    is set (module docstring). With a
+    ``mesh`` the state keeps this rank's block of that classifier (and a
+    momentum and last-visit block). Runs on ``cuda`` unless ``device`` says
+    otherwise; raises without a card."""
     dev = resolve_device(device)
     check_ported(cfg, dev)
     backbone = model.to(dev)
+    block = None if mesh is None else mesh.class_block(num_classes, "pool.num_classes")
     if classifier is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        classifier = torch.randn((num_classes, cfg.model.feat_dim), generator=gen,
-                                 device=dev).mul_(0.01)
+        classifier = init_classifier(num_classes, cfg.model.feat_dim,
+                                     DTYPES[cfg.pool.classifier_dtype], device=dev,
+                                     generator=gen, block=block)
     else:
-        classifier = classifier.to(dev, torch.float32).contiguous()
-    if mesh is not None:
-        c0, c_local = mesh.class_block(num_classes, "pool.num_classes")
-        classifier = classifier[c0:c0 + c_local].clone()
+        classifier = classifier.to(dev).contiguous()
+        if block is not None:
+            classifier = classifier[block[0]:block[0] + block[1]].clone()
+    last, mom = None, None
     if _fused_update_on(cfg) or _sparse_classifier_mode(cfg):
-        last = None
+        mom_dtype = DTYPES[cfg.pool.classifier_mom_dtype]
         if _sparse_classifier_mode(cfg):
             last = torch.zeros((classifier.shape[0],), dtype=torch.int32, device=dev)
-        return SoftmaxState(step=0, backbone=backbone, classifier=classifier,
-                            optimizer=make_optimizer(cfg.optim, backbone.parameters()),
-                            classifier_mom=torch.zeros_like(classifier), classifier_last=last)
-    classifier.requires_grad_(True)
+            mom_dtype = torch.float32
+        mom = torch.zeros_like(classifier, dtype=mom_dtype)
+    else:  # routes B, C, dense E: optax's chain on the leaf (sgd_leaf_)
+        classifier.requires_grad_(True)
+        if cfg.optim.momentum:
+            mom = torch.zeros_like(classifier)
     return SoftmaxState(step=0, backbone=backbone, classifier=classifier,
-                        optimizer=make_optimizer(cfg.optim, [*backbone.parameters(), classifier]))
+                        optimizer=make_optimizer(cfg.optim, backbone.parameters()),
+                        classifier_mom=mom, classifier_last=last)
 
 
 def make_softmax_train_step(cfg: Config, schedule, mesh=None):
@@ -289,13 +333,15 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
     def global_norm(params, classifier):
         """The gradients' global norm; on a mesh the classifier blocks'
         squares are summed over the group once, the replicated backbone's
-        taken once."""
+        taken once. A bf16 classifier's share is optax's: squares and sum
+        in bf16 (the sum accumulated in f32 and rounded once)."""
         sq = sum(p.grad.square().sum() for p in params if p is not classifier)
         if classifier.requires_grad:
-            block = classifier.grad.square().sum()
+            grad = classifier.grad
+            block = grad.square().sum(dtype=torch.float32)
             if mesh is not None:
                 dist.all_reduce(block, group=mesh.group)
-            sq = sq + block
+            sq = sq + block.to(grad.dtype).float()
         return torch.sqrt(sq)
 
     def step(state: SoftmaxState, images, labels, lr_scale: float = 1.0) -> dict:
@@ -307,15 +353,22 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
         lr = float(schedule(state.step)) * float(lr_scale)
         state.backbone.train()
         loss, metrics = head(state, state.backbone(images), labels, lr, dev)
+        # routes B, C, dense E: the classifier takes optax's leaf update
+        leaf = state.classifier if state.classifier.requires_grad else None
         with torch.no_grad():
             params = [p for group in opt.param_groups for p in group["params"]]
             for p in params:
                 if p.grad is None:  # unused parameters still decay, as in optax
                     p.grad = torch.zeros_like(p)
+            if leaf is not None:
+                params.append(leaf)
             if grad_clip > 0:
                 clip_by_global_norm_(params, grad_clip, global_norm(params, state.classifier))
         set_learning_rate(opt, lr)
         opt.step()
+        if leaf is not None:
+            sgd_leaf_(leaf, state.classifier_mom, leaf.grad, lr, **sgd_kw)
+            leaf.grad = None
         state.step += 1
         return dict(metrics, loss=loss.detach(), lr=lr)
 

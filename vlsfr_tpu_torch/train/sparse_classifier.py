@@ -13,6 +13,11 @@ its momentum by μ^gap, then takes the normal step; ``last_visit`` [C]
 int32 holds each row's last step. Rows not selected keep their value and
 skip weight decay during the gap; the tail is replayed at the current lr
 (both approximations are the JAX package's, documented there).
+
+A bf16 classifier keeps its f32 momentum; the row write rounds twice, as
+JAX's ``w.at[idx].add(delta.astype(w.dtype))`` does: the f32 step
+−lr·(update + catch-up) rounded to bf16, then its sum with the row rounded
+to bf16 (one rounding, the same values, in f32).
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ def sparse_sgd_rows(w, momentum_buf, idx, grad_rows, *, lr, momentum: float, wei
     g = grad_rows[keep].float() + weight_decay * w_sub
     m_new = mu * m_sub + g
     update = g + mu * m_new if nesterov else m_new
-    w.index_copy_(0, rows, (w_sub + (-lr * (update + catchup))).to(w.dtype))
+    delta = (-lr * (update + catchup)).to(w.dtype).float()
+    w.index_copy_(0, rows, (w_sub + delta).to(w.dtype))
     momentum_buf.index_copy_(0, rows, m_new.to(momentum_buf.dtype))
     last_visit.index_fill_(0, rows, int(step))
     return w, momentum_buf, last_visit

@@ -58,6 +58,73 @@ that skip the clean tiles' or the bf16 written tiles' rounding put tens
 to hundreds there (``tests/test_torch_kernels.py::
 test_form_checks_reject_planted_faults`` plants both).
 
+The softmax head's bf16 classifier (``margin_stream``'s bf16 forms: the
+kernels and the plain versions round the same operands, bf16(emb) and
+bf16(ŵ), bit for bit, and sum exact products in another order;
+``rounded_softmax_checks`` and the helpers below). Where the kernel's and
+the plain version's f32 d_cos straddle a bf16 rounding boundary, one
+rounded term moves by a bf16 spacing, up to 2^-8 of itself; how many rows
+that moves beyond a tight limit depends on how many terms a row sums, so
+each count has one limit below WIDE = 2^16 summed columns (d_emb) or rows
+in the set (d_w) and one at or above it, each set from the most read on an
+H100 at B = 128 (chip_smoke.py phase 29 and the ``gpu`` tests of
+tests/test_torch_kernels.py, C = 4,096 / 5,000 and 2^20 / 1,250,000):
+
+* forward: ce / neg / logz 1e-5 × max(1, max |value|) (BF16_FWD_RTOL), top-k
+  1e-5 absolute; the statistics and the partial state as the f32 form's;
+* d_emb: ``rounded_demb`` against its streamed part (d_emb less the target
+  term plain torch adds on both sides), its count at most
+  SOFTMAX_DEMB_ROWS = 16 rows below WIDE columns (read: up to 10 of 128 over
+  the 4,096 columns of 8 selected tiles, 8 at C = 4,096) and STRADDLE_ROWS
+  = 8 from WIDE up (read: 0-1 at 2^20 and over 65,536 sparse columns), as
+  the quad forms'; a rounding skipped on every column moves every row;
+* d_w (and the f32 momentum of a bf16 classifier, whose g carries the same
+  d_w) by row set in two parts (``rounded_rows``): each d_w row sums B
+  terms bf16(d_cos[b, t])·bf16(emb_b), not diluted over the columns. At
+  most ROUNDED_ROWS = 32 rows of a set below WIDE rows (read: up to 18 of
+  3,968, 9 of 4,096) and 16 from WIDE up (read: 0 of 2^20, 0 of 65,536
+  sparse rows, 1-5 of 1,250,000) may be further than 1e-5 × the set's
+  max|ref| (+ 2 f32 eps × its max stored value) from the plain version,
+  and none further than ROUNDED_ROW_CAP = 2^-5 × its own max|ref| beyond
+  that (two straddled terms and the projection's share). A d_w fault that
+  reaches the rows near the set's max (a scale, a missing term) fails the
+  count. A block's d_w is held to the whole classifier's d_w from the same
+  merged (gt, logz, top-k), not from the whole head's own logz, whose last
+  bits move d_cos across boundaries on ~0.1 % of the rows;
+* w' and mom' stored in bf16 (``bf16_ulps``), in bf16 spacings at the
+  larger of the result and the stored value before the update (a result
+  that cancels its operands carries their f32 rounding, many ulps of
+  itself and no fault): equal, except at most ULP_SHARE = 2^-13 of the
+  elements one spacing apart (the f32 values before the rounding differ in
+  their last bits, FMA contraction and d_w's straddles, and each such
+  value rounds the other way when it lies that close to a boundary: a
+  share of the elements; read up to 70 of 2^21 at C = 4,096 (2^-14.9),
+  4,628 of 2^29 at 2^20, and 27,810 of 2^29 (2^-14.2) there with the
+  momentum scaled by 1e-4 at lr 100), and none more than one spacing apart
+  outside the
+  rows whose gradient straddled (``straddled_rows``: the kernel's d_w
+  beyond the tight limit of the plain one's; a straddled term that
+  dominates its element moves the f32 value by up to two spacings). A w'
+  rounded twice (bf16(w − bf16(lr·upd))) moves ~1 % of a 0.01-scale
+  classifier's elements at lr 0.1 and fails the count;
+* a momentum written from zero (a trainer's first step, bf16(g)), whose g
+  may cancel (d_w ≈ −wd·w) with no stored value to set the scale: a
+  cancelled element sits many of its own spacings from the plain version
+  (read at 2^20 against the plain update on the plain forward's logz:
+  262,629 elements apart, 46,142 beyond one spacing, up to 58,299
+  spacings), so it is held by what lies beyond one bf16 spacing of each
+  element, with d_w's limits (``rounded_rows``; ``bf16_fresh_state``; read
+  0 rows beyond the tight limit on the step's own logz);
+* w' stored in f32 beside a bf16 momentum (the f32 form): ``by_rows``
+  against lr(1 + μ)·g with g = d_w + wd·w from the plain d_w, as the f32
+  pair's; that momentum, bf16 of the f32 form's g + μ·mom, by row set
+  beyond one bf16 spacing of each element, 1e-4 × the set's max|g|: the
+  f32 form's g is held only to its set's max, so where g dominates (a
+  small momentum) its small elements sit many of their own spacings from
+  the plain version (read: 17 elements up to 29 spacings, 566,485 of 2^29
+  elements apart at 2^20 with the momentum scaled by 1e-4 at lr 100), and
+  no count of elements apart holds for it.
+
 The int8-compute dot is an exact integer sum (``int8_dot_checks``): the
 kernels' own clean cosines (``ops/twin_margin.clean_cos``, the tile code
 the forward and the backward's recompute run) with unit scales are f32 of
@@ -77,6 +144,13 @@ F32_EPS = torch.finfo(torch.float32).eps
 ROUNDED_DEMB_RTOL = 2.0**-7
 DEMB_TIGHT = 1e-5
 STRADDLE_ROWS = 8
+# the softmax head's bf16 classifier (module docstring): counts below / from WIDE
+BF16_FWD_RTOL = 1e-5
+WIDE = 1 << 16
+SOFTMAX_DEMB_ROWS = (16, STRADDLE_ROWS)
+ROUNDED_ROWS = (32, 16)
+ROUNDED_ROW_CAP = 2.0**-5
+ULP_SHARE = 2.0**-13
 
 
 def label_rows(n_rows: int, labels: torch.Tensor) -> torch.Tensor:
@@ -154,34 +228,69 @@ def margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, kw: d
     set's max|d_w|; w' and mom' as ``sgd_update``. W and mom are updated in
     place by the fused kernel; the plain version gets clones taken before.
     ``pos_rows``: the global positive rows of a block with block-local
-    labels (one block of a class-sharded classifier)."""
+    labels (one block of a class-sharded classifier). A bf16 classifier
+    or momentum takes the bf16 forms' checks (module docstring): d_emb by
+    ``rounded_demb`` on its streamed part, d_w by ``rounded_rows``, w' /
+    mom' in bf16 by ``bf16_ulps``, an f32 mom' of a bf16 classifier by
+    ``rounded_rows``, an f32 w' beside a bf16 momentum by ``by_rows``
+    against lr(1 + μ)·(d_w + wd·w) and that momentum beyond one bf16
+    spacing to 1e-4 × the set's max|d_w + wd·w|."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
 
+    rounded = w.dtype == torch.bfloat16
     d_ce_m, _ = tms._mask_cotangents(tms._positive(labels, pos_rows), d_ce, d_neg)
     emb_term, _ = tms._target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=kw["loss_type"],
                                    margin=kw["margin"], scale=kw["scale"])
+
+    def demb(name, got, want):
+        if rounded:
+            return softmax_demb(name, got, want, want - emb_term, cols=w.shape[0])
+        return [whole(name, got, want, want - emb_term, 1e-4)]
+
     kw = dict(kw, pos_rows=pos_rows)
-    bwd = []
+    bwd, straddled = [], None
     for grad_w in (False, True):
         de_k, dw_k = tms.margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg,
                                        grad_w=grad_w, **kw)
         de_p, dw_p = tms.margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg,
                                              grad_w=grad_w, **kw)
-        bwd.append(whole(f"d_emb (grad_w={grad_w})", de_k, de_p, de_p - emb_term, 1e-4))
+        bwd += demb(f"d_emb (grad_w={grad_w})", de_k, de_p)
         if grad_w:
-            bwd += by_rows("d_w", dw_k, dw_p, dw_p, labels, 1e-4)
+            if rounded:
+                bwd += rounded_rows("d_w", dw_k, dw_p, dw_p, labels)
+                straddled = straddled_rows(dw_k, dw_p, labels)
+            else:
+                bwd += by_rows("d_w", dw_k, dw_p, dw_p, labels, 1e-4)
+            if not rounded and mom.dtype == torch.bfloat16:  # f32 w' beside a bf16 mom
+                g_ref = dw_p.add_(w, alpha=sgd["weight_decay"])
         elif dw_k is not None or dw_p is not None:
             raise RuntimeError("margin_ce_bwd returned a d_w with grad_w=False")
         del dw_k, dw_p
     w_p, mom_p, mom0 = w.clone(), mom.clone(), mom.clone()
+    w0 = w.clone() if rounded else None
     de_k, w_k, mom_k = tms.margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce,
                                                    d_neg, lr, **sgd, **kw)
     de_p, w_p, mom_p = tms.margin_ce_bwd_fused_sgd_plain(emb, w_p, mom_p, labels, gt, logz, topk,
                                                          d_ce, d_neg, lr, **sgd, **kw)
     if w_k.data_ptr() != w.data_ptr() or mom_k.data_ptr() != mom.data_ptr():
         raise RuntimeError("margin_ce_bwd_fused_sgd did not update W and mom in place")
-    fused = [whole("fused d_emb", de_k, de_p, de_p - emb_term, 1e-4)]
-    return bwd, fused + sgd_update(w_k, mom_k, w_p, mom_p, mom0, labels, lr, sgd["momentum"])
+    fused = demb("fused d_emb", de_k, de_p)
+    mu = sgd["momentum"]
+    if not rounded and mom.dtype == torch.float32:
+        return bwd, fused + sgd_update(w_k, mom_k, w_p, mom_p, mom0, labels, lr, mu)
+    if rounded:
+        fused += bf16_ulps("w'", w_k, w_p, w0, straddled)
+    else:
+        fused += by_rows("w'", w_k, w_p, g_ref * (lr * (1.0 + mu)), labels, 1e-4, 2.0)
+    if rounded and mom.dtype == torch.bfloat16:
+        fused += bf16_ulps("mom'", mom_k, mom_p, mom0, straddled)
+    elif mom.dtype == torch.bfloat16:  # the f32 form's g stored in bf16
+        gap = beyond_spacing(mom_k, mom_p, mom0)
+        fused += by_rows("mom' beyond one bf16 spacing", gap, torch.zeros_like(gap), g_ref,
+                         labels, 1e-4)
+    else:
+        fused += rounded_rows("mom'", mom_k, mom_p, mom_p - mu * mom0, labels)
+    return bwd, fused
 
 
 def fwd_stats_checks(maxz_k, maxcos_k, maxz_p, maxcos_p, scale: float,
@@ -209,15 +318,22 @@ def margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, til
 
     args = (emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx)
     kw = dict(kw, pos_rows=pos_rows)
+    rounded = w.dtype == torch.bfloat16
     sde_p, _, dgt_p = tms._sparse_parts_plain(*args, tile=tile, **kw)
     de_k, dw_k = tms.margin_ce_bwd_sparse(*args, tile=tile, **kw)
     de_p, dw_p = tms.margin_ce_bwd_sparse_plain(*args, tile=tile, **kw)
-    out = [whole("sparse d_emb", de_k, de_p, sde_p, 1e-4)]
-    out += by_rows("sparse d_w", dw_k, dw_p, dw_p, labels, 1e-4,
-                   is_label=sparse_label_rows(labels, tile_idx, tile))
+    is_label = sparse_label_rows(labels, tile_idx, tile)
+    cols = tile_idx.numel() * tile
+    if rounded:  # the bf16 form (module docstring)
+        out = softmax_demb("sparse d_emb", de_k, de_p, sde_p, cols=cols)
+        out += rounded_rows("sparse d_w", dw_k, dw_p, dw_p, labels, is_label=is_label)
+    else:
+        out = [whole("sparse d_emb", de_k, de_p, sde_p, 1e-4)]
+        out += by_rows("sparse d_w", dw_k, dw_p, dw_p, labels, 1e-4, is_label=is_label)
     del dw_k, dw_p
     sde_k, _, dgt_k = tms._sparse_parts_cuda(*args, tile=tile, **kw)
-    out.append(whole("sparse d_emb (streamed)", sde_k, sde_p, sde_p, 1e-4))
+    out += (softmax_demb("sparse d_emb (streamed)", sde_k, sde_p, cols=cols) if rounded
+            else [whole("sparse d_emb (streamed)", sde_k, sde_p, sde_p, 1e-4)])
     out.append({"name": "sparse d_gt", "err": float((dgt_k - dgt_p).abs().max()),
                 "limit": 1e-5 * max(1.0, float(dgt_p.abs().max()))})
     return out
@@ -239,9 +355,12 @@ def sparse_path_checks(emb, w, labels, d_ce, d_neg, kw: dict, tile: int, m_tiles
         gt = tms.compute_gt(emb, w, labels)
     got = tms.margin_ce_fwd(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
     want = tms.margin_ce_fwd_plain(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
-    checks = [{"name": name, "err": float((g - wn).abs().max()), "limit": tol}
-              for name, g, wn, tol in zip(("ce", "neg", "logz", "topk"), got, want,
-                                          (1e-4, 1e-4, 1e-4, 1e-5))]
+    if w.dtype == torch.bfloat16:
+        checks = rounded_fwd_checks(got, want)
+    else:
+        checks = [{"name": name, "err": float((g - wn).abs().max()), "limit": tol}
+                  for name, g, wn, tol in zip(("ce", "neg", "logz", "topk"), got, want,
+                                              (1e-4, 1e-4, 1e-4, 1e-5))]
     checks += fwd_stats_checks(got[4], got[5], want[4], want[5], kw["scale"])
     _, _, logz, topk, maxz, maxcos = want
     tile_idx, _ = tms.select_relevant_tiles(maxz, maxcos, logz, topk, labels, m_tiles, tile, u=u,
@@ -284,16 +403,138 @@ def demb_checks(name: str, got, want, dtype) -> list[dict]:
     return rounded_demb(name, got, want)
 
 
-def rounded_demb(name: str, got, want) -> list[dict]:
-    """d_emb of a rounded quad form in two parts (module docstring): the
-    count of rows further than DEMB_TIGHT × max |want| from the plain
-    version, at most STRADDLE_ROWS, and the largest error of any row, at
-    most ROUNDED_DEMB_RTOL × max |want|."""
-    top = float(want.abs().max())
+def rounded_demb(name: str, got, want, ref=None, allowed: int = STRADDLE_ROWS) -> list[dict]:
+    """d_emb of a rounded form in two parts (module docstring): the count
+    of rows further than DEMB_TIGHT × max |ref| from the plain version, at
+    most ``allowed`` (STRADDLE_ROWS; the softmax head's, ``softmax_demb``),
+    and the largest error of any row, at most ROUNDED_DEMB_RTOL × max |ref|.
+    ``ref`` is ``want`` unless given (the softmax head's streamed part)."""
+    top = float((want if ref is None else ref).abs().max())
     row_err = (got - want).abs().amax(dim=1)
     return [{"name": f"{name} rows beyond {DEMB_TIGHT:g} x max", "count": True,
-             "err": float((row_err > DEMB_TIGHT * top).sum()), "limit": float(STRADDLE_ROWS)},
+             "err": float((row_err > DEMB_TIGHT * top).sum()), "limit": float(allowed)},
             {"name": name, "err": float(row_err.max()), "limit": ROUNDED_DEMB_RTOL * top}]
+
+
+def softmax_demb(name: str, got, want, ref=None, *, cols: int) -> list[dict]:
+    """``rounded_demb`` with the softmax head's bf16 allowance for a d_emb
+    summed over ``cols`` columns: SOFTMAX_DEMB_ROWS below / from WIDE
+    (module docstring)."""
+    return rounded_demb(name, got, want, ref, SOFTMAX_DEMB_ROWS[cols >= WIDE])
+
+
+def _beyond_tight(err, ref_row, out_max, mask, rounding: float):
+    """The rows of ``mask`` whose error is beyond DEMB_TIGHT × the set's
+    max|ref| + ``rounding`` × eps × its max|want|, and that limit."""
+    tight = (DEMB_TIGHT * float(ref_row[mask].max())
+             + rounding * F32_EPS * float(out_max[mask].max()))
+    return mask & (err > tight), tight
+
+
+def _row_sets(got, labels, is_label):
+    if is_label is None:
+        is_label = label_rows(got.shape[0], labels.to(got.device))
+    return (("label rows", is_label), ("other rows", ~is_label))
+
+
+def rounded_rows(name: str, got, want, ref, labels, rounding: float = 2.0,
+                 is_label=None) -> list[dict]:
+    """[rows, D] f32 values that sum bf16-rounded terms (a bf16 form's d_w,
+    or an f32 momentum that takes it), by row set in two parts (module
+    docstring): the count of rows further than DEMB_TIGHT × the set's
+    max|ref| + ``rounding`` × eps × its max|want|, at most ROUNDED_ROWS
+    (below / from WIDE rows in the set); and the largest excess of any row
+    over ROUNDED_ROW_CAP × its own max|ref|, at most that tight limit."""
+    err = (got - want).abs().amax(dim=1)
+    ref_row = ref.abs().amax(dim=1)
+    out_max = want.abs().amax(dim=1)
+    out = []
+    for rows, mask in _row_sets(got, labels, is_label):
+        n = int(mask.sum())
+        if not n:
+            continue
+        beyond, tight = _beyond_tight(err, ref_row, out_max, mask, rounding)
+        out += [{"name": f"{name} ({rows}) rows beyond {DEMB_TIGHT:g} x max", "count": True,
+                 "err": float(beyond.sum()), "limit": float(ROUNDED_ROWS[n >= WIDE])},
+                {"name": f"{name} ({rows}) beyond {ROUNDED_ROW_CAP:g} x its row's max",
+                 "excess": True, "limit": tight,
+                 "err": float((err[mask] - ROUNDED_ROW_CAP * ref_row[mask]).max())}]
+    return out
+
+
+def straddled_rows(got, want, labels, rounding: float = 2.0, is_label=None):
+    """[rows] bool: the rows where a bf16 form's d_w (``got``) is further
+    from the plain one's than ``rounded_rows``' tight limit of its row set,
+    the rows whose gradient straddled a rounding boundary."""
+    err = (got - want).abs().amax(dim=1)
+    ref_row = want.abs().amax(dim=1)
+    out = torch.zeros_like(err, dtype=torch.bool)
+    for _, mask in _row_sets(got, labels, is_label):
+        if bool(mask.any()):
+            out |= _beyond_tight(err, ref_row, ref_row, mask, rounding)[0]
+    return out
+
+
+def bf16_spacing(x):
+    """The spacing of bf16 values at |x| (bf16 keeps 8 significant bits:
+    2^(e − 8) for |x| in [2^(e − 1), 2^e)); the smallest normal's at 0."""
+    _, e = torch.frexp(x.abs().float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8).clamp(min=2.0**-133)
+
+
+def beyond_spacing(got, want, before=None):
+    """|got − want| of bf16 stores less one bf16 spacing at the larger of
+    |want| and |before| (the store's own rounding), at least 0, in f32."""
+    scale = want.float().abs() if before is None else torch.maximum(want.float().abs(),
+                                                                    before.float().abs())
+    return ((got.float() - want.float()).abs() - bf16_spacing(scale)).clamp_(min=0)
+
+
+def bf16_fresh_state(name: str, got, want, labels) -> list[dict]:
+    """A bf16 state written from a fresh gradient (the momentum after a
+    trainer's first step from zero, bf16(g)) against the plain
+    composition's: beyond one bf16 spacing of each element, by
+    ``rounded_rows`` against the state (module docstring)."""
+    gap = beyond_spacing(got, want)
+    return rounded_rows(f"{name} beyond one bf16 spacing", gap, torch.zeros_like(gap),
+                        want.float(), labels)
+
+
+def bf16_ulps(name: str, got, want, before, straddled=None,
+              share: float = ULP_SHARE) -> list[dict]:
+    """bf16 results of an update (a fused update's w' or mom', or a state
+    written from zero: ``before`` zeros), from the stored values ``before``
+    it, in bf16 spacings at the larger of |want| and |before| (a result that
+    cancels its operands carries their f32 rounding, which is no fault):
+    the count of elements that differ, at most max(STRADDLE_ROWS, ``share``
+    (ULP_SHARE) × their number), and the count more than one spacing apart outside the
+    ``straddled`` rows ([rows] bool, ``straddled_rows`` of the same step's
+    d_w; none if not given), 0 (module docstring). The first entry also
+    holds how many elements the update changed."""
+    scale = torch.maximum(want.float().abs(), before.float().abs())
+    dist = (got.float() - want.float()).abs() / bf16_spacing(scale)
+    far = dist > 1
+    if straddled is not None:
+        far &= ~straddled.to(far.device)[:, None]
+    allowed = max(STRADDLE_ROWS, int(share * want.numel()))
+    return [{"name": f"{name} elements apart", "count": True,
+             "err": float((dist > 0).sum()), "limit": float(allowed),
+             "changed": int((want != before).sum())},
+            {"name": f"{name} elements more than one bf16 spacing apart"
+                     + ("" if straddled is None else " (rows with no straddled gradient)"),
+             "count": True, "err": float(far.sum()), "limit": 0.0,
+             "max_spacings": float(dist.max())}]
+
+
+def rounded_fwd_checks(got, want, tag: str = "") -> list[dict]:
+    """A bf16 form's forward outputs (ce, neg, logz, top-k, ...) against
+    the plain ones: ce / neg / logz BF16_FWD_RTOL × max(1, max |want|),
+    top-k 1e-5 absolute."""
+    out = []
+    for name, g, w in zip(("ce", "neg", "logz", "top-k"), got, want):
+        limit = 1e-5 if name == "top-k" else BF16_FWD_RTOL * max(1.0, float(w.abs().max()))
+        out.append(_err(f"{tag}{name}", g, w, limit))
+    return out
 
 
 def int8_dot_checks(E8, se, w8, qs, tag: str = "") -> list[dict]:
@@ -538,8 +779,12 @@ def margin_partial_checks(emb, w_l, ll, gt, logz, kth, d_ce, d_neg, d_wl, kw: di
     args = (emb, w_l, ll, gt, logz, kth, d_ce, d_neg, d_wl)
     d_k, w_k, g_k = tms.margin_partial_bwd(*args, **kw)
     d_p, w_p, g_p = tms.margin_partial_bwd_plain(*args, **kw)
-    checks.append(_err(f"{tag}partial d_emb", d_k, d_p, 1e-4 * float(d_p.abs().max())))
-    checks += by_rows(f"{tag}partial d_w", w_k, w_p, w_p, ll, 1e-4)
+    if w_l.dtype == torch.bfloat16:  # the bf16 form (module docstring)
+        checks += softmax_demb(f"{tag}partial d_emb", d_k, d_p, cols=w_l.shape[0])
+        checks += rounded_rows(f"{tag}partial d_w", w_k, w_p, w_p, ll)
+    else:
+        checks.append(_err(f"{tag}partial d_emb", d_k, d_p, 1e-4 * float(d_p.abs().max())))
+        checks += by_rows(f"{tag}partial d_w", w_k, w_p, w_p, ll, 1e-4)
     del w_p
     checks.append(_err(f"{tag}partial d_gt_raw", g_k, g_p,
                        1e-5 * max(1.0, float(g_p.abs().max()))))
@@ -554,8 +799,10 @@ def margin_shard_checks(emb, w, labels, d_ce, d_neg, kw: dict, n_shards: int):
     block states merged (``merge_partials``, the all_gather) and the blocks'
     d_emb with the owners' tails summed (the all_reduce), against
     ``margin_ce_fwd`` / ``margin_ce_bwd`` on the whole classifier; each
-    block's d_w against the whole d_w's rows, by row set. Returns (checks,
-    the merged (gt, logz, topk) every block's backward takes)."""
+    block's d_w against the whole d_w's rows, by row set (a bf16
+    classifier's whole d_w from the merged (gt, logz, top-k), module
+    docstring). Returns (checks, the merged (gt, logz, topk) every block's
+    backward takes)."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
     from vlsfr_tpu_torch.parallel._shard_common import localize_labels, merge_partials
 
@@ -578,6 +825,9 @@ def margin_shard_checks(emb, w, labels, d_ce, d_neg, kw: dict, n_shards: int):
     logz = m + torch.log(s)
     ce, neg = tms.ce_and_neg(logz, topk, labels, gt, **lt)
     kth = topk[:, -1].contiguous()
+    if w.dtype == torch.bfloat16:  # the whole d_w from the blocks' inputs
+        del dw_w
+        _, dw_w = tms.margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, **kw)
     checks, d_tot = [], 0.0
     for j, (blk, ll, _) in enumerate(blocks):
         term, d_wl = tms._target_rows(emb, blk, ll, gt, logz, d_ce_m, **lt)
@@ -587,7 +837,11 @@ def margin_shard_checks(emb, w, labels, d_ce, d_neg, kw: dict, n_shards: int):
         checks += c_j
         d_tot = d_tot + d_k + term
         rows = dw_w[j * cl:(j + 1) * cl]
-        checks += by_rows(f"{tag}d_w vs the whole d_w", w_k, rows, rows, ll, 1e-4)
+        if w.dtype == torch.bfloat16:
+            checks += rounded_rows(f"{tag}d_w vs the whole d_w (merged inputs)", w_k, rows,
+                                   rows, ll)
+        else:
+            checks += by_rows(f"{tag}d_w vs the whole d_w", w_k, rows, rows, ll, 1e-4)
         del w_k
     tag = f"{n_shards} blocks merged vs the whole classifier: "
     checks += [_err(tag + "ce", ce, ce_w, 1e-4), _err(tag + "neg", neg, neg_w, 1e-4),
@@ -603,5 +857,10 @@ def failures(checks: list[dict]) -> list[dict]:
 
 def describe(c: dict) -> str:
     if c.get("count"):
-        return f"{c['name']}: {c['err']:.0f} <= {c['limit']:.0f}"
+        extra = "".join(f" ({c[k]:{f}} {what})" for k, f, what in (
+            ("changed", ".0f", "changed by the update"), ("max_spacings", ".2f", "spacings at most"))
+            if k in c)
+        return f"{c['name']}: {c['err']:.0f} <= {c['limit']:.0f}{extra}"
+    if c.get("excess"):
+        return f"{c['name']}: largest excess {c['err']:.3e} <= {c['limit']:.3e}"
     return f"{c['name']}: max |kernel - plain| {c['err']:.3e} <= {c['limit']:.3e}"
