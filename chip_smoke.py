@@ -220,9 +220,36 @@ classes, bf16 momentum, fused SGD; the JAX bench suite's row):
    by ``parity.bf16_fresh_state`` or per row set, the backbone as phase
    20's),
    then 2 steps each with the partial kernels' launch counts;
-then the ``kernels`` JSON line (38 entries: the ten f32 kernels, the
-twelve quad forms, the twin kernels in f32 and bf16, and the eight bf16
-forms of the margin_ce kernels), and the device JSON line last.
+The last two TPU kernels, on the paths of their JAX tools (no trainer
+calls either, in JAX or here):
+33. conv parity — ``conv3x3`` (``csrc/conv3x3.cu``) at tools/bench_conv.py's
+   bf16 shapes [128, 56, 56, 64], [128, 112, 112, 64], [128, 28, 28, 128],
+   both modes at strip 28, with and without the statistics epilogue, and
+   the f32 form at [128, 56, 56, 64], against ``conv3x3_plain``
+   (``parity.conv_checks``: bf16 y within one bf16 spacing plus the f32
+   limit, at most 2e-3 of the elements apart; f32 y 2e-5 × max|y|; Σ and
+   Σ² 1e-5 of Σ|y| and Σy² per channel), cuDNN's distance printed beside;
+   copies of conv3x3.cu that read the bottom halo row one row off and that
+   drop the last block of the statistics merge must fail;
+34. conv timing — ``vlsfr_tpu_torch.tools.bench_conv.run`` (both modes over
+   the strips dividing H, the statistics at 28 and 56, cuDNN and cuDNN +
+   two f32 reductions as the library), then its f32 form, each with the
+   counters set to 0 before and read after; the plain version's time and
+   the bound per shape (bytes at 3.35 TB/s against the FLOP at 989 TFLOP/s
+   bf16 or 67 f32); the kernels line takes [128, 56, 56, 64], taps9, strip
+   28;
+35. the probe — ``vlsfr_tpu_torch.tools.probe_int8_mxu`` at B, D, T, NT =
+   128, 512, 1024, 512: each form (``csrc/dot_probe.cu``, mma.sync) against
+   its plain version (int8 bit for bit, the plain int8 against the exact
+   sum; bf16 forms 1e-5 × Σ|a·w|), a copy that skips the last tile must
+   fail, then the tool's ``run`` (its exact int8 check, kernel and library
+   times) with the counters set to 0 before and read after; plain times and
+   bounds (int8 at 1,979 TOP/s, bf16 at 989, against the bytes of w);
+then the ``kernels`` JSON line (44 entries: the ten f32 kernels, the
+twelve quad forms, the twin kernels in f32 and bf16, the eight bf16 forms
+of the margin_ce kernels, ``conv3x3``, ``conv3x3[stats]``,
+``conv3x3[f32]`` and the three probe forms), and the device JSON line
+last.
 
 The script imports nothing of JAX. Without a CUDA device it exits non-zero
 before printing any result.
@@ -230,6 +257,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import gc
@@ -2059,30 +2087,6 @@ def twin_shard_parity(case, raw, n_shards: int) -> dict:
             "twin_partial_bwd": errs("d_emb", "d_gt")}
 
 
-def unported_bounds() -> None:
-    """The bounds of the two TPU kernels still to port, from the shapes
-    their JAX tools run (no kernel runs here): ``conv3x3_pallas`` at
-    tools/bench_conv.py's three bf16 NHWC shapes (y and the weights
-    written / read once; the Σy, Σy² epilogue adds 2 × Cout f32), and
-    tools/probe_int8_mxu.py's chained [128, 512] · [512 × 1024, 512]ᵀ dots
-    in int8 → int32, bf16 → f32 and int8-stored bf16 dots."""
-    for b, h, w, c in ((128, 56, 56, 64), (128, 112, 112, 64), (128, 28, 28, 128)):
-        flop = 2.0 * b * h * w * 9 * c * c
-        nbytes = 2 * 2 * b * h * w * c + 2 * 9 * c * c + 2 * 4 * c
-        v = bound(flop, nbytes, flop / PEAK_BF16_FLOPS * 1e3)
-        print(f"  conv3x3_pallas [{b}, {h}, {w}, {c}] bf16: bound_ms={v['bound_ms']:.4f} "
-              f"({v['bound_by']}: {flop:.4e} FLOP, {nbytes:.4e} B)")
-    b, d, t, nt = 128, 512, 1024, 512
-    ops = 2.0 * b * d * t * nt
-    for what, item, peak in (("int8 x int8 -> int32", 1, PEAK_INT8_OPS),
-                             ("bf16 x bf16 -> f32", 2, PEAK_BF16_FLOPS),
-                             ("int8 stored, bf16 dot", 1, PEAK_BF16_FLOPS)):
-        nbytes = item * (nt * t * d + b * d) + 4 * b * t
-        v = bound(ops, nbytes, ops / peak * 1e3)
-        print(f"  probe_int8_mxu {what}: bound_ms={v['bound_ms']:.4f} ({v['bound_by']}: "
-              f"{ops:.4e} operations, {nbytes:.4e} B)")
-
-
 def twin_kernel_phases() -> tuple[dict, dict]:
     """Phases 25-27. Returns (times, max errors) by kernel entry name."""
     times, errs = {}, {}
@@ -2115,8 +2119,6 @@ def twin_kernel_phases() -> tuple[dict, dict]:
     print("  bf16 at a resolved tile other than 512 (2048 requested, Q = 65,536):")
     _, e = twin_parity(twin_case(1 << 16, "Arc", seed=18, form="bf16")[0], tile=2048)
     errs["twin_bwd[bf16]"] = max(errs["twin_bwd[bf16]"], e["bwd"])
-    print("  the bounds of the TPU kernels still to port (H100 SXM dense rates):")
-    unported_bounds()
     return times, errs
 
 
@@ -2325,26 +2327,49 @@ def bf16_softmax_checks(case, tag: str, lr: float = LR) -> dict:
     return out, (gt, logz, topk)
 
 
-def start_faulty_builds(tmp: str) -> dict:
-    """One nvcc per planted fault of BF16_FAULTS, all started together:
-    {fault: (process, library path)}."""
+def start_faulty_builds(tmp: str, source: str = "margin_ce", faults: dict = BF16_FAULTS) -> dict:
+    """One nvcc per planted fault (a source edit of ``csrc/<source>.cu``),
+    all started together: {fault: (process, library path)}."""
     import pathlib
     import shutil
 
     from vlsfr_tpu_torch.ops import cuda_build
 
-    src = (cuda_build.CSRC / "margin_ce.cu").read_text()
+    src = (cuda_build.CSRC / f"{source}.cu").read_text()
     procs = {}
-    for i, (name, (old, new)) in enumerate(BF16_FAULTS.items()):
+    for i, (name, (old, new)) in enumerate(faults.items()):
         if src.count(old) != 1:
-            raise RuntimeError(f"the planted fault {name!r} does not match margin_ce.cu once")
-        out = pathlib.Path(tmp) / f"fault{i}"
+            raise RuntimeError(f"the planted fault {name!r} does not match {source}.cu once")
+        out = pathlib.Path(tmp) / f"{source}_fault{i}"
         out.mkdir()
         shutil.copy(cuda_build.CSRC / "margin_common.cuh", out)
-        (out / "margin_ce.cu").write_text(src.replace(old, new))
-        procs[name] = (cuda_build.start_nvcc(out / "margin_ce.cu", out / "libmargin_ce.so"),
-                       out / "libmargin_ce.so")
+        (out / f"{source}.cu").write_text(src.replace(old, new))
+        procs[name] = (cuda_build.start_nvcc(out / f"{source}.cu", out / f"lib{source}.so"),
+                       out / f"lib{source}.so")
     return procs
+
+
+@contextlib.contextmanager
+def planted(source: str, name: str, proc_and_path):
+    """The wrappers of ``csrc/<source>.cu`` launch the planted fault's
+    library (its build awaited) inside the block, the real one after."""
+    import ctypes
+
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    proc, lib_path = proc_and_path
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the planted fault {name!r}:\n{log}")
+    real = cuda_build._LOADED.get(source)
+    cuda_build._LOADED[source] = ctypes.CDLL(str(lib_path))
+    try:
+        yield
+    finally:
+        if real is None:
+            cuda_build._LOADED.pop(source, None)
+        else:
+            cuda_build._LOADED[source] = real
 
 
 def check_planted_faults(procs: dict) -> None:
@@ -2353,9 +2378,6 @@ def check_planted_faults(procs: dict) -> None:
     the forward's checks must fail for the two operand faults, the fused
     update's w' count for the twice-rounded update; the real library passes
     the same checks (phase 29)."""
-    import ctypes
-
-    from vlsfr_tpu_torch.ops import cuda_build
     from vlsfr_tpu_torch.ops import margin_stream as tms
     from vlsfr_tpu_torch.utils import parity
 
@@ -2367,30 +2389,20 @@ def check_planted_faults(procs: dict) -> None:
     tms.margin_ce_bwd_fused_sgd_plain(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, LR,
                                       **SGD, **kw)
     w_p = w
-    real = cuda_build._LOADED.get("margin_ce")
-    try:
-        for name, (proc, lib_path) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for the planted fault {name!r}:\n{log}")
-            cuda_build._LOADED["margin_ce"] = ctypes.CDLL(str(lib_path))
+    for name, proc_and_path in procs.items():
+        with planted("margin_ce", name, proc_and_path):
             got = tms.margin_ce_fwd(emb, w0, labels, gt, **kw)
             w_k, mom_k = w0.clone(), mom0.clone()
             tms.margin_ce_bwd_fused_sgd(emb, w_k, mom_k, labels, gt, logz, topk, d_ce, d_neg, LR,
                                         **SGD, **kw)
-            checks = parity.rounded_fwd_checks(got, want) + parity.bf16_ulps("w'", w_k, w_p, w0)
-            failed = parity.failures(checks)
-            print(f"  planted fault ({name}): fails "
-                  + "; ".join(parity.describe(c) for c in failed))
-            must = "w' elements apart" if name == "rounds new_w twice" else "top-k"
-            if not any(c["name"] == must for c in failed):
-                raise RuntimeError(f"the bf16 checks pass a margin_ce.cu that {name}")
-            del got, w_k, mom_k
-    finally:
-        if real is None:
-            cuda_build._LOADED.pop("margin_ce", None)
-        else:
-            cuda_build._LOADED["margin_ce"] = real
+        checks = parity.rounded_fwd_checks(got, want) + parity.bf16_ulps("w'", w_k, w_p, w0)
+        failed = parity.failures(checks)
+        print(f"  planted fault ({name}): fails "
+              + "; ".join(parity.describe(c) for c in failed))
+        must = "w' elements apart" if name == "rounds new_w twice" else "top-k"
+        if not any(c["name"] == must for c in failed):
+            raise RuntimeError(f"the bf16 checks pass a margin_ce.cu that {name}")
+        del got, w_k, mom_k
 
 
 def bf16_parity_phase(tmp: str) -> dict:
@@ -2802,6 +2814,224 @@ def bf16_sharded_phase(card: str, tmp: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# the last two TPU kernels: the 3x3 conv (tools/bench_conv.py) and the
+# int8 / bf16 dot probe (tools/probe_int8_mxu.py)
+# ----------------------------------------------------------------------
+
+CONV_STRIP = 28  # conv3x3_pallas's default strip; it divides every bench shape's H
+CONV_F32_SHAPE = (128, 56, 56, 64)  # the f32 form: the bench's first shape
+# source edits of csrc/conv3x3.cu and csrc/dot_probe.cu, each of which the
+# checks must reject (vlsfr_tpu_torch/utils/parity.py: conv_checks, probe_checks)
+CONV_FAULTS = {
+    "reads the bottom halo row one row off": (
+        "const int hh = ph[i] + dy - 1,", "const int hh = ph[i] + dy - 1 + (dy == 2),"),
+    "drops the last block in the statistics merge": (
+        "for (int b = 0; b < n_blocks; ++b)", "for (int b = 0; b < n_blocks - 1; ++b)"),
+}
+PROBE_FAULTS = {
+    "skips the last tile": ("const int n_chunks = (t_hi - t_lo) * chunks_per_tile;",
+                            "const int n_chunks = (t_hi - t_lo - (t_hi == NT)) * chunks_per_tile;"),
+}
+
+
+def conv_case(shape, dtype, seed: int):
+    """The bench's inputs on the card: x ~ N(0, 1), w ~ 0.045 N(0, 1) (HWIO,
+    C -> C), in ``dtype``."""
+    b, h, w, c = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    wt = (torch.randn((3, 3, c, c), generator=gen, device="cuda") * 0.045).to(dtype)
+    return x, wt
+
+
+def conv_parity(x, w) -> dict:
+    """Both modes at CONV_STRIP, with and without statistics, against
+    conv3x3_plain (``parity.conv_checks``, limits there; raises above one),
+    cuDNN's y printed beside. Returns the max |kernel - plain| of y and of
+    the statistics."""
+    from vlsfr_tpu_torch.ops import conv3x3 as tconv
+    from vlsfr_tpu_torch.utils import parity
+
+    y_p, st_p = tconv.conv3x3_plain(x, w, with_stats=True)
+    lib = tconv.conv3x3_library(x, w).float()
+    out = {"y": 0.0, "stats": 0.0}
+    for mode in tconv.MODES:
+        y = tconv.conv3x3(x, w, mode=mode, strip=CONV_STRIP)
+        ys, st = tconv.conv3x3(x, w, mode=mode, strip=CONV_STRIP, with_stats=True)
+        print(f"  {mode}: max |y - cuDNN| {float((y.float() - lib).abs().max()):.3e}, "
+              f"max |plain - cuDNN| {float((y_p.float() - lib).abs().max()):.3e}")
+        report(parity.conv_checks(y, y_p, tag=mode)
+               + parity.conv_checks(ys, y_p, st, st_p, tag=f"{mode}+stats"),
+               f"conv3x3 {tuple(x.shape)} {mode}")
+        out["y"] = max(out["y"], float((y.float() - y_p.float()).abs().max()),
+                       float((ys.float() - y_p.float()).abs().max()))
+        out["stats"] = max(out["stats"], *(float((a - b).abs().max())
+                                          for a, b in zip(st, st_p)))
+    return out
+
+
+def conv_parity_phase(tmp: str) -> dict:
+    """Phase 33: the bench's three bf16 shapes and the f32 form at full
+    width against the plain version; the planted faults. Returns the max
+    errors by kernel entry."""
+    from vlsfr_tpu_torch.ops import conv3x3 as tconv
+    from vlsfr_tpu_torch.tools import bench_conv
+    from vlsfr_tpu_torch.utils import parity
+
+    procs = start_faulty_builds(tmp, "conv3x3", CONV_FAULTS)
+    print(f"  limits: bf16 y within one bf16 spacing (+ {parity.CONV_F32_RTOL:g} x max|y|), at "
+          f"most {parity.CONV_BF16_SHARE:g} of the elements apart; f32 y "
+          f"{parity.CONV_F32_RTOL:g} x max|y|; the statistics {parity.CONV_STATS_RTOL:g} of "
+          "sum |y| and sum y^2 per channel")
+    errs = {"conv3x3": 0.0, "conv3x3[stats]": 0.0}
+    for shape in bench_conv.SHAPES:
+        print(f"  bf16 {shape}, strip {CONV_STRIP}:")
+        e = conv_parity(*conv_case(shape, torch.bfloat16, seed=33))
+        errs["conv3x3"] = max(errs["conv3x3"], e["y"])
+        errs["conv3x3[stats]"] = max(errs["conv3x3[stats]"], e["y"], e["stats"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  f32 {CONV_F32_SHAPE}, strip {CONV_STRIP}:")
+    errs["conv3x3[f32]"] = conv_parity(*conv_case(CONV_F32_SHAPE, torch.float32, seed=34))["y"]
+    print("  planted faults (conv3x3.cu copies built at the start of this phase), at "
+          f"bf16 {CONV_F32_SHAPE}:")
+    x, w = conv_case(CONV_F32_SHAPE, torch.bfloat16, seed=35)
+    y_p, st_p = tconv.conv3x3_plain(x, w, with_stats=True)
+    for name, must in (("reads the bottom halo row one row off", "y elements more than one"),
+                       ("drops the last block in the statistics merge", "Σ² per channel")):
+        with planted("conv3x3", name, procs[name]):
+            y, st = tconv.conv3x3(x, w, strip=CONV_STRIP, with_stats=True)
+        failed = parity.failures(parity.conv_checks(y, y_p, st, st_p))
+        print(f"    {name}: fails " + "; ".join(parity.describe(c) for c in failed))
+        if not any(c["name"].startswith(must) for c in failed):
+            raise RuntimeError(f"the conv checks pass a conv3x3.cu that {name}")
+    return errs
+
+
+def conv_bound(shape, dtype, with_stats: bool) -> dict:
+    """x read and y written once, w read once (+ the statistics), against
+    the FLOP at the bf16 tensor-core rate (bf16) or the f32 rate."""
+    b, h, w, c = shape
+    item = 2 if dtype == torch.bfloat16 else 4
+    flop = 2.0 * b * h * w * 9 * c * c
+    nbytes = item * (2 * b * h * w * c + 9 * c * c) + (2 * 4 * c if with_stats else 0)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return bound(flop, nbytes, flop / peak * 1e3)
+
+
+def conv_timing_phase() -> tuple[dict, dict]:
+    """Phase 34: ``bench_conv.run`` on the card (bf16, the bench's shapes,
+    both modes over the strips dividing H, the statistics at 28 and 56),
+    then its f32 form at CONV_F32_SHAPE, each with the launch counters set
+    to 0 just before and read just after; the plain version's time and the
+    bound per shape. Returns (the kernels line's times, launches)."""
+    from vlsfr_tpu_torch.ops import conv3x3 as tconv
+    from vlsfr_tpu_torch.tools import bench_conv
+
+    launches, runs = {}, {}
+    for dtype, kw in ((torch.bfloat16, {}),
+                      (torch.float32, dict(shapes=[CONV_F32_SHAPE], strips=(CONV_STRIP,),
+                                           stats_strips=(CONV_STRIP,)))):
+        tconv.reset_launch_counts()
+        runs[dtype] = bench_conv.run(device="cuda", dtype=dtype, **kw)
+        launches.update({k: v for k, v in tconv.LAUNCH_COUNTS.items() if v})
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  launches in the two bench runs: {launches}")
+    times = {}
+    for dtype, recs in runs.items():
+        for shape in dict.fromkeys(tuple(r["shape"]) for r in recs):
+            x, w = conv_case(shape, dtype, seed=36)
+            plain = cuda_ms(lambda: tconv.conv3x3_plain(x, w), 3, 1)
+            plain_st = cuda_ms(lambda: tconv.conv3x3_plain(x, w, with_stats=True), 3, 1)
+            del x, w
+            for st in (False, True):
+                v = conv_bound(shape, dtype, st)
+                print(f"  {list(shape)} {str(dtype)[6:]}{' +stats' if st else ''}: bound_ms="
+                      f"{v['bound_ms']:.4f} ({v['bound_by']}: {v['flop']:.4e} FLOP, "
+                      f"{v['bytes']:.4e} B) plain_ms={plain_st if st else plain:.3f}")
+            lib = {r["case"]: r["ms"] for r in recs if tuple(r["shape"]) == shape
+                   and r["case"].startswith("library")}
+            for r in recs:
+                if tuple(r["shape"]) != shape or not r["case"].startswith("conv3x3"):
+                    continue
+                st = r["case"] == "conv3x3+stats"
+                print(f"    {r['case']} {r['mode']} strip={r['strip']}: ms={r['ms']:.3f} "
+                      f"({r['tflops']:.1f} TFLOP/s) library_ms="
+                      f"{lib['library+stats' if st else 'library']:.3f}")
+                if shape == CONV_F32_SHAPE and r["mode"] == "taps9" and r["strip"] == CONV_STRIP:
+                    name = tconv.kernel_name(dtype, st)
+                    times[name] = dict(ms=r["ms"], plain_ms=plain_st if st else plain,
+                                       library_ms=lib["library+stats" if st else "library"],
+                                       **conv_bound(shape, dtype, st))
+    return times, launches
+
+
+def probe_bound(kind: str) -> dict:
+    from vlsfr_tpu_torch.tools import probe_int8_mxu as tprobe
+
+    b, d, t, nt = tprobe.B, tprobe.D, tprobe.T, tprobe.NT
+    ops = 2.0 * b * d * t * nt
+    a_item, w_item = (1, 1) if kind == "int8" else (2, 2) if kind == "bf16" else (2, 1)
+    nbytes = w_item * nt * t * d + a_item * b * d + 4 * b * t
+    return bound(ops, nbytes, ops / (PEAK_INT8_OPS if kind == "int8" else PEAK_BF16_FLOPS) * 1e3)
+
+
+def probe_phase(tmp: str) -> tuple[dict, dict, dict]:
+    """Phase 35: each probe form at the probe's shapes against its plain
+    version (int8 bit for bit, and the plain int8 result against the exact
+    one; ``parity.probe_checks``); a dot_probe.cu that skips the last tile
+    must fail; then ``probe_int8_mxu.run`` with the counters set to 0 just
+    before and read just after (its int8 check against the exact result,
+    the kernels' and the library calls' times); plain times and bounds.
+    Returns (times, max errors, launches) by kernel entry."""
+    from vlsfr_tpu_torch.tools import probe_int8_mxu as tprobe
+    from vlsfr_tpu_torch.utils import parity
+
+    procs = start_faulty_builds(tmp, "dot_probe", PROBE_FAULTS)
+    dev = torch.device("cuda")
+    inputs = tprobe.make_inputs(tprobe.B, tprobe.D, tprobe.T, tprobe.NT, seed=35, dev=dev)
+    errs, plain_ms = {}, {}
+    for kind in tprobe.KINDS:
+        a, w = inputs[kind]
+        got = tprobe.probe_dot(kind, a, w)
+        want = tprobe.probe_dot_plain(kind, a, w)
+        checks = parity.probe_checks(kind, got, want, a, w)
+        if kind == "int8":
+            checks += parity.probe_checks(kind, want, tprobe.exact_int8(a, w), a, w,
+                                          tag="plain against exact:")
+        report(checks, f"the {kind} probe")
+        errs[f"probe_{kind}"] = float((got.double() - want.double()).abs().max())
+        plain_ms[kind] = cuda_ms(lambda: tprobe.probe_dot_plain(kind, a, w), 2, 1)
+    a, w = inputs["int8"]
+    want = tprobe.probe_dot_plain("int8", a, w)
+    for name, proc_and_path in procs.items():
+        with planted("dot_probe", name, proc_and_path):
+            got = tprobe.probe_dot("int8", a, w)
+        failed = parity.failures(parity.probe_checks("int8", got, want, a, w))
+        print(f"  planted fault ({name}): fails " + "; ".join(map(parity.describe, failed)))
+        if not failed:
+            raise RuntimeError(f"the probe checks pass a dot_probe.cu that {name}")
+    del inputs, a, w, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    tprobe.reset_launch_counts()
+    recs = tprobe.run(dev)
+    launches = {k: v for k, v in tprobe.LAUNCH_COUNTS.items() if v}
+    print(f"  probe_int8_mxu.run: int8 equal to the exact int32 sum; launches {launches}")
+    times = {}
+    for r in recs:
+        v = probe_bound(r["kind"])
+        times[f"probe_{r['kind']}"] = dict(ms=r["ms"], plain_ms=plain_ms[r["kind"]],
+                                           library_ms=r["library_ms"], **v)
+        print(f"  {r['kind']}: ms={r['ms']:.4f} ({r['tops']:.1f} TOP/s) bound_ms="
+              f"{v['bound_ms']:.4f} ({v['bound_by']}: {v['flop']:.4e} operations, "
+              f"{v['bytes']:.4e} B) plain_ms={plain_ms[r['kind']]:.3f} "
+              f"library_ms={r['library_ms']:.4f}")
+    return times, errs, launches
+
+
 BF16_KERNELS = (  # the kernels line's bf16 forms: (name, the TPU kernel it replaces)
     ("margin_ce_fwd[bf16]", "margin_pallas.py:390"),
     ("margin_ce_bwd[bf16]", "margin_pallas.py:557"),
@@ -2981,6 +3211,22 @@ def main() -> int:
               "NCCL group of one")
         launches.update(bf16_sharded_phase(card, tmp))
 
+        print("== phase 33: conv3x3 at full width (the bench's bf16 shapes, both modes, with and "
+              f"without statistics; f32 at {CONV_F32_SHAPE}) against the plain version")
+        errs.update(conv_parity_phase(tmp))
+        print("== phase 34: conv3x3 timing through vlsfr_tpu_torch.tools.bench_conv")
+        ctimes, claunches = conv_timing_phase()
+        times.update(ctimes)
+        launches.update(claunches)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("== phase 35: the int8 / bf16 dot probe through vlsfr_tpu_torch.tools.probe_int8_mxu "
+              "(B, D, T, NT = 128, 512, 1024, 512)")
+        ptimes, perrs, plaunches = probe_phase(tmp)
+        times.update(ptimes)
+        errs.update(perrs)
+        launches.update(plaunches)
+
     fwd_keys = ("ce", "neg", "logz", "topk")
     kernels = []
     for name, src, replaces, err in (
@@ -3009,18 +3255,23 @@ def main() -> int:
                   ("twin_fwd", "twin_margin.py:786"), ("twin_bwd", "twin_margin.py:910"),
                   ("twin_partial_fwd", "twin_margin.py:984"),
                   ("twin_partial_bwd", "twin_margin.py:1042"))),
-            *((name, "margin_ce", replaces, errs[name]) for name, replaces in BF16_KERNELS)):
+            *((name, "margin_ce", replaces, errs[name]) for name, replaces in BF16_KERNELS),
+            *((name, "conv3x3", "conv_pallas.py:94", errs[name])
+              for name in ("conv3x3", "conv3x3[stats]", "conv3x3[f32]")),
+            *((f"probe_{kind}", "dot_probe", "tools/probe_int8_mxu.py:73", errs[f"probe_{kind}"])
+              for kind in ("int8", "bf16", "i8st_bf16dot"))):
         t = times[name]
         if launches.get(name, 0) < 1:
             raise RuntimeError(f"{name} was not launched on its path")
         kernels.append({"name": name, "route": "cuda",
                         "source": f"vlsfr_tpu_torch/csrc/{src}.cu",
-                        "replaces": f"vlsfr_tpu/ops/{replaces}",
+                        "replaces": replaces if replaces.startswith("tools/")
+                        else f"vlsfr_tpu/ops/{replaces}",
                         "launches": launches[name], "max_abs_err": err, "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    if len(kernels) != 38:
-        raise RuntimeError(f"the kernels line must list 38 entries, has {len(kernels)}")
+    if len(kernels) != 44:
+        raise RuntimeError(f"the kernels line must list 44 entries, has {len(kernels)}")
     print(smi_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                  "vlsfr_tpu_torch.parallel.sharded_quad", "vlsfr_tpu_torch.parallel.sharded_twin",
                  "vlsfr_tpu_torch.parallel.sharded_margin",
                  "vlsfr_tpu_torch.parallel.sharded_fused",
-                 "vlsfr_tpu_torch.parallel.sharded_sparse"):
+                 "vlsfr_tpu_torch.parallel.sharded_sparse", "vlsfr_tpu_torch.ops.conv3x3",
+                 "vlsfr_tpu_torch.tools.bench_conv", "vlsfr_tpu_torch.tools.probe_int8_mxu"):
         assert want in res["modules"]
 
 

@@ -1027,3 +1027,95 @@ def test_twin_checks_reject_planted_faults(tmp_path, monkeypatch):
             "twin_target_not_streamed", form]
     assert rows in failed["rounding_per_64_columns", "bf16"]
     assert failed["rounding_per_64_columns", "f32"] == set()  # f32 rounds nothing
+
+
+# ----------------------------------------------------------------------
+# the 3x3 conv (ops/conv3x3.py) and the matrix-unit probe
+# (tools/probe_int8_mxu.py): the kernels against their plain versions
+# (limits in utils/parity.py: conv_checks, probe_checks)
+# ----------------------------------------------------------------------
+
+CONV_CASES = [((2, 8, 8, 8), 8, 4), ((2, 12, 20, 24), 40, 6), ((3, 28, 28, 64), 72, 14)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["taps9", "im2col"])
+@pytest.mark.parametrize("shape,cout,strip", CONV_CASES)
+def test_conv3x3_kernel_matches_plain(dtype, mode, shape, cout, strip):
+    from vlsfr_tpu_torch.ops import conv3x3 as tconv
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.standard_normal((3, 3, shape[-1], cout)) * 0.1)
+                         .astype(np.float32)).to(dev)
+    tconv.reset_launch_counts()
+    y, stats = tconv.conv3x3(x, w, mode=mode, strip=strip, with_stats=True)
+    y0 = tconv.conv3x3(x, w, mode=mode, strip=strip)
+    assert tconv.LAUNCH_COUNTS[tconv.kernel_name(dtype, True)] == 1
+    assert tconv.LAUNCH_COUNTS[tconv.kernel_name(dtype, False)] == 1
+    y_p, stats_p = tconv.conv3x3_plain(x, w, with_stats=True)
+    checks = parity.conv_checks(y, y_p, stats, stats_p) + parity.conv_checks(y0, y_p)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(parity.describe(c))
+    assert parity.failures(checks) == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "bf16", "i8st_bf16dot"])
+@pytest.mark.parametrize("b,d,t,nt", [(16, 128, 128, 4), (128, 512, 256, 37), (40, 256, 64, 1)])
+def test_probe_kernel_matches_plain(kind, b, d, t, nt):
+    from vlsfr_tpu_torch.tools import probe_int8_mxu as tprobe
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, w = tprobe.make_inputs(b, d, t, nt, seed=3, dev=dev)[kind]
+    tprobe.reset_launch_counts()
+    got = tprobe.probe_dot(kind, a, w)
+    assert tprobe.LAUNCH_COUNTS[f"probe_{kind}"] == 1
+    want = tprobe.probe_dot_plain(kind, a, w)
+    if kind == "int8":
+        assert torch.equal(want, tprobe.exact_int8(a, w))
+    checks = parity.probe_checks(kind, got, want, a, w)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(parity.describe(c))
+    assert parity.failures(checks) == []
+
+
+def test_conv_and_probe_checks_reject_wrong_outputs():
+    """On the CPU: conv_checks fail a bf16 y off by two spacings somewhere,
+    too many single-spacing straddles, an f32 y off by 1e-4 × max and a Σ²
+    missing one row; probe_checks fail an int8 o off by one and a bf16 o
+    missing one tile."""
+    from vlsfr_tpu_torch.ops import conv3x3 as tconv
+    from vlsfr_tpu_torch.tools import probe_int8_mxu as tprobe
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 16)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, 16, 16)) * 0.1).astype(np.float32))
+    y, (s1, s2) = tconv.conv3x3_plain(x, w, with_stats=True)
+    assert parity.failures(parity.conv_checks(y, y, (s1, s2), (s1, s2))) == []
+    yb = y.bfloat16()
+    bad = yb.clone()
+    bad[0, 0, 0, 0] = yb[0, 0, 0, 0].float() + 2 * parity.bf16_spacing(yb[0, 0, 0, 0])
+    assert parity.failures(parity.conv_checks(bad, yb))
+    step = yb.float() + parity.bf16_spacing(yb.float())  # every element one spacing up
+    assert [c["name"] for c in parity.failures(parity.conv_checks(step.bfloat16(), yb))] == [
+        "y elements apart"]
+    y_off = y.clone()
+    y_off[1, 7, 7, 3] += 1e-4 * float(y.abs().max())
+    assert parity.failures(parity.conv_checks(y_off, y))
+    rows = y.reshape(-1, 16)
+    assert parity.failures(parity.conv_checks(y, y, (s1, s2 - rows[-1].square()), (s1, s2)))
+    a, wq = tprobe.make_inputs(16, 64, 64, 3, seed=4, dev=torch.device("cpu"))["int8"]
+    o = tprobe.probe_dot_plain("int8", a, wq)
+    assert parity.failures(parity.probe_checks("int8", o + (o == o.max()).int(), o, a, wq))
+    a, wb = tprobe.make_inputs(16, 64, 64, 3, seed=4, dev=torch.device("cpu"))["bf16"]
+    o = tprobe.probe_dot_plain("bf16", a, wb)
+    assert parity.failures(parity.probe_checks("bf16", tprobe.probe_dot_plain(
+        "bf16", a, wb[:-1]), o, a, wb))
+    assert parity.failures(parity.probe_checks("bf16", o, o, a, wb)) == []

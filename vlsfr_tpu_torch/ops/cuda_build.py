@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("quad_margin", "margin_ce")  # csrc/<name>.cu, each its own library
+# csrc/<name>.cu, each its own library
+SOURCES = ("quad_margin", "margin_ce", "conv3x3", "dot_probe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LOADED: dict[str, ctypes.CDLL] = {}

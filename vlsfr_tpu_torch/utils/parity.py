@@ -864,3 +864,72 @@ def describe(c: dict) -> str:
     if c.get("excess"):
         return f"{c['name']}: largest excess {c['err']:.3e} <= {c['limit']:.3e}"
     return f"{c['name']}: max |kernel - plain| {c['err']:.3e} <= {c['limit']:.3e}"
+
+
+# ----------------------------------------------------------------------
+# the 3×3 conv (ops/conv3x3.py) and the matrix-unit probe
+# (tools/probe_int8_mxu.py)
+# ----------------------------------------------------------------------
+
+CONV_F32_RTOL = 2e-5  # f32 y: × max|y| (f32 sums of 9·C exact products in another order)
+# bf16 y: the share of elements that may round to the neighbouring bf16
+# value. The kernel's and the plain version's f32 sums differ by ~1e-6 of
+# |y| (9·C = 576-1,152 terms in another order), against a bf16 spacing of
+# 2^-8..2^-7 of |y|: about 4e-4 of the elements straddle a rounding
+# boundary; the limit allows five times that. Where the sum cancels to
+# near 0 the two f32 sums differ by more than a spacing of the tiny value,
+# so an element is far only beyond one spacing plus the f32 form's limit
+CONV_BF16_SHARE = 2e-3
+CONV_STATS_RTOL = 1e-5  # Σ against Σ|y|, Σ² against Σy², per channel
+PROBE_RTOL = 1e-5  # the probe's f32 sums against Σ|a·w| per output
+
+
+def conv_checks(y, y_want, stats=None, stats_want=None, tag: str = "") -> list[dict]:
+    """conv3x3's output against its plain version: f32 y within
+    CONV_F32_RTOL × max|y|; bf16 y within one bf16 spacing of the plain
+    value plus CONV_F32_RTOL × max|y| everywhere (the f32 sums' own gap,
+    which a sum that cancels keeps after rounding), and at most
+    CONV_BF16_SHARE of the elements apart;
+    with statistics, Σ within CONV_STATS_RTOL × Σ|y| and Σ² within
+    CONV_STATS_RTOL × Σy² in every channel (f32 sums over B·H·W rows in
+    another order)."""
+    pre = f"{tag} " if tag else ""
+    ref = y_want.float()
+    if y.dtype == torch.bfloat16:
+        diff = (y.float() - ref).abs()
+        far = diff > bf16_spacing(ref) + CONV_F32_RTOL * float(ref.abs().max())
+        checks = [{"name": f"{pre}y elements more than one bf16 spacing (+ the f32 limit) apart",
+                   "count": True, "err": float(far.sum()), "limit": 0.0},
+                  {"name": f"{pre}y elements apart", "count": True,
+                   "err": float((diff > 0).sum()),
+                   "limit": float(int(CONV_BF16_SHARE * diff.numel()))}]
+    else:
+        checks = [_err(f"{pre}y", y, ref, CONV_F32_RTOL * float(ref.abs().max()))]
+    if stats is None:
+        return checks
+    rows = ref.reshape(-1, ref.shape[-1])
+    for name, got, want, scale, of in (
+            ("Σ", stats[0], stats_want[0], rows.abs().sum(0), "Σ|y|"),
+            ("Σ²", stats[1], stats_want[1], rows.square().sum(0), "Σy²")):
+        checks.append({"name": f"{pre}{name} per channel, relative to {of}",
+                       "err": float(((got - want).abs() / scale).max()),
+                       "limit": CONV_STATS_RTOL})
+    return checks
+
+
+def probe_checks(kind: str, got, want, a, w, tag: str = "") -> list[dict]:
+    """The probe's output against its plain version: int8 bit for bit (a
+    count of elements that differ, limit 0); the bf16 forms within
+    PROBE_RTOL × Σ_i Σ_d |a·w| of each output (exact products summed in f32
+    in another order)."""
+    pre = f"{tag} " if tag else ""
+    if kind == "int8":
+        return [{"name": f"{pre}int8 o elements differing", "count": True,
+                 "err": float((got != want).sum()), "limit": 0.0}]
+    w_abs = torch.zeros(w.shape[1:], dtype=torch.float32, device=w.device)
+    for i in range(w.shape[0]):
+        w_abs += w[i].float().abs()
+    scale = a.float().abs() @ w_abs.T
+    return [{"name": f"{pre}{kind} o relative to Σ|a·w|",
+             "err": float(((got - want).abs() / scale.clamp(min=1e-30)).max()),
+             "limit": PROBE_RTOL}]
