@@ -132,8 +132,10 @@ compute):
    version: int8c and int8 storage at Q = 10,485,760, bf16 at 4,194,304,
    with phase 3's write plan (a duplicate slot), then AM and SV at 4096;
    int8c's dot bit for bit (the kernels' clean cosines with unit scales
-   against torch._int_mm); limits printed
-   with their reasons (``utils/parity.py``);
+   against torch._int_mm); the bf16 form's clean cosines (tensor cores,
+   mma.sync) in the forward's and the backward's tiling bit for bit equal
+   over the first 65,536 slots, and within 1e-6 of the plain version's;
+   limits printed with their reasons (``utils/parity.py``);
 22. timing — each form's kernels at full width: kernel, plain version,
    yardsticks (bf16 matmul over int8 -> bf16 chunks scaled after the dot,
    torch._int_mm chunks for int8c, bf16 matmul for bf16; then logsumexp and
@@ -222,7 +224,8 @@ classes, bf16 momentum, fused SGD; the JAX bench suite's row):
    then 2 steps each with the partial kernels' launch counts;
 The last two TPU kernels, on the paths of their JAX tools (no trainer
 calls either, in JAX or here):
-33. conv parity — ``conv3x3`` (``csrc/conv3x3.cu``) at tools/bench_conv.py's
+33. conv parity — ``conv3x3`` (``csrc/conv3x3.cu``; bf16 on the tensor
+   cores, f32 on the FMA units) at tools/bench_conv.py's
    bf16 shapes [128, 56, 56, 64], [128, 112, 112, 64], [128, 28, 28, 128],
    both modes at strip 28, with and without the statistics epilogue, and
    the f32 form at [128, 56, 56, 64], against ``conv3x3_plain``
@@ -1535,13 +1538,17 @@ def form_limits() -> None:
           "plain version's straddle a bf16 boundary one term moves by up to 2^-8 of itself, "
           "which moves one row; a kernel that skips a rounding moves every row); the "
           "int8-compute dot bit for bit (limit 0): the kernels' own clean cosines with unit "
-          "scales against torch._int_mm, with the real scales against the plain version")
+          "scales against torch._int_mm, with the real scales against the plain version; "
+          "the bf16 clean cosines of the backward's tiling equal the forward's bit for bit "
+          "(limit 0: the backward's top-k test meets the forward's kth) and lie within "
+          f"{parity.BF16_COS_ATOL:g} of the plain version's (exact products in another order)")
 
 
 def form_parity(form: str, q: int, loss_type: str, seed: int):
     """``parity.quad_checks`` on one case of the form at FORM_TILE (and,
-    for int8c, the int8 dot over the first 65,536 slots:
-    ``parity.int8_dot_checks``); raises above a limit. Returns the case,
+    over the first 65,536 slots, for int8c the int8 dot,
+    ``parity.int8_dot_checks``, for bf16 the clean cosines of both tilings,
+    ``parity.bf16_cos_checks``); raises above a limit. Returns the case,
     the plain forward's outputs and the max errors of the forward and the
     backward."""
     from vlsfr_tpu_torch.ops import twin_margin as ttm
@@ -1553,10 +1560,12 @@ def form_parity(form: str, q: int, loss_type: str, seed: int):
           f"resolved")
     checks, want = parity.quad_checks(*case, tile=FORM_TILE)
     queue, kw = case[0], case[2]
+    n = min(q, 65536)
     if form == "int8c":
-        n = min(q, 65536)
         checks += parity.int8_dot_checks(*kw["e8"], queue[0, :n], kw["qscales"][:n],
                                          f"first {n:,} slots: ")
+    if form == "bf16":
+        checks += parity.bf16_cos_checks(case[1][0], queue[0, :n], f"first {n:,} slots: ")
     torch.cuda.synchronize()
     for c in checks:
         print("    " + parity.describe(c))
@@ -2824,8 +2833,8 @@ CONV_F32_SHAPE = (128, 56, 56, 64)  # the f32 form: the bench's first shape
 # source edits of csrc/conv3x3.cu and csrc/dot_probe.cu, each of which the
 # checks must reject (vlsfr_tpu_torch/utils/parity.py: conv_checks, probe_checks)
 CONV_FAULTS = {
-    "reads the bottom halo row one row off": (
-        "const int hh = ph[i] + dy - 1,", "const int hh = ph[i] + dy - 1 + (dy == 2),"),
+    "reads the bottom halo row one row off": (  # the bf16 kernel's x staging
+        "const int hh = gr0 + hr - 1,", "const int hh = gr0 + hr - 1 + (hr == tr + 1),"),
     "drops the last block in the statistics merge": (
         "for (int b = 0; b < n_blocks; ++b)", "for (int b = 0; b < n_blocks - 1; ++b)"),
 }

@@ -83,18 +83,37 @@ def make_packed(seed, b, q, d, k, device="cpu", loss_type="Arc", form="f32"):
     return queue, packed, kw, dce, dneg
 
 
+def assert_reordered_close(got, want, n_terms):
+    """``got`` is ``want`` summed over ``n_terms`` columns in another order
+    (the plain versions' chunks): within two f32 spacings of max|want|
+    (2^-23 × it) for each column summed. An absolute limit would depend on
+    the host's BLAS path for values of a few units; this one scales with
+    them and stays below a fault of 1e-4 of max|want| while n_terms < 420."""
+    tol = 2.0 * n_terms * 2.0**-23 * float(want.abs().max())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=tol)
+
+
+def assert_chunk_invariant(pairs, n_terms):
+    """Each (got, want) pair within ``assert_reordered_close``, and a fault
+    of 1e-4 relative planted in each ``want`` (every value scaled by 1 +
+    1e-4) outside it."""
+    for got, want in pairs:
+        assert_reordered_close(got, want, n_terms)
+        with pytest.raises(AssertionError):
+            assert_reordered_close(want * (1 + 1e-4), want, n_terms)
+
+
 def test_plain_versions_are_chunk_invariant():
-    queue, packed, kw, dce, dneg = make_packed(1, b=8, q=90, d=16, k=4, loss_type="SV")
+    q = 90
+    queue, packed, kw, dce, dneg = make_packed(1, b=8, q=q, d=16, k=4, loss_type="SV")
     E, rest = packed[0], packed[1:]
     a = ttm.quad_fwd_plain(E, queue, *rest, chunk=7, **kw)
     b = ttm.quad_fwd_plain(E, queue, *rest, chunk=1000, **kw)
-    for x, y in zip(a, b):
-        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=2e-5)
+    assert_chunk_invariant(zip(a, b), q)
     kth = b[3][:, :, -1].contiguous()
     g1 = ttm.quad_bwd_plain(E, queue, *rest, b[2], kth, dce, dneg, chunk=7, **kw)
     g2 = ttm.quad_bwd_plain(E, queue, *rest, b[2], kth, dce, dneg, chunk=1000, **kw)
-    for x, y in zip(g1, g2):
-        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=3e-5)
+    assert_chunk_invariant(zip(g1, g2), q)
 
 
 def test_written_column_uses_last_writer():
@@ -315,18 +334,17 @@ def make_softmax_case(seed, b, c, d, k, frac_outlier, device="cpu"):
 
 
 def test_softmax_plain_versions_are_chunk_invariant():
-    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(4, 8, 90, 16, 3, 0.4)
+    c = 90
+    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(4, 8, c, 16, 3, 0.4)
     kw = dict(loss_type="SV", margin=0.5, scale=32.0, k=3, mask_svfc=1.2)
     gt = tms.compute_gt(emb, w, labels)
     a = tms.margin_ce_fwd_plain(emb, w, labels, gt, chunk=7, **kw)
     b = tms.margin_ce_fwd_plain(emb, w, labels, gt, chunk=1000, **kw)
-    for x, y in zip(a, b):
-        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=2e-5)
+    assert_chunk_invariant(zip(a, b), c)
     logz, topk = b[2], b[3]
     g1 = tms.margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, chunk=7, **kw)
     g2 = tms.margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, chunk=1000, **kw)
-    for x, y in zip(g1, g2):
-        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=3e-5)
+    assert_chunk_invariant(zip(g1, g2), c)
 
 
 def test_row_set_checks_catch_a_fault_on_the_other_rows():
@@ -827,7 +845,7 @@ QUAD_FORM_FAULTS = {
     "no_clean_dcos_rounding": ("dq = SCALED ? bf16r(d * sc) : bf16r(d);",
                                "dq = SCALED ? d * sc : d;"),
     # bf16 queue, written tiles: each view's d_cos not rounded
-    "bf16_written_unrounded": ("d1 = bf16r(d1);\n              d2 = bf16r(d2);", "(void)0;"),
+    "bf16_written_unrounded": ("d1 = bf16r(d1);\n      d2 = bf16r(d2);", "(void)0;"),
     # int8 tile loader: every row reads its first words again
     "int8_word_offset": ("X[g * words + k0 + kk]", "X[g * words + kk]"),
 }
@@ -874,6 +892,71 @@ def test_form_checks_reject_planted_faults(tmp_path, monkeypatch):
     for lt in ("Arc", "AM"):
         assert {"int8 raw dot (kernel, forward tiles)",
                 "int8 raw dot (kernel, backward tiles)"} <= failed["int8_word_offset", "int8c", lt]
+
+
+def _tie_columns(queue, E, r, k, avoid):
+    """Copy the stored row that scores highest against probe row r (in both
+    planes) into k - 1 other slots outside ``avoid`` (written slots and
+    targets): r's top-k then holds k equal cosines, each tied with its
+    kth, where no write scores higher."""
+    cos = ttm._bf16(E[r]) @ queue[0].float().T
+    free = torch.ones(queue.shape[1], dtype=torch.bool, device=queue.device)
+    free[avoid[avoid >= 0].long()] = False
+    j = int(torch.where(free, cos, -2.0).argmax())
+    free[j] = False
+    slots = torch.nonzero(free).flatten()[:k - 1]
+    queue[:, slots] = queue[:, j:j + 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 512])
+def test_bf16_backward_edge_cases(d):
+    """The bf16 form's tensor-core quad_fwd / quad_bwd against their plain
+    versions (``parity.quad_checks``: the forward's limits and
+    ``rounded_demb`` unchanged) with a duplicate slot, written tiles under
+    a 512-column rounding tile (each view's d_cos rounded alone, both on
+    q0's row as two bf16 terms) and an outlier row whose top-k holds k
+    equal cosines, each tied with its kth; then the twin kernels on one
+    direction of such a case, on the whole queue and as 4 blocks (targets
+    inside and outside each block: labels -2 there)."""
+    dev = _cuda()
+    b, q, k = 64, 5000, 10
+    queue, packed, kw, dce, dneg = make_packed(4, b, q, d, k, device=dev, form="bf16")
+    _tie_columns(queue, packed[0], 2, k, torch.cat([packed[4], packed[6]]))  # row 2: outlier
+    ttm.reset_launch_counts()
+    checks, want = parity.quad_checks(queue, packed, kw, dce, dneg, tile=512)
+    assert int((want[3][0, 2] == want[3][0, 2, -1]).sum()) >= k - 1  # the tie
+    queue, inputs, tkw, tdce, tdneg, (t, _) = make_twin(5, b, q, d, k, device=dev, form="bf16")
+    _tie_columns(queue, inputs[0], 2, k, torch.cat([inputs[4], inputs[6]]))
+    twin, _ = parity.twin_checks(queue, inputs, tkw, tdce, tdneg, tile=512)
+    checks += twin + parity.twin_shard_checks(t[0], queue, t[1], t[2:5], t[5], tdce, tdneg, tkw, 4)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(d, parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("quad_bwd", "bf16")] == 1
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("twin_bwd", "bf16")] >= 1
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("twin_partial_bwd", "bf16")] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64)])
+def test_bf16_clean_cosines_match_between_tilings(r_, q, d):
+    """The bf16 form's clean cosines as the forward's tiles form them and as
+    the backward's recompute does (``clean_cos``, both on the tensor
+    cores): equal bit for bit, so that the backward's top-k test meets the
+    forward's kth exactly; and within 1e-6 of the plain version
+    (``parity.bf16_cos_checks``)."""
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    unit = lambda x: (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
+    E = torch.from_numpy(unit(rng.standard_normal((r_, d)))).to(dev)
+    q0 = torch.from_numpy(unit(rng.standard_normal((q, d)))).to(dev).bfloat16()
+    checks = parity.bf16_cos_checks(E, q0)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
 
 
 # ----------------------------------------------------------------------
@@ -991,7 +1074,7 @@ TWIN_FAULTS = {
     "twin_target_not_streamed": ("stream_z(zt0, m0, s0);\n    stream_z(zt1, m1, s1);",
                                  "(void)0;"),
     # the backward chooses its rounding per 64-column tile, not per rounding tile
-    "rounding_per_64_columns": ("const bool hit = written[2 + dirr[i]] != 0;",
+    "rounding_per_64_columns": ("const bool hit = written[2 + rc.dir] != 0;",
                                 "const bool hit = w64;"),
 }
 
@@ -1035,7 +1118,11 @@ def test_twin_checks_reject_planted_faults(tmp_path, monkeypatch):
 # (limits in utils/parity.py: conv_checks, probe_checks)
 # ----------------------------------------------------------------------
 
-CONV_CASES = [((2, 8, 8, 8), 8, 4), ((2, 12, 20, 24), 40, 6), ((3, 28, 28, 64), 72, 14)]
+# (x shape, Cout, strip): C of 8 to 128, H and W off the 128-pixel tile,
+# Cout a multiple of 64, not one, and not a multiple of 8
+CONV_CASES = [((2, 8, 8, 8), 8, 4), ((2, 12, 20, 24), 40, 6), ((3, 28, 28, 64), 72, 14),
+              ((2, 30, 26, 64), 64, 10), ((2, 18, 22, 128), 128, 6), ((1, 14, 30, 128), 96, 14),
+              ((1, 8, 9, 16), 27, 8)]
 
 
 @pytest.mark.gpu
@@ -1062,6 +1149,47 @@ def test_conv3x3_kernel_matches_plain(dtype, mode, shape, cout, strip):
     for c in checks:
         print(parity.describe(c))
     assert parity.failures(checks) == []
+
+
+# source edits of conv3x3.cu that the conv checks must reject
+CONV_FAULTS = {
+    # the bf16 kernel reads the bottom halo row one row off
+    "halo_row_off": ("const int hh = gr0 + hr - 1,",
+                     "const int hh = gr0 + hr - 1 + (hr == tr + 1),"),
+    # the statistics merge drops the last block's partial
+    "merge_drops_last_block": ("for (int b = 0; b < n_blocks; ++b)",
+                               "for (int b = 0; b < n_blocks - 1; ++b)"),
+}
+
+
+@pytest.mark.gpu
+def test_conv_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """``parity.conv_checks`` pass the real bf16 conv3x3 kernel with
+    statistics at [2, 28, 28, 64], strip 14, and fail a conv3x3.cu that
+    reads the bottom halo row one row off (y) and one whose statistics
+    merge drops the last block (Σ²)."""
+    from vlsfr_tpu_torch.ops import conv3x3 as tconv
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, CONV_FAULTS, source="conv3x3")
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 28, 28, 64)).astype(np.float32)).to(dev,
+                                                                                    torch.bfloat16)
+    w = torch.from_numpy((rng.standard_normal((3, 3, 64, 64)) * 0.045).astype(np.float32)).to(dev)
+    y_p, st_p = tconv.conv3x3_plain(x, w, with_stats=True)
+    failed = {}
+    for name, lib in libs.items():
+        monkeypatch.setitem(cuda_build._LOADED, "conv3x3", lib)
+        y, st = tconv.conv3x3(x, w, strip=14, with_stats=True)
+        torch.cuda.synchronize()
+        checks = parity.conv_checks(y, y_p, st, st_p)
+        for c in checks:
+            print(name, parity.describe(c))
+        failed[name] = [c["name"] for c in parity.failures(checks)]
+    assert failed["real"] == []
+    assert any(n.startswith("y elements more than one") for n in failed["halo_row_off"])
+    assert any(n.startswith("Σ² per channel") for n in failed["merge_drops_last_block"])
 
 
 @pytest.mark.gpu

@@ -14,8 +14,8 @@ sums in another order only: per-row values and top-k 1e-5 relative + 1e-5
 absolute, d_emb 1e-5 × its max, the scalar loss 1e-5 relative.
 
 The port's pair of twin losses is also held against its own quad head (the
-counterpart of ``tests/test_twin_margin.py::test_quad_matches_two_twins``,
-JAX's tolerances: losses 1e-5 relative, d_emb 3e-6 absolute).
+counterpart of ``tests/test_twin_margin.py::test_quad_matches_two_twins``:
+losses 1e-5 relative as there, d_emb D = 64 f32 spacings of its max).
 
 Sizes: b = 8 probes, Q = 512 slots, D = 64.
 """
@@ -235,11 +235,16 @@ def test_int8_queue_refused_with_jax_message(rng):
 def test_twin_pair_matches_quad(loss_type, near, rng):
     """The port's two twin losses (one per direction) against its quad
     head on the same inputs: losses and both probes' d_emb. On random
-    probes JAX's test_quad_matches_two_twins case and tolerances (3e-6).
-    With the probes near their targets the target dominates logz and d_gt
-    = (p_t − 1)·d_ce·scale cancels: the 1e-7 by which the twin (target in
-    the stream) and the quad (target added after it) round p_t becomes
-    ~1e-4 of d_gt, so d_emb is held to 1e-5 × its max there."""
+    probes JAX's test_quad_matches_two_twins case, with d_emb held to D
+    f32 spacings of its max (2^-23 × max|d_emb| for each of the D = 64
+    features summed in every dot; the two heads round the same products in
+    another order, 5 spacings apart here, which an absolute 3e-6 held or
+    not by the host's BLAS path). With the probes near their targets the
+    target dominates logz and d_gt = (p_t − 1)·d_ce·scale cancels: the 1e-7
+    by which the twin (target in the stream) and the quad (target added
+    after it) round p_t becomes ~1e-4 of d_gt, so d_emb is held to 1e-5 ×
+    its max there. Both limits stay below a fault of 1e-4 × max|d_emb|
+    planted in the quad's d_emb (every value scaled by 1 + 1e-4)."""
     da, db = make_case(rng, near=near), make_case(rng, near=near)
     queue = torch.from_numpy(da[2])
     kw = dict(KW, loss_type=loss_type, hard_neg=3)
@@ -259,8 +264,11 @@ def test_twin_pair_matches_quad(loss_type, near, rng):
     (qa, qb, qx, qy), (wa, wb, wx, wy) = res
     assert wa == pytest.approx(qa, rel=1e-5) and wb == pytest.approx(qb, rel=1e-5)
     for got, want in ((wx, qx), (wy, qy)):
-        atol = 1e-5 * float(want.abs().max()) if near else 3e-6
-        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=atol)
+        atol = (1e-5 if near else D * 2.0**-23) * float(want.abs().max())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=atol)
+        with pytest.raises(AssertionError):
+            np.testing.assert_allclose(got.numpy(), (want * (1 + 1e-4)).numpy(), rtol=0,
+                                       atol=atol)
 
 
 @pytest.mark.parametrize("c,b,d,tile,qbytes", [

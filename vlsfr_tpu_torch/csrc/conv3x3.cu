@@ -10,41 +10,65 @@
 //
 // Layout: x [B][H][W][C], w [3][3][C][Cout] (HWIO, JAX's layout, already cast
 // to x's type by the wrapper), y [B][H][W][Cout], all contiguous, f32 or
-// bf16 (template T). Products are taken over operands widened to f32 (a
-// bf16 product is exact in f32) and summed in f32 FMA; y is rounded once,
-// round-to-nearest-even. No tensor cores yet: this is the simple kernel.
+// bf16. y is rounded once from the f32 sum, round-to-nearest-even.
 //
 // Bound (H100 SXM): the bench's bf16 shapes do 2 * B*H*W * 9*C*Cout FLOP
 // (2.96e10 at [128, 56, 56, 64], 1.18e11 at [128, 112, 112, 64], 2.96e10 at
 // [128, 28, 28, 128]); at the 989 TFLOP/s bf16 tensor-core rate against
 // 3.35 TB/s for x read and y written once, the two C = 64 shapes are
 // bytes-bound and the C = 128 one operations-bound, all near 0.03-0.12 ms.
-// This kernel runs on the f32 FMA units (67 TFLOP/s), so it sits far above
-// that bound; wgmma over bf16 tiles is later work.
 //
-// Design.
-//  * The TPU grid (B, H / strip) ran one image strip per step, with the
-//    strip's two halo rows fetched as a second BlockSpec stream of a padded
-//    copy. Here one block owns the same (image, strip) pair and a 64-wide
-//    slice of Cout (grid (B * H / strip, ceil(Cout / 64))); it walks the
-//    strip's strip * W output pixels in tiles of 64 as an implicit GEMM:
-//    M = pixels, N = output channels, K = 9 * C. The SAME padding is a
-//    bounds-checked zero load, so no padded copy of x is made.
-//  * Each K chunk of 16 stages a [16][64] tile of x (gathered at the tap's
-//    offset) and a [16][64] tile of w in shared memory as f32; 256 threads
-//    each keep a 4 x 4 register tile of the accumulator.
-//  * mode selects the order of K, which is the only thing that differs
-//    between the two modes: taps9 walks tap-major (k = tap * C + c, JAX's
-//    nine accumulating dots), im2col channel-major (k = c * 9 + tap, the
-//    order of PyTorch's unfold). Both sum the same products in f32.
-//  * Statistics: each thread sums its accumulator values (and their
-//    squares) per channel over the block's pixels; the block reduces its 16
-//    row groups in a fixed order and writes one partial per (block, channel)
-//    into part [n_blocks][2][Cout]; a second launch sums the partials in
-//    block order. No float atomics: the result is the same on every run.
+// Both forms: one block owns one (image, strip) pair of the TPU grid
+// (B, H / strip) and a 64-wide slice of Cout (grid (B * H / strip,
+// ceil(Cout / 64))), and walks the strip's strip * W output pixels as an
+// implicit GEMM: M = pixels, N = output channels, K = 9 * C. The SAME
+// padding is a zero load, so no padded copy of x is made. mode selects the
+// order of K: taps9 walks tap-major (JAX's nine accumulating dots), im2col
+// channel-major (the order of PyTorch's unfold). Statistics: the block
+// reduces its threads' per-channel sums in a fixed order into one partial
+// per (block, channel), part [n_blocks][2][Cout]; a second launch sums the
+// partials in block order. No float atomics: the result is the same on
+// every run.
+//
+// bf16 form (conv3x3_bf16_kernel): tensor cores, mma.sync m16n8k16 over
+// operands staged in shared memory as bf16 (csrc/mma_bf16.cuh).
+//  * The block's weight slice, rows (tap, c) of K padded to C16 = C rounded
+//    up to 16, x 64 channels, is staged once (73.7 KB at C = 64, 147 KB at
+//    C = 128) and kept across the strip.
+//  * x is read once (and its halo rows twice), not once per tap: the strip
+//    is walked in groups of tr output rows, and each group's halo, (tr + 2)
+//    rows x (W + 2) pixels x C16 channels, is staged by cp.async, zero-
+//    filled for the SAME padding, the rows past the image and the channels
+//    past C, while the previous group computes: two stages. tr is as large
+//    as the shared memory beside the weights and one pass of 384 pixels
+//    allow (6 rows at W = 56, 3 at W = 112). Where two stages would hold
+//    fewer than 128 pixels (C = 128 at W = 28: 3 rows), one stage of more
+//    rows is taken (8), and its copies wait for the previous group.
+//  * Each tap reads its A fragments straight out of the halo: a lane's
+//    ldmatrix row is its output pixel's halo index plus the tap's offset,
+//    worked out once a pass. K is walked in k16 steps of one tap and 16
+//    channels; mode is their order (taps9: tap-major, im2col:
+//    channel-major). No step waits for a copy or a barrier.
+//  * 8 warps: 4 along the pixels, each up to 6 m16 slices (taken round
+//    robin, so a short group spreads over the warps), x 2 along the
+//    channels, 32 each; a slice past the group's pixels is skipped.
+//  * Statistics: each thread sums its fragment values (rows g, g + 8 of each
+//    m16 slice; two channels per n8 tile) over the block's pixels, the 8
+//    lanes that share a channel combine by fixed xor shuffles, and the 4
+//    pixel warps in order.
+//  * C must be a multiple of 8 (16-byte pieces) and its weight slice and two
+//    halo stages of one row must fit in 227 KB of shared memory (C <= 144
+//    at W <= 112); the wrapper checks (conv3x3_bf16_fits).
+//
+// f32 form (conv3x3_f32_kernel): f32 FMA ("f32 means f32": no TF32). Each K
+// chunk of 16 stages a [16][64] tile of x (gathered at the tap's offset)
+// and a [16][64] tile of w in shared memory; 256 threads each keep a 4 x 4
+// register tile of the accumulator.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -55,10 +79,6 @@ constexpr int THREADS = 256;
 constexpr int APAD = BM + 4;  // row stride of the staged x tile (floats)
 constexpr int MODE_TAPS9 = 0, MODE_IM2COL = 1;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // the (tap, channel) of K index k in the mode's order
 template <int MODE>
@@ -72,10 +92,11 @@ __device__ __forceinline__ void k_split(int k, int C, int& tap, int& c) {
   }
 }
 
-template <class T, int MODE, bool STATS>
+template <int MODE, bool STATS>
 __global__ void __launch_bounds__(THREADS)
-    conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                   float* __restrict__ part, int H, int W, int C, int Cout, int strip) {
+    conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                       float* __restrict__ y, float* __restrict__ part, int H, int W, int C,
+                       int Cout, int strip) {
   __shared__ __align__(16) float As[KC][APAD];
   __shared__ __align__(16) float Bs[KC][BN];
   __shared__ float red[2][THREADS / 16][BN];
@@ -87,7 +108,7 @@ __global__ void __launch_bounds__(THREADS)
   const int co0 = blockIdx.y * BN;
   const int K = 9 * C;
   const int npix = strip * W;
-  const T* xn = x + (long long)n * H * W * C;
+  const float* xn = x + (long long)n * H * W * C;
 
   // the staging assignment: this thread loads K slot lk of pixels lm + 16 i
   const int lk = tid % KC, lm = tid / KC;
@@ -120,7 +141,7 @@ __global__ void __launch_bounds__(THREADS)
           const int hh = ph[i] + dy - 1, ww = pw[i] + dx - 1;
           float v = 0.f;
           if (k < K && hh >= 0 && hh < H && ww >= 0 && ww < W)
-            v = to_f32(xn[((long long)hh * W + ww) * C + c]);
+            v = xn[((long long)hh * W + ww) * C + c];
           As[lk][lm + 16 * i] = v;
         }
       }
@@ -133,7 +154,7 @@ __global__ void __launch_bounds__(THREADS)
         if (k < K && co0 + co < Cout) {
           int tap, c;
           k_split<MODE>(k, C, tap, c);
-          v = to_f32(w[((long long)tap * C + c) * Cout + co0 + co]);
+          v = w[((long long)tap * C + c) * Cout + co0 + co];
         }
         Bs[kk][co] = v;
       }
@@ -160,7 +181,7 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < 4; ++j) {
         const int co = co0 + tx * 4 + j;
         if (co >= Cout) continue;
-        store_out(y + pix * Cout + co, acc[i][j]);
+        y[pix * Cout + co] = acc[i][j];
         if (STATS) {
           s1[j] += acc[i][j];
           s2[j] = fmaf(acc[i][j], acc[i][j], s2[j]);
@@ -185,6 +206,214 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ------------------------------------------------------------- bf16 form
+
+constexpr int MS = 6;                  // m16 pixel slices a warp holds in a pass
+constexpr int PASS_PX = 4 * MS * 16;   // pixels of one pass (4 pixel warps)
+constexpr int BF16_MAX_SMEM = 232448;  // a block's dynamic shared memory on sm_90
+
+// the bf16 kernel's shared memory with n_st halo stages of tr output rows:
+// the weight slice [9 C16][BN], the stages of (tr + 2) x (W + 2) pixels x
+// C16 channels, the statistics' reduction
+__host__ __device__ constexpr int bf16_smem(int C, int W, int tr, int n_st) {
+  return 9 * ((C + 15) / 16 * 16) * BN * 2 +
+         n_st * (tr + 2) * (W + 2) * ((C + 15) / 16 * 16) * 2 + 2 * 4 * BN * 4;
+}
+
+// output rows a halo stage holds with n_st stages: as many as fit beside
+// the weight slice, at most one pass of pixels and the strip; 0 where none
+// fits
+int bf16_rows(int C, int W, int strip, int n_st) {
+  int tr = min(strip, max(1, PASS_PX / W));
+  while (tr > 0 && bf16_smem(C, W, tr, n_st) > BF16_MAX_SMEM) --tr;
+  return tr;
+}
+
+// the halo plan: two stages (the next group's copies under this group's
+// products) where they still hold 8 m16 slices (two a pixel warp), else one
+// stage of more rows (its copies wait, ~5 % of a group at C = 128)
+void bf16_plan(int C, int W, int strip, int& tr, int& n_st) {
+  n_st = 2;
+  tr = bf16_rows(C, W, strip, 2);
+  if (tr * W < 128) {
+    n_st = 1;
+    tr = bf16_rows(C, W, strip, 1);
+  }
+}
+
+template <int MODE, bool STATS>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                        __nv_bfloat16* __restrict__ y, float* __restrict__ part, int H, int W,
+                        int C, int Cout, int strip, int tr, int n_st) {
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  const int CB = (C + 15) / 16, CP = 16 * CB, rc = CP / 8, n_steps = 9 * CB;
+  const int m = min(rc & -rc, 8) - 1;  // the halo's swizzle (mma_bf16.cuh: swz)
+  const int WP = W + 2, hp_n = (tr + 2) * WP;  // halo pixels a stage holds
+  unsigned char* Ws = conv_smem;                // weights [9 CP][BN], swizzled
+  unsigned char* Xs = Ws + 9 * CP * BN * 2;     // halo stages [n_st][hp_n][CP]
+  float* red = reinterpret_cast<float*>(Xs + n_st * hp_n * CP * 2);  // [2][4][BN]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;  // pixel slices wm + 4 j, channels wn * 32 ..
+  const int g = lane >> 2, t = lane & 3;
+  const int n_strips = H / strip;
+  const int n = blockIdx.x / n_strips;
+  const int row0 = (blockIdx.x - n * n_strips) * strip;
+  const int co0 = blockIdx.y * BN;
+  const int n_groups = (strip + tr - 1) / tr;
+  const __nv_bfloat16* xn = x + (long long)n * H * W * C;
+
+  // the weight slice, once per block: row tap * CP + c, zero past C and Cout
+  for (int i = tid; i < 9 * CP * (BN / 8); i += THREADS) {
+    const int kk = i >> 3, piece = i & 7;
+    const int tap = kk / CP, c = kk - tap * CP, co = co0 + 8 * piece;
+    unsigned char* dst = Ws + swz(kk, 8 * piece, BN / 8);
+    const __nv_bfloat16* src = w + ((long long)tap * C + c) * Cout + co;
+    if ((Cout & 7) == 0) {
+      const bool ok = c < C && co < Cout;
+      cp_async_cg(dst, ok ? src : w, ok);
+    } else {  // rows not 16-byte aligned: element by element
+      __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = c < C && co + j < Cout ? src[j] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+
+  // stage group gi's halo: image rows gr0 - 1 .. gr0 + tr, columns -1 .. W,
+  // zero outside the image and past C; a thread copies chunk ch of pixels
+  // hp0, hp0 + step, ..
+  const int lg = rc <= 1 ? 0 : rc <= 2 ? 1 : rc <= 4 ? 2 : rc <= 8 ? 3 : rc <= 16 ? 4 : 5;
+  const int ch = tid & ((1 << lg) - 1), step = THREADS >> lg, hp_first = tid >> lg;
+  auto stage = [&](int gi) {
+    unsigned char* buf = Xs + (gi & (n_st - 1)) * hp_n * CP * 2;
+    const int gr0 = row0 + gi * tr;
+    if (ch >= rc) return;
+    int hr = hp_first / WP, hc = hp_first - hr * WP;
+    for (int hp = hp_first; hp < hp_n; hp += step) {
+      const int hh = gr0 + hr - 1, ww = hc - 1;
+      const int c = 8 * ch;
+      const bool ok = hh >= 0 && hh < H && ww >= 0 && ww < W && c < C;
+      cp_async_ca(buf + swz(hp, c, rc, m), ok ? xn + ((long long)hh * W + ww) * C + c : xn, ok);
+      for (hc += step; hc >= WP; hc -= WP) ++hr;
+    }
+  };
+
+  stage(0);
+  cp_async_commit();  // with the weights
+  float s1[4][2] = {}, s2[4][2] = {};
+  for (int gi = 0; gi < n_groups; ++gi) {
+    if (n_st == 2 && gi + 1 < n_groups) stage(gi + 1);
+    cp_async_commit();
+    if (n_st == 2)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // group gi's halo (and the weights) landed
+    const unsigned char* buf = Xs + (gi & (n_st - 1)) * hp_n * CP * 2;
+    const int gr0 = row0 + gi * tr;
+    const int npix = min(tr, row0 + strip - gr0) * W;  // the group's output pixels
+    for (int p0 = 0; p0 < npix; p0 += PASS_PX) {
+      // this lane's A row of each slice: its output pixel's halo index
+      int hp[MS];
+      bool live[MS];
+#pragma unroll
+      for (int j = 0; j < MS; ++j) {
+        const int slice = p0 + 16 * (wm + 4 * j);
+        live[j] = slice < npix;
+        const int p = slice + (lane & 15);
+        hp[j] = p < npix ? (p / W) * WP + p % W : 0;  // rows past the group: any valid row
+      }
+      float acc[MS][4][4] = {};
+      int tap = 0, cb = 0;
+      for (int s = 0; s < n_steps; ++s) {
+        const int toff = (tap / 3) * WP + tap % 3, krow = tap * CP + 16 * cb;
+        const int col = 16 * cb + 8 * (lane >> 4);
+        uint32_t a[MS][4];
+#pragma unroll
+        for (int j = 0; j < MS; ++j)
+          if (live[j]) ldsm_x4(a[j], buf + swz(hp[j] + toff, col, rc, m));
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          uint32_t b[4];
+          load_b_kn(b, Ws + krow * BN * 2, BN / 8, wn * 32 + 16 * nj, 0);
+#pragma unroll
+          for (int j = 0; j < MS; ++j) {
+            if (!live[j]) continue;
+            mma_bf16(acc[j][2 * nj], a[j], b[0], b[1]);
+            mma_bf16(acc[j][2 * nj + 1], a[j], b[2], b[3]);
+          }
+        }
+        if (MODE == MODE_TAPS9) {  // the next step: tap-major or channel-major
+          if (++cb == CB) cb = 0, ++tap;
+        } else {
+          if (++tap == 9) tap = 0, ++cb;
+        }
+      }
+      // round y once, gather the statistics
+#pragma unroll
+      for (int j = 0; j < MS; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = p0 + 16 * (wm + 4 * j) + g + 8 * h;
+          if (p >= npix) continue;
+          __nv_bfloat16* yp = y + ((long long)(n * H + gr0) * W + p) * Cout;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const int co = co0 + wn * 32 + 8 * ni + 2 * t;
+            const float v0 = acc[j][ni][2 * h], v1 = acc[j][ni][2 * h + 1];
+            if ((Cout & 1) == 0 && co + 1 < Cout) {
+              *reinterpret_cast<__nv_bfloat162*>(yp + co) = __floats2bfloat162_rn(v0, v1);
+            } else {
+              if (co < Cout) yp[co] = __float2bfloat16_rn(v0);
+              if (co + 1 < Cout) yp[co + 1] = __float2bfloat16_rn(v1);
+            }
+            if (STATS) {  // channels past Cout sum zeros and are never written
+              s1[ni][0] += v0;
+              s1[ni][1] += v1;
+              s2[ni][0] = fmaf(v0, v0, s2[ni][0]);
+              s2[ni][1] = fmaf(v1, v1, s2[ni][1]);
+            }
+          }
+        }
+    }
+    __syncthreads();  // the next group's copies go into this group's stage
+    if (n_st == 1 && gi + 1 < n_groups) stage(gi + 1);
+  }
+  cp_async_wait<0>();
+
+  if (STATS) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {  // the 8 lanes of one channel
+          s1[ni][j] += __shfl_xor_sync(0xffffffffu, s1[ni][j], off);
+          s2[ni][j] += __shfl_xor_sync(0xffffffffu, s2[ni][j], off);
+        }
+    if (g == 0) {
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = wn * 32 + 8 * ni + 2 * t + j;
+          red[(0 * 4 + wm) * BN + col] = s1[ni][j];
+          red[(1 * 4 + wm) * BN + col] = s2[ni][j];
+        }
+    }
+    __syncthreads();
+    if (tid < 2 * BN) {
+      const int which = tid / BN, col = tid % BN;
+      float s = 0.f;
+      for (int q = 0; q < 4; ++q) s += red[(which * 4 + q) * BN + col];
+      if (co0 + col < Cout) part[((long long)blockIdx.x * 2 + which) * Cout + co0 + col] = s;
+    }
+  }
+}
+
 // stats [2][Cout] = the partials [n_blocks][2][Cout] summed in block order
 __global__ void conv3x3_stats_merge_kernel(const float* __restrict__ part,
                                            float* __restrict__ stats, int n_blocks, int Cout) {
@@ -195,21 +424,42 @@ __global__ void conv3x3_stats_merge_kernel(const float* __restrict__ part,
   stats[i] = s;
 }
 
-template <class T, int MODE, bool STATS>
-cudaError_t launch(const void* x, const void* w, void* y, float* part, int B, int H, int W, int C,
-                   int Cout, int strip, cudaStream_t st) {
+template <int MODE, bool STATS>
+cudaError_t launch_f32(const void* x, const void* w, void* y, float* part, int B, int H, int W,
+                       int C, int Cout, int strip, cudaStream_t st) {
   const dim3 grid((unsigned)(B * (H / strip)), (unsigned)((Cout + BN - 1) / BN));
-  conv3x3_kernel<T, MODE, STATS><<<grid, THREADS, 0, st>>>(
-      (const T*)x, (const T*)w, (T*)y, part, H, W, C, Cout, strip);
+  conv3x3_f32_kernel<MODE, STATS><<<grid, THREADS, 0, st>>>(
+      (const float*)x, (const float*)w, (float*)y, part, H, W, C, Cout, strip);
   return cudaGetLastError();
 }
 
-template <class T, bool STATS>
-cudaError_t launch_mode(int mode, const void* x, const void* w, void* y, float* part, int B, int H,
-                        int W, int C, int Cout, int strip, cudaStream_t st) {
-  if (mode == MODE_TAPS9)
-    return launch<T, MODE_TAPS9, STATS>(x, w, y, part, B, H, W, C, Cout, strip, st);
-  return launch<T, MODE_IM2COL, STATS>(x, w, y, part, B, H, W, C, Cout, strip, st);
+template <int MODE, bool STATS>
+cudaError_t launch_bf16(const void* x, const void* w, void* y, float* part, int B, int H, int W,
+                        int C, int Cout, int strip, cudaStream_t st) {
+  int tr, n_st;
+  bf16_plan(C, W, strip, tr, n_st);
+  if (C % 8 || tr == 0) return cudaErrorInvalidValue;
+  const int smem = bf16_smem(C, W, tr, n_st);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_bf16_kernel<MODE, STATS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(B * (H / strip)), (unsigned)((Cout + BN - 1) / BN));
+  conv3x3_bf16_kernel<MODE, STATS><<<grid, THREADS, smem, st>>>(
+      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)y, part, H, W, C, Cout,
+      strip, tr, n_st);
+  return cudaGetLastError();
+}
+
+template <bool STATS>
+cudaError_t launch_form(int bf16, int mode, const void* x, const void* w, void* y, float* part,
+                        int B, int H, int W, int C, int Cout, int strip, cudaStream_t st) {
+  if (bf16)
+    return mode == MODE_TAPS9
+               ? launch_bf16<MODE_TAPS9, STATS>(x, w, y, part, B, H, W, C, Cout, strip, st)
+               : launch_bf16<MODE_IM2COL, STATS>(x, w, y, part, B, H, W, C, Cout, strip, st);
+  return mode == MODE_TAPS9
+             ? launch_f32<MODE_TAPS9, STATS>(x, w, y, part, B, H, W, C, Cout, strip, st)
+             : launch_f32<MODE_IM2COL, STATS>(x, w, y, part, B, H, W, C, Cout, strip, st);
 }
 
 }  // namespace
@@ -217,6 +467,13 @@ cudaError_t launch_mode(int mode, const void* x, const void* w, void* y, float* 
 extern "C" {
 
 const char* conv3x3_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// whether the bf16 kernel takes C input channels at width W and strip: C a
+// multiple of 8 whose weight slice and two halo stages of at least one
+// output row fit in a block's shared memory
+int conv3x3_bf16_fits(int C, int W, int strip) {
+  return C % 8 == 0 && bf16_rows(C, W, strip, 1) > 0;
+}
 
 // y = conv3x3(x, w); with stats (part and stats non-null): part is
 // [B * H / strip][2][Cout] f32 scratch, stats [2][Cout] f32 (sum, sum of
@@ -226,14 +483,9 @@ int conv3x3_launch(const void* x, const void* w, void* y, float* part, float* st
                    int mode, int B, int H, int W, int C, int Cout, int strip, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const bool with_stats = stats != nullptr;
-  cudaError_t err;
-  if (x_bf16)
-    err = with_stats
-              ? launch_mode<__nv_bfloat16, true>(mode, x, w, y, part, B, H, W, C, Cout, strip, st)
-              : launch_mode<__nv_bfloat16, false>(mode, x, w, y, part, B, H, W, C, Cout, strip, st);
-  else
-    err = with_stats ? launch_mode<float, true>(mode, x, w, y, part, B, H, W, C, Cout, strip, st)
-                     : launch_mode<float, false>(mode, x, w, y, part, B, H, W, C, Cout, strip, st);
+  cudaError_t err =
+      with_stats ? launch_form<true>(x_bf16, mode, x, w, y, part, B, H, W, C, Cout, strip, st)
+                 : launch_form<false>(x_bf16, mode, x, w, y, part, B, H, W, C, Cout, strip, st);
   if (err != cudaSuccess || !with_stats) return (int)err;
   conv3x3_stats_merge_kernel<<<(2 * Cout + 127) / 128, 128, 0, st>>>(part, stats,
                                                                     B * (H / strip), Cout);

@@ -95,6 +95,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv3x3_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.conv3x3_launch.restype = i
+        lib.conv3x3_bf16_fits.argtypes = [i, i, i]
+        lib.conv3x3_bf16_fits.restype = i
         lib.conv3x3_error_string.argtypes = [i]
         lib.conv3x3_error_string.restype = ctypes.c_char_p
         lib._vlsfr_typed = True
@@ -110,12 +112,18 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, *, mode: str = "taps9", strip: int
 
     In the CUDA kernel ``strip`` is the number of output rows of one image a
     block owns (grid: B·H/strip blocks per 64 output channels; each block
-    walks its strip·W pixels in tiles of 64, and with statistics writes one
-    partial per block, summed in block order by a second launch); ``mode``
-    is the order of the 9·C products each output sums: tap-major for
-    ``taps9`` (JAX's nine dots), channel-major for ``im2col`` (PyTorch's
-    unfold order). Both compute the same sum; only the f32 summation order
-    differs. ``strip`` must divide H and be even, as in JAX."""
+    walks its strip·W pixels — on the bf16 form's tensor cores in groups of
+    output rows whose halo it stages once, on the f32 form's FMA units in
+    tiles of 64 — and with statistics writes one partial per block, summed
+    in block order by a second launch); ``mode`` is the order of the 9·C
+    products each output sums: tap-major for ``taps9`` (JAX's nine dots),
+    channel-major for ``im2col`` (PyTorch's unfold order; on the bf16 form,
+    the order of its k16 steps of one tap × 16 channels). Both compute the
+    same sum; only the f32 summation order differs. ``strip`` must divide H
+    and be even, as in JAX. The bf16 kernel keeps its block's whole weight
+    slice and two halo stages in shared memory: it takes C a multiple of 8
+    that fits (``conv3x3_bf16_fits`` in ``csrc/conv3x3.cu``: C <= 144 at W
+    <= 112), and raises otherwise."""
     _check_args(x, w, mode, strip)
     if not x.is_cuda:
         return conv3x3_plain(x, w, with_stats=with_stats)
@@ -132,6 +140,10 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, *, mode: str = "taps9", strip: int
         part = torch.empty((b * (h // strip), 2, cout), dtype=torch.float32, device=x.device)
         stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     lib = _lib()
+    if x.dtype == torch.bfloat16 and not lib.conv3x3_bf16_fits(c, wd, strip):
+        raise ValueError(f"the bf16 conv3x3 kernel takes C a multiple of 8 whose weight slice "
+                         f"and halo fit in shared memory (C <= 144 at W <= 112); got C = {c}, "
+                         f"W = {wd}")
     err = lib.conv3x3_launch(
         x.data_ptr(), wc.data_ptr(), y.data_ptr(), None if part is None else part.data_ptr(),
         None if stats is None else stats.data_ptr(), int(x.dtype == torch.bfloat16),

@@ -45,8 +45,9 @@ def library_path(name: str) -> Path:
 
 def start_nvcc(src: Path, out: Path) -> subprocess.Popen:
     """An ``nvcc`` process building ``src`` (a .cu file; its quoted includes
-    resolve beside it) into the shared library ``out``."""
-    return subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+    resolve beside it, then in ``csrc/``, so that an edited copy elsewhere
+    builds against the shared headers) into the shared library ``out``."""
+    return subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

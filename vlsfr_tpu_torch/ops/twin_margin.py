@@ -633,7 +633,6 @@ def twin_partial_bwd_plain(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth
 
 _LOSS_CODE = {"AM": 0, "Arc": 1, "SV": 2}
 _FORM_CODE = {form: i for i, form in enumerate(FORMS)}
-_B_RB = 32  # rows per backward block (row group)
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [
     _P, ctypes.c_longlong, ctypes.c_int,  # q0, Q, D
@@ -643,7 +642,8 @@ _FWD_ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # b, bp, R, k
     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,  # loss, margin, scale, svfc
     ctypes.c_float, ctypes.c_float,  # cos(margin), sin(margin)
-    _P, _P, _P, ctypes.c_int,  # int8 column scales [Q], E8 [R, D], se [R]; the form
+    _P, _P, _P,  # int8 column scales [Q], E8 [R, D], se [R]
+    _P, ctypes.c_int,  # E as bf16 [R, D] (bf16 form); the form
     ctypes.c_int, ctypes.c_int,  # the rounding tile; the twin head
 ]
 
@@ -659,7 +659,7 @@ def _lib():
         lib.quad_fwd_launch.restype = lib.quad_partial_fwd_launch.restype = ctypes.c_int
         lib.quad_bwd_launch.argtypes = _FWD_ARGTYPES + [
             _P, _P, _P, _P,  # logz, kth, dce, dneg [2, R]
-            _P, ctypes.c_int, ctypes.c_longlong,  # part, nchunk, cols_per_chunk
+            _P, _P, ctypes.c_int, ctypes.c_longlong,  # part, wcoef, nchunk, cols_per_chunk
             _P, _P, _P]  # d_emb, dgt, stream
         lib.quad_bwd_launch.restype = ctypes.c_int
         lib.quad_clean_cos_launch.argtypes = _FWD_ARGTYPES + [ctypes.c_int, _P, _P]
@@ -739,17 +739,19 @@ def _cuda_shape_limits(E, b):
 def _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
                  scale, mask_svfc, qscales, e8, rtile=TILE, twin=False):
     """The launch entries' leading arguments. E, G and V go to the kernel
-    as its dots read them (``_dot_operands``); returns the tensors that
-    must outlive the launch, and the arguments."""
+    as its dots read them (``_dot_operands``), and on a bf16 queue E also
+    as bf16 (the same values: the tensor cores' operand); returns the
+    tensors that must outlive the launch, and the arguments."""
     Eo, Go, Vo = _dot_operands(E, G, V, q0)
+    Eb = Eo.to(torch.bfloat16) if q0.dtype == torch.bfloat16 else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     e8q, e8s = (None, None) if e8 is None else e8
     args = (q0.data_ptr(), q0.shape[0], E.shape[1], Eo.data_ptr(), Go.data_ptr(), Vo.data_ptr(),
             rows.data_ptr(), cols.data_ptr(), blend.data_ptr(), labels.data_ptr(),
             gt.data_ptr(), b, bp, E.shape[0], k, _LOSS_CODE[loss_type], margin, scale,
             mask_svfc, _f32(math.cos(margin)), _f32(math.sin(margin)), ptr(qscales), ptr(e8q),
-            ptr(e8s), _FORM_CODE[queue_form(q0, e8)], rtile, int(twin))
-    return (Eo, Go, Vo), args
+            ptr(e8s), ptr(Eb), _FORM_CODE[queue_form(q0, e8)], rtile, int(twin))
+    return (Eo, Go, Vo, Eb), args
 
 
 def _split_columns(n_q, n_parts):
@@ -788,17 +790,24 @@ def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg
     lib = _lib()
     r_ = E.shape[0]
     sms = torch.cuda.get_device_properties(E.device).multi_processor_count
-    n_rg = -(-r_ // _B_RB)
-    nchunk, per = _split_columns(q0.shape[0], max(4 * sms // n_rg, 1))
+    form = queue_form(q0, e8)
+    # probe rows a block holds (a row group), blocks an SM: the bf16
+    # kernel's 64 rows fill its SM's shared memory, so its grid is one wave
+    rows_per_block, per_sm = (64, 1) if form == "bf16" else (32, 4)
+    n_rg = -(-r_ // rows_per_block)
+    nchunk, per = _split_columns(q0.shape[0], max(per_sm * sms // n_rg, 1))
     part = torch.empty((nchunk, r_, E.shape[1]), device=E.device)
+    # the bf16 kernel's d_cos towards this step's written rows, [R, 2, bp]
+    wcoef = torch.zeros((r_, 2, bp), device=E.device) if form == "bf16" else None
     d_emb = torch.empty_like(E)
     dgt = torch.empty((2, r_), device=E.device)
     stream = torch.cuda.current_stream(E.device).cuda_stream
     _keep, args = _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
                                margin, scale, mask_svfc, qscales, e8, rtile, twin)
     err = lib.quad_bwd_launch(*args, logz.data_ptr(), kth.data_ptr(), dce.data_ptr(),
-                              dneg.data_ptr(), part.data_ptr(), nchunk, per, d_emb.data_ptr(),
-                              dgt.data_ptr(), stream)
+                              dneg.data_ptr(), part.data_ptr(),
+                              None if wcoef is None else wcoef.data_ptr(), nchunk, per,
+                              d_emb.data_ptr(), dgt.data_ptr(), stream)
     _check(lib, err, "quad_bwd")
     return d_emb, dgt
 

@@ -130,7 +130,10 @@ kernels' own clean cosines (``ops/twin_margin.clean_cos``, the tile code
 the forward and the backward's recompute run) with unit scales are f32 of
 the raw int32 accumulator and equal the integer product bit for bit; with
 the real scales they equal the plain version's f32(acc) · (se · s) bit for
-bit.
+bit. The bf16 form's clean cosines (``bf16_cos_checks``) come from the
+tensor cores in both tilings: equal to each other bit for bit (the
+backward's top-k test compares them with the forward's kth), and within
+BF16_COS_ATOL of the plain version's.
 
 Used by ``chip_smoke.py`` and the tests in ``tests/test_torch_kernels.py``.
 """
@@ -561,6 +564,24 @@ def int8_dot_checks(E8, se, w8, qs, tag: str = "") -> list[dict]:
         checks.append(_err(f"{tag}int8c clean cos (kernel, {tiles} tiles)", cos, plain, 0.0))
         del cos
     return checks
+
+
+BF16_COS_ATOL = 1e-6  # exact bf16 products, |cos| <= 1, summed in f32 in another order
+
+
+def bf16_cos_checks(E, q0, tag: str = "") -> list[dict]:
+    """The bf16 form's clean cosines of probes ``E`` [R <= 256, D] against a
+    bf16 plane ``q0`` (``clean_cos``): the backward's tiling against the
+    forward's, bit for bit (a count of elements that differ, limit 0), and
+    the forward's within BF16_COS_ATOL of the plain version."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    fwd = ttm.clean_cos(E, q0)
+    bwd = ttm.clean_cos(E, q0, bwd_tiles=True)
+    plain = ttm._clean_cos(ttm._bf16(E), q0, None, None)
+    return [{"name": f"{tag}bf16 clean cos elements differing (backward vs forward tiles)",
+             "count": True, "err": float((fwd != bwd).sum()), "limit": 0.0},
+            _err(f"{tag}bf16 clean cos (kernel, forward tiles)", fwd, plain, BF16_COS_ATOL)]
 
 
 def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = "",
