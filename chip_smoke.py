@@ -190,29 +190,34 @@ classes, bf16 momentum, fused SGD; the JAX bench suite's row):
 29. parity — the six margin_ce kernels' bf16 forms against their plain
    versions at full width (B = 128, D = 512, C = 2^20, Arc, k = 1, a
    repeated label, a 0.01·N(0, 1) classifier and momentum, lr 0.1, μ 0.9
-   Nesterov, wd 1e-4): the forward, the backward and the fused kernel in
-   the (w, mom) pairs (bf16, bf16), (bf16, f32) and (f32, bf16), each also
+   Nesterov, wd 1e-4): the forward, the cosines as each pass forms them
+   (the four tilings bit for bit, within 1e-6 of the plain version), the
+   backward and the fused kernel against the plain versions on those
+   cosines, in the (w, mom) pairs (bf16, bf16), (bf16, f32) and (f32,
+   bf16), each also
    with the momentum scaled by 1e-4 at lr 100 so that the gradient and the
    decay move w' and mom' on every row; AM, SV and
    Arc k = 3 with outlier rows at C = 4096; route D's forward with its
    statistics tile (512) and the sparse backward over 65,536 rows; the
    partial kernels over a 2^20 block and 4 emulated blocks of 1,250,000
    merged against the whole-classifier kernels; limits printed with their
-   reasons (``vlsfr_tpu_torch/utils/parity.py``); then three copies of
-   margin_ce.cu built with planted faults (a W operand left unrounded, the
-   stored row rounded and scaled afterwards, w' rounded twice), each of
-   which the checks must reject;
+   reasons (``vlsfr_tpu_torch/utils/parity.py``); then four copies of
+   margin_ce.cu built with planted faults (a W operand truncated, the
+   stored row as the operand with its 1/||w|| applied to the products,
+   <d_w_hat, w_hat> against the rounded w_hat, w' rounded twice), each of
+   which margin_ce_bwd's or the fused update's checks must reject;
 30. timing — each bf16 form at full width: kernel, plain version, a PyTorch
    composition on the tensor cores (bf16 matmuls with f32 accumulation,
    logsumexp, topk, the SGD chain) and the bound (bytes at 3.35 TB/s
    against the dots at 989 TFLOP/s; the f32 classifier beside a bf16
-   momentum at the f32 rate);
+   momentum at the f32 rate); margin_partial_bwd also over a 1,250,000-
+   column block;
 31. training — softmax_1m_bf16 through ``Trainer``: its first step against
    the plain composition of the same step on the same recorded inputs (the
    loss 1e-5 relative, the step's forward by ``parity.rounded_fwd_checks``,
-   then on its logz and top-k the classifier by ``parity.bf16_ulps``
-   outside the rows whose d_w straddled and the momentum by
-   ``parity.bf16_fresh_state``), then 4 steps (step
+   then on its logz and top-k and the kernels' cosines the classifier by
+   ``parity.bf16_ulps`` outside the rows whose d_w straddled and the
+   momentum by ``parity.bf16_fresh_state``), then 4 steps (step
    time, peak memory, a finite loss, each kernel form once per step, a
    profile of two warm steps); route A with (bf16, f32) and (f32, bf16),
    route B and route D at a bf16 classifier, 2 steps each;
@@ -227,8 +232,10 @@ calls either, in JAX or here):
 33. conv parity — ``conv3x3`` (``csrc/conv3x3.cu``; bf16 on the tensor
    cores, f32 on the FMA units) at tools/bench_conv.py's
    bf16 shapes [128, 56, 56, 64], [128, 112, 112, 64], [128, 28, 28, 128],
-   both modes at strip 28, with and without the statistics epilogue, and
-   the f32 form at [128, 56, 56, 64], against ``conv3x3_plain``
+   both modes at strip 28, with and without the statistics epilogue, ir50's
+   stem [128, 112, 112, 3] -> 64 (strip 28) and C = 256 -> 256 and 512 ->
+   512 at [128, 14, 14] (strip 14), and the f32 form at [128, 56, 56, 64],
+   against ``conv3x3_plain``
    (``parity.conv_checks``: bf16 y within one bf16 spacing plus the f32
    limit, at most 2e-3 of the elements apart; f32 y 2e-5 × max|y|; Σ and
    Σ² 1e-5 of Σ|y| and Σy² per channel), cuDNN's distance printed beside;
@@ -240,7 +247,8 @@ calls either, in JAX or here):
    counters set to 0 before and read after; the plain version's time and
    the bound per shape (bytes at 3.35 TB/s against the FLOP at 989 TFLOP/s
    bf16 or 67 f32); the kernels line takes [128, 56, 56, 64], taps9, strip
-   28;
+   28; then ir50's stem and C = 256 / 512 shapes (both modes, cuDNN, plain,
+   bound);
 35. the probe — ``vlsfr_tpu_torch.tools.probe_int8_mxu`` at B, D, T, NT =
    128, 512, 1024, 512: each form (``csrc/dot_probe.cu``, mma.sync) against
    its plain version (int8 bit for bit, the plain int8 against the exact
@@ -2284,11 +2292,29 @@ FUSED_PAIRS = {"bf16,bf16": (torch.bfloat16, torch.bfloat16),
                "bf16,f32": (torch.bfloat16, torch.float32),
                "f32,bf16": (torch.float32, torch.bfloat16)}
 # source edits of csrc/margin_ce.cu that break the bf16 form, each of which
-# the bf16 checks must reject (vlsfr_tpu_torch/utils/parity.py)
+# the bf16 checks must reject (vlsfr_tpu_torch/utils/parity.py): an (old,
+# new) pair or a tuple of them. The first three are planted in the tensor-
+# core staging and d_w epilogue that margin_ce_bwd runs (the forward shares
+# the staging), the last in the fused update
 BF16_FAULTS = {
-    "skips the W operand's rounding": ("    return bf16r(wn);", "    return wn;"),
+    "truncates the W operand (rounds toward zero)": (
+        "h = __floats2bfloat162_rn(f.x * s, f.y * s);",
+        "h = __halves2bfloat162(__float2bfloat16_rz(f.x * s), __float2bfloat16_rz(f.y * s));"),
     "rounds the stored row and scales afterwards": (
-        "    return bf16r(wn);", "    return bf16r(__bfloat162float(y)) * inv[row];"),
+        ("h = __floats2bfloat162_rn(f.x * s, f.y * s);", "h = __floats2bfloat162_rn(f.x, f.y);"),
+        ("? dcos_of(acc1[0][ni][2 * h + j], p0 + c + j,",
+         "? dcos_of(acc1[0][ni][2 * h + j] * inv[c + j], p0 + c + j,"),
+        ("*reinterpret_cast<__nv_bfloat162*>(Dq + swz(lr, c, E_TC / 8)) =\n"
+         "            __floats2bfloat162_rn(d[0], d[1]);",
+         "*reinterpret_cast<__nv_bfloat162*>(Dq + swz(lr, c, E_TC / 8)) =\n"
+         "            __floats2bfloat162_rn(d[0] * inv[c], d[1] * inv[c + 1]);"),
+        ("? dcos_of(acc[mi][ni][2 * h + j], t0 + c + j,",
+         "? dcos_of(acc[mi][ni][2 * h + j] * inv[c + j], t0 + c + j,")),
+    "takes <d_w_hat, w_hat> against the rounded w_hat": (
+        "s = fmaf(dwh[mi][j][2 * h], wf.x * iv, s);\n"
+        "          s = fmaf(dwh[mi][j][2 * h + 1], wf.y * iv, s);",
+        "s = fmaf(dwh[mi][j][2 * h], bf16r(wf.x * iv), s);\n"
+        "          s = fmaf(dwh[mi][j][2 * h + 1], bf16r(wf.y * iv), s);"),
     "rounds new_w twice": (
         "          store_as(w_upd + off, wv - sgd.lr * upd);",
         "          store_as(w_upd + off, wv + bf16r(-sgd.lr * upd));"),
@@ -2337,8 +2363,9 @@ def bf16_softmax_checks(case, tag: str, lr: float = LR) -> dict:
 
 
 def start_faulty_builds(tmp: str, source: str = "margin_ce", faults: dict = BF16_FAULTS) -> dict:
-    """One nvcc per planted fault (a source edit of ``csrc/<source>.cu``),
-    all started together: {fault: (process, library path)}."""
+    """One nvcc per planted fault (source edits of ``csrc/<source>.cu``: an
+    (old, new) pair or a tuple of them), all started together: {fault:
+    (process, library path)}."""
     import pathlib
     import shutil
 
@@ -2346,13 +2373,16 @@ def start_faulty_builds(tmp: str, source: str = "margin_ce", faults: dict = BF16
 
     src = (cuda_build.CSRC / f"{source}.cu").read_text()
     procs = {}
-    for i, (name, (old, new)) in enumerate(faults.items()):
-        if src.count(old) != 1:
-            raise RuntimeError(f"the planted fault {name!r} does not match {source}.cu once")
+    for i, (name, spec) in enumerate(faults.items()):
+        edited = src
+        for old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
+            if src.count(old) != 1:
+                raise RuntimeError(f"the planted fault {name!r} does not match {source}.cu once")
+            edited = edited.replace(old, new)
         out = pathlib.Path(tmp) / f"{source}_fault{i}"
         out.mkdir()
         shutil.copy(cuda_build.CSRC / "margin_common.cuh", out)
-        (out / f"{source}.cu").write_text(src.replace(old, new))
+        (out / f"{source}.cu").write_text(edited)
         procs[name] = (cuda_build.start_nvcc(out / f"{source}.cu", out / f"lib{source}.so"),
                        out / f"lib{source}.so")
     return procs
@@ -2381,37 +2411,64 @@ def planted(source: str, name: str, proc_and_path):
             cuda_build._LOADED[source] = real
 
 
+# what each planted fault must fail: margin_ce_bwd's d_emb and d_w row
+# counts (the staging faults), its d_w count alone (the projection's), the
+# fused update's w' count
+FAULT_MUST_FAIL = {
+    "truncates the W operand (rounds toward zero)": (
+        "d_emb (grad_w=True) rows beyond 1e-05 x max", "d_w (other rows) rows beyond 1e-05 x max"),
+    "rounds the stored row and scales afterwards": (
+        "d_emb (grad_w=True) rows beyond 1e-05 x max", "d_w (other rows) rows beyond 1e-05 x max"),
+    "takes <d_w_hat, w_hat> against the rounded w_hat": (
+        "d_w (other rows) rows beyond 1e-05 x max",),
+    "rounds new_w twice": ("w' elements apart",),
+}
+
+
 def check_planted_faults(procs: dict) -> None:
     """Each faulty margin_ce.cu, built, at full width (B = 128, D = 512,
-    C = 2^20, Arc, bf16 classifier and momentum) against the plain versions:
-    the forward's checks must fail for the two operand faults, the fused
-    update's w' count for the twice-rounded update; the real library passes
-    the same checks (phase 29)."""
+    C = 2^20, Arc, bf16 classifier and momentum) against the plain versions
+    from the plain forward's logz / top-k: margin_ce_bwd's d_emb and d_w by
+    the bf16 checks and the fused update's w' by ``parity.bf16_ulps``; each
+    fault must fail its FAULT_MUST_FAIL checks (the projection fault no
+    d_emb check); the real library passes the same checks (phase 29)."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
     from vlsfr_tpu_torch.utils import parity
 
     emb, w, mom, labels, d_ce, d_neg, kw = bf16_case(SOFTMAX["c"], "Arc", 1, 0.0, seed=21)
+    # the references are the plain versions on the real kernels' cosines
     gt = tms.compute_gt(emb, w, labels)
     want = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
     logz, topk = want[2], want[3]
+    bwd = (emb, w, labels, gt, logz, topk, d_ce, d_neg)
+    d_ce_m, _ = tms._mask_cotangents(labels >= 0, d_ce, d_neg)
+    term, _ = tms._target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=kw["loss_type"],
+                               margin=kw["margin"], scale=kw["scale"])
+    cos = tms.clean_cos(emb, w)  # the real kernels' cosines (parity's module docstring)
+    de_p, dw_p = tms.margin_ce_bwd_plain(*bwd, cos=cos, **kw)
     w0, mom0 = w.clone(), mom.clone()
     tms.margin_ce_bwd_fused_sgd_plain(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, LR,
-                                      **SGD, **kw)
+                                      cos=cos, **SGD, **kw)
+    del cos
     w_p = w
     for name, proc_and_path in procs.items():
         with planted("margin_ce", name, proc_and_path):
-            got = tms.margin_ce_fwd(emb, w0, labels, gt, **kw)
+            de_k, dw_k = tms.margin_ce_bwd(emb, w0, *bwd[2:], **kw)
             w_k, mom_k = w0.clone(), mom0.clone()
             tms.margin_ce_bwd_fused_sgd(emb, w_k, mom_k, labels, gt, logz, topk, d_ce, d_neg, LR,
                                         **SGD, **kw)
-        checks = parity.rounded_fwd_checks(got, want) + parity.bf16_ulps("w'", w_k, w_p, w0)
-        failed = parity.failures(checks)
-        print(f"  planted fault ({name}): fails "
-              + "; ".join(parity.describe(c) for c in failed))
-        must = "w' elements apart" if name == "rounds new_w twice" else "top-k"
-        if not any(c["name"] == must for c in failed):
+        checks = (parity.softmax_demb("d_emb (grad_w=True)", de_k, de_p, de_p - term,
+                                      cols=SOFTMAX["c"])
+                  + parity.rounded_rows("d_w", dw_k, dw_p, dw_p, labels)
+                  + parity.bf16_ulps("w'", w_k, w_p, w0))
+        failed = {c["name"] for c in parity.failures(checks)}
+        print(f"  planted fault ({name}): fails " + "; ".join(
+            parity.describe(c) for c in checks if c["name"] in failed))
+        demb_ok = name != "takes <d_w_hat, w_hat> against the rounded w_hat" or not any(
+            n.startswith("d_emb") for n in failed)
+        if not (set(FAULT_MUST_FAIL[name]) <= failed and demb_ok):
             raise RuntimeError(f"the bf16 checks pass a margin_ce.cu that {name}")
-        del got, w_k, mom_k
+        del de_k, dw_k, w_k, mom_k
 
 
 def bf16_parity_phase(tmp: str) -> dict:
@@ -2584,6 +2641,30 @@ def bf16_timing_phase(sparse_case) -> dict:
                 3 * product / PEAK_BF16_FLOPS * 1e3))
     del d_cos, wn
     print_times(out)
+    # margin_partial_bwd over a 4-card block of the shipped 5,000,000 classes
+    # (1,250,000 columns: not a multiple of 64); not on the kernels line
+    cb = SHIPPED_CLASSES // CLASS_SHARDS
+    w_b = bf16_case(cb, "Arc", 1, 0.0, 14)[1]
+    ll_b, _ = localize_labels(0, cb, labels)
+    gt_b = tms.compute_gt(emb, w_b, ll_b)
+    _, d_wl_b = tms._target_rows(emb, w_b, ll_b, gt_b, logz, d_ce_m, loss_type=kw["loss_type"],
+                                 margin=kw["margin"], scale=kw["scale"])
+    bargs_b = (emb, w_b, ll_b, gt_b, logz, kth, d_ce_m, d_neg_m, d_wl_b)
+    wn_b = F.normalize(w_b.float(), dim=1).bfloat16()
+    d_cos_b = torch.randn((b, cb), device=emb.device).mul_(1e-4).bfloat16()
+
+    def lib_bwd_b():
+        torch.matmul(d_cos_b, wn_b).float()
+        return torch.matmul(d_cos_b.T, eb).float()
+
+    pb = 2.0 * b * d * cb
+    v = dict(ms=cuda_ms(lambda: tms.margin_partial_bwd(*bargs_b, **kw), 5),
+             plain_ms=cuda_ms(lambda: tms.margin_partial_bwd_plain(*bargs_b, **kw), 3, 1),
+             library_ms=cuda_ms(lib_bwd_b, 5, 1),
+             **bound(3 * pb, 6 * cb * d + 12 * b * d + 4 * 7 * b, 3 * pb / PEAK_BF16_FLOPS * 1e3))
+    print(f"  margin_partial_bwd[bf16] over {cb} columns: ms={v['ms']:.3f} "
+          f"plain_ms={v['plain_ms']:.3f} library_ms={v['library_ms']:.3f} "
+          f"bound_ms={v['bound_ms']:.3f} ({v['bound_by']})")
     return out
 
 
@@ -2638,14 +2719,17 @@ def bf16_first_step(tmp: str) -> None:
         checks = parity.rounded_fwd_checks(got, want)
         loss_p = float(want[0].mean())
         logz, topk = got[2], got[3]
+        checks += parity.margin_cos_checks(emb, w0)
+        cos = tms.clean_cos(emb, w0)  # the plain versions on the kernels' cosines
         w_p, mom_p = w0.clone(), mom0.clone()
         tms.margin_ce_bwd_fused_sgd_plain(emb, w_p, mom_p, labels, gt, logz, topk, d_ce, d_neg,
                                           rec["lr"], momentum=kw["momentum"],
                                           nesterov=kw["nesterov"],
-                                          weight_decay=kw["weight_decay"], **fkw)
+                                          weight_decay=kw["weight_decay"], cos=cos, **fkw)
         bwd = (emb, w0, labels, gt, logz, topk, d_ce, d_neg)
         _, dw_k = tms.margin_ce_bwd(*bwd, **fkw)
-        _, dw_p = tms.margin_ce_bwd_plain(*bwd, **fkw)
+        _, dw_p = tms.margin_ce_bwd_plain(*bwd, cos=cos, **fkw)
+        del cos
         straddled = parity.straddled_rows(dw_k, dw_p, labels)
         del dw_k, dw_p
         checks += parity.bf16_ulps("classifier", st.classifier, w_p, w0, straddled)
@@ -2830,6 +2914,12 @@ def bf16_sharded_phase(card: str, tmp: str) -> dict:
 
 CONV_STRIP = 28  # conv3x3_pallas's default strip; it divides every bench shape's H
 CONV_F32_SHAPE = (128, 56, 56, 64)  # the f32 form: the bench's first shape
+# ir50's widths outside the bench (x shape, Cout, strip), bf16: the stem (C =
+# 3, padded to 8 channels by the wrapper) and C = 256 / 512 at 14² (their
+# weight slices streamed; ir50 runs 512 at 7², which no even strip divides,
+# in JAX's contract as here)
+CONV_IR50 = (((128, 112, 112, 3), 64, 28), ((128, 14, 14, 256), 256, 14),
+             ((128, 14, 14, 512), 512, 14))
 # source edits of csrc/conv3x3.cu and csrc/dot_probe.cu, each of which the
 # checks must reject (vlsfr_tpu_torch/utils/parity.py: conv_checks, probe_checks)
 CONV_FAULTS = {
@@ -2844,18 +2934,18 @@ PROBE_FAULTS = {
 }
 
 
-def conv_case(shape, dtype, seed: int):
+def conv_case(shape, dtype, seed: int, cout: int | None = None):
     """The bench's inputs on the card: x ~ N(0, 1), w ~ 0.045 N(0, 1) (HWIO,
-    C -> C), in ``dtype``."""
+    C -> ``cout``, C by default), in ``dtype``."""
     b, h, w, c = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    wt = (torch.randn((3, 3, c, c), generator=gen, device="cuda") * 0.045).to(dtype)
+    wt = (torch.randn((3, 3, c, cout or c), generator=gen, device="cuda") * 0.045).to(dtype)
     return x, wt
 
 
-def conv_parity(x, w) -> dict:
-    """Both modes at CONV_STRIP, with and without statistics, against
+def conv_parity(x, w, strip: int = CONV_STRIP) -> dict:
+    """Both modes at ``strip``, with and without statistics, against
     conv3x3_plain (``parity.conv_checks``, limits there; raises above one),
     cuDNN's y printed beside. Returns the max |kernel - plain| of y and of
     the statistics."""
@@ -2866,8 +2956,8 @@ def conv_parity(x, w) -> dict:
     lib = tconv.conv3x3_library(x, w).float()
     out = {"y": 0.0, "stats": 0.0}
     for mode in tconv.MODES:
-        y = tconv.conv3x3(x, w, mode=mode, strip=CONV_STRIP)
-        ys, st = tconv.conv3x3(x, w, mode=mode, strip=CONV_STRIP, with_stats=True)
+        y = tconv.conv3x3(x, w, mode=mode, strip=strip)
+        ys, st = tconv.conv3x3(x, w, mode=mode, strip=strip, with_stats=True)
         print(f"  {mode}: max |y - cuDNN| {float((y.float() - lib).abs().max()):.3e}, "
               f"max |plain - cuDNN| {float((y_p.float() - lib).abs().max()):.3e}")
         report(parity.conv_checks(y, y_p, tag=mode)
@@ -2901,6 +2991,13 @@ def conv_parity_phase(tmp: str) -> dict:
         errs["conv3x3[stats]"] = max(errs["conv3x3[stats]"], e["y"], e["stats"])
         gc.collect()
         torch.cuda.empty_cache()
+    for shape, cout, strip in CONV_IR50:
+        print(f"  bf16 {shape} -> {cout}, strip {strip}:")
+        e = conv_parity(*conv_case(shape, torch.bfloat16, seed=37, cout=cout), strip)
+        errs["conv3x3"] = max(errs["conv3x3"], e["y"])
+        errs["conv3x3[stats]"] = max(errs["conv3x3[stats]"], e["y"], e["stats"])
+        gc.collect()
+        torch.cuda.empty_cache()
     print(f"  f32 {CONV_F32_SHAPE}, strip {CONV_STRIP}:")
     errs["conv3x3[f32]"] = conv_parity(*conv_case(CONV_F32_SHAPE, torch.float32, seed=34))["y"]
     print("  planted faults (conv3x3.cu copies built at the start of this phase), at "
@@ -2918,13 +3015,14 @@ def conv_parity_phase(tmp: str) -> dict:
     return errs
 
 
-def conv_bound(shape, dtype, with_stats: bool) -> dict:
+def conv_bound(shape, dtype, with_stats: bool, cout: int | None = None) -> dict:
     """x read and y written once, w read once (+ the statistics), against
     the FLOP at the bf16 tensor-core rate (bf16) or the f32 rate."""
     b, h, w, c = shape
+    co = cout or c
     item = 2 if dtype == torch.bfloat16 else 4
-    flop = 2.0 * b * h * w * 9 * c * c
-    nbytes = item * (2 * b * h * w * c + 9 * c * c) + (2 * 4 * c if with_stats else 0)
+    flop = 2.0 * b * h * w * 9 * c * co
+    nbytes = item * (b * h * w * (c + co) + 9 * c * co) + (2 * 4 * co if with_stats else 0)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     return bound(flop, nbytes, flop / peak * 1e3)
 
@@ -2974,6 +3072,20 @@ def conv_timing_phase() -> tuple[dict, dict]:
                     times[name] = dict(ms=r["ms"], plain_ms=plain_st if st else plain,
                                        library_ms=lib["library+stats" if st else "library"],
                                        **conv_bound(shape, dtype, st))
+    print("  ir50's other widths (bf16, taps9 and im2col at the strip; not on the kernels line):")
+    for shape, cout, strip in CONV_IR50:
+        x, w = conv_case(shape, torch.bfloat16, seed=38, cout=cout)
+        v = conv_bound(shape, torch.bfloat16, False, cout)
+        ms = {mode: cuda_ms(lambda m=mode: tconv.conv3x3(x, w, mode=m, strip=strip), 10)
+              for mode in tconv.MODES}
+        print(f"    {list(shape)} -> {cout} strip={strip}: ms taps9={ms['taps9']:.3f} im2col="
+              f"{ms['im2col']:.3f} ({v['flop'] / ms['taps9'] / 1e9:.1f} TFLOP/s) library_ms="
+              f"{cuda_ms(lambda: tconv.conv3x3_library(x, w), 10):.3f} plain_ms="
+              f"{cuda_ms(lambda: tconv.conv3x3_plain(x, w), 3, 1):.3f} bound_ms="
+              f"{v['bound_ms']:.4f} ({v['bound_by']})")
+        del x, w
+        gc.collect()
+        torch.cuda.empty_cache()
     return times, launches
 
 
@@ -3220,8 +3332,9 @@ def main() -> int:
               "NCCL group of one")
         launches.update(bf16_sharded_phase(card, tmp))
 
-        print("== phase 33: conv3x3 at full width (the bench's bf16 shapes, both modes, with and "
-              f"without statistics; f32 at {CONV_F32_SHAPE}) against the plain version")
+        print("== phase 33: conv3x3 at full width (the bench's bf16 shapes and ir50's stem, C = "
+              f"256 and 512 at 14², both modes, with and without statistics; f32 at "
+              f"{CONV_F32_SHAPE}) against the plain version")
         errs.update(conv_parity_phase(tmp))
         print("== phase 34: conv3x3 timing through vlsfr_tpu_torch.tools.bench_conv")
         ctimes, claunches = conv_timing_phase()

@@ -36,7 +36,9 @@ def bf16_spacing(v: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("mode", ["taps9", "im2col"])
 @pytest.mark.parametrize("shape,cout,strip", [((2, 8, 8, 8), 8, 4),
                                               ((2, 8, 12, 8), 16, 4),
-                                              ((1, 12, 6, 4), 8, 6)])
+                                              ((1, 12, 6, 4), 8, 6),
+                                              ((1, 8, 8, 3), 16, 4),
+                                              ((1, 4, 4, 256), 64, 4)])
 def test_plain_matches_pallas_and_xla_f32(mode, shape, cout, strip):
     x, w = inputs(0, shape, cout)
     want = np.asarray(conv3x3_pallas(jnp.asarray(x), jnp.asarray(w), mode=mode, strip=strip,
@@ -86,6 +88,22 @@ def test_bf16_within_one_spacing_of_pallas(mode):
     diff = np.abs(got.float().numpy() - want)
     assert (diff <= bf16_spacing(want)).all()
     assert int((diff > 0).sum()) <= diff.size // 100  # straddles only
+
+
+@pytest.mark.parametrize("mode", ["taps9", "im2col"])
+@pytest.mark.parametrize("shape,cout", [((1, 8, 8, 3), 16), ((1, 4, 4, 256), 64)])
+def test_bf16_c3_and_c256_within_one_spacing_of_pallas(mode, shape, cout):
+    """The channel counts the bf16 kernel pads (C = 3: ir50's stem) and
+    streams (C = 256): the plain version within one bf16 spacing of JAX's
+    conv3x3_pallas, straddles few."""
+    x, w = inputs(9, shape, cout)
+    want = np.asarray(conv3x3_pallas(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), mode=mode,
+                                     strip=4, interpret=True), np.float32)
+    got = tconv.conv3x3(torch.from_numpy(x).bfloat16(), torch.from_numpy(w), mode=mode, strip=4)
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= bf16_spacing(want)).all()
+    assert int((diff > 0).sum()) <= max(diff.size // 100, 1)  # straddles only
 
 
 @pytest.mark.parametrize("strip", [3, 5])

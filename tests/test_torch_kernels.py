@@ -452,18 +452,21 @@ def test_bf16_softmax_kernels_match_plain(pair, loss_type, k, frac_outlier):
 
 def _build_faulty(tmp_path, faults, source="margin_ce"):
     """{"real": the built library of ``csrc/<source>.cu``, name: a copy
-    built with that fault's source edit} — the copies compiled in parallel
-    into tmp_path."""
+    built with that fault's source edit, an (old, new) pair or a tuple of
+    them} — the copies compiled in parallel into tmp_path."""
     from vlsfr_tpu_torch.ops import cuda_build
 
     src = (cuda_build.CSRC / f"{source}.cu").read_text()
     procs = {}
-    for name, (old, new) in faults.items():
-        assert src.count(old) == 1, name
+    for name, spec in faults.items():
+        edited = src
+        for old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
+            assert src.count(old) == 1, name
+            edited = edited.replace(old, new)
         out = tmp_path / name
         out.mkdir()
         shutil.copy(cuda_build.CSRC / "margin_common.cuh", out)
-        (out / f"{source}.cu").write_text(src.replace(old, new))
+        (out / f"{source}.cu").write_text(edited)
         procs[name] = cuda_build.start_nvcc(out / f"{source}.cu", out / f"lib{source}.so")
     libs = {"real": cuda_build.load_library(source)}
     for name, proc in procs.items():
@@ -529,6 +532,122 @@ def test_softmax_checks_reject_planted_faults(tmp_path, monkeypatch):
     assert failed["real"] == set()
     assert {"w' (other rows)", "mom' (other rows)"} <= failed["no_weight_decay"]
     assert {"d_w (other rows)", "w' (other rows)", "mom' (other rows)"} <= failed["d_w_x1.1"]
+
+
+# source edits of the bf16 form's tensor-core staging and d_w epilogue
+# (csrc/margin_ce.cu): each must fail the bf16 backward's checks
+BF16_BWD_FAULTS = {
+    # the W operand cut toward zero instead of rounded to nearest
+    "truncates_operand": ("h = __floats2bfloat162_rn(f.x * s, f.y * s);",
+                          "h = __halves2bfloat162(__float2bfloat16_rz(f.x * s), "
+                          "__float2bfloat16_rz(f.y * s));"),
+    # the stored row as the operand, its 1/||w|| applied to the products
+    "rounds_stored_row_then_scales": (
+        ("h = __floats2bfloat162_rn(f.x * s, f.y * s);", "h = __floats2bfloat162_rn(f.x, f.y);"),
+        ("? dcos_of(acc1[0][ni][2 * h + j], p0 + c + j,",
+         "? dcos_of(acc1[0][ni][2 * h + j] * inv[c + j], p0 + c + j,"),
+        ("*reinterpret_cast<__nv_bfloat162*>(Dq + swz(lr, c, E_TC / 8)) =\n"
+         "            __floats2bfloat162_rn(d[0], d[1]);",
+         "*reinterpret_cast<__nv_bfloat162*>(Dq + swz(lr, c, E_TC / 8)) =\n"
+         "            __floats2bfloat162_rn(d[0] * inv[c], d[1] * inv[c + 1]);"),
+        ("? dcos_of(acc[mi][ni][2 * h + j], t0 + c + j,",
+         "? dcos_of(acc[mi][ni][2 * h + j] * inv[c + j], t0 + c + j,")),
+    # <d_w_hat, w_hat> against the rounded w_hat
+    "rounded_w_hat_in_projection": (
+        "s = fmaf(dwh[mi][j][2 * h], wf.x * iv, s);\n"
+        "          s = fmaf(dwh[mi][j][2 * h + 1], wf.y * iv, s);",
+        "s = fmaf(dwh[mi][j][2 * h], bf16r(wf.x * iv), s);\n"
+        "          s = fmaf(dwh[mi][j][2 * h + 1], bf16r(wf.y * iv), s);"),
+}
+
+
+@pytest.mark.gpu
+def test_bf16_backward_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """At B = 128, D = 512, C = 2^17 (Arc, k = 1) the bf16 backward's checks
+    (``parity.margin_ce_bwd_checks``) pass the real tensor-core passes and
+    fail copies of margin_ce.cu that truncate the W operand and that take
+    the stored row as the operand and scale the products (in the cosines
+    against the plain version's: the checks' references run on the
+    library's own cosines), and one that takes <d_w_hat, w_hat> against the
+    rounded w_hat (in d_w alone)."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, BF16_BWD_FAULTS)
+    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(6, 128, 1 << 17, 512, 1, 0.0, dev)
+    w, mom = w.bfloat16(), mom.bfloat16()
+    kw = dict(loss_type="Arc", margin=0.5, scale=32.0, k=1, mask_svfc=1.2)
+    gt = tms.compute_gt(emb, w, labels)
+    _, _, logz, topk = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
+    failed = {}
+    for name, lib in libs.items():
+        monkeypatch.setitem(cuda_build._LOADED, "margin_ce", lib)
+        bwd, _ = parity.margin_ce_bwd_checks(emb, w, mom.clone(), labels, gt, logz, topk, d_ce,
+                                             d_neg, kw, LR, SGD)
+        for ch in bwd:
+            print(f"{name}: {parity.describe(ch)}")
+        failed[name] = {ch["name"] for ch in parity.failures(bwd)}
+    print({name: sorted(f) for name, f in failed.items()})
+    cos = "bf16 cos (kernel, forward tiles)"
+    dw = "d_w (other rows) rows beyond 1e-05 x max"
+    assert failed["real"] == set()
+    for name in ("truncates_operand", "rounds_stored_row_then_scales"):
+        assert cos in failed[name], name
+    assert dw in failed["rounded_w_hat_in_projection"]
+    assert not any(n.startswith(("d_emb", "bf16 cos")) for n in failed["rounded_w_hat_in_projection"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,c,d", [(100, 5000, 512), (37, 3002, 192), (128, 4136, 64)])
+def test_bf16_backward_ragged_matches_plain(b, c, d):
+    """The bf16 classifier's backward at B not a multiple of 16 and C not
+    of 64 (D from 64 to 512), against the plain versions with the bf16
+    checks: margin_ce_bwd with and without d_w and the fused kernel, after
+    the cosines of every tiling bit for bit (``parity.margin_ce_bwd_checks``),
+    and the partial kernels over two ragged blocks
+    (``parity.margin_partial_checks``)."""
+    from vlsfr_tpu_torch.parallel._shard_common import localize_labels
+
+    dev = _cuda()
+    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(3, b, c, d, 3, 0.3, dev)
+    w, mom = w.bfloat16(), mom.bfloat16()
+    kw = dict(loss_type="Arc", margin=0.5, scale=32.0, k=3, mask_svfc=1.2)
+    gt = tms.compute_gt(emb, w, labels)
+    want = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
+    checks = parity.rounded_fwd_checks(tms.margin_ce_fwd(emb, w, labels, gt, **kw), want)
+    bwd, fused = parity.margin_ce_bwd_checks(emb, w, mom, labels, gt, want[2], want[3], d_ce,
+                                             d_neg, kw, LR, SGD)
+    checks += bwd + fused
+    d_ce_m, d_neg_m = tms._mask_cotangents(labels >= 0, d_ce, d_neg)
+    cl = c // 2
+    for j in range(2):
+        blk = w[j * cl:(j + 1) * cl]
+        ll, _ = localize_labels(j * cl, cl, labels)
+        _, d_wl = tms._target_rows(emb, blk, ll, gt, want[2], d_ce_m, loss_type="Arc", margin=0.5,
+                                   scale=32.0)
+        checks += parity.margin_partial_checks(emb, blk, ll, gt, want[2],
+                                               want[3][:, -1].contiguous(), d_ce_m, d_neg_m,
+                                               d_wl.contiguous(), kw, tag=f"block {j}/2 ")[0]
+    torch.cuda.synchronize()
+    for ch in checks:
+        print(parity.describe(ch))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,c,d", [(128, 5000, 512), (40, 777, 128), (100, 4096, 64)])
+def test_bf16_margin_cosines_match_between_tilings(b, c, d):
+    """The bf16 classifier's cosines as the forward, the d_emb pass, the
+    d_w pass and the fused / sparse d_w pass form them (``clean_cos``, all
+    on the tensor cores): equal bit for bit, and within 1e-6 of the plain
+    version (``parity.margin_cos_checks``)."""
+    dev = _cuda()
+    emb, w, *_ = make_softmax_case(4, b, c, d, 1, 0.0, dev)
+    checks = parity.margin_cos_checks(emb, w.bfloat16())
+    torch.cuda.synchronize()
+    for ch in checks:
+        print(parity.describe(ch))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
 
 
 @pytest.mark.gpu
@@ -1118,11 +1237,14 @@ def test_twin_checks_reject_planted_faults(tmp_path, monkeypatch):
 # (limits in utils/parity.py: conv_checks, probe_checks)
 # ----------------------------------------------------------------------
 
-# (x shape, Cout, strip): C of 8 to 128, H and W off the 128-pixel tile,
-# Cout a multiple of 64, not one, and not a multiple of 8
+# (x shape, Cout, strip): C of 3 to 512 (3: padded to 8 channels; 256 and
+# 512: the weight slice streamed, at 28 in groups of rows and a short last
+# group), H and W off the 128-pixel tile, Cout a multiple of 64, not one,
+# and not a multiple of 8
 CONV_CASES = [((2, 8, 8, 8), 8, 4), ((2, 12, 20, 24), 40, 6), ((3, 28, 28, 64), 72, 14),
               ((2, 30, 26, 64), 64, 10), ((2, 18, 22, 128), 128, 6), ((1, 14, 30, 128), 96, 14),
-              ((1, 8, 9, 16), 27, 8)]
+              ((1, 8, 9, 16), 27, 8), ((2, 16, 12, 3), 64, 8), ((2, 14, 14, 256), 64, 14),
+              ((1, 28, 28, 256), 64, 28), ((1, 14, 14, 512), 72, 14)]
 
 
 @pytest.mark.gpu

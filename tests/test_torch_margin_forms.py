@@ -68,24 +68,24 @@ def to_torch(x):
 
 
 def make_case(seed, c=C, loss_type="Arc", k=1, frac_outlier=0.0, w_dtype=torch.bfloat16,
-              mom_dtype=torch.bfloat16):
-    """Unit embeddings, a 0.01·N(0, 1) classifier and momentum in their
-    dtypes (as JAX draws and casts them), labels with rows 0 and 1 one
-    class, outlier rows at ``frac_outlier``, d_ce = 1/b on labelled rows
+              mom_dtype=torch.bfloat16, b=B):
+    """Unit embeddings (``b`` rows), a 0.01·N(0, 1) classifier and momentum
+    in their dtypes (as JAX draws and casts them), labels with rows 0 and 1
+    one class, outlier rows at ``frac_outlier``, d_ce = 1/b on labelled rows
     and d_neg = 1/b on the others."""
     rng = np.random.default_rng(seed)
-    emb = rng.standard_normal((B, D)).astype(np.float32)
+    emb = rng.standard_normal((b, D)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=-1, keepdims=True)
     w = torch.from_numpy((0.01 * rng.standard_normal((c, D))).astype(np.float32)).to(w_dtype)
     mom = torch.from_numpy((0.01 * rng.standard_normal((c, D))).astype(np.float32)).to(mom_dtype)
-    labels = rng.integers(0, c, B).astype(np.int32)
+    labels = rng.integers(0, c, b).astype(np.int32)
     labels[1] = labels[0]
     if frac_outlier:
-        labels[rng.random(B) < frac_outlier] = -1
+        labels[rng.random(b) < frac_outlier] = -1
         labels[2] = -1
     pos = labels >= 0
-    d_ce = torch.from_numpy(np.where(pos, 1.0 / B, 0.0).astype(np.float32))
-    d_neg = torch.from_numpy(np.where(pos, 0.0, 1.0 / B).astype(np.float32))
+    d_ce = torch.from_numpy(np.where(pos, 1.0 / b, 0.0).astype(np.float32))
+    d_neg = torch.from_numpy(np.where(pos, 0.0, 1.0 / b).astype(np.float32))
     kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
     return torch.from_numpy(emb), w, mom, torch.from_numpy(labels), d_ce, d_neg, kw
 
@@ -144,6 +144,27 @@ def test_backward_forms_match_pallas_interpret(loss_type, k, frac_outlier):
     term = _streamed(emb, w, labels, gt, logz, d_ce, d_neg, kw)
     gw = to_torch(gw).float()
     assert_holds(parity.softmax_demb("d_emb", d_emb, want, want - term, cols=C)
+                 + parity.rounded_rows("d_w", d_w.to(torch.bfloat16).float(), gw, gw, labels))
+
+
+@pytest.mark.parametrize("loss_type,k,frac_outlier", [("Arc", 1, 0.0), ("SV", 3, 0.3)])
+def test_backward_ragged_form_matches_pallas_interpret(loss_type, k, frac_outlier):
+    """margin_ce_bwd's bf16 form with and without d_w at B = 12 (not a
+    multiple of 16) and C = 1000 (not a multiple of 64, nor of JAX's tile)
+    against pallas_margin_ce_bwd: d_emb, and d_w in bf16."""
+    c = 1000
+    emb, w, _, labels, d_ce, d_neg, kw = make_case(7, c=c, loss_type=loss_type, k=k,
+                                                   frac_outlier=frac_outlier, b=12)
+    gt, (_, _, logz, topk) = jax_forward(emb, w, labels, kw)
+    ge, gw = jmp.pallas_margin_ce_bwd(*(to_jax(x) for x in (emb, w, labels, gt, logz, topk, d_ce,
+                                                             d_neg)), **pallas_kw(kw))
+    want, gw = to_torch(ge), to_torch(gw).float()
+    term = _streamed(emb, w, labels, gt, logz, d_ce, d_neg, kw)
+    d_emb, d_w = tms.margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, **kw)
+    d_emb0, no_w = tms.margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, grad_w=False,
+                                     **kw)
+    assert no_w is None and torch.equal(d_emb0, d_emb)
+    assert_holds(parity.softmax_demb("d_emb", d_emb, want, want - term, cols=c)
                  + parity.rounded_rows("d_w", d_w.to(torch.bfloat16).float(), gw, gw, labels))
 
 

@@ -22,7 +22,7 @@
 // (B, H / strip) and a 64-wide slice of Cout (grid (B * H / strip,
 // ceil(Cout / 64))), and walks the strip's strip * W output pixels as an
 // implicit GEMM: M = pixels, N = output channels, K = 9 * C. The SAME
-// padding is a zero load, so no padded copy of x is made. mode selects the
+// padding is a zero load, so no spatially padded copy of x is made. mode selects the
 // order of K: taps9 walks tap-major (JAX's nine accumulating dots), im2col
 // channel-major (the order of PyTorch's unfold). Statistics: the block
 // reduces its threads' per-channel sums in a fixed order into one partial
@@ -30,11 +30,12 @@
 // partials in block order. No float atomics: the result is the same on
 // every run.
 //
-// bf16 form (conv3x3_bf16_kernel): tensor cores, mma.sync m16n8k16 over
-// operands staged in shared memory as bf16 (csrc/mma_bf16.cuh).
-//  * The block's weight slice, rows (tap, c) of K padded to C16 = C rounded
-//    up to 16, x 64 channels, is staged once (73.7 KB at C = 64, 147 KB at
-//    C = 128) and kept across the strip.
+// bf16 form (conv3x3_bf16_kernel, conv3x3_bf16_stream_kernel): tensor
+// cores, mma.sync m16n8k16 over operands staged in shared memory as bf16
+// (csrc/mma_bf16.cuh).
+//  * Resident where it fits: the block's weight slice, rows (tap, c) of K
+//    padded to C16 = C rounded up to 16, x 64 channels, is staged once
+//    (73.7 KB at C = 64, 147 KB at C = 128) and kept across the strip.
 //  * x is read once (and its halo rows twice), not once per tap: the strip
 //    is walked in groups of tr output rows, and each group's halo, (tr + 2)
 //    rows x (W + 2) pixels x C16 channels, is staged by cp.async, zero-
@@ -49,6 +50,12 @@
 //    worked out once a pass. K is walked in k16 steps of one tap and 16
 //    channels; mode is their order (taps9: tap-major, im2col:
 //    channel-major). No step waits for a copy or a barrier.
+//  * Streamed where the slice does not fit beside one halo row (C = 256:
+//    295 KB, C = 512: 590 KB): K is cut into chunks of cch = 64 (or 32, 16)
+//    channels; each (group, pass, chunk) stages that chunk's halo and its
+//    weight rows [9 cch][64] together, two stages, the next under this
+//    one's products (208 KB at cch = 64, W = 14, tr = 14). A pass sums its
+//    chunks in channel order, each in the mode's order within it.
 //  * 8 warps: 4 along the pixels, each up to 6 m16 slices (taken round
 //    robin, so a short group spreads over the warps), x 2 along the
 //    channels, 32 each; a slice past the group's pixels is skipped.
@@ -56,9 +63,10 @@
 //    m16 slice; two channels per n8 tile) over the block's pixels, the 8
 //    lanes that share a channel combine by fixed xor shuffles, and the 4
 //    pixel warps in order.
-//  * C must be a multiple of 8 (16-byte pieces) and its weight slice and two
-//    halo stages of one row must fit in 227 KB of shared memory (C <= 144
-//    at W <= 112); the wrapper checks (conv3x3_bf16_fits).
+//  * C must be a multiple of 8 (16-byte cp.async pieces of a pixel's
+//    channels): the wrapper pads x's (and w's) channel axis with zeros once
+//    where it is not (ir50's stem, C = 3), as JAX's wrapper pads x's
+//    spatial halo, and the zero channels add nothing to the sums.
 //
 // f32 form (conv3x3_f32_kernel): f32 FMA ("f32 means f32": no TF32). Each K
 // chunk of 16 stages a [16][64] tile of x (gathered at the tap's offset)
@@ -212,62 +220,184 @@ constexpr int MS = 6;                  // m16 pixel slices a warp holds in a pas
 constexpr int PASS_PX = 4 * MS * 16;   // pixels of one pass (4 pixel warps)
 constexpr int BF16_MAX_SMEM = 232448;  // a block's dynamic shared memory on sm_90
 
-// the bf16 kernel's shared memory with n_st halo stages of tr output rows:
-// the weight slice [9 C16][BN], the stages of (tr + 2) x (W + 2) pixels x
-// C16 channels, the statistics' reduction
+// the resident kernel's shared memory with n_st halo stages of tr output
+// rows: the weight slice [9 C16][BN], the stages of (tr + 2) x (W + 2)
+// pixels x C16 channels, the statistics' reduction
 __host__ __device__ constexpr int bf16_smem(int C, int W, int tr, int n_st) {
   return 9 * ((C + 15) / 16 * 16) * BN * 2 +
          n_st * (tr + 2) * (W + 2) * ((C + 15) / 16 * 16) * 2 + 2 * 4 * BN * 4;
 }
 
-// output rows a halo stage holds with n_st stages: as many as fit beside
-// the weight slice, at most one pass of pixels and the strip; 0 where none
-// fits
-int bf16_rows(int C, int W, int strip, int n_st) {
+// the streamed kernel's: two stages, each a halo of cch channels and the
+// weight rows [9 cch][BN] of those channels, and the reduction
+__host__ __device__ constexpr int stream_smem(int cch, int W, int tr) {
+  return 2 * ((tr + 2) * (W + 2) * cch * 2 + 9 * cch * BN * 2) + 2 * 4 * BN * 4;
+}
+
+// output rows a halo stage holds: as many as fit (smem(tr) <= the block's
+// shared memory), at most one pass of pixels and the strip; 0 where none fits
+template <class F>
+int fit_rows(int W, int strip, F smem) {
   int tr = min(strip, max(1, PASS_PX / W));
-  while (tr > 0 && bf16_smem(C, W, tr, n_st) > BF16_MAX_SMEM) --tr;
+  while (tr > 0 && smem(tr) > BF16_MAX_SMEM) --tr;
   return tr;
 }
 
-// the halo plan: two stages (the next group's copies under this group's
-// products) where they still hold 8 m16 slices (two a pixel warp), else one
-// stage of more rows (its copies wait, ~5 % of a group at C = 128)
-void bf16_plan(int C, int W, int strip, int& tr, int& n_st) {
+// The plan of a bf16 launch. Resident (cch = 0) where the weight slice fits
+// beside a halo stage of one row: two stages (the next group's copies under
+// this group's products) where they still hold 8 m16 slices (two a pixel
+// warp), else one stage of more rows (its copies wait, ~5 % of a group at
+// C = 128). Else streamed: the widest chunk of cch = 64, 32 or 16 channels
+// whose two stages hold 128 pixels, or a whole pass or strip, else the
+// narrowest.
+void bf16_plan(int C, int W, int strip, int& tr, int& n_st, int& cch) {
+  cch = 0;
   n_st = 2;
-  tr = bf16_rows(C, W, strip, 2);
+  tr = fit_rows(W, strip, [&](int r) { return bf16_smem(C, W, r, 2); });
   if (tr * W < 128) {
     n_st = 1;
-    tr = bf16_rows(C, W, strip, 1);
+    tr = fit_rows(W, strip, [&](int r) { return bf16_smem(C, W, r, 1); });
+  }
+  if (tr > 0) return;
+  n_st = 2;
+  const int most = min(strip, max(1, PASS_PX / W));
+  for (cch = 64; cch >= 16; cch /= 2) {
+    tr = fit_rows(W, strip, [&](int r) { return stream_smem(cch, W, r); });
+    if (tr * W >= 128 || tr == most || cch == 16) return;
   }
 }
 
-template <int MODE, bool STATS>
-__global__ void __launch_bounds__(THREADS, 1)
-    conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                        __nv_bfloat16* __restrict__ y, float* __restrict__ part, int H, int W,
-                        int C, int Cout, int strip, int tr, int n_st) {
-  extern __shared__ __align__(16) unsigned char conv_smem[];
-  const int CB = (C + 15) / 16, CP = 16 * CB, rc = CP / 8, n_steps = 9 * CB;
-  const int m = min(rc & -rc, 8) - 1;  // the halo's swizzle (mma_bf16.cuh: swz)
-  const int WP = W + 2, hp_n = (tr + 2) * WP;  // halo pixels a stage holds
-  unsigned char* Ws = conv_smem;                // weights [9 CP][BN], swizzled
-  unsigned char* Xs = Ws + 9 * CP * BN * 2;     // halo stages [n_st][hp_n][CP]
-  float* red = reinterpret_cast<float*>(Xs + n_st * hp_n * CP * 2);  // [2][4][BN]
+// this lane's A row of each of the warp's slices of the pass at pixel p0:
+// its output pixel's halo index (rows past the group: any valid row)
+__device__ __forceinline__ void pass_rows(int p0, int npix, int W, int WP, int wm, int lane,
+                                          int (&hp)[MS], bool (&live)[MS]) {
+#pragma unroll
+  for (int j = 0; j < MS; ++j) {
+    const int slice = p0 + 16 * (wm + 4 * j);
+    live[j] = slice < npix;
+    const int p = slice + (lane & 15);
+    hp[j] = p < npix ? (p / W) * WP + p % W : 0;
+  }
+}
 
+// acc += the pass's products over CB 16-channel blocks x 9 taps of a halo
+// stage (rc chunks a pixel, swizzle m) and weight rows tap * tap_rows + c,
+// in the mode's order of k16 steps (taps9: tap-major, im2col: channel-major).
+// STEP0: each step's product from a zero accumulator, added in f32
+// (mma_bf16.cuh's header: the streamed kernel's chain of up to 9 x 32 steps
+// would drift in the tensor core's accumulator); else chained there.
+template <int MODE, bool STEP0>
+__device__ __forceinline__ void pass_mma(float (&acc)[MS][4][4], const unsigned char* buf, int rc,
+                                         int m, const int (&hp)[MS], const bool (&live)[MS],
+                                         int WP, const unsigned char* Ws, int tap_rows, int CB) {
+  const int lane = threadIdx.x & 31, wn = threadIdx.x >> 7;
+  int tap = 0, cb = 0;
+  for (int s = 0; s < 9 * CB; ++s) {
+    const int toff = (tap / 3) * WP + tap % 3, krow = tap * tap_rows + 16 * cb;
+    const int col = 16 * cb + 8 * (lane >> 4);
+    uint32_t a[MS][4];
+#pragma unroll
+    for (int j = 0; j < MS; ++j)
+      if (live[j]) ldsm_x4(a[j], buf + swz(hp[j] + toff, col, rc, m));
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj) {
+      uint32_t b[4];
+      load_b_kn(b, Ws + krow * BN * 2, BN / 8, wn * 32 + 16 * nj, 0);
+#pragma unroll
+      for (int j = 0; j < MS; ++j) {
+        if (!live[j]) continue;
+        if (STEP0) {
+          mma_add(acc[j], 2 * nj, a[j], b);
+        } else {
+          mma_bf16(acc[j][2 * nj], a[j], b[0], b[1]);
+          mma_bf16(acc[j][2 * nj + 1], a[j], b[2], b[3]);
+        }
+      }
+    }
+    if (MODE == MODE_TAPS9) {  // the next step: tap-major or channel-major
+      if (++cb == CB) cb = 0, ++tap;
+    } else {
+      if (++tap == 9) tap = 0, ++cb;
+    }
+  }
+}
+
+// y of the pass's pixels (from p0 of the group at image row gr0) rounded
+// once; the statistics gathered
+template <bool STATS>
+__device__ __forceinline__ void store_pass(const float (&acc)[MS][4][4], __nv_bfloat16* y, int n,
+                                           int H, int W, int gr0, int p0, int npix, int Cout,
+                                           int co0, float (&s1)[4][2], float (&s2)[4][2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < MS; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + 16 * (wm + 4 * j) + g + 8 * h;
+      if (p >= npix) continue;
+      __nv_bfloat16* yp = y + ((long long)(n * H + gr0) * W + p) * Cout;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int co = co0 + wn * 32 + 8 * ni + 2 * t;
+        const float v0 = acc[j][ni][2 * h], v1 = acc[j][ni][2 * h + 1];
+        if ((Cout & 1) == 0 && co + 1 < Cout) {
+          *reinterpret_cast<__nv_bfloat162*>(yp + co) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (co < Cout) yp[co] = __float2bfloat16_rn(v0);
+          if (co + 1 < Cout) yp[co + 1] = __float2bfloat16_rn(v1);
+        }
+        if (STATS) {  // channels past Cout sum zeros and are never written
+          s1[ni][0] += v0;
+          s1[ni][1] += v1;
+          s2[ni][0] = fmaf(v0, v0, s2[ni][0]);
+          s2[ni][1] = fmaf(v1, v1, s2[ni][1]);
+        }
+      }
+    }
+}
+
+// the block's statistics partial: the 8 lanes of a channel by fixed xor
+// shuffles, then the 4 pixel warps in order, into part[block][2][Cout]
+__device__ __forceinline__ void store_stats(float (&s1)[4][2], float (&s2)[4][2], float* red,
+                                            float* part, int Cout, int co0) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;  // pixel slices wm + 4 j, channels wn * 32 ..
-  const int g = lane >> 2, t = lane & 3;
-  const int n_strips = H / strip;
-  const int n = blockIdx.x / n_strips;
-  const int row0 = (blockIdx.x - n * n_strips) * strip;
-  const int co0 = blockIdx.y * BN;
-  const int n_groups = (strip + tr - 1) / tr;
-  const __nv_bfloat16* xn = x + (long long)n * H * W * C;
+  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s1[ni][j] += __shfl_xor_sync(0xffffffffu, s1[ni][j], off);
+        s2[ni][j] += __shfl_xor_sync(0xffffffffu, s2[ni][j], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = wn * 32 + 8 * ni + 2 * t + j;
+        red[(0 * 4 + wm) * BN + col] = s1[ni][j];
+        red[(1 * 4 + wm) * BN + col] = s2[ni][j];
+      }
+  }
+  __syncthreads();
+  if (tid < 2 * BN) {
+    const int which = tid / BN, col = tid % BN;
+    float s = 0.f;
+    for (int q = 0; q < 4; ++q) s += red[(which * 4 + q) * BN + col];
+    if (co0 + col < Cout) part[((long long)blockIdx.x * 2 + which) * Cout + co0 + col] = s;
+  }
+}
 
-  // the weight slice, once per block: row tap * CP + c, zero past C and Cout
-  for (int i = tid; i < 9 * CP * (BN / 8); i += THREADS) {
+// weight rows (tap, c) for c in [c0, c0 + cch) of the block's Cout slice
+// into Ws [9 cch][BN], swizzled: row tap * cch + c - c0, zero past C and Cout
+__device__ __forceinline__ void stage_weights(unsigned char* Ws, const __nv_bfloat16* w, int C,
+                                              int Cout, int co0, int c0, int cch) {
+  for (int i = threadIdx.x; i < 9 * cch * (BN / 8); i += THREADS) {
     const int kk = i >> 3, piece = i & 7;
-    const int tap = kk / CP, c = kk - tap * CP, co = co0 + 8 * piece;
+    const int tap = kk / cch, c = c0 + kk - tap * cch, co = co0 + 8 * piece;
     unsigned char* dst = Ws + swz(kk, 8 * piece, BN / 8);
     const __nv_bfloat16* src = w + ((long long)tap * C + c) * Cout + co;
     if ((Cout & 7) == 0) {
@@ -281,24 +411,56 @@ __global__ void __launch_bounds__(THREADS, 1)
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
     }
   }
+}
 
-  // stage group gi's halo: image rows gr0 - 1 .. gr0 + tr, columns -1 .. W,
-  // zero outside the image and past C; a thread copies chunk ch of pixels
-  // hp0, hp0 + step, ..
+// the halo of the tr output rows from image row gr0: image rows gr0 - 1 ..
+// gr0 + tr, columns -1 .. W, channels [c0, c0 + 8 rc), zero outside the
+// image and past C, into buf [(tr + 2) (W + 2)][8 rc] (swizzle m); a thread
+// copies chunk ch of pixels hp0, hp0 + step, ..
+__device__ __forceinline__ void stage_halo(unsigned char* buf, const __nv_bfloat16* xn, int H,
+                                           int W, int C, int gr0, int tr, int c0, int rc, int m) {
+  const int WP = W + 2, hp_n = (tr + 2) * WP;
   const int lg = rc <= 1 ? 0 : rc <= 2 ? 1 : rc <= 4 ? 2 : rc <= 8 ? 3 : rc <= 16 ? 4 : 5;
-  const int ch = tid & ((1 << lg) - 1), step = THREADS >> lg, hp_first = tid >> lg;
+  const int ch = threadIdx.x & ((1 << lg) - 1), step = THREADS >> lg, hp_first = threadIdx.x >> lg;
+  if (ch >= rc) return;
+  int hr = hp_first / WP, hc = hp_first - hr * WP;
+  for (int hp = hp_first; hp < hp_n; hp += step) {
+    const int hh = gr0 + hr - 1, ww = hc - 1;
+    const int c = c0 + 8 * ch;
+    const bool ok = hh >= 0 && hh < H && ww >= 0 && ww < W && c < C;
+    cp_async_ca(buf + swz(hp, 8 * ch, rc, m), ok ? xn + ((long long)hh * W + ww) * C + c : xn, ok);
+    for (hc += step; hc >= WP; hc -= WP) ++hr;
+  }
+}
+
+// Resident: the block's whole weight slice stays in shared memory; the
+// strip's groups of tr rows stream their halos (all channels) through n_st
+// stages.
+template <int MODE, bool STATS>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                        __nv_bfloat16* __restrict__ y, float* __restrict__ part, int H, int W,
+                        int C, int Cout, int strip, int tr, int n_st) {
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  const int CB = (C + 15) / 16, CP = 16 * CB, rc = CP / 8;
+  const int m = min(rc & -rc, 8) - 1;  // the halo's swizzle (mma_bf16.cuh: swz)
+  const int WP = W + 2, hp_n = (tr + 2) * WP;  // halo pixels a stage holds
+  unsigned char* Ws = conv_smem;                // weights [9 CP][BN], swizzled
+  unsigned char* Xs = Ws + 9 * CP * BN * 2;     // halo stages [n_st][hp_n][CP]
+  float* red = reinterpret_cast<float*>(Xs + n_st * hp_n * CP * 2);  // [2][4][BN]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3;  // pixel slices wm + 4 j (channels (warp / 4) * 32 ..)
+  const int n_strips = H / strip;
+  const int n = blockIdx.x / n_strips;
+  const int row0 = (blockIdx.x - n * n_strips) * strip;
+  const int co0 = blockIdx.y * BN;
+  const int n_groups = (strip + tr - 1) / tr;
+  const __nv_bfloat16* xn = x + (long long)n * H * W * C;
+
+  stage_weights(Ws, w, C, Cout, co0, 0, CP);  // once per block: row tap * CP + c
   auto stage = [&](int gi) {
-    unsigned char* buf = Xs + (gi & (n_st - 1)) * hp_n * CP * 2;
-    const int gr0 = row0 + gi * tr;
-    if (ch >= rc) return;
-    int hr = hp_first / WP, hc = hp_first - hr * WP;
-    for (int hp = hp_first; hp < hp_n; hp += step) {
-      const int hh = gr0 + hr - 1, ww = hc - 1;
-      const int c = 8 * ch;
-      const bool ok = hh >= 0 && hh < H && ww >= 0 && ww < W && c < C;
-      cp_async_ca(buf + swz(hp, c, rc, m), ok ? xn + ((long long)hh * W + ww) * C + c : xn, ok);
-      for (hc += step; hc >= WP; hc -= WP) ++hr;
-    }
+    stage_halo(Xs + (gi & (n_st - 1)) * hp_n * CP * 2, xn, H, W, C, row0 + gi * tr, tr, 0, rc, m);
   };
 
   stage(0);
@@ -316,102 +478,91 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int gr0 = row0 + gi * tr;
     const int npix = min(tr, row0 + strip - gr0) * W;  // the group's output pixels
     for (int p0 = 0; p0 < npix; p0 += PASS_PX) {
-      // this lane's A row of each slice: its output pixel's halo index
       int hp[MS];
       bool live[MS];
-#pragma unroll
-      for (int j = 0; j < MS; ++j) {
-        const int slice = p0 + 16 * (wm + 4 * j);
-        live[j] = slice < npix;
-        const int p = slice + (lane & 15);
-        hp[j] = p < npix ? (p / W) * WP + p % W : 0;  // rows past the group: any valid row
-      }
+      pass_rows(p0, npix, W, WP, wm, lane, hp, live);
       float acc[MS][4][4] = {};
-      int tap = 0, cb = 0;
-      for (int s = 0; s < n_steps; ++s) {
-        const int toff = (tap / 3) * WP + tap % 3, krow = tap * CP + 16 * cb;
-        const int col = 16 * cb + 8 * (lane >> 4);
-        uint32_t a[MS][4];
-#pragma unroll
-        for (int j = 0; j < MS; ++j)
-          if (live[j]) ldsm_x4(a[j], buf + swz(hp[j] + toff, col, rc, m));
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          uint32_t b[4];
-          load_b_kn(b, Ws + krow * BN * 2, BN / 8, wn * 32 + 16 * nj, 0);
-#pragma unroll
-          for (int j = 0; j < MS; ++j) {
-            if (!live[j]) continue;
-            mma_bf16(acc[j][2 * nj], a[j], b[0], b[1]);
-            mma_bf16(acc[j][2 * nj + 1], a[j], b[2], b[3]);
-          }
-        }
-        if (MODE == MODE_TAPS9) {  // the next step: tap-major or channel-major
-          if (++cb == CB) cb = 0, ++tap;
-        } else {
-          if (++tap == 9) tap = 0, ++cb;
-        }
-      }
-      // round y once, gather the statistics
-#pragma unroll
-      for (int j = 0; j < MS; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = p0 + 16 * (wm + 4 * j) + g + 8 * h;
-          if (p >= npix) continue;
-          __nv_bfloat16* yp = y + ((long long)(n * H + gr0) * W + p) * Cout;
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const int co = co0 + wn * 32 + 8 * ni + 2 * t;
-            const float v0 = acc[j][ni][2 * h], v1 = acc[j][ni][2 * h + 1];
-            if ((Cout & 1) == 0 && co + 1 < Cout) {
-              *reinterpret_cast<__nv_bfloat162*>(yp + co) = __floats2bfloat162_rn(v0, v1);
-            } else {
-              if (co < Cout) yp[co] = __float2bfloat16_rn(v0);
-              if (co + 1 < Cout) yp[co + 1] = __float2bfloat16_rn(v1);
-            }
-            if (STATS) {  // channels past Cout sum zeros and are never written
-              s1[ni][0] += v0;
-              s1[ni][1] += v1;
-              s2[ni][0] = fmaf(v0, v0, s2[ni][0]);
-              s2[ni][1] = fmaf(v1, v1, s2[ni][1]);
-            }
-          }
-        }
+      pass_mma<MODE, false>(acc, buf, rc, m, hp, live, WP, Ws, CP, CB);
+      store_pass<STATS>(acc, y, n, H, W, gr0, p0, npix, Cout, co0, s1, s2);
     }
     __syncthreads();  // the next group's copies go into this group's stage
     if (n_st == 1 && gi + 1 < n_groups) stage(gi + 1);
   }
   cp_async_wait<0>();
+  if (STATS) store_stats(s1, s2, red, part, Cout, co0);
+}
 
-  if (STATS) {
+// Streamed (a weight slice too large to stay): the block walks (group of tr
+// rows, pass, chunk of cch channels) items; each item's halo of those
+// channels and their weight rows [9 cch][BN] are staged by cp.async while
+// the previous item computes (two stages). A pass sums its chunks in order,
+// each chunk's k16 steps in the mode's order, each step's product added in
+// f32, then rounds y once: im2col's order is channel-major overall; taps9
+// is tap-major within a chunk.
+template <int MODE, bool STATS>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv3x3_bf16_stream_kernel(const __nv_bfloat16* __restrict__ x,
+                               const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ y,
+                               float* __restrict__ part, int H, int W, int C, int Cout, int strip,
+                               int tr, int cch) {
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  const int CP = (C + 15) / 16 * 16, rc = cch / 8;
+  const int m = min(rc & -rc, 8) - 1;
+  const int WP = W + 2, hp_n = (tr + 2) * WP;
+  const int stage_bytes = hp_n * cch * 2 + 9 * cch * BN * 2;  // halo, then weights
+  float* red = reinterpret_cast<float*>(conv_smem + 2 * stage_bytes);  // [2][4][BN]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3;
+  const int n_strips = H / strip;
+  const int n = blockIdx.x / n_strips;
+  const int row0 = (blockIdx.x - n * n_strips) * strip;
+  const int co0 = blockIdx.y * BN;
+  const int n_groups = (strip + tr - 1) / tr;
+  const int n_pass = (tr * W + PASS_PX - 1) / PASS_PX, n_ch = (CP + cch - 1) / cch;
+  const int n_items = n_groups * n_pass * n_ch;
+  const __nv_bfloat16* xn = x + (long long)n * H * W * C;
+
+  auto stage = [&](int it) {  // item it's halo chunk and weight rows into stage it & 1
+    unsigned char* buf = conv_smem + (it & 1) * stage_bytes;
+    const int ci = it % n_ch, gi = it / n_ch / n_pass;
+    stage_halo(buf, xn, H, W, C, row0 + gi * tr, tr, ci * cch, rc, m);
+    stage_weights(buf + hp_n * cch * 2, w, C, Cout, co0, ci * cch, cch);
+  };
+
+  stage(0);
+  cp_async_commit();
+  float s1[4][2] = {}, s2[4][2] = {};
+  float acc[MS][4][4];
+  for (int it = 0; it < n_items; ++it) {
+    if (it + 1 < n_items) stage(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // item it's stage landed
+    const int ci = it % n_ch, pi = it / n_ch % n_pass, gi = it / n_ch / n_pass;
+    const int gr0 = row0 + gi * tr, p0 = pi * PASS_PX;
+    const int npix = min(tr, row0 + strip - gr0) * W;
+    if (ci == 0) {
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+      for (int j = 0; j < MS; ++j)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+        for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-        for (int off = 4; off < 32; off <<= 1) {  // the 8 lanes of one channel
-          s1[ni][j] += __shfl_xor_sync(0xffffffffu, s1[ni][j], off);
-          s2[ni][j] += __shfl_xor_sync(0xffffffffu, s2[ni][j], off);
-        }
-    if (g == 0) {
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = wn * 32 + 8 * ni + 2 * t + j;
-          red[(0 * 4 + wm) * BN + col] = s1[ni][j];
-          red[(1 * 4 + wm) * BN + col] = s2[ni][j];
-        }
+          for (int e = 0; e < 4; ++e) acc[j][ni][e] = 0.f;
     }
-    __syncthreads();
-    if (tid < 2 * BN) {
-      const int which = tid / BN, col = tid % BN;
-      float s = 0.f;
-      for (int q = 0; q < 4; ++q) s += red[(which * 4 + q) * BN + col];
-      if (co0 + col < Cout) part[((long long)blockIdx.x * 2 + which) * Cout + co0 + col] = s;
+    if (p0 < npix) {
+      int hp[MS];
+      bool live[MS];
+      pass_rows(p0, npix, W, WP, wm, lane, hp, live);
+      const unsigned char* buf = conv_smem + (it & 1) * stage_bytes;
+      pass_mma<MODE, true>(acc, buf, rc, m, hp, live, WP, buf + hp_n * cch * 2, cch,
+                           min(cch, CP - ci * cch) / 16);
+      if (ci == n_ch - 1) store_pass<STATS>(acc, y, n, H, W, gr0, p0, npix, Cout, co0, s1, s2);
     }
+    __syncthreads();  // item it + 2's copies go into this stage
   }
+  cp_async_wait<0>();
+  if (STATS) store_stats(s1, s2, red, part, Cout, co0);
 }
 
 // stats [2][Cout] = the partials [n_blocks][2][Cout] summed in block order
@@ -436,17 +587,27 @@ cudaError_t launch_f32(const void* x, const void* w, void* y, float* part, int B
 template <int MODE, bool STATS>
 cudaError_t launch_bf16(const void* x, const void* w, void* y, float* part, int B, int H, int W,
                         int C, int Cout, int strip, cudaStream_t st) {
-  int tr, n_st;
-  bf16_plan(C, W, strip, tr, n_st);
-  if (C % 8 || tr == 0) return cudaErrorInvalidValue;
-  const int smem = bf16_smem(C, W, tr, n_st);
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_bf16_kernel<MODE, STATS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+  int tr, n_st, cch;
+  bf16_plan(C, W, strip, tr, n_st, cch);
+  if (C % 8 || tr == 0) return cudaErrorInvalidValue;  // the wrapper pads C to a multiple of 8
   const dim3 grid((unsigned)(B * (H / strip)), (unsigned)((Cout + BN - 1) / BN));
-  conv3x3_bf16_kernel<MODE, STATS><<<grid, THREADS, smem, st>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)y, part, H, W, C, Cout,
-      strip, tr, n_st);
+  const __nv_bfloat16 *xb = (const __nv_bfloat16*)x, *wb = (const __nv_bfloat16*)w;
+  __nv_bfloat16* yb = (__nv_bfloat16*)y;
+  if (cch == 0) {
+    const int smem = bf16_smem(C, W, tr, n_st);
+    cudaError_t err = cudaFuncSetAttribute(conv3x3_bf16_kernel<MODE, STATS>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    conv3x3_bf16_kernel<MODE, STATS><<<grid, THREADS, smem, st>>>(xb, wb, yb, part, H, W, C, Cout,
+                                                                  strip, tr, n_st);
+  } else {
+    const int smem = stream_smem(cch, W, tr);
+    cudaError_t err = cudaFuncSetAttribute(conv3x3_bf16_stream_kernel<MODE, STATS>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    conv3x3_bf16_stream_kernel<MODE, STATS><<<grid, THREADS, smem, st>>>(
+        xb, wb, yb, part, H, W, C, Cout, strip, tr, cch);
+  }
   return cudaGetLastError();
 }
 
@@ -467,13 +628,6 @@ cudaError_t launch_form(int bf16, int mode, const void* x, const void* w, void* 
 extern "C" {
 
 const char* conv3x3_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
-// whether the bf16 kernel takes C input channels at width W and strip: C a
-// multiple of 8 whose weight slice and two halo stages of at least one
-// output row fit in a block's shared memory
-int conv3x3_bf16_fits(int C, int W, int strip) {
-  return C % 8 == 0 && bf16_rows(C, W, strip, 1) > 0;
-}
 
 // y = conv3x3(x, w); with stats (part and stats non-null): part is
 // [B * H / strip][2][Cout] f32 scratch, stats [2][Cout] f32 (sum, sum of

@@ -21,37 +21,40 @@
 // f32 or bf16, mom [C][D] f32 or bf16 (the fused kernel), labels [B] int32
 // (-1 = outlier row), gt / logz / kth / d_ce / d_neg [B] f32 (d_ce 0 on
 // outlier rows, d_neg 0 on positive rows). Column offsets are 64-bit (C * D
-// passes 2^31 at 5M classes). All arithmetic is IEEE f32 FMA: no TF32, no
-// tensor cores (later work).
+// passes 2^31 at 5M classes). The f32 form's arithmetic is IEEE f32 FMA (no
+// TF32: "f32 means f32"); the bf16 form's products run on the tensor cores.
 //
 // Forms (template TW, the stored W type; TM, the fused kernel's momentum
 // type), as JAX selects them from w.dtype (mxu_bf16, _mxu_pair):
 //  * f32 W: f32 throughout; the forward scales each raw dot by 1/||w_j||.
 //  * bf16 W: both operands of every dot are rounded to bf16 and summed in
 //    f32. The W operand is the NORMALISED row, bf16(w_j * inv_j), not the
-//    stored one, so inv_j comes first: inv_norm_bf16_kernel writes
-//    1 / ||w_j|| per logical column into a scratch the wrapper passes (the
-//    squares summed in f64, exact for bf16 values, one rounding to f32, as
-//    the plain version's bf16_row_inv). The wrapper passes emb already
-//    rounded to bf16 (held in f32): every use of emb here is an operand of a
-//    dot. The backward rounds d_cos to bf16 before both products; the
-//    normalisation backprop takes <d_w_hat, w_hat> against the UNROUNDED
-//    w_hat, summed as sum_b bf16(d_cos[b, t]) <bf16(emb_b), w_hat_t> (a
-//    second accumulator beside the cosine in the d_w pass's tile product).
-//    A product of two bf16 values is exact in f32, so f32 FMA over the
-//    rounded operands is the MXU's bf16 dot up to the order of the sums.
-//    d_w is stored in f32. The fused update computes in f32 from the stored
-//    W and mom and rounds w' and mom' once each to their storage types.
+//    stored one, so inv_j comes first: 1 / ||w_j|| with the squares summed
+//    in f64 (exact for bf16 values in any order), max(., 1e-24), 1 / sqrt in
+//    f64 and one rounding to f32, as the plain version's bf16_row_inv.
+//    inv_norm_bf16_kernel writes it per logical column into a scratch the
+//    wrapper passes, for the forward and the fused and sparse d_w passes;
+//    the d_w pass of margin_ce_bwd / margin_partial_bwd computes it from
+//    each W tile it stages and writes it there for the d_emb pass, which
+//    computes it from its own tiles where nothing wrote it (grad_w=False).
+//    The wrapper passes emb already rounded to bf16 (held in f32, and as
+//    bf16): every use of emb here is an operand of a dot. The backward
+//    rounds d_cos to bf16 before both products; the normalisation backprop
+//    takes <d_w_hat, w_hat> against the UNROUNDED w_hat. A product of two
+//    bf16 values is exact in f32, so the tensor core's product is the MXU's
+//    bf16 dot up to the order of the sums. d_w is stored in f32. The fused
+//    update computes in f32 from the stored W and mom and rounds w' and
+//    mom' once each to their storage types.
 //
-// Bound (H100 SXM, 67 TFLOP/s f32, 3.35 TB/s) at B = 128, D = 512,
-// C = 2^20: forward 2*B*D*C = 1.37e11 FLOP >= 2.05 ms against 2.15 GB of W
-// (0.64 ms); backward three such products, 4.12e11 FLOP >= 6.15 ms, against
-// 4.3 GB (W read, d_w written) or, fused, 8.6 GB (W and mom read and
-// written, 2.56 ms). All three are compute-bound. The bf16 forms' dots at
-// 989 TFLOP/s against bytes: forward 0.32 ms (1.07 GB of W), backward
-// 0.96 ms (W read, f32 d_w written), fused 1.28 ms (bf16 mom) or 1.92 ms
-// (f32 mom): bytes-bound, far from what f32 FMA over the rounded operands
-// reaches (wgmma is later work).
+// Bound (H100 SXM, 67 TFLOP/s f32, 989 TFLOP/s bf16 tensor cores, 3.35
+// TB/s) at B = 128, D = 512, C = 2^20: forward 2*B*D*C = 1.37e11 FLOP >=
+// 2.05 ms (f32) against 2.15 GB of W (0.64 ms); backward three such
+// products, 4.12e11 FLOP >= 6.15 ms, against 4.3 GB (W read, d_w written)
+// or, fused, 8.6 GB (W and mom read and written, 2.56 ms): the f32 forms
+// are compute-bound. The bf16 forms' dots against bytes: forward 0.14 ms of
+// tensor time under 0.32 ms (1.07 GB of W), backward 0.42 ms under 0.96 ms
+// (W read, f32 d_w written), fused 1.28 ms (bf16 mom) or 1.92 ms (f32 mom):
+// bytes-bound.
 //
 // Design.
 //  * The TPU walked the class tiles in order and carried (max, sumexp,
@@ -61,36 +64,77 @@
 //    float atomics anywhere: every output is bit-stable run to run.
 //  * Shared with quad_margin.cu (margin_common.cuh): the margin transform,
 //    the streamed (max, sumexp) and top-k, the partial merge, d_cos of a
-//    column and the shared-memory tile product.
-//  * Forward: one block holds all B rows, so each W tile is read once. A
-//    256-thread register-tiled f32 GEMM (8x8 outputs per thread) fills a
-//    [128, 128] raw-dot tile, scaled by each column's 1/||w_j|| (summed from
-//    the same shared-memory chunks); then two threads per row stream the
-//    tile's columns into per-row (max, sumexp) and a register top-k. The
-//    target column is left out of both and joins at the merge as
-//    scale * phi(gt) (gt comes from outside, as in JAX).
+//    column and the shared-memory tile product; the tensor-core pieces in
+//    mma_bf16.cuh.
+//  * Forward: one block holds all B rows, so each W tile is read once. The
+//    f32 form: a 256-thread register-tiled f32 GEMM (8x8 outputs per
+//    thread) fills a [128, 128] raw-dot tile, scaled by each column's
+//    1/||w_j|| (summed from the same shared-memory chunks). The bf16 form:
+//    the same tile on the tensor cores (chunk_cos). Then two threads per
+//    row stream the tile's columns into per-row (max, sumexp) and a
+//    register top-k. The target column is left out of both and joins at
+//    the merge as scale * phi(gt) (gt comes from outside, as in JAX).
 //  * Forward statistics (only when asked for): the same two threads per
 //    row also take, per 64-column half tile, the row's max of z (scale *
 //    phi(gt) at the target column) and of the raw cosine (the target's own
 //    included) into a [2][C/64][B] scratch; a third launch reduces them to
 //    the caller's stats tile (a multiple of 64), so the block column ranges
 //    need not align with it. Without statistics nothing of this runs.
-//  * Backward, d_emb pass: a block owns 32 rows x a column range, so its
-//    d_emb partial [32, D] lives in registers (64 per thread at D = 512).
-//    Per 64-column tile: cos [32, 64] -> d_cos -> d_cos @ w_hat.
-//  * Backward, d_w pass: a block owns whole 64-column tiles with every
-//    batch row: it recomputes cos [B, 64] and d_cos, then d_w_hat[t] =
-//    sum_b d_cos[b, t] emb[b] in 64-feature chunks, and the normalisation
-//    backprop d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>), where
-//    <d_w_hat, w_hat> = sum_b d_cos[b, t] cos[b, t] is summed from the tile.
-//    Each d_w row has one owner block, so no reduction is needed. The
-//    owner adds the label rows' d_wl (every batch row whose label is the
-//    column, in batch order: a sum, no scatter). Fused: then g = d_w + wd*w,
-//    mom' = mu*mom + g,
+//  * The bf16 cosine is one chain wherever it is formed: k16 steps over the
+//    feature axis in order, each step's product from a zero accumulator
+//    added in f32 (mma_bf16.cuh: mma_nt), over bf16(emb) and bf16(w_hat).
+//    The backward's top-k test (cos >= kth - KTH_TIE_TOL) compares its
+//    recomputed cosine with the forward's kth, so both must be the same
+//    bits: the forward and the fused / sparse d_w pass stage W 64 features
+//    at a time (chunk_cos), the bf16 d_emb and d_w passes whole tiles, and
+//    margin_ce_clean_cos_launch writes each tiling's cosines for a check.
+//  * Backward, f32 d_emb pass: a block owns 32 rows x a column range, so
+//    its d_emb partial [32, D] lives in registers (64 per thread at D =
+//    512). Per 64-column tile: cos [32, 64] -> d_cos -> d_cos @ w_hat.
+//  * Backward, bf16 d_emb pass (margin_bwd_demb_bf16_kernel, every bf16
+//    form): a block owns 64 rows x a column range, its emb rows resident
+//    and two W tiles [64, D] in flight (cp.async, zero-filled past the
+//    valid columns). Each tile is scaled in place into bf16(w_hat) once and
+//    serves both products: cos [64, 64] = emb . w_hat^T, d_cos rounded to
+//    bf16 into shared memory, then d_emb += d_cos . w_hat, each k16 step's
+//    product from a zero accumulator added in f32; the d_emb partial [64,
+//    D] lives in mma accumulators, as in quad_margin.cu's
+//    quad_bwd_bf16_kernel. At B = 128 two row groups read W: 2.15 GB.
+//    Both bf16 passes run 16 warps a block (64 accumulators a thread at D =
+//    512): with one block an SM (its shared memory), 8 warps left each
+//    phase between two barriers waiting on its own latencies (H100: every
+//    phase removed in turn took 0.5-1.7 ms off a 7.2 ms d_w pass).
+//  * Backward, d_w pass (f32 W, and the fused and sparse bf16 forms): a
+//    block owns whole 64-column tiles with every batch row: it recomputes
+//    cos [B, 64] and d_cos, then d_w_hat[t] = sum_b d_cos[b, t] emb[b] in
+//    64-feature chunks, and the normalisation backprop d_w = inv * (d_w_hat
+//    - w_hat <d_w_hat, w_hat>), where <d_w_hat, w_hat> = sum_b d_cos[b, t]
+//    cos[b, t] is summed from the tile (bf16 W: against the dots of emb with
+//    the unrounded w_hat, a second product). Each d_w row has one owner
+//    block, so no reduction is needed. The owner adds the label rows' d_wl
+//    (every batch row whose label is the column, in batch order: a sum, no
+//    scatter). Fused: then g = d_w + wd*w, mom' = mu*mom + g,
 //    upd = g + mu*mom' (Nesterov) | mom' | g (mu = 0), w' = w - lr*upd,
 //    written in place over the rows it has just read. The d_emb pass runs
 //    first in stream order and reads W before any of it is written. Every
 //    row decays every step: no relevance gate skips a tile.
+//  * Backward, bf16 d_w pass of margin_ce_bwd / margin_partial_bwd
+//    (margin_bwd_dw_bf16_kernel): a block owns whole 64-column tiles with
+//    every batch row; emb [128, D] bf16 stays resident (128 KB at D = 512)
+//    beside one W tile (64 KB), so W is read once (1.07 GB) and d_w written
+//    once (2.15 GB): the 0.96 ms bound. Per tile: 1/||w|| from the staged
+//    rows, the tile scaled in place; cos [128, 64] on the tensor cores; the
+//    next tile's copies start; d_cos rounded to bf16 into shared memory;
+//    d_w_hat [64, D] = d_cos^T . emb in mma accumulators; the stored values
+//    of the epilogue's elements read again (from L2); then <d_w_hat, w_hat>
+//    from the finished d_w_hat row against the f32 w_hat = w * inv (JAX's
+//    and the plain version's order of operations), reduced over the four
+//    warps that share a row in a fixed order, d_w = inv * (d_w_hat - w_hat
+//    <d_w_hat, w_hat>) plus the label rows' d_wl in batch order, stored in
+//    f32. It runs before the d_emb pass (no update is in place here). d_emb
+//    and d_w stay two passes: the [B, D] d_emb partial of a column-owning
+//    block (256 KB f32 at B = 128, D = 512) fits neither its registers nor
+//    its shared memory beside the tile.
 //  * Sparse backward: both passes walk M * tile logical columns instead of
 //    C. Each 64-column tile maps through tile_idx [M] (device memory, read
 //    by every block: the counterpart of scalar prefetch) onto the class
@@ -117,13 +161,15 @@
 #include <type_traits>
 
 #include "margin_common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 struct Args {
-  const float* emb;  // bf16 W: rounded to bf16 by the wrapper
-  const void* w;     // [C][D] float or __nv_bfloat16
-  const float* inv;  // bf16 W: 1 / ||w|| per logical column; f32 W: nullptr
+  const float* emb;               // bf16 W: rounded to bf16 by the wrapper
+  const __nv_bfloat16* eb;        // bf16 W: the same embedding stored as bf16 [B][D]
+  const void* w;                  // [C][D] float or __nv_bfloat16
+  const float* inv;  // bf16 W: 1 / ||w|| per logical column (scratch); f32 W: nullptr
   long long C;
   int D, B;
   const int* labels;
@@ -153,6 +199,11 @@ struct Sgd {
 
 // 1 / ||w_j|| as the JAX package normalises f32 rows: rsqrt(max(||w||^2, 1e-24))
 __device__ __forceinline__ float inv_norm(float n2) { return rsqrtf(fmaxf(n2, 1e-24f)); }
+
+// 1 / ||w_j|| of a bf16 row from its f64 sum of squares (module header)
+__device__ __forceinline__ float inv_norm_f64(double n2) {
+  return (float)(1.0 / sqrt(fmax(n2, 1e-24)));
+}
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -203,27 +254,172 @@ __global__ void inv_norm_bf16_kernel(Args a, float* inv) {
       n2 += x * x;
     }
   for (int o = 16; o > 0; o >>= 1) n2 += __shfl_down_sync(0xffffffffu, n2, o);
-  if (lane == 0) inv[l] = ok ? (float)(1.0 / sqrt(fmax(n2, 1e-24))) : 0.f;
+  if (lane == 0) inv[l] = ok ? inv_norm_f64(n2) : 0.f;
 }
 
-// the bf16 form's staging of a W element for tile_gemm: w_hat = w * inv of
-// its row in f32, kept unrounded in wn (for <d_w_hat, w_hat>, TWIN), and the
-// operand bf16(w_hat). inv is indexed from the tile's first row.
-template <bool KEEP>
-struct StageNormBf16 {
-  static constexpr bool TWIN = KEEP;
+// the fused and sparse bf16 d_w pass's staging of a W element for tile_gemm
+// as the UNROUNDED w_hat = w * inv of its row (inv indexed from the tile's
+// first row): the product is <bf16(emb), w_hat>, for <d_w_hat, w_hat>
+struct StageNormed {
   const float* inv;
-  __device__ __forceinline__ float operator()(__nv_bfloat16 y, int row, float& wn) const {
-    wn = __bfloat162float(y) * inv[row];
-    return bf16r(wn);
+  __device__ __forceinline__ float operator()(__nv_bfloat16 y, int row) const {
+    return __bfloat162float(y) * inv[row];
   }
 };
+
+// ----------------------------------------------- bf16 staging (tensor cores)
+
+// a backward row's inputs (a row past B: label -1, cotangents 0)
+struct RowIn {
+  int lab;
+  float gt, lz, kth, dce, dneg;
+};
+
+// rows [r_base, r_base + n) of the backward's row inputs into rin [n]
+__device__ __forceinline__ void load_row_in(RowIn* rin, int n, int r_base, const Args& a,
+                                            const BwdRows& br) {
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    const int gr = r_base + r;
+    RowIn v = {-1, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (gr < a.B) v = {a.labels[gr], a.gt[gr], br.logz[gr], br.kth[gr], br.dce[gr], br.dneg[gr]};
+    rin[r] = v;
+  }
+}
+
+// rows [0, rows) of D bf16 values into a swizzled [rows][D] buffer by
+// cp.async: row r from src + (row0 + r) * D for r < n, zeros from n on
+__device__ __forceinline__ void stage_rows_bf16(unsigned char* dst, const __nv_bfloat16* src,
+                                                long long row0, int n, int rows, int D) {
+  const int rc = D / 8;
+  for (int i = threadIdx.x; i < rows * rc; i += blockDim.x) {
+    const int r = i / rc, ch = i - r * rc;
+    const bool ok = r < n;
+    cp_async_cg(dst + swz(r, 8 * ch, rc), ok ? src + (row0 + r) * D + 8 * ch : src, ok);
+  }
+}
+
+// inv[r] = 1 / ||row r|| of a staged W tile [64][D] (swizzled) for r < n,
+// else 0, with inv_norm_bf16_kernel's bits (module header): BW_THREADS
+// threads, eight to a row, each summing every eighth 16-byte chunk in f64
+constexpr int BW_THREADS = 512;  // the bf16 backward passes: 16 warps a block
+__device__ __forceinline__ void row_inv_tile(const unsigned char* T, int n, int D, float* inv) {
+  const int rc = D / 8, r = threadIdx.x >> 3, q = threadIdx.x & 7;
+  double n2 = 0.0;
+  for (int ch = q; ch < rc; ch += 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(T + swz(r, 8 * ch, rc));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      n2 += (double)f.x * (double)f.x;
+      n2 += (double)f.y * (double)f.y;
+    }
+  }
+  for (int o = 1; o < 8; o <<= 1) n2 += __shfl_xor_sync(0xffffffffu, n2, o);
+  if (q == 0) inv[r] = r < n ? inv_norm_f64(n2) : 0.f;
+}
+
+// two stored W values scaled by their row's 1 / ||w||, each rounded once:
+// bf16(w * inv), the dots' W operand
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float s) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&v);
+  const float2 f = __bfloat1622float2(h);
+  h = __floats2bfloat162_rn(f.x * s, f.y * s);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// a staged bf16 W block [rows][rc chunks] (swizzled) scaled in place, row r
+// by inv[r] (scale_bf16x2)
+__device__ __forceinline__ void scale_rows_bf16(unsigned char* T, int rows, int rc,
+                                                const float* inv) {
+  for (int i = threadIdx.x; i < rows * rc; i += blockDim.x) {
+    const int r = i / rc, ch = i - r * rc;
+    uint4* p = reinterpret_cast<uint4*>(T + swz(r, 8 * ch, rc));
+    uint4 v = *p;
+    v = make_uint4(scale_bf16x2(v.x, inv[r]), scale_bf16x2(v.y, inv[r]),
+                   scale_bf16x2(v.z, inv[r]), scale_bf16x2(v.w, inv[r]));
+    *p = v;
+  }
+}
+
+// The forward's and the fused / sparse d_w pass's bf16 cosines: emb rows
+// [0, ROWS) and a tile of TC columns staged 64 features at a time, CH_ST
+// chunks in flight
+constexpr int CH_ST = 3;
+template <int ROWS, int TC>
+__host__ __device__ constexpr int chunk_bytes() {
+  return (ROWS + TC) * 64 * 2;
+}
+
+// features [64 kc, + 64) of emb rows [0, ROWS) (zero past B) and of the W
+// rows p0 .. p0 + n of the tile (zero from n) into stage s
+template <int ROWS, int TC>
+__device__ __forceinline__ void load_chunk(const Args& a, unsigned char* stg, int s, long long p0,
+                                           int n, int kc) {
+  const __nv_bfloat16* W = wrows<__nv_bfloat16>(a);
+  unsigned char* Es = stg + s * chunk_bytes<ROWS, TC>();
+  unsigned char* Ts = Es + ROWS * 64 * 2;
+  const int f0 = 64 * kc;
+  for (int i = threadIdx.x; i < (ROWS + TC) * 8; i += blockDim.x) {
+    const int r = i >> 3, ch = i & 7;
+    if (r < ROWS) {
+      const bool ok = r < a.B;
+      cp_async_cg(Es + swz(r, 8 * ch, 8), ok ? a.eb + (long long)r * a.D + f0 + 8 * ch : a.eb, ok);
+    } else {
+      const bool ok = r - ROWS < n;
+      cp_async_cg(Ts + swz(r - ROWS, 8 * ch, 8), ok ? W + (p0 + r - ROWS) * a.D + f0 + 8 * ch : W,
+                  ok);
+    }
+  }
+}
+
+// acc[mi][ni] = the cosines of emb rows m0 + 16 mi .. against the tile's
+// columns n0 + 8 ni .. (class rows p0 .., n of them): each chunk's W part
+// scaled in place by inv [TC] (shared memory, written before the call) into
+// bf16(w_hat), the k16 chain over the feature axis in order (module
+// header). Stages its own copies and leaves none in flight.
+template <int ROWS, int TC, int NI>
+__device__ __forceinline__ void chunk_cos(const Args& a, unsigned char* stg, const float* inv,
+                                          long long p0, int n, int m0, int n0,
+                                          float (&acc)[2][NI][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  const int n_kc = a.D / 64;
+  for (int s = 0; s < CH_ST - 1; ++s) {
+    if (s < n_kc) load_chunk<ROWS, TC>(a, stg, s, p0, n, s);
+    cp_async_commit();
+  }
+  for (int kc = 0; kc < n_kc; ++kc) {
+    cp_async_wait<CH_ST - 2>();
+    __syncthreads();  // chunk kc has landed; chunk kc - 1's stage is free
+    unsigned char* Es = stg + (kc % CH_ST) * chunk_bytes<ROWS, TC>();
+    scale_rows_bf16(Es + ROWS * 64 * 2, TC, 8, inv);
+    if (kc + CH_ST - 1 < n_kc)
+      load_chunk<ROWS, TC>(a, stg, (kc + CH_ST - 1) % CH_ST, p0, n, kc + CH_ST - 1);
+    cp_async_commit();
+    __syncthreads();  // the chunk holds bf16(w_hat)
+    mma_nt<2, NI>(acc, Es, 8, m0, Es + ROWS * 64 * 2, 8, n0, 4);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every stage is free for the next tile
+}
 
 // ---------------------------------------------------------------- forward
 
 constexpr int F_ROWS = 128, F_TC = 128, F_DK = 16, F_THREADS = 256;
 constexpr int F_ALD = F_ROWS + 4, F_BLD = F_TC + 4, F_CLD = F_TC + 1;
-constexpr size_t F_SMEM = sizeof(float) * (F_DK * F_ALD + F_DK * F_BLD + F_ROWS * F_CLD + F_TC);
+// the GEMM staging (f32: the FMA tile's chunks; bf16: the tensor cores'
+// chunk stages), then the cosine tile and the columns' 1 / ||w_j||
+template <class TW>
+constexpr size_t fwd_smem() {
+  return (std::is_same<TW, float>::value ? sizeof(float) * (F_DK * F_ALD + F_DK * F_BLD)
+                                         : (size_t)CH_ST * chunk_bytes<F_ROWS, F_TC>()) +
+         sizeof(float) * (F_ROWS * F_CLD + F_TC);
+}
 constexpr int STAT_COLS = 64;  // columns per statistics partial: one thread's half tile
 static_assert(F_TC / 2 == STAT_COLS, "a statistics partial is one thread's half tile");
 
@@ -233,10 +429,12 @@ template <class TW>
 __global__ void __launch_bounds__(F_THREADS)
     margin_fwd_kernel(Args a, long long cols_per_blk, float* part, float* stats) {
   constexpr bool BF16 = !std::is_same<TW, float>::value;
-  extern __shared__ float smem[];
-  float* As = smem;                   // emb chunk, k-major [F_DK][F_ALD]
-  float* Bs = As + F_DK * F_ALD;      // W chunk, k-major [F_DK][F_BLD]
-  float* Cs = Bs + F_DK * F_BLD;      // cosine tile [F_ROWS][F_CLD]
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                   // f32: emb chunk, k-major [F_DK][F_ALD]
+  float* Bs = As + F_DK * F_ALD;      // f32: W chunk, k-major [F_DK][F_BLD]
+  unsigned char* stg = reinterpret_cast<unsigned char*>(smem);  // bf16: [CH_ST] chunk stages
+  float* Cs = BF16 ? reinterpret_cast<float*>(stg + CH_ST * chunk_bytes<F_ROWS, F_TC>())
+                   : Bs + F_DK * F_BLD;  // cosine tile [F_ROWS][F_CLD]
   float* inv = Cs + F_ROWS * F_CLD;   // 1 / ||w_j|| of the tile's columns
 
   const int tid = threadIdx.x;
@@ -256,17 +454,24 @@ __global__ void __launch_bounds__(F_THREADS)
   for (int j = 0; j < KMAX; ++j) tk[j] = NEG_INF_F;
 
   for (long long t0 = c_begin; t0 < c_end; t0 += F_TC) {
-    float acc[8][8];
     if constexpr (BF16) {  // the dots of the rounded operands are the cosines
-      float n2;
-      tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16, false>(
-          acc, n2, As, Bs, a.emb, 0, a.B, wrows<TW>(a), t0, c_end, a.D, ty, tx,
-          StageNormBf16<false>{a.inv + t0});
+      const int n = (int)min((long long)F_TC, c_end - t0);
+      if (tid < F_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
+      // warps of 32 rows x 64 columns
+      const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+      const int wr = (warp & 3) * 32, wc = (warp >> 2) * 64;
+      float acc[2][8][4];
+      chunk_cos<F_ROWS, F_TC, 8>(a, stg, inv, t0, n, wr, wc, acc);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) Cs[(ty + 16 * i) * F_CLD + tx + 16 * j] = acc[i][j];
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            Cs[(wr + 16 * mi + g + 8 * (e >> 1)) * F_CLD + wc + 8 * ni + 2 * t + (e & 1)] =
+                acc[mi][ni][e];
     } else {
+      float acc[8][8];
       float n2;
       tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16, true>(
           acc, n2, As, Bs, a.emb, 0, a.B, wrows<TW>(a), t0, c_end, a.D, ty, tx);
@@ -375,12 +580,11 @@ constexpr int B_RB = 32, B_TC = 64, B_DK = 16, B_THREADS = 256, B_JMAX = 8;  // 
 constexpr int B_ALD = B_RB + 4, B_BLD = B_TC + 4, B_CLD = B_TC + 1;
 constexpr size_t B_SMEM = sizeof(float) * (B_DK * B_ALD + B_DK * B_BLD + B_RB * B_CLD + B_TC);
 
-template <class TW>
+// the f32 form (bf16 W: margin_bwd_demb_bf16_kernel)
 __global__ void __launch_bounds__(B_THREADS)
     margin_bwd_demb_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg, float* part) {
-  constexpr bool BF16 = !std::is_same<TW, float>::value;
-  const TW* W = wrows<TW>(a);
-  extern __shared__ float smem[];
+  const float* W = wrows<float>(a);
+  extern __shared__ __align__(16) float smem[];
   float* As = smem;                // emb row-group chunk, k-major [B_DK][B_ALD]
   float* Bs = As + B_DK * B_ALD;   // W chunk, k-major [B_DK][B_BLD]
   float* Dq = Bs + B_DK * B_BLD;   // d_cos * inv [B_RB][B_CLD]
@@ -422,18 +626,10 @@ __global__ void __launch_bounds__(B_THREADS)
     const long long p0 = phys_col(a, t0);
     const int n = valid_cols(a, t0, p0, c_end, B_TC);
     float acc[2][4];
-    if constexpr (BF16) {
-      float n2;
-      tile_gemm<B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16, false>(
-          acc, n2, As, Bs, a.emb, r_base, a.B, W, p0, p0 + n, a.D, ty, tx,
-          StageNormBf16<false>{a.inv + t0});
-      if (tid < B_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
-    } else {
-      float n2;
-      tile_gemm<B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16, true>(
-          acc, n2, As, Bs, a.emb, r_base, a.B, W, p0, p0 + n, a.D, ty, tx);
-      if (tid < B_TC) inv[tid] = inv_norm(n2);
-    }
+    float n2;
+    tile_gemm<B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16, true>(
+        acc, n2, As, Bs, a.emb, r_base, a.B, W, p0, p0 + n, a.D, ty, tx);
+    if (tid < B_TC) inv[tid] = inv_norm(n2);
     __syncthreads();
 
 #pragma unroll
@@ -442,29 +638,20 @@ __global__ void __launch_bounds__(B_THREADS)
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         float d = 0.f;
-        if (ok[i] && c < n) {
-          if constexpr (BF16)  // the cosine as it is; d_cos rounded
-            d = bf16r(dcos_of(acc[i][j], p0 + c, lab[i], gtv[i], lzv[i], kthv[i], dcev[i],
-                              dnegv[i], a));
-          else  // folds w_hat = inv * w into the product
-            d = dcos_of(acc[i][j] * inv[c], p0 + c, lab[i], gtv[i], lzv[i], kthv[i], dcev[i],
-                        dnegv[i], a) * inv[c];
-        }
+        if (ok[i] && c < n)  // folds w_hat = inv * w into the product
+          d = dcos_of(acc[i][j] * inv[c], p0 + c, lab[i], gtv[i], lzv[i], kthv[i], dcev[i],
+                      dnegv[i], a) * inv[c];
         Dq[(ty + 16 * i) * B_CLD + c] = d;
       }
     }
     __syncthreads();
 
-    // d_emb += (d_cos * inv) @ (raw W rows of this tile); bf16 W: bf16(d_cos)
-    // @ bf16(w_hat) rows
+    // d_emb += (d_cos * inv) @ (raw W rows of this tile)
     for (int c = 0; c < n; ++c) {
-      const TW* wrow = W + (p0 + c) * a.D + dx;
+      const float* wrow = W + (p0 + c) * a.D + dx;
       float wv[B_JMAX];
 #pragma unroll
-      for (int j = 0; j < B_JMAX; ++j) {
-        wv[j] = j < nj ? to_f32(__ldg(wrow + 64 * j)) : 0.f;
-        if constexpr (BF16) wv[j] = bf16r(wv[j] * inv[c]);
-      }
+      for (int j = 0; j < B_JMAX; ++j) wv[j] = j < nj ? __ldg(wrow + 64 * j) : 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float d = Dq[(ry * 8 + i) * B_CLD + c];
@@ -486,6 +673,127 @@ __global__ void __launch_bounds__(B_THREADS)
   }
 }
 
+constexpr int E_RB = 64, E_TC = 64;  // bf16 d_emb pass: rows, tile columns
+
+// shared memory of the bf16 d_emb pass at feature width D: the block's emb
+// rows, two W tiles, bf16(d_cos), the tile's 1 / ||w||, the rows' inputs
+__host__ __device__ constexpr int demb_bf16_smem(int D) {
+  return E_RB * D * 2 + 2 * E_TC * D * 2 + E_RB * E_TC * 2 + E_TC * 4 +
+         E_RB * (int)sizeof(RowIn);
+}
+
+// The bf16 d_emb pass (module header), every bf16 form's. inv_ready: a.inv
+// holds 1 / ||w|| of every logical column; else each tile's comes from its
+// staged rows.
+__global__ void __launch_bounds__(BW_THREADS, 1)
+    margin_bwd_demb_bf16_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg,
+                                int inv_ready, float* part) {
+  extern __shared__ __align__(16) unsigned char demb_sm[];
+  const int D = a.D, rcd = D / 8;
+  const __nv_bfloat16* W = wrows<__nv_bfloat16>(a);
+  unsigned char* Es = demb_sm;                 // emb rows [E_RB][D]
+  unsigned char* Ws = Es + E_RB * D * 2;       // W tiles [2][E_TC][D]: stored, then bf16(w_hat)
+  unsigned char* Dq = Ws + 2 * E_TC * D * 2;   // bf16(d_cos) [E_RB][E_TC]
+  float* inv = reinterpret_cast<float*>(Dq + E_RB * E_TC * 2);  // [E_TC]
+  RowIn* rin = reinterpret_cast<RowIn*>(inv + E_TC);            // [E_RB]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int rg = blockIdx.x % n_rg, chunk = blockIdx.x / n_rg;
+  const int r_base = rg * E_RB;
+  const long long c_begin = (long long)chunk * cols_per_chunk;
+  const long long c_end = min(a.ncols, c_begin + cols_per_chunk);
+  const int n_tiles = c_end > c_begin ? (int)((c_end - c_begin + E_TC - 1) / E_TC) : 0;
+
+  auto load_tile = [&](int ti) {  // tile ti into stage ti & 1
+    const long long t0 = c_begin + (long long)ti * E_TC, p0 = phys_col(a, t0);
+    stage_rows_bf16(Ws + (ti & 1) * E_TC * D * 2, W, p0, valid_cols(a, t0, p0, c_end, E_TC),
+                    E_TC, D);
+  };
+  stage_rows_bf16(Es, a.eb, r_base, min(E_RB, a.B - r_base), E_RB, D);
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
+  load_row_in(rin, E_RB, r_base, a, br);
+
+  // the cosine map: warp w holds rows 16 (w % 4) .., columns 16 (w / 4) ..;
+  // the d_emb map: rows 32 (w % 2) .., features 16 p .. 16 p + 15 of the
+  // pairs of n8 tiles p = w / 2 + 8 i (i < 4; D / 16 pairs)
+  const int m1 = (warp & 3) * 16, n1 = (warp >> 2) * 16;
+  const int m2 = (warp & 1) * 32, q2 = warp >> 1, np = D / 16;
+  float acc2[2][8][4] = {};
+
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const long long t0 = c_begin + (long long)ti * E_TC, p0 = phys_col(a, t0);
+    const int n = valid_cols(a, t0, p0, c_end, E_TC);
+    if (ti + 1 < n_tiles) load_tile(ti + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile ti (and the emb rows) landed; the row inputs are visible
+    unsigned char* T = Ws + (ti & 1) * E_TC * D * 2;
+    if (!inv_ready)
+      row_inv_tile(T, n, D, inv);
+    else if (tid < E_TC)
+      inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
+    __syncthreads();
+    scale_rows_bf16(T, E_TC, rcd, inv);
+    __syncthreads();  // the tile holds bf16(w_hat)
+
+    float acc1[1][2][4] = {};
+    mma_nt<1, 2>(acc1, Es, rcd, m1, T, rcd, n1, D / 16);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lr = m1 + g + 8 * h;
+      const RowIn v = rin[lr];
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+        const int c = n1 + 8 * ni + 2 * t;
+        float d[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          d[j] = r_base + lr < a.B && c + j < n
+                     ? dcos_of(acc1[0][ni][2 * h + j], p0 + c + j, v.lab, v.gt, v.lz, v.kth,
+                               v.dce, v.dneg, a)
+                     : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(Dq + swz(lr, c, E_TC / 8)) =
+            __floats2bfloat162_rn(d[0], d[1]);
+      }
+    }
+    __syncthreads();  // Dq is complete
+
+    // d_emb += bf16(d_cos) . bf16(w_hat): each k16 step's product (16
+    // columns) from a zero accumulator, added to d_emb in f32
+#pragma unroll
+    for (int ks = 0; ks < E_TC / 16; ++ks) {
+      uint32_t av[2][4];
+      load_a(av[0], Dq, E_TC / 8, m2, ks);
+      load_a(av[1], Dq, E_TC / 8, m2 + 16, ks);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (q2 + 8 * i >= np) continue;
+        uint32_t b[4];
+        load_b_kn(b, T, rcd, 16 * (q2 + 8 * i), ks);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_add(acc2[mi], 2 * i, av[mi], b);
+      }
+    }
+    __syncthreads();  // the tile's stage and Dq are rebuilt next
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = r_base + m2 + 16 * mi + g + 8 * h;
+      if (gr >= a.B) continue;
+      float* p = part + ((long long)chunk * a.B + gr) * D + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (q2 + 8 * (j >> 1) < np)
+          *reinterpret_cast<float2*>(p + 16 * (q2 + 8 * (j >> 1)) + 8 * (j & 1)) =
+              make_float2(acc2[mi][j][2 * h], acc2[mi][j][2 * h + 1]);
+    }
+}
+
 // d_emb = sum of the chunk partials in chunk order
 __global__ void margin_bwd_demb_merge_kernel(int nchunk, long long n, const float* part,
                                              float* d_emb) {
@@ -504,9 +812,12 @@ constexpr size_t W_SMEM =
     sizeof(float) * (W_DK * W_ALD + W_DK * W_BLD + W_ROWS * W_CLD + W_ROWS * W_ELD +
                      16 * W_TC + 2 * W_TC + 5 * W_ROWS) +
     sizeof(int) * (2 * W_ROWS + 1);
-constexpr size_t W_SMEM_BF16 = W_SMEM + sizeof(float) * W_DK * W_BLD;  // + Bu
+// bf16 W: the chunk stages of the tensor cores' cosines in front
+constexpr size_t W_SMEM_BF16 = W_SMEM + CH_ST * chunk_bytes<W_ROWS, W_TC>();
 
-// Each column's owner adds d_wl [B][D] (the label rows' gradient) for every
+// f32 W, and the fused and sparse bf16 forms (the bf16 d_w pass of
+// margin_ce_bwd / margin_partial_bwd: margin_bwd_dw_bf16_kernel). Each
+// column's owner adds d_wl [B][D] (the label rows' gradient) for every
 // batch row labelled with it. fused == 0: write d_w to dw (row by logical
 // column). Otherwise apply the SGD update to sgd.w and sgd.mom (type TM) in
 // place (dw unused). dgt: nullptr, or [B] zeros where the owner of a row's
@@ -519,8 +830,10 @@ __global__ void __launch_bounds__(W_THREADS)
   const TW* W = wrows<TW>(a);
   TW* w_upd = static_cast<TW*>(sgd.w);
   TM* mom = static_cast<TM*>(sgd.mom);
-  extern __shared__ float smem[];
-  float* As = smem;                      // emb chunk, k-major [W_DK][W_ALD]
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* stg = reinterpret_cast<unsigned char*>(smem);  // bf16: [CH_ST] chunk stages
+  float* As = BF16 ? reinterpret_cast<float*>(stg + CH_ST * chunk_bytes<W_ROWS, W_TC>())
+                   : smem;               // emb chunk, k-major [W_DK][W_ALD]
   float* Bs = As + W_DK * W_ALD;         // W chunk, k-major [W_DK][W_BLD]
   float* Dc = Bs + W_DK * W_BLD;         // d_cos [W_ROWS][W_CLD]
   float* Es = Dc + W_ROWS * W_CLD;       // emb feature chunk [W_ROWS][W_ELD]
@@ -535,7 +848,6 @@ __global__ void __launch_bounds__(W_THREADS)
   int* r_lab = reinterpret_cast<int*>(r_dneg + W_ROWS);
   int* tgt = r_lab + W_ROWS;             // [W_ROWS] label - t0 if in this tile, else -1
   int* any_tgt = tgt + W_ROWS;
-  float* Bu = reinterpret_cast<float*>(any_tgt + 1);  // bf16 W: unrounded w_hat [W_DK][W_BLD]
 
   const int tid = threadIdx.x;
   const long long c_begin = (long long)blockIdx.x * cols_per_blk;
@@ -569,15 +881,33 @@ __global__ void __launch_bounds__(W_THREADS)
                    a.scale;
     }
 
-    // acc: the cosines (f32 W: raw dots); bf16 W: ce, the dots of the rounded
-    // emb with the unrounded w_hat, for <d_w_hat, w_hat>
+    // acc: the cosines (f32 W: raw dots); bf16 W: also ce, the dots of the
+    // rounded emb with the unrounded w_hat, for <d_w_hat, w_hat>
     float acc[8][4], ce[8][4];
     if constexpr (BF16) {
-      float n2;
-      tile_gemm<W_ROWS, W_TC, W_DK, W_THREADS, W_ALD, W_BLD, 8, 4, 16, 16, false>(
-          acc, n2, As, Bs, a.emb, 0, a.B, W, p0, p0 + n, a.D, ty, tx,
-          StageNormBf16<true>{a.inv + t0}, ce, Bu);
       if (tid < W_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
+      // the cosines on the tensor cores (the forward's chain; warps of 32
+      // rows x 32 columns), handed to the thread map below through Dc
+      const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+      const int wr = (warp & 3) * 32, wc = (warp >> 2) * 32;
+      float mc[2][4][4];
+      chunk_cos<W_ROWS, W_TC, 4>(a, stg, inv, p0, n, wr, wc, mc);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            Dc[(wr + 16 * mi + g + 8 * (e >> 1)) * W_CLD + wc + 8 * ni + 2 * t + (e & 1)] =
+                mc[mi][ni][e];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = Dc[(ty + 16 * i) * W_CLD + tx + 16 * j];
+      float n2;  // tile_gemm's barriers order these reads before Dc is rewritten
+      tile_gemm<W_ROWS, W_TC, W_DK, W_THREADS, W_ALD, W_BLD, 8, 4, 16, 16, false>(
+          ce, n2, As, Bs, a.emb, 0, a.B, W, p0, p0 + n, a.D, ty, tx, StageNormed{inv});
     } else {
       float n2;
       tile_gemm<W_ROWS, W_TC, W_DK, W_THREADS, W_ALD, W_BLD, 8, 4, 16, 16, true>(
@@ -680,11 +1010,261 @@ __global__ void __launch_bounds__(W_THREADS)
   }
 }
 
-Args make_args(const float* emb, const void* w, const float* inv, long long C, int D, int B,
-               const int* labels, const float* gt, int k, int loss_type, float margin,
-               float scale, float mask_svfc, float cos_m, float sin_m) {
+constexpr int WB_ROWS = 128, WB_TC = 64;  // bf16 d_w pass: batch rows, tile columns
+
+// shared memory of the bf16 d_w pass at feature width D: emb, the W tile,
+// bf16(d_cos), the tile's 1 / ||w|| and <d_w_hat, w_hat> partials (eight
+// feature groups), the rows' inputs and target offsets
+__host__ __device__ constexpr int dw_bf16_smem(int D) {
+  return WB_ROWS * D * 2 + WB_TC * D * 2 + WB_ROWS * WB_TC * 2 + 9 * WB_TC * 4 +
+         WB_ROWS * ((int)sizeof(RowIn) + 4);
+}
+
+// The bf16 d_w pass of margin_ce_bwd / margin_partial_bwd (module header):
+// d_w [C][D] f32 with each label row's d_wl [B][D] added by the column's
+// owner in batch order; 1 / ||w|| of each column into inv_out for the d_emb
+// pass.
+__global__ void __launch_bounds__(BW_THREADS, 1)
+    margin_bwd_dw_bf16_kernel(Args a, BwdRows br, long long cols_per_blk, const float* dwl,
+                              float* dw, float* inv_out) {
+  extern __shared__ __align__(16) unsigned char dw_sm[];
+  const int D = a.D, rcd = D / 8;
+  const __nv_bfloat16* W = wrows<__nv_bfloat16>(a);
+  unsigned char* Es = dw_sm;                   // emb [WB_ROWS][D]
+  unsigned char* Ws = Es + WB_ROWS * D * 2;    // the W tile [WB_TC][D]: stored, then bf16(w_hat)
+  unsigned char* Dc = Ws + WB_TC * D * 2;      // bf16(d_cos) [WB_ROWS][WB_TC]
+  float* inv = reinterpret_cast<float*>(Dc + WB_ROWS * WB_TC * 2);  // [WB_TC]
+  float* sdp = inv + WB_TC;  // [8][WB_TC] <d_w_hat, w_hat> over each feature group
+  RowIn* rin = reinterpret_cast<RowIn*>(sdp + 8 * WB_TC);  // [WB_ROWS]
+  int* tgt = reinterpret_cast<int*>(rin + WB_ROWS);        // label - t0 in this tile, else -1
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const long long c_begin = (long long)blockIdx.x * cols_per_blk;
+  const long long c_end = min(a.C, c_begin + cols_per_blk);
+  const int n_tiles = c_end > c_begin ? (int)((c_end - c_begin + WB_TC - 1) / WB_TC) : 0;
+  const int nb = (a.B + 15) / 16;  // k16 steps of d_w_hat over the batch
+
+  stage_rows_bf16(Es, a.eb, 0, a.B, WB_ROWS, D);
+  if (n_tiles > 0) stage_rows_bf16(Ws, W, c_begin, (int)min((long long)WB_TC, c_end - c_begin),
+                                   WB_TC, D);
+  cp_async_commit();
+  load_row_in(rin, WB_ROWS, 0, a, br);
+
+  // the cosine map: warp w holds rows 32 (w % 4) .., columns 16 (w / 4) ..;
+  // the d_w_hat map: columns 32 (w % 2) .., features 16 p .. 16 p + 15 of
+  // the pairs of n8 tiles p = w / 2 + 8 i (i < 4; D / 16 pairs), so a
+  // column's features lie in eight warps (feature group w / 2)
+  const int m0 = (warp & 3) * 32, n0 = (warp >> 2) * 16;
+  const int m2 = (warp & 1) * 32, q2 = warp >> 1, np = D / 16;
+
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const long long t0 = c_begin + (long long)ti * WB_TC;
+    const int n = (int)min((long long)WB_TC, c_end - t0);
+    cp_async_wait<0>();
+    __syncthreads();  // the tile (and emb) landed; the last tile's epilogue is done
+    row_inv_tile(Ws, n, D, inv);
+    bool hit = false;
+    if (tid < WB_ROWS) {
+      const long long off = (long long)rin[tid].lab - t0;
+      tgt[tid] = rin[tid].lab >= 0 && off >= 0 && off < n ? (int)off : -1;
+      hit = tgt[tid] >= 0;
+    }
+    const bool any_tgt = __syncthreads_or(hit);  // inv and tgt visible
+    if (tid < n) inv_out[t0 + tid] = inv[tid];
+    scale_rows_bf16(Ws, WB_TC, rcd, inv);
+    __syncthreads();  // the tile holds bf16(w_hat)
+
+    float acc[2][2][4] = {};
+    mma_nt<2, 2>(acc, Es, rcd, m0, Ws, rcd, n0, D / 16);
+    __syncthreads();  // every warp is done with the tile: the next one's copies start
+    if (ti + 1 < n_tiles)
+      stage_rows_bf16(Ws, W, t0 + WB_TC, (int)min((long long)WB_TC, c_end - t0 - WB_TC), WB_TC, D);
+    cp_async_commit();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int b = m0 + 16 * mi + g + 8 * h;
+        const RowIn v = rin[b];
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) {
+          const int c = n0 + 8 * ni + 2 * t;
+          float d[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            d[j] = b < a.B && c + j < n
+                       ? dcos_of(acc[mi][ni][2 * h + j], t0 + c + j, v.lab, v.gt, v.lz, v.kth,
+                                 v.dce, v.dneg, a)
+                       : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(Dc + swz(b, c, WB_TC / 8)) =
+              __floats2bfloat162_rn(d[0], d[1]);
+        }
+      }
+    __syncthreads();  // Dc is complete
+
+    // d_w_hat = bf16(d_cos)^T . bf16(emb): each k16 step's product (16
+    // batch rows) from a zero accumulator, added in f32
+    float dwh[2][8][4] = {};
+    for (int ks = 0; ks < nb; ++ks) {
+      uint32_t av[2][4];
+      load_a_t(av[0], Dc, WB_TC / 8, m2, ks);
+      load_a_t(av[1], Dc, WB_TC / 8, m2 + 16, ks);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (q2 + 8 * i >= np) continue;
+        uint32_t bf[4];
+        load_b_kn(bf, Es, rcd, 16 * (q2 + 8 * i), ks);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) mma_add(dwh[mi], 2 * i, av[mi], bf);
+      }
+    }
+
+    // the stored values of the thread's d_w elements (columns m2 + 16 mi + g
+    // + 8 h, features fj + 2 t, + 1 of its n8 tiles j: fj = 16 (q2 + 8 (j /
+    // 2)) + 8 (j % 2)), again from L2: the tile's copy in shared memory is
+    // bf16(w_hat) now (issued before the product, they spill)
+    auto feat = [&](int j) { return 16 * (q2 + 8 * (j >> 1)) + 8 * (j & 1) + 2 * t; };
+    uint32_t wst[2][2][8];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = m2 + 16 * mi + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          wst[mi][h][j] = q2 + 8 * (j >> 1) < np && c < n
+                              ? __ldg(reinterpret_cast<const unsigned*>(W + (t0 + c) * D + feat(j)))
+                              : 0u;
+      }
+
+    // <d_w_hat, w_hat> of each column from its finished row against the f32
+    // w_hat = w * inv: the thread's features, its row's four lanes, then the
+    // eight warps of the row in order
+    float sd[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float iv = inv[m2 + 16 * mi + g + 8 * h];
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (q2 + 8 * (j >> 1) >= np) continue;
+          const float2 wf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wst[mi][h][j]));
+          s = fmaf(dwh[mi][j][2 * h], wf.x * iv, s);
+          s = fmaf(dwh[mi][j][2 * h + 1], wf.y * iv, s);
+        }
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        sd[mi][h] = s;
+      }
+    if (t == 0)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) sdp[q2 * WB_TC + m2 + 16 * mi + g + 8 * h] = sd[mi][h];
+    __syncthreads();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = m2 + 16 * mi + g + 8 * h;
+        if (c >= n) continue;
+        const float iv = inv[c];
+        float s = 0.f;
+        for (int q = 0; q < 8; ++q) s += sdp[q * WB_TC + c];
+        float* out = dw + (t0 + c) * D;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (q2 + 8 * (j >> 1) >= np) continue;
+          const float2 wf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wst[mi][h][j]));
+          float2 gv = make_float2(iv * (dwh[mi][j][2 * h] - wf.x * iv * s),
+                                  iv * (dwh[mi][j][2 * h + 1] - wf.y * iv * s));
+          if (any_tgt)  // the label rows' d_wl, in batch order
+            for (int b = 0; b < a.B; ++b) {
+              if (tgt[b] != c) continue;
+              const float2 l = *reinterpret_cast<const float2*>(dwl + (long long)b * D + feat(j));
+              gv.x += l.x;
+              gv.y += l.y;
+            }
+          *reinterpret_cast<float2*>(out + feat(j)) = gv;
+        }
+      }
+  }
+  cp_async_wait<0>();
+}
+
+// ------------------------------------------------------------ clean cosines
+
+// out [B][C] = the bf16 cosines of every column (no labels read) as the
+// chunk staging forms them: TC = 128 columns a block as the forward does,
+// 64 as the fused and sparse d_w pass does; 1 / ||w|| from a.inv
+template <int TC>
+__global__ void __launch_bounds__(256) clean_cos_chunk_kernel(Args a, float* out) {
+  extern __shared__ __align__(16) unsigned char cc_sm[];
+  float* inv = reinterpret_cast<float*>(cc_sm + CH_ST * chunk_bytes<128, TC>());
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const long long t0 = (long long)blockIdx.x * TC;
+  const int n = (int)min((long long)TC, a.C - t0);
+  if (tid < TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
+  const int wr = (warp & 3) * 32, wc = (warp >> 2) * (TC / 2);
+  float acc[2][TC / 16][4];
+  chunk_cos<128, TC, TC / 16>(a, cc_sm, inv, t0, n, wr, wc, acc);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < TC / 16; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = wr + 16 * mi + g + 8 * (e >> 1), c = wc + 8 * ni + 2 * t + (e & 1);
+        if (r < a.B && c < n) out[r * a.C + t0 + c] = acc[mi][ni][e];
+      }
+}
+
+// ... and as the bf16 d_emb pass (ROWS = 64, a block per row group) and
+// d_w pass (ROWS = 128) form them from whole staged tiles, 1 / ||w|| from
+// the staged rows
+template <int ROWS>
+__global__ void __launch_bounds__(BW_THREADS) clean_cos_tile_kernel(Args a, float* out) {
+  extern __shared__ __align__(16) unsigned char ct_sm[];
+  constexpr int MI = ROWS / 64;
+  const int D = a.D, rcd = D / 8;
+  unsigned char* Es = ct_sm;              // emb rows [ROWS][D]
+  unsigned char* Ws = Es + ROWS * D * 2;  // the W tile [64][D]
+  float* inv = reinterpret_cast<float*>(Ws + 64 * D * 2);
+  const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int r_base = blockIdx.y * ROWS;
+  const long long t0 = (long long)blockIdx.x * 64;
+  const int n = (int)min(64LL, a.C - t0);
+  stage_rows_bf16(Es, a.eb, r_base, min(ROWS, a.B - r_base), ROWS, D);
+  stage_rows_bf16(Ws, wrows<__nv_bfloat16>(a), t0, n, 64, D);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  row_inv_tile(Ws, n, D, inv);
+  __syncthreads();
+  scale_rows_bf16(Ws, 64, rcd, inv);
+  __syncthreads();
+  const int m0 = (warp & 3) * 16 * MI, n0 = (warp >> 2) * 16;
+  float acc[MI][2][4] = {};
+  mma_nt<MI, 2>(acc, Es, rcd, m0, Ws, rcd, n0, D / 16);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r_base + m0 + 16 * mi + g + 8 * (e >> 1), c = n0 + 8 * ni + 2 * t + (e & 1);
+        if (r < a.B && c < n) out[r * a.C + t0 + c] = acc[mi][ni][e];
+      }
+}
+
+Args make_args(const float* emb, const void* eb, const void* w, const float* inv, long long C,
+               int D, int B, const int* labels, const float* gt, int k, int loss_type,
+               float margin, float scale, float mask_svfc, float cos_m, float sin_m) {
   Args a;
   a.emb = emb;
+  a.eb = static_cast<const __nv_bfloat16*>(eb);
   a.w = w;
   a.inv = inv;
   a.C = C;
@@ -713,6 +1293,12 @@ int launch_inv(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// `kernel` with `smem` bytes of dynamic shared memory allowed
+template <class K>
+int allow_smem(K kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // the forward's block pass over nblk column ranges
 template <class TW>
 int launch_fwd_pass(const Args& a, int nblk, long long cols_per_blk, float* part, float* stats,
@@ -721,10 +1307,10 @@ int launch_fwd_pass(const Args& a, int nblk, long long cols_per_blk, float* part
     const int err = launch_inv(a, st);
     if (err != 0) return err;
   }
-  cudaError_t err = cudaFuncSetAttribute(margin_fwd_kernel<TW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  margin_fwd_kernel<TW><<<nblk, F_THREADS, F_SMEM, st>>>(a, cols_per_blk, part, stats);
+  constexpr size_t smem = fwd_smem<TW>();
+  const int err = allow_smem(margin_fwd_kernel<TW>, smem);
+  if (err != 0) return err;
+  margin_fwd_kernel<TW><<<nblk, F_THREADS, smem, st>>>(a, cols_per_blk, part, stats);
   return (int)cudaGetLastError();
 }
 
@@ -734,30 +1320,47 @@ int launch_fwd_pass_form(int w_bf16, const Args& a, int nblk, long long cols_per
                 : launch_fwd_pass<float>(a, nblk, cols_per_blk, part, stats, st);
 }
 
-// both backward passes: d_emb (row groups + merge), then d_w (column owners)
+// both backward passes. d_emb: row groups (32 rows f32, 64 bf16) x nchunk
+// column chunks, then the merge. d_w: column owners, after the d_emb pass;
+// the bf16 form's dense unfused d_w (margin_ce_bwd, margin_partial_bwd)
+// runs the tensor-core pass before it, and that pass's 1 / ||w|| serves the
+// d_emb pass. grad_w=False: dw nullptr and not fused.
 template <class TW, class TM>
 int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
                long long cols_per_chunk, float* d_emb, int dw_nblk, long long dw_cols_per_blk,
                const float* dwl, float* dw, const Sgd& sgd, int fused, float* dgt,
                cudaStream_t st) {
-  cudaError_t err;
-  if (!std::is_same<TW, float>::value) {
-    const int e = launch_inv(a, st);
-    if (e != 0) return e;
+  constexpr bool BF16 = !std::is_same<TW, float>::value;
+  const bool with_dw = dw != nullptr || fused;
+  const bool dw_tc = BF16 && with_dw && !fused && a.sel == nullptr;
+  int e = 0;
+  if (dw_tc) {
+    const size_t smem = dw_bf16_smem(a.D);
+    if ((e = allow_smem(margin_bwd_dw_bf16_kernel, smem)) != 0) return e;
+    margin_bwd_dw_bf16_kernel<<<dw_nblk, BW_THREADS, smem, st>>>(a, br, dw_cols_per_blk, dwl, dw,
+                                                                 const_cast<float*>(a.inv));
+  } else if (BF16 && with_dw) {  // the fused and sparse d_w pass reads a.inv
+    e = launch_inv(a, st);
   }
-  const int n_rg = (a.B + B_RB - 1) / B_RB;
-  margin_bwd_demb_kernel<TW><<<nchunk * n_rg, B_THREADS, B_SMEM, st>>>(a, br, cols_per_chunk,
-                                                                        n_rg, part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (e != 0 || (e = (int)cudaGetLastError()) != 0) return e;
+  if (BF16) {
+    const size_t smem = demb_bf16_smem(a.D);
+    const int n_rg = (a.B + E_RB - 1) / E_RB;
+    if ((e = allow_smem(margin_bwd_demb_bf16_kernel, smem)) != 0) return e;
+    margin_bwd_demb_bf16_kernel<<<nchunk * n_rg, BW_THREADS, smem, st>>>(
+        a, br, cols_per_chunk, n_rg, (int)with_dw, part);
+  } else {
+    const int n_rg = (a.B + B_RB - 1) / B_RB;
+    margin_bwd_demb_kernel<<<nchunk * n_rg, B_THREADS, B_SMEM, st>>>(a, br, cols_per_chunk, n_rg,
+                                                                    part);
+  }
+  if ((e = (int)cudaGetLastError()) != 0) return e;
   const long long n = (long long)a.B * a.D;
   margin_bwd_demb_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(nchunk, n, part,
                                                                             d_emb);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (dw == nullptr && !fused) return 0;  // grad_w=False
-  const size_t smem = std::is_same<TW, float>::value ? W_SMEM : W_SMEM_BF16;
-  err = cudaFuncSetAttribute(margin_bwd_dw_kernel<TW, TM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if ((e = (int)cudaGetLastError()) != 0 || !with_dw || dw_tc) return e;
+  const size_t smem = BF16 ? W_SMEM_BF16 : W_SMEM;
+  if ((e = allow_smem(margin_bwd_dw_kernel<TW, TM>, smem)) != 0) return e;
   margin_bwd_dw_kernel<TW, TM><<<dw_nblk, W_THREADS, smem, st>>>(a, br, dw_cols_per_blk, dwl,
                                                                  dw, sgd, fused, dgt);
   return (int)cudaGetLastError();
@@ -776,14 +1379,46 @@ int launch_bwd_form(int w_bf16, const Args& a, const BwdRows& br, float* part, i
                                            dw_cols_per_blk, dwl, dw, none, 0, dgt, st);
 }
 
+// the bf16 cosines in tiling 0 (the forward), 1 (the d_emb pass), 2 (the
+// bf16 d_w pass) or 3 (the fused and sparse d_w pass)
+int launch_clean_cos(const Args& a, int tiling, float* out, cudaStream_t st) {
+  int e = 0;
+  if (tiling == 0 || tiling == 3) {
+    if ((e = launch_inv(a, st)) != 0) return e;
+    const size_t smem = (tiling == 0 ? CH_ST * chunk_bytes<128, 128>() + 128 * 4
+                                     : CH_ST * chunk_bytes<128, 64>() + 64 * 4);
+    if (tiling == 0) {
+      if ((e = allow_smem(clean_cos_chunk_kernel<128>, smem)) != 0) return e;
+      clean_cos_chunk_kernel<128><<<(unsigned)((a.C + 127) / 128), 256, smem, st>>>(a, out);
+    } else {
+      if ((e = allow_smem(clean_cos_chunk_kernel<64>, smem)) != 0) return e;
+      clean_cos_chunk_kernel<64><<<(unsigned)((a.C + 63) / 64), 256, smem, st>>>(a, out);
+    }
+  } else if (tiling == 1 || tiling == 2) {
+    const int rows = tiling == 1 ? 64 : 128;
+    const size_t smem = (size_t)(rows + 64) * a.D * 2 + 64 * 4;
+    const dim3 grid((unsigned)((a.C + 63) / 64), (unsigned)((a.B + rows - 1) / rows));
+    if (tiling == 1) {
+      if ((e = allow_smem(clean_cos_tile_kernel<64>, smem)) != 0) return e;
+      clean_cos_tile_kernel<64><<<grid, BW_THREADS, smem, st>>>(a, out);
+    } else {
+      if ((e = allow_smem(clean_cos_tile_kernel<128>, smem)) != 0) return e;
+      clean_cos_tile_kernel<128><<<grid, BW_THREADS, smem, st>>>(a, out);
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define MCE_COMMON_PARAMS                                                                       \
-  const float *emb, const void *w, int w_bf16, float *inv, long long C, int D, int B,          \
-      const int *labels, const float *gt, int k, int loss_type, float margin, float scale,      \
-      float mask_svfc, float cos_m, float sin_m
+  const float *emb, const void *eb, const void *w, int w_bf16, float *inv, long long C, int D,  \
+      int B, const int *labels, const float *gt, int k, int loss_type, float margin,             \
+      float scale, float mask_svfc, float cos_m, float sin_m
 #define MCE_COMMON_ARGS \
-  emb, w, inv, C, D, B, labels, gt, k, loss_type, margin, scale, mask_svfc, cos_m, sin_m
+  emb, eb, w, inv, C, D, B, labels, gt, k, loss_type, margin, scale, mask_svfc, cos_m, sin_m
 #define MCE_BWD_PARAMS                                                                          \
   const float *logz, const float *kth, const float *dce, const float *dneg, float *part,        \
       int nchunk, long long cols_per_chunk, float *d_emb, int dw_nblk, long long dw_cols_per_blk
@@ -792,9 +1427,10 @@ extern "C" {
 
 const char* margin_ce_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Every entry takes W as f32 (w_bf16 = 0, inv nullptr) or bf16 (w_bf16 = 1,
-// emb rounded to bf16 by the caller, inv a float scratch of one entry per
-// logical column: C, or M * tile for the sparse backward).
+// Every entry takes W as f32 (w_bf16 = 0, eb and inv nullptr) or bf16
+// (w_bf16 = 1, emb rounded to bf16 by the caller and eb the same values
+// stored as bf16 [B][D], inv a float scratch of one entry per logical
+// column: C, or M * tile for the sparse backward).
 
 // forward: nblk column ranges of cols_per_blk (a multiple of 128) columns;
 // part is [2 * nblk][B][2 + 16] f32 scratch; outputs [B] and [B][k]. With
@@ -886,6 +1522,15 @@ int margin_partial_bwd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, float* dw, cons
   const BwdRows br = {logz, kth, dce, dneg};
   return launch_bwd_form(w_bf16, a, br, part, nchunk, cols_per_chunk, d_emb, dw_nblk,
                          dw_cols_per_blk, dwl, dw, nullptr, (cudaStream_t)stream);
+}
+
+// the bf16 cosines [B][C] of every column (no labels read) as tiling forms
+// them (0 the forward, 1 the d_emb pass, 2 the bf16 d_w pass, 3 the fused
+// and sparse d_w pass): a parity probe of the chain they share (bf16 W only)
+int margin_ce_clean_cos_launch(MCE_COMMON_PARAMS, int tiling, float* out, void* stream) {
+  const Args a = make_args(MCE_COMMON_ARGS);
+  if (!w_bf16 || eb == nullptr || inv == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_clean_cos(a, tiling, out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

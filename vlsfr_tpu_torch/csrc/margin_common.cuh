@@ -3,13 +3,15 @@
 // value-only top-k, the merge of per-block partials, d loss / d cos of one
 // column, and the shared-memory tile product (f32 accumulate over f32, bf16
 // or int8 rows, each converted exactly to f32, or staged by a caller's
-// policy: margin_ce.cu's bf16 form normalises and rounds its rows).
+// policy: margin_ce.cu's bf16 form stages its rows normalised).
 //
 // Both kernels' top-k tie test (cos >= kth - KTH_TIE_TOL) compares cosines
 // that the forward and the backward compute separately; they must be the
-// same bits, so both passes take them from `tile_gemm`, whose FMA chain runs
-// over the feature axis in index order. quad_margin.cu's `row_dot` keeps
-// that order for the columns this step writes.
+// same bits, so both passes take them from one chain: `tile_gemm`'s FMA
+// chain over the feature axis in index order (the f32, int8 and int8c
+// forms; quad_margin.cu's `row_dot` keeps that order for the columns this
+// step writes), or the bf16 forms' k16 chain on the tensor cores
+// (mma_bf16.cuh: mma_nt).
 //
 // `A` is each kernel's argument struct: it has loss_type, k, margin, scale,
 // mask_svfc, cos_m and sin_m.
@@ -146,15 +148,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ float to_f32(signed char x) { return (float)x; }
 
 // How tile_gemm stages an element y of row `row` of Y: it returns the
-// product's operand and sets u to the value before any rounding. Exact
-// converts the stored value exactly to f32 (the two are the same). A stage
-// with TWIN keeps u in a second buffer and sums a second product against it.
+// product's operand. Exact converts the stored value exactly to f32.
 struct StageExact {
-  static constexpr bool TWIN = false;
   template <class TY>
-  __device__ __forceinline__ float operator()(TY y, int, float& u) const {
-    u = to_f32(y);
-    return u;
+  __device__ __forceinline__ float operator()(TY y, int) const {
+    return to_f32(y);
   }
 };
 
@@ -163,24 +161,18 @@ struct StageExact {
 // X (f32) and Y (f32, bf16 or int8), staged DK features at a time into
 // shared memory k-major as f32 (As [DK][ALD], Bs [DK][BLD]); rows at or past
 // x_end / y_end read as 0. With NORM, thread t < NY also sums
-// ||Y[y0 + t]||^2 of the staged operands from the same chunks into n2. With
-// a TWIN stage, Bu [DK][BLD] holds the unrounded values and ce[i][j] sums
-// the same products against them.
+// ||Y[y0 + t]||^2 of the staged operands from the same chunks into n2.
 template <int NX, int NY, int DK, int THREADS, int ALD, int BLD, int TI, int TJ, int SA, int SB,
           bool NORM, class TY = float, class STAGE = StageExact>
 __device__ __forceinline__ void tile_gemm(float (&acc)[TI][TJ], float& n2, float* As, float* Bs,
                                           const float* X, long long x0, long long x_end,
                                           const TY* Y, long long y0, long long y_end, int D,
-                                          int ay, int bx, const STAGE& stage = STAGE(),
-                                          float (*ce)[TJ] = nullptr, float* Bu = nullptr) {
+                                          int ay, int bx, const STAGE& stage = STAGE()) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < TI; ++i)
 #pragma unroll
-    for (int j = 0; j < TJ; ++j) {
-      acc[i][j] = 0.f;
-      if constexpr (STAGE::TWIN) ce[i][j] = 0.f;
-    }
+    for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
   n2 = 0.f;
   for (int k0 = 0; k0 < D; k0 += DK) {
 #pragma unroll
@@ -193,9 +185,7 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TI][TJ], float& n2, float
     for (int l = 0; l < NY * DK / THREADS; ++l) {
       const int idx = l * THREADS + tid, row = idx / DK, kk = idx % DK;
       const long long g = y0 + row;
-      float u = 0.f;
-      Bs[kk * BLD + row] = g < y_end ? stage(Y[g * D + k0 + kk], row, u) : 0.f;
-      if constexpr (STAGE::TWIN) Bu[kk * BLD + row] = u;
+      Bs[kk * BLD + row] = g < y_end ? stage(Y[g * D + k0 + kk], row) : 0.f;
     }
     __syncthreads();
     if (NORM && tid < NY) {
@@ -213,14 +203,6 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TI][TJ], float& n2, float
       for (int i = 0; i < TI; ++i)
 #pragma unroll
         for (int j = 0; j < TJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      if constexpr (STAGE::TWIN) {
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) bv[j] = Bu[kk * BLD + bx + SB * j];
-#pragma unroll
-        for (int i = 0; i < TI; ++i)
-#pragma unroll
-          for (int j = 0; j < TJ; ++j) ce[i][j] = fmaf(av[i], bv[j], ce[i][j]);
-      }
     }
     __syncthreads();
   }

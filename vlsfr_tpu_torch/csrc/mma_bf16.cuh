@@ -1,5 +1,5 @@
 // Tensor-core building blocks of the port's bf16 kernels (conv3x3.cu,
-// quad_margin.cu) for NVIDIA Hopper (sm_90a): 16-byte cp.async copies into
+// quad_margin.cu, margin_ce.cu) for NVIDIA Hopper (sm_90a): 16-byte cp.async copies into
 // shared memory (zero-filled where the source lies outside the tensor),
 // ldmatrix fragment loads, and the warp-wide mma.sync m16n8k16 product of
 // bf16 operands into f32 accumulators.
@@ -20,8 +20,8 @@
 // adds it to the sum with an f32 add, rounded to nearest. Each output
 // element is a chain over the k16 steps in the order the caller walks them,
 // so two kernels that walk the same steps in the same order from a zero
-// sum produce the same bits, whatever their tiling (quad_margin.cu's
-// forward and backward rely on this).
+// sum produce the same bits, whatever their tiling (the forward and the
+// backward of quad_margin.cu and of margin_ce.cu rely on this).
 
 #pragma once
 
@@ -100,12 +100,36 @@ __device__ __forceinline__ void mma_bf16_0(float (&d)[4], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(z));
 }
 
+// acc[j] += a . b[0..1] and acc[j + 1] += a . b[2..3] (two n8 tiles, the
+// B fragments as load_b_kn gives them), each product from a zero
+// accumulator and added in f32 (header)
+template <int NJ>
+__device__ __forceinline__ void mma_add(float (&acc)[NJ][4], int j, const uint32_t (&a)[4],
+                                        const uint32_t (&b)[4]) {
+  float p0[4], p1[4];
+  mma_bf16_0(p0, a, b[0], b[1]);
+  mma_bf16_0(p1, a, b[2], b[3]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    acc[j][e] += p0[e];
+    acc[j + 1][e] += p1[e];
+  }
+}
+
 // the A fragment of rows m0 .. m0 + 15, k16 step ks, of a swizzled [m][k]
 // matrix with rc chunks a row
 __device__ __forceinline__ void load_a(uint32_t (&r)[4], const unsigned char* A, int rc, int m0,
                                        int ks) {
   const int lane = threadIdx.x & 31;
   ldsm_x4(r, A + swz(m0 + (lane & 15), ks * 16 + (lane >> 4) * 8, rc));
+}
+
+// the A fragment of rows m0 .. m0 + 15, k16 step ks, of the product A . B
+// where A is stored transposed: a swizzled [k][m] matrix with rc chunks a row
+__device__ __forceinline__ void load_a_t(uint32_t (&r)[4], const unsigned char* At, int rc, int m0,
+                                         int ks) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(r, At + swz(ks * 16 + (lane & 7) + ((lane >> 4) << 3), m0 + ((lane >> 3) & 1) * 8, rc));
 }
 
 // acc[mi][ni] += sum over k16 steps ks in [0, n_ks), in order, of

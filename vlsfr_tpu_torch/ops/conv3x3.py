@@ -95,8 +95,6 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.conv3x3_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.conv3x3_launch.restype = i
-        lib.conv3x3_bf16_fits.argtypes = [i, i, i]
-        lib.conv3x3_bf16_fits.restype = i
         lib.conv3x3_error_string.argtypes = [i]
         lib.conv3x3_error_string.restype = ctypes.c_char_p
         lib._vlsfr_typed = True
@@ -120,10 +118,13 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, *, mode: str = "taps9", strip: int
     channel-major for ``im2col`` (PyTorch's unfold order; on the bf16 form,
     the order of its k16 steps of one tap × 16 channels). Both compute the
     same sum; only the f32 summation order differs. ``strip`` must divide H
-    and be even, as in JAX. The bf16 kernel keeps its block's whole weight
-    slice and two halo stages in shared memory: it takes C a multiple of 8
-    that fits (``conv3x3_bf16_fits`` in ``csrc/conv3x3.cu``: C <= 144 at W
-    <= 112), and raises otherwise."""
+    and be even, as in JAX; any C is taken, as JAX's wrapper takes it. The
+    bf16 kernel keeps its block's weight slice in shared memory where it
+    fits beside a halo row (C <= 144 at W <= 112) and streams it with the
+    halo in chunks of 64 (or 32, 16) channels where it does not (C = 256,
+    512); it stages 16-byte pieces of a pixel's channels, so a C that is not
+    a multiple of 8 (ir50's stem, C = 3) is padded here with zero channels,
+    once, in x and w (they add nothing to any sum)."""
     _check_args(x, w, mode, strip)
     if not x.is_cuda:
         return conv3x3_plain(x, w, with_stats=with_stats)
@@ -133,17 +134,18 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, *, mode: str = "taps9", strip: int
         raise ValueError("x must be contiguous and w on x's device")
     b, h, wd, c = x.shape
     cout = w.shape[-1]
-    wc = w.to(x.dtype).contiguous()
+    wc = w.to(x.dtype)
+    if x.dtype == torch.bfloat16 and c % 8:  # zero channels up to a multiple of 8
+        x = F.pad(x, (0, 8 - c % 8))
+        wc = F.pad(wc, (0, 0, 0, 8 - c % 8))
+        c = x.shape[-1]
+    wc = wc.contiguous()
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     part = stats = None
     if with_stats:
         part = torch.empty((b * (h // strip), 2, cout), dtype=torch.float32, device=x.device)
         stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     lib = _lib()
-    if x.dtype == torch.bfloat16 and not lib.conv3x3_bf16_fits(c, wd, strip):
-        raise ValueError(f"the bf16 conv3x3 kernel takes C a multiple of 8 whose weight slice "
-                         f"and halo fit in shared memory (C <= 144 at W <= 112); got C = {c}, "
-                         f"W = {wd}")
     err = lib.conv3x3_launch(
         x.data_ptr(), wc.data_ptr(), y.data_ptr(), None if part is None else part.data_ptr(),
         None if stats is None else stats.data_ptr(), int(x.dtype == torch.bfloat16),

@@ -46,8 +46,9 @@ bf16; the backward rounds d_cos to bf16 before both of its products
 (d_emb += bf16(d_cos) @ bf16(ŵ), d_ŵ = bf16(d_cos)ᵀ @ bf16(emb)), and the
 normalisation's backward runs in f32 on the unrounded ŵ and 1/‖w‖. Every
 product accumulates in f32, and a product of two bf16 values is exact in
-f32, so the kernels' f32 FMA over the rounded operands is the MXU's dot up
-to the order of the sums. The row norm of a bf16 row is summed in f64
+f32, so the kernels' tensor-core products over the rounded operands are
+the MXU's dot up to the order of the sums (their cosines one chain in
+every pass: ``clean_cos``). The row norm of a bf16 row is summed in f64
 (``bf16_row_inv``: exact for bf16 values in any order, then one rounding
 to f32), so the kernels and the plain versions round the same normalised
 operand bit for bit; JAX sums the squares in f32, and its 1/‖w‖ may sit
@@ -251,11 +252,12 @@ def _sgd_rows(w, mom, d_w, lr, *, momentum, nesterov, weight_decay):
 # ----------------------------------------------------------------------
 
 
-def _chunk_cos(e_op, w, lo, hi):
+def _chunk_cos(e_op, w, lo, hi, cos=None):
     """(cos [B, n], ŵ, ŵ's operand, 1/‖w‖) of the rows [lo, hi) in their
-    form, against the embedding operand ``e_op``."""
+    form, against the embedding operand ``e_op``; the columns [lo, hi) of
+    ``cos`` [B, C] where it is given (``margin_ce_bwd_plain``)."""
     wn, wn_op, inv = _form_rows(w[lo:hi])
-    return e_op @ wn_op.T, wn, wn_op, inv
+    return e_op @ wn_op.T if cos is None else cos[:, lo:hi], wn, wn_op, inv
 
 
 def _dcos(cos, col, labels, gt, logz, kth, d_ce, d_neg, *, loss_type, margin, scale, k,
@@ -356,11 +358,12 @@ def margin_partial_fwd_plain(emb, w, labels, gt, *, loss_type, margin, scale, k,
 
 
 def margin_partial_bwd_plain(emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl, *, loss_type,
-                             margin, scale, k, mask_svfc, grad_w=True, chunk=32768):
+                             margin, scale, k, mask_svfc, grad_w=True, chunk=32768, cos=None):
     """Plain PyTorch version of ``margin_partial_bwd`` (the scan twin
     ``sharded_margin.dense_local_bwd_scan``, plus ``d_wl``): (d_emb's
     streamed part [B, D] f32, the block's d_w [C, D] f32 or None, d_gt_raw
-    [B]); ``d_wl`` rows added to the owned label rows of d_w."""
+    [B]); ``d_wl`` rows added to the owned label rows of d_w. ``cos`` as in
+    ``margin_ce_bwd_plain``."""
     c = w.shape[0]
     e_op = _operand(emb.float(), w)
     kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
@@ -368,8 +371,8 @@ def margin_partial_bwd_plain(emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl, *
     d_w = torch.empty((c, w.shape[1]), device=w.device) if grad_w else None
     for lo in range(0, c, chunk):
         hi = min(c, lo + chunk)
-        cos, wn, wn_op, inv = _chunk_cos(e_op, w, lo, hi)
-        d_cos = _dcos(cos, torch.arange(lo, hi, device=w.device), labels, gt, logz, kth, d_ce,
+        cos_c, wn, wn_op, inv = _chunk_cos(e_op, w, lo, hi, cos)
+        d_cos = _dcos(cos_c, torch.arange(lo, hi, device=w.device), labels, gt, logz, kth, d_ce,
                       d_neg, **kw)
         dc_op = _operand(d_cos, w)
         d_emb += dc_op @ wn_op
@@ -383,9 +386,14 @@ def margin_partial_bwd_plain(emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl, *
 
 
 def margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_type, margin, scale,
-                        k, mask_svfc, grad_w=True, pos_rows=None, chunk=32768):
+                        k, mask_svfc, grad_w=True, pos_rows=None, chunk=32768, cos=None):
     """Plain PyTorch version of ``margin_ce_bwd``: (d_emb [B, D], d_w
-    [C, D] f32 or None with ``grad_w=False``), the target tail included."""
+    [C, D] f32 or None with ``grad_w=False``), the target tail included.
+    ``cos``: [B, C] f32 cosines to take in place of the recomputed ones;
+    the checks on a card pass the kernels' own (``clean_cos``, which
+    ``utils/parity.margin_cos_checks`` holds to the recomputed ones), so
+    that both sides round the same d_cos to bf16 (that module's
+    docstring)."""
     d_ce, d_neg = _mask_cotangents(_positive(labels, pos_rows), d_ce, d_neg)
     # the target tail (``pallas_margin_ce_bwd``'s XLA tail): d_gt into d_emb
     # and into the label rows of d_w
@@ -393,16 +401,17 @@ def margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_typ
                                   margin=margin, scale=scale)
     d_emb, d_w, _ = margin_partial_bwd_plain(
         emb, w, labels, gt, logz, topk[:, -1], d_ce, d_neg, d_wl, loss_type=loss_type,
-        margin=margin, scale=scale, k=k, mask_svfc=mask_svfc, grad_w=grad_w, chunk=chunk)
+        margin=margin, scale=scale, k=k, mask_svfc=mask_svfc, grad_w=grad_w, chunk=chunk, cos=cos)
     return (d_emb + emb_term).to(emb.dtype), d_w
 
 
 def margin_ce_bwd_fused_sgd_plain(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr, *,
                                   momentum, nesterov, weight_decay, loss_type, margin, scale, k,
-                                  mask_svfc, pos_rows=None, chunk=32768):
+                                  mask_svfc, pos_rows=None, chunk=32768, cos=None):
     """Plain PyTorch version of ``margin_ce_bwd_fused_sgd``; updates ``w``
     and ``mom`` IN PLACE, chunk by chunk, each chunk's rows after its
-    d_emb contribution is taken. Returns (d_emb, w, mom)."""
+    d_emb contribution is taken. Returns (d_emb, w, mom). ``cos`` (of the
+    rows before the update) as in ``margin_ce_bwd_plain``."""
     c = w.shape[0]
     e_op = _operand(emb.float(), w)
     d_ce, d_neg = _mask_cotangents(_positive(labels, pos_rows), d_ce, d_neg)
@@ -414,8 +423,8 @@ def margin_ce_bwd_fused_sgd_plain(emb, w, mom, labels, gt, logz, topk, d_ce, d_n
     lab = labels.long()
     for lo in range(0, c, chunk):
         hi = min(c, lo + chunk)
-        cos, wn, wn_op, inv = _chunk_cos(e_op, w, lo, hi)
-        d_cos = _dcos(cos, torch.arange(lo, hi, device=w.device), labels, gt, logz, kth, d_ce,
+        cos_c, wn, wn_op, inv = _chunk_cos(e_op, w, lo, hi, cos)
+        d_cos = _dcos(cos_c, torch.arange(lo, hi, device=w.device), labels, gt, logz, kth, d_ce,
                       d_neg, **kw)
         dc_op = _operand(d_cos, w)
         d_emb += dc_op @ wn_op
@@ -498,10 +507,11 @@ def _label_flat_pos(labels, tile_idx, tile):
 
 
 def _sparse_parts_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *, loss_type,
-                        margin, scale, k, mask_svfc, tile, pos_rows=None):
+                        margin, scale, k, mask_svfc, tile, pos_rows=None, cos=None):
     """The plain sparse backward before its target term: (d_emb's streamed
     part [B, D] f32, d_w rows [M·tile, D] with the label rows' d_wl added,
-    d_gt [B]: the target column's dz where its tile is selected, else 0)."""
+    d_gt [B]: the target column's dz where its tile is selected, else 0).
+    ``cos`` [B, C] as in ``margin_ce_bwd_plain``."""
     c = w.shape[0]
     e_op = _operand(emb.float(), w)
     d_ce, d_neg = _mask_cotangents(_positive(labels, pos_rows), d_ce, d_neg)
@@ -510,7 +520,7 @@ def _sparse_parts_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *
     valid = (col >= 0) & (col < c)  # rows past C, or of a tile index out of range, are zero
     w_sel = torch.where(valid[:, None], w[col.clamp(0, c - 1)], 0)
     wn, wn_op, inv = _form_rows(w_sel)
-    cos = e_op @ wn_op.T
+    cos = e_op @ wn_op.T if cos is None else cos[:, col.clamp(0, c - 1)]
     d_cos = _dcos(cos, col, labels, gt, logz, topk[:, -1], d_ce, d_neg, loss_type=loss_type,
                   margin=margin, scale=scale, k=k, mask_svfc=mask_svfc, valid=valid)
     dc_op = _operand(d_cos, w)
@@ -531,15 +541,17 @@ def _with_target_term(d_emb, emb, w, labels, gt, d_gt, loss_type, margin):
 
 
 def margin_ce_bwd_sparse_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *,
-                               loss_type, margin, scale, k, mask_svfc, tile, pos_rows=None):
+                               loss_type, margin, scale, k, mask_svfc, tile, pos_rows=None,
+                               cos=None):
     """Plain PyTorch version of ``margin_ce_bwd_sparse`` (the gather
     reference ``_sparse_bwd_gather`` and ``_sparse_tail``): one pass over
     the gathered columns of the selected tiles. Returns (d_emb [B, D]
     truncated to those tiles, d_w rows [M·tile, D] in ``tile_idx`` order;
-    the label rows' target gradient added, rows past C zero)."""
+    the label rows' target gradient added, rows past C zero). ``cos`` [B, C]
+    as in ``margin_ce_bwd_plain``."""
     d_emb, d_w_rows, d_gt = _sparse_parts_plain(
         emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, loss_type=loss_type, margin=margin,
-        scale=scale, k=k, mask_svfc=mask_svfc, tile=tile, pos_rows=pos_rows)
+        scale=scale, k=k, mask_svfc=mask_svfc, tile=tile, pos_rows=pos_rows, cos=cos)
     return _with_target_term(d_emb, emb, w, labels, gt, d_gt, loss_type, margin), d_w_rows
 
 
@@ -550,12 +562,14 @@ def margin_ce_bwd_sparse_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile
 _LOSS_CODE = {"AM": 0, "Arc": 1, "SV": 2}
 _F_TC = 128  # columns per forward tile
 _B_TC = 64  # columns per backward tile
-_B_RB = 32  # rows per d_emb block (row group)
+_B_RB = {torch.float32: 32, torch.bfloat16: 64}  # rows per d_emb block (row group), by W form
 _STAT_COLS = 64  # columns per forward statistics partial (half an _F_TC tile)
 _MAX_ROWS = 128  # batch rows the kernels hold per block
+# the bf16 cosines as each pass forms them (``clean_cos``; csrc/margin_ce.cu)
+COS_TILINGS = ("forward", "d_emb pass", "d_w pass", "fused / sparse d_w pass")
 _P = ctypes.c_void_p
 _COMMON_ARGTYPES = [
-    _P, _P, ctypes.c_int, _P,  # emb (bf16 form: rounded), w, w is bf16, 1/||w|| scratch
+    _P, _P, _P, ctypes.c_int, _P,  # emb (bf16 form: rounded), emb as bf16, w, w is bf16, 1/||w||
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # C, D, B
     _P, _P, ctypes.c_int, ctypes.c_int,  # labels, gt, k, loss
     ctypes.c_float, ctypes.c_float, ctypes.c_float,  # margin, scale, svfc
@@ -590,9 +604,11 @@ def _lib():
             _P, ctypes.c_int, ctypes.c_longlong,  # part, nblk, cols_per_blk
             _P, _P, _P, _P]  # m, s, topk, stream
         lib.margin_partial_bwd_launch.argtypes = _BWD_ARGTYPES + [_P, _P, _P]  # d_w, d_wl, stream
+        lib.margin_ce_clean_cos_launch.argtypes = _COMMON_ARGTYPES + [ctypes.c_int, _P, _P]
         for fn in (lib.margin_ce_fwd_launch, lib.margin_ce_bwd_launch,
                    lib.margin_ce_bwd_fused_sgd_launch, lib.margin_ce_bwd_sparse_launch,
-                   lib.margin_partial_fwd_launch, lib.margin_partial_bwd_launch):
+                   lib.margin_partial_fwd_launch, lib.margin_partial_bwd_launch,
+                   lib.margin_ce_clean_cos_launch):
             fn.restype = ctypes.c_int
         lib.margin_ce_error_string.argtypes = [ctypes.c_int]
         lib.margin_ce_error_string.restype = ctypes.c_char_p
@@ -636,19 +652,23 @@ def _check_inputs(emb, w, labels, gt, k, loss_type, extra=()):
 
 
 def _form_scratch(emb, w, ncols):
-    """(the embedding the kernels read, the [ncols] 1/‖w‖ scratch or None):
-    against a bf16 classifier the embedding rounded to bf16 (held in f32)
-    and the scratch ``inv_norm_bf16_kernel`` fills per logical column."""
+    """(the embedding the kernels read, that embedding stored as bf16 or
+    None, the [ncols] 1/‖w‖ scratch or None): against a bf16 classifier
+    the embedding rounded to bf16 (held in f32, and as bf16 for the tensor
+    cores) and the scratch the kernels fill with 1/‖w‖ per logical
+    column."""
     if w.dtype != torch.bfloat16:
-        return emb, None
-    return _bf16r(emb).contiguous(), torch.empty((ncols,), device=emb.device)
+        return emb, None, None
+    eb = emb.to(torch.bfloat16).contiguous()
+    return eb.float(), eb, torch.empty((ncols,), device=emb.device)
 
 
-def _common_args(e_op, w, inv, labels, gt, *, k, loss_type, margin, scale, mask_svfc):
-    return (e_op.data_ptr(), w.data_ptr(), int(w.dtype == torch.bfloat16),
-            None if inv is None else inv.data_ptr(), w.shape[0], e_op.shape[1], e_op.shape[0],
-            labels.data_ptr(), gt.data_ptr(), k, _LOSS_CODE[loss_type], margin, scale, mask_svfc,
-            _f32(math.cos(margin)), _f32(math.sin(margin)))
+def _common_args(e_op, eb, w, inv, labels, gt, *, k, loss_type, margin, scale, mask_svfc):
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    return (e_op.data_ptr(), ptr(eb), w.data_ptr(), int(w.dtype == torch.bfloat16), ptr(inv),
+            w.shape[0], e_op.shape[1], e_op.shape[0], labels.data_ptr(), gt.data_ptr(), k,
+            _LOSS_CODE[loss_type], margin, scale, mask_svfc, _f32(math.cos(margin)),
+            _f32(math.sin(margin)))
 
 
 def _split_columns(c, tile, n_parts):
@@ -692,7 +712,7 @@ def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
     lib = _lib()
     b, dev = emb.shape[0], emb.device
     c = w.shape[0]
-    e_op, inv = _form_scratch(emb, w, c)
+    e_op, eb, inv = _form_scratch(emb, w, c)
     nblk, per = _split_columns(c, _F_TC, 2 * _sms(dev))
     part = torch.empty((2 * nblk, b, 2 + KMAX), device=dev)
     ce, neg, logz = (torch.empty((b,), device=dev) for _ in range(3))
@@ -703,7 +723,7 @@ def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
                  *(torch.empty((-(-c // tile), b), device=dev) for _ in range(2))]
         stat_ptrs = [s.data_ptr() for s in stats]
     err = lib.margin_ce_fwd_launch(
-        *_common_args(e_op, w, inv, labels, gt, k=k, loss_type=loss_type, margin=margin,
+        *_common_args(e_op, eb, w, inv, labels, gt, k=k, loss_type=loss_type, margin=margin,
                       scale=scale, mask_svfc=mask_svfc),
         part.data_ptr(), nblk, per, ce.data_ptr(), neg.data_ptr(), logz.data_ptr(),
         topk.data_ptr(), stat_ptrs[0], tile, *stat_ptrs[1:],
@@ -735,26 +755,29 @@ def margin_partial_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_
         return margin_partial_fwd_plain(emb, w, labels, gt, **kw)
     lib = _lib()
     b, dev = emb.shape[0], emb.device
-    e_op, inv = _form_scratch(emb, w, w.shape[0])
+    e_op, eb, inv = _form_scratch(emb, w, w.shape[0])
     nblk, per = _split_columns(w.shape[0], _F_TC, 2 * _sms(dev))
     part = torch.empty((2 * nblk, b, 2 + KMAX), device=dev)
     m, s = (torch.empty((b,), device=dev) for _ in range(2))
     topk = torch.empty((b, k), device=dev)
     err = lib.margin_partial_fwd_launch(
-        *_common_args(e_op, w, inv, labels, gt, **kw), part.data_ptr(), nblk, per, m.data_ptr(),
+        *_common_args(e_op, eb, w, inv, labels, gt, **kw), part.data_ptr(), nblk, per,
+        m.data_ptr(),
         s.data_ptr(), topk.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(lib, err, "margin_partial_fwd")
     _count_launch("margin_partial_fwd", w)
     return m, s, topk
 
 
-def _bwd_geometry(emb, ncols):
+def _bwd_geometry(emb, w, ncols):
     """(d_emb partial buffer, nchunk, cols per chunk, d_w blocks, cols per
-    d_w block) of the two backward passes over ``ncols`` columns."""
+    d_w block) of the two backward passes over ``ncols`` columns. The bf16
+    d_emb pass holds one block an SM (its shared memory), the f32 one four."""
     b, d = emb.shape
     sms = _sms(emb.device)
-    n_rg = -(-b // _B_RB)
-    nchunk, per = _split_columns(ncols, _B_TC, max(4 * sms // n_rg, 1))
+    n_rg = -(-b // _B_RB[w.dtype])
+    per_sm = 1 if w.dtype == torch.bfloat16 else 4
+    nchunk, per = _split_columns(ncols, _B_TC, max(per_sm * sms // n_rg, 1))
     nblk, per_w = _split_columns(ncols, _B_TC, 2 * sms)
     return torch.empty((nchunk, b, d), device=emb.device), nchunk, per, nblk, per_w
 
@@ -769,12 +792,12 @@ def _launch_bwd(name, emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl, grad_w, 
     [C, D] with ``d_wl`` added to the label rows, or None)."""
     lib = _lib()
     dev = emb.device
-    e_op, inv = _form_scratch(emb, w, w.shape[0])
-    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w.shape[0])
+    e_op, eb, inv = _form_scratch(emb, w, w.shape[0])
+    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w, w.shape[0])
     d_emb = torch.empty_like(emb)
     d_w = torch.empty(w.shape, device=dev) if grad_w else None
     err = getattr(lib, f"{name}_launch")(
-        *_common_args(e_op, w, inv, labels, gt, **kw), logz.data_ptr(), kth.data_ptr(),
+        *_common_args(e_op, eb, w, inv, labels, gt, **kw), logz.data_ptr(), kth.data_ptr(),
         d_ce.data_ptr(), d_neg.data_ptr(), part.data_ptr(), nchunk, per, d_emb.data_ptr(), nblk,
         per_w, d_w.data_ptr() if grad_w else None, d_wl.data_ptr() if grad_w else None,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -800,7 +823,12 @@ def margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_type, mar
     its owner adding the label rows' d_wl (computed here before the launch)
     in batch order. No float atomics: d_emb and d_w are bit-stable run to
     run. The bf16 form: W read (1.07 GB) + f32 d_w written (2.15 GB),
-    0.96 ms, against 0.42 ms of bf16 dots: bytes-bound.
+    0.96 ms, against 0.42 ms of bf16 dots: bytes-bound. Its passes run on
+    the tensor cores: the d_w pass first (emb resident, one 64-column W
+    tile at a time scaled once into bf16(ŵ), 1/‖w‖ from the staged rows,
+    d_ŵ [64, D] in mma accumulators, ⟨d_ŵ, ŵ⟩ from the finished row), then
+    the d_emb pass (64 rows a block, two W tiles in flight; with
+    ``grad_w=False`` it computes 1/‖w‖ from its own tiles).
     """
     _check_inputs(emb, w, labels, gt, k, loss_type, extra=_bwd_extra(logz, topk, emb.shape[0], k))
     kw = dict(loss_type=loss_type, margin=margin, scale=scale, k=k, mask_svfc=mask_svfc)
@@ -834,7 +862,7 @@ def margin_partial_bwd(emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl, *, loss
     ``margin_ce_bwd``'s two passes (row-grouped d_emb partials summed in a
     fixed order; column-owned d_w rows written once) on the block; the
     target column's dz is B-row torch work beside it, as the single-device
-    tail is."""
+    tail is. The bf16 form is ``margin_ce_bwd``'s tensor-core passes."""
     b = emb.shape[0]
     vec = lambda name, t: (name, t, torch.float32, (b,))  # noqa: E731
     extra = [vec("logz", logz), vec("kth", kth), vec("d_ce", d_ce), vec("d_neg", d_neg),
@@ -892,11 +920,11 @@ def margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr
     emb_term, d_wl = _target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=loss_type,
                                   margin=margin, scale=scale)
     d_wl = d_wl.contiguous()
-    e_op, inv = _form_scratch(emb, w, w.shape[0])
-    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w.shape[0])
+    e_op, eb, inv = _form_scratch(emb, w, w.shape[0])
+    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w, w.shape[0])
     d_emb = torch.empty_like(emb)
     err = lib.margin_ce_bwd_fused_sgd_launch(
-        *_common_args(e_op, w, inv, labels, gt, k=k, loss_type=loss_type, margin=margin,
+        *_common_args(e_op, eb, w, inv, labels, gt, k=k, loss_type=loss_type, margin=margin,
                       scale=scale, mask_svfc=mask_svfc),
         logz.data_ptr(), kth.data_ptr(), d_ce_m.data_ptr(), d_neg_m.data_ptr(),
         part.data_ptr(), nchunk, per, d_emb.data_ptr(), nblk, per_w,
@@ -955,13 +983,13 @@ def _sparse_parts_cuda(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *,
     _, d_wl = _target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=loss_type, margin=margin,
                            scale=scale)
     d_wl = d_wl.contiguous()
-    e_op, inv = _form_scratch(emb, w, m * tile)
-    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, m * tile)
+    e_op, eb, inv = _form_scratch(emb, w, m * tile)
+    part, nchunk, per, nblk, per_w = _bwd_geometry(emb, w, m * tile)
     d_emb = torch.empty_like(emb)
     d_w_rows = torch.empty((m * tile, emb.shape[1]), device=dev)
     d_gt = torch.zeros_like(gt)  # rows whose target tile is not selected keep 0
     err = lib.margin_ce_bwd_sparse_launch(
-        *_common_args(e_op, w, inv, labels, gt, k=k, loss_type=loss_type, margin=margin,
+        *_common_args(e_op, eb, w, inv, labels, gt, k=k, loss_type=loss_type, margin=margin,
                       scale=scale, mask_svfc=mask_svfc),
         logz.data_ptr(), kth.data_ptr(), d_ce_m.data_ptr(), d_neg_m.data_ptr(),
         part.data_ptr(), nchunk, per, d_emb.data_ptr(), nblk, per_w,
@@ -970,6 +998,35 @@ def _sparse_parts_cuda(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *,
     _check_launch(lib, err, "margin_ce_bwd_sparse")
     _count_launch("margin_ce_bwd_sparse", w)
     return d_emb, d_w_rows, d_gt
+
+
+def clean_cos(emb, w, *, tiling: str = "forward"):
+    """[B, C] cosines of the embedding against a bf16 classifier's
+    normalised rows as the kernels' bf16 tiles form them (every column, no
+    labels read): ``tiling`` one of COS_TILINGS — the forward, the d_emb
+    pass, the d_w pass of ``margin_ce_bwd``, the fused and sparse d_w pass.
+    A parity probe of the one chain they share: the backward's top-k test
+    compares its cosines with the forward's kth. No training path calls it.
+    CPU tensors: the plain version, bf16(emb) · bf16(ŵ)ᵀ summed in f32."""
+    if w.dtype != torch.bfloat16:
+        raise ValueError(f"clean_cos probes the bf16 classifier's kernels, got {w.dtype}")
+    if tiling not in COS_TILINGS:
+        raise ValueError(f"tiling must be one of {COS_TILINGS}, got {tiling!r}")
+    b = emb.shape[0]
+    labels = torch.zeros((b,), dtype=torch.int32, device=emb.device)
+    gt = torch.zeros((b,), device=emb.device)
+    _check_inputs(emb, w, labels, gt, 1, "Arc")
+    if not emb.is_cuda:
+        return _chunk_cos(_operand(emb.float(), w), w, 0, w.shape[0])[0]
+    lib = _lib()
+    e_op, eb, inv = _form_scratch(emb, w, w.shape[0])
+    out = torch.empty((b, w.shape[0]), device=emb.device)
+    err = lib.margin_ce_clean_cos_launch(
+        *_common_args(e_op, eb, w, inv, labels, gt, k=1, loss_type="Arc", margin=0.5, scale=1.0,
+                      mask_svfc=1.0),
+        COS_TILINGS.index(tiling), out.data_ptr(), torch.cuda.current_stream(emb.device).cuda_stream)
+    _check_launch(lib, err, "margin_ce_clean_cos")
+    return out
 
 
 # ----------------------------------------------------------------------

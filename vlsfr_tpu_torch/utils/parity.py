@@ -70,6 +70,20 @@ in the set (d_w) and one at or above it, each set from the most read on an
 H100 at B = 128 (chip_smoke.py phase 29 and the ``gpu`` tests of
 tests/test_torch_kernels.py, C = 4,096 / 5,000 and 2^20 / 1,250,000):
 
+* the cosines: the kernels form them on the tensor cores as one chain in
+  every pass (``margin_cos_checks``: the four tilings bit for bit, within
+  BF16_COS_ATOL of the plain version's), and the backward's references —
+  ``margin_ce_bwd_checks``, ``margin_ce_bwd_sparse_checks``,
+  ``margin_partial_checks`` — run the plain versions on those cosines
+  (``cos=``). cuBLAS's f32 product sums the same exact bf16 products in
+  another order: 5.2e-9 apart on average, 1.8e-7 at most, at C = 2^20 (the
+  tensor cores' 3.2e-9 from the exact sum, cuBLAS's 4.8e-9), and each such
+  difference that straddles a bf16 rounding boundary of d_cos moves its
+  term by a bf16 spacing; a d_w row sums B terms, one of them dominant, so
+  against cuBLAS's cosines 785-876 rows of 2^20 read beyond the tight
+  limit, 433-500 against the exact ones (f64), 0 against the kernels' own
+  (H100, three cases at B = 128, D = 512). The f32 FMA kernel of PR 8
+  summed in cuBLAS's order and read 0-5;
 * forward: ce / neg / logz 1e-5 × max(1, max |value|) (BF16_FWD_RTOL), top-k
   1e-5 absolute; the statistics and the partial state as the f32 form's;
 * d_emb: ``rounded_demb`` against its streamed part (d_emb less the target
@@ -133,7 +147,8 @@ the real scales they equal the plain version's f32(acc) · (se · s) bit for
 bit. The bf16 form's clean cosines (``bf16_cos_checks``) come from the
 tensor cores in both tilings: equal to each other bit for bit (the
 backward's top-k test compares them with the forward's kth), and within
-BF16_COS_ATOL of the plain version's.
+BF16_COS_ATOL of the plain version's; so do the bf16 classifier's in the
+margin_ce kernels' four tilings (``margin_cos_checks``).
 
 Used by ``chip_smoke.py`` and the tests in ``tests/test_torch_kernels.py``.
 """
@@ -237,13 +252,18 @@ def margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, kw: d
     mom' in bf16 by ``bf16_ulps``, an f32 mom' of a bf16 classifier by
     ``rounded_rows``, an f32 w' beside a bf16 momentum by ``by_rows``
     against lr(1 + μ)·(d_w + wd·w) and that momentum beyond one bf16
-    spacing to 1e-4 × the set's max|d_w + wd·w|."""
+    spacing to 1e-4 × the set's max|d_w + wd·w|; a bf16 classifier's
+    cosines first (``margin_cos_checks``), then the plain versions on
+    them."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
 
     rounded = w.dtype == torch.bfloat16
     d_ce_m, _ = tms._mask_cotangents(tms._positive(labels, pos_rows), d_ce, d_neg)
     emb_term, _ = tms._target_rows(emb, w, labels, gt, logz, d_ce_m, loss_type=kw["loss_type"],
                                    margin=kw["margin"], scale=kw["scale"])
+    bwd, straddled, cos = [], None, None
+    if rounded:  # the plain versions on the kernels' cosines, held first (module docstring)
+        bwd, cos = margin_cos_checks(emb, w), tms.clean_cos(emb, w)
 
     def demb(name, got, want):
         if rounded:
@@ -251,12 +271,11 @@ def margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, kw: d
         return [whole(name, got, want, want - emb_term, 1e-4)]
 
     kw = dict(kw, pos_rows=pos_rows)
-    bwd, straddled = [], None
     for grad_w in (False, True):
         de_k, dw_k = tms.margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg,
                                        grad_w=grad_w, **kw)
         de_p, dw_p = tms.margin_ce_bwd_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg,
-                                             grad_w=grad_w, **kw)
+                                             grad_w=grad_w, cos=cos, **kw)
         bwd += demb(f"d_emb (grad_w={grad_w})", de_k, de_p)
         if grad_w:
             if rounded:
@@ -274,7 +293,8 @@ def margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, kw: d
     de_k, w_k, mom_k = tms.margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce,
                                                    d_neg, lr, **sgd, **kw)
     de_p, w_p, mom_p = tms.margin_ce_bwd_fused_sgd_plain(emb, w_p, mom_p, labels, gt, logz, topk,
-                                                         d_ce, d_neg, lr, **sgd, **kw)
+                                                         d_ce, d_neg, lr, cos=cos, **sgd, **kw)
+    del cos
     if w_k.data_ptr() != w.data_ptr() or mom_k.data_ptr() != mom.data_ptr():
         raise RuntimeError("margin_ce_bwd_fused_sgd did not update W and mom in place")
     fused = demb("fused d_emb", de_k, de_p)
@@ -322,9 +342,11 @@ def margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, til
     args = (emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx)
     kw = dict(kw, pos_rows=pos_rows)
     rounded = w.dtype == torch.bfloat16
-    sde_p, _, dgt_p = tms._sparse_parts_plain(*args, tile=tile, **kw)
+    cos = tms.clean_cos(emb, w) if rounded else None  # the kernels' own (module docstring)
+    sde_p, _, dgt_p = tms._sparse_parts_plain(*args, tile=tile, cos=cos, **kw)
     de_k, dw_k = tms.margin_ce_bwd_sparse(*args, tile=tile, **kw)
-    de_p, dw_p = tms.margin_ce_bwd_sparse_plain(*args, tile=tile, **kw)
+    de_p, dw_p = tms.margin_ce_bwd_sparse_plain(*args, tile=tile, cos=cos, **kw)
+    del cos
     is_label = sparse_label_rows(labels, tile_idx, tile)
     cols = tile_idx.numel() * tile
     if rounded:  # the bf16 form (module docstring)
@@ -584,6 +606,25 @@ def bf16_cos_checks(E, q0, tag: str = "") -> list[dict]:
             _err(f"{tag}bf16 clean cos (kernel, forward tiles)", fwd, plain, BF16_COS_ATOL)]
 
 
+def margin_cos_checks(emb, w, tag: str = "") -> list[dict]:
+    """A bf16 classifier's cosines as the margin_ce kernels form them
+    (``margin_stream.clean_cos``): every backward tiling against the
+    forward's bit for bit (a count of elements that differ, limit 0: the
+    backward's top-k test compares its cosines with the forward's kth), and
+    the forward's within BF16_COS_ATOL of the plain version."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    fwd = tms.clean_cos(emb, w)
+    checks = []
+    for tiling in tms.COS_TILINGS[1:]:
+        other = tms.clean_cos(emb, w, tiling=tiling)
+        checks.append({"name": f"{tag}bf16 cos elements differing ({tiling} vs forward tiles)",
+                       "count": True, "err": float((fwd != other).sum()), "limit": 0.0})
+        del other
+    plain = tms._chunk_cos(tms._operand(emb.float(), w), w, 0, w.shape[0])[0]
+    return checks + [_err(f"{tag}bf16 cos (kernel, forward tiles)", fwd, plain, BF16_COS_ATOL)]
+
+
 def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = "",
                         tile: int = 512):
     """Both partial kernels against their plain versions on one shard's
@@ -798,8 +839,10 @@ def margin_partial_checks(emb, w_l, ll, gt, logz, kth, d_ce, d_neg, d_wl, kw: di
              (m_p + torch.log(s_p))[seen], 1e-4),
         _err(f"{tag}partial top-k", t_k, t_p, 1e-5)]
     args = (emb, w_l, ll, gt, logz, kth, d_ce, d_neg, d_wl)
+    cos = tms.clean_cos(emb, w_l) if w_l.dtype == torch.bfloat16 else None  # module docstring
     d_k, w_k, g_k = tms.margin_partial_bwd(*args, **kw)
-    d_p, w_p, g_p = tms.margin_partial_bwd_plain(*args, **kw)
+    d_p, w_p, g_p = tms.margin_partial_bwd_plain(*args, cos=cos, **kw)
+    del cos
     if w_l.dtype == torch.bfloat16:  # the bf16 form (module docstring)
         checks += softmax_demb(f"{tag}partial d_emb", d_k, d_p, cols=w_l.shape[0])
         checks += rounded_rows(f"{tag}partial d_w", w_k, w_p, w_p, ll)
