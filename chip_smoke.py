@@ -132,9 +132,11 @@ compute):
    version: int8c and int8 storage at Q = 10,485,760, bf16 at 4,194,304,
    with phase 3's write plan (a duplicate slot), then AM and SV at 4096;
    int8c's dot bit for bit (the kernels' clean cosines with unit scales
-   against torch._int_mm); the bf16 form's clean cosines (tensor cores,
-   mma.sync) in the forward's and the backward's tiling bit for bit equal
-   over the first 65,536 slots, and within 1e-6 of the plain version's;
+   against torch._int_mm: the forward's __dp4a and the backward's s8
+   mma.sync); the bf16 and int8 forms' clean cosines (tensor cores,
+   mma.sync over bf16 operands, int8 rows widened) in the forward's and
+   the backward's tiling bit for bit equal over the first 65,536 slots,
+   and within 1e-6 of the plain version's;
    limits printed with their reasons (``utils/parity.py``);
 22. timing — each form's kernels at full width: kernel, plain version,
    yardsticks (bf16 matmul over int8 -> bf16 chunks scaled after the dot,
@@ -1547,16 +1549,17 @@ def form_limits() -> None:
           "which moves one row; a kernel that skips a rounding moves every row); the "
           "int8-compute dot bit for bit (limit 0): the kernels' own clean cosines with unit "
           "scales against torch._int_mm, with the real scales against the plain version; "
-          "the bf16 clean cosines of the backward's tiling equal the forward's bit for bit "
-          "(limit 0: the backward's top-k test meets the forward's kth) and lie within "
+          "the bf16 and int8 clean cosines of the backward's tiling equal the forward's bit "
+          "for bit (limit 0: the backward's top-k test meets the forward's kth) and lie within "
           f"{parity.BF16_COS_ATOL:g} of the plain version's (exact products in another order)")
 
 
 def form_parity(form: str, q: int, loss_type: str, seed: int):
     """``parity.quad_checks`` on one case of the form at FORM_TILE (and,
     over the first 65,536 slots, for int8c the int8 dot,
-    ``parity.int8_dot_checks``, for bf16 the clean cosines of both tilings,
-    ``parity.bf16_cos_checks``); raises above a limit. Returns the case,
+    ``parity.int8_dot_checks``, for bf16 and int8 the clean cosines of both
+    tilings, ``parity.bf16_cos_checks`` / ``int8_cos_checks``); raises
+    above a limit. Returns the case,
     the plain forward's outputs and the max errors of the forward and the
     backward."""
     from vlsfr_tpu_torch.ops import twin_margin as ttm
@@ -1574,6 +1577,9 @@ def form_parity(form: str, q: int, loss_type: str, seed: int):
                                          f"first {n:,} slots: ")
     if form == "bf16":
         checks += parity.bf16_cos_checks(case[1][0], queue[0, :n], f"first {n:,} slots: ")
+    if form == "int8":
+        checks += parity.int8_cos_checks(case[1][0], queue[0, :n], kw["qscales"][:n],
+                                         f"first {n:,} slots: ")
     torch.cuda.synchronize()
     for c in checks:
         print("    " + parity.describe(c))

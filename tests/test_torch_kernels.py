@@ -960,29 +960,41 @@ def test_rounded_demb_check_rejects_a_missing_rounding(loss_type, b, q, d, k):
 
 # source edits of quad_margin.cu that the rounded forms' checks must reject
 QUAD_FORM_FAULTS = {
-    # clean tiles: d_cos (× the int8 scale) not rounded to bf16
+    # clean tiles: d_cos not rounded to bf16 (the bf16 kernel's second
+    # operand tile then carries what bf16 does not hold) or, on an int8
+    # queue, rounded before the column scale (and again as the operand)
     "no_clean_dcos_rounding": ("dq = SCALED ? bf16r(d * sc) : bf16r(d);",
-                               "dq = SCALED ? d * sc : d;"),
+                               "dq = SCALED ? bf16r(d) * sc : d;"),
+    # int8 queues, clean tiles: d_cos without q0's column scale
+    "clean_dcos_unscaled": ("dq = SCALED ? bf16r(d * sc) : bf16r(d);", "dq = bf16r(d);"),
     # bf16 queue, written tiles: each view's d_cos not rounded
     "bf16_written_unrounded": ("d1 = bf16r(d1);\n      d2 = bf16r(d2);", "(void)0;"),
-    # int8 tile loader: every row reads its first words again
-    "int8_word_offset": ("X[g * words + k0 + kk]", "X[g * words + kk]"),
+    # int8 staging: each row reads its first words again, in the int8c
+    # forward's __dp4a loader, the backward's cp.async staging (q0 tiles and
+    # E8) and the int8 forward's register loads
+    "int8_word_offset": (("X[g * words + k0 + kk]", "X[g * words + kk]"),
+                         ("ok ? X + (r0 + r) * D + 16 * c : X", "ok ? X + (r0 + r) * D : X"),
+                         ("q0 + col * a.D + 64 * kc + 16 * (threadIdx.x & 3)",
+                          "q0 + col * a.D + 16 * (threadIdx.x & 3)")),
 }
 
 
 @pytest.mark.gpu
 def test_form_checks_reject_planted_faults(tmp_path, monkeypatch):
     """The rounded forms' checks (``parity.quad_checks`` with
-    ``rounded_demb``, and ``int8_dot_checks`` for int8c) pass the real
-    kernels and fail a quad_margin.cu that skips the clean tiles' bf16
-    rounding of d_cos (every form), one that skips the bf16 written tiles'
-    (bf16), and one whose int8 loader reads the wrong words (int8c), at
-    Arc, b = 64, Q = 5000, D = 128 and AM, b = 128, Q = 40000, D = 512,
-    with the rounding tile at 64 columns (so that tiles are clean).
-    Prints each reading. Not planted: Arc / AM's combined clean-tile d_cos
-    replaced by the sum of the two views' — the same function up to f32
-    rounding, which no limit tells from another summation order; the CPU
-    tests hold the plain version's form to the Pallas kernel's."""
+    ``rounded_demb``, ``int8_dot_checks`` for int8c and ``int8_cos_checks``
+    for int8) pass the real kernels and fail a quad_margin.cu that skips
+    the clean tiles' bf16 rounding of d_cos (bf16) or rounds it before the
+    column scale (int8 forms), one that leaves the column scale out of the
+    clean tiles' d_cos (int8 forms), one that skips the bf16 written tiles'
+    rounding (bf16), and one whose int8 staging reads the wrong words
+    (int8c's dot, int8's cosines), at Arc, b = 64, Q = 5000, D = 128 and
+    AM, b = 128, Q = 40000, D = 512, with the rounding tile at 64 columns
+    (so that tiles are clean). Prints each reading. Not planted: Arc /
+    AM's combined clean-tile d_cos replaced by the sum of the two views' —
+    the same function up to f32 rounding, which no limit tells from another
+    summation order; the CPU tests hold the plain version's form to the
+    Pallas kernel's."""
     from vlsfr_tpu_torch.ops import cuda_build
 
     dev = _cuda()
@@ -997,6 +1009,8 @@ def test_form_checks_reject_planted_faults(tmp_path, monkeypatch):
                 checks, _ = parity.quad_checks(*case, tile=64)
                 if form == "int8c":
                     checks += parity.int8_dot_checks(*kw["e8"], queue[0], kw["qscales"])
+                if form == "int8":
+                    checks += parity.int8_cos_checks(case[1][0], queue[0], kw["qscales"])
                 torch.cuda.synchronize()
                 for c in checks:
                     print(f"{name} {form} {lt}: {parity.describe(c)}")
@@ -1006,25 +1020,35 @@ def test_form_checks_reject_planted_faults(tmp_path, monkeypatch):
         for lt in ("Arc", "AM"):
             assert failed["real", form, lt] == set()
             assert rows in failed["no_clean_dcos_rounding", form, lt]
-    assert rows in failed["bf16_written_unrounded", "bf16", "Arc"]
-    assert rows in failed["bf16_written_unrounded", "bf16", "AM"]
     for lt in ("Arc", "AM"):
+        assert failed["clean_dcos_unscaled", "bf16", lt] == set()  # no scale to leave out
+        for form in ("int8", "int8c"):
+            assert rows in failed["clean_dcos_unscaled", form, lt]
+        assert rows in failed["bf16_written_unrounded", "bf16", lt]
         assert {"int8 raw dot (kernel, forward tiles)",
                 "int8 raw dot (kernel, backward tiles)"} <= failed["int8_word_offset", "int8c", lt]
+        assert {"int8 clean cos (kernel, forward tiles)",
+                "int8 clean cos elements differing (backward vs forward tiles)"} <= failed[
+                    "int8_word_offset", "int8", lt]
 
 
-def _tie_columns(queue, E, r, k, avoid):
+def _tie_columns(queue, E, r, k, avoid, qscales=None):
     """Copy the stored row that scores highest against probe row r (in both
-    planes) into k - 1 other slots outside ``avoid`` (written slots and
-    targets): r's top-k then holds k equal cosines, each tied with its
-    kth, where no write scores higher."""
+    planes; an int8 plane 0's scales ``qscales`` with it) into k - 1 other
+    slots outside ``avoid`` (written slots and targets): r's top-k then
+    holds k equal cosines, each tied with its kth, where no write scores
+    higher."""
     cos = ttm._bf16(E[r]) @ queue[0].float().T
+    if qscales is not None:
+        cos = cos * qscales
     free = torch.ones(queue.shape[1], dtype=torch.bool, device=queue.device)
     free[avoid[avoid >= 0].long()] = False
     j = int(torch.where(free, cos, -2.0).argmax())
     free[j] = False
     slots = torch.nonzero(free).flatten()[:k - 1]
     queue[:, slots] = queue[:, j:j + 1]
+    if qscales is not None:
+        qscales[slots] = qscales[j].clone()
 
 
 @pytest.mark.gpu
@@ -1072,6 +1096,88 @@ def test_bf16_clean_cosines_match_between_tilings(r_, q, d):
     E = torch.from_numpy(unit(rng.standard_normal((r_, d)))).to(dev)
     q0 = torch.from_numpy(unit(rng.standard_normal((q, d)))).to(dev).bfloat16()
     checks = parity.bf16_cos_checks(E, q0)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 512])
+@pytest.mark.parametrize("form", ["int8", "int8c"])
+def test_int8_backward_edge_cases(form, d):
+    """The int8 forms' tensor-core quad_bwd (and the forward) against their
+    plain versions (``parity.quad_checks``: the limits unchanged) with a
+    duplicate slot, written tiles under a 2048-column rounding tile (the
+    views' d_cos summed, routed to the int8 row, g or v, and rounded) and
+    an outlier row whose top-k holds k equal cosines, each tied with its
+    kth; then the partial kernels on a queue cut into 4 blocks
+    (``parity.quad_shard_checks``: targets and writes in other blocks,
+    labels -2 there) against the whole queue's."""
+    dev = _cuda()
+    b, q, k = 64, 5000, 10
+    queue, packed, kw, dce, dneg = make_packed(4, b, q, d, k, device=dev, form=form)
+    _tie_columns(queue, packed[0], 2, k, torch.cat([packed[4], packed[6]]),
+                 kw["qscales"])  # row 2: outlier
+    ttm.reset_launch_counts()
+    checks, want = parity.quad_checks(queue, packed, kw, dce, dneg, tile=2048)
+    assert int((want[3][0, 2] == want[3][0, 2, -1]).sum()) >= k - 1  # the tie
+    (ex, ey, sq, ga, gb, pa, pb, la, lb, sdce, sdneg) = make_shard_case(5, b, 4096, d,
+                                                                         device=dev, n_shards=4)
+    sq, qs = quantize_rows(sq)
+    checks += parity.quad_shard_checks(ex, ey, sq, ga, gb, pa, pb, la, lb, sdce, sdneg,
+                                       shard_kw("Arc", k=k), n_shards=4, qscales=qs,
+                                       int8_compute=form == "int8c", tile=2048)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(form, d, parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("quad_bwd", form)] == 2
+    assert ttm.LAUNCH_COUNTS[ttm.kernel_name("quad_partial_bwd", form)] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["int8", "int8c"])
+def test_int8_backward_ragged_matches_plain(form):
+    """The int8 forms' quad kernels at R = 74 rows (not a multiple of the
+    backward's 64-row group), Q = 3001 columns (not of its 64-column tile)
+    and D = 64 (the int8 rows padded to whole swizzle groups), against the
+    plain versions; then the partial kernels over two blocks of 1501
+    columns against the whole queue's."""
+    dev = _cuda()
+    b, d, k = 37, 64, 5
+    queue, packed, kw, dce, dneg = make_packed(6, b, 3001, d, k, device=dev, form=form)
+    checks, _ = parity.quad_checks(queue, packed, kw, dce, dneg, tile=512)
+    (ex, ey, sq, ga, gb, pa, pb, la, lb, sdce, sdneg) = make_shard_case(7, b, 3002, d,
+                                                                         device=dev, n_shards=2)
+    sq, qs = quantize_rows(sq)
+    checks += parity.quad_shard_checks(ex, ey, sq, ga, gb, pa, pb, la, lb, sdce, sdneg,
+                                       shard_kw("SV", k=k), n_shards=2, qscales=qs,
+                                       int8_compute=form == "int8c")
+    torch.cuda.synchronize()
+    for c in checks:
+        print(form, parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64)])
+def test_int8_clean_cosines_match_between_tilings(r_, q, d):
+    """The int8-storage form's clean cosines as the forward's tiles form
+    them and as the backward's recompute does (``clean_cos``, both the k16
+    chain on the tensor cores over the rows widened to bf16): equal bit
+    for bit, and within 1e-6 of the plain version (``parity.int8_cos_checks``);
+    and the int8-compute form's integer dot in both tilings, the forward's
+    ``__dp4a`` and the backward's s8 tensor-core sum, bit for bit
+    (``parity.int8_dot_checks``)."""
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    unit = lambda x: (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
+    E = torch.from_numpy(unit(rng.standard_normal((r_, d)))).to(dev)
+    q0, qs = quantize_rows(torch.from_numpy(unit(rng.standard_normal((q, d)))).to(dev))
+    checks = parity.int8_cos_checks(E, q0, qs)
+    n = q // 8 * 8  # torch._int_mm, the integer reference, takes a multiple of 8 columns
+    checks += parity.int8_dot_checks(*quantize_rows(E), q0[:n], qs[:n])
     torch.cuda.synchronize()
     for c in checks:
         print(parity.describe(c))
@@ -1369,3 +1475,17 @@ def test_conv_and_probe_checks_reject_wrong_outputs():
     assert parity.failures(parity.probe_checks("bf16", tprobe.probe_dot_plain(
         "bf16", a, wb[:-1]), o, a, wb))
     assert parity.failures(parity.probe_checks("bf16", o, o, a, wb)) == []
+
+
+def test_quad_bwd_variants_edit_the_kernel_source():
+    """The backward's timing tool (``tools/quad_bwd_variants.py``) builds
+    copies of ``csrc/quad_margin.cu`` with one phase left out or another
+    warp count: each of its edits matches the source exactly once, so that
+    every copy it times differs from the kernel where its name says."""
+    from vlsfr_tpu_torch.ops import cuda_build
+    from vlsfr_tpu_torch.tools.quad_bwd_variants import VARIANTS
+
+    src = (cuda_build.CSRC / "quad_margin.cu").read_text()
+    for name, edits in VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name

@@ -22,6 +22,15 @@
 // so two kernels that walk the same steps in the same order from a zero
 // sum produce the same bits, whatever their tiling (the forward and the
 // backward of quad_margin.cu and of margin_ce.cu rely on this).
+//
+// int8 operands (quad_margin.cu's int8 queues). An int8 matrix is staged
+// row-major like a bf16 one, 16 features a chunk; ldmatrix's b16 fragments
+// of it are exactly the s8 m16n8k32 fragments (4 bytes a thread: row g, k
+// 4t .. 4t + 3 of each 16-byte half of a k32 step), so `load_a` at step ks
+// and `mma_nt_s8` read it with the bf16 code's addresses. The s8 product
+// sums into int32 exactly, in any order. `widen16` turns 16 stored int8
+// values into 16 bf16 (exact: |x| <= 128 needs 8 significant bits) for the
+// bf16 products.
 
 #pragma once
 
@@ -52,6 +61,12 @@ __device__ __forceinline__ void cp_async_cg(void* dst, const void* src, bool val
 __device__ __forceinline__ void cp_async_ca(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes from global src to shared dst (zeros where !valid), through L1
+__device__ __forceinline__ void cp_async_ca4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -174,6 +189,70 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const unsigned char*
                                           int ks) {
   const int lane = threadIdx.x & 31;
   ldsm_x4_t(b, B + swz(ks * 16 + (lane & 15), n0 + (lane >> 4) * 8, rc));
+}
+
+// d += a . b for one m16n8k32 tile of int8 operands into int32 (fragments
+// as the bf16 ones, 4 bytes a register: header)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma_nt over int8 matrices: acc[mi][ni] += A[m0 + 16 mi + .., k] .
+// B[n0 + 8 ni + .., k] over the k32 steps [0, n_ks), rca / rcb 16-byte
+// chunks a row; the int32 sums are exact, kept in the accumulator
+template <int MI, int NI>
+__device__ __forceinline__ void mma_nt_s8(int (&acc)[MI][NI][4], const unsigned char* A, int rca,
+                                          int m0, const unsigned char* B, int rcb, int n0,
+                                          int n_ks) {
+  static_assert(NI % 2 == 0, "B fragments load two n8 tiles at a time");
+  const int lane = threadIdx.x & 31;
+#pragma unroll 4
+  for (int ks = 0; ks < n_ks; ++ks) {
+    uint32_t a[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) load_a(a[mi], A, rca, m0 + 16 * mi, ks);
+#pragma unroll
+    for (int nj = 0; nj < NI / 2; ++nj) {
+      uint32_t b[4];
+      ldsm_x4(b, B + swz(n0 + 16 * nj + (lane & 7) + (lane >> 4) * 8,
+                         ks * 16 + ((lane >> 3) & 1) * 8, rcb));
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        mma_s8(acc[mi][2 * nj], a[mi], b[0], b[1]);
+        mma_s8(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// four int8 (one word, lowest byte first) as four bf16 (two words): byte
+// x + 128 in the low mantissa of 2^23, less 2^23 + 128, is x in f32 with
+// its low 16 bits zero, so its high half is bf16(x)
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | i)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// 16 int8 features as bf16 at (r, c .. c + 15) of a swizzled bf16 matrix
+// with rc chunks a row (two chunks; c a multiple of 16)
+__device__ __forceinline__ void widen16(unsigned char* dst, int r, int c, int rc, uint4 v) {
+  uint4 lo, hi;
+  widen4(v.x, lo.x, lo.y);
+  widen4(v.y, lo.z, lo.w);
+  widen4(v.z, hi.x, hi.y);
+  widen4(v.w, hi.z, hi.w);
+  *reinterpret_cast<uint4*>(dst + swz(r, c, rc)) = lo;
+  *reinterpret_cast<uint4*>(dst + swz(r, c + 8, rc)) = hi;
 }
 
 }  // namespace

@@ -21,8 +21,9 @@
 // labels [R] int32; gt [2][R] (view-major); q0 is plane 0 of the queue (of
 // the shard's block of it, for the partial forms). The twin head takes the
 // same layout with one direction (R = B probes, BP writes; ND = 1). The
-// F32, INT8 and INT8C forms' arithmetic is IEEE f32 FMA or exact int32 (no
-// TF32); the BF16 form's two products run on the tensor cores (below).
+// F32 form's arithmetic is IEEE f32 FMA (no TF32) and the INT8C forward's
+// dot exact int32 (__dp4a); the other forms' products run on the tensor
+// cores (below).
 //
 // Queue forms (template FORM; the wrapper's module docstring has the JAX
 // rounding points each follows):
@@ -31,9 +32,10 @@
 //           product is exact in f32 and the FMA chain computes what the TPU's
 //           matrix unit computes, up to the order of summation.
 //  * INT8:  q0 int8 with per-row scales qs [Q]; cos = (E . q) * qs[col], E
-//           rounded to bf16 as above.
+//           rounded to bf16 as above (int8 -> bf16 is exact).
 //  * INT8C: as INT8, but the clean dot is E8 . q with E8 the per-row int8
-//           probes (scales se [R]): an exact int32 sum by __dp4a, then
+//           probes (scales se [R]): an exact int32 sum (__dp4a in the
+//           forward, mma.sync s8 in the backward: the same integer), then
 //           cos = f32(acc) * (se[row] * qs[col]).
 // Written columns dot the bf16-rounded E with the bf16-rounded G / V rows in
 // every form but F32. The backward rounds d_cos to bf16 before its product
@@ -65,7 +67,10 @@
 // compute-bound; the backward does the cosine recompute plus d_cos @ q0,
 // 5.5e11 FLOP, >= 8.2 ms. The bf16 form at Q = 4,194,304: 2.2e12 FLOP in
 // the backward (>= 2.2 ms on the tensor cores) against 4.3 GB of q0
-// (>= 1.3 ms): operations-bound.
+// (>= 1.3 ms): operations-bound. The int8 forms at Q = 10,485,760: 5.5e12
+// operations in the backward (INT8 two bf16 products, >= 5.6 ms; INT8C the
+// recompute at the int8 rate, >= 4.2 ms) against 5.4 GB of q0 (>= 1.6 ms):
+// operations-bound.
 //
 // Design.
 //  * The TPU carried (m, s, top-k) and d_emb in VMEM across a sequential
@@ -79,9 +84,9 @@
 //    memory; then each thread owns one probe row and streams the tile's 64
 //    columns into that row's running (max, sumexp) and register top-k for
 //    both views.
-//  * Backward: one block holds 32 probe rows x a column range, so its d_emb
-//    partial [32, D] fits in registers (64 per thread at D = 512). The 8
-//    row groups of one range are adjacent in launch order and share each
+//  * Backward, F32: one block holds 32 probe rows x a column range, so its
+//    d_emb partial [32, D] fits in registers (64 per thread at D = 512). The
+//    8 row groups of one range are adjacent in launch order and share each
 //    q0 tile through L2. Per tile: GEMM cos [32, 64] -> d_cos -> GEMM
 //    d_cos @ q0 tile.
 //  * This step's queue writes: per tile, the block finds for every column
@@ -103,35 +108,52 @@
 //  * Shared with margin_ce.cu (margin_common.cuh): the margin transform,
 //    the streamed (max, sumexp) and top-k, the partial merge, d_cos of a
 //    column and the shared-memory tile product.
-//  * The BF16 form on the tensor cores (mma.sync m16n8k16, csrc/
-//    mma_bf16.cuh; operands staged in shared memory as bf16 by cp.async,
-//    swizzled for conflict-free ldmatrix). Its clean cosines are one chain
-//    over the feature axis in k16 steps, in order, each step's product
-//    added in f32 (mma_bf16.cuh: kept in the tensor core's accumulator, the
-//    chain drifted enough at D = 512 to put 20 d_emb rows beyond 1e-5 of
-//    the max, against a limit of 8; with the f32 adds, 3), in the forward (E and q0 staged 64 features at a time, three stages in
-//    flight; warps of 32 rows x 64 or 32 columns) and in the backward's
-//    recompute (E's 64 rows held whole, warps of 16 rows x 32 columns), so
-//    that the two produce the same bits and the backward's top-k test meets
-//    the forward's kth exactly (quad_clean_cos_launch shows both tilings).
-//    Backward (quad_bwd_bf16_kernel): a block holds 64 probe rows x a
+//  * The BF16 and INT8 forms on the tensor cores (mma.sync m16n8k16, csrc/
+//    mma_bf16.cuh; operands staged in shared memory as bf16, swizzled for
+//    conflict-free ldmatrix: by cp.async, an int8 tile widened to bf16 in
+//    shared memory, exact). Their clean cosines are one chain over the
+//    feature axis in k16 steps, in order, each step's product added in f32
+//    (mma_bf16.cuh: kept in the tensor core's accumulator, the chain
+//    drifted enough at D = 512 to put 20 d_emb rows beyond 1e-5 of the max,
+//    against a limit of 8; with the f32 adds, 3), INT8 then times qs[col],
+//    in the forward (E and q0 staged 64 features at a time, three stages in
+//    flight, INT8's q0 words loaded into registers under the previous
+//    chunk's product and widened after it; warps of 32 rows x 64 or 32
+//    columns) and in the backward's recompute (E's 64 rows held whole,
+//    warps of 16 rows x 32 columns), so that the two produce the same bits
+//    and the backward's top-k test meets the forward's kth exactly
+//    (quad_clean_cos_launch shows both tilings). INT8C's recompute is
+//    mma.sync m16n8k32 s8 on E8 and the int8 tile as staged: an exact
+//    int32 sum, the forward's __dp4a integer whatever the tiling.
+//    Backward (quad_bwd_tc_kernel<FORM>): a block holds 64 probe rows x a
 //    column range, so each q0 tile is read by R / 64 blocks (4 at the
 //    quad's R = 256, half the 32-row FMA kernel's L2 traffic); its d_emb
 //    partial [64, D] lives in mma accumulators, 128 f32 a thread at D =
-//    512. Per 64-column tile (two tiles in flight): cos = E . q0^T; d_cos
-//    in registers from the fragments, rounded to bf16 (exact as an mma
-//    operand) into shared memory; d_emb += d_cos . q0 tile, the tile's
-//    product added in f32. A row whose rounding tile holds no write takes
-//    the clean route only, unrolled; one whose tile does takes every route
-//    an element at a time (inlined into every unrolled element, the written
-//    routes' code slowed the whole kernel by a sixth on an H100 at Q =
-//    4,194,304, though they run on few tiles). Where both of a
-//    written tile's views score against q0's row, their separately rounded
-//    d_cos go in as two bf16 products (a second pass over the tile, taken
-//    only when the block has one). A column this step writes keeps the
+//    512. Per 64-column tile (two tiles in flight as stored, int8: 32 KiB a
+//    tile at D = 512 and its 64 column scales, plus one widened to bf16 for
+//    the d_emb product):
+//    cos = E . q0^T; d_cos in registers from the fragments, rounded to bf16
+//    (exact as an mma operand; int8: bf16(d_cos * qs[col]), the scale
+//    folded into the coefficient as JAX does) into shared memory; d_emb +=
+//    d_cos . q0 tile, the tile's product added in f32. A row whose rounding
+//    tile holds no write takes the clean route only, unrolled; one whose
+//    tile does takes every route an element at a time (inlined into every
+//    unrolled element, the written routes' code slowed the whole kernel by
+//    a sixth on an H100 at Q = 4,194,304, though they run on few tiles).
+//    Where both of a BF16 written tile's views score against q0's row,
+//    their separately rounded d_cos go in as two bf16 products (a second
+//    pass over the tile, taken only when the block has one; the int8 forms
+//    sum the views before they round). A column this step writes keeps the
 //    FMA chain `row_dot` in both passes; its d_cos towards the g / v row
 //    goes to wcoef [R][2][BP] at (row, writer), which only that column's
 //    thread writes, and the merge adds wcoef . G / V: no atomics.
+//    Shared memory at D = 512: BF16 214 KiB (E 64, two q0 tiles 128, d_cos
+//    16), INT8 206 KiB (E 64, two int8 tiles 64, the bf16 tile 64, d_cos
+//    8), INT8C 174 KiB (E8 32); one block an SM, BB_NW = 8 warps (16 warps
+//    hold at 128 registers a thread and spill: on an H100 a few percent
+//    faster on the int8 forms, slower on bf16). With one block an SM the
+//    phases between barriers add up; tools/quad_bwd_variants.py times the
+//    kernel without each of them, and with 16 warps.
 
 #include "margin_common.cuh"
 #include "mma_bf16.cuh"
@@ -255,7 +277,8 @@ __device__ __forceinline__ void tile_gemm_i8(int (&acc)[TI][TJ], int* As, int* B
 }
 
 // the clean-tile cosines acc[i][j] of probe rows x0 + ay + SA*i against
-// the stored rows t0 + bx + SB*j of q0, as the form computes them (header)
+// the stored rows t0 + bx + SB*j of q0, as the F32 form (and the INT8C
+// forward) computes them on the CUDA cores (header)
 template <int FORM, int NX, int NY, int DK, int THREADS, int ALD, int BLD, int TI, int TJ, int SA,
           int SB>
 __device__ __forceinline__ void cos_tile(const Args& a, float (&acc)[TI][TJ], float* As,
@@ -280,18 +303,10 @@ __device__ __forceinline__ void cos_tile(const Args& a, float (&acc)[TI][TJ], fl
       }
     }
   } else {
+    static_assert(FORM == FORM_F32, "the BF16 and INT8 cosines run on the tensor cores");
     float n2;
     tile_gemm<NX, NY, DK, THREADS, ALD, BLD, TI, TJ, SA, SB, false>(acc, n2, As, Bs, a.E, x0, a.R,
                                                                     q0, t0, c_end, a.D, ay, bx);
-    if constexpr (FORM == FORM_INT8) {
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        const long long c = t0 + bx + SB * j;
-        const float sc = c < c_end ? a.qs[c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < TI; ++i) acc[i][j] *= sc;
-      }
-    }
   }
 }
 
@@ -301,59 +316,94 @@ __device__ __forceinline__ void cos_tile(const Args& a, float (&acc)[TI][TJ], fl
 // per shared-memory stage; a block holds ROWS = 256 or 128 probe rows
 constexpr int F_ROWS = 256, F_TC = 64, F_DK = 16, F_THREADS = 256;
 constexpr int F_ALD = F_ROWS + 4, F_BLD = F_TC + 4, F_CLD = F_TC + 1;
-// the BF16 form stages E [ROWS][64] and q0 [64][64] bf16 per 64 features,
-// FB_ST stages in flight
+// the BF16 and INT8 forms' cosines on the tensor cores: E [ROWS][64] and
+// q0 [64][64] staged as bf16 per 64 features, FB_ST stages in flight
 constexpr int FB_ST = 3;
+template <int FORM>
+__host__ __device__ constexpr bool fwd_tc() {
+  return FORM == FORM_BF16 || FORM == FORM_INT8;
+}
 template <int ROWS>
 __host__ __device__ constexpr int fb_stage_bytes() {
   return (ROWS + F_TC) * 64 * 2;
 }
 template <int FORM, int ROWS>
 constexpr size_t f_smem() {
-  return (FORM == FORM_BF16 ? FB_ST * fb_stage_bytes<ROWS>()
-                            : sizeof(float) * (F_DK * (ROWS + 4) + F_DK * F_BLD)) +
+  return (fwd_tc<FORM>() ? FB_ST * fb_stage_bytes<ROWS>()
+                         : sizeof(float) * (F_DK * (ROWS + 4) + F_DK * F_BLD)) +
          sizeof(float) * ROWS * F_CLD + sizeof(int) * (4 * F_TC + 4);
 }
+static_assert(F_THREADS == 4 * F_TC, "the INT8 forward widens one 16-byte word a thread");
 
-// BF16: stage features [64 kc, + 64) of probe rows [0, ROWS) (zero past R)
-// and of q0 rows [t0, t0 + 64) (zero from c_end) into stage s
-template <int ROWS>
-__device__ __forceinline__ void fwd_load_bf16(const Args& a, unsigned char* stg, int s,
-                                              long long t0, long long c_end, int kc) {
-  const __nv_bfloat16* q0 = static_cast<const __nv_bfloat16*>(a.q0);
+// stage s: features [64 kc, + 64) of probe rows [0, ROWS) (zero past R)
+// and of q0 rows [t0, t0 + 64) (zero from c_end), by cp.async; INT8: q0's
+// 64 x 64 int8 features are one 16-byte word a thread, returned for
+// fwd_widen_q once they land (the caller's product hides the load)
+template <int FORM, int ROWS>
+__device__ __forceinline__ uint4 fwd_load_tc(const Args& a, unsigned char* stg, int s,
+                                             long long t0, long long c_end, int kc) {
   unsigned char* Es = stg + s * fb_stage_bytes<ROWS>();
   unsigned char* Qs = Es + ROWS * 64 * 2;
-  for (int i = threadIdx.x; i < (ROWS + F_TC) * 8; i += F_THREADS) {
+  const int n = (ROWS + (FORM == FORM_BF16 ? F_TC : 0)) * 8;
+  for (int i = threadIdx.x; i < n; i += F_THREADS) {
     const int r = i >> 3, f = 64 * kc + 8 * (i & 7);
     if (r < ROWS) {
       const bool ok = r < a.R;
       cp_async_cg(Es + swz(r, f - 64 * kc, 8), ok ? a.Eb + (long long)r * a.D + f : a.Eb, ok);
     } else {
+      const __nv_bfloat16* q0 = static_cast<const __nv_bfloat16*>(a.q0);
       const long long col = t0 + r - ROWS;
       const bool ok = col < c_end;
       cp_async_cg(Qs + swz(r - ROWS, f - 64 * kc, 8), ok ? q0 + col * a.D + f : q0, ok);
     }
   }
+  uint4 v = make_uint4(0, 0, 0, 0);
+  if constexpr (FORM == FORM_INT8) {
+    const long long col = t0 + (threadIdx.x >> 2);
+    const signed char* q0 = static_cast<const signed char*>(a.q0);
+    if (col < c_end)
+      v = __ldg(reinterpret_cast<const uint4*>(q0 + col * a.D + 64 * kc + 16 * (threadIdx.x & 3)));
+  }
+  return v;
 }
 
-// BF16: the first FB_ST - 1 feature chunks of the tile at t0, each its own
-// cp.async group (fwd_cos_bf16 stages the rest)
+// INT8: this thread's word of fwd_load_tc, widened to bf16 into stage s
 template <int ROWS>
-__device__ __forceinline__ void fwd_prologue_bf16(const Args& a, unsigned char* stg, long long t0,
-                                                  long long c_end) {
+__device__ __forceinline__ void fwd_widen_q(unsigned char* stg, int s, uint4 v) {
+  widen16(stg + s * fb_stage_bytes<ROWS>() + ROWS * 64 * 2, threadIdx.x >> 2,
+          16 * (threadIdx.x & 3), 8, v);
+}
+
+// the first FB_ST - 1 feature chunks of the tile at t0, each its own
+// cp.async group (fwd_cos_tc stages the rest); INT8: q0's words in v, for
+// fwd_widen_first once they are wanted
+template <int FORM, int ROWS>
+__device__ __forceinline__ void fwd_prologue_tc(const Args& a, unsigned char* stg, long long t0,
+                                                long long c_end, uint4 (&v)[FB_ST - 1]) {
+#pragma unroll
   for (int s = 0; s < FB_ST - 1; ++s) {
-    if (s < a.D / 64) fwd_load_bf16<ROWS>(a, stg, s, t0, c_end, s);
+    if (s < a.D / 64) v[s] = fwd_load_tc<FORM, ROWS>(a, stg, s, t0, c_end, s);
     cp_async_commit();
   }
 }
 
-// BF16: the clean cosines acc[mi][ni] of probe rows m0 + 16 mi .. and tile
+template <int FORM, int ROWS>
+__device__ __forceinline__ void fwd_widen_first(const Args& a, unsigned char* stg,
+                                                const uint4 (&v)[FB_ST - 1]) {
+  if constexpr (FORM == FORM_INT8)
+#pragma unroll
+    for (int s = 0; s < FB_ST - 1; ++s)
+      if (s < a.D / 64) fwd_widen_q<ROWS>(stg, s, v[s]);
+}
+
+// the clean cosines' dot acc[mi][ni] of probe rows m0 + 16 mi .. and tile
 // columns n0 + 8 ni .. of the tile at t0, whose prologue is in flight: the
-// k16 chain over the feature axis in order (module header)
-template <int ROWS, int NI>
-__device__ __forceinline__ void fwd_cos_bf16(const Args& a, unsigned char* stg, long long t0,
-                                             long long c_end, int m0, int n0,
-                                             float (&acc)[2][NI][4]) {
+// k16 chain over the feature axis in order (module header); INT8: before
+// the column scale
+template <int FORM, int ROWS, int NI>
+__device__ __forceinline__ void fwd_cos_tc(const Args& a, unsigned char* stg, long long t0,
+                                           long long c_end, int m0, int n0,
+                                           float (&acc)[2][NI][4]) {
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -364,25 +414,35 @@ __device__ __forceinline__ void fwd_cos_bf16(const Args& a, unsigned char* stg, 
   for (int kc = 0; kc < n_kc; ++kc) {
     cp_async_wait<FB_ST - 2>();
     __syncthreads();  // chunk kc has landed; chunk kc - 1's stage is free
-    if (kc + FB_ST - 1 < n_kc)
-      fwd_load_bf16<ROWS>(a, stg, (kc + FB_ST - 1) % FB_ST, t0, c_end, kc + FB_ST - 1);
+    const bool more = kc + FB_ST - 1 < n_kc;
+    uint4 v;
+    const int s_next = (kc + FB_ST - 1) % FB_ST;
+    if (more) v = fwd_load_tc<FORM, ROWS>(a, stg, s_next, t0, c_end, kc + FB_ST - 1);
     cp_async_commit();
     const unsigned char* Es = stg + (kc % FB_ST) * fb_stage_bytes<ROWS>();
     mma_nt<2, NI>(acc, Es, 8, m0, Es + ROWS * 64 * 2, 8, n0, 4);
+    if constexpr (FORM == FORM_INT8)
+      if (more) fwd_widen_q<ROWS>(stg, s_next, v);
   }
+}
+
+// INT8: q0's scale of column c (0 from c_end)
+__device__ __forceinline__ float col_scale(const Args& a, long long c, long long c_end) {
+  return c < c_end ? a.qs[c] : 0.f;
 }
 
 template <int FORM, int ROWS>
 __global__ void __launch_bounds__(F_THREADS)
     quad_fwd_kernel(Args a, long long cols_per_blk, float* part) {
   constexpr int ALD = ROWS + 4, TI = ROWS / 32;
-  // BF16: WM warps along the rows (32 each) x WN along the 64 columns
+  // BF16 / INT8: WM warps along the rows (32 each) x WN along the 64 columns
   constexpr int WM = ROWS / 32, WN = 8 / WM, NI = 8 / WN;
+  constexpr bool TC = fwd_tc<FORM>();
   extern __shared__ __align__(16) float smem[];
   float* As = smem;               // E chunk, k-major [F_DK][ALD]
   float* Bs = As + F_DK * ALD;    // q0 chunk, k-major [F_DK][F_BLD]
-  unsigned char* stg = reinterpret_cast<unsigned char*>(smem);  // BF16: [FB_ST] stages
-  float* Cs = FORM == FORM_BF16  // cosine tile [ROWS][F_CLD]
+  unsigned char* stg = reinterpret_cast<unsigned char*>(smem);  // TC: [FB_ST] stages
+  float* Cs = TC  // cosine tile [ROWS][F_CLD]
                   ? reinterpret_cast<float*>(stg + FB_ST * fb_stage_bytes<ROWS>())
                   : Bs + F_DK * F_BLD;
   int* last0 = reinterpret_cast<int*>(Cs + ROWS * F_CLD);
@@ -410,24 +470,33 @@ __global__ void __launch_bounds__(F_THREADS)
   }
   float kth0 = NEG_INF_F, kth1 = NEG_INF_F;
 
-  if constexpr (FORM == FORM_BF16)
-    if (c_begin < c_end) fwd_prologue_bf16<ROWS>(a, stg, c_begin, c_end);
+  uint4 first[FB_ST - 1];  // INT8: the next tile's first q0 words
+  if constexpr (TC)
+    if (c_begin < c_end) {
+      fwd_prologue_tc<FORM, ROWS>(a, stg, c_begin, c_end, first);
+      fwd_widen_first<FORM, ROWS>(a, stg, first);
+    }
   for (long long t0 = c_begin; t0 < c_end; t0 += F_TC) {
     mark_writes<F_TC>(a, t0, last0, lastb, written);
 
-    if constexpr (FORM == FORM_BF16) {
+    if constexpr (TC) {
       const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
       const int wr = (warp % WM) * 32, wc = (warp / WM) * (F_TC / WN);  // the warp's tile
       float acc[2][NI][4];
-      fwd_cos_bf16<ROWS, NI>(a, stg, t0, c_end, wr, wc, acc);
+      fwd_cos_tc<FORM, ROWS, NI>(a, stg, t0, c_end, wr, wc, acc);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
+        for (int e = 0; e < 4; ++e) {
+          const int c = wc + 8 * ni + 2 * t + (e & 1);
+          const float sc = FORM == FORM_INT8 ? col_scale(a, t0 + c, c_end) : 1.f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            Cs[(wr + 16 * mi + g + 8 * (e >> 1)) * F_CLD + wc + 8 * ni + 2 * t + (e & 1)] =
-                acc[mi][ni][e];
+          for (int mi = 0; mi < 2; ++mi) {
+            float& x = Cs[(wr + 16 * mi + g + 8 * (e >> 1)) * F_CLD + c];
+            if constexpr (FORM == FORM_INT8) x = acc[mi][ni][e] * sc;
+            else x = acc[mi][ni][e];
+          }
+        }
     } else {
       float acc[TI][8];
       cos_tile<FORM, ROWS, F_TC, F_DK, F_THREADS, ALD, F_BLD, TI, 8, 32, 8>(a, acc, As, Bs, 0, t0,
@@ -438,8 +507,9 @@ __global__ void __launch_bounds__(F_THREADS)
         for (int j = 0; j < 8; ++j) Cs[(ty + 32 * i) * F_CLD + tx + 8 * j] = acc[i][j];
     }
     __syncthreads();
-    if constexpr (FORM == FORM_BF16)  // the next tile's first chunks load under the epilogue
-      if (t0 + F_TC < c_end) fwd_prologue_bf16<ROWS>(a, stg, t0 + F_TC, c_end);
+    const bool next = t0 + F_TC < c_end;
+    if constexpr (TC)  // the next tile's first chunks load under the epilogue
+      if (next) fwd_prologue_tc<FORM, ROWS>(a, stg, t0 + F_TC, c_end, first);
 
     if (row_ok) {
       const bool any_w = written[dir] != 0;
@@ -459,6 +529,8 @@ __global__ void __launch_bounds__(F_THREADS)
         topk_insert(tk1, kth1, c2, a.k);
       }
     }
+    if constexpr (TC)
+      if (next) fwd_widen_first<FORM, ROWS>(a, stg, first);
     __syncthreads();  // Cs / write plan are rebuilt by the next tile
   }
   if (row_ok && a.twin && label >= c_begin && label < c_end) {
@@ -576,8 +648,9 @@ __device__ __forceinline__ RowCoef row_coef(const Args& a, const BwdRows& br, in
   return rc;
 }
 
-// d_cos of row rc (global row gr) at column gc = t0 + c of a TC-column tile
-// whose clean cosine is c1, routed per view to the row that view scores
+// d_cos of row rc (global row gr) at column c of a TC-column tile whose
+// clean cosine is c1 and whose stored row q0's scale is sc (1 but on an
+// int8 queue), routed per view to the row that view scores
 // against: dq to q0's stored row, dg to the parity-0 write g, dv to the
 // view-2 write v; i0 / ib return the column's last writers in the row's
 // direction (-1: none). The BF16 form keeps the two views' rounded d_cos
@@ -586,10 +659,10 @@ __device__ __forceinline__ RowCoef row_coef(const Args& a, const BwdRows& br, in
 // row's rounding tile holds no write (so neither does the tile), and only
 // the clean route is compiled.
 template <int FORM, int TC, bool WRITES = true>
-__device__ __forceinline__ void route_dcos(const Args& a, const RowCoef& rc, int gr, long long gc,
-                                           int c, const int* last0, const int* lastb,
-                                           const int* written, float c1, float& dq, float& dq2,
-                                           float& dg, float& dv, int& i0, int& ib) {
+__device__ __forceinline__ void route_dcos(const Args& a, const RowCoef& rc, int gr, int c,
+                                           const int* last0, const int* lastb, const int* written,
+                                           float c1, float sc, float& dq, float& dq2, float& dg,
+                                           float& dv, int& i0, int& ib) {
   constexpr bool ROUND = FORM != FORM_F32;
   constexpr bool SCALED = FORM == FORM_INT8 || FORM == FORM_INT8C;
   const bool w64 = written[rc.dir] != 0;      // this tile holds a write of the row's direction
@@ -604,7 +677,6 @@ __device__ __forceinline__ void route_dcos(const Args& a, const RowCoef& rc, int
     if (i0 >= 0) c1 = row_dot(e_row, a.G + (long long)(rc.dir * a.BP + i0) * a.D, a.D);
     c2 = ib >= 0 ? row_dot(e_row, a.V + (long long)(rc.dir * a.BP + ib) * a.D, a.D) : c1;
   }
-  const float sc = SCALED ? a.qs[gc] : 1.f;
   if (ROUND && (!WRITES || !hit)) {  // clean tile: both views read the stored row
     float d;
     if (a.loss_type == LOSS_SV || a.twin) {
@@ -636,14 +708,9 @@ __device__ __forceinline__ void route_dcos(const Args& a, const RowCoef& rc, int
   }
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const signed char* p) { return (float)*p; }
-
-// the F32, INT8 and INT8C forms (f32 FMA; BF16: quad_bwd_bf16_kernel)
-template <int FORM>
+// the F32 form (f32 FMA; the others: quad_bwd_tc_kernel)
 __global__ void __launch_bounds__(B_THREADS)
     quad_bwd_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg, float* part) {
-  using TQ = typename Stored<FORM>::T;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;                // E row-group chunk, k-major [B_DK][B_ALD]
   float* Bs = As + B_DK * B_ALD;   // q0 chunk, k-major [B_DK][B_BLD]
@@ -660,7 +727,7 @@ __global__ void __launch_bounds__(B_THREADS)
   const long long c_begin = (long long)chunk * cols_per_chunk;
   const long long c_end = min(a.Q, c_begin + cols_per_chunk);
   const int nj = a.D / 64;
-  const TQ* q0 = static_cast<const TQ*>(a.q0);
+  const float* q0 = static_cast<const float*>(a.q0);
 
   // GEMM-1 / d_cos map: rows ty + 16i (i < 2), cols tx + 16j (j < 4)
   const int tx = tid & 15, ty = tid >> 4;
@@ -680,8 +747,8 @@ __global__ void __launch_bounds__(B_THREADS)
     const bool any_w = (written[0] | written[1]) != 0;
 
     float acc[2][4];
-    cos_tile<FORM, B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16>(a, acc, As, Bs, r_base,
-                                                                            t0, c_end, ty, tx);
+    cos_tile<FORM_F32, B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16>(
+        a, acc, As, Bs, r_base, t0, c_end, ty, tx);
 
     // d_cos, routed per view to the row that view scores against
 #pragma unroll
@@ -694,8 +761,8 @@ __global__ void __launch_bounds__(B_THREADS)
         float dq = 0.f, dq2 = 0.f, dg = 0.f, dv = 0.f;  // dq2: the BF16 form only
         if (rc[i].ok && gc < c_end && gc != (long long)rc[i].lab) {
           int i0, ib;
-          route_dcos<FORM, B_TC>(a, rc[i], gr, gc, c, last0, lastb, written, acc[i][j], dq, dq2,
-                                 dg, dv, i0, ib);
+          route_dcos<FORM_F32, B_TC>(a, rc[i], gr, c, last0, lastb, written, acc[i][j], 1.f, dq,
+                                     dq2, dg, dv, i0, ib);
         }
         Dq[lr * B_CLD + c] = dq;
         Dg[lr * B_CLD + c] = dg;
@@ -707,10 +774,10 @@ __global__ void __launch_bounds__(B_THREADS)
     // d_emb += d_cos @ (effective rows of this tile)
     const int n = (int)min((long long)B_TC, c_end - t0);
     for (int c = 0; c < n; ++c) {
-      const TQ* wrow = q0 + (t0 + c) * a.D + dx;
+      const float* wrow = q0 + (t0 + c) * a.D + dx;
       float w[B_JMAX];
 #pragma unroll
-      for (int j = 0; j < B_JMAX; ++j) w[j] = j < nj ? load_f32(wrow + 64 * j) : 0.f;
+      for (int j = 0; j < B_JMAX; ++j) w[j] = j < nj ? __ldg(wrow + 64 * j) : 0.f;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float d = Dq[(ry * 8 + i) * B_CLD + c];
@@ -757,57 +824,168 @@ __global__ void __launch_bounds__(B_THREADS)
   }
 }
 
-// ------------------------------------------------- backward, BF16 form
+// ------------------------------------- backward on the tensor cores
 
-constexpr int BB_RB = 64, BB_TC = 64, BB_THREADS = 256;  // probe rows, tile columns
+constexpr int BB_RB = 64, BB_TC = 64;  // probe rows, tile columns
+// warps a block; the recompute's warp holds 16 rows x BB_NI n8 column
+// tiles, the d_emb product's BB_MI x 16 rows x D / 4 features
+constexpr int BB_NW = 8, BB_THREADS = 32 * BB_NW, BB_NI = 32 / BB_NW, BB_MI = 16 / BB_NW;
+static_assert(BB_NW == 8 || BB_NW == 16, "the maps below tile [64, 64] and [64, D] by 8 or 16");
 
-// shared memory of the BF16 backward at feature width D: the block's E rows,
-// two q0 tiles, the two d_cos tiles, the rows' inputs and the write plan
+// 16-byte chunks a staged int8 row of D features: whole groups of 8, so
+// that swz's XOR stays inside the row (D = 64: half a group of padding)
+__host__ __device__ constexpr int i8_rc(int D) { return (D / 16 + 7) / 8 * 8; }
+
+// bytes of the block's staged E rows and of one staged q0 tile: bf16
+// (INT8C: E8 and the tile int8; INT8: the tile int8)
+template <int FORM>
+__host__ __device__ constexpr int bb_rows_bytes(int D) {
+  return FORM == FORM_INT8C ? BB_RB * i8_rc(D) * 16 : BB_RB * D * 2;
+}
+template <int FORM>
+__host__ __device__ constexpr int bb_stage_bytes(int D) {
+  return FORM == FORM_BF16 ? BB_TC * D * 2 : BB_TC * i8_rc(D) * 16;
+}
+
+// bytes of one staged q0 tile's scales (the int8 forms: qs [BB_TC] f32)
+template <int FORM>
+__host__ __device__ constexpr int bb_scale_bytes() {
+  return FORM == FORM_BF16 ? 0 : BB_TC * 4;
+}
+
+// shared memory of the tensor-core backward at feature width D: the
+// block's E rows, two staged q0 tiles (the int8 forms: with their scales,
+// and the tile widened to bf16), the d_cos tiles (BF16: two, one a view's
+// second term), the rows' inputs and the write plan
+template <int FORM>
 __host__ __device__ constexpr int bb_smem(int D) {
-  return BB_RB * D * 2 + 2 * BB_TC * D * 2 + 2 * BB_RB * BB_TC * 2 +
+  return bb_rows_bytes<FORM>(D) + 2 * (bb_stage_bytes<FORM>(D) + bb_scale_bytes<FORM>()) +
+         (FORM == FORM_BF16 ? 0 : BB_TC * D * 2) + (FORM == FORM_BF16 ? 2 : 1) * BB_RB * BB_TC * 2 +
          BB_RB * (int)sizeof(RowCoef) + (4 * BB_TC + 4) * (int)sizeof(int);
 }
 
-// probe rows [r_base, + BB_RB) of Eb into Es, swizzled (zero past R)
-__device__ __forceinline__ void bwd_load_rows_bf16(const Args& a, unsigned char* Es, int r_base) {
-  const int rc = a.D / 8;
-  for (int i = threadIdx.x; i < BB_RB * rc; i += blockDim.x) {
-    const int r = i / rc, ch = i - r * rc;
-    const bool ok = r_base + r < a.R;
-    cp_async_cg(Es + swz(r, 8 * ch, rc), ok ? a.Eb + (long long)(r_base + r) * a.D + 8 * ch : a.Eb,
-                ok);
+// rows [r0, r0 + n) of the row-major [*, D] int8 matrix X into S (i8_rc(D)
+// chunks a row, swizzled; zero from end)
+__device__ __forceinline__ void load_rows_i8(unsigned char* S, const signed char* X, long long r0,
+                                             long long end, int D, int n) {
+  const int ch = D / 16, rc = i8_rc(D);
+  for (int i = threadIdx.x; i < n * ch; i += blockDim.x) {
+    const int r = i / ch, c = i - r * ch;
+    const bool ok = r0 + r < end;
+    cp_async_cg(S + swz(r, 8 * c, rc), ok ? X + (r0 + r) * D + 16 * c : X, ok);
   }
 }
 
-// q0 rows [t0, t0 + 64) into Qs, swizzled (zero from c_end)
-__device__ __forceinline__ void bwd_load_tile_bf16(const Args& a, unsigned char* Qs, long long t0,
-                                                   long long c_end) {
-  const __nv_bfloat16* q0 = static_cast<const __nv_bfloat16*>(a.q0);
-  const int rc = a.D / 8;
-  for (int i = threadIdx.x; i < BB_TC * rc; i += blockDim.x) {
+// rows [r0, r0 + n) of the row-major [*, D] bf16 matrix X into S (D / 8
+// chunks a row, swizzled; zero from end)
+__device__ __forceinline__ void load_rows_bf16(unsigned char* S, const __nv_bfloat16* X,
+                                               long long r0, long long end, int D, int n) {
+  const int rc = D / 8;
+  for (int i = threadIdx.x; i < n * rc; i += blockDim.x) {
     const int r = i / rc, ch = i - r * rc;
-    const bool ok = t0 + r < c_end;
-    cp_async_cg(Qs + swz(r, 8 * ch, rc), ok ? q0 + (t0 + r) * a.D + 8 * ch : q0, ok);
+    const bool ok = r0 + r < end;
+    cp_async_cg(S + swz(r, 8 * ch, rc), ok ? X + (r0 + r) * D + 8 * ch : X, ok);
+  }
+}
+
+// the block's probe rows [r_base, + BB_RB) as the form's recompute reads
+// them: bf16(E), or (INT8C) E8
+template <int FORM>
+__device__ __forceinline__ void bwd_load_rows(const Args& a, unsigned char* Es, int r_base) {
+  if constexpr (FORM == FORM_INT8C) load_rows_i8(Es, a.E8, r_base, a.R, a.D, BB_RB);
+  else load_rows_bf16(Es, a.Eb, r_base, a.R, a.D, BB_RB);
+}
+
+// q0 rows [t0, t0 + 64) as stored (zero from c_end); the int8 forms also
+// their scales into sq [BB_TC] (qs may sit at any 4-byte offset)
+template <int FORM>
+__device__ __forceinline__ void bwd_load_tile(const Args& a, unsigned char* S, float* sq,
+                                              long long t0, long long c_end) {
+  if constexpr (FORM == FORM_BF16) {
+    load_rows_bf16(S, static_cast<const __nv_bfloat16*>(a.q0), t0, c_end, a.D, BB_TC);
+  } else {
+    load_rows_i8(S, static_cast<const signed char*>(a.q0), t0, c_end, a.D, BB_TC);
+    for (int i = threadIdx.x; i < BB_TC; i += blockDim.x)
+      cp_async_ca4(sq + i, t0 + i < c_end ? a.qs + t0 + i : a.qs, t0 + i < c_end);
+  }
+}
+
+// the int8 tile S widened to bf16 into Qb (D / 8 chunks a row, swizzled)
+__device__ __forceinline__ void widen_tile(unsigned char* Qb, const unsigned char* S, int D) {
+  const int ch = D / 16, rc = i8_rc(D);
+  for (int i = threadIdx.x; i < BB_TC * ch; i += blockDim.x) {
+    const int r = i / ch, c = i - r * ch;
+    widen16(Qb, r, 16 * c, D / 8, *reinterpret_cast<const uint4*>(S + swz(r, 8 * c, rc)));
   }
 }
 
 // the backward's recompute map: warp w holds rows 16 (w % 4) .., columns
-// 32 (w / 4) .. of a [64, 64] cosine tile
+// 8 BB_NI (w / 4) .. of a [64, 64] cosine tile
 __device__ __forceinline__ void bwd_cos_map(int& m1, int& n1) {
   const int warp = threadIdx.x >> 5;
   m1 = (warp & 3) * 16;
-  n1 = (warp >> 2) * 32;
+  n1 = (warp >> 2) * 8 * BB_NI;
 }
 
+// the clean cosines acc[0][ni][e] of the block's rows m1 + g (+ 8) and the
+// tile's columns n1 + 8 ni + 2t (+ 1), ni < BB_NI, the tile staged in S (as
+// bf16 in Q for the INT8 form; its scales in sq, 0 from c_end): BF16 / INT8
+// the k16 chain over bf16 operands (the forward's: module header), INT8
+// then times q0's column scale; INT8C the exact int32 sum of E8 . q, then
+// f32(sum) * (se[row] * qs[col])
+template <int FORM>
+__device__ __forceinline__ void tile_cos(const Args& a, const unsigned char* Es,
+                                         const unsigned char* S, const unsigned char* Q,
+                                         const float* sq, int r_base, int m1, int n1,
+                                         float (&acc)[1][BB_NI][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (FORM == FORM_INT8C) {
+    int iacc[1][BB_NI][4] = {};
+    mma_nt_s8<1, BB_NI>(iacc, Es, i8_rc(a.D), m1, S, i8_rc(a.D), n1, a.D / 32);
+    float se[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_base + m1 + g + 8 * h;
+      se[h] = r < a.R ? a.se[r] : 0.f;
+    }
+#pragma unroll
+    for (int ni = 0; ni < BB_NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[0][ni][e] = (float)iacc[0][ni][e] * (se[e >> 1] * sq[n1 + 8 * ni + 2 * t + (e & 1)]);
+  } else {
+#pragma unroll
+    for (int ni = 0; ni < BB_NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[0][ni][e] = 0.f;
+    mma_nt<1, BB_NI>(acc, Es, a.D / 8, m1, Q, a.D / 8, n1, a.D / 16);
+    if constexpr (FORM == FORM_INT8)
+#pragma unroll
+      for (int ni = 0; ni < BB_NI; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float sc = sq[n1 + 8 * ni + 2 * t + j];
+          acc[0][ni][j] *= sc;
+          acc[0][ni][2 + j] *= sc;
+        }
+  }
+}
+
+// the BF16, INT8 and INT8C forms (module header)
+template <int FORM>
 __global__ void __launch_bounds__(BB_THREADS, 1)
-    quad_bwd_bf16_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg, float* part,
-                         float* wcoef) {
+    quad_bwd_tc_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg, float* part,
+                       float* wcoef) {
+  constexpr bool I8 = FORM != FORM_BF16;  // q0 stored int8
+  constexpr int N_DQ = I8 ? 1 : 2;        // d_cos tiles
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  const int D = a.D, rcd = D / 8;
-  unsigned char* Es = bwd_smem;                // E rows [BB_RB][D]
-  unsigned char* Qs = Es + BB_RB * D * 2;      // q0 tiles [2][BB_TC][D]
-  unsigned char* Dq = Qs + 2 * BB_TC * D * 2;  // d_cos on q0's rows [2][BB_RB][BB_TC]
-  RowCoef* rcs = reinterpret_cast<RowCoef*>(Dq + 2 * BB_RB * BB_TC * 2);
+  const int D = a.D, rcd = D / 8, stage = bb_stage_bytes<FORM>(D);
+  unsigned char* Es = bwd_smem;                          // E rows [BB_RB][D]
+  unsigned char* Qs = Es + bb_rows_bytes<FORM>(D);       // q0 tiles as stored [2][BB_TC][D]
+  float* Sqs = reinterpret_cast<float*>(Qs + 2 * stage);  // int8: their scales [2][BB_TC]
+  unsigned char* Qb = Qs + 2 * (stage + bb_scale_bytes<FORM>());  // int8: the tile as bf16
+  unsigned char* Dq = Qb + (I8 ? BB_TC * D * 2 : 0);     // d_cos on q0's rows [N_DQ][BB_RB][BB_TC]
+  RowCoef* rcs = reinterpret_cast<RowCoef*>(Dq + N_DQ * BB_RB * BB_TC * 2);
   int* last0 = reinterpret_cast<int*>(rcs + BB_RB);
   int* lastb = last0 + 2 * BB_TC;
   int* written = lastb + 2 * BB_TC;  // [4]
@@ -819,44 +997,55 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
   const long long c_end = min(a.Q, c_begin + cols_per_chunk);
   const int n_tiles = c_end > c_begin ? (int)((c_end - c_begin + BB_TC - 1) / BB_TC) : 0;
 
-  bwd_load_rows_bf16(a, Es, r_base);
-  if (n_tiles > 0) bwd_load_tile_bf16(a, Qs, c_begin, c_end);
+  bwd_load_rows<FORM>(a, Es, r_base);
+  if (n_tiles > 0) bwd_load_tile<FORM>(a, Qs, Sqs, c_begin, c_end);
   cp_async_commit();
   for (int r = tid; r < BB_RB; r += BB_THREADS) rcs[r] = row_coef(a, br, r_base + r);
 
   int m1, n1;
   bwd_cos_map(m1, n1);
-  // d_emb map: warp w holds rows 32 (w % 2) .., features D / 4 * (w / 2) ..
-  // (nj2 n8 tiles, 16 at D = 512)
-  const int m2 = (warp & 1) * 32, f2 = (warp >> 1) * (D / 4), nj2 = D / 32;
-  float acc2[2][16][4] = {};
+  // d_emb map: warp w holds rows 16 BB_MI (w % RS) .., features D / 4 *
+  // (w / RS) .. (nj2 n8 tiles, 16 at D = 512)
+  constexpr int RS = 4 / BB_MI;  // the warps' row slabs
+  const int m2 = (warp % RS) * 16 * BB_MI, f2 = (warp / RS) * (D / 4), nj2 = D / 32;
+  float acc2[BB_MI][16][4] = {};
 
   for (int ti = 0; ti < n_tiles; ++ti) {
     const long long t0 = c_begin + (long long)ti * BB_TC;
     if (ti + 1 < n_tiles)
-      bwd_load_tile_bf16(a, Qs + ((ti + 1) & 1) * BB_TC * D * 2, t0 + BB_TC, c_end);
+      bwd_load_tile<FORM>(a, Qs + ((ti + 1) & 1) * stage, Sqs + ((ti + 1) & 1) * BB_TC,
+                          t0 + BB_TC, c_end);
     cp_async_commit();
     cp_async_wait<1>();  // tile ti (and the E rows) landed
     mark_writes<BB_TC>(a, t0, last0, lastb, written);  // its barriers publish them
-    const unsigned char* Q = Qs + (ti & 1) * BB_TC * D * 2;
+    const unsigned char* S = Qs + (ti & 1) * stage;
+    const float* sq = Sqs + (ti & 1) * BB_TC;  // int8: the tile's column scales
+    const unsigned char* Q = I8 ? Qb : S;  // the tile as bf16: the d_emb product's operand
 
-    float acc1[1][4][4] = {};
-    mma_nt<1, 4>(acc1, Es, rcd, m1, Q, rcd, n1, D / 16);
+    float acc1[1][BB_NI][4];
+    if constexpr (FORM == FORM_INT8) {
+      widen_tile(Qb, S, D);
+      __syncthreads();
+    }
+    tile_cos<FORM>(a, Es, S, Q, sq, r_base, m1, n1, acc1);
+    if constexpr (FORM == FORM_INT8C) widen_tile(Qb, S, D);  // read after the d_cos barrier
 
-    // d_cos from the fragments: q0's share into Dq as bf16 and into Dq2
-    // what bf16 does not hold of it (nothing: route_dcos rounds it, so the
-    // rounding is decided there alone) with the second view's term; the
-    // written rows' into wcoef
+    // d_cos from the fragments into Dq as bf16 (BF16: what bf16 does not
+    // hold of it, nothing, route_dcos having rounded it, with the second
+    // view's term into the second tile); the written rows' into wcoef.
     // A row whose rounding tile holds no write takes the clean route,
     // unrolled over its 8 elements; one whose tile does takes every route
     // one element at a time (header).
     bool two = false;
     auto put = [&](int lr, int c, float dq, float dq2) {
-      const float hq = bf16r(dq), lq = dq2 + (dq - hq);
+      const float hq = bf16r(dq);
       *reinterpret_cast<__nv_bfloat16*>(Dq + swz(lr, c, BB_TC / 8)) = __float2bfloat16_rn(hq);
-      *reinterpret_cast<__nv_bfloat16*>(Dq + BB_RB * BB_TC * 2 + swz(lr, c, BB_TC / 8)) =
-          __float2bfloat16_rn(lq);
-      two = two || lq != 0.f;
+      if constexpr (!I8) {
+        const float lq = dq2 + (dq - hq);
+        *reinterpret_cast<__nv_bfloat16*>(Dq + BB_RB * BB_TC * 2 + swz(lr, c, BB_TC / 8)) =
+            __float2bfloat16_rn(lq);
+        two = two || lq != 0.f;
+      }
     };
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -864,7 +1053,7 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
       const RowCoef rc = rcs[lr];
       if (written[2 + rc.dir] == 0) {
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+        for (int ni = 0; ni < BB_NI; ++ni)
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int c = n1 + 8 * ni + 2 * t + j;
@@ -872,25 +1061,25 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
             float dq = 0.f, dq2 = 0.f, dg, dv;
             int i0, ib;
             if (rc.ok && gc < c_end && gc != (long long)rc.lab)
-              route_dcos<FORM_BF16, BB_TC, false>(a, rc, gr, gc, c, last0, lastb, written,
-                                                  acc1[0][ni][2 * h + j], dq, dq2, dg, dv, i0,
-                                                  ib);
+              route_dcos<FORM, BB_TC, false>(a, rc, gr, c, last0, lastb, written,
+                                             acc1[0][ni][2 * h + j], I8 ? sq[c] : 1.f, dq, dq2,
+                                             dg, dv, i0, ib);
             put(lr, c, dq, dq2);
           }
       } else {
-        float cv[8];
+        float cv[2 * BB_NI];
 #pragma unroll
-        for (int k = 0; k < 8; ++k) cv[k] = acc1[0][k >> 1][2 * h + (k & 1)];
+        for (int k = 0; k < 2 * BB_NI; ++k) cv[k] = acc1[0][k >> 1][2 * h + (k & 1)];
         float* wc = wcoef + (long long)gr * 2 * a.BP;
 #pragma unroll 1
-        for (int k = 0; k < 8; ++k) {
+        for (int k = 0; k < 2 * BB_NI; ++k) {
           const int c = n1 + 8 * (k >> 1) + 2 * t + (k & 1);
           const long long gc = t0 + c;
           float dq = 0.f, dq2 = 0.f, dg = 0.f, dv = 0.f;
           if (rc.ok && gc < c_end && gc != (long long)rc.lab) {
             int i0, ib;
-            route_dcos<FORM_BF16, BB_TC>(a, rc, gr, gc, c, last0, lastb, written, cv[k], dq, dq2,
-                                         dg, dv, i0, ib);
+            route_dcos<FORM, BB_TC>(a, rc, gr, c, last0, lastb, written, cv[k],
+                                    I8 ? sq[c] : 1.f, dq, dq2, dg, dv, i0, ib);
             if (i0 >= 0) wc[i0] = dg;  // this thread alone holds (row, writer)
             if (ib >= 0) wc[a.BP + ib] = dv;
           }
@@ -898,29 +1087,29 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
         }
       }
     }
-    two = __syncthreads_or(two);  // and Dq is complete
+    if constexpr (I8) __syncthreads();  // Dq (and the widened tile) complete
+    else two = __syncthreads_or(two);
 
-    // d_emb += d_cos . q0 tile (a second pass for the second views'
+    // d_emb += d_cos . q0 tile (BF16: a second pass for the second views'
     // terms): the tile's product over its 64 columns on the tensor core from
     // a zero accumulator, added to d_emb in f32 (mma_bf16.cuh's header)
     for (int p = 0; p < (two ? 2 : 1); ++p) {
       const unsigned char* A = Dq + p * BB_RB * BB_TC * 2;
-      uint32_t av[BB_TC / 16][2][4];
+      uint32_t av[BB_TC / 16][BB_MI][4];
 #pragma unroll
-      for (int ks = 0; ks < BB_TC / 16; ++ks) {
-        load_a(av[ks][0], A, BB_TC / 8, m2, ks);
-        load_a(av[ks][1], A, BB_TC / 8, m2 + 16, ks);
-      }
+      for (int ks = 0; ks < BB_TC / 16; ++ks)
+#pragma unroll
+        for (int mi = 0; mi < BB_MI; ++mi) load_a(av[ks][mi], A, BB_TC / 8, m2 + 16 * mi, ks);
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         if (2 * jj >= nj2) continue;
-        float pt[2][2][4];
+        float pt[BB_MI][2][4];
 #pragma unroll
         for (int ks = 0; ks < BB_TC / 16; ++ks) {
           uint32_t b[4];
           load_b_kn(b, Q, rcd, f2 + 16 * jj, ks);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
+          for (int mi = 0; mi < BB_MI; ++mi) {
             if (ks == 0) {
               mma_bf16_0(pt[mi][0], av[ks][mi], b[0], b[1]);
               mma_bf16_0(pt[mi][1], av[ks][mi], b[2], b[3]);
@@ -931,19 +1120,19 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
           }
         }
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < BB_MI; ++mi)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc2[mi][2 * jj + h][e] += pt[mi][h][e];
       }
     }
-    __syncthreads();  // the tile's stage, Dq and the write plan are rebuilt next
+    __syncthreads();  // the tile's stages, Dq and the write plan are rebuilt next
   }
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < BB_MI; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gr = r_base + m2 + 16 * mi + g + 8 * h;
@@ -957,8 +1146,8 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
     }
 }
 
-// d_emb = sum of the chunk partials in chunk order (the BF16 form's
-// written rows after them: wcoef [R][2][BP] . G / V of the row's
+// d_emb = sum of the chunk partials in chunk order (the tensor-core
+// forms' written rows after them: wcoef [R][2][BP] . G / V of the row's
 // direction); d_gt, the target
 // column's dz: (exp(scale*phi(gt_v) - logz_v) - 1) * d_ce_v * scale on rows
 // whose (shard-local) label is >= 0
@@ -1025,10 +1214,19 @@ Args make_args(const void* q0, long long Q, int D, const float* E, const float* 
   return a;
 }
 
+// the operands a tensor-core form reads are there: bf16(E) (INT8C: E8 and
+// its scales), q0's scales on an int8 queue
+template <int FORM>
+bool tc_operands(const Args& a) {
+  return (FORM == FORM_INT8C ? a.E8 != nullptr && a.se != nullptr : a.Eb != nullptr) &&
+         (FORM == FORM_BF16 || a.qs != nullptr);
+}
+
 template <int FORM, int ROWS>
 cudaError_t launch_fwd_rows(const Args& a, float* part, int nblk, long long cols_per_blk,
                             cudaStream_t st) {
   constexpr size_t smem = f_smem<FORM, ROWS>();
+  if (fwd_tc<FORM>() && !tc_operands<FORM>(a)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(quad_fwd_kernel<FORM, ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1055,24 +1253,23 @@ cudaError_t launch_fwd_blocks(const Args& a, int form, float* part, int nblk,
   return cudaErrorInvalidValue;
 }
 
-template <int FORM>
-cudaError_t launch_bwd_form(const Args& a, const BwdRows& br, float* part, int nchunk,
-                            long long cols_per_chunk, cudaStream_t st) {
+cudaError_t launch_bwd_f32(const Args& a, const BwdRows& br, float* part, int nchunk,
+                           long long cols_per_chunk, cudaStream_t st) {
   const int n_rg = (a.R + B_RB - 1) / B_RB;
-  quad_bwd_kernel<FORM><<<nchunk * n_rg, B_THREADS, B_SMEM, st>>>(a, br, cols_per_chunk, n_rg,
-                                                                  part);
+  quad_bwd_kernel<<<nchunk * n_rg, B_THREADS, B_SMEM, st>>>(a, br, cols_per_chunk, n_rg, part);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bwd_bf16(const Args& a, const BwdRows& br, float* part, float* wcoef,
-                            int nchunk, long long cols_per_chunk, cudaStream_t st) {
-  const int n_rg = (a.R + BB_RB - 1) / BB_RB, smem = bb_smem(a.D);
-  if (wcoef == nullptr || a.Eb == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(quad_bwd_bf16_kernel,
+template <int FORM>
+cudaError_t launch_bwd_tc(const Args& a, const BwdRows& br, float* part, float* wcoef, int nchunk,
+                          long long cols_per_chunk, cudaStream_t st) {
+  const int n_rg = (a.R + BB_RB - 1) / BB_RB, smem = bb_smem<FORM>(a.D);
+  if (wcoef == nullptr || !tc_operands<FORM>(a)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(quad_bwd_tc_kernel<FORM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  quad_bwd_bf16_kernel<<<nchunk * n_rg, BB_THREADS, smem, st>>>(a, br, cols_per_chunk, n_rg, part,
-                                                                wcoef);
+  quad_bwd_tc_kernel<FORM><<<nchunk * n_rg, BB_THREADS, smem, st>>>(a, br, cols_per_chunk, n_rg,
+                                                                    part, wcoef);
   return cudaGetLastError();
 }
 
@@ -1101,47 +1298,61 @@ __global__ void __launch_bounds__(THREADS) clean_cos_kernel(Args a, float* out) 
   }
 }
 
-// the BF16 form's clean cosines with the forward's tiling: one 256-row
-// block per 64 columns, fwd_cos_bf16 as the forward runs it
-__global__ void __launch_bounds__(F_THREADS) clean_cos_fwd_bf16_kernel(Args a, float* out) {
+// the BF16 and INT8 forms' clean cosines with the forward's tiling: one
+// 256-row block per 64 columns, fwd_cos_tc as the forward runs it
+template <int FORM>
+__global__ void __launch_bounds__(F_THREADS) clean_cos_fwd_tc_kernel(Args a, float* out) {
   extern __shared__ __align__(16) unsigned char ccf_smem[];
   const long long t0 = (long long)blockIdx.x * F_TC;
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  fwd_prologue_bf16<F_ROWS>(a, ccf_smem, t0, a.Q);
+  uint4 first[FB_ST - 1];
+  fwd_prologue_tc<FORM, F_ROWS>(a, ccf_smem, t0, a.Q, first);
+  fwd_widen_first<FORM, F_ROWS>(a, ccf_smem, first);
   float acc[2][8][4];
-  fwd_cos_bf16<F_ROWS, 8>(a, ccf_smem, t0, a.Q, warp * 32, 0, acc);
+  fwd_cos_tc<FORM, F_ROWS, 8>(a, ccf_smem, t0, a.Q, warp * 32, 0, acc);
   cp_async_wait<0>();
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
+    for (int e = 0; e < 4; ++e) {
+      const long long c = t0 + 8 * ni + 2 * t + (e & 1);
+      const float sc = FORM == FORM_INT8 ? col_scale(a, c, a.Q) : 1.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int mi = 0; mi < 2; ++mi) {
         const long long r = warp * 32 + 16 * mi + g + 8 * (e >> 1);
-        const long long c = t0 + 8 * ni + 2 * t + (e & 1);
-        if (r < a.R && c < a.Q) out[r * a.Q + c] = acc[mi][ni][e];
+        if (r < a.R && c < a.Q) out[r * a.Q + c] = FORM == FORM_INT8 ? acc[mi][ni][e] * sc
+                                                                    : acc[mi][ni][e];
       }
+    }
 }
 
 // ... with the backward's tiling: one 64-row block per row group and 64
-// columns, staged and multiplied as quad_bwd_bf16_kernel does
-__global__ void __launch_bounds__(BB_THREADS) clean_cos_bwd_bf16_kernel(Args a, float* out) {
+// columns, staged and multiplied as quad_bwd_tc_kernel does (every
+// tensor-core form)
+template <int FORM>
+__global__ void __launch_bounds__(BB_THREADS) clean_cos_bwd_tc_kernel(Args a, float* out) {
   extern __shared__ __align__(16) unsigned char ccb_smem[];
   const int r_base = blockIdx.y * BB_RB, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const long long t0 = (long long)blockIdx.x * BB_TC;
   unsigned char* Es = ccb_smem;
-  unsigned char* Qs = Es + BB_RB * a.D * 2;
-  bwd_load_rows_bf16(a, Es, r_base);
-  bwd_load_tile_bf16(a, Qs, t0, a.Q);
+  unsigned char* S = Es + bb_rows_bytes<FORM>(a.D);
+  float* sq = reinterpret_cast<float*>(S + bb_stage_bytes<FORM>(a.D));
+  unsigned char* Qb = S + bb_stage_bytes<FORM>(a.D) + bb_scale_bytes<FORM>();
+  bwd_load_rows<FORM>(a, Es, r_base);
+  bwd_load_tile<FORM>(a, S, sq, t0, a.Q);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
+  if constexpr (FORM == FORM_INT8) {
+    widen_tile(Qb, S, a.D);
+    __syncthreads();
+  }
   int m1, n1;
   bwd_cos_map(m1, n1);
-  float acc[1][4][4] = {};
-  mma_nt<1, 4>(acc, Es, a.D / 8, m1, Qs, a.D / 8, n1, a.D / 16);
+  float acc[1][BB_NI][4];
+  tile_cos<FORM>(a, Es, S, FORM == FORM_INT8 ? Qb : S, sq, r_base, m1, n1, acc);
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
+  for (int ni = 0; ni < BB_NI; ++ni)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const long long r = r_base + m1 + g + 8 * (e >> 1);
@@ -1150,28 +1361,35 @@ __global__ void __launch_bounds__(BB_THREADS) clean_cos_bwd_bf16_kernel(Args a, 
     }
 }
 
-cudaError_t launch_clean_cos_bf16(const Args& a, int bwd_tiles, float* out, cudaStream_t st) {
-  const unsigned n_t = (unsigned)((a.Q + F_TC - 1) / F_TC);
-  if (a.Eb == nullptr) return cudaErrorInvalidValue;
-  if (bwd_tiles) {
-    const int smem = (BB_RB + BB_TC) * a.D * 2;
-    cudaError_t err = cudaFuncSetAttribute(clean_cos_bwd_bf16_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    clean_cos_bwd_bf16_kernel<<<dim3(n_t, (a.R + BB_RB - 1) / BB_RB), BB_THREADS, smem, st>>>(a,
-                                                                                           out);
-  } else {
-    const int smem = FB_ST * fb_stage_bytes<F_ROWS>();
-    cudaError_t err = cudaFuncSetAttribute(clean_cos_fwd_bf16_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    clean_cos_fwd_bf16_kernel<<<n_t, F_THREADS, smem, st>>>(a, out);
-  }
+template <int FORM>
+cudaError_t launch_clean_cos_bwd_tc(const Args& a, float* out, cudaStream_t st) {
+  const unsigned n_t = (unsigned)((a.Q + BB_TC - 1) / BB_TC);
+  const int smem = bb_rows_bytes<FORM>(a.D) + bb_stage_bytes<FORM>(a.D) + bb_scale_bytes<FORM>() +
+                   (FORM == FORM_INT8 ? BB_TC * a.D * 2 : 0);
+  if (!tc_operands<FORM>(a)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(clean_cos_bwd_tc_kernel<FORM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  clean_cos_bwd_tc_kernel<FORM><<<dim3(n_t, (a.R + BB_RB - 1) / BB_RB), BB_THREADS, smem, st>>>(
+      a, out);
   return cudaGetLastError();
 }
 
 template <int FORM>
-cudaError_t launch_clean_cos_form(const Args& a, int bwd_tiles, float* out, cudaStream_t st) {
+cudaError_t launch_clean_cos_fwd_tc(const Args& a, float* out, cudaStream_t st) {
+  const unsigned n_t = (unsigned)((a.Q + F_TC - 1) / F_TC);
+  const int smem = FB_ST * fb_stage_bytes<F_ROWS>();
+  if (!tc_operands<FORM>(a)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(clean_cos_fwd_tc_kernel<FORM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  clean_cos_fwd_tc_kernel<FORM><<<n_t, F_THREADS, smem, st>>>(a, out);
+  return cudaGetLastError();
+}
+
+// the F32 form in both tilings, and the INT8C forward's (__dp4a)
+template <int FORM>
+cudaError_t launch_clean_cos_fma(const Args& a, int bwd_tiles, float* out, cudaStream_t st) {
   const unsigned n_t = (unsigned)((a.Q + F_TC - 1) / F_TC);
   if (bwd_tiles) {
     clean_cos_kernel<FORM, B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16>
@@ -1226,9 +1444,10 @@ int quad_partial_fwd_launch(QUAD_COMMON_PARAMS, float* part, int nblk, long long
 
 // backward (and the partial backward, with a shard's block, shard-local
 // cols and labels and the global row vectors): nchunk column ranges x
-// ceil(R / 32) row groups; part is [nchunk][R][D] f32
-// scratch; wcoef (BF16 only, else null) [R][2][BP] f32 scratch, zeroed by
-// the caller; outputs d_emb [R][D] and d_gt [2][R]
+// row groups of 32 rows (F32) or 64 (the tensor-core forms); part is
+// [nchunk][R][D] f32 scratch; wcoef (every form but F32, else null)
+// [R][2][BP] f32 scratch, zeroed by the caller; outputs d_emb [R][D] and
+// d_gt [2][R]
 int quad_bwd_launch(QUAD_COMMON_PARAMS, const float* logz, const float* kth, const float* dce,
                     const float* dneg, float* part, float* wcoef, int nchunk,
                     long long cols_per_chunk, float* d_emb, float* dgt, void* stream) {
@@ -1241,15 +1460,21 @@ int quad_bwd_launch(QUAD_COMMON_PARAMS, const float* logz, const float* kth, con
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
   switch (form) {
-    case FORM_F32: err = launch_bwd_form<FORM_F32>(a, br, part, nchunk, cols_per_chunk, st); break;
-    case FORM_BF16: err = launch_bwd_bf16(a, br, part, wcoef, nchunk, cols_per_chunk, st); break;
-    case FORM_INT8: err = launch_bwd_form<FORM_INT8>(a, br, part, nchunk, cols_per_chunk, st); break;
-    case FORM_INT8C: err = launch_bwd_form<FORM_INT8C>(a, br, part, nchunk, cols_per_chunk, st); break;
+    case FORM_F32: err = launch_bwd_f32(a, br, part, nchunk, cols_per_chunk, st); break;
+    case FORM_BF16:
+      err = launch_bwd_tc<FORM_BF16>(a, br, part, wcoef, nchunk, cols_per_chunk, st);
+      break;
+    case FORM_INT8:
+      err = launch_bwd_tc<FORM_INT8>(a, br, part, wcoef, nchunk, cols_per_chunk, st);
+      break;
+    case FORM_INT8C:
+      err = launch_bwd_tc<FORM_INT8C>(a, br, part, wcoef, nchunk, cols_per_chunk, st);
+      break;
   }
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)R * D;
   quad_bwd_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      a, br, nchunk, part, form == FORM_BF16 ? wcoef : nullptr, d_emb, dgt);
+      a, br, nchunk, part, form == FORM_F32 ? nullptr : wcoef, d_emb, dgt);
   return (int)cudaGetLastError();
 }
 
@@ -1259,10 +1484,16 @@ int quad_clean_cos_launch(QUAD_COMMON_PARAMS, int bwd_tiles, float* out, void* s
   const Args a = make_args(QUAD_COMMON_ARGS);
   cudaStream_t st = (cudaStream_t)stream;
   switch (form) {
-    case FORM_F32: return (int)launch_clean_cos_form<FORM_F32>(a, bwd_tiles, out, st);
-    case FORM_BF16: return (int)launch_clean_cos_bf16(a, bwd_tiles, out, st);
-    case FORM_INT8: return (int)launch_clean_cos_form<FORM_INT8>(a, bwd_tiles, out, st);
-    case FORM_INT8C: return (int)launch_clean_cos_form<FORM_INT8C>(a, bwd_tiles, out, st);
+    case FORM_F32: return (int)launch_clean_cos_fma<FORM_F32>(a, bwd_tiles, out, st);
+    case FORM_BF16:
+      return (int)(bwd_tiles ? launch_clean_cos_bwd_tc<FORM_BF16>(a, out, st)
+                             : launch_clean_cos_fwd_tc<FORM_BF16>(a, out, st));
+    case FORM_INT8:
+      return (int)(bwd_tiles ? launch_clean_cos_bwd_tc<FORM_INT8>(a, out, st)
+                             : launch_clean_cos_fwd_tc<FORM_INT8>(a, out, st));
+    case FORM_INT8C:
+      return (int)(bwd_tiles ? launch_clean_cos_bwd_tc<FORM_INT8C>(a, out, st)
+                             : launch_clean_cos_fma<FORM_INT8C>(a, 0, out, st));
   }
   return (int)cudaErrorInvalidValue;
 }

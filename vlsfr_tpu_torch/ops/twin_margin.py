@@ -90,6 +90,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -107,6 +108,7 @@ from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 KMAX = 16  # largest hard_neg the kernels keep a register top-k for
 TILE = 64  # columns per kernel tile; a rounding tile is a multiple of it
 FORMS = ("f32", "bf16", "int8", "int8c")
+TC_FORMS = ("bf16", "int8", "int8c")  # the forms whose backward runs on the tensor cores
 KERNELS = ("quad_fwd", "quad_bwd", "quad_partial_fwd", "quad_partial_bwd")
 TWIN_FORMS = ("f32", "bf16")
 TWIN_KERNELS = ("twin_fwd", "twin_bwd", "twin_partial_fwd", "twin_partial_bwd")
@@ -739,18 +741,19 @@ def _cuda_shape_limits(E, b):
 def _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
                  scale, mask_svfc, qscales, e8, rtile=TILE, twin=False):
     """The launch entries' leading arguments. E, G and V go to the kernel
-    as its dots read them (``_dot_operands``), and on a bf16 queue E also
-    as bf16 (the same values: the tensor cores' operand); returns the
-    tensors that must outlive the launch, and the arguments."""
+    as its dots read them (``_dot_operands``), and on a bf16 or int8-storage
+    queue E also as bf16 (the same values: the tensor cores' operand);
+    returns the tensors that must outlive the launch, and the arguments."""
     Eo, Go, Vo = _dot_operands(E, G, V, q0)
-    Eb = Eo.to(torch.bfloat16) if q0.dtype == torch.bfloat16 else None
+    form = queue_form(q0, e8)
+    Eb = Eo.to(torch.bfloat16) if form in ("bf16", "int8") else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     e8q, e8s = (None, None) if e8 is None else e8
     args = (q0.data_ptr(), q0.shape[0], E.shape[1], Eo.data_ptr(), Go.data_ptr(), Vo.data_ptr(),
             rows.data_ptr(), cols.data_ptr(), blend.data_ptr(), labels.data_ptr(),
             gt.data_ptr(), b, bp, E.shape[0], k, _LOSS_CODE[loss_type], margin, scale,
             mask_svfc, _f32(math.cos(margin)), _f32(math.sin(margin)), ptr(qscales), ptr(e8q),
-            ptr(e8s), ptr(Eb), _FORM_CODE[queue_form(q0, e8)], rtile, int(twin))
+            ptr(e8s), ptr(Eb), _FORM_CODE[form], rtile, int(twin))
     return (Eo, Go, Vo, Eb), args
 
 
@@ -783,6 +786,30 @@ def _fwd_launch(entry, n_vec, E, q0, G, V, rows, cols, blend, labels, gt, *, b, 
     return (*vecs, topk)
 
 
+class BwdGeometry(NamedTuple):
+    """The backward kernel's launch (``bwd_geometry``)."""
+
+    rows_per_block: int  # probe rows a block holds: a row group
+    blocks_per_sm: int
+    n_rg: int  # row groups
+    nchunk: int  # column chunks, each of cols_per_chunk columns (the last may hold fewer)
+    cols_per_chunk: int
+    wcoef: tuple | None  # the tensor-core forms' [R, 2, bp] d_cos towards this step's writes
+
+
+def bwd_geometry(form: str, r_: int, q: int, sms: int, bp: int) -> BwdGeometry:
+    """The backward kernel's grid over R probe rows and Q columns on a card
+    of ``sms`` SMs, bp writes per direction: the f32 kernel's 32-row
+    blocks run four an SM; the tensor-core forms' 64 rows fill an SM's
+    shared memory, one block an SM, so their grid is one wave, and they send
+    the d_cos of written columns to ``wcoef``."""
+    tc = form in TC_FORMS
+    rows_per_block, per_sm = (64, 1) if tc else (32, 4)
+    n_rg = -(-r_ // rows_per_block)
+    nchunk, per = _split_columns(q, max(per_sm * sms // n_rg, 1))
+    return BwdGeometry(rows_per_block, per_sm, n_rg, nchunk, per, (r_, 2, bp) if tc else None)
+
+
 def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b, bp,
                 loss_type, margin, scale, k, mask_svfc, rtile, qscales=None, e8=None,
                 twin=False):
@@ -790,15 +817,10 @@ def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg
     lib = _lib()
     r_ = E.shape[0]
     sms = torch.cuda.get_device_properties(E.device).multi_processor_count
-    form = queue_form(q0, e8)
-    # probe rows a block holds (a row group), blocks an SM: the bf16
-    # kernel's 64 rows fill its SM's shared memory, so its grid is one wave
-    rows_per_block, per_sm = (64, 1) if form == "bf16" else (32, 4)
-    n_rg = -(-r_ // rows_per_block)
-    nchunk, per = _split_columns(q0.shape[0], max(per_sm * sms // n_rg, 1))
+    geo = bwd_geometry(queue_form(q0, e8), r_, q0.shape[0], sms, bp)
+    nchunk, per = geo.nchunk, geo.cols_per_chunk
     part = torch.empty((nchunk, r_, E.shape[1]), device=E.device)
-    # the bf16 kernel's d_cos towards this step's written rows, [R, 2, bp]
-    wcoef = torch.zeros((r_, 2, bp), device=E.device) if form == "bf16" else None
+    wcoef = None if geo.wcoef is None else torch.zeros(geo.wcoef, device=E.device)
     d_emb = torch.empty_like(E)
     dgt = torch.empty((2, r_), device=E.device)
     stream = torch.cuda.current_stream(E.device).cuda_stream
@@ -831,8 +853,10 @@ def quad_fwd(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, margin,
     reads each q0 tile once for all 2b probe rows, keeps per-row running
     (max, sumexp) and a register top-k, and writes a per-block partial;
     a second launch merges the partials in a fixed order (deterministic).
-    The forms differ in the tile loader and the dot (f32 FMA over
-    bf16-rounded operands, exact in f32; int8 ``__dp4a`` into int32).
+    The forms differ in the dot: f32 FMA (f32); the tensor cores' k16
+    chain over bf16 operands, the backward's recompute's chain (bf16, and
+    int8 storage with its tile widened to bf16 and scaled after the dot);
+    ``__dp4a`` into int32 (int8 compute).
     """
     _check_queue(q, E.shape[1])
     form = _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type,
@@ -858,12 +882,19 @@ def quad_bwd(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
     Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_quad_bwd``. Bound on an
     H100 at the slice shapes (f32): 2 × 2.75e11 FLOP (cosine recompute +
     the d_cos @ q0 product) ≈ 8.2 ms at the 67 TFLOP/s f32 rate; q0's
-    2.15 GB read once is 0.64 ms. Design: each block owns 32 probe rows ×
-    one column range, so its d_emb partial [32, D] lives in registers; the
-    row groups of one column range are adjacent in launch order and share
-    the q0 tile through L2. A second launch sums the partials in a fixed
-    order — no float atomics, bit-stable run to run. The recompute runs the
-    forward's operation chain, so the top-k tie test sees the same bits.
+    2.15 GB read once is 0.64 ms; the int8 forms at Q = 10,485,760 are
+    operations-bound on the tensor cores (int8 storage 5.6 ms, int8
+    compute 4.2). Design: each block owns a row group × one column range
+    (``bwd_geometry``): the f32 kernel 32 rows, its d_emb partial [32, D]
+    in registers, four blocks an SM; the bf16 and int8 forms 64 rows, one
+    block an SM, both products on the tensor cores (``mma.sync``: the
+    recompute in bf16, or s8 for int8 compute; d_cos rounded to bf16 times
+    the tile as bf16), the d_cos of written columns into ``wcoef`` for the
+    merge. The row groups of one column range are adjacent in launch order
+    and share the q0 tile through L2. A second launch sums the partials in
+    a fixed order — no float atomics, bit-stable run to run. The recompute
+    runs the forward's operation chain, so the top-k tie test sees the
+    same bits.
     """
     _check_queue(q, E.shape[1])
     form = _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type,

@@ -53,10 +53,13 @@ DEMB_TIGHT = 1e-5 × max from the plain version, and no row further than
 ROUNDED_DEMB_RTOL = 2^-7 × max (one bf16 ulp of two such terms). A kernel
 that skips a rounding moves most rows by ~2^-9 of their terms and fails
 the first part. On an H100 over chip_smoke.py's phase-21 and phase-23
-cases (256 rows) the kernels put at most 3 rows beyond 1e-5 × max; copies
-that skip the clean tiles' or the bf16 written tiles' rounding put tens
-to hundreds there (``tests/test_torch_kernels.py::
-test_form_checks_reject_planted_faults`` plants both).
+cases (256 rows) the kernels put at most 3 rows beyond 1e-5 × max (the
+int8 forms' tensor-core cosines, against the plain version's f32
+product, 0-1); copies that skip the clean tiles' or the bf16 written
+tiles' rounding, round an int8 tile's d_cos before its column scale or
+leave the scale out put tens to hundreds there
+(``tests/test_torch_kernels.py::test_form_checks_reject_planted_faults``
+plants each).
 
 The softmax head's bf16 classifier (``margin_stream``'s bf16 forms: the
 kernels and the plain versions round the same operands, bf16(emb) and
@@ -144,11 +147,14 @@ kernels' own clean cosines (``ops/twin_margin.clean_cos``, the tile code
 the forward and the backward's recompute run) with unit scales are f32 of
 the raw int32 accumulator and equal the integer product bit for bit; with
 the real scales they equal the plain version's f32(acc) · (se · s) bit for
-bit. The bf16 form's clean cosines (``bf16_cos_checks``) come from the
-tensor cores in both tilings: equal to each other bit for bit (the
-backward's top-k test compares them with the forward's kth), and within
-BF16_COS_ATOL of the plain version's; so do the bf16 classifier's in the
-margin_ce kernels' four tilings (``margin_cos_checks``).
+bit (the forward's ``__dp4a`` sum and the backward's s8 tensor-core sum
+are the same integer). The bf16 form's clean cosines (``bf16_cos_checks``)
+and the int8-storage form's (``int8_cos_checks``: bf16(E) against the rows
+widened to bf16, then the column scale) come from the tensor cores in both
+tilings: equal to each other bit for bit (the backward's top-k test
+compares them with the forward's kth), and within BF16_COS_ATOL of the
+plain version's; so do the bf16 classifier's in the margin_ce kernels'
+four tilings (``margin_cos_checks``).
 
 Used by ``chip_smoke.py`` and the tests in ``tests/test_torch_kernels.py``.
 """
@@ -591,19 +597,34 @@ def int8_dot_checks(E8, se, w8, qs, tag: str = "") -> list[dict]:
 BF16_COS_ATOL = 1e-6  # exact bf16 products, |cos| <= 1, summed in f32 in another order
 
 
+def _tiling_cos_checks(form: str, E, q0, qs, tag: str) -> list[dict]:
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    fwd = ttm.clean_cos(E, q0, qscales=qs)
+    bwd = ttm.clean_cos(E, q0, qscales=qs, bwd_tiles=True)
+    plain = ttm._clean_cos(ttm._bf16(E), q0, qs, None)
+    return [{"name": f"{tag}{form} clean cos elements differing (backward vs forward tiles)",
+             "count": True, "err": float((fwd != bwd).sum()), "limit": 0.0},
+            _err(f"{tag}{form} clean cos (kernel, forward tiles)", fwd, plain, BF16_COS_ATOL)]
+
+
 def bf16_cos_checks(E, q0, tag: str = "") -> list[dict]:
     """The bf16 form's clean cosines of probes ``E`` [R <= 256, D] against a
     bf16 plane ``q0`` (``clean_cos``): the backward's tiling against the
     forward's, bit for bit (a count of elements that differ, limit 0), and
     the forward's within BF16_COS_ATOL of the plain version."""
-    from vlsfr_tpu_torch.ops import twin_margin as ttm
+    return _tiling_cos_checks("bf16", E, q0, None, tag)
 
-    fwd = ttm.clean_cos(E, q0)
-    bwd = ttm.clean_cos(E, q0, bwd_tiles=True)
-    plain = ttm._clean_cos(ttm._bf16(E), q0, None, None)
-    return [{"name": f"{tag}bf16 clean cos elements differing (backward vs forward tiles)",
-             "count": True, "err": float((fwd != bwd).sum()), "limit": 0.0},
-            _err(f"{tag}bf16 clean cos (kernel, forward tiles)", fwd, plain, BF16_COS_ATOL)]
+
+def int8_cos_checks(E, q0, qs, tag: str = "") -> list[dict]:
+    """The int8-storage form's clean cosines of probes ``E`` [R <= 256, D]
+    against an int8 plane ``q0`` with scales ``qs`` (``clean_cos``: the k16
+    chain over bf16(E) and the rows widened to bf16, times the column
+    scale, in both tilings): as ``bf16_cos_checks``, the backward's tiling
+    against the forward's bit for bit and the forward's within
+    BF16_COS_ATOL of the plain version (exact products in another order,
+    |cos| <= 1 after the scale)."""
+    return _tiling_cos_checks("int8", E, q0, qs, tag)
 
 
 def margin_cos_checks(emb, w, tag: str = "") -> list[dict]:
