@@ -37,13 +37,18 @@ Softmax slice (the full-softmax head, ir50, 2^20 classes, f32 classifier):
    full width (B = 128, D = 512, C = 2^20, k = 1, Arc, scale 32, margin
    0.5, a repeated label, a random momentum, lr 0.1, μ 0.9 Nesterov, wd
    1e-4; the plain fused version gets clones of W and mom taken before the
-   kernel), then AM, SV and k = 3 with outlier rows at C = 4096. d_w, w'
-   and mom' are held per row set: the batch's label rows, whose target
-   gradient plain torch adds on both sides, and the other rows, which the
-   kernel computes alone (``vlsfr_tpu_torch/utils/parity.py``); each limit
-   is printed with its reason;
+   kernel), then AM, SV and k = 3 with outlier rows at C = 4096; first the
+   f32 cosines as the forward and the backward form them, bit for bit
+   (``parity.margin_cos_checks``). d_w, w' and mom' are held per row set:
+   the batch's label rows, whose target gradient plain torch adds on both
+   sides, and the other rows, which the kernel computes alone
+   (``vlsfr_tpu_torch/utils/parity.py``); each limit is printed with its
+   reason;
 8. timing — as phase 4, with ``torch.matmul`` / ``logsumexp`` / ``topk`` /
-   elementwise SGD compositions as yardsticks;
+   elementwise SGD compositions as yardsticks (the backward's: the cosine
+   recompute ``emb @ F.normalize(w).T`` and both products, as the kernel
+   does); margin_ce_bwd also with grad_w=False, in turns, and d_w's share
+   as the difference;
 9. training — ``Trainer`` with ``pool.head=full_softmax`` on route B
    (``fused_update=off``) and then route A (the default): from one seed and
    one batch, A's first step must agree with B's (loss, and the classifier
@@ -114,7 +119,8 @@ Class-sharded softmax head (routes A, B and D over a class-sharded classifier,
    then AM and SV (and Arc at k = 3 with outlier rows) at C = 4096 in 4
    blocks;
 19. timing — both partial kernels over a 2^20 block and a 1,250,000 block:
-   kernel, plain version, a cuBLAS composition as a yardstick, bound;
+   kernel, plain version, a cuBLAS composition as a yardstick (the
+   backward's with the cosine recompute), bound;
 20. training — ``make_softmax_train_step(cfg, schedule, mesh=<NCCL group of
    one>)`` on the softmax slice (ir50, 2^20 f32 classes) for routes A, B and
    D: each first step against the single-device route's first step from the
@@ -209,11 +215,11 @@ classes, bf16 momentum, fused SGD; the JAX bench suite's row):
    <d_w_hat, w_hat> against the rounded w_hat, w' rounded twice), each of
    which margin_ce_bwd's or the fused update's checks must reject;
 30. timing — each bf16 form at full width: kernel, plain version, a PyTorch
-   composition on the tensor cores (bf16 matmuls with f32 accumulation,
-   logsumexp, topk, the SGD chain) and the bound (bytes at 3.35 TB/s
-   against the dots at 989 TFLOP/s; the f32 classifier beside a bf16
-   momentum at the f32 rate); margin_partial_bwd also over a 1,250,000-
-   column block;
+   composition on the tensor cores (bf16 matmuls with f32 accumulation, the
+   backward's with the cosine recompute, logsumexp, topk, the SGD chain)
+   and the bound (bytes at 3.35 TB/s against the dots at 989 TFLOP/s; the
+   f32 classifier beside a bf16 momentum at the f32 rate);
+   margin_partial_bwd also over a 1,250,000-column block;
 31. training — softmax_1m_bf16 through ``Trainer``: its first step against
    the plain composition of the same step on the same recorded inputs (the
    loss 1e-5 relative, the step's forward by ``parity.rounded_fwd_checks``,
@@ -729,11 +735,12 @@ def softmax_timing(emb, w, mom, labels, d_ce, d_neg, kw, gt, logz, topk):
         torch.topk(cos, k, dim=1)
 
     out["margin_ce_fwd"]["library_ms"] = cuda_ms(library_fwd, 5, 1)
-    wn = F.normalize(w, dim=1)
     d_cos = torch.randn((b, c), device=emb.device).mul_(1e-4)
     w_s, mom_s = w.clone(), mom.clone()
 
-    def library_bwd():
+    def library_bwd():  # the kernel's work: the cosine recompute, then both products
+        wn = F.normalize(w, dim=1)
+        torch.matmul(emb, wn.T)
         torch.matmul(d_cos, wn)
         return torch.matmul(d_cos.T, emb)
 
@@ -744,7 +751,14 @@ def softmax_timing(emb, w, mom, labels, d_ce, d_neg, kw, gt, logz, topk):
 
     out["margin_ce_bwd"]["library_ms"] = cuda_ms(library_bwd, 5, 1)
     out["margin_ce_bwd_fused_sgd"]["library_ms"] = cuda_ms(library_fused, 5, 1)
-    del wn, d_cos, w_s, mom_s
+    del d_cos, w_s, mom_s
+    # d_emb alone (grad_w=False: the cosines and d_emb += (d_cos inv) W) and
+    # the whole backward, in turns; d_w's share (d_w_hat and the epilogue)
+    # is the difference
+    t = [cuda_ms(lambda: tms.margin_ce_bwd(*bwd_args, grad_w=gw, **kw), 5)
+         for gw in (False, True, True, False)]
+    print(f"  margin_ce_bwd with grad_w=False / with d_w, in turns: {t[0]:.3f} / {t[1]:.3f} / "
+          f"{t[2]:.3f} / {t[3]:.3f} ms; d_w's share {(t[1] + t[2] - t[0] - t[3]) / 2:.3f} ms")
     product = 2.0 * b * d * c
     vecs = 4 * (b * d + 4 * b)  # emb + labels, gt, logz/d_ce, d_neg
     out["margin_ce_fwd"].update(bound(product, 4 * c * d + vecs + 4 * b * (3 + k)))
@@ -1370,16 +1384,17 @@ def margin_partial_timing(case) -> dict:
             torch.logsumexp(kw["scale"] * cos, dim=1)
             torch.topk(cos, k, dim=1)
 
-        wn = F.normalize(blk, dim=1)
         d_cos = torch.randn((b, cols), device=emb.device).mul_(1e-4)
 
-        def library_bwd():
+        def library_bwd():  # the kernel's work: the cosine recompute, then both products
+            wn = F.normalize(blk, dim=1)
+            torch.matmul(emb, wn.T)
             torch.matmul(d_cos, wn)
             torch.matmul(d_cos.T, emb)
 
         fwd["library_ms"] = cuda_ms(library_fwd, 5, 1)
         bwd["library_ms"] = cuda_ms(library_bwd, 5, 1)
-        del wn, d_cos
+        del d_cos
         product = 2.0 * b * d * cols
         vecs = 4 * (b * d + 2 * b)  # emb; labels, gt
         fwd.update(bound(product, 4 * cols * d + vecs + 4 * b * (2 + k)))
@@ -2565,9 +2580,10 @@ def bf16_timing_phase(sparse_case) -> dict:
         torch.topk(cos, k, dim=1)
 
     d_cos = torch.randn((b, c), device=emb.device).mul_(1e-4).bfloat16()
-    wn = F.normalize(w.float(), dim=1).bfloat16()
 
-    def lib_bwd():
+    def lib_bwd():  # the kernel's work: the cosine recompute, then both products
+        wn = F.normalize(w.float(), dim=1).bfloat16()
+        (eb @ wn.T).float()
         torch.matmul(d_cos, wn).float()
         return torch.matmul(d_cos.T, eb).float()
 
@@ -2645,7 +2661,7 @@ def bf16_timing_phase(sparse_case) -> dict:
         library_ms=cuda_ms(lib_bwd, 5, 1),
         **bound(3 * product, 6 * c * d + 12 * b * d + 4 * 7 * b,
                 3 * product / PEAK_BF16_FLOPS * 1e3))
-    del d_cos, wn
+    del d_cos
     print_times(out)
     # margin_partial_bwd over a 4-card block of the shipped 5,000,000 classes
     # (1,250,000 columns: not a multiple of 64); not on the kernels line
@@ -2656,10 +2672,11 @@ def bf16_timing_phase(sparse_case) -> dict:
     _, d_wl_b = tms._target_rows(emb, w_b, ll_b, gt_b, logz, d_ce_m, loss_type=kw["loss_type"],
                                  margin=kw["margin"], scale=kw["scale"])
     bargs_b = (emb, w_b, ll_b, gt_b, logz, kth, d_ce_m, d_neg_m, d_wl_b)
-    wn_b = F.normalize(w_b.float(), dim=1).bfloat16()
     d_cos_b = torch.randn((b, cb), device=emb.device).mul_(1e-4).bfloat16()
 
     def lib_bwd_b():
+        wn_b = F.normalize(w_b.float(), dim=1).bfloat16()
+        (eb @ wn_b.T).float()
         torch.matmul(d_cos_b, wn_b).float()
         return torch.matmul(d_cos_b.T, eb).float()
 
@@ -3214,6 +3231,9 @@ def main() -> int:
     for line in SOFTMAX_LIMITS:
         print(f"  {line}")
     full = softmax_case(SOFTMAX["c"], "Arc", 1, 0.0, seed=2)
+    print("  the f32 cosines as the forward and the backward form them:")
+    from vlsfr_tpu_torch.utils.parity import margin_cos_checks
+    report(margin_cos_checks(full[0], full[1]), "the f32 cosines of the tilings")
     gt, logz, topk, serrs = check_softmax(*full, verbose=True)
     for loss_type, k, frac in (("AM", 1, 0.0), ("SV", 1, 0.0), ("Arc", 3, 0.3)):
         check_softmax(*softmax_case(4096, loss_type, k, frac, seed=3), verbose=True)

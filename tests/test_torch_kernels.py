@@ -383,7 +383,8 @@ def test_row_set_checks_catch_a_fault_on_the_other_rows():
 
 
 SOFTMAX_CASES = [("Arc", 128, 5000, 512, 1, 0.0), ("AM", 64, 3001, 128, 3, 0.3),
-                 ("SV", 8, 700, 64, 3, 0.3), ("Arc", 128, 40000, 512, 16, 0.2)]
+                 ("SV", 8, 700, 64, 3, 0.3), ("Arc", 128, 40000, 512, 16, 0.2),
+                 ("Arc", 100, 3002, 192, 3, 0.3), ("SV", 37, 777, 320, 16, 0.5)]
 
 
 SGD = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
@@ -476,11 +477,15 @@ def _build_faulty(tmp_path, faults, source="margin_ce"):
     return libs
 
 
-# source edits that break the d_w pass: each must fail the checks above
+# source edits that break the f32 pass (margin_bwd_f32_kernel): each must
+# fail the checks above
 PLANTED_FAULTS = {
-    "no_weight_decay": ("if (sgd.wd != 0.f) g = g + sgd.wd * wv;", ""),
-    "d_w_x1.1": ("float g = iv * (acc3[i][j] - wv * iv * sd);",
-                 "float g = 1.1f * iv * (acc3[i][j] - wv * iv * sd);"),
+    "no_weight_decay": ("if (sgd.wd != 0.f) g[e] += sgd.wd * wv[e];", ""),
+    "d_w_x1.1": ("g[e] = acc3[i][4 * h + e] - wv[e] * iv * (iv * sd);",
+                 "g[e] = 1.1f * (acc3[i][4 * h + e] - wv[e] * iv * (iv * sd));"),
+    # the d_emb partial of a tile read as 0: every tile but the last dropped
+    "d_emb_partial_not_read": ("const float4 v = first || r >= a.B || f >= D",
+                               "const float4 v = true || r >= a.B || f >= D"),
 }
 
 
@@ -490,9 +495,10 @@ def test_softmax_checks_reject_planted_faults(tmp_path, monkeypatch):
     a 0.01·N(0, 1) classifier and momentum, a repeated label), the checks
     pass the real kernels and fail a margin_ce.cu built without weight decay
     and one whose d_w is 1.1× too large, on the rows the kernel computes
-    alone. Prints each reading, and for d_w and mom' the error and limit of
-    an all-rows check (1e-4 × max|d_w|, 1e-4 × max|mom'| over every row)
-    for comparison."""
+    alone, and one that drops the block's d_emb partial of every tile but
+    its last (every d_emb check). Prints each reading, and for d_w and mom' the error and
+    limit of an all-rows check (1e-4 × max|d_w|, 1e-4 × max|mom'| over
+    every row) for comparison."""
     from vlsfr_tpu_torch.ops import cuda_build
 
     dev = _cuda()
@@ -532,6 +538,8 @@ def test_softmax_checks_reject_planted_faults(tmp_path, monkeypatch):
     assert failed["real"] == set()
     assert {"w' (other rows)", "mom' (other rows)"} <= failed["no_weight_decay"]
     assert {"d_w (other rows)", "w' (other rows)", "mom' (other rows)"} <= failed["d_w_x1.1"]
+    assert {"d_emb (grad_w=False)", "d_emb (grad_w=True)", "fused d_emb"} <= failed[
+        "d_emb_partial_not_read"]
 
 
 # source edits of the bf16 form's tensor-core staging and d_w epilogue
@@ -651,6 +659,24 @@ def test_bf16_margin_cosines_match_between_tilings(b, c, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,c,d", [(128, 5000, 512), (40, 777, 128), (100, 4096, 64),
+                                   (100, 3002, 192)])
+def test_f32_margin_cosines_match_between_tilings(b, c, d):
+    """The f32 classifier's cosines as the forward (tile_gemm) and the
+    backward's one pass (ftile_dots; every f32 backward form runs it) form
+    them (``clean_cos``): equal bit for bit, and within 1e-5 of the plain
+    version (``parity.margin_cos_checks``)."""
+    dev = _cuda()
+    emb, w, *_ = make_softmax_case(4, b, c, d, 1, 0.0, dev)
+    checks = parity.margin_cos_checks(emb, w)
+    torch.cuda.synchronize()
+    for ch in checks:
+        print(parity.describe(ch))
+    assert len(checks) == 2
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+
+
+@pytest.mark.gpu
 def test_margin_softmax_autograd_on_card_matches_cpu():
     dev = _cuda()
     emb, w, _, labels, _, _ = make_softmax_case(5, 32, 3000, 128, 3, 0.3, dev)
@@ -695,7 +721,8 @@ def test_sparse_row_set_checks_catch_a_fault_on_the_other_rows():
 
 
 SPARSE_CASES = [("Arc", 128, 1 << 20, 512, 1, 0.0, 512), ("AM", 64, 3001, 128, 3, 0.3, 128),
-                ("SV", 8, 700, 64, 3, 0.3, 64), ("Arc", 128, 40000, 512, 16, 0.2, 512)]
+                ("SV", 8, 700, 64, 3, 0.3, 64), ("Arc", 128, 40000, 512, 16, 0.2, 512),
+                ("Arc", 100, 4000, 192, 3, 0.3, 192)]
 
 
 def _stats_and_sparse_checks(emb, w, labels, d_ce, d_neg, kw, tile, seed=0):
@@ -726,8 +753,8 @@ def test_stats_and_sparse_kernels_match_plain(loss_type, b, c, d, k, frac_outlie
 
 # source edits that break the sparse backward: each must fail the checks above
 SPARSE_FAULTS = {
-    "no_dwl_add": ("if (tgt[b] == t) g += dwl[(long long)b * a.D + d];",
-                   "if (tgt[b] == t) g += 0.f;"),
+    "no_dwl_add": ("for (int e = 0; e < 4; ++e) g[e] += dwl[(long long)b * D + f + e];",
+                   "for (int e = 0; e < 4; ++e) g[e] += 0.f;"),
     "tile_off_by_one": (
         "return a.sel == nullptr ? l : (long long)a.sel[l / a.sel_tile] * a.sel_tile + l % "
         "a.sel_tile;",
@@ -797,7 +824,7 @@ def test_emulated_class_shards_match_the_whole_classifier_cpu(loss_type, k, frac
 
 CLASS_SHARD_CASES = [("Arc", 128, 40000, 512, 1, 0.0, 4), ("Arc", 128, 40000, 512, 16, 0.2, 1),
                      ("AM", 64, 3000, 128, 3, 0.3, 4), ("SV", 8, 700, 64, 3, 0.3, 4),
-                     ("Arc", 128, 1_000_000, 512, 1, 0.0, 4)]
+                     ("Arc", 128, 1_000_000, 512, 1, 0.0, 4), ("Arc", 100, 5002, 192, 3, 0.3, 2)]
 
 
 @pytest.mark.gpu
@@ -1475,6 +1502,21 @@ def test_conv_and_probe_checks_reject_wrong_outputs():
     assert parity.failures(parity.probe_checks("bf16", tprobe.probe_dot_plain(
         "bf16", a, wb[:-1]), o, a, wb))
     assert parity.failures(parity.probe_checks("bf16", o, o, a, wb)) == []
+
+
+def test_margin_bwd_variants_edit_the_kernel_source():
+    """The f32 margin_ce backward's timing tool (``tools/margin_bwd_variants.py``)
+    builds copies of ``csrc/margin_ce.cu`` and ``margin_common.cuh`` with one
+    phase left out or another staging depth: each of its edits matches its
+    file exactly once, so that every copy it times differs from the kernel
+    where its name says."""
+    from vlsfr_tpu_torch.ops import cuda_build
+    from vlsfr_tpu_torch.tools.margin_bwd_variants import VARIANTS, edited_sources
+
+    for name, (_, edits) in VARIANTS.items():
+        for fname, old, new in edits:
+            assert (cuda_build.CSRC / fname).read_text().count(old) == 1 and old != new, name
+        assert edited_sources(edits) != edited_sources([]), name
 
 
 def test_quad_bwd_variants_edit_the_kernel_source():

@@ -88,9 +88,27 @@
 //    bits: the forward and the fused / sparse d_w pass stage W 64 features
 //    at a time (chunk_cos), the bf16 d_emb and d_w passes whole tiles, and
 //    margin_ce_clean_cos_launch writes each tiling's cosines for a check.
-//  * Backward, f32 d_emb pass: a block owns 32 rows x a column range, so
-//    its d_emb partial [32, D] lives in registers (64 per thread at D =
-//    512). Per 64-column tile: cos [32, 64] -> d_cos -> d_cos @ w_hat.
+//  * Backward, f32 (margin_bwd_f32_kernel; every f32 form: margin_ce_bwd,
+//    margin_partial_bwd, fused, sparse): IEEE f32 FMA on the CUDA cores,
+//    register-blocked (margin_common.cuh: ftile_dots, 16-byte cp.async
+//    staging into padded rows, float4 shared loads, a micro-tile a thread).
+//    One pass of three products: a block (16 warps, one an SM) owns whole
+//    64-column tiles with every batch row; per tile it stages W's chunks
+//    into a whole tile [64][D + 4] that stays while emb's chunks stream
+//    from L2 through two stages, and forms the raw dots [128, 64] (4 x 4 a
+//    thread) and ||w||^2: each cosine is tile_gemm's in-order fmaf chain,
+//    the forward's bits (margin_ce_clean_cos_launch writes both tilings'
+//    for a check). d_cos * inv goes to shared memory, transposed, with
+//    <d_w_hat, w_hat> = sum_b d_cos cos from the tile; inv * d_w_hat [64,
+//    D] = (d_cos * inv)^T . emb (8 x 8 a thread, emb streamed 15 rows a
+//    stage), and the epilogue below takes the stored rows from the tile
+//    (the fused update reads them before it writes them). Then the block's
+//    d_emb partial [B, D], which lives in global memory (L2: 256 KB a block
+//    at B = 128, D = 512), takes (d_cos * inv) . W from the same tile, 8 x 8
+//    a thread, 256 features at a time; margin_bwd_demb_merge_kernel sums
+//    the blocks' partials in block order. W is read once (2.15 GB at C = 2^20) and
+//    d_w written once: the three products' 6.15 ms bound, no recompute.
+//    grad_w=False runs the cosines and the d_emb product alone.
 //  * Backward, bf16 d_emb pass (margin_bwd_demb_bf16_kernel, every bf16
 //    form): a block owns 64 rows x a column range, its emb rows resident
 //    and two W tiles [64, D] in flight (cp.async, zero-filled past the
@@ -104,20 +122,21 @@
 //    512): with one block an SM (its shared memory), 8 warps left each
 //    phase between two barriers waiting on its own latencies (H100: every
 //    phase removed in turn took 0.5-1.7 ms off a 7.2 ms d_w pass).
-//  * Backward, d_w pass (f32 W, and the fused and sparse bf16 forms): a
-//    block owns whole 64-column tiles with every batch row: it recomputes
-//    cos [B, 64] and d_cos, then d_w_hat[t] = sum_b d_cos[b, t] emb[b] in
-//    64-feature chunks, and the normalisation backprop d_w = inv * (d_w_hat
-//    - w_hat <d_w_hat, w_hat>), where <d_w_hat, w_hat> = sum_b d_cos[b, t]
-//    cos[b, t] is summed from the tile (bf16 W: against the dots of emb with
-//    the unrounded w_hat, a second product). Each d_w row has one owner
-//    block, so no reduction is needed. The owner adds the label rows' d_wl
-//    (every batch row whose label is the column, in batch order: a sum, no
-//    scatter). Fused: then g = d_w + wd*w, mom' = mu*mom + g,
-//    upd = g + mu*mom' (Nesterov) | mom' | g (mu = 0), w' = w - lr*upd,
-//    written in place over the rows it has just read. The d_emb pass runs
-//    first in stream order and reads W before any of it is written. Every
-//    row decays every step: no relevance gate skips a tile.
+//  * Backward, d_w epilogue (the f32 pass, and margin_bwd_dw_kernel, the
+//    fused and sparse bf16 forms' d_w pass: a block owns whole 64-column
+//    tiles with every batch row, its cosines on the tensor cores, d_w_hat
+//    in 64-feature chunks on tile_gemm's FMA map): the normalisation
+//    backprop d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>), where
+//    <d_w_hat, w_hat> = sum_b d_cos[b, t] cos[b, t] is summed from the tile
+//    (bf16 W: against the dots of emb with the unrounded w_hat, a second
+//    product). Each d_w row has one owner block, so no reduction is needed.
+//    The owner adds the label rows' d_wl (every batch row whose label is the
+//    column, in batch order: a sum, no scatter). Fused: then g = d_w + wd*w,
+//    mom' = mu*mom + g, upd = g + mu*mom' (Nesterov) | mom' | g (mu = 0),
+//    w' = w - lr*upd, written in place over the rows it has just read. The
+//    bf16 d_emb pass runs first in stream order and reads W before any of it
+//    is written; the f32 pass takes d_emb from the tile's copy. Every row
+//    decays every step: no relevance gate skips a tile.
 //  * Backward, bf16 d_w pass of margin_ce_bwd / margin_partial_bwd
 //    (margin_bwd_dw_bf16_kernel): a block owns whole 64-column tiles with
 //    every batch row; emb [128, D] bf16 stays resident (128 KB at D = 512)
@@ -134,8 +153,8 @@
 //    f32. It runs before the d_emb pass (no update is in place here). d_emb
 //    and d_w stay two passes: the [B, D] d_emb partial of a column-owning
 //    block (256 KB f32 at B = 128, D = 512) fits neither its registers nor
-//    its shared memory beside the tile.
-//  * Sparse backward: both passes walk M * tile logical columns instead of
+//    its shared memory beside the tile (the f32 pass keeps it in L2).
+//  * Sparse backward: the passes walk M * tile logical columns instead of
 //    C. Each 64-column tile maps through tile_idx [M] (device memory, read
 //    by every block: the counterpart of scalar prefetch) onto the class
 //    rows it stands for; tile is a multiple of 64, so no 64-column tile
@@ -144,14 +163,15 @@
 //    column also writes d_gt[b], that column's dz, for the caller's target
 //    term. Bound at B = 128, D = 512, M * tile = 65,536: three products
 //    2.58e10 FLOP >= 0.385 ms against 0.27 GB (W tiles read, d_w rows
-//    written, 0.080 ms): compute-bound; the recompute adds a fourth.
+//    written, 0.080 ms): compute-bound; the bf16 form's recompute adds a
+//    fourth.
 //  * One block of a class-sharded classifier (labels block-local: -1 an
 //    outlier, -2 a positive row whose target another block owns, >= 0 an
 //    owned target; gt, and backward logz / kth, global). The forward is the
 //    forward's block pass; its merge folds the partials in the same fixed
 //    order, then folds the owned target term scale * phi(gt) into (M, S),
 //    and writes the raw (M, S, top-k) for the merge across ranks instead of
-//    finalizing. The backward is the two backward passes as they are; the
+//    finalizing. The backward is the backward's passes as they are; the
 //    caller masks d_ce / d_neg with the GLOBAL positive rows (a -2 row's
 //    outlier test then adds d_neg = 0), and the owner's label-row gradient
 //    d_wl is added by the owner block. Bound
@@ -574,103 +594,306 @@ __global__ void margin_fwd_stats_kernel(int B, long long n64, int per_tile, long
   maxcos[idx] = cm;
 }
 
-// ------------------------------------------------------ backward: d_emb pass
+// ------------------------------------------------------- backward: f32 pass
 
-constexpr int B_RB = 32, B_TC = 64, B_DK = 16, B_THREADS = 256, B_JMAX = 8;  // D <= 64 * 8
-constexpr int B_ALD = B_RB + 4, B_BLD = B_TC + 4, B_CLD = B_TC + 1;
-constexpr size_t B_SMEM = sizeof(float) * (B_DK * B_ALD + B_DK * B_BLD + B_RB * B_CLD + B_TC);
+// four consecutive momentum values as f32, and stored back each rounded
+// once to the storage type
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
 
-// the f32 form (bf16 W: margin_bwd_demb_bf16_kernel)
-__global__ void __launch_bounds__(B_THREADS)
-    margin_bwd_demb_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg, float* part) {
-  const float* W = wrows<float>(a);
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                // emb row-group chunk, k-major [B_DK][B_ALD]
-  float* Bs = As + B_DK * B_ALD;   // W chunk, k-major [B_DK][B_BLD]
-  float* Dq = Bs + B_DK * B_BLD;   // d_cos * inv [B_RB][B_CLD]
-  float* inv = Dq + B_RB * B_CLD;  // [B_TC]
+// The f32 backward (margin_bwd_f32_kernel, module header): one pass, a block
+// owns whole 64-column tiles with every batch row, 16 warps, one block an SM
+constexpr int FB_ROWS = 128, FB_TC = 64, FB_THREADS = 512;
+constexpr int FB_NST = 2, FB_FK = 32;  // the cosines' emb stages, features a chunk
+constexpr int FB_EK = 15, FB_ENST = 2;  // d_w_hat: emb rows a stage, stages
+constexpr int FB_QLD = FB_ROWS + 4;    // (d_cos * inv)^T's row stride: one row a tile column
+constexpr int FB_DEMB = 0, FB_DW = 1, FB_SGD = 2;  // what the pass writes besides d_emb
 
-  const int tid = threadIdx.x;
-  const int rg = blockIdx.x % n_rg, chunk = blockIdx.x / n_rg;
-  const int r_base = rg * B_RB;
-  const long long c_begin = (long long)chunk * cols_per_chunk;
-  const long long c_end = min(a.ncols, c_begin + cols_per_chunk);
-  const int nj = a.D / 64;
+// the stages at feature width D: the cosines' emb stages, then d_w_hat's,
+// then the row groups' partials of <d_w_hat, w_hat> [32][FB_TC]
+constexpr int FB_XSTG = ftile_stage_floats<FB_ROWS, FB_NST, FB_FK>();
+__host__ __device__ constexpr int fb_stg_floats(int D) {
+  return FB_XSTG > FB_ENST * FB_EK * (D + 4) ? FB_XSTG : FB_ENST * FB_EK * (D + 4);
+}
+static_assert(32 * FB_TC <= FB_XSTG, "the row groups' partials reuse the stages");
+// shared memory of the f32 pass at feature width D: the W tile [FB_TC][D +
+// 4], the stages, (d_cos * inv)^T, 1 / ||w|| and <d_w_hat, w_hat> of the
+// tile's columns, the rows' inputs and targets
+__host__ __device__ constexpr int fb_smem(int D) {
+  return 4 * (FB_TC * (D + 4) + fb_stg_floats(D) + FB_TC * FB_QLD + 2 * FB_TC) +
+         FB_ROWS * (int)(sizeof(RowIn) + sizeof(int));
+}
+static_assert(fb_smem(512) <= 232448, "the f32 pass fits a block's shared memory at D = 512");
 
-  // cos / d_cos map: rows ty + 16i (i < 2), cols tx + 16j (j < 4)
-  const int tx = tid & 15, ty = tid >> 4;
-  int lab[2];
-  bool ok[2];
-  float gtv[2], lzv[2], kthv[2], dcev[2], dnegv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int gr = r_base + ty + 16 * i;
-    ok[i] = gr < a.B;
-    const int rr = ok[i] ? gr : 0;
-    lab[i] = a.labels[rr];
-    gtv[i] = a.gt[rr];
-    lzv[i] = br.logz[rr];
-    kthv[i] = br.kth[rr];
-    dcev[i] = br.dce[rr];
-    dnegv[i] = br.dneg[rr];
-  }
-  // d_emb map: rows ry*8 + i (i < 8), features dx + 64j (j < nj)
-  const int ry = tid >> 6, dx = tid & 63;
-  float acc2[8][B_JMAX];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < B_JMAX; ++j) acc2[i][j] = 0.f;
+// the cosine map: warp w holds row groups 4 (w % 8) .. + 3 and column groups
+// 8 (w / 8) .. + 7, so the eight threads of a quarter warp read one emb row
+// (a broadcast) and eight consecutive W rows; row group g: rows g + 32 i (i
+// < 4), column group g: columns g + 16 j (j < 4)
+__device__ __forceinline__ void fb_cos_map(int& gr, int& gc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  gr = 4 * (warp & 7) + (lane >> 3);
+  gc = 8 * (warp >> 3) + (lane & 7);
+}
 
-  for (long long t0 = c_begin; t0 < c_end; t0 += B_TC) {
+// the raw dots of the f32 pass, emb rows gr + 32 i with the tile's columns gc
+// + 16 j, class rows p0 .. p0 + n - 1 staged into Wt [FB_TC][D + 4], and of
+// thread t < FB_TC ||w||^2 of column t
+__device__ __forceinline__ void fb_dots(float (&acc)[4][4], float& n2, float* stg, float* Wt,
+                                        const Args& a, long long p0, int n, int gr, int gc) {
+  ftile_dots<FB_ROWS, FB_TC, FB_THREADS, FB_NST, FB_FK, 4, 4, 32, 16>(
+      acc, n2, stg, Wt, a.emb, 0, a.B, wrows<float>(a), p0, n, a.D, gr, gc);
+}
+
+// part [gridDim.x][B][D]: each block's d_emb partial over its columns.
+// MODE FB_DW: d_w to dw (row by logical column), each column's owner adding
+// d_wl [B][D] (the label rows' gradient) for every batch row labelled with
+// it, in batch order; dgt: nullptr, or [B] zeros where the owner of a row's
+// target column writes that column's dz. FB_SGD: the SGD update applied to
+// sgd.w and sgd.mom (type TM) in place instead. FB_DEMB: d_emb alone.
+template <class TM, int MODE>
+__global__ void __launch_bounds__(FB_THREADS, 1)
+    margin_bwd_f32_kernel(Args a, BwdRows br, long long cols_per_blk, const float* dwl,
+                          float* dw, Sgd sgd, float* dgt, float* part) {
+  extern __shared__ __align__(16) float fb_sm[];
+  const int D = a.D, wld = D + 4;
+  float* w_upd = static_cast<float*>(sgd.w);
+  TM* mom = static_cast<TM*>(sgd.mom);
+  float* Wt = fb_sm;                                     // the W tile [FB_TC][D + 4]
+  float* stg = Wt + FB_TC * wld;                         // the stages
+  float* red = stg;                                      // [32][FB_TC] partials of <d_w_hat, w_hat>
+  float* Dq = stg + fb_stg_floats(D);                    // (d_cos * inv)^T [FB_TC][FB_QLD]
+  float* inv = Dq + FB_TC * FB_QLD;                      // [FB_TC]
+  float* sdot = inv + FB_TC;                             // [FB_TC] <d_w_hat, w_hat>
+  RowIn* rin = reinterpret_cast<RowIn*>(sdot + FB_TC);  // [FB_ROWS]
+  int* tgt = reinterpret_cast<int*>(rin + FB_ROWS);      // label - p0 in this tile, else -1
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long c_begin = (long long)blockIdx.x * cols_per_blk;
+  const long long c_end = min(a.ncols, c_begin + cols_per_blk);
+  float* pblk = part + (long long)blockIdx.x * a.B * D;
+  load_row_in(rin, FB_ROWS, 0, a, br);  // thread t < FB_ROWS writes row t
+  int gr, gc;
+  fb_cos_map(gr, gc);
+  // the d_w_hat map: warp w holds the columns 8 (w % 8) .. + 7, and lane l
+  // the features 4 (32 (w / 8) + l) + 256 h .. + 3 (h < 2) below D
+  const int g2 = warp & 7, fx = 32 * (warp >> 3) + lane;
+  // the d_emb map: warp w holds row groups 4 (w % 4) .. + 3 and feature
+  // groups 8 (w / 4) .. + 7; row group g: rows 8 g .. 8 g + 7; feature group
+  // f: features 4 f + 128 q .. + 3 (q < 2) of a 256-feature half
+  const int g3 = 4 * (warp & 3) + (lane >> 3), fx3 = 8 * (warp >> 2) + (lane & 7);
+  bool first = true;  // the block's partial is written before it is read
+
+  for (long long t0 = c_begin; t0 < c_end;) {
+    const int nl = (int)min((long long)FB_TC, c_end - t0);  // output rows of this tile
     const long long p0 = phys_col(a, t0);
-    const int n = valid_cols(a, t0, p0, c_end, B_TC);
-    float acc[2][4];
-    float n2;
-    tile_gemm<B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16, true>(
-        acc, n2, As, Bs, a.emb, r_base, a.B, W, p0, p0 + n, a.D, ty, tx);
-    if (tid < B_TC) inv[tid] = inv_norm(n2);
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float d = 0.f;
-        if (ok[i] && c < n)  // folds w_hat = inv * w into the product
-          d = dcos_of(acc[i][j] * inv[c], p0 + c, lab[i], gtv[i], lzv[i], kthv[i], dcev[i],
-                      dnegv[i], a) * inv[c];
-        Dq[(ty + 16 * i) * B_CLD + c] = d;
-      }
+    const int n = valid_cols(a, t0, p0, t0 + nl, FB_TC);  // ... that stand for a class
+    bool hit = false;
+    if (MODE != FB_DEMB && tid < FB_ROWS) {
+      const RowIn v = rin[tid];
+      const long long off = (long long)v.lab - p0;
+      hit = v.lab >= 0 && off >= 0 && off < n;
+      tgt[tid] = hit ? (int)off : -1;
+      if (hit && dgt != nullptr)  // the target column's dz: (p_t - 1) d_ce scale
+        dgt[tid] = (expf(a.scale * phi_target(v.gt, a) - v.lz) - 1.f) * v.dce * a.scale;
     }
-    __syncthreads();
-
-    // d_emb += (d_cos * inv) @ (raw W rows of this tile)
-    for (int c = 0; c < n; ++c) {
-      const float* wrow = W + (p0 + c) * a.D + dx;
-      float wv[B_JMAX];
+    {
+      float acc[4][4], n2;
+      fb_dots(acc, n2, stg, Wt, a, p0, n, gr, gc);
+      if (tid < FB_TC) inv[tid] = inv_norm(n2);
+      __syncthreads();  // inv is visible
+      float sp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < B_JMAX; ++j) wv[j] = j < nj ? __ldg(wrow + 64 * j) : 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const int b = gr + 32 * i;
+        const RowIn v = rin[b];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = gc + 16 * j;
+          float d = 0.f;
+          if (b < a.B && c < n) {
+            const float cv = acc[i][j] * inv[c];
+            d = dcos_of(cv, p0 + c, v.lab, v.gt, v.lz, v.kth, v.dce, v.dneg, a);
+            sp[j] = fmaf(d, cv, sp[j]);
+          }
+          Dq[c * FB_QLD + b] = d * inv[c];  // folds w_hat = inv * w into both products
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) red[gr * FB_TC + gc + 16 * j] = sp[j];
+    }
+    const bool tile_tgt = __syncthreads_or(hit);  // Dq, red and tgt are visible
+
+    if constexpr (MODE != FB_DEMB) {
+      if (tid < FB_TC) {
+        float s = 0.f;
+        for (int y = 0; y < 32; ++y) s += red[y * FB_TC + tid];
+        sdot[tid] = s;
+      }
+      // inv * d_w_hat [FB_TC, D] = (d_cos * inv)^T . emb, summed over the
+      // batch in order, FB_EK emb rows a stage
+      const int nbk = (a.B + FB_EK - 1) / FB_EK;
+      auto load = [&](int bk) {
+        if (bk < nbk)
+          stage_f32<FB_THREADS>(stg + (bk % FB_ENST) * FB_EK * wld, wld, a.emb, FB_EK * bk,
+                                min(FB_EK, a.B - FB_EK * bk), FB_EK, D, 0, D);
+        cp_async_commit();
+      };
+      __syncthreads();  // red is read: the stages are free; sdot is visible
+      for (int s = 0; s < FB_ENST - 1; ++s) load(s);
+      float acc3[8][8];  // [column][4 h + feature]
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc3[i][j] = 0.f;
+      for (int bk = 0; bk < nbk; ++bk) {
+        cp_async_wait<FB_ENST - 2>();
+        __syncthreads();  // stage bk has landed; stage bk - 1 is free
+        load(bk + FB_ENST - 1);
+        const float* Eb = stg + (bk % FB_ENST) * FB_EK * wld;
+        const float* Dqb = Dq + 8 * g2 * FB_QLD + FB_EK * bk;
+        const int nb = min(FB_EK, a.B - FB_EK * bk);
+#pragma unroll 2
+        for (int bb = 0; bb < nb; ++bb) {
+          float dv[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) dv[i] = Dqb[i * FB_QLD + bb];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (4 * fx + 256 * h >= D) continue;
+            const float4 e = *reinterpret_cast<const float4*>(Eb + bb * wld + 4 * fx + 256 * h);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              acc3[i][4 * h] = fmaf(dv[i], e.x, acc3[i][4 * h]);
+              acc3[i][4 * h + 1] = fmaf(dv[i], e.y, acc3[i][4 * h + 1]);
+              acc3[i][4 * h + 2] = fmaf(dv[i], e.z, acc3[i][4 * h + 2]);
+              acc3[i][4 * h + 3] = fmaf(dv[i], e.w, acc3[i][4 * h + 3]);
+            }
+          }
+        }
+      }
+      cp_async_wait<0>();
+
+      // d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>) + the label rows' d_wl,
+      // the stored rows from the tile
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const float d = Dq[(ry * 8 + i) * B_CLD + c];
+        const int t = 8 * g2 + i;
+        if (t >= nl) continue;
+        const float iv = inv[t], sd = sdot[t];
 #pragma unroll
-        for (int j = 0; j < B_JMAX; ++j) acc2[i][j] = fmaf(d, wv[j], acc2[i][j]);
+        for (int h = 0; h < 2; ++h) {
+          const int f = 4 * fx + 256 * h;
+          if (f >= D) continue;
+          const long long off_out = (t0 + t) * D + f;  // the output row: logical column
+          if (t >= n) {  // a selected ragged last tile's rows past C
+            store4(dw + off_out, make_float4(0.f, 0.f, 0.f, 0.f));
+            continue;
+          }
+          const float4 w4 = *reinterpret_cast<const float4*>(Wt + t * wld + f);
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+          float g[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) g[e] = acc3[i][4 * h + e] - wv[e] * iv * (iv * sd);
+          if (tile_tgt)
+            for (int b = 0; b < a.B; ++b)
+              if (tgt[b] == t)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) g[e] += dwl[(long long)b * D + f + e];
+          if (MODE == FB_DW) {
+            store4(dw + off_out, make_float4(g[0], g[1], g[2], g[3]));
+            continue;
+          }
+          const long long off = (p0 + t) * D + f;  // the class row
+          const float4 m4 = load4(mom + off);
+          float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (sgd.wd != 0.f) g[e] += sgd.wd * wv[e];
+            float upd = g[e];
+            if (sgd.mu != 0.f) {
+              mv[e] = sgd.mu * mv[e] + g[e];
+              upd = sgd.nesterov ? g[e] + sgd.mu * mv[e] : mv[e];
+            } else {
+              mv[e] = g[e];
+            }
+            g[e] = wv[e] - sgd.lr * upd;  // w'
+          }
+          store4(mom + off, make_float4(mv[0], mv[1], mv[2], mv[3]));
+          store4(w_upd + off, make_float4(g[0], g[1], g[2], g[3]));
+        }
       }
     }
-    __syncthreads();  // Dq and inv are rebuilt by the next tile
-  }
 
+    // the block's d_emb partial += (d_cos * inv) . (the tile's stored rows),
+    // column by column, 256 features at a time
+    for (int f0 = 0; f0 < D; f0 += 256) {
+      float acc2[8][8];  // [row][4 q + feature]
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gr = r_base + ry * 8 + i;
-    if (gr >= a.B) continue;
-    float* p = part + ((long long)chunk * a.B + gr) * a.D + dx;
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * g3 + i;
 #pragma unroll
-    for (int j = 0; j < B_JMAX; ++j)
-      if (j < nj) p[64 * j] = acc2[i][j];
+        for (int q = 0; q < 2; ++q) {
+          const int f = f0 + 4 * fx3 + 128 * q;
+          const float4 v = first || r >= a.B || f >= D
+                               ? make_float4(0.f, 0.f, 0.f, 0.f)
+                               : *reinterpret_cast<const float4*>(pblk + (long long)r * D + f);
+          acc2[i][4 * q] = v.x, acc2[i][4 * q + 1] = v.y;
+          acc2[i][4 * q + 2] = v.z, acc2[i][4 * q + 3] = v.w;
+        }
+      }
+#pragma unroll 4
+      for (int c = 0; c < n; ++c) {
+        const float* qp = Dq + c * FB_QLD + 8 * g3;
+        const float4 qa = *reinterpret_cast<const float4*>(qp);
+        const float4 qb = *reinterpret_cast<const float4*>(qp + 4);
+        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int f = f0 + 4 * fx3 + 128 * q;
+          if (f >= D) continue;
+          const float4 w = *reinterpret_cast<const float4*>(Wt + c * wld + f);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc2[i][4 * q] = fmaf(qv[i], w.x, acc2[i][4 * q]);
+            acc2[i][4 * q + 1] = fmaf(qv[i], w.y, acc2[i][4 * q + 1]);
+            acc2[i][4 * q + 2] = fmaf(qv[i], w.z, acc2[i][4 * q + 2]);
+            acc2[i][4 * q + 3] = fmaf(qv[i], w.w, acc2[i][4 * q + 3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * g3 + i;
+        if (r >= a.B) continue;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int f = f0 + 4 * fx3 + 128 * q;
+          if (f < D)
+            store4(pblk + (long long)r * D + f,
+                   make_float4(acc2[i][4 * q], acc2[i][4 * q + 1], acc2[i][4 * q + 2],
+                               acc2[i][4 * q + 3]));
+        }
+      }
+    }
+    first = false;
+    __syncthreads();  // Wt, the stages, Dq, inv, sdot and tgt are rebuilt by the next tile
+    t0 += nl;
   }
+  if (first)  // a block without columns: its partial is 0
+    for (long long i = tid; i < (long long)a.B * D; i += FB_THREADS) pblk[i] = 0.f;
 }
 
 constexpr int E_RB = 64, E_TC = 64;  // bf16 d_emb pass: rows, tile columns
@@ -815,10 +1038,11 @@ constexpr size_t W_SMEM =
 // bf16 W: the chunk stages of the tensor cores' cosines in front
 constexpr size_t W_SMEM_BF16 = W_SMEM + CH_ST * chunk_bytes<W_ROWS, W_TC>();
 
-// f32 W, and the fused and sparse bf16 forms (the bf16 d_w pass of
-// margin_ce_bwd / margin_partial_bwd: margin_bwd_dw_bf16_kernel). Each
-// column's owner adds d_wl [B][D] (the label rows' gradient) for every
-// batch row labelled with it. fused == 0: write d_w to dw (row by logical
+// The fused and sparse bf16 forms' d_w pass (the bf16 d_w pass of
+// margin_ce_bwd / margin_partial_bwd: margin_bwd_dw_bf16_kernel; f32 W:
+// margin_bwd_f32_kernel, so TW is bf16 here). Each column's owner adds
+// d_wl [B][D] (the label rows' gradient) for every batch row labelled with
+// it. fused == 0: write d_w to dw (row by logical
 // column). Otherwise apply the SGD update to sgd.w and sgd.mom (type TM) in
 // place (dw unused). dgt: nullptr, or [B] zeros where the owner of a row's
 // target column writes that column's dz.
@@ -1259,6 +1483,54 @@ __global__ void __launch_bounds__(BW_THREADS) clean_cos_tile_kernel(Args a, floa
       }
 }
 
+// out [B][C] = the f32 cosines of every column (no labels read) as the f32
+// kernels form them: the forward's tile_gemm (128 columns a block) and the
+// backward's ftile_dots (64 columns a block, every row; the one pass of every
+// f32 backward form)
+__global__ void __launch_bounds__(F_THREADS) clean_cos_f32_fwd_kernel(Args a, float* out) {
+  extern __shared__ __align__(16) float cf_sm[];
+  float* As = cf_sm;
+  float* Bs = As + F_DK * F_ALD;
+  float* inv = Bs + F_DK * F_BLD;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const long long t0 = (long long)blockIdx.x * F_TC;
+  const long long c_end = min(a.C, t0 + F_TC);
+  float acc[8][8], n2;
+  tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16, true>(
+      acc, n2, As, Bs, a.emb, 0, a.B, wrows<float>(a), t0, c_end, a.D, ty, tx);
+  if (tid < F_TC) inv[tid] = inv_norm(n2);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      if (r < a.B && t0 + c < c_end) out[r * a.C + t0 + c] = acc[i][j] * inv[c];
+    }
+}
+
+__global__ void __launch_bounds__(FB_THREADS, 1) clean_cos_f32_bwd_kernel(Args a, float* out) {
+  extern __shared__ __align__(16) float cb_sm[];
+  float* Wt = cb_sm;
+  float* stg = Wt + FB_TC * (a.D + 4);
+  float* inv = stg + FB_XSTG;
+  const long long t0 = (long long)blockIdx.x * FB_TC;
+  const int n = (int)min((long long)FB_TC, a.C - t0);
+  int gr, gc;
+  fb_cos_map(gr, gc);
+  float acc[4][4], n2;
+  fb_dots(acc, n2, stg, Wt, a, t0, n, gr, gc);
+  if (threadIdx.x < FB_TC) inv[threadIdx.x] = inv_norm(n2);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = gr + 32 * i, c = gc + 16 * j;
+      if (r < a.B && c < n) out[r * a.C + t0 + c] = acc[i][j] * inv[c];
+    }
+}
+
 Args make_args(const float* emb, const void* eb, const void* w, const float* inv, long long C,
                int D, int B, const int* labels, const float* gt, int k, int loss_type,
                float margin, float scale, float mask_svfc, float cos_m, float sin_m) {
@@ -1320,11 +1592,28 @@ int launch_fwd_pass_form(int w_bf16, const Args& a, int nblk, long long cols_per
                 : launch_fwd_pass<float>(a, nblk, cols_per_blk, part, stats, st);
 }
 
-// both backward passes. d_emb: row groups (32 rows f32, 64 bf16) x nchunk
-// column chunks, then the merge. d_w: column owners, after the d_emb pass;
-// the bf16 form's dense unfused d_w (margin_ce_bwd, margin_partial_bwd)
-// runs the tensor-core pass before it, and that pass's 1 / ||w|| serves the
-// d_emb pass. grad_w=False: dw nullptr and not fused.
+// the f32 pass over nblk column ranges in its mode (FB_DEMB, FB_DW, FB_SGD)
+template <class TM>
+int launch_f32_pass(int mode, const Args& a, const BwdRows& br, int nblk, long long cols_per_blk,
+                    const float* dwl, float* dw, const Sgd& sgd, float* dgt, float* part,
+                    cudaStream_t st) {
+  auto kernel = mode == FB_SGD  ? margin_bwd_f32_kernel<TM, FB_SGD>
+                : mode == FB_DW ? margin_bwd_f32_kernel<float, FB_DW>
+                                : margin_bwd_f32_kernel<float, FB_DEMB>;
+  const size_t smem = fb_smem(a.D);
+  const int e = allow_smem(kernel, smem);
+  if (e != 0) return e;
+  kernel<<<nblk, FB_THREADS, smem, st>>>(a, br, cols_per_blk, dwl, dw, sgd, dgt, part);
+  return (int)cudaGetLastError();
+}
+
+// the backward. f32 W: the one pass (column owners, each with its d_emb
+// partial), then the merge of the nchunk (= dw_nblk) partials. bf16 W: the
+// d_emb pass (row groups of 64 rows x nchunk column chunks), the merge, and
+// the d_w pass (column owners) after it; the dense unfused d_w
+// (margin_ce_bwd, margin_partial_bwd) runs the tensor-core pass before it,
+// and that pass's 1 / ||w|| serves the d_emb pass. grad_w=False: dw nullptr
+// and not fused.
 template <class TW, class TM>
 int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
                long long cols_per_chunk, float* d_emb, int dw_nblk, long long dw_cols_per_blk,
@@ -1333,37 +1622,39 @@ int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
   constexpr bool BF16 = !std::is_same<TW, float>::value;
   const bool with_dw = dw != nullptr || fused;
   const bool dw_tc = BF16 && with_dw && !fused && a.sel == nullptr;
+  const long long n = (long long)a.B * a.D;
   int e = 0;
-  if (dw_tc) {
-    const size_t smem = dw_bf16_smem(a.D);
-    if ((e = allow_smem(margin_bwd_dw_bf16_kernel, smem)) != 0) return e;
-    margin_bwd_dw_bf16_kernel<<<dw_nblk, BW_THREADS, smem, st>>>(a, br, dw_cols_per_blk, dwl, dw,
-                                                                 const_cast<float*>(a.inv));
-  } else if (BF16 && with_dw) {  // the fused and sparse d_w pass reads a.inv
-    e = launch_inv(a, st);
-  }
-  if (e != 0 || (e = (int)cudaGetLastError()) != 0) return e;
-  if (BF16) {
+  if constexpr (!BF16) {
+    e = launch_f32_pass<TM>(fused ? FB_SGD : with_dw ? FB_DW : FB_DEMB, a, br, dw_nblk,
+                            dw_cols_per_blk, dwl, dw, sgd, dgt, part, st);
+    if (e != 0) return e;
+    margin_bwd_demb_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(nchunk, n, part,
+                                                                              d_emb);
+    return (int)cudaGetLastError();
+  } else {
+    if (dw_tc) {
+      const size_t smem = dw_bf16_smem(a.D);
+      if ((e = allow_smem(margin_bwd_dw_bf16_kernel, smem)) != 0) return e;
+      margin_bwd_dw_bf16_kernel<<<dw_nblk, BW_THREADS, smem, st>>>(
+          a, br, dw_cols_per_blk, dwl, dw, const_cast<float*>(a.inv));
+    } else if (with_dw) {  // the fused and sparse d_w pass reads a.inv
+      e = launch_inv(a, st);
+    }
+    if (e != 0 || (e = (int)cudaGetLastError()) != 0) return e;
     const size_t smem = demb_bf16_smem(a.D);
     const int n_rg = (a.B + E_RB - 1) / E_RB;
     if ((e = allow_smem(margin_bwd_demb_bf16_kernel, smem)) != 0) return e;
     margin_bwd_demb_bf16_kernel<<<nchunk * n_rg, BW_THREADS, smem, st>>>(
         a, br, cols_per_chunk, n_rg, (int)with_dw, part);
-  } else {
-    const int n_rg = (a.B + B_RB - 1) / B_RB;
-    margin_bwd_demb_kernel<<<nchunk * n_rg, B_THREADS, B_SMEM, st>>>(a, br, cols_per_chunk, n_rg,
-                                                                    part);
+    if ((e = (int)cudaGetLastError()) != 0) return e;
+    margin_bwd_demb_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(nchunk, n, part,
+                                                                              d_emb);
+    if ((e = (int)cudaGetLastError()) != 0 || !with_dw || dw_tc) return e;
+    if ((e = allow_smem(margin_bwd_dw_kernel<TW, TM>, W_SMEM_BF16)) != 0) return e;
+    margin_bwd_dw_kernel<TW, TM><<<dw_nblk, W_THREADS, W_SMEM_BF16, st>>>(a, br, dw_cols_per_blk,
+                                                                        dwl, dw, sgd, fused, dgt);
+    return (int)cudaGetLastError();
   }
-  if ((e = (int)cudaGetLastError()) != 0) return e;
-  const long long n = (long long)a.B * a.D;
-  margin_bwd_demb_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(nchunk, n, part,
-                                                                            d_emb);
-  if ((e = (int)cudaGetLastError()) != 0 || !with_dw || dw_tc) return e;
-  const size_t smem = BF16 ? W_SMEM_BF16 : W_SMEM;
-  if ((e = allow_smem(margin_bwd_dw_kernel<TW, TM>, smem)) != 0) return e;
-  margin_bwd_dw_kernel<TW, TM><<<dw_nblk, W_THREADS, smem, st>>>(a, br, dw_cols_per_blk, dwl,
-                                                                 dw, sgd, fused, dgt);
-  return (int)cudaGetLastError();
 }
 
 // the unfused backward of either W form (the momentum type is unused)
@@ -1405,6 +1696,24 @@ int launch_clean_cos(const Args& a, int tiling, float* out, cudaStream_t st) {
       if ((e = allow_smem(clean_cos_tile_kernel<128>, smem)) != 0) return e;
       clean_cos_tile_kernel<128><<<grid, BW_THREADS, smem, st>>>(a, out);
     }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// the f32 cosines in tiling 0 (the forward) or 1, 2, 3 (the backward's one
+// pass, which every f32 backward form runs)
+int launch_clean_cos_f32(const Args& a, int tiling, float* out, cudaStream_t st) {
+  int e = 0;
+  if (tiling == 0) {
+    const size_t smem = sizeof(float) * (F_DK * F_ALD + F_DK * F_BLD + F_TC);
+    clean_cos_f32_fwd_kernel<<<(unsigned)((a.C + F_TC - 1) / F_TC), F_THREADS, smem, st>>>(a, out);
+  } else if (tiling >= 1 && tiling <= 3) {
+    const size_t smem = sizeof(float) * (FB_TC * (a.D + 4) + FB_XSTG + FB_TC);
+    if ((e = allow_smem(clean_cos_f32_bwd_kernel, smem)) != 0) return e;
+    clean_cos_f32_bwd_kernel<<<(unsigned)((a.C + FB_TC - 1) / FB_TC), FB_THREADS, smem, st>>>(a,
+                                                                                        out);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -1524,12 +1833,14 @@ int margin_partial_bwd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, float* dw, cons
                          dw_cols_per_blk, dwl, dw, nullptr, (cudaStream_t)stream);
 }
 
-// the bf16 cosines [B][C] of every column (no labels read) as tiling forms
-// them (0 the forward, 1 the d_emb pass, 2 the bf16 d_w pass, 3 the fused
-// and sparse d_w pass): a parity probe of the chain they share (bf16 W only)
+// the cosines [B][C] of every column (no labels read) as tiling forms them
+// (0 the forward, 1 the d_emb pass, 2 the d_w pass of margin_ce_bwd, 3 the
+// fused and sparse d_w pass; f32 W: 2 and 3 are one pass): a parity probe of
+// the chain they share
 int margin_ce_clean_cos_launch(MCE_COMMON_PARAMS, int tiling, float* out, void* stream) {
   const Args a = make_args(MCE_COMMON_ARGS);
-  if (!w_bf16 || eb == nullptr || inv == nullptr) return (int)cudaErrorInvalidValue;
+  if (!w_bf16) return launch_clean_cos_f32(a, tiling, out, (cudaStream_t)stream);
+  if (eb == nullptr || inv == nullptr) return (int)cudaErrorInvalidValue;
   return launch_clean_cos(a, tiling, out, (cudaStream_t)stream);
 }
 

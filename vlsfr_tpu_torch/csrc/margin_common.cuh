@@ -1,17 +1,18 @@
 // Device helpers shared by the port's margin kernels (quad_margin.cu and
 // margin_ce.cu): the margin transform, the streamed (max, sumexp) and
 // value-only top-k, the merge of per-block partials, d loss / d cos of one
-// column, and the shared-memory tile product (f32 accumulate over f32, bf16
-// or int8 rows, each converted exactly to f32, or staged by a caller's
-// policy: margin_ce.cu's bf16 form stages its rows normalised).
+// column, and the shared-memory tile products (tile_gemm: f32 accumulate
+// over f32, bf16 or int8 rows, each converted exactly to f32, or staged by
+// a caller's policy: margin_ce.cu's bf16 form stages its rows normalised;
+// ftile_dots: its register-blocked f32 form, staged by cp.async).
 //
 // Both kernels' top-k tie test (cos >= kth - KTH_TIE_TOL) compares cosines
 // that the forward and the backward compute separately; they must be the
 // same bits, so both passes take them from one chain: `tile_gemm`'s FMA
 // chain over the feature axis in index order (the f32, int8 and int8c
 // forms; quad_margin.cu's `row_dot` keeps that order for the columns this
-// step writes), or the bf16 forms' k16 chain on the tensor cores
-// (mma_bf16.cuh: mma_nt).
+// step writes; margin_ce.cu's f32 backward walks it in `ftile_dots`), or
+// the bf16 forms' k16 chain on the tensor cores (mma_bf16.cuh: mma_nt).
 //
 // `A` is each kernel's argument struct: it has loss_type, k, margin, scale,
 // mask_svfc, cos_m and sin_m.
@@ -21,6 +22,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_bf16.cuh"  // cp.async
 
 namespace {
 
@@ -206,6 +209,116 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TI][TJ], float& n2, float
     }
     __syncthreads();
   }
+}
+
+// ------------------------------------ the f32 tile product on the CUDA cores
+//
+// `ftile_dots`: the register-blocked form of tile_gemm's product (margin_ce.cu's
+// f32 backward). X and Y are row-major [*, D] f32 in global memory, staged FK
+// features a chunk into shared memory by 16-byte cp.async, rows past the
+// valid ones zero-filled: X through NST stages of [NX][FK + 4] (NST - 1
+// chunks in flight beside the one in use), Y into a tile [NY][D + 4] that
+// holds all of Y's rows afterwards. The pads of four floats put rows r .. r +
+// 7 of a feature in eight different groups of four banks, so the eight
+// threads of a quarter warp, reading one X row (a broadcast) and eight
+// consecutive Y rows, are served in one pass. Each thread holds a TI x TJ
+// micro-tile, X rows ax + SA*i and Y rows by + SB*j; per four features it
+// reads a float4 of each of its rows and adds the products feature by
+// feature. Every output is one fmaf chain over the features 0 .. D - 1 in
+// index order from 0 (and ||y||^2 the same chain of y * y): tile_gemm's,
+// whatever the tiling.
+
+// features [k0, k0 + kw) (kw a multiple of 4) of the rows row0 .. row0 + n - 1
+// of src [*, D] into dst rows 0 .. rows - 1 (row stride ld floats) by 16-byte
+// cp.async; rows from n on are zero-filled
+template <int THREADS>
+__device__ __forceinline__ void stage_f32(float* dst, int ld, const float* src, long long row0,
+                                          int n, int rows, int D, int k0, int kw) {
+  const int q4 = kw / 4, dr = THREADS / q4, dq = THREADS - dr * q4;
+  for (int r = threadIdx.x / q4, q = threadIdx.x % q4; r < rows;) {  // piece r * q4 + q
+    const bool ok = r < n;
+    cp_async_cg(dst + r * ld + 4 * q, ok ? src + (row0 + r) * D + k0 + 4 * q : src, ok);
+    r += dr;
+    q += dq;
+    if (q >= q4) q -= q4, ++r;
+  }
+}
+
+// the floats of ftile_dots' X stages
+template <int NX, int NST, int FK>
+__host__ __device__ constexpr int ftile_stage_floats() {
+  return NST * NX * (FK + 4);
+}
+
+// acc[i][j] = sum over k = 0 .. D - 1 in order of X[x0 + ax + SA*i][k] *
+// Y[y0 + by + SB*j][k], the X rows from nx on and the Y rows from ny on
+// reading as 0; thread t < NY also sums n2 = ||Y[y0 + t]||^2. X streams
+// through the stages at stg (ftile_stage_floats), Y's chunk kc goes to yt +
+// FK kc. Leaves no copy in flight and ends with a barrier.
+template <int NX, int NY, int THREADS, int NST, int FK, int TI, int TJ, int SA, int SB>
+__device__ __forceinline__ void ftile_dots(float (&acc)[TI][TJ], float& n2, float* stg, float* yt,
+                                           const float* X, long long x0, int nx, const float* Y,
+                                           long long y0, int ny, int D, int ax, int by) {
+  constexpr int LD = FK + 4;
+  const int ldy = D + 4, nk = D / FK;
+#pragma unroll
+  for (int i = 0; i < TI; ++i)
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
+  n2 = 0.f;
+  auto load = [&](int kc) {
+    if (kc < nk) {
+      stage_f32<THREADS>(stg + (kc % NST) * NX * LD, LD, X, x0, nx, NX, D, FK * kc, FK);
+      stage_f32<THREADS>(yt + FK * kc, ldy, Y, y0, ny, NY, D, FK * kc, FK);
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < NST - 1; ++s) load(s);
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // chunk kc has landed; chunk kc - 1's stage is free
+    load(kc + NST - 1);
+    const float* Xs = stg + (kc % NST) * NX * LD;
+    const float* Ys = yt + FK * kc;
+    if (threadIdx.x < NY) {
+#pragma unroll
+      for (int k = 0; k < FK; k += 4) {
+        const float4 y = *reinterpret_cast<const float4*>(Ys + threadIdx.x * ldy + k);
+        n2 = fmaf(y.x, y.x, n2);
+        n2 = fmaf(y.y, y.y, n2);
+        n2 = fmaf(y.z, y.z, n2);
+        n2 = fmaf(y.w, y.w, n2);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < FK; k += 4) {
+      float4 x[TI], y[TJ];
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+        x[i] = *reinterpret_cast<const float4*>(Xs + (ax + SA * i) * LD + k);
+#pragma unroll
+      for (int j = 0; j < TJ; ++j)
+        y[j] = *reinterpret_cast<const float4*>(Ys + (by + SB * j) * ldy + k);
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every stage is free
 }
 
 }  // namespace

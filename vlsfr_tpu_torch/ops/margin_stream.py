@@ -562,10 +562,11 @@ def margin_ce_bwd_sparse_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile
 _LOSS_CODE = {"AM": 0, "Arc": 1, "SV": 2}
 _F_TC = 128  # columns per forward tile
 _B_TC = 64  # columns per backward tile
-_B_RB = {torch.float32: 32, torch.bfloat16: 64}  # rows per d_emb block (row group), by W form
+_B_RB = 64  # rows per d_emb block (row group) of a bf16 classifier
 _STAT_COLS = 64  # columns per forward statistics partial (half an _F_TC tile)
 _MAX_ROWS = 128  # batch rows the kernels hold per block
-# the bf16 cosines as each pass forms them (``clean_cos``; csrc/margin_ce.cu)
+# the cosines as each pass forms them (``clean_cos``; csrc/margin_ce.cu); an
+# f32 classifier's backward is one pass, whichever of the last three is named
 COS_TILINGS = ("forward", "d_emb pass", "d_w pass", "fused / sparse d_w pass")
 _P = ctypes.c_void_p
 _COMMON_ARGTYPES = [
@@ -770,15 +771,18 @@ def margin_partial_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_
 
 
 def _bwd_geometry(emb, w, ncols):
-    """(d_emb partial buffer, nchunk, cols per chunk, d_w blocks, cols per
-    d_w block) of the two backward passes over ``ncols`` columns. The bf16
-    d_emb pass holds one block an SM (its shared memory), the f32 one four."""
+    """(d_emb partial buffer, nchunk, cols per chunk, column-owning blocks,
+    cols per such block) of the backward over ``ncols`` columns. An f32
+    classifier's one pass runs one block an SM (its shared memory), each
+    writing its d_emb partial; a bf16 classifier's d_w pass runs two blocks
+    an SM and its d_emb pass one, each a row group over a column chunk."""
     b, d = emb.shape
     sms = _sms(emb.device)
-    n_rg = -(-b // _B_RB[w.dtype])
-    per_sm = 1 if w.dtype == torch.bfloat16 else 4
-    nchunk, per = _split_columns(ncols, _B_TC, max(per_sm * sms // n_rg, 1))
-    nblk, per_w = _split_columns(ncols, _B_TC, 2 * sms)
+    if w.dtype == torch.bfloat16:
+        nblk, per_w = _split_columns(ncols, _B_TC, 2 * sms)
+        nchunk, per = _split_columns(ncols, _B_TC, max(sms // -(-b // _B_RB), 1))
+    else:
+        nblk, per_w = nchunk, per = _split_columns(ncols, _B_TC, sms)
     return torch.empty((nchunk, b, d), device=emb.device), nchunk, per, nblk, per_w
 
 
@@ -816,13 +820,17 @@ def margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_type, mar
     on an H100 at the slice shapes with ``grad_w``: three products (cosine
     recompute, d_cos @ ŵ, d_cosᵀ @ emb) = 4.12e11 FLOP (~6.15 ms at the f32
     rate) against W read + d_w written = 4.3 GB (~1.28 ms): compute-bound.
-    Design: a row-grouped pass (32 rows × a column range per block, d_emb
-    partial in registers, partials summed in a fixed order by a merge
-    launch) and, with ``grad_w``, a column-owned pass (every batch row ×
-    64 columns per tile) that recomputes d_cos and writes each d_w row once,
-    its owner adding the label rows' d_wl (computed here before the launch)
-    in batch order. No float atomics: d_emb and d_w are bit-stable run to
-    run. The bf16 form: W read (1.07 GB) + f32 d_w written (2.15 GB),
+    Design, IEEE f32 FMA on the CUDA cores, register-blocked (``ftile_dots``
+    in ``csrc/margin_common.cuh``: cp.async staging, a micro-tile a thread,
+    every cosine the forward's in-order chain): one pass of the three
+    products, a block (one an SM) owning 64-column tiles with every batch
+    row: each W tile is staged once and serves the cosines, the d_w
+    epilogue and d_emb += (d_cos·inv)·W; d_ŵ = d_cosᵀ·emb streams emb
+    through shared memory; each d_w row is written once by its owner, which
+    adds the label rows' d_wl (computed here before the launch) in batch
+    order; each block's d_emb partial lives in L2 and a merge launch sums
+    them in a fixed order. No float atomics: d_emb and d_w are bit-stable
+    run to run. The bf16 form: W read (1.07 GB) + f32 d_w written (2.15 GB),
     0.96 ms, against 0.42 ms of bf16 dots: bytes-bound. Its passes run on
     the tensor cores: the d_w pass first (emb resident, one 64-column W
     tile at a time scaled once into bf16(ŵ), 1/‖w‖ from the staged rows,
@@ -859,10 +867,10 @@ def margin_partial_bwd(emb, w, labels, gt, logz, kth, d_ce, d_neg, d_wl, *, loss
     Bound on an H100 at B = 128, D = 512 with ``grad_w``: three products,
     6·B·D·C_l FLOP (2^20: 4.12e11, ~6.15 ms at the f32 rate) against W read
     + d_w written, 8·C_l·D bytes (4.3 GB, ~1.28 ms): compute-bound. Design:
-    ``margin_ce_bwd``'s two passes (row-grouped d_emb partials summed in a
-    fixed order; column-owned d_w rows written once) on the block; the
-    target column's dz is B-row torch work beside it, as the single-device
-    tail is. The bf16 form is ``margin_ce_bwd``'s tensor-core passes."""
+    ``margin_ce_bwd``'s kernels (column-owned d_w rows written once, d_emb
+    partials summed in a fixed order) on the block; the target column's dz
+    is B-row torch work beside it, as the single-device tail is. The bf16
+    form is ``margin_ce_bwd``'s tensor-core passes."""
     b = emb.shape[0]
     vec = lambda name, t: (name, t, torch.float32, (b,))  # noqa: E731
     extra = [vec("logz", logz), vec("kth", kth), vec("d_ce", d_ce), vec("d_neg", d_neg),
@@ -893,10 +901,11 @@ def margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr
     Bound on an H100 at the slice shapes: 4.12e11 FLOP (~6.15 ms at the f32
     rate) against W and mom read and written = 8.6 GB (~2.56 ms):
     compute-bound. The target tail (d_gt, the label rows' gradient d_wl) is
-    computed here from the PRE-update rows before the launch; the kernel's
-    d_emb pass reads W before its column-owned pass overwrites it (stream
-    order), and in that pass each block reads its own W and mom rows before
-    it writes them; no other block touches them. Two batch rows with one
+    computed here from the PRE-update rows before the launch. Each block
+    owns its W and mom rows and reads them before it writes them; no other
+    block touches them (f32 W: the one pass takes d_emb from its staged
+    copy of the tile; bf16 W: the d_emb pass reads W before the
+    column-owned pass overwrites it, in stream order). Two batch rows with one
     class both add their d_wl into that row, in batch order. ``w`` and
     ``mom`` are each f32 or bf16; the bf16 classifier's forms are bytes-bound
     (W and mom read and written: 4.29 GB at (bf16, bf16), 1.28 ms; 6.44 GB
@@ -950,14 +959,13 @@ def margin_ce_bwd_sparse(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, 
     Bound on an H100 at the route-D shapes (B = 128, D = 512, M·tile =
     65,536): three products 2.58e10 FLOP (~0.385 ms at the f32 rate)
     against 134 MB of W tiles read and 134 MB of d_w rows written
-    (~0.080 ms): compute-bound. Design: margin_ce_bwd's two passes run over
+    (~0.080 ms): compute-bound. Design: margin_ce_bwd's kernels run over
     the M·tile logical columns, each 64-column tile mapped through
     ``tile_idx`` (read by every block, the counterpart of scalar prefetch)
-    onto its class rows: a row-grouped d_emb pass with partials summed in a
-    fixed order, and a column-owned pass that recomputes cos and d_cos,
-    writes each d_w row once (its owner adding the label rows' d_wl in
-    batch order) and writes d_gt, the target column's dz, for the rows
-    whose target it owns. No float atomics.
+    onto its class rows; the column owner writes each d_w row once (adding
+    the label rows' d_wl in batch order) and d_gt, the target column's dz,
+    for the rows whose target it owns; d_emb partials are summed in a fixed
+    order. No float atomics.
     """
     m = tile_idx.shape[0]
     _check_inputs(emb, w, labels, gt, k, loss_type,
@@ -1001,15 +1009,15 @@ def _sparse_parts_cuda(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, *,
 
 
 def clean_cos(emb, w, *, tiling: str = "forward"):
-    """[B, C] cosines of the embedding against a bf16 classifier's
-    normalised rows as the kernels' bf16 tiles form them (every column, no
-    labels read): ``tiling`` one of COS_TILINGS — the forward, the d_emb
-    pass, the d_w pass of ``margin_ce_bwd``, the fused and sparse d_w pass.
-    A parity probe of the one chain they share: the backward's top-k test
-    compares its cosines with the forward's kth. No training path calls it.
-    CPU tensors: the plain version, bf16(emb) · bf16(ŵ)ᵀ summed in f32."""
-    if w.dtype != torch.bfloat16:
-        raise ValueError(f"clean_cos probes the bf16 classifier's kernels, got {w.dtype}")
+    """[B, C] cosines of the embedding against the classifier's normalised
+    rows as the kernels' tiles form them (every column, no labels read):
+    ``tiling`` one of COS_TILINGS — the forward, the d_emb pass, the d_w
+    pass of ``margin_ce_bwd``, the fused and sparse d_w pass (an f32
+    classifier's backward is one pass: the last three are its tiling). A
+    parity probe of the one chain they share: the backward's top-k test
+    compares its cosines with the forward's kth. No training path calls
+    it. CPU tensors: the plain version, emb · ŵᵀ (bf16 classifier:
+    bf16(emb) · bf16(ŵ)ᵀ summed in f32)."""
     if tiling not in COS_TILINGS:
         raise ValueError(f"tiling must be one of {COS_TILINGS}, got {tiling!r}")
     b = emb.shape[0]

@@ -595,6 +595,7 @@ def int8_dot_checks(E8, se, w8, qs, tag: str = "") -> list[dict]:
 
 
 BF16_COS_ATOL = 1e-6  # exact bf16 products, |cos| <= 1, summed in f32 in another order
+F32_COS_ATOL = 1e-5  # f32 sums in another order, as the forward's top-k (its cosines)
 
 
 def _tiling_cos_checks(form: str, E, q0, qs, tag: str) -> list[dict]:
@@ -628,22 +629,27 @@ def int8_cos_checks(E, q0, qs, tag: str = "") -> list[dict]:
 
 
 def margin_cos_checks(emb, w, tag: str = "") -> list[dict]:
-    """A bf16 classifier's cosines as the margin_ce kernels form them
+    """The classifier's cosines as the margin_ce kernels form them
     (``margin_stream.clean_cos``): every backward tiling against the
     forward's bit for bit (a count of elements that differ, limit 0: the
-    backward's top-k test compares its cosines with the forward's kth), and
-    the forward's within BF16_COS_ATOL of the plain version."""
+    backward's top-k test compares its cosines with the forward's kth; an
+    f32 classifier's backward is one pass, one tiling), and the forward's
+    within BF16_COS_ATOL (bf16) or F32_COS_ATOL (f32) of the plain
+    version."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
 
+    form = "bf16" if w.dtype == torch.bfloat16 else "f32"
     fwd = tms.clean_cos(emb, w)
     checks = []
-    for tiling in tms.COS_TILINGS[1:]:
+    for tiling in tms.COS_TILINGS[1:] if form == "bf16" else tms.COS_TILINGS[1:2]:
         other = tms.clean_cos(emb, w, tiling=tiling)
-        checks.append({"name": f"{tag}bf16 cos elements differing ({tiling} vs forward tiles)",
+        name = tiling if form == "bf16" else "backward pass"
+        checks.append({"name": f"{tag}{form} cos elements differing ({name} vs forward tiles)",
                        "count": True, "err": float((fwd != other).sum()), "limit": 0.0})
         del other
     plain = tms._chunk_cos(tms._operand(emb.float(), w), w, 0, w.shape[0])[0]
-    return checks + [_err(f"{tag}bf16 cos (kernel, forward tiles)", fwd, plain, BF16_COS_ATOL)]
+    return checks + [_err(f"{tag}{form} cos (kernel, forward tiles)", fwd, plain,
+                          BF16_COS_ATOL if form == "bf16" else F32_COS_ATOL)]
 
 
 def quad_partial_checks(si, q_l, gt, logz, kth, dce, dneg, kw: dict, tag: str = "",
