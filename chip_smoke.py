@@ -20,12 +20,17 @@ FFC slice (the fused-pool FFC step, ir50, 2^20-slot f32 queue):
    k = 10, Arc, scale 32, margin 0.5, a write plan from the port's DCP
    planner with a duplicate slot), then AM and SV at Q = 4096. Tolerances:
    ce / neg / logz 1e-4 absolute and top-k 1e-5 (f32 sums in another order
-   over 2^20 columns); d_emb 1e-4 × max|d_emb|; d_gt 1e-5;
+   over 2^20 columns); d_emb 1e-4 × max|d_emb|; d_gt 1e-5; then the f32
+   clean cosines of the forward's and the backward's tilings over the first
+   2^18 slots, bit for bit, and the forward's within 1e-5 of the plain
+   product (``parity.f32_cos_checks``);
 4. timing — CUDA events over repeated launches: each kernel, its plain
    version, and a PyTorch composition of the same function as a yardstick
    (forward: matmul + logsumexp + topk; backward: the cosine recompute and
    d_cos @ queue over a materialised [2b, Q] d_cos); the bound is the
    larger of FLOP / 67 TFLOP/s (f32, no tensor cores) and bytes / 3.35 TB/s;
+   the backward also with the step's write columns and labels set to -1
+   (what the written columns and the targets cost);
 5. training — the port's ``Trainer`` on the slice config (ir50, 512-d,
    batch 128, 2^20-slot f32 queue, Arc, fuse_forward, bf16 compute) over a
    raw-pixel synthetic store, a few steps: each quad kernel must launch
@@ -181,6 +186,8 @@ D = 512, 2^20 slots, f32 and bf16 queues):
    kernels line lists), its plain version, a PyTorch yardstick (forward: matmul +
    logsumexp + topk; backward: the recompute and d_cos @ q0) and its bound
    (f32 FLOP at 67 TFLOP/s, bf16 dots at 989 TFLOP/s, against bytes);
+   twin_fwd, twin_partial_fwd and twin_bwd also without the step's writes
+   and targets;
 28. the slice — an ir50 probe and gallery in f32, one DCP batch pair at
    batch 128 on the Trainer's 2^20 f32 queue: directions A and B through
    directional_loss(use_fused=True, defer_scatter=True) against
@@ -473,6 +480,8 @@ def timing(queue, packed, kw, dce, dneg, fwd_plain):
     out["quad_fwd"].update(bound(fwd_flop, fwd_bytes))
     out["quad_bwd"].update(bound(bwd_flop, bwd_bytes))
     print_times(out)
+    print_override_share("quad_bwd", out["quad_bwd"]["ms"], ttm.quad_bwd, E, queue, rest, kw,
+                         (logz, kth, dce, dneg))
     return out
 
 
@@ -2051,21 +2060,21 @@ def twin_timing(form: str, case, want) -> dict:
     name = lambda k_: k_ if form == "f32" else f"{k_}[{form}]"  # noqa: E731
     out = {name("twin_fwd"): fwd, name("twin_bwd"): bwd}
     print_times(out)
-    print_override_share(name("twin_fwd"), fwd["ms"], E, queue, rest, kw)
+    print_override_share(name("twin_fwd"), fwd["ms"], ttm.twin_fwd, E, queue, rest, kw)
+    print_override_share(name("twin_bwd"), bwd["ms"], ttm.twin_bwd, E, queue, rest,
+                         dict(kw, tile=TWIN_TILE), (logz, kth, dce, dneg))
     return out
 
 
-def print_override_share(name: str, ms: float, E, queue, rest, kw) -> None:
-    """The twin forward on the same inputs with every write and target
-    taken away (write columns and labels −1): the time the written tiles'
-    override path adds. The port's DCP planner hands out consecutive
-    slots, so a step's writes sit in a few tiles of one block."""
-    from vlsfr_tpu_torch.ops import twin_margin as ttm
-
+def print_override_share(name: str, ms: float, fn, E, queue, rest, kw, tail=()) -> None:
+    """A quad or twin kernel ``fn`` on the same inputs with every write and
+    target taken away (write columns and labels −1; ``tail``: the
+    backward's row vectors): the time the written tiles' override path
+    adds. The port's DCP planner hands out consecutive slots, so a step's
+    writes sit in a few tiles of one block."""
     G, V, rows, cols, blend, labels, gt = rest
     bare = (G, V, rows, torch.full_like(cols, -1), blend, torch.full_like(labels, -1), gt)
-    fn = ttm.twin_fwd if queue.dim() == 3 else ttm.twin_partial_fwd
-    bare_ms = cuda_ms(lambda: fn(E, queue, *bare, **kw), 10)
+    bare_ms = cuda_ms(lambda: fn(E, queue, *bare, *tail, **kw), 10)
     local = cols[cols >= 0]
     where = f"{int(local.min())}-{int(local.max())}" if local.numel() else "none"
     print(f"  {name} without the step's writes and targets: {bare_ms:.3f} ms (with them "
@@ -2104,8 +2113,8 @@ def twin_partial_timing(form: str, case, raw, want) -> dict:
         out = {name("twin_partial_fwd"): fwd, name("twin_partial_bwd"): bwd}
         print(f"  {form}: a block of {cols} columns:")
         print_times(out)
-        print_override_share(name("twin_partial_fwd"), fwd["ms"], si.E, q_l[0], (*args[2:], gt),
-                             kw)
+        print_override_share(name("twin_partial_fwd"), fwd["ms"], ttm.twin_partial_fwd, si.E,
+                             q_l[0], (*args[2:], gt), kw)
     return out
 
 
@@ -3216,6 +3225,12 @@ def main() -> int:
     fwd_plain, errs = check_pair(*full)
     for loss_type in ("AM", "SV"):
         check_pair(*make_case(4096, SLICE["b"], SLICE["d"], SLICE["k"], loss_type, seed=1))
+    from vlsfr_tpu_torch.utils.parity import f32_cos_checks
+    n = 1 << 18
+    print(f"  the f32 clean cosines of both tilings over the first {n:,} slots (limit 0 apart; "
+          "the forward's within 1e-5 of the plain product):")
+    report(f32_cos_checks(full[1][0], full[0][0, :n], f"first {n:,} slots: "),
+           "the f32 clean cosines of the tilings")
 
     print("== phase 4: quad timing (full width)")
     times = timing(*full, fwd_plain)

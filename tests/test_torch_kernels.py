@@ -42,10 +42,12 @@ from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 from vlsfr_tpu_torch.utils import parity
 
 
-def make_packed(seed, b, q, d, k, device="cpu", loss_type="Arc", form="f32"):
+def make_packed(seed, b, q, d, k, device="cpu", loss_type="Arc", form="f32", plan=None):
     """A quad case in the packed layout; ``form`` stores the queue as f32,
     bf16 or int8 (int8c: int8 with the probes quantised), and ``kw`` then
-    carries the form's ``qscales`` and ``e8``."""
+    carries the form's ``qscales`` and ``e8``. ``plan(direction, rows,
+    cols)``, if given, edits each direction's write plan in place before
+    the labels (the written slots) are drawn from it."""
     rng = np.random.default_rng(seed)
     unit = lambda x: (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
     queue = torch.from_numpy(unit(rng.standard_normal((2, q, d)))).to(device)
@@ -61,6 +63,8 @@ def make_packed(seed, b, q, d, k, device="cpu", loss_type="Arc", form="f32"):
         rows = rng.integers(0, 2, b).astype(np.int32)
         cols = rng.integers(0, q, b).astype(np.int32)
         rows[1], cols[1] = rows[0], cols[0]  # a duplicate slot
+        if plan is not None:
+            plan(len(dirs), rows, cols)
         seen = (rng.random(b) < 0.5).astype(np.float32)
         labels = cols.copy()
         labels[rng.random(b) < 0.3] = -1
@@ -149,7 +153,10 @@ def _cuda():
 
 KERNEL_CASES = [("Arc", 64, 5000, 128, 10), ("AM", 64, 5000, 128, 10),
                 ("SV", 64, 5000, 128, 10), ("Arc", 8, 700, 64, 1),
-                ("Arc", 128, 40000, 512, 16)]
+                ("Arc", 128, 40000, 512, 16),
+                # R = 80 rows (not a multiple of the backward's 64-row group), Q not
+                # a multiple of its 64-column tile, D = 192 and 64
+                ("Arc", 40, 5001, 192, 10), ("SV", 40, 5001, 64, 5)]
 
 
 @pytest.mark.gpu
@@ -265,7 +272,8 @@ def test_emulated_shards_match_the_whole_queue_cpu(loss_type):
 
 
 SHARD_CASES = [("Arc", 64, 4096, 128, 1), ("Arc", 64, 4096, 128, 4), ("AM", 32, 2000, 64, 4),
-               ("SV", 32, 2048, 64, 4), ("Arc", 128, 40000, 512, 4)]
+               ("SV", 32, 2048, 64, 4), ("Arc", 128, 40000, 512, 4),
+               ("AM", 40, 4004, 192, 4)]  # blocks of 1001 columns, R = 80, D = 192
 
 
 @pytest.mark.gpu
@@ -1212,6 +1220,157 @@ def test_int8_clean_cosines_match_between_tilings(r_, q, d):
 
 
 # ----------------------------------------------------------------------
+# the f32 quad and twin backward (csrc/quad_margin.cu: quad_bwd_f32_kernel)
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64)])
+def test_f32_clean_cosines_match_between_tilings(r_, q, d):
+    """The f32 form's clean cosines as the forward's tiles form them
+    (tile_gemm) and as the backward's recompute does (ftile_dots, staged as
+    quad_bwd_f32_kernel stages them; ``clean_cos``): equal bit for bit, so
+    that the backward's top-k test meets the forward's kth exactly; and
+    within 1e-5 of the plain f32 product (``parity.f32_cos_checks``)."""
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    unit = lambda x: (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
+    E = torch.from_numpy(unit(rng.standard_normal((r_, d)))).to(dev)
+    q0 = torch.from_numpy(unit(rng.standard_normal((q, d)))).to(dev)
+    checks = parity.f32_cos_checks(E, q0)
+    torch.cuda.synchronize()
+    for c in checks:
+        print(parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+
+
+def gathered_writes(t0, boundary):
+    """A ``make_packed`` plan where a step's writes gather, as the DCP
+    planner's consecutive slots do: direction A writes every slot inside the
+    tile [t0, t0 + 64), direction B consecutive slots across column
+    ``boundary``; in each, entries 0 and 1 write one slot with parity 0 (a
+    duplicate whose last writer wins in view 1)."""
+    def plan(direction, rows, cols):
+        n = cols.shape[0]
+        if direction == 0:
+            cols[:] = t0 + np.arange(n) % 64
+        else:
+            cols[:] = boundary - n // 2 + np.arange(n)
+        cols[1], rows[0], rows[1] = cols[0], 0, 0
+    return plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [192, 512])
+def test_f32_backward_edge_cases(d):
+    """The f32 quad and twin kernels against their plain versions
+    (``parity.quad_checks`` / ``twin_checks``, the limits unchanged) where
+    the step's writes gather (``gathered_writes``): direction A's every write
+    in one 64-column tile with a duplicate slot, direction B's straddling
+    the boundary of two of the backward's column chunks on this card
+    (``bwd_geometry``), the labels on written slots (in-pool rows whose
+    target column lies in a written tile), at b = 40 probe rows a direction
+    (R = 80, not a multiple of the 64-row group) and Q = 5001; then the twin
+    on each direction's rows alone."""
+    dev = _cuda()
+    b, q, k = 40, 5001, 10
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per = ttm.bwd_geometry("f32", 2 * b, q, sms, b).cols_per_chunk
+    assert per % ttm.bwd_geometry("f32", b, q, sms, b).cols_per_chunk == 0  # the twin's too
+    plan = gathered_writes(128, 3 * per)
+    queue, packed, kw, dce, dneg = make_packed(8, b, q, d, k, device=dev, plan=plan)
+    ttm.reset_launch_counts()
+    checks, _ = parity.quad_checks(queue, packed, kw, dce, dneg)
+    tkw = {key: kw[key] for key in ("loss_type", "margin", "scale", "k", "mask_svfc")}
+    for dr, rs in (("A", slice(0, b)), ("B", slice(b, 2 * b))):
+        inputs = tuple(x[rs].contiguous() for x in packed[:7]) + (packed[7][:, rs].contiguous(),)
+        twin, _ = parity.twin_checks(queue, inputs, tkw, dce[:, rs].contiguous(),
+                                     dneg[:, rs].contiguous(), tag=f"twin {dr}: ")
+        checks += twin
+    torch.cuda.synchronize()
+    for c in checks:
+        print(d, parity.describe(c))
+    assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
+    assert ttm.LAUNCH_COUNTS["quad_bwd"] == 1 and ttm.LAUNCH_COUNTS["twin_bwd"] == 2
+
+
+# source edits of the f32 backward (quad_bwd_f32_kernel) that its checks must
+# reject
+QUAD_F32_FAULTS = {
+    # a written column's view-1 d_cos sent to q0's stored row instead of g
+    "written_view1_on_q0_row": ("  if (i0 >= 0) {                              // view 1 reads g\n"
+                                "    wcoef[wrow + i0] = d1;\n"
+                                "    return 0.f;\n"
+                                "  }\n", ""),
+    # one 4-feature step of each thread's d_emb product skipped (its first)
+    "demb_step_skipped": ("for (int f = 0; f < 16; ++f) demb[i][f] = fmaf(",
+                          "for (int f = 4; f < 16; ++f) demb[i][f] = fmaf("),
+    # a written column's view-1 cosine from its first parity-0 writer, not the last
+    "written_cos_first_writer": (
+        "  if (i0 >= 0) c1 = wcos[wrow + i0];",
+        "  if (i0 >= 0) {\n"
+        "    int f = 0;\n"
+        "    while (a.rows[rc.dir * a.BP + f] != 0 ||\n"
+        "           a.cols[rc.dir * a.BP + f] != a.cols[rc.dir * a.BP + i0]) ++f;\n"
+        "    c1 = wcos[wrow + f];\n"
+        "  }"),
+}
+
+
+@pytest.mark.gpu
+def test_f32_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """``parity.quad_checks`` and ``twin_checks`` pass the real f32 backward
+    and fail copies of quad_margin.cu that send a written column's view-1
+    d_cos to q0's row instead of g, skip one 4-feature step of the d_emb
+    product, and take a written column's cosine from its first writer, not
+    the last (in d_emb), at Arc, b = 64, Q = 5000, D = 128 and AM, b = 128,
+    Q = 40000, D = 512, each with writes gathered in one tile and across a
+    chunk boundary, and a duplicate slot written twice at parity 0
+    (``gathered_writes``). Prints each reading."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, QUAD_F32_FAULTS, source="quad_margin")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    failed = {}
+    for lt, b, q, d, k in (("Arc", 64, 5000, 128, 10), ("AM", 128, 40000, 512, 16)):
+        per = ttm.bwd_geometry("f32", 2 * b, q, sms, b).cols_per_chunk
+        case = make_packed(3, b, q, d, k, device=dev, loss_type=lt,
+                           plan=gathered_writes(256, 5 * per))
+        queue, packed, kw, dce, dneg = case
+        tkw = {key: kw[key] for key in ("loss_type", "margin", "scale", "k", "mask_svfc")}
+        rs = slice(0, b)
+        tin = tuple(x[rs].contiguous() for x in packed[:7]) + (packed[7][:, rs].contiguous(),)
+        for name, lib in libs.items():
+            monkeypatch.setitem(cuda_build._LOADED, "quad_margin", lib)
+            checks, _ = parity.quad_checks(*case)
+            checks += parity.twin_checks(queue, tin, tkw, dce[:, rs].contiguous(),
+                                         dneg[:, rs].contiguous(), tag="twin: ")[0]
+            torch.cuda.synchronize()
+            for c in checks:
+                print(f"{name} {lt}: {parity.describe(c)}")
+            failed[name, lt] = {c["name"] for c in parity.failures(checks)}
+    for lt in ("Arc", "AM"):
+        assert failed["real", lt] == set()
+        for name in QUAD_F32_FAULTS:
+            assert {"d_emb", "twin: d_emb"} <= failed[name, lt], (name, lt)
+
+
+@pytest.mark.parametrize("faults", ["QUAD_FORM_FAULTS", "TWIN_FAULTS", "QUAD_F32_FAULTS"])
+def test_planted_quad_faults_edit_the_kernel_source(faults):
+    """Each planted fault of quad_margin.cu (the rounded forms', the twin's
+    and the f32 backward's) is a source edit whose old text matches the
+    source exactly once, so that the copy the ``gpu`` test builds differs
+    from the kernel where its name says."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "quad_margin.cu").read_text()
+    for name, spec in globals()[faults].items():
+        for old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
+            assert src.count(old) == 1 and old != new, name
+
+
+# ----------------------------------------------------------------------
 # the twin kernels
 # ----------------------------------------------------------------------
 
@@ -1254,7 +1413,8 @@ def make_twin(seed, b, q, d, k, device="cpu", loss_type="Arc", form="f32"):
 TWIN_CASES = [(f, lt, b, q, d, k, tile) for f in ("f32", "bf16")
               for lt, b, q, d, k, tile in (("Arc", 64, 5000, 128, 10, 512),
                                            ("SV", 64, 5000, 128, 10, 64),
-                                           ("AM", 128, 40000, 512, 16, 2048))]
+                                           ("AM", 128, 40000, 512, 16, 2048),
+                                           ("Arc", 100, 5001, 128, 10, 512))]
 
 
 @pytest.mark.gpu
@@ -1522,12 +1682,16 @@ def test_margin_bwd_variants_edit_the_kernel_source():
 def test_quad_bwd_variants_edit_the_kernel_source():
     """The backward's timing tool (``tools/quad_bwd_variants.py``) builds
     copies of ``csrc/quad_margin.cu`` with one phase left out or another
-    warp count: each of its edits matches the source exactly once, so that
-    every copy it times differs from the kernel where its name says."""
+    warp count (the tensor-core kernel's) or another place for the written
+    cosines (the f32 kernel's): each of its edits matches the source
+    exactly once, so that every copy it times differs from the kernel where
+    its name says; the copy each form holds to the plain version is one of
+    its own."""
     from vlsfr_tpu_torch.ops import cuda_build
-    from vlsfr_tpu_torch.tools.quad_bwd_variants import VARIANTS
+    from vlsfr_tpu_torch.tools.quad_bwd_variants import CHECKED, F32_VARIANTS, VARIANTS
 
+    assert CHECKED["f32"] in F32_VARIANTS and all(CHECKED[f] in VARIANTS for f in FORMS)
     src = (cuda_build.CSRC / "quad_margin.cu").read_text()
-    for name, edits in VARIANTS.items():
+    for name, edits in {**VARIANTS, **F32_VARIANTS}.items():
         for old, new in edits:
             assert src.count(old) == 1 and old != new, name

@@ -229,16 +229,16 @@ def test_bwd_geometry_covers_the_queue_once(form):
     """The backward kernel's grid (``bwd_geometry``), at probe rows, queue
     sizes and SM counts from a few rows and a ragged 63 columns up to the
     10M-slot int8 queue: its column chunks cover [0, Q) exactly once in
-    whole 64-column tiles, its row groups cover the R rows, and the
-    tensor-core forms (64 rows, one block an SM) make one wave and send
-    written columns' d_cos to a [R, 2, bp] wcoef; the f32 kernel takes 32
-    rows, four blocks an SM, and no wcoef."""
+    whole 64-column tiles, its row groups cover the R rows, and every form
+    (64 rows, one block an SM) makes one wave and sends written columns'
+    d_cos to a [R, 2, bp] wcoef; the f32 kernel also takes their cosines
+    from a [R, 2, bp] wcos, the tensor-core forms none."""
     tc = form in ttm.TC_FORMS
     for r_, q, sms, bp in ((2, 1, 132, 1), (74, 63, 132, 37), (74, 3001, 16, 37),
                            (128, 64, 114, 64), (256, 4096, 132, 128), (256, 1 << 20, 132, 128),
                            (256, 10485760, 132, 128), (256, 2621440, 114, 256)):
         geo = ttm.bwd_geometry(form, r_, q, sms, bp)
-        assert (geo.rows_per_block, geo.blocks_per_sm) == ((64, 1) if tc else (32, 4))
+        assert (geo.rows_per_block, geo.blocks_per_sm) == (64, 1)
         per = geo.cols_per_chunk
         assert per % ttm.TILE == 0
         spans = [(c * per, min(q, (c + 1) * per)) for c in range(geo.nchunk)]
@@ -247,4 +247,5 @@ def test_bwd_geometry_covers_the_queue_once(form):
         assert all(a[1] == b_[0] for a, b_ in zip(spans, spans[1:]))
         assert (geo.n_rg - 1) * geo.rows_per_block < r_ <= geo.n_rg * geo.rows_per_block
         assert geo.nchunk * geo.n_rg <= geo.blocks_per_sm * sms
-        assert geo.wcoef == ((r_, 2, bp) if tc else None)
+        assert geo.wcoef == (r_, 2, bp)
+        assert geo.wcos == (None if tc else (r_, 2, bp))

@@ -11,7 +11,7 @@
 // same bits, so both passes take them from one chain: `tile_gemm`'s FMA
 // chain over the feature axis in index order (the f32, int8 and int8c
 // forms; quad_margin.cu's `row_dot` keeps that order for the columns this
-// step writes; margin_ce.cu's f32 backward walks it in `ftile_dots`), or
+// step writes; the f32 backwards of both walk it in `ftile_dots`), or
 // the bf16 forms' k16 chain on the tensor cores (mma_bf16.cuh: mma_nt).
 //
 // `A` is each kernel's argument struct: it has loss_type, k, margin, scale,
@@ -226,7 +226,8 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TI][TJ], float& n2, float
 // reads a float4 of each of its rows and adds the products feature by
 // feature. Every output is one fmaf chain over the features 0 .. D - 1 in
 // index order from 0 (and ||y||^2 the same chain of y * y): tile_gemm's,
-// whatever the tiling.
+// whatever the tiling. margin_ce.cu's f32 pass takes the row norms
+// (NORM), quad_margin.cu's f32 backward does not.
 
 // features [k0, k0 + kw) (kw a multiple of 4) of the rows row0 .. row0 + n - 1
 // of src [*, D] into dst rows 0 .. rows - 1 (row stride ld floats) by 16-byte
@@ -252,10 +253,11 @@ __host__ __device__ constexpr int ftile_stage_floats() {
 
 // acc[i][j] = sum over k = 0 .. D - 1 in order of X[x0 + ax + SA*i][k] *
 // Y[y0 + by + SB*j][k], the X rows from nx on and the Y rows from ny on
-// reading as 0; thread t < NY also sums n2 = ||Y[y0 + t]||^2. X streams
-// through the stages at stg (ftile_stage_floats), Y's chunk kc goes to yt +
-// FK kc. Leaves no copy in flight and ends with a barrier.
-template <int NX, int NY, int THREADS, int NST, int FK, int TI, int TJ, int SA, int SB>
+// reading as 0; with NORM, thread t < NY also sums n2 = ||Y[y0 + t]||^2. X
+// streams through the stages at stg (ftile_stage_floats), Y's chunk kc goes
+// to yt + FK kc. Leaves no copy in flight and ends with a barrier.
+template <int NX, int NY, int THREADS, int NST, int FK, int TI, int TJ, int SA, int SB,
+          bool NORM = true>
 __device__ __forceinline__ void ftile_dots(float (&acc)[TI][TJ], float& n2, float* stg, float* yt,
                                            const float* X, long long x0, int nx, const float* Y,
                                            long long y0, int ny, int D, int ax, int by) {
@@ -280,7 +282,7 @@ __device__ __forceinline__ void ftile_dots(float (&acc)[TI][TJ], float& n2, floa
     load(kc + NST - 1);
     const float* Xs = stg + (kc % NST) * NX * LD;
     const float* Ys = yt + FK * kc;
-    if (threadIdx.x < NY) {
+    if (NORM && threadIdx.x < NY) {
 #pragma unroll
       for (int k = 0; k < FK; k += 4) {
         const float4 y = *reinterpret_cast<const float4*>(Ys + threadIdx.x * ldy + k);

@@ -84,11 +84,33 @@
 //    memory; then each thread owns one probe row and streams the tile's 64
 //    columns into that row's running (max, sumexp) and register top-k for
 //    both views.
-//  * Backward, F32: one block holds 32 probe rows x a column range, so its
-//    d_emb partial [32, D] fits in registers (64 per thread at D = 512). The
-//    8 row groups of one range are adjacent in launch order and share each
-//    q0 tile through L2. Per tile: GEMM cos [32, 64] -> d_cos -> GEMM
-//    d_cos @ q0 tile.
+//  * Backward, F32 (quad_bwd_f32_kernel; IEEE f32 FMA on the CUDA cores,
+//    no TF32): a block holds 64 probe rows x a column range, 8 warps, one
+//    block an SM (186 KiB of shared memory at D = 512), so each q0 tile is
+//    read by R / 64 blocks (4 at the quad's R = 256, 2 at the twin's 128),
+//    adjacent in launch order, which share it through L2; the grid is one
+//    wave. Its d_emb partial [64, D] stays in registers over the whole
+//    range (128 f32 a thread at D = 512: 8 rows x 16 features; 244
+//    registers, no spill). Per 64-column tile, one staging for both
+//    products: margin_common.cuh's ftile_dots stages the q0 tile by 16-byte
+//    cp.async into [64][D + 4] (zero from c_end) while E's 64 rows stream
+//    through two stages of 64 features from L2, and forms cos [64, 64] (4 x
+//    4 a thread), each an fmaf chain over the features in index order from
+//    0: tile_gemm's, so the forward's bits for the top-k test
+//    (quad_clean_cos_launch shows both tilings). d_cos, the two views'
+//    dcos_col terms summed in f32, goes to shared memory transposed ([64
+//    columns][64 + 4]); then d_emb += d_cos . the tile still staged, float4
+//    loads of both operands, 128 FMAs for six 16-byte shared loads. The
+//    written columns stay out of both products: their cosines come from
+//    wcos [R][2][BP], formed once a launch by row_dot (the forward's
+//    chain), and their d_cos towards the g / v row goes to wcoef [R][2][BP]
+//    at (row, writer), which only that column's thread writes; the merge
+//    adds wcoef . G / V (no atomics). What bounds it on an H100: shared
+//    memory's 128 B a clock an SM. The cosine micro-tile reads 32 B for 16
+//    FMAs (two 16-byte loads a feature step for each of 4 rows and 4
+//    columns), so its product runs at most at half the f32 rate; the d_emb
+//    product's 96 B for 128 FMAs leave it FMA-bound
+//    (tools/quad_bwd_variants.py times each phase).
 //  * This step's queue writes: per tile, the block finds for every column
 //    the last (highest batch index) parity-0 writer and blend writer of
 //    each direction (shared-memory atomicMax on the index: deterministic).
@@ -127,7 +149,7 @@
 //    int32 sum, the forward's __dp4a integer whatever the tiling.
 //    Backward (quad_bwd_tc_kernel<FORM>): a block holds 64 probe rows x a
 //    column range, so each q0 tile is read by R / 64 blocks (4 at the
-//    quad's R = 256, half the 32-row FMA kernel's L2 traffic); its d_emb
+//    quad's R = 256, as in the F32 form's kernel); its d_emb
 //    partial [64, D] lives in mma accumulators, 128 f32 a thread at D =
 //    512. Per 64-column tile (two tiles in flight as stored, int8: 32 KiB a
 //    tile at D = 512 and its 64 column scales, plus one widened to bf16 for
@@ -603,11 +625,6 @@ __global__ void quad_partial_merge_kernel(Args a, int nblk, const float* part, f
 
 // --------------------------------------------------------------- backward
 
-constexpr int B_RB = 32, B_TC = 64, B_DK = 16, B_THREADS = 256, B_JMAX = 8;  // D <= 64 * 8
-constexpr int B_ALD = B_RB + 4, B_BLD = B_TC + 4, B_CLD = B_TC + 1;
-constexpr size_t B_SMEM = sizeof(float) * (B_DK * B_ALD + B_DK * B_BLD + 3 * B_RB * B_CLD) +
-                          sizeof(int) * (4 * B_TC + 4);
-
 struct BwdRows {
   const float* logz;  // [2][R]
   const float* kth;   // [2][R]
@@ -648,9 +665,10 @@ __device__ __forceinline__ RowCoef row_coef(const Args& a, const BwdRows& br, in
   return rc;
 }
 
-// d_cos of row rc (global row gr) at column c of a TC-column tile whose
-// clean cosine is c1 and whose stored row q0's scale is sc (1 but on an
-// int8 queue), routed per view to the row that view scores
+// d_cos of row rc (global row gr) on a rounded form (the tensor-core
+// backward; F32: bf_clean_dcos / bf_written_dcos below) at column c of a
+// TC-column tile whose clean cosine is c1 and whose stored row q0's scale
+// is sc (1 but on an int8 queue), routed per view to the row that view scores
 // against: dq to q0's stored row, dg to the parity-0 write g, dv to the
 // view-2 write v; i0 / ib return the column's last writers in the row's
 // direction (-1: none). The BF16 form keeps the two views' rounded d_cos
@@ -663,7 +681,7 @@ __device__ __forceinline__ void route_dcos(const Args& a, const RowCoef& rc, int
                                            const int* last0, const int* lastb, const int* written,
                                            float c1, float sc, float& dq, float& dq2, float& dg,
                                            float& dv, int& i0, int& ib) {
-  constexpr bool ROUND = FORM != FORM_F32;
+  static_assert(FORM != FORM_F32, "the F32 form's d_cos rounds nothing");
   constexpr bool SCALED = FORM == FORM_INT8 || FORM == FORM_INT8C;
   const bool w64 = written[rc.dir] != 0;      // this tile holds a write of the row's direction
   const bool hit = written[2 + rc.dir] != 0;  // ... its rounding tile does
@@ -677,7 +695,7 @@ __device__ __forceinline__ void route_dcos(const Args& a, const RowCoef& rc, int
     if (i0 >= 0) c1 = row_dot(e_row, a.G + (long long)(rc.dir * a.BP + i0) * a.D, a.D);
     c2 = ib >= 0 ? row_dot(e_row, a.V + (long long)(rc.dir * a.BP + ib) * a.D, a.D) : c1;
   }
-  if (ROUND && (!WRITES || !hit)) {  // clean tile: both views read the stored row
+  if (!WRITES || !hit) {  // clean tile: both views read the stored row
     float d;
     if (a.loss_type == LOSS_SV || a.twin) {
       d = dcos_col(c1, rc.gt[0], rc.lz[0], rc.kth[0], rc.dce[0], rc.dneg[0], !rc.pos, a) +
@@ -708,120 +726,192 @@ __device__ __forceinline__ void route_dcos(const Args& a, const RowCoef& rc, int
   }
 }
 
-// the F32 form (f32 FMA; the others: quad_bwd_tc_kernel)
-__global__ void __launch_bounds__(B_THREADS)
-    quad_bwd_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg, float* part) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                // E row-group chunk, k-major [B_DK][B_ALD]
-  float* Bs = As + B_DK * B_ALD;   // q0 chunk, k-major [B_DK][B_BLD]
-  float* Dq = Bs + B_DK * B_BLD;   // d_cos routed to q0 rows   [B_RB][B_CLD]
-  float* Dg = Dq + B_RB * B_CLD;   // ... to the parity-0 write g
-  float* Dv = Dg + B_RB * B_CLD;   // ... to the view-2 write v
-  int* last0 = reinterpret_cast<int*>(Dv + B_RB * B_CLD);
-  int* lastb = last0 + 2 * B_TC;
-  int* written = lastb + 2 * B_TC;  // [4]
+// ------------------------------------------ backward, F32, on the CUDA cores
 
-  const int tid = threadIdx.x;
+// quad_bwd_f32_kernel (module header): a block holds BF_RB probe rows x a
+// column range, BF_THREADS threads, one block an SM
+constexpr int BF_RB = 64, BF_TC = 64, BF_THREADS = 256;  // probe rows, tile columns
+constexpr int BF_NST = 2, BF_FK = 64;  // the cosines' E stages, features a chunk
+constexpr int BF_DLD = BF_RB + 4;      // d_cos^T's row stride: one row a tile column
+// the cosine micro-tile (bf_cos_map): rows ax + BF_SA i (i < BF_TI), tile
+// columns by + BF_SB j (j < BF_TJ)
+constexpr int BF_TI = 4, BF_TJ = 4, BF_SA = 16, BF_SB = 16;
+static_assert(BF_TI * BF_SA == BF_RB && BF_TJ * BF_SB == BF_TC, "the micro-tiles cover the tile");
+constexpr int BF_STG = ftile_stage_floats<BF_RB, BF_NST, BF_FK>();
+
+// shared memory at feature width D: the q0 tile [BF_TC][D + 4], E's stages,
+// d_cos^T [BF_TC][BF_DLD], the rows' inputs and the write plan
+__host__ __device__ constexpr int bf_smem(int D) {
+  return 4 * (BF_TC * (D + 4) + BF_STG + BF_TC * BF_DLD) + BF_RB * (int)sizeof(RowCoef) +
+         (4 * BF_TC + 4) * (int)sizeof(int);
+}
+static_assert(bf_smem(512) <= 232448, "the f32 backward fits a block's shared memory at D = 512");
+
+// the cosine map: the eight threads of a quarter warp read one E row (a
+// broadcast) and eight consecutive q0 rows (ftile_dots' banks)
+__device__ __forceinline__ void bf_cos_map(int& ax, int& by) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ax = 4 * (warp >> 1) + (lane >> 3);
+  by = 8 * (warp & 1) + (lane & 7);
+}
+
+// the clean cosines acc[i][j] of probe rows r_base + ax + BF_SA i (the first
+// nr valid) against q0 rows t0 + by + BF_SB j (the first n valid): E's rows
+// stream through the stages stg, q0's are staged into Qt [BF_TC][D + 4] and
+// stay there; ftile_dots' chain, the forward's bits
+__device__ __forceinline__ void bf_dots(float (&acc)[BF_TI][BF_TJ], float* stg, float* Qt,
+                                        const Args& a, int r_base, int nr, long long t0, int n,
+                                        int ax, int by) {
+  float n2;
+  ftile_dots<BF_RB, BF_TC, BF_THREADS, BF_NST, BF_FK, BF_TI, BF_TJ, BF_SA, BF_SB, false>(
+      acc, n2, stg, Qt, a.E, r_base, nr, static_cast<const float*>(a.q0), t0, n, a.D, ax, by);
+}
+
+// d_cos of row rc at a column whose clean cosine is c1: the F32 form's sum
+// of both views' dcos_col terms (no rounding, no combined form)
+__device__ __forceinline__ float bf_clean_dcos(const Args& a, const RowCoef& rc, float c1) {
+  return dcos_col(c1, rc.gt[0], rc.lz[0], rc.kth[0], rc.dce[0], rc.dneg[0], !rc.pos, a) +
+         dcos_col(c1, rc.gt[1], rc.lz[1], rc.kth[1], rc.dce[1], rc.dneg[1], !rc.pos, a);
+}
+
+// ... at the tile's column c of a tile that holds a write of the row's
+// direction: a column this step writes takes its cosine with the last
+// parity-0 writer g and the last blend writer v from wcos [R][2][BP]
+// (row_dot's chain, the forward's bits) and sends the term each view owes
+// that row to wcoef [R][2][BP], which only this thread writes at (gr,
+// writer). Returns the term on q0's stored row.
+__device__ __forceinline__ float bf_written_dcos(const Args& a, const RowCoef& rc, int gr, int c,
+                                                 const int* last0, const int* lastb, float c1,
+                                                 const float* wcos, float* wcoef) {
+  const long long wrow = (long long)gr * 2 * a.BP;
+  const int i0 = last0[rc.dir * BF_TC + c], ib = lastb[rc.dir * BF_TC + c];
+  if (i0 >= 0) c1 = wcos[wrow + i0];
+  const float c2 = ib >= 0 ? wcos[wrow + a.BP + ib] : c1;
+  float d1 = dcos_col(c1, rc.gt[0], rc.lz[0], rc.kth[0], rc.dce[0], rc.dneg[0], !rc.pos, a);
+  const float d2 = dcos_col(c2, rc.gt[1], rc.lz[1], rc.kth[1], rc.dce[1], rc.dneg[1], !rc.pos, a);
+  if (ib >= 0) wcoef[wrow + a.BP + ib] = d2;  // view 2 reads v
+  else d1 += d2;                              // ... or view 1's row
+  if (i0 >= 0) {                              // view 1 reads g
+    wcoef[wrow + i0] = d1;
+    return 0.f;
+  }
+  return d1;
+}
+
+// The F32 form (module header)
+__global__ void __launch_bounds__(BF_THREADS, 1)
+    quad_bwd_f32_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg,
+                        const float* wcos, float* part, float* wcoef) {
+  extern __shared__ __align__(16) float bf_sm[];
+  const int D = a.D, ldq = D + 4;
+  float* Qt = bf_sm;              // the q0 tile [BF_TC][D + 4]
+  float* stg = Qt + BF_TC * ldq;  // E's stages
+  float* Dq = stg + BF_STG;       // d_cos^T [BF_TC][BF_DLD]
+  RowCoef* rcs = reinterpret_cast<RowCoef*>(Dq + BF_TC * BF_DLD);
+  int* last0 = reinterpret_cast<int*>(rcs + BF_RB);
+  int* lastb = last0 + 2 * BF_TC;
+  int* written = lastb + 2 * BF_TC;  // [4]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rg = blockIdx.x % n_rg, chunk = blockIdx.x / n_rg;
-  const int r_base = rg * B_RB;
+  const int r_base = rg * BF_RB, nr = min(BF_RB, a.R - r_base);
   const long long c_begin = (long long)chunk * cols_per_chunk;
   const long long c_end = min(a.Q, c_begin + cols_per_chunk);
-  const int nj = a.D / 64;
-  const float* q0 = static_cast<const float*>(a.q0);
-
-  // GEMM-1 / d_cos map: rows ty + 16i (i < 2), cols tx + 16j (j < 4)
-  const int tx = tid & 15, ty = tid >> 4;
-  RowCoef rc[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) rc[i] = row_coef(a, br, r_base + ty + 16 * i);
-  // GEMM-2 map: rows ry*8 + i (i < 8), features dx + 64j (j < nj)
-  const int ry = tid >> 6, dx = tid & 63;
-  float acc2[8][B_JMAX];
+  for (int r = tid; r < BF_RB; r += BF_THREADS) rcs[r] = row_coef(a, br, r_base + r);
+  int ax, by;
+  bf_cos_map(ax, by);
+  // the d_emb map: thread t holds the rows er .. er + 7 and the features
+  // ef + 128 q .. + 3 (q < 4) below D, 128 f32 at D = 512; a quarter warp
+  // reads one d_cos column's 8 rows (a broadcast) and 32 consecutive
+  // features of one q0 row
+  const int er = 8 * (4 * (warp & 1) + (lane >> 3)), ef = 4 * (8 * (warp >> 1) + (lane & 7));
+  float demb[8][16];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < B_JMAX; ++j) acc2[i][j] = 0.f;
+    for (int f = 0; f < 16; ++f) demb[i][f] = 0.f;
 
-  for (long long t0 = c_begin; t0 < c_end; t0 += B_TC) {
-    mark_writes<B_TC>(a, t0, last0, lastb, written);
-    const bool any_w = (written[0] | written[1]) != 0;
+  for (long long t0 = c_begin; t0 < c_end; t0 += BF_TC) {
+    const int n = (int)min((long long)BF_TC, c_end - t0);
+    mark_writes<BF_TC>(a, t0, last0, lastb, written);  // its barriers publish rcs too
+    float acc[BF_TI][BF_TJ];
+    bf_dots(acc, stg, Qt, a, r_base, nr, t0, n, ax, by);
 
-    float acc[2][4];
-    cos_tile<FORM_F32, B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16>(
-        a, acc, As, Bs, r_base, t0, c_end, ty, tx);
-
-    // d_cos, routed per view to the row that view scores against
+    // d_cos into Dq, transposed: one row a tile column. A row whose tile
+    // holds no write of its direction takes the clean route, unrolled; one
+    // whose tile does takes every route an element at a time (inlined into
+    // every unrolled element, the written route slowed the clean one by 0.8
+    // ms of 18.8 at Q = 2^20 on an H100: tools/quad_bwd_variants.py)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int lr = ty + 16 * i, gr = r_base + lr;
+    for (int i = 0; i < BF_TI; ++i) {
+      const int lr = ax + BF_SA * i, gr = r_base + lr;
+      const RowCoef rc = rcs[lr];  // in registers: the Dq stores below may alias it
+      if (written[rc.dir] == 0) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const long long gc = t0 + c;
-        float dq = 0.f, dq2 = 0.f, dg = 0.f, dv = 0.f;  // dq2: the BF16 form only
-        if (rc[i].ok && gc < c_end && gc != (long long)rc[i].lab) {
-          int i0, ib;
-          route_dcos<FORM_F32, B_TC>(a, rc[i], gr, c, last0, lastb, written, acc[i][j], 1.f, dq,
-                                     dq2, dg, dv, i0, ib);
+        for (int j = 0; j < BF_TJ; ++j) {
+          const int c = by + BF_SB * j;
+          const bool live = rc.ok && c < n && t0 + c != (long long)rc.lab;
+          Dq[c * BF_DLD + lr] = live ? bf_clean_dcos(a, rc, acc[i][j]) : 0.f;
         }
-        Dq[lr * B_CLD + c] = dq;
-        Dg[lr * B_CLD + c] = dg;
-        Dv[lr * B_CLD + c] = dv;
+      } else {
+        float cv[BF_TJ];
+#pragma unroll
+        for (int j = 0; j < BF_TJ; ++j) cv[j] = acc[i][j];
+#pragma unroll 1
+        for (int j = 0; j < BF_TJ; ++j) {
+          const int c = by + BF_SB * j;
+          const bool live = rc.ok && c < n && t0 + c != (long long)rc.lab;
+          Dq[c * BF_DLD + lr] =
+              live ? bf_written_dcos(a, rc, gr, c, last0, lastb, cv[j], wcos, wcoef) : 0.f;
+        }
       }
     }
     __syncthreads();
 
-    // d_emb += d_cos @ (effective rows of this tile)
-    const int n = (int)min((long long)B_TC, c_end - t0);
+    // demb += d_cos . the q0 tile, column by column in order
+#pragma unroll 4
     for (int c = 0; c < n; ++c) {
-      const float* wrow = q0 + (t0 + c) * a.D + dx;
-      float w[B_JMAX];
+      const float4 dlo = *reinterpret_cast<const float4*>(Dq + c * BF_DLD + er);
+      const float4 dhi = *reinterpret_cast<const float4*>(Dq + c * BF_DLD + er + 4);
+      const float dv[8] = {dlo.x, dlo.y, dlo.z, dlo.w, dhi.x, dhi.y, dhi.z, dhi.w};
+      const float* qrow = Qt + c * ldq + ef;
+      float wv[16];  // the column's features, 0 from D (a guard per load, none per product)
 #pragma unroll
-      for (int j = 0; j < B_JMAX; ++j) w[j] = j < nj ? __ldg(wrow + 64 * j) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float d = Dq[(ry * 8 + i) * B_CLD + c];
-#pragma unroll
-        for (int j = 0; j < B_JMAX; ++j) acc2[i][j] = fmaf(d, w[j], acc2[i][j]);
+      for (int fq = 0; fq < 4; ++fq) {
+        const float4 w = ef + 128 * fq < D ? *reinterpret_cast<const float4*>(qrow + 128 * fq)
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+        wv[4 * fq] = w.x, wv[4 * fq + 1] = w.y, wv[4 * fq + 2] = w.z, wv[4 * fq + 3] = w.w;
       }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int f = 0; f < 16; ++f) demb[i][f] = fmaf(dv[i], wv[f], demb[i][f]);
     }
-    if (any_w) {
-      for (int c = 0; c < n; ++c) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int lr = ry * 8 + i, gr = r_base + lr;
-          if (gr >= a.R) continue;
-          const int d = gr / a.B;
-          const int i0 = last0[d * B_TC + c], ib = lastb[d * B_TC + c];
-          if (i0 >= 0) {
-            const float coef = Dg[lr * B_CLD + c];
-            const float* g = a.G + (long long)(d * a.BP + i0) * a.D + dx;
-#pragma unroll
-            for (int j = 0; j < B_JMAX; ++j)
-              if (j < nj) acc2[i][j] = fmaf(coef, g[64 * j], acc2[i][j]);
-          }
-          if (ib >= 0) {
-            const float coef = Dv[lr * B_CLD + c];
-            const float* vv = a.V + (long long)(d * a.BP + ib) * a.D + dx;
-#pragma unroll
-            for (int j = 0; j < B_JMAX; ++j)
-              if (j < nj) acc2[i][j] = fmaf(coef, vv[64 * j], acc2[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // Dq/Dg/Dv and the write plan are rebuilt next tile
+    __syncthreads();  // Qt, Dq and the write plan are rebuilt by the next tile
   }
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int gr = r_base + ry * 8 + i;
+    const int gr = r_base + er + i;
     if (gr >= a.R) continue;
-    float* p = part + ((long long)chunk * a.R + gr) * a.D + dx;
+    float* p = part + ((long long)chunk * a.R + gr) * D + ef;
 #pragma unroll
-    for (int j = 0; j < B_JMAX; ++j)
-      if (j < nj) p[64 * j] = acc2[i][j];
+    for (int fq = 0; fq < 4; ++fq)
+      if (ef + 128 * fq < D)
+        *reinterpret_cast<float4*>(p + 128 * fq) = make_float4(
+            demb[i][4 * fq], demb[i][4 * fq + 1], demb[i][4 * fq + 2], demb[i][4 * fq + 3]);
   }
+}
+
+// the F32 form's written cosines, once a launch: wcos[r][v][i] = E[r] .
+// (v ? V : G)[dir(r) BP + i] by row_dot, the forward's chain for the
+// columns this step writes
+__global__ void quad_written_cos_kernel(Args a, float* wcos) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // (2 r + v) BP + i
+  if (idx >= (long long)a.R * 2 * a.BP) return;
+  const int i = (int)(idx % a.BP), rv = (int)(idx / a.BP), r = rv >> 1;
+  const float* w = ((rv & 1) ? a.V : a.G) + (long long)(r / a.B * a.BP + i) * a.D;
+  wcos[idx] = row_dot(a.E + (long long)r * a.D, w, a.D);
 }
 
 // ------------------------------------- backward on the tensor cores
@@ -1146,9 +1236,9 @@ __global__ void __launch_bounds__(BB_THREADS, 1)
     }
 }
 
-// d_emb = sum of the chunk partials in chunk order (the tensor-core
-// forms' written rows after them: wcoef [R][2][BP] . G / V of the row's
-// direction); d_gt, the target
+// d_emb = sum of the chunk partials in chunk order, the written rows
+// after them (wcoef [R][2][BP] . G / V of the row's direction); d_gt, the
+// target
 // column's dz: (exp(scale*phi(gt_v) - logz_v) - 1) * d_ce_v * scale on rows
 // whose (shard-local) label is >= 0
 __global__ void quad_bwd_merge_kernel(Args a, BwdRows br, int nchunk, const float* part,
@@ -1158,14 +1248,12 @@ __global__ void quad_bwd_merge_kernel(Args a, BwdRows br, int nchunk, const floa
   if (idx < n) {
     float acc = 0.f;
     for (int c = 0; c < nchunk; ++c) acc += part[(long long)c * n + idx];
-    if (wcoef != nullptr) {
-      const int r = (int)(idx / a.D), k = (int)(idx - (long long)r * a.D), d = r / a.B;
-      const float* wc = wcoef + (long long)r * 2 * a.BP;
-      for (int i = 0; i < a.BP; ++i) {
-        const long long w = (long long)(d * a.BP + i) * a.D + k;
-        if (wc[i] != 0.f) acc = fmaf(wc[i], a.G[w], acc);
-        if (wc[a.BP + i] != 0.f) acc = fmaf(wc[a.BP + i], a.V[w], acc);
-      }
+    const int r = (int)(idx / a.D), k = (int)(idx - (long long)r * a.D), d = r / a.B;
+    const float* wc = wcoef + (long long)r * 2 * a.BP;
+    for (int i = 0; i < a.BP; ++i) {
+      const long long w = (long long)(d * a.BP + i) * a.D + k;
+      if (wc[i] != 0.f) acc = fmaf(wc[i], a.G[w], acc);
+      if (wc[a.BP + i] != 0.f) acc = fmaf(wc[a.BP + i], a.V[w], acc);
     }
     d_emb[idx] = acc;
   }
@@ -1253,10 +1341,22 @@ cudaError_t launch_fwd_blocks(const Args& a, int form, float* part, int nblk,
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch_bwd_f32(const Args& a, const BwdRows& br, float* part, int nchunk,
-                           long long cols_per_chunk, cudaStream_t st) {
-  const int n_rg = (a.R + B_RB - 1) / B_RB;
-  quad_bwd_kernel<<<nchunk * n_rg, B_THREADS, B_SMEM, st>>>(a, br, cols_per_chunk, n_rg, part);
+// the F32 form: the written cosines, then the block pass
+cudaError_t launch_bwd_f32(const Args& a, const BwdRows& br, float* part, float* wcoef,
+                           float* wcos, int nchunk, long long cols_per_chunk, cudaStream_t st) {
+  if (wcoef == nullptr || wcos == nullptr) return cudaErrorInvalidValue;
+  const long long nw = (long long)a.R * 2 * a.BP;
+  if (nw > 0) {
+    quad_written_cos_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a, wcos);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int n_rg = (a.R + BF_RB - 1) / BF_RB, smem = bf_smem(a.D);
+  const cudaError_t err = cudaFuncSetAttribute(
+      quad_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  quad_bwd_f32_kernel<<<nchunk * n_rg, BF_THREADS, smem, st>>>(a, br, cols_per_chunk, n_rg, wcos,
+                                                               part, wcoef);
   return cudaGetLastError();
 }
 
@@ -1387,17 +1487,48 @@ cudaError_t launch_clean_cos_fwd_tc(const Args& a, float* out, cudaStream_t st) 
   return cudaGetLastError();
 }
 
-// the F32 form in both tilings, and the INT8C forward's (__dp4a)
+// the F32 form's and the INT8C forward's (__dp4a) with the forward's tiling
 template <int FORM>
-cudaError_t launch_clean_cos_fma(const Args& a, int bwd_tiles, float* out, cudaStream_t st) {
+cudaError_t launch_clean_cos_fma(const Args& a, float* out, cudaStream_t st) {
   const unsigned n_t = (unsigned)((a.Q + F_TC - 1) / F_TC);
-  if (bwd_tiles) {
-    clean_cos_kernel<FORM, B_RB, B_TC, B_DK, B_THREADS, B_ALD, B_BLD, 2, 4, 16, 16>
-        <<<dim3(n_t, (a.R + B_RB - 1) / B_RB), B_THREADS, 0, st>>>(a, out);
-  } else {
-    clean_cos_kernel<FORM, F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 32, 8>
-        <<<dim3(n_t, 1), F_THREADS, 0, st>>>(a, out);
+  clean_cos_kernel<FORM, F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 32, 8>
+      <<<dim3(n_t, 1), F_THREADS, 0, st>>>(a, out);
+  return cudaGetLastError();
+}
+
+// ... the F32 form with the backward's tiling: one block per row group and
+// 64 columns, bf_dots as quad_bwd_f32_kernel runs it (its staging, its
+// micro-tiles)
+__global__ void __launch_bounds__(BF_THREADS) clean_cos_bwd_f32_kernel(Args a, float* out) {
+  extern __shared__ __align__(16) float ccb_f32[];
+  const int r_base = blockIdx.y * BF_RB;
+  const long long t0 = (long long)blockIdx.x * BF_TC;
+  float* Qt = ccb_f32;
+  float* stg = Qt + BF_TC * (a.D + 4);
+  int ax, by;
+  bf_cos_map(ax, by);
+  float acc[BF_TI][BF_TJ];
+  bf_dots(acc, stg, Qt, a, r_base, min(BF_RB, a.R - r_base), t0,
+          (int)min((long long)BF_TC, a.Q - t0), ax, by);
+#pragma unroll
+  for (int i = 0; i < BF_TI; ++i) {
+    const long long r = r_base + ax + BF_SA * i;
+#pragma unroll
+    for (int j = 0; j < BF_TJ; ++j) {
+      const long long c = t0 + by + BF_SB * j;
+      if (r < a.R && c < a.Q) out[r * a.Q + c] = acc[i][j];
+    }
   }
+}
+
+cudaError_t launch_clean_cos_bwd_f32(const Args& a, float* out, cudaStream_t st) {
+  const unsigned n_t = (unsigned)((a.Q + BF_TC - 1) / BF_TC);
+  const int smem = 4 * (BF_TC * (a.D + 4) + BF_STG);
+  const cudaError_t err = cudaFuncSetAttribute(
+      clean_cos_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  clean_cos_bwd_f32_kernel<<<dim3(n_t, (a.R + BF_RB - 1) / BF_RB), BF_THREADS, smem, st>>>(a,
+                                                                                          out);
   return cudaGetLastError();
 }
 
@@ -1444,12 +1575,11 @@ int quad_partial_fwd_launch(QUAD_COMMON_PARAMS, float* part, int nblk, long long
 
 // backward (and the partial backward, with a shard's block, shard-local
 // cols and labels and the global row vectors): nchunk column ranges x
-// row groups of 32 rows (F32) or 64 (the tensor-core forms); part is
-// [nchunk][R][D] f32 scratch; wcoef (every form but F32, else null)
-// [R][2][BP] f32 scratch, zeroed by the caller; outputs d_emb [R][D] and
-// d_gt [2][R]
+// row groups of 64 rows; part is [nchunk][R][D] f32 scratch; wcoef
+// [R][2][BP] f32 scratch, zeroed by the caller; wcos (F32, else null)
+// [R][2][BP] f32 scratch; outputs d_emb [R][D] and d_gt [2][R]
 int quad_bwd_launch(QUAD_COMMON_PARAMS, const float* logz, const float* kth, const float* dce,
-                    const float* dneg, float* part, float* wcoef, int nchunk,
+                    const float* dneg, float* part, float* wcoef, float* wcos, int nchunk,
                     long long cols_per_chunk, float* d_emb, float* dgt, void* stream) {
   const Args a = make_args(QUAD_COMMON_ARGS);
   BwdRows br;
@@ -1460,7 +1590,9 @@ int quad_bwd_launch(QUAD_COMMON_PARAMS, const float* logz, const float* kth, con
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
   switch (form) {
-    case FORM_F32: err = launch_bwd_f32(a, br, part, nchunk, cols_per_chunk, st); break;
+    case FORM_F32:
+      err = launch_bwd_f32(a, br, part, wcoef, wcos, nchunk, cols_per_chunk, st);
+      break;
     case FORM_BF16:
       err = launch_bwd_tc<FORM_BF16>(a, br, part, wcoef, nchunk, cols_per_chunk, st);
       break;
@@ -1473,8 +1605,8 @@ int quad_bwd_launch(QUAD_COMMON_PARAMS, const float* logz, const float* kth, con
   }
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)R * D;
-  quad_bwd_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      a, br, nchunk, part, form == FORM_F32 ? nullptr : wcoef, d_emb, dgt);
+  quad_bwd_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(a, br, nchunk, part, wcoef,
+                                                                     d_emb, dgt);
   return (int)cudaGetLastError();
 }
 
@@ -1484,7 +1616,9 @@ int quad_clean_cos_launch(QUAD_COMMON_PARAMS, int bwd_tiles, float* out, void* s
   const Args a = make_args(QUAD_COMMON_ARGS);
   cudaStream_t st = (cudaStream_t)stream;
   switch (form) {
-    case FORM_F32: return (int)launch_clean_cos_fma<FORM_F32>(a, bwd_tiles, out, st);
+    case FORM_F32:
+      return (int)(bwd_tiles ? launch_clean_cos_bwd_f32(a, out, st)
+                             : launch_clean_cos_fma<FORM_F32>(a, out, st));
     case FORM_BF16:
       return (int)(bwd_tiles ? launch_clean_cos_bwd_tc<FORM_BF16>(a, out, st)
                              : launch_clean_cos_fwd_tc<FORM_BF16>(a, out, st));
@@ -1493,7 +1627,7 @@ int quad_clean_cos_launch(QUAD_COMMON_PARAMS, int bwd_tiles, float* out, void* s
                              : launch_clean_cos_fwd_tc<FORM_INT8>(a, out, st));
     case FORM_INT8C:
       return (int)(bwd_tiles ? launch_clean_cos_bwd_tc<FORM_INT8C>(a, out, st)
-                             : launch_clean_cos_fma<FORM_INT8C>(a, 0, out, st));
+                             : launch_clean_cos_fma<FORM_INT8C>(a, out, st));
   }
   return (int)cudaErrorInvalidValue;
 }

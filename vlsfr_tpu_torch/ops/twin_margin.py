@@ -661,7 +661,8 @@ def _lib():
         lib.quad_fwd_launch.restype = lib.quad_partial_fwd_launch.restype = ctypes.c_int
         lib.quad_bwd_launch.argtypes = _FWD_ARGTYPES + [
             _P, _P, _P, _P,  # logz, kth, dce, dneg [2, R]
-            _P, _P, ctypes.c_int, ctypes.c_longlong,  # part, wcoef, nchunk, cols_per_chunk
+            _P, _P, _P,  # part, wcoef, wcos
+            ctypes.c_int, ctypes.c_longlong,  # nchunk, cols_per_chunk
             _P, _P, _P]  # d_emb, dgt, stream
         lib.quad_bwd_launch.restype = ctypes.c_int
         lib.quad_clean_cos_launch.argtypes = _FWD_ARGTYPES + [ctypes.c_int, _P, _P]
@@ -794,20 +795,22 @@ class BwdGeometry(NamedTuple):
     n_rg: int  # row groups
     nchunk: int  # column chunks, each of cols_per_chunk columns (the last may hold fewer)
     cols_per_chunk: int
-    wcoef: tuple | None  # the tensor-core forms' [R, 2, bp] d_cos towards this step's writes
+    wcoef: tuple  # [R, 2, bp]: the d_cos of written columns towards this step's writes
+    wcos: tuple | None  # the f32 form's [R, 2, bp] written cosines, formed once a launch
 
 
 def bwd_geometry(form: str, r_: int, q: int, sms: int, bp: int) -> BwdGeometry:
     """The backward kernel's grid over R probe rows and Q columns on a card
-    of ``sms`` SMs, bp writes per direction: the f32 kernel's 32-row
-    blocks run four an SM; the tensor-core forms' 64 rows fill an SM's
-    shared memory, one block an SM, so their grid is one wave, and they send
-    the d_cos of written columns to ``wcoef``."""
-    tc = form in TC_FORMS
-    rows_per_block, per_sm = (64, 1) if tc else (32, 4)
-    n_rg = -(-r_ // rows_per_block)
-    nchunk, per = _split_columns(q, max(per_sm * sms // n_rg, 1))
-    return BwdGeometry(rows_per_block, per_sm, n_rg, nchunk, per, (r_, 2, bp) if tc else None)
+    of ``sms`` SMs, bp writes per direction. Every form's block holds 64
+    rows and fills an SM's shared memory (the f32 kernel: the q0 tile
+    staged once for both products, 186 KiB at D = 512; the tensor-core
+    forms: two tiles in flight), one block an SM, so the grid is one wave.
+    Each sends the d_cos of written columns to ``wcoef``; the f32 kernel
+    also takes those columns' cosines from ``wcos``, formed before it."""
+    n_rg = -(-r_ // 64)
+    nchunk, per = _split_columns(q, max(sms // n_rg, 1))
+    return BwdGeometry(64, 1, n_rg, nchunk, per, (r_, 2, bp),
+                       (r_, 2, bp) if form not in TC_FORMS else None)
 
 
 def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b, bp,
@@ -820,15 +823,16 @@ def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg
     geo = bwd_geometry(queue_form(q0, e8), r_, q0.shape[0], sms, bp)
     nchunk, per = geo.nchunk, geo.cols_per_chunk
     part = torch.empty((nchunk, r_, E.shape[1]), device=E.device)
-    wcoef = None if geo.wcoef is None else torch.zeros(geo.wcoef, device=E.device)
+    wcoef = torch.zeros(geo.wcoef, device=E.device)
+    wcos = None if geo.wcos is None else torch.empty(geo.wcos, device=E.device)
     d_emb = torch.empty_like(E)
     dgt = torch.empty((2, r_), device=E.device)
     stream = torch.cuda.current_stream(E.device).cuda_stream
     _keep, args = _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
                                margin, scale, mask_svfc, qscales, e8, rtile, twin)
     err = lib.quad_bwd_launch(*args, logz.data_ptr(), kth.data_ptr(), dce.data_ptr(),
-                              dneg.data_ptr(), part.data_ptr(),
-                              None if wcoef is None else wcoef.data_ptr(), nchunk, per,
+                              dneg.data_ptr(), part.data_ptr(), wcoef.data_ptr(),
+                              None if wcos is None else wcos.data_ptr(), nchunk, per,
                               d_emb.data_ptr(), dgt.data_ptr(), stream)
     _check(lib, err, "quad_bwd")
     return d_emb, dgt
@@ -884,17 +888,21 @@ def quad_bwd(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
     the d_cos @ q0 product) ≈ 8.2 ms at the 67 TFLOP/s f32 rate; q0's
     2.15 GB read once is 0.64 ms; the int8 forms at Q = 10,485,760 are
     operations-bound on the tensor cores (int8 storage 5.6 ms, int8
-    compute 4.2). Design: each block owns a row group × one column range
-    (``bwd_geometry``): the f32 kernel 32 rows, its d_emb partial [32, D]
-    in registers, four blocks an SM; the bf16 and int8 forms 64 rows, one
-    block an SM, both products on the tensor cores (``mma.sync``: the
-    recompute in bf16, or s8 for int8 compute; d_cos rounded to bf16 times
-    the tile as bf16), the d_cos of written columns into ``wcoef`` for the
-    merge. The row groups of one column range are adjacent in launch order
-    and share the q0 tile through L2. A second launch sums the partials in
-    a fixed order — no float atomics, bit-stable run to run. The recompute
-    runs the forward's operation chain, so the top-k tie test sees the
-    same bits.
+    compute 4.2). Design: each block owns 64 probe rows × one column range
+    (``bwd_geometry``), one block an SM, its d_emb partial [64, D] in
+    registers. The f32 kernel runs IEEE f32 FMA on the CUDA cores: each q0
+    tile staged once, by cp.async, for both register-blocked products (the
+    recompute, then d_cos, the views' terms summed, times the tile); the
+    bf16 and int8 forms run both products on the tensor cores
+    (``mma.sync``: the recompute in bf16, or s8 for int8 compute; d_cos
+    rounded to bf16 times the tile as bf16). The written columns stay out
+    of the products: their d_cos towards this step's writes goes to
+    ``wcoef`` for the merge (the f32 kernel takes their cosines from
+    ``wcos``, formed once a launch). The row groups of one column range are
+    adjacent in launch order and share the q0 tile through L2. A second
+    launch sums the partials in a fixed order — no float atomics,
+    bit-stable run to run. The recompute runs the forward's operation
+    chain, so the top-k tie test sees the same bits.
     """
     _check_queue(q, E.shape[1])
     form = _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type,
@@ -1015,8 +1023,8 @@ def twin_bwd(E, q, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *,
     Replaces ``vlsfr_tpu/ops/twin_margin.py:pallas_twin_bwd``. Bound at
     b = 128, D = 512, Q = 2^20: f32 4·b·D·Q = 2.75e11 FLOP, 4.10 ms; bf16
     q0's 1.07e9 B, 0.32 ms (its two dots at the tensor-core rate 0.28).
-    Design: the quad backward's kernel with one direction (32-row groups,
-    d_emb partials in registers, a fixed-order merge).
+    Design: the quad backward's kernels with one direction (64-row groups,
+    two at b = 128, d_emb partials in registers, a fixed-order merge).
     """
     _check_queue(q, E.shape[1])
     form = _check_twin(E, q[0], G, V, rows, cols, blend, labels, gt, k, loss_type,

@@ -142,6 +142,11 @@ tests/test_torch_kernels.py, C = 4,096 / 5,000 and 2^20 / 1,250,000):
   elements apart at 2^20 with the momentum scaled by 1e-4 at lr 100), and
   no count of elements apart holds for it.
 
+The f32 form's clean cosines (``f32_cos_checks``) are one fmaf chain
+over the features in index order in both tilings (the forward's tile_gemm,
+the backward's ftile_dots): equal bit for bit, and within F32_COS_ATOL of
+the plain f32 product.
+
 The int8-compute dot is an exact integer sum (``int8_dot_checks``): the
 kernels' own clean cosines (``ops/twin_margin.clean_cos``, the tile code
 the forward and the backward's recompute run) with unit scales are f32 of
@@ -598,15 +603,27 @@ BF16_COS_ATOL = 1e-6  # exact bf16 products, |cos| <= 1, summed in f32 in anothe
 F32_COS_ATOL = 1e-5  # f32 sums in another order, as the forward's top-k (its cosines)
 
 
-def _tiling_cos_checks(form: str, E, q0, qs, tag: str) -> list[dict]:
+def _tiling_cos_checks(form: str, E, q0, qs, tag: str,
+                       atol: float = BF16_COS_ATOL) -> list[dict]:
     from vlsfr_tpu_torch.ops import twin_margin as ttm
 
     fwd = ttm.clean_cos(E, q0, qscales=qs)
     bwd = ttm.clean_cos(E, q0, qscales=qs, bwd_tiles=True)
-    plain = ttm._clean_cos(ttm._bf16(E), q0, qs, None)
+    plain = ttm._clean_cos(ttm._dot_operands(E, E, E, q0)[0], q0, qs, None)
     return [{"name": f"{tag}{form} clean cos elements differing (backward vs forward tiles)",
              "count": True, "err": float((fwd != bwd).sum()), "limit": 0.0},
-            _err(f"{tag}{form} clean cos (kernel, forward tiles)", fwd, plain, BF16_COS_ATOL)]
+            _err(f"{tag}{form} clean cos (kernel, forward tiles)", fwd, plain, atol)]
+
+
+def f32_cos_checks(E, q0, tag: str = "") -> list[dict]:
+    """The f32 form's clean cosines of probes ``E`` [R <= 256, D] against an
+    f32 plane ``q0`` (``clean_cos``: the forward's tile_gemm and the
+    backward's ftile_dots, each one fmaf chain over the features in index
+    order): the backward's tiling against the forward's, bit for bit (a
+    count of elements that differ, limit 0: the backward's top-k test
+    compares its cosine with the forward's kth), and the forward's within
+    F32_COS_ATOL of the plain f32 product (sums in another order)."""
+    return _tiling_cos_checks("f32", E, q0, None, tag, F32_COS_ATOL)
 
 
 def bf16_cos_checks(E, q0, tag: str = "") -> list[dict]:
