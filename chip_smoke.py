@@ -29,8 +29,9 @@ FFC slice (the fused-pool FFC step, ir50, 2^20-slot f32 queue):
    (forward: matmul + logsumexp + topk; backward: the cosine recompute and
    d_cos @ queue over a materialised [2b, Q] d_cos); the bound is the
    larger of FLOP / 67 TFLOP/s (f32, no tensor cores) and bytes / 3.35 TB/s;
-   the backward also with the step's write columns and labels set to -1
-   (what the written columns and the targets cost);
+   the forward and the backward also with the step's write columns and
+   labels set to -1 (what the written columns and the targets cost; the
+   partial and form forwards of phases 16, 22 and 23 as well);
 5. training — the port's ``Trainer`` on the slice config (ir50, 512-d,
    batch 128, 2^20-slot f32 queue, Arc, fuse_forward, bf16 compute) over a
    raw-pixel synthetic store, a few steps: each quad kernel must launch
@@ -143,8 +144,8 @@ compute):
    version: int8c and int8 storage at Q = 10,485,760, bf16 at 4,194,304,
    with phase 3's write plan (a duplicate slot), then AM and SV at 4096;
    int8c's dot bit for bit (the kernels' clean cosines with unit scales
-   against torch._int_mm: the forward's __dp4a and the backward's s8
-   mma.sync); the bf16 and int8 forms' clean cosines (tensor cores,
+   against torch._int_mm: the forward's and the backward's s8 mma.sync);
+   the bf16 and int8 forms' clean cosines (tensor cores,
    mma.sync over bf16 operands, int8 rows widened) in the forward's and
    the backward's tiling bit for bit equal over the first 65,536 slots,
    and within 1e-6 of the plain version's;
@@ -480,7 +481,8 @@ def timing(queue, packed, kw, dce, dneg, fwd_plain):
     out["quad_fwd"].update(bound(fwd_flop, fwd_bytes))
     out["quad_bwd"].update(bound(bwd_flop, bwd_bytes))
     print_times(out)
-    print_override_share("quad_bwd", out["quad_bwd"]["ms"], ttm.quad_bwd, E, queue, rest, kw,
+    print_override_share("quad_fwd", ttm.quad_fwd, E, queue, rest, kw)
+    print_override_share("quad_bwd", ttm.quad_bwd, E, queue, rest, kw,
                          (logz, kth, dce, dneg))
     return out
 
@@ -1209,6 +1211,8 @@ def partial_timing(case, kw) -> dict:
                          q0_bytes + vec_bytes + 4 * 8 * r_ + 4 * (r_ * d + 2 * r_)))
         print(f"  a block of {cols} columns:")
         print_times({"quad_partial_fwd": fwd, "quad_partial_bwd": bwd})
+        print_override_share("quad_partial_fwd", ttm.quad_partial_fwd, args[0], args[1],
+                             (*args[2:], gt), pkw)
         out[("quad_partial_fwd", cols)], out[("quad_partial_bwd", cols)] = fwd, bwd
     return out
 
@@ -1696,6 +1700,7 @@ def form_timing(form: str, case, want) -> dict:
     bwd.update(form_bound(form, False, r_, d, q, kw["k"]))
     out = {f"quad_fwd[{form}]": fwd, f"quad_bwd[{form}]": bwd}
     print_times(out)
+    print_override_share(f"quad_fwd[{form}]", ttm.quad_fwd, E, queue, rest, kw)
     return out
 
 
@@ -1742,6 +1747,8 @@ def form_partial_timing(form: str, case, kw) -> dict:
     out = {f"quad_partial_fwd[{form}]": fwd, f"quad_partial_bwd[{form}]": bwd}
     print(f"  {form}: a block of {cols} columns:")
     print_times(out)
+    print_override_share(f"quad_partial_fwd[{form}]", ttm.quad_partial_fwd, args[0], args[1],
+                         (*args[2:], gt), pkw)
     return out
 
 
@@ -2060,25 +2067,28 @@ def twin_timing(form: str, case, want) -> dict:
     name = lambda k_: k_ if form == "f32" else f"{k_}[{form}]"  # noqa: E731
     out = {name("twin_fwd"): fwd, name("twin_bwd"): bwd}
     print_times(out)
-    print_override_share(name("twin_fwd"), fwd["ms"], ttm.twin_fwd, E, queue, rest, kw)
-    print_override_share(name("twin_bwd"), bwd["ms"], ttm.twin_bwd, E, queue, rest,
+    print_override_share(name("twin_fwd"), ttm.twin_fwd, E, queue, rest, kw)
+    print_override_share(name("twin_bwd"), ttm.twin_bwd, E, queue, rest,
                          dict(kw, tile=TWIN_TILE), (logz, kth, dce, dneg))
     return out
 
 
-def print_override_share(name: str, ms: float, fn, E, queue, rest, kw, tail=()) -> None:
-    """A quad or twin kernel ``fn`` on the same inputs with every write and
-    target taken away (write columns and labels −1; ``tail``: the
-    backward's row vectors): the time the written tiles' override path
-    adds. The port's DCP planner hands out consecutive slots, so a step's
-    writes sit in a few tiles of one block."""
+def print_override_share(name: str, fn, E, queue, rest, kw, tail=()) -> None:
+    """A quad or twin kernel ``fn`` with and without every write and target
+    (write columns and labels −1; ``tail``: the backward's row vectors),
+    timed in turns: the time the written tiles' override path adds. The
+    port's DCP planner hands out consecutive slots, so a step's writes sit
+    in a few tiles of one block."""
     G, V, rows, cols, blend, labels, gt = rest
     bare = (G, V, rows, torch.full_like(cols, -1), blend, torch.full_like(labels, -1), gt)
-    bare_ms = cuda_ms(lambda: fn(E, queue, *bare, *tail, **kw), 10)
+    with_ms, bare_ms = [], []
+    for _ in range(2):
+        with_ms.append(cuda_ms(lambda: fn(E, queue, *rest, *tail, **kw), 5))
+        bare_ms.append(cuda_ms(lambda: fn(E, queue, *bare, *tail, **kw), 5))
     local = cols[cols >= 0]
     where = f"{int(local.min())}-{int(local.max())}" if local.numel() else "none"
-    print(f"  {name} without the step's writes and targets: {bare_ms:.3f} ms (with them "
-          f"{ms:.3f}; the written slots here: {where})")
+    print(f"  {name} without the step's writes and targets: {sum(bare_ms) / 2:.3f} ms (with them "
+          f"{sum(with_ms) / 2:.3f}, timed in turns; the written slots here: {where})")
 
 
 def twin_partial_timing(form: str, case, raw, want) -> dict:
@@ -2113,8 +2123,8 @@ def twin_partial_timing(form: str, case, raw, want) -> dict:
         out = {name("twin_partial_fwd"): fwd, name("twin_partial_bwd"): bwd}
         print(f"  {form}: a block of {cols} columns:")
         print_times(out)
-        print_override_share(name("twin_partial_fwd"), fwd["ms"], ttm.twin_partial_fwd, si.E,
-                             q_l[0], (*args[2:], gt), kw)
+        print_override_share(name("twin_partial_fwd"), ttm.twin_partial_fwd, si.E, q_l[0],
+                             (*args[2:], gt), kw)
     return out
 
 

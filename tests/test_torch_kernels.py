@@ -1005,9 +1005,13 @@ QUAD_FORM_FAULTS = {
     # bf16 queue, written tiles: each view's d_cos not rounded
     "bf16_written_unrounded": ("d1 = bf16r(d1);\n      d2 = bf16r(d2);", "(void)0;"),
     # int8 staging: each row reads its first words again, in the int8c
-    # forward's __dp4a loader, the backward's cp.async staging (q0 tiles and
-    # E8) and the int8 forward's register loads
-    "int8_word_offset": (("X[g * words + k0 + kk]", "X[g * words + kk]"),
+    # forward's cp.async staging of the q0 tiles (each 128-feature chunk's
+    # last 64 read as its first 64), the backward's (q0 tiles and E8) and
+    # the int8 forward's register loads
+    "int8_word_offset": (("const int f = 128 * kc + 16 * p;  // the piece's 16 features\n"
+                          "        const bool ok = f < a.D && col < c_end;",
+                          "const int f = 128 * kc + 16 * (p & 3);\n"
+                          "        const bool ok = f < a.D && col < c_end;"),
                          ("ok ? X + (r0 + r) * D + 16 * c : X", "ok ? X + (r0 + r) * D : X"),
                          ("q0 + col * a.D + 64 * kc + 16 * (threadIdx.x & 3)",
                           "q0 + col * a.D + 16 * (threadIdx.x & 3)")),
@@ -1356,10 +1360,101 @@ def test_f32_checks_reject_planted_faults(tmp_path, monkeypatch):
             assert {"d_emb", "twin: d_emb"} <= failed[name, lt], (name, lt)
 
 
-@pytest.mark.parametrize("faults", ["QUAD_FORM_FAULTS", "TWIN_FAULTS", "QUAD_F32_FAULTS"])
+# source edits of the forward (quad_fwd_kernel, every form) that its checks
+# must reject
+QUAD_FWD_FAULTS = {
+    # a written column's view-1 cosine from its first parity-0 writer, not the last
+    "fwd_written_first_writer": (
+        "      if (i0 >= 0) c1[j] = w1[i0];",
+        "      if (i0 >= 0) {\n"
+        "        int f = 0;\n"
+        "        while (a.rows[dir * a.BP + f] != 0 ||\n"
+        "               a.cols[dir * a.BP + f] != a.cols[dir * a.BP + i0]) ++f;\n"
+        "        c1[j] = w1[f];\n"
+        "      }"),
+    # each view's second (m, s) chain, the second quad of each pair's,
+    # dropped from the row's merge
+    "fwd_chain_dropped": ("    lse_fold(ln.m[v][1], ln.s[v][1], M[v], S[v]);\n", ""),
+    # the int8c product skips the last k32 step of each row's first chunk
+    "fwd_int8c_k32_step_skipped": ("wc, min(4, (a.D - 128 * kc) / 32));",
+                                   "wc, min(4, (a.D - 128 * kc) / 32) - (kc == 0));"),
+}
+
+
+@pytest.mark.gpu
+def test_forward_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """``parity.quad_checks`` (every form), ``twin_checks`` (f32, direction
+    A's rows) and ``int8_dot_checks`` (int8c) pass the real forward and
+    fail copies of quad_margin.cu that take a written column's view-1
+    cosine from its first parity-0 writer instead of the last, drop one of
+    a row's two (m, s) chains from its merge, and skip one k32 step of the
+    int8c product, at Arc, b = 64, Q = 5000, D = 128 and AM, b = 128, Q =
+    40000, D = 512, with writes gathered in one tile and across the
+    boundary of two of the forward's column ranges (``gathered_writes``;
+    a duplicate slot written twice at parity 0) and eight of direction A's
+    probes near the duplicate slot's last write, so that its cosine weighs
+    in their statistics. Prints each reading."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, QUAD_FWD_FAULTS, source="quad_margin")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    failed = {}
+    for form in ("f32", *FORMS):
+        for lt, b, q, d, k in (("Arc", 64, 5000, 128, 10), ("AM", 128, 40000, 512, 16)):
+            per = ttm.fwd_geometry(form, 2 * b, q, sms, b).cols_per_chunk
+            case = make_packed(3, b, q, d, k, device=dev, loss_type=lt, form=form,
+                               plan=gathered_writes(256, per))
+            queue, packed, kw, dce, dneg = case
+            E, G = packed[0], packed[1]
+            near = G[1] + 0.3 * torch.randn((8, d), generator=torch.Generator(device=dev)
+                                            .manual_seed(5), device=dev) / d ** 0.5
+            E[3:11] = near / torch.linalg.vector_norm(near, dim=-1, keepdim=True)
+            tkw = {key: kw[key] for key in ("loss_type", "margin", "scale", "k", "mask_svfc")}
+            rs = slice(0, b)
+            tin = tuple(x[rs].contiguous() for x in packed[:7]) + (packed[7][:, rs].contiguous(),)
+            for name, lib in libs.items():
+                monkeypatch.setitem(cuda_build._LOADED, "quad_margin", lib)
+                checks, _ = parity.quad_checks(*case)
+                if form == "f32":
+                    checks += parity.twin_checks(queue, tin, tkw, dce[:, rs].contiguous(),
+                                                 dneg[:, rs].contiguous(), tag="twin: ")[0]
+                if form == "int8c":
+                    checks += parity.int8_dot_checks(*kw["e8"], queue[0], kw["qscales"])
+                torch.cuda.synchronize()
+                for c in checks:
+                    print(f"{name} {form} {lt}: {parity.describe(c)}")
+                failed[name, form, lt] = {c["name"] for c in parity.failures(checks)}
+    for form in ("f32", *FORMS):
+        for lt in ("Arc", "AM"):
+            assert failed["real", form, lt] == set()
+            want = {"ce", "logz", "twin: ce", "twin: logz"} if form == "f32" else {"ce", "logz"}
+            assert want <= failed["fwd_written_first_writer", form, lt], (form, lt)
+            assert want <= failed["fwd_chain_dropped", form, lt], (form, lt)
+            if form == "int8c":
+                assert {"int8 raw dot (kernel, forward tiles)", "ce", "logz"} <= failed[
+                    "fwd_int8c_k32_step_skipped", form, lt]
+            else:
+                assert failed["fwd_int8c_k32_step_skipped", form, lt] == set()
+
+
+@pytest.mark.gpu
+def test_fwd_geometry_is_the_kernels():
+    """``fwd_geometry``'s shared memory is what the forward kernel takes
+    (``quad_fwd_smem``) for every form at R = 64 and 200 probe rows."""
+    _cuda()
+    lib = ttm._lib()
+    for form in ttm.FORMS:
+        for r_ in (64, 200):
+            geo = ttm.fwd_geometry(form, r_, 5000, 132, 64)
+            assert lib.quad_fwd_smem(ttm.FORMS.index(form), r_) == geo.smem, (form, r_)
+
+
+@pytest.mark.parametrize("faults", ["QUAD_FORM_FAULTS", "TWIN_FAULTS", "QUAD_F32_FAULTS",
+                                    "QUAD_FWD_FAULTS"])
 def test_planted_quad_faults_edit_the_kernel_source(faults):
-    """Each planted fault of quad_margin.cu (the rounded forms', the twin's
-    and the f32 backward's) is a source edit whose old text matches the
+    """Each planted fault of quad_margin.cu (the rounded forms', the twin's,
+    the f32 backward's and the forward's) is a source edit whose old text matches the
     source exactly once, so that the copy the ``gpu`` test builds differs
     from the kernel where its name says."""
     from vlsfr_tpu_torch.ops import cuda_build
@@ -1693,5 +1788,22 @@ def test_quad_bwd_variants_edit_the_kernel_source():
     assert CHECKED["f32"] in F32_VARIANTS and all(CHECKED[f] in VARIANTS for f in FORMS)
     src = (cuda_build.CSRC / "quad_margin.cu").read_text()
     for name, edits in {**VARIANTS, **F32_VARIANTS}.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name
+
+
+def test_quad_fwd_variants_edit_the_kernel_source():
+    """The forward's timing tool (``tools/quad_fwd_variants.py``) builds
+    copies of ``csrc/quad_margin.cu`` with one phase of the forward left out
+    or its row pass moved between the products: each edit matches the
+    source exactly once, so that every copy it times differs from the
+    kernel where its name says; the copy held to the real kernel's outputs
+    is one of them."""
+    from vlsfr_tpu_torch.ops import cuda_build
+    from vlsfr_tpu_torch.tools.quad_fwd_variants import CHECKED, VARIANTS
+
+    assert CHECKED in VARIANTS
+    src = (cuda_build.CSRC / "quad_margin.cu").read_text()
+    for name, edits in VARIANTS.items():
         for old, new in edits:
             assert src.count(old) == 1 and old != new, name

@@ -224,6 +224,31 @@ def test_wrappers_reject_bad_inputs(rng):
                             args[3:6], args[3:6], args[6][:8], args[6][:8], int8_compute=True)
 
 
+@pytest.mark.parametrize("bp", [1, 128])
+@pytest.mark.parametrize("q", [5000, 1 << 18, 10485760])
+@pytest.mark.parametrize("r_", [64, 128, 256])
+@pytest.mark.parametrize("form", ttm.FORMS)
+def test_fwd_geometry_covers_the_queue_once(form, r_, q, bp):
+    """The forward kernel's grid (``fwd_geometry``) on a 132-SM card: one
+    block an SM at most; its column ranges cover [0, Q) exactly once in
+    whole 64-column tiles and its row groups the R rows (the f32 form's
+    block holds every row: 128 up to R = 128, else 256; the tensor-core
+    forms' 128); the written cosines [R, 2, bp]; and the block's shared
+    memory within the 232,448 bytes a block may take, whatever D (the
+    stages hold fixed feature chunks, the resident E rows D <= 512)."""
+    geo = ttm.fwd_geometry(form, r_, q, 132, bp)
+    rows = 128 if form != "f32" or r_ <= 128 else 256
+    assert (geo.rows_per_block, geo.n_rg) == (rows, -(-r_ // rows))
+    per = geo.cols_per_chunk
+    assert per % ttm.TILE == 0 and 1 <= geo.nchunk * geo.n_rg <= 132
+    spans = [(c * per, min(q, (c + 1) * per)) for c in range(geo.nchunk)]
+    assert spans[0][0] == 0 and spans[-1][1] == q
+    assert all(lo < hi for lo, hi in spans)
+    assert all(a[1] == b_[0] for a, b_ in zip(spans, spans[1:]))
+    assert geo.wcos == (r_, 2, bp)
+    assert geo.smem <= 232448
+
+
 @pytest.mark.parametrize("form", ttm.FORMS)
 def test_bwd_geometry_covers_the_queue_once(form):
     """The backward kernel's grid (``bwd_geometry``), at probe rows, queue

@@ -8,11 +8,12 @@
 //
 // Both kernels' top-k tie test (cos >= kth - KTH_TIE_TOL) compares cosines
 // that the forward and the backward compute separately; they must be the
-// same bits, so both passes take them from one chain: `tile_gemm`'s FMA
-// chain over the feature axis in index order (the f32, int8 and int8c
-// forms; quad_margin.cu's `row_dot` keeps that order for the columns this
-// step writes; the f32 backwards of both walk it in `ftile_dots`), or
-// the bf16 forms' k16 chain on the tensor cores (mma_bf16.cuh: mma_nt).
+// same bits, so both passes take them from one chain: the FMA chain over
+// the feature axis in index order from 0 (`tile_gemm`'s; the f32 backwards
+// of both walk it in `ftile_dots`, quad_margin.cu's f32 forward in its
+// register micro-tile, and its `row_dot` for the columns a step writes),
+// or the tensor cores' (mma_bf16.cuh: the bf16 and int8 forms' k16 chain,
+// mma_nt; int8c's exact s8 sum, mma_nt_s8).
 //
 // `A` is each kernel's argument struct: it has loss_type, k, margin, scale,
 // mask_svfc, cos_m and sin_m.

@@ -21,9 +21,8 @@
 // labels [R] int32; gt [2][R] (view-major); q0 is plane 0 of the queue (of
 // the shard's block of it, for the partial forms). The twin head takes the
 // same layout with one direction (R = B probes, BP writes; ND = 1). The
-// F32 form's arithmetic is IEEE f32 FMA (no TF32) and the INT8C forward's
-// dot exact int32 (__dp4a); the other forms' products run on the tensor
-// cores (below).
+// F32 form's arithmetic is IEEE f32 FMA (no TF32); the other forms'
+// products run on the tensor cores (below), INT8C's an exact int32 sum.
 //
 // Queue forms (template FORM; the wrapper's module docstring has the JAX
 // rounding points each follows):
@@ -34,8 +33,8 @@
 //  * INT8:  q0 int8 with per-row scales qs [Q]; cos = (E . q) * qs[col], E
 //           rounded to bf16 as above (int8 -> bf16 is exact).
 //  * INT8C: as INT8, but the clean dot is E8 . q with E8 the per-row int8
-//           probes (scales se [R]): an exact int32 sum (__dp4a in the
-//           forward, mma.sync s8 in the backward: the same integer), then
+//           probes (scales se [R]): an exact int32 sum (mma.sync s8 in
+//           both passes: the same integer whatever the tiling), then
 //           cos = f32(acc) * (se[row] * qs[col]).
 // Written columns dot the bf16-rounded E with the bf16-rounded G / V rows in
 // every form but F32. The backward rounds d_cos to bf16 before its product
@@ -78,12 +77,45 @@
 //    over its own contiguous column range and a second launch merges the
 //    partials in a fixed order (logsumexp merge, k-way top-k merge, sum of
 //    d_emb partials). No float atomics: results are bit-stable.
-//  * Forward: one block holds all R <= 256 probe rows, so each q0 tile is
-//    read once for both directions. A 256-thread register-tiled f32 GEMM
-//    (8x8 outputs per thread) fills a [256, 64] cosine tile in shared
-//    memory; then each thread owns one probe row and streams the tile's 64
-//    columns into that row's running (max, sumexp) and register top-k for
-//    both views.
+//  * Forward (quad_fwd_kernel, every form): one block an SM, each a row
+//    group over a column range. The F32 block holds all R <= 256 probe
+//    rows (128 for R <= 128), so each q0 tile is read once for both
+//    directions, and stages 32 features of E's rows and of the q0 tile a
+//    chunk by 16-byte cp.async, two chunks in flight beside the one in use;
+//    an 8 x 8 register micro-tile (8 x 4 at 128 rows) reads four features a
+//    float4 load, each cosine one fmaf chain over the features in index
+//    order from 0 (the backward's ftile_dots chain: the same bits). The
+//    tensor-core forms' block holds 128 rows (the quad's two row groups of a
+//    range adjacent in launch order: the second reads the q0 tiles from
+//    L2) with its E rows resident in shared memory (bf16, 128 KiB at D =
+//    512; INT8C's E8, 64 KiB), so only the q0 tiles stream: restaged from
+//    L2 for every 64-column tile, E's rows were 4-8 times the q0 bytes. Per
+//    64-column tile the product fills a cosine tile Cs [ROWS][64 + 4]. Each
+//    probe row's stream is split over threads / ROWS threads (lanes: 256
+//    threads a block for F32, 512 for the tensor-core forms; one quad
+//    of 4 columns each in turn) and, within a lane, two (m, s) chains per
+//    view, a pair of quads at a time: each quad's largest z, then the
+//    chain rescaled to it and the four exp terms, 16 independent terms a
+//    pair and no branch, so the pass is not one serial chain through expf;
+//    the top-k insertions only where a column beats kth, a network of
+//    selects (topk_push), every index constant, so the lists stay in
+//    registers. The chains run in base 2 (z / ln 2, one MUFU exp2 a term)
+//    and fold to base e, in a fixed order (lse_fold; the value-only top-k
+//    lists merge exactly), at the end of the block's range. Tile t's row
+//    pass runs between the products of tiles t and t + 1, with the first
+//    chunks of tile t + 1 in flight (run as shares under each chunk of the
+//    product instead, it was slower in every case: the shares lengthen
+//    each chunk's path between two barriers).
+//    The written columns' cosines come from wcos [R][2][BP], formed once a
+//    launch by quad_written_cos_kernel (row_dot's chain over E and the
+//    rows G / V as the dots read them), not in the tile loop: the port's
+//    DCP planner hands out consecutive slots, so a step's writes gather in
+//    a few tiles of one block, which ran R x 2 row_dots a written column.
+//    What bounds it on an H100: F32 the FMA rate (the micro-tile reads 1
+//    byte of shared memory per FMA, the 128 B a clock an SM the FMA rate
+//    needs); the tensor-core forms the row pass's instructions (about 15
+//    a column, view and row: 2.1e9 exp for the quad at Q = 4,194,304)
+//    against the q0 bytes (tools/quad_fwd_variants.py times each phase).
 //  * Backward, F32 (quad_bwd_f32_kernel; IEEE f32 FMA on the CUDA cores,
 //    no TF32): a block holds 64 probe rows x a column range, 8 warps, one
 //    block an SM (186 KiB of shared memory at D = 512), so each q0 tile is
@@ -96,7 +128,7 @@
 //    cp.async into [64][D + 4] (zero from c_end) while E's 64 rows stream
 //    through two stages of 64 features from L2, and forms cos [64, 64] (4 x
 //    4 a thread), each an fmaf chain over the features in index order from
-//    0: tile_gemm's, so the forward's bits for the top-k test
+//    0: the forward's chain, so the forward's bits for the top-k test
 //    (quad_clean_cos_launch shows both tilings). d_cos, the two views'
 //    dcos_col terms summed in f32, goes to shared memory transposed ([64
 //    columns][64 + 4]); then d_emb += d_cos . the tile still staged, float4
@@ -138,15 +170,16 @@
 //    (mma_bf16.cuh: kept in the tensor core's accumulator, the chain
 //    drifted enough at D = 512 to put 20 d_emb rows beyond 1e-5 of the max,
 //    against a limit of 8; with the f32 adds, 3), INT8 then times qs[col],
-//    in the forward (E and q0 staged 64 features at a time, three stages in
-//    flight, INT8's q0 words loaded into registers under the previous
-//    chunk's product and widened after it; warps of 32 rows x 64 or 32
-//    columns) and in the backward's recompute (E's 64 rows held whole,
+//    in the forward (E and q0 staged 64 features at a time, three stages,
+//    INT8's q0 words loaded into registers under the previous chunk's
+//    product and widened after it; warps of 32 rows x 64 or 32 columns)
+//    and in the backward's recompute (E's 64 rows held whole,
 //    warps of 16 rows x 32 columns), so that the two produce the same bits
 //    and the backward's top-k test meets the forward's kth exactly
-//    (quad_clean_cos_launch shows both tilings). INT8C's recompute is
-//    mma.sync m16n8k32 s8 on E8 and the int8 tile as staged: an exact
-//    int32 sum, the forward's __dp4a integer whatever the tiling.
+//    (quad_clean_cos_launch shows both tilings). INT8C's forward and
+//    recompute are mma.sync m16n8k32 s8 on E8 and the int8 tile as staged
+//    (the forward 128 features a chunk, zero past D): an exact int32 sum,
+//    the same integer whatever the tiling.
 //    Backward (quad_bwd_tc_kernel<FORM>): a block holds 64 probe rows x a
 //    column range, so each q0 tile is read by R / 64 blocks (4 at the
 //    quad's R = 256, as in the F32 form's kernel); its d_emb
@@ -216,7 +249,7 @@ struct Args {
   const __nv_bfloat16* Eb;  // BF16: E as bf16 [R][D] (the same values)
 };
 
-// dot product in index order, the same FMA chain as the GEMM tiles
+// dot product in index order, the same FMA chain as the tile products
 __device__ __forceinline__ float row_dot(const float* x, const float* y, int n) {
   float acc = 0.f;
   for (int i = 0; i < n; ++i) acc = fmaf(x[i], y[i], acc);
@@ -252,310 +285,608 @@ __device__ __forceinline__ void mark_writes(const Args& a, long long t0, int* la
   __syncthreads();
 }
 
-// acc[i][j] = the exact int32 dot, over the feature axis, of the int8 rows
-// X[x0 + ay + SA*i] and Y[y0 + bx + SB*j] of row-major [*, D] int8 matrices
-// read as D / 4 words: DW words (4 DW features) at a time into shared memory
-// word-major (As [DW][ALD], Bs [DW][BLD]), four products per __dp4a; rows at
-// or past x_end / y_end read as 0. |acc| <= 127^2 * D < 2^24 at D <= 1024,
-// so f32(acc) is exact too.
-template <int NX, int NY, int DW, int THREADS, int ALD, int BLD, int TI, int TJ, int SA, int SB>
-__device__ __forceinline__ void tile_gemm_i8(int (&acc)[TI][TJ], int* As, int* Bs, const int* X,
-                                             long long x0, long long x_end, const int* Y,
-                                             long long y0, long long y_end, int words, int ay,
-                                             int bx) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < TI; ++i)
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) acc[i][j] = 0;
-  for (int k0 = 0; k0 < words; k0 += DW) {
-#pragma unroll
-    for (int l = 0; l < NX * DW / THREADS; ++l) {
-      const int idx = l * THREADS + tid, row = idx / DW, kk = idx % DW;
-      const long long g = x0 + row;
-      As[kk * ALD + row] = g < x_end ? X[g * words + k0 + kk] : 0;
-    }
-#pragma unroll
-    for (int l = 0; l < NY * DW / THREADS; ++l) {
-      const int idx = l * THREADS + tid, row = idx / DW, kk = idx % DW;
-      const long long g = y0 + row;
-      Bs[kk * BLD + row] = g < y_end ? Y[g * words + k0 + kk] : 0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < DW; ++kk) {
-      int av[TI], bv[TJ];
-#pragma unroll
-      for (int i = 0; i < TI; ++i) av[i] = As[kk * ALD + ay + SA * i];
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) bv[j] = Bs[kk * BLD + bx + SB * j];
-#pragma unroll
-      for (int i = 0; i < TI; ++i)
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// the clean-tile cosines acc[i][j] of probe rows x0 + ay + SA*i against
-// the stored rows t0 + bx + SB*j of q0, as the F32 form (and the INT8C
-// forward) computes them on the CUDA cores (header)
-template <int FORM, int NX, int NY, int DK, int THREADS, int ALD, int BLD, int TI, int TJ, int SA,
-          int SB>
-__device__ __forceinline__ void cos_tile(const Args& a, float (&acc)[TI][TJ], float* As,
-                                         float* Bs, long long x0, long long t0, long long c_end,
-                                         int ay, int bx) {
-  using TQ = typename Stored<FORM>::T;
-  const TQ* q0 = static_cast<const TQ*>(a.q0);
-  if constexpr (FORM == FORM_INT8C) {
-    int iacc[TI][TJ];
-    tile_gemm_i8<NX, NY, DK, THREADS, ALD, BLD, TI, TJ, SA, SB>(
-        iacc, reinterpret_cast<int*>(As), reinterpret_cast<int*>(Bs),
-        reinterpret_cast<const int*>(a.E8), x0, a.R, reinterpret_cast<const int*>(q0), t0, c_end,
-        a.D / 4, ay, bx);
-#pragma unroll
-    for (int i = 0; i < TI; ++i) {
-      const long long r = x0 + ay + SA * i;
-      const float se = r < a.R ? a.se[r] : 0.f;
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) {
-        const long long c = t0 + bx + SB * j;
-        acc[i][j] = (float)iacc[i][j] * (se * (c < c_end ? a.qs[c] : 0.f));
-      }
-    }
-  } else {
-    static_assert(FORM == FORM_F32, "the BF16 and INT8 cosines run on the tensor cores");
-    float n2;
-    tile_gemm<NX, NY, DK, THREADS, ALD, BLD, TI, TJ, SA, SB, false>(acc, n2, As, Bs, a.E, x0, a.R,
-                                                                    q0, t0, c_end, a.D, ay, bx);
-  }
+// the written columns' cosines, once a launch, for the forward and the F32
+// backward: wcos[r][v][i] = E[r] . (v ? V : G)[dir(r) BP + i] by row_dot
+// (E, G and V as the dots read them: bf16-rounded in f32 on every form but
+// F32)
+__global__ void quad_written_cos_kernel(Args a, float* wcos) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // (2 r + v) BP + i
+  if (idx >= (long long)a.R * 2 * a.BP) return;
+  const int i = (int)(idx % a.BP), rv = (int)(idx / a.BP), r = rv >> 1;
+  const float* w = ((rv & 1) ? a.V : a.G) + (long long)(r / a.B * a.BP + i) * a.D;
+  wcos[idx] = row_dot(a.E + (long long)r * a.D, w, a.D);
 }
 
 // ---------------------------------------------------------------- forward
 
-// F_DK f32 features (or, for INT8C, F_DK int32 words of 4 int8 features)
-// per shared-memory stage; a block holds ROWS = 256 or 128 probe rows
-constexpr int F_ROWS = 256, F_TC = 64, F_DK = 16, F_THREADS = 256;
-constexpr int F_ALD = F_ROWS + 4, F_BLD = F_TC + 4, F_CLD = F_TC + 1;
-// the BF16 and INT8 forms' cosines on the tensor cores: E [ROWS][64] and
-// q0 [64][64] staged as bf16 per 64 features, FB_ST stages in flight
-constexpr int FB_ST = 3;
-template <int FORM>
-__host__ __device__ constexpr bool fwd_tc() {
-  return FORM == FORM_BF16 || FORM == FORM_INT8;
-}
-template <int ROWS>
-__host__ __device__ constexpr int fb_stage_bytes() {
-  return (ROWS + F_TC) * 64 * 2;
-}
-template <int FORM, int ROWS>
-constexpr size_t f_smem() {
-  return (fwd_tc<FORM>() ? FB_ST * fb_stage_bytes<ROWS>()
-                         : sizeof(float) * (F_DK * (ROWS + 4) + F_DK * F_BLD)) +
-         sizeof(float) * ROWS * F_CLD + sizeof(int) * (4 * F_TC + 4);
-}
+// A block holds ROWS probe rows, f_threads threads: the F32 form 256 (R >
+// 128) or 128, all of R; the tensor-core forms 128, a row group (two for
+// the quad's R = 256), with their E rows resident in shared memory for the
+// whole range (bf16, or INT8C's E8; up to D = F_DMAX). Per F_TC-column tile
+// the cosine product fills Cs [ROWS][F_CLD] from feature chunks staged by
+// cp.async in f_nst stages: F32 stages F_FK features of E's rows and of the
+// q0 tile, the others 128 bytes of each q0 row (64 bf16 features, or
+// INT8C's 128).
+constexpr int F_ROWS = 256, F_TC = 64, F_THREADS = 256, F_CLD = F_TC + 4, F_FK = 32;
+constexpr int F_TC_ROWS = 128, F_DMAX = 512;  // the tensor-core forms' block rows; their largest D
+constexpr int F_PLAN = 4 * F_TC + 4;  // a tile's write plan: last0, lastb [2][F_TC], written [4]
 static_assert(F_THREADS == 4 * F_TC, "the INT8 forward widens one 16-byte word a thread");
 
-// stage s: features [64 kc, + 64) of probe rows [0, ROWS) (zero past R)
-// and of q0 rows [t0, t0 + 64) (zero from c_end), by cp.async; INT8: q0's
-// 64 x 64 int8 features are one 16-byte word a thread, returned for
-// fwd_widen_q once they land (the caller's product hides the load)
+// threads a block: the F32 form F_THREADS, the tensor-core forms twice as
+// many (their row pass is latency-bound: at 16 warps 5-12 % faster than at
+// 8, though 128 registers a thread spill a few words on INT8 and BF16)
+template <int FORM>
+__host__ __device__ constexpr int f_threads() {
+  return FORM == FORM_F32 ? F_THREADS : 2 * F_THREADS;
+}
+
+// stages: F32 and INT8 (whose q0 words wait in registers) three, two
+// chunks in flight beside the one in use; BF16 and INT8C, staging only
+// q0, six
+template <int FORM>
+__host__ __device__ constexpr int f_nst() {
+  return FORM == FORM_BF16 || FORM == FORM_INT8C ? 6 : 3;
+}
+
+template <int FORM>
+__host__ __device__ constexpr int f_chunk() {
+  return FORM == FORM_F32 ? F_FK : FORM == FORM_INT8C ? 128 : 64;
+}
+
+// bytes of the resident E rows (the tensor-core forms: [D / chunk][ROWS]
+// rows of 128 bytes, swizzled, at D = F_DMAX)
 template <int FORM, int ROWS>
-__device__ __forceinline__ uint4 fwd_load_tc(const Args& a, unsigned char* stg, int s,
-                                             long long t0, long long c_end, int kc) {
-  unsigned char* Es = stg + s * fb_stage_bytes<ROWS>();
-  unsigned char* Qs = Es + ROWS * 64 * 2;
-  const int n = (ROWS + (FORM == FORM_BF16 ? F_TC : 0)) * 8;
-  for (int i = threadIdx.x; i < n; i += F_THREADS) {
-    const int r = i >> 3, f = 64 * kc + 8 * (i & 7);
-    if (r < ROWS) {
-      const bool ok = r < a.R;
-      cp_async_cg(Es + swz(r, f - 64 * kc, 8), ok ? a.Eb + (long long)r * a.D + f : a.Eb, ok);
+__host__ __device__ constexpr int f_e_bytes() {
+  return FORM == FORM_F32 ? 0 : ROWS * F_DMAX * (FORM == FORM_INT8C ? 1 : 2);
+}
+
+// bytes of a stage: F32 E's ROWS rows and q0's F_TC rows of one chunk at a
+// row stride of F_FK + 4 floats; the others q0's F_TC rows, 128 bytes a
+// row, swizzled
+template <int FORM, int ROWS>
+__host__ __device__ constexpr int f_stage_bytes() {
+  return FORM == FORM_F32 ? 4 * (ROWS + F_TC) * (F_FK + 4) : 128 * F_TC;
+}
+
+// shared memory of a block: the resident E rows, the stages, Cs, and two
+// tiles' write plans
+template <int FORM, int ROWS>
+__host__ __device__ constexpr int f_smem() {
+  return f_e_bytes<FORM, ROWS>() + f_nst<FORM>() * f_stage_bytes<FORM, ROWS>() + 4 * ROWS * F_CLD +
+         4 * 2 * F_PLAN;
+}
+static_assert(f_smem<FORM_F32, F_ROWS>() <= 232448 &&
+                  f_smem<FORM_BF16, F_TC_ROWS>() <= 232448,
+              "the forward fits a block's shared memory");
+
+// One thread's accumulators of the cosine tile. F32: an 8 x TJ micro-tile,
+// probe rows ax + SA i and tile columns by + SB j (fwd_f32_map), 1 byte of
+// shared memory read per FMA at 256 rows (1.5 at 128); the tensor-core
+// forms: the fragments of the warp's 32 rows x F_TC / WN columns (INT8C
+// int32, exact).
+template <int FORM, int ROWS>
+struct FwdAcc {
+  static constexpr int WM = ROWS / 32, WN = f_threads<FORM>() / 32 / WM, NI = 8 / WN;
+  float v[2][NI][4];
+};
+template <int ROWS>
+struct FwdAcc<FORM_INT8C, ROWS> {
+  static constexpr int WM = ROWS / 32, WN = f_threads<FORM_INT8C>() / 32 / WM, NI = 8 / WN;
+  int v[2][NI][4];
+};
+template <int ROWS>
+struct FwdAcc<FORM_F32, ROWS> {
+  static constexpr int TI = 8, TJ = ROWS == F_ROWS ? 8 : 4, SA = ROWS / TI, SB = F_TC / TJ;
+  float v[TI][TJ];
+};
+
+template <int FORM, int ROWS>
+__device__ __forceinline__ void fwd_zero(FwdAcc<FORM, ROWS>& acc) {
+  using A = FwdAcc<FORM, ROWS>;
+  if constexpr (FORM == FORM_F32) {
+#pragma unroll
+    for (int i = 0; i < A::TI; ++i)
+#pragma unroll
+      for (int j = 0; j < A::TJ; ++j) acc.v[i][j] = 0.f;
+  } else {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < A::NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc.v[mi][ni][e] = 0;
+  }
+}
+
+// the F32 micro-tile map: the eight threads of a quarter warp read one E
+// row (a broadcast) and eight consecutive q0 rows (distinct banks at the
+// stride F_FK + 4)
+template <int ROWS>
+__device__ __forceinline__ void fwd_f32_map(int& ax, int& by) {
+  constexpr int NB = FwdAcc<FORM_F32, ROWS>::SB / 8;  // warps across the columns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  by = (lane & 7) + 8 * (warp % NB);
+  ax = 4 * (warp / NB) + (lane >> 3);
+}
+
+// the tensor-core forms' E rows [r_base, r_base + ROWS) (zero from R) into
+// the resident region Es, every chunk (bf16 E, or INT8C's E8, zero from
+// D), by cp.async; the caller commits
+template <int FORM, int ROWS>
+__device__ __forceinline__ void fwd_load_e(const Args& a, unsigned char* Es, int r_base) {
+  const int n_kc = (a.D + f_chunk<FORM>() - 1) / f_chunk<FORM>();
+  for (int i = threadIdx.x; i < n_kc * ROWS * 8; i += f_threads<FORM>()) {
+    const int p = i & 7, r = (i >> 3) % ROWS, kc = (i >> 3) / ROWS, gr = r_base + r;
+    unsigned char* dst = Es + kc * ROWS * 128 + swz(r, 8 * p, 8);
+    if constexpr (FORM == FORM_INT8C) {
+      const int f = 128 * kc + 16 * p;  // the piece's 16 features
+      const bool ok = f < a.D && gr < a.R;
+      cp_async_cg(dst, ok ? a.E8 + (long long)gr * a.D + f : a.E8, ok);
     } else {
-      const __nv_bfloat16* q0 = static_cast<const __nv_bfloat16*>(a.q0);
-      const long long col = t0 + r - ROWS;
-      const bool ok = col < c_end;
-      cp_async_cg(Qs + swz(r - ROWS, f - 64 * kc, 8), ok ? q0 + col * a.D + f : q0, ok);
+      const bool ok = gr < a.R;
+      cp_async_cg(dst, ok ? a.Eb + (long long)gr * a.D + 64 * kc + 8 * p : a.Eb, ok);
     }
   }
+}
+
+// stage s: chunk kc of q0 rows [t0, t0 + F_TC) (zero from c_end), by
+// cp.async, and (F32) of probe rows [0, ROWS) (zero from R); INT8C zero
+// from D as well; INT8: q0's 64 x 64 int8 features are one 16-byte word a
+// thread, returned for fwd_widen_q once they land (the caller's product
+// hides the load)
+template <int FORM, int ROWS>
+__device__ __forceinline__ uint4 fwd_load(const Args& a, unsigned char* stg, int s, long long t0,
+                                          long long c_end, int kc) {
+  unsigned char* Qs = stg + s * f_stage_bytes<FORM, ROWS>();
   uint4 v = make_uint4(0, 0, 0, 0);
-  if constexpr (FORM == FORM_INT8) {
+  if constexpr (FORM == FORM_F32) {
+    float* Xs = reinterpret_cast<float*>(Qs);
+    stage_f32<F_THREADS>(Xs, F_FK + 4, a.E, 0, a.R, ROWS, a.D, F_FK * kc, F_FK);
+    stage_f32<F_THREADS>(Xs + ROWS * (F_FK + 4), F_FK + 4, static_cast<const float*>(a.q0), t0,
+                         (int)min((long long)F_TC, c_end - t0), F_TC, a.D, F_FK * kc, F_FK);
+  } else if constexpr (FORM == FORM_INT8) {
     const long long col = t0 + (threadIdx.x >> 2);
     const signed char* q0 = static_cast<const signed char*>(a.q0);
-    if (col < c_end)
+    if (threadIdx.x < 4 * F_TC && col < c_end)
       v = __ldg(reinterpret_cast<const uint4*>(q0 + col * a.D + 64 * kc + 16 * (threadIdx.x & 3)));
+  } else {
+    for (int i = threadIdx.x; i < F_TC * 8; i += f_threads<FORM>()) {
+      const int r = i >> 3, p = i & 7;
+      const long long col = t0 + r;
+      if constexpr (FORM == FORM_INT8C) {
+        const signed char* q0 = static_cast<const signed char*>(a.q0);
+        const int f = 128 * kc + 16 * p;  // the piece's 16 features
+        const bool ok = f < a.D && col < c_end;
+        cp_async_cg(Qs + swz(r, 8 * p, 8), ok ? q0 + col * a.D + f : q0, ok);
+      } else {
+        const __nv_bfloat16* q0 = static_cast<const __nv_bfloat16*>(a.q0);
+        const bool ok = col < c_end;
+        cp_async_cg(Qs + swz(r, 8 * p, 8), ok ? q0 + col * a.D + 64 * kc + 8 * p : q0, ok);
+      }
+    }
   }
   return v;
 }
 
-// INT8: this thread's word of fwd_load_tc, widened to bf16 into stage s
+// INT8: this thread's word of fwd_load (threads below 4 F_TC), widened to
+// bf16 into stage s
 template <int ROWS>
 __device__ __forceinline__ void fwd_widen_q(unsigned char* stg, int s, uint4 v) {
-  widen16(stg + s * fb_stage_bytes<ROWS>() + ROWS * 64 * 2, threadIdx.x >> 2,
-          16 * (threadIdx.x & 3), 8, v);
+  if (threadIdx.x < 4 * F_TC)
+    widen16(stg + s * f_stage_bytes<FORM_INT8, ROWS>(), threadIdx.x >> 2, 16 * (threadIdx.x & 3),
+            8, v);
 }
 
-// the first FB_ST - 1 feature chunks of the tile at t0, each its own
-// cp.async group (fwd_cos_tc stages the rest); INT8: q0's words in v, for
+// the first f_nst - 1 chunks of the tile at t0, each its own cp.async group
+// (fwd_product stages the rest); INT8: q0's words in v, for
 // fwd_widen_first once they are wanted
 template <int FORM, int ROWS>
-__device__ __forceinline__ void fwd_prologue_tc(const Args& a, unsigned char* stg, long long t0,
-                                                long long c_end, uint4 (&v)[FB_ST - 1]) {
+__device__ __forceinline__ void fwd_prologue(const Args& a, unsigned char* stg, long long t0,
+                                             long long c_end, uint4 (&v)[f_nst<FORM>() - 1]) {
+  const int n_kc = (a.D + f_chunk<FORM>() - 1) / f_chunk<FORM>();
 #pragma unroll
-  for (int s = 0; s < FB_ST - 1; ++s) {
-    if (s < a.D / 64) v[s] = fwd_load_tc<FORM, ROWS>(a, stg, s, t0, c_end, s);
+  for (int s = 0; s < f_nst<FORM>() - 1; ++s) {
+    if (s < n_kc) v[s] = fwd_load<FORM, ROWS>(a, stg, s, t0, c_end, s);
     cp_async_commit();
   }
 }
 
 template <int FORM, int ROWS>
 __device__ __forceinline__ void fwd_widen_first(const Args& a, unsigned char* stg,
-                                                const uint4 (&v)[FB_ST - 1]) {
+                                                const uint4 (&v)[f_nst<FORM>() - 1]) {
   if constexpr (FORM == FORM_INT8)
 #pragma unroll
-    for (int s = 0; s < FB_ST - 1; ++s)
+    for (int s = 0; s < f_nst<FORM>() - 1; ++s)
       if (s < a.D / 64) fwd_widen_q<ROWS>(stg, s, v[s]);
 }
 
-// the clean cosines' dot acc[mi][ni] of probe rows m0 + 16 mi .. and tile
-// columns n0 + 8 ni .. of the tile at t0, whose prologue is in flight: the
-// k16 chain over the feature axis in order (module header); INT8: before
-// the column scale
-template <int FORM, int ROWS, int NI>
-__device__ __forceinline__ void fwd_cos_tc(const Args& a, unsigned char* stg, long long t0,
-                                           long long c_end, int m0, int n0,
-                                           float (&acc)[2][NI][4]) {
+// chunk kc's product, staged at st (the tensor-core forms: E's chunk kc
+// resident at Es), into acc. F32: each cosine one fmaf
+// chain over the features in index order from 0 (the backward's
+// ftile_dots chain); BF16 / INT8: the k16 chain, each step's product added
+// in f32 (mma_bf16.cuh; the backward's recompute); INT8C: the exact int32
+// sum over the chunk's k32 steps below D (mma.sync s8, the backward's)
+template <int FORM, int ROWS>
+__device__ __forceinline__ void fwd_chunk(const Args& a, const unsigned char* st,
+                                          const unsigned char* Es, int kc,
+                                          FwdAcc<FORM, ROWS>& acc) {
+  using A = FwdAcc<FORM, ROWS>;
+  if constexpr (FORM == FORM_F32) {
+    constexpr int LD = F_FK + 4;
+    const float* Xs = reinterpret_cast<const float*>(st);
+    const float* Ys = Xs + ROWS * LD;
+    int ax, by;
+    fwd_f32_map<ROWS>(ax, by);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int k = 0; k < F_FK; k += 4) {
+      float4 x[A::TI];
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
+      for (int i = 0; i < A::TI; ++i)
+        x[i] = *reinterpret_cast<const float4*>(Xs + (ax + A::SA * i) * LD + k);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  const int n_kc = a.D / 64;
-  for (int kc = 0; kc < n_kc; ++kc) {
-    cp_async_wait<FB_ST - 2>();
-    __syncthreads();  // chunk kc has landed; chunk kc - 1's stage is free
-    const bool more = kc + FB_ST - 1 < n_kc;
-    uint4 v;
-    const int s_next = (kc + FB_ST - 1) % FB_ST;
-    if (more) v = fwd_load_tc<FORM, ROWS>(a, stg, s_next, t0, c_end, kc + FB_ST - 1);
-    cp_async_commit();
-    const unsigned char* Es = stg + (kc % FB_ST) * fb_stage_bytes<ROWS>();
-    mma_nt<2, NI>(acc, Es, 8, m0, Es + ROWS * 64 * 2, 8, n0, 4);
-    if constexpr (FORM == FORM_INT8)
-      if (more) fwd_widen_q<ROWS>(stg, s_next, v);
+      for (int j = 0; j < A::TJ; ++j) {  // a column at a time: its four features in order
+        const float4 y = *reinterpret_cast<const float4*>(Ys + (by + A::SB * j) * LD + k);
+#pragma unroll
+        for (int i = 0; i < A::TI; ++i) {
+          float& c = acc.v[i][j];
+          c = fmaf(x[i].x, y.x, c);
+          c = fmaf(x[i].y, y.y, c);
+          c = fmaf(x[i].z, y.z, c);
+          c = fmaf(x[i].w, y.w, c);
+        }
+      }
+    }
+  } else {
+    const int warp = threadIdx.x >> 5;
+    const int wr = (warp % A::WM) * 32, wc = (warp / A::WM) * (F_TC / A::WN);
+    const unsigned char* Ek = Es + kc * ROWS * 128;
+    if constexpr (FORM == FORM_INT8C)
+      mma_nt_s8<2, A::NI>(acc.v, Ek, 8, wr, st, 8, wc, min(4, (a.D - 128 * kc) / 32));
+    else
+      mma_nt<2, A::NI>(acc.v, Ek, 8, wr, st, 8, wc, 4);
   }
 }
 
-// INT8: q0's scale of column c (0 from c_end)
+// INT8 / INT8C: q0's scale of column c (0 from c_end)
 __device__ __forceinline__ float col_scale(const Args& a, long long c, long long c_end) {
   return c < c_end ? a.qs[c] : 0.f;
 }
 
+// the tile's cosines from acc into Cs [ROWS][F_CLD]: INT8 times q0's column
+// scale, INT8C f32(acc) * (se[row] * qs[col]) (tile_cos's expression)
 template <int FORM, int ROWS>
-__global__ void __launch_bounds__(F_THREADS)
-    quad_fwd_kernel(Args a, long long cols_per_blk, float* part) {
-  constexpr int ALD = ROWS + 4, TI = ROWS / 32;
-  // BF16 / INT8: WM warps along the rows (32 each) x WN along the 64 columns
-  constexpr int WM = ROWS / 32, WN = 8 / WM, NI = 8 / WN;
-  constexpr bool TC = fwd_tc<FORM>();
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;               // E chunk, k-major [F_DK][ALD]
-  float* Bs = As + F_DK * ALD;    // q0 chunk, k-major [F_DK][F_BLD]
-  unsigned char* stg = reinterpret_cast<unsigned char*>(smem);  // TC: [FB_ST] stages
-  float* Cs = TC  // cosine tile [ROWS][F_CLD]
-                  ? reinterpret_cast<float*>(stg + FB_ST * fb_stage_bytes<ROWS>())
-                  : Bs + F_DK * F_BLD;
-  int* last0 = reinterpret_cast<int*>(Cs + ROWS * F_CLD);
-  int* lastb = last0 + 2 * F_TC;
-  int* written = lastb + 2 * F_TC;  // [4]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 7, ty = tid >> 3;  // GEMM outputs: rows ty + 32i, cols tx + 8j
-  const long long c_begin = (long long)blockIdx.x * cols_per_blk;
-  const long long c_end = min(a.Q, c_begin + cols_per_blk);
-
-  const int r = tid;  // epilogue: one probe row per thread
-  const bool row_ok = r < a.R;
-  const int dir = row_ok ? r / a.B : 0;
-  const int label = row_ok ? a.labels[r] : -1;
-  const float gt0 = row_ok ? a.gt[r] : 0.f;
-  const float gt1 = row_ok ? a.gt[a.R + r] : 0.f;
-  const float zt0 = a.scale * phi_target(gt0, a), zt1 = a.scale * phi_target(gt1, a);
-  float m0 = -INFINITY, s0 = 0.f, m1 = -INFINITY, s1 = 0.f;
-  float tk0[KMAX], tk1[KMAX];
+__device__ __forceinline__ void fwd_store(const Args& a, const FwdAcc<FORM, ROWS>& acc,
+                                          float* Cs, int r_base, long long t0, long long c_end) {
+  using A = FwdAcc<FORM, ROWS>;
+  if constexpr (FORM == FORM_F32) {
+    int ax, by;
+    fwd_f32_map<ROWS>(ax, by);
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    tk0[j] = NEG_INF_F;
-    tk1[j] = NEG_INF_F;
+    for (int i = 0; i < A::TI; ++i)
+#pragma unroll
+      for (int j = 0; j < A::TJ; ++j) Cs[(ax + A::SA * i) * F_CLD + by + A::SB * j] = acc.v[i][j];
+  } else {
+    const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const int wr = (warp % A::WM) * 32, wc = (warp / A::WM) * (F_TC / A::WN);
+    float se[2][2];  // INT8C: the probe rows' scales (0 from R)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r_base + wr + 16 * mi + g + 8 * h;
+        se[mi][h] = FORM == FORM_INT8C && r < a.R ? a.se[r] : 0.f;
+      }
+#pragma unroll
+    for (int ni = 0; ni < A::NI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = wc + 8 * ni + 2 * t + (e & 1);
+        const float sc = FORM == FORM_BF16 ? 1.f : col_scale(a, t0 + c, c_end);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          float& x = Cs[(wr + 16 * mi + g + 8 * (e >> 1)) * F_CLD + c];
+          if constexpr (FORM == FORM_INT8C) x = (float)acc.v[mi][ni][e] * (se[mi][e >> 1] * sc);
+          else if constexpr (FORM == FORM_INT8) x = acc.v[mi][ni][e] * sc;
+          else x = acc.v[mi][ni][e];
+        }
+      }
   }
-  float kth0 = NEG_INF_F, kth1 = NEG_INF_F;
+}
 
-  uint4 first[FB_ST - 1];  // INT8: the next tile's first q0 words
-  if constexpr (TC)
-    if (c_begin < c_end) {
-      fwd_prologue_tc<FORM, ROWS>(a, stg, c_begin, c_end, first);
-      fwd_widen_first<FORM, ROWS>(a, stg, first);
+// One thread's share of a probe row's stream, both views: per view two (m,
+// s) chains, over the first and the second quad of each of its pairs, and
+// the top-k of its columns. A row's columns are split over L = threads /
+// ROWS threads (lanes), each taking every L-th quad of a tile.
+struct Lane {
+  float m[2][2], s[2][2], tk[2][KMAX], kth[2];
+};
+
+// a thread's probe row in the row pass and the write plan of the tile it
+// streams
+struct RowPass {
+  const int* plan;    // the tile's write plan
+  const float* wcos;  // the written cosines [R][2][BP]
+  int r, lr, lane, dir, label;  // the row, its row in Cs, the thread's lane
+  float gt0, gt1;
+  float zs;  // scale * log2(e): the row pass streams z / ln 2
+};
+
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+// A lane's top-k list is walked by template recursion, each index a
+// constant before any optimisation: walked by loops, unrolled too late for
+// the list to be promoted to registers, it stayed in local memory (-Xptxas
+// -v: a 168-byte stack frame) and the row pass took half as long again.
+template <int J>
+__device__ __forceinline__ void tk_fill(float (&tk)[KMAX], float v) {
+  tk[J] = v;
+  if constexpr (J + 1 < KMAX) tk_fill<J + 1>(tk, v);
+}
+template <int J>
+__device__ __forceinline__ void tk_store(float* p, const float (&tk)[KMAX]) {
+  p[J] = tk[J];
+  if constexpr (J + 1 < KMAX) tk_store<J + 1>(p, tk);
+}
+template <int J>
+__device__ __forceinline__ float tk_at(const float (&tk)[KMAX], int j) {  // tk[j], j >= J
+  if constexpr (J + 1 == KMAX) return tk[J];
+  else return j == J ? tk[J] : tk_at<J + 1>(tk, j);
+}
+// entries J .. 1 after inserting x: each takes its upper neighbour, x or
+// itself (the old values, walked from the bottom)
+template <int J>
+__device__ __forceinline__ void tk_shift(float (&tk)[KMAX], float x) {
+  tk[J] = x > tk[J - 1] ? tk[J - 1] : (x > tk[J] ? x : tk[J]);
+  if constexpr (J > 1) tk_shift<J - 1>(tk, x);
+}
+
+// x into a lane's value-only top-k (descending; kth mirrors tk[k - 1]): the
+// insertion as a network of selects (entries from k on carry what shifts
+// past the k-th, read by no one)
+__device__ __forceinline__ void topk_push(float (&tk)[KMAX], float& kth, float x, int k) {
+  if (!(x > kth)) return;
+  tk_shift<KMAX - 1>(tk, x);
+  tk[0] = x > tk[0] ? x : tk[0];
+  kth = tk_at<0>(tk, k - 1);
+}
+
+// z / ln 2 of a non-target column (stream_update's z = scale * mod)
+__device__ __forceinline__ float logit2(const Args& a, float zs, float c, float gt) {
+  float mod = c;
+  if (a.loss_type == LOSS_SV && c > gt - a.margin) mod = a.mask_svfc * c + a.mask_svfc - 1.0f;
+  return zs * mod;
+}
+
+// four columns' cosines c (ok: in the stream) into a chain (m, s) held in
+// base 2 (m = max z / ln 2, s = sum of 2^(z / ln 2 - m), the natural sum
+// relative to e^(m ln 2)): their largest z first, then the chain's sum
+// rescaled to it (by 2^0 = 1 where the chain's max stands) plus the four
+// terms, one MUFU exp2 each; no branch
+__device__ __forceinline__ void stream4(const Args& a, float zs, const float (&c)[4],
+                                        const bool (&ok)[4], float gt, float& m, float& s) {
+  float z[4], zm = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    z[j] = ok[j] ? logit2(a, zs, c[j], gt) : -INFINITY;
+    zm = fmaxf(zm, z[j]);
+  }
+  const float mn = fmaxf(m, zm), ref = mn == -INFINITY ? 0.f : mn;
+  s = s * exp2f(m - ref) +
+      ((exp2f(z[0] - ref) + exp2f(z[1] - ref)) + (exp2f(z[2] - ref) + exp2f(z[3] - ref)));
+  m = mn;
+}
+
+// quad q (columns 4q .. 4q + 3) of row rp.r (Cs row rp.lr) in the tile at
+// t0 with n valid columns: its cosines in view 1 (c1) and view 2 (c2), and
+// which columns stream (ok: not the target, below n). A written column
+// takes its cosine with the last parity-0 writer g (view 1) and the last
+// blend writer v (view 2) from wcos.
+__device__ __forceinline__ void load_quad(const Args& a, const float* Cs, const RowPass& rp,
+                                          long long t0, int n, int q, float (&c1)[4],
+                                          float (&c2)[4], bool (&ok)[4]) {
+  const int* plan = rp.plan;
+  const int dir = rp.dir, c0 = 4 * q;
+  const long long tgt = rp.label - t0;  // the target's tile column, if here
+  const float4 cv = *reinterpret_cast<const float4*>(Cs + rp.lr * F_CLD + c0);
+  c1[0] = cv.x, c1[1] = cv.y, c1[2] = cv.z, c1[3] = cv.w;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    ok[j] = c0 + j < n && c0 + j != tgt;
+    c2[j] = c1[j];
+  }
+  if (plan[4 * F_TC + dir] != 0) {  // the tile holds a write of the row's direction
+    const float* w1 = rp.wcos + (long long)(2 * rp.r) * a.BP;
+    const float* w2 = w1 + a.BP;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i0 = plan[dir * F_TC + c0 + j], ib = plan[(2 + dir) * F_TC + c0 + j];
+      if (i0 >= 0) c1[j] = w1[i0];
+      c2[j] = ib >= 0 ? w2[ib] : c1[j];
     }
-  for (long long t0 = c_begin; t0 < c_end; t0 += F_TC) {
-    mark_writes<F_TC>(a, t0, last0, lastb, written);
+  }
+}
 
-    if constexpr (TC) {
-      const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
-      const int wr = (warp % WM) * 32, wc = (warp / WM) * (F_TC / WN);  // the warp's tile
-      float acc[2][NI][4];
-      fwd_cos_tc<FORM, ROWS, NI>(a, stg, t0, c_end, wr, wc, acc);
+// this lane's share of the tile at t0 (n valid columns, its write plan
+// rp.plan) into ln, a pair of quads at a time: a pair's two quads feed the
+// two chains of each view, 16 independent terms; the target column stays
+// out of the stream and the top-k, whose insertions run only where a column
+// beats the view's kth
+template <int L>
+__device__ __forceinline__ void row_pass(const Args& a, const float* Cs, const RowPass& rp,
+                                         long long t0, int n, Lane& ln) {
+  constexpr int NP = F_TC / 8 / L;  // quad pairs a lane
+  for (int i = 0; i < NP; ++i) {
+    float c1[2][4], c2[2][4];
+    bool ok[2][4];
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
+    for (int h = 0; h < 2; ++h)
+      load_quad(a, Cs, rp, t0, n, rp.lane + L * (2 * i + h), c1[h], c2[h], ok[h]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = wc + 8 * ni + 2 * t + (e & 1);
-          const float sc = FORM == FORM_INT8 ? col_scale(a, t0 + c, c_end) : 1.f;
+    for (int h = 0; h < 2; ++h) {
+      stream4(a, rp.zs, c1[h], ok[h], rp.gt0, ln.m[0][h], ln.s[0][h]);
+      stream4(a, rp.zs, c2[h], ok[h], rp.gt1, ln.m[1][h], ln.s[1][h]);
+    }
+    float mx1 = -INFINITY, mx2 = -INFINITY;
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            float& x = Cs[(wr + 16 * mi + g + 8 * (e >> 1)) * F_CLD + c];
-            if constexpr (FORM == FORM_INT8) x = acc[mi][ni][e] * sc;
-            else x = acc[mi][ni][e];
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (ok[h][j]) {
+          mx1 = fmaxf(mx1, c1[h][j]);
+          mx2 = fmaxf(mx2, c2[h][j]);
+        }
+    // the insertions: one copy of topk_push a view, in a loop over the
+    // pair's columns
+    if (mx1 > ln.kth[0] || mx2 > ln.kth[1]) {
+#pragma unroll 1
+      for (int j = 0; j < 8; ++j) {
+        float x1 = -INFINITY, x2 = -INFINITY;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (e == j && ok[e >> 2][e & 3]) {
+            x1 = c1[e >> 2][e & 3];
+            x2 = c2[e >> 2][e & 3];
           }
-        }
-    } else {
-      float acc[TI][8];
-      cos_tile<FORM, ROWS, F_TC, F_DK, F_THREADS, ALD, F_BLD, TI, 8, 32, 8>(a, acc, As, Bs, 0, t0,
-                                                                            c_end, ty, tx);
-#pragma unroll
-      for (int i = 0; i < TI; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) Cs[(ty + 32 * i) * F_CLD + tx + 8 * j] = acc[i][j];
-    }
-    __syncthreads();
-    const bool next = t0 + F_TC < c_end;
-    if constexpr (TC)  // the next tile's first chunks load under the epilogue
-      if (next) fwd_prologue_tc<FORM, ROWS>(a, stg, t0 + F_TC, c_end, first);
-
-    if (row_ok) {
-      const bool any_w = written[dir] != 0;
-      const float* e_row = a.E + (long long)r * a.D;
-      const int n = (int)min((long long)F_TC, c_end - t0);
-      for (int c = 0; c < n; ++c) {
-        if (t0 + c == (long long)label) continue;  // the target: after the pass (twin) or merge
-        float c1 = Cs[r * F_CLD + c], c2 = c1;
-        if (any_w) {
-          const int i0 = last0[dir * F_TC + c], ib = lastb[dir * F_TC + c];
-          if (i0 >= 0) c1 = row_dot(e_row, a.G + (long long)(dir * a.BP + i0) * a.D, a.D);
-          c2 = ib >= 0 ? row_dot(e_row, a.V + (long long)(dir * a.BP + ib) * a.D, a.D) : c1;
-        }
-        stream_update(c1, gt0, a, m0, s0);
-        topk_insert(tk0, kth0, c1, a.k);
-        stream_update(c2, gt1, a, m1, s1);
-        topk_insert(tk1, kth1, c2, a.k);
+        topk_push(ln.tk[0], ln.kth[0], x1, a.k);
+        topk_push(ln.tk[1], ln.kth[1], x2, a.k);
       }
     }
-    if constexpr (TC)
-      if (next) fwd_widen_first<FORM, ROWS>(a, stg, first);
-    __syncthreads();  // Cs / write plan are rebuilt by the next tile
   }
-  if (row_ok && a.twin && label >= c_begin && label < c_end) {
+}
+
+// the tile at t0's cosines of rows [r_base, r_base + ROWS) into Cs, its
+// first chunks in flight (fwd_prologue), the tensor-core forms' E rows
+// resident at Es. Ends with the tile in Cs, after a barrier that follows
+// every thread's reads of the previous tile there.
+template <int FORM, int ROWS>
+__device__ __forceinline__ void fwd_product(const Args& a, const unsigned char* Es,
+                                            unsigned char* stg, int r_base, long long t0,
+                                            long long c_end, float* Cs) {
+  const int n_kc = (a.D + f_chunk<FORM>() - 1) / f_chunk<FORM>();
+  FwdAcc<FORM, ROWS> acc;
+  fwd_zero(acc);
+  constexpr int NST = f_nst<FORM>();
+  for (int kc = 0; kc < n_kc; ++kc) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // chunk kc has landed; chunk kc - 1's stage is free
+    const bool more = kc + NST - 1 < n_kc;
+    const int s_next = (kc + NST - 1) % NST;
+    uint4 v;
+    if (more) v = fwd_load<FORM, ROWS>(a, stg, s_next, t0, c_end, kc + NST - 1);
+    cp_async_commit();
+    fwd_chunk<FORM, ROWS>(a, stg + (kc % NST) * f_stage_bytes<FORM, ROWS>(), Es, kc, acc);
+    if constexpr (FORM == FORM_INT8)
+      if (more) fwd_widen_q<ROWS>(stg, s_next, v);
+  }
+  __syncthreads();  // every read of the previous tile in Cs is done
+  fwd_store<FORM, ROWS>(a, acc, Cs, r_base, t0, c_end);
+}
+
+template <int FORM, int ROWS>
+__global__ void __launch_bounds__(f_threads<FORM>(), 1)
+    quad_fwd_kernel(Args a, long long cols_per_blk, const float* wcos, float* part) {
+  constexpr int L = f_threads<FORM>() / ROWS;  // lanes a row
+  extern __shared__ __align__(16) unsigned char f_sm[];
+  unsigned char* Es = f_sm;                          // the tensor-core forms' resident E rows
+  unsigned char* stg = Es + f_e_bytes<FORM, ROWS>();  // [f_nst] stages
+  float* Cs = reinterpret_cast<float*>(stg + f_nst<FORM>() * f_stage_bytes<FORM, ROWS>());
+  int* plans = reinterpret_cast<int*>(Cs + ROWS * F_CLD);  // [2][F_PLAN], by tile parity
+
+  const int tid = threadIdx.x;
+  // row groups of one column range adjacent in launch order (they share
+  // its q0 tiles through L2)
+  const int n_rg = (a.R + ROWS - 1) / ROWS, chunk = blockIdx.x / n_rg;
+  const int r_base = (blockIdx.x % n_rg) * ROWS;
+  const long long c_begin = (long long)chunk * cols_per_blk;
+  const long long c_end = min(a.Q, c_begin + cols_per_blk);
+  const int n_tiles = c_end > c_begin ? (int)((c_end - c_begin + F_TC - 1) / F_TC) : 0;
+  RowPass rp;  // the thread's row: rows tid % ROWS, lanes tid / ROWS
+  rp.wcos = wcos;
+  rp.lr = tid % ROWS;
+  rp.r = r_base + rp.lr;
+  rp.lane = tid / ROWS;
+  const int r = rp.r, lane = rp.lane;
+  const bool row_ok = r < a.R;
+  rp.dir = row_ok ? r / a.B : 0;
+  rp.label = row_ok ? a.labels[r] : -1;
+  rp.gt0 = row_ok ? a.gt[r] : 0.f;
+  rp.gt1 = row_ok ? a.gt[a.R + r] : 0.f;
+  rp.zs = a.scale * LOG2E;
+  Lane ln;
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) {
+      ln.m[v][ch] = -INFINITY;
+      ln.s[v][ch] = 0.f;
+    }
+    tk_fill<0>(ln.tk[v], NEG_INF_F);
+    ln.kth[v] = NEG_INF_F;
+  }
+
+  if constexpr (FORM != FORM_F32) {
+    fwd_load_e<FORM, ROWS>(a, Es, r_base);
+    cp_async_commit();
+  }
+  uint4 first[f_nst<FORM>() - 1];  // INT8: the tile's first q0 words
+  if (n_tiles > 0) fwd_prologue<FORM, ROWS>(a, stg, c_begin, c_end, first);
+  // tile ti's product after tile ti - 1's row pass (Cs holds it), with
+  // tile ti's first chunks in flight; a last turn streams the last tile
+  for (int ti = 0; ti <= n_tiles; ++ti) {
+    const long long t0 = c_begin + (long long)ti * F_TC;
+    int* plan = plans + (ti & 1) * F_PLAN;
+    if (ti < n_tiles) {
+      mark_writes<F_TC>(a, t0, plan, plan + 2 * F_TC, plan + 4 * F_TC);
+      fwd_widen_first<FORM, ROWS>(a, stg, first);
+    } else {
+      cp_async_wait<0>();
+      __syncthreads();  // the last tile is in Cs
+    }
+    rp.plan = plans + ((ti + 1) & 1) * F_PLAN;  // the previous tile's
+    if (ti > 0 && row_ok)
+      row_pass<L>(a, Cs, rp, t0 - F_TC, (int)min((long long)F_TC, c_end - t0 + F_TC), ln);
+    if (ti < n_tiles) {
+      fwd_product<FORM, ROWS>(a, Es, stg, r_base, t0, c_end, Cs);
+      if (ti + 1 < n_tiles) fwd_prologue<FORM, ROWS>(a, stg, t0 + F_TC, c_end, first);
+    }
+  }
+
+  // each view's chains (to base e) folded in order, then (L = 2) the other
+  // lane's state, through Cs
+  float M[2], S[2];
+#pragma unroll
+  for (int v = 0; v < 2; ++v) {
+#pragma unroll
+    for (int ch = 0; ch < 2; ++ch) ln.m[v][ch] *= LN2;
+    M[v] = ln.m[v][0];
+    S[v] = ln.s[v][0];
+    lse_fold(ln.m[v][1], ln.s[v][1], M[v], S[v]);
+  }
+  static_assert(2 * PART <= F_CLD, "one other lane's state a row fits Cs");
+  float* x = Cs + rp.lr * F_CLD;  // [2][PART]
+  for (int l = 1; l < L; ++l) {   // lane l's state into lane 0's, in lane order
+    __syncthreads();              // Cs is free (the row passes, the previous lane)
+    if (lane == l && row_ok) {
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        x[v * PART] = M[v];
+        x[v * PART + 1] = S[v];
+        tk_store<0>(x + v * PART + 2, ln.tk[v]);
+      }
+    }
+    __syncthreads();
+    if (lane == 0 && row_ok)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        lse_fold(x[v * PART], x[v * PART + 1], M[v], S[v]);
+        for (int j = 0; j < a.k; ++j)  // value-only lists: the union's top-k, exactly
+          topk_push(ln.tk[v], ln.kth[v], x[v * PART + 2 + j], a.k);
+      }
+  }
+  if (lane != 0 || !row_ok) return;
+  float m0 = M[0], s0 = S[0], m1 = M[1], s1 = S[1];
+  const float zt0 = a.scale * phi_target(rp.gt0, a), zt1 = a.scale * phi_target(rp.gt1, a);
+  if (a.twin && rp.label >= c_begin && rp.label < c_end) {
     // the twin's target term z = scale * phi(gt), folded in after the
     // block's columns: streamed first, a dominant z would leave each later
     // column's e^(z - m) below half an ulp of s, and lose them (a bias of
@@ -563,20 +894,14 @@ __global__ void __launch_bounds__(F_THREADS)
     stream_z(zt0, m0, s0);
     stream_z(zt1, m1, s1);
   }
-
-  if (row_ok) {
-    float* p0 = part + (((long long)blockIdx.x * 2 + 0) * a.R + r) * PART;
-    float* p1 = part + (((long long)blockIdx.x * 2 + 1) * a.R + r) * PART;
-    p0[0] = m0;
-    p0[1] = s0;
-    p1[0] = m1;
-    p1[1] = s1;
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      p0[2 + j] = tk0[j];
-      p1[2 + j] = tk1[j];
-    }
-  }
+  float* p0 = part + (((long long)chunk * 2 + 0) * a.R + r) * PART;
+  float* p1 = part + (((long long)chunk * 2 + 1) * a.R + r) * PART;
+  p0[0] = m0;
+  p0[1] = s0;
+  p1[0] = m1;
+  p1[1] = s1;
+  tk_store<0>(p0 + 2, ln.tk[0]);
+  tk_store<0>(p1 + 2, ln.tk[1]);
 }
 
 // (M, S, top-k) of (view v, row r): the block partials merged in block
@@ -901,17 +1226,6 @@ __global__ void __launch_bounds__(BF_THREADS, 1)
         *reinterpret_cast<float4*>(p + 128 * fq) = make_float4(
             demb[i][4 * fq], demb[i][4 * fq + 1], demb[i][4 * fq + 2], demb[i][4 * fq + 3]);
   }
-}
-
-// the F32 form's written cosines, once a launch: wcos[r][v][i] = E[r] .
-// (v ? V : G)[dir(r) BP + i] by row_dot, the forward's chain for the
-// columns this step writes
-__global__ void quad_written_cos_kernel(Args a, float* wcos) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // (2 r + v) BP + i
-  if (idx >= (long long)a.R * 2 * a.BP) return;
-  const int i = (int)(idx % a.BP), rv = (int)(idx / a.BP), r = rv >> 1;
-  const float* w = ((rv & 1) ? a.V : a.G) + (long long)(r / a.B * a.BP + i) * a.D;
-  wcos[idx] = row_dot(a.E + (long long)r * a.D, w, a.D);
 }
 
 // ------------------------------------- backward on the tensor cores
@@ -1310,33 +1624,52 @@ bool tc_operands(const Args& a) {
          (FORM == FORM_BF16 || a.qs != nullptr);
 }
 
+// the written cosines [R][2][BP] into wcos, once a launch (the forward and
+// the F32 backward)
+cudaError_t launch_written_cos(const Args& a, float* wcos, cudaStream_t st) {
+  const long long nw = (long long)a.R * 2 * a.BP;
+  if (nw == 0) return cudaSuccess;
+  if (wcos == nullptr) return cudaErrorInvalidValue;
+  quad_written_cos_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a, wcos);
+  return cudaGetLastError();
+}
+
 template <int FORM, int ROWS>
-cudaError_t launch_fwd_rows(const Args& a, float* part, int nblk, long long cols_per_blk,
-                            cudaStream_t st) {
-  constexpr size_t smem = f_smem<FORM, ROWS>();
-  if (fwd_tc<FORM>() && !tc_operands<FORM>(a)) return cudaErrorInvalidValue;
+cudaError_t launch_fwd_rows(const Args& a, const float* wcos, float* part, int nchunk,
+                            long long cols_per_chunk, cudaStream_t st) {
+  constexpr int smem = f_smem<FORM, ROWS>();
+  if (FORM != FORM_F32 && (!tc_operands<FORM>(a) || a.D > F_DMAX)) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(quad_fwd_kernel<FORM, ROWS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  quad_fwd_kernel<FORM, ROWS><<<nblk, F_THREADS, smem, st>>>(a, cols_per_blk, part);
+  const int n_rg = (a.R + ROWS - 1) / ROWS;
+  quad_fwd_kernel<FORM, ROWS>
+      <<<nchunk * n_rg, f_threads<FORM>(), smem, st>>>(a, cols_per_chunk, wcos, part);
   return cudaGetLastError();
 }
 
 template <int FORM>
-cudaError_t launch_fwd_form(const Args& a, float* part, int nblk, long long cols_per_blk,
-                            cudaStream_t st) {
-  if (a.R <= 128) return launch_fwd_rows<FORM, 128>(a, part, nblk, cols_per_blk, st);
-  return launch_fwd_rows<FORM, F_ROWS>(a, part, nblk, cols_per_blk, st);
+cudaError_t launch_fwd_form(const Args& a, const float* wcos, float* part, int nchunk,
+                            long long cols_per_chunk, cudaStream_t st) {
+  if constexpr (FORM == FORM_F32)
+    if (a.R > F_TC_ROWS)
+      return launch_fwd_rows<FORM, F_ROWS>(a, wcos, part, nchunk, cols_per_chunk, st);
+  return launch_fwd_rows<FORM, F_TC_ROWS>(a, wcos, part, nchunk, cols_per_chunk, st);
 }
 
-// the forward's block pass over nblk column ranges into part
-cudaError_t launch_fwd_blocks(const Args& a, int form, float* part, int nblk,
-                              long long cols_per_blk, cudaStream_t st) {
+// the forward: the written cosines into wcos, then the block pass over
+// nchunk column ranges (x the row groups) into part
+cudaError_t launch_fwd_blocks(const Args& a, int form, float* wcos, float* part, int nchunk,
+                              long long cols_per_chunk, cudaStream_t st) {
+  if (a.R > F_ROWS) return cudaErrorInvalidValue;
+  const cudaError_t err = launch_written_cos(a, wcos, st);
+  if (err != cudaSuccess) return err;
   switch (form) {
-    case FORM_F32: return launch_fwd_form<FORM_F32>(a, part, nblk, cols_per_blk, st);
-    case FORM_BF16: return launch_fwd_form<FORM_BF16>(a, part, nblk, cols_per_blk, st);
-    case FORM_INT8: return launch_fwd_form<FORM_INT8>(a, part, nblk, cols_per_blk, st);
-    case FORM_INT8C: return launch_fwd_form<FORM_INT8C>(a, part, nblk, cols_per_blk, st);
+    case FORM_F32: return launch_fwd_form<FORM_F32>(a, wcos, part, nchunk, cols_per_chunk, st);
+    case FORM_BF16: return launch_fwd_form<FORM_BF16>(a, wcos, part, nchunk, cols_per_chunk, st);
+    case FORM_INT8: return launch_fwd_form<FORM_INT8>(a, wcos, part, nchunk, cols_per_chunk, st);
+    case FORM_INT8C:
+      return launch_fwd_form<FORM_INT8C>(a, wcos, part, nchunk, cols_per_chunk, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -1345,15 +1678,11 @@ cudaError_t launch_fwd_blocks(const Args& a, int form, float* part, int nblk,
 cudaError_t launch_bwd_f32(const Args& a, const BwdRows& br, float* part, float* wcoef,
                            float* wcos, int nchunk, long long cols_per_chunk, cudaStream_t st) {
   if (wcoef == nullptr || wcos == nullptr) return cudaErrorInvalidValue;
-  const long long nw = (long long)a.R * 2 * a.BP;
-  if (nw > 0) {
-    quad_written_cos_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a, wcos);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = launch_written_cos(a, wcos, st);
+  if (err != cudaSuccess) return err;
   const int n_rg = (a.R + BF_RB - 1) / BF_RB, smem = bf_smem(a.D);
-  const cudaError_t err = cudaFuncSetAttribute(
-      quad_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(quad_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return err;
   quad_bwd_f32_kernel<<<nchunk * n_rg, BF_THREADS, smem, st>>>(a, br, cols_per_chunk, n_rg, wcos,
                                                                part, wcoef);
@@ -1375,55 +1704,30 @@ cudaError_t launch_bwd_tc(const Args& a, const BwdRows& br, float* part, float* 
 
 // ------------------------------------------------------------ clean cosines
 
-// out [R][Q] = the clean-tile cosines as cos_tile computes them, with the
-// forward's tiling (blockIdx.y = 0) or the backward's (blockIdx.y = row
-// group): a parity probe that exposes the dot both kernels share.
-template <int FORM, int NX, int NY, int DK, int THREADS, int ALD, int BLD, int TI, int TJ, int SA,
-          int SB>
-__global__ void __launch_bounds__(THREADS) clean_cos_kernel(Args a, float* out) {
-  __shared__ float As[DK * ALD], Bs[DK * BLD];
-  const long long x0 = (long long)blockIdx.y * NX, t0 = (long long)blockIdx.x * NY;
-  const int ay = threadIdx.x / SB, bx = threadIdx.x % SB;
-  float acc[TI][TJ];
-  cos_tile<FORM, NX, NY, DK, THREADS, ALD, BLD, TI, TJ, SA, SB>(a, acc, As, Bs, x0, t0, a.Q, ay,
-                                                                bx);
-#pragma unroll
-  for (int i = 0; i < TI; ++i) {
-    const long long r = x0 + ay + SA * i;
-#pragma unroll
-    for (int j = 0; j < TJ; ++j) {
-      const long long c = t0 + bx + SB * j;
-      if (r < a.R && c < a.Q) out[r * a.Q + c] = acc[i][j];
-    }
-  }
-}
-
-// the BF16 and INT8 forms' clean cosines with the forward's tiling: one
-// 256-row block per 64 columns, fwd_cos_tc as the forward runs it
-template <int FORM>
-__global__ void __launch_bounds__(F_THREADS) clean_cos_fwd_tc_kernel(Args a, float* out) {
+// out [R][Q] = the clean-tile cosines with the forward's tiling: one block
+// of ROWS rows per row group and 64 columns, fwd_product as the forward
+// runs it (every form); the kernels below give the backward's. A parity
+// probe that exposes the dot both kernels share.
+template <int FORM, int ROWS>
+__global__ void __launch_bounds__(f_threads<FORM>()) clean_cos_fwd_kernel(Args a, float* out) {
   extern __shared__ __align__(16) unsigned char ccf_smem[];
+  unsigned char* stg = ccf_smem + f_e_bytes<FORM, ROWS>();
+  float* Cs = reinterpret_cast<float*>(stg + f_nst<FORM>() * f_stage_bytes<FORM, ROWS>());
+  const int r_base = blockIdx.y * ROWS;
   const long long t0 = (long long)blockIdx.x * F_TC;
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  uint4 first[FB_ST - 1];
-  fwd_prologue_tc<FORM, F_ROWS>(a, ccf_smem, t0, a.Q, first);
-  fwd_widen_first<FORM, F_ROWS>(a, ccf_smem, first);
-  float acc[2][8][4];
-  fwd_cos_tc<FORM, F_ROWS, 8>(a, ccf_smem, t0, a.Q, warp * 32, 0, acc);
-  cp_async_wait<0>();
-#pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long c = t0 + 8 * ni + 2 * t + (e & 1);
-      const float sc = FORM == FORM_INT8 ? col_scale(a, c, a.Q) : 1.f;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const long long r = warp * 32 + 16 * mi + g + 8 * (e >> 1);
-        if (r < a.R && c < a.Q) out[r * a.Q + c] = FORM == FORM_INT8 ? acc[mi][ni][e] * sc
-                                                                    : acc[mi][ni][e];
-      }
-    }
+  if constexpr (FORM != FORM_F32) {
+    fwd_load_e<FORM, ROWS>(a, ccf_smem, r_base);
+    cp_async_commit();
+  }
+  uint4 first[f_nst<FORM>() - 1];
+  fwd_prologue<FORM, ROWS>(a, stg, t0, a.Q, first);
+  fwd_widen_first<FORM, ROWS>(a, stg, first);
+  fwd_product<FORM, ROWS>(a, ccf_smem, stg, r_base, t0, a.Q, Cs);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ROWS * F_TC; i += f_threads<FORM>()) {
+    const int r = i / F_TC, c = i % F_TC;
+    if (r_base + r < a.R && t0 + c < a.Q) out[(r_base + r) * a.Q + t0 + c] = Cs[r * F_CLD + c];
+  }
 }
 
 // ... with the backward's tiling: one 64-row block per row group and 64
@@ -1476,23 +1780,15 @@ cudaError_t launch_clean_cos_bwd_tc(const Args& a, float* out, cudaStream_t st) 
 }
 
 template <int FORM>
-cudaError_t launch_clean_cos_fwd_tc(const Args& a, float* out, cudaStream_t st) {
+cudaError_t launch_clean_cos_fwd(const Args& a, float* out, cudaStream_t st) {
+  constexpr int ROWS = FORM == FORM_F32 ? F_ROWS : F_TC_ROWS, smem = f_smem<FORM, ROWS>();
   const unsigned n_t = (unsigned)((a.Q + F_TC - 1) / F_TC);
-  const int smem = FB_ST * fb_stage_bytes<F_ROWS>();
-  if (!tc_operands<FORM>(a)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(clean_cos_fwd_tc_kernel<FORM>,
+  if (FORM != FORM_F32 && (!tc_operands<FORM>(a) || a.D > F_DMAX)) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(clean_cos_fwd_kernel<FORM, ROWS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  clean_cos_fwd_tc_kernel<FORM><<<n_t, F_THREADS, smem, st>>>(a, out);
-  return cudaGetLastError();
-}
-
-// the F32 form's and the INT8C forward's (__dp4a) with the forward's tiling
-template <int FORM>
-cudaError_t launch_clean_cos_fma(const Args& a, float* out, cudaStream_t st) {
-  const unsigned n_t = (unsigned)((a.Q + F_TC - 1) / F_TC);
-  clean_cos_kernel<FORM, F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 32, 8>
-      <<<dim3(n_t, 1), F_THREADS, 0, st>>>(a, out);
+  clean_cos_fwd_kernel<FORM, ROWS>
+      <<<dim3(n_t, (a.R + ROWS - 1) / ROWS), f_threads<FORM>(), smem, st>>>(a, out);
   return cudaGetLastError();
 }
 
@@ -1548,28 +1844,44 @@ extern "C" {
 
 const char* quad_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// forward (quad, or twin with twin = 1): nblk column ranges of cols_per_blk
-// (a multiple of 64) columns; part is [nblk][2][R][2 + 16] f32 scratch;
-// outputs [2][R] and [2][R][k]
-int quad_fwd_launch(QUAD_COMMON_PARAMS, float* part, int nblk, long long cols_per_blk,
-                    float* ce, float* neg, float* logz, float* topk, void* stream) {
+// the forward's shared memory a block (bytes) of the form for R probe rows:
+// ops/twin_margin.py's fwd_geometry computes the same
+int quad_fwd_smem(int form, int R) {
+  switch (form) {
+    case FORM_F32: return R > F_TC_ROWS ? f_smem<FORM_F32, F_ROWS>() : f_smem<FORM_F32, 128>();
+    case FORM_BF16: return f_smem<FORM_BF16, F_TC_ROWS>();
+    case FORM_INT8: return f_smem<FORM_INT8, F_TC_ROWS>();
+    case FORM_INT8C: return f_smem<FORM_INT8C, F_TC_ROWS>();
+  }
+  return -1;
+}
+
+// forward (quad, or twin with twin = 1): the written cosines into wcos
+// ([R][2][BP] f32 scratch), then nchunk column ranges of cols_per_chunk (a
+// multiple of 64) columns, each with every row group, into part
+// ([nchunk][2][R][2 + 16] f32 scratch); outputs [2][R] and [2][R][k]
+int quad_fwd_launch(QUAD_COMMON_PARAMS, float* part, float* wcos, int nchunk,
+                    long long cols_per_chunk, float* ce, float* neg, float* logz, float* topk,
+                    void* stream) {
   const Args a = make_args(QUAD_COMMON_ARGS);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_fwd_blocks(a, form, part, nblk, cols_per_blk, st);
+  cudaError_t err = launch_fwd_blocks(a, form, wcos, part, nchunk, cols_per_chunk, st);
   if (err != cudaSuccess) return (int)err;
-  quad_fwd_merge_kernel<<<(2 * R + 127) / 128, 128, 0, st>>>(a, nblk, part, ce, neg, logz, topk);
+  quad_fwd_merge_kernel<<<(2 * R + 127) / 128, 128, 0, st>>>(a, nchunk, part, ce, neg, logz,
+                                                              topk);
   return (int)cudaGetLastError();
 }
 
 // partial forward over a shard's block (Q = its columns, shard-local cols
 // and labels): the same block pass, then m, s [2][R] and topk [2][R][k]
-int quad_partial_fwd_launch(QUAD_COMMON_PARAMS, float* part, int nblk, long long cols_per_blk,
-                            float* m, float* s, float* topk, void* stream) {
+int quad_partial_fwd_launch(QUAD_COMMON_PARAMS, float* part, float* wcos, int nchunk,
+                            long long cols_per_chunk, float* m, float* s, float* topk,
+                            void* stream) {
   const Args a = make_args(QUAD_COMMON_ARGS);
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_fwd_blocks(a, form, part, nblk, cols_per_blk, st);
+  cudaError_t err = launch_fwd_blocks(a, form, wcos, part, nchunk, cols_per_chunk, st);
   if (err != cudaSuccess) return (int)err;
-  quad_partial_merge_kernel<<<(2 * R + 127) / 128, 128, 0, st>>>(a, nblk, part, m, s, topk);
+  quad_partial_merge_kernel<<<(2 * R + 127) / 128, 128, 0, st>>>(a, nchunk, part, m, s, topk);
   return (int)cudaGetLastError();
 }
 
@@ -1618,16 +1930,16 @@ int quad_clean_cos_launch(QUAD_COMMON_PARAMS, int bwd_tiles, float* out, void* s
   switch (form) {
     case FORM_F32:
       return (int)(bwd_tiles ? launch_clean_cos_bwd_f32(a, out, st)
-                             : launch_clean_cos_fma<FORM_F32>(a, out, st));
+                             : launch_clean_cos_fwd<FORM_F32>(a, out, st));
     case FORM_BF16:
       return (int)(bwd_tiles ? launch_clean_cos_bwd_tc<FORM_BF16>(a, out, st)
-                             : launch_clean_cos_fwd_tc<FORM_BF16>(a, out, st));
+                             : launch_clean_cos_fwd<FORM_BF16>(a, out, st));
     case FORM_INT8:
       return (int)(bwd_tiles ? launch_clean_cos_bwd_tc<FORM_INT8>(a, out, st)
-                             : launch_clean_cos_fwd_tc<FORM_INT8>(a, out, st));
+                             : launch_clean_cos_fwd<FORM_INT8>(a, out, st));
     case FORM_INT8C:
       return (int)(bwd_tiles ? launch_clean_cos_bwd_tc<FORM_INT8C>(a, out, st)
-                             : launch_clean_cos_fma<FORM_INT8C>(a, out, st));
+                             : launch_clean_cos_fwd<FORM_INT8C>(a, out, st));
   }
   return (int)cudaErrorInvalidValue;
 }

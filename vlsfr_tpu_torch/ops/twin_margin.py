@@ -655,10 +655,12 @@ def _lib():
 
     lib = load_library("quad_margin")
     if not getattr(lib, "_vlsfr_typed", False):
-        blocks = [_P, ctypes.c_int, ctypes.c_longlong]  # part, nblk, cols_per_blk
+        blocks = [_P, _P, ctypes.c_int, ctypes.c_longlong]  # part, wcos, nchunk, cols_per_chunk
         lib.quad_fwd_launch.argtypes = _FWD_ARGTYPES + blocks + [_P] * 5  # ce neg logz topk stream
         lib.quad_partial_fwd_launch.argtypes = _FWD_ARGTYPES + blocks + [_P] * 4  # m s topk stream
         lib.quad_fwd_launch.restype = lib.quad_partial_fwd_launch.restype = ctypes.c_int
+        lib.quad_fwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.quad_fwd_smem.restype = ctypes.c_int
         lib.quad_bwd_launch.argtypes = _FWD_ARGTYPES + [
             _P, _P, _P, _P,  # logz, kth, dce, dneg [2, R]
             _P, _P, _P,  # part, wcoef, wcos
@@ -765,23 +767,64 @@ def _split_columns(n_q, n_parts):
     return -(-n_q // per), per
 
 
+class FwdGeometry(NamedTuple):
+    """The forward kernel's launch (``fwd_geometry``)."""
+
+    rows_per_block: int  # probe rows a block holds: a row group
+    n_rg: int  # row groups
+    nchunk: int  # column ranges, each of cols_per_chunk columns (the last may hold fewer)
+    cols_per_chunk: int
+    wcos: tuple  # [R, 2, bp]: the written columns' cosines, formed once a launch
+    smem: int  # bytes of shared memory a block (csrc/quad_margin.cu: f_smem, whatever D)
+
+
+FWD_F32_CHUNK, FWD_DMAX = 32, 512  # the f32 form's features a chunk; the largest D
+
+
+def fwd_geometry(form: str, r_: int, q: int, sms: int, bp: int) -> FwdGeometry:
+    """The forward kernel's grid over R probe rows and Q columns on a card
+    of ``sms`` SMs, bp writes per direction: one block an SM, each a row
+    group over a 64-multiple column range, the row groups of a range
+    adjacent (they share its queue tiles through L2); the written columns'
+    cosines [R, 2, bp] formed before the block pass. The f32 form's block
+    holds every probe row (128 up to R = 128, else 256) and stages 32
+    features of E's rows and of the queue tile a chunk (a row stride of 36
+    floats); the tensor-core forms' block holds 128 rows, E's resident in
+    shared memory for D <= 512 (bf16, or int8c's int8), and stages 128
+    bytes of each queue row a chunk. Six chunks staged (three for f32 and
+    int8, whose queue words wait in registers), the [rows, 64 + 4] f32
+    cosine tile and two tiles' write plans."""
+    rows = 128 if form != "f32" or r_ <= 128 else 256
+    n_rg = -(-r_ // rows)
+    nchunk, per = _split_columns(q, max(sms // n_rg, 1))
+    if form == "f32":
+        resident, stage = 0, (rows + TILE) * 4 * (FWD_F32_CHUNK + 4)
+    else:
+        resident, stage = rows * FWD_DMAX * (1 if form == "int8c" else 2), TILE * 128
+    stages = 6 if form in ("bf16", "int8c") else 3
+    smem = resident + stages * stage + 4 * rows * (TILE + 4) + 4 * 2 * (4 * TILE + 4)
+    return FwdGeometry(rows, n_rg, nchunk, per, (r_, 2, bp), smem)
+
+
 def _fwd_launch(entry, n_vec, E, q0, G, V, rows, cols, blend, labels, gt, *, b, bp, loss_type,
                 margin, scale, k, mask_svfc, qscales=None, e8=None, twin=False):
     """Launch ``entry`` (the forward or its partial form, of the quad or,
-    with ``twin``, the twin head): the block pass over q0, then the merge.
-    Returns n_vec [2, R] outputs and topk [2, R, k]."""
+    with ``twin``, the twin head): the written cosines, the block pass over
+    q0, then the merge. Returns n_vec [2, R] outputs and topk [2, R, k]."""
     _cuda_shape_limits(E, b)
     lib = _lib()
     r_ = E.shape[0]
     sms = torch.cuda.get_device_properties(E.device).multi_processor_count
-    nblk, per = _split_columns(q0.shape[0], 2 * sms)
-    part = torch.empty((nblk, 2, r_, 2 + KMAX), device=E.device)
+    geo = fwd_geometry(queue_form(q0, e8), r_, q0.shape[0], sms, bp)
+    nchunk, per = geo.nchunk, geo.cols_per_chunk
+    part = torch.empty((nchunk, 2, r_, 2 + KMAX), device=E.device)
+    wcos = torch.empty(geo.wcos, device=E.device)
     vecs = [torch.empty((2, r_), device=E.device) for _ in range(n_vec)]
     topk = torch.empty((2, r_, k), device=E.device)
     stream = torch.cuda.current_stream(E.device).cuda_stream
     _keep, args = _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type,
                                margin, scale, mask_svfc, qscales, e8, twin=twin)
-    err = getattr(lib, entry)(*args, part.data_ptr(), nblk, per,
+    err = getattr(lib, entry)(*args, part.data_ptr(), wcos.data_ptr(), nchunk, per,
                               *(v.data_ptr() for v in vecs), topk.data_ptr(), stream)
     _check(lib, err, entry)
     return (*vecs, topk)
@@ -853,14 +896,17 @@ def quad_fwd(E, q, G, V, rows, cols, blend, labels, gt, *, b, loss_type, margin,
     The other forms' bounds take the tensor cores' dense rates (989
     TFLOP/s bf16, 1,979 TOPS int8) the TPU kernel's matrix unit stands for:
     int8 compute at Q = 10,485,760 is HBM-bound (5.37 GB, ~1.6 ms).
-    Design (csrc/quad_margin.cu): one block per contiguous column range
-    reads each q0 tile once for all 2b probe rows, keeps per-row running
-    (max, sumexp) and a register top-k, and writes a per-block partial;
-    a second launch merges the partials in a fixed order (deterministic).
-    The forms differ in the dot: f32 FMA (f32); the tensor cores' k16
-    chain over bf16 operands, the backward's recompute's chain (bf16, and
-    int8 storage with its tile widened to bf16 and scaled after the dot);
-    ``__dp4a`` into int32 (int8 compute).
+    Design (csrc/quad_margin.cu; ``fwd_geometry``): the written columns'
+    cosines first, once a launch; then one block an SM per contiguous
+    column range reads each q0 tile once for all 2b probe rows, staged by
+    cp.async, and streams the previous tile's cosines into per-row running
+    (max, sumexp) chains and a register top-k under the next tile's
+    product; each block writes a partial, and a second launch merges the
+    partials in a fixed order (deterministic). The forms differ in the dot,
+    each the backward's recompute's chain: f32 FMA (f32); the tensor cores'
+    k16 chain over bf16 operands (bf16, and int8 storage with its tile
+    widened to bf16 and scaled after the dot); ``mma.sync`` s8 into int32
+    (int8 compute).
     """
     _check_queue(q, E.shape[1])
     form = _check_packed(E, q[0], G, V, rows, cols, blend, labels, gt, b, b, k, loss_type,

@@ -143,8 +143,8 @@ tests/test_torch_kernels.py, C = 4,096 / 5,000 and 2^20 / 1,250,000):
   no count of elements apart holds for it.
 
 The f32 form's clean cosines (``f32_cos_checks``) are one fmaf chain
-over the features in index order in both tilings (the forward's tile_gemm,
-the backward's ftile_dots): equal bit for bit, and within F32_COS_ATOL of
+over the features in index order in both tilings (the forward's register
+micro-tile, the backward's ftile_dots): equal bit for bit, and within F32_COS_ATOL of
 the plain f32 product.
 
 The int8-compute dot is an exact integer sum (``int8_dot_checks``): the
@@ -152,8 +152,8 @@ kernels' own clean cosines (``ops/twin_margin.clean_cos``, the tile code
 the forward and the backward's recompute run) with unit scales are f32 of
 the raw int32 accumulator and equal the integer product bit for bit; with
 the real scales they equal the plain version's f32(acc) · (se · s) bit for
-bit (the forward's ``__dp4a`` sum and the backward's s8 tensor-core sum
-are the same integer). The bf16 form's clean cosines (``bf16_cos_checks``)
+bit (the forward's and the backward's s8 tensor-core sums are the same
+integer, whatever the tiling). The bf16 form's clean cosines (``bf16_cos_checks``)
 and the int8-storage form's (``int8_cos_checks``: bf16(E) against the rows
 widened to bf16, then the column scale) come from the tensor cores in both
 tilings: equal to each other bit for bit (the backward's top-k test
@@ -617,7 +617,7 @@ def _tiling_cos_checks(form: str, E, q0, qs, tag: str,
 
 def f32_cos_checks(E, q0, tag: str = "") -> list[dict]:
     """The f32 form's clean cosines of probes ``E`` [R <= 256, D] against an
-    f32 plane ``q0`` (``clean_cos``: the forward's tile_gemm and the
+    f32 plane ``q0`` (``clean_cos``: the forward's micro-tile and the
     backward's ftile_dots, each one fmaf chain over the features in index
     order): the backward's tiling against the forward's, bit for bit (a
     count of elements that differ, limit 0: the backward's top-k test
