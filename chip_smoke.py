@@ -207,7 +207,7 @@ classes, bf16 momentum, fused SGD; the JAX bench suite's row):
    versions at full width (B = 128, D = 512, C = 2^20, Arc, k = 1, a
    repeated label, a 0.01·N(0, 1) classifier and momentum, lr 0.1, μ 0.9
    Nesterov, wd 1e-4): the forward, the cosines as each pass forms them
-   (the four tilings bit for bit, within 1e-6 of the plain version), the
+   (the three tilings bit for bit, within 1e-6 of the plain version), the
    backward and the fused kernel against the plain versions on those
    cosines, in the (w, mom) pairs (bf16, bf16), (bf16, f32) and (f32,
    bf16), each also
@@ -2348,16 +2348,18 @@ BF16_FAULTS = {
          "            __floats2bfloat162_rn(d[0], d[1]);",
          "*reinterpret_cast<__nv_bfloat162*>(Dq + swz(lr, c, E_TC / 8)) =\n"
          "            __floats2bfloat162_rn(d[0] * inv[c], d[1] * inv[c + 1]);"),
-        ("? dcos_of(acc[mi][ni][2 * h + j], t0 + c + j,",
-         "? dcos_of(acc[mi][ni][2 * h + j] * inv[c + j], t0 + c + j,")),
+        ("? dcos_of(acc[mi][ni][2 * h + j], p0 + c + j,",
+         "? dcos_of(acc[mi][ni][2 * h + j] * inv[c + j], p0 + c + j,")),
     "takes <d_w_hat, w_hat> against the rounded w_hat": (
         "s = fmaf(dwh[mi][j][2 * h], wf.x * iv, s);\n"
         "          s = fmaf(dwh[mi][j][2 * h + 1], wf.y * iv, s);",
-        "s = fmaf(dwh[mi][j][2 * h], bf16r(wf.x * iv), s);\n"
-        "          s = fmaf(dwh[mi][j][2 * h + 1], bf16r(wf.y * iv), s);"),
+        "s = fmaf(dwh[mi][j][2 * h], __bfloat162float(__float2bfloat16_rn(wf.x * iv)), s);\n"
+        "          s = fmaf(dwh[mi][j][2 * h + 1], __bfloat162float(__float2bfloat16_rn(wf.y * iv)), "
+        "s);"),
     "rounds new_w twice": (
-        "          store_as(w_upd + off, wv - sgd.lr * upd);",
-        "          store_as(w_upd + off, wv + bf16r(-sgd.lr * upd));"),
+        "store2(w_upd + off, make_float2(wf.x - sgd.lr * upd.x, wf.y - sgd.lr * upd.y));",
+        "store2(w_upd + off, make_float2(wf.x + __bfloat162float(__float2bfloat16_rn(-sgd.lr * "
+        "upd.x)), wf.y + __bfloat162float(__float2bfloat16_rn(-sgd.lr * upd.y))));"),
 }
 
 

@@ -566,14 +566,15 @@ BF16_BWD_FAULTS = {
          "            __floats2bfloat162_rn(d[0], d[1]);",
          "*reinterpret_cast<__nv_bfloat162*>(Dq + swz(lr, c, E_TC / 8)) =\n"
          "            __floats2bfloat162_rn(d[0] * inv[c], d[1] * inv[c + 1]);"),
-        ("? dcos_of(acc[mi][ni][2 * h + j], t0 + c + j,",
-         "? dcos_of(acc[mi][ni][2 * h + j] * inv[c + j], t0 + c + j,")),
+        ("? dcos_of(acc[mi][ni][2 * h + j], p0 + c + j,",
+         "? dcos_of(acc[mi][ni][2 * h + j] * inv[c + j], p0 + c + j,")),
     # <d_w_hat, w_hat> against the rounded w_hat
     "rounded_w_hat_in_projection": (
         "s = fmaf(dwh[mi][j][2 * h], wf.x * iv, s);\n"
         "          s = fmaf(dwh[mi][j][2 * h + 1], wf.y * iv, s);",
-        "s = fmaf(dwh[mi][j][2 * h], bf16r(wf.x * iv), s);\n"
-        "          s = fmaf(dwh[mi][j][2 * h + 1], bf16r(wf.y * iv), s);"),
+        "s = fmaf(dwh[mi][j][2 * h], __bfloat162float(__float2bfloat16_rn(wf.x * iv)), s);\n"
+        "          s = fmaf(dwh[mi][j][2 * h + 1], "
+        "__bfloat162float(__float2bfloat16_rn(wf.y * iv)), s);"),
 }
 
 
@@ -613,37 +614,133 @@ def test_bf16_backward_checks_reject_planted_faults(tmp_path, monkeypatch):
     assert not any(n.startswith(("d_emb", "bf16 cos")) for n in failed["rounded_w_hat_in_projection"])
 
 
+# the fused cases of the bf16 d_w pass's fault test: at LR and a 0.01-scale
+# momentum the gradient and wd·w of an unlabelled row fall below one bf16
+# spacing of w and mom; with the momentum scaled down and a large lr they
+# move w' and mom' on every row (chip_smoke.py's MOVING_MOM, MOVING_LR)
+MOVING_MOM, MOVING_LR = 1e-4, 100.0
+# source edits of the bf16 d_w pass's sparse and fused modes
+# (csrc/margin_ce.cu: margin_bwd_dw_bf16_kernel): each must fail the checks
+BF16_DW_FAULTS = {
+    # the d_w pass's tile map one selected tile off (the d_emb pass's is right)
+    "tile_map_off_by_one": ("    p0 = phys_col(a, t0);\n    nl =",
+                            "    p0 = phys_col(a, t0) + a.sel_tile;\n    nl ="),
+    # the sparse form without the label rows' d_wl
+    "sparse_drops_dwl": ("if (any_tgt)  // the label rows' d_wl, in batch order",
+                         "if (any_tgt && MODE != DW_SPARSE)"),
+    # the fused form leaves mom as it was
+    "fused_mom_not_stored": ("            store2(mom + off, mn);\n", ""),
+    # the fused form without the weight decay
+    "fused_no_weight_decay": (
+        "if (sgd.wd != 0.f) gv = make_float2(gv.x + sgd.wd * wf.x, gv.y + sgd.wd * wf.y);", ""),
+}
+
+
+@pytest.mark.gpu
+def test_bf16_dw_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """At chip_smoke.py's full width (B = 128, D = 512, C = 2^20, Arc, k =
+    1, a repeated label; a bf16 classifier and momentum, the momentum ×
+    MOVING_MOM at lr MOVING_LR) the checks of the bf16 d_w pass's sparse
+    form (route D's statistics and sparse backward: tile 512, M = 128) and
+    fused form (``parity.margin_ce_bwd_checks``) pass the real kernel and
+    fail copies of margin_ce.cu whose d_w pass maps its tiles one selected
+    tile off or drops the label rows' d_wl on the sparse form, and leaves
+    mom unwritten or drops the weight decay on the fused form."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, BF16_DW_FAULTS)
+    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(2, 128, 1 << 20, 512, 1, 0.0, dev)
+    w, mom = w.bfloat16(), (mom * MOVING_MOM).bfloat16()
+    kw = dict(loss_type="Arc", margin=0.5, scale=32.0, k=1, mask_svfc=1.2)
+    gt = tms.compute_gt(emb, w, labels)
+    _, _, logz, topk = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
+    failed = {}
+    for name, lib in libs.items():
+        monkeypatch.setitem(cuda_build._LOADED, "margin_ce", lib)
+        checks = _stats_and_sparse_checks(emb, w, labels, d_ce, d_neg, kw, 512)
+        bwd, fused = parity.margin_ce_bwd_checks(emb, w.clone(), mom.clone(), labels, gt, logz,
+                                                 topk, d_ce, d_neg, kw, MOVING_LR, SGD)
+        checks += bwd + fused
+        for ch in checks:
+            print(f"{name}: {parity.describe(ch)}")
+        failed[name] = {ch["name"] for ch in parity.failures(checks)}
+    print({name: sorted(f) for name, f in failed.items()})
+    assert failed["real"] == set()
+    for name, prefixes in (("tile_map_off_by_one", ("sparse d_w (other rows)",)),
+                           ("sparse_drops_dwl", ("sparse d_w (label rows)",)),
+                           ("fused_mom_not_stored", ("mom'",)),
+                           ("fused_no_weight_decay", ("w'", "mom'"))):
+        assert any(n.startswith(prefixes) for n in failed[name]), name
+    # each fault is in one mode: the dense d_w of margin_ce_bwd stays right
+    assert not any(n.startswith("d_w") for f in failed.values() for n in f)
+
+
+@pytest.mark.parametrize("faults", ["PLANTED_FAULTS", "SPARSE_FAULTS", "BF16_BWD_FAULTS",
+                                    "BF16_DW_FAULTS", "chip_smoke.BF16_FAULTS"])
+def test_planted_margin_faults_edit_the_kernel_source(faults):
+    """Each planted fault of margin_ce.cu (the f32 pass's, the sparse
+    form's, the bf16 backward's, the bf16 d_w pass's modes', and
+    chip_smoke.py's bf16 ones) is a source edit whose old text matches the
+    source exactly once, so that the copy a ``gpu`` test or chip_smoke.py
+    builds differs from the kernel where its name says."""
+    import importlib.util
+    from pathlib import Path
+
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    if faults.startswith("chip_smoke."):
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        table = getattr(module, faults.split(".")[1])
+    else:
+        table = globals()[faults]
+    src = (cuda_build.CSRC / "margin_ce.cu").read_text()
+    for name, spec in table.items():
+        for old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
+            assert src.count(old) == 1 and old != new, name
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,c,d", [(100, 5000, 512), (37, 3002, 192), (128, 4136, 64)])
 def test_bf16_backward_ragged_matches_plain(b, c, d):
     """The bf16 classifier's backward at B not a multiple of 16 and C not
-    of 64 (D from 64 to 512), against the plain versions with the bf16
-    checks: margin_ce_bwd with and without d_w and the fused kernel, after
-    the cosines of every tiling bit for bit (``parity.margin_ce_bwd_checks``),
-    and the partial kernels over two ragged blocks
-    (``parity.margin_partial_checks``)."""
-    from vlsfr_tpu_torch.parallel._shard_common import localize_labels
-
+    of 64 (D from 64 to 512; rows 0 and 1 share a label), against the plain
+    versions with the bf16 checks. ``parity.margin_ce_bwd_checks``:
+    margin_ce_bwd with and without d_w and the fused kernel with a bf16 and
+    with an f32 momentum, after the cosines of every tiling bit for bit.
+    The sparse backward: route D's pieces with every tile selected
+    (``parity.sparse_path_checks``: tile 512, the last tile ragged), and
+    over 128-column tiles in reverse order with one tile index past C
+    (``parity.margin_ce_bwd_sparse_checks``: its rows 0). The class-sharded
+    head over two ragged blocks (``parity.margin_shard_checks``: each
+    block's partial kernels, then the blocks merged against the whole
+    classifier, d_emb with the owners' tails included)."""
     dev = _cuda()
     emb, w, mom, labels, d_ce, d_neg = make_softmax_case(3, b, c, d, 3, 0.3, dev)
-    w, mom = w.bfloat16(), mom.bfloat16()
+    w = w.bfloat16()
     kw = dict(loss_type="Arc", margin=0.5, scale=32.0, k=3, mask_svfc=1.2)
     gt = tms.compute_gt(emb, w, labels)
     want = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
     checks = parity.rounded_fwd_checks(tms.margin_ce_fwd(emb, w, labels, gt, **kw), want)
-    bwd, fused = parity.margin_ce_bwd_checks(emb, w, mom, labels, gt, want[2], want[3], d_ce,
-                                             d_neg, kw, LR, SGD)
-    checks += bwd + fused
-    d_ce_m, d_neg_m = tms._mask_cotangents(labels >= 0, d_ce, d_neg)
-    cl = c // 2
-    for j in range(2):
-        blk = w[j * cl:(j + 1) * cl]
-        ll, _ = localize_labels(j * cl, cl, labels)
-        _, d_wl = tms._target_rows(emb, blk, ll, gt, want[2], d_ce_m, loss_type="Arc", margin=0.5,
-                                   scale=32.0)
-        checks += parity.margin_partial_checks(emb, blk, ll, gt, want[2],
-                                               want[3][:, -1].contiguous(), d_ce_m, d_neg_m,
-                                               d_wl.contiguous(), kw, tag=f"block {j}/2 ")[0]
+    for m_dt in (torch.bfloat16, torch.float32):
+        bwd, fused = parity.margin_ce_bwd_checks(emb, w.clone(), mom.to(m_dt), labels, gt, want[2],
+                                                 want[3], d_ce, d_neg, kw, LR, SGD)
+        checks += [dict(ch, name=f"mom {m_dt}: {ch['name']}") for ch in bwd + fused]
+    tile, n_tiles = tms.sparse_bwd_geometry(b, d, c)
+    checks += parity.sparse_path_checks(emb, w, labels, d_ce, d_neg, kw, tile, n_tiles, None)[0]
+    n128 = -(-c // 128)
+    tile_idx = torch.arange(n128, -1, -1, dtype=torch.int32, device=dev)  # n128: past C
+    sparse = parity.margin_ce_bwd_sparse_checks(emb, w, labels, gt, want[2], want[3], d_ce, d_neg,
+                                                tile_idx, kw, 128)
+    checks += [dict(ch, name=f"tile 128: {ch['name']}") for ch in sparse]
+    _, d_w_rows = tms.margin_ce_bwd_sparse(emb, w, labels, gt, want[2], want[3], d_ce, d_neg,
+                                           tile_idx, tile=128, **kw)
+    checks.append({"name": "sparse d_w rows of the tile past C", "limit": 0.0,
+                   "err": float(d_w_rows[:128].abs().max())})
+    checks += parity.margin_shard_checks(emb, w, labels, d_ce, d_neg, kw, 2)[0]
     torch.cuda.synchronize()
     for ch in checks:
         print(parity.describe(ch))
@@ -653,8 +750,8 @@ def test_bf16_backward_ragged_matches_plain(b, c, d):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,c,d", [(128, 5000, 512), (40, 777, 128), (100, 4096, 64)])
 def test_bf16_margin_cosines_match_between_tilings(b, c, d):
-    """The bf16 classifier's cosines as the forward, the d_emb pass, the
-    d_w pass and the fused / sparse d_w pass form them (``clean_cos``, all
+    """The bf16 classifier's cosines as the forward, the d_emb pass and
+    the d_w pass (every bf16 backward form's) form them (``clean_cos``, all
     on the tensor cores): equal bit for bit, and within 1e-6 of the plain
     version (``parity.margin_cos_checks``)."""
     dev = _cuda()
@@ -1760,18 +1857,20 @@ def test_conv_and_probe_checks_reject_wrong_outputs():
 
 
 def test_margin_bwd_variants_edit_the_kernel_source():
-    """The f32 margin_ce backward's timing tool (``tools/margin_bwd_variants.py``)
+    """The margin_ce backward's timing tool (``tools/margin_bwd_variants.py``)
     builds copies of ``csrc/margin_ce.cu`` and ``margin_common.cuh`` with one
-    phase left out or another staging depth: each of its edits matches its
-    file exactly once, so that every copy it times differs from the kernel
-    where its name says."""
+    phase of the f32 pass or of the bf16 d_w pass left out, or another
+    staging depth: each of its edits matches its file exactly once, so that
+    every copy it times differs from the kernel where its name says."""
     from vlsfr_tpu_torch.ops import cuda_build
-    from vlsfr_tpu_torch.tools.margin_bwd_variants import VARIANTS, edited_sources
+    from vlsfr_tpu_torch.tools.margin_bwd_variants import FORMS, edited_sources
 
-    for name, (_, edits) in VARIANTS.items():
-        for fname, old, new in edits:
-            assert (cuda_build.CSRC / fname).read_text().count(old) == 1 and old != new, name
-        assert edited_sources(edits) != edited_sources([]), name
+    assert set(FORMS) == {"f32", "bf16"}
+    for variants in FORMS.values():
+        for name, (_, edits) in variants.items():
+            for fname, old, new in edits:
+                assert (cuda_build.CSRC / fname).read_text().count(old) == 1 and old != new, name
+            assert edited_sources(edits) != edited_sources([]), name
 
 
 def test_quad_bwd_variants_edit_the_kernel_source():

@@ -33,10 +33,11 @@
 //    in f64 (exact for bf16 values in any order), max(., 1e-24), 1 / sqrt in
 //    f64 and one rounding to f32, as the plain version's bf16_row_inv.
 //    inv_norm_bf16_kernel writes it per logical column into a scratch the
-//    wrapper passes, for the forward and the fused and sparse d_w passes;
-//    the d_w pass of margin_ce_bwd / margin_partial_bwd computes it from
-//    each W tile it stages and writes it there for the d_emb pass, which
-//    computes it from its own tiles where nothing wrote it (grad_w=False).
+//    wrapper passes, for the forward; the bf16 d_w pass computes it from
+//    each W tile it stages and, where it runs before the d_emb pass (every
+//    form but the fused one), writes it there for that pass, which
+//    computes it from its own tiles where nothing wrote it (grad_w=False,
+//    fused).
 //    The wrapper passes emb already rounded to bf16 (held in f32, and as
 //    bf16): every use of emb here is an operand of a dot. The backward
 //    rounds d_cos to bf16 before both products; the normalisation backprop
@@ -85,9 +86,9 @@
 //    added in f32 (mma_bf16.cuh: mma_nt), over bf16(emb) and bf16(w_hat).
 //    The backward's top-k test (cos >= kth - KTH_TIE_TOL) compares its
 //    recomputed cosine with the forward's kth, so both must be the same
-//    bits: the forward and the fused / sparse d_w pass stage W 64 features
-//    at a time (chunk_cos), the bf16 d_emb and d_w passes whole tiles, and
-//    margin_ce_clean_cos_launch writes each tiling's cosines for a check.
+//    bits: the forward stages W 64 features at a time (chunk_cos), the
+//    bf16 d_emb and d_w passes whole tiles, and margin_ce_clean_cos_launch
+//    writes each tiling's cosines for a check.
 //  * Backward, f32 (margin_bwd_f32_kernel; every f32 form: margin_ce_bwd,
 //    margin_partial_bwd, fused, sparse): IEEE f32 FMA on the CUDA cores,
 //    register-blocked (margin_common.cuh: ftile_dots, 16-byte cp.async
@@ -122,49 +123,57 @@
 //    512): with one block an SM (its shared memory), 8 warps left each
 //    phase between two barriers waiting on its own latencies (H100: every
 //    phase removed in turn took 0.5-1.7 ms off a 7.2 ms d_w pass).
-//  * Backward, d_w epilogue (the f32 pass, and margin_bwd_dw_kernel, the
-//    fused and sparse bf16 forms' d_w pass: a block owns whole 64-column
-//    tiles with every batch row, its cosines on the tensor cores, d_w_hat
-//    in 64-feature chunks on tile_gemm's FMA map): the normalisation
-//    backprop d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>), where
-//    <d_w_hat, w_hat> = sum_b d_cos[b, t] cos[b, t] is summed from the tile
-//    (bf16 W: against the dots of emb with the unrounded w_hat, a second
-//    product). Each d_w row has one owner block, so no reduction is needed.
-//    The owner adds the label rows' d_wl (every batch row whose label is the
-//    column, in batch order: a sum, no scatter). Fused: then g = d_w + wd*w,
-//    mom' = mu*mom + g, upd = g + mu*mom' (Nesterov) | mom' | g (mu = 0),
-//    w' = w - lr*upd, written in place over the rows it has just read. The
-//    bf16 d_emb pass runs first in stream order and reads W before any of it
-//    is written; the f32 pass takes d_emb from the tile's copy. Every row
-//    decays every step: no relevance gate skips a tile.
-//  * Backward, bf16 d_w pass of margin_ce_bwd / margin_partial_bwd
-//    (margin_bwd_dw_bf16_kernel): a block owns whole 64-column tiles with
-//    every batch row; emb [128, D] bf16 stays resident (128 KB at D = 512)
-//    beside one W tile (64 KB), so W is read once (1.07 GB) and d_w written
-//    once (2.15 GB): the 0.96 ms bound. Per tile: 1/||w|| from the staged
-//    rows, the tile scaled in place; cos [128, 64] on the tensor cores; the
-//    next tile's copies start; d_cos rounded to bf16 into shared memory;
-//    d_w_hat [64, D] = d_cos^T . emb in mma accumulators; the stored values
-//    of the epilogue's elements read again (from L2); then <d_w_hat, w_hat>
-//    from the finished d_w_hat row against the f32 w_hat = w * inv (JAX's
-//    and the plain version's order of operations), reduced over the four
-//    warps that share a row in a fixed order, d_w = inv * (d_w_hat - w_hat
-//    <d_w_hat, w_hat>) plus the label rows' d_wl in batch order, stored in
-//    f32. It runs before the d_emb pass (no update is in place here). d_emb
-//    and d_w stay two passes: the [B, D] d_emb partial of a column-owning
-//    block (256 KB f32 at B = 128, D = 512) fits neither its registers nor
-//    its shared memory beside the tile (the f32 pass keeps it in L2).
+//  * Backward, d_w epilogue (both passes that write d_w): the normalisation
+//    backprop d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>). Each d_w row
+//    has one owner block, so no reduction is needed; the owner adds the
+//    label rows' d_wl (every batch row whose label is the column, in batch
+//    order: a sum, no scatter). Fused: then g = d_w + wd*w, mom' = mu*mom +
+//    g, upd = g + mu*mom' (Nesterov) | mom' | g (mu = 0), w' = w - lr*upd
+//    from the stored w and mom, each of w' and mom' rounded once to its
+//    storage type, written in place over the rows the block owns. Every
+//    row decays every step: no relevance gate skips a tile. The f32 pass
+//    sums <d_w_hat, w_hat> = sum_b d_cos[b, t] cos[b, t] from the tile and
+//    takes d_emb from its staged copy of the rows it overwrites.
+//  * Backward, bf16 d_w pass (margin_bwd_dw_bf16_kernel<MODE, TM>, every
+//    bf16 form: DW_DENSE for margin_ce_bwd / margin_partial_bwd, DW_SPARSE
+//    for the sparse backward, DW_SGD for the fused one with a momentum of
+//    type TM): a block owns whole 64-column tiles with every batch row, one
+//    block an SM; emb [128, D] bf16 stays resident (128 KB at D = 512)
+//    beside one W tile (64 KB), so W is read once (1.07 GB at C = 2^20) and
+//    d_w written once (2.15 GB): the 0.96 ms bound; fused, W and mom read
+//    and written instead of d_w (1.28 ms at (bf16, bf16), 1.92 at (bf16,
+//    f32)). Per tile: 1/||w|| from the staged rows; cos [128, 64] on the
+//    tensor cores, each W fragment scaled into bf16(w_hat) as it is read,
+//    so the stored tile stays in shared memory for the epilogue; d_cos
+//    rounded to bf16 into shared memory; d_w_hat [64, D] = d_cos^T . emb in
+//    mma accumulators; then <d_w_hat, w_hat> from the finished d_w_hat row
+//    against the f32 w_hat = w * inv from the stored tile (JAX's and the
+//    plain version's order of operations, no second product), reduced over
+//    the four lanes and then the eight warps that share a row in a fixed
+//    order, and the epilogue above: d_w stored in f32, or the update (each
+//    row's momentum loads in flight together); then the next tile's copies
+//    start. The label rows' d_wl loop
+//    walks only the batch rows whose target lies in the tile (a list built
+//    once a tile, in batch order). DW_DENSE and DW_SPARSE run before the
+//    d_emb pass and leave 1/||w|| for it; DW_SGD runs after it, so the
+//    d_emb pass reads W before any of it is written, and no tile's copies
+//    read a row already written (each block owns its rows). d_emb and d_w
+//    stay two passes: the [B, D] d_emb partial of a column-owning block
+//    (256 KB f32 at B = 128, D = 512) fits neither its registers nor its
+//    shared memory beside the tile (the f32 pass keeps it in L2).
 //  * Sparse backward: the passes walk M * tile logical columns instead of
 //    C. Each 64-column tile maps through tile_idx [M] (device memory, read
 //    by every block: the counterpart of scalar prefetch) onto the class
 //    rows it stands for; tile is a multiple of 64, so no 64-column tile
 //    straddles two selected tiles. d_w rows are written in logical order
-//    (rows past C in a ragged last tile as 0); the owner of a row's target
-//    column also writes d_gt[b], that column's dz, for the caller's target
-//    term. Bound at B = 128, D = 512, M * tile = 65,536: three products
-//    2.58e10 FLOP >= 0.385 ms against 0.27 GB (W tiles read, d_w rows
-//    written, 0.080 ms): compute-bound; the bf16 form's recompute adds a
-//    fourth.
+//    (rows past C in a ragged last tile, or of a tile index out of range,
+//    as 0, their W not read); the owner of a row's target column also
+//    writes d_gt[b], that column's dz, for the caller's target term. Bound
+//    at B = 128, D = 512, M * tile = 65,536: three products 2.58e10 FLOP >=
+//    0.385 ms against 0.27 GB (W tiles read, d_w rows written, 0.080 ms):
+//    compute-bound; the bf16 form's three products on the tensor cores,
+//    0.026 ms, under 0.20 GB (bf16 W tiles read, f32 d_w rows written,
+//    0.060 ms): bytes-bound.
 //  * One block of a class-sharded classifier (labels block-local: -1 an
 //    outlier, -2 a positive row whose target another block owns, >= 0 an
 //    owned target; gt, and backward logz / kth, global). The forward is the
@@ -225,12 +234,6 @@ __device__ __forceinline__ float inv_norm_f64(double n2) {
   return (float)(1.0 / sqrt(fmax(n2, 1e-24)));
 }
 
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
 template <class TW>
 __device__ __forceinline__ const TW* wrows(const Args& a) {
   return static_cast<const TW*>(a.w);
@@ -276,16 +279,6 @@ __global__ void inv_norm_bf16_kernel(Args a, float* inv) {
   for (int o = 16; o > 0; o >>= 1) n2 += __shfl_down_sync(0xffffffffu, n2, o);
   if (lane == 0) inv[l] = ok ? inv_norm_f64(n2) : 0.f;
 }
-
-// the fused and sparse bf16 d_w pass's staging of a W element for tile_gemm
-// as the UNROUNDED w_hat = w * inv of its row (inv indexed from the tile's
-// first row): the product is <bf16(emb), w_hat>, for <d_w_hat, w_hat>
-struct StageNormed {
-  const float* inv;
-  __device__ __forceinline__ float operator()(__nv_bfloat16 y, int row) const {
-    return __bfloat162float(y) * inv[row];
-  }
-};
 
 // ----------------------------------------------- bf16 staging (tensor cores)
 
@@ -362,9 +355,8 @@ __device__ __forceinline__ void scale_rows_bf16(unsigned char* T, int rows, int 
   }
 }
 
-// The forward's and the fused / sparse d_w pass's bf16 cosines: emb rows
-// [0, ROWS) and a tile of TC columns staged 64 features at a time, CH_ST
-// chunks in flight
+// The forward's bf16 cosines: emb rows [0, ROWS) and a tile of TC columns
+// staged 64 features at a time, CH_ST chunks in flight
 constexpr int CH_ST = 3;
 template <int ROWS, int TC>
 __host__ __device__ constexpr int chunk_bytes() {
@@ -493,7 +485,7 @@ __global__ void __launch_bounds__(F_THREADS)
     } else {
       float acc[8][8];
       float n2;
-      tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16, true>(
+      tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16>(
           acc, n2, As, Bs, a.emb, 0, a.B, wrows<TW>(a), t0, c_end, a.D, ty, tx);
       if (tid < F_TC) inv[tid] = inv_norm(n2);
       __syncthreads();
@@ -1029,248 +1021,121 @@ __global__ void margin_bwd_demb_merge_kernel(int nchunk, long long n, const floa
 
 // -------------------------------------------------------- backward: d_w pass
 
-constexpr int W_ROWS = 128, W_TC = 64, W_DK = 16, W_THREADS = 256, W_DC = 64;
-constexpr int W_ALD = W_ROWS + 4, W_BLD = W_TC + 4, W_CLD = W_TC + 1, W_ELD = W_DC + 4;
-constexpr size_t W_SMEM =
-    sizeof(float) * (W_DK * W_ALD + W_DK * W_BLD + W_ROWS * W_CLD + W_ROWS * W_ELD +
-                     16 * W_TC + 2 * W_TC + 5 * W_ROWS) +
-    sizeof(int) * (2 * W_ROWS + 1);
-// bf16 W: the chunk stages of the tensor cores' cosines in front
-constexpr size_t W_SMEM_BF16 = W_SMEM + CH_ST * chunk_bytes<W_ROWS, W_TC>();
-
-// The fused and sparse bf16 forms' d_w pass (the bf16 d_w pass of
-// margin_ce_bwd / margin_partial_bwd: margin_bwd_dw_bf16_kernel; f32 W:
-// margin_bwd_f32_kernel, so TW is bf16 here). Each column's owner adds
-// d_wl [B][D] (the label rows' gradient) for every batch row labelled with
-// it. fused == 0: write d_w to dw (row by logical
-// column). Otherwise apply the SGD update to sgd.w and sgd.mom (type TM) in
-// place (dw unused). dgt: nullptr, or [B] zeros where the owner of a row's
-// target column writes that column's dz.
-template <class TW, class TM>
-__global__ void __launch_bounds__(W_THREADS)
-    margin_bwd_dw_kernel(Args a, BwdRows br, long long cols_per_blk, const float* dwl, float* dw,
-                         Sgd sgd, int fused, float* dgt) {
-  constexpr bool BF16 = !std::is_same<TW, float>::value;
-  const TW* W = wrows<TW>(a);
-  TW* w_upd = static_cast<TW*>(sgd.w);
-  TM* mom = static_cast<TM*>(sgd.mom);
-  extern __shared__ __align__(16) float smem[];
-  unsigned char* stg = reinterpret_cast<unsigned char*>(smem);  // bf16: [CH_ST] chunk stages
-  float* As = BF16 ? reinterpret_cast<float*>(stg + CH_ST * chunk_bytes<W_ROWS, W_TC>())
-                   : smem;               // emb chunk, k-major [W_DK][W_ALD]
-  float* Bs = As + W_DK * W_ALD;         // W chunk, k-major [W_DK][W_BLD]
-  float* Dc = Bs + W_DK * W_BLD;         // d_cos [W_ROWS][W_CLD]
-  float* Es = Dc + W_ROWS * W_CLD;       // emb feature chunk [W_ROWS][W_ELD]
-  float* red = Es + W_ROWS * W_ELD;      // [16][W_TC] partial sums of d_cos * cos
-  float* inv = red + 16 * W_TC;          // [W_TC]
-  float* sdot = inv + W_TC;              // [W_TC] <d_w_hat, w_hat> = sum_b d_cos * cos
-  float* r_gt = sdot + W_TC;             // per-row inputs [W_ROWS] each
-  float* r_lz = r_gt + W_ROWS;
-  float* r_kth = r_lz + W_ROWS;
-  float* r_dce = r_kth + W_ROWS;
-  float* r_dneg = r_dce + W_ROWS;
-  int* r_lab = reinterpret_cast<int*>(r_dneg + W_ROWS);
-  int* tgt = r_lab + W_ROWS;             // [W_ROWS] label - t0 if in this tile, else -1
-  int* any_tgt = tgt + W_ROWS;
-
-  const int tid = threadIdx.x;
-  const long long c_begin = (long long)blockIdx.x * cols_per_blk;
-  const long long c_end = min(a.ncols, c_begin + cols_per_blk);
-  for (int b = tid; b < W_ROWS; b += W_THREADS) {
-    const bool ok = b < a.B;
-    r_lab[b] = ok ? a.labels[b] : -1;
-    r_gt[b] = ok ? a.gt[b] : 0.f;
-    r_lz[b] = ok ? br.logz[b] : 0.f;
-    r_kth[b] = ok ? br.kth[b] : 0.f;
-    r_dce[b] = ok ? br.dce[b] : 0.f;
-    r_dneg[b] = ok ? br.dneg[b] : 0.f;
-  }
-  // cos / d_cos map: rows ty + 16i (i < 8), cols tx + 16j (j < 4);
-  // d_w_hat map: cols ty + 16i (i < 4), features tx + 16j (j < 4) of a chunk
-  const int tx = tid & 15, ty = tid >> 4;
-
-  for (long long t0 = c_begin; t0 < c_end; t0 += W_TC) {
-    const long long p0 = phys_col(a, t0);
-    const int nl = (int)min((long long)W_TC, c_end - t0);  // output rows of this tile
-    const int n = valid_cols(a, t0, p0, c_end, W_TC);       // ... that stand for a class
-    if (tid == 0) *any_tgt = 0;
-    __syncthreads();
-    if (tid < W_ROWS) {
-      const long long off = (long long)r_lab[tid] - p0;
-      const bool in = r_lab[tid] >= 0 && off >= 0 && off < n;
-      tgt[tid] = in ? (int)off : -1;
-      if (in) *any_tgt = 1;  // every writer stores the same value
-      if (in && dgt != nullptr)  // the target column's dz: (p_t - 1) d_ce scale
-        dgt[tid] = (expf(a.scale * phi_target(r_gt[tid], a) - r_lz[tid]) - 1.f) * r_dce[tid] *
-                   a.scale;
-    }
-
-    // acc: the cosines (f32 W: raw dots); bf16 W: also ce, the dots of the
-    // rounded emb with the unrounded w_hat, for <d_w_hat, w_hat>
-    float acc[8][4], ce[8][4];
-    if constexpr (BF16) {
-      if (tid < W_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
-      // the cosines on the tensor cores (the forward's chain; warps of 32
-      // rows x 32 columns), handed to the thread map below through Dc
-      const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
-      const int wr = (warp & 3) * 32, wc = (warp >> 2) * 32;
-      float mc[2][4][4];
-      chunk_cos<W_ROWS, W_TC, 4>(a, stg, inv, p0, n, wr, wc, mc);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            Dc[(wr + 16 * mi + g + 8 * (e >> 1)) * W_CLD + wc + 8 * ni + 2 * t + (e & 1)] =
-                mc[mi][ni][e];
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = Dc[(ty + 16 * i) * W_CLD + tx + 16 * j];
-      float n2;  // tile_gemm's barriers order these reads before Dc is rewritten
-      tile_gemm<W_ROWS, W_TC, W_DK, W_THREADS, W_ALD, W_BLD, 8, 4, 16, 16, false>(
-          ce, n2, As, Bs, a.emb, 0, a.B, W, p0, p0 + n, a.D, ty, tx, StageNormed{inv});
-    } else {
-      float n2;
-      tile_gemm<W_ROWS, W_TC, W_DK, W_THREADS, W_ALD, W_BLD, 8, 4, 16, 16, true>(
-          acc, n2, As, Bs, a.emb, 0, a.B, W, p0, p0 + n, a.D, ty, tx);
-      if (tid < W_TC) inv[tid] = inv_norm(n2);
-    }
-    __syncthreads();
-
-    float sp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int b = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float d = 0.f;
-        if (b < a.B && c < n) {
-          const float cv = BF16 ? acc[i][j] : acc[i][j] * inv[c];
-          d = dcos_of(cv, p0 + c, r_lab[b], r_gt[b], r_lz[b], r_kth[b], r_dce[b], r_dneg[b], a);
-          if constexpr (BF16) {
-            d = bf16r(d);
-            sp[j] = fmaf(d, ce[i][j], sp[j]);
-          } else {
-            sp[j] = fmaf(d, cv, sp[j]);
-          }
-        }
-        Dc[b * W_CLD + c] = d;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[ty * W_TC + tx + 16 * j] = sp[j];
-    __syncthreads();
-    if (tid < W_TC) {
-      float sd = 0.f;
-      for (int y = 0; y < 16; ++y) sd += red[y * W_TC + tid];
-      sdot[tid] = sd;
-    }
-    const bool tile_tgt = *any_tgt != 0;
-
-    for (int dc0 = 0; dc0 < a.D; dc0 += W_DC) {
-      __syncthreads();  // Es free (previous chunk done); sdot visible
-#pragma unroll
-      for (int l = 0; l < W_ROWS * W_DC / W_THREADS; ++l) {
-        const int idx = l * W_THREADS + tid, b = idx / W_DC, d = idx % W_DC;
-        Es[b * W_ELD + d] = b < a.B ? a.emb[(long long)b * a.D + dc0 + d] : 0.f;
-      }
-      __syncthreads();
-      float acc3[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc3[i][j] = 0.f;
-      for (int b = 0; b < a.B; ++b) {
-        float dv[4], ev[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i] = Dc[b * W_CLD + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ev[j] = Es[b * W_ELD + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc3[i][j] = fmaf(dv[i], ev[j], acc3[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        if (t >= nl) continue;
-        const float iv = inv[t], sd = sdot[t];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int d = dc0 + tx + 16 * j;
-          const long long off_out = (t0 + t) * a.D + d;  // the output row: logical column
-          if (t >= n) {  // a selected ragged last tile's rows past C
-            dw[off_out] = 0.f;
-            continue;
-          }
-          const long long off = (p0 + t) * a.D + d;  // the class row
-          const float wv = to_f32(W[off]);  // plain load: the fused pass overwrites this row
-          float g = iv * (acc3[i][j] - wv * iv * sd);
-          if (tile_tgt) {
-            for (int b = 0; b < a.B; ++b)
-              if (tgt[b] == t) g += dwl[(long long)b * a.D + d];
-          }
-          if (!fused) {
-            dw[off_out] = g;
-            continue;
-          }
-          if (sgd.wd != 0.f) g = g + sgd.wd * wv;
-          float mn = g, upd = g;
-          if (sgd.mu != 0.f) {
-            mn = sgd.mu * to_f32(mom[off]) + g;
-            upd = sgd.nesterov ? g + sgd.mu * mn : mn;
-          }
-          store_as(mom + off, mn);  // each rounded once to its storage type
-          store_as(w_upd + off, wv - sgd.lr * upd);
-        }
-      }
-    }
-    __syncthreads();  // Dc, sdot, tgt are rebuilt by the next tile
-  }
-}
-
 constexpr int WB_ROWS = 128, WB_TC = 64;  // bf16 d_w pass: batch rows, tile columns
+// what the bf16 d_w pass writes: d_w (margin_ce_bwd, margin_partial_bwd);
+// the selected tiles' d_w rows and d_gt (the sparse backward); or the SGD
+// update of W and mom in place, and no d_w (the fused backward)
+constexpr int DW_DENSE = 0, DW_SPARSE = 1, DW_SGD = 2;
 
 // shared memory of the bf16 d_w pass at feature width D: emb, the W tile,
 // bf16(d_cos), the tile's 1 / ||w|| and <d_w_hat, w_hat> partials (eight
-// feature groups), the rows' inputs and target offsets
+// feature groups), the rows' inputs, target offsets and the rows with a
+// target in the tile
 __host__ __device__ constexpr int dw_bf16_smem(int D) {
   return WB_ROWS * D * 2 + WB_TC * D * 2 + WB_ROWS * WB_TC * 2 + 9 * WB_TC * 4 +
-         WB_ROWS * ((int)sizeof(RowIn) + 4);
+         WB_ROWS * (int)sizeof(RowIn) + (2 * WB_ROWS + 1) * 4;
 }
 
-// The bf16 d_w pass of margin_ce_bwd / margin_partial_bwd (module header):
-// d_w [C][D] f32 with each label row's d_wl [B][D] added by the column's
-// owner in batch order; 1 / ||w|| of each column into inv_out for the d_emb
-// pass.
+// two consecutive momentum values as f32, and stored back each rounded once
+// to the storage type
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+
+// mma_nt's product against a stored W tile B [n][k] (swizzled, rcb chunks a
+// row) whose rows are scaled as they are read: each B fragment's pair of
+// row n scaled by inv[n] and rounded once (scale_bf16x2), the operand
+// bf16(w_hat) that scale_rows_bf16 writes, so the chain and its bits are
+// mma_nt's on the scaled tile and the stored tile stays for the epilogue
+template <int MI, int NI>
+__device__ __forceinline__ void mma_nt_scaled(float (&acc)[MI][NI][4], const unsigned char* A,
+                                              int rca, int m0, const unsigned char* B, int rcb,
+                                              int n0, int n_ks, const float* inv) {
+  static_assert(NI % 2 == 0, "B fragments load two n8 tiles at a time");
+  const int lane = threadIdx.x & 31;
+  float sc[NI];  // the thread's B rows n0 + 8 ni + lane / 4
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) sc[ni] = inv[n0 + 8 * ni + (lane >> 2)];
+#pragma unroll 4
+  for (int ks = 0; ks < n_ks; ++ks) {
+    uint32_t a[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) load_a(a[mi], A, rca, m0 + 16 * mi, ks);
+#pragma unroll
+    for (int nj = 0; nj < NI / 2; ++nj) {
+      uint32_t b[4];
+      ldsm_x4(b, B + swz(n0 + 16 * nj + (lane & 7) + (lane >> 4) * 8,
+                         ks * 16 + ((lane >> 3) & 1) * 8, rcb));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) b[e] = scale_bf16x2(b[e], sc[2 * nj + (e >> 1)]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        float p0[4], p1[4];
+        mma_bf16_0(p0, a[mi], b[0], b[1]);
+        mma_bf16_0(p1, a[mi], b[2], b[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mi][2 * nj][e] += p0[e];
+          acc[mi][2 * nj + 1][e] += p1[e];
+        }
+      }
+    }
+  }
+}
+
+// The bf16 d_w pass (module header), in its MODE. DW_DENSE: d_w [C][D] f32
+// to dw. DW_SPARSE: the d_w rows [ncols][D] of the selected tiles to dw in
+// logical order (rows that stand for no class as 0), and d_gt [B] (zeros
+// from the caller) where the pass owns a row's target column. Both add each
+// label row's d_wl [B][D] in the column's owner, in batch order, and write
+// 1 / ||w|| of each logical column into inv_out for the d_emb pass. DW_SGD:
+// the SGD update of sgd.w (== W) and sgd.mom (type TM) in place.
+template <int MODE, class TM>
 __global__ void __launch_bounds__(BW_THREADS, 1)
     margin_bwd_dw_bf16_kernel(Args a, BwdRows br, long long cols_per_blk, const float* dwl,
-                              float* dw, float* inv_out) {
+                              float* dw, float* inv_out, Sgd sgd, float* dgt) {
   extern __shared__ __align__(16) unsigned char dw_sm[];
   const int D = a.D, rcd = D / 8;
   const __nv_bfloat16* W = wrows<__nv_bfloat16>(a);
+  __nv_bfloat16* w_upd = static_cast<__nv_bfloat16*>(sgd.w);
+  TM* mom = static_cast<TM*>(sgd.mom);
   unsigned char* Es = dw_sm;                   // emb [WB_ROWS][D]
-  unsigned char* Ws = Es + WB_ROWS * D * 2;    // the W tile [WB_TC][D]: stored, then bf16(w_hat)
+  unsigned char* Ws = Es + WB_ROWS * D * 2;    // the W tile [WB_TC][D], as stored
   unsigned char* Dc = Ws + WB_TC * D * 2;      // bf16(d_cos) [WB_ROWS][WB_TC]
   float* inv = reinterpret_cast<float*>(Dc + WB_ROWS * WB_TC * 2);  // [WB_TC]
   float* sdp = inv + WB_TC;  // [8][WB_TC] <d_w_hat, w_hat> over each feature group
   RowIn* rin = reinterpret_cast<RowIn*>(sdp + 8 * WB_TC);  // [WB_ROWS]
-  int* tgt = reinterpret_cast<int*>(rin + WB_ROWS);        // label - t0 in this tile, else -1
+  int* tgt = reinterpret_cast<int*>(rin + WB_ROWS);        // label - p0 in this tile, else -1
+  int* hits = tgt + WB_ROWS;  // [1 + WB_ROWS]: how many rows have tgt >= 0, then they in order
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
   const long long c_begin = (long long)blockIdx.x * cols_per_blk;
-  const long long c_end = min(a.C, c_begin + cols_per_blk);
+  const long long c_end = min(a.ncols, c_begin + cols_per_blk);
   const int n_tiles = c_end > c_begin ? (int)((c_end - c_begin + WB_TC - 1) / WB_TC) : 0;
   const int nb = (a.B + 15) / 16;  // k16 steps of d_w_hat over the batch
 
+  // tile ti: the output rows of the logical columns [t0, t0 + nl), of which
+  // the first n (returned) stand for the class rows p0 .. p0 + n - 1
+  auto tile_at = [&](int ti, long long& t0, long long& p0, int& nl) {
+    t0 = c_begin + (long long)ti * WB_TC;
+    p0 = phys_col(a, t0);
+    nl = (int)min((long long)WB_TC, c_end - t0);
+    return valid_cols(a, t0, p0, c_end, WB_TC);
+  };
+  long long t0, p0;
+  int nl;
   stage_rows_bf16(Es, a.eb, 0, a.B, WB_ROWS, D);
-  if (n_tiles > 0) stage_rows_bf16(Ws, W, c_begin, (int)min((long long)WB_TC, c_end - c_begin),
-                                   WB_TC, D);
+  if (n_tiles > 0) {
+    const int n = tile_at(0, t0, p0, nl);
+    stage_rows_bf16(Ws, W, p0, n, WB_TC, D);
+  }
   cp_async_commit();
   load_row_in(rin, WB_ROWS, 0, a, br);
 
@@ -1282,28 +1147,34 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   const int m2 = (warp & 1) * 32, q2 = warp >> 1, np = D / 16;
 
   for (int ti = 0; ti < n_tiles; ++ti) {
-    const long long t0 = c_begin + (long long)ti * WB_TC;
-    const int n = (int)min((long long)WB_TC, c_end - t0);
+    const int n = tile_at(ti, t0, p0, nl);
     cp_async_wait<0>();
-    __syncthreads();  // the tile (and emb) landed; the last tile's epilogue is done
+    __syncthreads();  // the tile (and emb) landed
     row_inv_tile(Ws, n, D, inv);
     bool hit = false;
     if (tid < WB_ROWS) {
-      const long long off = (long long)rin[tid].lab - t0;
-      tgt[tid] = rin[tid].lab >= 0 && off >= 0 && off < n ? (int)off : -1;
-      hit = tgt[tid] >= 0;
+      const RowIn v = rin[tid];
+      const long long off = (long long)v.lab - p0;
+      hit = v.lab >= 0 && off >= 0 && off < n;
+      tgt[tid] = hit ? (int)off : -1;
+      if (MODE == DW_SPARSE && hit)  // the target column's dz: (p_t - 1) d_ce scale
+        dgt[tid] = (expf(a.scale * phi_target(v.gt, a) - v.lz) - 1.f) * v.dce * a.scale;
     }
     const bool any_tgt = __syncthreads_or(hit);  // inv and tgt visible
-    if (tid < n) inv_out[t0 + tid] = inv[tid];
-    scale_rows_bf16(Ws, WB_TC, rcd, inv);
-    __syncthreads();  // the tile holds bf16(w_hat)
+    if (any_tgt && warp == 0) {  // the rows with a target in the tile, in batch order
+      int cnt = 0;
+      for (int r0 = 0; r0 < WB_ROWS; r0 += 32) {
+        const bool in = tgt[r0 + lane] >= 0;
+        const unsigned m = __ballot_sync(0xffffffffu, in);
+        if (in) hits[1 + cnt + __popc(m & ((1u << lane) - 1u))] = r0 + lane;
+        cnt += __popc(m);
+      }
+      if (lane == 0) hits[0] = cnt;
+    }
+    if (MODE != DW_SGD && tid < nl) inv_out[t0 + tid] = inv[tid];
 
     float acc[2][2][4] = {};
-    mma_nt<2, 2>(acc, Es, rcd, m0, Ws, rcd, n0, D / 16);
-    __syncthreads();  // every warp is done with the tile: the next one's copies start
-    if (ti + 1 < n_tiles)
-      stage_rows_bf16(Ws, W, t0 + WB_TC, (int)min((long long)WB_TC, c_end - t0 - WB_TC), WB_TC, D);
-    cp_async_commit();
+    mma_nt_scaled<2, 2>(acc, Es, rcd, m0, Ws, rcd, n0, D / 16, inv);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -1317,7 +1188,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
 #pragma unroll
           for (int j = 0; j < 2; ++j)
             d[j] = b < a.B && c + j < n
-                       ? dcos_of(acc[mi][ni][2 * h + j], t0 + c + j, v.lab, v.gt, v.lz, v.kth,
+                       ? dcos_of(acc[mi][ni][2 * h + j], p0 + c + j, v.lab, v.gt, v.lz, v.kth,
                                  v.dce, v.dneg, a)
                        : 0.f;
           *reinterpret_cast<__nv_bfloat162*>(Dc + swz(b, c, WB_TC / 8)) =
@@ -1343,23 +1214,15 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       }
     }
 
-    // the stored values of the thread's d_w elements (columns m2 + 16 mi + g
-    // + 8 h, features fj + 2 t, + 1 of its n8 tiles j: fj = 16 (q2 + 8 (j /
-    // 2)) + 8 (j % 2)), again from L2: the tile's copy in shared memory is
-    // bf16(w_hat) now (issued before the product, they spill)
+    // the stored values of the thread's d_w elements (column c: m2 + 16 mi +
+    // g + 8 h; features fj + 2 t, + 1 of its n8 tiles j: fj = 16 (q2 + 8 (j
+    // / 2)) + 8 (j % 2)) from the tile, read for <d_w_hat, w_hat> and again
+    // in the epilogue
     auto feat = [&](int j) { return 16 * (q2 + 8 * (j >> 1)) + 8 * (j & 1) + 2 * t; };
-    uint32_t wst[2][2][8];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = m2 + 16 * mi + g + 8 * h;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          wst[mi][h][j] = q2 + 8 * (j >> 1) < np && c < n
-                              ? __ldg(reinterpret_cast<const unsigned*>(W + (t0 + c) * D + feat(j)))
-                              : 0u;
-      }
+    auto stored = [&](int c, int j) {
+      const unsigned char* p = Ws + swz(c, feat(j), rcd);
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    };
 
     // <d_w_hat, w_hat> of each column from its finished row against the f32
     // w_hat = w * inv: the thread's features, its row's four lanes, then the
@@ -1369,12 +1232,13 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float iv = inv[m2 + 16 * mi + g + 8 * h];
+        const int c = m2 + 16 * mi + g + 8 * h;
+        const float iv = inv[c];
         float s = 0.f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          if (q2 + 8 * (j >> 1) >= np) continue;
-          const float2 wf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wst[mi][h][j]));
+          if (q2 + 8 * (j >> 1) >= np || c >= n) continue;
+          const float2 wf = stored(c, j);
           s = fmaf(dwh[mi][j][2 * h], wf.x * iv, s);
           s = fmaf(dwh[mi][j][2 * h + 1], wf.y * iv, s);
         }
@@ -1388,32 +1252,83 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) sdp[q2 * WB_TC + m2 + 16 * mi + g + 8 * h] = sd[mi][h];
     __syncthreads();
+
+    // d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>) + the label rows' d_wl;
+    // DW_SGD then g = d_w + wd * w, mom' = mu * mom + g, upd = g + mu * mom'
+    // (Nesterov) | mom' | g (mu = 0), w' = w - lr * upd, from the stored w
+    // and mom, each of w' and mom' rounded once to its storage type
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = m2 + 16 * mi + g + 8 * h;
-        if (c >= n) continue;
+        if (c >= nl) continue;
+        float* out = dw + (t0 + c) * D;  // the output row: logical column
+        if (c >= n) {  // a selected tile's rows past C, or of a tile index out of range
+          if constexpr (MODE == DW_SPARSE)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (q2 + 8 * (j >> 1) < np) store2(out + feat(j), make_float2(0.f, 0.f));
+          continue;
+        }
         const float iv = inv[c];
         float s = 0.f;
         for (int q = 0; q < 8; ++q) s += sdp[q * WB_TC + c];
-        float* out = dw + (t0 + c) * D;
+        // DW_SGD: the row's momentum values, all loads in flight before the
+        // first store
+        float2 mv[8];
+        if constexpr (MODE == DW_SGD)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            mv[j] = q2 + 8 * (j >> 1) < np && sgd.mu != 0.f ? load2(mom + (p0 + c) * D + feat(j))
+                                                              : make_float2(0.f, 0.f);
+        float2 gr[8];  // the row's d_w
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 wf = q2 + 8 * (j >> 1) < np ? stored(c, j) : make_float2(0.f, 0.f);
+          gr[j] = make_float2(iv * (dwh[mi][j][2 * h] - wf.x * iv * s),
+                              iv * (dwh[mi][j][2 * h + 1] - wf.y * iv * s));
+        }
+        if (any_tgt)  // the label rows' d_wl, in batch order
+          for (int k = 1; k <= hits[0]; ++k) {
+            const int b = hits[k];
+            if (tgt[b] != c) continue;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              if (q2 + 8 * (j >> 1) >= np) continue;
+              const float2 l = *reinterpret_cast<const float2*>(dwl + (long long)b * D + feat(j));
+              gr[j].x += l.x;
+              gr[j].y += l.y;
+            }
+          }
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           if (q2 + 8 * (j >> 1) >= np) continue;
-          const float2 wf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wst[mi][h][j]));
-          float2 gv = make_float2(iv * (dwh[mi][j][2 * h] - wf.x * iv * s),
-                                  iv * (dwh[mi][j][2 * h + 1] - wf.y * iv * s));
-          if (any_tgt)  // the label rows' d_wl, in batch order
-            for (int b = 0; b < a.B; ++b) {
-              if (tgt[b] != c) continue;
-              const float2 l = *reinterpret_cast<const float2*>(dwl + (long long)b * D + feat(j));
-              gv.x += l.x;
-              gv.y += l.y;
+          float2 gv = gr[j];
+          if constexpr (MODE != DW_SGD) {
+            store2(out + feat(j), gv);
+          } else {
+            const float2 wf = stored(c, j);
+            const long long off = (p0 + c) * D + feat(j);  // the class row
+            if (sgd.wd != 0.f) gv = make_float2(gv.x + sgd.wd * wf.x, gv.y + sgd.wd * wf.y);
+            float2 mn = gv, upd = gv;
+            if (sgd.mu != 0.f) {
+              mn = make_float2(sgd.mu * mv[j].x + gv.x, sgd.mu * mv[j].y + gv.y);
+              upd = sgd.nesterov ? make_float2(gv.x + sgd.mu * mn.x, gv.y + sgd.mu * mn.y) : mn;
             }
-          *reinterpret_cast<float2*>(out + feat(j)) = gv;
+            store2(mom + off, mn);
+            store2(w_upd + off, make_float2(wf.x - sgd.lr * upd.x, wf.y - sgd.lr * upd.y));
+          }
         }
       }
+    __syncthreads();  // every warp is done with the tile: the next one's copies start
+    if (ti + 1 < n_tiles) {
+      long long t1, p1;
+      int nl1;
+      const int n1 = tile_at(ti + 1, t1, p1, nl1);
+      stage_rows_bf16(Ws, W, p1, n1, WB_TC, D);
+    }
+    cp_async_commit();
   }
   cp_async_wait<0>();
 }
@@ -1421,23 +1336,22 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
 // ------------------------------------------------------------ clean cosines
 
 // out [B][C] = the bf16 cosines of every column (no labels read) as the
-// chunk staging forms them: TC = 128 columns a block as the forward does,
-// 64 as the fused and sparse d_w pass does; 1 / ||w|| from a.inv
-template <int TC>
-__global__ void __launch_bounds__(256) clean_cos_chunk_kernel(Args a, float* out) {
+// forward's chunk staging forms them (chunk_cos, F_TC columns a block); 1 /
+// ||w|| from a.inv
+__global__ void __launch_bounds__(F_THREADS) clean_cos_chunk_kernel(Args a, float* out) {
   extern __shared__ __align__(16) unsigned char cc_sm[];
-  float* inv = reinterpret_cast<float*>(cc_sm + CH_ST * chunk_bytes<128, TC>());
+  float* inv = reinterpret_cast<float*>(cc_sm + CH_ST * chunk_bytes<F_ROWS, F_TC>());
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
-  const long long t0 = (long long)blockIdx.x * TC;
-  const int n = (int)min((long long)TC, a.C - t0);
-  if (tid < TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
-  const int wr = (warp & 3) * 32, wc = (warp >> 2) * (TC / 2);
-  float acc[2][TC / 16][4];
-  chunk_cos<128, TC, TC / 16>(a, cc_sm, inv, t0, n, wr, wc, acc);
+  const long long t0 = (long long)blockIdx.x * F_TC;
+  const int n = (int)min((long long)F_TC, a.C - t0);
+  if (tid < F_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
+  const int wr = (warp & 3) * 32, wc = (warp >> 2) * (F_TC / 2);
+  float acc[2][F_TC / 16][4];
+  chunk_cos<F_ROWS, F_TC, F_TC / 16>(a, cc_sm, inv, t0, n, wr, wc, acc);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int ni = 0; ni < TC / 16; ++ni)
+    for (int ni = 0; ni < F_TC / 16; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = wr + 16 * mi + g + 8 * (e >> 1), c = wc + 8 * ni + 2 * t + (e & 1);
@@ -1496,7 +1410,7 @@ __global__ void __launch_bounds__(F_THREADS) clean_cos_f32_fwd_kernel(Args a, fl
   const long long t0 = (long long)blockIdx.x * F_TC;
   const long long c_end = min(a.C, t0 + F_TC);
   float acc[8][8], n2;
-  tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16, true>(
+  tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16>(
       acc, n2, As, Bs, a.emb, 0, a.B, wrows<float>(a), t0, c_end, a.D, ty, tx);
   if (tid < F_TC) inv[tid] = inv_norm(n2);
   __syncthreads();
@@ -1607,24 +1521,36 @@ int launch_f32_pass(int mode, const Args& a, const BwdRows& br, int nblk, long l
   return (int)cudaGetLastError();
 }
 
+// the bf16 d_w pass in its MODE (DW_DENSE, DW_SPARSE, DW_SGD) over nblk
+// column ranges
+template <int MODE, class TM>
+int launch_dw_bf16(const Args& a, const BwdRows& br, int nblk, long long cols_per_blk,
+                   const float* dwl, float* dw, const Sgd& sgd, float* dgt, cudaStream_t st) {
+  const size_t smem = dw_bf16_smem(a.D);
+  const int e = allow_smem(margin_bwd_dw_bf16_kernel<MODE, TM>, smem);
+  if (e != 0) return e;
+  margin_bwd_dw_bf16_kernel<MODE, TM><<<nblk, BW_THREADS, smem, st>>>(
+      a, br, cols_per_blk, dwl, dw, const_cast<float*>(a.inv), sgd, dgt);
+  return (int)cudaGetLastError();
+}
+
 // the backward. f32 W: the one pass (column owners, each with its d_emb
 // partial), then the merge of the nchunk (= dw_nblk) partials. bf16 W: the
 // d_emb pass (row groups of 64 rows x nchunk column chunks), the merge, and
-// the d_w pass (column owners) after it; the dense unfused d_w
-// (margin_ce_bwd, margin_partial_bwd) runs the tensor-core pass before it,
-// and that pass's 1 / ||w|| serves the d_emb pass. grad_w=False: dw nullptr
-// and not fused.
+// the d_w pass (column owners). The d_w pass runs first where it writes d_w
+// (its 1 / ||w|| serves the d_emb pass), and last where it updates W in
+// place (fused: the d_emb pass reads W before any of it is written, and
+// takes 1 / ||w|| from its own tiles). grad_w=False: dw nullptr and not
+// fused.
 template <class TW, class TM>
 int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
                long long cols_per_chunk, float* d_emb, int dw_nblk, long long dw_cols_per_blk,
                const float* dwl, float* dw, const Sgd& sgd, int fused, float* dgt,
                cudaStream_t st) {
-  constexpr bool BF16 = !std::is_same<TW, float>::value;
   const bool with_dw = dw != nullptr || fused;
-  const bool dw_tc = BF16 && with_dw && !fused && a.sel == nullptr;
   const long long n = (long long)a.B * a.D;
   int e = 0;
-  if constexpr (!BF16) {
+  if constexpr (std::is_same<TW, float>::value) {
     e = launch_f32_pass<TM>(fused ? FB_SGD : with_dw ? FB_DW : FB_DEMB, a, br, dw_nblk,
                             dw_cols_per_blk, dwl, dw, sgd, dgt, part, st);
     if (e != 0) return e;
@@ -1632,28 +1558,24 @@ int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
                                                                               d_emb);
     return (int)cudaGetLastError();
   } else {
-    if (dw_tc) {
-      const size_t smem = dw_bf16_smem(a.D);
-      if ((e = allow_smem(margin_bwd_dw_bf16_kernel, smem)) != 0) return e;
-      margin_bwd_dw_bf16_kernel<<<dw_nblk, BW_THREADS, smem, st>>>(
-          a, br, dw_cols_per_blk, dwl, dw, const_cast<float*>(a.inv));
-    } else if (with_dw) {  // the fused and sparse d_w pass reads a.inv
-      e = launch_inv(a, st);
-    }
-    if (e != 0 || (e = (int)cudaGetLastError()) != 0) return e;
+    const bool dw_first = with_dw && !fused;
+    if (dw_first)
+      e = a.sel == nullptr ? launch_dw_bf16<DW_DENSE, float>(a, br, dw_nblk, dw_cols_per_blk, dwl,
+                                                             dw, sgd, dgt, st)
+                           : launch_dw_bf16<DW_SPARSE, float>(a, br, dw_nblk, dw_cols_per_blk,
+                                                              dwl, dw, sgd, dgt, st);
+    if (e != 0) return e;
     const size_t smem = demb_bf16_smem(a.D);
     const int n_rg = (a.B + E_RB - 1) / E_RB;
     if ((e = allow_smem(margin_bwd_demb_bf16_kernel, smem)) != 0) return e;
     margin_bwd_demb_bf16_kernel<<<nchunk * n_rg, BW_THREADS, smem, st>>>(
-        a, br, cols_per_chunk, n_rg, (int)with_dw, part);
+        a, br, cols_per_chunk, n_rg, (int)dw_first, part);
     if ((e = (int)cudaGetLastError()) != 0) return e;
     margin_bwd_demb_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(nchunk, n, part,
                                                                               d_emb);
-    if ((e = (int)cudaGetLastError()) != 0 || !with_dw || dw_tc) return e;
-    if ((e = allow_smem(margin_bwd_dw_kernel<TW, TM>, W_SMEM_BF16)) != 0) return e;
-    margin_bwd_dw_kernel<TW, TM><<<dw_nblk, W_THREADS, W_SMEM_BF16, st>>>(a, br, dw_cols_per_blk,
-                                                                        dwl, dw, sgd, fused, dgt);
-    return (int)cudaGetLastError();
+    if ((e = (int)cudaGetLastError()) != 0 || !fused) return e;
+    return launch_dw_bf16<DW_SGD, TM>(a, br, dw_nblk, dw_cols_per_blk, dwl, nullptr, sgd, nullptr,
+                                      st);
   }
 }
 
@@ -1670,21 +1592,15 @@ int launch_bwd_form(int w_bf16, const Args& a, const BwdRows& br, float* part, i
                                            dw_cols_per_blk, dwl, dw, none, 0, dgt, st);
 }
 
-// the bf16 cosines in tiling 0 (the forward), 1 (the d_emb pass), 2 (the
-// bf16 d_w pass) or 3 (the fused and sparse d_w pass)
+// the bf16 cosines in tiling 0 (the forward), 1 (the d_emb pass) or 2 (the
+// d_w pass, every mode)
 int launch_clean_cos(const Args& a, int tiling, float* out, cudaStream_t st) {
   int e = 0;
-  if (tiling == 0 || tiling == 3) {
+  if (tiling == 0) {
     if ((e = launch_inv(a, st)) != 0) return e;
-    const size_t smem = (tiling == 0 ? CH_ST * chunk_bytes<128, 128>() + 128 * 4
-                                     : CH_ST * chunk_bytes<128, 64>() + 64 * 4);
-    if (tiling == 0) {
-      if ((e = allow_smem(clean_cos_chunk_kernel<128>, smem)) != 0) return e;
-      clean_cos_chunk_kernel<128><<<(unsigned)((a.C + 127) / 128), 256, smem, st>>>(a, out);
-    } else {
-      if ((e = allow_smem(clean_cos_chunk_kernel<64>, smem)) != 0) return e;
-      clean_cos_chunk_kernel<64><<<(unsigned)((a.C + 63) / 64), 256, smem, st>>>(a, out);
-    }
+    const size_t smem = CH_ST * chunk_bytes<F_ROWS, F_TC>() + F_TC * 4;
+    if ((e = allow_smem(clean_cos_chunk_kernel, smem)) != 0) return e;
+    clean_cos_chunk_kernel<<<(unsigned)((a.C + F_TC - 1) / F_TC), F_THREADS, smem, st>>>(a, out);
   } else if (tiling == 1 || tiling == 2) {
     const int rows = tiling == 1 ? 64 : 128;
     const size_t smem = (size_t)(rows + 64) * a.D * 2 + 64 * 4;
@@ -1702,14 +1618,14 @@ int launch_clean_cos(const Args& a, int tiling, float* out, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// the f32 cosines in tiling 0 (the forward) or 1, 2, 3 (the backward's one
+// the f32 cosines in tiling 0 (the forward) or 1, 2 (the backward's one
 // pass, which every f32 backward form runs)
 int launch_clean_cos_f32(const Args& a, int tiling, float* out, cudaStream_t st) {
   int e = 0;
   if (tiling == 0) {
     const size_t smem = sizeof(float) * (F_DK * F_ALD + F_DK * F_BLD + F_TC);
     clean_cos_f32_fwd_kernel<<<(unsigned)((a.C + F_TC - 1) / F_TC), F_THREADS, smem, st>>>(a, out);
-  } else if (tiling >= 1 && tiling <= 3) {
+  } else if (tiling == 1 || tiling == 2) {
     const size_t smem = sizeof(float) * (FB_TC * (a.D + 4) + FB_XSTG + FB_TC);
     if ((e = allow_smem(clean_cos_f32_bwd_kernel, smem)) != 0) return e;
     clean_cos_f32_bwd_kernel<<<(unsigned)((a.C + FB_TC - 1) / FB_TC), FB_THREADS, smem, st>>>(a,
@@ -1834,9 +1750,9 @@ int margin_partial_bwd_launch(MCE_COMMON_PARAMS, MCE_BWD_PARAMS, float* dw, cons
 }
 
 // the cosines [B][C] of every column (no labels read) as tiling forms them
-// (0 the forward, 1 the d_emb pass, 2 the d_w pass of margin_ce_bwd, 3 the
-// fused and sparse d_w pass; f32 W: 2 and 3 are one pass): a parity probe of
-// the chain they share
+// (0 the forward, 1 the d_emb pass, 2 the d_w pass of every bf16 backward
+// form; f32 W: 1 and 2 are the one pass): a parity probe of the chain they
+// share
 int margin_ce_clean_cos_launch(MCE_COMMON_PARAMS, int tiling, float* out, void* stream) {
   const Args a = make_args(MCE_COMMON_ARGS);
   if (!w_bf16) return launch_clean_cos_f32(a, tiling, out, (cudaStream_t)stream);

@@ -1,10 +1,9 @@
 // Device helpers shared by the port's margin kernels (quad_margin.cu and
 // margin_ce.cu): the margin transform, the streamed (max, sumexp) and
 // value-only top-k, the merge of per-block partials, d loss / d cos of one
-// column, and the shared-memory tile products (tile_gemm: f32 accumulate
-// over f32, bf16 or int8 rows, each converted exactly to f32, or staged by
-// a caller's policy: margin_ce.cu's bf16 form stages its rows normalised;
-// ftile_dots: its register-blocked f32 form, staged by cp.async).
+// column, and the shared-memory tile products of f32 rows (tile_gemm:
+// margin_ce.cu's f32 forward; ftile_dots: its register-blocked form, staged
+// by cp.async).
 //
 // Both kernels' top-k tie test (cos >= kth - KTH_TIE_TOL) compares cosines
 // that the forward and the backward compute separately; they must be the
@@ -146,32 +145,17 @@ __device__ __forceinline__ float dcos_col(float c, float gt, float logz, float k
   return d;
 }
 
-// a stored element as f32 (exact for bf16 and int8)
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(signed char x) { return (float)x; }
-
-// How tile_gemm stages an element y of row `row` of Y: it returns the
-// product's operand. Exact converts the stored value exactly to f32.
-struct StageExact {
-  template <class TY>
-  __device__ __forceinline__ float operator()(TY y, int) const {
-    return to_f32(y);
-  }
-};
-
 // acc[i][j] = sum over the feature axis, in index order, of
-// X[x0 + ay + SA*i] . stage(Y[y0 + bx + SB*j]) for row-major [*, D] matrices
-// X (f32) and Y (f32, bf16 or int8), staged DK features at a time into
-// shared memory k-major as f32 (As [DK][ALD], Bs [DK][BLD]); rows at or past
-// x_end / y_end read as 0. With NORM, thread t < NY also sums
-// ||Y[y0 + t]||^2 of the staged operands from the same chunks into n2.
-template <int NX, int NY, int DK, int THREADS, int ALD, int BLD, int TI, int TJ, int SA, int SB,
-          bool NORM, class TY = float, class STAGE = StageExact>
+// X[x0 + ay + SA*i] . Y[y0 + bx + SB*j] for row-major [*, D] f32 matrices X
+// and Y, staged DK features at a time into shared memory k-major (As
+// [DK][ALD], Bs [DK][BLD]); rows at or past x_end / y_end read as 0.
+// Thread t < NY also sums ||Y[y0 + t]||^2 of the staged operands from the
+// same chunks into n2.
+template <int NX, int NY, int DK, int THREADS, int ALD, int BLD, int TI, int TJ, int SA, int SB>
 __device__ __forceinline__ void tile_gemm(float (&acc)[TI][TJ], float& n2, float* As, float* Bs,
                                           const float* X, long long x0, long long x_end,
-                                          const TY* Y, long long y0, long long y_end, int D,
-                                          int ay, int bx, const STAGE& stage = STAGE()) {
+                                          const float* Y, long long y0, long long y_end, int D,
+                                          int ay, int bx) {
   const int tid = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < TI; ++i)
@@ -189,10 +173,10 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TI][TJ], float& n2, float
     for (int l = 0; l < NY * DK / THREADS; ++l) {
       const int idx = l * THREADS + tid, row = idx / DK, kk = idx % DK;
       const long long g = y0 + row;
-      Bs[kk * BLD + row] = g < y_end ? stage(Y[g * D + k0 + kk], row) : 0.f;
+      Bs[kk * BLD + row] = g < y_end ? Y[g * D + k0 + kk] : 0.f;
     }
     __syncthreads();
-    if (NORM && tid < NY) {
+    if (tid < NY) {
 #pragma unroll
       for (int kk = 0; kk < DK; ++kk) n2 = fmaf(Bs[kk * BLD + tid], Bs[kk * BLD + tid], n2);
     }

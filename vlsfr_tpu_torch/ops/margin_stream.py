@@ -565,9 +565,10 @@ _B_TC = 64  # columns per backward tile
 _B_RB = 64  # rows per d_emb block (row group) of a bf16 classifier
 _STAT_COLS = 64  # columns per forward statistics partial (half an _F_TC tile)
 _MAX_ROWS = 128  # batch rows the kernels hold per block
-# the cosines as each pass forms them (``clean_cos``; csrc/margin_ce.cu); an
-# f32 classifier's backward is one pass, whichever of the last three is named
-COS_TILINGS = ("forward", "d_emb pass", "d_w pass", "fused / sparse d_w pass")
+# the cosines as each pass forms them (``clean_cos``; csrc/margin_ce.cu): the
+# d_w pass is one kernel for every bf16 backward form (dense, sparse, fused);
+# an f32 classifier's backward is one pass, whichever of the last two is named
+COS_TILINGS = ("forward", "d_emb pass", "d_w pass")
 _P = ctypes.c_void_p
 _COMMON_ARGTYPES = [
     _P, _P, _P, ctypes.c_int, _P,  # emb (bf16 form: rounded), emb as bf16, w, w is bf16, 1/||w||
@@ -772,14 +773,16 @@ def margin_partial_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_
 
 def _bwd_geometry(emb, w, ncols):
     """(d_emb partial buffer, nchunk, cols per chunk, column-owning blocks,
-    cols per such block) of the backward over ``ncols`` columns. An f32
-    classifier's one pass runs one block an SM (its shared memory), each
-    writing its d_emb partial; a bf16 classifier's d_w pass runs two blocks
-    an SM and its d_emb pass one, each a row group over a column chunk."""
+    cols per such block) of the backward over ``ncols`` columns. Every pass
+    runs one block an SM (its shared memory): an f32 classifier's one pass,
+    each block writing its d_emb partial; a bf16 classifier's d_w pass, each
+    block staging emb once for all of its tiles (the sparse form's 1,024
+    tiles at 65,536 rows: 8 a block), and its d_emb pass, each block a row
+    group over a column chunk."""
     b, d = emb.shape
     sms = _sms(emb.device)
     if w.dtype == torch.bfloat16:
-        nblk, per_w = _split_columns(ncols, _B_TC, 2 * sms)
+        nblk, per_w = _split_columns(ncols, _B_TC, sms)
         nchunk, per = _split_columns(ncols, _B_TC, max(sms // -(-b // _B_RB), 1))
     else:
         nblk, per_w = nchunk, per = _split_columns(ncols, _B_TC, sms)
@@ -834,8 +837,9 @@ def margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, *, loss_type, mar
     0.96 ms, against 0.42 ms of bf16 dots: bytes-bound. Its passes run on
     the tensor cores: the d_w pass first (emb resident, one 64-column W
     tile at a time scaled once into bf16(ŵ), 1/‖w‖ from the staged rows,
-    d_ŵ [64, D] in mma accumulators, ⟨d_ŵ, ŵ⟩ from the finished row), then
-    the d_emb pass (64 rows a block, two W tiles in flight; with
+    d_ŵ [64, D] in mma accumulators, ⟨d_ŵ, ŵ⟩ from the finished row; one
+    kernel for every bf16 form, the sparse and fused ones too), then the
+    d_emb pass (64 rows a block, two W tiles in flight; with
     ``grad_w=False`` it computes 1/‖w‖ from its own tiles).
     """
     _check_inputs(emb, w, labels, gt, k, loss_type, extra=_bwd_extra(logz, topk, emb.shape[0], k))
@@ -909,8 +913,10 @@ def margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, lr
     class both add their d_wl into that row, in batch order. ``w`` and
     ``mom`` are each f32 or bf16; the bf16 classifier's forms are bytes-bound
     (W and mom read and written: 4.29 GB at (bf16, bf16), 1.28 ms; 6.44 GB
-    at (bf16, f32), 1.92 ms); an f32 classifier beside a bf16 momentum is
-    the f32 form, 6.15 ms of f32 products.
+    at (bf16, f32), 1.92 ms), and run margin_ce_bwd's two tensor-core
+    passes, the d_w pass with the update as its epilogue and after the
+    d_emb pass; an f32 classifier beside a bf16 momentum is the f32 form,
+    6.15 ms of f32 products.
     """
     if mom.dtype not in W_DTYPES:
         raise ValueError(f"the momentum must be float32 or bfloat16, got {mom.dtype}")
@@ -965,7 +971,9 @@ def margin_ce_bwd_sparse(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx, 
     onto its class rows; the column owner writes each d_w row once (adding
     the label rows' d_wl in batch order) and d_gt, the target column's dz,
     for the rows whose target it owns; d_emb partials are summed in a fixed
-    order. No float atomics.
+    order. No float atomics. The bf16 form: the tensor-core passes of
+    margin_ce_bwd over the logical columns (W tiles read, 0.067 GB, and f32
+    d_w rows written, 0.134 GB: 0.060 ms, bytes-bound).
     """
     m = tile_idx.shape[0]
     _check_inputs(emb, w, labels, gt, k, loss_type,
@@ -1012,8 +1020,8 @@ def clean_cos(emb, w, *, tiling: str = "forward"):
     """[B, C] cosines of the embedding against the classifier's normalised
     rows as the kernels' tiles form them (every column, no labels read):
     ``tiling`` one of COS_TILINGS — the forward, the d_emb pass, the d_w
-    pass of ``margin_ce_bwd``, the fused and sparse d_w pass (an f32
-    classifier's backward is one pass: the last three are its tiling). A
+    pass of every bf16 backward form (an f32 classifier's backward is one
+    pass: the last two are its tiling). A
     parity probe of the one chain they share: the backward's top-k test
     compares its cosines with the forward's kth. No training path calls
     it. CPU tensors: the plain version, emb · ŵᵀ (bf16 classifier:

@@ -1,19 +1,29 @@
-"""The f32 margin_ce backward (``csrc/margin_ce.cu: margin_bwd_f32_kernel``,
-one pass for d_emb and d_w) against edited copies of its source, timed in
-turns on one card: where its time goes, read as what it saves when one of
-its phases is left out, and what other staging depths do. A copy that
-leaves a phase out computes wrong gradients and is only timed; a copy with
-another shape is also held to the plain versions
+"""The margin_ce backward's passes against edited copies of their source,
+timed in turns on one card: where the time goes, read as what a pass saves
+when one of its phases is left out, and what other staging depths do. A
+copy that leaves a phase out computes wrong gradients and is only timed; a
+copy with another shape is also held to the plain versions
 (``parity.margin_ce_bwd_checks`` at C = 2^17).
 
-    python -m vlsfr_tpu_torch.tools.margin_bwd_variants
+    python -m vlsfr_tpu_torch.tools.margin_bwd_variants [--forms f32,bf16] [--real]
 
-Case: B = 128, D = 512, C = 2^20, Arc, k = 1 (chip_smoke.py phase 8's).
-Each copy is built with nvcc beside the real library, all at once; the
-times run real, the copies, real, the copies backwards. Each time is
-``margin_ce_bwd`` with d_w and, beside it, with ``grad_w=False`` (the pass
-without d_w_hat and the d_w epilogue; d_w's share is the difference), and
-the fused-SGD form (f32 W and momentum).
+Forms. ``f32``: the f32 pass (``csrc/margin_ce.cu: margin_bwd_f32_kernel``,
+one pass for d_emb and d_w), each time ``margin_ce_bwd`` with d_w and,
+beside it, with ``grad_w=False`` (the pass without d_w_hat and the d_w
+epilogue; d_w's share is the difference), and the fused-SGD form (f32 W
+and momentum). ``bf16``: the tensor-core d_w pass of a bf16 classifier
+(``margin_bwd_dw_bf16_kernel``, every mode), each time ``margin_ce_bwd``
+with d_w and with ``grad_w=False`` (the d_emb pass alone), the fused form
+with a bf16 and with an f32 momentum, and the sparse backward over route
+D's 65,536 rows (tile 512, 128 of 2048 tiles, selected from the forward's
+statistics). ``--real`` times the kernels as they are and builds no copy:
+run from a checkout of an earlier commit with this file copied into its
+``vlsfr_tpu_torch/tools/``, it times that commit's kernels (the wrappers'
+signatures are the same).
+
+Case: B = 128, D = 512, C = 2^20, Arc, k = 1 (chip_smoke.py phases 8 and
+30). Each copy is built with nvcc beside the real library, all at once;
+the times run real, the copies, real, the copies backwards.
 """
 
 from __future__ import annotations
@@ -67,6 +77,29 @@ VARIANTS = {
 }
 
 
+# ... of the bf16 d_w pass (margin_bwd_dw_bf16_kernel), each leaving one
+# phase out, in every mode: timed only
+BF16_VARIANTS = {
+    "no cosine product": (False, [(
+        "margin_ce.cu", "mma_nt_scaled<2, 2>(acc, Es, rcd, m0, Ws, rcd, n0, D / 16, inv);",
+        "mma_nt_scaled<2, 2>(acc, Es, rcd, m0, Ws, rcd, n0, 0, inv);")]),
+    "no d_cos arithmetic": (False, [(
+        "margin_ce.cu",
+        "? dcos_of(acc[mi][ni][2 * h + j], p0 + c + j, v.lab, v.gt, v.lz, v.kth,\n"
+        "                                 v.dce, v.dneg, a)",
+        "? acc[mi][ni][2 * h + j] * v.dce")]),
+    "no next-tile copies": (False, [("margin_ce.cu",
+                                     "      stage_rows_bf16(Ws, W, p1, n1, WB_TC, D);\n", "")]),
+    "no d_w_hat product": (False, [("margin_ce.cu", "for (int ks = 0; ks < nb; ++ks) {",
+                                    "for (int ks = 0; ks < 0; ++ks) {")]),
+    "no d_wl rows": (False, [("margin_ce.cu", "for (int k = 1; k <= hits[0]; ++k) {",
+                              "for (int k = 1; k <= 0; ++k) {")]),
+    "no epilogue": (False, [("margin_ce.cu", "        if (c >= nl) continue;\n",
+                             "        if (c >= 0) continue;\n")]),
+}
+FORMS = {"f32": VARIANTS, "bf16": BF16_VARIANTS}
+
+
 def edited_sources(edits) -> dict:
     """{file name: text} of margin_ce.cu and margin_common.cuh with the edits."""
     texts = {name: (cuda_build.CSRC / name).read_text()
@@ -79,20 +112,22 @@ def edited_sources(edits) -> dict:
 
 
 def ptxas_report(log: str) -> list[str]:
-    """The registers and spills ptxas reports for the f32 pass's kernels."""
+    """The registers and spills ptxas reports for the backward passes'
+    kernels (the f32 pass, the bf16 d_w pass in each mode)."""
     out, kernel = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kernel = "f32 pass" if "margin_bwd_f32_kernel" in ln else None
+            kernel = ("f32 pass" if "margin_bwd_f32_kernel" in ln
+                      else "bf16 d_w pass" if "margin_bwd_dw_bf16_kernel" in ln else None)
         elif kernel and ("registers" in ln or "spill" in ln):
             out.append(f"{kernel}: {ln.split(':')[-1].strip()}")
     return out
 
 
-def build_variants(out: Path) -> dict:
+def build_variants(out: Path, variants: dict) -> dict:
     """{name: the built library of each variant}, compiled in parallel."""
     procs = {}
-    for i, (name, (_, edits)) in enumerate(VARIANTS.items()):
+    for i, (name, (_, edits)) in enumerate(variants.items()):
         d = out / f"v{i}"
         d.mkdir(parents=True)
         for fname, text in edited_sources(edits).items():
@@ -123,13 +158,13 @@ def make_case(c: int, seed: int, dev: torch.device):
     return emb, w, mom, labels, gt, logz, topk, d_ce, d_neg
 
 
-def run(dev: torch.device) -> dict:
-    """{variant: [(ms with d_w, ms with grad_w=False, ms fused), ...]}, the
-    real kernel under "real"."""
+def run(dev: torch.device, real_only: bool = False) -> dict:
+    """The f32 form: {variant: [(ms with d_w, ms with grad_w=False, ms
+    fused), ...]}, the real kernel under "real"."""
     real = cuda_build.load_library("margin_ce")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {"real": real, **build_variants(Path(tmp))}
+        libs = {"real": real, **({} if real_only else build_variants(Path(tmp), VARIANTS))}
         order = [n for n in libs if n != "real"]
         try:
             small = make_case(1 << 17, 3, dev)
@@ -162,21 +197,106 @@ def run(dev: torch.device) -> dict:
     return out
 
 
+BF16_CASES = ("d_w", "grad_w=False", "fused (bf16, bf16)", "fused (bf16, f32)",
+              "sparse 65,536 rows")
+# the kernels of a bf16 backward call, by a piece of their name
+# (an earlier commit's, with --real: its FMA d_w pass and 1/||w|| launch)
+BF16_KERNELS = (("margin_bwd_dw_bf16", "d_w pass"), ("margin_bwd_dw_kernel", "FMA d_w pass"),
+                ("margin_bwd_demb_bf16", "d_emb pass"), ("margin_bwd_demb_merge", "d_emb merge"),
+                ("inv_norm_bf16", "1/||w||"))
+
+
+def device_ms(fn, calls: int = 5) -> dict:
+    """Device time per call of fn by kernel (torch.profiler, after a warm-up
+    call): the margin_ce passes by BF16_KERNELS' names, every other kernel
+    (the wrapper's PyTorch work on the B label rows) as "other"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        us = ev.cuda_time_total if us is None else us
+        name = next((n for key, n in BF16_KERNELS if key in ev.key), "other")
+        out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
+
+
+def run_bf16(dev: torch.device, real_only: bool = False) -> dict:
+    """The bf16 form: {variant: [(ms of each of BF16_CASES), ...]}, the real
+    kernel under "real"."""
+    real = cuda_build.load_library("margin_ce")
+    out = {}
+    emb, w, mom, labels, gt, logz, topk, d_ce, d_neg = make_case(C, 2, dev)
+    w = w.bfloat16()
+    moms = {"bf16": mom.bfloat16(), "f32": mom}
+    gt = tms.compute_gt(emb, w, labels)
+    _, _, logz, topk, maxz, maxcos = tms.margin_ce_fwd(emb, w, labels, gt, with_stats=True,
+                                                       tile=512, **KW)
+    u = torch.rand((maxz.shape[0],), generator=torch.Generator(device=dev).manual_seed(4),
+                   device=dev)
+    tile_idx, _ = tms.select_relevant_tiles(maxz, maxcos, logz, topk, labels, 128, 512, u=u)
+    args = (emb, w, labels, gt, logz, topk, d_ce, d_neg)
+    cases = (lambda: tms.margin_ce_bwd(*args, **KW),
+             lambda: tms.margin_ce_bwd(*args, grad_w=False, **KW),
+             # update W and mom in place on every call; the work is the same
+             *(lambda m=moms[t]: tms.margin_ce_bwd_fused_sgd(
+                 emb, w, m, labels, gt, logz, topk, d_ce, d_neg, 0.1, **SGD, **KW)
+               for t in ("bf16", "f32")),
+             lambda: tms.margin_ce_bwd_sparse(*args, tile_idx, tile=512, **KW))
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {"real": real, **({} if real_only else build_variants(Path(tmp), BF16_VARIANTS))}
+        order = [n for n in libs if n != "real"]
+        try:
+            for name in ["real", *order, "real", *reversed(order)]:
+                cuda_build._LOADED["margin_ce"] = libs[name]
+                times = tuple(time_ms(fn, dev) for fn in cases)
+                out.setdefault(name, []).append(times)
+                print(f"  {name}: " + ", ".join(f"{c} {t:.3f}" for c, t in zip(BF16_CASES, times)),
+                      flush=True)
+        finally:
+            cuda_build._LOADED["margin_ce"] = real
+    for case, fn in zip(BF16_CASES, cases):
+        dev_ms = device_ms(fn)
+        print(f"  real, device time of one call ({case}): {sum(dev_ms.values()):.3f} ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in dev_ms.items()), flush=True)
+    return out
+
+
 def main() -> None:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--forms", default="f32,bf16",
+                        help="comma-separated: f32 (the f32 pass), bf16 (the bf16 d_w pass)")
+    parser.add_argument("--real", action="store_true",
+                        help="time the kernels as they are, no edited copies")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("margin_bwd_variants times CUDA kernels and needs a card")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card_line(dev))
-    times = run(dev)
-    mean = {n: [sum(v[i] for v in t) / len(t) for i in range(3)] for n, t in times.items()}
-    b0, d0, f0 = mean["real"]
-    for name, (both, demb, fused) in mean.items():
-        print(f"{name}: {both:.3f} ms (grad_w=False {demb:.3f}, d_w's share {both - demb:.3f}; "
-              f"fused {fused:.3f}); against real {both - b0:+.3f} ms (grad_w=False "
-              f"{demb - d0:+.3f}, d_w's share {both - demb - b0 + d0:+.3f}, "
-              f"fused {fused - f0:+.3f})")
+    forms = args.forms.split(",")
+    if "f32" in forms:
+        times = run(dev, args.real)
+        mean = {n: [sum(v[i] for v in t) / len(t) for i in range(3)] for n, t in times.items()}
+        b0, d0, f0 = mean["real"]
+        for name, (both, demb, fused) in mean.items():
+            print(f"f32 {name}: {both:.3f} ms (grad_w=False {demb:.3f}, d_w's share "
+                  f"{both - demb:.3f}; fused {fused:.3f}); against real {both - b0:+.3f} ms "
+                  f"(grad_w=False {demb - d0:+.3f}, d_w's share {both - demb - b0 + d0:+.3f}, "
+                  f"fused {fused - f0:+.3f})")
+    if "bf16" in forms:
+        times = run_bf16(dev, args.real)
+        n = len(BF16_CASES)
+        mean = {k: [sum(v[i] for v in t) / len(t) for i in range(n)] for k, t in times.items()}
+        for name, ms in mean.items():
+            print(f"bf16 {name}: " + ", ".join(
+                f"{c} {t:.3f} ms ({t - r:+.3f})" for c, t, r in zip(BF16_CASES, ms, mean["real"])))
 
 
 if __name__ == "__main__":

@@ -74,7 +74,7 @@ H100 at B = 128 (chip_smoke.py phase 29 and the ``gpu`` tests of
 tests/test_torch_kernels.py, C = 4,096 / 5,000 and 2^20 / 1,250,000):
 
 * the cosines: the kernels form them on the tensor cores as one chain in
-  every pass (``margin_cos_checks``: the four tilings bit for bit, within
+  every pass (``margin_cos_checks``: the three tilings bit for bit, within
   BF16_COS_ATOL of the plain version's), and the backward's references —
   ``margin_ce_bwd_checks``, ``margin_ce_bwd_sparse_checks``,
   ``margin_partial_checks`` — run the plain versions on those cosines
@@ -159,7 +159,7 @@ widened to bf16, then the column scale) come from the tensor cores in both
 tilings: equal to each other bit for bit (the backward's top-k test
 compares them with the forward's kth), and within BF16_COS_ATOL of the
 plain version's; so do the bf16 classifier's in the margin_ce kernels'
-four tilings (``margin_cos_checks``).
+three tilings (``margin_cos_checks``).
 
 Used by ``chip_smoke.py`` and the tests in ``tests/test_torch_kernels.py``.
 """
