@@ -703,9 +703,8 @@ def check_softmax(emb, w, mom, labels, d_ce, d_neg, kw, verbose=False):
     gt = tms.compute_gt(emb, w, labels)
     got = tms.margin_ce_fwd(emb, w, labels, gt, **kw)
     want = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
-    for name, g, wn, tol in zip(("ce", "neg", "logz", "topk"), got, want,
-                                (1e-4, 1e-4, 1e-4, 1e-5)):
-        require(name, [{"name": name, "err": float((g - wn).abs().max()), "limit": tol}])
+    for check in parity.fwd_out_checks(got, want, rounded=False):
+        require(check["name"], [check])
     logz, topk = want[2], want[3]
     bwd, fused = parity.margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg,
                                              kw, LR, SGD)
@@ -2386,9 +2385,7 @@ def bf16_softmax_checks(case, tag: str, lr: float = LR) -> dict:
     got = tms.margin_ce_fwd(emb, w, labels, gt, **kw)
     want = tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw)
     rounded = w.dtype == torch.bfloat16
-    fwd = (parity.rounded_fwd_checks(got, want) if rounded else
-           [parity._err(n, g, wn, t) for n, g, wn, t in
-            zip(("ce", "neg", "logz", "top-k"), got, want, (1e-4, 1e-4, 1e-4, 1e-5))])
+    fwd = parity.fwd_out_checks(got, want, rounded)
     logz, topk = want[2], want[3]
     del got, want
     bwd, fused = parity.margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg,

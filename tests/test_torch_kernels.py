@@ -677,11 +677,12 @@ def test_bf16_dw_checks_reject_planted_faults(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("faults", ["PLANTED_FAULTS", "SPARSE_FAULTS", "BF16_BWD_FAULTS",
-                                    "BF16_DW_FAULTS", "chip_smoke.BF16_FAULTS"])
+                                    "BF16_DW_FAULTS", "chip_smoke.BF16_FAULTS",
+                                    "MARGIN_FWD_FAULTS"])
 def test_planted_margin_faults_edit_the_kernel_source(faults):
     """Each planted fault of margin_ce.cu (the f32 pass's, the sparse
-    form's, the bf16 backward's, the bf16 d_w pass's modes', and
-    chip_smoke.py's bf16 ones) is a source edit whose old text matches the
+    form's, the bf16 backward's, the bf16 d_w pass's modes', chip_smoke.py's
+    bf16 ones and the forward's) is a source edit whose old text matches the
     source exactly once, so that the copy a ``gpu`` test or chip_smoke.py
     builds differs from the kernel where its name says."""
     import importlib.util
@@ -701,6 +702,126 @@ def test_planted_margin_faults_edit_the_kernel_source(faults):
     for name, spec in table.items():
         for old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
             assert src.count(old) == 1 and old != new, name
+
+
+# ----------------------------------------------------------------------
+# the margin_ce forward (csrc/margin_ce.cu: margin_fwd_kernel)
+# ----------------------------------------------------------------------
+
+# source edits of the forward (margin_fwd_kernel, both W forms) that its
+# checks (``parity.margin_fwd_checks``) must reject
+MARGIN_FWD_FAULTS = {
+    # the target column in the stream and the top-k
+    "fwd_target_streamed": ("      for (int j = 0; j < 4; ++j) ok[h][j] = q + j < n && q + j != tgt;",
+                            "      for (int j = 0; j < 4; ++j) ok[h][j] = q + j < n;"),
+    # lane 1's top-k list dropped from its partial, so from the merge
+    "fwd_lane_topk_dropped": ("  tk_store<0>(p + 2, ln.tk[0]);",
+                              "  if (rp.lane != 0) tk_fill<0>(ln.tk[0], NEG_INF_F);\n"
+                              "  tk_store<0>(p + 2, ln.tk[0]);"),
+    # each lane's statistics half tile written one slot on
+    "fwd_stats_slot_off": ("    const long long g = t0 / STAT_COLS + rp.lane;",
+                           "    const long long g = t0 / STAT_COLS + rp.lane + 1;"),
+    # the bf16 form's row pass streams the cosine, not scale times it
+    "fwd_bf16_unscaled": ("  rp.zs = a.scale * LOG2E;", "  rp.zs = (BF16 ? 1.f : a.scale) * LOG2E;"),
+}
+
+
+def near_target_case(seed, b, c, d, k, frac_outlier, device="cpu"):
+    """``make_softmax_case`` with eight labelled rows moved next to their
+    target class row (cosine ~0.95), as a trained embedding sits: their
+    target's z dominates the row's logsumexp."""
+    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(seed, b, c, d, k, frac_outlier, device)
+    rows = torch.nonzero(labels >= 0).flatten()[2:10]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    target = w[labels[rows].long()]
+    target = target / torch.linalg.vector_norm(target, dim=-1, keepdim=True)
+    near = target + 0.3 * torch.randn(target.shape, generator=gen, device=device) / d ** 0.5
+    emb[rows] = near / torch.linalg.vector_norm(near, dim=-1, keepdim=True)
+    return emb, w, mom, labels, d_ce, d_neg
+
+
+@pytest.mark.parametrize("c", [4000, 1 << 20, 1_250_000])
+@pytest.mark.parametrize("w_bf16", [False, True])
+def test_margin_fwd_geometry_covers_the_classes_once(w_bf16, c):
+    """The forward kernel's grid (``margin_stream.fwd_geometry``) on a
+    132-SM card: one block an SM at most; its column ranges cover [0, C)
+    exactly once in whole 128-column tiles (the statistics' 64-column half
+    tiles never straddle two blocks); two partials a block; the block's
+    shared memory within the 232,448 bytes a block may take and above the
+    half that would let two blocks share an SM."""
+    geo = tms.fwd_geometry(w_bf16, c, 132)
+    per = geo.cols_per_blk
+    assert per % 128 == 0 and 1 <= geo.nblk <= 132
+    spans = [(i * per, min(c, (i + 1) * per)) for i in range(geo.nblk)]
+    assert spans[0][0] == 0 and spans[-1][1] == c
+    assert all(lo < hi for lo, hi in spans)
+    assert all(a[1] == b_[0] for a, b_ in zip(spans, spans[1:]))
+    assert geo.n_parts == 2 * geo.nblk
+    assert 232448 // 2 < geo.smem <= 232448
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_margin_fwd_checks_pass_the_plain_versions(w_dtype):
+    """``parity.margin_fwd_checks`` on CPU tensors, where the wrappers run
+    the plain versions: every check of the forward (without and with
+    statistics, and the partial form) is there and passes, and none
+    launches a kernel."""
+    emb, w, _, labels, _, _ = near_target_case(8, 16, 700, 64, 3, 0.3)
+    kw = dict(loss_type="Arc", margin=0.5, scale=32.0, k=3, mask_svfc=1.2)
+    tms.reset_launch_counts()
+    checks = parity.margin_fwd_checks(emb, w.to(w_dtype), labels, kw, tile=128)
+    names = [c["name"] for c in checks]
+    assert {"maxz", "maxcos", "partial m + log s", "partial top-k"} <= {
+        n.split(": ")[-1] for n in names}
+    assert len(names) == 14
+    assert not parity.failures(checks)
+    assert not any(tms.LAUNCH_COUNTS.values())
+
+
+@pytest.mark.gpu
+def test_margin_fwd_geometry_is_the_kernels():
+    """``fwd_geometry``'s shared memory is what the forward kernel takes
+    (``margin_fwd_smem``) for both W forms."""
+    _cuda()
+    lib = tms._lib()
+    for w_bf16 in (False, True):
+        assert lib.margin_fwd_smem(int(w_bf16)) == tms.fwd_geometry(w_bf16, 5000, 132).smem
+
+
+@pytest.mark.gpu
+def test_margin_fwd_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """``parity.margin_fwd_checks`` (the forward without and with
+    statistics, and the partial form) pass the real kernel and fail copies
+    of margin_ce.cu that stream the target column, drop one lane's top-k
+    list, write each statistics half tile one slot on, and stream the bf16
+    form's cosines unscaled, at B = 128, D = 512, C = 100,000 (a ragged last
+    tile), Arc, k = 3 with outlier rows and eight rows next to their target,
+    f32 and bf16 W. Prints each reading."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, MARGIN_FWD_FAULTS)
+    emb, w, _, labels, _, _ = near_target_case(9, 128, 100_000, 512, 3, 0.2, dev)
+    kw = dict(loss_type="Arc", margin=0.5, scale=32.0, k=3, mask_svfc=1.2)
+    failed = {}
+    for form, ww in (("f32", w), ("bf16", w.bfloat16())):
+        for name, lib in libs.items():
+            monkeypatch.setitem(cuda_build._LOADED, "margin_ce", lib)
+            checks = parity.margin_fwd_checks(emb, ww, labels, kw)
+            torch.cuda.synchronize()
+            for c in checks:
+                print(f"{name} {form}: {parity.describe(c)}")
+            failed[name, form] = {c["name"] for c in parity.failures(checks)}
+    print({key: sorted(f) for key, f in failed.items()})
+    topk = {"f32": "topk", "bf16": "top-k"}
+    for form in ("f32", "bf16"):
+        assert failed["real", form] == set()
+        assert {"ce", "logz", "partial m + log s"} <= failed["fwd_target_streamed", form]
+        assert {topk[form], "partial top-k"} <= failed["fwd_lane_topk_dropped", form]
+        assert {"with statistics: maxz", "with statistics: maxcos"} <= failed[
+            "fwd_stats_slot_off", form]
+    assert {"ce", "logz"} <= failed["fwd_bf16_unscaled", "bf16"]
+    assert failed["fwd_bf16_unscaled", "f32"] == set()
 
 
 @pytest.mark.gpu
@@ -767,8 +888,9 @@ def test_bf16_margin_cosines_match_between_tilings(b, c, d):
 @pytest.mark.parametrize("b,c,d", [(128, 5000, 512), (40, 777, 128), (100, 4096, 64),
                                    (100, 3002, 192)])
 def test_f32_margin_cosines_match_between_tilings(b, c, d):
-    """The f32 classifier's cosines as the forward (tile_gemm) and the
-    backward's one pass (ftile_dots; every f32 backward form runs it) form
+    """The f32 classifier's cosines as the forward (fdots_chunk, staged by
+    cp.async) and the backward's one pass (ftile_dots; every f32 backward
+    form runs it) form
     them (``clean_cos``): equal bit for bit, and within 1e-5 of the plain
     version (``parity.margin_cos_checks``)."""
     dev = _cuda()
@@ -1329,7 +1451,7 @@ def test_int8_clean_cosines_match_between_tilings(r_, q, d):
 @pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64)])
 def test_f32_clean_cosines_match_between_tilings(r_, q, d):
     """The f32 form's clean cosines as the forward's tiles form them
-    (tile_gemm) and as the backward's recompute does (ftile_dots, staged as
+    (fdots_chunk) and as the backward's recompute does (ftile_dots, staged as
     quad_bwd_f32_kernel stages them; ``clean_cos``): equal bit for bit, so
     that the backward's top-k test meets the forward's kth exactly; and
     within 1e-5 of the plain f32 product (``parity.f32_cos_checks``)."""
@@ -1906,3 +2028,22 @@ def test_quad_fwd_variants_edit_the_kernel_source():
     for name, edits in VARIANTS.items():
         for old, new in edits:
             assert src.count(old) == 1 and old != new, name
+
+
+def test_margin_fwd_variants_edit_the_kernel_source():
+    """The margin_ce forward's timing tool (``tools/margin_fwd_variants.py``)
+    builds copies of ``csrc/margin_ce.cu`` with one phase of the forward
+    left out (the product, its staging copies, the row pass, its top-k
+    insertions, the statistics): each of its edits matches the source
+    exactly once, so that
+    every copy it times differs from the kernel where its name says."""
+    from vlsfr_tpu_torch.ops import cuda_build
+    from vlsfr_tpu_torch.tools.margin_fwd_variants import VARIANTS, edited_source
+
+    assert set(VARIANTS) == {"no product", "no staging copies", "no row pass",
+                             "no top-k insertions", "no statistics"}
+    src = (cuda_build.CSRC / "margin_ce.cu").read_text()
+    for name, edits in VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name
+        assert edited_source(edits) != src, name

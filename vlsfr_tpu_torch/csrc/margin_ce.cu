@@ -64,23 +64,51 @@
 //    order (logsumexp merge, k-way top-k merge, sum of d_emb partials). No
 //    float atomics anywhere: every output is bit-stable run to run.
 //  * Shared with quad_margin.cu (margin_common.cuh): the margin transform,
-//    the streamed (max, sumexp) and top-k, the partial merge, d_cos of a
-//    column and the shared-memory tile product; the tensor-core pieces in
+//    the forward's row pass pieces (Lane, stream4, topk_push) and its f32
+//    product (fdots_*), the partial merge, d_cos of a column and the
+//    backward's f32 tile product (ftile_dots); the tensor-core pieces in
 //    mma_bf16.cuh.
-//  * Forward: one block holds all B rows, so each W tile is read once. The
-//    f32 form: a 256-thread register-tiled f32 GEMM (8x8 outputs per
-//    thread) fills a [128, 128] raw-dot tile, scaled by each column's
-//    1/||w_j|| (summed from the same shared-memory chunks). The bf16 form:
-//    the same tile on the tensor cores (chunk_cos). Then two threads per
-//    row stream the tile's columns into per-row (max, sumexp) and a
-//    register top-k. The target column is left out of both and joins at
-//    the merge as scale * phi(gt) (gt comes from outside, as in JAX).
-//  * Forward statistics (only when asked for): the same two threads per
-//    row also take, per 64-column half tile, the row's max of z (scale *
-//    phi(gt) at the target column) and of the raw cosine (the target's own
-//    included) into a [2][C/64][B] scratch; a third launch reduces them to
-//    the caller's stats tile (a multiple of 64), so the block column ranges
-//    need not align with it. Without statistics nothing of this runs.
+//  * Forward (margin_fwd_kernel<TW, STATS>: margin_ce_fwd with and without
+//    statistics, margin_partial_fwd, f32 and bf16 W): one block an SM
+//    holds all B rows over a column range, so each W tile is read once; per
+//    128-column tile the product fills a cosine tile Cs [128][132]. The f32
+//    form on the CUDA cores in IEEE f32 FMA (no TF32, no mma): emb's rows
+//    and the W tile's staged 32 features a chunk by 16-byte cp.async into
+//    padded rows, three stages (two chunks in flight beside the one in
+//    use), an 8 x 8 register micro-tile that reads four features a float4
+//    load (margin_common.cuh's fdots_*, quad_margin.cu's F32 forward's
+//    product): 16 LDS.128 for 256 FMA, 1 byte of shared memory per FMA.
+//    Each column's ||w||^2 comes from the same chunks, and each cosine is
+//    acc * rsqrt(max(||w||^2, 1e-24)), one fmaf chain over the features in
+//    index order from 0: the f32 backward's (ftile_dots), so its top-k
+//    test meets this kth (margin_ce_clean_cos_launch writes both tilings'
+//    for a check). The bf16 form: the same tile on the tensor cores
+//    (chunk_cos, below), 16 warps of 32 rows x 32 columns (at 8 warps of
+//    32 x 64 the kernel took 2.11 ms against 1.98-2.00 on an H100: more
+//    warps to hide the copies and the mma latency), the row pass on the
+//    first 8. Then each row's stream is split over two lanes
+//    (threads r and r + 128), lane l taking the tile's columns [64 l, 64 l
+//    + 64): two (m, s) chains a lane in base 2, a pair of quads at a time,
+//    16 independent terms and no branch, and the top-k insertions only
+//    where a column beats kth, a select network in registers
+//    (margin_common.cuh: stream4, topk_push; quad_margin.cu's row pass).
+//    Each lane folds its chains to base e in order and writes its own
+//    partial ([2 * nblk][B]), so the lanes' value-only lists merge exactly
+//    in the merge launch. The target column is left out of the stream and
+//    the top-k and joins at the merge as scale * phi(gt) (gt comes from
+//    outside, as in JAX). Tile t's row pass runs between the products of
+//    tiles t and t + 1, with tile t + 1's first chunks in flight. What
+//    bounds it on an H100: f32 the FMA rate (2.05 ms at C = 2^20); bf16 W's
+//    bytes (0.32 ms), beside emb's rows restaged from L2 for every tile (as
+//    many bytes, from L2) and the row pass's instructions
+//    (tools/margin_fwd_variants.py times each phase).
+//  * Forward statistics (only when asked for: the STATS instance): the
+//    row pass also takes, per lane's 64-column half tile, the row's max of
+//    z (scale * phi(gt) at the target column) and of the raw cosine (the
+//    target's own included) into a [2][C/64][B] scratch; a third launch
+//    reduces them to the caller's stats tile (a multiple of 64), so the
+//    block column ranges need not align with it. Without statistics
+//    nothing of this runs.
 //  * The bf16 cosine is one chain wherever it is formed: k16 steps over the
 //    feature axis in order, each step's product from a zero accumulator
 //    added in f32 (mma_bf16.cuh: mma_nt), over bf16(emb) and bf16(w_hat).
@@ -97,8 +125,8 @@
 //    64-column tiles with every batch row; per tile it stages W's chunks
 //    into a whole tile [64][D + 4] that stays while emb's chunks stream
 //    from L2 through two stages, and forms the raw dots [128, 64] (4 x 4 a
-//    thread) and ||w||^2: each cosine is tile_gemm's in-order fmaf chain,
-//    the forward's bits (margin_ce_clean_cos_launch writes both tilings'
+//    thread) and ||w||^2: each cosine is the forward's in-order fmaf chain
+//    (fdots_chunk), the forward's bits (margin_ce_clean_cos_launch writes both tilings'
 //    for a check). d_cos * inv goes to shared memory, transposed, with
 //    <d_w_hat, w_hat> = sum_b d_cos cos from the tile; inv * d_w_hat [64,
 //    D] = (d_cos * inv)^T . emb (8 x 8 a thread, emb streamed 15 rows a
@@ -385,11 +413,25 @@ __device__ __forceinline__ void load_chunk(const Args& a, unsigned char* stg, in
   }
 }
 
+// the first CH_ST - 1 chunks of the tile of class rows p0 .. p0 + n - 1,
+// each its own cp.async group (chunk_cos stages the rest)
+template <int ROWS, int TC>
+__device__ __forceinline__ void chunk_prologue(const Args& a, unsigned char* stg, long long p0,
+                                               int n) {
+  const int n_kc = a.D / 64;
+#pragma unroll
+  for (int s = 0; s < CH_ST - 1; ++s) {
+    if (s < n_kc) load_chunk<ROWS, TC>(a, stg, s, p0, n, s);
+    cp_async_commit();
+  }
+}
+
 // acc[mi][ni] = the cosines of emb rows m0 + 16 mi .. against the tile's
 // columns n0 + 8 ni .. (class rows p0 .., n of them): each chunk's W part
-// scaled in place by inv [TC] (shared memory, written before the call) into
-// bf16(w_hat), the k16 chain over the feature axis in order (module
-// header). Stages its own copies and leaves none in flight.
+// scaled in place by inv [TC] (shared memory, written before the first
+// barrier here) into bf16(w_hat), the k16 chain over the feature axis in
+// order (module header). Its first chunks in flight (chunk_prologue);
+// leaves none in flight and ends with a barrier.
 template <int ROWS, int TC, int NI>
 __device__ __forceinline__ void chunk_cos(const Args& a, unsigned char* stg, const float* inv,
                                           long long p0, int n, int m0, int n0,
@@ -401,10 +443,6 @@ __device__ __forceinline__ void chunk_cos(const Args& a, unsigned char* stg, con
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
   const int n_kc = a.D / 64;
-  for (int s = 0; s < CH_ST - 1; ++s) {
-    if (s < n_kc) load_chunk<ROWS, TC>(a, stg, s, p0, n, s);
-    cp_async_commit();
-  }
   for (int kc = 0; kc < n_kc; ++kc) {
     cp_async_wait<CH_ST - 2>();
     __syncthreads();  // chunk kc has landed; chunk kc - 1's stage is free
@@ -422,117 +460,254 @@ __device__ __forceinline__ void chunk_cos(const Args& a, unsigned char* stg, con
 
 // ---------------------------------------------------------------- forward
 
-constexpr int F_ROWS = 128, F_TC = 128, F_DK = 16, F_THREADS = 256;
-constexpr int F_ALD = F_ROWS + 4, F_BLD = F_TC + 4, F_CLD = F_TC + 1;
-// the GEMM staging (f32: the FMA tile's chunks; bf16: the tensor cores'
-// chunk stages), then the cosine tile and the columns' 1 / ||w_j||
-template <class TW>
-constexpr size_t fwd_smem() {
-  return (std::is_same<TW, float>::value ? sizeof(float) * (F_DK * F_ALD + F_DK * F_BLD)
-                                         : (size_t)CH_ST * chunk_bytes<F_ROWS, F_TC>()) +
-         sizeof(float) * (F_ROWS * F_CLD + F_TC);
-}
-constexpr int STAT_COLS = 64;  // columns per statistics partial: one thread's half tile
-static_assert(F_TC / 2 == STAT_COLS, "a statistics partial is one thread's half tile");
+// A block holds every batch row (F_ROWS) over a column range, f_threads
+// threads, one block an SM (fwd_smem; ops/margin_stream.py's fwd_geometry
+// computes the same). Per F_TC-column tile the product fills the cosine
+// tile Cs [F_ROWS][F_CLD] from chunks staged by cp.async in F_NST stages:
+// f32 W FFK features of emb's rows and of the W tile (margin_common.cuh's
+// fdots_*, an F_TI x F_TJ micro-tile), bf16 W 64 features (chunk_cos).
+// Each row's stream is split over F_LANES lanes (threads r and r + F_ROWS),
+// lane l taking the tile's columns [64 l, 64 l + 64): its statistics half
+// tile, so no two lanes share one.
+constexpr int F_ROWS = 128, F_TC = 128, F_THREADS = 256, F_CLD = F_TC + 4, F_NST = CH_ST;
+constexpr int F_LANES = F_THREADS / F_ROWS, F_TI = 8, F_TJ = 8;
+constexpr int F_SA = F_ROWS / F_TI, F_SB = F_TC / F_TJ;  // the micro-tile's row and column steps
+constexpr int STAT_COLS = 64;  // columns per statistics partial: one lane's share of a tile
+static_assert(F_TC / F_LANES == STAT_COLS,
+              "a lane's columns of a tile are one statistics half tile");
+static_assert(F_SA * F_SB == F_THREADS, "the micro-tiles cover the tile");
 
-// stats: nullptr, or the [2][ceil(C / 64)][B] scratch of per-64-column maxima
-// (z first, then the raw cosine)
+// threads a block: f32 W F_THREADS; bf16 W twice as many for the tensor-core
+// product (warps of 32 rows x 32 columns), the row pass on the first
+// F_THREADS
 template <class TW>
-__global__ void __launch_bounds__(F_THREADS)
+__host__ __device__ constexpr int f_threads() {
+  return std::is_same<TW, float>::value ? F_THREADS : 2 * F_THREADS;
+}
+
+// bytes of a stage: f32 W emb's and the W tile's rows, FFK features at a
+// row stride of FFK + 4 floats; bf16 W 64 features of each, swizzled
+template <class TW>
+__host__ __device__ constexpr int fwd_stage_bytes() {
+  return std::is_same<TW, float>::value ? 4 * fdots_stage_floats<F_ROWS, F_TC>()
+                                        : chunk_bytes<F_ROWS, F_TC>();
+}
+// a block's shared memory: the stages, Cs and the tile's columns' 1 / ||w_j||
+template <class TW>
+__host__ __device__ constexpr int fwd_smem() {
+  return F_NST * fwd_stage_bytes<TW>() + 4 * (F_ROWS * F_CLD + F_TC);
+}
+static_assert(fwd_smem<float>() <= 232448 && fwd_smem<__nv_bfloat16>() <= 232448,
+              "the forward fits a block's shared memory");
+
+// the first F_NST - 1 chunks of the tile at t0 (n valid columns), each its
+// own cp.async group; bf16 W also the tile's 1 / ||w_j|| (a.inv, 0 from n)
+// into inv, which chunk_cos reads after its first barrier
+template <class TW>
+__device__ __forceinline__ void fwd_prologue(const Args& a, unsigned char* stg, float* inv,
+                                             long long t0, int n) {
+  if constexpr (std::is_same<TW, float>::value) {
+    const int nk = a.D / FFK;
+#pragma unroll
+    for (int s = 0; s < F_NST - 1; ++s) {
+      if (s < nk)
+        fdots_load<F_THREADS, F_ROWS, F_TC>(
+            reinterpret_cast<float*>(stg + s * fwd_stage_bytes<TW>()), a.emb, 0, a.B,
+            wrows<float>(a), t0, n, a.D, s);
+      cp_async_commit();
+    }
+  } else {
+    if (threadIdx.x < F_TC) inv[threadIdx.x] = (int)threadIdx.x < n ? a.inv[t0 + threadIdx.x] : 0.f;
+    chunk_prologue<F_ROWS, F_TC>(a, stg, t0, n);
+  }
+}
+
+// the f32 W tile at t0 (n valid columns), its first chunks in flight
+// (fwd_prologue): the raw dots of the thread's micro-tile (emb rows ax +
+// F_SA i, columns by + F_SB j) into acc, and 1 / ||w_j|| of the tile's
+// columns into inv, their squares summed from the same chunks by threads
+// t < F_TC. Leaves no copy in flight and ends with a barrier (every stage
+// read, inv written).
+__device__ __forceinline__ void fwd_dots_f32(const Args& a, unsigned char* stg, float* inv,
+                                             long long t0, int n, int ax, int by,
+                                             float (&acc)[F_TI][F_TJ]) {
+  constexpr int SB = fwd_stage_bytes<float>();
+  const int nk = a.D / FFK;
+#pragma unroll
+  for (int i = 0; i < F_TI; ++i)
+#pragma unroll
+    for (int j = 0; j < F_TJ; ++j) acc[i][j] = 0.f;
+  float n2 = 0.f;
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<F_NST - 2>();
+    __syncthreads();  // chunk kc has landed; chunk kc - 1's stage is free
+    if (kc + F_NST - 1 < nk)
+      fdots_load<F_THREADS, F_ROWS, F_TC>(
+          reinterpret_cast<float*>(stg + ((kc + F_NST - 1) % F_NST) * SB), a.emb, 0, a.B,
+          wrows<float>(a), t0, n, a.D, kc + F_NST - 1);
+    cp_async_commit();
+    const float* st = reinterpret_cast<const float*>(stg + (kc % F_NST) * SB);
+    if (threadIdx.x < F_TC) fdots_norm<F_ROWS>(n2, st, threadIdx.x);
+    fdots_chunk<F_ROWS, F_TC, F_TI, F_TJ>(acc, st, ax, by);
+  }
+  if (threadIdx.x < F_TC) inv[threadIdx.x] = inv_norm(n2);
+  __syncthreads();  // every read of the stages is done; inv is written
+}
+
+// a thread's batch row in the row pass
+struct RowPass {
+  int r, lane, label;  // the row (its row of Cs), the thread's lane, the row's label
+  float gt, zt;        // the target cosine and its z = scale * phi(gt)
+  float zs;            // scale * log2(e): the chains stream z / ln 2
+  long long n64;       // the classifier's statistics half tiles
+};
+
+// One lane's share of row rp.r in the tile at t0 (n valid columns; crow
+// the row's Cs row): its columns [64 lane, + 64) into ln, a pair of quads
+// at a time, the pair's two quads into the lane's two chains (stream4, 16
+// independent terms); the target column stays out of the stream and the
+// top-k, whose insertions run only where a column beats kth. With STATS,
+// the half tile's max of z (scale * phi(gt) at the target column) and of
+// the raw cosine (the target's own included) over its valid columns into
+// the [2][n64][B] scratch (a half tile past C holds no column and is not
+// written).
+template <bool STATS>
+__device__ __forceinline__ void row_pass(const Args& a, const float* crow, long long t0, int n,
+                                         const RowPass& rp, Lane<1>& ln, float* stats) {
+  constexpr int NP = F_TC / F_LANES / 8;  // quad pairs a lane
+  const int c0 = rp.lane * (F_TC / F_LANES);
+  const long long tgt = rp.label - t0;  // the target's tile column, if here
+  float zm = -INFINITY, cm = -INFINITY;
+  for (int i = 0; i < NP; ++i) {
+    float c[2][4];
+    bool ok[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = c0 + 8 * i + 4 * h;
+      const float4 v = *reinterpret_cast<const float4*>(crow + q);
+      c[h][0] = v.x, c[h][1] = v.y, c[h][2] = v.z, c[h][3] = v.w;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ok[h][j] = q + j < n && q + j != tgt;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) stream4(a, rp.zs, c[h], ok[h], rp.gt, ln.m[0][h], ln.s[0][h]);
+    float mx = -INFINITY;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (ok[h][j]) mx = fmaxf(mx, c[h][j]);
+        if constexpr (STATS) {
+          const int col = c0 + 8 * i + 4 * h + j;
+          if (col < n) {
+            cm = fmaxf(cm, c[h][j]);
+            zm = fmaxf(zm, col == tgt ? rp.zt : a.scale * mod_of(a, c[h][j], rp.gt));
+          }
+        }
+      }
+    // the insertions: one copy of topk_push, in a loop over the pair's columns
+    if (mx > ln.kth[0]) {
+#pragma unroll 1
+      for (int j = 0; j < 8; ++j) {
+        float x = -INFINITY;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (e == j && ok[e >> 2][e & 3]) x = c[e >> 2][e & 3];
+        topk_push(ln.tk[0], ln.kth[0], x, a.k);
+      }
+    }
+  }
+  if constexpr (STATS) {
+    const long long g = t0 / STAT_COLS + rp.lane;
+    if (g < rp.n64) {
+      stats[g * a.B + rp.r] = zm;
+      stats[(rp.n64 + g) * a.B + rp.r] = cm;
+    }
+  }
+}
+
+// The forward's block pass (module header). part: [F_LANES * nblk][B][PART],
+// each lane's (m, s, top-k) of its columns of the block's range at (block *
+// F_LANES + lane); STATS: stats the [2][ceil(C / 64)][B] scratch of
+// per-64-column maxima (z first, then the raw cosine), else unused.
+template <class TW, bool STATS>
+__global__ void __launch_bounds__(f_threads<TW>(), 1)
     margin_fwd_kernel(Args a, long long cols_per_blk, float* part, float* stats) {
   constexpr bool BF16 = !std::is_same<TW, float>::value;
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                   // f32: emb chunk, k-major [F_DK][F_ALD]
-  float* Bs = As + F_DK * F_ALD;      // f32: W chunk, k-major [F_DK][F_BLD]
-  unsigned char* stg = reinterpret_cast<unsigned char*>(smem);  // bf16: [CH_ST] chunk stages
-  float* Cs = BF16 ? reinterpret_cast<float*>(stg + CH_ST * chunk_bytes<F_ROWS, F_TC>())
-                   : Bs + F_DK * F_BLD;  // cosine tile [F_ROWS][F_CLD]
-  float* inv = Cs + F_ROWS * F_CLD;   // 1 / ||w_j|| of the tile's columns
+  extern __shared__ __align__(16) unsigned char f_sm[];
+  unsigned char* stg = f_sm;                                                   // [F_NST] stages
+  float* Cs = reinterpret_cast<float*>(stg + F_NST * fwd_stage_bytes<TW>());  // [F_ROWS][F_CLD]
+  float* inv = Cs + F_ROWS * F_CLD;  // 1 / ||w_j|| of the tile's columns
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;  // GEMM outputs: rows ty + 16i, cols tx + 16j
   const long long c_begin = (long long)blockIdx.x * cols_per_blk;
   const long long c_end = min(a.C, c_begin + cols_per_blk);
+  const int n_tiles = c_end > c_begin ? (int)((c_end - c_begin + F_TC - 1) / F_TC) : 0;
+  auto cols = [&](int ti) {  // valid columns of tile ti
+    return (int)min((long long)F_TC, c_end - c_begin - (long long)F_TC * ti);
+  };
+  RowPass rp;
+  rp.r = tid % F_ROWS;
+  rp.lane = tid / F_ROWS;
+  const bool row_ok = rp.r < a.B && rp.lane < F_LANES;
+  rp.label = row_ok ? a.labels[rp.r] : -1;
+  rp.gt = row_ok ? a.gt[rp.r] : 0.f;
+  rp.zt = a.scale * phi_target(rp.gt, a);
+  rp.zs = a.scale * LOG2E;
+  rp.n64 = (a.C + STAT_COLS - 1) / STAT_COLS;
+  Lane<1> ln;
+  lane_init(ln);
 
-  const int r = tid % F_ROWS, half = tid / F_ROWS;  // epilogue: one row, half the columns
-  const bool row_ok = r < a.B;
-  const int label = row_ok ? a.labels[r] : -1;
-  const float gt = row_ok ? a.gt[r] : 0.f;
-  const float zt = a.scale * phi_target(gt, a);  // the target column's z, for the statistics
-  const long long n64 = (a.C + STAT_COLS - 1) / STAT_COLS;
-  float m = -INFINITY, s = 0.f, kth = NEG_INF_F;
-  float tk[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) tk[j] = NEG_INF_F;
-
-  for (long long t0 = c_begin; t0 < c_end; t0 += F_TC) {
+  if (n_tiles > 0) fwd_prologue<TW>(a, stg, inv, c_begin, cols(0));
+  // tile ti's product after tile ti - 1's row pass, with tile ti's first
+  // chunks in flight; a last turn streams the last tile
+  for (int ti = 0; ti <= n_tiles; ++ti) {
+    __syncthreads();  // tile ti - 1 is in Cs
+    if (ti > 0 && row_ok)
+      row_pass<STATS>(a, Cs + rp.r * F_CLD, c_begin + (long long)F_TC * (ti - 1), cols(ti - 1), rp,
+                      ln, stats);
+    if (ti == n_tiles) break;
+    const long long t0 = c_begin + (long long)F_TC * ti;
+    const int n = cols(ti);
+    // the product's first barrier follows every read of Cs by the row pass
     if constexpr (BF16) {  // the dots of the rounded operands are the cosines
-      const int n = (int)min((long long)F_TC, c_end - t0);
-      if (tid < F_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
-      // warps of 32 rows x 64 columns
+      constexpr int NI = F_TC * 4 * 32 / f_threads<TW>() / 8;  // n8 tiles a warp
       const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
-      const int wr = (warp & 3) * 32, wc = (warp >> 2) * 64;
-      float acc[2][8][4];
-      chunk_cos<F_ROWS, F_TC, 8>(a, stg, inv, t0, n, wr, wc, acc);
+      const int wr = (warp & 3) * 32, wc = (warp >> 2) * 8 * NI;  // warps of 32 rows x 8 NI columns
+      float acc[2][NI][4];
+      chunk_cos<F_ROWS, F_TC, NI>(a, stg, inv, t0, n, wr, wc, acc);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
+        for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            Cs[(wr + 16 * mi + g + 8 * (e >> 1)) * F_CLD + wc + 8 * ni + 2 * t + (e & 1)] =
-                acc[mi][ni][e];
+          for (int h = 0; h < 2; ++h) {
+            float* cp = Cs + (wr + 16 * mi + g + 8 * h) * F_CLD + wc + 8 * ni + 2 * t;
+            *reinterpret_cast<float2*>(cp) = make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+          }
     } else {
-      float acc[8][8];
-      float n2;
-      tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16>(
-          acc, n2, As, Bs, a.emb, 0, a.B, wrows<TW>(a), t0, c_end, a.D, ty, tx);
-      if (tid < F_TC) inv[tid] = inv_norm(n2);
-      __syncthreads();
+      int ax, by;
+      fdots_map<F_ROWS, F_TC, F_TI, F_TJ>(ax, by);
+      float acc[F_TI][F_TJ];
+      fwd_dots_f32(a, stg, inv, t0, n, ax, by, acc);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < F_TI; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          Cs[(ty + 16 * i) * F_CLD + tx + 16 * j] = acc[i][j] * inv[tx + 16 * j];
+        for (int j = 0; j < F_TJ; ++j)
+          Cs[(ax + F_SA * i) * F_CLD + by + F_SB * j] = acc[i][j] * inv[by + F_SB * j];
     }
-    __syncthreads();
-
-    if (row_ok) {
-      const int n = (int)min((long long)F_TC, c_end - t0);
-      const int c_hi = min(n, (half + 1) * (F_TC / 2));
-      for (int c = half * (F_TC / 2); c < c_hi; ++c) {
-        if (t0 + c == (long long)label) continue;  // target: joins at the merge
-        const float cv = Cs[r * F_CLD + c];
-        stream_update(cv, gt, a, m, s);
-        topk_insert(tk, kth, cv, a.k);
-      }
-      if (stats != nullptr) {  // the target column counts here, as in _stream_fwd
-        float zm = -INFINITY, cm = -INFINITY;
-        for (int c = half * (F_TC / 2); c < c_hi; ++c) {
-          const float cv = Cs[r * F_CLD + c];
-          float mod = cv;
-          if (a.loss_type == LOSS_SV && cv > gt - a.margin)
-            mod = a.mask_svfc * cv + a.mask_svfc - 1.0f;
-          zm = fmaxf(zm, t0 + c == (long long)label ? zt : a.scale * mod);
-          cm = fmaxf(cm, cv);
-        }
-        const long long g = t0 / STAT_COLS + half;
-        if (g < n64) {  // a half tile past C holds no column and is not written
-          stats[g * a.B + r] = zm;
-          stats[(n64 + g) * a.B + r] = cm;
-        }
-      }
-    }
-    __syncthreads();  // Cs and inv are rebuilt by the next tile
+    if (ti + 1 < n_tiles) fwd_prologue<TW>(a, stg, inv, t0 + F_TC, cols(ti + 1));
   }
 
-  if (row_ok) {
-    float* p = part + (((long long)blockIdx.x * 2 + half) * a.B + r) * PART;
-    p[0] = m;
-    p[1] = s;
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) p[2 + j] = tk[j];
-  }
+  // the lane's chains folded to base e in order; its partial, merged with
+  // the other lanes' and blocks' in a fixed order by the merge launch
+  if (!row_ok) return;
+  float M, S;
+  lane_fold(ln, 0, M, S);
+  float* p = part + (((long long)blockIdx.x * F_LANES + rp.lane) * a.B + rp.r) * PART;
+  p[0] = M;
+  p[1] = S;
+  tk_store<0>(p + 2, ln.tk[0]);
 }
 
 // one thread per row: merge the partials in order, finalize ce / neg / logz / top-k
@@ -1347,6 +1522,7 @@ __global__ void __launch_bounds__(F_THREADS) clean_cos_chunk_kernel(Args a, floa
   if (tid < F_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
   const int wr = (warp & 3) * 32, wc = (warp >> 2) * (F_TC / 2);
   float acc[2][F_TC / 16][4];
+  chunk_prologue<F_ROWS, F_TC>(a, cc_sm, t0, n);
   chunk_cos<F_ROWS, F_TC, F_TC / 16>(a, cc_sm, inv, t0, n, wr, wc, acc);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -1398,28 +1574,25 @@ __global__ void __launch_bounds__(BW_THREADS) clean_cos_tile_kernel(Args a, floa
 }
 
 // out [B][C] = the f32 cosines of every column (no labels read) as the f32
-// kernels form them: the forward's tile_gemm (128 columns a block) and the
-// backward's ftile_dots (64 columns a block, every row; the one pass of every
-// f32 backward form)
+// kernels form them: the forward's product (fwd_dots_f32, 128 columns a
+// block) and the backward's ftile_dots (64 columns a block, every row; the
+// one pass of every f32 backward form)
 __global__ void __launch_bounds__(F_THREADS) clean_cos_f32_fwd_kernel(Args a, float* out) {
-  extern __shared__ __align__(16) float cf_sm[];
-  float* As = cf_sm;
-  float* Bs = As + F_DK * F_ALD;
-  float* inv = Bs + F_DK * F_BLD;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  extern __shared__ __align__(16) unsigned char cf_sm[];
+  float* inv = reinterpret_cast<float*>(cf_sm + F_NST * fwd_stage_bytes<float>());
   const long long t0 = (long long)blockIdx.x * F_TC;
-  const long long c_end = min(a.C, t0 + F_TC);
-  float acc[8][8], n2;
-  tile_gemm<F_ROWS, F_TC, F_DK, F_THREADS, F_ALD, F_BLD, 8, 8, 16, 16>(
-      acc, n2, As, Bs, a.emb, 0, a.B, wrows<float>(a), t0, c_end, a.D, ty, tx);
-  if (tid < F_TC) inv[tid] = inv_norm(n2);
-  __syncthreads();
+  const int n = (int)min((long long)F_TC, a.C - t0);
+  int ax, by;
+  fdots_map<F_ROWS, F_TC, F_TI, F_TJ>(ax, by);
+  float acc[F_TI][F_TJ];
+  fwd_prologue<float>(a, cf_sm, inv, t0, n);
+  fwd_dots_f32(a, cf_sm, inv, t0, n, ax, by, acc);
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < F_TI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      if (r < a.B && t0 + c < c_end) out[r * a.C + t0 + c] = acc[i][j] * inv[c];
+    for (int j = 0; j < F_TJ; ++j) {
+      const int r = ax + F_SA * i, c = by + F_SB * j;
+      if (r < a.B && c < n) out[r * a.C + t0 + c] = acc[i][j] * inv[c];
     }
 }
 
@@ -1485,7 +1658,8 @@ int allow_smem(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// the forward's block pass over nblk column ranges
+// the forward's block pass over nblk column ranges (bf16 W: 1 / ||w|| first),
+// with the statistics where stats is not nullptr
 template <class TW>
 int launch_fwd_pass(const Args& a, int nblk, long long cols_per_blk, float* part, float* stats,
                     cudaStream_t st) {
@@ -1493,10 +1667,11 @@ int launch_fwd_pass(const Args& a, int nblk, long long cols_per_blk, float* part
     const int err = launch_inv(a, st);
     if (err != 0) return err;
   }
-  constexpr size_t smem = fwd_smem<TW>();
-  const int err = allow_smem(margin_fwd_kernel<TW>, smem);
+  constexpr int smem = fwd_smem<TW>();
+  auto kernel = stats != nullptr ? margin_fwd_kernel<TW, true> : margin_fwd_kernel<TW, false>;
+  const int err = allow_smem(kernel, smem);
   if (err != 0) return err;
-  margin_fwd_kernel<TW><<<nblk, F_THREADS, smem, st>>>(a, cols_per_blk, part, stats);
+  kernel<<<nblk, f_threads<TW>(), smem, st>>>(a, cols_per_blk, part, stats);
   return (int)cudaGetLastError();
 }
 
@@ -1623,7 +1798,8 @@ int launch_clean_cos(const Args& a, int tiling, float* out, cudaStream_t st) {
 int launch_clean_cos_f32(const Args& a, int tiling, float* out, cudaStream_t st) {
   int e = 0;
   if (tiling == 0) {
-    const size_t smem = sizeof(float) * (F_DK * F_ALD + F_DK * F_BLD + F_TC);
+    const size_t smem = F_NST * fwd_stage_bytes<float>() + F_TC * 4;
+    if ((e = allow_smem(clean_cos_f32_fwd_kernel, smem)) != 0) return e;
     clean_cos_f32_fwd_kernel<<<(unsigned)((a.C + F_TC - 1) / F_TC), F_THREADS, smem, st>>>(a, out);
   } else if (tiling == 1 || tiling == 2) {
     const size_t smem = sizeof(float) * (FB_TC * (a.D + 4) + FB_XSTG + FB_TC);
@@ -1657,6 +1833,10 @@ const char* margin_ce_error_string(int err) { return cudaGetErrorString((cudaErr
 // stored as bf16 [B][D], inv a float scratch of one entry per logical
 // column: C, or M * tile for the sparse backward).
 
+// the forward's shared memory a block (bytes) of the W form:
+// ops/margin_stream.py's fwd_geometry computes the same
+int margin_fwd_smem(int w_bf16) { return w_bf16 ? fwd_smem<__nv_bfloat16>() : fwd_smem<float>(); }
+
 // forward: nblk column ranges of cols_per_blk (a multiple of 128) columns;
 // part is [2 * nblk][B][2 + 16] f32 scratch; outputs [B] and [B][k]. With
 // stats (else nullptr): [2][ceil(C / 64)][B] f32 scratch, and the outputs
@@ -1668,8 +1848,8 @@ int margin_ce_fwd_launch(MCE_COMMON_PARAMS, float* part, int nblk, long long col
   cudaStream_t st = (cudaStream_t)stream;
   int e = launch_fwd_pass_form(w_bf16, a, nblk, cols_per_blk, part, stats, st);
   if (e != 0) return e;
-  margin_fwd_merge_kernel<<<(B + 127) / 128, 128, 0, st>>>(a, 2 * nblk, part, ce, neg, logz,
-                                                           topk);
+  margin_fwd_merge_kernel<<<(B + 127) / 128, 128, 0, st>>>(a, F_LANES * nblk, part, ce, neg,
+                                                           logz, topk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || stats == nullptr) return (int)err;
   const long long n64 = (C + STAT_COLS - 1) / STAT_COLS;
@@ -1734,7 +1914,8 @@ int margin_partial_fwd_launch(MCE_COMMON_PARAMS, float* part, int nblk, long lon
   cudaStream_t st = (cudaStream_t)stream;
   const int e = launch_fwd_pass_form(w_bf16, a, nblk, cols_per_blk, part, nullptr, st);
   if (e != 0) return e;
-  margin_partial_merge_kernel<<<(B + 127) / 128, 128, 0, st>>>(a, 2 * nblk, part, m, s, topk);
+  margin_partial_merge_kernel<<<(B + 127) / 128, 128, 0, st>>>(a, F_LANES * nblk, part, m, s,
+                                                               topk);
   return (int)cudaGetLastError();
 }
 

@@ -1,18 +1,17 @@
 // Device helpers shared by the port's margin kernels (quad_margin.cu and
-// margin_ce.cu): the margin transform, the streamed (max, sumexp) and
-// value-only top-k, the merge of per-block partials, d loss / d cos of one
-// column, and the shared-memory tile products of f32 rows (tile_gemm:
-// margin_ce.cu's f32 forward; ftile_dots: its register-blocked form, staged
-// by cp.async).
+// margin_ce.cu): the margin transform, the forward's row pass pieces (the
+// base-2 (max, sumexp) chains and the select-network top-k of a lane), the
+// merge of per-block partials, d loss / d cos of one column, and the
+// shared-memory tile products of f32 rows (fdots_*: both forwards' product,
+// staged by cp.async; ftile_dots: the f32 backwards').
 //
 // Both kernels' top-k tie test (cos >= kth - KTH_TIE_TOL) compares cosines
 // that the forward and the backward compute separately; they must be the
 // same bits, so both passes take them from one chain: the FMA chain over
-// the feature axis in index order from 0 (`tile_gemm`'s; the f32 backwards
-// of both walk it in `ftile_dots`, quad_margin.cu's f32 forward in its
-// register micro-tile, and its `row_dot` for the columns a step writes),
-// or the tensor cores' (mma_bf16.cuh: the bf16 and int8 forms' k16 chain,
-// mma_nt; int8c's exact s8 sum, mma_nt_s8).
+// the feature axis in index order from 0 (the forwards' `fdots_chunk`, the
+// f32 backwards' `ftile_dots`, and quad_margin.cu's `row_dot` for the
+// columns a step writes), or the tensor cores' (mma_bf16.cuh: the bf16 and
+// int8 forms' k16 chain, mma_nt; int8c's exact s8 sum, mma_nt_s8).
 //
 // `A` is each kernel's argument struct: it has loss_type, k, margin, scale,
 // mask_svfc, cos_m and sin_m.
@@ -52,31 +51,6 @@ __device__ __forceinline__ void stream_z(float z, float& m, float& s) {
   } else {
     s += expf(z - m);
   }
-}
-
-// one non-target column into a row's running (max, sumexp) of z = scale * mod
-template <class A>
-__device__ __forceinline__ void stream_update(float c, float gt, const A& a, float& m, float& s) {
-  float mod = c;
-  if (a.loss_type == LOSS_SV && c > gt - a.margin) mod = a.mask_svfc * c + a.mask_svfc - 1.0f;
-  stream_z(a.scale * mod, m, s);
-}
-
-// values-only top-k, descending; `kth` mirrors tk[k - 1] so the common
-// rejection is one compare and tk stays in registers (constant indices)
-__device__ __forceinline__ void topk_insert(float (&tk)[KMAX], float& kth, float x, int k) {
-  if (!(x > kth)) return;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k && x > tk[j]) {
-      const float t = tk[j];
-      tk[j] = x;
-      x = t;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j)
-    if (j == k - 1) kth = tk[j];
 }
 
 // fold a logsumexp state (pm, ps), ps > 0 or nothing, into (M, S)
@@ -145,61 +119,124 @@ __device__ __forceinline__ float dcos_col(float c, float gt, float logz, float k
   return d;
 }
 
-// acc[i][j] = sum over the feature axis, in index order, of
-// X[x0 + ay + SA*i] . Y[y0 + bx + SB*j] for row-major [*, D] f32 matrices X
-// and Y, staged DK features at a time into shared memory k-major (As
-// [DK][ALD], Bs [DK][BLD]); rows at or past x_end / y_end read as 0.
-// Thread t < NY also sums ||Y[y0 + t]||^2 of the staged operands from the
-// same chunks into n2.
-template <int NX, int NY, int DK, int THREADS, int ALD, int BLD, int TI, int TJ, int SA, int SB>
-__device__ __forceinline__ void tile_gemm(float (&acc)[TI][TJ], float& n2, float* As, float* Bs,
-                                          const float* X, long long x0, long long x_end,
-                                          const float* Y, long long y0, long long y_end, int D,
-                                          int ay, int bx) {
-  const int tid = threadIdx.x;
+// ------------------------------------------------ the forwards' row pass
+//
+// Each probe row's stream is split over threads (lanes); within a lane, two
+// (m, s) chains a view, a pair of quads (4 columns each) at a time: each
+// quad's largest z, then the chain rescaled to it and the four exp terms, 16
+// independent terms a pair and no branch, so the pass is not one serial
+// chain through expf. The chains run in base 2 (z / ln 2, one MUFU exp2 a
+// term) and fold to base e in a fixed order (lse_fold) at the end of the
+// block's range. The top-k insertions run only where a column beats kth, a
+// network of selects (topk_push), every index constant, so the lists stay
+// in registers; value-only lists merge exactly.
+
+constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
+
+// One thread's share of a row's stream, NV views: per view two (m, s)
+// chains, over the first and the second quad of each of its pairs, and the
+// top-k of its columns.
+template <int NV>
+struct Lane {
+  float m[NV][2], s[NV][2], tk[NV][KMAX], kth[NV];
+};
+
+// A lane's top-k list is walked by template recursion, each index a
+// constant before any optimisation: walked by loops, unrolled too late for
+// the list to be promoted to registers, it stayed in local memory (-Xptxas
+// -v: a 168-byte stack frame) and the row pass took half as long again.
+template <int J>
+__device__ __forceinline__ void tk_fill(float (&tk)[KMAX], float v) {
+  tk[J] = v;
+  if constexpr (J + 1 < KMAX) tk_fill<J + 1>(tk, v);
+}
+template <int J>
+__device__ __forceinline__ void tk_store(float* p, const float (&tk)[KMAX]) {
+  p[J] = tk[J];
+  if constexpr (J + 1 < KMAX) tk_store<J + 1>(p, tk);
+}
+template <int J>
+__device__ __forceinline__ float tk_at(const float (&tk)[KMAX], int j) {  // tk[j], j >= J
+  if constexpr (J + 1 == KMAX) return tk[J];
+  else return j == J ? tk[J] : tk_at<J + 1>(tk, j);
+}
+// entries J .. 1 after inserting x: each takes its upper neighbour, x or
+// itself (the old values, walked from the bottom)
+template <int J>
+__device__ __forceinline__ void tk_shift(float (&tk)[KMAX], float x) {
+  tk[J] = x > tk[J - 1] ? tk[J - 1] : (x > tk[J] ? x : tk[J]);
+  if constexpr (J > 1) tk_shift<J - 1>(tk, x);
+}
+
+// x into a lane's value-only top-k (descending; kth mirrors tk[k - 1]): the
+// insertion as a network of selects (entries from k on carry what shifts
+// past the k-th, read by no one)
+__device__ __forceinline__ void topk_push(float (&tk)[KMAX], float& kth, float x, int k) {
+  if (!(x > kth)) return;
+  tk_shift<KMAX - 1>(tk, x);
+  tk[0] = x > tk[0] ? x : tk[0];
+  kth = tk_at<0>(tk, k - 1);
+}
+
+// a lane's chains empty and its lists filled with NEG_INF_F
+template <int NV>
+__device__ __forceinline__ void lane_init(Lane<NV>& ln) {
 #pragma unroll
-  for (int i = 0; i < TI; ++i)
+  for (int v = 0; v < NV; ++v) {
 #pragma unroll
-    for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
-  n2 = 0.f;
-  for (int k0 = 0; k0 < D; k0 += DK) {
-#pragma unroll
-    for (int l = 0; l < NX * DK / THREADS; ++l) {
-      const int idx = l * THREADS + tid, row = idx / DK, kk = idx % DK;
-      const long long g = x0 + row;
-      As[kk * ALD + row] = g < x_end ? X[g * D + k0 + kk] : 0.f;
+    for (int ch = 0; ch < 2; ++ch) {
+      ln.m[v][ch] = -INFINITY;
+      ln.s[v][ch] = 0.f;
     }
-#pragma unroll
-    for (int l = 0; l < NY * DK / THREADS; ++l) {
-      const int idx = l * THREADS + tid, row = idx / DK, kk = idx % DK;
-      const long long g = y0 + row;
-      Bs[kk * BLD + row] = g < y_end ? Y[g * D + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-    if (tid < NY) {
-#pragma unroll
-      for (int kk = 0; kk < DK; ++kk) n2 = fmaf(Bs[kk * BLD + tid], Bs[kk * BLD + tid], n2);
-    }
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
-      float av[TI], bv[TJ];
-#pragma unroll
-      for (int i = 0; i < TI; ++i) av[i] = As[kk * ALD + ay + SA * i];
-#pragma unroll
-      for (int j = 0; j < TJ; ++j) bv[j] = Bs[kk * BLD + bx + SB * j];
-#pragma unroll
-      for (int i = 0; i < TI; ++i)
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    tk_fill<0>(ln.tk[v], NEG_INF_F);
+    ln.kth[v] = NEG_INF_F;
   }
+}
+
+// the modified cosine of a non-target column (SV's mask above gt - margin)
+template <class A>
+__device__ __forceinline__ float mod_of(const A& a, float c, float gt) {
+  return a.loss_type == LOSS_SV && c > gt - a.margin ? a.mask_svfc * c + a.mask_svfc - 1.0f : c;
+}
+
+// z / ln 2 of a non-target column (z = scale * mod; zs = scale * LOG2E)
+template <class A>
+__device__ __forceinline__ float logit2(const A& a, float zs, float c, float gt) {
+  return zs * mod_of(a, c, gt);
+}
+
+// four columns' cosines c (ok: in the stream) into a chain (m, s) held in
+// base 2 (m = max z / ln 2, s = sum of 2^(z / ln 2 - m), the natural sum
+// relative to e^(m ln 2)): their largest z first, then the chain's sum
+// rescaled to it (by 2^0 = 1 where the chain's max stands) plus the four
+// terms, one MUFU exp2 each; no branch
+template <class A>
+__device__ __forceinline__ void stream4(const A& a, float zs, const float (&c)[4],
+                                        const bool (&ok)[4], float gt, float& m, float& s) {
+  float z[4], zm = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    z[j] = ok[j] ? logit2(a, zs, c[j], gt) : -INFINITY;
+    zm = fmaxf(zm, z[j]);
+  }
+  const float mn = fmaxf(m, zm), ref = mn == -INFINITY ? 0.f : mn;
+  s = s * exp2f(m - ref) +
+      ((exp2f(z[0] - ref) + exp2f(z[1] - ref)) + (exp2f(z[2] - ref) + exp2f(z[3] - ref)));
+  m = mn;
+}
+
+// a lane's view v folded to base e: its two chains in order into (M, S)
+template <int NV>
+__device__ __forceinline__ void lane_fold(Lane<NV>& ln, int v, float& M, float& S) {
+  M = ln.m[v][0] * LN2;
+  S = ln.s[v][0];
+  lse_fold(ln.m[v][1] * LN2, ln.s[v][1], M, S);
 }
 
 // ------------------------------------ the f32 tile product on the CUDA cores
 //
-// `ftile_dots`: the register-blocked form of tile_gemm's product (margin_ce.cu's
-// f32 backward). X and Y are row-major [*, D] f32 in global memory, staged FK
+// `ftile_dots`: the f32 backwards' product (margin_ce.cu's one pass,
+// quad_margin.cu's quad_bwd_f32_kernel). X and Y are row-major [*, D] f32 in global memory, staged FK
 // features a chunk into shared memory by 16-byte cp.async, rows past the
 // valid ones zero-filled: X through NST stages of [NX][FK + 4] (NST - 1
 // chunks in flight beside the one in use), Y into a tile [NY][D + 4] that
@@ -210,8 +247,8 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TI][TJ], float& n2, float
 // micro-tile, X rows ax + SA*i and Y rows by + SB*j; per four features it
 // reads a float4 of each of its rows and adds the products feature by
 // feature. Every output is one fmaf chain over the features 0 .. D - 1 in
-// index order from 0 (and ||y||^2 the same chain of y * y): tile_gemm's,
-// whatever the tiling. margin_ce.cu's f32 pass takes the row norms
+// index order from 0 (and ||y||^2 the same chain of y * y): the forwards'
+// (fdots_chunk), whatever the tiling. margin_ce.cu's f32 pass takes the row norms
 // (NORM), quad_margin.cu's f32 backward does not.
 
 // features [k0, k0 + kw) (kw a multiple of 4) of the rows row0 .. row0 + n - 1
@@ -306,6 +343,89 @@ __device__ __forceinline__ void ftile_dots(float (&acc)[TI][TJ], float& n2, floa
   }
   cp_async_wait<0>();
   __syncthreads();  // every stage is free
+}
+
+
+// ----------------------------------------- the forwards' f32 tile product
+//
+// `fdots_*` (quad_margin.cu's quad_fwd_kernel, F32 form; margin_ce.cu's
+// margin_fwd_kernel, f32 W): a block of NX rows of X against a tile of NY
+// rows of Y, both row-major [*, D] f32 in global memory, FFK features a
+// chunk of each staged by 16-byte cp.async (stage_f32, rows past the valid
+// ones zero-filled) into one stage [NX + NY][FFK + 4], the caller keeping
+// two chunks in flight beside the one in use. Each thread holds a TI x TJ
+// micro-tile, X rows ax + SA i and Y rows by + SB j (fdots_map: the eight
+// threads of a quarter warp read one X row, a broadcast, and eight
+// consecutive Y rows, in eight different groups of four banks at the
+// stride FFK + 4), and per four features reads a float4 of each of its rows:
+// at 8 x 8, 16 LDS.128 for 256 FMA, 1 byte of shared memory per FMA. Every
+// output is one fmaf chain over the features 0 .. D - 1 in index order from
+// 0, ftile_dots' chain, and fdots_norm's ||y||^2 the same chain of y * y.
+
+constexpr int FFK = 32;  // features a chunk
+
+template <int NX, int NY>
+__host__ __device__ constexpr int fdots_stage_floats() {
+  return (NX + NY) * (FFK + 4);
+}
+
+// chunk kc of X rows x0 .. x0 + nx - 1 and Y rows y0 .. y0 + ny - 1 into the
+// stage st (rows from nx / ny on zero-filled); the caller commits
+template <int THREADS, int NX, int NY>
+__device__ __forceinline__ void fdots_load(float* st, const float* X, long long x0, int nx,
+                                           const float* Y, long long y0, int ny, int D, int kc) {
+  stage_f32<THREADS>(st, FFK + 4, X, x0, nx, NX, D, FFK * kc, FFK);
+  stage_f32<THREADS>(st + NX * (FFK + 4), FFK + 4, Y, y0, ny, NY, D, FFK * kc, FFK);
+}
+
+// the thread's micro-tile: X rows ax + (NX / TI) i, Y rows by + (NY / TJ) j
+template <int NX, int NY, int TI, int TJ>
+__device__ __forceinline__ void fdots_map(int& ax, int& by) {
+  constexpr int SB = NY / TJ, NB = SB / 8;  // warps across the Y rows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  by = (lane & 7) + 8 * (warp % NB);
+  ax = 4 * (warp / NB) + (lane >> 3);
+}
+
+// the products of one staged chunk into acc, each output's four features
+// of a float4 step in order
+template <int NX, int NY, int TI, int TJ>
+__device__ __forceinline__ void fdots_chunk(float (&acc)[TI][TJ], const float* st, int ax, int by) {
+  constexpr int LD = FFK + 4, SA = NX / TI, SB = NY / TJ;
+  const float* Ys = st + NX * LD;
+#pragma unroll
+  for (int k = 0; k < FFK; k += 4) {
+    float4 x[TI];
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+      x[i] = *reinterpret_cast<const float4*>(st + (ax + SA * i) * LD + k);
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) {  // a column at a time: its four features in order
+      const float4 y = *reinterpret_cast<const float4*>(Ys + (by + SB * j) * LD + k);
+#pragma unroll
+      for (int i = 0; i < TI; ++i) {
+        float& c = acc[i][j];
+        c = fmaf(x[i].x, y.x, c);
+        c = fmaf(x[i].y, y.y, c);
+        c = fmaf(x[i].z, y.z, c);
+        c = fmaf(x[i].w, y.w, c);
+      }
+    }
+  }
+}
+
+// n2 += ||Y row t||^2 over one staged chunk (thread t < NY), in feature order
+template <int NX>
+__device__ __forceinline__ void fdots_norm(float& n2, const float* st, int t) {
+  constexpr int LD = FFK + 4;
+#pragma unroll
+  for (int k = 0; k < FFK; k += 4) {
+    const float4 y = *reinterpret_cast<const float4*>(st + (NX + t) * LD + k);
+    n2 = fmaf(y.x, y.x, n2);
+    n2 = fmaf(y.y, y.y, n2);
+    n2 = fmaf(y.z, y.z, n2);
+    n2 = fmaf(y.w, y.w, n2);
+  }
 }
 
 }  // namespace

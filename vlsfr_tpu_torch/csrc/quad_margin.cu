@@ -160,8 +160,9 @@
 //  * The forward block holds 256 probe rows (the quad's 2B) or, for R <=
 //    128 (the twin's B), 128, so a twin tile costs half a quad tile.
 //  * Shared with margin_ce.cu (margin_common.cuh): the margin transform,
-//    the streamed (max, sumexp) and top-k, the partial merge, d_cos of a
-//    column and the shared-memory tile product.
+//    the forward's row pass pieces (Lane, stream4, topk_push) and its F32
+//    product (fdots_*), the partial merge, d_cos of a column and the
+//    backward's f32 tile product (ftile_dots).
 //  * The BF16 and INT8 forms on the tensor cores (mma.sync m16n8k16, csrc/
 //    mma_bf16.cuh; operands staged in shared memory as bf16, swizzled for
 //    conflict-free ldmatrix: by cp.async, an int8 tile widened to bf16 in
@@ -307,7 +308,7 @@ __global__ void quad_written_cos_kernel(Args a, float* wcos) {
 // cp.async in f_nst stages: F32 stages F_FK features of E's rows and of the
 // q0 tile, the others 128 bytes of each q0 row (64 bf16 features, or
 // INT8C's 128).
-constexpr int F_ROWS = 256, F_TC = 64, F_THREADS = 256, F_CLD = F_TC + 4, F_FK = 32;
+constexpr int F_ROWS = 256, F_TC = 64, F_THREADS = 256, F_CLD = F_TC + 4, F_FK = FFK;
 constexpr int F_TC_ROWS = 128, F_DMAX = 512;  // the tensor-core forms' block rows; their largest D
 constexpr int F_PLAN = 4 * F_TC + 4;  // a tile's write plan: last0, lastb [2][F_TC], written [4]
 static_assert(F_THREADS == 4 * F_TC, "the INT8 forward widens one 16-byte word a thread");
@@ -345,7 +346,7 @@ __host__ __device__ constexpr int f_e_bytes() {
 // row, swizzled
 template <int FORM, int ROWS>
 __host__ __device__ constexpr int f_stage_bytes() {
-  return FORM == FORM_F32 ? 4 * (ROWS + F_TC) * (F_FK + 4) : 128 * F_TC;
+  return FORM == FORM_F32 ? 4 * fdots_stage_floats<ROWS, F_TC>() : 128 * F_TC;
 }
 
 // shared memory of a block: the resident E rows, the stages, Cs, and two
@@ -398,15 +399,11 @@ __device__ __forceinline__ void fwd_zero(FwdAcc<FORM, ROWS>& acc) {
   }
 }
 
-// the F32 micro-tile map: the eight threads of a quarter warp read one E
-// row (a broadcast) and eight consecutive q0 rows (distinct banks at the
-// stride F_FK + 4)
+// the F32 micro-tile map (margin_common.cuh's fdots_map)
 template <int ROWS>
 __device__ __forceinline__ void fwd_f32_map(int& ax, int& by) {
-  constexpr int NB = FwdAcc<FORM_F32, ROWS>::SB / 8;  // warps across the columns
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  by = (lane & 7) + 8 * (warp % NB);
-  ax = 4 * (warp / NB) + (lane >> 3);
+  using A = FwdAcc<FORM_F32, ROWS>;
+  fdots_map<ROWS, F_TC, A::TI, A::TJ>(ax, by);
 }
 
 // the tensor-core forms' E rows [r_base, r_base + ROWS) (zero from R) into
@@ -440,10 +437,9 @@ __device__ __forceinline__ uint4 fwd_load(const Args& a, unsigned char* stg, int
   unsigned char* Qs = stg + s * f_stage_bytes<FORM, ROWS>();
   uint4 v = make_uint4(0, 0, 0, 0);
   if constexpr (FORM == FORM_F32) {
-    float* Xs = reinterpret_cast<float*>(Qs);
-    stage_f32<F_THREADS>(Xs, F_FK + 4, a.E, 0, a.R, ROWS, a.D, F_FK * kc, F_FK);
-    stage_f32<F_THREADS>(Xs + ROWS * (F_FK + 4), F_FK + 4, static_cast<const float*>(a.q0), t0,
-                         (int)min((long long)F_TC, c_end - t0), F_TC, a.D, F_FK * kc, F_FK);
+    fdots_load<F_THREADS, ROWS, F_TC>(reinterpret_cast<float*>(Qs), a.E, 0, a.R,
+                                      static_cast<const float*>(a.q0), t0,
+                                      (int)min((long long)F_TC, c_end - t0), a.D, kc);
   } else if constexpr (FORM == FORM_INT8) {
     const long long col = t0 + (threadIdx.x >> 2);
     const signed char* q0 = static_cast<const signed char*>(a.q0);
@@ -512,30 +508,9 @@ __device__ __forceinline__ void fwd_chunk(const Args& a, const unsigned char* st
                                           FwdAcc<FORM, ROWS>& acc) {
   using A = FwdAcc<FORM, ROWS>;
   if constexpr (FORM == FORM_F32) {
-    constexpr int LD = F_FK + 4;
-    const float* Xs = reinterpret_cast<const float*>(st);
-    const float* Ys = Xs + ROWS * LD;
     int ax, by;
     fwd_f32_map<ROWS>(ax, by);
-#pragma unroll
-    for (int k = 0; k < F_FK; k += 4) {
-      float4 x[A::TI];
-#pragma unroll
-      for (int i = 0; i < A::TI; ++i)
-        x[i] = *reinterpret_cast<const float4*>(Xs + (ax + A::SA * i) * LD + k);
-#pragma unroll
-      for (int j = 0; j < A::TJ; ++j) {  // a column at a time: its four features in order
-        const float4 y = *reinterpret_cast<const float4*>(Ys + (by + A::SB * j) * LD + k);
-#pragma unroll
-        for (int i = 0; i < A::TI; ++i) {
-          float& c = acc.v[i][j];
-          c = fmaf(x[i].x, y.x, c);
-          c = fmaf(x[i].y, y.y, c);
-          c = fmaf(x[i].z, y.z, c);
-          c = fmaf(x[i].w, y.w, c);
-        }
-      }
-    }
+    fdots_chunk<ROWS, F_TC, A::TI, A::TJ>(acc.v, reinterpret_cast<const float*>(st), ax, by);
   } else {
     const int warp = threadIdx.x >> 5;
     const int wr = (warp % A::WM) * 32, wc = (warp / A::WM) * (F_TC / A::WN);
@@ -593,14 +568,6 @@ __device__ __forceinline__ void fwd_store(const Args& a, const FwdAcc<FORM, ROWS
   }
 }
 
-// One thread's share of a probe row's stream, both views: per view two (m,
-// s) chains, over the first and the second quad of each of its pairs, and
-// the top-k of its columns. A row's columns are split over L = threads /
-// ROWS threads (lanes), each taking every L-th quad of a tile.
-struct Lane {
-  float m[2][2], s[2][2], tk[2][KMAX], kth[2];
-};
-
 // a thread's probe row in the row pass and the write plan of the tile it
 // streams
 struct RowPass {
@@ -610,71 +577,6 @@ struct RowPass {
   float gt0, gt1;
   float zs;  // scale * log2(e): the row pass streams z / ln 2
 };
-
-constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
-
-// A lane's top-k list is walked by template recursion, each index a
-// constant before any optimisation: walked by loops, unrolled too late for
-// the list to be promoted to registers, it stayed in local memory (-Xptxas
-// -v: a 168-byte stack frame) and the row pass took half as long again.
-template <int J>
-__device__ __forceinline__ void tk_fill(float (&tk)[KMAX], float v) {
-  tk[J] = v;
-  if constexpr (J + 1 < KMAX) tk_fill<J + 1>(tk, v);
-}
-template <int J>
-__device__ __forceinline__ void tk_store(float* p, const float (&tk)[KMAX]) {
-  p[J] = tk[J];
-  if constexpr (J + 1 < KMAX) tk_store<J + 1>(p, tk);
-}
-template <int J>
-__device__ __forceinline__ float tk_at(const float (&tk)[KMAX], int j) {  // tk[j], j >= J
-  if constexpr (J + 1 == KMAX) return tk[J];
-  else return j == J ? tk[J] : tk_at<J + 1>(tk, j);
-}
-// entries J .. 1 after inserting x: each takes its upper neighbour, x or
-// itself (the old values, walked from the bottom)
-template <int J>
-__device__ __forceinline__ void tk_shift(float (&tk)[KMAX], float x) {
-  tk[J] = x > tk[J - 1] ? tk[J - 1] : (x > tk[J] ? x : tk[J]);
-  if constexpr (J > 1) tk_shift<J - 1>(tk, x);
-}
-
-// x into a lane's value-only top-k (descending; kth mirrors tk[k - 1]): the
-// insertion as a network of selects (entries from k on carry what shifts
-// past the k-th, read by no one)
-__device__ __forceinline__ void topk_push(float (&tk)[KMAX], float& kth, float x, int k) {
-  if (!(x > kth)) return;
-  tk_shift<KMAX - 1>(tk, x);
-  tk[0] = x > tk[0] ? x : tk[0];
-  kth = tk_at<0>(tk, k - 1);
-}
-
-// z / ln 2 of a non-target column (stream_update's z = scale * mod)
-__device__ __forceinline__ float logit2(const Args& a, float zs, float c, float gt) {
-  float mod = c;
-  if (a.loss_type == LOSS_SV && c > gt - a.margin) mod = a.mask_svfc * c + a.mask_svfc - 1.0f;
-  return zs * mod;
-}
-
-// four columns' cosines c (ok: in the stream) into a chain (m, s) held in
-// base 2 (m = max z / ln 2, s = sum of 2^(z / ln 2 - m), the natural sum
-// relative to e^(m ln 2)): their largest z first, then the chain's sum
-// rescaled to it (by 2^0 = 1 where the chain's max stands) plus the four
-// terms, one MUFU exp2 each; no branch
-__device__ __forceinline__ void stream4(const Args& a, float zs, const float (&c)[4],
-                                        const bool (&ok)[4], float gt, float& m, float& s) {
-  float z[4], zm = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    z[j] = ok[j] ? logit2(a, zs, c[j], gt) : -INFINITY;
-    zm = fmaxf(zm, z[j]);
-  }
-  const float mn = fmaxf(m, zm), ref = mn == -INFINITY ? 0.f : mn;
-  s = s * exp2f(m - ref) +
-      ((exp2f(z[0] - ref) + exp2f(z[1] - ref)) + (exp2f(z[2] - ref) + exp2f(z[3] - ref)));
-  m = mn;
-}
 
 // quad q (columns 4q .. 4q + 3) of row rp.r (Cs row rp.lr) in the tile at
 // t0 with n valid columns: its cosines in view 1 (c1) and view 2 (c2), and
@@ -707,13 +609,15 @@ __device__ __forceinline__ void load_quad(const Args& a, const float* Cs, const 
 }
 
 // this lane's share of the tile at t0 (n valid columns, its write plan
-// rp.plan) into ln, a pair of quads at a time: a pair's two quads feed the
+// rp.plan) into ln (margin_common.cuh's Lane, both views: a row's columns
+// are split over L = threads / ROWS lanes, each taking every L-th quad of a
+// tile), a pair of quads at a time: a pair's two quads feed the
 // two chains of each view, 16 independent terms; the target column stays
 // out of the stream and the top-k, whose insertions run only where a column
 // beats the view's kth
 template <int L>
 __device__ __forceinline__ void row_pass(const Args& a, const float* Cs, const RowPass& rp,
-                                         long long t0, int n, Lane& ln) {
+                                         long long t0, int n, Lane<2>& ln) {
   constexpr int NP = F_TC / 8 / L;  // quad pairs a lane
   for (int i = 0; i < NP; ++i) {
     float c1[2][4], c2[2][4];
@@ -812,17 +716,8 @@ __global__ void __launch_bounds__(f_threads<FORM>(), 1)
   rp.gt0 = row_ok ? a.gt[r] : 0.f;
   rp.gt1 = row_ok ? a.gt[a.R + r] : 0.f;
   rp.zs = a.scale * LOG2E;
-  Lane ln;
-#pragma unroll
-  for (int v = 0; v < 2; ++v) {
-#pragma unroll
-    for (int ch = 0; ch < 2; ++ch) {
-      ln.m[v][ch] = -INFINITY;
-      ln.s[v][ch] = 0.f;
-    }
-    tk_fill<0>(ln.tk[v], NEG_INF_F);
-    ln.kth[v] = NEG_INF_F;
-  }
+  Lane<2> ln;
+  lane_init(ln);
 
   if constexpr (FORM != FORM_F32) {
     fwd_load_e<FORM, ROWS>(a, Es, r_base);

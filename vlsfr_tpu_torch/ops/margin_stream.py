@@ -75,6 +75,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -561,6 +562,8 @@ def margin_ce_bwd_sparse_plain(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile
 
 _LOSS_CODE = {"AM": 0, "Arc": 1, "SV": 2}
 _F_TC = 128  # columns per forward tile
+_F_LANES = 2  # forward lanes a row: lane l streams columns [64 l, 64 l + 64) of each tile
+_F_NST, _F_FK = 3, 32  # the forward's stages; an f32 stage's features (64 for bf16)
 _B_TC = 64  # columns per backward tile
 _B_RB = 64  # rows per d_emb block (row group) of a bf16 classifier
 _STAT_COLS = 64  # columns per forward statistics partial (half an _F_TC tile)
@@ -607,10 +610,11 @@ def _lib():
             _P, _P, _P, _P]  # m, s, topk, stream
         lib.margin_partial_bwd_launch.argtypes = _BWD_ARGTYPES + [_P, _P, _P]  # d_w, d_wl, stream
         lib.margin_ce_clean_cos_launch.argtypes = _COMMON_ARGTYPES + [ctypes.c_int, _P, _P]
+        lib.margin_fwd_smem.argtypes = [ctypes.c_int]
         for fn in (lib.margin_ce_fwd_launch, lib.margin_ce_bwd_launch,
                    lib.margin_ce_bwd_fused_sgd_launch, lib.margin_ce_bwd_sparse_launch,
                    lib.margin_partial_fwd_launch, lib.margin_partial_bwd_launch,
-                   lib.margin_ce_clean_cos_launch):
+                   lib.margin_ce_clean_cos_launch, lib.margin_fwd_smem):
             fn.restype = ctypes.c_int
         lib.margin_ce_error_string.argtypes = [ctypes.c_int]
         lib.margin_ce_error_string.restype = ctypes.c_char_p
@@ -684,6 +688,30 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+class FwdGeometry(NamedTuple):
+    """The forward kernel's launch (``fwd_geometry``)."""
+
+    nblk: int  # column ranges, each of cols_per_blk columns (the last may hold fewer)
+    cols_per_blk: int  # a multiple of the 128-column tile
+    n_parts: int  # partials a row: one per lane of each block, merged in this order
+    smem: int  # bytes of shared memory a block (csrc/margin_ce.cu: fwd_smem)
+
+
+def fwd_geometry(w_bf16: bool, c: int, sms: int) -> FwdGeometry:
+    """The forward kernel's grid over C classifier columns on a card of
+    ``sms`` SMs: one block an SM, each every batch row (up to 128) over a
+    range of whole 128-column tiles, the ranges covering [0, C) in order;
+    two lanes a row, each writing its own (m, s, top-k) partial. Shared
+    memory: three stages of emb's 128 rows and a W tile's 128 rows, 32
+    features a stage at a row stride of 36 floats (f32 W) or 64 bf16
+    features (bf16 W), the f32 cosine tile [128, 132] and the tile's
+    1/‖w‖."""
+    nblk, per = _split_columns(c, _F_TC, sms)
+    stage = (_MAX_ROWS + _F_TC) * (64 * 2 if w_bf16 else 4 * (_F_FK + 4))
+    return FwdGeometry(nblk, per, _F_LANES * nblk,
+                       _F_NST * stage + 4 * (_MAX_ROWS * (_F_TC + 4) + _F_TC))
+
+
 def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
                   with_stats=False, tile=512):
     """Streaming forward: (ce [B], neg [B], logz [B], topk [B, k]), and with
@@ -694,15 +722,24 @@ def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
     on an H100 at the slice shapes (B = 128, D = 512, C = 2^20): 2·B·D·C =
     1.37e11 FLOP of f32 dot products (~2.05 ms at 67 TFLOP/s) against
     2.15 GB of W (~0.64 ms at 3.35 TB/s): compute-bound. Design
-    (csrc/margin_ce.cu): each block streams a contiguous column range with
-    every batch row resident, so each W tile is read once; per-row running
-    (max, sumexp) and a register top-k go to a per-block partial that a
-    second launch merges in a fixed order. The statistics are per-64-column
-    maxima (target column included) written beside the stream, reduced to
-    ``tile`` columns (a multiple of 64) by a third launch; without
-    ``with_stats`` none of that runs. The bf16 form (bf16 ``w``): the
-    dots at 989 TFLOP/s (0.14 ms) against 1.07 GB of W (0.32 ms):
-    bytes-bound; a first launch writes 1/‖w‖ per column (module docstring).
+    (csrc/margin_ce.cu: ``margin_fwd_kernel``; grid ``fwd_geometry``): one
+    block an SM streams a range of 128-column tiles with every batch row,
+    so each W tile is read once. The f32 product runs on the CUDA cores in
+    f32 FMA, emb's rows and the W tile staged 32 features a chunk by
+    cp.async, two chunks in flight, an 8 × 8 micro-tile a thread read by
+    float4 loads; each cosine is one fmaf chain over the features in
+    order, the f32 backward's. Each row's stream is split over two lanes,
+    64 columns of each tile a lane: two base-2 (max, sumexp) chains and a
+    select-network top-k in registers a lane, each lane's partial merged
+    with the others in a fixed order by a second launch; a tile's row pass
+    runs under the next tile's first copies. The statistics are
+    per-64-column maxima (target column included), one lane's half tile,
+    taken by the same pass, reduced to ``tile`` columns (a multiple of 64)
+    by a third launch; without ``with_stats`` none of that runs. The bf16
+    form (bf16 ``w``): the cosine tile on the tensor cores, the same row
+    pass; the dots at 989 TFLOP/s (0.14 ms) against 1.07 GB of W (0.32
+    ms): bytes-bound; a first launch writes 1/‖w‖ per column (module
+    docstring).
     """
     _check_inputs(emb, w, labels, gt, k, loss_type)
     if not emb.is_cuda:
@@ -715,8 +752,8 @@ def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
     b, dev = emb.shape[0], emb.device
     c = w.shape[0]
     e_op, eb, inv = _form_scratch(emb, w, c)
-    nblk, per = _split_columns(c, _F_TC, 2 * _sms(dev))
-    part = torch.empty((2 * nblk, b, 2 + KMAX), device=dev)
+    geo = fwd_geometry(w.dtype == torch.bfloat16, c, _sms(dev))
+    part = torch.empty((geo.n_parts, b, 2 + KMAX), device=dev)
     ce, neg, logz = (torch.empty((b,), device=dev) for _ in range(3))
     topk = torch.empty((b, k), device=dev)
     stats, stat_ptrs = [], [None, None, None]  # scratch, maxz, maxcos
@@ -727,8 +764,8 @@ def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
     err = lib.margin_ce_fwd_launch(
         *_common_args(e_op, eb, w, inv, labels, gt, k=k, loss_type=loss_type, margin=margin,
                       scale=scale, mask_svfc=mask_svfc),
-        part.data_ptr(), nblk, per, ce.data_ptr(), neg.data_ptr(), logz.data_ptr(),
-        topk.data_ptr(), stat_ptrs[0], tile, *stat_ptrs[1:],
+        part.data_ptr(), geo.nblk, geo.cols_per_blk, ce.data_ptr(), neg.data_ptr(),
+        logz.data_ptr(), topk.data_ptr(), stat_ptrs[0], tile, *stat_ptrs[1:],
         torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(lib, err, "margin_ce_fwd")
     _count_launch("margin_ce_fwd", w)
@@ -747,7 +784,7 @@ def margin_partial_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_
     2·B·D·C_l FLOP (2^20: 1.37e11, ~2.05 ms at the f32 rate) against
     4·C_l·D bytes of W (2.15 GB, ~0.64 ms): compute-bound. Design:
     ``margin_ce_fwd``'s block pass (each block a column range with every
-    batch row resident, a per-block (max, sumexp, top-k) partial) and a
+    batch row resident, a (max, sumexp, top-k) partial a lane) and a
     merge launch that folds the partials in a fixed order, then the owned
     target term, and writes the raw state instead of finalizing it: the
     blocks' states merge across ranks (``parallel/_shard_common.py``)."""
@@ -758,14 +795,14 @@ def margin_partial_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_
     lib = _lib()
     b, dev = emb.shape[0], emb.device
     e_op, eb, inv = _form_scratch(emb, w, w.shape[0])
-    nblk, per = _split_columns(w.shape[0], _F_TC, 2 * _sms(dev))
-    part = torch.empty((2 * nblk, b, 2 + KMAX), device=dev)
+    geo = fwd_geometry(w.dtype == torch.bfloat16, w.shape[0], _sms(dev))
+    part = torch.empty((geo.n_parts, b, 2 + KMAX), device=dev)
     m, s = (torch.empty((b,), device=dev) for _ in range(2))
     topk = torch.empty((b, k), device=dev)
     err = lib.margin_partial_fwd_launch(
-        *_common_args(e_op, eb, w, inv, labels, gt, **kw), part.data_ptr(), nblk, per,
-        m.data_ptr(),
-        s.data_ptr(), topk.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        *_common_args(e_op, eb, w, inv, labels, gt, **kw), part.data_ptr(), geo.nblk,
+        geo.cols_per_blk, m.data_ptr(), s.data_ptr(), topk.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(lib, err, "margin_partial_fwd")
     _count_launch("margin_partial_fwd", w)
     return m, s, topk

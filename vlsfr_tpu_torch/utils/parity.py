@@ -391,12 +391,7 @@ def sparse_path_checks(emb, w, labels, d_ce, d_neg, kw: dict, tile: int, m_tiles
         gt = tms.compute_gt(emb, w, labels)
     got = tms.margin_ce_fwd(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
     want = tms.margin_ce_fwd_plain(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
-    if w.dtype == torch.bfloat16:
-        checks = rounded_fwd_checks(got, want)
-    else:
-        checks = [{"name": name, "err": float((g - wn).abs().max()), "limit": tol}
-                  for name, g, wn, tol in zip(("ce", "neg", "logz", "topk"), got, want,
-                                              (1e-4, 1e-4, 1e-4, 1e-5))]
+    checks = fwd_out_checks(got, want, w.dtype == torch.bfloat16)
     checks += fwd_stats_checks(got[4], got[5], want[4], want[5], kw["scale"])
     _, _, logz, topk, maxz, maxcos = want
     tile_idx, _ = tms.select_relevant_tiles(maxz, maxcos, logz, topk, labels, m_tiles, tile, u=u,
@@ -404,6 +399,56 @@ def sparse_path_checks(emb, w, labels, d_ce, d_neg, kw: dict, tile: int, m_tiles
     checks += margin_ce_bwd_sparse_checks(emb, w, labels, gt, logz, topk, d_ce, d_neg, tile_idx,
                                           kw, tile, pos_rows=pos_rows)
     return checks, tile_idx, (gt, logz, topk)
+
+
+def fwd_out_checks(got, want, rounded: bool, tag: str = "") -> list[dict]:
+    """The forward's outputs (ce, neg, logz, top-k) against the plain
+    ones: an f32 classifier's ce / neg / logz 1e-4 and top-k 1e-5 absolute
+    (f32 sums in another order over C columns), a bf16 one's
+    ``rounded_fwd_checks``."""
+    if rounded:
+        return rounded_fwd_checks(got, want, tag)
+    return [_err(f"{tag}{name}", g, wn, tol) for name, g, wn, tol in
+            zip(("ce", "neg", "logz", "topk"), got, want, (1e-4, 1e-4, 1e-4, 1e-5))]
+
+
+def partial_state_checks(got, want, scale: float, tag: str = "") -> list[dict]:
+    """A class block's partial forward state (m, s, top-k) against the
+    plain one: the rows with a column (s > 0) alike, m to scale × 1e-5 and
+    m + log s to 1e-4 on them, top-k 1e-5."""
+    (m_k, s_k, t_k), (m_p, s_p, t_p) = got, want
+    seen = s_p > 0
+    return [
+        {"name": f"{tag}partial rows with a column", "limit": 0.0,
+         "err": float((seen != (s_k > 0)).sum())},
+        _err(f"{tag}partial m", m_k[seen], m_p[seen], scale * 1e-5),
+        _err(f"{tag}partial m + log s", (m_k + torch.log(s_k))[seen],
+             (m_p + torch.log(s_p))[seen], 1e-4),
+        _err(f"{tag}partial top-k", t_k, t_p, 1e-5)]
+
+
+def margin_fwd_checks(emb, w, labels, kw: dict, tile: int = 512, tag: str = "") -> list[dict]:
+    """The forward kernel against its plain versions on one case, in every
+    call it serves, each under the limits it has elsewhere:
+    ``margin_ce_fwd`` without statistics and with them (``fwd_out_checks``,
+    then ``fwd_stats_checks`` at ``tile``), and ``margin_partial_fwd`` with
+    the whole classifier as one block (``partial_state_checks``; the
+    labels are the block's own)."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    gt = tms.compute_gt(emb, w, labels)
+    rounded = w.dtype == torch.bfloat16
+    checks = fwd_out_checks(tms.margin_ce_fwd(emb, w, labels, gt, **kw),
+                            tms.margin_ce_fwd_plain(emb, w, labels, gt, **kw), rounded, tag)
+    got = tms.margin_ce_fwd(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
+    want = tms.margin_ce_fwd_plain(emb, w, labels, gt, with_stats=True, tile=tile, **kw)
+    t = f"{tag}with statistics: "
+    checks += fwd_out_checks(got, want, rounded, t)
+    checks += [dict(c, name=t + c["name"])
+               for c in fwd_stats_checks(got[4], got[5], want[4], want[5], kw["scale"])]
+    return checks + partial_state_checks(tms.margin_partial_fwd(emb, w, labels, gt, **kw),
+                                         tms.margin_partial_fwd_plain(emb, w, labels, gt, **kw),
+                                         kw["scale"], tag)
 
 
 def _err(name: str, got, want, limit: float) -> dict:
@@ -873,15 +918,9 @@ def margin_partial_checks(emb, w_l, ll, gt, logz, kth, d_ce, d_neg, d_wl, kw: di
     from vlsfr_tpu_torch.ops import margin_stream as tms
 
     m_k, s_k, t_k = tms.margin_partial_fwd(emb, w_l, ll, gt, **kw)
-    m_p, s_p, t_p = tms.margin_partial_fwd_plain(emb, w_l, ll, gt, **kw)
-    seen = s_p > 0
-    checks = [
-        {"name": f"{tag}partial rows with a column", "limit": 0.0,
-         "err": float((seen != (s_k > 0)).sum())},
-        _err(f"{tag}partial m", m_k[seen], m_p[seen], kw["scale"] * 1e-5),
-        _err(f"{tag}partial m + log s", (m_k + torch.log(s_k))[seen],
-             (m_p + torch.log(s_p))[seen], 1e-4),
-        _err(f"{tag}partial top-k", t_k, t_p, 1e-5)]
+    checks = partial_state_checks((m_k, s_k, t_k),
+                                  tms.margin_partial_fwd_plain(emb, w_l, ll, gt, **kw),
+                                  kw["scale"], tag)
     args = (emb, w_l, ll, gt, logz, kth, d_ce, d_neg, d_wl)
     cos = tms.clean_cos(emb, w_l) if w_l.dtype == torch.bfloat16 else None  # module docstring
     d_k, w_k, g_k = tms.margin_partial_bwd(*args, **kw)
