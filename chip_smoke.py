@@ -246,7 +246,9 @@ classes, bf16 momentum, fused SGD; the JAX bench suite's row):
 The last two TPU kernels, on the paths of their JAX tools (no trainer
 calls either, in JAX or here):
 33. conv parity — ``conv3x3`` (``csrc/conv3x3.cu``; bf16 on the tensor
-   cores, f32 on the FMA units) at tools/bench_conv.py's
+   cores: ``mma.sync`` where the weight slice stays resident, ``wgmma``
+   where it streams (C = 256, 512); f32 on the FMA units) at
+   tools/bench_conv.py's
    bf16 shapes [128, 56, 56, 64], [128, 112, 112, 64], [128, 28, 28, 128],
    both modes at strip 28, with and without the statistics epilogue, ir50's
    stem [128, 112, 112, 3] -> 64 (strip 28) and C = 256 -> 256 and 512 ->
@@ -255,8 +257,11 @@ calls either, in JAX or here):
    (``parity.conv_checks``: bf16 y within one bf16 spacing plus the f32
    limit, at most 2e-3 of the elements apart; f32 y 2e-5 × max|y|; Σ and
    Σ² 1e-5 of Σ|y| and Σy² per channel), cuDNN's distance printed beside;
-   copies of conv3x3.cu that read the bottom halo row one row off and that
-   drop the last block of the statistics merge must fail;
+   copies of conv3x3.cu that read the resident kernel's bottom halo row
+   one row off and that drop the last block of the statistics merge (at
+   bf16 [128, 56, 56, 64]), whose streamed kernel drops its last channel
+   chunk (at C = 256) and whose f32 kernel reads one tap one pixel off
+   must fail;
 34. conv timing — ``vlsfr_tpu_torch.tools.bench_conv.run`` (both modes over
    the strips dividing H, the statistics at 28 and 56, cuDNN and cuDNN +
    two f32 reductions as the library), then its f32 form, each with the
@@ -2964,10 +2969,28 @@ CONV_IR50 = (((128, 112, 112, 3), 64, 28), ((128, 14, 14, 256), 256, 14),
 # source edits of csrc/conv3x3.cu and csrc/dot_probe.cu, each of which the
 # checks must reject (vlsfr_tpu_torch/utils/parity.py: conv_checks, probe_checks)
 CONV_FAULTS = {
-    "reads the bottom halo row one row off": (  # the bf16 kernel's x staging
+    "reads the bottom halo row one row off": (  # the resident bf16 kernel's x staging
         "const int hh = gr0 + hr - 1,", "const int hh = gr0 + hr - 1 + (hr == tr + 1),"),
     "drops the last block in the statistics merge": (
-        "for (int b = 0; b < n_blocks; ++b)", "for (int b = 0; b < n_blocks - 1; ++b)"),
+        "hi = min(n_blocks, lo + r);", "hi = min(n_blocks - 1, lo + r);"),
+    "drops the streamed kernel's last channel chunk": (  # its products skip the chunk
+        "if (st > 0 && c0 + 16 * cb >= C) continue;",
+        "if ((st > 0 && c0 + 16 * cb >= C) || i == n_ch - 1) continue;"),
+    "reads the f32 kernel's tap 5 one pixel off": (
+        "const int toff = (tap / 3) * WP + tap % 3;",
+        "const int toff = (tap / 3) * WP + tap % 3 + (tap == 5);"),
+}
+# each conv fault's case (x shape, dtype, Cout, strip) and a check it must fail
+CONV_FAULT_CASES = {
+    "reads the bottom halo row one row off": (
+        CONV_F32_SHAPE, torch.bfloat16, 64, CONV_STRIP, "y elements more than one"),
+    "drops the last block in the statistics merge": (
+        CONV_F32_SHAPE, torch.bfloat16, 64, CONV_STRIP, "Σ² per channel"),
+    "drops the streamed kernel's last channel chunk": (
+        CONV_IR50[1][0], torch.bfloat16, CONV_IR50[1][1], CONV_IR50[1][2],
+        "y elements more than one"),
+    "reads the f32 kernel's tap 5 one pixel off": (
+        CONV_F32_SHAPE, torch.float32, 64, CONV_STRIP, "y"),
 }
 PROBE_FAULTS = {
     "skips the last tile": ("const int n_chunks = (t_hi - t_lo) * chunks_per_tile;",
@@ -3041,18 +3064,20 @@ def conv_parity_phase(tmp: str) -> dict:
         torch.cuda.empty_cache()
     print(f"  f32 {CONV_F32_SHAPE}, strip {CONV_STRIP}:")
     errs["conv3x3[f32]"] = conv_parity(*conv_case(CONV_F32_SHAPE, torch.float32, seed=34))["y"]
-    print("  planted faults (conv3x3.cu copies built at the start of this phase), at "
-          f"bf16 {CONV_F32_SHAPE}:")
-    x, w = conv_case(CONV_F32_SHAPE, torch.bfloat16, seed=35)
-    y_p, st_p = tconv.conv3x3_plain(x, w, with_stats=True)
-    for name, must in (("reads the bottom halo row one row off", "y elements more than one"),
-                       ("drops the last block in the statistics merge", "Σ² per channel")):
+    print("  planted faults (conv3x3.cu copies built at the start of this phase):")
+    for name, (shape, dtype, cout, strip, must) in CONV_FAULT_CASES.items():
+        x, w = conv_case(shape, dtype, seed=35, cout=cout)
+        y_p, st_p = tconv.conv3x3_plain(x, w, with_stats=True)
         with planted("conv3x3", name, procs[name]):
-            y, st = tconv.conv3x3(x, w, strip=CONV_STRIP, with_stats=True)
+            y, st = tconv.conv3x3(x, w, strip=strip, with_stats=True)
         failed = parity.failures(parity.conv_checks(y, y_p, st, st_p))
-        print(f"    {name}: fails " + "; ".join(parity.describe(c) for c in failed))
+        print(f"    {name} ({str(dtype)[6:]} {shape} -> {cout}): fails "
+              + "; ".join(parity.describe(c) for c in failed))
         if not any(c["name"].startswith(must) for c in failed):
             raise RuntimeError(f"the conv checks pass a conv3x3.cu that {name}")
+        del x, w, y, st, y_p, st_p
+        gc.collect()
+        torch.cuda.empty_cache()
     return errs
 
 

@@ -1844,14 +1844,19 @@ def test_twin_checks_reject_planted_faults(tmp_path, monkeypatch):
 # (limits in utils/parity.py: conv_checks, probe_checks)
 # ----------------------------------------------------------------------
 
-# (x shape, Cout, strip): C of 3 to 512 (3: padded to 8 channels; 256 and
-# 512: the weight slice streamed, at 28 in groups of rows and a short last
-# group), H and W off the 128-pixel tile, Cout a multiple of 64, not one,
-# and not a multiple of 8
+# (x shape, Cout, strip): C of 3 to 512 (3: padded to 8 channels in bf16,
+# to 4 in f32; 200, 256 and 512: the bf16 weight slice streamed, 200 at
+# every W and not a multiple of 16), H and W off the tiles (the streamed
+# kernel's 128 pixels, the f32 kernel's 256: B·H·W a multiple of neither,
+# tiles spanning images, W = 14, 22, 28, 7), Cout a multiple of 64, not
+# one, not a multiple of the streamed kernel's 128 (72, 136, 200) and not a
+# multiple of 8; C = 12 leaves the f32 kernel's second 8-channel chunk half
+# empty
 CONV_CASES = [((2, 8, 8, 8), 8, 4), ((2, 12, 20, 24), 40, 6), ((3, 28, 28, 64), 72, 14),
               ((2, 30, 26, 64), 64, 10), ((2, 18, 22, 128), 128, 6), ((1, 14, 30, 128), 96, 14),
               ((1, 8, 9, 16), 27, 8), ((2, 16, 12, 3), 64, 8), ((2, 14, 14, 256), 64, 14),
-              ((1, 28, 28, 256), 64, 28), ((1, 14, 14, 512), 72, 14)]
+              ((1, 28, 28, 256), 64, 28), ((1, 14, 14, 512), 72, 14), ((3, 14, 14, 200), 200, 14),
+              ((2, 10, 22, 256), 136, 10), ((2, 16, 20, 200), 72, 8), ((1, 10, 7, 12), 20, 10)]
 
 
 @pytest.mark.gpu
@@ -1882,43 +1887,176 @@ def test_conv3x3_kernel_matches_plain(dtype, mode, shape, cout, strip):
 
 # source edits of conv3x3.cu that the conv checks must reject
 CONV_FAULTS = {
-    # the bf16 kernel reads the bottom halo row one row off
+    # the resident bf16 kernel reads the bottom halo row one row off
     "halo_row_off": ("const int hh = gr0 + hr - 1,",
                      "const int hh = gr0 + hr - 1 + (hr == tr + 1),"),
     # the statistics merge drops the last block's partial
-    "merge_drops_last_block": ("for (int b = 0; b < n_blocks; ++b)",
-                               "for (int b = 0; b < n_blocks - 1; ++b)"),
+    "merge_drops_last_block": ("hi = min(n_blocks, lo + r);",
+                               "hi = min(n_blocks - 1, lo + r);"),
+    # the streamed bf16 kernel's consumers drop the last channel chunk
+    "stream_drops_last_chunk": ("if (st > 0 && c0 + 16 * cb >= C) continue;",
+                                "if ((st > 0 && c0 + 16 * cb >= C) || i == n_ch - 1) continue;"),
+    # the f32 kernel reads tap 5 (dy = 1, dx = 2) one pixel to the right
+    "f32_tap_dx_off": ("const int toff = (tap / 3) * WP + tap % 3;",
+                       "const int toff = (tap / 3) * WP + tap % 3 + (tap == 5);"),
+}
+# each fault's case (dtype, x shape, Cout, strip) and a check it must fail:
+# the resident kernel's at C = 64, the streamed kernel's at C = 256
+CONV_FAULT_CASES = {
+    "halo_row_off": (torch.bfloat16, (2, 28, 28, 64), 64, 14, "y elements more than one"),
+    "merge_drops_last_block": (torch.bfloat16, (2, 28, 28, 64), 64, 14, "Σ² per channel"),
+    "stream_drops_last_chunk": (torch.bfloat16, (2, 14, 14, 256), 256, 14,
+                                "y elements more than one"),
+    "f32_tap_dx_off": (torch.float32, (2, 28, 28, 64), 64, 14, "y"),
 }
 
 
 @pytest.mark.gpu
 def test_conv_checks_reject_planted_faults(tmp_path, monkeypatch):
-    """``parity.conv_checks`` pass the real bf16 conv3x3 kernel with
-    statistics at [2, 28, 28, 64], strip 14, and fail a conv3x3.cu that
-    reads the bottom halo row one row off (y) and one whose statistics
-    merge drops the last block (Σ²)."""
+    """``parity.conv_checks`` pass the real conv3x3 kernels with statistics
+    at each fault's case, and fail a conv3x3.cu that reads the resident
+    kernel's bottom halo row one row off (y, at C = 64), one whose
+    statistics merge drops the last block (Σ²), one whose streamed kernel
+    drops its last channel chunk (y, at C = 256) and one whose f32 kernel
+    reads one tap one pixel off (y)."""
     from vlsfr_tpu_torch.ops import conv3x3 as tconv
     from vlsfr_tpu_torch.ops import cuda_build
 
     dev = _cuda()
     libs = _build_faulty(tmp_path, CONV_FAULTS, source="conv3x3")
-    rng = np.random.default_rng(6)
-    x = torch.from_numpy(rng.standard_normal((2, 28, 28, 64)).astype(np.float32)).to(dev,
-                                                                                    torch.bfloat16)
-    w = torch.from_numpy((rng.standard_normal((3, 3, 64, 64)) * 0.045).astype(np.float32)).to(dev)
-    y_p, st_p = tconv.conv3x3_plain(x, w, with_stats=True)
+    cases = {}
+    for name, (dtype, shape, cout, strip, _) in CONV_FAULT_CASES.items():
+        if (dtype, shape) not in cases:
+            rng = np.random.default_rng(6)
+            x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+            w = torch.from_numpy((rng.standard_normal((3, 3, shape[-1], cout)) * 0.045)
+                                 .astype(np.float32)).to(dev)
+            cases[dtype, shape] = (x, w, strip, *tconv.conv3x3_plain(x, w, with_stats=True))
     failed = {}
     for name, lib in libs.items():
         monkeypatch.setitem(cuda_build._LOADED, "conv3x3", lib)
-        y, st = tconv.conv3x3(x, w, strip=14, with_stats=True)
-        torch.cuda.synchronize()
-        checks = parity.conv_checks(y, y_p, st, st_p)
-        for c in checks:
-            print(name, parity.describe(c))
-        failed[name] = [c["name"] for c in parity.failures(checks)]
+        for (dtype, shape), (x, w, strip, y_p, st_p) in cases.items():
+            if name != "real" and CONV_FAULT_CASES[name][:2] != (dtype, shape):
+                continue
+            y, st = tconv.conv3x3(x, w, strip=strip, with_stats=True)
+            torch.cuda.synchronize()
+            checks = parity.conv_checks(y, y_p, st, st_p)
+            for c in checks:
+                print(name, shape, parity.describe(c))
+            failed.setdefault(name, []).extend(c["name"] for c in parity.failures(checks))
     assert failed["real"] == []
-    assert any(n.startswith("y elements more than one") for n in failed["halo_row_off"])
-    assert any(n.startswith("Σ² per channel") for n in failed["merge_drops_last_block"])
+    for name, (*_, must) in CONV_FAULT_CASES.items():
+        assert any(n.startswith(must) for n in failed[name]), name
+
+
+@pytest.mark.parametrize("faults", ["CONV_FAULTS", "chip_smoke.CONV_FAULTS"])
+def test_planted_conv_faults_edit_the_kernel_source(faults):
+    """Each planted fault of conv3x3.cu (this file's and chip_smoke.py's) is
+    a source edit whose old text matches the source exactly once, so that
+    the copy a ``gpu`` test or chip_smoke.py builds differs from the kernel
+    where its name says; this file's faults each have a case."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    table = _chip_smoke().CONV_FAULTS if faults.startswith("chip_smoke.") else CONV_FAULTS
+    src = (cuda_build.CSRC / "conv3x3.cu").read_text()
+    for name, (old, new) in table.items():
+        assert src.count(old) == 1 and old != new, name
+    assert set(CONV_FAULT_CASES) == set(CONV_FAULTS)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _conv_geometry_cases():
+    """(dtype, x shape, Cout, strip) of every conv a test, the bench or
+    chip_smoke.py runs: the bench's shapes (bf16, and f32 at the first),
+    ir50's widths and CONV_CASES in both types."""
+    from vlsfr_tpu_torch.tools import bench_conv
+
+    smoke = _chip_smoke()
+    cases = [(torch.bfloat16, s, s[-1], 28) for s in bench_conv.SHAPES]
+    cases.append((torch.float32, smoke.CONV_F32_SHAPE, smoke.CONV_F32_SHAPE[-1], 28))
+    cases += [(torch.bfloat16, s, cout, strip) for s, cout, strip in smoke.CONV_IR50]
+    cases += [(dt, s, cout, strip) for s, cout, strip in CONV_CASES
+              for dt in (torch.float32, torch.bfloat16)]
+    return cases
+
+
+N_GEOMETRY_CASES = 3 + 1 + 3 + 2 * len(CONV_CASES)  # _conv_geometry_cases()
+
+
+@pytest.mark.parametrize("case", range(N_GEOMETRY_CASES))
+def test_conv_geometry_covers_the_output_once(case):
+    """``conv3x3.conv_geometry`` (twin of conv3x3.cu's): its grid covers
+    every (image, pixel, output channel) exactly once — the resident
+    kernel's (image, strip) blocks × 64 channels, the streamed (128 pixels ×
+    128 channels) and f32 (256 × 64) kernels' tiles in order over all
+    B·H·W, only the last tile ragged — every tile's halo within the
+    virtual rows the stages hold, the partials one per grid row (what the
+    wrapper allocates, the kernels write by blockIdx.x and the merge
+    reads), the shared memory within a block's 232,448 bytes, w's row
+    stride a whole number of 16-byte pieces outside the resident kernel;
+    C = 200, 256 and 512 stream in bf16, the bench's shapes stay resident."""
+    from vlsfr_tpu_torch.ops import conv3x3 as tconv
+
+    cases = _conv_geometry_cases()
+    assert len(cases) == N_GEOMETRY_CASES
+    dtype, (b, h, w, c), cout, strip = cases[case]
+    piece = 8 if dtype == torch.bfloat16 else 4
+    c = -(-c // piece) * piece  # the wrapper's channel padding
+    geo = tconv.conv_geometry(dtype == torch.bfloat16, b, h, w, c, cout, strip)
+    gx, gy = geo.grid
+    tile_co = {"resident": tconv._BN, "streamed": tconv._S_BN, "f32": tconv._F_BN}[geo.kind]
+    assert geo.n_parts == gx and 0 < geo.smem <= 232448
+    assert (gy - 1) * tile_co < cout <= gy * tile_co
+    if geo.kind == "resident":
+        assert dtype == torch.bfloat16 and c <= 144 and geo.wld == cout
+        assert gx == b * (h // strip) and geo.plan[0] > 0  # (image, strip) pairs, rows a group
+        return
+    assert geo.kind == ("streamed" if dtype == torch.bfloat16 else "f32")
+    assert geo.wld % 8 == 0 and cout <= geo.wld < cout + 8
+    npx, px = b * h * w, (tconv._S_BM if geo.kind == "streamed" else tconv._F_BM)
+    assert (gx - 1) * px < npx <= gx * px
+    covered = np.zeros(npx, np.int64)
+    for t in range(gx):
+        p0, p1 = t * px, min((t + 1) * px, npx) - 1
+        covered[p0:p1 + 1] += 1
+        first = (p0 // (h * w)) * (h + 2) + (p0 % (h * w)) // w
+        last = (p1 // (h * w)) * (h + 2) + (p1 % (h * w)) // w + 2
+        assert last - first + 1 <= geo.plan[-1]  # the halo's virtual rows
+    assert (covered == 1).all()
+    if c in (200, 256, 512):
+        assert geo.kind == "streamed" or dtype == torch.float32
+
+
+@pytest.mark.gpu
+def test_conv_geometry_matches_the_kernel():
+    """conv3x3.cu's own geometry (``conv3x3_geometry``) equals
+    ``conv_geometry``'s at every case of
+    ``test_conv_geometry_covers_the_output_once``: kernel, grid, shared
+    memory, partials, w's row stride and plan."""
+    import ctypes
+
+    from vlsfr_tpu_torch.ops import conv3x3 as tconv
+
+    _cuda()
+    lib = tconv._lib()
+    for dtype, (b, h, w, c), cout, strip in _conv_geometry_cases():
+        piece = 8 if dtype == torch.bfloat16 else 4
+        c = -(-c // piece) * piece
+        geo = tconv.conv_geometry(dtype == torch.bfloat16, b, h, w, c, cout, strip)
+        out = (ctypes.c_int * 9)()
+        assert lib.conv3x3_geometry(int(dtype == torch.bfloat16), b, h, w, c, cout, strip, out) == 0
+        want = [tconv.KINDS.index(geo.kind), *geo.grid, geo.smem, geo.n_parts, geo.wld, *geo.plan]
+        assert list(out)[:len(want)] == want, (dtype, (b, h, w, c), cout)
 
 
 @pytest.mark.gpu
@@ -1993,6 +2131,25 @@ def test_margin_bwd_variants_edit_the_kernel_source():
             for fname, old, new in edits:
                 assert (cuda_build.CSRC / fname).read_text().count(old) == 1 and old != new, name
             assert edited_sources(edits) != edited_sources([]), name
+
+
+def test_conv_variants_edit_the_kernel_source():
+    """The conv's timing tool (``tools/conv_variants.py``) builds copies of
+    ``csrc/conv3x3.cu`` with one phase of the streamed bf16 kernel or of the
+    f32 kernel left out: each of its edits matches the source exactly once,
+    so that every copy it times differs from the kernel where its name
+    says, and no edit touches the resident kernel (its case is the
+    control)."""
+    from vlsfr_tpu_torch.ops import cuda_build
+    from vlsfr_tpu_torch.tools.conv_variants import VARIANTS, edited_source
+
+    src = (cuda_build.CSRC / "conv3x3.cu").read_text()
+    start = src.index("conv3x3_bf16_kernel(const")
+    resident = src[start:src.index("\n}\n", start)]
+    for name, edits in VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new and old not in resident, name
+        assert edited_source(edits) != src, name
 
 
 def test_quad_bwd_variants_edit_the_kernel_source():
