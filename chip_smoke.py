@@ -246,37 +246,39 @@ classes, bf16 momentum, fused SGD; the JAX bench suite's row):
 The last two TPU kernels, on the paths of their JAX tools (no trainer
 calls either, in JAX or here):
 33. conv parity — ``conv3x3`` (``csrc/conv3x3.cu``; bf16 on the tensor
-   cores: ``mma.sync`` where the weight slice stays resident, ``wgmma``
-   where it streams (C = 256, 512); f32 on the FMA units) at
-   tools/bench_conv.py's
+   cores: ``mma.sync`` where the weight slice stays resident and for the
+   stem (C < 8, x read at its own C), ``wgmma`` where it streams (C = 256,
+   512); f32 on the FMA units) at tools/bench_conv.py's
    bf16 shapes [128, 56, 56, 64], [128, 112, 112, 64], [128, 28, 28, 128],
    both modes at strip 28, with and without the statistics epilogue, ir50's
    stem [128, 112, 112, 3] -> 64 (strip 28) and C = 256 -> 256 and 512 ->
    512 at [128, 14, 14] (strip 14), and the f32 form at [128, 56, 56, 64],
-   against ``conv3x3_plain``
+   each case printing the kernel it ran, against ``conv3x3_plain``
    (``parity.conv_checks``: bf16 y within one bf16 spacing plus the f32
    limit, at most 2e-3 of the elements apart; f32 y 2e-5 × max|y|; Σ and
    Σ² 1e-5 of Σ|y| and Σy² per channel), cuDNN's distance printed beside;
    copies of conv3x3.cu that read the resident kernel's bottom halo row
    one row off and that drop the last block of the statistics merge (at
    bf16 [128, 56, 56, 64]), whose streamed kernel drops its last channel
-   chunk (at C = 256) and whose f32 kernel reads one tap one pixel off
-   must fail;
+   chunk (at C = 256), whose f32 kernel reads one tap one pixel off and
+   whose stem kernel reads one tap one pixel off (at the stem) must fail;
 34. conv timing — ``vlsfr_tpu_torch.tools.bench_conv.run`` (both modes over
    the strips dividing H, the statistics at 28 and 56, cuDNN and cuDNN +
    two f32 reductions as the library), then its f32 form, each with the
    counters set to 0 before and read after; the plain version's time and
    the bound per shape (bytes at 3.35 TB/s against the FLOP at 989 TFLOP/s
    bf16 or 67 f32); the kernels line takes [128, 56, 56, 64], taps9, strip
-   28; then ir50's stem and C = 256 / 512 shapes (both modes, cuDNN, plain,
-   bound);
+   28; then ir50's stem and C = 256 / 512 shapes (the kernel each ran,
+   both modes, with statistics, cuDNN, plain, bound);
 35. the probe — ``vlsfr_tpu_torch.tools.probe_int8_mxu`` at B, D, T, NT =
-   128, 512, 1024, 512: each form (``csrc/dot_probe.cu``, mma.sync) against
-   its plain version (int8 bit for bit, the plain int8 against the exact
-   sum; bf16 forms 1e-5 × Σ|a·w|), a copy that skips the last tile must
-   fail, then the tool's ``run`` (its exact int8 check, kernel and library
-   times) with the counters set to 0 before and read after; plain times and
-   bounds (int8 at 1,979 TOP/s, bf16 at 989, against the bytes of w);
+   128, 512, 1024, 512: each form (``csrc/dot_probe.cu``: a resident, w
+   through a TMA ring, ``wgmma``) against its plain version (int8 bit for
+   bit, the plain int8 against the exact sum; bf16 forms 1e-5 × Σ|a·w|),
+   copies that skip the last tile (int8) and that widen i8st's int8 with
+   the sign bit flipped must fail, then the tool's ``run`` (its exact int8
+   check, kernel and library times) with the counters set to 0 before and
+   read after; plain times and bounds (int8 at 1,979 TOP/s, bf16 at 989,
+   against the bytes of w);
 then the ``kernels`` JSON line (44 entries: the ten f32 kernels, the
 twelve quad forms, the twin kernels in f32 and bf16, the eight bf16 forms
 of the margin_ce kernels, ``conv3x3``, ``conv3x3[stats]``,
@@ -2961,7 +2963,7 @@ def bf16_sharded_phase(card: str, tmp: str) -> dict:
 CONV_STRIP = 28  # conv3x3_pallas's default strip; it divides every bench shape's H
 CONV_F32_SHAPE = (128, 56, 56, 64)  # the f32 form: the bench's first shape
 # ir50's widths outside the bench (x shape, Cout, strip), bf16: the stem (C =
-# 3, padded to 8 channels by the wrapper) and C = 256 / 512 at 14² (their
+# 3, the stem kernel, x read at its own C) and C = 256 / 512 at 14² (their
 # weight slices streamed; ir50 runs 512 at 7², which no even strip divides,
 # in JAX's contract as here)
 CONV_IR50 = (((128, 112, 112, 3), 64, 28), ((128, 14, 14, 256), 256, 14),
@@ -2979,6 +2981,9 @@ CONV_FAULTS = {
     "reads the f32 kernel's tap 5 one pixel off": (
         "const int toff = (tap / 3) * WP + tap % 3;",
         "const int toff = (tap / 3) * WP + tap % 3 + (tap == 5);"),
+    "reads the stem kernel's tap 5 one pixel off": (  # its K table
+        "const int dy = tap / 3 - 1, dx = tap % 3 - 1;",
+        "const int dy = tap / 3 - 1, dx = tap % 3 - 1 + (tap == 5);"),
 }
 # each conv fault's case (x shape, dtype, Cout, strip) and a check it must fail
 CONV_FAULT_CASES = {
@@ -2991,11 +2996,20 @@ CONV_FAULT_CASES = {
         "y elements more than one"),
     "reads the f32 kernel's tap 5 one pixel off": (
         CONV_F32_SHAPE, torch.float32, 64, CONV_STRIP, "y"),
+    "reads the stem kernel's tap 5 one pixel off": (
+        CONV_IR50[0][0], torch.bfloat16, CONV_IR50[0][1], CONV_IR50[0][2],
+        "y elements more than one"),
 }
 PROBE_FAULTS = {
-    "skips the last tile": ("const int n_chunks = (t_hi - t_lo) * chunks_per_tile;",
-                            "const int n_chunks = (t_hi - t_lo - (t_hi == NT)) * chunks_per_tile;"),
+    "skips the last tile": (  # the last split's chunk count, its producer's and consumers'
+        "const int n = (int)(n_q * (s + 1) / splits - q_lo);",
+        "const int n = (int)(n_q * (s + 1) / splits - q_lo - (s == splits - 1 ? kpc : 0));"),
+    "widens i8st's int8 with the sign bit flipped": (
+        "for (int q = 0; q < 4; ++q) widen4(v[q], lo[q], hi[q]);",
+        "for (int q = 0; q < 4; ++q) widen4(v[q] ^ 0x80808080u, lo[q], hi[q]);"),
 }
+PROBE_FAULT_KINDS = {"skips the last tile": "int8",
+                     "widens i8st's int8 with the sign bit flipped": "i8st_bf16dot"}
 
 
 def conv_case(shape, dtype, seed: int, cout: int | None = None):
@@ -3008,6 +3022,15 @@ def conv_case(shape, dtype, seed: int, cout: int | None = None):
     return x, wt
 
 
+def conv_kind(x, w, strip: int) -> str:
+    """The conv3x3.cu kernel ``conv3x3`` launches for (x, w) (``KINDS``)."""
+    from vlsfr_tpu_torch.ops import conv3x3 as tconv
+
+    b, h, wd, c = x.shape
+    return tconv.conv_geometry(x.dtype == torch.bfloat16, b, h, wd,
+                               tconv.kernel_channels(x.dtype, c), w.shape[-1], strip).kind
+
+
 def conv_parity(x, w, strip: int = CONV_STRIP) -> dict:
     """Both modes at ``strip``, with and without statistics, against
     conv3x3_plain (``parity.conv_checks``, limits there; raises above one),
@@ -3018,6 +3041,7 @@ def conv_parity(x, w, strip: int = CONV_STRIP) -> dict:
 
     y_p, st_p = tconv.conv3x3_plain(x, w, with_stats=True)
     lib = tconv.conv3x3_library(x, w).float()
+    print(f"  kernel: {conv_kind(x, w, strip)}")
     out = {"y": 0.0, "stats": 0.0}
     for mode in tconv.MODES:
         y = tconv.conv3x3(x, w, mode=mode, strip=strip)
@@ -3071,7 +3095,7 @@ def conv_parity_phase(tmp: str) -> dict:
         with planted("conv3x3", name, procs[name]):
             y, st = tconv.conv3x3(x, w, strip=strip, with_stats=True)
         failed = parity.failures(parity.conv_checks(y, y_p, st, st_p))
-        print(f"    {name} ({str(dtype)[6:]} {shape} -> {cout}): fails "
+        print(f"    {name} ({str(dtype)[6:]} {shape} -> {cout}, {conv_kind(x, w, strip)}): fails "
               + "; ".join(parity.describe(c) for c in failed))
         if not any(c["name"].startswith(must) for c in failed):
             raise RuntimeError(f"the conv checks pass a conv3x3.cu that {name}")
@@ -3144,8 +3168,10 @@ def conv_timing_phase() -> tuple[dict, dict]:
         v = conv_bound(shape, torch.bfloat16, False, cout)
         ms = {mode: cuda_ms(lambda m=mode: tconv.conv3x3(x, w, mode=m, strip=strip), 10)
               for mode in tconv.MODES}
-        print(f"    {list(shape)} -> {cout} strip={strip}: ms taps9={ms['taps9']:.3f} im2col="
-              f"{ms['im2col']:.3f} ({v['flop'] / ms['taps9'] / 1e9:.1f} TFLOP/s) library_ms="
+        ms_st = cuda_ms(lambda: tconv.conv3x3(x, w, strip=strip, with_stats=True), 10)
+        print(f"    {list(shape)} -> {cout} strip={strip} ({conv_kind(x, w, strip)}): ms "
+              f"taps9={ms['taps9']:.4f} +stats={ms_st:.4f} im2col="
+              f"{ms['im2col']:.4f} ({v['flop'] / ms['taps9'] / 1e9:.1f} TFLOP/s) library_ms="
               f"{cuda_ms(lambda: tconv.conv3x3_library(x, w), 10):.3f} plain_ms="
               f"{cuda_ms(lambda: tconv.conv3x3_plain(x, w), 3, 1):.3f} bound_ms="
               f"{v['bound_ms']:.4f} ({v['bound_by']})")
@@ -3191,13 +3217,15 @@ def probe_phase(tmp: str) -> tuple[dict, dict, dict]:
         report(checks, f"the {kind} probe")
         errs[f"probe_{kind}"] = float((got.double() - want.double()).abs().max())
         plain_ms[kind] = cuda_ms(lambda: tprobe.probe_dot_plain(kind, a, w), 2, 1)
-    a, w = inputs["int8"]
-    want = tprobe.probe_dot_plain("int8", a, w)
     for name, proc_and_path in procs.items():
+        kind = PROBE_FAULT_KINDS[name]
+        a, w = inputs[kind]
+        want = tprobe.probe_dot_plain(kind, a, w)
         with planted("dot_probe", name, proc_and_path):
-            got = tprobe.probe_dot("int8", a, w)
-        failed = parity.failures(parity.probe_checks("int8", got, want, a, w))
-        print(f"  planted fault ({name}): fails " + "; ".join(map(parity.describe, failed)))
+            got = tprobe.probe_dot(kind, a, w)
+        failed = parity.failures(parity.probe_checks(kind, got, want, a, w))
+        print(f"  planted fault ({name}, {kind}): fails "
+              + "; ".join(map(parity.describe, failed)))
         if not failed:
             raise RuntimeError(f"the probe checks pass a dot_probe.cu that {name}")
     del inputs, a, w, got, want

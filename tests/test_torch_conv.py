@@ -91,11 +91,14 @@ def test_bf16_within_one_spacing_of_pallas(mode):
 
 
 @pytest.mark.parametrize("mode", ["taps9", "im2col"])
-@pytest.mark.parametrize("shape,cout", [((1, 8, 8, 3), 16), ((1, 4, 4, 256), 64)])
+@pytest.mark.parametrize("shape,cout", [((1, 8, 8, 3), 16), ((1, 4, 4, 256), 64),
+                                        ((1, 8, 8, 1), 16), ((2, 8, 12, 5), 20),
+                                        ((1, 8, 8, 7), 72)])
 def test_bf16_c3_and_c256_within_one_spacing_of_pallas(mode, shape, cout):
-    """The channel counts the bf16 kernel pads (C = 3: ir50's stem) and
-    streams (C = 256): the plain version within one bf16 spacing of JAX's
-    conv3x3_pallas, straddles few."""
+    """The channel counts the stem kernel takes at their own C (C = 1, 3:
+    ir50's stem, 5, 7) and the bf16 kernel streams (C = 256): the plain
+    version within one bf16 spacing of JAX's conv3x3_pallas, straddles
+    few."""
     x, w = inputs(9, shape, cout)
     want = np.asarray(conv3x3_pallas(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), mode=mode,
                                      strip=4, interpret=True), np.float32)

@@ -1844,19 +1844,22 @@ def test_twin_checks_reject_planted_faults(tmp_path, monkeypatch):
 # (limits in utils/parity.py: conv_checks, probe_checks)
 # ----------------------------------------------------------------------
 
-# (x shape, Cout, strip): C of 3 to 512 (3: padded to 8 channels in bf16,
-# to 4 in f32; 200, 256 and 512: the bf16 weight slice streamed, 200 at
-# every W and not a multiple of 16), H and W off the tiles (the streamed
-# kernel's 128 pixels, the f32 kernel's 256: B·H·W a multiple of neither,
-# tiles spanning images, W = 14, 22, 28, 7), Cout a multiple of 64, not
-# one, not a multiple of the streamed kernel's 128 (72, 136, 200) and not a
-# multiple of 8; C = 12 leaves the f32 kernel's second 8-channel chunk half
-# empty
+# (x shape, Cout, strip): C of 1 to 512 (1-7: the bf16 stem kernel, x at
+# its own C, padded to 4 in f32; 200, 256 and 512: the bf16 weight slice
+# streamed, 200 at every W and not a multiple of 16), H and W off the tiles
+# (the stem's and the streamed kernel's 128 pixels, the f32 kernel's 256:
+# B·H·W a multiple of none, tiles spanning images, W = 14, 22, 28, 7, 13),
+# Cout a multiple of 64, not one, not a multiple of the streamed kernel's
+# 128 (72, 136, 200) and not a multiple of 8; C = 12 leaves the f32
+# kernel's second 8-channel chunk half empty; the stem at W = 112 (ir50's
+# width), Cout 64, 20, 72 (two channel slices) and 27
 CONV_CASES = [((2, 8, 8, 8), 8, 4), ((2, 12, 20, 24), 40, 6), ((3, 28, 28, 64), 72, 14),
               ((2, 30, 26, 64), 64, 10), ((2, 18, 22, 128), 128, 6), ((1, 14, 30, 128), 96, 14),
               ((1, 8, 9, 16), 27, 8), ((2, 16, 12, 3), 64, 8), ((2, 14, 14, 256), 64, 14),
               ((1, 28, 28, 256), 64, 28), ((1, 14, 14, 512), 72, 14), ((3, 14, 14, 200), 200, 14),
-              ((2, 10, 22, 256), 136, 10), ((2, 16, 20, 200), 72, 8), ((1, 10, 7, 12), 20, 10)]
+              ((2, 10, 22, 256), 136, 10), ((2, 16, 20, 200), 72, 8), ((1, 10, 7, 12), 20, 10),
+              ((2, 16, 112, 3), 64, 8), ((3, 10, 13, 5), 20, 10), ((1, 12, 9, 7), 72, 6),
+              ((2, 8, 12, 1), 27, 4)]
 
 
 @pytest.mark.gpu
@@ -1872,6 +1875,9 @@ def test_conv3x3_kernel_matches_plain(dtype, mode, shape, cout, strip):
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
     w = torch.from_numpy((rng.standard_normal((3, 3, shape[-1], cout)) * 0.1)
                          .astype(np.float32)).to(dev)
+    geo = tconv.conv_geometry(dtype == torch.bfloat16, *shape[:3],
+                              tconv.kernel_channels(dtype, shape[-1]), cout, strip)
+    assert (geo.kind == "stem") == (dtype == torch.bfloat16 and shape[-1] < 8)
     tconv.reset_launch_counts()
     y, stats = tconv.conv3x3(x, w, mode=mode, strip=strip, with_stats=True)
     y0 = tconv.conv3x3(x, w, mode=mode, strip=strip)
@@ -1899,15 +1905,20 @@ CONV_FAULTS = {
     # the f32 kernel reads tap 5 (dy = 1, dx = 2) one pixel to the right
     "f32_tap_dx_off": ("const int toff = (tap / 3) * WP + tap % 3;",
                        "const int toff = (tap / 3) * WP + tap % 3 + (tap == 5);"),
+    # the stem kernel's K table reads tap 5 one pixel to the right
+    "stem_tap_dx_off": ("const int dy = tap / 3 - 1, dx = tap % 3 - 1;",
+                        "const int dy = tap / 3 - 1, dx = tap % 3 - 1 + (tap == 5);"),
 }
 # each fault's case (dtype, x shape, Cout, strip) and a check it must fail:
-# the resident kernel's at C = 64, the streamed kernel's at C = 256
+# the resident kernel's at C = 64, the streamed kernel's at C = 256, the
+# stem's at C = 3, W = 112
 CONV_FAULT_CASES = {
     "halo_row_off": (torch.bfloat16, (2, 28, 28, 64), 64, 14, "y elements more than one"),
     "merge_drops_last_block": (torch.bfloat16, (2, 28, 28, 64), 64, 14, "Σ² per channel"),
     "stream_drops_last_chunk": (torch.bfloat16, (2, 14, 14, 256), 256, 14,
                                 "y elements more than one"),
     "f32_tap_dx_off": (torch.float32, (2, 28, 28, 64), 64, 14, "y"),
+    "stem_tap_dx_off": (torch.bfloat16, (2, 16, 112, 3), 64, 8, "y elements more than one"),
 }
 
 
@@ -1917,8 +1928,8 @@ def test_conv_checks_reject_planted_faults(tmp_path, monkeypatch):
     at each fault's case, and fail a conv3x3.cu that reads the resident
     kernel's bottom halo row one row off (y, at C = 64), one whose
     statistics merge drops the last block (Σ²), one whose streamed kernel
-    drops its last channel chunk (y, at C = 256) and one whose f32 kernel
-    reads one tap one pixel off (y)."""
+    drops its last channel chunk (y, at C = 256) and ones whose f32 kernel
+    or stem kernel reads one tap one pixel off (y)."""
     from vlsfr_tpu_torch.ops import conv3x3 as tconv
     from vlsfr_tpu_torch.ops import cuda_build
 
@@ -1975,10 +1986,16 @@ def _chip_smoke():
     return module
 
 
+# the stem kernel's geometry at ir50's stem [128, 112, 112, C] for every C
+# it takes, to Cout 64, 20 and 72 (strip 28)
+STEM_GEOMETRY_CASES = [(torch.bfloat16, (128, 112, 112, c), cout, 28)
+                       for c in (1, 3, 5, 7) for cout in (64, 20, 72)]
+
+
 def _conv_geometry_cases():
     """(dtype, x shape, Cout, strip) of every conv a test, the bench or
     chip_smoke.py runs: the bench's shapes (bf16, and f32 at the first),
-    ir50's widths and CONV_CASES in both types."""
+    ir50's widths, CONV_CASES in both types and STEM_GEOMETRY_CASES."""
     from vlsfr_tpu_torch.tools import bench_conv
 
     smoke = _chip_smoke()
@@ -1987,10 +2004,10 @@ def _conv_geometry_cases():
     cases += [(torch.bfloat16, s, cout, strip) for s, cout, strip in smoke.CONV_IR50]
     cases += [(dt, s, cout, strip) for s, cout, strip in CONV_CASES
               for dt in (torch.float32, torch.bfloat16)]
-    return cases
+    return cases + STEM_GEOMETRY_CASES
 
 
-N_GEOMETRY_CASES = 3 + 1 + 3 + 2 * len(CONV_CASES)  # _conv_geometry_cases()
+N_GEOMETRY_CASES = 3 + 1 + 3 + 2 * len(CONV_CASES) + len(STEM_GEOMETRY_CASES)
 
 
 @pytest.mark.parametrize("case", range(N_GEOMETRY_CASES))
@@ -1999,24 +2016,49 @@ def test_conv_geometry_covers_the_output_once(case):
     every (image, pixel, output channel) exactly once — the resident
     kernel's (image, strip) blocks × 64 channels, the streamed (128 pixels ×
     128 channels) and f32 (256 × 64) kernels' tiles in order over all
-    B·H·W, only the last tile ragged — every tile's halo within the
-    virtual rows the stages hold, the partials one per grid row (what the
-    wrapper allocates, the kernels write by blockIdx.x and the merge
-    reads), the shared memory within a block's 232,448 bytes, w's row
-    stride a whole number of 16-byte pieces outside the resident kernel;
-    C = 200, 256 and 512 stream in bf16, the bench's shapes stay resident."""
+    B·H·W, only the last tile ragged, the stem's persistent blocks'
+    contiguous ranges of 128-pixel tiles × 64 channels — every tile's halo
+    within the virtual rows (the stem: the bytes) the stages hold, the
+    partials one per grid row (what the wrapper allocates, the kernels
+    write by blockIdx.x and the merge reads), the shared memory within a
+    block's 232,448 bytes (the stem's within half an SM's, two blocks an
+    SM), w's row stride a whole number of 16-byte pieces outside the
+    resident and stem kernels; bf16 C < 8 takes the stem at its own C (the
+    wrapper's channel padding no longer applies to it), C = 200, 256 and
+    512 stream in bf16, the bench's shapes stay resident."""
     from vlsfr_tpu_torch.ops import conv3x3 as tconv
 
     cases = _conv_geometry_cases()
     assert len(cases) == N_GEOMETRY_CASES
     dtype, (b, h, w, c), cout, strip = cases[case]
-    piece = 8 if dtype == torch.bfloat16 else 4
-    c = -(-c // piece) * piece  # the wrapper's channel padding
+    c = tconv.kernel_channels(dtype, c)
     geo = tconv.conv_geometry(dtype == torch.bfloat16, b, h, w, c, cout, strip)
     gx, gy = geo.grid
-    tile_co = {"resident": tconv._BN, "streamed": tconv._S_BN, "f32": tconv._F_BN}[geo.kind]
+    tile_co = {"resident": tconv._BN, "streamed": tconv._S_BN, "f32": tconv._F_BN,
+               "stem": tconv._ST_BN}[geo.kind]
     assert geo.n_parts == gx and 0 < geo.smem <= 232448
     assert (gy - 1) * tile_co < cout <= gy * tile_co
+    assert (geo.kind == "stem") == (dtype == torch.bfloat16 and c < 8)
+    if geo.kind == "stem":
+        npx, px = b * h * w, tconv._ST_BM
+        n_tiles = -(-npx // px)
+        assert geo.wld == cout and 2 * geo.smem <= 228 * 1024
+        assert gx == min(n_tiles, tconv._ST_BLOCKS // gy) and gx * gy <= tconv._ST_BLOCKS
+        covered = np.zeros(npx, np.int64)
+        for bx in range(gx):  # block bx: tiles [n_tiles bx / gx, n_tiles (bx + 1) / gx)
+            lo, hi = n_tiles * bx // gx, n_tiles * (bx + 1) // gx
+            assert hi > lo
+            for t in range(lo, hi):
+                p0 = t * px
+                covered[p0:min(p0 + px, npx)] += 1
+                # the staged elements: from the piece at pixel p0 - W - 1 to pixel p0 + 128 + W
+                e0 = max(0, p0 - w - 1) * c // 8 * 8
+                e1 = min(npx, p0 + px + w + 1) * c
+                assert 16 * -(-(e1 - e0) // 8) <= geo.plan[0]
+        assert (covered == 1).all()
+        if (b, h, w) == (128, 112, 112):
+            assert geo.grid == (264 // gy, gy)  # every SM two blocks
+        return
     if geo.kind == "resident":
         assert dtype == torch.bfloat16 and c <= 144 and geo.wld == cout
         assert gx == b * (h // strip) and geo.plan[0] > 0  # (image, strip) pairs, rows a group
@@ -2050,8 +2092,7 @@ def test_conv_geometry_matches_the_kernel():
     _cuda()
     lib = tconv._lib()
     for dtype, (b, h, w, c), cout, strip in _conv_geometry_cases():
-        piece = 8 if dtype == torch.bfloat16 else 4
-        c = -(-c // piece) * piece
+        c = tconv.kernel_channels(dtype, c)
         geo = tconv.conv_geometry(dtype == torch.bfloat16, b, h, w, c, cout, strip)
         out = (ctypes.c_int * 9)()
         assert lib.conv3x3_geometry(int(dtype == torch.bfloat16), b, h, w, c, cout, strip, out) == 0
@@ -2059,9 +2100,17 @@ def test_conv_geometry_matches_the_kernel():
         assert list(out)[:len(want)] == want, (dtype, (b, h, w, c), cout)
 
 
+# (B, D, T, NT): the probe's own shapes but NT = 37 (296 or 592 chunks over
+# 33 splits: NT not a multiple of the splits, nor the chunks), B = 1 and 40,
+# T of one 64-column piece, of 5 (a 256-column tile and a masked one) and 2
+# tiles; D = 128-512
+PROBE_CASES = [(16, 128, 128, 4), (128, 512, 256, 37), (40, 256, 64, 1), (128, 512, 1024, 37),
+               (1, 128, 320, 5), (40, 384, 512, 3)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["int8", "bf16", "i8st_bf16dot"])
-@pytest.mark.parametrize("b,d,t,nt", [(16, 128, 128, 4), (128, 512, 256, 37), (40, 256, 64, 1)])
+@pytest.mark.parametrize("b,d,t,nt", PROBE_CASES)
 def test_probe_kernel_matches_plain(kind, b, d, t, nt):
     from vlsfr_tpu_torch.tools import probe_int8_mxu as tprobe
 
@@ -2079,6 +2128,123 @@ def test_probe_kernel_matches_plain(kind, b, d, t, nt):
     for c in checks:
         print(parity.describe(c))
     assert parity.failures(checks) == []
+
+
+# source edits of dot_probe.cu that the probe checks must reject (an (old,
+# new) pair or a tuple of them), each with the form it is run in
+PROBE_FAULTS = {
+    # the last split sums one tile fewer (its producer and consumers alike)
+    "skips_last_tile": ("const int n = (int)(n_q * (s + 1) / splits - q_lo);",
+                        "const int n = (int)(n_q * (s + 1) / splits - q_lo - (s == splits - 1 ? "
+                        "kpc : 0));"),
+    # i8st widens w's int8 with its sign bit flipped (offset binary)
+    "i8st_sign_flipped": ("for (int q = 0; q < 4; ++q) widen4(v[q], lo[q], hi[q]);",
+                          "for (int q = 0; q < 4; ++q) widen4(v[q] ^ 0x80808080u, lo[q], hi[q]);"),
+}
+PROBE_FAULT_KINDS = {"skips_last_tile": "int8", "i8st_sign_flipped": "i8st_bf16dot"}
+
+
+@pytest.mark.gpu
+def test_probe_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """``parity.probe_checks`` pass the real probe kernel in every form at
+    B, D, T, NT = 128, 512, 1024, 37, and fail a dot_probe.cu whose last
+    split skips its last tile (int8) and one whose i8st form widens w with
+    the sign bit flipped."""
+    from vlsfr_tpu_torch.ops import cuda_build
+    from vlsfr_tpu_torch.tools import probe_int8_mxu as tprobe
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, PROBE_FAULTS, source="dot_probe")
+    inputs = tprobe.make_inputs(128, 512, 1024, 37, seed=5, dev=dev)
+    for name, lib in libs.items():
+        monkeypatch.setitem(cuda_build._LOADED, "dot_probe", lib)
+        for kind in (tprobe.KINDS if name == "real" else (PROBE_FAULT_KINDS[name],)):
+            a, w = inputs[kind]
+            checks = parity.probe_checks(kind, tprobe.probe_dot(kind, a, w),
+                                         tprobe.probe_dot_plain(kind, a, w), a, w)
+            torch.cuda.synchronize()
+            for c in checks:
+                print(name, kind, parity.describe(c))
+            assert (parity.failures(checks) == []) == (name == "real"), (name, kind)
+
+
+@pytest.mark.parametrize("faults", ["PROBE_FAULTS", "chip_smoke.PROBE_FAULTS"])
+def test_planted_probe_faults_edit_the_kernel_source(faults):
+    """Each planted fault of dot_probe.cu (this file's and chip_smoke.py's)
+    is a source edit whose old text matches the source exactly once; each
+    has the form it runs in."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    smoke = _chip_smoke()
+    table, kinds = ((smoke.PROBE_FAULTS, smoke.PROBE_FAULT_KINDS) if faults.startswith("chip_")
+                    else (PROBE_FAULTS, PROBE_FAULT_KINDS))
+    src = (cuda_build.CSRC / "dot_probe.cu").read_text()
+    for name, spec in table.items():
+        for old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
+            assert src.count(old) == 1 and old != new, name
+    assert set(kinds) == set(table) and {"int8", "i8st_bf16dot"} <= set(kinds.values())
+
+
+# (kind, B, D, T, NT): the probe's shapes in each form, PROBE_CASES' and a
+# T wider than the SMs' column tiles
+PROBE_GEOMETRY_CASES = ([(k, 128, 512, 1024, 512) for k in ("int8", "bf16", "i8st_bf16dot")]
+                        + [(k, *c) for c in PROBE_CASES for k in ("int8", "i8st_bf16dot")]
+                        + [("bf16", 128, 128, 64 * 700, 2)])
+
+
+@pytest.mark.parametrize("kind,b,d,t,nt", PROBE_GEOMETRY_CASES)
+def test_probe_geometry_covers_the_work_once(kind, b, d, t, nt):
+    """``probe_int8_mxu.probe_geometry`` (twin of dot_probe.cu's): the
+    column tiles cover T once (the last masked), the splits cover the K
+    axis — NT tiles × D in 128-byte chunks — once, in order, one chunk apart
+    at most, so every tile once; a and the ring's stages (32 KB each, 16
+    KB in i8st; at least two) within a block's shared memory; and at the probe's shapes
+    the grid fills the 132 SMs of an H100 with no SM idle."""
+    from vlsfr_tpu_torch.tools import probe_int8_mxu as tprobe
+
+    geo = tprobe.probe_geometry(kind, b, d, t, nt)
+    n_col, splits = geo.grid
+    assert (n_col - 1) * 256 < t <= n_col * 256
+    assert geo.kc * (2 if kind == "bf16" else 1) == 128  # a chunk: 128 bytes of a w row
+    n_q = nt * (d // geo.kc)
+    covered = np.zeros(n_q, np.int64)
+    sizes = []
+    for sp in range(splits):
+        lo, hi = tprobe.split_range(n_q, splits, sp)
+        covered[lo:hi] += 1
+        sizes.append(hi - lo)
+    assert (covered == 1).all() and max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    tiles = np.zeros(nt, np.int64)
+    np.add.at(tiles, np.arange(n_q) // (d // geo.kc), 1)
+    assert (tiles == d // geo.kc).all()  # every tile's chunks, once each
+    a_bytes = 128 * d * (1 if kind == "int8" else 2)
+    stage = (128 if kind == "i8st_bf16dot" else 256) * 128  # w rows a stage x 128 bytes
+    assert geo.nst >= 2 and geo.smem == a_bytes + geo.nst * stage + 1024 + 128
+    assert geo.smem <= 232448 < geo.smem + stage or geo.nst == 8
+    if (b, d, t, nt) == (128, 512, 1024, 512):
+        assert n_col * splits == 132  # no SM idle
+    assert n_col * splits <= max(132, n_col)
+
+
+@pytest.mark.gpu
+def test_probe_geometry_matches_the_kernel():
+    """dot_probe.cu's own geometry (``dot_probe_geometry``) equals
+    ``probe_geometry``'s at every case of
+    ``test_probe_geometry_covers_the_work_once``, on the card's SM count and
+    on 132."""
+    import ctypes
+
+    from vlsfr_tpu_torch.tools import probe_int8_mxu as tprobe
+
+    dev = _cuda()
+    lib = tprobe._lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kind, b, d, t, nt in PROBE_GEOMETRY_CASES:
+        for n_sm in sorted({sms, 132}):
+            geo = tprobe.probe_geometry(kind, b, d, t, nt, n_sm)
+            out = (ctypes.c_int * 5)()
+            assert lib.dot_probe_geometry(tprobe._FORM_CODE[kind], b, d, t, nt, n_sm, out) == 0
+            assert list(out) == [*geo.grid, geo.kc, geo.nst, geo.smem], (kind, b, d, t, nt)
 
 
 def test_conv_and_probe_checks_reject_wrong_outputs():
@@ -2149,6 +2315,24 @@ def test_conv_variants_edit_the_kernel_source():
     for name, edits in VARIANTS.items():
         for old, new in edits:
             assert src.count(old) == 1 and old != new and old not in resident, name
+        assert edited_source(edits) != src, name
+
+
+def test_probe_variants_edit_the_kernel_source():
+    """The probe's timing tool (``tools/probe_variants.py``) builds copies
+    of ``csrc/dot_probe.cu`` with one phase left out (the products, the
+    copies of w, i8st's widening, the partial stores, the merge) or another
+    ring or L2 setting: each of its edits matches the source exactly once,
+    so that every copy it times differs from the kernel where its name
+    says."""
+    from vlsfr_tpu_torch.ops import cuda_build
+    from vlsfr_tpu_torch.tools.probe_variants import VARIANTS, edited_source
+
+    src = (cuda_build.CSRC / "dot_probe.cu").read_text()
+    assert {"no products", "no copies", "no partial stores"} <= set(VARIANTS)
+    for name, edits in VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, name
         assert edited_source(edits) != src, name
 
 

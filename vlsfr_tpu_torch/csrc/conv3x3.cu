@@ -20,7 +20,7 @@
 // 989 TFLOP/s bf16 rate (0.030, 0.030, 0.120 ms); the f32 form at the 67
 // TFLOP/s f32 rate (0.442 ms at [128, 56, 56, 64]).
 //
-// Three kernels, one geometry (conv_geometry: the kernel, its grid, shared
+// Four kernels, one geometry (conv_geometry: the kernel, its grid, shared
 // memory and statistics partials, mirrored by ops/conv3x3.py:
 // conv_geometry). Each is an implicit GEMM: M = output pixels, N = output
 // channels, K = 9 * C. The SAME padding is a zero load: no spatially padded
@@ -120,12 +120,36 @@
 //  * Statistics: a thread's 8 pixels, the 4 lanes of a channel set by xor
 //    shuffles, the 8 warps in order.
 //
-// bf16 C must be a multiple of 8 and f32 C of 4 (16-byte pieces of a
-// pixel's channels: the resident kernel's cp.async, the TMA boxes' rows):
-// the wrapper pads x's (and w's) channel axis with zeros once where it is
-// not (ir50's stem, C = 3), as JAX's wrapper pads x's spatial halo, and the
-// zero channels add nothing to the sums. The streamed and f32 kernels take
-// W <= 254 (a halo row is one TMA box).
+// Stem bf16 (conv3x3_stem_kernel), C < 8 (ir50's stem, C = 3): bound by
+// writing y (205.5 of the 215 MB at [128, 112, 112, 3] -> 64), so x is read
+// at its own C (no padded copy) and K = 9 C real values is padded only to a
+// whole k16 step (27 -> 32), not to 9 x 16.
+//  * ST_BLOCKS = 264 persistent blocks (two an SM), block x a contiguous
+//    range of tiles of ST_BM = 128 output pixels in order over all B * H *
+//    W, block y 64 output channels; the block's weight rows [9 C][64] in
+//    the mode's K order are staged once.
+//  * A tile's halo is one contiguous range of x (pixels p0 - W - 1 .. p0 +
+//    128 + W: W C values a row, 672 bytes at W = 112), staged by 16-byte
+//    cp.async, the next tile's under this tile's work.
+//  * Each pixel's K vector (taps9: k = tap C + c, im2col: k = c 9 + tap;
+//    zeros for the SAME padding, by a mask of the taps inside the image,
+//    and past 9 C) is built into an A tile [128][64 k] in shared memory; 8
+//    warps x 16 pixels x 64 channels on mma.sync m16n8k16, each output one
+//    chain of its 2-4 k16 steps.
+//  * One block barrier a tile (the halo landed; the next halo's copies are
+//    issued right after it). Past it each warp builds, multiplies and
+//    stores its own 16 pixels: y is rounded once into the warp's rows of a
+//    y tile in shared memory and stored in 16-byte pieces of whole pixel
+//    rows (at Cout = 64 a warp's 2 KB of y is one contiguous range). The
+//    statistics are summed over the block's tiles in registers: one
+//    partial a block.
+//
+// bf16 C of 8 or more must be a multiple of 8 and f32 C of 4 (16-byte
+// pieces of a pixel's channels: the resident kernel's cp.async, the TMA
+// boxes' rows): the wrapper pads x's (and w's) channel axis with zeros once
+// where it is not, as JAX's wrapper pads x's spatial halo, and the zero
+// channels add nothing to the sums. The streamed and f32 kernels take W <=
+// 254 (a halo row is one TMA box).
 
 #include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled comes from the runtime: no -lcuda
 #include <cuda_bf16.h>
@@ -139,7 +163,7 @@ namespace {
 constexpr int BN = 64;       // the resident kernel's output channels per block
 constexpr int THREADS = 256;
 constexpr int MODE_TAPS9 = 0, MODE_IM2COL = 1;
-constexpr int KIND_F32 = 0, KIND_RESIDENT = 1, KIND_STREAMED = 2;
+constexpr int KIND_F32 = 0, KIND_RESIDENT = 1, KIND_STREAMED = 2, KIND_STEM = 3;
 
 // ------------------------------------------------------------- bf16 form
 
@@ -752,6 +776,227 @@ __global__ void __launch_bounds__(F_THREADS, 1)
   }
 }
 
+// ------------------------------------------------------ the bf16 stem kernel
+
+constexpr int ST_THREADS = 256;
+constexpr int ST_BM = 128;                   // a tile's output pixels (8 warps x m16)
+constexpr int ST_BN = 64;                    // a block's output channels
+constexpr int ST_KP = 64;                    // K rows the A tile holds: 9 C <= 63, in k16 steps
+constexpr int ST_Y_LD = ST_BN * 2 + 16;      // a y row's bytes in shared memory
+constexpr int ST_BLOCKS = 2 * 132;           // persistent blocks: two on each SM of the H100
+constexpr int ST_RED = 2 * 8 * ST_BN * 4;    // the statistics' reduction [2][8 warps][ST_BN]
+
+// bytes of a halo stage: x's elements from pixel p0 - W - 1 to p0 + ST_BM +
+// W, in 16-byte pieces (the first and last partly outside)
+__host__ __device__ constexpr int stem_halo_bytes(int W, int C) {
+  return ((ST_BM + 2 * W + 2) * C + 15) / 8 * 16;
+}
+
+// the stem kernel's shared memory: the weights [ST_KP][ST_BN], the A tile
+// [ST_BM][ST_KP], the y tile, two halo stages, the K table, the reduction
+__host__ __device__ constexpr int stem_smem(int W, int C) {
+  return ST_KP * ST_BN * 2 + ST_BM * ST_KP * 2 + ST_BM * ST_Y_LD + 2 * stem_halo_bytes(W, C) +
+         ST_KP * 8 + ST_RED;
+}
+
+// K row k of the mode's order: its tap and channel (tap -1 past 9 C)
+template <int MODE>
+__device__ __forceinline__ void stem_k(int k, int C, int& tap, int& c) {
+  tap = -1, c = 0;
+  if (k >= 9 * C) return;
+  if (MODE == MODE_TAPS9)
+    tap = k / C, c = k - tap * C;
+  else
+    c = k / 9, tap = k - c * 9;
+}
+
+// 16 bytes from global src to shared dst, of which the first n come from
+// src and the rest are zeros
+__device__ __forceinline__ void cp_async_cg_n(void* dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+
+// The stem (bf16, C < 8: x read at its own C, no padded copy): persistent
+// blocks over tiles of ST_BM output pixels in order over B * H * W (block
+// x a contiguous range of them) x ST_BN output channels (block y). A tile
+// stages the x its halo spans (pixels p0 - W - 1 .. p0 + ST_BM + W,
+// contiguous in x) by 16-byte cp.async, the next tile's under this tile's
+// work: one block barrier a tile. Past it each warp works alone on its 16
+// pixels: builds their K vectors (9 C values in the mode's order, zeros to
+// a whole k16 step and for the SAME padding) into its rows of the A tile,
+// multiplies them by the 64 channels' weights on mma.sync m16n8k16 (each
+// output one chain of its k16 steps), rounds y once into its rows of the y
+// tile and stores them as 16-byte pieces of whole pixel rows (a warp's 2 KB
+// of y one contiguous range at Cout = 64); the statistics summed over the
+// block's tiles in registers.
+template <int MODE, bool STATS>
+__global__ void __launch_bounds__(ST_THREADS, 2)
+    conv3x3_stem_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                        __nv_bfloat16* __restrict__ y, float* __restrict__ part, int B, int H,
+                        int W, int C, int Cout, int hb) {
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  unsigned char* Ws = conv_smem;                     // [ST_KP][ST_BN], swizzled (8 chunks a row)
+  unsigned char* As = Ws + ST_KP * ST_BN * 2;        // [ST_BM][ST_KP], swizzled
+  unsigned char* Ys = As + ST_BM * ST_KP * 2;        // [ST_BM][ST_Y_LD]
+  unsigned char* Xs = Ys + ST_BM * ST_Y_LD;          // two halo stages of hb bytes
+  int2* kt = reinterpret_cast<int2*>(Xs + 2 * hb);  // [ST_KP]: element offset, tap
+  float* red = reinterpret_cast<float*>(kt + ST_KP);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const long long HW = (long long)H * W, npx = B * HW, n_el = npx * C;
+  const long long n_tiles = (npx + ST_BM - 1) / ST_BM;
+  const long long t_lo = n_tiles * blockIdx.x / gridDim.x;
+  const long long t_hi = n_tiles * (blockIdx.x + 1) / gridDim.x;
+  const int co0 = blockIdx.y * ST_BN, KS = (9 * C + 15) / 16;  // k16 steps
+
+  // the K table (x's offset from the pixel's own element, its tap) and the
+  // block's weight rows, zeros past 9 C and Cout
+  for (int k = tid; k < ST_KP; k += ST_THREADS) {
+    int tap, c;
+    stem_k<MODE>(k, C, tap, c);
+    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+    kt[k] = make_int2((dy * W + dx) * C + c, tap);
+  }
+  for (int i = tid; i < ST_KP * ST_BN; i += ST_THREADS) {
+    const int k = i / ST_BN, co = i % ST_BN;
+    int tap, c;
+    stem_k<MODE>(k, C, tap, c);
+    const bool ok = tap >= 0 && co0 + co < Cout;
+    *reinterpret_cast<__nv_bfloat16*>(Ws + swz(k, co, ST_BN / 8)) =
+        ok ? w[((long long)tap * C + c) * Cout + co0 + co] : __float2bfloat16_rn(0.f);
+  }
+  // a tile's first staged element: x's 16-byte piece at or below pixel p0 - W - 1
+  auto halo_e0 = [&](long long tile) {
+    const long long qa = tile * ST_BM - W - 1;
+    return (qa < 0 ? 0 : qa * C) / 8 * 8;
+  };
+  auto stage = [&](long long tile, int buf) {
+    const long long e0 = halo_e0(tile), qb = tile * ST_BM + ST_BM + W + 1;
+    const long long e1 = (qb < npx ? qb : npx) * C;
+    unsigned char* dst = Xs + buf * hb;
+    for (int i = tid; 8LL * i < e1 - e0; i += ST_THREADS) {
+      const long long e = e0 + 8LL * i;
+      cp_async_cg_n(dst + 16 * i, x + e, n_el - e < 8 ? (int)(n_el - e) * 2 : 16);
+    }
+  };
+
+  float s1[8][2] = {}, s2[8][2] = {};
+  if (t_lo < t_hi) stage(t_lo, 0);
+  cp_async_commit();
+  for (long long tile = t_lo; tile < t_hi; ++tile) {
+    const int buf = (int)((tile - t_lo) & 1);
+    cp_async_wait<0>();
+    __syncthreads();  // this tile's halo landed; every warp is done with the last tile
+    if (tile + 1 < t_hi) stage(tile + 1, buf ^ 1);  // under this tile's work
+    cp_async_commit();
+
+    // the warp's 16 rows of the A tile: pixel r's K vector, 8 k a lane a
+    // step (lanes l and l + 16 of pixel 16 warp + l)
+    const long long p0 = tile * ST_BM, e0 = halo_e0(tile);
+    {
+      const int r = 16 * warp + (lane & 15);
+      const long long p = p0 + r;
+      int mask = 0;  // the taps inside the image
+      int pe = 0;
+      if (p < npx) {
+        const unsigned pu = (unsigned)p, hw = (unsigned)HW;
+        const int n = (int)(pu / hw), rem = (int)(pu - n * hw), h = rem / W, wc = rem - h * W;
+        const int rows = (h > 0) | 2 | ((h < H - 1) << 2);
+        const int cols = (wc > 0) | 2 | ((wc < W - 1) << 2);
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+          if ((rows >> dy) & 1) mask |= cols << (3 * dy);
+        pe = (int)(p * C - e0);
+      }
+      const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(Xs + buf * hb);
+      for (int ch = lane >> 4; ch < 2 * KS; ch += 2) {
+        __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int2 te = kt[8 * ch + e];
+          v[e] = te.y >= 0 && ((mask >> te.y) & 1) ? xs[pe + te.x] : __float2bfloat16_rn(0.f);
+        }
+        *reinterpret_cast<uint4*>(As + swz(r, 8 * ch, ST_KP / 8)) =
+            *reinterpret_cast<const uint4*>(v);
+      }
+    }
+    __syncwarp();
+
+    float acc[8][4] = {};
+    for (int ks = 0; ks < KS; ++ks) {  // the k16 steps in order, chained in the accumulator
+      uint32_t a[4];
+      load_a(a, As, ST_KP / 8, 16 * warp, ks);
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj) {
+        uint32_t b[4];
+        load_b_kn(b, Ws, ST_BN / 8, 16 * nj, ks);
+        mma_bf16(acc[2 * nj], a, b[0], b[1]);
+        mma_bf16(acc[2 * nj + 1], a, b[2], b[3]);
+      }
+    }
+    // y rounded once into the warp's y rows (pixel 16 warp + g + 8 h,
+    // channels 8 i + 2 t, + 1); the statistics of the f32 sums
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h;
+      const bool live = p0 + r < npx;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float v0 = acc[i][2 * h], v1 = acc[i][2 * h + 1];
+        *reinterpret_cast<__nv_bfloat162*>(Ys + r * ST_Y_LD + 16 * i + 4 * t) =
+            __floats2bfloat162_rn(v0, v1);
+        if (STATS && live) {
+          s1[i][0] += v0;
+          s1[i][1] += v1;
+          s2[i][0] = fmaf(v0, v0, s2[i][0]);
+          s2[i][1] = fmaf(v1, v1, s2[i][1]);
+        }
+      }
+    }
+    __syncwarp();
+    // row 16 warp + q / 8 of the tile, channels 8 (q % 8) ..
+    for (int q = lane; q < 16 * (ST_BN / 8); q += 32) {
+      const int r = 16 * warp + (q >> 3);
+      const long long p = p0 + r;
+      const int co = co0 + 8 * (q & 7);
+      if (p >= npx || co >= Cout) continue;
+      const unsigned char* src = Ys + r * ST_Y_LD + 16 * (q & 7);
+      if ((Cout & 7) == 0) {
+        *reinterpret_cast<uint4*>(y + p * Cout + co) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && co + e < Cout; ++e)
+          y[p * Cout + co + e] = reinterpret_cast<const __nv_bfloat16*>(src)[e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (STATS) {  // a channel's pixels: the thread's, its 8 lanes, the 8 warps in order
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s1[i][j] += __shfl_xor_sync(0xffffffffu, s1[i][j], off);
+          s2[i][j] += __shfl_xor_sync(0xffffffffu, s2[i][j], off);
+        }
+        if (g == 0) {
+          red[(0 * 8 + warp) * ST_BN + 8 * i + 2 * t + j] = s1[i][j];
+          red[(1 * 8 + warp) * ST_BN + 8 * i + 2 * t + j] = s2[i][j];
+        }
+      }
+    __syncthreads();
+    if (tid < 2 * ST_BN) {
+      const int which = tid / ST_BN, col = tid % ST_BN;
+      float sum = 0.f;
+      for (int q = 0; q < 8; ++q) sum += red[(which * 8 + q) * ST_BN + col];
+      if (co0 + col < Cout) part[((long long)blockIdx.x * 2 + which) * Cout + co0 + col] = sum;
+    }
+  }
+}
+
 // stats [2][Cout] = the partials [n_blocks][2][Cout] summed in block order:
 // a warp an output, lane l the blocks [l r, (l + 1) r) in order, then the 32
 // runs in order (a fixed order, so the same bits on every run)
@@ -772,7 +1017,8 @@ __global__ void conv3x3_stats_merge_kernel(const float* __restrict__ part,
 // The launch of one conv, as ops/conv3x3.py: conv_geometry computes it:
 // the kernel, its grid, dynamic shared memory, statistics partials, w's row
 // stride, and its plan (resident: tr, n_st; streamed: cch, nst, vr; f32:
-// nst, vr). false where no plan fits the shared memory.
+// nst, vr; stem: a halo stage's bytes). false where no plan fits the
+// shared memory.
 struct Geometry {
   int kind, gx, gy, smem, n_parts, wld, p0, p1, p2;
 };
@@ -780,6 +1026,13 @@ struct Geometry {
 bool conv_geometry(int bf16, int B, int H, int W, int C, int Cout, int strip, Geometry& g) {
   const long long npx = (long long)B * H * W;
   const int wld = (Cout + 7) / 8 * 8;  // the new kernels' 16-byte pieces of a w row
+  if (bf16 && C < 8) {  // the stem: ST_BLOCKS persistent blocks over the tiles
+    const long long n_tiles = (npx + ST_BM - 1) / ST_BM;
+    const int gy = (Cout + ST_BN - 1) / ST_BN, per = ST_BLOCKS / gy > 1 ? ST_BLOCKS / gy : 1;
+    const int gx = (int)(n_tiles < per ? n_tiles : per);
+    g = {KIND_STEM, gx, gy, stem_smem(W, C), gx, Cout, stem_halo_bytes(W, C), 0, 0};
+    return stem_smem(W, C) <= BF16_MAX_SMEM && npx < (1LL << 31);  // 32-bit pixel indices
+  }
   if (!bf16) {
     const int vr = halo_rows(H, W, F_BM), tail = 128 + F_RED + 8 * F_MAX_NST;  // align, red, bars
     int nst = F_MAX_NST;
@@ -805,25 +1058,6 @@ bool conv_geometry(int bf16, int B, int H, int W, int C, int Cout, int strip, Ge
     if (nst >= 2) return true;
   }
   return false;
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime (cudaGetDriverEntryPoint)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // the tensor maps of the streamed and f32 kernels: w [9][C][wld] in boxes
@@ -875,6 +1109,13 @@ cudaError_t launch_kind(const Geometry& g, const void* x, const void* w, void* y
     return cudaGetLastError();
   }
   __nv_bfloat16* yb = (__nv_bfloat16*)y;
+  if (g.kind == KIND_STEM) {
+    auto kernel = conv3x3_stem_kernel<MODE, STATS>;
+    if (!smem_for((const void*)kernel)) return err;
+    kernel<<<grid, ST_THREADS, g.smem, st>>>((const __nv_bfloat16*)x, (const __nv_bfloat16*)w, yb,
+                                             part, B, H, W, C, Cout, g.p0);
+    return cudaGetLastError();
+  }
   if (g.kind == KIND_RESIDENT) {
     auto kernel = conv3x3_bf16_kernel<MODE, STATS>;
     if (!smem_for((const void*)kernel)) return err;
@@ -905,7 +1146,7 @@ extern "C" {
 
 const char* conv3x3_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// the launch geometry (out[9]: kind 0 f32 / 1 resident / 2 streamed, grid
+// the launch geometry (out[9]: kind 0 f32 / 1 resident / 2 streamed / 3 stem, grid
 // x and y, shared memory, statistics partials, w's row stride, the plan's
 // three numbers); returns 0, or cudaErrorInvalidValue where nothing fits
 int conv3x3_geometry(int x_bf16, int B, int H, int W, int C, int Cout, int strip, int* out) {
@@ -925,8 +1166,8 @@ int conv3x3_launch(const void* x, const void* w, void* y, float* part, float* st
                    int mode, int B, int H, int W, int C, int Cout, int strip, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Geometry g;
-  if ((x_bf16 ? C % 8 : C % 4) || !conv_geometry(x_bf16, B, H, W, C, Cout, strip, g))
-    return (int)cudaErrorInvalidValue;  // the wrapper pads C
+  if ((x_bf16 ? C >= 8 && C % 8 : C % 4) || !conv_geometry(x_bf16, B, H, W, C, Cout, strip, g))
+    return (int)cudaErrorInvalidValue;  // the wrapper pads C (bf16: from 8 up)
   const bool with_stats = stats != nullptr;
   cudaError_t err =
       with_stats ? launch_mode<true>(g, mode, x, w, y, part, B, H, W, C, Cout, strip, st)

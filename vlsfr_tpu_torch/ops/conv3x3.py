@@ -32,7 +32,7 @@ import torch.nn.functional as F
 MODES = ("taps9", "im2col")
 DTYPES = (torch.float32, torch.bfloat16)
 _MODE_CODE = {"taps9": 0, "im2col": 1}
-KINDS = ("f32", "resident", "streamed")  # csrc/conv3x3.cu: KIND_F32, KIND_RESIDENT, KIND_STREAMED
+KINDS = ("f32", "resident", "streamed", "stem")  # csrc/conv3x3.cu: KIND_F32 .. KIND_STEM
 
 
 def kernel_name(dtype: torch.dtype, with_stats: bool) -> str:
@@ -98,6 +98,8 @@ _S_BM, _S_BN, _S_CW, _S_MAX_NST = 128, 128, 2, 4  # the streamed kernel's tile, 
 _S_TAIL = 1024 + 2 * 4 * _S_CW * _S_BN * 4 + 2 * _S_MAX_NST * 8  # alignment, reduction, barriers
 _F_BM, _F_BN, _F_CCH, _F_MAX_NST = 256, 64, 8, 4  # the f32 kernel's tile, channels a chunk
 _F_TAIL = 128 + 2 * 8 * 64 * 4 + 8 * _F_MAX_NST  # alignment, reduction, barriers
+_ST_BM, _ST_BN, _ST_KP, _ST_BLOCKS = 128, 64, 64, 2 * 132  # the stem kernel's tile, persistent blocks
+_ST_Y_LD = _ST_BN * 2 + 16  # a y row's bytes in its shared memory
 
 
 class ConvGeometry(NamedTuple):
@@ -107,7 +109,8 @@ class ConvGeometry(NamedTuple):
     stride (Cout, or Cout rounded up to 8 for the streamed and f32 kernels:
     the wrapper pads w with zero columns), and its plan: resident (tr
     output rows a halo stage, n_st stages), streamed (cch channels a chunk,
-    nst stages, vr halo rows), f32 (nst stages, vr halo rows)."""
+    nst stages, vr halo rows), f32 (nst stages, vr halo rows), stem (a halo
+    stage's bytes)."""
     kind: str
     grid: tuple[int, int]
     smem: int
@@ -123,6 +126,22 @@ def halo_rows(h: int, w: int, px: int) -> int:
     above and below (``conv3x3.cu: halo_rows``)."""
     span = (px + 2 * w - 2) // w
     return span + 2 * ((span - 1 + h - 1) // h) + 2
+
+
+def kernel_channels(dtype: torch.dtype, c: int) -> int:
+    """C as ``conv3x3`` hands it to the kernels: bf16 C < 8 as it is (the
+    stem kernel reads x at its own C), any other C padded with zero channels
+    to a whole 16-byte piece of a pixel (8 bf16, 4 f32)."""
+    if dtype == torch.bfloat16 and c < 8:
+        return c
+    piece = 8 if dtype == torch.bfloat16 else 4
+    return -(-c // piece) * piece
+
+
+def stem_halo_bytes(w: int, c: int) -> int:
+    """A stem tile's halo stage: x's elements from pixel p0 - W - 1 to p0 +
+    128 + W, in 16-byte pieces (``conv3x3.cu: stem_halo_bytes``)."""
+    return ((_ST_BM + 2 * w + 2) * c + 15) // 8 * 16
 
 
 def _bf16_smem(c: int, w: int, tr: int, n_st: int) -> int:
@@ -141,15 +160,28 @@ def _fit_rows(w: int, strip: int, smem) -> int:
 def conv_geometry(bf16: bool, b: int, h: int, w: int, c: int, cout: int,
                   strip: int) -> ConvGeometry:
     """The launch ``conv3x3`` makes for x [b, h, w, c] (c already padded:
-    a multiple of 8 in bf16, of 4 in f32) and ``cout`` output channels, the
-    twin of ``conv3x3.cu: conv_geometry``. bf16: the resident kernel where
-    the weight slice fits beside a halo row (two stages where they hold 128
-    pixels, else one), else the streamed kernel (32-channel chunks where two
-    stages fit, else 16; up to four stages). f32: the f32 kernel, up to four
-    stages. Raises where no plan fits a block's shared memory. Cached: at C
-    = 256 the kernel takes ~0.06 ms, near the host's time for a call."""
+    below 8 or a multiple of 8 in bf16, a multiple of 4 in f32) and
+    ``cout`` output channels, the twin of ``conv3x3.cu: conv_geometry``.
+    bf16 with c < 8: the stem kernel, 264 persistent blocks (two an SM)
+    over 128-pixel tiles × 64 channels. Other bf16: the resident kernel
+    where the weight slice fits beside a halo row (two stages where they
+    hold 128 pixels, else one), else the streamed kernel (32-channel chunks
+    where two stages fit, else 16; up to four stages). f32: the f32 kernel,
+    up to four stages. Raises where no plan fits a block's shared memory.
+    Cached: at C = 256 the kernel takes ~0.06 ms, near the host's time for
+    a call."""
     npx = b * h * w
     wld = (cout + 7) // 8 * 8
+    if bf16 and c < 8:
+        gy = -(-cout // _ST_BN)
+        gx = min(-(-npx // _ST_BM), max(1, _ST_BLOCKS // gy))
+        hb = stem_halo_bytes(w, c)
+        smem = (_ST_KP * _ST_BN * 2 + _ST_BM * _ST_KP * 2 + _ST_BM * _ST_Y_LD + 2 * hb
+                + _ST_KP * 8 + 2 * 8 * _ST_BN * 4)
+        if smem > _MAX_SMEM or npx >= 1 << 31:
+            raise ValueError(f"x of {npx} pixels at W = {w} is too large for the stem conv3x3 "
+                             "kernel (its halo stages, its 32-bit pixel indices)")
+        return ConvGeometry("stem", (gx, gy), smem, gx, cout, (hb,))
     if not bf16:
         vr = halo_rows(h, w, _F_BM)
         stage = 4 * (9 * _F_CCH * _F_BN + vr * (-(-(w + 2) // 4) * 4) * _F_CCH)
@@ -221,27 +253,31 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, *, mode: str = "taps9", strip: int
     channels, the streamed kernel the same within each chunk of 32 (or 16)
     channels, the chunks in order, and the f32 kernel steps of one tap × 4
     channels within chunks of 8. Both modes compute the same sum; only the
-    f32 summation order differs. Any C is taken, as JAX's wrapper takes it:
-    the kernels stage 16-byte pieces of a pixel's channels, so a C that is
-    not a multiple of 8 (bf16; ir50's stem, C = 3) or of 4 (f32) is padded
-    here with zero channels, once, in x and w (they add nothing to any
-    sum), and the streamed and f32 kernels' w gets zero output columns up to
-    a multiple of 8."""
+    f32 summation order differs. Any C is taken, as JAX's wrapper takes it.
+    bf16 x with C < 8 (ir50's stem, C = 3) goes to the stem kernel, which
+    reads x at its own C: persistent blocks over 128-pixel tiles in order,
+    each pixel's 9·C products (in the mode's order, padded to whole k16
+    steps) in one chain. The other kernels stage 16-byte pieces of a
+    pixel's channels, so a C of 8 or more that is not a multiple of 8
+    (bf16) or of 4 (f32) is padded here with zero channels, once, in x and
+    w (they add nothing to any sum), and the streamed and f32 kernels' w
+    gets zero output columns up to a multiple of 8."""
     _check_args(x, w, mode, strip)
     if not x.is_cuda:
         return conv3x3_plain(x, w, with_stats=with_stats)
     if x.dtype not in DTYPES:
         raise ValueError(f"the conv3x3 kernel takes f32 or bf16 activations, got {x.dtype}")
-    if not x.is_contiguous() or w.device != x.device:
-        raise ValueError("x must be contiguous and w on x's device")
+    if not x.is_contiguous() or w.device != x.device or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous, start on a 16-byte boundary, and w be on x's "
+                         "device")
     b, h, wd, c = x.shape
     cout = w.shape[-1]
     wc = w.to(x.dtype)
-    piece = 8 if x.dtype == torch.bfloat16 else 4  # channels a 16-byte piece
-    if c % piece:  # zero channels up to a whole piece
-        x = F.pad(x, (0, piece - c % piece))
-        wc = F.pad(wc, (0, 0, 0, piece - c % piece))
-        c = x.shape[-1]
+    kc = kernel_channels(x.dtype, c)
+    if kc != c:  # zero channels up to a piece
+        x = F.pad(x, (0, kc - c))
+        wc = F.pad(wc, (0, 0, 0, kc - c))
+        c = kc
     geo = conv_geometry(x.dtype == torch.bfloat16, b, h, wd, c, cout, strip)
     if geo.wld != cout:  # zero output columns up to w's row stride
         wc = F.pad(wc, (0, geo.wld - cout))

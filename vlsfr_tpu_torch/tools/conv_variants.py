@@ -1,26 +1,30 @@
 """The 3×3 conv's redesigned kernels (``csrc/conv3x3.cu``: the streamed bf16
-kernel on ``wgmma`` and the f32 kernel on the FMA units) against edited
-copies of their source, timed in turns on one card: where the time goes,
-read as what a kernel saves when one phase is left out (its products, its
-staging copies, the f32 kernel's shared-memory operand loads, its y stores,
-the statistics epilogue), and the f32 kernel at an 8 x 16 micro-tile. A
-copy that leaves a phase out computes wrong outputs and is only timed.
+kernel on ``wgmma``, the f32 kernel on the FMA units, the bf16 stem) against
+edited copies of their source, timed in turns on one card: where the time
+goes, read as what a kernel saves when one phase is left out (its products,
+its staging copies, the f32 kernel's shared-memory operand loads, the stem's
+K-vector build, its y stores, the statistics epilogue), and the f32 kernel
+at an 8 x 16 micro-tile. A copy that leaves a phase out computes wrong
+outputs and is only timed.
 Beside the times, each case's device time by kernel (torch.profiler: the
 conv, the statistics merge, the rest).
 
     python -m vlsfr_tpu_torch.tools.conv_variants [--real]
 
 ``--real`` times the kernels as they are and builds no copy: run from a
-checkout of an earlier commit (01496fd: the kernels before their redesign)
-with this file copied into its ``vlsfr_tpu_torch/tools/``, it times that
-commit's kernels (the wrapper's signature is the same), so that the
-parent's and this tree's conv can be timed in turns in one call.
+checkout of an earlier commit (01496fd: the streamed and f32 kernels before
+their redesign; 1511855: the stem on the padded resident kernel) with this
+file copied into its ``vlsfr_tpu_torch/tools/``, it times that commit's
+kernels (the wrapper's signature is the same), so that the parent's and
+this tree's conv can be timed in turns in one call.
 
 Cases (taps9; x ~ N(0, 1), w ~ 0.045 N(0, 1), as the bench): bf16 [128,
 56, 56, 64] -> 64 at strip 28 (the resident kernel, which no edit touches:
 the control), bf16 [128, 14, 14, 256] -> 256 and [128, 14, 14, 512] -> 512
 at strip 14 (the streamed kernel; ir50's stage-3 and stage-4 widths), f32
-[128, 56, 56, 64] -> 64 at strip 28 without and with statistics. Each copy
+[128, 56, 56, 64] -> 64 at strip 28 without and with statistics, bf16 [128,
+112, 112, 3] -> 64 at strip 28 (ir50's stem) without and with statistics.
+Each copy
 is built with nvcc beside the real library, all at once; the times run
 real, the copies, real, the copies backwards.
 """
@@ -43,7 +47,9 @@ CASES = (("bf16 56^2 C64 (resident)", torch.bfloat16, (128, 56, 56, 64), 64, 28,
          ("bf16 14^2 C256", torch.bfloat16, (128, 14, 14, 256), 256, 14, False),
          ("bf16 14^2 C512", torch.bfloat16, (128, 14, 14, 512), 512, 14, False),
          ("f32 56^2 C64", torch.float32, (128, 56, 56, 64), 64, 28, False),
-         ("f32 56^2 C64 + stats", torch.float32, (128, 56, 56, 64), 64, 28, True))
+         ("f32 56^2 C64 + stats", torch.float32, (128, 56, 56, 64), 64, 28, True),
+         ("bf16 112^2 C3 (stem)", torch.bfloat16, (128, 112, 112, 3), 64, 28, False),
+         ("bf16 112^2 C3 (stem) + stats", torch.bfloat16, (128, 112, 112, 3), 64, 28, True))
 
 # source edits of csrc/conv3x3.cu: {name: [(old, new)]}, each old text once
 VARIANTS = {
@@ -86,13 +92,26 @@ VARIANTS = {
     # of shared memory per FMA; half the partials the wrapper allocates)
     "f32: 8 x 16 tile": [
         ("constexpr int F_TI = 8, F_TJ = 8;", "constexpr int F_TI = 8, F_TJ = 16;")],
-    # both kernels' statistics epilogues (the merge launch still runs)
+    # the stem kernel's products (its A tile still built)
+    "stem: no product": [("for (int ks = 0; ks < KS; ++ks) {  // the k16 steps in order",
+                          "for (int ks = 0; ks < 0; ++ks) {  // the k16 steps in order")],
+    # the stem kernel's K-vector build (the A tile keeps what it held)
+    "stem: no K build": [("for (int ch = lane >> 4; ch < 2 * KS; ch += 2) {",
+                          "for (int ch = lane >> 4; ch < 0; ch += 2) {")],
+    # the stem kernel's halo copies (every tile reads a stage never filled)
+    "stem: no halo copies": [("if (tile + 1 < t_hi) stage(tile + 1, buf ^ 1);", ""),
+                             ("  if (t_lo < t_hi) stage(t_lo, 0);\n", "")],
+    # the stem kernel's y stores (behind a test that never holds)
+    "stem: no stores": [
+        ("for (int q = lane; q < 16 * (ST_BN / 8); q += 32) {",
+         "for (int q = lane; q < 16 * (ST_BN / 8) * (Cout < 0); q += 32) {")],
+    # the kernels' statistics epilogues (the merge launch still runs)
     "no statistics epilogue": [
         ("with_stats ? launch_mode<true>(g, mode,", "with_stats ? launch_mode<false>(g, mode,")],
 }
 # the launches of a conv call, by a piece of their name
 KERNELS = (("stream_kernel", "streamed"), ("f32_kernel", "f32"), ("bf16_kernel", "resident"),
-           ("stats_merge", "merge"))
+           ("stem_kernel", "stem"), ("stats_merge", "merge"))
 
 
 def edited_source(edits) -> str:
@@ -106,12 +125,13 @@ def edited_source(edits) -> str:
 
 
 def ptxas_report(log: str) -> list[str]:
-    """The registers, stack and spills ptxas reports for the streamed and
-    f32 kernels."""
+    """The registers, stack and spills ptxas reports for the streamed, f32
+    and stem kernels."""
     out, kernel = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kernel = ln.split("'")[1] if ("stream_kernel" in ln or "f32_kernel" in ln) else None
+            kernel = ln.split("'")[1] if any(
+                k in ln for k in ("stream_kernel", "f32_kernel", "stem_kernel")) else None
         elif kernel and ("registers" in ln or "spill" in ln or "stack" in ln or "warn" in ln):
             out.append(f"{kernel}: {ln.split(':', 1)[-1].strip()}")
         elif "warning" in ln.lower():

@@ -4,8 +4,11 @@ which on an NVIDIA H100 is the tensor cores.
 The port of ``tools/probe_int8_mxu.py`` (the name is kept so that a reader
 finds the counterpart). The JAX probe asked whether the TPU's compiler
 lowers int8 dots onto its matrix unit and at what rate against bf16; here
-the three kernel bodies are one CUDA kernel (``csrc/dot_probe.cu``, warp
-``mma.sync``: s8 m16n8k32, bf16 m16n8k16) in three forms, each computing
+the three kernel bodies are one CUDA kernel (``csrc/dot_probe.cu``:
+``wgmma`` s8 m64n256k32 and bf16 m64n256k16 over a resident in shared
+memory and a TMA-staged ring of w, or bf16 m64n128k16 over w widened in
+registers for the int8-stored form; the launch ``probe_geometry`` gives) in
+three forms, each computing
 
     o[b, t] = Σ_{i < NT} Σ_d a[b, d] · w[i, t, d]
 
@@ -24,6 +27,8 @@ reads is mostly the ratio of their bytes.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +42,11 @@ DTYPES = {"int8": (torch.int8, torch.int8, torch.int32),
           "bf16": (torch.bfloat16, torch.bfloat16, torch.float32),
           "i8st_bf16dot": (torch.bfloat16, torch.int8, torch.float32)}
 _FORM_CODE = {"int8": 0, "bf16": 1, "i8st_bf16dot": 2}
-_BN = 64  # columns of T per kernel block
+# csrc/dot_probe.cu's constants
+_BN, _ROWB, _MROWS = 256, 128, 128  # columns of T a block; bytes of a staged row; rows of a
+_MAX_SMEM, _MAX_NST = 232448, 8
+_TAIL = 1024 + 2 * _MAX_NST * 8  # alignment, the ring's barriers
+H100_SMS = 132
 LAUNCH_COUNTS = {f"probe_{k}": 0 for k in KINDS}
 
 
@@ -88,6 +97,50 @@ def exact_int8(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return wrap_int32((a.double() @ w.sum(0, dtype=torch.int64).double().T).to(torch.int64))
 
 
+class ProbeGeometry(NamedTuple):
+    """One launch of ``csrc/dot_probe.cu``: its grid (column tiles of 256,
+    splits of the K axis), k values a chunk (128 bytes of a w row), the
+    ring's stages (256 rows of w; 128 in i8st, whose blocks walk their
+    columns in two halves) and the dynamic shared memory (bytes)."""
+    grid: tuple[int, int]
+    kc: int
+    nst: int
+    smem: int
+
+
+def split_range(n_q: int, splits: int, s: int) -> tuple[int, int]:
+    """The chunks [lo, hi) of the K axis that split ``s`` sums (the
+    kernel's ``q_lo`` and its end): consecutive, one chunk apart at most."""
+    return n_q * s // splits, n_q * (s + 1) // splits
+
+
+@functools.lru_cache(maxsize=64)
+def probe_geometry(kind: str, b: int, d: int, t: int, nt: int,
+                   n_sm: int = H100_SMS) -> ProbeGeometry:
+    """The launch ``probe_dot`` makes on ``n_sm`` SMs, the twin of
+    ``dot_probe.cu: probe_geometry``: blocks of 256 columns of T (the last
+    masked) times splits of the K axis, NT tiles × D in chunks of 128 bytes
+    of a w row (64 bf16 or 128 int8 k), as many splits as fill the SMs
+    (4 × 33 = 132 blocks at the probe's shapes); a resident (128 rows) and
+    as many 32 KB stages of w as fit beside it. Raises outside the kernel's
+    contract: B ≤ 128, T a multiple of 64, D a multiple of 128 up to 512."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if not (1 <= b <= _MROWS and t >= 64 and t % 64 == 0 and d >= 128 and d % 128 == 0
+            and d <= 512 and nt >= 1):
+        raise ValueError(f"the probe kernel takes B <= 128, T a multiple of 64, D a multiple of "
+                         f"128 up to 512; got B={b}, T={t}, D={d}, NT={nt}")
+    a_item = 1 if kind == "int8" else 2
+    kc = _ROWB // (2 if kind == "bf16" else 1)
+    n_col = -(-t // _BN)
+    n_q = nt * (d // kc)
+    splits = max(1, min(n_q, n_sm // n_col))
+    a_bytes = _MROWS * d * a_item
+    stage = (_BN // 2 if kind == "i8st_bf16dot" else _BN) * _ROWB  # w rows a stage: 256, i8st 128
+    nst = min(_MAX_NST, (_MAX_SMEM - _TAIL - a_bytes) // stage)
+    return ProbeGeometry((n_col, splits), kc, nst, a_bytes + nst * stage + _TAIL)
+
+
 def _lib():
     from vlsfr_tpu_torch.ops.cuda_build import load_library
 
@@ -98,36 +151,41 @@ def _lib():
         lib.dot_probe_launch.restype = i
         lib.dot_probe_error_string.argtypes = [i]
         lib.dot_probe_error_string.restype = ctypes.c_char_p
+        lib.dot_probe_geometry.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        lib.dot_probe_geometry.restype = i
         lib._vlsfr_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def probe_dot(kind: str, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """o ``[B, T]`` = Σ_i a · w[i]ᵀ in the form ``kind`` (int32 for int8,
     else f32). On CPU tensors the plain version; on CUDA tensors the kernel
     (B ≤ 128, T a multiple of 64, D a multiple of 128 up to 512) or an
-    error. The kernel splits the tiles over enough blocks to fill the card
-    and sums the splits in order."""
+    error. The kernel splits the K axis over enough blocks to fill the card
+    (``probe_geometry``) and sums the splits in order."""
     _check(kind, a, w)
     if not a.is_cuda:
         return probe_dot_plain(kind, a, w)
     b, d = a.shape
     nt, t, _ = w.shape
-    if b > 128 or t % _BN or d % 128 or d > 512 or nt < 1:
-        raise ValueError(f"the probe kernel takes B <= 128, T a multiple of {_BN}, D a multiple "
-                         f"of 128 up to 512; got B={b}, T={t}, D={d}, NT={nt}")
     if not (a.is_contiguous() and w.is_contiguous()):
         raise ValueError("a and w must be contiguous")
-    # blocks per SM the kernel's shared memory allows: a (128 rows) + two w chunks
-    per_sm = 2 if kind == "int8" else 1
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    splits = max(1, min(nt, sms * per_sm // (t // _BN)))
+    if a.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("a and w must start on 16-byte boundaries (w is read by TMA)")
+    n_sm = _sm_count(a.device.index if a.device.index is not None else
+                     torch.cuda.current_device())
+    geo = probe_geometry(kind, b, d, t, nt, n_sm)
     o_dtype = DTYPES[kind][2]
-    part = torch.empty((splits, b, t), dtype=o_dtype, device=a.device)
+    part = torch.empty((geo.grid[1], b, t), dtype=o_dtype, device=a.device)
     o = torch.empty((b, t), dtype=o_dtype, device=a.device)
     lib = _lib()
     err = lib.dot_probe_launch(a.data_ptr(), w.data_ptr(), part.data_ptr(), o.data_ptr(),
-                               _FORM_CODE[kind], b, d, t, nt, splits,
+                               _FORM_CODE[kind], b, d, t, nt, n_sm,
                                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dot_probe kernel launch failed: "
