@@ -13,7 +13,11 @@ exits non-zero; nothing is caught):
    both cuDNN and cuBLAS (the f32 paths must be IEEE f32);
 2. build — every CUDA source in ``vlsfr_tpu_torch/csrc`` with nvcc, one
    process per source, all started together, printing the ``-Xptxas -v``
-   report;
+   report; then the SASS of ``conv3x3`` and ``dot_probe``, whose kernels
+   take ``wgmma``'s A from registers, read by
+   ``vlsfr_tpu_torch/tools/wgmma_sass_check.py``: no A register or
+   accumulator of a product may be written before the wait that retires
+   its group;
 FFC slice (the fused-pool FFC step, ir50, 2^20-slot f32 queue):
 3. parity — each quad kernel against its plain PyTorch version at the
    slice's full width (b = 128 rows per direction, D = 512, Q = 2^20,
@@ -279,6 +283,30 @@ calls either, in JAX or here):
    check, kernel and library times) with the counters set to 0 before and
    read after; plain times and bounds (int8 at 1,979 TOP/s, bf16 at 989,
    against the bytes of w);
+The backbones, checkpoints and serving (no TPU kernel: stock convs, BN,
+matmul and top-k, as XLA ran them in JAX):
+36. backbones — one FFC training step (the second of two) of ``r50``
+   (224², bf16, batch 64, the CLI's default 1000-slot dense head) and of
+   ``mobile`` (112², batch 128) through ``Trainer``: a finite loss, step
+   time and peak memory; then an f32 forward of each net (eval mode, TF32
+   off) on 4 images on the card against the CPU with the same weights,
+   embeddings within 1e-4 (f32 sums in other orders over the net's depth);
+37. checkpoint and resume — ``configs/ffc_ir50_1m_ids.json`` (ir50, bf16,
+   65,536-slot dense head, batch 256) on a 2,560-record synthetic store,
+   under ``torch.use_deterministic_algorithms(True)`` (cuBLAS's workspace
+   ``:4096:8``, set at the start): 3 steps straight; 2 steps, ``_save``,
+   a fresh ``Trainer`` resuming (every tensor and value of the state bit
+   for bit against the saved one) and 1 more step, bit for bit against the
+   straight run; the checkpoint's size and its save and restore times; one
+   in-training eval at the config's eval_records 2048 / eval_pairs 2000;
+38. serving — ``Embedder`` on ir50 bf16 at batch 128 with flip TTA
+   (images/s); ``FaceIndex.from_arrays`` over a 10,485,760-row int8
+   gallery made on the card from a seeded generator, Q = 1024, k = 10,
+   tile 65,536, in bf16 and in int8 compute (probes/s): 1,024 noisy copies
+   of known rows must come back at rank 1; the top-10 of an index over the
+   first 2^20 rows against one dense product plus ``torch.topk`` (scores
+   within 1e-5; a row may differ only where the dense scores tie within
+   1e-5), and the script's whole time;
 then the ``kernels`` JSON line (44 entries: the ten f32 kernels, the
 twelve quad forms, the twin kernels in f32 and bf16, the eight bf16 forms
 of the margin_ce kernels, ``conv3x3``, ``conv3x3[stats]``,
@@ -297,6 +325,7 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -3247,6 +3276,328 @@ def probe_phase(tmp: str) -> tuple[dict, dict, dict]:
     return times, errs, launches
 
 
+# ----------------------------------------------------------------------
+# phases 36-38: the backbones, checkpoint and resume, serving (no kernel:
+# stock convs, BN, matmul and top-k, as XLA ran them in JAX)
+# ----------------------------------------------------------------------
+
+BACKBONES = (("r50", 64), ("mobile", 128))  # (net, batch): the CLI's default, the light net
+BACKBONE_STEPS = 2  # the first warms up; the step time is the second's window
+FWD_F32_LIMIT = 1e-4  # card vs CPU f32 embeddings: sum-order noise over 50 layers
+CKPT_CONFIG = "configs/ffc_ir50_1m_ids.json"
+CKPT_STORE = (256, 10)  # ids x images: 2,560 records, so 2,304 are held out (eval_records 2048)
+SERVE_ROWS = 10_485_760  # the 10M-identity gallery, int8 rows + f32 scales
+SERVE_Q, SERVE_K, SERVE_TILE = 1024, 10, 65536
+DENSE_ROWS = 1 << 20  # the rows the dense product + torch.topk reference covers
+SCORE_LIMIT = 1e-5  # index vs dense scores: f32 sums of the same bf16 products, other orders
+
+
+def calibrate_bn(model, x: torch.Tensor):
+    """Set every BatchNorm's running statistics to those of the batch ``x``
+    (one train-mode forward at momentum 0), then eval mode: a random net's
+    eval-mode forward at the initial statistics (0, 1) grows its
+    activations block by block, ir50's to overflow."""
+    from vlsfr_tpu_torch.models.layers import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    kept = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 0.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    for m, k in zip(bns, kept):
+        m.momentum = k
+    return model.eval()
+
+
+def backbone_phase(card: str) -> None:
+    """Phase 36: one FFC training step of r50 (224², bf16, batch 64, the
+    CLI's default 1000-slot dense head) and of mobile (112², batch 128)
+    through ``Trainer`` (the second of two steps timed), then an f32
+    forward of each net on 4 images, eval mode, on the card and on the CPU
+    with the same weights (TF32 off)."""
+    from vlsfr_tpu_torch.config import Config
+    from vlsfr_tpu_torch.models import create_net, native_image_size
+    from vlsfr_tpu_torch.train.trainer import Trainer
+
+    for net, batch in BACKBONES:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            cfg = Config().apply_overrides([
+                f"model.net_type={net}", "model.feat_dim=512", "model.dtype=bfloat16",
+                f"data.batch_size={batch}", "data.image_size=0", "pool.queue_size=1000",
+                "data.synthetic_ids=100", "data.synthetic_images_per_id=3",
+                "data.num_workers=4", "train.print_freq=1", "optim.lr=0.1"])
+            cfg.data.synthetic = True
+            cfg.train.saved_dir = tmp
+            torch.cuda.reset_peak_memory_stats()
+            trainer = Trainer(cfg)
+            try:
+                t0 = time.perf_counter()
+                out = trainer.train(max_steps=BACKBONE_STEPS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+            finally:
+                trainer.close()
+        if not (math.isfinite(out["loss"]) and out["final_step"] == BACKBONE_STEPS):
+            raise RuntimeError(f"{net}: training did not give a finite loss: {out}")
+        size = native_image_size(net)
+        step_ms = 2 * batch / out["images_per_sec"] * 1e3
+        print(f"  {net} ({size}², bf16, batch {batch}, 1000-slot dense FFC head): loss "
+              f"{out['loss']:.4f}; step {step_ms:.1f} ms ({card}); {BACKBONE_STEPS} steps "
+              f"{wall:.2f} s wall incl. the first; peak memory {peak / 2**30:.2f} GiB ({card})")
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1)
+            model = create_net(net, feat_dim=512)
+        x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (12, size, size, 3)).astype(np.float32))
+        calibrate_bn(model, x[4:])  # statistics from 8 other images
+        x = x[:4]
+        with torch.no_grad():
+            want = model(x)
+            got = model.cuda()(x.cuda()).cpu()
+        err = float((got - want).abs().max())
+        print(f"  {net} f32 forward, 4 images, eval mode, card vs CPU: max |Δemb| {err:.3e} "
+              f"(limit {FWD_F32_LIMIT:g}: f32 sums in other orders over the net's depth)")
+        if not (got.shape == (4, 512) and torch.isfinite(got).all() and err <= FWD_F32_LIMIT):
+            raise RuntimeError(f"{net}: the card's f32 embeddings disagree with the CPU's")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def host_state(trainer) -> dict:
+    """The trainer's whole checkpoint state (``_checkpoint_state``), copied
+    to the host, by key."""
+    out = {}
+
+    def walk(x, key):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{key}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{key}/{i}")
+        elif isinstance(x, torch.Tensor):
+            out[key] = x.detach().cpu().clone()
+        else:
+            out[key] = x
+    walk(trainer._checkpoint_state(), "")
+    return out
+
+
+def same_state(a: dict, b: dict, what: str) -> None:
+    """Every tensor and value of two host states bit for bit, or raise
+    naming the keys that differ."""
+    diff = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+                d = (x.float() - y.float()).abs().max() if x.shape == y.shape else "shape"
+                diff.append(f"{k} (max |Δ| {d})")
+        elif x != y:
+            diff.append(f"{k} ({x} vs {y})")
+    n = sum(v.numel() for v in a.values() if isinstance(v, torch.Tensor))
+    if diff:
+        raise RuntimeError(f"{what}: {len(diff)} entries differ: {diff[:8]}")
+    print(f"  {what}: {len(a)} entries, {n:,} tensor elements, bit for bit")
+
+
+def checkpoint_phase(card: str) -> None:
+    """Phase 37: configs/ffc_ir50_1m_ids.json (ir50, bf16, 65,536-slot
+    dense FFC head, batch 256) on a synthetic store, under
+    ``torch.use_deterministic_algorithms(True)``: 3 steps straight; 2
+    steps, ``_save``, a fresh Trainer resuming (the round trip bit for bit)
+    and 1 more step, against the straight run bit for bit; the checkpoint's
+    size, save and restore times; one in-training eval at the config's
+    eval_records / eval_pairs."""
+    from vlsfr_tpu_torch.config import Config
+    from vlsfr_tpu_torch.data.synthetic import generate_synthetic_store
+    from vlsfr_tpu_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        store = os.path.join(tmp, "store")
+        generate_synthetic_store(store, num_ids=CKPT_STORE[0], images_per_id=CKPT_STORE[1],
+                                 image_size=112, seed=0)
+
+        def trainer(run: str):
+            cfg = Config.load(CKPT_CONFIG)
+            cfg.data.sources = [store]
+            cfg.train.saved_dir = os.path.join(tmp, run)
+            return Trainer(cfg)
+
+        torch.use_deterministic_algorithms(True)
+        try:
+            t = trainer("straight")
+            try:
+                print(f"  {CKPT_CONFIG}: {len(t.reader):,} records, record_limit "
+                      f"{t.record_limit} (holdout_records {t.cfg.train.holdout_records}), "
+                      f"{t.steps_per_epoch} step(s) an epoch, batch {t.cfg.data.batch_size}, "
+                      f"queue {t.cfg.pool.queue_size:,} (dense head)")
+                out = t.train(max_steps=3)
+                straight = host_state(t)
+            finally:
+                t.close()
+            t = trainer("resumed")
+            try:
+                t.train(max_steps=2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t._save(2)
+                save_s = time.perf_counter() - t0
+                saved = host_state(t)
+            finally:
+                t.close()
+            step_dir = os.path.join(tmp, "resumed", "2")
+            size = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+            gc.collect()
+            torch.cuda.empty_cache()
+            t = trainer("resumed")
+            try:
+                if t.state.step != 2:
+                    raise RuntimeError(f"the fresh Trainer did not resume at step 2: "
+                                       f"{t.state.step}")
+                same_state(saved, host_state(t), "save -> restore round trip")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t._load_checkpoint_state(*t.ckpt.restore(2, map_location="cpu"))
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                print(f"  checkpoint at step 2: {size / 2**20:.1f} MiB in "
+                      f"{len(os.listdir(step_dir))} files; save {save_s:.2f} s, restore "
+                      f"{restore_s:.2f} s (read to the host and copied onto the card, warm "
+                      f"file cache) ({card})")
+                res = t.train(max_steps=3)
+                if not (math.isfinite(out["loss"]) and res["loss"] == out["loss"]):
+                    raise RuntimeError(f"the resumed step's loss {res['loss']} is not the "
+                                       f"straight run's {out['loss']}")
+                same_state(straight, host_state(t),
+                           "2 steps + resume + 1 step vs 3 straight steps (deterministic)")
+                t0 = time.perf_counter()
+                ev = t.evaluate()
+                ev_s = time.perf_counter() - t0
+            finally:
+                t.close()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        acc = ev.get("verification_acc_holdout", float("nan"))
+        print(f"  in-training eval (eval_records {t.cfg.train.eval_records}, eval_pairs "
+              f"{t.cfg.train.eval_pairs}, the EMA gallery net): {json.dumps(ev)}; "
+              f"{ev_s:.2f} s ({card})")
+        if not (0.0 <= acc <= 1.0):
+            raise RuntimeError(f"the in-training eval gave no holdout accuracy: {ev}")
+
+
+def make_gallery(rows: int, d: int, gen: torch.Generator):
+    """int8 rows uniform in [-127, 127] and f32 scales making each row a
+    unit vector (scale · row), drawn on the card 2^20 rows at a time."""
+    gallery = torch.empty((rows, d), dtype=torch.int8, device="cuda")
+    scales = torch.empty(rows, device="cuda")
+    for lo in range(0, rows, 1 << 20):
+        hi = min(rows, lo + (1 << 20))
+        g = torch.randint(-127, 128, (hi - lo, d), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        gallery[lo:hi] = g
+        scales[lo:hi] = 1.0 / torch.linalg.vector_norm(g.float(), dim=1)
+    return gallery, scales
+
+
+def noisy_copies(gallery, scales, src, gen, sigma: float = 0.02) -> np.ndarray:
+    """Queries: the rows ``src`` dequantised plus N(0, sigma²) noise."""
+    q = gallery[src].float() * scales[src, None]
+    q = q + sigma * torch.randn(q.shape, generator=gen, device="cuda")
+    return q.cpu().numpy()
+
+
+def serving_phase(card: str) -> None:
+    """Phase 38: ``Embedder`` on ir50 bf16 at batch 128 with flip TTA; a
+    ``FaceIndex.from_arrays`` over a 10,485,760-row int8 gallery made on the
+    card (Q = 1024, k = 10, tile 65,536) in bf16 and in int8 compute, whose
+    queries are noisy copies of known rows and must find them at rank 1;
+    then the top-10 of an index over the first 2^20 rows against one dense
+    product plus ``torch.topk``."""
+    from vlsfr_tpu_torch.eval.extract import Embedder
+    from vlsfr_tpu_torch.eval.index import FaceIndex
+    from vlsfr_tpu_torch.models import create_net
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        net = create_net("ir50", feat_dim=512, dtype="bfloat16")
+    images = np.random.default_rng(4).standard_normal((1024, 112, 112, 3), dtype=np.float32)
+    calibrate_bn(net.cuda(), torch.from_numpy(images[:128]).cuda())
+    emb = Embedder(net, batch_size=128, flip_average=True)
+    emb(images[:256])  # warm-up
+    t0 = time.perf_counter()
+    e = emb(images)
+    wall = time.perf_counter() - t0
+    norms = np.linalg.norm(e, axis=1)
+    if not (e.shape == (1024, 512) and np.isfinite(e).all() and np.abs(norms - 1).max() < 1e-5):
+        raise RuntimeError(f"Embedder gave bad embeddings: shape {e.shape}, finite "
+                           f"{np.isfinite(e).mean():.3f}, max |norm - 1| "
+                           f"{np.nanmax(np.abs(norms - 1)):.3e}")
+    print(f"  Embedder, ir50 bf16, batch 128, flip TTA: {1024 / wall:.1f} images/s over 1,024 "
+          f"images from host memory ({wall * 1e3:.1f} ms; {card})")
+    del emb, net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    t0 = time.perf_counter()
+    gallery, scales = make_gallery(SERVE_ROWS, 512, gen)
+    labels = np.arange(SERVE_ROWS, dtype=np.int64)
+    src = torch.randint(0, SERVE_ROWS, (SERVE_Q,), generator=gen, device="cuda")
+    queries = noisy_copies(gallery, scales, src, gen)
+    torch.cuda.synchronize()
+    print(f"  gallery {SERVE_ROWS:,} x 512 int8 + f32 scales made on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for cd in (torch.bfloat16, torch.int8):
+        index = FaceIndex.from_arrays(gallery, labels, scales, tile=SERVE_TILE, compute_dtype=cd)
+        index.search(queries[:64], SERVE_K)  # warm-up
+        t0 = time.perf_counter()
+        v, r, lab = index.search(queries, SERVE_K)
+        wall = time.perf_counter() - t0
+        hits = int((r[:, 0] == src.cpu().numpy()).sum())
+        print(f"  FaceIndex {str(cd).split('.')[-1]} compute, {SERVE_ROWS:,} int8 rows "
+              f"({index.nbytes() / 2**30:.2f} GiB), Q = {SERVE_Q}, k = {SERVE_K}, tile "
+              f"{SERVE_TILE:,}: {SERVE_Q / wall:.1f} probes/s ({wall * 1e3:.1f} ms a search; "
+              f"{card}); {hits}/{SERVE_Q} noisy copies at rank 1, top-1 score "
+              f"{float(np.median(v[:, 0])):.4f} median")
+        if hits != SERVE_Q or not (lab[:, 0] == r[:, 0]).all():
+            raise RuntimeError(f"{hits}/{SERVE_Q} noisy copies came back at rank 1")
+        del index
+        gc.collect()
+
+    n = DENSE_ROWS
+    half = SERVE_Q // 2
+    src2 = torch.randint(0, n, (half,), generator=gen, device="cuda")
+    q2 = np.concatenate([noisy_copies(gallery, scales, src2, gen),
+                         torch.randn((SERVE_Q - half, 512), generator=gen,
+                                     device="cuda").cpu().numpy()])
+    index = FaceIndex.from_arrays(gallery[:n], labels[:n], scales[:n], tile=SERVE_TILE,
+                                  compute_dtype=torch.bfloat16)
+    v, r, _ = index.search(q2, SERVE_K)
+    qn = q2 / np.maximum(np.linalg.norm(q2, axis=-1, keepdims=True), 1e-12)
+    w = gallery[:n].to(torch.bfloat16) * scales[:n, None].to(torch.bfloat16)
+    z = torch.mm(torch.from_numpy(qn).cuda().to(torch.bfloat16), w.t(), out_dtype=torch.float32)
+    dv, di = torch.topk(z, SERVE_K, dim=1)
+    at = z.gather(1, torch.from_numpy(r).cuda()).cpu().numpy()
+    dv, di = dv.cpu().numpy(), di.cpu().numpy()
+    swapped = int((r != di).sum())
+    verr = float(np.abs(v - dv).max())
+    terr = float(np.abs(at - dv).max())
+    print(f"  top-{SERVE_K} over the first {n:,} rows against one dense product + torch.topk "
+          f"(Q = {SERVE_Q}: {half} noisy copies, {SERVE_Q - half} random): max |Δscore| "
+          f"{verr:.2e}; {swapped} entries at another row, whose dense scores are within "
+          f"{terr:.2e} of the dense top-k's (limit {SCORE_LIMIT:g}: f32 sums in other orders)")
+    if verr > SCORE_LIMIT or terr > SCORE_LIMIT:
+        raise RuntimeError("the streamed top-k disagrees with the dense product's")
+    del gallery, scales, index, w, z
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 BF16_KERNELS = (  # the kernels line's bf16 forms: (name, the TPU kernel it replaces)
     ("margin_ce_fwd[bf16]", "margin_pallas.py:390"),
     ("margin_ce_bwd[bf16]", "margin_pallas.py:557"),
@@ -3264,6 +3615,10 @@ def main() -> int:
         return 2
     from vlsfr_tpu_torch.ops.cuda_build import build_all
 
+    t_start = time.perf_counter()
+    # cuBLAS's deterministic workspace (phase 37 runs under
+    # torch.use_deterministic_algorithms); set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     print("== phase 1: device")
     card = smi_line()
     print(card)
@@ -3281,6 +3636,16 @@ def main() -> int:
         print("\n".join("    " + ln for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln or "entry function" in ln))
     print(f"  build {time.perf_counter() - t0:.1f} s")
+    from vlsfr_tpu_torch.ops.cuda_build import library_path
+    from vlsfr_tpu_torch.tools.wgmma_sass_check import check_library
+    for name in ("conv3x3", "dot_probe"):  # register-A wgmma: no operand rewritten in flight
+        for fn, res in check_library(str(library_path(name))).items():
+            print(f"  {name} SASS {fn[-60:]}: {res['products']} HGMMA, A registers "
+                  f"{res['a_regs']}, at most {res['max_in_flight']} groups in flight, "
+                  f"{len(res['hazards'])} hazards")
+            if res["hazards"]:
+                raise RuntimeError(f"{name}: register-A wgmma operands rewritten in flight: "
+                                   f"{res['hazards'][:4]}")
 
     print("== phase 3: quad parity at full width")
     full = make_case(SLICE["q"], SLICE["b"], SLICE["d"], SLICE["k"], "Arc", seed=0)
@@ -3451,6 +3816,17 @@ def main() -> int:
         times.update(ptimes)
         errs.update(perrs)
         launches.update(plaunches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("== phase 36: the backbones r50 and mobile through the Trainer; their f32 forward on "
+          "the card against the CPU")
+    backbone_phase(card)
+    print(f"== phase 37: checkpoint and resume, {CKPT_CONFIG} through the Trainer")
+    checkpoint_phase(card)
+    print("== phase 38: serving: Embedder and FaceIndex")
+    serving_phase(card)
+    print(f"  chip_smoke.py {time.perf_counter() - t_start:.1f} s ({card})")
 
     fwd_keys = ("ce", "neg", "logz", "topk")
     kernels = []

@@ -1,0 +1,293 @@
+"""Checkpoint and resume of the port's Trainer (``train/checkpoints.py``).
+
+The reference for a resumed run is the same run uninterrupted, as in the
+JAX package's ``tests/test_trainer.py::test_resume_matches_uninterrupted``,
+``::test_resume_mid_epoch`` and ``::test_int8_queue_resume_matches_uninterrupted``;
+on the CPU the port's step is deterministic, so both are held bit for bit
+(JAX's tests allow 1e-5): every tensor of the state (modules with their BN
+running stats, optimizer, queue and its int8 scales or classifier with its
+momentum and last-visit steps), the DCP planner, the plateau controller,
+the random generators and the step.
+
+Cases: the FFC head on a dense f32 queue (with the plateau scheduler, so
+its state moves) and on the fused head's int8 queue; the softmax head's
+route A (fused SGD, bare momentum) and route D (sparse rows, last-visit
+steps); the sharded FFC head at ``mesh.model = 2`` over 2 spawned gloo
+ranks, one block of the queue per rank. The spawned ranks import this
+module by name, so it imports nothing of JAX.
+"""
+
+import os
+import shutil
+import signal
+import subprocess
+import sys
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from vlsfr_tpu_torch.config import Config
+from vlsfr_tpu_torch.data.synthetic import generate_synthetic_store
+from vlsfr_tpu_torch.parallel import distributed
+from vlsfr_tpu_torch.train.checkpoints import CheckpointManager
+from vlsfr_tpu_torch.train.trainer import Trainer
+
+REPO = Path(__file__).resolve().parents[1]
+BASE = ["model.net_type=toy", "model.feat_dim=16", "model.dtype=float32", "data.batch_size=8",
+        "data.image_size=16", "data.num_workers=1", "train.print_freq=2", "optim.lr=0.01",
+        "train.save_freq=100000", "pool.queue_size=64"]
+CASES = {
+    "ffc_f32": ["optim.scheduler=plateau", "optim.patience=0"],
+    "ffc_int8": ["pool.use_fused=on", "pool.queue_dtype=int8"],
+    "softmax_A": ["pool.head=full_softmax", "pool.use_fused=on"],
+    "softmax_D": ["pool.head=full_softmax", "pool.use_fused=on", "pool.sparse_update=true"],
+}
+
+
+@pytest.fixture(scope="module")
+def store(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ckpt_store")
+    generate_synthetic_store(str(d), num_ids=10, images_per_id=8, image_size=16, seed=0)
+    return str(d)
+
+
+def _cfg(store: str, saved_dir, overrides, epochs: int = 1) -> Config:
+    cfg = Config().apply_overrides([*BASE, *overrides, f"optim.epochs={epochs}"])
+    cfg.data.sources = [store]
+    cfg.train.saved_dir = str(saved_dir)
+    return cfg
+
+
+def _flat(x, prefix=""):
+    if isinstance(x, dict):
+        for k in sorted(x, key=str):
+            yield from _flat(x[k], f"{prefix}/{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            yield from _flat(v, f"{prefix}/{i}")
+    else:
+        yield prefix, x
+
+
+def _snapshot(trainer) -> dict:
+    """The trainer's whole checkpoint state, flattened to numpy."""
+    out = {}
+    for key, v in _flat(trainer._checkpoint_state()):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            v = v.view(torch.int16) if v.dtype == torch.bfloat16 else v
+            out[key] = v.numpy().copy()
+        elif v is not None:
+            out[key] = np.asarray(v)
+    out["/start"] = np.asarray([trainer.start_epoch, trainer.start_step])
+    return out
+
+
+def _assert_same(a: dict, b: dict, skip=("/start",)):
+    keys = set(a) - set(skip)
+    assert keys == set(b) - set(skip)
+    for k in sorted(keys):
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _train(cfg, max_steps=None) -> dict:
+    trainer = Trainer(cfg, device="cpu")
+    try:
+        trainer.train(max_steps=max_steps)
+        return _snapshot(trainer)
+    finally:
+        trainer.close()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_round_trip_is_bit_for_bit(case, store, tmp_path):
+    """3 steps, ``_save``, then a fresh Trainer restores every tensor and
+    host value the first one holds, and starts at step 3."""
+    cfg = _cfg(store, tmp_path, CASES[case])
+    t1 = Trainer(cfg, device="cpu")
+    try:
+        t1.train(max_steps=3)
+        if case == "ffc_int8":
+            assert t1.state.queue.dtype == torch.int8 and t1.state.queue_scales is not None
+        if case == "softmax_D":
+            assert t1.state.classifier_last is not None and int(t1.state.classifier_last.max()) > 0
+        t1._save(3)
+        want = _snapshot(t1)
+    finally:
+        t1.close()
+    t2 = Trainer(_cfg(store, tmp_path, CASES[case]), device="cpu")
+    try:
+        assert t2.state.step == 3 and (t2.start_epoch, t2.start_step) == divmod(
+            3, t2.steps_per_epoch)
+        _assert_same(want, _snapshot(t2))
+    finally:
+        t2.close()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_resume_matches_uninterrupted(case, store, tmp_path):
+    """2 epochs straight against 1 epoch, then a fresh Trainer resuming
+    for the second: the same final state, bit for bit."""
+    straight = _train(_cfg(store, tmp_path / "a", CASES[case], epochs=2))
+    _train(_cfg(store, tmp_path / "b", CASES[case], epochs=1))
+    t = Trainer(_cfg(store, tmp_path / "b", CASES[case], epochs=2), device="cpu")
+    try:
+        assert (t.start_epoch, t.start_step) == (1, 0)
+        t.train()
+        resumed = _snapshot(t)
+    finally:
+        t.close()
+    _assert_same(straight, resumed)
+
+
+def test_resume_mid_epoch(store, tmp_path):
+    """With the final checkpoint removed, the run resumes from the last
+    periodic one, inside the epoch, and ends where the uninterrupted run
+    ends."""
+    ov = [*CASES["ffc_f32"], "train.save_freq=3"]
+    cfg = _cfg(store, tmp_path / "mid", ov)
+    t1 = Trainer(cfg, device="cpu")
+    spe = t1.steps_per_epoch
+    try:
+        t1.train()
+        want = _snapshot(t1)
+    finally:
+        t1.close()
+    ck = CheckpointManager(cfg.train.saved_dir)
+    steps = ck.all_steps()
+    assert steps[-1] == spe and spe % 3 and steps[-2] == spe // 3 * 3
+    shutil.rmtree(os.path.join(ck.directory, str(steps[-1])))
+    t2 = Trainer(_cfg(store, tmp_path / "mid", ov), device="cpu")
+    try:
+        assert (t2.start_epoch, t2.start_step) == (0, steps[-2])
+        t2.train()
+        _assert_same(want, _snapshot(t2))
+    finally:
+        t2.close()
+
+
+def test_keep_checkpoints_and_partial_directories(store, tmp_path):
+    """``train.keep_checkpoints`` newest steps survive; a partial step
+    (a ``.tmp-`` directory, or a step directory without its replicated
+    part) is never the latest, and the next save removes the former."""
+    cfg = _cfg(store, tmp_path, ["train.save_freq=2", "train.keep_checkpoints=2"])
+    ck = CheckpointManager(cfg.train.saved_dir)
+    os.makedirs(os.path.join(ck.directory, ".tmp-9999"))
+    os.makedirs(os.path.join(ck.directory, "9998"))
+    final = int(_train(cfg)["/0/step"])
+    last_even = final - 2 if final % 2 == 0 else final - 1
+    assert ck.all_steps() == [last_even, final]
+    assert ck.latest_step() == final
+    assert not os.path.exists(os.path.join(ck.directory, ".tmp-9999"))
+    assert os.path.isdir(os.path.join(ck.directory, "9998"))  # not a step: left alone
+
+
+def test_restore_refuses_another_world_size(tmp_path):
+    CheckpointManager(str(tmp_path)).save(5, {"step": 5}, {"queue": torch.zeros(2)})
+    two = CheckpointManager(str(tmp_path), mesh=SimpleNamespace(model=2, rank=0, group=None))
+    with pytest.raises(ValueError, match="same mesh.model"):
+        two.restore(5)
+    rep, block = CheckpointManager(str(tmp_path)).restore(5)
+    assert rep == {"step": 5, "world": 1} and torch.equal(block["queue"], torch.zeros(2))
+
+
+def test_sigterm_checkpoints_and_the_next_run_resumes(store, tmp_path):
+    """The CLI in a subprocess: SIGTERM during training exits 143 after
+    writing a checkpoint; the same command again resumes from it."""
+    cmd = [sys.executable, "-m", "vlsfr_tpu_torch.train", "--device", "cpu", "--net_type",
+           "toy", "--sources", store, "--batch_size", "8", "--feat_dim", "16", "--queue_size",
+           "64", "--print_freq", "1", "--saved_dir", str(tmp_path), "--set",
+           "data.image_size=16", "--set", "model.dtype=float32", "--set", "data.num_workers=1",
+           "--set", "train.save_freq=100000"]
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen([*cmd, "--set", "optim.epochs=1000"], cwd=REPO, env=env,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    deadline = time.monotonic() + 120
+    try:
+        for line in proc.stderr:
+            if "train step 3 |" in line:
+                break
+            assert time.monotonic() < deadline, "no training steps within 120 s"
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 128 + signal.SIGTERM, err
+    step = CheckpointManager(str(tmp_path)).latest_step()
+    assert step is not None and step >= 3
+    again = subprocess.run([*cmd, "--set", "optim.epochs=1"], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=180)
+    assert again.returncode == 0, again.stderr
+    assert f"resumed from checkpoint step {step}" in again.stderr
+    assert "training done:" in again.stdout
+
+
+# ----------------------------------------------------------------------
+# the sharded FFC head over 2 gloo ranks
+# ----------------------------------------------------------------------
+
+SHARDED = ["pool.use_fused=on", "mesh.model=2", "mesh.data=1"]
+
+
+def _sharded_rank(rank, world, store_path, data, out_dir):
+    torch.set_num_threads(1)
+    distributed.initialize("cpu", rank=rank, world_size=world, store_path=store_path)
+    try:
+        out = {}
+        for name, run, epochs in (("straight", "a", 2), ("first", "b", 1), ("resumed", "b", 2)):
+            t = Trainer(_cfg(data, os.path.join(out_dir, run), SHARDED, epochs), device="cpu")
+            try:
+                out[f"{name}/start"] = np.asarray([t.start_epoch, t.start_step])
+                t.train()
+                out.update({f"{name}{k}": v for k, v in _snapshot(t).items()})
+            finally:
+                t.close()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        distributed.destroy()
+
+
+@pytest.fixture(scope="module")
+def world2(store, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("ckpt_world2")
+    mp.spawn(_sharded_rank, args=(2, str(tmp / "filestore"), store, str(tmp)), nprocs=2,
+             join=True)
+    return tmp, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(2)]
+
+
+def test_sharded_resume_matches_uninterrupted(world2):
+    """Each rank's resumed state equals its uninterrupted one bit for bit;
+    the probes are equal over the ranks and the queue blocks are the
+    ranks' own."""
+    _, ranks = world2
+    for out in ranks:
+        assert out["resumed/start"].tolist() == [1, 0]
+        straight = {k[len("straight"):]: v for k, v in out.items() if k.startswith("straight/")}
+        resumed = {k[len("resumed"):]: v for k, v in out.items() if k.startswith("resumed/")}
+        _assert_same(straight, resumed, skip=("/start",))
+    probe = [k for k in ranks[0] if k.startswith("resumed/0/probe/")]
+    assert probe
+    for k in probe:
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+    assert ranks[0]["resumed/1/queue"].shape == ranks[1]["resumed/1/queue"].shape == (2, 32, 16)
+    assert not np.array_equal(ranks[0]["resumed/1/queue"], ranks[1]["resumed/1/queue"])
+
+
+def test_sharded_checkpoint_layout_and_world_check(world2, store):
+    """One replicated part and one block per rank; a world of one refuses
+    to resume from it."""
+    tmp, _ = world2
+    ck = CheckpointManager(str(tmp / "b"))
+    step = ck.latest_step()
+    assert sorted(os.listdir(os.path.join(ck.directory, str(step)))) == [
+        "rank0.pt", "rank1.pt", "replicated.pt"]
+    with pytest.raises(ValueError, match="same mesh.model"):
+        Trainer(_cfg(store, tmp / "b", ["pool.use_fused=on"], 2), device="cpu")

@@ -139,7 +139,7 @@ def test_entry_points_refuse_without_card_or_unported():
     # route on a class-sharded mesh is still refused, at a bf16 classifier too
     for bad in (["pool.head=full_softmax", "pool.classifier_dtype=bfloat16", "mesh.model=2",
                  "pool.use_fused=off"],
-                ["train.eval_freq=10"], ["mesh.data=2"]):
+                ["train.pretrained_model_path=backbone.pt"], ["mesh.data=2"]):
         with pytest.raises(NotImplementedError):
             Trainer(Config().apply_overrides(bad), device="cpu")
     # the sharded head runs one process per card: mesh.model=2 in one process

@@ -26,30 +26,30 @@ from vlsfr_tpu_torch.models.toynet import ToyNet
 EMB_ATOL = 2e-5
 
 
-def _run_both(jmodel, tmodel, size, rng):
+def _run_both(jmodel, tmodel, size, rng, batch=4, atol=EMB_ATOL, stats_atol=1e-6):
     variables = jmodel.init(jax.random.PRNGKey(1), jnp.zeros((1, size, size, 3)), train=False)
     params, stats = variables["params"], variables["batch_stats"]
     load_flax_variables(tmodel, jax.device_get(params), jax.device_get(stats))
     tmodel.train()
     for _ in range(2):
-        x = rng.standard_normal((4, size, size, 3)).astype(np.float32)
+        x = rng.standard_normal((batch, size, size, 3)).astype(np.float32)
         want, mut = jmodel.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
                                  train=True, mutable=["batch_stats"])
         stats = mut["batch_stats"]
         with torch.no_grad():
             got = tmodel(torch.from_numpy(x))
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=EMB_ATOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
     expect = state_dict_from_flax(tmodel, jax.device_get(params), jax.device_get(stats))
     for k, v in tmodel.state_dict().items():
         if "running" in k:
-            np.testing.assert_allclose(v.numpy(), expect[k].numpy(), rtol=1e-4, atol=1e-6,
+            np.testing.assert_allclose(v.numpy(), expect[k].numpy(), rtol=1e-4, atol=stats_atol,
                                        err_msg=k)
-    x = rng.standard_normal((3, size, size, 3)).astype(np.float32)
+    x = rng.standard_normal((max(batch - 1, 1), size, size, 3)).astype(np.float32)
     want = jmodel.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), train=False)
     tmodel.eval()
     with torch.no_grad():
         got = tmodel(torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=EMB_ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
 
 
 def test_toynet_matches_jax(rng):
@@ -102,9 +102,9 @@ def test_registry():
     net = create_net("ir50", feat_dim=512, dtype="bfloat16")
     n_blocks = sum(len(getattr(net, f"layer{s}")) for s in range(1, 5))
     assert n_blocks == 24 and net.fc.in_features == 512 * 7 * 7
-    for name in ("mobile", "r50"):
-        with pytest.raises(NotImplementedError):
-            create_net(name)
+    assert native_image_size("mobile") == 112 and native_image_size("r50") == 224
+    assert create_net("r50").fc.in_features == 2048 * 7 * 7
+    assert create_net("mobile", feat_dim=128).linear1.conv.out_channels == 128
     with pytest.raises(ValueError):
         create_net("vgg")
     with pytest.raises(NotImplementedError):

@@ -72,6 +72,7 @@ class IResNet(nn.Module):
                 in_ch = planes
             setattr(self, f"layer{stage}", nn.Sequential(*stage_blocks))
         self.bn2 = BatchNorm(512, dtype=dtype)
+        self.out_channels = 512
         self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
         spatial = image_size // 16
         self.fc = nn.Linear(512 * spatial * spatial, feat_dim)

@@ -29,8 +29,11 @@ and ``--device`` (default ``cuda``; ``cpu`` must be asked for).
         --queue_size 10485760 --synthetic --set pool.queue_dtype=int8 \\
         --set pool.queue_int8_compute=true
     python -m vlsfr_tpu_torch.train --config configs/ffc_10m_ids.json \\
-        --set mesh.model=1 --set data.batch_size=128 --set train.eval_freq=0 \\
-        --synthetic
+        --set mesh.model=1 --set data.batch_size=128 --synthetic
+
+Checkpoints go to ``--saved_dir`` every ``train.save_freq`` steps, at the
+end and on SIGTERM / SIGINT; running the same command again with the same
+``--saved_dir`` resumes from the newest ("resumed from checkpoint step N").
 """
 
 from __future__ import annotations
@@ -104,6 +107,7 @@ def build_config(argv=None) -> tuple[Config, str]:
 def main(argv=None):
     cfg, device = build_config(argv)
     trainer = Trainer(cfg, device=device)
+    trainer.install_signal_handlers()
     try:
         out = trainer.train()
         if is_lead_host():

@@ -47,14 +47,14 @@ class MetricsLogger:
             os.makedirs(log_dir, exist_ok=True)
             self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
 
-    def log(self, step: int, metrics: dict):
+    def log(self, step: int, metrics: dict, prefix: str = "train"):
         scalars = {k: float(v) for k, v in metrics.items()}
         parts = " ".join(
             f"{k}={v:.4g}" if abs(v) < 1e5 else f"{k}={v:.3e}" for k, v in scalars.items()
         )
-        logger.info("step %d | %s", step, parts)
+        logger.info("%s step %d | %s", prefix, step, parts)
         if self._jsonl:
-            self._jsonl.write(json.dumps({"step": step, "prefix": "train", **scalars}) + "\n")
+            self._jsonl.write(json.dumps({"step": step, "prefix": prefix, **scalars}) + "\n")
             self._jsonl.flush()
 
     def close(self):
