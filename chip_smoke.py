@@ -307,6 +307,36 @@ matmul and top-k, as XLA ran them in JAX):
    first 2^20 rows against one dense product plus ``torch.topk`` (scores
    within 1e-5; a row may differ only where the dense scores tie within
    1e-5), and the script's whole time;
+The shipped configs' batch (the kernels above 128 rows: row groups in
+batch order, no float atomics):
+39. the FFC head at b = 512 rows per direction (R = 1024), D = 512, k =
+   10, Arc, a DCP write plan of 512 writes per direction with a duplicate
+   slot: the quad kernels in their int8c (10,485,760 slots), f32 (2^20),
+   bf16 (4,194,304) and int8 (10,485,760) forms and the twin (f32, bf16;
+   2^20) against their plain versions with phases 21 and 25's limits
+   (the int8c dot and the tilings' cosines over the first 65,536 slots),
+   each kernel timed beside its plain version, yardstick and bound, each
+   backward run twice and compared bit for bit; every form at b = 200 (not
+   a multiple of 64) over 2^18 slots; the int8c partial kernels as 4
+   emulated blocks of 2,621,440 (mesh.model = 4's shard of the 10M queue)
+   merged against quad_fwd / quad_bwd, and timed over one block; then
+   ``configs/ffc_10m_ids.json`` through ``Trainer`` at mesh.model = 1 and
+   batch 256 (its one-card batch, PERF.md §5): 3 steps, a finite loss,
+   each int8c kernel launched once a step, step time and peak memory;
+40. the softmax head at B = 512, D = 512: the f32 margin_ce forward,
+   backward, fused SGD and sparse backward over 5,000,000 classes against
+   their plain versions (phases 7 and 11's limits; the three tilings'
+   cosines bit for bit over the first 2^18 classes), timed (the yardsticks
+   per 2^20-column chunk), the backward and the fused update (d_emb, W and
+   mom) run twice and compared bit for bit; the bf16 forms in the three
+   (w, mom) pairs at 2^20 classes and route D's sparse backward on a bf16
+   classifier (phase 29's limits), each bf16 form timed as in phase 30;
+   every form at B = 200 over 2^18 classes; the partial kernels as 4 blocks of 1,250,000
+   merged against the whole classifier, and timed over one block; then
+   ``configs/partial_fc_ir50_5m_ids.json`` through ``Trainer`` at
+   mesh.model = 1 and its batch of 512 (route A): 3 steps, a finite loss,
+   the forward and the fused kernel launched once a step, step time and
+   peak memory;
 then the ``kernels`` JSON line (44 entries: the ten f32 kernels, the
 twelve quad forms, the twin kernels in f32 and bf16, the eight bf16 forms
 of the margin_ce kernels, ``conv3x3``, ``conv3x3[stats]``,
@@ -678,13 +708,15 @@ def margin_launches(tms, **counts) -> dict:
     return dict(dict.fromkeys(tms.LAUNCH_COUNTS, 0), **counts)
 
 
-def softmax_case(c: int, loss_type: str, k: int, frac_outlier: float, seed: int):
-    """Unit embeddings [128, 512], a 0.01·N(0, 1) classifier and momentum
-    [c, 512], labels with one class twice (rows 0 and 1) and optionally
-    outlier rows; d_ce = 1/B on labelled rows, d_neg = 1/B on outliers."""
+def softmax_case(c: int, loss_type: str, k: int, frac_outlier: float, seed: int,
+                 b: int = SOFTMAX["b"]):
+    """Unit embeddings [b, 512] (the slice's 128 rows unless given), a
+    0.01·N(0, 1) classifier and momentum [c, 512], labels with one class
+    twice (rows 0 and 1) and optionally outlier rows; d_ce = 1/B on
+    labelled rows, d_neg = 1/B on outliers."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b, d = SOFTMAX["b"], SOFTMAX["d"]
+    d = SOFTMAX["d"]
     emb = torch.randn((b, d), generator=gen, device=dev)
     emb /= torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
     w = torch.randn((c, d), generator=gen, device=dev).mul_(0.01)
@@ -698,7 +730,7 @@ def softmax_case(c: int, loss_type: str, k: int, frac_outlier: float, seed: int)
     d_ce = torch.where(pos, 1.0 / b, 0.0)
     d_neg = torch.where(pos, 0.0, 1.0 / b)
     kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
-    print(f"  case C={c} {loss_type} k={k}: {int(pos.sum())}/{b} labelled rows, class "
+    print(f"  case B={b} C={c} {loss_type} k={k}: {int(pos.sum())}/{b} labelled rows, class "
           f"{int(labels[0])} twice")
     return emb, w, mom, labels, d_ce, d_neg, kw
 
@@ -775,27 +807,39 @@ def softmax_timing(emb, w, mom, labels, d_ce, d_neg, kw, gt, logz, topk):
                 emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, LR, **SGD, **kw), 3, 1)),
     }
 
-    def library_fwd():  # yardsticks only: the port never calls these
-        cos = emb @ F.normalize(w, dim=1).T
-        torch.logsumexp(kw["scale"] * cos, dim=1)
-        torch.topk(cos, k, dim=1)
-
-    out["margin_ce_fwd"]["library_ms"] = cuda_ms(library_fwd, 5, 1)
-    d_cos = torch.randn((b, c), device=emb.device).mul_(1e-4)
+    # above 2^20 classes the yardsticks run per 2^20-column chunk: [B, C]
+    # f32 intermediates at 5,000,000 classes would not fit beside W and mom
+    chunk = 1 << 20
+    d_cos = torch.randn((b, min(c, chunk)), device=emb.device).mul_(1e-4)
     w_s, mom_s = w.clone(), mom.clone()
 
-    def library_bwd():  # the kernel's work: the cosine recompute, then both products
-        wn = F.normalize(w, dim=1)
+    def library_fwd():  # yardsticks only: the port never calls these
+        for lo in range(0, c, chunk):
+            cos = emb @ F.normalize(w[lo:lo + chunk], dim=1).T
+            torch.logsumexp(kw["scale"] * cos, dim=1)
+            torch.topk(cos, k, dim=1)
+
+    def library_bwd(lo=0):  # the kernel's work: the cosine recompute, then both products
+        wn = F.normalize(w[lo:lo + chunk], dim=1)
+        dc = d_cos[:, :wn.shape[0]]
         torch.matmul(emb, wn.T)
-        torch.matmul(d_cos, wn)
-        return torch.matmul(d_cos.T, emb)
+        torch.matmul(dc, wn)
+        return torch.matmul(dc.T, emb)
+
+    def library_bwd_all():
+        for lo in range(0, c, chunk):
+            library_bwd(lo)
 
     def library_fused():
-        g = library_bwd().add_(w_s, alpha=SGD["weight_decay"])
-        mom_s.mul_(SGD["momentum"]).add_(g)
-        w_s.sub_(g.add_(mom_s, alpha=SGD["momentum"]), alpha=LR)
+        for lo in range(0, c, chunk):
+            ws, ms = w_s[lo:lo + chunk], mom_s[lo:lo + chunk]
+            g = library_bwd(lo).add_(ws, alpha=SGD["weight_decay"])
+            ms.mul_(SGD["momentum"]).add_(g)
+            ws.sub_(g.add_(ms, alpha=SGD["momentum"]), alpha=LR)
 
-    out["margin_ce_bwd"]["library_ms"] = cuda_ms(library_bwd, 5, 1)
+    out["margin_ce_fwd"]["library_ms"] = cuda_ms(library_fwd, 5, 1)
+
+    out["margin_ce_bwd"]["library_ms"] = cuda_ms(library_bwd_all, 5, 1)
     out["margin_ce_bwd_fused_sgd"]["library_ms"] = cuda_ms(library_fused, 5, 1)
     del d_cos, w_s, mom_s
     # d_emb alone (grad_w=False: the cosines and d_emb += (d_cos inv) W) and
@@ -941,14 +985,15 @@ def route_d_rows() -> int:
     return tile * tms.sparse_m_tiles(SPARSE_RATE, n_tiles, SOFTMAX["b"])
 
 
-def check_sparse(c: int, loss_type: str, k: int, frac_outlier: float, seed: int):
+def check_sparse(c: int, loss_type: str, k: int, frac_outlier: float, seed: int,
+                 b: int = SOFTMAX["b"]):
     """The forward with statistics and the sparse backward against their
     plain versions on one case (``parity.sparse_path_checks``); raises
     above a limit. Returns the case, the tiles and the max errors."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
     from vlsfr_tpu_torch.utils import parity
 
-    emb, w, mom, labels, d_ce, d_neg, kw = softmax_case(c, loss_type, k, frac_outlier, seed)
+    emb, w, mom, labels, d_ce, d_neg, kw = softmax_case(c, loss_type, k, frac_outlier, seed, b)
     del mom
     b, d = emb.shape
     tile, n_tiles = tms.sparse_bwd_geometry(b, d, c)
@@ -1142,14 +1187,14 @@ def route_e_phase(card: str, tmp: str) -> None:
         free_trainer(trainer)
 
 
-def shard_case(q: int, loss_type: str, seed: int, form: str = "f32"):
+def shard_case(q: int, loss_type: str, seed: int, form: str = "f32", b: int = SLICE["b"]):
     """``raw_case`` with its slots moved by slot -> slot·SLOT_MULT mod q (a
     permutation: duplicates, written labels and pool hits keep their
     structure) so that the targets spread over the SHARDS blocks; asserts
     that every block owns targets and that some row's target and write lie
     in different blocks. Returns quad_shard_checks's inputs and the loss
     arguments."""
-    b, d, k = SLICE["b"], SLICE["d"], SLICE["k"]
+    d, k = SLICE["d"], SLICE["k"]
     queue, qs, gen, (p_x, p_y, g_a, g_b, pa, pb, la, lb) = raw_case(q, b, d, seed, form)
     move = lambda c: torch.where(c >= 0, (c.long() * SLOT_MULT) % q, c.long()).to(c.dtype)  # noqa: E731
     pa, pb = (pa[0], move(pa[1]), pa[2]), (pb[0], move(pb[1]), pb[2])
@@ -1334,14 +1379,14 @@ def sharded_train_phase(card: str, tmp: str) -> dict:
 
 
 def class_shard_parity(c: int, loss_type: str, k: int, frac_outlier: float, n_shards: int,
-                       seed: int):
+                       seed: int, b: int = SOFTMAX["b"]):
     """``parity.margin_shard_checks`` on one softmax case cut into
     ``n_shards`` blocks; raises above a limit. Returns the case with the
     merged (gt, logz, topk), and the max errors of the partial kernels."""
     from vlsfr_tpu_torch.parallel._shard_common import localize_labels
     from vlsfr_tpu_torch.utils import parity
 
-    emb, w, mom, labels, d_ce, d_neg, kw = softmax_case(c, loss_type, k, frac_outlier, seed)
+    emb, w, mom, labels, d_ce, d_neg, kw = softmax_case(c, loss_type, k, frac_outlier, seed, b)
     cl = c // n_shards
     for j in range(n_shards):
         ll, _ = localize_labels(j * cl, cl, labels)
@@ -1400,11 +1445,12 @@ def block_pos_rows_parity(case, n_shards: int, j: int = 1) -> None:
                            + "; ".join(map(parity.describe, bad)))
 
 
-def margin_partial_timing(case) -> dict:
+def margin_partial_timing(case, blocks=(SOFTMAX["c"], SHIPPED_CLASSES // CLASS_SHARDS)) -> dict:
     """Both partial margin_ce kernels over a 2^20 block (world 1 at the
     slice's width) and a 1,250,000 block (one card's block of the shipped
-    5M config): kernel, plain version, a cuBLAS composition (a yardstick the
-    port never calls) and the bound. Returns {(name, columns): times}."""
+    5M config), or the ``blocks`` given: kernel, plain version, a cuBLAS
+    composition (a yardstick the port never calls) and the bound. Returns
+    {(name, columns): times}."""
     import torch.nn.functional as F
 
     from vlsfr_tpu_torch.ops import margin_stream as tms
@@ -1416,7 +1462,7 @@ def margin_partial_timing(case) -> dict:
     kth = topk[:, -1].contiguous()
     d_ce_m, d_neg_m = tms._mask_cotangents(labels >= 0, d_ce, d_neg)
     out = {}
-    for cols in (SOFTMAX["c"], SHIPPED_CLASSES // CLASS_SHARDS):
+    for cols in blocks:
         blk = w[:cols]
         ll, _ = localize_labels(0, cols, labels)
         _, d_wl = tms._target_rows(emb, blk, ll, gt, logz, d_ce_m, loss_type=kw["loss_type"],
@@ -1605,7 +1651,8 @@ def form_limits() -> None:
 
     print("  limits: ce / neg / logz 1e-4 absolute and top-k 1e-5 (f32 sums of exact "
           "bf16 / int8 products in another order over the queue); d_gt 1e-5; d_emb in two "
-          f"parts: at most {parity.STRADDLE_ROWS} rows beyond {parity.DEMB_TIGHT:g} x its max "
+          f"parts: at most {parity.STRADDLE_ROWS} rows in each 256 beyond {parity.DEMB_TIGHT:g} "
+          f"x its max "
           f"and none beyond {parity.ROUNDED_DEMB_RTOL:g} x its max (both sides round each "
           "d_cos to bf16 before its product with a row; where the kernel's f32 d_cos and the "
           "plain version's straddle a bf16 boundary one term moves by up to 2^-8 of itself, "
@@ -1617,7 +1664,7 @@ def form_limits() -> None:
           f"{parity.BF16_COS_ATOL:g} of the plain version's (exact products in another order)")
 
 
-def form_parity(form: str, q: int, loss_type: str, seed: int):
+def form_parity(form: str, q: int, loss_type: str, seed: int, b: int = SLICE["b"]):
     """``parity.quad_checks`` on one case of the form at FORM_TILE (and,
     over the first 65,536 slots, for int8c the int8 dot,
     ``parity.int8_dot_checks``, for bf16 and int8 the clean cosines of both
@@ -1628,9 +1675,9 @@ def form_parity(form: str, q: int, loss_type: str, seed: int):
     from vlsfr_tpu_torch.ops import twin_margin as ttm
     from vlsfr_tpu_torch.utils import parity
 
-    case = make_case(q, SLICE["b"], SLICE["d"], SLICE["k"], loss_type, seed, form)
+    case = make_case(q, b, SLICE["d"], SLICE["k"], loss_type, seed, form)
     print(f"  rounding tile: {FORM_TILE} requested, "
-          f"{ttm.round_tile(q, SLICE['b'], SLICE['d'], FORM_TILE, case[0].element_size())} "
+          f"{ttm.round_tile(q, b, SLICE['d'], FORM_TILE, case[0].element_size())} "
           f"resolved")
     checks, want = parity.quad_checks(*case, tile=FORM_TILE)
     queue, kw = case[0], case[2]
@@ -1985,7 +2032,7 @@ TWIN_FORMS = ("f32", "bf16")
 TWIN_TILE = 512
 
 
-def twin_case(q: int, loss_type: str, seed: int, form: str):
+def twin_case(q: int, loss_type: str, seed: int, form: str, b: int = SLICE["b"]):
     """One direction of ``raw_case`` (its DCP write plan, a duplicate
     slot) with labels at written slots and 25 % outliers, as
     tools/bench_sharded_twin.py:45-50 builds them; the in-pool probes near
@@ -1995,7 +2042,7 @@ def twin_case(q: int, loss_type: str, seed: int, form: str):
     (emb, g, plan, labels)."""
     from vlsfr_tpu_torch.ops import twin_margin as ttm
 
-    b, d = SLICE["b"], SLICE["d"]
+    d = SLICE["d"]
     queue, _, gen, (p_x, _, g_a, _, pa, _, _, _) = raw_case(q, b, d, seed, form)
     rng = np.random.default_rng(seed)
     out = torch.from_numpy(rng.random(b) < 0.25).to(queue.device)
@@ -2035,8 +2082,8 @@ def twin_parity(case, tile: int = TWIN_TILE):
     from vlsfr_tpu_torch.ops import twin_margin as ttm
     from vlsfr_tpu_torch.utils import parity
 
-    queue = case[0]
-    rt = ttm.round_tile(queue.shape[1], SLICE["b"], SLICE["d"], tile, queue.element_size())
+    queue, b = case[0], case[1][0].shape[0]
+    rt = ttm.round_tile(queue.shape[1], b, SLICE["d"], tile, queue.element_size())
     print(f"  rounding tile: {tile} requested, {rt} resolved")
     checks, want = parity.twin_checks(*case, tile=tile)
     report(checks, "the twin kernels")
@@ -2399,10 +2446,10 @@ BF16_FAULTS = {
 
 
 def bf16_case(c: int, loss_type: str, k: int, frac_outlier: float, seed: int,
-              pair: str = "bf16,bf16"):
+              pair: str = "bf16,bf16", b: int = SOFTMAX["b"]):
     """``softmax_case`` with the classifier and momentum stored in the
     pair's dtypes (the f32 draw cast, as JAX casts its init)."""
-    emb, w, mom, labels, d_ce, d_neg, kw = softmax_case(c, loss_type, k, frac_outlier, seed)
+    emb, w, mom, labels, d_ce, d_neg, kw = softmax_case(c, loss_type, k, frac_outlier, seed, b)
     w_dt, m_dt = FUSED_PAIRS[pair]
     return emb, w.to(w_dt), mom.to(m_dt), labels, d_ce, d_neg, kw
 
@@ -2605,7 +2652,7 @@ def bf16_parity_phase(tmp: str) -> dict:
 
 
 
-def bf16_timing_phase(sparse_case) -> dict:
+def bf16_timing_phase(sparse_case, b: int = SOFTMAX["b"]) -> dict:
     """Phase 30: each bf16 form at full width: kernel, plain version, a
     PyTorch composition on the tensor cores (bf16 matmuls, f32 accumulate;
     the port never calls it) and the bound: bytes at 3.35 TB/s against the
@@ -2617,8 +2664,8 @@ def bf16_timing_phase(sparse_case) -> dict:
     from vlsfr_tpu_torch.parallel._shard_common import localize_labels
 
     out = {}
-    emb, w, mom, labels, d_ce, d_neg, kw = bf16_case(SOFTMAX["c"], "Arc", 1, 0.0, 13)
-    b, d = emb.shape
+    emb, w, mom, labels, d_ce, d_neg, kw = bf16_case(SOFTMAX["c"], "Arc", 1, 0.0, 13, b=b)
+    d = emb.shape[1]
     c, k = w.shape[0], kw["k"]
     gt = tms.compute_gt(emb, w, labels)
     _, _, logz, topk = tms.margin_ce_fwd(emb, w, labels, gt, **kw)
@@ -3598,6 +3645,261 @@ def serving_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# the shipped batch: the quad / twin and margin_ce kernels above 128 rows
+# (phases 39-40)
+# ----------------------------------------------------------------------
+
+SHIPPED_B = 512  # data.batch_size of configs/ffc_10m_ids.json and partial_fc_ir50_5m_ids.json
+RAGGED_B, RAGGED_Q = 200, 1 << 18  # a batch that is not a multiple of 64, and its queue
+FFC_CONFIG, FFC_CONFIG_B = "configs/ffc_10m_ids.json", 256  # its one-card batch (PERF.md §5)
+SOFTMAX_CONFIG = "configs/partial_fc_ir50_5m_ids.json"  # at its own batch of 512
+SHIPPED_Q = {"int8c": 10 << 20, "f32": 1 << 20, "bf16": 4 << 20, "int8": 10 << 20}
+SHIPPED_STEPS = 3
+
+
+def same_bits(what: str, first, second) -> None:
+    """Two runs' outputs equal bit for bit (the kernels merge in a fixed
+    order, no float atomics); raises otherwise."""
+    for i, (x, y) in enumerate(zip(first, second)):
+        if not torch.equal(x, y):
+            raise RuntimeError(f"{what}: output {i} differs between two runs "
+                               f"({int((x != y).sum())} elements)")
+    print(f"  {what}: two runs equal bit for bit")
+
+
+def quad_shipped_parity(form: str, q: int, b: int, seed: int, timed: bool) -> None:
+    """One quad form at b rows per direction against its plain version
+    (``form_parity``'s checks, phase 21's limits; f32: phase 3's), and with
+    ``timed`` each kernel's time beside its plain version, yardstick and
+    bound, and the backward run twice, bit for bit."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+    from vlsfr_tpu_torch.utils import parity
+
+    if form == "f32":
+        case = make_case(q, b, SLICE["d"], SLICE["k"], "Arc", seed)
+        checks, want = parity.quad_checks(*case)
+        n = min(q, 1 << 16)
+        checks += parity.f32_cos_checks(case[1][0], case[0][0, :n], f"first {n:,} slots: ")
+        report(checks, f"the f32 quad kernels at b = {b}")
+    else:
+        case, want, _ = form_parity(form, q, "Arc", seed, b)
+    if timed:
+        queue, packed, kw, dce, dneg = case
+        E, rest = packed[0], packed[1:]
+        logz, kth = want[2], want[3][:, :, -1].contiguous()
+        tile = dict(tile=FORM_TILE) if form != "f32" else {}
+        bwd = lambda: ttm.quad_bwd(E, queue, *rest, logz, kth, dce, dneg, **kw, **tile)  # noqa: E731
+        same_bits(f"{ttm.kernel_name('quad_bwd', form)} at b = {b}", bwd(), bwd())
+        if form == "f32":
+            timing(queue, packed, kw, dce, dneg, want)
+        else:
+            form_timing(form, case, want)
+    del case, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def twin_shipped_parity(form: str, q: int, b: int, seed: int, timed: bool) -> None:
+    """The twin kernels at b rows against their plain versions (phase 25's
+    limits); with ``timed`` their times and the backward twice, bit for
+    bit."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    case, _ = twin_case(q, "Arc", seed, form, b)
+    want, _ = twin_parity(case)
+    if timed:
+        queue, inputs, kw, dce, dneg = case
+        logz, kth = want[2], want[3][:, :, -1].contiguous()
+        bwd = lambda: ttm.twin_bwd(inputs[0], queue, *inputs[1:], logz, kth, dce, dneg,  # noqa: E731
+                                   **kw, tile=TWIN_TILE)
+        name = "twin_bwd" if form == "f32" else f"twin_bwd[{form}]"
+        same_bits(f"{name} at b = {b}", bwd(), bwd())
+        twin_timing(form, case, want)
+    del case, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def shipped_trainer(config: str, tmp: str, *overrides: str):
+    """A shipped config through the Trainer on one card (``mesh.model=1``,
+    no eval, no held-out records) over a synthetic store of 1,600 images."""
+    from vlsfr_tpu_torch.config import Config
+    from vlsfr_tpu_torch.train.trainer import Trainer
+
+    cfg = Config.load(config).apply_overrides([
+        "mesh.model=1", "mesh.data=1", "train.eval_freq=0", "train.holdout_records=0",
+        "train.print_freq=1",
+        "data.synthetic_ids=200", "data.synthetic_images_per_id=8", "data.num_workers=4",
+        *overrides])
+    cfg.data.synthetic = True
+    cfg.train.saved_dir = tmp
+    return Trainer(cfg)
+
+
+def shipped_train(config: str, tmp: str, card: str, counts, want: set, *overrides: str) -> None:
+    """SHIPPED_STEPS steps of ``config`` through the Trainer: finite loss,
+    the wanted kernels launched once a step and nothing else of the
+    family (``counts``: its module's LAUNCH_COUNTS); prints the step time
+    and the peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    trainer = shipped_trainer(config, tmp, *overrides)
+    try:
+        b, trainer_is_ffc = trainer.cfg.data.batch_size, trainer.is_ffc
+        print(f"  {config} at batch {b}: {trainer.steps_per_epoch} steps an epoch")
+        for key in counts:
+            counts[key] = 0
+        t0 = time.perf_counter()
+        out = trainer.train(max_steps=SHIPPED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(counts)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        trainer.close()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  {SHIPPED_STEPS} steps: {json.dumps(out)}")
+    print(f"  launches: { {k: v for k, v in launches.items() if v} }")
+    if not only_launched(launches, {k: SHIPPED_STEPS for k in want}):
+        raise RuntimeError(f"each of {sorted(want)} must launch once a step: {launches}")
+    if not (math.isfinite(out["loss"]) and out["final_step"] == SHIPPED_STEPS):
+        raise RuntimeError(f"{config} did not train {SHIPPED_STEPS} finite steps: {out}")
+    images = 2 * b if trainer_is_ffc else b  # the FFC step embeds a pair of batches
+    print(f"  step time {images / out['images_per_sec'] * 1e3:.1f} ms (last window, {card}); "
+          f"{SHIPPED_STEPS} steps {wall:.2f} s wall incl. first-step warm-up; peak memory "
+          f"{peak / 2**30:.2f} GiB ({card})")
+
+
+def bf16_sparse_case(b: int, seed: int):
+    """Route D's forward statistics and sparse backward on a bf16
+    classifier of 2^20 classes at B = b against their plain versions
+    (``parity.sparse_path_checks``, phase 29's limits); returns the case
+    ``bf16_timing_phase`` times."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.utils import parity
+
+    emb, w, _, labels, d_ce, d_neg, kw = bf16_case(SOFTMAX["c"], "Arc", 1, 0.0, seed, b=b)
+    tile, n_tiles = tms.sparse_bwd_geometry(b, emb.shape[1], w.shape[0])
+    m = tms.sparse_m_tiles(SPARSE_RATE, n_tiles, b)
+    u = torch.rand((n_tiles,), generator=torch.Generator(device=emb.device).manual_seed(seed),
+                   device=emb.device)
+    checks, tile_idx, (gt, logz, topk) = parity.sparse_path_checks(emb, w, labels, d_ce, d_neg,
+                                                                    kw, tile, m, u)
+    print(f"    tile {tile}, {m} of {n_tiles} tiles")
+    report(checks, "the bf16 forward statistics / sparse backward")
+    return emb, w, labels, d_ce, d_neg, kw, tile, tile_idx, gt, logz, topk
+
+
+def ffc_shipped_phase(card: str, tmp: str) -> None:
+    """Phase 39: the quad / twin kernels at the 10M-identity config's batch
+    (b = 512 rows per direction, R = 1024): every form against its plain
+    version at full width (int8c and int8 at 10,485,760 slots, bf16 at
+    4,194,304, f32 at 2^20; the twin f32 and bf16 at 2^20), timed, each
+    backward twice bit for bit; every form at b = 200 over 2^18 slots; the
+    int8c partial kernels as 4 emulated blocks of 2,621,440 (mesh.model =
+    4's shard of the 10M queue), and timed over one; then
+    configs/ffc_10m_ids.json through the Trainer at mesh.model = 1, batch
+    256."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    for i, form in enumerate(("int8c", "f32", "bf16", "int8")):
+        print(f"  the {form} form at b = {SHIPPED_B}, Q = {SHIPPED_Q[form]:,}:")
+        quad_shipped_parity(form, SHIPPED_Q[form], SHIPPED_B, 40 + i, timed=True)
+    for i, form in enumerate(TWIN_FORMS):
+        print(f"  the {form} twin at b = {SHIPPED_B}, Q = {TWIN_Q:,}:")
+        twin_shipped_parity(form, TWIN_Q, SHIPPED_B, 44 + i, timed=True)
+    for i, form in enumerate(("f32", *FORMS)):
+        print(f"  the {form} form at b = {RAGGED_B}, Q = {RAGGED_Q:,}:")
+        quad_shipped_parity(form, RAGGED_Q, RAGGED_B, 46 + i, timed=False)
+    for i, form in enumerate(TWIN_FORMS):
+        print(f"  the {form} twin at b = {RAGGED_B}, Q = {RAGGED_Q:,}:")
+        twin_shipped_parity(form, RAGGED_Q, RAGGED_B, 50 + i, timed=False)
+    q = SHIPPED_Q["int8c"]
+    print(f"  the int8c partial kernels at b = {SHIPPED_B}: the queue as {SHARDS} blocks of "
+          f"{q // SHARDS:,}")
+    case, kw = shard_case(q, "Arc", 52, "int8c", SHIPPED_B)
+    shard_parity(case, kw, SHARDS, tile=FORM_TILE)
+    form_partial_timing("int8c", case, kw)
+    del case
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {FFC_CONFIG} through the Trainer (mesh.model=1, data.batch_size={FFC_CONFIG_B}):")
+    shipped_train(FFC_CONFIG, os.path.join(tmp, "ffc10m"), card, ttm.LAUNCH_COUNTS,
+                  {"quad_fwd[int8c]", "quad_bwd[int8c]"}, f"data.batch_size={FFC_CONFIG_B}")
+
+
+def softmax_shipped_phase(card: str, tmp: str) -> None:
+    """Phase 40: the margin_ce kernels at the 5M-class config's batch (B =
+    512): the f32 forward, backward, fused SGD and sparse backward over
+    5,000,000 classes against their plain versions (phases 7 / 11's
+    limits; the cosines of the three tilings bit for bit over the first
+    2^18 classes), timed, the fused update's W and mom twice bit for bit;
+    the bf16 forms at 2^20 classes (phase 29's limits); every form at B =
+    200 over 2^18 classes; the partial kernels as 4 blocks of 1,250,000
+    and timed over one; then configs/partial_fc_ir50_5m_ids.json through
+    the Trainer at mesh.model = 1, its batch of 512 (route A)."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+    from vlsfr_tpu_torch.utils.parity import margin_cos_checks
+
+    b, c = SHIPPED_B, SHIPPED_CLASSES
+    full = softmax_case(c, "Arc", 1, 0.0, 60, b)
+    n = 1 << 18
+    print(f"  the f32 cosines of the three tilings over the first {n:,} classes:")
+    report(margin_cos_checks(full[0], full[1][:n].contiguous()), "the f32 cosines of the tilings")
+    gt, logz, topk, _ = check_softmax(*full, verbose=True)
+    emb, w, mom, labels, d_ce, d_neg, kw = full
+    start = (w.cpu(), mom.cpu())  # 20 GB at 5M classes: the runs' copies wait on the host
+    runs = []
+    for _ in range(2):
+        w.copy_(start[0])
+        mom.copy_(start[1])
+        d_emb = tms.margin_ce_bwd_fused_sgd(emb, w, mom, labels, gt, logz, topk, d_ce, d_neg, LR,
+                                            **SGD, **kw)[0]
+        runs.append((d_emb.cpu(), w.cpu(), mom.cpu()))
+    same_bits("margin_ce_bwd_fused_sgd (d_emb, W, mom) at B = 512", *runs)
+    del runs, start
+    same_bits("margin_ce_bwd (d_emb, d_w) at B = 512",
+              *(tms.margin_ce_bwd(emb, w, labels, gt, logz, topk, d_ce, d_neg, **kw)
+                for _ in range(2)))
+    softmax_timing(*full, gt, logz, topk)
+    del full, emb, w, mom, gt, logz, topk
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  the sparse backward at B = {b}, C = {c:,}:")
+    sparse = check_sparse(c, "Arc", 1, 0.0, 61, b)[0]
+    sparse_timing(*sparse)
+    del sparse
+    gc.collect()
+    torch.cuda.empty_cache()
+    for pair in FUSED_PAIRS:
+        print(f"  the bf16 forms ({pair}) at B = {b}, C = {SOFTMAX['c']:,}:")
+        bf16_softmax_checks(bf16_case(SOFTMAX["c"], "Arc", 1, 0.0, 62, pair, b), pair)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  the bf16 sparse backward at B = {b}, C = {SOFTMAX['c']:,}, and every bf16 form "
+          "timed:")
+    bf16_timing_phase(bf16_sparse_case(b, 67), b)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  every form at B = {RAGGED_B}, C = {RAGGED_Q:,}:")
+    check_softmax(*softmax_case(RAGGED_Q, "Arc", 3, 0.3, 63, RAGGED_B))
+    check_sparse(RAGGED_Q, "Arc", 3, 0.3, 64, RAGGED_B)
+    for pair in FUSED_PAIRS:
+        bf16_softmax_checks(bf16_case(RAGGED_Q, "Arc", 3, 0.3, 65, pair, RAGGED_B), pair)
+    print(f"  the partial kernels at B = {b}: {c:,} classes as {CLASS_SHARDS} blocks of "
+          f"{c // CLASS_SHARDS:,}:")
+    full = class_shard_parity(c, "Arc", 1, 0.0, CLASS_SHARDS, 66, b)[0]
+    margin_partial_timing(full, (c // CLASS_SHARDS,))
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {SOFTMAX_CONFIG} through the Trainer (mesh.model=1, its batch of {b}; route A):")
+    shipped_train(SOFTMAX_CONFIG, os.path.join(tmp, "softmax5m"), card, tms.LAUNCH_COUNTS,
+                  {"margin_ce_fwd", "margin_ce_bwd_fused_sgd"})
+
+
 BF16_KERNELS = (  # the kernels line's bf16 forms: (name, the TPU kernel it replaces)
     ("margin_ce_fwd[bf16]", "margin_pallas.py:390"),
     ("margin_ce_bwd[bf16]", "margin_pallas.py:557"),
@@ -3826,6 +4128,17 @@ def main() -> int:
     checkpoint_phase(card)
     print("== phase 38: serving: Embedder and FaceIndex")
     serving_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        print(f"== phase 39: the quad / twin kernels at the 10M config's batch (b = {SHIPPED_B}, "
+              f"R = {2 * SHIPPED_B}, D = 512; limits as phases 21 and 25), b = {RAGGED_B}, "
+              f"the int8c shard, and {FFC_CONFIG} through the Trainer")
+        ffc_shipped_phase(card, tmp)
+        print(f"== phase 40: the margin_ce kernels at the 5M config's batch (B = {SHIPPED_B}, "
+              f"D = 512; limits as phases 7, 11 and 29), B = {RAGGED_B}, the class shard, and "
+              f"{SOFTMAX_CONFIG} through the Trainer")
+        softmax_shipped_phase(card, tmp)
     print(f"  chip_smoke.py {time.perf_counter() - t_start:.1f} s ({card})")
 
     fwd_keys = ("ce", "neg", "logz", "topk")

@@ -164,20 +164,26 @@ def test_entry_points_refuse_without_card_or_unported():
 
 
 def test_fused_batch_above_kernel_rows_refused_up_front():
-    """On a card the fused head's kernels take 128 rows per direction: the
-    Trainer and ``create_ffc_state`` refuse a larger batch before anything
-    is built (the CPU's plain versions take any; the dense head takes any
-    batch on either device)."""
-    from vlsfr_tpu_torch.core.ffc import check_kernel_batch
+    """On a card the fused head's kernels take any batch: the check the
+    Trainer and ``create_ffc_state`` run before anything is built accepts
+    the shipped 10M config's 512 (and 256) rows per direction on either
+    device and head, and refuses only a feature width the kernels do not
+    take (a multiple of 64 up to 512) on a card; the CPU's plain versions
+    take any."""
+    from vlsfr_tpu_torch.core.ffc import check_kernel_width
 
-    fused = Config().apply_overrides(["data.batch_size=512", "pool.use_fused=on"])
-    check_kernel_batch(fused, "cpu")
-    with pytest.raises(NotImplementedError, match="512 above the fused FFC head's kernels' "
-                                                  "128 rows per direction is not ported"):
-        check_kernel_batch(fused, torch.device("cuda"))
-    check_kernel_batch(Config().apply_overrides(["data.batch_size=512", "pool.use_fused=off"]),
-                       "cuda")
-    check_kernel_batch(Config().apply_overrides(["data.batch_size=128", "pool.use_fused=on"]),
+    for over in (["data.batch_size=512", "pool.use_fused=on"],
+                 ["data.batch_size=256", "pool.use_fused=on"],
+                 ["data.batch_size=512", "pool.use_fused=off"],
+                 ["data.batch_size=128", "pool.use_fused=on"]):
+        for device in ("cpu", torch.device("cuda")):
+            check_kernel_width(Config().apply_overrides(over), device)
+    narrow = Config().apply_overrides(["data.batch_size=512", "pool.use_fused=on",
+                                       "model.feat_dim=96"])
+    check_kernel_width(narrow, "cpu")
+    with pytest.raises(NotImplementedError, match="feat_dim=96 on the fused FFC head's kernels"):
+        check_kernel_width(narrow, torch.device("cuda"))
+    check_kernel_width(Config().apply_overrides(["model.feat_dim=96", "pool.use_fused=off"]),
                        "cuda")
 
 

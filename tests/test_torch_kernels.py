@@ -156,7 +156,12 @@ KERNEL_CASES = [("Arc", 64, 5000, 128, 10), ("AM", 64, 5000, 128, 10),
                 ("Arc", 128, 40000, 512, 16),
                 # R = 80 rows (not a multiple of the backward's 64-row group), Q not
                 # a multiple of its 64-column tile, D = 192 and 64
-                ("Arc", 40, 5001, 192, 10), ("SV", 40, 5001, 64, 5)]
+                ("Arc", 40, 5001, 192, 10), ("SV", 40, 5001, 64, 5),
+                # above 128 rows per direction: R = 400 (the f32 forward's two
+                # 256-row groups, the second ragged) and R = 1024 (four; the
+                # backward's sixteen 64-row groups)
+                ("Arc", 200, 5001, 512, 10), ("SV", 512, 20000, 256, 10),
+                ("AM", 512, 4096, 64, 3)]
 
 
 @pytest.mark.gpu
@@ -392,7 +397,11 @@ def test_row_set_checks_catch_a_fault_on_the_other_rows():
 
 SOFTMAX_CASES = [("Arc", 128, 5000, 512, 1, 0.0), ("AM", 64, 3001, 128, 3, 0.3),
                  ("SV", 8, 700, 64, 3, 0.3), ("Arc", 128, 40000, 512, 16, 0.2),
-                 ("Arc", 100, 3002, 192, 3, 0.3), ("SV", 37, 777, 320, 16, 0.5)]
+                 ("Arc", 100, 3002, 192, 3, 0.3), ("SV", 37, 777, 320, 16, 0.5),
+                 # above 128 rows: the forward's row groups (the last ragged),
+                 # the f32 d_emb pass and the d_w pass in row groups
+                 ("Arc", 200, 5001, 512, 3, 0.3), ("SV", 512, 20000, 512, 1, 0.0),
+                 ("AM", 300, 3001, 64, 3, 0.2)]
 
 
 SGD = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
@@ -435,9 +444,23 @@ def test_bf16_softmax_kernels_match_plain(pair, loss_type, k, frac_outlier):
     plain versions with the bf16 checks of utils/parity.py: the forward, the
     backward, the fused kernel in the (w, mom) pair, and route D's forward
     statistics and sparse backward; each launch counted under its form."""
+    _bf16_softmax_case(pair, loss_type, k, frac_outlier, 128, 5000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(BF16_PAIRS))
+@pytest.mark.parametrize("b,c", [(200, 5001), (512, 20000)])
+def test_bf16_softmax_kernels_above_128_rows(pair, b, c):
+    """``test_bf16_softmax_kernels_match_plain`` above 128 batch rows (the
+    forward's and the d_w pass's row groups, the last one ragged at B =
+    200; the d_emb pass's 64-row groups), Arc with outliers, k = 3."""
+    _bf16_softmax_case(pair, "Arc", 3, 0.3, b, c)
+
+
+def _bf16_softmax_case(pair, loss_type, k, frac_outlier, b, c):
     dev = _cuda()
     w_dt, m_dt = BF16_PAIRS[pair]
-    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(1, 128, 5000, 512, k, frac_outlier, dev)
+    emb, w, mom, labels, d_ce, d_neg = make_softmax_case(1, b, c, 512, k, frac_outlier, dev)
     w, mom = w.to(w_dt), mom.to(m_dt)
     kw = dict(loss_type=loss_type, margin=0.5, scale=32.0, k=k, mask_svfc=1.2)
     gt = tms.compute_gt(emb, w, labels)
@@ -449,8 +472,11 @@ def test_bf16_softmax_kernels_match_plain(pair, loss_type, k, frac_outlier):
                                              d_neg, kw, LR, SGD)
     checks += bwd + fused
     if w_dt == torch.bfloat16:
-        u = torch.rand((10,), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
-        checks += parity.sparse_path_checks(emb, w, labels, d_ce, d_neg, kw, 512, 8, u)[0]
+        n_tiles = -(-c // 512)
+        u = torch.rand((n_tiles,), generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+        checks += parity.sparse_path_checks(emb, w, labels, d_ce, d_neg, kw, 512,
+                                            min(8 * (n_tiles // 10), n_tiles), u)[0]
     assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
     assert tms.LAUNCH_COUNTS[f"margin_ce_bwd_fused_sgd[{pair}]"] == 1
     if w_dt == torch.bfloat16:
@@ -489,8 +515,8 @@ def _build_faulty(tmp_path, faults, source="margin_ce"):
 # fail the checks above
 PLANTED_FAULTS = {
     "no_weight_decay": ("if (sgd.wd != 0.f) g[e] += sgd.wd * wv[e];", ""),
-    "d_w_x1.1": ("g[e] = acc3[i][4 * h + e] - wv[e] * iv * (iv * sd);",
-                 "g[e] = 1.1f * (acc3[i][4 * h + e] - wv[e] * iv * (iv * sd));"),
+    "d_w_x1.1": ("acc3[i][4 * h + e] = acc3[i][4 * h + e] - wv[e] * iv * (iv * sd);",
+                 "acc3[i][4 * h + e] = 1.1f * (acc3[i][4 * h + e] - wv[e] * iv * (iv * sd));"),
     # the d_emb partial of a tile read as 0: every tile but the last dropped
     "d_emb_partial_not_read": ("const float4 v = first || r >= a.B || f >= D",
                                "const float4 v = true || r >= a.B || f >= D"),
@@ -626,8 +652,8 @@ BF16_DW_FAULTS = {
     "tile_map_off_by_one": ("    p0 = phys_col(a, t0);\n    nl =",
                             "    p0 = phys_col(a, t0) + a.sel_tile;\n    nl ="),
     # the sparse form without the label rows' d_wl
-    "sparse_drops_dwl": ("if (any_tgt)  // the label rows' d_wl, in batch order",
-                         "if (any_tgt && MODE != DW_SPARSE)"),
+    "sparse_drops_dwl": ("if (any_tgt) add_dwl(mi, h, 0);",
+                         "if (any_tgt && MODE != DW_SPARSE) add_dwl(mi, h, 0);"),
     # the fused form leaves mom as it was
     "fused_mom_not_stored": ("            store2(mom + off, mn);\n", ""),
     # the fused form without the weight decay
@@ -678,11 +704,12 @@ def test_bf16_dw_checks_reject_planted_faults(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("faults", ["PLANTED_FAULTS", "SPARSE_FAULTS", "BF16_BWD_FAULTS",
                                     "BF16_DW_FAULTS", "chip_smoke.BF16_FAULTS",
-                                    "MARGIN_FWD_FAULTS"])
+                                    "MARGIN_FWD_FAULTS", "ROW_GROUP_FAULTS"])
 def test_planted_margin_faults_edit_the_kernel_source(faults):
     """Each planted fault of margin_ce.cu (the f32 pass's, the sparse
     form's, the bf16 backward's, the bf16 d_w pass's modes', chip_smoke.py's
-    bf16 ones and the forward's) is a source edit whose old text matches the
+    bf16 ones, the forward's and the d_w passes' row groups') is a source
+    edit whose old text matches the
     source exactly once, so that the copy a ``gpu`` test or chip_smoke.py
     builds differs from the kernel where its name says."""
     import importlib.util
@@ -702,6 +729,67 @@ def test_planted_margin_faults_edit_the_kernel_source(faults):
     for name, spec in table.items():
         for old, new in (spec if isinstance(spec[0], tuple) else (spec,)):
             assert src.count(old) == 1 and old != new, name
+
+
+# source edits of the d_w passes' row groups (above 128 batch rows: the f32
+# pass and the bf16 d_w pass, GROUPS) that the checks must reject at B = 512
+ROW_GROUP_FAULTS = {
+    # the f32 pass leaves out its last row group (d_w_hat, <d_w_hat, w_hat>
+    # and the label rows' d_wl of its rows)
+    "f32_last_group_dropped": ("  const int n_grp = GROUPS ? (a.B + FB_ROWS - 1) / FB_ROWS : 1;",
+                               "  const int n_grp = GROUPS ? (a.B - 1) / FB_ROWS : 1;"),
+    # ... each row group's d_cos merged into d_w_hat against another group's
+    # emb rows (the groups' rows in reverse order)
+    "f32_groups_out_of_order": ("a.emb,\n                                  rb + FB_EK * bk,",
+                                "a.emb,\n                                  (n_grp - 1 - g) * FB_ROWS"
+                                " + FB_EK * bk,"),
+    # the bf16 d_w pass leaves out its last row group
+    "bf16_last_group_dropped": ("  const int n_grp = GROUPS ? (a.B + WB_ROWS - 1) / WB_ROWS : 1;",
+                                "  const int n_grp = GROUPS ? (a.B - 1) / WB_ROWS : 1;"),
+    # ... each group's row inputs merged with another group's emb rows
+    "bf16_groups_out_of_order": ("stage_rows_bf16(Es, a.eb, rb, nr, WB_ROWS, D);",
+                                 "stage_rows_bf16(Es, a.eb, (n_grp - 1 - gi) * WB_ROWS, nr, "
+                                 "WB_ROWS, D);"),
+}
+
+
+@pytest.mark.gpu
+def test_row_group_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """At B = 512 (four row groups of the d_w passes), D = 256, C = 20,000,
+    Arc, k = 1, a repeated label: ``parity.margin_ce_bwd_checks`` pass the
+    real kernels and fail copies of margin_ce.cu whose d_w pass (the f32
+    one for an f32 classifier, the bf16 one for a bf16 classifier and
+    momentum) drops its last row group or merges each group's d_cos with
+    another group's emb rows: d_w on the rows the kernel computes alone,
+    and the fused update's w' and mom'. Prints each reading."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, ROW_GROUP_FAULTS)
+    emb, w0, mom0, labels, d_ce, d_neg = make_softmax_case(4, 512, 20000, 256, 1, 0.0, dev)
+    kw = dict(loss_type="Arc", margin=0.5, scale=32.0, k=1, mask_svfc=1.2)
+    failed = {}
+    for dt in (torch.float32, torch.bfloat16):
+        w_in, mom_in = w0.to(dt), mom0.to(dt)
+        gt = tms.compute_gt(emb, w_in, labels)
+        _, _, logz, topk = tms.margin_ce_fwd_plain(emb, w_in, labels, gt, **kw)
+        for name, lib in libs.items():
+            monkeypatch.setitem(cuda_build._LOADED, "margin_ce", lib)
+            w, mom = w_in.clone(), mom_in.clone()
+            bwd, fused = parity.margin_ce_bwd_checks(emb, w, mom, labels, gt, logz, topk, d_ce,
+                                                     d_neg, kw, LR, SGD)
+            torch.cuda.synchronize()
+            for ch in bwd + fused:
+                print(f"{name} {dt}: {parity.describe(ch)}")
+            failed[name, dt] = {ch["name"] for ch in parity.failures(bwd + fused)}
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        assert failed["real", dt] == set(), dt
+        for fault in ("last_group_dropped", "groups_out_of_order"):
+            assert any(n.startswith("d_w") for n in failed[f"{tag}_{fault}", dt]), (tag, fault)
+            assert any(n.startswith("w'") for n in failed[f"{tag}_{fault}", dt]), (tag, fault)
+        other = "bf16" if tag == "f32" else "f32"  # the other form's pass is not run
+        for fault in ("last_group_dropped", "groups_out_of_order"):
+            assert failed[f"{other}_{fault}", dt] == set(), (tag, fault)
 
 
 # ----------------------------------------------------------------------
@@ -825,7 +913,8 @@ def test_margin_fwd_checks_reject_planted_faults(tmp_path, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,c,d", [(100, 5000, 512), (37, 3002, 192), (128, 4136, 64)])
+@pytest.mark.parametrize("b,c,d", [(100, 5000, 512), (37, 3002, 192), (128, 4136, 64),
+                                   (200, 5000, 512), (512, 4136, 64)])
 def test_bf16_backward_ragged_matches_plain(b, c, d):
     """The bf16 classifier's backward at B not a multiple of 16 and C not
     of 64 (D from 64 to 512; rows 0 and 1 share a label), against the plain
@@ -869,7 +958,8 @@ def test_bf16_backward_ragged_matches_plain(b, c, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,c,d", [(128, 5000, 512), (40, 777, 128), (100, 4096, 64)])
+@pytest.mark.parametrize("b,c,d", [(128, 5000, 512), (40, 777, 128), (100, 4096, 64),
+                                   (512, 5000, 512), (200, 777, 128)])
 def test_bf16_margin_cosines_match_between_tilings(b, c, d):
     """The bf16 classifier's cosines as the forward, the d_emb pass and
     the d_w pass (every bf16 backward form's) form them (``clean_cos``, all
@@ -886,20 +976,20 @@ def test_bf16_margin_cosines_match_between_tilings(b, c, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,c,d", [(128, 5000, 512), (40, 777, 128), (100, 4096, 64),
-                                   (100, 3002, 192)])
+                                   (100, 3002, 192), (512, 5000, 512), (200, 3002, 192)])
 def test_f32_margin_cosines_match_between_tilings(b, c, d):
     """The f32 classifier's cosines as the forward (fdots_chunk, staged by
     cp.async) and the backward's one pass (ftile_dots; every f32 backward
-    form runs it) form
-    them (``clean_cos``): equal bit for bit, and within 1e-5 of the plain
-    version (``parity.margin_cos_checks``)."""
+    form runs it; above 128 rows its d_emb pass and its pass in row
+    groups) form them (``clean_cos``): equal bit for bit, and within 1e-5
+    of the plain version (``parity.margin_cos_checks``)."""
     dev = _cuda()
     emb, w, *_ = make_softmax_case(4, b, c, d, 1, 0.0, dev)
     checks = parity.margin_cos_checks(emb, w)
     torch.cuda.synchronize()
     for ch in checks:
         print(parity.describe(ch))
-    assert len(checks) == 2
+    assert len(checks) == (2 if b <= 128 else 3)
     assert not parity.failures(checks), [parity.describe(c) for c in parity.failures(checks)]
 
 
@@ -949,7 +1039,8 @@ def test_sparse_row_set_checks_catch_a_fault_on_the_other_rows():
 
 SPARSE_CASES = [("Arc", 128, 1 << 20, 512, 1, 0.0, 512), ("AM", 64, 3001, 128, 3, 0.3, 128),
                 ("SV", 8, 700, 64, 3, 0.3, 64), ("Arc", 128, 40000, 512, 16, 0.2, 512),
-                ("Arc", 100, 4000, 192, 3, 0.3, 192)]
+                ("Arc", 100, 4000, 192, 3, 0.3, 192),
+                ("Arc", 200, 40000, 512, 3, 0.3, 512), ("SV", 512, 20000, 256, 1, 0.0, 256)]
 
 
 def _stats_and_sparse_checks(emb, w, labels, d_ce, d_neg, kw, tile, seed=0):
@@ -980,8 +1071,8 @@ def test_stats_and_sparse_kernels_match_plain(loss_type, b, c, d, k, frac_outlie
 
 # source edits that break the sparse backward: each must fail the checks above
 SPARSE_FAULTS = {
-    "no_dwl_add": ("for (int e = 0; e < 4; ++e) g[e] += dwl[(long long)b * D + f + e];",
-                   "for (int e = 0; e < 4; ++e) g[e] += 0.f;"),
+    "no_dwl_add": ("acc3[i][4 * h + e] += dwl[(long long)(rb + b) * D + f + e];",
+                   "acc3[i][4 * h + e] += 0.f;"),
     "tile_off_by_one": (
         "return a.sel == nullptr ? l : (long long)a.sel[l / a.sel_tile] * a.sel_tile + l % "
         "a.sel_tile;",
@@ -1051,7 +1142,8 @@ def test_emulated_class_shards_match_the_whole_classifier_cpu(loss_type, k, frac
 
 CLASS_SHARD_CASES = [("Arc", 128, 40000, 512, 1, 0.0, 4), ("Arc", 128, 40000, 512, 16, 0.2, 1),
                      ("AM", 64, 3000, 128, 3, 0.3, 4), ("SV", 8, 700, 64, 3, 0.3, 4),
-                     ("Arc", 128, 1_000_000, 512, 1, 0.0, 4), ("Arc", 100, 5002, 192, 3, 0.3, 2)]
+                     ("Arc", 128, 1_000_000, 512, 1, 0.0, 4), ("Arc", 100, 5002, 192, 3, 0.3, 2),
+                     ("Arc", 512, 40000, 512, 3, 0.2, 4), ("SV", 200, 5002, 192, 3, 0.3, 2)]
 
 
 @pytest.mark.gpu
@@ -1142,7 +1234,8 @@ def test_form_plain_versions_are_chunk_invariant(form):
 
 FORM_CASES = [(f, lt, b, q, d, k) for f in FORMS
               for lt, b, q, d, k in (("Arc", 64, 5000, 128, 10), ("SV", 64, 5000, 128, 10),
-                                     ("AM", 128, 40000, 512, 16))]
+                                     ("AM", 128, 40000, 512, 16),
+                                     ("Arc", 200, 5000, 512, 10), ("SV", 512, 20000, 256, 10))]
 
 
 @pytest.mark.gpu
@@ -1341,7 +1434,8 @@ def test_bf16_backward_edge_cases(d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64)])
+@pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64),
+                                    (1024, 5000, 512), (400, 777, 128)])
 def test_bf16_clean_cosines_match_between_tilings(r_, q, d):
     """The bf16 form's clean cosines as the forward's tiles form them and as
     the backward's recompute does (``clean_cos``, both on the tensor
@@ -1419,7 +1513,8 @@ def test_int8_backward_ragged_matches_plain(form):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64)])
+@pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64),
+                                    (1024, 5000, 512), (400, 777, 128)])
 def test_int8_clean_cosines_match_between_tilings(r_, q, d):
     """The int8-storage form's clean cosines as the forward's tiles form
     them and as the backward's recompute does (``clean_cos``, both the k16
@@ -1448,7 +1543,8 @@ def test_int8_clean_cosines_match_between_tilings(r_, q, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64)])
+@pytest.mark.parametrize("r_,q,d", [(256, 5000, 512), (40, 777, 128), (128, 4096, 64),
+                                    (1024, 5000, 512), (400, 777, 128)])
 def test_f32_clean_cosines_match_between_tilings(r_, q, d):
     """The f32 form's clean cosines as the forward's tiles form them
     (fdots_chunk) and as the backward's recompute does (ftile_dots, staged as
@@ -1669,11 +1765,44 @@ def test_fwd_geometry_is_the_kernels():
             assert lib.quad_fwd_smem(ttm.FORMS.index(form), r_) == geo.smem, (form, r_)
 
 
+# a source edit of the f32 forward's row groups (above 256 probe rows) that
+# its checks must reject at b = 512: every row group stages the probe rows
+# of the first
+QUAD_ROW_GROUP_FAULTS = {
+    "f32_fwd_first_group_rows": ("a.E, r_base,\n                                      min(ROWS,",
+                                 "a.E, 0,\n                                      min(ROWS,"),
+}
+
+
+@pytest.mark.gpu
+def test_quad_row_group_checks_reject_planted_faults(tmp_path, monkeypatch):
+    """At b = 512 (R = 1024: the f32 forward's four 256-row groups), Q =
+    5000, D = 128, Arc: ``parity.quad_checks`` pass the real f32 forward
+    and fail a copy of quad_margin.cu whose row groups all stage the first
+    group's probe rows (ce, logz)."""
+    from vlsfr_tpu_torch.ops import cuda_build
+
+    dev = _cuda()
+    libs = _build_faulty(tmp_path, QUAD_ROW_GROUP_FAULTS, source="quad_margin")
+    case = make_packed(3, 512, 5000, 128, 10, device=dev)
+    failed = {}
+    for name, lib in libs.items():
+        monkeypatch.setitem(cuda_build._LOADED, "quad_margin", lib)
+        checks, _ = parity.quad_checks(*case)
+        torch.cuda.synchronize()
+        for c in checks:
+            print(f"{name}: {parity.describe(c)}")
+        failed[name] = {c["name"] for c in parity.failures(checks)}
+    assert failed["real"] == set()
+    assert {"ce", "logz"} <= failed["f32_fwd_first_group_rows"]
+
+
 @pytest.mark.parametrize("faults", ["QUAD_FORM_FAULTS", "TWIN_FAULTS", "QUAD_F32_FAULTS",
-                                    "QUAD_FWD_FAULTS"])
+                                    "QUAD_FWD_FAULTS", "QUAD_ROW_GROUP_FAULTS"])
 def test_planted_quad_faults_edit_the_kernel_source(faults):
     """Each planted fault of quad_margin.cu (the rounded forms', the twin's,
-    the f32 backward's and the forward's) is a source edit whose old text matches the
+    the f32 backward's, the forward's and its row groups') is a source edit
+    whose old text matches the
     source exactly once, so that the copy the ``gpu`` test builds differs
     from the kernel where its name says."""
     from vlsfr_tpu_torch.ops import cuda_build
@@ -1728,7 +1857,9 @@ TWIN_CASES = [(f, lt, b, q, d, k, tile) for f in ("f32", "bf16")
               for lt, b, q, d, k, tile in (("Arc", 64, 5000, 128, 10, 512),
                                            ("SV", 64, 5000, 128, 10, 64),
                                            ("AM", 128, 40000, 512, 16, 2048),
-                                           ("Arc", 100, 5001, 128, 10, 512))]
+                                           ("Arc", 100, 5001, 128, 10, 512),
+                                           ("Arc", 200, 5001, 512, 10, 512),
+                                           ("SV", 512, 20000, 256, 10, 2048))]
 
 
 @pytest.mark.gpu

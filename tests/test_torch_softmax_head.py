@@ -295,13 +295,20 @@ def test_unported_options_raise(bad):
 
 
 def test_kernel_batch_limit_and_missing_mesh():
-    """On a card the margin_ce kernels take at most 128 rows: a larger
-    batch on a kernel route is refused up front (the CPU's plain versions
-    take any); a config at mesh.model > 1 without its mesh is refused."""
-    cfg = Config().apply_overrides(BASE + ROUTES["A"] + ["data.batch_size=512"])
-    softmax_head.check_ported(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="128 rows"):
+    """On a card the margin_ce kernels take any batch: a kernel route at
+    the shipped 5M config's batch of 512 passes the check on either device,
+    and only a feature width the kernels do not take (a multiple of 64 up
+    to 512) is refused there up front (the CPU's plain versions take any);
+    a config at mesh.model > 1 without its mesh is refused."""
+    for route in (ROUTES["A"], ROUTES["B"], SPARSE_ROUTES["D"]):
+        cfg = Config().apply_overrides(BASE + route + ["data.batch_size=512",
+                                                       "model.feat_dim=512"])
+        softmax_head.check_ported(cfg, "cpu")
         softmax_head.check_ported(cfg, torch.device("cuda"))
+    narrow = Config().apply_overrides(BASE + ROUTES["A"] + ["model.feat_dim=96"])
+    softmax_head.check_ported(narrow, "cpu")
+    with pytest.raises(NotImplementedError, match="feat_dim=96 on the margin_ce kernels"):
+        softmax_head.check_ported(narrow, torch.device("cuda"))
     softmax_head.check_ported(Config().apply_overrides(BASE + ROUTES["C"] +
                                                        ["data.batch_size=512"]), "cuda")
     with pytest.raises(ValueError, match="needs the mesh"):

@@ -85,7 +85,19 @@ def test_twin_plain_matches_pallas_interpret(loss_type, form, tile, rng):
     """twin_fwd / twin_bwd (their plain versions) against pallas_twin_fwd
     / pallas_twin_bwd: (ce, neg) per view, logz, the target-excluded
     top-k, d_emb with the φ'(gt) tail and d_gt."""
-    p, g, queue, rows, cols, seen, labels = make_case(rng)
+    twin_against_pallas(rng, loss_type, form, tile)
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16"])
+def test_twin_plain_matches_pallas_interpret_at_200_rows(form, rng):
+    """As above (Arc) at b = 200 probes (above the kernels' former 128
+    rows: the tensor-core forward's two 128-row groups, the backward's four
+    64-row groups, the last ragged), Q = 2048 slots, tile 256."""
+    twin_against_pallas(rng, "Arc", form, 256, b=200, q=2048)
+
+
+def twin_against_pallas(rng, loss_type, form, tile, b=B, q=Q):
+    p, g, queue, rows, cols, seen, labels = make_case(rng, b=b, q=q)
     jq = jax_queue(queue, form)
     j = [jnp.asarray(x) for x in (p, g, rows, cols, seen, labels)]
     gt1, gt2 = jtm.compute_twin_gt(j[0], jq, *j[1:6])
@@ -101,7 +113,7 @@ def test_twin_plain_matches_pallas_interpret(loss_type, form, tile, rng):
                       (topk[0], res_j[2]), (topk[1], res_j[3])):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
-    cot = (rng.standard_normal((4, B)) / B).astype(np.float32)
+    cot = (rng.standard_normal((4, b)) / b).astype(np.float32)
     pos = labels >= 0
     dce = np.where(pos, cot[[0, 2]], 0.0).astype(np.float32)
     dneg = np.where(pos, 0.0, cot[[1, 3]]).astype(np.float32)

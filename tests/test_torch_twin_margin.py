@@ -155,14 +155,25 @@ def test_quad_add_margin_losses_and_grads_match_jax(loss_type, rng):
 def test_quad_matches_pallas_interpret(rng):
     """The port's plain fwd/bwd vs the Pallas quad kernels themselves,
     run in interpret mode (fixed-reference zfix body at scale 32)."""
-    queue, da, db = make_quad(rng, b=8, q=70, d=128, dup_slot=True)
+    quad_against_pallas(rng, 8, 70, 128, 32)
+
+
+def test_quad_matches_pallas_interpret_at_200_rows(rng):
+    """As above at b = 200 probes per direction (R = 400, above the
+    kernels' former 128 rows: the f32 forward's two 256-row groups, the
+    second ragged; the backward's seven 64-row groups), Q = 2048, D = 64."""
+    quad_against_pallas(rng, 200, 2048, 64, 256)
+
+
+def quad_against_pallas(rng, b, q, d, tile):
+    queue, da, db = make_quad(rng, b=b, q=q, d=d, dup_slot=True)
     k = 4
     kw = dict(loss_type="Arc", margin=0.5, scale=32.0, hard_neg=k, mask_svfc=1.2)
     j = jax_args(queue, da, db)
     px, py, q, _, ga, gb, ra, ca, sa, rb, cb, sb, la, lb = j
     gts_a = jtm.compute_twin_gt(px, q, ga, ra, ca, sa, la)
     gts_b = jtm.compute_twin_gt(py, q, gb, rb, cb, sb, lb)
-    pk = dict(loss_type="Arc", margin=0.5, scale=32.0, k=k, mask_svfc=1.2, tile=32,
+    pk = dict(loss_type="Arc", margin=0.5, scale=32.0, k=k, mask_svfc=1.2, tile=tile,
               interpret=True)
     out_p, res_p = jtm.pallas_quad_fwd(px, py, q, ga, gb, (ra, ca, sa), (rb, cb, sb), la, lb,
                                        gts_a, gts_b, **pk)
@@ -170,7 +181,7 @@ def test_quad_matches_pallas_interpret(rng):
     for got, want in zip(out_t[:8], out_p):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=VAL_ATOL)
 
-    cots = random_cots(rng)
+    cots = random_cots(rng, b)
     torch.autograd.backward(list(out_t[:8]), [torch.from_numpy(c) for c in cots])
     c = [jnp.asarray(x) for x in cots]
     gx, gy = jtm.pallas_quad_bwd(px, py, q, ga, gb, (ra, ca, sa), (rb, cb, sb), la, lb,

@@ -42,9 +42,9 @@ from torch import nn
 
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import PassIndices, StepIndices
-from vlsfr_tpu_torch.ops.margin import add_margin, default_hard_neg
+from vlsfr_tpu_torch.ops.margin import add_margin, default_hard_neg, kernel_width_ok
 from vlsfr_tpu_torch.ops.qqueue import quantize_rows
-from vlsfr_tpu_torch.ops.twin_margin import MAX_ROWS, quad_add_margin, twin_add_margin
+from vlsfr_tpu_torch.ops.twin_margin import quad_add_margin, twin_add_margin
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
 from vlsfr_tpu_torch.parallel.sharded_quad import make_sharded_quad_loss
@@ -249,15 +249,15 @@ def quad_tile(cfg: Config) -> int:
     return 2048 if cfg.pool.queue_size % 1024 == 0 else 512
 
 
-def check_kernel_batch(cfg: Config, device) -> None:
-    """Refuse, before anything is built, a batch above the fused head's
-    kernels' rows per direction on a card (the CPU's plain versions take
-    any)."""
+def check_kernel_width(cfg: Config, device) -> None:
+    """Refuse, before anything is built, a feature width the fused head's
+    kernels do not take on a card (a multiple of 64 up to 512; the CPU's
+    plain versions take any). Any batch is taken."""
     on_kernels = use_fused_head(cfg) and torch.device(device).type == "cuda"
-    if on_kernels and cfg.data.batch_size > MAX_ROWS:
+    if on_kernels and not kernel_width_ok(cfg.model.feat_dim):
         raise NotImplementedError(
-            f"data.batch_size={cfg.data.batch_size} above the fused FFC head's kernels' "
-            f"{MAX_ROWS} rows per direction is not ported yet")
+            f"model.feat_dim={cfg.model.feat_dim} on the fused FFC head's kernels (a multiple "
+            f"of 64 up to 512) is not ported yet")
 
 
 def make_train_step(cfg: Config, schedule, mesh=None):
@@ -378,7 +378,7 @@ def create_ffc_state(model: nn.Module, cfg: Config, *, device=None, seed: int = 
     block is kept."""
     check_queue_config(cfg)
     dev = resolve_device(device)
-    check_kernel_batch(cfg, dev)
+    check_kernel_width(cfg, dev)
     probe = model.to(dev)
     gallery = copy.deepcopy(probe).requires_grad_(False)
     gen = torch.Generator(device=dev).manual_seed(seed)

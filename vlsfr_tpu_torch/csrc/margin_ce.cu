@@ -17,7 +17,7 @@
 // dense_local_bwd_scan; the plain PyTorch versions beside the wrappers
 // (vlsfr_tpu_torch/ops/margin_stream.py *_plain) compute the same functions.
 //
-// Layout: emb [B][D] f32 (B <= 128, D a multiple of 64 up to 512), W [C][D]
+// Layout: emb [B][D] f32 (any B, D a multiple of 64 up to 512), W [C][D]
 // f32 or bf16, mom [C][D] f32 or bf16 (the fused kernel), labels [B] int32
 // (-1 = outlier row), gt / logz / kth / d_ce / d_neg [B] f32 (d_ce 0 on
 // outlier rows, d_neg 0 on positive rows). Column offsets are 64-bit (C * D
@@ -70,7 +70,10 @@
 //    mma_bf16.cuh.
 //  * Forward (margin_fwd_kernel<TW, STATS>: margin_ce_fwd with and without
 //    statistics, margin_partial_fwd, f32 and bf16 W): one block an SM
-//    holds all B rows over a column range, so each W tile is read once; per
+//    holds a row group of 128 rows (all of B up to 128, so each W tile is
+//    read once; above, the ceil(B / 128) row groups of a column range are
+//    adjacent in launch order and share its W tiles through L2, and their
+//    partials join the merge at the rows they hold) over a column range; per
 //    128-column tile the product fills a cosine tile Cs [128][132]. The f32
 //    form on the CUDA cores in IEEE f32 FMA (no TF32, no mma): emb's rows
 //    and the W tile's staged 32 features a chunk by 16-byte cp.async into
@@ -135,9 +138,23 @@
 //    d_emb partial [B, D], which lives in global memory (L2: 256 KB a block
 //    at B = 128, D = 512), takes (d_cos * inv) . W from the same tile, 8 x 8
 //    a thread, 256 features at a time; margin_bwd_demb_merge_kernel sums
-//    the blocks' partials in block order. W is read once (2.15 GB at C = 2^20) and
-//    d_w written once: the three products' 6.15 ms bound, no recompute.
-//    grad_w=False runs the cosines and the d_emb product alone.
+//    the blocks' partials in block order. W is read once (2.15 GB at C =
+//    2^20) and d_w written once: the three products' 6.15 ms bound, no
+//    recompute. grad_w=False runs the cosines and the d_emb product alone.
+//    Above 128 batch rows (GROUPS) the block walks each tile's batch in row
+//    groups of 128, in batch order: the group's cosines from the tile
+//    (restaged, the same bits), d_cos, its share of <d_w_hat, w_hat>, and
+//    d_w_hat += its rows' product, kept in registers across the groups; the
+//    epilogue then as above, the label rows' d_wl group by group. d_emb
+//    leaves the pass (its [B, D] partial a block would be 1 MiB at B = 512,
+//    132 MiB over the card, beyond L2; and d_w_hat's registers beside the
+//    d_emb product's would spill): margin_bwd_demb_f32_kernel, 64 rows x a
+//    column chunk a block, its partial [64, D] in registers, recomputes the
+//    cosines and takes (d_cos * inv) . W (four products in all), launched
+//    first, so the fused update's d_emb reads W before any of it is
+//    written. At B = 512, C = 5,000,000: 7.86e12 FLOP of three products
+//    (>= 117.4 ms at the f32 rate; W and mom read and written 41 GB,
+//    12.2 ms).
 //  * Backward, bf16 d_emb pass (margin_bwd_demb_bf16_kernel, every bf16
 //    form): a block owns 64 rows x a column range, its emb rows resident
 //    and two W tiles [64, D] in flight (cp.async, zero-filled past the
@@ -166,7 +183,11 @@
 //    bf16 form: DW_DENSE for margin_ce_bwd / margin_partial_bwd, DW_SPARSE
 //    for the sparse backward, DW_SGD for the fused one with a momentum of
 //    type TM): a block owns whole 64-column tiles with every batch row, one
-//    block an SM; emb [128, D] bf16 stays resident (128 KB at D = 512)
+//    block an SM; emb [128, D] bf16 stays resident (128 KB at D = 512; above
+//    128 rows, GROUPS: the tile's cosines, d_cos and d_w_hat product run per
+//    row group of 128, in batch order, each group's emb rows staged into
+//    the same 128 KB in turn, d_w_hat summed in the accumulators across the
+//    groups, the label rows' d_wl group by group)
 //    beside one W tile (64 KB), so W is read once (1.07 GB at C = 2^20) and
 //    d_w written once (2.15 GB): the 0.96 ms bound; fused, W and mom read
 //    and written instead of d_w (1.28 ms at (bf16, bf16), 1.92 at (bf16,
@@ -188,7 +209,8 @@
 //    read a row already written (each block owns its rows). d_emb and d_w
 //    stay two passes: the [B, D] d_emb partial of a column-owning block
 //    (256 KB f32 at B = 128, D = 512) fits neither its registers nor its
-//    shared memory beside the tile (the f32 pass keeps it in L2).
+//    shared memory beside the tile (the f32 pass keeps it in L2 up to 128
+//    rows). The d_emb pass's 64-row groups take any B (8 at B = 512).
 //  * Sparse backward: the passes walk M * tile logical columns instead of
 //    C. Each 64-column tile maps through tile_idx [M] (device memory, read
 //    by every block: the counterpart of scalar prefetch) onto the class
@@ -383,19 +405,19 @@ __device__ __forceinline__ void scale_rows_bf16(unsigned char* T, int rows, int 
   }
 }
 
-// The forward's bf16 cosines: emb rows [0, ROWS) and a tile of TC columns
-// staged 64 features at a time, CH_ST chunks in flight
+// The forward's bf16 cosines: emb rows [r_base, r_base + ROWS) and a tile
+// of TC columns staged 64 features at a time, CH_ST chunks in flight
 constexpr int CH_ST = 3;
 template <int ROWS, int TC>
 __host__ __device__ constexpr int chunk_bytes() {
   return (ROWS + TC) * 64 * 2;
 }
 
-// features [64 kc, + 64) of emb rows [0, ROWS) (zero past B) and of the W
-// rows p0 .. p0 + n of the tile (zero from n) into stage s
+// features [64 kc, + 64) of emb rows [r_base, r_base + ROWS) (zero past B)
+// and of the W rows p0 .. p0 + n of the tile (zero from n) into stage s
 template <int ROWS, int TC>
-__device__ __forceinline__ void load_chunk(const Args& a, unsigned char* stg, int s, long long p0,
-                                           int n, int kc) {
+__device__ __forceinline__ void load_chunk(const Args& a, unsigned char* stg, int s, int r_base,
+                                           long long p0, int n, int kc) {
   const __nv_bfloat16* W = wrows<__nv_bfloat16>(a);
   unsigned char* Es = stg + s * chunk_bytes<ROWS, TC>();
   unsigned char* Ts = Es + ROWS * 64 * 2;
@@ -403,8 +425,9 @@ __device__ __forceinline__ void load_chunk(const Args& a, unsigned char* stg, in
   for (int i = threadIdx.x; i < (ROWS + TC) * 8; i += blockDim.x) {
     const int r = i >> 3, ch = i & 7;
     if (r < ROWS) {
-      const bool ok = r < a.B;
-      cp_async_cg(Es + swz(r, 8 * ch, 8), ok ? a.eb + (long long)r * a.D + f0 + 8 * ch : a.eb, ok);
+      const bool ok = r_base + r < a.B;
+      cp_async_cg(Es + swz(r, 8 * ch, 8),
+                  ok ? a.eb + (long long)(r_base + r) * a.D + f0 + 8 * ch : a.eb, ok);
     } else {
       const bool ok = r - ROWS < n;
       cp_async_cg(Ts + swz(r - ROWS, 8 * ch, 8), ok ? W + (p0 + r - ROWS) * a.D + f0 + 8 * ch : W,
@@ -416,17 +439,17 @@ __device__ __forceinline__ void load_chunk(const Args& a, unsigned char* stg, in
 // the first CH_ST - 1 chunks of the tile of class rows p0 .. p0 + n - 1,
 // each its own cp.async group (chunk_cos stages the rest)
 template <int ROWS, int TC>
-__device__ __forceinline__ void chunk_prologue(const Args& a, unsigned char* stg, long long p0,
-                                               int n) {
+__device__ __forceinline__ void chunk_prologue(const Args& a, unsigned char* stg, int r_base,
+                                               long long p0, int n) {
   const int n_kc = a.D / 64;
 #pragma unroll
   for (int s = 0; s < CH_ST - 1; ++s) {
-    if (s < n_kc) load_chunk<ROWS, TC>(a, stg, s, p0, n, s);
+    if (s < n_kc) load_chunk<ROWS, TC>(a, stg, s, r_base, p0, n, s);
     cp_async_commit();
   }
 }
 
-// acc[mi][ni] = the cosines of emb rows m0 + 16 mi .. against the tile's
+// acc[mi][ni] = the cosines of emb rows r_base + m0 + 16 mi .. against the tile's
 // columns n0 + 8 ni .. (class rows p0 .., n of them): each chunk's W part
 // scaled in place by inv [TC] (shared memory, written before the first
 // barrier here) into bf16(w_hat), the k16 chain over the feature axis in
@@ -434,7 +457,7 @@ __device__ __forceinline__ void chunk_prologue(const Args& a, unsigned char* stg
 // leaves none in flight and ends with a barrier.
 template <int ROWS, int TC, int NI>
 __device__ __forceinline__ void chunk_cos(const Args& a, unsigned char* stg, const float* inv,
-                                          long long p0, int n, int m0, int n0,
+                                          int r_base, long long p0, int n, int m0, int n0,
                                           float (&acc)[2][NI][4]) {
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
@@ -449,7 +472,7 @@ __device__ __forceinline__ void chunk_cos(const Args& a, unsigned char* stg, con
     unsigned char* Es = stg + (kc % CH_ST) * chunk_bytes<ROWS, TC>();
     scale_rows_bf16(Es + ROWS * 64 * 2, TC, 8, inv);
     if (kc + CH_ST - 1 < n_kc)
-      load_chunk<ROWS, TC>(a, stg, (kc + CH_ST - 1) % CH_ST, p0, n, kc + CH_ST - 1);
+      load_chunk<ROWS, TC>(a, stg, (kc + CH_ST - 1) % CH_ST, r_base, p0, n, kc + CH_ST - 1);
     cp_async_commit();
     __syncthreads();  // the chunk holds bf16(w_hat)
     mma_nt<2, NI>(acc, Es, 8, m0, Es + ROWS * 64 * 2, 8, n0, 4);
@@ -460,15 +483,16 @@ __device__ __forceinline__ void chunk_cos(const Args& a, unsigned char* stg, con
 
 // ---------------------------------------------------------------- forward
 
-// A block holds every batch row (F_ROWS) over a column range, f_threads
-// threads, one block an SM (fwd_smem; ops/margin_stream.py's fwd_geometry
-// computes the same). Per F_TC-column tile the product fills the cosine
-// tile Cs [F_ROWS][F_CLD] from chunks staged by cp.async in F_NST stages:
+// A block holds F_ROWS batch rows, a row group (all of B up to 128; the ceil(B /
+// F_ROWS) row groups of a column range adjacent in launch order), over a column
+// range, f_threads threads, one block an SM (fwd_smem; ops/margin_stream.py's
+// fwd_geometry computes the same). Per F_TC-column tile the product fills the
+// cosine tile Cs [F_ROWS][F_CLD] from chunks staged by cp.async in F_NST stages:
 // f32 W FFK features of emb's rows and of the W tile (margin_common.cuh's
-// fdots_*, an F_TI x F_TJ micro-tile), bf16 W 64 features (chunk_cos).
-// Each row's stream is split over F_LANES lanes (threads r and r + F_ROWS),
-// lane l taking the tile's columns [64 l, 64 l + 64): its statistics half
-// tile, so no two lanes share one.
+// fdots_*, an F_TI x F_TJ micro-tile), bf16 W 64 features (chunk_cos). Each
+// row's stream is split over F_LANES lanes (threads r and r + F_ROWS), lane l
+// taking the tile's columns [64 l, 64 l + 64): its statistics half tile, so no
+// two lanes share one.
 constexpr int F_ROWS = 128, F_TC = 128, F_THREADS = 256, F_CLD = F_TC + 4, F_NST = CH_ST;
 constexpr int F_LANES = F_THREADS / F_ROWS, F_TI = 8, F_TJ = 8;
 constexpr int F_SA = F_ROWS / F_TI, F_SB = F_TC / F_TJ;  // the micro-tile's row and column steps
@@ -500,36 +524,37 @@ __host__ __device__ constexpr int fwd_smem() {
 static_assert(fwd_smem<float>() <= 232448 && fwd_smem<__nv_bfloat16>() <= 232448,
               "the forward fits a block's shared memory");
 
-// the first F_NST - 1 chunks of the tile at t0 (n valid columns), each its
-// own cp.async group; bf16 W also the tile's 1 / ||w_j|| (a.inv, 0 from n)
-// into inv, which chunk_cos reads after its first barrier
+// the first F_NST - 1 chunks of the tile at t0 (n valid columns; emb rows
+// from r_base), each its own cp.async group; bf16 W also the tile's 1 /
+// ||w_j|| (a.inv, 0 from n) into inv, which chunk_cos reads after its
+// first barrier
 template <class TW>
 __device__ __forceinline__ void fwd_prologue(const Args& a, unsigned char* stg, float* inv,
-                                             long long t0, int n) {
+                                             int r_base, long long t0, int n) {
   if constexpr (std::is_same<TW, float>::value) {
     const int nk = a.D / FFK;
 #pragma unroll
     for (int s = 0; s < F_NST - 1; ++s) {
       if (s < nk)
         fdots_load<F_THREADS, F_ROWS, F_TC>(
-            reinterpret_cast<float*>(stg + s * fwd_stage_bytes<TW>()), a.emb, 0, a.B,
-            wrows<float>(a), t0, n, a.D, s);
+            reinterpret_cast<float*>(stg + s * fwd_stage_bytes<TW>()), a.emb, r_base,
+            min(F_ROWS, a.B - r_base), wrows<float>(a), t0, n, a.D, s);
       cp_async_commit();
     }
   } else {
     if (threadIdx.x < F_TC) inv[threadIdx.x] = (int)threadIdx.x < n ? a.inv[t0 + threadIdx.x] : 0.f;
-    chunk_prologue<F_ROWS, F_TC>(a, stg, t0, n);
+    chunk_prologue<F_ROWS, F_TC>(a, stg, r_base, t0, n);
   }
 }
 
 // the f32 W tile at t0 (n valid columns), its first chunks in flight
-// (fwd_prologue): the raw dots of the thread's micro-tile (emb rows ax +
-// F_SA i, columns by + F_SB j) into acc, and 1 / ||w_j|| of the tile's
+// (fwd_prologue): the raw dots of the thread's micro-tile (emb rows r_base +
+// ax + F_SA i, columns by + F_SB j) into acc, and 1 / ||w_j|| of the tile's
 // columns into inv, their squares summed from the same chunks by threads
 // t < F_TC. Leaves no copy in flight and ends with a barrier (every stage
 // read, inv written).
 __device__ __forceinline__ void fwd_dots_f32(const Args& a, unsigned char* stg, float* inv,
-                                             long long t0, int n, int ax, int by,
+                                             int r_base, long long t0, int n, int ax, int by,
                                              float (&acc)[F_TI][F_TJ]) {
   constexpr int SB = fwd_stage_bytes<float>();
   const int nk = a.D / FFK;
@@ -543,8 +568,8 @@ __device__ __forceinline__ void fwd_dots_f32(const Args& a, unsigned char* stg, 
     __syncthreads();  // chunk kc has landed; chunk kc - 1's stage is free
     if (kc + F_NST - 1 < nk)
       fdots_load<F_THREADS, F_ROWS, F_TC>(
-          reinterpret_cast<float*>(stg + ((kc + F_NST - 1) % F_NST) * SB), a.emb, 0, a.B,
-          wrows<float>(a), t0, n, a.D, kc + F_NST - 1);
+          reinterpret_cast<float*>(stg + ((kc + F_NST - 1) % F_NST) * SB), a.emb, r_base,
+          min(F_ROWS, a.B - r_base), wrows<float>(a), t0, n, a.D, kc + F_NST - 1);
     cp_async_commit();
     const float* st = reinterpret_cast<const float*>(stg + (kc % F_NST) * SB);
     if (threadIdx.x < F_TC) fdots_norm<F_ROWS>(n2, st, threadIdx.x);
@@ -556,7 +581,7 @@ __device__ __forceinline__ void fwd_dots_f32(const Args& a, unsigned char* stg, 
 
 // a thread's batch row in the row pass
 struct RowPass {
-  int r, lane, label;  // the row (its row of Cs), the thread's lane, the row's label
+  int r, lane, label;  // the batch row, the thread's lane, the row's label
   float gt, zt;        // the target cosine and its z = scale * phi(gt)
   float zs;            // scale * log2(e): the chains stream z / ln 2
   long long n64;       // the classifier's statistics half tiles
@@ -626,13 +651,14 @@ __device__ __forceinline__ void row_pass(const Args& a, const float* crow, long 
   }
 }
 
-// The forward's block pass (module header). part: [F_LANES * nblk][B][PART],
-// each lane's (m, s, top-k) of its columns of the block's range at (block *
-// F_LANES + lane); STATS: stats the [2][ceil(C / 64)][B] scratch of
-// per-64-column maxima (z first, then the raw cosine), else unused.
+// The forward's block pass (module header) over n_rg row groups x the
+// column ranges. part: [F_LANES * nblk][B][PART] (nblk column ranges),
+// each lane's (m, s, top-k) of its columns of the range at (range * F_LANES
+// + lane); STATS: stats the [2][ceil(C / 64)][B] scratch of per-64-column
+// maxima (z first, then the raw cosine), else unused.
 template <class TW, bool STATS>
 __global__ void __launch_bounds__(f_threads<TW>(), 1)
-    margin_fwd_kernel(Args a, long long cols_per_blk, float* part, float* stats) {
+    margin_fwd_kernel(Args a, long long cols_per_blk, int n_rg, float* part, float* stats) {
   constexpr bool BF16 = !std::is_same<TW, float>::value;
   extern __shared__ __align__(16) unsigned char f_sm[];
   unsigned char* stg = f_sm;                                                   // [F_NST] stages
@@ -640,14 +666,16 @@ __global__ void __launch_bounds__(f_threads<TW>(), 1)
   float* inv = Cs + F_ROWS * F_CLD;  // 1 / ||w_j|| of the tile's columns
 
   const int tid = threadIdx.x;
-  const long long c_begin = (long long)blockIdx.x * cols_per_blk;
+  const int chunk = blockIdx.x / n_rg, r_base = (blockIdx.x % n_rg) * F_ROWS;
+  const long long c_begin = (long long)chunk * cols_per_blk;
   const long long c_end = min(a.C, c_begin + cols_per_blk);
   const int n_tiles = c_end > c_begin ? (int)((c_end - c_begin + F_TC - 1) / F_TC) : 0;
   auto cols = [&](int ti) {  // valid columns of tile ti
     return (int)min((long long)F_TC, c_end - c_begin - (long long)F_TC * ti);
   };
+  const int lr = tid % F_ROWS;  // the thread's row of Cs
   RowPass rp;
-  rp.r = tid % F_ROWS;
+  rp.r = r_base + lr;
   rp.lane = tid / F_ROWS;
   const bool row_ok = rp.r < a.B && rp.lane < F_LANES;
   rp.label = row_ok ? a.labels[rp.r] : -1;
@@ -658,13 +686,13 @@ __global__ void __launch_bounds__(f_threads<TW>(), 1)
   Lane<1> ln;
   lane_init(ln);
 
-  if (n_tiles > 0) fwd_prologue<TW>(a, stg, inv, c_begin, cols(0));
+  if (n_tiles > 0) fwd_prologue<TW>(a, stg, inv, r_base, c_begin, cols(0));
   // tile ti's product after tile ti - 1's row pass, with tile ti's first
   // chunks in flight; a last turn streams the last tile
   for (int ti = 0; ti <= n_tiles; ++ti) {
     __syncthreads();  // tile ti - 1 is in Cs
     if (ti > 0 && row_ok)
-      row_pass<STATS>(a, Cs + rp.r * F_CLD, c_begin + (long long)F_TC * (ti - 1), cols(ti - 1), rp,
+      row_pass<STATS>(a, Cs + lr * F_CLD, c_begin + (long long)F_TC * (ti - 1), cols(ti - 1), rp,
                       ln, stats);
     if (ti == n_tiles) break;
     const long long t0 = c_begin + (long long)F_TC * ti;
@@ -675,7 +703,7 @@ __global__ void __launch_bounds__(f_threads<TW>(), 1)
       const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
       const int wr = (warp & 3) * 32, wc = (warp >> 2) * 8 * NI;  // warps of 32 rows x 8 NI columns
       float acc[2][NI][4];
-      chunk_cos<F_ROWS, F_TC, NI>(a, stg, inv, t0, n, wr, wc, acc);
+      chunk_cos<F_ROWS, F_TC, NI>(a, stg, inv, r_base, t0, n, wr, wc, acc);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -689,14 +717,14 @@ __global__ void __launch_bounds__(f_threads<TW>(), 1)
       int ax, by;
       fdots_map<F_ROWS, F_TC, F_TI, F_TJ>(ax, by);
       float acc[F_TI][F_TJ];
-      fwd_dots_f32(a, stg, inv, t0, n, ax, by, acc);
+      fwd_dots_f32(a, stg, inv, r_base, t0, n, ax, by, acc);
 #pragma unroll
       for (int i = 0; i < F_TI; ++i)
 #pragma unroll
         for (int j = 0; j < F_TJ; ++j)
           Cs[(ax + F_SA * i) * F_CLD + by + F_SB * j] = acc[i][j] * inv[by + F_SB * j];
     }
-    if (ti + 1 < n_tiles) fwd_prologue<TW>(a, stg, inv, t0 + F_TC, cols(ti + 1));
+    if (ti + 1 < n_tiles) fwd_prologue<TW>(a, stg, inv, r_base, t0 + F_TC, cols(ti + 1));
   }
 
   // the lane's chains folded to base e in order; its partial, merged with
@@ -704,7 +732,7 @@ __global__ void __launch_bounds__(f_threads<TW>(), 1)
   if (!row_ok) return;
   float M, S;
   lane_fold(ln, 0, M, S);
-  float* p = part + (((long long)blockIdx.x * F_LANES + rp.lane) * a.B + rp.r) * PART;
+  float* p = part + (((long long)chunk * F_LANES + rp.lane) * a.B + rp.r) * PART;
   p[0] = M;
   p[1] = S;
   tk_store<0>(p + 2, ln.tk[0]);
@@ -815,13 +843,14 @@ __device__ __forceinline__ void fb_cos_map(int& gr, int& gc) {
   gc = 8 * (warp >> 3) + (lane & 7);
 }
 
-// the raw dots of the f32 pass, emb rows gr + 32 i with the tile's columns gc
-// + 16 j, class rows p0 .. p0 + n - 1 staged into Wt [FB_TC][D + 4], and of
-// thread t < FB_TC ||w||^2 of column t
+// the raw dots of the f32 pass, emb rows r_base + gr + 32 i (the first nr
+// valid) with the tile's columns gc + 16 j, class rows p0 .. p0 + n - 1
+// staged into Wt [FB_TC][D + 4], and of thread t < FB_TC ||w||^2 of column t
 __device__ __forceinline__ void fb_dots(float (&acc)[4][4], float& n2, float* stg, float* Wt,
-                                        const Args& a, long long p0, int n, int gr, int gc) {
+                                        const Args& a, int r_base, int nr, long long p0, int n,
+                                        int gr, int gc) {
   ftile_dots<FB_ROWS, FB_TC, FB_THREADS, FB_NST, FB_FK, 4, 4, 32, 16>(
-      acc, n2, stg, Wt, a.emb, 0, a.B, wrows<float>(a), p0, n, a.D, gr, gc);
+      acc, n2, stg, Wt, a.emb, r_base, nr, wrows<float>(a), p0, n, a.D, gr, gc);
 }
 
 // part [gridDim.x][B][D]: each block's d_emb partial over its columns.
@@ -830,10 +859,15 @@ __device__ __forceinline__ void fb_dots(float (&acc)[4][4], float& n2, float* st
 // it, in batch order; dgt: nullptr, or [B] zeros where the owner of a row's
 // target column writes that column's dz. FB_SGD: the SGD update applied to
 // sgd.w and sgd.mom (type TM) in place instead. FB_DEMB: d_emb alone.
-template <class TM, int MODE>
+// GROUPS (B > FB_ROWS): each tile's cosines, d_cos and d_w_hat product run
+// over the batch in row groups of FB_ROWS, in batch order, before the
+// epilogue, and the pass forms no d_emb (part unused): the d_emb pass
+// (margin_bwd_demb_f32_kernel) runs before it.
+template <class TM, int MODE, bool GROUPS>
 __global__ void __launch_bounds__(FB_THREADS, 1)
     margin_bwd_f32_kernel(Args a, BwdRows br, long long cols_per_blk, const float* dwl,
                           float* dw, Sgd sgd, float* dgt, float* part) {
+  static_assert(!GROUPS || MODE != FB_DEMB, "the row-group pass writes d_w or the update");
   extern __shared__ __align__(16) float fb_sm[];
   const int D = a.D, wld = D + 4;
   float* w_upd = static_cast<float*>(sgd.w);
@@ -844,14 +878,15 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
   float* Dq = stg + fb_stg_floats(D);                    // (d_cos * inv)^T [FB_TC][FB_QLD]
   float* inv = Dq + FB_TC * FB_QLD;                      // [FB_TC]
   float* sdot = inv + FB_TC;                             // [FB_TC] <d_w_hat, w_hat>
-  RowIn* rin = reinterpret_cast<RowIn*>(sdot + FB_TC);  // [FB_ROWS]
+  RowIn* rin = reinterpret_cast<RowIn*>(sdot + FB_TC);  // [FB_ROWS]: the row group's
   int* tgt = reinterpret_cast<int*>(rin + FB_ROWS);      // label - p0 in this tile, else -1
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long c_begin = (long long)blockIdx.x * cols_per_blk;
   const long long c_end = min(a.ncols, c_begin + cols_per_blk);
+  const int n_grp = GROUPS ? (a.B + FB_ROWS - 1) / FB_ROWS : 1;
   float* pblk = part + (long long)blockIdx.x * a.B * D;
-  load_row_in(rin, FB_ROWS, 0, a, br);  // thread t < FB_ROWS writes row t
+  if (!GROUPS) load_row_in(rin, FB_ROWS, 0, a, br);  // thread t < FB_ROWS writes row t
   int gr, gc;
   fb_cos_map(gr, gc);
   // the d_w_hat map: warp w holds the columns 8 (w % 8) .. + 7, and lane l
@@ -867,99 +902,156 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
     const int nl = (int)min((long long)FB_TC, c_end - t0);  // output rows of this tile
     const long long p0 = phys_col(a, t0);
     const int n = valid_cols(a, t0, p0, t0 + nl, FB_TC);  // ... that stand for a class
-    bool hit = false;
-    if (MODE != FB_DEMB && tid < FB_ROWS) {
-      const RowIn v = rin[tid];
-      const long long off = (long long)v.lab - p0;
-      hit = v.lab >= 0 && off >= 0 && off < n;
-      tgt[tid] = hit ? (int)off : -1;
-      if (hit && dgt != nullptr)  // the target column's dz: (p_t - 1) d_ce scale
-        dgt[tid] = (expf(a.scale * phi_target(v.gt, a) - v.lz) - 1.f) * v.dce * a.scale;
-    }
-    {
-      float acc[4][4], n2;
-      fb_dots(acc, n2, stg, Wt, a, p0, n, gr, gc);
-      if (tid < FB_TC) inv[tid] = inv_norm(n2);
-      __syncthreads();  // inv is visible
-      float sp[4] = {0.f, 0.f, 0.f, 0.f};
+    bool tile_tgt = false;
+    float acc3[8][8];  // inv * d_w_hat [column][4 h + feature], summed over the batch in order
+    for (int g = 0; g < n_grp; ++g) {
+      const int rb = g * FB_ROWS, nr = min(FB_ROWS, a.B - rb);  // the row group
+      if constexpr (GROUPS) {
+        __syncthreads();  // the previous group's reads of rin, tgt, the stages and Wt are done
+        load_row_in(rin, FB_ROWS, rb, a, br);  // fb_dots' barriers publish it
+      }
+      bool hit = false;
+      if (MODE != FB_DEMB && tid < FB_ROWS) {
+        const RowIn v = rin[tid];
+        const long long off = (long long)v.lab - p0;
+        hit = v.lab >= 0 && off >= 0 && off < n;
+        tgt[tid] = hit ? (int)off : -1;
+        if (hit && dgt != nullptr)  // the target column's dz: (p_t - 1) d_ce scale
+          dgt[rb + tid] = (expf(a.scale * phi_target(v.gt, a) - v.lz) - 1.f) * v.dce * a.scale;
+      }
+      {
+        float acc[4][4], n2;
+        fb_dots(acc, n2, stg, Wt, a, rb, nr, p0, n, gr, gc);
+        if (tid < FB_TC) inv[tid] = inv_norm(n2);
+        __syncthreads();  // inv is visible
+        float sp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int b = gr + 32 * i;
-        const RowIn v = rin[b];
+        for (int i = 0; i < 4; ++i) {
+          const int b = gr + 32 * i;  // the group's row
+          const RowIn v = rin[b];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = gc + 16 * j;
-          float d = 0.f;
-          if (b < a.B && c < n) {
-            const float cv = acc[i][j] * inv[c];
-            d = dcos_of(cv, p0 + c, v.lab, v.gt, v.lz, v.kth, v.dce, v.dneg, a);
-            sp[j] = fmaf(d, cv, sp[j]);
+          for (int j = 0; j < 4; ++j) {
+            const int c = gc + 16 * j;
+            float d = 0.f;
+            if (b < nr && c < n) {
+              const float cv = acc[i][j] * inv[c];
+              d = dcos_of(cv, p0 + c, v.lab, v.gt, v.lz, v.kth, v.dce, v.dneg, a);
+              sp[j] = fmaf(d, cv, sp[j]);
+            }
+            Dq[c * FB_QLD + b] = d * inv[c];  // folds w_hat = inv * w into both products
           }
-          Dq[c * FB_QLD + b] = d * inv[c];  // folds w_hat = inv * w into both products
         }
-      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) red[gr * FB_TC + gc + 16 * j] = sp[j];
-    }
-    const bool tile_tgt = __syncthreads_or(hit);  // Dq, red and tgt are visible
+        for (int j = 0; j < 4; ++j) red[gr * FB_TC + gc + 16 * j] = sp[j];
+      }
+      tile_tgt = __syncthreads_or(hit) || tile_tgt;  // Dq, red and tgt are visible
 
-    if constexpr (MODE != FB_DEMB) {
-      if (tid < FB_TC) {
-        float s = 0.f;
-        for (int y = 0; y < 32; ++y) s += red[y * FB_TC + tid];
-        sdot[tid] = s;
-      }
-      // inv * d_w_hat [FB_TC, D] = (d_cos * inv)^T . emb, summed over the
-      // batch in order, FB_EK emb rows a stage
-      const int nbk = (a.B + FB_EK - 1) / FB_EK;
-      auto load = [&](int bk) {
-        if (bk < nbk)
-          stage_f32<FB_THREADS>(stg + (bk % FB_ENST) * FB_EK * wld, wld, a.emb, FB_EK * bk,
-                                min(FB_EK, a.B - FB_EK * bk), FB_EK, D, 0, D);
-        cp_async_commit();
-      };
-      __syncthreads();  // red is read: the stages are free; sdot is visible
-      for (int s = 0; s < FB_ENST - 1; ++s) load(s);
-      float acc3[8][8];  // [column][4 h + feature]
+      if constexpr (MODE != FB_DEMB) {
+        if (tid < FB_TC) {  // the row groups' sums in batch order
+          float s = g == 0 ? 0.f : sdot[tid];
+          for (int y = 0; y < 32; ++y) s += red[y * FB_TC + tid];
+          sdot[tid] = s;
+        }
+        // inv * d_w_hat [FB_TC, D] += (d_cos * inv)^T . emb over the
+        // group's rows in order, FB_EK emb rows a stage
+        const int nbk = (nr + FB_EK - 1) / FB_EK;
+        auto load = [&](int bk) {
+          if (bk < nbk)
+            stage_f32<FB_THREADS>(stg + (bk % FB_ENST) * FB_EK * wld, wld, a.emb,
+                                  rb + FB_EK * bk, min(FB_EK, nr - FB_EK * bk), FB_EK, D, 0, D);
+          cp_async_commit();
+        };
+        __syncthreads();  // red is read: the stages are free; sdot is visible
+        for (int s = 0; s < FB_ENST - 1; ++s) load(s);
+        if (g == 0)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+          for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc3[i][j] = 0.f;
-      for (int bk = 0; bk < nbk; ++bk) {
-        cp_async_wait<FB_ENST - 2>();
-        __syncthreads();  // stage bk has landed; stage bk - 1 is free
-        load(bk + FB_ENST - 1);
-        const float* Eb = stg + (bk % FB_ENST) * FB_EK * wld;
-        const float* Dqb = Dq + 8 * g2 * FB_QLD + FB_EK * bk;
-        const int nb = min(FB_EK, a.B - FB_EK * bk);
+            for (int j = 0; j < 8; ++j) acc3[i][j] = 0.f;
+        for (int bk = 0; bk < nbk; ++bk) {
+          cp_async_wait<FB_ENST - 2>();
+          __syncthreads();  // stage bk has landed; stage bk - 1 is free
+          load(bk + FB_ENST - 1);
+          const float* Eb = stg + (bk % FB_ENST) * FB_EK * wld;
+          const float* Dqb = Dq + 8 * g2 * FB_QLD + FB_EK * bk;
+          const int nb = min(FB_EK, nr - FB_EK * bk);
 #pragma unroll 2
-        for (int bb = 0; bb < nb; ++bb) {
-          float dv[8];
+          for (int bb = 0; bb < nb; ++bb) {
+            float dv[8];
 #pragma unroll
-          for (int i = 0; i < 8; ++i) dv[i] = Dqb[i * FB_QLD + bb];
+            for (int i = 0; i < 8; ++i) dv[i] = Dqb[i * FB_QLD + bb];
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (4 * fx + 256 * h >= D) continue;
-            const float4 e = *reinterpret_cast<const float4*>(Eb + bb * wld + 4 * fx + 256 * h);
+            for (int h = 0; h < 2; ++h) {
+              if (4 * fx + 256 * h >= D) continue;
+              const float4 e = *reinterpret_cast<const float4*>(Eb + bb * wld + 4 * fx + 256 * h);
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              acc3[i][4 * h] = fmaf(dv[i], e.x, acc3[i][4 * h]);
-              acc3[i][4 * h + 1] = fmaf(dv[i], e.y, acc3[i][4 * h + 1]);
-              acc3[i][4 * h + 2] = fmaf(dv[i], e.z, acc3[i][4 * h + 2]);
-              acc3[i][4 * h + 3] = fmaf(dv[i], e.w, acc3[i][4 * h + 3]);
+              for (int i = 0; i < 8; ++i) {
+                acc3[i][4 * h] = fmaf(dv[i], e.x, acc3[i][4 * h]);
+                acc3[i][4 * h + 1] = fmaf(dv[i], e.y, acc3[i][4 * h + 1]);
+                acc3[i][4 * h + 2] = fmaf(dv[i], e.z, acc3[i][4 * h + 2]);
+                acc3[i][4 * h + 3] = fmaf(dv[i], e.w, acc3[i][4 * h + 3]);
+              }
             }
           }
         }
+        cp_async_wait<0>();
       }
-      cp_async_wait<0>();
+    }
 
-      // d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>) + the label rows' d_wl,
-      // the stored rows from the tile
+    if constexpr (MODE != FB_DEMB) {
+      // d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>), in place, the
+      // stored rows from the tile
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int t = 8 * g2 + i;
+        if (t >= n) continue;
+        const float iv = inv[t], sd = sdot[t];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int f = 4 * fx + 256 * h;
+          if (f >= D) continue;
+          const float4 w4 = *reinterpret_cast<const float4*>(Wt + t * wld + f);
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc3[i][4 * h + e] = acc3[i][4 * h + e] - wv[e] * iv * (iv * sd);
+        }
+      }
+      // + the label rows' d_wl, group by group in batch order (GROUPS: each
+      // group's targets found anew from the labels)
+      if (tile_tgt)
+        for (int g = 0; g < n_grp; ++g) {
+          const int rb = g * FB_ROWS, nr = min(FB_ROWS, a.B - rb);
+          if constexpr (GROUPS) {
+            __syncthreads();  // every read of the previous group's tgt is done
+            if (tid < FB_ROWS) {
+              const int lab = tid < nr ? a.labels[rb + tid] : -1;
+              const long long off = (long long)lab - p0;
+              tgt[tid] = lab >= 0 && off >= 0 && off < n ? (int)off : -1;
+            }
+            __syncthreads();
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int t = 8 * g2 + i;
+            if (t >= n) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int f = 4 * fx + 256 * h;
+              if (f >= D) continue;
+              for (int b = 0; b < nr; ++b)
+                if (tgt[b] == t)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    acc3[i][4 * h + e] += dwl[(long long)(rb + b) * D + f + e];
+            }
+          }
+        }
+      // d_w stored, or (FB_SGD) the update from the stored w and mom
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int t = 8 * g2 + i;
         if (t >= nl) continue;
-        const float iv = inv[t], sd = sdot[t];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int f = 4 * fx + 256 * h;
@@ -969,20 +1061,15 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
             store4(dw + off_out, make_float4(0.f, 0.f, 0.f, 0.f));
             continue;
           }
-          const float4 w4 = *reinterpret_cast<const float4*>(Wt + t * wld + f);
-          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
           float g[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) g[e] = acc3[i][4 * h + e] - wv[e] * iv * (iv * sd);
-          if (tile_tgt)
-            for (int b = 0; b < a.B; ++b)
-              if (tgt[b] == t)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) g[e] += dwl[(long long)b * D + f + e];
+          for (int e = 0; e < 4; ++e) g[e] = acc3[i][4 * h + e];
           if (MODE == FB_DW) {
             store4(dw + off_out, make_float4(g[0], g[1], g[2], g[3]));
             continue;
           }
+          const float4 w4 = *reinterpret_cast<const float4*>(Wt + t * wld + f);
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
           const long long off = (p0 + t) * D + f;  // the class row
           const float4 m4 = load4(mom + off);
           float mv[4] = {m4.x, m4.y, m4.z, m4.w};
@@ -1005,62 +1092,194 @@ __global__ void __launch_bounds__(FB_THREADS, 1)
     }
 
     // the block's d_emb partial += (d_cos * inv) . (the tile's stored rows),
-    // column by column, 256 features at a time
-    for (int f0 = 0; f0 < D; f0 += 256) {
-      float acc2[8][8];  // [row][4 q + feature]
+    // column by column, 256 features at a time (one row group: GROUPS
+    // leaves d_emb to its own pass)
+    if constexpr (!GROUPS)
+      for (int f0 = 0; f0 < D; f0 += 256) {
+        float acc2[8][8];  // [row][4 q + feature]
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = 8 * g3 + i;
+        for (int i = 0; i < 8; ++i) {
+          const int r = 8 * g3 + i;
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int f = f0 + 4 * fx3 + 128 * q;
-          const float4 v = first || r >= a.B || f >= D
-                               ? make_float4(0.f, 0.f, 0.f, 0.f)
-                               : *reinterpret_cast<const float4*>(pblk + (long long)r * D + f);
-          acc2[i][4 * q] = v.x, acc2[i][4 * q + 1] = v.y;
-          acc2[i][4 * q + 2] = v.z, acc2[i][4 * q + 3] = v.w;
+          for (int q = 0; q < 2; ++q) {
+            const int f = f0 + 4 * fx3 + 128 * q;
+            const float4 v = first || r >= a.B || f >= D
+                                 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                 : *reinterpret_cast<const float4*>(pblk + (long long)r * D + f);
+            acc2[i][4 * q] = v.x, acc2[i][4 * q + 1] = v.y;
+            acc2[i][4 * q + 2] = v.z, acc2[i][4 * q + 3] = v.w;
+          }
         }
-      }
 #pragma unroll 4
-      for (int c = 0; c < n; ++c) {
-        const float* qp = Dq + c * FB_QLD + 8 * g3;
-        const float4 qa = *reinterpret_cast<const float4*>(qp);
-        const float4 qb = *reinterpret_cast<const float4*>(qp + 4);
-        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        for (int c = 0; c < n; ++c) {
+          const float* qp = Dq + c * FB_QLD + 8 * g3;
+          const float4 qa = *reinterpret_cast<const float4*>(qp);
+          const float4 qb = *reinterpret_cast<const float4*>(qp + 4);
+          const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int f = f0 + 4 * fx3 + 128 * q;
-          if (f >= D) continue;
-          const float4 w = *reinterpret_cast<const float4*>(Wt + c * wld + f);
+          for (int q = 0; q < 2; ++q) {
+            const int f = f0 + 4 * fx3 + 128 * q;
+            if (f >= D) continue;
+            const float4 w = *reinterpret_cast<const float4*>(Wt + c * wld + f);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            acc2[i][4 * q] = fmaf(qv[i], w.x, acc2[i][4 * q]);
-            acc2[i][4 * q + 1] = fmaf(qv[i], w.y, acc2[i][4 * q + 1]);
-            acc2[i][4 * q + 2] = fmaf(qv[i], w.z, acc2[i][4 * q + 2]);
-            acc2[i][4 * q + 3] = fmaf(qv[i], w.w, acc2[i][4 * q + 3]);
+            for (int i = 0; i < 8; ++i) {
+              acc2[i][4 * q] = fmaf(qv[i], w.x, acc2[i][4 * q]);
+              acc2[i][4 * q + 1] = fmaf(qv[i], w.y, acc2[i][4 * q + 1]);
+              acc2[i][4 * q + 2] = fmaf(qv[i], w.z, acc2[i][4 * q + 2]);
+              acc2[i][4 * q + 3] = fmaf(qv[i], w.w, acc2[i][4 * q + 3]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = 8 * g3 + i;
+          if (r >= a.B) continue;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int f = f0 + 4 * fx3 + 128 * q;
+            if (f < D)
+              store4(pblk + (long long)r * D + f,
+                     make_float4(acc2[i][4 * q], acc2[i][4 * q + 1], acc2[i][4 * q + 2],
+                                 acc2[i][4 * q + 3]));
           }
         }
       }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = 8 * g3 + i;
-        if (r >= a.B) continue;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int f = f0 + 4 * fx3 + 128 * q;
-          if (f < D)
-            store4(pblk + (long long)r * D + f,
-                   make_float4(acc2[i][4 * q], acc2[i][4 * q + 1], acc2[i][4 * q + 2],
-                               acc2[i][4 * q + 3]));
-        }
-      }
-    }
     first = false;
     __syncthreads();  // Wt, the stages, Dq, inv, sdot and tgt are rebuilt by the next tile
     t0 += nl;
   }
-  if (first)  // a block without columns: its partial is 0
+  if (!GROUPS && first)  // a block without columns: its partial is 0
     for (long long i = tid; i < (long long)a.B * D; i += FB_THREADS) pblk[i] = 0.f;
+}
+
+// ---------------------------------------------------- backward: f32 d_emb pass
+
+// Above FB_ROWS batch rows the f32 backward forms d_emb in a pass of its
+// own, as quad_margin.cu's quad_bwd_f32_kernel does (the f32 pass's [B, D]
+// d_emb partial a column-owning block, in global memory, would be 1 MiB a
+// block at B = 512 and 132 MiB over the card: beyond L2): a block holds
+// DF_RB rows x a column range, 8 warps, one block an SM, its d_emb partial
+// [DF_RB, D] in registers (8 rows x 16 features a thread at D = 512). Per
+// 64-column tile, ftile_dots stages the W tile once into [DF_TC][D + 4]
+// while emb's rows stream from L2, and forms the raw dots (each cosine the
+// forward's in-order fmaf chain) and ||w||^2; (d_cos * inv) goes to shared
+// memory transposed, and d_emb += (d_cos * inv) . the stored tile. It runs
+// before the d_w pass, so the fused update's d_emb reads W before any of it
+// is written. One product more than the one pass (the cosines twice).
+constexpr int DF_RB = 64, DF_TC = 64, DF_THREADS = 256, DF_NST = 2, DF_FK = 64;
+constexpr int DF_QLD = DF_RB + 4;  // (d_cos * inv)^T's row stride: one row a tile column
+constexpr int DF_STG = ftile_stage_floats<DF_RB, DF_NST, DF_FK>();
+
+// shared memory at feature width D: the W tile, emb's stages, (d_cos *
+// inv)^T, the tile's 1 / ||w|| and the rows' inputs
+__host__ __device__ constexpr int demb_f32_smem(int D) {
+  return 4 * (DF_TC * (D + 4) + DF_STG + DF_TC * DF_QLD + DF_TC) + DF_RB * (int)sizeof(RowIn);
+}
+static_assert(demb_f32_smem(512) <= 232448, "the f32 d_emb pass fits a block's shared memory");
+
+// the cosine map: rows ax + 16 i, columns by + 16 j (i, j < 4); the eight
+// threads of a quarter warp read one emb row (a broadcast) and eight
+// consecutive W rows
+__device__ __forceinline__ void df_cos_map(int& ax, int& by) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ax = 4 * (warp >> 1) + (lane >> 3);
+  by = 8 * (warp & 1) + (lane & 7);
+}
+
+__device__ __forceinline__ void df_dots(float (&acc)[4][4], float& n2, float* stg, float* Wt,
+                                        const Args& a, int r_base, int nr, long long p0, int n,
+                                        int ax, int by) {
+  ftile_dots<DF_RB, DF_TC, DF_THREADS, DF_NST, DF_FK, 4, 4, 16, 16>(
+      acc, n2, stg, Wt, a.emb, r_base, nr, wrows<float>(a), p0, n, a.D, ax, by);
+}
+
+// part [nchunk][B][D]: each block's d_emb partial of its rows over its
+// column chunk (row groups of a chunk adjacent in launch order)
+__global__ void __launch_bounds__(DF_THREADS, 1)
+    margin_bwd_demb_f32_kernel(Args a, BwdRows br, long long cols_per_chunk, int n_rg,
+                               float* part) {
+  extern __shared__ __align__(16) float df_sm[];
+  const int D = a.D, wld = D + 4;
+  float* Wt = df_sm;                 // the W tile [DF_TC][D + 4]
+  float* stg = Wt + DF_TC * wld;     // emb's stages
+  float* Dq = stg + DF_STG;          // (d_cos * inv)^T [DF_TC][DF_QLD]
+  float* inv = Dq + DF_TC * DF_QLD;  // [DF_TC]
+  RowIn* rin = reinterpret_cast<RowIn*>(inv + DF_TC);  // [DF_RB]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rg = blockIdx.x % n_rg, chunk = blockIdx.x / n_rg;
+  const int r_base = rg * DF_RB, nr = min(DF_RB, a.B - r_base);
+  const long long c_begin = (long long)chunk * cols_per_chunk;
+  const long long c_end = min(a.ncols, c_begin + cols_per_chunk);
+  load_row_in(rin, DF_RB, r_base, a, br);  // published by df_dots' barriers
+  int ax, by;
+  df_cos_map(ax, by);
+  // the d_emb map: thread t holds the rows er .. er + 7 and the features
+  // ef + 128 q .. + 3 (q < 4) below D; a quarter warp reads one d_cos
+  // column's 8 rows (a broadcast) and 32 consecutive features of one W row
+  const int er = 8 * (4 * (warp & 1) + (lane >> 3)), ef = 4 * (8 * (warp >> 1) + (lane & 7));
+  float demb[8][16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int f = 0; f < 16; ++f) demb[i][f] = 0.f;
+
+  for (long long t0 = c_begin; t0 < c_end; t0 += DF_TC) {
+    const int nl = (int)min((long long)DF_TC, c_end - t0);
+    const long long p0 = phys_col(a, t0);
+    const int n = valid_cols(a, t0, p0, t0 + nl, DF_TC);
+    float acc[4][4], n2;
+    df_dots(acc, n2, stg, Wt, a, r_base, nr, p0, n, ax, by);
+    if (tid < DF_TC) inv[tid] = inv_norm(n2);
+    __syncthreads();  // inv is visible
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int lr = ax + 16 * i;
+      const RowIn v = rin[lr];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = by + 16 * j;
+        float d = 0.f;
+        if (lr < nr && c < n)
+          d = dcos_of(acc[i][j] * inv[c], p0 + c, v.lab, v.gt, v.lz, v.kth, v.dce, v.dneg, a);
+        Dq[c * DF_QLD + lr] = d * inv[c];
+      }
+    }
+    __syncthreads();  // Dq is complete
+
+    // demb += (d_cos * inv) . the stored tile, column by column in order
+#pragma unroll 4
+    for (int c = 0; c < n; ++c) {
+      const float4 dlo = *reinterpret_cast<const float4*>(Dq + c * DF_QLD + er);
+      const float4 dhi = *reinterpret_cast<const float4*>(Dq + c * DF_QLD + er + 4);
+      const float dv[8] = {dlo.x, dlo.y, dlo.z, dlo.w, dhi.x, dhi.y, dhi.z, dhi.w};
+      const float* wrow = Wt + c * wld + ef;
+      float wv[16];  // the column's features, 0 from D
+#pragma unroll
+      for (int fq = 0; fq < 4; ++fq) {
+        const float4 w = ef + 128 * fq < D ? *reinterpret_cast<const float4*>(wrow + 128 * fq)
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+        wv[4 * fq] = w.x, wv[4 * fq + 1] = w.y, wv[4 * fq + 2] = w.z, wv[4 * fq + 3] = w.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int f = 0; f < 16; ++f) demb[i][f] = fmaf(dv[i], wv[f], demb[i][f]);
+    }
+    __syncthreads();  // Wt, the stages and Dq are rebuilt by the next tile
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = er + i;
+    if (r >= nr) continue;
+    float* p = part + ((long long)chunk * a.B + r_base + r) * D + ef;
+#pragma unroll
+    for (int fq = 0; fq < 4; ++fq)
+      if (ef + 128 * fq < D)
+        *reinterpret_cast<float4*>(p + 128 * fq) = make_float4(
+            demb[i][4 * fq], demb[i][4 * fq + 1], demb[i][4 * fq + 2], demb[i][4 * fq + 3]);
+  }
 }
 
 constexpr int E_RB = 64, E_TC = 64;  // bf16 d_emb pass: rows, tile columns
@@ -1271,8 +1490,12 @@ __device__ __forceinline__ void mma_nt_scaled(float (&acc)[MI][NI][4], const uns
 // from the caller) where the pass owns a row's target column. Both add each
 // label row's d_wl [B][D] in the column's owner, in batch order, and write
 // 1 / ||w|| of each logical column into inv_out for the d_emb pass. DW_SGD:
-// the SGD update of sgd.w (== W) and sgd.mom (type TM) in place.
-template <int MODE, class TM>
+// the SGD update of sgd.w (== W) and sgd.mom (type TM) in place. GROUPS (B
+// > WB_ROWS): emb cannot stay resident, so each tile's cosines, d_cos and
+// d_w_hat product run over the batch in row groups of WB_ROWS, each
+// group's emb rows staged into Es in turn (from L2), d_w_hat summed in the
+// mma accumulators in batch order; the label rows' d_wl, group by group.
+template <int MODE, class TM, bool GROUPS>
 __global__ void __launch_bounds__(BW_THREADS, 1)
     margin_bwd_dw_bf16_kernel(Args a, BwdRows br, long long cols_per_blk, const float* dwl,
                               float* dw, float* inv_out, Sgd sgd, float* dgt) {
@@ -1281,7 +1504,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   const __nv_bfloat16* W = wrows<__nv_bfloat16>(a);
   __nv_bfloat16* w_upd = static_cast<__nv_bfloat16*>(sgd.w);
   TM* mom = static_cast<TM*>(sgd.mom);
-  unsigned char* Es = dw_sm;                   // emb [WB_ROWS][D]
+  unsigned char* Es = dw_sm;                   // emb [WB_ROWS][D]: the row group's
   unsigned char* Ws = Es + WB_ROWS * D * 2;    // the W tile [WB_TC][D], as stored
   unsigned char* Dc = Ws + WB_TC * D * 2;      // bf16(d_cos) [WB_ROWS][WB_TC]
   float* inv = reinterpret_cast<float*>(Dc + WB_ROWS * WB_TC * 2);  // [WB_TC]
@@ -1294,7 +1517,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   const long long c_begin = (long long)blockIdx.x * cols_per_blk;
   const long long c_end = min(a.ncols, c_begin + cols_per_blk);
   const int n_tiles = c_end > c_begin ? (int)((c_end - c_begin + WB_TC - 1) / WB_TC) : 0;
-  const int nb = (a.B + 15) / 16;  // k16 steps of d_w_hat over the batch
+  const int n_grp = GROUPS ? (a.B + WB_ROWS - 1) / WB_ROWS : 1;
 
   // tile ti: the output rows of the logical columns [t0, t0 + nl), of which
   // the first n (returned) stand for the class rows p0 .. p0 + n - 1
@@ -1304,15 +1527,27 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     nl = (int)min((long long)WB_TC, c_end - t0);
     return valid_cols(a, t0, p0, c_end, WB_TC);
   };
+  // the rows of the group at rb (nr of them) whose target lies in the
+  // tile's n columns from p0, in batch order, into hits (one warp)
+  auto list_hits = [&](int nr) {
+    int cnt = 0;
+    for (int r0 = 0; r0 < WB_ROWS; r0 += 32) {
+      const bool in = r0 + lane < nr && tgt[r0 + lane] >= 0;
+      const unsigned m = __ballot_sync(0xffffffffu, in);
+      if (in) hits[1 + cnt + __popc(m & ((1u << lane) - 1u))] = r0 + lane;
+      cnt += __popc(m);
+    }
+    if (lane == 0) hits[0] = cnt;
+  };
   long long t0, p0;
   int nl;
-  stage_rows_bf16(Es, a.eb, 0, a.B, WB_ROWS, D);
+  if (!GROUPS) stage_rows_bf16(Es, a.eb, 0, a.B, WB_ROWS, D);  // resident
   if (n_tiles > 0) {
     const int n = tile_at(0, t0, p0, nl);
     stage_rows_bf16(Ws, W, p0, n, WB_TC, D);
   }
   cp_async_commit();
-  load_row_in(rin, WB_ROWS, 0, a, br);
+  if (!GROUPS) load_row_in(rin, WB_ROWS, 0, a, br);
 
   // the cosine map: warp w holds rows 32 (w % 4) .., columns 16 (w / 4) ..;
   // the d_w_hat map: columns 32 (w % 2) .., features 16 p .. 16 p + 15 of
@@ -1326,66 +1561,78 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     cp_async_wait<0>();
     __syncthreads();  // the tile (and emb) landed
     row_inv_tile(Ws, n, D, inv);
-    bool hit = false;
-    if (tid < WB_ROWS) {
-      const RowIn v = rin[tid];
-      const long long off = (long long)v.lab - p0;
-      hit = v.lab >= 0 && off >= 0 && off < n;
-      tgt[tid] = hit ? (int)off : -1;
-      if (MODE == DW_SPARSE && hit)  // the target column's dz: (p_t - 1) d_ce scale
-        dgt[tid] = (expf(a.scale * phi_target(v.gt, a) - v.lz) - 1.f) * v.dce * a.scale;
-    }
-    const bool any_tgt = __syncthreads_or(hit);  // inv and tgt visible
-    if (any_tgt && warp == 0) {  // the rows with a target in the tile, in batch order
-      int cnt = 0;
-      for (int r0 = 0; r0 < WB_ROWS; r0 += 32) {
-        const bool in = tgt[r0 + lane] >= 0;
-        const unsigned m = __ballot_sync(0xffffffffu, in);
-        if (in) hits[1 + cnt + __popc(m & ((1u << lane) - 1u))] = r0 + lane;
-        cnt += __popc(m);
+    bool any_tgt = false;
+    float dwh[2][8][4];  // d_w_hat, summed over the batch in order
+    for (int gi = 0; gi < n_grp; ++gi) {
+      const int rb = gi * WB_ROWS, nr = min(WB_ROWS, a.B - rb);  // the row group
+      if constexpr (GROUPS) {
+        __syncthreads();  // the previous group's reads of Es, Dc, rin and tgt are done
+        stage_rows_bf16(Es, a.eb, rb, nr, WB_ROWS, D);
+        cp_async_commit();
+        load_row_in(rin, WB_ROWS, rb, a, br);
+        cp_async_wait<0>();
+        __syncthreads();  // the group's emb rows and inputs are visible
       }
-      if (lane == 0) hits[0] = cnt;
-    }
-    if (MODE != DW_SGD && tid < nl) inv_out[t0 + tid] = inv[tid];
+      bool hit = false;
+      if (tid < WB_ROWS) {
+        const RowIn v = rin[tid];
+        const long long off = (long long)v.lab - p0;
+        hit = v.lab >= 0 && off >= 0 && off < n;
+        tgt[tid] = hit ? (int)off : -1;
+        if (MODE == DW_SPARSE && hit)  // the target column's dz: (p_t - 1) d_ce scale
+          dgt[rb + tid] = (expf(a.scale * phi_target(v.gt, a) - v.lz) - 1.f) * v.dce * a.scale;
+      }
+      const bool group_tgt = __syncthreads_or(hit);  // inv and tgt visible
+      any_tgt = any_tgt || group_tgt;
+      if (!GROUPS && group_tgt && warp == 0) list_hits(WB_ROWS);
+      if (MODE != DW_SGD && gi == 0 && tid < nl) inv_out[t0 + tid] = inv[tid];
 
-    float acc[2][2][4] = {};
-    mma_nt_scaled<2, 2>(acc, Es, rcd, m0, Ws, rcd, n0, D / 16, inv);
+      float acc[2][2][4] = {};
+      mma_nt_scaled<2, 2>(acc, Es, rcd, m0, Ws, rcd, n0, D / 16, inv);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int b = m0 + 16 * mi + g + 8 * h;
-        const RowIn v = rin[b];
+        for (int h = 0; h < 2; ++h) {
+          const int b = m0 + 16 * mi + g + 8 * h;  // the group's row
+          const RowIn v = rin[b];
 #pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          const int c = n0 + 8 * ni + 2 * t;
-          float d[2];
+          for (int ni = 0; ni < 2; ++ni) {
+            const int c = n0 + 8 * ni + 2 * t;
+            float d[2];
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
-            d[j] = b < a.B && c + j < n
-                       ? dcos_of(acc[mi][ni][2 * h + j], p0 + c + j, v.lab, v.gt, v.lz, v.kth,
-                                 v.dce, v.dneg, a)
-                       : 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(Dc + swz(b, c, WB_TC / 8)) =
-              __floats2bfloat162_rn(d[0], d[1]);
+            for (int j = 0; j < 2; ++j)
+              d[j] = b < nr && c + j < n
+                         ? dcos_of(acc[mi][ni][2 * h + j], p0 + c + j, v.lab, v.gt, v.lz, v.kth,
+                                   v.dce, v.dneg, a)
+                         : 0.f;
+            *reinterpret_cast<__nv_bfloat162*>(Dc + swz(b, c, WB_TC / 8)) =
+                __floats2bfloat162_rn(d[0], d[1]);
+          }
         }
-      }
-    __syncthreads();  // Dc is complete
+      __syncthreads();  // Dc is complete
 
-    // d_w_hat = bf16(d_cos)^T . bf16(emb): each k16 step's product (16
-    // batch rows) from a zero accumulator, added in f32
-    float dwh[2][8][4] = {};
-    for (int ks = 0; ks < nb; ++ks) {
-      uint32_t av[2][4];
-      load_a_t(av[0], Dc, WB_TC / 8, m2, ks);
-      load_a_t(av[1], Dc, WB_TC / 8, m2 + 16, ks);
+      // d_w_hat += bf16(d_cos)^T . bf16(emb): each k16 step's product (16
+      // batch rows) from a zero accumulator, added in f32
+      if (gi == 0)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (q2 + 8 * i >= np) continue;
-        uint32_t bf[4];
-        load_b_kn(bf, Es, rcd, 16 * (q2 + 8 * i), ks);
+        for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) mma_add(dwh[mi], 2 * i, av[mi], bf);
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dwh[mi][j][e] = 0.f;
+      const int nb = (nr + 15) / 16;  // k16 steps over the group's rows
+      for (int ks = 0; ks < nb; ++ks) {
+        uint32_t av[2][4];
+        load_a_t(av[0], Dc, WB_TC / 8, m2, ks);
+        load_a_t(av[1], Dc, WB_TC / 8, m2 + 16, ks);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (q2 + 8 * i >= np) continue;
+          uint32_t bf[4];
+          load_b_kn(bf, Es, rcd, 16 * (q2 + 8 * i), ks);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_add(dwh[mi], 2 * i, av[mi], bf);
+        }
       }
     }
 
@@ -1428,10 +1675,67 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
         for (int h = 0; h < 2; ++h) sdp[q2 * WB_TC + m2 + 16 * mi + g + 8 * h] = sd[mi][h];
     __syncthreads();
 
-    // d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>) + the label rows' d_wl;
-    // DW_SGD then g = d_w + wd * w, mom' = mu * mom + g, upd = g + mu * mom'
-    // (Nesterov) | mom' | g (mu = 0), w' = w - lr * upd, from the stored w
-    // and mom, each of w' and mom' rounded once to its storage type
+    // d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>) of the thread's row
+    // (mi, h), in place of d_w_hat
+    auto finish_row = [&](int mi, int h) {
+      const int c = m2 + 16 * mi + g + 8 * h;
+      const float iv = inv[c];
+      float s = 0.f;
+      for (int q = 0; q < 8; ++q) s += sdp[q * WB_TC + c];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 wf = q2 + 8 * (j >> 1) < np ? stored(c, j) : make_float2(0.f, 0.f);
+        dwh[mi][j][2 * h] = iv * (dwh[mi][j][2 * h] - wf.x * iv * s);
+        dwh[mi][j][2 * h + 1] = iv * (dwh[mi][j][2 * h + 1] - wf.y * iv * s);
+      }
+    };
+    // + the label rows' d_wl of the group at rb listed in hits, in batch order
+    auto add_dwl = [&](int mi, int h, int rb) {
+      const int c = m2 + 16 * mi + g + 8 * h;
+      for (int k = 1; k <= hits[0]; ++k) {
+        const int b = hits[k];
+        if (tgt[b] != c) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (q2 + 8 * (j >> 1) >= np) continue;
+          const float2 l = *reinterpret_cast<const float2*>(dwl + (long long)(rb + b) * D + feat(j));
+          dwh[mi][j][2 * h] += l.x;
+          dwh[mi][j][2 * h + 1] += l.y;
+        }
+      }
+    };
+    // GROUPS: every row's d_w first, then the label rows' d_wl group by
+    // group in batch order, each group's targets found anew from the labels
+    // (one group: both per row below, after the row's momentum loads)
+    if constexpr (GROUPS) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (m2 + 16 * mi + g + 8 * h < n) finish_row(mi, h);
+      if (any_tgt)
+        for (int gi = 0; gi < n_grp; ++gi) {
+          const int rb = gi * WB_ROWS, nr = min(WB_ROWS, a.B - rb);
+          __syncthreads();  // every read of the previous group's list is done
+          if (tid < WB_ROWS) {
+            const int lab = tid < nr ? a.labels[rb + tid] : -1;
+            const long long off = (long long)lab - p0;
+            tgt[tid] = lab >= 0 && off >= 0 && off < n ? (int)off : -1;
+          }
+          __syncthreads();
+          if (warp == 0) list_hits(nr);
+          __syncthreads();
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (m2 + 16 * mi + g + 8 * h < n) add_dwl(mi, h, rb);
+        }
+    }
+
+    // d_w stored; DW_SGD: g = d_w + wd * w, mom' = mu * mom + g, upd = g +
+    // mu * mom' (Nesterov) | mom' | g (mu = 0), w' = w - lr * upd, from the
+    // stored w and mom, each of w' and mom' rounded once to its storage type
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -1446,40 +1750,22 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
               if (q2 + 8 * (j >> 1) < np) store2(out + feat(j), make_float2(0.f, 0.f));
           continue;
         }
-        const float iv = inv[c];
-        float s = 0.f;
-        for (int q = 0; q < 8; ++q) s += sdp[q * WB_TC + c];
         // DW_SGD: the row's momentum values, all loads in flight before the
-        // first store
+        // first store (and, one group, before the row's d_w is formed)
         float2 mv[8];
         if constexpr (MODE == DW_SGD)
 #pragma unroll
           for (int j = 0; j < 8; ++j)
             mv[j] = q2 + 8 * (j >> 1) < np && sgd.mu != 0.f ? load2(mom + (p0 + c) * D + feat(j))
                                                               : make_float2(0.f, 0.f);
-        float2 gr[8];  // the row's d_w
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 wf = q2 + 8 * (j >> 1) < np ? stored(c, j) : make_float2(0.f, 0.f);
-          gr[j] = make_float2(iv * (dwh[mi][j][2 * h] - wf.x * iv * s),
-                              iv * (dwh[mi][j][2 * h + 1] - wf.y * iv * s));
+        if constexpr (!GROUPS) {
+          finish_row(mi, h);
+          if (any_tgt) add_dwl(mi, h, 0);
         }
-        if (any_tgt)  // the label rows' d_wl, in batch order
-          for (int k = 1; k <= hits[0]; ++k) {
-            const int b = hits[k];
-            if (tgt[b] != c) continue;
-#pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              if (q2 + 8 * (j >> 1) >= np) continue;
-              const float2 l = *reinterpret_cast<const float2*>(dwl + (long long)b * D + feat(j));
-              gr[j].x += l.x;
-              gr[j].y += l.y;
-            }
-          }
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           if (q2 + 8 * (j >> 1) >= np) continue;
-          float2 gv = gr[j];
+          float2 gv = make_float2(dwh[mi][j][2 * h], dwh[mi][j][2 * h + 1]);
           if constexpr (MODE != DW_SGD) {
             store2(out + feat(j), gv);
           } else {
@@ -1511,26 +1797,28 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
 // ------------------------------------------------------------ clean cosines
 
 // out [B][C] = the bf16 cosines of every column (no labels read) as the
-// forward's chunk staging forms them (chunk_cos, F_TC columns a block); 1 /
-// ||w|| from a.inv
+// forward's chunk staging forms them (chunk_cos, F_TC columns and a row
+// group a block); 1 / ||w|| from a.inv
 __global__ void __launch_bounds__(F_THREADS) clean_cos_chunk_kernel(Args a, float* out) {
   extern __shared__ __align__(16) unsigned char cc_sm[];
   float* inv = reinterpret_cast<float*>(cc_sm + CH_ST * chunk_bytes<F_ROWS, F_TC>());
   const int tid = threadIdx.x, warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const int r_base = blockIdx.y * F_ROWS;
   const long long t0 = (long long)blockIdx.x * F_TC;
   const int n = (int)min((long long)F_TC, a.C - t0);
   if (tid < F_TC) inv[tid] = tid < n ? a.inv[t0 + tid] : 0.f;
   const int wr = (warp & 3) * 32, wc = (warp >> 2) * (F_TC / 2);
   float acc[2][F_TC / 16][4];
-  chunk_prologue<F_ROWS, F_TC>(a, cc_sm, t0, n);
-  chunk_cos<F_ROWS, F_TC, F_TC / 16>(a, cc_sm, inv, t0, n, wr, wc, acc);
+  chunk_prologue<F_ROWS, F_TC>(a, cc_sm, r_base, t0, n);
+  chunk_cos<F_ROWS, F_TC, F_TC / 16>(a, cc_sm, inv, r_base, t0, n, wr, wc, acc);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < F_TC / 16; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = wr + 16 * mi + g + 8 * (e >> 1), c = wc + 8 * ni + 2 * t + (e & 1);
+        const long long r = r_base + wr + 16 * mi + g + 8 * (e >> 1);
+        const int c = wc + 8 * ni + 2 * t + (e & 1);
         if (r < a.B && c < n) out[r * a.C + t0 + c] = acc[mi][ni][e];
       }
 }
@@ -1568,30 +1856,34 @@ __global__ void __launch_bounds__(BW_THREADS) clean_cos_tile_kernel(Args a, floa
     for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = r_base + m0 + 16 * mi + g + 8 * (e >> 1), c = n0 + 8 * ni + 2 * t + (e & 1);
+        const long long r = r_base + m0 + 16 * mi + g + 8 * (e >> 1);
+        const int c = n0 + 8 * ni + 2 * t + (e & 1);
         if (r < a.B && c < n) out[r * a.C + t0 + c] = acc[mi][ni][e];
       }
 }
 
 // out [B][C] = the f32 cosines of every column (no labels read) as the f32
-// kernels form them: the forward's product (fwd_dots_f32, 128 columns a
-// block) and the backward's ftile_dots (64 columns a block, every row; the
-// one pass of every f32 backward form)
+// kernels form them: the forward's product (fwd_dots_f32, 128 columns and
+// a row group a block) and the backward's ftile_dots (64 columns and a row
+// group a block: the f32 pass's 128 rows, or the d_emb pass's 64 rows
+// above 128 batch rows)
 __global__ void __launch_bounds__(F_THREADS) clean_cos_f32_fwd_kernel(Args a, float* out) {
   extern __shared__ __align__(16) unsigned char cf_sm[];
   float* inv = reinterpret_cast<float*>(cf_sm + F_NST * fwd_stage_bytes<float>());
+  const int r_base = blockIdx.y * F_ROWS;
   const long long t0 = (long long)blockIdx.x * F_TC;
   const int n = (int)min((long long)F_TC, a.C - t0);
   int ax, by;
   fdots_map<F_ROWS, F_TC, F_TI, F_TJ>(ax, by);
   float acc[F_TI][F_TJ];
-  fwd_prologue<float>(a, cf_sm, inv, t0, n);
-  fwd_dots_f32(a, cf_sm, inv, t0, n, ax, by, acc);
+  fwd_prologue<float>(a, cf_sm, inv, r_base, t0, n);
+  fwd_dots_f32(a, cf_sm, inv, r_base, t0, n, ax, by, acc);
 #pragma unroll
   for (int i = 0; i < F_TI; ++i)
 #pragma unroll
     for (int j = 0; j < F_TJ; ++j) {
-      const int r = ax + F_SA * i, c = by + F_SB * j;
+      const long long r = r_base + ax + F_SA * i;
+      const int c = by + F_SB * j;
       if (r < a.B && c < n) out[r * a.C + t0 + c] = acc[i][j] * inv[c];
     }
 }
@@ -1601,19 +1893,46 @@ __global__ void __launch_bounds__(FB_THREADS, 1) clean_cos_f32_bwd_kernel(Args a
   float* Wt = cb_sm;
   float* stg = Wt + FB_TC * (a.D + 4);
   float* inv = stg + FB_XSTG;
+  const int r_base = blockIdx.y * FB_ROWS;
   const long long t0 = (long long)blockIdx.x * FB_TC;
   const int n = (int)min((long long)FB_TC, a.C - t0);
   int gr, gc;
   fb_cos_map(gr, gc);
   float acc[4][4], n2;
-  fb_dots(acc, n2, stg, Wt, a, t0, n, gr, gc);
+  fb_dots(acc, n2, stg, Wt, a, r_base, min(FB_ROWS, a.B - r_base), t0, n, gr, gc);
   if (threadIdx.x < FB_TC) inv[threadIdx.x] = inv_norm(n2);
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int r = gr + 32 * i, c = gc + 16 * j;
+      const long long r = r_base + gr + 32 * i;
+      const int c = gc + 16 * j;
+      if (r < a.B && c < n) out[r * a.C + t0 + c] = acc[i][j] * inv[c];
+    }
+}
+
+// ... as the f32 d_emb pass forms them (df_dots: 64 rows a block)
+__global__ void __launch_bounds__(DF_THREADS, 1) clean_cos_f32_demb_kernel(Args a, float* out) {
+  extern __shared__ __align__(16) float cd_sm[];
+  float* Wt = cd_sm;
+  float* stg = Wt + DF_TC * (a.D + 4);
+  float* inv = stg + DF_STG;
+  const int r_base = blockIdx.y * DF_RB;
+  const long long t0 = (long long)blockIdx.x * DF_TC;
+  const int n = (int)min((long long)DF_TC, a.C - t0);
+  int ax, by;
+  df_cos_map(ax, by);
+  float acc[4][4], n2;
+  df_dots(acc, n2, stg, Wt, a, r_base, min(DF_RB, a.B - r_base), t0, n, ax, by);
+  if (threadIdx.x < DF_TC) inv[threadIdx.x] = inv_norm(n2);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long r = r_base + ax + 16 * i;
+      const int c = by + 16 * j;
       if (r < a.B && c < n) out[r * a.C + t0 + c] = acc[i][j] * inv[c];
     }
 }
@@ -1658,8 +1977,8 @@ int allow_smem(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// the forward's block pass over nblk column ranges (bf16 W: 1 / ||w|| first),
-// with the statistics where stats is not nullptr
+// the forward's block pass over nblk column ranges x the row groups (bf16
+// W: 1 / ||w|| first), with the statistics where stats is not nullptr
 template <class TW>
 int launch_fwd_pass(const Args& a, int nblk, long long cols_per_blk, float* part, float* stats,
                     cudaStream_t st) {
@@ -1671,7 +1990,8 @@ int launch_fwd_pass(const Args& a, int nblk, long long cols_per_blk, float* part
   auto kernel = stats != nullptr ? margin_fwd_kernel<TW, true> : margin_fwd_kernel<TW, false>;
   const int err = allow_smem(kernel, smem);
   if (err != 0) return err;
-  kernel<<<nblk, f_threads<TW>(), smem, st>>>(a, cols_per_blk, part, stats);
+  const int n_rg = (a.B + F_ROWS - 1) / F_ROWS;
+  kernel<<<nblk * n_rg, f_threads<TW>(), smem, st>>>(a, cols_per_blk, n_rg, part, stats);
   return (int)cudaGetLastError();
 }
 
@@ -1681,14 +2001,19 @@ int launch_fwd_pass_form(int w_bf16, const Args& a, int nblk, long long cols_per
                 : launch_fwd_pass<float>(a, nblk, cols_per_blk, part, stats, st);
 }
 
-// the f32 pass over nblk column ranges in its mode (FB_DEMB, FB_DW, FB_SGD)
+// the f32 pass over nblk column ranges in its mode (FB_DEMB, FB_DW, FB_SGD;
+// above FB_ROWS batch rows FB_DW or FB_SGD in row groups, no d_emb)
 template <class TM>
 int launch_f32_pass(int mode, const Args& a, const BwdRows& br, int nblk, long long cols_per_blk,
                     const float* dwl, float* dw, const Sgd& sgd, float* dgt, float* part,
                     cudaStream_t st) {
-  auto kernel = mode == FB_SGD  ? margin_bwd_f32_kernel<TM, FB_SGD>
-                : mode == FB_DW ? margin_bwd_f32_kernel<float, FB_DW>
-                                : margin_bwd_f32_kernel<float, FB_DEMB>;
+  const bool groups = a.B > FB_ROWS;
+  if (groups && mode == FB_DEMB) return (int)cudaErrorInvalidValue;
+  auto kernel = mode == FB_SGD  ? (groups ? margin_bwd_f32_kernel<TM, FB_SGD, true>
+                                          : margin_bwd_f32_kernel<TM, FB_SGD, false>)
+                : mode == FB_DW ? (groups ? margin_bwd_f32_kernel<float, FB_DW, true>
+                                          : margin_bwd_f32_kernel<float, FB_DW, false>)
+                                : margin_bwd_f32_kernel<float, FB_DEMB, false>;
   const size_t smem = fb_smem(a.D);
   const int e = allow_smem(kernel, smem);
   if (e != 0) return e;
@@ -1697,20 +2022,43 @@ int launch_f32_pass(int mode, const Args& a, const BwdRows& br, int nblk, long l
 }
 
 // the bf16 d_w pass in its MODE (DW_DENSE, DW_SPARSE, DW_SGD) over nblk
-// column ranges
+// column ranges (above WB_ROWS batch rows, in row groups)
 template <int MODE, class TM>
 int launch_dw_bf16(const Args& a, const BwdRows& br, int nblk, long long cols_per_blk,
                    const float* dwl, float* dw, const Sgd& sgd, float* dgt, cudaStream_t st) {
   const size_t smem = dw_bf16_smem(a.D);
-  const int e = allow_smem(margin_bwd_dw_bf16_kernel<MODE, TM>, smem);
+  auto kernel = a.B > WB_ROWS ? margin_bwd_dw_bf16_kernel<MODE, TM, true>
+                              : margin_bwd_dw_bf16_kernel<MODE, TM, false>;
+  const int e = allow_smem(kernel, smem);
   if (e != 0) return e;
-  margin_bwd_dw_bf16_kernel<MODE, TM><<<nblk, BW_THREADS, smem, st>>>(
-      a, br, cols_per_blk, dwl, dw, const_cast<float*>(a.inv), sgd, dgt);
+  kernel<<<nblk, BW_THREADS, smem, st>>>(a, br, cols_per_blk, dwl, dw,
+                                         const_cast<float*>(a.inv), sgd, dgt);
+  return (int)cudaGetLastError();
+}
+
+// the f32 d_emb pass (above FB_ROWS batch rows) over nchunk column chunks x
+// the row groups, then the merge of the chunks' partials
+int launch_demb_f32(const Args& a, const BwdRows& br, float* part, int nchunk,
+                    long long cols_per_chunk, float* d_emb, cudaStream_t st) {
+  const size_t smem = demb_f32_smem(a.D);
+  const int n_rg = (a.B + DF_RB - 1) / DF_RB;
+  int e = allow_smem(margin_bwd_demb_f32_kernel, smem);
+  if (e != 0) return e;
+  margin_bwd_demb_f32_kernel<<<nchunk * n_rg, DF_THREADS, smem, st>>>(a, br, cols_per_chunk,
+                                                                      n_rg, part);
+  if ((e = (int)cudaGetLastError()) != 0) return e;
+  const long long n = (long long)a.B * a.D;
+  margin_bwd_demb_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(nchunk, n, part,
+                                                                            d_emb);
   return (int)cudaGetLastError();
 }
 
 // the backward. f32 W: the one pass (column owners, each with its d_emb
-// partial), then the merge of the nchunk (= dw_nblk) partials. bf16 W: the
+// partial), then the merge of the nchunk (= dw_nblk) partials; above
+// FB_ROWS batch rows the d_emb pass (row groups of DF_RB rows x nchunk
+// column chunks) and its merge, then the pass in row groups for d_w or the
+// update (after the d_emb pass: it reads W before any of it is written).
+// bf16 W: the
 // d_emb pass (row groups of 64 rows x nchunk column chunks), the merge, and
 // the d_w pass (column owners). The d_w pass runs first where it writes d_w
 // (its 1 / ||w|| serves the d_emb pass), and last where it updates W in
@@ -1726,6 +2074,12 @@ int launch_bwd(const Args& a, const BwdRows& br, float* part, int nchunk,
   const long long n = (long long)a.B * a.D;
   int e = 0;
   if constexpr (std::is_same<TW, float>::value) {
+    if (a.B > FB_ROWS) {
+      if ((e = launch_demb_f32(a, br, part, nchunk, cols_per_chunk, d_emb, st)) != 0 || !with_dw)
+        return e;
+      return launch_f32_pass<TM>(fused ? FB_SGD : FB_DW, a, br, dw_nblk, dw_cols_per_blk, dwl,
+                                 dw, sgd, dgt, nullptr, st);
+    }
     e = launch_f32_pass<TM>(fused ? FB_SGD : with_dw ? FB_DW : FB_DEMB, a, br, dw_nblk,
                             dw_cols_per_blk, dwl, dw, sgd, dgt, part, st);
     if (e != 0) return e;
@@ -1775,7 +2129,8 @@ int launch_clean_cos(const Args& a, int tiling, float* out, cudaStream_t st) {
     if ((e = launch_inv(a, st)) != 0) return e;
     const size_t smem = CH_ST * chunk_bytes<F_ROWS, F_TC>() + F_TC * 4;
     if ((e = allow_smem(clean_cos_chunk_kernel, smem)) != 0) return e;
-    clean_cos_chunk_kernel<<<(unsigned)((a.C + F_TC - 1) / F_TC), F_THREADS, smem, st>>>(a, out);
+    const dim3 grid((unsigned)((a.C + F_TC - 1) / F_TC), (unsigned)((a.B + F_ROWS - 1) / F_ROWS));
+    clean_cos_chunk_kernel<<<grid, F_THREADS, smem, st>>>(a, out);
   } else if (tiling == 1 || tiling == 2) {
     const int rows = tiling == 1 ? 64 : 128;
     const size_t smem = (size_t)(rows + 64) * a.D * 2 + 64 * 4;
@@ -1794,18 +2149,26 @@ int launch_clean_cos(const Args& a, int tiling, float* out, cudaStream_t st) {
 }
 
 // the f32 cosines in tiling 0 (the forward) or 1, 2 (the backward's one
-// pass, which every f32 backward form runs)
+// pass, which every f32 backward form runs; above FB_ROWS batch rows 1 is
+// the d_emb pass, 2 the pass in row groups)
 int launch_clean_cos_f32(const Args& a, int tiling, float* out, cudaStream_t st) {
   int e = 0;
   if (tiling == 0) {
     const size_t smem = F_NST * fwd_stage_bytes<float>() + F_TC * 4;
     if ((e = allow_smem(clean_cos_f32_fwd_kernel, smem)) != 0) return e;
-    clean_cos_f32_fwd_kernel<<<(unsigned)((a.C + F_TC - 1) / F_TC), F_THREADS, smem, st>>>(a, out);
+    const dim3 grid((unsigned)((a.C + F_TC - 1) / F_TC), (unsigned)((a.B + F_ROWS - 1) / F_ROWS));
+    clean_cos_f32_fwd_kernel<<<grid, F_THREADS, smem, st>>>(a, out);
+  } else if (tiling == 1 && a.B > FB_ROWS) {
+    const size_t smem = sizeof(float) * (DF_TC * (a.D + 4) + DF_STG + DF_TC);
+    if ((e = allow_smem(clean_cos_f32_demb_kernel, smem)) != 0) return e;
+    const dim3 grid((unsigned)((a.C + DF_TC - 1) / DF_TC), (unsigned)((a.B + DF_RB - 1) / DF_RB));
+    clean_cos_f32_demb_kernel<<<grid, DF_THREADS, smem, st>>>(a, out);
   } else if (tiling == 1 || tiling == 2) {
     const size_t smem = sizeof(float) * (FB_TC * (a.D + 4) + FB_XSTG + FB_TC);
     if ((e = allow_smem(clean_cos_f32_bwd_kernel, smem)) != 0) return e;
-    clean_cos_f32_bwd_kernel<<<(unsigned)((a.C + FB_TC - 1) / FB_TC), FB_THREADS, smem, st>>>(a,
-                                                                                        out);
+    const dim3 grid((unsigned)((a.C + FB_TC - 1) / FB_TC),
+                    (unsigned)((a.B + FB_ROWS - 1) / FB_ROWS));
+    clean_cos_f32_bwd_kernel<<<grid, FB_THREADS, smem, st>>>(a, out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

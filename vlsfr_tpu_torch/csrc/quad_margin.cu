@@ -69,7 +69,18 @@
 // (>= 1.3 ms): operations-bound. The int8 forms at Q = 10,485,760: 5.5e12
 // operations in the backward (INT8 two bf16 products, >= 5.6 ms; INT8C the
 // recompute at the int8 rate, >= 4.2 ms) against 5.4 GB of q0 (>= 1.6 ms):
-// operations-bound.
+// operations-bound. At the shipped 10M-identity config's batch (b = 512, R
+// = 1024) the int8c forward's 2*R*D*Q = 1.10e13 int8 operations take >=
+// 5.56 ms (q0's bytes 1.6 ms) and its backward >= 16.67 ms (the recompute
+// at the int8 rate and the bf16 d_emb product).
+//
+// Rows: any B. Every kernel runs row groups (the forward 128 or 256 rows,
+// the backward 64) over column ranges, so a larger batch adds row-group
+// blocks and shortens each block's range; each q0 tile is then read by R /
+// rows blocks, adjacent in launch order (through L2). The per-tile write
+// plan (mark_writes) scans all ND * BP writes, so its cost grows with the
+// batch (two loads a thread a tile at b = 512 in the tensor-core forward);
+// the merge sums wcoef [R][2][BP] (32-bit indices up to R * 2 * BP < 2^31).
 //
 // Design.
 //  * The TPU carried (m, s, top-k) and d_emb in VMEM across a sequential
@@ -78,21 +89,22 @@
 //    partials in a fixed order (logsumexp merge, k-way top-k merge, sum of
 //    d_emb partials). No float atomics: results are bit-stable.
 //  * Forward (quad_fwd_kernel, every form): one block an SM, each a row
-//    group over a column range. The F32 block holds all R <= 256 probe
-//    rows (128 for R <= 128), so each q0 tile is read once for both
-//    directions, and stages 32 features of E's rows and of the q0 tile a
-//    chunk by 16-byte cp.async, two chunks in flight beside the one in use;
-//    an 8 x 8 register micro-tile (8 x 4 at 128 rows) reads four features a
-//    float4 load, each cosine one fmaf chain over the features in index
-//    order from 0 (the backward's ftile_dots chain: the same bits). The
-//    tensor-core forms' block holds 128 rows (the quad's two row groups of a
-//    range adjacent in launch order: the second reads the q0 tiles from
-//    L2) with its E rows resident in shared memory (bf16, 128 KiB at D =
-//    512; INT8C's E8, 64 KiB), so only the q0 tiles stream: restaged from
-//    L2 for every 64-column tile, E's rows were 4-8 times the q0 bytes. Per
-//    64-column tile the product fills a cosine tile Cs [ROWS][64 + 4]. Each
-//    probe row's stream is split over threads / ROWS threads (lanes: 256
-//    threads a block for F32, 512 for the tensor-core forms; one quad
+//    group over a column range. The F32 block holds 256 probe rows (all of R up
+//    to R = 256, so each q0 tile is read once for both directions; 128 for R <=
+//    128; above 256, row groups of 256 as below), and stages 32 features of E's
+//    rows and of the q0 tile a chunk by 16-byte cp.async, two chunks in flight
+//    beside the one in use; an 8 x 8 register micro-tile (8 x 4 at 128 rows)
+//    reads four features a float4 load, each cosine one fmaf chain over the
+//    features in index order from 0 (the backward's ftile_dots chain: the same
+//    bits). The tensor-core forms' block holds 128 rows (a row group: the R /
+//    128 row groups of a range are adjacent in launch order, and the later ones
+//    read the q0 tiles from L2; any R) with its E rows resident in shared
+//    memory (bf16, 128 KiB at D = 512; INT8C's E8, 64 KiB), so only the q0
+//    tiles stream: restaged from L2 for every 64-column tile, E's rows were 4-8
+//    times the q0 bytes. Per 64-column tile the product fills a cosine tile Cs
+//    [ROWS][64 + 4]. Each probe row's stream is split over threads / ROWS
+//    threads (lanes: 256 threads a block for F32, 512 for the tensor-core
+//    forms; one quad
 //    of 4 columns each in turn) and, within a lane, two (m, s) chains per
 //    view, a pair of quads at a time: each quad's largest z, then the
 //    chain rescaled to it and the four exp terms, 16 independent terms a
@@ -300,14 +312,14 @@ __global__ void quad_written_cos_kernel(Args a, float* wcos) {
 
 // ---------------------------------------------------------------- forward
 
-// A block holds ROWS probe rows, f_threads threads: the F32 form 256 (R >
-// 128) or 128, all of R; the tensor-core forms 128, a row group (two for
-// the quad's R = 256), with their E rows resident in shared memory for the
-// whole range (bf16, or INT8C's E8; up to D = F_DMAX). Per F_TC-column tile
-// the cosine product fills Cs [ROWS][F_CLD] from feature chunks staged by
-// cp.async in f_nst stages: F32 stages F_FK features of E's rows and of the
-// q0 tile, the others 128 bytes of each q0 row (64 bf16 features, or
-// INT8C's 128).
+// A block holds ROWS probe rows, a row group, f_threads threads: the F32 form
+// 256 (R > 128) or 128, the tensor-core forms 128 (any R: row groups [r_base,
+// r_base + ROWS), zero from R), the tensor-core forms with their E rows
+// resident in shared memory for the whole range (bf16, or INT8C's E8; up to D =
+// F_DMAX). Per F_TC-column tile the cosine product fills Cs [ROWS][F_CLD] from
+// feature chunks staged by cp.async in f_nst stages: F32 stages F_FK features
+// of E's rows and of the q0 tile, the others 128 bytes of each q0 row (64 bf16
+// features, or INT8C's 128).
 constexpr int F_ROWS = 256, F_TC = 64, F_THREADS = 256, F_CLD = F_TC + 4, F_FK = FFK;
 constexpr int F_TC_ROWS = 128, F_DMAX = 512;  // the tensor-core forms' block rows; their largest D
 constexpr int F_PLAN = 4 * F_TC + 4;  // a tile's write plan: last0, lastb [2][F_TC], written [4]
@@ -427,17 +439,18 @@ __device__ __forceinline__ void fwd_load_e(const Args& a, unsigned char* Es, int
 }
 
 // stage s: chunk kc of q0 rows [t0, t0 + F_TC) (zero from c_end), by
-// cp.async, and (F32) of probe rows [0, ROWS) (zero from R); INT8C zero
+// cp.async, and (F32) of probe rows [r_base, r_base + ROWS) (zero from R); INT8C zero
 // from D as well; INT8: q0's 64 x 64 int8 features are one 16-byte word a
 // thread, returned for fwd_widen_q once they land (the caller's product
 // hides the load)
 template <int FORM, int ROWS>
-__device__ __forceinline__ uint4 fwd_load(const Args& a, unsigned char* stg, int s, long long t0,
-                                          long long c_end, int kc) {
+__device__ __forceinline__ uint4 fwd_load(const Args& a, unsigned char* stg, int s, int r_base,
+                                          long long t0, long long c_end, int kc) {
   unsigned char* Qs = stg + s * f_stage_bytes<FORM, ROWS>();
   uint4 v = make_uint4(0, 0, 0, 0);
   if constexpr (FORM == FORM_F32) {
-    fdots_load<F_THREADS, ROWS, F_TC>(reinterpret_cast<float*>(Qs), a.E, 0, a.R,
+    fdots_load<F_THREADS, ROWS, F_TC>(reinterpret_cast<float*>(Qs), a.E, r_base,
+                                      min(ROWS, a.R - r_base),
                                       static_cast<const float*>(a.q0), t0,
                                       (int)min((long long)F_TC, c_end - t0), a.D, kc);
   } else if constexpr (FORM == FORM_INT8) {
@@ -477,12 +490,13 @@ __device__ __forceinline__ void fwd_widen_q(unsigned char* stg, int s, uint4 v) 
 // (fwd_product stages the rest); INT8: q0's words in v, for
 // fwd_widen_first once they are wanted
 template <int FORM, int ROWS>
-__device__ __forceinline__ void fwd_prologue(const Args& a, unsigned char* stg, long long t0,
-                                             long long c_end, uint4 (&v)[f_nst<FORM>() - 1]) {
+__device__ __forceinline__ void fwd_prologue(const Args& a, unsigned char* stg, int r_base,
+                                             long long t0, long long c_end,
+                                             uint4 (&v)[f_nst<FORM>() - 1]) {
   const int n_kc = (a.D + f_chunk<FORM>() - 1) / f_chunk<FORM>();
 #pragma unroll
   for (int s = 0; s < f_nst<FORM>() - 1; ++s) {
-    if (s < n_kc) v[s] = fwd_load<FORM, ROWS>(a, stg, s, t0, c_end, s);
+    if (s < n_kc) v[s] = fwd_load<FORM, ROWS>(a, stg, s, r_base, t0, c_end, s);
     cp_async_commit();
   }
 }
@@ -676,7 +690,7 @@ __device__ __forceinline__ void fwd_product(const Args& a, const unsigned char* 
     const bool more = kc + NST - 1 < n_kc;
     const int s_next = (kc + NST - 1) % NST;
     uint4 v;
-    if (more) v = fwd_load<FORM, ROWS>(a, stg, s_next, t0, c_end, kc + NST - 1);
+    if (more) v = fwd_load<FORM, ROWS>(a, stg, s_next, r_base, t0, c_end, kc + NST - 1);
     cp_async_commit();
     fwd_chunk<FORM, ROWS>(a, stg + (kc % NST) * f_stage_bytes<FORM, ROWS>(), Es, kc, acc);
     if constexpr (FORM == FORM_INT8)
@@ -724,7 +738,7 @@ __global__ void __launch_bounds__(f_threads<FORM>(), 1)
     cp_async_commit();
   }
   uint4 first[f_nst<FORM>() - 1];  // INT8: the tile's first q0 words
-  if (n_tiles > 0) fwd_prologue<FORM, ROWS>(a, stg, c_begin, c_end, first);
+  if (n_tiles > 0) fwd_prologue<FORM, ROWS>(a, stg, r_base, c_begin, c_end, first);
   // tile ti's product after tile ti - 1's row pass (Cs holds it), with
   // tile ti's first chunks in flight; a last turn streams the last tile
   for (int ti = 0; ti <= n_tiles; ++ti) {
@@ -742,7 +756,7 @@ __global__ void __launch_bounds__(f_threads<FORM>(), 1)
       row_pass<L>(a, Cs, rp, t0 - F_TC, (int)min((long long)F_TC, c_end - t0 + F_TC), ln);
     if (ti < n_tiles) {
       fwd_product<FORM, ROWS>(a, Es, stg, r_base, t0, c_end, Cs);
-      if (ti + 1 < n_tiles) fwd_prologue<FORM, ROWS>(a, stg, t0 + F_TC, c_end, first);
+      if (ti + 1 < n_tiles) fwd_prologue<FORM, ROWS>(a, stg, r_base, t0 + F_TC, c_end, first);
     }
   }
 
@@ -1556,7 +1570,6 @@ cudaError_t launch_fwd_form(const Args& a, const float* wcos, float* part, int n
 // nchunk column ranges (x the row groups) into part
 cudaError_t launch_fwd_blocks(const Args& a, int form, float* wcos, float* part, int nchunk,
                               long long cols_per_chunk, cudaStream_t st) {
-  if (a.R > F_ROWS) return cudaErrorInvalidValue;
   const cudaError_t err = launch_written_cos(a, wcos, st);
   if (err != cudaSuccess) return err;
   switch (form) {
@@ -1615,7 +1628,7 @@ __global__ void __launch_bounds__(f_threads<FORM>()) clean_cos_fwd_kernel(Args a
     cp_async_commit();
   }
   uint4 first[f_nst<FORM>() - 1];
-  fwd_prologue<FORM, ROWS>(a, stg, t0, a.Q, first);
+  fwd_prologue<FORM, ROWS>(a, stg, r_base, t0, a.Q, first);
   fwd_widen_first<FORM, ROWS>(a, stg, first);
   fwd_product<FORM, ROWS>(a, ccf_smem, stg, r_base, t0, a.Q, Cs);
   __syncthreads();

@@ -28,6 +28,13 @@ def default_hard_neg(queue_size: int) -> int:
     return min(max(int(queue_size * 0.0002), 3), 10)
 
 
+def kernel_width_ok(d: int) -> bool:
+    """Whether the CUDA kernels take feature width ``d`` (the quad / twin
+    and the margin_ce kernels alike: a multiple of 64 up to 512, at any
+    batch); the plain versions take any."""
+    return d % 64 == 0 and 0 < d <= 512
+
+
 def _check_loss_type(loss_type: str) -> None:
     if loss_type not in LOSS_TYPES:
         raise ValueError(f"loss_type must be AM | Arc | SV, got {loss_type!r}")

@@ -84,6 +84,7 @@ from vlsfr_tpu_torch.ops.margin import (
     LOSS_TYPES,
     NEG_INF,
     _f32,
+    kernel_width_ok,
     phi_prime,
     phi_target,
     tile_modified,
@@ -565,12 +566,13 @@ _F_TC = 128  # columns per forward tile
 _F_LANES = 2  # forward lanes a row: lane l streams columns [64 l, 64 l + 64) of each tile
 _F_NST, _F_FK = 3, 32  # the forward's stages; an f32 stage's features (64 for bf16)
 _B_TC = 64  # columns per backward tile
-_B_RB = 64  # rows per d_emb block (row group) of a bf16 classifier
+_B_RB = 64  # rows per d_emb block (row group): a bf16 classifier, or f32 above _ROWS
 _STAT_COLS = 64  # columns per forward statistics partial (half an _F_TC tile)
-_MAX_ROWS = 128  # batch rows the kernels hold per block
+_ROWS = 128  # batch rows a forward block holds (a row group); the f32 backward's one pass
 # the cosines as each pass forms them (``clean_cos``; csrc/margin_ce.cu): the
 # d_w pass is one kernel for every bf16 backward form (dense, sparse, fused);
-# an f32 classifier's backward is one pass, whichever of the last two is named
+# an f32 classifier's backward is one pass, whichever of the last two is named,
+# up to 128 batch rows (above, its d_emb pass and its pass in row groups)
 COS_TILINGS = ("forward", "d_emb pass", "d_w pass")
 _P = ctypes.c_void_p
 _COMMON_ARGTYPES = [
@@ -652,9 +654,9 @@ def _check_inputs(emb, w, labels, gt, k, loss_type, extra=()):
             raise ValueError(f"{name} must be contiguous")
     if emb.is_cuda and not emb.is_contiguous():
         raise ValueError("emb must be contiguous")
-    if emb.is_cuda and (b > _MAX_ROWS or d % 64 or d > 512):
-        raise ValueError(f"the margin_ce kernels take B <= {_MAX_ROWS} rows and a feature "
-                         f"width that is a multiple of 64 up to 512; got B={b}, D={d}")
+    if emb.is_cuda and not kernel_width_ok(d):
+        raise ValueError(f"the margin_ce kernels take a feature width that is a multiple of 64 "
+                         f"up to 512; got D={d}")
 
 
 def _form_scratch(emb, w, ncols):
@@ -693,23 +695,26 @@ class FwdGeometry(NamedTuple):
 
     nblk: int  # column ranges, each of cols_per_blk columns (the last may hold fewer)
     cols_per_blk: int  # a multiple of the 128-column tile
-    n_parts: int  # partials a row: one per lane of each block, merged in this order
+    n_parts: int  # partials a row: one per lane of each range, merged in this order
     smem: int  # bytes of shared memory a block (csrc/margin_ce.cu: fwd_smem)
+    n_rg: int  # row groups of 128 rows: the blocks of a column range
 
 
-def fwd_geometry(w_bf16: bool, c: int, sms: int) -> FwdGeometry:
-    """The forward kernel's grid over C classifier columns on a card of
-    ``sms`` SMs: one block an SM, each every batch row (up to 128) over a
-    range of whole 128-column tiles, the ranges covering [0, C) in order;
-    two lanes a row, each writing its own (m, s, top-k) partial. Shared
-    memory: three stages of emb's 128 rows and a W tile's 128 rows, 32
-    features a stage at a row stride of 36 floats (f32 W) or 64 bf16
-    features (bf16 W), the f32 cosine tile [128, 132] and the tile's
-    1/‖w‖."""
-    nblk, per = _split_columns(c, _F_TC, sms)
-    stage = (_MAX_ROWS + _F_TC) * (64 * 2 if w_bf16 else 4 * (_F_FK + 4))
+def fwd_geometry(w_bf16: bool, c: int, sms: int, b: int = _ROWS) -> FwdGeometry:
+    """The forward kernel's grid over C classifier columns and B batch
+    rows on a card of ``sms`` SMs: one block an SM, each a row group of
+    128 rows (every row up to B = 128) over a range of whole 128-column
+    tiles, the ranges covering [0, C) in order and the row groups of a
+    range adjacent in launch order; two lanes a row, each writing its own
+    (m, s, top-k) partial. Shared memory: three stages of emb's 128 rows
+    and a W tile's 128 rows, 32 features a stage at a row stride of 36
+    floats (f32 W) or 64 bf16 features (bf16 W), the f32 cosine tile
+    [128, 132] and the tile's 1/‖w‖."""
+    n_rg = -(-b // _ROWS)
+    nblk, per = _split_columns(c, _F_TC, max(sms // n_rg, 1))
+    stage = (_ROWS + _F_TC) * (64 * 2 if w_bf16 else 4 * (_F_FK + 4))
     return FwdGeometry(nblk, per, _F_LANES * nblk,
-                       _F_NST * stage + 4 * (_MAX_ROWS * (_F_TC + 4) + _F_TC))
+                       _F_NST * stage + 4 * (_ROWS * (_F_TC + 4) + _F_TC), n_rg)
 
 
 def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
@@ -752,7 +757,7 @@ def margin_ce_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_svfc,
     b, dev = emb.shape[0], emb.device
     c = w.shape[0]
     e_op, eb, inv = _form_scratch(emb, w, c)
-    geo = fwd_geometry(w.dtype == torch.bfloat16, c, _sms(dev))
+    geo = fwd_geometry(w.dtype == torch.bfloat16, c, _sms(dev), b)
     part = torch.empty((geo.n_parts, b, 2 + KMAX), device=dev)
     ce, neg, logz = (torch.empty((b,), device=dev) for _ in range(3))
     topk = torch.empty((b, k), device=dev)
@@ -795,7 +800,7 @@ def margin_partial_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_
     lib = _lib()
     b, dev = emb.shape[0], emb.device
     e_op, eb, inv = _form_scratch(emb, w, w.shape[0])
-    geo = fwd_geometry(w.dtype == torch.bfloat16, w.shape[0], _sms(dev))
+    geo = fwd_geometry(w.dtype == torch.bfloat16, w.shape[0], _sms(dev), b)
     part = torch.empty((geo.n_parts, b, 2 + KMAX), device=dev)
     m, s = (torch.empty((b,), device=dev) for _ in range(2))
     topk = torch.empty((b, k), device=dev)
@@ -808,21 +813,29 @@ def margin_partial_fwd(emb, w, labels, gt, *, loss_type, margin, scale, k, mask_
     return m, s, topk
 
 
+def bwd_geometry(w_bf16: bool, b: int, ncols: int, sms: int) -> tuple[int, int, int, int]:
+    """(nchunk, cols per chunk, column-owning blocks, cols per such block)
+    of the backward over ``ncols`` columns and B batch rows on a card of
+    ``sms`` SMs. Every pass runs one block an SM (its shared memory): an
+    f32 classifier's one pass up to B = 128, each block writing its d_emb
+    partial; a bf16 classifier's d_w pass, each block staging emb once for
+    all of its tiles (the sparse form's 1,024 tiles at 65,536 rows: 8 a
+    block), and its d_emb pass, each block a row group of 64 rows over a
+    column chunk; above 128 rows an f32 classifier's d_emb pass and its
+    pass in row groups for d_w alike."""
+    nblk, per_w = _split_columns(ncols, _B_TC, sms)
+    if not w_bf16 and b <= _ROWS:
+        return nblk, per_w, nblk, per_w
+    nchunk, per = _split_columns(ncols, _B_TC, max(sms // -(-b // _B_RB), 1))
+    return nchunk, per, nblk, per_w
+
+
 def _bwd_geometry(emb, w, ncols):
-    """(d_emb partial buffer, nchunk, cols per chunk, column-owning blocks,
-    cols per such block) of the backward over ``ncols`` columns. Every pass
-    runs one block an SM (its shared memory): an f32 classifier's one pass,
-    each block writing its d_emb partial; a bf16 classifier's d_w pass, each
-    block staging emb once for all of its tiles (the sparse form's 1,024
-    tiles at 65,536 rows: 8 a block), and its d_emb pass, each block a row
-    group over a column chunk."""
+    """``bwd_geometry``'s launch, with the d_emb partial buffer [nchunk,
+    B, D] first."""
     b, d = emb.shape
-    sms = _sms(emb.device)
-    if w.dtype == torch.bfloat16:
-        nblk, per_w = _split_columns(ncols, _B_TC, sms)
-        nchunk, per = _split_columns(ncols, _B_TC, max(sms // -(-b // _B_RB), 1))
-    else:
-        nblk, per_w = nchunk, per = _split_columns(ncols, _B_TC, sms)
+    nchunk, per, nblk, per_w = bwd_geometry(w.dtype == torch.bfloat16, b, ncols,
+                                            _sms(emb.device))
     return torch.empty((nchunk, b, d), device=emb.device), nchunk, per, nblk, per_w
 
 

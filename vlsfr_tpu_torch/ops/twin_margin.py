@@ -99,6 +99,7 @@ from vlsfr_tpu_torch.ops.margin import (
     LOSS_TYPES,
     NEG_INF,
     _f32,
+    kernel_width_ok,
     phi_prime,
     phi_target,
     sv_boost,
@@ -730,15 +731,11 @@ def _bwd_vectors(E, logz, kth, dce, dneg):
             ("dce", dce, torch.float32, vec), ("dneg", dneg, torch.float32, vec))
 
 
-MAX_ROWS = 128  # probe rows per direction the kernels take
-
-
-def _cuda_shape_limits(E, b):
+def _cuda_shape_limits(E):
     d_ = E.shape[1]
-    if b > MAX_ROWS or d_ % 64 or d_ > 512:
-        raise ValueError(f"the quad and twin kernels take b <= {MAX_ROWS} rows per direction "
-                         f"and a feature width that is a multiple of 64 up to 512; got b={b}, "
-                         f"D={d_}")
+    if not kernel_width_ok(d_):
+        raise ValueError(f"the quad and twin kernels take a feature width that is a multiple "
+                         f"of 64 up to 512; got D={d_}")
 
 
 def _common_args(E, q0, G, V, rows, cols, blend, labels, gt, b, bp, k, loss_type, margin,
@@ -786,8 +783,9 @@ def fwd_geometry(form: str, r_: int, q: int, sms: int, bp: int) -> FwdGeometry:
     of ``sms`` SMs, bp writes per direction: one block an SM, each a row
     group over a 64-multiple column range, the row groups of a range
     adjacent (they share its queue tiles through L2); the written columns'
-    cosines [R, 2, bp] formed before the block pass. The f32 form's block
-    holds every probe row (128 up to R = 128, else 256) and stages 32
+    cosines [R, 2, bp] formed before the block pass. Any R: the f32
+    form's block holds 128 rows up to R = 128, else 256 (every probe row
+    up to R = 256, then row groups of 256), and stages 32
     features of E's rows and of the queue tile a chunk (a row stride of 36
     floats); the tensor-core forms' block holds 128 rows, E's resident in
     shared memory for D <= 512 (bf16, or int8c's int8), and stages 128
@@ -811,7 +809,7 @@ def _fwd_launch(entry, n_vec, E, q0, G, V, rows, cols, blend, labels, gt, *, b, 
     """Launch ``entry`` (the forward or its partial form, of the quad or,
     with ``twin``, the twin head): the written cosines, the block pass over
     q0, then the merge. Returns n_vec [2, R] outputs and topk [2, R, k]."""
-    _cuda_shape_limits(E, b)
+    _cuda_shape_limits(E)
     lib = _lib()
     r_ = E.shape[0]
     sms = torch.cuda.get_device_properties(E.device).multi_processor_count
@@ -859,7 +857,7 @@ def bwd_geometry(form: str, r_: int, q: int, sms: int, bp: int) -> BwdGeometry:
 def _bwd_launch(E, q0, G, V, rows, cols, blend, labels, gt, logz, kth, dce, dneg, *, b, bp,
                 loss_type, margin, scale, k, mask_svfc, rtile, qscales=None, e8=None,
                 twin=False):
-    _cuda_shape_limits(E, b)
+    _cuda_shape_limits(E)
     lib = _lib()
     r_ = E.shape[0]
     sms = torch.cuda.get_device_properties(E.device).multi_processor_count
@@ -1148,8 +1146,6 @@ def clean_cos(E, q0, *, qscales=None, e8=None, bwd_tiles: bool = False):
     r_ = E.shape[0]
     if not E.is_cuda:
         return _clean_cos(_dot_operands(E, E, E, q0)[0], q0, qscales, e8)
-    if r_ > 256:
-        raise ValueError(f"the kernels' tiles take up to 256 probe rows, got {r_}")
     lib = _lib()
     idx = torch.zeros(2, dtype=torch.int32, device=E.device)  # no writes, no labels read
     gt = torch.zeros((2, r_), device=E.device)

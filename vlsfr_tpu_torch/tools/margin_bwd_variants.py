@@ -65,15 +65,22 @@ VARIANTS = {
         ("margin_ce.cu", "for (int bb = 0; bb < nb; ++bb) {", "for (int bb = 0; bb < 0; ++bb) {")]),
     "no d_w epilogue": (False, [
         ("margin_ce.cu",
-         "      // d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>) + the label rows' d_wl,\n",
+         "      // d_w = inv * (d_w_hat - w_hat <d_w_hat, w_hat>), in place, the\n",
          "      float z = 0.f;\n"
          "      for (int i = 0; i < 8; ++i)\n"
          "        for (int j = 0; j < 8; ++j) z += acc3[i][j];\n"
          "      if (z == 1234.5f) dw[tid] = z;\n"),
-        ("margin_ce.cu", "      for (int i = 0; i < 8; ++i) {\n        const int t = 8 * g2 + i;",
-         "      for (int i = 0; i < 0; ++i) {\n        const int t = 8 * g2 + i;")]),
+        ("margin_ce.cu", "      for (int i = 0; i < 8; ++i) {\n        const int t = 8 * g2 + i;\n"
+         "        if (t >= n) continue;",
+         "      for (int i = 0; i < 0; ++i) {\n        const int t = 8 * g2 + i;\n"
+         "        if (t >= n) continue;"),
+        ("margin_ce.cu", "      for (int i = 0; i < 8; ++i) {\n        const int t = 8 * g2 + i;\n"
+         "        if (t >= nl) continue;",
+         "      for (int i = 0; i < 0; ++i) {\n        const int t = 8 * g2 + i;\n"
+         "        if (t >= nl) continue;")]),
     "no d_emb product": (False, [
-        ("margin_ce.cu", "for (int c = 0; c < n; ++c) {", "for (int c = 0; c < 0; ++c) {")]),
+        ("margin_ce.cu", "for (int c = 0; c < n; ++c) {\n          const float* qp",
+         "for (int c = 0; c < 0; ++c) {\n          const float* qp")]),
 }
 
 
@@ -86,7 +93,7 @@ BF16_VARIANTS = {
     "no d_cos arithmetic": (False, [(
         "margin_ce.cu",
         "? dcos_of(acc[mi][ni][2 * h + j], p0 + c + j, v.lab, v.gt, v.lz, v.kth,\n"
-        "                                 v.dce, v.dneg, a)",
+        "                                   v.dce, v.dneg, a)",
         "? acc[mi][ni][2 * h + j] * v.dce")]),
     "no next-tile copies": (False, [("margin_ce.cu",
                                      "      stage_rows_bf16(Ws, W, p1, n1, WB_TC, D);\n", "")]),

@@ -58,8 +58,8 @@ VARIANTS = {
          "      if (false)\n        fdots_load<F_THREADS, F_ROWS, F_TC>("),
         ("    if (kc + F_NST - 1 < nk)\n      fdots_load<F_THREADS, F_ROWS, F_TC>(",
          "    if (false)\n      fdots_load<F_THREADS, F_ROWS, F_TC>("),
-        ("    if (s < n_kc) load_chunk<ROWS, TC>(a, stg, s, p0, n, s);",
-         "    if (false) load_chunk<ROWS, TC>(a, stg, s, p0, n, s);"),
+        ("    if (s < n_kc) load_chunk<ROWS, TC>(a, stg, s, r_base, p0, n, s);",
+         "    if (false) load_chunk<ROWS, TC>(a, stg, s, r_base, p0, n, s);"),
         ("    if (kc + CH_ST - 1 < n_kc)\n      load_chunk<ROWS, TC>(",
          "    if (false)\n      load_chunk<ROWS, TC>(")],
     # the row pass (the stream, the top-k and the statistics)

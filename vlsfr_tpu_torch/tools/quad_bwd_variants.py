@@ -9,7 +9,10 @@ also held to the plain version (``parity.quad_checks``). Each form is also
 timed on the same inputs with the step's write columns and labels set to
 -1: what the written columns and the targets cost.
 
-    python -m vlsfr_tpu_torch.tools.quad_bwd_variants [--forms f32,int8c,int8,bf16]
+    python -m vlsfr_tpu_torch.tools.quad_bwd_variants [--forms f32,int8c,int8,bf16] [--rows 512]
+
+``--rows`` sets b, the probe rows (and writes) per direction (128 by
+default; 512 is the shipped 10M config's batch, R = 1024).
 
 Cases: R = 256 probe rows (b = 128 a direction), D = 512, k = 10, Arc, a
 queue drawn as the trainer draws it (``core.ffc.init_queue``) and a random
@@ -254,7 +257,10 @@ def run(forms, dev: torch.device) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--forms", default="f32,int8c,int8,bf16")
+    parser.add_argument("--rows", type=int, default=B,
+                        help="probe rows (and writes) per direction; 512: the 10M config's batch")
     args = parser.parse_args()
+    globals()["B"] = args.rows
     if not torch.cuda.is_available():
         raise SystemExit("quad_bwd_variants times CUDA kernels and needs a card")
     dev = torch.device("cuda")

@@ -13,6 +13,11 @@ and labels set to -1: what the written columns and the targets cost.
 
     python -m vlsfr_tpu_torch.tools.quad_fwd_variants [--cases quad_f32,twin_bf16_2^18,...]
     python -m vlsfr_tpu_torch.tools.quad_fwd_variants --before   # in a checkout of fe3ba36
+    python -m vlsfr_tpu_torch.tools.quad_fwd_variants --cases quad_int8c --rows 512
+
+``--rows`` sets b, the probe rows (and writes) per direction (128 by
+default; 512 is the shipped 10M config's batch, R = 1024: each tile's
+write plan then scans 2 x 512 writes).
 
 ``--before`` times the forward as it stood before its redesign (commit
 fe3ba36: 256 threads, one thread a probe row, the written columns' cosines
@@ -224,7 +229,9 @@ def main() -> None:
     parser.add_argument("--cases", default=",".join(CASES))
     parser.add_argument("--before", action="store_true",
                         help="the variants of the forward before its redesign (commit fe3ba36)")
+    parser.add_argument("--rows", type=int, default=B, help="probe rows per direction")
     args = parser.parse_args()
+    globals()["B"] = args.rows
     if not torch.cuda.is_available():
         raise SystemExit("quad_fwd_variants times CUDA kernels and needs a card")
     dev = torch.device("cuda")

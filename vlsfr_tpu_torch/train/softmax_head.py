@@ -53,7 +53,8 @@ the classifier the single-device init draws, its momentum and last-visit
 steps; route D's random fill draws per rank.
 
 Not ported yet, and refused: routes C and E on a mesh, the data axis, and
-batches above the margin_ce kernels' 128 rows on a card.
+on a card a feature width the margin_ce kernels do not take (a multiple of
+64 up to 512; any batch is taken).
 """
 
 from __future__ import annotations
@@ -66,8 +67,8 @@ import torch.distributed as dist
 from torch import nn
 
 from vlsfr_tpu_torch.config import Config
+from vlsfr_tpu_torch.ops.margin import kernel_width_ok
 from vlsfr_tpu_torch.ops.margin_stream import (
-    _MAX_ROWS,
     sparse_bwd_geometry,
     sparse_m_tiles,
     streaming_margin_grads_fused_sgd,
@@ -160,8 +161,8 @@ def _sparse_classifier_mode(cfg: Config) -> bool:
 
 def check_ported(cfg: Config, device=None) -> None:
     """Raise NotImplementedError for an option of this head that is not
-    ported yet; with a CUDA ``device`` also for a batch the margin_ce
-    kernels do not take."""
+    ported yet; with a CUDA ``device`` also for a feature width the
+    margin_ce kernels do not take."""
     pool = cfg.pool
     sharded = cfg.mesh.model > 1
     on_kernels = (_streaming_on(cfg) and pool.sample_rate == 0 and device is not None
@@ -175,8 +176,8 @@ def check_ported(cfg: Config, device=None) -> None:
             ("mesh.model > 1 on the dense head (route C)",
              sharded and not _streaming_on(cfg) and pool.sample_rate == 0),
             ("mesh.model > 1 with partial-FC sampling (route E)", sharded and pool.sample_rate > 0),
-            (f"data.batch_size={cfg.data.batch_size} above the margin_ce kernels' {_MAX_ROWS} "
-             f"rows", on_kernels and cfg.data.batch_size > _MAX_ROWS)):
+            (f"model.feat_dim={cfg.model.feat_dim} on the margin_ce kernels (a multiple of 64 "
+             f"up to 512)", on_kernels and not kernel_width_ok(cfg.model.feat_dim))):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
 

@@ -38,7 +38,7 @@ import torch.distributed as dist
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import DCPManager
 from vlsfr_tpu_torch.core.ffc import (
-    check_kernel_batch,
+    check_kernel_width,
     create_ffc_state,
     make_train_step,
     use_sharded_head,
@@ -82,7 +82,7 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.pool.head == "ffc":
-            check_kernel_batch(cfg, self.device)
+            check_kernel_width(cfg, self.device)
         self.mesh, self._owns_group = None, False
         if use_sharded_head(cfg) if cfg.pool.head == "ffc" else cfg.mesh.model > 1:
             check_shape(cfg.mesh.data, cfg.mesh.model)  # before anything is created

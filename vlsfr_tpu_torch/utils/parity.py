@@ -48,8 +48,10 @@ order), and where the two straddle a bf16 rounding boundary one term of
 d_emb moves by one bf16 ulp, up to 2^-8 of itself. A straddle moves the
 D features of one row, and in a row that one column dominates it can move
 them by ~1e-3 of d_emb's max. So d_emb is held in two parts
-(``rounded_demb``): at most STRADDLE_ROWS = 8 rows may be further than
-DEMB_TIGHT = 1e-5 × max from the plain version, and no row further than
+(``rounded_demb``): at most STRADDLE_ROWS = 8 rows in each 256 of d_emb
+(a straddle is a chance per d_cos term, so the rows it touches grow with
+the rows) may be further than DEMB_TIGHT = 1e-5 × max from the plain
+version, and no row further than
 ROUNDED_DEMB_RTOL = 2^-7 × max (one bf16 ulp of two such terms). A kernel
 that skips a rounding moves most rows by ~2^-9 of their terms and fails
 the first part. On an H100 over chip_smoke.py's phase-21 and phase-23
@@ -484,12 +486,15 @@ def demb_checks(name: str, got, want, dtype) -> list[dict]:
     return rounded_demb(name, got, want)
 
 
-def rounded_demb(name: str, got, want, ref=None, allowed: int = STRADDLE_ROWS) -> list[dict]:
+def rounded_demb(name: str, got, want, ref=None, allowed: int | None = None) -> list[dict]:
     """d_emb of a rounded form in two parts (module docstring): the count
     of rows further than DEMB_TIGHT × max |ref| from the plain version, at
-    most ``allowed`` (STRADDLE_ROWS; the softmax head's, ``softmax_demb``),
-    and the largest error of any row, at most ROUNDED_DEMB_RTOL × max |ref|.
-    ``ref`` is ``want`` unless given (the softmax head's streamed part)."""
+    most ``allowed`` (STRADDLE_ROWS for each 256 rows, or part of 256; the
+    softmax head's, ``softmax_demb``), and the largest error of any row, at
+    most ROUNDED_DEMB_RTOL × max |ref|. ``ref`` is ``want`` unless given
+    (the softmax head's streamed part)."""
+    if allowed is None:
+        allowed = STRADDLE_ROWS * -(-got.shape[0] // 256)
     top = float((want if ref is None else ref).abs().max())
     row_err = (got - want).abs().amax(dim=1)
     return [{"name": f"{name} rows beyond {DEMB_TIGHT:g} x max", "count": True,
@@ -697,15 +702,17 @@ def margin_cos_checks(emb, w, tag: str = "") -> list[dict]:
     backward's top-k test compares its cosines with the forward's kth; an
     f32 classifier's backward is one pass, one tiling), and the forward's
     within BF16_COS_ATOL (bf16) or F32_COS_ATOL (f32) of the plain
-    version."""
+    version. Above 128 batch rows an f32 classifier's backward has two
+    tilings too: its d_emb pass and its pass in row groups for d_w."""
     from vlsfr_tpu_torch.ops import margin_stream as tms
 
     form = "bf16" if w.dtype == torch.bfloat16 else "f32"
+    one_pass = form == "f32" and emb.shape[0] <= tms._ROWS
     fwd = tms.clean_cos(emb, w)
     checks = []
-    for tiling in tms.COS_TILINGS[1:] if form == "bf16" else tms.COS_TILINGS[1:2]:
+    for tiling in tms.COS_TILINGS[1:2] if one_pass else tms.COS_TILINGS[1:]:
         other = tms.clean_cos(emb, w, tiling=tiling)
-        name = tiling if form == "bf16" else "backward pass"
+        name = "backward pass" if one_pass else tiling
         checks.append({"name": f"{tag}{form} cos elements differing ({name} vs forward tiles)",
                        "count": True, "err": float((fwd != other).sum()), "limit": 0.0})
         del other
