@@ -337,6 +337,29 @@ batch order, no float atomics):
    mesh.model = 1 and its batch of 512 (route A): 3 steps, a finite loss,
    the forward and the fused kernel launched once a step, step time and
    peak memory;
+int8 conv inference (``vlsfr_tpu_torch/ops/quant.py``; no kernel: an
+im2col through ``torch._int_mm``, as JAX ran these convs through XLA):
+41. every distinct ungrouped conv shape of ir50 and of mobile (bf16, 112²)
+    at batch 128: the int path's int32 product against its f64 plain
+    version (``int_conv_plain``) bit for bit; the wrapper
+    ``int8_conv2d`` itself (its chunks, dequantisation and a seeded bias)
+    against ``f32(plain product) · (sx · sw) + bias`` in bf16 bit for bit;
+    the card's xq, sx, wq and sw against the CPU port's from the same
+    tensor (8 images) bit for bit; the int path (quantise, im2col,
+    ``_int_mm``, dequantise) timed beside cuDNN's bf16 ``F.conv2d``, with
+    its peak memory, and traced (torch.profiler: device busy time against
+    wall time a call, the four aten ops that take the most of it); then
+    ``Embedder(int8=True)`` against the bf16 ``Embedder`` (ir50 bf16,
+    batch 128, flip, phase 38's net and images) in turns, images/s and
+    the int8-against-bf16 cosine over 256 images (a reading), and on an
+    f32 ir50 with the same weights the card's int8 embeddings of 4 images
+    against the CPU port's (cosine ≥ 0.999 each); then
+    ``configs/ffc_ir50_1m_ids.json`` through ``Trainer`` 3 steps straight
+    and with ``pool.gallery_int8``: a finite loss, 53 int8 convs a step
+    (``quant.LAUNCH_COUNTS``; the stem, 2 in each of 24 blocks, 4
+    shortcuts, on the one 512-image gallery forward), none straight, step
+    time and peak memory of both, the first batch's gallery embeddings'
+    cosine int8 against float (a reading);
 then the ``kernels`` JSON line (44 entries: the ten f32 kernels, the
 twelve quad forms, the twin kernels in f32 and bf16, the eight bf16 forms
 of the margin_ce kernels, ``conv3x3``, ``conv3x3[stats]``,
@@ -577,6 +600,17 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
+def busy_ms(spans) -> float:
+    """The union of the profiler's device intervals (µs), in ms:
+    overlapping streams count once."""
+    busy_us, end = 0.0, -math.inf
+    for s, t in sorted(spans):
+        if t > end:
+            busy_us += t - max(s, end)
+            end = t
+    return busy_us / 1e3
+
+
 def profile_steps(run_step, batches) -> None:
     """Device activity of one warm training step per batch
     (torch.profiler): the busy time as the union of the card's kernel and
@@ -608,12 +642,7 @@ def profile_steps(run_step, batches) -> None:
         families[fam] = families.get(fam, 0.0) + ms
     if not spans:
         raise RuntimeError("the profiler recorded no device activity in the training steps")
-    busy_us, end = 0.0, -math.inf
-    for s, t in sorted(spans):  # union of intervals: overlapping streams count once
-        if t > end:
-            busy_us += t - max(s, end)
-            end = t
-    busy = busy_us / 1e3
+    busy = busy_ms(spans)
     print(f"  {n} steps: wall {wall_ms:.1f} ms under the profiler ({wall_ms / n:.1f} ms/step); "
           f"device busy {busy:.1f} ms, idle {100 * (1 - busy / wall_ms):.1f} % of wall")
     print("  device time by family (ms over the window): "
@@ -3900,6 +3929,274 @@ def softmax_shipped_phase(card: str, tmp: str) -> None:
                   {"margin_ce_fwd", "margin_ce_bwd_fused_sgd"})
 
 
+# ----------------------------------------------------------------------
+# phase 41: int8 conv inference (ops/quant.py; no kernel: im2col and
+# torch._int_mm, cuBLASLt's int8 product, as JAX ran it through XLA)
+# ----------------------------------------------------------------------
+
+INT8_NETS = ("ir50", "mobile")  # every distinct ungrouped conv of each, bf16, 112²
+INT8_BATCH = 128
+INT8_CHECK_IMAGES = 8  # the card's quantised operands against the CPU's, on this many
+INT8_SERVE_IMAGES = 1024
+INT8_COS_IMAGES = 256  # int8 against bf16 embeddings: a reading
+INT8_CPU_IMAGES, INT8_CPU_COS = 4, 0.999  # f32 ir50, card int8 against CPU int8, per image
+IR50_INT8_CONVS = 53  # the stem, 2 in each of 24 blocks, 4 shortcut 1x1s
+INT8_STEPS = 3
+
+
+def int8_conv_shapes(net) -> dict:
+    """Every distinct ungrouped conv of ``net`` (bf16, on the card) at its
+    input shape: {(C, H, W, O, k, stride, pad): the first such Conv}."""
+    from vlsfr_tpu_torch.models.layers import Conv
+    from vlsfr_tpu_torch.ops import quant
+
+    shapes, hooks = {}, []
+
+    def record(m, inputs):
+        _, c, h, w = inputs[0].shape
+        shapes.setdefault((c, h, w, m.out_channels, m.kernel_size[0], m.stride[0],
+                           m.padding[0]), m)
+
+    for m in net.modules():
+        if isinstance(m, Conv) and quant.eligible(m):
+            hooks.append(m.register_forward_pre_hook(record))
+    with torch.no_grad():
+        net.eval()(torch.zeros((2, 112, 112, 3), device="cuda"))
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def int8_trace(fn, reps: int = 3):
+    """``fn`` traced (torch.profiler) over ``reps`` warm calls: (wall ms a
+    call under the profiler, device busy ms a call, the union of kernel and
+    copy intervals, and the four aten ops whose own kernels take the most
+    device time, as (op, ms a call, calls a call))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not spans:
+        raise RuntimeError("the profiler recorded no device activity in the int path")
+    ops = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        if ev.key.startswith("aten::") and us > 0:
+            ops.append((ev.key[6:], us / 1e3 / reps, ev.count / reps))
+    return wall / reps, busy_ms(spans) / reps, sorted(ops, key=lambda o: -o[1])[:4]
+
+
+def int8_conv_checks(name: str, shapes: dict, card: str) -> None:
+    """Each shape at batch INT8_BATCH on a seeded bf16 input, as the main
+    path feeds it: the int path's int32 product against its f64 plain
+    version bit for bit; the wrapper ``int8_conv2d`` itself (its chunks,
+    dequantisation and bias) against ``f32(plain product) · (sx · sw) +
+    bias`` in bf16 bit for bit; the card's xq, sx, wq and sw against the
+    CPU's from the same tensor (INT8_CHECK_IMAGES images) bit for bit; the
+    wrapper timed beside cuDNN's bf16 ``F.conv2d``, with its peak memory
+    above its input, then traced: the device's busy time a call against
+    the wall time, and the aten ops that take the most of it."""
+    import torch.nn.functional as F
+
+    from vlsfr_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    print(f"  {name}: {len(shapes)} distinct ungrouped conv shapes at batch {INT8_BATCH} "
+          f"(C, H, W -> O, k, stride, pad)")
+    for (c, h, w, o, k, stride, pad), m in shapes.items():
+        shape = (c, h, w, o, k, stride, pad)
+        x = torch.randn((INT8_BATCH, c, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+        bias = torch.randn((o,), generator=gen, device="cuda")
+        wt = m.weight.detach()
+        d, sx, wq, sw = quant.conv_scales(x, wt)
+        xq = quant.quantize_input(x, d)
+        got = quant.int_conv(xq, wq, stride, pad)
+        want = quant.int_conv_plain(xq, wq, stride, pad)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{name} conv {shape}: the int path's product differs from the "
+                               f"f64 plain version's at {int((got != want).sum())} of "
+                               f"{got.numel()} elements")
+        del got, xq
+        chunks = len(quant._Geometry(x.shape, wt.shape, stride, pad).chunks(INT8_BATCH))
+        want = (want.float() * (sx * sw)[None, :, None, None]
+                + bias[None, :, None, None]).to(torch.bfloat16)
+        got = quant.int8_conv2d(x, wt, bias, stride, pad, torch.bfloat16)
+        if not (got.dtype == torch.bfloat16 and torch.equal(got, want)):
+            raise RuntimeError(f"{name} conv {shape}: int8_conv2d ({chunks} chunks) differs "
+                               f"from its formula over the plain product")
+        del got, want
+        xs = x[:INT8_CHECK_IMAGES]
+        card_ops = quant.conv_scales(xs, wt)
+        cpu_ops = quant.conv_scales(xs.cpu(), wt.cpu())
+        card_ops = (quant.quantize_input(xs, card_ops[0]), *card_ops[1:])
+        cpu_ops = (quant.quantize_input(xs.cpu(), cpu_ops[0]), *cpu_ops[1:])
+        for what, a, b in zip(("xq", "sx", "wq", "sw"), card_ops, cpu_ops):
+            if not torch.equal(a.cpu(), b):
+                raise RuntimeError(f"{name} conv {shape}: the card's {what} differs from the "
+                                   f"CPU's")
+        wb = wt.to(torch.bfloat16)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            return quant.int8_conv2d(x, wt, None, stride, pad, torch.bfloat16)
+
+        int_ms = cuda_ms(run, 5)
+        peak = torch.cuda.max_memory_allocated() - base
+        bf16_ms = cuda_ms(lambda: F.conv2d(x, wb, None, stride, pad), 5)
+        wall, busy, top = int8_trace(run)
+        print(f"    {c:4d} {h:3d} {w:3d} -> {o:4d}  {k}x{k} s{stride} p{pad}: int product and "
+              f"int8_conv2d ({chunks} chunk{'s' * (chunks > 1)}, bias) bit for bit; operands "
+              f"card = CPU; int path {int_ms:.3f} ms, cuDNN bf16 {bf16_ms:.3f} ms "
+              f"({int_ms / bf16_ms:.2f}x); int path peak {peak / 2**20:.0f} MiB above its "
+              f"input ({card})")
+        print(f"      traced: device busy {busy:.3f} ms of {wall:.3f} ms wall a call "
+              f"({100 * busy / wall:.1f} %); device time by op: "
+              + ", ".join(f"{n} {t:.3f} ms x{cnt:g}" for n, t, cnt in top))
+        del x, wb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def int8_serving(card: str) -> None:
+    """``Embedder(int8=True)`` against the bf16 ``Embedder`` on ir50 (bf16,
+    batch 128, flip, phase 38's net and images): images/s of both in
+    turns, the int8-against-bf16 cosine; then an f32 ir50 with the same
+    weights (TF32 off), the card's int8 embeddings of 4 images against the
+    CPU port's."""
+    from vlsfr_tpu_torch.eval.extract import Embedder
+    from vlsfr_tpu_torch.models import create_net
+    from vlsfr_tpu_torch.ops import quant
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        net = create_net("ir50", feat_dim=512, dtype="bfloat16")
+    images = np.random.default_rng(4).standard_normal((INT8_SERVE_IMAGES, 112, 112, 3),
+                                                      dtype=np.float32)
+    calibrate_bn(net.cuda(), torch.from_numpy(images[:128]).cuda())
+    embs, rates = {}, {}
+    for int8 in (False, True, True, False):  # in turns
+        emb = Embedder(net, batch_size=128, flip_average=True, int8=int8)
+        emb(images[:256])  # warm-up
+        quant.reset_launch_counts()
+        t0 = time.perf_counter()
+        e = emb(images)
+        wall = time.perf_counter() - t0
+        rates.setdefault(int8, []).append(INT8_SERVE_IMAGES / wall)
+        launches = quant.LAUNCH_COUNTS["int8_conv"]
+        want = 2 * IR50_INT8_CONVS * INT8_SERVE_IMAGES // 128 if int8 else 0
+        if launches != want:
+            raise RuntimeError(f"Embedder(int8={int8}): {launches} int8 convs, want {want}")
+        if not (e.shape == (INT8_SERVE_IMAGES, 512) and np.isfinite(e).all()):
+            raise RuntimeError(f"Embedder(int8={int8}) gave bad embeddings")
+        embs[int8] = e
+    for int8, r in rates.items():
+        print(f"  Embedder(int8={int8}), ir50 bf16, batch 128, flip TTA: "
+              f"{', '.join(f'{v:.1f}' for v in r)} images/s over {INT8_SERVE_IMAGES:,} images "
+              f"from host memory, in turns ({card})")
+    a, b = embs[True][:INT8_COS_IMAGES], embs[False][:INT8_COS_IMAGES]
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    print(f"  int8 against bf16 embeddings, {INT8_COS_IMAGES} images: cosine min "
+          f"{cos.min():.5f}, mean {cos.mean():.5f} (a reading)")
+    with torch.random.fork_rng(devices=[]):
+        f32 = create_net("ir50", feat_dim=512)
+    f32.load_state_dict(net.state_dict())
+    del net
+    x = images[:INT8_CPU_IMAGES]
+    got = Embedder(f32, batch_size=INT8_CPU_IMAGES, int8=True)(x)
+    want = Embedder(f32, batch_size=INT8_CPU_IMAGES, int8=True, device="cpu")(x)
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    print(f"  f32 ir50, int8, {INT8_CPU_IMAGES} images, card against CPU: cosine "
+          f"{', '.join(f'{v:.6f}' for v in cos)} (limit {INT8_CPU_COS}: a conv input that "
+          f"differs in its last bit rounds an int8 value the other way)")
+    if not (got.shape == (INT8_CPU_IMAGES, 512) and cos.min() >= INT8_CPU_COS):
+        raise RuntimeError("the card's int8 embeddings disagree with the CPU's")
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def int8_gallery(card: str, tmp: str) -> None:
+    """``CKPT_CONFIG`` (phase 37's: ir50 bf16, batch 256, fuse_forward)
+    through the Trainer for INT8_STEPS steps, straight and with
+    ``pool.gallery_int8``: a finite loss, IR50_INT8_CONVS int convs a
+    step (the one 512-image gallery forward), step time and peak memory of
+    both, and the gallery embeddings' cosine to the float gallery's on the
+    first batch."""
+    from vlsfr_tpu_torch.ops import quant
+
+    first = {}
+
+    def keep_first(tag):
+        def hook(module, inputs, out):
+            if tag not in first:
+                first[tag] = (inputs[0].clone(), out.clone())
+        return hook
+
+    for int8 in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        trainer = shipped_trainer(CKPT_CONFIG, os.path.join(tmp, f"gallery_int8_{int8}"),
+                                  f"pool.gallery_int8={str(int8).lower()}")
+        try:
+            hook = trainer.state.gallery.register_forward_hook(keep_first(int8))
+            quant.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = trainer.train(max_steps=INT8_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = quant.LAUNCH_COUNTS["int8_conv"]
+            peak = torch.cuda.max_memory_allocated()
+            hook.remove()
+            b = trainer.cfg.data.batch_size
+        finally:
+            trainer.close()
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        want = IR50_INT8_CONVS * INT8_STEPS if int8 else 0
+        print(f"  pool.gallery_int8={int8}: {json.dumps(out)}")
+        print(f"    step time {2 * b / out['images_per_sec'] * 1e3:.1f} ms (last window, {card}); "
+              f"{INT8_STEPS} steps {wall:.2f} s wall incl. the first; peak memory "
+              f"{peak / 2**30:.2f} GiB ({card}); {launches} int8 convs "
+              f"({launches / INT8_STEPS:g} a step)")
+        if not (math.isfinite(out["loss"]) and out["final_step"] == INT8_STEPS
+                and launches == want):
+            raise RuntimeError(f"gallery_int8={int8}: {out}, {launches} int8 convs (want {want})")
+    (xf, ef), (xi, ei) = first[False], first[True]
+    cos = torch.nn.functional.cosine_similarity(ef.float(), ei.float(), dim=1)
+    print(f"  the first batch's gallery embeddings ({ef.shape[0]} images, same batch: "
+          f"{torch.equal(xf, xi)}), int8 against float: cosine min {float(cos.min()):.5f}, "
+          f"mean {float(cos.mean()):.5f} (a reading)")
+    if not torch.isfinite(ei).all():
+        raise RuntimeError("the int8 gallery's embeddings are not finite")
+
+
+def int8_phase(card: str) -> None:
+    """Phase 41: int8 conv inference on the card (``ops/quant.py``)."""
+    from vlsfr_tpu_torch.models import create_net
+
+    for name in INT8_NETS:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(5)
+            net = create_net(name, feat_dim=512, dtype="bfloat16").cuda()
+        int8_conv_checks(name, int8_conv_shapes(net), card)
+        del net
+    int8_serving(card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        int8_gallery(card, tmp)
+
+
 BF16_KERNELS = (  # the kernels line's bf16 forms: (name, the TPU kernel it replaces)
     ("margin_ce_fwd[bf16]", "margin_pallas.py:390"),
     ("margin_ce_bwd[bf16]", "margin_pallas.py:557"),
@@ -4139,6 +4436,13 @@ def main() -> int:
               f"D = 512; limits as phases 7, 11 and 29), B = {RAGGED_B}, the class shard, and "
               f"{SOFTMAX_CONFIG} through the Trainer")
         softmax_shipped_phase(card, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("== phase 41: int8 conv inference (ops/quant.py): every ungrouped conv shape of ir50 "
+          "and mobile, Embedder(int8=True), pool.gallery_int8 through the Trainer")
+    t0 = time.perf_counter()
+    int8_phase(card)
+    print(f"  phase 41 {time.perf_counter() - t0:.1f} s")
     print(f"  chip_smoke.py {time.perf_counter() - t_start:.1f} s ({card})")
 
     fwd_keys = ("ce", "neg", "logz", "topk")

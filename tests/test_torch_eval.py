@@ -8,7 +8,8 @@ on the same numpy inputs.
   against JAX's ``Embedder`` with tail padding, with and without flip;
   embeddings at ``EMB_ATOL`` (2e-5, f32 convolutions summed in other
   orders, as ``tests/test_torch_models.py``).
-* ``FaceIndex``: against JAX's at its defaults (``approx_max_k`` per tile,
+* ``FaceIndex``: at ``recall_target=0.95`` against JAX's exact pick
+  (``recall_target=1.0``); against JAX's at its defaults (``approx_max_k`` per tile,
   which on the CPU returns ``lax.top_k``'s values and indices) in bf16,
   int8 storage, int8 compute, ``k`` beyond the gallery, ``k`` at or above
   the tile, ``from_arrays`` with float and int8 rows and padding: rows and
@@ -157,11 +158,18 @@ def test_embedder_matches_jax(flip, rng):
     np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-6)
 
 
-def test_embedder_refuses_int8_and_needs_a_device_choice():
+def test_embedder_runs_int8_and_needs_a_device_choice(rng):
+    """``int8=True`` serves on int8 convs on the CPU (held to JAX's in
+    tests/test_torch_quant.py): unit embeddings, not the float ones."""
     from vlsfr_tpu_torch.models.toynet import ToyNet
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        textract.Embedder(ToyNet(feat_dim=8), device="cpu", int8=True)
+    net = ToyNet(feat_dim=8)
+    images = rng.standard_normal((3, 16, 16, 3)).astype(np.float32)
+    got = textract.Embedder(net, batch_size=2, device="cpu", int8=True)(images)
+    fp = textract.Embedder(net, batch_size=2, device="cpu")(images)
+    assert got.shape == fp.shape == (3, 8) and np.isfinite(got).all()
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-6)
+    assert not np.array_equal(got, fp)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             textract.Embedder(ToyNet(feat_dim=8))
@@ -254,6 +262,25 @@ def test_face_index_matches_jax(index_cases):
     thr = 0.5
     np.testing.assert_array_equal(build(_Torch, device="cpu").identify(queries, thr),
                                   build(jpkg).identify(queries, thr))
+
+
+def test_face_index_recall_target_matches_jax_exact(index_cases):
+    """``recall_target`` is taken and kept (0 or below refused); the
+    port's per-tile top-k is exact whatever its value, so at JAX's default
+    0.95 it returns the rows JAX's exact pick returns
+    (``recall_target=1.0``, ``lax.top_k`` per tile): rows and labels
+    equal, scores within SCORE_ATOL."""
+    jpkg = _jax_pkg()
+    for name, build, queries, k in index_cases:
+        want = build(jpkg, recall_target=1.0).search(queries, k)
+        port = build(_Torch, device="cpu", recall_target=0.95)
+        assert port.recall_target == 0.95, name
+        with pytest.raises(ValueError, match="recall_target"):
+            build(_Torch, device="cpu", recall_target=0.0)
+        got = port.search(queries, k)
+        np.testing.assert_array_equal(got[1], want[1], err_msg=name)
+        np.testing.assert_array_equal(got[2], want[2], err_msg=name)
+        np.testing.assert_allclose(got[0], want[0], atol=SCORE_ATOL, err_msg=name)
 
 
 def test_face_index_storage_matches_jax(index_cases):

@@ -148,8 +148,6 @@ def test_entry_points_refuse_without_card_or_unported():
     if not torch.cuda.is_available():  # the sharded route too runs on cuda unless asked
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Trainer(Config().apply_overrides(["pool.use_fused=on", "pool.force_sharded=true"]))
-    with pytest.raises(NotImplementedError):  # still to port
-        make_train_step(Config().apply_overrides(["pool.gallery_int8=true"]), lambda s: 0.1)
     # an int8 queue (with int8 compute) runs on the CPU: its step is the plain versions'
     cfg = Config().apply_overrides(["model.net_type=toy", "model.feat_dim=8",
                                     "pool.queue_size=16", "pool.queue_dtype=int8",
@@ -161,6 +159,15 @@ def test_entry_points_refuse_without_card_or_unported():
     x = rng.standard_normal((4, 16, 16, 3)).astype(np.float32)
     m = make_train_step(cfg, lambda s: 0.1)(state, x, x, DCPManager(16).plan_step(labels, labels))
     assert np.isfinite(float(m["loss"])) and state.queue.dtype == torch.int8
+    # pool.gallery_int8 runs on the CPU too: the gallery forward on int8 convs
+    # (held to JAX's step in tests/test_torch_quant.py)
+    from vlsfr_tpu_torch.ops import quant
+
+    cfg = cfg.apply_overrides(["pool.gallery_int8=true"])
+    quant.reset_launch_counts()
+    m = make_train_step(cfg, lambda s: 0.1)(state, x, x, DCPManager(16).plan_step(labels, labels))
+    # the toy net's two convs in each gallery forward, gallery(y) and gallery(x)
+    assert np.isfinite(float(m["loss"])) and quant.LAUNCH_COUNTS["int8_conv"] == 4
 
 
 def test_fused_batch_above_kernel_rows_refused_up_front():

@@ -107,5 +107,8 @@ def test_registry():
     assert create_net("mobile", feat_dim=128).linear1.conv.out_channels == 128
     with pytest.raises(ValueError):
         create_net("vgg")
-    with pytest.raises(NotImplementedError):
-        create_net("toy", bn_stats_rows=8)
+    # bn_stats_rows reaches every BN but the embedding's (held to JAX's
+    # _SubsetBN in tests/test_torch_quant.py)
+    net = create_net("toy", bn_stats_rows=8)
+    assert [m.stats_rows for m in (net.bn1, net.bn2, net.features)] == [8, 8, 0]
+    assert create_net("ir50", bn_stats_rows=8).layer3[5].bn2.stats_rows == 8

@@ -7,7 +7,8 @@ One step of the FFC twin network over a host-planned ``StepIndices``:
 2. probe forwards (train mode, with grad) and gallery forwards (train mode,
    ``no_grad``) over both batch halves — as one 2B batch per net with
    ``pool.fuse_forward``, else in the reference order probe(x), gallery(y),
-   probe(y), gallery(x);
+   probe(y), gallery(x); with ``pool.gallery_int8`` the gallery forwards
+   alone run on int8 convs (``ops/quant.py``);
 3. the two directional losses: at ``pool.queue_size >=
    pool.streaming_threshold`` (``use_fused='auto'``) the fused quad head
    (ops/twin_margin.py, CUDA kernels on the card), else the dense head;
@@ -32,6 +33,7 @@ parameters stay equal across ranks.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 from dataclasses import dataclass
@@ -44,6 +46,7 @@ from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import PassIndices, StepIndices
 from vlsfr_tpu_torch.ops.margin import add_margin, default_hard_neg, kernel_width_ok
 from vlsfr_tpu_torch.ops.qqueue import quantize_rows
+from vlsfr_tpu_torch.ops.quant import int8_conv_inference
 from vlsfr_tpu_torch.ops.twin_margin import quad_add_margin, twin_add_margin
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
@@ -267,8 +270,6 @@ def make_train_step(cfg: Config, schedule, mesh=None):
     (``use_sharded_head``) needs the ``mesh`` (parallel/mesh.py) its state
     was made for."""
     pool = cfg.pool
-    if pool.gallery_int8:
-        raise NotImplementedError("pool.gallery_int8 is not ported yet")
     check_queue_config(cfg)
     hard_neg = pool.hard_neg if pool.hard_neg > 0 else default_hard_neg(pool.queue_size)
     use_quad = use_fused_head(cfg)
@@ -293,6 +294,9 @@ def make_train_step(cfg: Config, schedule, mesh=None):
     m = pool.momentum
     fuse_fwd = pool.fuse_forward
     grad_clip = cfg.optim.grad_clip
+    # the no-gradient EMA forward on int8 convs (ops/quant.py); BN stays in
+    # train mode and the probe's forward is untouched
+    gallery_ctx = int8_conv_inference if pool.gallery_int8 else contextlib.nullcontext
 
     def step(state: FFCState, x, y, idx: StepIndices, lr_scale: float = 1.0) -> dict:
         dev = state.queue.device
@@ -309,15 +313,15 @@ def make_train_step(cfg: Config, schedule, mesh=None):
             # one 2B forward per net; BN statistics then span 2B samples
             b = x.shape[0]
             p_xy = probe(torch.cat([x, y]))
-            with torch.no_grad():
+            with torch.no_grad(), gallery_ctx():
                 g_yx = gallery(torch.cat([y, x]))
             p_x, p_y, g_y, g_x = p_xy[:b], p_xy[b:], g_yx[:b], g_yx[b:]
         else:
             p_x = probe(x)
-            with torch.no_grad():
+            with torch.no_grad(), gallery_ctx():
                 g_y = gallery(y)
             p_y = probe(y)
-            with torch.no_grad():
+            with torch.no_grad(), gallery_ctx():
                 g_x = gallery(x)
         if use_quad:
             (loss_a, loss_b), train_acc = quad_loss(

@@ -7,15 +7,20 @@ batch is padded with zeros and its padded rows dropped (JAX pads so that
 one compilation serves any dataset size; here every call has one shape, so
 cuDNN keeps one algorithm). With ``flip_average`` each embedding is
 ``l2_normalize(e + e_flip)``, e_flip the embedding of the image flipped
-along W (test-time augmentation).
+along W (test-time augmentation). With ``int8`` both forwards run under
+``ops.quant.int8_conv_inference()``: every ungrouped conv int8 × int8 →
+int32 with dynamic scales (``ops/quant.py``), the depthwise ones in float.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from vlsfr_tpu_torch.models.layers import l2_normalize
+from vlsfr_tpu_torch.ops.quant import int8_conv_inference
 from vlsfr_tpu_torch.utils.device import resolve_device
 
 
@@ -24,20 +29,19 @@ class Embedder:
                  device=None, int8: bool = False):
         """``model`` is a port backbone (its weights loaded); it is moved to
         ``device`` (``cuda`` unless the caller asks for the CPU) and run in
-        eval mode, its own mode restored after each call."""
-        if int8:
-            raise NotImplementedError(
-                "Embedder(int8=True), int8 conv serving (ops/quant.py), is not ported yet "
-                "(ROADMAP §1 item 9)")
+        eval mode, its own mode restored after each call; ``int8`` serves it
+        on int8 convs."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.batch_size = batch_size
         self.flip_average = flip_average
+        self.int8 = int8
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        emb = self.model(x)
-        if self.flip_average:
-            emb = l2_normalize(emb + self.model(torch.flip(x, dims=[2])))
+        with int8_conv_inference() if self.int8 else contextlib.nullcontext():
+            emb = self.model(x)
+            if self.flip_average:
+                emb = l2_normalize(emb + self.model(torch.flip(x, dims=[2])))
         return emb
 
     def __call__(self, images) -> np.ndarray:

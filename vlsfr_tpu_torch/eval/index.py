@@ -82,11 +82,16 @@ class FaceIndex:
       tile: gallery rows scored per step (the [Q, tile] score block).
       compute_dtype: ``torch.bfloat16`` (default) or ``torch.float32``
         operands; ``torch.int8`` (needs ``int8``) quantises the queries too.
+      recall_target: JAX's per-tile recall target for ``approx_max_k``,
+        kept as ``self.recall_target`` for API parity; it must be above 0.
+        The port's per-tile ``torch.topk`` is exact, so it meets any
+        target: a value below 1 selects no approximate pick here.
       device: ``cuda`` unless the caller asks for the CPU.
     """
 
     def __init__(self, feat_dim: int, mesh=None, int8: bool = False, tile: int = 65536,
-                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+                 compute_dtype: torch.dtype = torch.bfloat16, recall_target: float = 0.95,
+                 device=None):
         if compute_dtype == torch.int8 and not int8:
             raise ValueError("compute_dtype=int8 requires int8=True "
                              "(the gallery must be stored quantized)")
@@ -95,6 +100,9 @@ class FaceIndex:
         self.int8 = int8
         self.tile = tile
         self.compute_dtype = compute_dtype
+        if not recall_target > 0:
+            raise ValueError(f"recall_target must be above 0, got {recall_target}")
+        self.recall_target = recall_target
         self.device = resolve_device(device)
         self._embs: list[np.ndarray] = []
         self._labels: list[np.ndarray] = []
@@ -136,7 +144,8 @@ class FaceIndex:
 
     @classmethod
     def from_arrays(cls, gallery, labels, scales=None, *, mesh=None, tile: int = 65536,
-                    compute_dtype: torch.dtype = torch.bfloat16, device=None) -> "FaceIndex":
+                    compute_dtype: torch.dtype = torch.bfloat16, recall_target: float = 0.95,
+                    device=None) -> "FaceIndex":
         """Wrap a prebuilt gallery (quantised offline, restored, or already
         on the device) without ``add``'s concatenate and re-quantise.
 
@@ -147,7 +156,7 @@ class FaceIndex:
         int8 = scales is not None
         g_rows, d = gallery.shape
         self = cls(feat_dim=d, mesh=mesh, int8=int8, tile=tile, compute_dtype=compute_dtype,
-                   device=device)
+                   recall_target=recall_target, device=device)
         gallery = torch.as_tensor(gallery)
         if int8 and gallery.dtype != torch.int8:
             raise ValueError(f"scales given but gallery dtype is {gallery.dtype}, expected int8")

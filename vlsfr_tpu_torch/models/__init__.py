@@ -33,22 +33,21 @@ def create_net(net_type: str, feat_dim: int = 512, dtype: str | torch.dtype = to
                dropout: float = 0.0, image_size: int | None = None,
                bn_stats_rows: int = 0) -> torch.nn.Module:
     """Build a backbone by name at ``image_size`` (default its native size);
-    raises on an unknown type."""
-    if bn_stats_rows > 0:
-        raise NotImplementedError("model.bn_stats_rows > 0 is not ported yet")
+    raises on an unknown type. ``bn_stats_rows > 0`` takes every BN's
+    training statistics but the embedding BN's from a strided row subset
+    (``layers.BatchNorm``), as JAX's ``create_net``."""
     dtype = to_dtype(dtype)
     size = image_size or NATIVE_IMAGE_SIZE.get(net_type)
+    kw = dict(feat_dim=feat_dim, dtype=dtype, bn_stats_rows=bn_stats_rows)
     if net_type == "toy":
-        return ToyNet(feat_dim=feat_dim, dtype=dtype)
+        return ToyNet(**kw)
     if net_type == "mobile":
-        return MobileFaceNet(feat_dim=feat_dim, dtype=dtype, image_size=size)
+        return MobileFaceNet(image_size=size, **kw)
     if net_type in _IR_DEPTHS:
-        return IResNet(layers=_IR_DEPTHS[net_type], feat_dim=feat_dim, dropout=dropout,
-                       dtype=dtype, image_size=size)
+        return IResNet(layers=_IR_DEPTHS[net_type], dropout=dropout, image_size=size, **kw)
     if net_type in _R_DEPTHS:
         block, layers = _R_DEPTHS[net_type]
-        return ResNet(block=block, layers=layers, feat_dim=feat_dim, dtype=dtype,
-                      image_size=size)
+        return ResNet(block=block, layers=layers, image_size=size, **kw)
     raise ValueError(f"unsupported backbone {net_type!r}; choose from "
                      f"{['mobile', 'toy', *_IR_DEPTHS, *_R_DEPTHS]}")
 

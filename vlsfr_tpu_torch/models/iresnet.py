@@ -12,6 +12,7 @@ Parameter names are the reference torch model's.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -31,19 +32,20 @@ _CONV_STD = 0.1
 
 class IBasicBlock(nn.Module):
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, bn_stats_rows: int = 0):
         super().__init__()
-        self.bn1 = BatchNorm(in_ch, dtype=dtype)
+        bn = functools.partial(BatchNorm, dtype=dtype, bn_stats_rows=bn_stats_rows)
+        self.bn1 = bn(in_ch)
         self.conv1 = Conv(in_ch, planes, 3, 1, 1, dtype=dtype, init_std=_CONV_STD)
-        self.bn2 = BatchNorm(planes, dtype=dtype)
+        self.bn2 = bn(planes)
         self.prelu = PReLU(planes, dtype=dtype)
         self.conv2 = Conv(planes, planes, 3, stride, 1, dtype=dtype, init_std=_CONV_STD)
-        self.bn3 = BatchNorm(planes, dtype=dtype)
+        self.bn3 = bn(planes)
         self.downsample = None
         if stride != 1 or in_ch != planes:
             self.downsample = nn.Sequential(
                 Conv(in_ch, planes, 1, stride, 0, dtype=dtype, init_std=_CONV_STD),
-                BatchNorm(planes, dtype=dtype))
+                bn(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.bn3(self.conv2(self.prelu(self.bn2(self.conv1(self.bn1(x))))))
@@ -56,22 +58,23 @@ class IResNet(nn.Module):
 
     def __init__(self, layers: Sequence[int] = DEPTHS["ir50"], feat_dim: int = 512,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
-                 image_size: int = 112):
+                 image_size: int = 112, bn_stats_rows: int = 0):
         super().__init__()
         if image_size % 16:
             raise ValueError(f"IResNet needs image_size divisible by 16, got {image_size}")
         self.dtype = dtype
         self.conv1 = Conv(3, 64, 3, 1, 1, dtype=dtype, init_std=_CONV_STD)
-        self.bn1 = BatchNorm(64, dtype=dtype)
+        self.bn1 = BatchNorm(64, dtype=dtype, bn_stats_rows=bn_stats_rows)
         self.prelu = PReLU(64, dtype=dtype)
         in_ch = 64
         for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers), start=1):
             stage_blocks = []
             for i in range(blocks):
-                stage_blocks.append(IBasicBlock(in_ch, planes, 2 if i == 0 else 1, dtype))
+                stage_blocks.append(IBasicBlock(in_ch, planes, 2 if i == 0 else 1, dtype,
+                                                bn_stats_rows))
                 in_ch = planes
             setattr(self, f"layer{stage}", nn.Sequential(*stage_blocks))
-        self.bn2 = BatchNorm(512, dtype=dtype)
+        self.bn2 = BatchNorm(512, dtype=dtype, bn_stats_rows=bn_stats_rows)
         self.out_channels = 512
         self.dropout = nn.Dropout(dropout) if dropout > 0 else nn.Identity()
         spatial = image_size // 16

@@ -11,7 +11,17 @@ Conventions carried over from the JAX package:
   stats keep momentum 0.9 on the OLD value
   (``ra = 0.9·ra + 0.1·batch``) — with torch's unbiased running variance
   the step trajectories drift apart (tests/test_torch_models.py);
-* PReLU is per-channel with slope 0.25 at init.
+* ``bn_stats_rows > 0`` is JAX's ``_SubsetBN``: training statistics from
+  the strided row subset ``x[::max(b // rows, 1)]``, the same EMA, and its
+  own op order ``((x − mean) · rsqrt(var + eps)) · scale + bias`` (in eval
+  mode too); the variables are the same, so ``from_jax`` maps them as is;
+* ``1 / sqrt(var + eps)`` is taken in f64 and rounded once to f32, so the
+  card and the CPU give a BN the same scale (an int8 conv after it then
+  rounds its input alike);
+* PReLU is per-channel with slope 0.25 at init;
+* inside ``ops.quant.int8_conv_inference()`` an eligible ``Conv`` (groups
+  1, dilation 1) runs JAX's int8 conv (``ops/quant.py``) on the same
+  parameters; a depthwise one keeps its float path.
 
 Modules take NCHW tensors (the backbones transpose their NHWC input once);
 parameter and buffer names follow the reference torch models, so a port
@@ -24,16 +34,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vlsfr_tpu_torch.ops import quant
+
 
 class BatchNorm(nn.Module):
-    """BatchNorm over every axis but 1, flax rule, f32 statistics."""
+    """BatchNorm over every axis but 1, flax rule, f32 statistics;
+    ``bn_stats_rows > 0``: statistics from a strided row subset
+    (``_SubsetBN``)."""
 
     def __init__(self, num_features: int, use_scale: bool = True, momentum: float = 0.9,
                  eps: float = 1e-5, dtype: torch.dtype = torch.float32,
                  bn_stats_rows: int = 0):
         super().__init__()
-        if bn_stats_rows > 0:
-            raise NotImplementedError("model.bn_stats_rows > 0 is not ported yet")
+        self.stats_rows = bn_stats_rows
         self.momentum = momentum
         self.eps = eps
         self.dtype = dtype
@@ -48,24 +61,34 @@ class BatchNorm(nn.Module):
         shape[1] = x.shape[1]
         if self.training:
             axes = [d for d in range(x.dim()) if d != 1]
-            mean = x.mean(axes)
-            var = (x.square().mean(axes) - mean.square()).clamp(min=0.0)
+            rows = self.stats_rows
+            sub = x if rows <= 0 else x[::max(x.shape[0] // rows, 1)]
+            mean = sub.mean(axes)
+            var = (sub.square().mean(axes) - mean.square()).clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps)
-        if self.weight is not None:
-            mul = mul * self.weight
+        # rsqrt's CUDA and CPU kernels round differently; f64's sqrt and
+        # division are correctly rounded on both, so 1 / sqrt taken in f64 and
+        # rounded once to f32 is the same on both devices (C elements)
+        inv = (1.0 / torch.sqrt((var + self.eps).double())).float()
+        if self.stats_rows > 0:  # _SubsetBN's op order
+            y = (x - mean.reshape(shape)) * inv.reshape(shape)
+            if self.weight is not None:
+                y = y * self.weight.reshape(shape)
+            return (y + self.bias.reshape(shape)).to(self.dtype)
+        mul = inv if self.weight is None else inv * self.weight
         y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y.to(self.dtype)
 
 
 class Conv(nn.Conv2d):
     """torch Conv2d (symmetric padding, no bias by default) computing in
-    ``dtype`` on f32 parameters."""
+    ``dtype`` on f32 parameters; int8 × int8 → int32 inside
+    ``int8_conv_inference()`` where eligible."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, groups: int = 1, bias: bool = False,
@@ -78,6 +101,8 @@ class Conv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if quant.int8_active() and quant.eligible(self):
+            return quant.int8_conv2d(x, self.weight, self.bias, self.stride, self.padding, dt)
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding,
                         self.dilation, self.groups)

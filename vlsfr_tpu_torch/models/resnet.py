@@ -17,6 +17,7 @@ names are the reference torch model's.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -40,10 +41,12 @@ def _conv(in_ch: int, out_ch: int, k: int, stride: int, pad: int, dtype) -> Conv
     return conv
 
 
-def _downsample(in_ch: int, out_ch: int, stride: int, dtype) -> nn.Module | None:
+def _downsample(in_ch: int, out_ch: int, stride: int, dtype, bn_stats_rows: int
+                ) -> nn.Module | None:
     if stride == 1 and in_ch == out_ch:
         return None
-    return nn.Sequential(_conv(in_ch, out_ch, 1, stride, 0, dtype), BatchNorm(out_ch, dtype=dtype))
+    return nn.Sequential(_conv(in_ch, out_ch, 1, stride, 0, dtype),
+                         BatchNorm(out_ch, dtype=dtype, bn_stats_rows=bn_stats_rows))
 
 
 class BasicBlock(nn.Module):
@@ -52,15 +55,16 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 zero_init_residual: bool = False, dtype: torch.dtype = torch.float32):
+                 zero_init_residual: bool = False, dtype: torch.dtype = torch.float32,
+                 bn_stats_rows: int = 0):
         super().__init__()
         self.conv1 = _conv(in_ch, planes, 3, stride, 1, dtype)
-        self.bn1 = BatchNorm(planes, dtype=dtype)
+        self.bn1 = BatchNorm(planes, dtype=dtype, bn_stats_rows=bn_stats_rows)
         self.conv2 = _conv(planes, planes, 3, 1, 1, dtype)
-        self.bn2 = BatchNorm(planes, dtype=dtype)
+        self.bn2 = BatchNorm(planes, dtype=dtype, bn_stats_rows=bn_stats_rows)
         if zero_init_residual:
             nn.init.zeros_(self.bn2.weight)
-        self.downsample = _downsample(in_ch, planes, stride, dtype)
+        self.downsample = _downsample(in_ch, planes, stride, dtype, bn_stats_rows)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.bn2(self.conv2(torch.relu(self.bn1(self.conv1(x)))))
@@ -74,18 +78,20 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 zero_init_residual: bool = False, dtype: torch.dtype = torch.float32):
+                 zero_init_residual: bool = False, dtype: torch.dtype = torch.float32,
+                 bn_stats_rows: int = 0):
         super().__init__()
         out_ch = planes * self.expansion
+        bn = functools.partial(BatchNorm, dtype=dtype, bn_stats_rows=bn_stats_rows)
         self.conv1 = _conv(in_ch, planes, 1, 1, 0, dtype)
-        self.bn1 = BatchNorm(planes, dtype=dtype)
+        self.bn1 = bn(planes)
         self.conv2 = _conv(planes, planes, 3, stride, 1, dtype)
-        self.bn2 = BatchNorm(planes, dtype=dtype)
+        self.bn2 = bn(planes)
         self.conv3 = _conv(planes, out_ch, 1, 1, 0, dtype)
-        self.bn3 = BatchNorm(out_ch, dtype=dtype)
+        self.bn3 = bn(out_ch)
         if zero_init_residual:
             nn.init.zeros_(self.bn3.weight)
-        self.downsample = _downsample(in_ch, out_ch, stride, dtype)
+        self.downsample = _downsample(in_ch, out_ch, stride, dtype, bn_stats_rows)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -100,12 +106,13 @@ class ResNet(nn.Module):
 
     def __init__(self, block: str = "bottleneck", layers: Sequence[int] = (3, 4, 6, 3),
                  feat_dim: int = 512, zero_init_residual: bool = False,
-                 dtype: torch.dtype = torch.float32, image_size: int = 224):
+                 dtype: torch.dtype = torch.float32, image_size: int = 224,
+                 bn_stats_rows: int = 0):
         super().__init__()
         block_cls = BasicBlock if block == "basic" else Bottleneck
         self.dtype = dtype
         self.conv1 = _conv(3, 64, 7, 2, 3, dtype)
-        self.bn1 = BatchNorm(64, dtype=dtype)
+        self.bn1 = BatchNorm(64, dtype=dtype, bn_stats_rows=bn_stats_rows)
         # -inf padding: the same maximum as JAX's max_pool_torch (the dtype's min)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         in_ch = 64
@@ -113,7 +120,8 @@ class ResNet(nn.Module):
             stage_blocks = []
             for i in range(blocks):
                 stride = (2 if stage > 1 else 1) if i == 0 else 1
-                stage_blocks.append(block_cls(in_ch, planes, stride, zero_init_residual, dtype))
+                stage_blocks.append(block_cls(in_ch, planes, stride, zero_init_residual, dtype,
+                                                bn_stats_rows))
                 in_ch = planes * block_cls.expansion
             setattr(self, f"layer{stage}", nn.Sequential(*stage_blocks))
         self.out_channels = in_ch

@@ -11,14 +11,15 @@ from vlsfr_tpu_torch.models.layers import BatchNorm, Conv, PReLU, l2_normalize
 
 
 class ToyNet(nn.Module):
-    def __init__(self, feat_dim: int = 64, dtype: torch.dtype = torch.float32):
+    def __init__(self, feat_dim: int = 64, dtype: torch.dtype = torch.float32,
+                 bn_stats_rows: int = 0):
         super().__init__()
         self.dtype = dtype
         self.conv1 = Conv(3, 16, 3, 2, 1, dtype=dtype)
-        self.bn1 = BatchNorm(16, dtype=dtype)
+        self.bn1 = BatchNorm(16, dtype=dtype, bn_stats_rows=bn_stats_rows)
         self.prelu1 = PReLU(16, dtype=dtype)
         self.conv2 = Conv(16, 32, 3, 2, 1, dtype=dtype)
-        self.bn2 = BatchNorm(32, dtype=dtype)
+        self.bn2 = BatchNorm(32, dtype=dtype, bn_stats_rows=bn_stats_rows)
         self.prelu2 = PReLU(32, dtype=dtype)
         self.fc = nn.Linear(32, feat_dim)
         nn.init.zeros_(self.fc.bias)

@@ -10,7 +10,7 @@ is the gallery, the rest are probes); insightface ``.bin`` files with
 ``--bin``.
 
     python -m vlsfr_tpu_torch.tools.evaluate --ckpt ./checkpoint --store ./store \\
-        --net_type r50 --feat_dim 512 [--num_pairs 2000] [--ema] [--device cpu]
+        --net_type r50 --feat_dim 512 [--num_pairs 2000] [--ema] [--int8] [--device cpu]
 """
 
 from __future__ import annotations
@@ -51,7 +51,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--ema", action="store_true",
                     help="FFC checkpoints: evaluate the EMA gallery net instead of the probe net")
     ap.add_argument("--int8", action="store_true",
-                    help="int8 conv serving (not ported yet: raises)")
+                    help="serve the net on int8 convs (ops/quant.py: int8 x int8 -> int32 "
+                         "with dynamic scales; depthwise convs stay float)")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     args = ap.parse_args(argv)
     size = args.image_size or native_image_size(args.net_type)
