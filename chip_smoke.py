@@ -360,6 +360,22 @@ im2col through ``torch._int_mm``, as JAX ran these convs through XLA):
     shortcuts, on the one 512-image gallery forward), none straight, step
     time and peak memory of both, the first batch's gallery embeddings'
     cosine int8 against float (a reading);
+the dense heads on the model axis (``parallel/sharded_dense.py``; no
+kernel: dense torch per block and the group's collectives, as XLA ran
+them in JAX), over an NCCL group of one:
+42. the dense FFC head (the reference's 1000-slot queue), route C
+    (100,000 classes, below the streaming threshold) and route E (2^20
+    classes, ``sample_rate`` 0.1, with and without ``sparse_update``): each
+    first step on an f32 backbone over the mesh against the single-device
+    head's from the same seed and batch (phase 17's limits; the queue after
+    the write bit-equal, the classifier per row set as phase 20's); the
+    head on the first batch from 4 emulated blocks (``block_stats``,
+    ``merge_stats``, ``finalize``, ``block_grad`` on one card) against the
+    single-device head at full width (losses 1e-5 relative, d_emb and d_w
+    1e-4 x their max, train_acc equal); then on the bf16 config one
+    untimed and two timed warm steps of the single-device step and of the
+    step over the mesh, each with its peak memory, and their ratio, and
+    one more step of each under the profiler;
 then the ``kernels`` JSON line (44 entries: the ten f32 kernels, the
 twelve quad forms, the twin kernels in f32 and bf16, the eight bf16 forms
 of the margin_ce kernels, ``conv3x3``, ``conv3x3[stats]``,
@@ -1540,7 +1556,7 @@ def sharded_softmax_run(tmp: str, route: str, mesh, *overrides: str):
     step on ``mesh``. Returns (trainer, sharded state, sharded step)."""
     from vlsfr_tpu_torch.train.softmax_head import create_softmax_state, make_softmax_train_step
 
-    trainer = softmax_trainer(tmp, *SHARDED_ROUTES[route], *overrides)
+    trainer = softmax_trainer(tmp, *SHARDED_ROUTES.get(route, ()), *overrides)
     cfg = trainer.cfg
     state = create_softmax_state(copy.deepcopy(trainer.state.backbone), cfg,
                                  cfg.pool.num_classes, seed=cfg.data.seed, mesh=mesh)
@@ -1555,7 +1571,7 @@ def backbone_gap(state, trainer) -> float:
                      .max()) for k, v in state.backbone.state_dict().items())
 
 
-def sharded_softmax_first_step(tmp: str, route: str, mesh) -> None:
+def sharded_softmax_first_step(tmp: str, route: str, mesh, *overrides: str) -> None:
     """The sharded route's first step against the single-device route's
     first step from the same seed and batch, on an f32 backbone (phase 17's
     reason): loss 1e-5 relative, the classifier per row set (1e-4 x
@@ -1563,7 +1579,8 @@ def sharded_softmax_first_step(tmp: str, route: str, mesh) -> None:
     BN statistics 1e-5 relative + 2e-5 absolute."""
     from vlsfr_tpu_torch.utils import parity
 
-    trainer, state, step = sharded_softmax_run(tmp, route, mesh, "model.dtype=float32")
+    trainer, state, step = sharded_softmax_run(tmp, route, mesh, "model.dtype=float32",
+                                               *overrides)
     try:
         if not torch.equal(state.classifier, trainer.state.classifier.detach()):
             raise RuntimeError("the sharded state's block is not the seeded classifier")
@@ -3977,16 +3994,23 @@ def int8_trace(fn, reps: int = 3):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    # a trace has come back once with no device event at all, and the same
+    # shape's did not in the next run: the window is traced again, and only
+    # three empty traces in a row fail
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if spans:
+            break
     if not spans:
-        raise RuntimeError("the profiler recorded no device activity in the int path")
+        raise RuntimeError("the profiler recorded no device activity in the int path, three "
+                           "times")
     ops = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
@@ -4195,6 +4219,325 @@ def int8_phase(card: str) -> None:
     int8_serving(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         int8_gallery(card, tmp)
+
+
+# ----------------------------------------------------------------------
+# phase 42: the dense heads on the model axis (parallel/sharded_dense.py;
+# no kernel: dense torch per block and the group's collectives, as XLA ran
+# these heads in JAX)
+# ----------------------------------------------------------------------
+
+MESH_FFC_Q = 1000  # the reference's queue (config.py:106): the dense FFC head
+MESH_C = 100_000  # route C: below pool.streaming_threshold = 131072, so dense
+MESH_BLOCKS = 4  # the emulated blocks: a 4-card run's
+MESH_ROUTES = {  # route: its overrides of the FFC / softmax slice config (E at 2^20 classes)
+    "dense FFC": (f"pool.queue_size={MESH_FFC_Q}",),
+    "C": (f"pool.num_classes={MESH_C}",),
+    "E sparse": (f"pool.sample_rate={SAMPLE_RATE}", "pool.sparse_update=true"),
+    "E dense": (f"pool.sample_rate={SAMPLE_RATE}",),
+}
+MESH_STEPS = 2  # the timed warm steps of each route, after one untimed
+
+
+def rel_gap(got, want) -> float:
+    """max |got − want| / max |want|."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def emulated_ffc_check(p_x, p_y, g_y, g_x, queue, plan_a, plan_b, la, lb, kw: dict,
+                       k: int) -> None:
+    """The dense FFC head from MESH_BLOCKS emulated blocks of ``queue``
+    against the single-device ``directional_loss`` pair at full width:
+    losses 1e-5 relative, d_emb 1e-4 × max |d_emb|."""
+    from vlsfr_tpu_torch.core.ffc import dense_views, directional_loss
+    from vlsfr_tpu_torch.ops.twin_margin import reduce_margin_dir
+    from vlsfr_tpu_torch.parallel.sharded_dense import emulate, held_columns
+
+    b, n = p_x.shape[0], queue.shape[1] // MESH_BLOCKS
+    px, py = (p.detach().float().requires_grad_(True) for p in (p_x, p_y))
+    loss_a = directional_loss(px, g_y, queue, *plan_a, la, **kw, hard_neg=k)[0]
+    loss_b = directional_loss(py, g_x, queue, *plan_b, lb, **kw, hard_neg=k)[0]
+    (loss_a + loss_b).backward()
+    e = torch.cat([p_x, p_y]).detach().float().requires_grad_(True)
+    labels = torch.stack([la, la, lb, lb])
+    parts = []
+    for j in range(MESH_BLOCKS):
+        cos = []
+        for p, g, plan in ((e[:b], g_y, plan_a), (e[b:], g_x, plan_b)):
+            _, view1, view2 = dense_views(queue[:, j * n:(j + 1) * n], g, *plan, j * n)
+            cos += [p @ view1.T, p @ view2.T]
+        col_ids = torch.arange(j * n, (j + 1) * n, device=queue.device)
+        parts.append((torch.stack(cos), held_columns(col_ids, labels), col_ids))
+    pos = (labels >= 0).float()
+    d_ce = pos / pos.sum(-1, keepdim=True).clamp(min=1.0)
+    d_neg = (1 - pos) / (1 - pos).sum(-1, keepdim=True).clamp(min=1.0)
+    (ce, neg, *_), grads = emulate(parts, k, kw, d_ce, d_neg)
+    blk_a = reduce_margin_dir(ce[0], neg[0], ce[1], neg[1], la)
+    blk_b = reduce_margin_dir(ce[2], neg[2], ce[3], neg[3], lb)
+    torch.autograd.backward([cos for cos, _, _ in parts], grads)
+    blk_a, blk_b, loss_a, loss_b = (x.detach() for x in (blk_a, blk_b, loss_a, loss_b))
+    gaps = [abs(float(blk_a) - float(loss_a)) / abs(float(loss_a)),
+            abs(float(blk_b) - float(loss_b)) / abs(float(loss_b))]
+    d_gap = rel_gap(e.grad, torch.cat([px.grad, py.grad]))
+    print(f"  dense FFC, {MESH_BLOCKS} emulated blocks of {n} slots against the single-device "
+          f"head (b = {b} per direction, D = {queue.shape[2]}, k = {k}): losses "
+          f"{float(blk_a):.6f} / {float(loss_a):.6f}, {float(blk_b):.6f} / {float(loss_b):.6f} "
+          f"(relative gaps {max(gaps):.2e} <= 1e-5); d_emb {d_gap:.2e} x max|d_emb| <= 1e-4")
+    if not (max(gaps) <= 1e-5 and d_gap <= 1e-4):
+        raise RuntimeError("the emulated dense FFC blocks disagree with the single-device head")
+
+
+def emulated_softmax_check(route: str, emb, w, labels, kw: dict, rand=None,
+                           num_sampled: int = 0) -> None:
+    """Route C (or E, given its draws ``rand``) from MESH_BLOCKS emulated
+    blocks of the classifier ``w`` against the single-device head at full
+    width: loss 1e-5 relative, train_acc equal, d_emb and the classifier's
+    gradient 1e-4 × their max."""
+    from vlsfr_tpu_torch.parallel.partial_fc import (
+        l2_normalize_rows,
+        margin_softmax_loss,
+        sample_classes,
+    )
+    from vlsfr_tpu_torch.parallel.sharded_dense import emulate, held_columns
+
+    c, n = w.shape[0], w.shape[0] // MESH_BLOCKS
+    e_ref = emb.detach().float().requires_grad_(True)
+    w_ref = w.detach().clone().requires_grad_(True)
+    if rand is None:
+        targets = labels
+        loss_ref, m_ref = margin_softmax_loss(e_ref, w_ref, labels, **kw)
+    else:
+        sampled, targets, valid = sample_classes(labels, c, num_sampled, rand)
+        loss_ref, m_ref = margin_softmax_loss(e_ref, w_ref[sampled.long()], targets,
+                                              col_mask=valid, **kw)
+    loss_ref.backward()
+    e = emb.detach().float().requires_grad_(True)
+    parts, leaves = [], []
+    for j in range(MESH_BLOCKS):
+        if rand is None:
+            col_ids = torch.arange(j * n, (j + 1) * n, device=w.device)
+            rows = col_ids
+        else:
+            mine = valid & (sampled >= j * n) & (sampled < (j + 1) * n)
+            col_ids = torch.nonzero(mine).flatten()
+            rows = sampled[col_ids].long()
+        leaf = w[rows].detach().requires_grad_(True)
+        cos = e @ l2_normalize_rows(leaf).float().T
+        parts.append((cos[None], held_columns(col_ids, targets)[None], col_ids))
+        leaves.append((rows, leaf))
+    b = emb.shape[0]
+    d_ce = torch.full((1, b), 1.0 / b, device=w.device)
+    (ce, _, _, _, ids), grads = emulate(parts, 1, kw, d_ce, torch.zeros_like(d_ce))
+    loss = ce[0].mean()
+    acc = (ids[0, :, 0] == targets.long()).float().mean()
+    torch.autograd.backward([cos for cos, _, _ in parts], grads)
+    d_w = torch.zeros_like(w_ref.grad)
+    for rows, leaf in leaves:
+        d_w.index_copy_(0, rows, leaf.grad)
+    loss, loss_ref = loss.detach(), loss_ref.detach()
+    gap = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    d_emb_gap, d_w_gap = rel_gap(e.grad, e_ref.grad), rel_gap(d_w, w_ref.grad)
+    same_acc = float(acc) == float(m_ref["train_acc"])
+    print(f"  route {route}, {MESH_BLOCKS} emulated blocks of {n} classes against the "
+          f"single-device head: loss {float(loss):.6f} / {float(loss_ref):.6f} (relative gap "
+          f"{gap:.2e} <= 1e-5); train_acc {float(acc):.4f} / {float(m_ref['train_acc']):.4f}; "
+          f"d_emb {d_emb_gap:.2e}, d_w {d_w_gap:.2e} x their max <= 1e-4")
+    if not (gap <= 1e-5 and same_acc and d_emb_gap <= 1e-4 and d_w_gap <= 1e-4):
+        raise RuntimeError(f"the emulated route-{route} blocks disagree with the single-device "
+                           f"head")
+
+
+def dense_ffc_mesh_run(tmp: str, mesh, *overrides: str):
+    """The single-device dense FFC Trainer (its pipeline, planner, schedule
+    and seeded probe) and, from its modules before any step and the queue
+    the same seed draws, the state and step over ``mesh``. Returns
+    (trainer, mesh state, mesh step)."""
+    from vlsfr_tpu_torch.core.ffc import create_ffc_state, make_train_step
+
+    trainer = ffc_trainer(tmp, *MESH_ROUTES["dense FFC"], *overrides)
+    cfg = trainer.cfg
+    state = create_ffc_state(copy.deepcopy(trainer.state.probe), cfg, seed=cfg.data.seed,
+                             mesh=mesh)
+    return trainer, state, make_train_step(cfg, trainer.schedule, mesh=mesh)
+
+
+def dense_ffc_first_step(tmp: str, mesh) -> None:
+    """The dense FFC head's first step over the mesh against the
+    single-device Trainer's from the same seed, batch and plan, on an f32
+    backbone (phase 17's limits: loss 1e-5 relative, probe parameters and
+    BN statistics 1e-5 relative + 2e-5 absolute, the queue after the write
+    bit-equal); then the same batch's head from MESH_BLOCKS emulated
+    blocks (``emulated_ffc_check``)."""
+    from vlsfr_tpu_torch.core.ffc import _pass_to
+    from vlsfr_tpu_torch.ops.margin import default_hard_neg
+
+    trainer, state, step = dense_ffc_mesh_run(tmp, mesh, "model.dtype=float32")
+    try:
+        if not torch.equal(state.queue, trainer.state.queue):
+            raise RuntimeError("the mesh state's block is not the seeded queue")
+        batch = trainer.pipeline.make_batch(0, 0)
+        idx = trainer.dcp.plan_step(batch.x_label, batch.y_label)
+        probe0 = copy.deepcopy(state.probe)
+        queue0 = state.queue.clone()
+        loss_ref = float(trainer.train_step(trainer.state, batch.x, batch.y, idx, 1.0)["loss"])
+        loss = float(step(state, batch.x, batch.y, idx, 1.0)["loss"])
+        ref = trainer.state.probe.state_dict()
+        worst = max(float(((v.double() - ref[k].double()).abs() - 1e-5 * ref[k].double().abs())
+                          .max()) for k, v in state.probe.state_dict().items())
+        same_queue = bool(torch.equal(state.queue, trainer.state.queue))
+        print(f"  dense FFC first step (f32 backbone, Q = {MESH_FFC_Q}), over the mesh against "
+              f"single-device: loss {loss:.6f} / {loss_ref:.6f} (1e-5 relative); probe "
+              f"parameters and BN statistics max(|diff| - 1e-5 |ref|) {worst:.3e} <= 2e-5; queue "
+              f"after the write bit-equal: {same_queue}")
+        if not (abs(loss - loss_ref) <= 1e-5 * abs(loss_ref) and worst <= 2e-5 and same_queue):
+            raise RuntimeError("the dense FFC head's first step over the mesh disagrees")
+        cfg, dev = trainer.cfg, queue0.device
+        x, y = (torch.as_tensor(a).to(dev) for a in (batch.x, batch.y))
+        probe0.train()
+        gallery = copy.deepcopy(probe0)
+        with torch.no_grad():
+            p_x, p_y, g_y, g_x = probe0(x), probe0(y), gallery(y), gallery(x)
+        ia, ib = _pass_to(idx.a, dev), _pass_to(idx.b, dev)
+        kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
+                  mask_svfc=cfg.loss.mask_svfc)
+        k = cfg.pool.hard_neg if cfg.pool.hard_neg > 0 else default_hard_neg(MESH_FFC_Q)
+        emulated_ffc_check(p_x, p_y, g_y, g_x, queue0, (ia.rows, ia.cols, ia.seen),
+                           (ib.rows, ib.cols, ib.seen), ia.fake_labels, ib.fake_labels, kw,
+                           min(k, MESH_FFC_Q))
+    finally:
+        free_trainer(trainer)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def emulated_softmax_first_batch(tmp: str, route: str) -> None:
+    """The softmax route's head on the first batch's f32 embeddings (the
+    seeded f32 backbone) and the seeded classifier, from MESH_BLOCKS
+    emulated blocks (``emulated_softmax_check``)."""
+    from vlsfr_tpu_torch.train.softmax_head import sample_draws
+
+    trainer = softmax_trainer(tmp, *MESH_ROUTES[route], "model.dtype=float32")
+    try:
+        cfg = trainer.cfg
+        batch = trainer.pipeline.make_batch(0, 0)
+        dev = trainer.state.classifier.device
+        trainer.state.backbone.train()
+        with torch.no_grad():
+            emb = trainer.state.backbone(torch.as_tensor(batch.images).to(dev))
+        labels = torch.as_tensor(batch.labels).to(dev).to(torch.int32)
+        kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
+                  mask_svfc=cfg.loss.mask_svfc)
+        w = trainer.state.classifier.detach()
+        if route == "C":
+            emulated_softmax_check(route, emb, w, labels, kw)
+        else:
+            b, c = labels.shape[0], cfg.pool.num_classes
+            s = max(b, int(c * cfg.pool.sample_rate))
+            emulated_softmax_check(route, emb, w, labels, kw, sample_draws(0, s - b, c, dev), s)
+    finally:
+        free_trainer(trainer)
+
+
+def timed_steps(run, batches) -> tuple[list[float], float]:
+    """One untimed step, then one timed step per later batch (host clock
+    around each step, ended by a synchronise); (ms per step, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for i, bt in enumerate(batches):
+        t0 = time.perf_counter()
+        loss = float(run(bt)["loss"])
+        torch.cuda.synchronize()
+        if not math.isfinite(loss):
+            raise RuntimeError(f"a non-finite loss: {loss}")
+        if i:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def mesh_warm_steps(tmp: str, route: str, mesh, card: str) -> None:
+    """The route on the bf16 config: MESH_STEPS warm steps of the
+    single-device Trainer's step, then, from the same initial modules and
+    seed, of the step over the NCCL group of one, each with its peak
+    memory, and their ratio; then one more step of each under the
+    profiler (``profile_steps``)."""
+    from vlsfr_tpu_torch.core.dcp import DCPManager
+    from vlsfr_tpu_torch.core.ffc import create_ffc_state, make_train_step
+    from vlsfr_tpu_torch.train.softmax_head import create_softmax_state, make_softmax_train_step
+
+    ffc = route == "dense FFC"
+    trainer = (ffc_trainer if ffc else softmax_trainer)(tmp, *MESH_ROUTES[route])
+    try:
+        cfg, st = trainer.cfg, trainer.state
+        net0 = copy.deepcopy(st.probe if ffc else st.backbone).cpu()
+        batches = [trainer.pipeline.make_batch(0, s) for s in range(2 + MESH_STEPS)]
+        if ffc:
+            def run_with(state, step, dcp):
+                return lambda b: step(state, b.x, b.y, dcp.plan_step(b.x_label, b.y_label), 1.0)
+            single = run_with(st, trainer.train_step, trainer.dcp)
+        else:
+            def run_with(state, step):
+                return lambda b: step(state, b.images, b.labels, 1.0)
+            single = run_with(st, trainer.train_step)
+        single_ms, single_peak = timed_steps(single, batches[:-1])
+        print(f"  {route}, one more single-device step under the profiler:")
+        profile_steps(single, batches[-1:])
+        trainer.state = st = single = None  # the single-device state freed before the mesh run
+        gc.collect()
+        torch.cuda.empty_cache()
+        if ffc:
+            state = create_ffc_state(net0, cfg, seed=cfg.data.seed, mesh=mesh)
+            run = run_with(state, make_train_step(cfg, trainer.schedule, mesh=mesh),
+                           DCPManager(cfg.pool.queue_size))
+        else:
+            state = create_softmax_state(net0, cfg, cfg.pool.num_classes, seed=cfg.data.seed,
+                                         mesh=mesh)
+            run = run_with(state, make_softmax_train_step(cfg, trainer.schedule, mesh=mesh))
+        mesh_ms, mesh_peak = timed_steps(run, batches[:-1])
+        print(f"  {route}, one more step over the mesh under the profiler:")
+        profile_steps(run, batches[-1:])
+        del state, run
+        ratio = (sum(mesh_ms) / len(mesh_ms)) / (sum(single_ms) / len(single_ms))
+        print(f"  {route} (bf16 backbone): {MESH_STEPS} warm steps single-device "
+              f"{', '.join(f'{t:.1f}' for t in single_ms)} ms (peak {single_peak:.2f} GiB), over "
+              f"the NCCL group of one {', '.join(f'{t:.1f}' for t in mesh_ms)} ms (peak "
+              f"{mesh_peak:.2f} GiB); mesh / single {ratio:.3f} ({card})")
+    finally:
+        free_trainer(trainer)
+
+
+def dense_mesh_phase(card: str, tmp: str) -> None:
+    """Phase 42: the dense FFC head (Q = 1000), route C (100,000 classes)
+    and route E (2^20 classes, rate 0.1, sparse and dense update) over an
+    NCCL group of one: each first step on an f32 backbone against the
+    single-device head's (phase 17's and phase 20's limits), the head from
+    4 emulated blocks against the single-device head at full width, and
+    MESH_STEPS warm steps of both on the bf16 config."""
+    import torch.distributed as dist
+
+    from vlsfr_tpu_torch.parallel import distributed
+    from vlsfr_tpu_torch.parallel.mesh import make_mesh
+
+    if not distributed.initialize("cuda"):
+        raise RuntimeError("a process group outlived its phase")
+    try:
+        mesh = make_mesh(1, 1)
+        if dist.get_backend() != "nccl" or mesh.model != 1:
+            raise RuntimeError("the dense heads must run over an NCCL group of one")
+        dense_ffc_first_step(tmp, mesh)
+        for route in ("C", "E sparse", "E dense"):
+            sharded_softmax_first_step(tmp, route, mesh, *MESH_ROUTES[route])
+            gc.collect()
+            torch.cuda.empty_cache()
+        for route in ("C", "E sparse"):
+            emulated_softmax_first_batch(tmp, route)
+        print(card)
+        for route in MESH_ROUTES:
+            mesh_warm_steps(tmp, route, mesh, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        distributed.destroy()
 
 
 BF16_KERNELS = (  # the kernels line's bf16 forms: (name, the TPU kernel it replaces)
@@ -4443,6 +4786,15 @@ def main() -> int:
     t0 = time.perf_counter()
     int8_phase(card)
     print(f"  phase 41 {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"== phase 42: the dense heads on the model axis over an NCCL group of one: the dense "
+          f"FFC head (Q = {MESH_FFC_Q}), route C ({MESH_C} classes), route E (2^20 classes, "
+          f"rate {SAMPLE_RATE}, sparse and dense update)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        dense_mesh_phase(card, tmp)
+    print(f"  phase 42 {time.perf_counter() - t0:.1f} s")
     print(f"  chip_smoke.py {time.perf_counter() - t_start:.1f} s ({card})")
 
     fwd_keys = ("ce", "neg", "logz", "topk")

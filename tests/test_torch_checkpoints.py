@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 import torch.multiprocessing as mp
+from torch_worlds import once, spawn
 
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.data.synthetic import generate_synthetic_store
@@ -189,12 +190,20 @@ def test_keep_checkpoints_and_partial_directories(store, tmp_path):
 
 
 def test_restore_refuses_another_world_size(tmp_path):
-    CheckpointManager(str(tmp_path)).save(5, {"step": 5}, {"queue": torch.zeros(2)})
-    two = CheckpointManager(str(tmp_path), mesh=SimpleNamespace(model=2, rank=0, group=None))
-    with pytest.raises(ValueError, match="same mesh.model"):
-        two.restore(5)
-    rep, block = CheckpointManager(str(tmp_path)).restore(5)
-    assert rep == {"step": 5, "world": 1} and torch.equal(block["queue"], torch.zeros(2))
+    """Another world size is refused only where the padded class count
+    differs (naming both counts); otherwise each rank gets its block of the
+    saved whole, re-cut, and the same world gets the saved block."""
+    queue = torch.arange(2 * 6 * 3, dtype=torch.float32).view(2, 6, 3)
+    CheckpointManager(str(tmp_path)).save(5, {"step": 5}, {"queue": queue, "rng": "r0"})
+    for rank in (0, 1):
+        two = CheckpointManager(str(tmp_path), mesh=SimpleNamespace(model=2, rank=rank, group=None))
+        with pytest.raises(ValueError, match="over 6 classes .* this run has 8"):
+            two.restore(5, class_sizes={"queue": 8})
+        rep, block = two.restore(5, class_sizes={"queue": 6})
+        assert rep == {"step": 5, "world": 1} and block["rng"] == "r0"
+        assert torch.equal(block["queue"], queue[:, 3 * rank:3 * rank + 3])
+    rep, block = CheckpointManager(str(tmp_path)).restore(5, class_sizes={"queue": 6})
+    assert rep == {"step": 5, "world": 1} and torch.equal(block["queue"], queue)
 
 
 def test_sigterm_checkpoints_and_the_next_run_resumes(store, tmp_path):
@@ -282,12 +291,162 @@ def test_sharded_resume_matches_uninterrupted(world2):
 
 
 def test_sharded_checkpoint_layout_and_world_check(world2, store):
-    """One replicated part and one block per rank; a world of one refuses
-    to resume from it."""
-    tmp, _ = world2
+    """One replicated part and one block per rank; a world of one resumes
+    from it with the whole queue, the two blocks joined, and refuses a
+    queue of another size, naming both."""
+    tmp, ranks = world2
     ck = CheckpointManager(str(tmp / "b"))
     step = ck.latest_step()
     assert sorted(os.listdir(os.path.join(ck.directory, str(step)))) == [
         "rank0.pt", "rank1.pt", "replicated.pt"]
-    with pytest.raises(ValueError, match="same mesh.model"):
-        Trainer(_cfg(store, tmp / "b", ["pool.use_fused=on"], 2), device="cpu")
+    t = Trainer(_cfg(store, tmp / "b", ["pool.use_fused=on"], 2), device="cpu")
+    try:
+        assert t.state.step == step
+        np.testing.assert_array_equal(
+            t.state.queue.numpy(),
+            np.concatenate([r["resumed/1/queue"] for r in ranks], axis=1))
+    finally:
+        t.close()
+    with pytest.raises(ValueError, match="over 64 classes .* this run has 128"):
+        Trainer(_cfg(store, tmp / "b", ["pool.use_fused=on", "pool.queue_size=128"], 2),
+                device="cpu")
+
+
+# ----------------------------------------------------------------------
+# resume at another mesh.model: the blocks re-cut (gloo ranks)
+# ----------------------------------------------------------------------
+
+RECUT = {  # case: overrides; every class axis splits over 1, 2 and 4 ranks
+    "ffc_fused": ["pool.use_fused=on"],
+    "softmax_A": ["pool.head=full_softmax", "pool.use_fused=on", "pool.num_classes=16"],
+    "softmax_E": ["pool.head=full_softmax", "pool.sample_rate=0.75", "pool.sparse_update=true",
+                  "pool.num_classes=16"],
+}
+PADDED = ["pool.head=full_softmax", "pool.use_fused=on", "pool.num_classes=10"]
+SAVE_AT = 2
+
+
+def _recut_cfg(data, saved_dir, case, world):
+    overrides = PADDED if case == "padded" else RECUT[case]
+    return _cfg(data, saved_dir, [*overrides, f"mesh.model={world}", "mesh.data=1"], epochs=1)
+
+
+def _blocks(trainer) -> dict:
+    """The trainer's sharded tensors, as numpy (bf16 kept as its bits)."""
+    block = trainer._checkpoint_state()[1]
+    return {k: v.detach().numpy().copy() for k, v in block.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def _save_run(data, root, case, world):
+    t = Trainer(_recut_cfg(data, os.path.join(root, f"w{world}", case), case, world),
+                device="cpu")
+    try:
+        t.train(max_steps=SAVE_AT)
+        t._save(SAVE_AT)
+    finally:
+        t.close()
+
+
+def _resume_run(data, root, case, world, source) -> dict:
+    """Resume at ``world`` from the checkpoint written at ``source``: the
+    restored blocks, then one more step."""
+    t = Trainer(_recut_cfg(data, os.path.join(root, f"w{source}", case), case, world),
+                device="cpu")
+    try:
+        out = {f"{k}": v for k, v in _blocks(t).items()}
+        out["start"] = np.asarray(t.state.step)
+        res = t.train(max_steps=SAVE_AT + 1)
+        out["final_step"], out["loss"] = np.asarray(res["final_step"]), np.asarray(res["loss"])
+        return out
+    finally:
+        t.close()
+
+
+def _recut_rank(rank, world, store_path, data, root):
+    torch.set_num_threads(1)
+    distributed.initialize("cpu", rank=rank, world_size=world, store_path=store_path)
+    try:
+        out = {}
+        for case in RECUT:
+            if world == 2:  # 1 -> 2 and 4 -> 2, then the run 2 -> 1 resumes from
+                for source in (1, 4):
+                    res = _resume_run(data, root, case, 2, source)
+                    out.update({f"{case}/{source}/{k}": v for k, v in res.items()})
+            _save_run(data, root, case, world)
+        if world == 4:  # 10 classes pad to 12 here, not at world 1
+            try:
+                Trainer(_recut_cfg(data, os.path.join(root, "w1", "padded"), "padded", 4),
+                        device="cpu")
+            except ValueError as e:
+                out["padded/error"] = np.asarray(str(e))
+        np.savez(os.path.join(root, f"w{world}_rank{rank}.npz"), **out)
+    finally:
+        distributed.destroy()
+
+
+@pytest.fixture(scope="module")
+def recut(store, tmp_path_factory):
+    """Saves at world 1 (here) and 4 (spawned), resumes from both at world
+    2 (spawned, which then saves), and resumes from that here at world 1."""
+
+    def build(tmp):
+        root = str(tmp)
+        for case in (*RECUT, "padded"):
+            _save_run(store, root, case, 1)
+        spawn(_recut_rank, 4, str(tmp / "fs4"), store, root)
+        spawn(_recut_rank, 2, str(tmp / "fs2"), store, root)
+        out = {}
+        for case in RECUT:
+            out.update({f"{case}/2/{k}": v for k, v in _resume_run(store, root, case, 1,
+                                                                     2).items()})
+        np.savez(tmp / "w1_rank0.npz", **out)
+
+    tmp = once(tmp_path_factory, "ckpt_recut", build)
+    return tmp, {world: [dict(np.load(tmp / f"w{world}_rank{r}.npz")) for r in range(world)]
+                 for world in (1, 2, 4)}
+
+
+def _saved_whole(root, case, source) -> dict:
+    """The class-sharded tensors of the checkpoint written at ``source``
+    ranks, the blocks joined along their class axis."""
+    from vlsfr_tpu_torch.train.checkpoints import CLASS_AXIS
+
+    d = os.path.join(root, f"w{source}", case, str(SAVE_AT))
+    blocks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=True)
+              for r in range(source)]
+    return {k: np.concatenate([b[k].numpy() for b in blocks], axis=CLASS_AXIS[k])
+            for k in CLASS_AXIS if blocks[0].get(k) is not None}
+
+
+@pytest.mark.parametrize("case", sorted(RECUT))
+@pytest.mark.parametrize("source,world", [(2, 1), (1, 2), (4, 2)])
+def test_resume_at_another_world_recuts_the_blocks(case, source, world, recut):
+    """A checkpoint of the sharded fused FFC state (queue), route A
+    (classifier, momentum) or route E with sparse rows (classifier,
+    momentum, last-visit steps), written at ``source`` ranks, restores at
+    ``world``: each rank's blocks are the slices of the saved whole, bit
+    for bit, and one more step runs to a finite loss."""
+    from vlsfr_tpu_torch.train.checkpoints import CLASS_AXIS
+
+    tmp, runs = recut
+    whole = _saved_whole(str(tmp), case, source)
+    assert whole and (case != "softmax_E" or "classifier_last" in whole)
+    for rank, out in enumerate(runs[world]):
+        assert int(out[f"{case}/{source}/start"]) == SAVE_AT
+        for name, arr in whole.items():
+            axis = CLASS_AXIS[name]
+            n = arr.shape[axis] // world
+            want = np.take(arr, np.arange(rank * n, (rank + 1) * n), axis=axis)
+            np.testing.assert_array_equal(out[f"{case}/{source}/{name}"], want, err_msg=name)
+        assert int(out[f"{case}/{source}/final_step"]) == SAVE_AT + 1
+        assert np.isfinite(out[f"{case}/{source}/loss"])
+
+
+def test_resume_refuses_another_padded_class_count(recut):
+    """10 classes are 10 at world 1 and pad to 12 at world 4: the resume
+    raises and names both counts."""
+    _, runs = recut
+    for out in runs[4]:
+        msg = str(out["padded/error"])
+        assert "classifier over 10 classes" in msg and "this run has 12" in msg, msg

@@ -135,11 +135,9 @@ def test_entry_points_refuse_without_card_or_unported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_ffc_state(create_net("toy", feat_dim=8), cfg)
-    # a bf16 classifier runs since it was ported; the softmax head's dense
-    # route on a class-sharded mesh is still refused, at a bf16 classifier too
-    for bad in (["pool.head=full_softmax", "pool.classifier_dtype=bfloat16", "mesh.model=2",
-                 "pool.use_fused=off"],
-                ["train.pretrained_model_path=backbone.pt"], ["mesh.data=2"]):
+    # the softmax head's routes all run on a class-sharded mesh; a
+    # pretrained backbone and the data axis are still refused
+    for bad in (["train.pretrained_model_path=backbone.pt"], ["mesh.data=2"]):
         with pytest.raises(NotImplementedError):
             Trainer(Config().apply_overrides(bad), device="cpu")
     # the sharded head runs one process per card: mesh.model=2 in one process

@@ -41,7 +41,9 @@ the JAX package's (``vlsfr_tpu/parallel/sharded_*.py``).
   Pallas kernels in interpret mode: the first step's classifier to the
   element, then within bf16 noise (the test's docstring). Then the Trainer at
   ``mesh.model = 2`` on each rank picks route A by default, B with
-  ``fused_update=off`` and D with ``sparse_update``.
+  ``fused_update=off``, C with ``use_fused=off``, D with ``sparse_update``
+  and E with ``sample_rate`` (routes C and E are held to JAX in
+  ``tests/test_torch_dense_mesh.py``).
 
 The spawned ranks import this module by name, so it imports nothing of JAX
 at module level: every JAX import sits inside a test or fixture.
@@ -488,7 +490,10 @@ TRAJ_ROUTES = {  # route: (classes, overrides)
                        "pool.classifier_dtype=bfloat16"]),
 }
 BF16_NOISE = 2.0**-4  # as tests/test_torch_softmax_head.py's bf16 trajectories
-TRAINER_ROUTES = {"A": [], "B": ["pool.fused_update=off"], "D": ["pool.sparse_update=true"]}
+TRAINER_ROUTES = {"A": [], "B": ["pool.fused_update=off"], "C": ["pool.use_fused=off"],
+                  "D": ["pool.sparse_update=true"],
+                  "E": ["pool.sample_rate=0.5", "pool.sparse_update=true"],
+                  "E-dense": ["pool.sample_rate=0.5"]}
 
 
 def _traj_cfg(route):
@@ -550,9 +555,12 @@ def _trajectory_rank(rank, world, store, tmp):
                 st = trainer.state
                 out[f"trainer/{route}/loss"] = np.asarray(res["loss"])
                 out[f"trainer/{route}/rows"] = np.asarray(st.classifier.shape[0])
+                sampled = "sampled_classes" in res
                 out[f"trainer/{route}/route"] = np.asarray(
+                    ("E" if st.classifier_last is not None else "E-dense") if sampled else
                     "D" if st.classifier_last is not None else
-                    "B" if st.classifier.requires_grad else "A")
+                    ("B" if cfg.pool.use_fused == "on" else "C") if st.classifier.requires_grad
+                    else "A")
             finally:
                 trainer.close()
         np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
@@ -713,9 +721,10 @@ def test_model2_trajectory_matches_jax_sharded_step(route, world2, monkeypatch):
 @pytest.mark.parametrize("route", list(TRAINER_ROUTES))
 def test_trainer_routes_at_model2(route, world2):
     """The Trainer at ``mesh.model = 2`` (a group of 2 gloo ranks): route A
-    by default, B with ``pool.fused_update=off``, D with
-    ``pool.sparse_update``; each rank holds half the classifier and both
-    log the same finite loss."""
+    by default, B with ``pool.fused_update=off``, C with
+    ``pool.use_fused=off``, D with ``pool.sparse_update``, E with
+    ``pool.sample_rate`` (sparse rows, or the dense optimizer); each rank
+    holds half the classifier and both log the same finite loss."""
     ranks = world2[2]
     for r in ranks:
         assert str(r[f"trainer/{route}/route"]) == route
@@ -724,12 +733,10 @@ def test_trainer_routes_at_model2(route, world2):
     assert ranks[0][f"trainer/{route}/loss"] == ranks[1][f"trainer/{route}/loss"]
 
 
-@pytest.mark.parametrize("bad", [["pool.use_fused=off"], ["pool.sample_rate=0.1"],
-                                 ["mesh.data=2"],
-                                 ["pool.use_fused=off", "pool.classifier_dtype=bfloat16"]])
+@pytest.mark.parametrize("bad", [["mesh.data=2"]])
 def test_trainer_refuses_unported_at_model2(bad, tmp_path):
-    """Routes C and E on a mesh (at an f32 or a bf16 classifier) and the
-    data axis raise "not ported yet" before any process group exists."""
+    """The data axis raises "not ported yet" before any process group
+    exists (routes C and E run on a mesh: tests/test_torch_dense_mesh.py)."""
     from vlsfr_tpu_torch.train.trainer import Trainer
 
     cfg = Config().apply_overrides(["model.net_type=toy", "pool.head=full_softmax",

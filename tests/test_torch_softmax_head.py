@@ -277,16 +277,11 @@ def test_trainer_sparse_routes_cpu_run(route, tmp_path):
     assert tms.LAUNCH_COUNTS == NO_LAUNCH
 
 
-@pytest.mark.parametrize("bad", [["mesh.model=2", "pool.use_fused=off",
-                                  "pool.classifier_mom_dtype=bfloat16"],
-                                 ["mesh.model=2", "pool.sample_rate=0.1", "pool.sparse_update=true",
-                                  "pool.classifier_dtype=bfloat16"],
-                                 ["mesh.data=2", "pool.classifier_dtype=bfloat16"],
-                                 ["mesh.model=2", "pool.use_fused=off"],
-                                 ["mesh.model=2", "pool.sample_rate=0.1"], ["mesh.data=2"]])
+@pytest.mark.parametrize("bad", [["mesh.data=2", "pool.classifier_dtype=bfloat16"],
+                                 ["mesh.data=2"]])
 def test_unported_options_raise(bad):
-    """Still refused, at an f32 or a bf16 classifier: routes C and E on a
-    class-sharded mesh (routes A, B and D run there), and the data axis."""
+    """Still refused, at an f32 or a bf16 classifier: the data axis (every
+    route runs on a class-sharded mesh)."""
     cfg = Config().apply_overrides(BASE + ROUTES["A"] + bad)
     with pytest.raises(NotImplementedError):
         create_softmax_state(create_net("toy", feat_dim=D), cfg, C, device="cpu")

@@ -13,9 +13,11 @@ One step of the FFC twin network over a host-planned ``StepIndices``:
    pool.streaming_threshold`` (``use_fused='auto'``) the fused quad head
    (ops/twin_margin.py, CUDA kernels on the card), else the dense head;
    with a mesh whose ``model`` axis is > 1, or ``pool.force_sharded``, the
-   fused head runs model-sharded (parallel/sharded_quad.py): each rank
-   holds one block [2, Q/m, D] of the queue. The rounded queue forms'
-   backward rounds per tile of ``quad_tile`` as JAX computes it;
+   fused head runs model-sharded (parallel/sharded_quad.py), and given a
+   mesh the dense head does (``make_sharded_dense_loss``,
+   parallel/sharded_dense.py): each rank holds one block [2, Q/m, D] of
+   the queue. The rounded queue forms' backward rounds per tile of
+   ``quad_tile`` as JAX computes it;
 4. backward, then direction B's queue write IN PLACE on the [2, Q, D]
    queue (or the rank's block of it) after the backward, which still reads
    the pre-write queue; last writer wins among duplicate slots. A bf16
@@ -47,9 +49,10 @@ from vlsfr_tpu_torch.core.dcp import PassIndices, StepIndices
 from vlsfr_tpu_torch.ops.margin import add_margin, default_hard_neg, kernel_width_ok
 from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 from vlsfr_tpu_torch.ops.quant import int8_conv_inference
-from vlsfr_tpu_torch.ops.twin_margin import quad_add_margin, twin_add_margin
+from vlsfr_tpu_torch.ops.twin_margin import quad_add_margin, reduce_margin_dir, twin_add_margin
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
+from vlsfr_tpu_torch.parallel.sharded_dense import ShardedDenseMargin, held_columns, reduce_grad
 from vlsfr_tpu_torch.parallel.sharded_quad import make_sharded_quad_loss
 from vlsfr_tpu_torch.utils.device import resolve_device
 
@@ -114,11 +117,16 @@ def state_from_jax(queue, scales=None) -> tuple[torch.Tensor, torch.Tensor | Non
     return t, None if scales is None else torch.from_numpy(np.array(scales))
 
 
-def scatter_mask(seen: torch.Tensor, cols: torch.Tensor, queue_size: int) -> torch.Tensor:
+def scatter_mask(seen: torch.Tensor, cols: torch.Tensor, queue_size: int,
+                 col0: int = 0) -> torch.Tensor:
     """[Q] blend mask: 1 where any batch sample that hit the slot was seen
-    (max-scatter, so duplicate slots stay 1)."""
-    mask = torch.zeros(queue_size, device=seen.device)
-    return mask.scatter_reduce_(0, cols.long(), seen.float(), reduce="amax")
+    (max-scatter, so duplicate slots stay 1). With ``col0`` the mask of the
+    block of ``queue_size`` slots from slot ``col0``: the plan's columns
+    outside it are dropped."""
+    lcol = cols.long() - col0
+    lcol = torch.where((lcol >= 0) & (lcol < queue_size), lcol, queue_size)
+    mask = torch.zeros(queue_size + 1, device=seen.device)
+    return mask.scatter_reduce_(0, lcol, seen.float(), reduce="amax")[:queue_size]
 
 
 def write_rows_(queue: torch.Tensor, g: torch.Tensor, rows: torch.Tensor,
@@ -143,6 +151,18 @@ def write_rows_(queue: torch.Tensor, g: torch.Tensor, rows: torch.Tensor,
     else:
         queue[r, c] = g[keep].to(queue.dtype)
     return queue
+
+
+def dense_views(queue, g, rows, cols, seen, col0: int = 0):
+    """The dense head's (written copy, view 1, view 2) of ``queue`` [2, Q, D]
+    (or of its block of the queue from slot ``col0``) after one direction's
+    writes: the copy holds ``g`` in the plan's (row, col) slots it covers,
+    view 1 is its row 0, view 2 the parity blend (row 1 where a seen sample
+    hit the slot, else row 0), both as f32 [Q, D]."""
+    new_queue = write_rows_(queue.clone(), g, rows, cols, col0)
+    mask = scatter_mask(seen, cols, queue.shape[1], col0)[:, None]
+    weight = mask * new_queue[1] + (1.0 - mask) * new_queue[0]
+    return new_queue, new_queue[0].float(), weight.float()
 
 
 def directional_loss(p, g, queue, rows, cols, seen, fake_labels, *, loss_type, margin, scale,
@@ -187,12 +207,9 @@ def directional_loss(p, g, queue, rows, cols, seen, fake_labels, *, loss_type, m
         else:
             new_queue = write_rows_(queue.clone(), g, rows, cols)
         return (loss, new_queue, acc) if with_acc else (loss, new_queue)
-    new_queue = write_rows_(queue.clone(), g, rows, cols)
-    q = queue.shape[1]
-    mask = scatter_mask(seen, cols, q)[:, None]
-    weight = mask * new_queue[1] + (1.0 - mask) * new_queue[0]
-    cos1 = p.float() @ new_queue[0].float().T
-    cos2 = p.float() @ weight.float().T
+    new_queue, view1, view2 = dense_views(queue, g, rows, cols, seen)
+    cos1 = p.float() @ view1.T
+    cos2 = p.float() @ view2.T
     loss = add_margin(cos1, fake_labels, **kw) + add_margin(cos2, fake_labels, **kw)
     if not with_acc:
         return loss, new_queue
@@ -201,6 +218,52 @@ def directional_loss(p, g, queue, rows, cols, seen, fake_labels, *, loss_type, m
     hit = (gt >= cos1.max(dim=1).values) & pos
     acc = hit.float().sum() / pos.float().sum().clamp(min=1.0)
     return loss, new_queue, acc.detach()
+
+
+def make_sharded_dense_loss(mesh, *, loss_type="Arc", margin=0.5, scale=32.0, hard_neg=10,
+                            mask_svfc=1.2, with_acc=False):
+    """The dense head over the mesh's model axis (JAX's GSPMD-sharded dense
+    ``directional_loss``), with ``make_sharded_quad_loss``'s signature:
+    ``loss_fn(emb_x, emb_y, q_l, g_a, g_b, plan_a, plan_b, labels_a,
+    labels_b, qscales=None)`` -> (loss_a, loss_b)[, acc] over this rank's
+    block ``q_l`` [2, Q/m, D] of an f32 or bf16 queue. Per direction the
+    block's two views after the direction's writes to the owned columns
+    (``dense_views``) give the [b, Q/m] cosines of both views;
+    ``parallel/sharded_dense.ShardedDenseMargin`` merges the four rows of
+    statistics in one all_gather, and the embeddings' gradient is
+    all_reduced once. The accuracy is JAX's dense one: per direction the
+    positive rows whose target cosine is the row's maximum, then the mean
+    of the two directions."""
+    kw = dict(loss_type=loss_type, margin=float(margin), scale=float(scale),
+              mask_svfc=float(mask_svfc))
+
+    def loss_fn(emb_x, emb_y, q_l, g_a, g_b, plan_a, plan_b, labels_a, labels_b, qscales=None):
+        if qscales is not None:
+            raise ValueError("the dense head takes f32 and bf16 queues only, as in JAX")
+        b, c_local = emb_x.shape[0], q_l.shape[1]
+        c0, _ = mesh.class_block(c_local * mesh.model)
+        e = reduce_grad(torch.cat([emb_x.float(), emb_y.float()]), mesh.group)
+        cos = []
+        for p, g, (rows, cols, seen) in ((e[:b], g_a, plan_a), (e[b:], g_b, plan_b)):
+            _, view1, view2 = dense_views(q_l, g.detach(), rows, cols, seen, c0)
+            cos += [p @ view1.T, p @ view2.T]
+        labels = torch.stack([labels_a, labels_a, labels_b, labels_b])
+        col_ids = torch.arange(c0, c0 + c_local, device=q_l.device)
+        ce, neg, gt, top, _ = ShardedDenseMargin.apply(
+            torch.stack(cos), held_columns(col_ids, labels), col_ids, mesh.group, kw,
+            min(hard_neg, c_local * mesh.model))
+        losses = (reduce_margin_dir(ce[0], neg[0], ce[1], neg[1], labels_a),
+                  reduce_margin_dir(ce[2], neg[2], ce[3], neg[3], labels_b))
+        if not with_acc:
+            return losses
+        accs = []
+        for v, labels_v in ((0, labels_a), (2, labels_b)):
+            pos = labels_v >= 0
+            hit = (gt[v] >= top[v, :, 0]) & pos
+            accs.append(hit.float().sum() / pos.float().sum().clamp(min=1.0))
+        return losses, ((accs[0] + accs[1]) / 2).detach()
+
+    return loss_fn
 
 
 def _pass_to(ix: PassIndices, device) -> PassIndices:
@@ -220,6 +283,12 @@ def use_sharded_head(cfg: Config) -> bool:
     of the JAX package): a model axis > 1, or ``pool.force_sharded`` to run
     the sharded path on one device."""
     return use_fused_head(cfg) and (cfg.mesh.model > 1 or cfg.pool.force_sharded)
+
+
+def needs_mesh(cfg: Config) -> bool:
+    """Whether the FFC step runs over a mesh: the fused head sharded
+    (``use_sharded_head``) or the dense head at a model axis > 1."""
+    return use_sharded_head(cfg) or cfg.mesh.model > 1
 
 
 def check_queue_config(cfg: Config) -> None:
@@ -268,29 +337,32 @@ def make_train_step(cfg: Config, schedule, mesh=None):
     updating ``state`` in place. ``x``/``y`` are NHWC batches (numpy or
     tensors), ``idx`` the host plan for this step. The sharded head
     (``use_sharded_head``) needs the ``mesh`` (parallel/mesh.py) its state
-    was made for."""
+    was made for; given a ``mesh`` the dense head runs over it
+    (``make_sharded_dense_loss``), as it must at ``mesh.model > 1``."""
     pool = cfg.pool
     check_queue_config(cfg)
     hard_neg = pool.hard_neg if pool.hard_neg > 0 else default_hard_neg(pool.queue_size)
-    use_quad = use_fused_head(cfg)
     loss_kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
                    hard_neg=hard_neg, mask_svfc=cfg.loss.mask_svfc)
     int8_compute = pool.queue_int8_compute
     tile = quad_tile(cfg)
     col0 = 0
-    quad_loss = functools.partial(quad_add_margin, with_acc=True, int8_compute=int8_compute,
-                                  tile=tile, **loss_kw)
+    # both directions in one call of the head, writes applied after the
+    # backward: the quad head, sharded or not, and the dense head on a mesh
+    head_loss = None
+    if use_fused_head(cfg):
+        head_loss = functools.partial(quad_add_margin, with_acc=True,
+                                      int8_compute=int8_compute, tile=tile, **loss_kw)
+    if needs_mesh(cfg) and mesh is None:
+        raise ValueError("the sharded FFC head (mesh.model > 1 or pool.force_sharded) "
+                         "needs the mesh: make_train_step(cfg, schedule, mesh)")
     if use_sharded_head(cfg):
-        if mesh is None:
-            raise ValueError("the sharded FFC head (mesh.model > 1 or pool.force_sharded) "
-                             "needs the mesh: make_train_step(cfg, schedule, mesh)")
         col0, _ = mesh.class_block(pool.queue_size)
-        quad_loss = make_sharded_quad_loss(mesh, with_acc=True, int8_compute=int8_compute,
+        head_loss = make_sharded_quad_loss(mesh, with_acc=True, int8_compute=int8_compute,
                                            tile=tile, **loss_kw)
-    elif cfg.mesh.model > 1:
-        raise NotImplementedError("mesh.model > 1 with the dense FFC head (pool.use_fused off, "
-                                  "or queue_size below pool.streaming_threshold) is not "
-                                  "ported yet")
+    elif mesh is not None:
+        col0, _ = mesh.class_block(pool.queue_size)
+        head_loss = make_sharded_dense_loss(mesh, with_acc=True, **loss_kw)
     m = pool.momentum
     fuse_fwd = pool.fuse_forward
     grad_clip = cfg.optim.grad_clip
@@ -323,8 +395,8 @@ def make_train_step(cfg: Config, schedule, mesh=None):
             p_y = probe(y)
             with torch.no_grad(), gallery_ctx():
                 g_x = gallery(x)
-        if use_quad:
-            (loss_a, loss_b), train_acc = quad_loss(
+        if head_loss is not None:
+            (loss_a, loss_b), train_acc = head_loss(
                 p_x, p_y, state.queue, g_y, g_x, (ia.rows, ia.cols, ia.seen),
                 (ib.rows, ib.cols, ib.seen), ia.fake_labels, ib.fake_labels,
                 qscales=state.queue_scales)
@@ -386,9 +458,7 @@ def create_ffc_state(model: nn.Module, cfg: Config, *, device=None, seed: int = 
     probe = model.to(dev)
     gallery = copy.deepcopy(probe).requires_grad_(False)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    block = None
-    if mesh is not None and mesh.model > 1:
-        block = mesh.class_block(cfg.pool.queue_size)
+    block = None if mesh is None else mesh.class_block(cfg.pool.queue_size)
     queue, scales = init_queue(cfg.pool.queue_size, cfg.model.feat_dim, device=dev,
                                generator=gen, dtype=QUEUE_DTYPES[cfg.pool.queue_dtype],
                                block=block)

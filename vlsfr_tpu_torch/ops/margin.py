@@ -86,6 +86,24 @@ def tile_modified(cos, is_target, gt_col, valid, loss_type, margin, mask_svfc):
     return torch.where(valid, mod, torch.full_like(mod, NEG_INF))
 
 
+def top_k_low_ids(x: torch.Tensor, ids: torch.Tensor, k: int):
+    """(values, ids) of the k largest entries of ``x`` along its last axis,
+    sorted by value, ties going to the lowest id (``ids`` holds each
+    entry's id, ascending along the axis, or broadcast to ``x``)."""
+    ids = ids.expand_as(x)
+    kth = torch.topk(x, k, dim=-1).values[..., -1:]
+    above = x > kth
+    tied = x == kth
+    take = above | (tied & (tied.long().cumsum(-1) <= k - above.long().sum(-1, keepdim=True)))
+    n = x.shape[-1]
+    first = n - torch.arange(n, device=x.device)  # larger for lower positions
+    pos = torch.topk(torch.where(take, first, 0), k, dim=-1).indices  # the k taken, ascending
+    vals = x.gather(-1, pos)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
+    pos = pos.gather(-1, order)
+    return x.gather(-1, pos), ids.gather(-1, pos)
+
+
 def margin_logits(cos_theta: torch.Tensor, labels: torch.Tensor, *, loss_type: str,
                   margin: float, mask_svfc: float = 1.2) -> torch.Tensor:
     """Apply the margin transform to the target column of each positive
@@ -128,7 +146,8 @@ def add_margin(cos_theta: torch.Tensor, labels: torch.Tensor, *, loss_type: str 
     zero = cos_theta.new_zeros(())
     cls_loss = torch.where(n_pos > 0, (ce * pos).sum() / n_pos.clamp(min=1.0), zero)
     k = min(hard_neg, cos_theta.shape[-1])
-    topk = torch.topk(cos_theta, k, dim=-1).values
+    ar = torch.arange(cos_theta.shape[-1], device=cos_theta.device)
+    topk = top_k_low_ids(cos_theta, ar, k)[0]  # lax.top_k's columns, for the gradient
     per_row = topk.clamp(min=0.0).sum(-1) / k
     neg_loss = torch.where(n_out > 0, (per_row * (1.0 - pos)).sum() / n_out.clamp(min=1.0),
                            zero)

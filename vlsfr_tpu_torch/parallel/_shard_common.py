@@ -85,14 +85,20 @@ def shard_write_values(q_l, g32, rows_i, cols_i, seen_f, lcol, in_range, qs_l=No
     return twin_write_values(q1_rows, g32, rows_i, cols_i, seen_f)
 
 
+def merge_logsumexp(m_all, s_all):
+    """(m, s) of the whole row from the shards' (max, sum of exp(x − max))
+    stacked on a leading shard axis, summed in shard order. A shard state
+    of (−inf, 0) adds nothing (and no NaN)."""
+    gmax = m_all.max(dim=0).values
+    ref = torch.where(torch.isinf(gmax), torch.zeros_like(gmax), gmax)
+    return ref, (s_all * torch.exp(m_all - ref)).sum(dim=0)
+
+
 def merge_partials(m_all, s_all, topk_all, k: int):
     """Merge the shards' online-softmax states, stacked on a leading shard
     axis: m_all / s_all [S, ...], topk_all [S, ..., k] → (m, s, topk) of
-    the whole queue, in the layout ``ops/twin_margin.finalize_fwd`` takes.
-    A shard state of (−inf, 0) adds nothing (and no NaN)."""
-    gmax = m_all.max(dim=0).values
-    ref = torch.where(torch.isinf(gmax), torch.zeros_like(gmax), gmax)
-    s = (s_all * torch.exp(m_all - ref)).sum(dim=0)
+    the whole queue, in the layout ``ops/twin_margin.finalize_fwd`` takes."""
+    ref, s = merge_logsumexp(m_all, s_all)
     cand = topk_all.movedim(0, -2).flatten(-2)  # [..., S·k]
     return ref, s, torch.topk(cand, k, dim=-1).values
 

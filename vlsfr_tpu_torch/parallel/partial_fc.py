@@ -6,10 +6,12 @@ it: the dense branch materialises the ``[B, C]`` cosines, the streaming
 branch never does (``ops/margin_stream.py``, the CUDA kernels on the card).
 Partial-FC sampling (arXiv 2010.05222): ``sample_classes`` builds the
 step's class set (unique positives plus random negatives, duplicates
-masked out of the denominator through ``col_mask``). With a ``mesh`` the
-streaming branch runs class-sharded (``parallel/sharded_margin.py``: each
-rank holds a block of the classifier); the dense branch on a mesh (JAX's
-GSPMD-sharded cosines) is not ported yet. A bf16 classifier needs no kernel
+masked out of the denominator through ``col_mask``). With a ``mesh`` each
+rank holds a block of the classifier and both branches run class-sharded:
+the streaming branch through ``parallel/sharded_margin.py``, the dense
+branch (JAX's GSPMD-sharded cosines) through ``sharded_margin_softmax``
+(``parallel/sharded_dense.py``), which also serves partial-FC sampling
+over a class-sharded classifier (route E). A bf16 classifier needs no kernel
 here: its rows promote to f32 where they are normalised, so the cosines
 are f32 and the gradient returns to the rows in bf16, as JAX's promotion
 does.
@@ -21,13 +23,8 @@ import torch
 
 from vlsfr_tpu_torch.ops.margin import NEG_INF, margin_logits
 from vlsfr_tpu_torch.ops.margin_stream import MarginSoftmax
+from vlsfr_tpu_torch.parallel.sharded_dense import ShardedDenseMargin, held_columns, reduce_grad
 from vlsfr_tpu_torch.parallel.sharded_margin import ShardedMarginSoftmax
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a class-sharded classifier on the dense head (mesh) is not "
-                                  "ported yet")
 
 
 def sample_classes(labels: torch.Tensor, num_classes: int, num_sampled: int,
@@ -68,11 +65,30 @@ def l2_normalize_rows(w: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return w / n.clamp(min=eps)
 
 
-def cosine_logits(emb: torch.Tensor, weights: torch.Tensor, mesh=None) -> torch.Tensor:
+def cosine_logits(emb: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """[B, D] normalised embeddings × [C, D] class weights → [B, C] cosines
     (the weight rows are normalised here)."""
-    _refuse_mesh(mesh)
     return emb.float() @ l2_normalize_rows(weights).float().T
+
+
+def sharded_margin_softmax(emb, w_rows, col_ids, labels, group, *, loss_type="Arc", margin=0.5,
+                           scale=32.0, mask_svfc=1.2):
+    """The dense margin-softmax loss of the whole class row from this rank's
+    columns (routes C and E on the model axis): classifier rows ``w_rows``
+    [c, D] at global column ids ``col_ids`` [c] (ascending), ``labels``
+    [B] the rows' target column ids. The ranks' statistics merge in
+    ``parallel/sharded_dense.ShardedDenseMargin``; d_emb is all_reduced
+    once, ``w_rows``' gradient is this rank's own. Returns (mean CE,
+    metrics), the same on every rank; ``train_acc`` is JAX's argmax test,
+    its ties going to the lowest column id."""
+    kw = dict(loss_type=loss_type, margin=float(margin), scale=float(scale),
+              mask_svfc=float(mask_svfc))
+    cos = cosine_logits(reduce_grad(emb.float(), group), w_rows)
+    ce, _, _, _, top = ShardedDenseMargin.apply(cos[None], held_columns(col_ids, labels)[None],
+                                                col_ids, group, kw, 1)
+    loss = ce[0].mean()
+    acc = (top[0, :, 0] == labels.long()).float().mean()
+    return loss, {"ce": loss.detach(), "train_acc": acc.detach()}
 
 
 def margin_softmax_loss(emb, weights, labels, *, loss_type="Arc", margin=0.5, scale=32.0,
@@ -85,8 +101,9 @@ def margin_softmax_loss(emb, weights, labels, *, loss_type="Arc", margin=0.5, sc
     top-1 (ties count as correct); the dense branch takes the argmax.
     ``col_mask`` [C] (dense branch only) takes columns out of the
     denominator and out of the argmax (partial-FC duplicate masking). With
-    a ``mesh`` (streaming only) ``weights`` is this rank's block of the
-    classifier and the loss and metrics are the whole classifier's."""
+    a ``mesh`` ``weights`` is this rank's block of the classifier and the
+    loss and metrics are the whole classifier's (the dense branch: route
+    C, ``sharded_margin_softmax``)."""
     if streaming:
         if col_mask is not None:
             raise ValueError("col_mask is a dense (sampled) path feature")
@@ -99,7 +116,16 @@ def margin_softmax_loss(emb, weights, labels, *, loss_type="Arc", margin=0.5, sc
         loss = ce.mean()
         acc = (gt >= top1[:, 0]).float().mean()
         return loss, {"ce": loss.detach(), "train_acc": acc}
-    logits = cosine_logits(emb, weights, mesh)
+    if mesh is not None:
+        if col_mask is not None:
+            raise ValueError("col_mask takes no mesh: route E's sharded step passes each "
+                             "rank's columns to sharded_margin_softmax")
+        c0, c_local = mesh.class_block(weights.shape[0] * mesh.model, "pool.num_classes")
+        col_ids = torch.arange(c0, c0 + c_local, device=weights.device)
+        return sharded_margin_softmax(emb, weights, col_ids, labels, mesh.group,
+                                      loss_type=loss_type, margin=margin, scale=scale,
+                                      mask_svfc=mask_svfc)
+    logits = cosine_logits(emb, weights)
     if col_mask is not None:
         logits = torch.where(col_mask[None, :], logits, NEG_INF)
     modified = margin_logits(logits, labels, loss_type=loss_type, margin=margin,
@@ -109,6 +135,27 @@ def margin_softmax_loss(emb, weights, labels, *, loss_type="Arc", margin=0.5, sc
     acc = (logits.argmax(dim=-1) == labels.long()).float().mean()
     loss = ce.mean()
     return loss, {"ce": loss.detach(), "train_acc": acc.detach()}
+
+
+def sharded_sampled_loss(emb, w_block, c0: int, labels, rand, num_classes: int,
+                         num_sampled: int, group, **loss_kw):
+    """Partial-FC sampling over a class-sharded classifier (route E on the
+    model axis), on one rank: the step's class set from the batch labels
+    and the draws ``rand`` (the same on every rank, so every rank builds
+    the same set), of which this rank keeps the valid positions whose class
+    lies in its block ``w_block`` [C/m, D] from class ``c0``; their cosines
+    go through ``sharded_margin_softmax`` with the positions as column ids.
+    Returns (mean CE, metrics, rows, w_sub): ``rows`` the block rows of
+    those classes (unique), ``w_sub`` a leaf holding them that takes their
+    gradient in the backward. Positions that are invalid or another rank's
+    are dropped, as route D drops them."""
+    sampled, local_labels, valid = sample_classes(labels, num_classes, num_sampled, rand)
+    mine = valid & (sampled >= c0) & (sampled < c0 + w_block.shape[0])
+    positions = torch.nonzero(mine).flatten()  # one host sync: the count of rows held
+    rows = sampled[positions].long() - c0
+    w_sub = w_block.detach()[rows].requires_grad_(True)
+    loss, metrics = sharded_margin_softmax(emb, w_sub, positions, local_labels, group, **loss_kw)
+    return loss, dict(metrics, sampled_classes=num_sampled), rows, w_sub
 
 
 def sampled_margin_softmax_loss(emb, weights, labels, rand, num_sampled: int, *, loss_type="Arc",

@@ -21,8 +21,15 @@ A step is written into ``<directory>/.tmp-<step>`` and renamed to
 ``<step>`` once every rank has written its part (``os.replace`` of the
 directory: atomic), so ``latest_step`` sees only complete steps; a partial
 directory left by a crash is ignored and removed at the next save. The
-lead keeps the newest ``max_to_keep`` steps. Resume needs the world size
-the checkpoint was written at.
+lead keeps the newest ``max_to_keep`` steps.
+
+Resume at another world size re-cuts the blocks, as JAX's orbax restore
+re-shards to the running state: each rank reads the old ``rank<r>.pt``
+files whose blocks overlap its new block and slices them along the class
+axis (``CLASS_AXIS``: the queue and its scales, the classifier, its
+momentum and last-visit steps). The whole class axis must be the same in
+both runs; a padded class count that differs between the two worlds
+raises. A rank past the old world takes rank 0's random generators.
 """
 
 from __future__ import annotations
@@ -35,6 +42,10 @@ import torch.distributed as dist
 
 REPLICATED = "replicated.pt"
 TMP_PREFIX = ".tmp-"
+# the class axis of each sharded tensor of a block: [2, Q, D] queue and
+# [2, Q] scales, [C, D] classifier and momentum, [C] last-visit steps
+CLASS_AXIS = {"queue": 1, "queue_scales": 1, "classifier": 0, "classifier_mom": 0,
+              "classifier_last": 0}
 
 
 class CheckpointManager:
@@ -105,18 +116,63 @@ class CheckpointManager:
         return torch.load(os.path.join(self._step_dir(step), REPLICATED),
                           map_location=map_location, weights_only=True)
 
-    def restore(self, step: int, map_location=None) -> tuple[dict, dict]:
-        """(replicated, this rank's block) of ``step``; raises if it was
-        written at another world size."""
+    def restore(self, step: int, map_location=None, class_sizes: dict | None = None
+                ) -> tuple[dict, dict]:
+        """(replicated, this rank's block) of ``step``. ``class_sizes``
+        names this run's whole class axis per tensor (``CLASS_AXIS``:
+        ``queue``, ``classifier``); a saved whole of another size raises,
+        naming both. Written at another world size, the block is re-cut
+        from the old blocks that overlap it (``_recut``)."""
         d = self._step_dir(step)
         replicated = self.replicated(step, map_location)
-        if replicated["world"] != self.world:
-            raise ValueError(
-                f"checkpoint {d} was written by {replicated['world']} rank(s); this run has "
-                f"{self.world}: resume needs the same mesh.model")
-        block = torch.load(os.path.join(d, f"rank{self.rank}.pt"), map_location=map_location,
-                           weights_only=True)
-        return replicated, block
+        old = replicated["world"]
+        files: dict[int, dict] = {}
+
+        def block(rank: int) -> dict:  # mapped, not read, when re-cutting
+            if rank not in files:
+                files[rank] = torch.load(os.path.join(d, f"rank{rank}.pt"),
+                                         map_location=map_location, weights_only=True,
+                                         mmap=old != self.world)
+            return files[rank]
+
+        sample = block(self.rank if old == self.world else 0)
+        for name, want in (class_sizes or {}).items():
+            if sample.get(name) is not None:
+                have = sample[name].shape[CLASS_AXIS[name]] * old
+                if have != want:
+                    raise ValueError(
+                        f"checkpoint {d} holds {name} over {have} classes (padded for "
+                        f"mesh.model={old}); this run has {want} (mesh.model={self.world}): "
+                        f"the padded class count differs")
+        if old == self.world:
+            return replicated, sample
+        return replicated, self._recut(block, old)
+
+    def _recut(self, block, old: int) -> dict:
+        """This rank's block from the ``old`` ranks' blocks (``block(j)``):
+        each sharded tensor sliced along its class axis out of the old
+        blocks that overlap the new one; the rest (the random generators)
+        from the same old rank, or rank 0 past the old world."""
+        own = block(self.rank if self.rank < old else 0)
+        out = {}
+        for name, value in own.items():
+            if name not in CLASS_AXIS or value is None:
+                out[name] = value
+                continue
+            axis = CLASS_AXIS[name]
+            n_old = value.shape[axis]
+            whole = n_old * old
+            if whole % self.world:
+                raise ValueError(f"checkpoint's {name} over {whole} classes does not split over "
+                                 f"mesh.model={self.world}")
+            n = whole // self.world
+            lo, hi = self.rank * n, (self.rank + 1) * n
+            parts = []
+            for j in range(lo // n_old, (hi - 1) // n_old + 1):
+                a, e = max(lo, j * n_old) - j * n_old, min(hi, (j + 1) * n_old) - j * n_old
+                parts.append(block(j)[name].narrow(axis, a, e - a))
+            out[name] = torch.cat(parts, dim=axis)  # a copy: nothing stays mapped
+        return out
 
     def wait(self) -> None:
         """Every save has finished when it returns (``torch.save`` is

@@ -45,16 +45,19 @@ fixed seed and the step (JAX folds the step into ``PRNGKey(23)`` and
 to both).
 
 Class-sharded (a ``mesh``: ``parallel/mesh.py``, one rank per block of
-C / mesh.model classifier rows, as JAX routes at ``mesh.model > 1``), routes
-A, B and D run per block with collective merges
-(``parallel/sharded_fused.py``, ``partial_fc.margin_softmax_loss`` with the
-mesh, ``parallel/sharded_sparse.py``): the state holds the rank's block of
-the classifier the single-device init draws, its momentum and last-visit
-steps; route D's random fill draws per rank.
+C / mesh.model classifier rows, as JAX routes at ``mesh.model > 1``), every
+route runs per block with collective merges (``parallel/sharded_fused.py``,
+``partial_fc.margin_softmax_loss`` with the mesh for B and C,
+``parallel/sharded_sparse.py``, and for E ``partial_fc.sharded_margin_softmax``
+over the sampled positions whose class lies in the rank's block): the state
+holds the rank's block of the classifier the single-device init draws, its
+momentum and last-visit steps. Route D's random fill draws per rank; route
+E's sampled classes are the same on every rank (``sample_draws`` takes no
+rank), and each rank updates the rows of its block among them.
 
-Not ported yet, and refused: routes C and E on a mesh, the data axis, and
-on a card a feature width the margin_ce kernels do not take (a multiple of
-64 up to 512; any batch is taken).
+Not ported yet, and refused: the data axis, and on a card a feature width
+the margin_ce kernels do not take (a multiple of 64 up to 512; any batch is
+taken).
 """
 
 from __future__ import annotations
@@ -76,7 +79,11 @@ from vlsfr_tpu_torch.ops.margin_stream import (
 )
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_, sgd_leaf_
-from vlsfr_tpu_torch.parallel.partial_fc import margin_softmax_loss, sample_classes
+from vlsfr_tpu_torch.parallel.partial_fc import (
+    margin_softmax_loss,
+    sample_classes,
+    sharded_sampled_loss,
+)
 from vlsfr_tpu_torch.parallel.sharded_fused import sharded_margin_grads_fused_sgd
 from vlsfr_tpu_torch.parallel.sharded_sparse import sharded_sparse_margin_grads
 from vlsfr_tpu_torch.train.sparse_classifier import sparse_sgd_rows
@@ -105,7 +112,8 @@ def tile_fill_draws(step: int, n_tiles: int, device, rank: int | None = None) ->
 
 def sample_draws(step: int, n: int, num_classes: int, device) -> torch.Tensor:
     """Route E's negative class draws [n] int32 in [0, num_classes) for
-    step ``step``."""
+    step ``step``: the same on every rank of a mesh, which all sample one
+    class set (JAX draws it once for the whole sharded classifier)."""
     return torch.randint(0, num_classes, (n,), generator=_step_generator(SAMPLE_SEED, step, device),
                          device=device, dtype=torch.int32)
 
@@ -164,7 +172,6 @@ def check_ported(cfg: Config, device=None) -> None:
     ported yet; with a CUDA ``device`` also for a feature width the
     margin_ce kernels do not take."""
     pool = cfg.pool
-    sharded = cfg.mesh.model > 1
     on_kernels = (_streaming_on(cfg) and pool.sample_rate == 0 and device is not None
                   and torch.device(device).type == "cuda")
     for name in ("classifier_dtype", "classifier_mom_dtype"):
@@ -173,9 +180,6 @@ def check_ported(cfg: Config, device=None) -> None:
                              f"{getattr(pool, name)!r}")
     for what, on in (
             ("mesh.data > 1 (the data axis)", cfg.mesh.data > 1),
-            ("mesh.model > 1 on the dense head (route C)",
-             sharded and not _streaming_on(cfg) and pool.sample_rate == 0),
-            ("mesh.model > 1 with partial-FC sampling (route E)", sharded and pool.sample_rate > 0),
             (f"model.feat_dim={cfg.model.feat_dim} on the margin_ce kernels (a multiple of 64 "
              f"up to 512)", on_kernels and not kernel_width_ok(cfg.model.feat_dim))):
         if on:
@@ -248,8 +252,8 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
     """``step(state, images, labels, lr_scale) -> metrics``: one step of the
     route the config selects, updating ``state`` in place. ``images`` are
     an NHWC batch, ``labels`` class ids (numpy or tensors). With a ``mesh``
-    (``parallel/mesh.py``) routes A, B and D run class-sharded over it, on
-    the state ``create_softmax_state(..., mesh=mesh)`` makes; the config's
+    (``parallel/mesh.py``) the route runs class-sharded over it, on the
+    state ``create_softmax_state(..., mesh=mesh)`` makes; the config's
     ``mesh.model > 1`` needs one."""
     check_ported(cfg)
     streaming = _streaming_on(cfg)
@@ -261,9 +265,6 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
         raise ValueError("the class-sharded softmax head (mesh.model > 1) needs the mesh: "
                          "make_softmax_train_step(cfg, schedule, mesh)")
     if mesh is not None:
-        if not streaming or cfg.pool.sample_rate > 0:
-            raise NotImplementedError("a class-sharded classifier on the dense head (route C) or "
-                                      "with partial-FC sampling (route E) is not ported yet")
         c0, c_local = mesh.class_block(c, "pool.num_classes")
         draw_rank = mesh.rank if mesh.model > 1 else None
     loss_kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
@@ -282,10 +283,30 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
         tile, n_tiles = sparse_bwd_geometry(cfg.data.batch_size, cfg.model.feat_dim, c_local)
         m_tiles = sparse_m_tiles(cfg.pool.sparse_grad_rate, n_tiles, cfg.data.batch_size)
 
+    def sharded_sampled_head(state, emb, labels, lr) -> tuple[torch.Tensor, dict]:
+        """Route E on the mesh (``partial_fc.sharded_sampled_loss``): the
+        rank updates the rows of its block among the sampled classes, by
+        ``sparse_sgd_rows``, or as the block's gradient (zero elsewhere)
+        for the optimizer chain."""
+        rand = sample_draws(state.step, num_sampled - emb.shape[0], c, emb.device)
+        loss, metrics, rows, w_sub = sharded_sampled_loss(
+            emb, state.classifier, c0, labels, rand, c, num_sampled, mesh.group, **loss_kw)
+        loss.backward()
+        with torch.no_grad():
+            if sparse:
+                sparse_sgd_rows(state.classifier, state.classifier_mom, rows, w_sub.grad, lr=lr,
+                                last_visit=state.classifier_last, step=state.step, **sgd_kw)
+            else:  # rows are unique: a plain copy, no accumulation
+                state.classifier.grad = torch.zeros_like(state.classifier).index_copy_(
+                    0, rows, w_sub.grad)
+        return loss, metrics
+
     def head(state, emb, labels, lr, dev) -> tuple[torch.Tensor, dict]:
         """The head's loss and metrics; the backbone's gradient is in place
         afterwards, and on routes A and D the classifier's update too."""
         b = emb.shape[0]
+        if num_sampled and mesh is not None:  # route E over the rank's block
+            return sharded_sampled_head(state, emb, labels, lr)
         if num_sampled:  # route E
             rand = sample_draws(state.step, num_sampled - b, c, dev)
             sampled, local_labels, valid = sample_classes(labels, c, num_sampled, rand)

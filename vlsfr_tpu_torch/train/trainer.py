@@ -6,24 +6,27 @@ planner) or the full-softmax classifier head (``'full_softmax'``,
 record-store data, print-window logging and the plateau LR scale; and
 either head model-sharded over ``mesh.model`` ranks of a
 ``torch.distributed`` group (one process per card under ``torchrun``; the
-FFC head also with ``pool.force_sharded`` in one process): the FFC head's
-queue or the softmax head's classifier split into one block per rank.
-Every rank runs the same pipeline (and DCP planner; the labels stay global,
-as in JAX); only rank 0 logs.
+fused FFC head also with ``pool.force_sharded`` in one process): the FFC
+head's queue (fused or dense) or the softmax head's classifier (every
+route) split into one block per rank. Every rank runs the same pipeline
+(and DCP planner; the labels stay global, as in JAX); only rank 0 logs. On
+a mesh the softmax head's ``pool.num_classes`` is padded up to a multiple
+of ``mesh.model``, as JAX pads it: the ghost classes are extra negatives,
+never targets.
 
 Checkpoints (``train/checkpoints.py``): every ``train.save_freq`` steps,
 at the end of ``train()``, and on SIGTERM / SIGINT once the step in
 flight has finished (``install_signal_handlers``); with ``train.resume``
 the newest one is restored at construction and training goes on from its
-step ("resumed from checkpoint step N"). A checkpoint holds everything a
-step reads, so the resumed run is the uninterrupted one. In-training eval
+step ("resumed from checkpoint step N"), at the ``mesh.model`` it was
+written at or another (the blocks are re-cut). A checkpoint holds
+everything a step reads, so the resumed run is the uninterrupted one. In-training eval
 (``evaluate``) every ``train.eval_freq`` steps: verification pairs from
 the held-out tail of the store (``train.holdout_records``) or, with a
 warning, from the training records, and ``train.eval_bin``.
 
 What it does not run yet, and refuses rather than fakes: pretrained
-backbones, the data axis (``mesh.data > 1``) and the softmax head's routes
-C and E on a mesh.
+backbones and the data axis (``mesh.data > 1``).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from vlsfr_tpu_torch.core.ffc import (
     check_kernel_width,
     create_ffc_state,
     make_train_step,
-    use_sharded_head,
+    needs_mesh,
 )
 from vlsfr_tpu_torch.data.pipeline import FFCPipeline, InstancePipeline
 from vlsfr_tpu_torch.data.records import MultiSourceReader
@@ -84,7 +87,7 @@ class Trainer:
         if cfg.pool.head == "ffc":
             check_kernel_width(cfg, self.device)
         self.mesh, self._owns_group = None, False
-        if use_sharded_head(cfg) if cfg.pool.head == "ffc" else cfg.mesh.model > 1:
+        if needs_mesh(cfg) if cfg.pool.head == "ffc" else cfg.mesh.model > 1:
             check_shape(cfg.mesh.data, cfg.mesh.model)  # before anything is created
             self.device = distributed.local_device(self.device)
             if self.device.type == "cuda":
@@ -121,8 +124,17 @@ class Trainer:
                              num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
                              record_limit=self.record_limit)
         self.dcp = DCPManager(cfg.pool.queue_size) if self.is_ffc else None
-        if not self.is_ffc and cfg.pool.num_classes <= 0:
-            cfg.pool.num_classes = reader.num_class
+        if not self.is_ffc:
+            if cfg.pool.num_classes <= 0:
+                cfg.pool.num_classes = reader.num_class
+            m = cfg.mesh.model
+            if cfg.pool.num_classes % m:
+                # the class axis must split evenly over the ranks; the ghost
+                # classes are extra negatives, never targets (JAX's trainer)
+                padded = (cfg.pool.num_classes + m - 1) // m * m
+                logger.info("padding num_classes %d -> %d for %d-way class sharding",
+                            cfg.pool.num_classes, padded, m)
+                cfg.pool.num_classes = padded
         self.steps_per_epoch = max(cfg.train.steps_per_epoch or self.pipeline.steps_per_epoch(), 1)
         self.schedule = make_schedule(cfg.optim, self.steps_per_epoch)
         self.plateau = PlateauController(patience=cfg.optim.patience, min_lr=cfg.optim.lr_min,
@@ -220,7 +232,10 @@ class Trainer:
         if latest is None:
             return
         # read to the host: the host state stays there, the tensors are copied in place
-        self._load_checkpoint_state(*self.ckpt.restore(latest, map_location="cpu"))
+        sizes = ({"queue": self.cfg.pool.queue_size} if self.is_ffc
+                 else {"classifier": self.cfg.pool.num_classes})
+        self._load_checkpoint_state(*self.ckpt.restore(latest, map_location="cpu",
+                                                       class_sizes=sizes))
         self._last_saved = latest
         g = self.state.step
         self.start_epoch, self.start_step = divmod(g, self.steps_per_epoch)
