@@ -376,6 +376,25 @@ them in JAX), over an NCCL group of one:
     untimed and two timed warm steps of the single-device step and of the
     step over the mesh, each with its peak memory, and their ratio, and
     one more step of each under the profiler;
+the data axis of the FFC step (``mesh.data`` > 1; no kernel: the quad
+kernels above on the gathered batch, ``core/ffc.py``), ranks spawned as
+processes on this one card over a gloo group on CUDA tensors, each running
+the port's ``Trainer`` on ``configs/ffc_ir50_1m_ids.json`` with
+``pool.use_fused=on`` (ir50, 512-d, 65,536 slots, the quad kernels):
+43. (a) ``mesh = 2 x 1`` at the config's global batch of 256 and (b) ``2 x
+    2`` at 128 (four f32 processes at 256 do not fit beside each other),
+    the sharded quad head and the sharded dense head: each first step on
+    an f32 backbone against the same config at ``mesh.data = 1`` in this
+    process (loss 1e-5 and grad_norm 1e-4 relative; each parameter and BN
+    statistics tensor within 1e-5 relative + 2e-5 + 4x the data-1 step's
+    own move when its images move by one f32 spacing, measured here, and
+    for (a) the data-1 step against a second run of itself; the queue 1e-5
+    and bit-equal on every unwritten row), the data replicas bit-equal on
+    metrics, parameters and queue, each kernel launched once (the partial
+    ones at 2 x 2), the peak device memory of each process; (c) one warm
+    bf16 step of (a) over gloo and of its data-1 twin in this process, and
+    the gradient sum alone, with the card's name and power limit (the
+    ranks' collectives go through host memory: no measure of NCCL);
 then the ``kernels`` JSON line (44 entries: the ten f32 kernels, the
 twelve quad forms, the twin kernels in f32 and bf16, the eight bf16 forms
 of the margin_ce kernels, ``conv3x3``, ``conv3x3[stats]``,
@@ -4540,6 +4559,292 @@ def dense_mesh_phase(card: str, tmp: str) -> None:
         distributed.destroy()
 
 
+# ----------------------------------------------------------------------
+# phase 43: the data axis of the FFC step (mesh.data > 1; no kernel: the
+# quad kernels of phases 3-6, 21-24 and 39 run on the gathered batch)
+# ----------------------------------------------------------------------
+
+DATA_CONFIG = CKPT_CONFIG  # configs/ffc_ir50_1m_ids.json: ir50, 512-d, batch 256, mesh.data -1
+DATA_B = 256  # (a): the config's global batch
+DATA_B4 = 128  # (b): four f32 ranks of 128 rows (a global 256) would not fit beside each
+# other in 80 GB, of 64 rows each they do ((a) and (b) print each rank's peak)
+DATA_STORE = (200, 4)  # ids x images: 800 records, 3 steps of 256
+DATA_RUNS = {  # run: (global batch, backbone dtype, mesh (data, model), overrides)
+    "a": (DATA_B, "float32", (2, 1), ("pool.use_fused=on",)),
+    "c": (DATA_B, "bfloat16", (2, 1), ("pool.use_fused=on",)),
+    "b quad": (DATA_B4, "float32", (2, 2), ("pool.use_fused=on",)),
+    "b dense": (DATA_B4, "float32", (2, 2), ("pool.use_fused=off",)),
+}
+
+
+def data_trainer(store: str, saved_dir: str, run: str, shape=(1, 1)):
+    """The Trainer of ``DATA_CONFIG`` for ``run`` at the mesh ``shape``
+    (data, model) over the raw-pixel store ``store``: no eval, no held-out
+    records, no checkpoint to resume."""
+    from vlsfr_tpu_torch.config import Config
+    from vlsfr_tpu_torch.train.trainer import Trainer
+
+    b, dtype, _, overrides = DATA_RUNS[run]
+    cfg = Config.load(DATA_CONFIG).apply_overrides([
+        f"data.batch_size={b}", f"model.dtype={dtype}", f"mesh.data={shape[0]}",
+        f"mesh.model={shape[1]}", "train.eval_freq=0", "train.holdout_records=0",
+        "train.print_freq=1", "train.resume=false", "data.num_workers=4", *overrides])
+    cfg.data.sources = [store]
+    cfg.train.saved_dir = saved_dir
+    return Trainer(cfg)
+
+
+def data_first_step(trainer, ulp: bool = False) -> tuple[dict, dict]:
+    """The first batch's step: (its metrics, the quad launch counts); with
+    ``ulp`` its images each moved by one f32 spacing, up or down (a seeded
+    draw)."""
+    from vlsfr_tpu_torch.ops import twin_margin as ttm
+
+    batch = trainer.pipeline.make_batch(0, 0)
+    idx = trainer.dcp.plan_step(batch.x_label, batch.y_label)
+    x, y = batch.x, batch.y
+    if ulp:
+        rng = np.random.default_rng(1)
+        x, y = (np.nextafter(a, np.where(rng.random(a.shape) < 0.5, -np.inf, np.inf)
+                             .astype(np.float32)) for a in (x, y))
+    ttm.reset_launch_counts()
+    m = trainer.train_step(trainer.state, x, y, idx, 1.0)
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in m.items()}, dict(ttm.LAUNCH_COUNTS)
+
+
+def data_warm_ms(trainer, barrier=None) -> float:
+    """One untimed step (batch 0), then the wall time of one more (batch 1),
+    ended by a synchronise (after ``barrier``, the ranks starting together)."""
+    for s in range(2):
+        batch = trainer.pipeline.make_batch(0, s)
+        idx = trainer.dcp.plan_step(batch.x_label, batch.y_label)
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(trainer.state, batch.x, batch.y, idx, 1.0)["loss"])
+        torch.cuda.synchronize()
+        if not math.isfinite(loss):
+            raise RuntimeError(f"a non-finite loss: {loss}")
+    return (time.perf_counter() - t0) * 1e3
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order (bit-equality across ranks)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def data_axis_rank(rank: int, world: int, store_path: str, tmp: str, store: str,
+                   runs: tuple) -> None:
+    """One rank of phase 43 on the one card over a gloo group: for each run
+    the port's Trainer at its mesh, the first step held to the data-1
+    reference the parent wrote (``ref_<run>.pt``), or the warm step timed;
+    writes ``<run>_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from vlsfr_tpu_torch.parallel import distributed
+
+    # the ranks share one card: without expandable segments the caching
+    # allocator reserves about a third more than the step allocates, and
+    # (a)'s two ranks would not fit; read when CUDA starts, below
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    distributed.initialize("cuda", backend="gloo", rank=rank, world_size=world,
+                           store_path=store_path)
+    try:
+        for run in runs:
+            shape = DATA_RUNS[run][2]
+            torch.cuda.reset_peak_memory_stats()
+            trainer = data_trainer(store, os.path.join(tmp, f"{run}_{rank}"), run, shape)
+            try:
+                mesh = trainer.mesh
+                if (mesh.data, mesh.model) != shape or dist.get_backend() != "gloo":
+                    raise RuntimeError(f"run {run}: mesh {mesh} over {dist.get_backend()}")
+                out = {"mesh": (mesh.data, mesh.data_rank, mesh.model, mesh.rank),
+                       "local_rows": DATA_RUNS[run][0] // mesh.data}
+                if run == "c":
+                    out["ms"] = data_warm_ms(trainer, dist.barrier)
+                    grads = [p.grad for p in trainer.state.probe.parameters()]
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    distributed.sum_(grads, mesh.data_group)  # the step's gradient sum, again
+                    torch.cuda.synchronize()
+                    out["grad_sum_ms"] = (time.perf_counter() - t0) * 1e3
+                    out["grad_mib"] = sum(g.numel() * g.element_size() for g in grads) / 2**20
+                else:
+                    out["metrics"], out["launches"] = data_first_step(trainer)
+                    ref = torch.load(os.path.join(tmp, f"ref_{run}.pt"), map_location="cuda")
+                    st = trainer.state
+                    params = st.probe.state_dict()
+                    # per tensor: max(|diff| - 1e-5 |ref|) over its limit, 2e-5 plus four
+                    # times the data-1 step's own move under a one-spacing change of its images
+                    out["params"] = sorted(
+                        (float(((v.double() - ref["params"][k].double()).abs()
+                                - 1e-5 * ref["params"][k].double().abs()).max())
+                         / (2e-5 + 4 * ref["floor"][k]), k, ref["floor"][k])
+                        for k, v in params.items())[-3:]
+                    most = max(ref["floor"], key=ref["floor"].get)
+                    out["most_moved"] = (most, float((params[most].double()
+                                                      - ref["params"][most].double()).abs().max()))
+                    c0, cl = mesh.class_block(st.queue.shape[1] * mesh.model)
+                    want = ref["queue"][:, c0:c0 + cl]
+                    out["queue_gap"] = float((st.queue - want).abs().max())
+                    out["queue_same_rows"] = int((st.queue == want).all(-1).sum())
+                    out["params_digest"] = digest(params.values())
+                    out["queue_digest"] = digest([st.queue])
+                    del ref
+                out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            finally:
+                trainer.close()
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+            torch.save(out, os.path.join(tmp, f"{run}_rank{rank}.pt"))
+    finally:
+        distributed.destroy()
+
+
+def data_reference(store: str, tmp: str, run: str, again: bool = False) -> dict:
+    """The run's config at mesh.data = 1 in this process: the first step's
+    metrics, and its parameters and queue written for the ranks; then the
+    same step from a fresh Trainer on images moved by one f32 spacing,
+    whose distance from the first per parameter tensor (``floor``) is the
+    step's own conditioning; with ``again`` once more on the same images
+    (``spread``: the step against itself)."""
+    out, params = {}, None
+    for variant in ("ref", "ulp", "again")[:3 if again else 2]:
+        trainer = data_trainer(store, os.path.join(tmp, f"ref_{run}_{variant}"), run)
+        try:
+            if trainer.mesh is not None:
+                raise RuntimeError("the data-1 reference must run without a mesh")
+            torch.cuda.reset_peak_memory_stats()
+            metrics, launches = data_first_step(trainer, variant == "ulp")
+            got = trainer.state.probe.state_dict()
+            if variant == "ref":
+                params = {k: v.clone() for k, v in got.items()}
+                out = dict(metrics=metrics, launches=launches,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                           queue_size=trainer.cfg.pool.queue_size, queue=trainer.state.queue)
+            else:
+                out["floor" if variant == "ulp" else "spread"] = {
+                    k: float((v.double() - params[k].double()).abs().max()) for k, v in got.items()}
+        finally:
+            free_trainer(trainer)
+    torch.save({"params": params, "queue": out.pop("queue"), "floor": out["floor"]},
+               os.path.join(tmp, f"ref_{run}.pt"))
+    return out
+
+
+def data_spawn(world: int, tmp: str, store: str, runs: tuple) -> list[list[dict]]:
+    """``runs`` over ``world`` spawned ranks on the one card; per run the
+    ranks' records."""
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(data_axis_rank, args=(world, os.path.join(tmp, f"store{world}"), tmp, store, runs),
+             nprocs=world, join=True)
+    print(f"  {world} ranks spawned and joined in {time.perf_counter() - t0:.1f} s")
+    return [[torch.load(os.path.join(tmp, f"{run}_rank{r}.pt"), weights_only=False)
+             for r in range(world)] for run in runs]
+
+
+def data_check(run: str, ref: dict, ranks: list[dict], want_launches: dict) -> None:
+    """The ranks' first step against the data-1 reference (f32 backbone):
+    loss 1e-5 and grad_norm 1e-4 relative; each parameter and BN
+    statistics tensor within 1e-5 relative + 2e-5 + 4x the data-1 step's
+    own move when its images move by one f32 spacing (the stem's weight
+    gradient sums 6.4M products with cancellation: such a move shifts it
+    by ~4e-4 after the step, as far as the data axis's other summation
+    order does); the queue within 1e-5 (the written rows: gallery
+    embeddings whose BN statistics summed in another order) and bit-equal
+    on every unwritten row; the data replicas bit-equal; the quad kernels
+    launched as ``want_launches``."""
+    b, _, (d, m), _ = DATA_RUNS[run]
+    loss_ref, gn_ref = ref["metrics"]["loss"], ref["metrics"]["grad_norm"]
+    loss_gap = max(abs(r["metrics"]["loss"] / loss_ref - 1) for r in ranks)
+    gn_gap = max(abs(r["metrics"]["grad_norm"] / gn_ref - 1) for r in ranks)
+    worst = max(r["params"][-1][0] for r in ranks)
+    queue_gap = max(r["queue_gap"] for r in ranks)
+    q = ref["queue_size"]
+    unwritten = min(r["queue_same_rows"] for r in ranks)
+    written = b  # direction B writes at most one row a sample of the global batch
+    replicas = (len({r["params_digest"] for r in ranks}) == 1
+                and all(ranks[i]["queue_digest"] == ranks[i % m]["queue_digest"]
+                        for i in range(len(ranks)))
+                and len({json.dumps(r["metrics"], sort_keys=True) for r in ranks}) == 1)
+    launches_ok = all(only_launched(r["launches"], want_launches) for r in ranks)
+    most, apart = ranks[0]["most_moved"]
+    launched = {k: v for k, v in ranks[0]["launches"].items() if v}
+    spread = ""
+    if "spread" in ref:
+        k = max(ref["spread"], key=ref["spread"].get)
+        spread = (f"; the data-1 step against itself (a second run) at most "
+                  f"{ref['spread'][k]:.3e} ({k}; {most} {ref['spread'][most]:.3e})")
+    print(f"  ({run}) mesh {d} x {m}, global batch {b} ({b // d} rows a rank), f32 backbone, "
+          f"first step against mesh.data = 1 in one process: loss {ranks[0]['metrics']['loss']:.6f}"
+          f" / {loss_ref:.6f} (apart {loss_gap:.2e}, limit 1e-5 relative); grad_norm "
+          f"{ranks[0]['metrics']['grad_norm']:.6f} / {gn_ref:.6f} (apart {gn_gap:.2e}, limit 1e-4 "
+          f"relative); parameters and BN statistics after SGD, max(|diff| - 1e-5 |ref|) over "
+          f"(2e-5 + 4 x the data-1 step's move under a one-spacing change of its images), the "
+          f"three highest (ratio, tensor, move): {ranks[0]['params'][::-1]} (limit 1); the "
+          f"tensor moved most, {most}: apart {apart:.3e}, moved {ref['floor'][most]:.3e}"
+          f"{spread}; queue after the write max |diff| {queue_gap:.3e} (limit "
+          f"1e-5), rows bit-equal {unwritten:,} of {2 * q // m:,} a block (limit: all but "
+          f"{written} written); data replicas bit-equal on the metrics, parameters and queue: "
+          f"{replicas}; quad launches {launched} (want {want_launches})")
+    print(f"  ({run}) peak device memory a process: "
+          + ", ".join(f"rank {i} {r['peak_gib']:.2f} GiB" for i, r in enumerate(ranks))
+          + f"; the data-1 reference {ref['peak_gib']:.2f} GiB")
+    if not (loss_gap <= 1e-5 and gn_gap <= 1e-4 and worst <= 1 and queue_gap <= 1e-5
+            and unwritten >= 2 * q // m - written and replicas and launches_ok):
+        raise RuntimeError(f"phase 43 ({run}): the data axis disagrees with mesh.data = 1")
+
+
+def data_axis_phase(card: str, tmp: str) -> None:
+    """Phase 43: ``DATA_CONFIG`` with the quad kernels on the data axis, its
+    ranks spawned as processes on the one card over a gloo group on CUDA
+    tensors: (a) mesh 2 x 1 at the config's batch of 256 and (b) 2 x 2,
+    the sharded quad and the sharded dense head, at DATA_B4, each first
+    step on an f32 backbone held to the same config at mesh.data = 1 in
+    this process; (c) one warm bf16 step of (a) and of its data-1 twin."""
+    from vlsfr_tpu_torch.data.synthetic import generate_synthetic_store
+
+    store = os.path.join(tmp, "store")
+    generate_synthetic_store(store, num_ids=DATA_STORE[0], images_per_id=DATA_STORE[1],
+                             image_size=112, seed=0)
+    refs = {"a": data_reference(store, tmp, "a", again=True)}
+    twin = data_trainer(store, os.path.join(tmp, "twin"), "c")
+    try:
+        twin_ms = data_warm_ms(twin)
+    finally:
+        free_trainer(twin)
+    got = dict(zip(("a", "c"), data_spawn(2, tmp, store, ("a", "c"))))
+    data_check("a", refs["a"], got["a"], {"quad_fwd": 1, "quad_bwd": 1})
+    for run in ("b quad", "b dense"):
+        refs[run] = data_reference(store, tmp, run)
+    got.update(zip(("b quad", "b dense"), data_spawn(4, tmp, store, ("b quad", "b dense"))))
+    data_check("b quad", refs["b quad"], got["b quad"],
+               {"quad_partial_fwd": 1, "quad_partial_bwd": 1})
+    data_check("b dense", refs["b dense"], got["b dense"], {})
+    each = [r["ms"] for r in got["c"]]
+    print(f"  (c) one warm bf16 step at global batch {DATA_B}: mesh 2 x 1 over gloo (the "
+          f"ranks' collectives through host memory, both on this card) {max(each):.1f} ms (the "
+          f"slower rank; ranks {', '.join(f'{t:.1f}' for t in each)}), mesh.data = 1 in one "
+          f"process {twin_ms:.1f} ms; ratio {max(each) / twin_ms:.3f}, no measure of NCCL; "
+          f"the gradient sum over the data group alone (gloo, {got['c'][0]['grad_mib']:.1f} "
+          f"MiB of f32 gradients) {max(r['grad_sum_ms'] for r in got['c']):.1f} ms ({card})")
+
+
 BF16_KERNELS = (  # the kernels line's bf16 forms: (name, the TPU kernel it replaces)
     ("margin_ce_fwd[bf16]", "margin_pallas.py:390"),
     ("margin_ce_bwd[bf16]", "margin_pallas.py:557"),
@@ -4795,6 +5100,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         dense_mesh_phase(card, tmp)
     print(f"  phase 42 {time.perf_counter() - t0:.1f} s")
+    print(f"== phase 43: the data axis of the FFC step, {DATA_CONFIG} with the quad kernels: "
+          f"(a) mesh 2 x 1 at batch {DATA_B}, (b) 2 x 2 (sharded quad and dense heads) at "
+          f"batch {DATA_B4}, ranks spawned on this card over gloo, each first step (f32 "
+          f"backbone) against mesh.data = 1; (c) a warm bf16 step of (a) and its data-1 twin")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        data_axis_phase(card, tmp)
+    print(f"  phase 43 {time.perf_counter() - t0:.1f} s")
     print(f"  chip_smoke.py {time.perf_counter() - t_start:.1f} s ({card})")
 
     fwd_keys = ("ce", "neg", "logz", "topk")

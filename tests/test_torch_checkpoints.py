@@ -450,3 +450,164 @@ def test_resume_refuses_another_padded_class_count(recut):
     for out in runs[4]:
         msg = str(out["padded/error"])
         assert "classifier over 10 classes" in msg and "this run has 12" in msg, msg
+
+
+# ----------------------------------------------------------------------
+# the data axis: resume at another mesh.data (gloo ranks)
+# ----------------------------------------------------------------------
+
+DATA_SAVE_AT = 3
+
+
+def _mesh_cfg(data, saved_dir, shape, epochs=1):
+    return _cfg(data, saved_dir, ["pool.use_fused=on", f"mesh.data={shape[0]}",
+                                  f"mesh.model={shape[1]}"], epochs)
+
+
+def _losses_of(trainer, steps) -> np.ndarray:
+    """The loss of each step of ``trainer.train(max_steps=steps)``."""
+    losses, run = [], trainer.train_step
+
+    def logged(*args):
+        m = run(*args)
+        losses.append(float(m["loss"]))
+        return m
+
+    trainer.train_step = logged
+    trainer.train(max_steps=steps)
+    return np.asarray(losses)
+
+
+def _save_at(data, saved_dir, shape) -> dict:
+    """DATA_SAVE_AT steps at ``shape``, ``_save``: the saved state."""
+    t = Trainer(_mesh_cfg(data, saved_dir, shape), device="cpu")
+    try:
+        t.train(max_steps=DATA_SAVE_AT)
+        t._save(DATA_SAVE_AT)
+        return _snapshot(t)
+    finally:
+        t.close()
+
+
+def _resume_at(data, saved_dir, shape) -> dict:
+    """Resume at ``shape``: the restored state, then the next step's loss."""
+    t = Trainer(_mesh_cfg(data, saved_dir, shape), device="cpu")
+    try:
+        out = {f"restored{k}": v for k, v in _snapshot(t).items()}
+        out["next_loss"] = _losses_of(t, DATA_SAVE_AT + 1)
+        return out
+    finally:
+        t.close()
+
+
+def _data_axis_rank(rank, world, store_path, data, root):
+    torch.set_num_threads(1)
+    distributed.initialize("cpu", rank=rank, world_size=world, store_path=store_path)
+    try:
+        out = {}
+        if world == 4:  # 2 x 2
+            out.update({f"saved22{k}": v for k, v in
+                        _save_at(data, os.path.join(root, "m22"), (2, 2)).items()})
+        else:
+            for name, run, epochs in (("straight", "a", 2), ("first", "b", 1),
+                                      ("resumed", "b", 2)):
+                t = Trainer(_mesh_cfg(data, os.path.join(root, run), (2, 1), epochs),
+                            device="cpu")
+                try:
+                    out[f"{name}/start"] = np.asarray([t.start_epoch, t.start_step])
+                    t.train()
+                    out.update({f"{name}{k}": v for k, v in _snapshot(t).items()})
+                finally:
+                    t.close()
+            t = Trainer(_mesh_cfg(data, os.path.join(root, "uninterrupted"), (2, 1)),
+                        device="cpu")
+            try:
+                out["uninterrupted"] = _losses_of(t, DATA_SAVE_AT + 1)
+            finally:
+                t.close()
+            out.update({f"saved21{k}": v for k, v in
+                        _save_at(data, os.path.join(root, "m21"), (2, 1)).items()})
+            for source in ("m21", "m22"):  # at 1 x 2
+                out.update({f"{source}/12/{k}": v for k, v in
+                            _resume_at(data, os.path.join(root, source), (1, 2)).items()})
+        np.savez(os.path.join(root, f"data{world}_rank{rank}.npz"), **out)
+    finally:
+        distributed.destroy()
+
+
+@pytest.fixture(scope="module")
+def data_axis(store, tmp_path_factory):
+    """Saves at 2 x 2 (4 spawned ranks), then at 2 x 1 (2 spawned ranks,
+    with the uninterrupted and the resumed 2 x 1 runs), resumes both at
+    1 x 2 there, and the 2 x 1 one at 1 x 1 here."""
+
+    def build(tmp):
+        root = str(tmp)
+        spawn(_data_axis_rank, 4, str(tmp / "fs4"), store, root)
+        spawn(_data_axis_rank, 2, str(tmp / "fs2"), store, root)
+        out = {f"m21/11/{k}": v for k, v in
+               _resume_at(store, os.path.join(root, "m21"), (1, 1)).items()}
+        np.savez(tmp / "data1_rank0.npz", **out)
+
+    tmp = once(tmp_path_factory, "ckpt_data_axis", build)
+    return tmp, {world: [dict(np.load(tmp / f"data{world}_rank{r}.npz")) for r in range(world)]
+                 for world in (1, 2, 4)}
+
+
+def _state_of(out, prefix):
+    return {k[len(prefix):]: v for k, v in out.items() if k.startswith(prefix + "/")}
+
+
+def test_data_axis_resume_matches_uninterrupted(data_axis):
+    """At ``mesh = 2 x 1``: 2 epochs straight against 1 epoch, then a fresh
+    Trainer resuming for the second: the same final state on both ranks,
+    bit for bit, and the two data ranks hold the same state. Data index 1
+    resumes with the process generators of data index 0, whose block it
+    reads (the step draws nothing from them: dropout's generator is seeded
+    per data index and step); its own differed from the start."""
+    _, runs = data_axis
+    rng = ("/start", "/1/rng/cpu")
+    for rank, out in enumerate(runs[2]):
+        assert out["resumed/start"].tolist() == [1, 0]
+        _assert_same(_state_of(out, "straight"), _state_of(out, "resumed"),
+                     skip=("/start",) if rank == 0 else rng)
+        _assert_same(_state_of(out, "resumed"), _state_of(runs[2][0], "resumed"))
+
+
+def test_only_data_index_0_writes_a_block(data_axis):
+    """One ``rank<m>.pt`` per model index, written by its data index 0: a
+    2 x 1 step holds rank0.pt, a 2 x 2 step rank0.pt and rank1.pt."""
+    tmp, _ = data_axis
+    for mesh, blocks in (("m21", ["rank0.pt"]), ("m22", ["rank0.pt", "rank1.pt"])):
+        d = os.path.join(str(tmp), mesh, str(DATA_SAVE_AT))
+        assert sorted(os.listdir(d)) == blocks + ["replicated.pt"], mesh
+
+
+@pytest.mark.parametrize("source,target", [("m21", "11"), ("m21", "12"), ("m22", "12")])
+def test_resume_at_another_data_axis(source, target, data_axis):
+    """A checkpoint saved at ``mesh = 2 x 1`` resumes at 1 x 1 and 1 x 2, one
+    saved at 2 x 2 at 1 x 2: each rank's restored state is the saved one
+    bit for bit (modules, optimizer, DCP planner, plateau, step, the random
+    generators of its model index's data index 0, and its block of the
+    queue: the saved whole's slice), and the next step's loss is the
+    uninterrupted 2 x 1 run's within 1e-5 relative (the same batches; f32
+    sums over the data axis in another order)."""
+    _, runs = data_axis
+    world_saved = 2 if source == "m21" else 4
+    saved = runs[world_saved]
+    model_saved = 1 if source == "m21" else 2
+    model = 1 if target == "11" else 2
+    resumed = runs[1] if target == "11" else runs[2]
+    queue = np.concatenate([saved[j][f"saved{source[1:]}/1/queue"] for j in range(model_saved)],
+                           axis=1)
+    for rank, out in enumerate(resumed):
+        got = _state_of(out, f"{source}/{target}/restored")
+        # the model index's block at data index 0 (past the old model axis, index 0's)
+        want = _state_of(saved[rank if rank < model_saved else 0], f"saved{source[1:]}")
+        n = queue.shape[1] // model
+        assert np.array_equal(got.pop("/1/queue"), queue[:, rank * n:(rank + 1) * n])
+        want.pop("/1/queue")
+        _assert_same(want, got)
+        assert int(got["/0/step"]) == DATA_SAVE_AT
+        np.testing.assert_allclose(out[f"{source}/{target}/next_loss"][-1],
+                                   runs[2][0]["uninterrupted"][DATA_SAVE_AT], rtol=1e-5)

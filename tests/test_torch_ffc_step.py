@@ -135,9 +135,10 @@ def test_entry_points_refuse_without_card_or_unported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_ffc_state(create_net("toy", feat_dim=8), cfg)
-    # the softmax head's routes all run on a class-sharded mesh; a
-    # pretrained backbone and the data axis are still refused
-    for bad in (["train.pretrained_model_path=backbone.pt"], ["mesh.data=2"]):
+    # the softmax head's routes all run on a class-sharded mesh and the FFC
+    # head on the data axis (tests/test_torch_data_axis.py); a pretrained
+    # backbone is still refused
+    for bad in (["train.pretrained_model_path=backbone.pt"],):
         with pytest.raises(NotImplementedError):
             Trainer(Config().apply_overrides(bad), device="cpu")
     # the sharded head runs one process per card: mesh.model=2 in one process

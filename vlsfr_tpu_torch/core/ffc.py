@@ -28,9 +28,19 @@ One step of the FFC twin network over a host-planned ``StepIndices``:
 5. lr = schedule(step) × plateau scale, SGD step.
 
 Direction A's writes are never persisted (the reference's rollback pass).
-On a mesh every rank runs the same step on the same batch and plan; the
-head's collectives make its gradient the same on every rank, so the probe
-parameters stay equal across ranks.
+On the model axis every rank runs the same step on the same batch and plan;
+the head's collectives make its gradient the same on every rank, so the
+probe parameters stay equal across ranks. On the data axis (``mesh.data >
+1``) each rank holds its rows of the global batch (``data/pipeline.py``):
+the forwards' BatchNorm statistics span the global batch
+(``models/layers.sync_batch_norm``), the four embeddings are gathered over
+the data group before the head (``parallel/distributed.gather_rows``), so
+the head runs on the global batch against the global plan, and after the
+backward the probe's gradients are summed over the data group (the loss is
+already the global batch's mean), then clipped. Every data replica of a
+model block writes the same gathered rows into its queue block, so the
+replicas stay equal bit for bit. Dropout draws from a generator seeded by
+(``data.seed``, the data index, the step).
 """
 
 from __future__ import annotations
@@ -46,12 +56,14 @@ from torch import nn
 
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import PassIndices, StepIndices
+from vlsfr_tpu_torch.models.layers import sync_batch_norm
 from vlsfr_tpu_torch.ops.margin import add_margin, default_hard_neg, kernel_width_ok
 from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 from vlsfr_tpu_torch.ops.quant import int8_conv_inference
 from vlsfr_tpu_torch.ops.twin_margin import quad_add_margin, reduce_margin_dir, twin_add_margin
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_
+from vlsfr_tpu_torch.parallel import distributed
 from vlsfr_tpu_torch.parallel.sharded_dense import ShardedDenseMargin, held_columns, reduce_grad
 from vlsfr_tpu_torch.parallel.sharded_quad import make_sharded_quad_loss
 from vlsfr_tpu_torch.utils.device import resolve_device
@@ -287,8 +299,9 @@ def use_sharded_head(cfg: Config) -> bool:
 
 def needs_mesh(cfg: Config) -> bool:
     """Whether the FFC step runs over a mesh: the fused head sharded
-    (``use_sharded_head``) or the dense head at a model axis > 1."""
-    return use_sharded_head(cfg) or cfg.mesh.model > 1
+    (``use_sharded_head``), the dense head at a model axis > 1, or a data
+    axis > 1."""
+    return use_sharded_head(cfg) or cfg.mesh.model > 1 or cfg.mesh.data > 1
 
 
 def check_queue_config(cfg: Config) -> None:
@@ -332,13 +345,21 @@ def check_kernel_width(cfg: Config, device) -> None:
             f"of 64 up to 512) is not ported yet")
 
 
+def dropout_seed(seed: int, data_index: int, step: int) -> int:
+    """The seed of a step's dropout draws at a data index."""
+    return int(np.random.SeedSequence([seed, data_index, step]).generate_state(1)[0])
+
+
 def make_train_step(cfg: Config, schedule, mesh=None):
     """``step(state, x, y, idx, lr_scale) -> metrics``: runs one FFC step,
     updating ``state`` in place. ``x``/``y`` are NHWC batches (numpy or
-    tensors), ``idx`` the host plan for this step. The sharded head
-    (``use_sharded_head``) needs the ``mesh`` (parallel/mesh.py) its state
-    was made for; given a ``mesh`` the dense head runs over it
-    (``make_sharded_dense_loss``), as it must at ``mesh.model > 1``."""
+    tensors; on the data axis this rank's rows of them), ``idx`` the host
+    plan for this step (global). The sharded head (``use_sharded_head``)
+    needs the ``mesh`` (parallel/mesh.py) its state was made for; given a
+    ``mesh`` the dense head runs over its model axis
+    (``make_sharded_dense_loss``), as it must at ``mesh.model > 1``; at
+    ``mesh.model = 1`` with a data axis the heads are the single-device
+    ones, on the gathered batch."""
     pool = cfg.pool
     check_queue_config(cfg)
     hard_neg = pool.hard_neg if pool.hard_neg > 0 else default_hard_neg(pool.queue_size)
@@ -360,7 +381,7 @@ def make_train_step(cfg: Config, schedule, mesh=None):
         col0, _ = mesh.class_block(pool.queue_size)
         head_loss = make_sharded_quad_loss(mesh, with_acc=True, int8_compute=int8_compute,
                                            tile=tile, **loss_kw)
-    elif mesh is not None:
+    elif mesh is not None and (mesh.model > 1 or mesh.data == 1):
         col0, _ = mesh.class_block(pool.queue_size)
         head_loss = make_sharded_dense_loss(mesh, with_acc=True, **loss_kw)
     m = pool.momentum
@@ -369,6 +390,32 @@ def make_train_step(cfg: Config, schedule, mesh=None):
     # the no-gradient EMA forward on int8 convs (ops/quant.py); BN stays in
     # train mode and the probe's forward is untouched
     gallery_ctx = int8_conv_inference if pool.gallery_int8 else contextlib.nullcontext
+    d, di = (1, 0) if mesh is None else (mesh.data, mesh.data_rank)
+    dropout = cfg.model.dropout > 0
+
+    def batch_norm_ctx(b: int, segments: int, dev):
+        """BatchNorm over the data group: this rank's rows of ``segments``
+        global batches of d·b rows concatenated."""
+        if d == 1:
+            return contextlib.nullcontext()
+        local = torch.arange(b, device=dev) + di * b
+        rows = torch.cat([local + j * d * b for j in range(segments)])
+        return sync_batch_norm(mesh.data_group, rows, segments * d * b)
+
+    @contextlib.contextmanager
+    def dropout_rng(dev, step_no: int):
+        """Dropout's draws (``model.dropout`` > 0) from the generators
+        seeded by (``data.seed``, this data index, the step), the
+        process's own restored after."""
+        if not dropout:
+            yield
+            return
+        seed = dropout_seed(cfg.data.seed, di, step_no)
+        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+            torch.random.default_generator.manual_seed(seed)
+            if dev.type == "cuda":
+                torch.cuda.manual_seed(seed)
+            yield
 
     def step(state: FFCState, x, y, idx: StepIndices, lr_scale: float = 1.0) -> dict:
         dev = state.queue.device
@@ -381,20 +428,28 @@ def make_train_step(cfg: Config, schedule, mesh=None):
                 pg.copy_(m * pg + (1.0 - m) * pp)
         probe.train()
         gallery.train()
-        if fuse_fwd:
-            # one 2B forward per net; BN statistics then span 2B samples
-            b = x.shape[0]
-            p_xy = probe(torch.cat([x, y]))
-            with torch.no_grad(), gallery_ctx():
-                g_yx = gallery(torch.cat([y, x]))
-            p_x, p_y, g_y, g_x = p_xy[:b], p_xy[b:], g_yx[:b], g_yx[b:]
-        else:
-            p_x = probe(x)
-            with torch.no_grad(), gallery_ctx():
-                g_y = gallery(y)
-            p_y = probe(y)
-            with torch.no_grad(), gallery_ctx():
-                g_x = gallery(x)
+        b = x.shape[0]
+        with dropout_rng(dev, state.step):
+            if fuse_fwd:
+                # one 2B forward per net; BN statistics then span 2B samples
+                with batch_norm_ctx(b, 2, dev):
+                    p_xy = probe(torch.cat([x, y]))
+                    with torch.no_grad(), gallery_ctx():
+                        g_yx = gallery(torch.cat([y, x]))
+                p_x, p_y, g_y, g_x = p_xy[:b], p_xy[b:], g_yx[:b], g_yx[b:]
+            else:
+                with batch_norm_ctx(b, 1, dev):
+                    p_x = probe(x)
+                    with torch.no_grad(), gallery_ctx():
+                        g_y = gallery(y)
+                    p_y = probe(y)
+                    with torch.no_grad(), gallery_ctx():
+                        g_x = gallery(x)
+        if d > 1:  # the head runs on the global batch
+            p_xy = distributed.gather_rows(torch.stack([p_x, p_y], 1), mesh.data_group)
+            with torch.no_grad():
+                g_yx = distributed.gather_rows(torch.stack([g_y, g_x], 1), mesh.data_group)
+            p_x, p_y, g_y, g_x = (t.contiguous() for t in (*p_xy.unbind(1), *g_yx.unbind(1)))
         if head_loss is not None:
             (loss_a, loss_b), train_acc = head_loss(
                 p_x, p_y, state.queue, g_y, g_x, (ia.rows, ia.cols, ia.seen),
@@ -422,6 +477,8 @@ def make_train_step(cfg: Config, schedule, mesh=None):
             for p in params:
                 if p.grad is None:  # unused parameters still decay, as in optax
                     p.grad = torch.zeros_like(p)
+            if d > 1:  # each rank's rows' share of the global batch's gradient
+                distributed.sum_([p.grad for p in params], mesh.data_group)
             grad_norm = torch.sqrt(sum(p.grad.square().sum() for p in params))
             if grad_clip > 0:
                 clip_by_global_norm_(params, grad_clip, grad_norm)

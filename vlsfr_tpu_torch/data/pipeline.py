@@ -154,9 +154,9 @@ class PairStream:
 class FFCBatch:
     """One composed FFC step batch (host numpy, NHWC)."""
 
-    x: np.ndarray  # [B, H, W, 3] float32
-    y: np.ndarray  # [B, H, W, 3] float32
-    x_label: np.ndarray  # [B] int32
+    x: np.ndarray  # [B, H, W, 3] float32 (a data rank's [B/d, H, W, 3])
+    y: np.ndarray  # [B, H, W, 3] float32 (likewise)
+    x_label: np.ndarray  # [B] int32, global
     y_label: np.ndarray  # [B] int32
     epoch: int
     step: int
@@ -164,13 +164,25 @@ class FFCBatch:
 
 class FFCPipeline:
     """Composes instance + pair streams into FFC batches; a producer thread
-    keeps ``prefetch`` batches ready while the device runs."""
+    keeps ``prefetch`` batches ready while the device runs.
+
+    ``data_shard = (i, d)`` (the data axis, ``parallel/mesh.py``): every
+    rank plans the same global step (the samplers are keyed on (seed,
+    epoch, step)) but decodes only the rows ``[i·B/d, (i+1)·B/d)`` of ``x``
+    and of ``y``, JAX's ``batch_sharding`` order; ``x_label`` and
+    ``y_label`` stay global, so every rank's DCP planner plans the same
+    step."""
 
     def __init__(self, reader: MultiSourceReader, batch_size: int, image_size: int,
                  seed: int = 0, num_workers: int = 8, prefetch: int = 2,
-                 record_limit: int | None = None):
+                 record_limit: int | None = None, data_shard: tuple[int, int] = (0, 1)):
         if batch_size % 2:
             raise ValueError("FFC batch composition needs an even batch")
+        i, d = data_shard
+        if batch_size % (2 * d):
+            raise ValueError(f"data.batch_size={batch_size} must be a multiple of 2 x "
+                             f"mesh.data={d}")
+        self.rows = slice(i * batch_size // d, (i + 1) * batch_size // d)
         self.reader = reader
         self.batch_size = batch_size
         self.image_size = image_size
@@ -203,8 +215,9 @@ class FFCPipeline:
 
     def make_batch(self, epoch: int, step: int) -> FFCBatch:
         x_recs, y_recs, flips_x, flips_y, x_label, y_label = self.batch_plan(epoch, step)
-        imgs = list(self.pool.map(self._load_one, np.concatenate([x_recs, y_recs]),
-                                  np.concatenate([flips_x, flips_y])))
+        sl = self.rows
+        imgs = list(self.pool.map(self._load_one, np.concatenate([x_recs[sl], y_recs[sl]]),
+                                  np.concatenate([flips_x[sl], flips_y[sl]])))
         n = len(imgs) // 2
         return FFCBatch(x=np.stack(imgs[:n]), y=np.stack(imgs[n:]),
                         x_label=x_label, y_label=y_label, epoch=epoch, step=step)

@@ -15,6 +15,14 @@ Conventions carried over from the JAX package:
   the strided row subset ``x[::max(b // rows, 1)]``, the same EMA, and its
   own op order ``((x − mean) · rsqrt(var + eps)) · scale + bias`` (in eval
   mode too); the variables are the same, so ``from_jax`` maps them as is;
+* inside ``sync_batch_norm(group, rows, n)`` (the data axis, the FFC
+  step's forwards) a train-mode ``BatchNorm`` takes its statistics over
+  the whole batch of ``n`` rows held by ``group``'s ranks, as JAX's GSPMD
+  means over the global array do: Σx and Σx² in f32, all_reduced with
+  their cotangents (the backward sums them over the group), over the
+  global count; ``rows`` are the global indices of this rank's rows, so
+  the ``_SubsetBN`` subset is ``x[::max(n // rows, 1)]`` of the global
+  batch; eval mode takes no collective;
 * ``1 / sqrt(var + eps)`` is taken in f64 and rounded once to f32, so the
   card and the CPU give a BN the same scale (an int8 conv after it then
   rounds its input alike);
@@ -30,11 +38,49 @@ parameter and buffer names follow the reference torch models, so a port
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vlsfr_tpu_torch.ops import quant
+from vlsfr_tpu_torch.parallel import distributed
+
+_SYNC: tuple | None = None  # (group, global row ids, global rows) inside sync_batch_norm
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group, rows: torch.Tensor, n: int):
+    """Train-mode ``BatchNorm`` statistics over ``group``'s ranks: this
+    rank's batch rows are the rows ``rows`` [b] (global indices, int64) of
+    a global batch of ``n`` rows."""
+    global _SYNC
+    prev, _SYNC = _SYNC, (group, rows, n)
+    try:
+        yield
+    finally:
+        _SYNC = prev
+
+
+def subset_rows(rows: torch.Tensor, n: int, stats_rows: int) -> tuple[torch.Tensor, int]:
+    """Which of this rank's rows (global ids ``rows``) are in ``_SubsetBN``'s
+    subset ``x[::max(n // stats_rows, 1)]`` of the ``n``-row global batch,
+    and how many rows that subset has: (mask [b], count)."""
+    stride = max(n // stats_rows, 1)
+    return rows % stride == 0, -(-n // stride)
+
+
+def synced_moments(x: torch.Tensor, axes: list[int], stats_rows: int):
+    """(E[x], E[x²]) per channel over the global batch of ``sync_batch_norm``
+    (the ``_SubsetBN`` subset with ``stats_rows`` > 0)."""
+    group, rows, n = _SYNC
+    if stats_rows > 0:
+        keep, n = subset_rows(rows.to(x.device), n, stats_rows)
+        x = x[keep]
+    count = n * x.shape[2:].numel()  # elements per channel over the global batch
+    sums = distributed.reduce_sum(torch.stack([x.sum(axes), x.square().sum(axes)]), group)
+    return sums[0] / count, sums[1] / count
 
 
 class BatchNorm(nn.Module):
@@ -62,9 +108,12 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = [d for d in range(x.dim()) if d != 1]
             rows = self.stats_rows
-            sub = x if rows <= 0 else x[::max(x.shape[0] // rows, 1)]
-            mean = sub.mean(axes)
-            var = (sub.square().mean(axes) - mean.square()).clamp(min=0.0)
+            if _SYNC is None:
+                sub = x if rows <= 0 else x[::max(x.shape[0] // rows, 1)]
+                mean, mean2 = sub.mean(axes), sub.square().mean(axes)
+            else:
+                mean, mean2 = synced_moments(x, axes, rows)
+            var = (mean2 - mean.square()).clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

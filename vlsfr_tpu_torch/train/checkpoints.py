@@ -5,15 +5,20 @@ orbax and writes with ``torch.save``).
 Layout, one directory a step as in JAX:
 
     <directory>/<step>/replicated.pt   the lead rank: what every rank holds
-    <directory>/<step>/rank<r>.pt      rank r's block of the sharded state
+    <directory>/<step>/rank<m>.pt      model index m's block of the sharded state
 
 ``replicated.pt`` holds the modules (BN running stats included), the
 optimizer state, the host state (DCP planner, plateau controller), the
-step and the world size; ``rank<r>.pt`` the rank's block of the queue (and
-its int8 scales) or of the classifier (and its momentum and last-visit
-steps), and the rank's global random generators (dropout draws from
-them; route D's tile fill and route E's sampled classes need no state,
-their generators being seeded from (seed, step), ``train/softmax_head.py``).
+step and the world size (``mesh.model``); ``rank<m>.pt`` the block of the
+queue (and its int8 scales) or of the classifier (and its momentum and
+last-visit steps) of model index m, and the process's global random
+generators. On the data axis the data replicas of a block hold it bit for
+bit: data index 0 of each model block writes it, the others write
+nothing and join the barriers, and every data index restores its model
+index's block, generators included (the step's draws need none: dropout's
+are seeded from (seed, data index, step), ``core/ffc.py``, route D's tile
+fill and route E's sampled classes from (seed, step),
+``train/softmax_head.py``), so a checkpoint resumes at any ``mesh.data``.
 Everything is a tensor or a plain Python value, and ``restore`` loads with
 ``weights_only=True``: nothing is unpickled but tensors and containers.
 
@@ -59,11 +64,13 @@ class CheckpointManager:
         self.mesh = mesh
         self.rank = 0 if mesh is None else mesh.rank
         self.world = 1 if mesh is None else mesh.model
+        # data index 0 of each model block writes the block
+        self.writes = mesh is None or getattr(mesh, "data_rank", 0) == 0
         os.makedirs(self.directory, exist_ok=True)
 
     def _barrier(self) -> None:
-        if self.world > 1:
-            dist.barrier(group=self.mesh.group)
+        if self.mesh is not None and dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(int(step)))
@@ -84,15 +91,16 @@ class CheckpointManager:
         """Write ``replicated`` (taken from the lead rank) and this rank's
         ``block``; returns once the step is complete on disk."""
         tmp = os.path.join(self.directory, f"{TMP_PREFIX}{int(step)}")
-        lead = self.rank == 0
+        lead = self.writes and self.rank == 0
         if lead:
             for name in os.listdir(self.directory):  # partial steps of an earlier run
                 if name.startswith(TMP_PREFIX):
                     shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
             os.makedirs(tmp)
         self._barrier()
-        os.makedirs(tmp, exist_ok=True)  # ranks with a directory of their own
-        torch.save(block, os.path.join(tmp, f"rank{self.rank}.pt"))
+        if self.writes:
+            os.makedirs(tmp, exist_ok=True)  # ranks with a directory of their own
+            torch.save(block, os.path.join(tmp, f"rank{self.rank}.pt"))
         if lead:
             torch.save(dict(replicated, world=self.world), os.path.join(tmp, REPLICATED))
         self._barrier()  # every part written
@@ -101,7 +109,7 @@ class CheckpointManager:
             for old in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(self._step_dir(old), ignore_errors=True)
         self._barrier()  # the step is complete
-        if not lead and os.path.isdir(tmp):  # a rank with a directory of its own
+        if self.writes and not lead and os.path.isdir(tmp):  # a directory of its own
             self._publish(tmp, step)
 
     def _publish(self, tmp: str, step: int) -> None:

@@ -179,7 +179,7 @@ def check_ported(cfg: Config, device=None) -> None:
             raise ValueError(f"pool.{name} must be float32 or bfloat16, got "
                              f"{getattr(pool, name)!r}")
     for what, on in (
-            ("mesh.data > 1 (the data axis)", cfg.mesh.data > 1),
+            ("mesh.data > 1 (the softmax head's data axis)", cfg.mesh.data > 1),
             (f"model.feat_dim={cfg.model.feat_dim} on the margin_ce kernels (a multiple of 64 "
              f"up to 512)", on_kernels and not kernel_width_ok(cfg.model.feat_dim))):
         if on:

@@ -8,11 +8,14 @@ either head model-sharded over ``mesh.model`` ranks of a
 ``torch.distributed`` group (one process per card under ``torchrun``; the
 fused FFC head also with ``pool.force_sharded`` in one process): the FFC
 head's queue (fused or dense) or the softmax head's classifier (every
-route) split into one block per rank. Every rank runs the same pipeline
-(and DCP planner; the labels stay global, as in JAX); only rank 0 logs. On
-a mesh the softmax head's ``pool.num_classes`` is padded up to a multiple
-of ``mesh.model``, as JAX pads it: the ghost classes are extra negatives,
-never targets.
+route) split into one block per rank. The FFC head also runs on the data
+axis (``mesh.data`` > 1, or -1 for world // model; ``parallel/mesh.py``):
+each rank decodes its rows of the global batch and the step gathers,
+synchronises and sums over the data group (``core/ffc.py``). Every rank
+runs the same pipeline plan (and DCP planner; the labels stay global, as
+in JAX); only global rank 0 logs. On a mesh the softmax head's
+``pool.num_classes`` is padded up to a multiple of ``mesh.model``, as JAX
+pads it: the ghost classes are extra negatives, never targets.
 
 Checkpoints (``train/checkpoints.py``): every ``train.save_freq`` steps,
 at the end of ``train()``, and on SIGTERM / SIGINT once the step in
@@ -26,7 +29,8 @@ the held-out tail of the store (``train.holdout_records``) or, with a
 warning, from the training records, and ``train.eval_bin``.
 
 What it does not run yet, and refuses rather than fakes: pretrained
-backbones and the data axis (``mesh.data > 1``).
+backbones and the softmax head's data axis (``pool.head='full_softmax'``
+at ``mesh.data > 1``).
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from vlsfr_tpu_torch.data.records import MultiSourceReader
 from vlsfr_tpu_torch.models import create_net, native_image_size
 from vlsfr_tpu_torch.optim import PlateauController, make_schedule
 from vlsfr_tpu_torch.parallel import distributed
-from vlsfr_tpu_torch.parallel.mesh import check_shape, make_mesh
+from vlsfr_tpu_torch.parallel.mesh import check_shape, make_mesh, resolve_shape
 from vlsfr_tpu_torch.train.checkpoints import CheckpointManager
 from vlsfr_tpu_torch.train.softmax_head import (
     check_ported,
@@ -62,14 +66,17 @@ from vlsfr_tpu_torch.utils.device import resolve_device
 from vlsfr_tpu_torch.utils.metrics import MetricsLogger, Throughput, logger
 
 
-def _refuse_unported(cfg: Config) -> None:
+def _refuse_unported(cfg: Config, data: int) -> None:
+    """Refuse what the port does not run yet; ``data`` is the resolved
+    data axis (``mesh.resolve_shape``)."""
     if cfg.pool.head not in ("ffc", "full_softmax"):
         raise ValueError(f"pool.head must be ffc or full_softmax, got {cfg.pool.head!r}")
     if cfg.pool.head == "full_softmax":
         check_ported(cfg)
     for what, on in (
             ("train.pretrained_model_path", bool(cfg.train.pretrained_model_path)),
-            ("mesh.data > 1", cfg.mesh.data > 1)):
+            ("mesh.data > 1 on the full_softmax head (the softmax head's data axis)",
+             cfg.pool.head == "full_softmax" and data > 1)):
         if on:
             raise NotImplementedError(f"{what} is not ported yet")
 
@@ -81,13 +88,14 @@ class Trainer:
     says otherwise; a sharded run on the rank's card, ``cuda:LOCAL_RANK``."""
 
     def __init__(self, cfg: Config, reader: MultiSourceReader | None = None, device=None):
-        _refuse_unported(cfg)
+        data, model = resolve_shape(cfg.mesh.data, cfg.mesh.model)
+        _refuse_unported(cfg, data)
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.pool.head == "ffc":
             check_kernel_width(cfg, self.device)
         self.mesh, self._owns_group = None, False
-        if needs_mesh(cfg) if cfg.pool.head == "ffc" else cfg.mesh.model > 1:
+        if (needs_mesh(cfg) if cfg.pool.head == "ffc" else model > 1) or data * model > 1:
             check_shape(cfg.mesh.data, cfg.mesh.model)  # before anything is created
             self.device = distributed.local_device(self.device)
             if self.device.type == "cuda":
@@ -119,10 +127,14 @@ class Trainer:
             self.record_limit = max(len(reader) - cfg.train.holdout_records,
                                     cfg.data.batch_size)
         self.is_ffc = cfg.pool.head == "ffc"
-        pipe = FFCPipeline if self.is_ffc else InstancePipeline
-        self.pipeline = pipe(reader, cfg.data.batch_size, self.image_size, seed=cfg.data.seed,
-                             num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
-                             record_limit=self.record_limit)
+        kw = dict(seed=cfg.data.seed, num_workers=cfg.data.num_workers,
+                  prefetch=cfg.data.prefetch, record_limit=self.record_limit)
+        if self.is_ffc:
+            shard = (0, 1) if self.mesh is None else (self.mesh.data_rank, self.mesh.data)
+            self.pipeline = FFCPipeline(reader, cfg.data.batch_size, self.image_size,
+                                        data_shard=shard, **kw)
+        else:
+            self.pipeline = InstancePipeline(reader, cfg.data.batch_size, self.image_size, **kw)
         self.dcp = DCPManager(cfg.pool.queue_size) if self.is_ffc else None
         if not self.is_ffc:
             if cfg.pool.num_classes <= 0:
@@ -221,14 +233,14 @@ class Trainer:
 
     def _maybe_resume(self) -> None:
         latest = self.ckpt.latest_step()
-        if self.mesh is not None and self.mesh.model > 1:  # every rank must see the same step
-            mine = torch.tensor([-1 if latest is None else latest], dtype=torch.int64,
-                                device=self.device)
-            seen = [torch.empty_like(mine) for _ in range(self.mesh.model)]
-            dist.all_gather(seen, mine, group=self.mesh.group)
-            if len({int(t) for t in seen}) != 1:
-                raise RuntimeError(f"the ranks see different checkpoints ({[int(t) for t in seen]}"
-                                   f"): they must share train.saved_dir")
+        if self.mesh is not None and dist.get_world_size() > 1:  # every rank, the same step
+            mine = -1 if latest is None else latest
+            seen = torch.tensor([mine, -mine], dtype=torch.int64, device=self.device)
+            dist.all_reduce(seen, op=dist.ReduceOp.MAX)
+            if int(seen[0]) != -int(seen[1]):
+                raise RuntimeError(f"the ranks see different checkpoints (steps "
+                                   f"{-int(seen[1])} to {int(seen[0])}): they must share "
+                                   f"train.saved_dir")
         if latest is None:
             return
         # read to the host: the host state stays there, the tensors are copied in place
@@ -275,10 +287,10 @@ class Trainer:
         timing, which saves only at ``train.save_freq``; the end of the
         epochs saves); returns the last print window's metrics (with its
         ``epoch``, ``images_per_sec`` and ``images_per_sec_chip``) plus
-        ``final_step``. On a mesh every rank trains the same batch, so the
-        rate per card is the group's rate over its ``mesh.model`` cards."""
+        ``final_step``. The rate is the global batch's; per card it is
+        over the mesh's data · model cards."""
         cfg = self.cfg
-        thr = Throughput(1 if self.mesh is None else self.mesh.model)
+        thr = Throughput(1 if self.mesh is None else self.mesh.data * self.mesh.model)
         last: dict = {}
         gstep = self.start_epoch * self.steps_per_epoch + self.start_step
         for epoch in range(self.start_epoch, cfg.optim.epochs):
@@ -292,7 +304,7 @@ class Trainer:
                 if self.is_ffc:
                     idx = self.dcp.plan_step(batch.x_label, batch.y_label)
                     m = self.train_step(self.state, batch.x, batch.y, idx, self.plateau.scale)
-                    thr.update(batch.x.shape[0] * 2)
+                    thr.update(batch.x_label.shape[0] * 2)
                 else:
                     m = self.train_step(self.state, batch.images, batch.labels,
                                         self.plateau.scale)
