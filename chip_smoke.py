@@ -395,6 +395,21 @@ the port's ``Trainer`` on ``configs/ffc_ir50_1m_ids.json`` with
     bf16 step of (a) over gloo and of its data-1 twin in this process, and
     the gradient sum alone, with the card's name and power limit (the
     ranks' collectives go through host memory: no measure of NCCL);
+the data axis of the softmax head (no kernel: the margin_ce kernels above
+on the gathered batch, ``train/softmax_head.py``), ranks spawned on this
+card over gloo as in phase 43, each running the port's ``Trainer`` on the
+softmax slice config (ir50, 512-d, 2^20 f32 classes, global batch 128):
+44. (a) ``mesh = 2 x 1`` on routes A, B, D (``SPARSE_RATE``) and E
+    (``SAMPLE_RATE``, sparse rows) and (b) ``2 x 2`` on routes A and D (D
+    at rate 1.0: every tile, so the step is the single-device one whatever
+    the model index's draws), each first step on an f32 backbone against
+    the same config at ``mesh.data = 1`` in this process by phase 43's
+    rule, applied to every backbone tensor and to the classifier and its
+    momentum (the rank's block of them), the last-visit steps equal; the
+    data replicas bit-equal on metrics, backbone and blocks; the route's
+    margin_ce kernels launched (the partial forward at 2 x 2 on route A);
+    each process's peak device memory; (c) one warm bf16 step of (a)'s
+    route A over gloo and of its data-1 twin in this process;
 then the ``kernels`` JSON line (44 entries: the ten f32 kernels, the
 twelve quad forms, the twin kernels in f32 and bf16, the eight bf16 forms
 of the margin_ce kernels, ``conv3x3``, ``conv3x3[stats]``,
@@ -4845,6 +4860,338 @@ def data_axis_phase(card: str, tmp: str) -> None:
           f"MiB of f32 gradients) {max(r['grad_sum_ms'] for r in got['c']):.1f} ms ({card})")
 
 
+# ----------------------------------------------------------------------
+# phase 44: the data axis of the softmax head (mesh.data > 1; no kernel: the
+# margin_ce kernels of phases 7-8, 11-12 and 18-19 run on the gathered batch)
+# ----------------------------------------------------------------------
+
+ROUTE_E = (f"pool.sample_rate={SAMPLE_RATE}", "pool.sparse_update=true")
+SOFTMAX_DATA_RUNS = {  # run: (mesh (data, model), backbone dtype, overrides, kernels it launches)
+    "a A": ((2, 1), "float32", (), ("margin_ce_fwd", "margin_ce_bwd_fused_sgd")),
+    "a B": ((2, 1), "float32", SHARDED_ROUTES["B"], ("margin_ce_fwd", "margin_ce_bwd")),
+    "a D": ((2, 1), "float32", SHARDED_ROUTES["D"],
+            ("margin_ce_fwd", "margin_ce_bwd_sparse", "margin_ce_bwd")),
+    "a E": ((2, 1), "float32", ROUTE_E, ()),
+    "b A": ((2, 2), "float32", (), ("margin_partial_fwd", "margin_ce_bwd_fused_sgd")),
+    "b D": ((2, 2), "float32", ("pool.sparse_update=true", "pool.sparse_grad_rate=1.0"),
+            ("margin_ce_fwd", "margin_ce_bwd_sparse", "margin_ce_bwd")),
+    "c": ((2, 1), "bfloat16", (), ()),
+}
+SOFTMAX_DATA_REF = {"b A": "a A"}  # a run held to another run's data-1 reference
+CLASS_TENSORS = ("classifier", "classifier_mom")  # split over the model axis by rows
+CHUNK = 1 << 24  # elements a f64 comparison takes at a time
+
+
+def softmax_data_trainer(store: str, saved_dir: str, run: str, shape=(1, 1)):
+    """The Trainer of the softmax slice config for ``run`` at the mesh
+    ``shape`` (data, model) over the raw-pixel store ``store``: no eval, no
+    held-out records, no checkpoint to resume."""
+    from vlsfr_tpu_torch.config import Config
+    from vlsfr_tpu_torch.train.trainer import Trainer
+
+    _, dtype, overrides, _ = SOFTMAX_DATA_RUNS[run]
+    cfg = Config().apply_overrides([
+        "model.net_type=ir50", "model.feat_dim=512", f"model.dtype={dtype}",
+        f"data.batch_size={SOFTMAX['b']}", "data.image_size=112", "pool.head=full_softmax",
+        f"pool.num_classes={SOFTMAX['c']}", "pool.classifier_dtype=float32",
+        "pool.classifier_mom_dtype=float32", "loss.loss_type=Arc", "loss.margin=0.5",
+        "loss.scale=32", "optim.lr=0.1", f"mesh.data={shape[0]}", f"mesh.model={shape[1]}",
+        "train.eval_freq=0", "train.holdout_records=0", "train.print_freq=1",
+        "train.resume=false", "data.num_workers=4", *overrides])
+    cfg.data.sources = [store]
+    cfg.train.saved_dir = saved_dir
+    return Trainer(cfg)
+
+
+def softmax_step(trainer, state, batch, ulp: bool = False) -> tuple[dict, dict]:
+    """One step of ``trainer``'s step on ``state`` and the batch: (its
+    metrics, the margin_ce launch counts); with ``ulp`` the images each
+    moved by one f32 spacing, up or down (a seeded draw)."""
+    from vlsfr_tpu_torch.ops import margin_stream as tms
+
+    images = batch.images
+    if ulp:
+        rng = np.random.default_rng(1)
+        images = np.nextafter(images, np.where(rng.random(images.shape) < 0.5, -np.inf, np.inf)
+                              .astype(np.float32))
+    tms.reset_launch_counts()
+    m = trainer.train_step(state, images, batch.labels, 1.0)
+    torch.cuda.synchronize()
+    return {k: float(v) for k, v in m.items()}, dict(tms.LAUNCH_COUNTS)
+
+
+def held_tensors(state) -> dict:
+    """The first step's tensors phase 44 holds: the backbone's parameters
+    and BN statistics, the classifier (block) and its momentum."""
+    out = dict(state.backbone.state_dict())
+    out.update({k: getattr(state, k).detach() for k in CLASS_TENSORS
+                if getattr(state, k) is not None})
+    return out
+
+
+def held_bytes(state) -> int:
+    """The device bytes of a softmax state's tensors."""
+    tensors = [*state.backbone.state_dict().values(), state.classifier, state.classifier_mom,
+               state.classifier_last]
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def max_excess(got, want, rel: float) -> float:
+    """max(|got - want| - rel |want|) in f64, CHUNK elements at a time."""
+    return max(float(((g.double() - w.double()).abs() - rel * w.double().abs()).max())
+               for g, w in zip(got.reshape(-1).split(CHUNK), want.reshape(-1).split(CHUNK)))
+
+
+def softmax_data_reference(store: str, tmp: str, run: str) -> tuple[dict, dict]:
+    """The run's config at mesh.data = 1 in this process: the first step's
+    metrics, and its tensors (and last-visit steps) for the ranks, kept on
+    the card (the ranks map them through CUDA IPC: no copy through the
+    host); then the same step from a copy of the state before it on images
+    moved by one f32 spacing, whose distance from the first per tensor
+    (``floor``) is the step's own conditioning. Returns (the readings, the
+    tensors)."""
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()  # the other runs' references
+    trainer = softmax_data_trainer(store, os.path.join(tmp, f"ref_{run}"), run)
+    try:
+        if trainer.mesh is not None:
+            raise RuntimeError("the data-1 reference must run without a mesh")
+        batch = trainer.pipeline.make_batch(0, 0)
+        before = copy.deepcopy(trainer.state)
+        torch.cuda.reset_peak_memory_stats()
+        metrics, launches = softmax_step(trainer, trainer.state, batch)
+        peak = (torch.cuda.max_memory_allocated() - base - held_bytes(before)) / 2**30
+        ref = held_tensors(trainer.state)
+        softmax_step(trainer, before, batch, ulp=True)
+        floor = {k: max_excess(v, ref[k], 0.0) for k, v in held_tensors(before).items()}
+        held = {"tensors": ref, "floor": floor, "last": trainer.state.classifier_last}
+        del before
+    finally:
+        free_trainer(trainer)
+    return dict(metrics=metrics, launches=launches, peak_gib=peak, floor=floor,
+                seconds=time.perf_counter() - t0), held
+
+
+def softmax_data_rank(rank: int, world: int, store_path: str, tmp: str, store: str,
+                      runs: tuple, refs: dict) -> None:
+    """One rank of phase 44 on the one card over a gloo group: for each run
+    the port's Trainer at its mesh, the first step held to the data-1
+    reference ``refs[run]`` (the parent's tensors on the card), or the warm
+    step timed; writes ``<run>_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from vlsfr_tpu_torch.parallel import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    distributed.initialize("cuda", backend="gloo", rank=rank, world_size=world,
+                           store_path=store_path)
+    try:
+        for run in runs:
+            shape = SOFTMAX_DATA_RUNS[run][0]
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = softmax_data_trainer(store, os.path.join(tmp, f"{run}_{rank}"), run, shape)
+            built = time.perf_counter() - t0
+            try:
+                mesh = trainer.mesh
+                if (mesh.data, mesh.model) != shape or dist.get_backend() != "gloo":
+                    raise RuntimeError(f"run {run}: mesh {mesh} over {dist.get_backend()}")
+                out = {"mesh": (mesh.data, mesh.data_rank, mesh.model, mesh.rank)}
+                st = trainer.state
+                if run == "c":
+                    out["ms"] = softmax_warm_ms(trainer, dist.barrier)
+                else:
+                    out["metrics"], out["launches"] = softmax_step(
+                        trainer, st, trainer.pipeline.make_batch(0, 0))
+                    # taken out of refs, so the mapping closes with the run: the parent
+                    # frees a block once no rank maps it (torch.cuda.ipc_collect)
+                    ref = refs.pop(run)
+                    c0, cl = mesh.class_block(SOFTMAX["c"], "pool.num_classes")
+                    ratios = []
+                    for k, v in held_tensors(st).items():
+                        want = ref["tensors"][k]
+                        want = want[c0:c0 + cl] if k in CLASS_TENSORS else want
+                        # max(|diff| - 1e-5 |ref|) over 2e-5 plus four times the data-1
+                        # step's own move under a one-spacing change of its images
+                        ratios.append((max_excess(v, want, 1e-5) / (2e-5 + 4 * ref["floor"][k]),
+                                       k, ref["floor"][k]))
+                    out["tensors"] = sorted(ratios)[-3:]
+                    out["classifier_ratio"] = next(r for r in ratios if r[1] == "classifier")
+                    if st.classifier_last is not None:
+                        out["last_equal"] = torch.equal(st.classifier_last,
+                                                        ref["last"][c0:c0 + cl])
+                    out["backbone_digest"] = digest(st.backbone.state_dict().values())
+                    out["block_digest"] = fingerprint(
+                        [t for t in (st.classifier, st.classifier_mom, st.classifier_last)
+                         if t is not None])
+                    del ref, want
+                out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            finally:
+                trainer.close()
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+            out["seconds"] = (built, time.perf_counter() - t0)  # the Trainer built, all of it
+            torch.save(out, os.path.join(tmp, f"{run}_rank{rank}.pt"))
+    finally:
+        refs.clear()
+        gc.collect()
+        distributed.destroy()
+
+
+def softmax_warm_ms(trainer, barrier=None) -> float:
+    """One untimed step (batch 0), then the wall time of one more (batch 1),
+    ended by a synchronise (after ``barrier``, the ranks starting together)."""
+    for s in range(2):
+        batch = trainer.pipeline.make_batch(0, s)
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(trainer.state, batch.images, batch.labels, 1.0)["loss"])
+        torch.cuda.synchronize()
+        if not math.isfinite(loss):
+            raise RuntimeError(f"a non-finite loss: {loss}")
+    return (time.perf_counter() - t0) * 1e3
+
+
+def fingerprint(tensors) -> int:
+    """A position-weighted sum of the tensors' 32-bit words on their device,
+    wrapping in int64: equal for equal bits, and for a [C, D] block no copy
+    to the host (bit-equality across ranks)."""
+    total, pos = 0, 0
+    for t in tensors:
+        for chunk in t.detach().contiguous().view(torch.int32).reshape(-1).split(CHUNK):
+            w = torch.arange(pos, pos + chunk.numel(), device=chunk.device) * 2654435761 + 1
+            total += int((w * chunk).sum())
+            pos += chunk.numel()
+    return total
+
+
+def softmax_twin_ms(store: str, tmp: str) -> float:
+    """(c)'s data-1 twin in this process: ``softmax_warm_ms``, its state
+    freed before the references are built."""
+    twin = softmax_data_trainer(store, os.path.join(tmp, "twin"), "c")
+    try:
+        return softmax_warm_ms(twin)
+    finally:
+        free_trainer(twin)
+
+
+def softmax_data_spawn(world: int, tmp: str, store: str, runs: tuple,
+                       refs: dict) -> list[list[dict]]:
+    """``runs`` over ``world`` spawned ranks on the one card, each held to
+    its data-1 reference in ``refs`` (CUDA tensors of this process, which
+    the ranks map through CUDA IPC); per run the ranks' records."""
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) as {world} ranks start")
+    t0 = time.perf_counter()
+    # the ranks share one card: without expandable segments the caching
+    # allocator reserves about a third more than the step allocates (phase
+    # 43); the ranks read it when CUDA starts, which unpickling refs does
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        mp.spawn(softmax_data_rank,
+                 args=(world, os.path.join(tmp, f"softmax_store{world}"), tmp, store, runs,
+                       {run: refs[SOFTMAX_DATA_REF.get(run, run)] for run in runs
+                        if run in refs or run in SOFTMAX_DATA_REF}),
+                 nprocs=world, join=True)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    print(f"  {world} ranks spawned and joined in {time.perf_counter() - t0:.1f} s")
+    return [[torch.load(os.path.join(tmp, f"{run}_rank{r}.pt"), weights_only=False)
+             for r in range(world)] for run in runs]
+
+
+def softmax_data_check(run: str, ref: dict, ranks: list[dict]) -> None:
+    """The ranks' first step against the data-1 reference (f32 backbone):
+    loss 1e-5 relative; each tensor of ``held_tensors`` by phase 43's rule
+    (ratio at most 1); the last-visit steps equal; the data replicas
+    bit-equal; the run's kernels launched at least once on every rank."""
+    (d, m), _, _, kernels = SOFTMAX_DATA_RUNS[run]
+    loss_ref = ref["metrics"]["loss"]
+    loss_gap = max(abs(r["metrics"]["loss"] / loss_ref - 1) for r in ranks)
+    worst = max(r["tensors"][-1][0] for r in ranks)
+    last_ok = all(r.get("last_equal", True) for r in ranks)
+    replicas = (len({r["backbone_digest"] for r in ranks}) == 1
+                and all(ranks[i]["block_digest"] == ranks[i % m]["block_digest"]
+                        for i in range(len(ranks)))
+                and len({json.dumps(r["metrics"], sort_keys=True) for r in ranks}) == 1)
+    launched = {k: v for k, v in ranks[0]["launches"].items() if v}
+    launches_ok = all(r["launches"].get(k, 0) >= 1 for r in ranks for k in kernels)
+    cls = max((r["classifier_ratio"] for r in ranks), key=lambda t: t[0])
+    print(f"  ({run}) mesh {d} x {m}, global batch {SOFTMAX['b']} ({SOFTMAX['b'] // d} rows a "
+          f"rank), f32 backbone, first step against mesh.data = 1 in one process: loss "
+          f"{ranks[0]['metrics']['loss']:.6f} / {loss_ref:.6f} (apart {loss_gap:.2e}, limit 1e-5 "
+          f"relative); backbone, classifier and momentum after the step, max(|diff| - 1e-5 "
+          f"|ref|) over (2e-5 + 4 x the data-1 step's move under a one-spacing change of its "
+          f"images), the three highest (ratio, tensor, move): {ranks[0]['tensors'][::-1]} "
+          f"(limit 1; the classifier's {cls[0]:.3e}, move {cls[2]:.3e}); last-visit steps "
+          f"equal: {last_ok}; data replicas bit-equal on the metrics, backbone and blocks: "
+          f"{replicas}; margin_ce launches {launched} (want at least one of {list(kernels)})")
+    print(f"  ({run}) peak device memory a process: "
+          + ", ".join(f"rank {i} {r['peak_gib']:.2f} GiB" for i, r in enumerate(ranks))
+          + f"; the data-1 reference {ref['peak_gib']:.2f} GiB; seconds a rank (the Trainer "
+          f"built, the run) {[tuple(round(t, 1) for t in r['seconds']) for r in ranks]}, the "
+          f"reference {ref['seconds']:.1f}")
+    if not (loss_gap <= 1e-5 and worst <= 1 and last_ok and replicas and launches_ok):
+        raise RuntimeError(f"phase 44 ({run}): the data axis disagrees with mesh.data = 1")
+
+
+def softmax_data_phase(card: str, tmp: str) -> None:
+    """Phase 44: the softmax slice config on the data axis, its ranks
+    spawned as processes on the one card over a gloo group on CUDA tensors:
+    (a) mesh 2 x 1 on routes A, B, D and E, (b) 2 x 2 on routes A and D,
+    each first step on an f32 backbone held to the same config at
+    mesh.data = 1 in this process; (c) one warm bf16 step of (a)'s route A
+    and of its data-1 twin."""
+    from vlsfr_tpu_torch.data.synthetic import generate_synthetic_store
+
+    store = os.path.join(tmp, "store")
+    generate_synthetic_store(store, num_ids=DATA_STORE[0], images_per_id=DATA_STORE[1],
+                             image_size=112, seed=0)
+    runs_a, runs_b = ("a A", "a B", "a D", "a E"), ("b A", "b D")
+    twin_ms = softmax_twin_ms(store, tmp)
+    refs, held = {}, {}
+    for run in runs_a:
+        refs[run], held[run] = softmax_data_reference(store, tmp, run)
+    got = dict(zip(runs_a + ("c",), softmax_data_spawn(2, tmp, store, runs_a + ("c",), held)))
+    for run in runs_a:
+        softmax_data_check(run, refs[run], got[run])
+    for run in ("a B", "a D", "a E"):  # (b) holds to "a A" and its own
+        del held[run]
+    gc.collect()
+    torch.cuda.ipc_collect()  # the blocks the ranks mapped, now released
+    torch.cuda.empty_cache()
+    refs["b D"], held["b D"] = softmax_data_reference(store, tmp, "b D")
+    refs["b A"] = refs["a A"]
+    got.update(zip(runs_b, softmax_data_spawn(4, tmp, store, runs_b, held)))
+    del held
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    for run in runs_b:
+        softmax_data_check(run, refs[run], got[run])
+    each = [r["ms"] for r in got["c"]]
+    times = ", ".join(f"{t:.1f}" for t in each)
+    peaks = ", ".join(f"{r['peak_gib']:.2f}" for r in got["c"])
+    print(f"  (c) one warm bf16 route-A step at global batch {SOFTMAX['b']}: mesh 2 x 1 over gloo "
+          f"(the ranks' collectives through host memory, both on this card) {max(each):.1f} ms "
+          f"(the slower rank; ranks {times}), mesh.data = 1 in one process {twin_ms:.1f} ms; "
+          f"ratio {max(each) / twin_ms:.3f}, no measure of NCCL; peak {peaks} GiB a rank "
+          f"({card})")
+
+
 BF16_KERNELS = (  # the kernels line's bf16 forms: (name, the TPU kernel it replaces)
     ("margin_ce_fwd[bf16]", "margin_pallas.py:390"),
     ("margin_ce_bwd[bf16]", "margin_pallas.py:557"),
@@ -5108,6 +5455,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data_axis_phase(card, tmp)
     print(f"  phase 43 {time.perf_counter() - t0:.1f} s")
+    print(f"== phase 44: the data axis of the softmax head, the softmax slice (ir50, 2^20 f32 "
+          f"classes, global batch {SOFTMAX['b']}): (a) mesh 2 x 1 on routes A, B, D and E, (b) "
+          f"2 x 2 on routes A and D, ranks spawned on this card over gloo, each first step (f32 "
+          f"backbone) against mesh.data = 1; (c) a warm bf16 route-A step of (a) and its data-1 "
+          f"twin")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        softmax_data_phase(card, tmp)
+    print(f"  phase 44 {time.perf_counter() - t0:.1f} s")
     print(f"  chip_smoke.py {time.perf_counter() - t_start:.1f} s ({card})")
 
     fwd_keys = ("ce", "neg", "logz", "topk")

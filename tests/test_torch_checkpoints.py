@@ -13,8 +13,10 @@ Cases: the FFC head on a dense f32 queue (with the plateau scheduler, so
 its state moves) and on the fused head's int8 queue; the softmax head's
 route A (fused SGD, bare momentum) and route D (sparse rows, last-visit
 steps); the sharded FFC head at ``mesh.model = 2`` over 2 spawned gloo
-ranks, one block of the queue per rank. The spawned ranks import this
-module by name, so it imports nothing of JAX.
+ranks, one block of the queue per rank; and on the data axis the FFC head
+and the softmax head's routes A and D (resume at 2 x 1, and at another
+``mesh.data``). The spawned ranks import this module by name, so it
+imports nothing of JAX.
 """
 
 import os
@@ -459,9 +461,13 @@ def test_resume_refuses_another_padded_class_count(recut):
 DATA_SAVE_AT = 3
 
 
-def _mesh_cfg(data, saved_dir, shape, epochs=1):
-    return _cfg(data, saved_dir, ["pool.use_fused=on", f"mesh.data={shape[0]}",
-                                  f"mesh.model={shape[1]}"], epochs)
+SOFTMAX_CASES = ("softmax_A", "softmax_D")  # the softmax head's data axis
+
+
+def _mesh_cfg(data, saved_dir, shape, epochs=1, case=None):
+    extra = ["pool.use_fused=on"] if case is None else CASES[case]
+    return _cfg(data, saved_dir, [*extra, f"mesh.data={shape[0]}", f"mesh.model={shape[1]}"],
+                epochs)
 
 
 def _losses_of(trainer, steps) -> np.ndarray:
@@ -478,9 +484,9 @@ def _losses_of(trainer, steps) -> np.ndarray:
     return np.asarray(losses)
 
 
-def _save_at(data, saved_dir, shape) -> dict:
+def _save_at(data, saved_dir, shape, case=None) -> dict:
     """DATA_SAVE_AT steps at ``shape``, ``_save``: the saved state."""
-    t = Trainer(_mesh_cfg(data, saved_dir, shape), device="cpu")
+    t = Trainer(_mesh_cfg(data, saved_dir, shape, case=case), device="cpu")
     try:
         t.train(max_steps=DATA_SAVE_AT)
         t._save(DATA_SAVE_AT)
@@ -489,9 +495,9 @@ def _save_at(data, saved_dir, shape) -> dict:
         t.close()
 
 
-def _resume_at(data, saved_dir, shape) -> dict:
+def _resume_at(data, saved_dir, shape, case=None) -> dict:
     """Resume at ``shape``: the restored state, then the next step's loss."""
-    t = Trainer(_mesh_cfg(data, saved_dir, shape), device="cpu")
+    t = Trainer(_mesh_cfg(data, saved_dir, shape, case=case), device="cpu")
     try:
         out = {f"restored{k}": v for k, v in _snapshot(t).items()}
         out["next_loss"] = _losses_of(t, DATA_SAVE_AT + 1)
@@ -508,6 +514,9 @@ def _data_axis_rank(rank, world, store_path, data, root):
         if world == 4:  # 2 x 2
             out.update({f"saved22{k}": v for k, v in
                         _save_at(data, os.path.join(root, "m22"), (2, 2)).items()})
+            for case in SOFTMAX_CASES:
+                out.update({f"{case}/saved22{k}": v for k, v in _save_at(
+                    data, os.path.join(root, f"{case}_m22"), (2, 2), case).items()})
         else:
             for name, run, epochs in (("straight", "a", 2), ("first", "b", 1),
                                       ("resumed", "b", 2)):
@@ -530,6 +539,20 @@ def _data_axis_rank(rank, world, store_path, data, root):
             for source in ("m21", "m22"):  # at 1 x 2
                 out.update({f"{source}/12/{k}": v for k, v in
                             _resume_at(data, os.path.join(root, source), (1, 2)).items()})
+            for case in SOFTMAX_CASES:  # the softmax head: resume at 2 x 1, save, 2 x 2 -> 1 x 2
+                for name, run, epochs in (("straight", "a", 2), ("first", "b", 1),
+                                          ("resumed", "b", 2)):
+                    t = Trainer(_mesh_cfg(data, os.path.join(root, f"{case}_{run}"), (2, 1),
+                                          epochs, case), device="cpu")
+                    try:
+                        t.train()
+                        out.update({f"{case}/{name}{k}": v for k, v in _snapshot(t).items()})
+                    finally:
+                        t.close()
+                out.update({f"{case}/saved21{k}": v for k, v in _save_at(
+                    data, os.path.join(root, f"{case}_m21"), (2, 1), case).items()})
+                out.update({f"{case}/m22/12/{k}": v for k, v in _resume_at(
+                    data, os.path.join(root, f"{case}_m22"), (1, 2), case).items()})
         np.savez(os.path.join(root, f"data{world}_rank{rank}.npz"), **out)
     finally:
         distributed.destroy()
@@ -547,6 +570,9 @@ def data_axis(store, tmp_path_factory):
         spawn(_data_axis_rank, 2, str(tmp / "fs2"), store, root)
         out = {f"m21/11/{k}": v for k, v in
                _resume_at(store, os.path.join(root, "m21"), (1, 1)).items()}
+        for case in SOFTMAX_CASES:
+            out.update({f"{case}/m21/11/{k}": v for k, v in _resume_at(
+                store, os.path.join(root, f"{case}_m21"), (1, 1), case).items()})
         np.savez(tmp / "data1_rank0.npz", **out)
 
     tmp = once(tmp_path_factory, "ckpt_data_axis", build)
@@ -611,3 +637,45 @@ def test_resume_at_another_data_axis(source, target, data_axis):
         assert int(got["/0/step"]) == DATA_SAVE_AT
         np.testing.assert_allclose(out[f"{source}/{target}/next_loss"][-1],
                                    runs[2][0]["uninterrupted"][DATA_SAVE_AT], rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", SOFTMAX_CASES)
+def test_softmax_data_axis_resume_matches_uninterrupted(case, data_axis):
+    """The softmax head at ``mesh = 2 x 1`` (route A, and route D with its
+    last-visit steps): 2 epochs straight against 1 epoch, then a fresh
+    Trainer resuming for the second, bit for bit on both ranks; the two data
+    ranks hold the same state (data index 1 resumes with data index 0's
+    process generators, which the step does not draw from)."""
+    _, runs = data_axis
+    for rank, out in enumerate(runs[2]):
+        assert out[f"{case}/resumed/start"].tolist() == [1, 0]
+        _assert_same(_state_of(out, f"{case}/straight"), _state_of(out, f"{case}/resumed"),
+                     skip=("/start",) if rank == 0 else ("/start", "/1/rng/cpu"))
+        _assert_same(_state_of(out, f"{case}/resumed"), _state_of(runs[2][0], f"{case}/resumed"))
+    if case == "softmax_D":
+        assert int(runs[2][0][f"{case}/resumed/1/classifier_last"].max()) > 0
+
+
+@pytest.mark.parametrize("case", SOFTMAX_CASES)
+@pytest.mark.parametrize("source,target", [("m21", "11"), ("m22", "12")])
+def test_softmax_resume_at_another_data_axis(source, target, case, data_axis):
+    """The softmax head saved at ``mesh = 2 x 1`` resumes at 1 x 1, saved at
+    2 x 2 at 1 x 2: each rank restores its model index's block at data
+    index 0 bit for bit (classifier, momentum, last-visit steps, and the
+    modules, optimizer, step and generators), and only data index 0 wrote a
+    block; the next step's loss is finite."""
+    tmp, runs = data_axis
+    saved = runs[2 if source == "m21" else 4]
+    resumed = runs[1] if target == "11" else runs[2]
+    for rank, out in enumerate(resumed):
+        got = _state_of(out, f"{case}/{source}/{target}/restored")
+        want = _state_of(saved[rank], f"{case}/saved{source[1:]}")
+        for name in ("classifier", "classifier_mom") + (
+                ("classifier_last",) if case == "softmax_D" else ()):
+            assert f"/1/{name}" in got
+        _assert_same(want, got)
+        assert int(got["/0/step"]) == DATA_SAVE_AT
+        assert np.isfinite(out[f"{case}/{source}/{target}/next_loss"]).all()
+    blocks = ["rank0.pt"] if source == "m21" else ["rank0.pt", "rank1.pt"]
+    d = os.path.join(str(tmp), f"{case}_{source}", str(DATA_SAVE_AT))
+    assert sorted(os.listdir(d)) == blocks + ["replicated.pt"]

@@ -43,8 +43,9 @@ package's GSPMD step on a CPU mesh, with the batch placed by
   dense head, the queue blocks joined over the model ranks.
 * The ``Trainer`` at ``mesh.data = 2`` (and 2 x 2), dense and quad heads,
   against the ``Trainer`` at ``mesh.data = 1`` on the same synthetic store
-  and global batch: 3 steps, each loss 1e-5 relative; a batch that is not
-  a multiple of 2·d raises.
+  and global batch: 3 steps, each loss 1e-5 relative, also at a global
+  batch of 6 (3 rows a rank: JAX asks only for an even batch that splits
+  over the data axis); a batch that does not split over d raises.
 * Four planted faults, each of which must fail the 2 x 1 check of the
   ``bn_stats_rows`` case on every rank: d_emb summed over the data group
   instead of sliced, the gradients averaged over it instead of summed,
@@ -261,19 +262,20 @@ def _trajectory(name, world, mesh, tmp, out, prefix=""):
         out.update({f"{key}/{s}/p/{k}": v.numpy().copy() for k, v in net.state_dict().items()})
 
 
-def _trainer_losses(world, head, data_axis, tmp, rank):
+def _trainer_losses(world, head, data_axis, tmp, rank, batch=8):
     """The losses of 3 Trainer steps (the dense or quad head) at the
     world's mesh (``data_axis``) or at mesh.data = 1 (one process)."""
     from vlsfr_tpu_torch.train.trainer import Trainer
 
     data, model = SHAPES[world] if data_axis else (1, 1)
     cfg = Config().apply_overrides(
-        ["model.net_type=toy", f"model.feat_dim={D}", "data.batch_size=8", "data.image_size=16",
+        ["model.net_type=toy", f"model.feat_dim={D}", f"data.batch_size={batch}",
+         "data.image_size=16",
          "data.synthetic_ids=30", "data.synthetic_images_per_id=3", "data.num_workers=1",
          "model.dtype=float32", "train.print_freq=1", "optim.lr=0.05", "pool.queue_size=64",
          *TRAINER_HEADS[head], f"mesh.data={data}", f"mesh.model={model}"])
     cfg.data.synthetic = True
-    cfg.train.saved_dir = os.path.join(tmp, f"trainer_{world}_{head}_{data}_{rank}")
+    cfg.train.saved_dir = os.path.join(tmp, f"trainer_{world}_{head}_{data}_{batch}_{rank}")
     t = Trainer(cfg, device="cpu")
     losses, run = [], t.train_step
 
@@ -312,6 +314,8 @@ def _rank(rank, world, store, tmp):
         for head in TRAINER_HEADS:
             losses, shape = _trainer_losses(world, head, True, tmp, rank)
             out[f"trainer/{head}"], out[f"trainer/{head}/queue_shape"] = losses, np.asarray(shape)
+        if world == 2:  # 3 rows a rank
+            out["trainer/quad-b6"] = _trainer_losses(world, "quad", True, tmp, rank, batch=6)[0]
         np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
     finally:
         distributed.destroy()
@@ -656,38 +660,52 @@ def test_trainer_on_the_data_axis_matches_data1(head, world, world2, world4, tmp
     assert list(shape) == [2, Q, D]
 
 
-def test_batch_must_split_over_twice_the_data_axis(tmp_path):
-    """``data.batch_size % (2 · mesh.data)`` must be 0: the pipeline names
-    both numbers."""
-    from vlsfr_tpu_torch.data.pipeline import FFCPipeline
+def test_trainer_at_three_rows_a_rank_matches_data1(world2, tmp_path):
+    """A global batch of 6 over ``mesh.data = 2`` (3 rows a rank: the batch
+    need only be even and split over the data axis, as in JAX) against
+    ``mesh.data = 1``: the quad head's Trainer, 3 steps, each loss 1e-5
+    relative, both ranks the same."""
+    want, _ = _trainer_losses(2, "quad", False, str(tmp_path), 0, batch=6)
+    ranks = world2[2]
+    for out in ranks:
+        np.testing.assert_allclose(out["trainer/quad-b6"], want, rtol=1e-5)
+        np.testing.assert_array_equal(out["trainer/quad-b6"], ranks[0]["trainer/quad-b6"])
+
+
+def test_batch_must_split_over_the_data_axis(tmp_path):
+    """``data.batch_size % mesh.data`` must be 0 in both pipelines (the
+    error names both numbers); each rank decodes its rows, in
+    ``batch_sharding`` order, also at 3 rows a rank, and the labels stay
+    global."""
+    from vlsfr_tpu_torch.data.pipeline import FFCPipeline, InstancePipeline
     from vlsfr_tpu_torch.data.records import MultiSourceReader
     from vlsfr_tpu_torch.data.synthetic import generate_synthetic_store
 
     generate_synthetic_store(str(tmp_path), num_ids=6, images_per_id=2, image_size=16, seed=0)
     reader = MultiSourceReader([str(tmp_path)])
+    made = {}
     try:
-        with pytest.raises(ValueError, match="batch_size=6 must be a multiple of 2 x mesh.data=2"):
-            FFCPipeline(reader, 6, 16, num_workers=1, data_shard=(0, 2))
-        halves = []
-        for i in range(2):
-            pipe = FFCPipeline(reader, 8, 16, num_workers=1, data_shard=(i, 2))
-            try:
-                halves.append(pipe.make_batch(0, 0))
-            finally:
-                pipe.close()
-        whole = FFCPipeline(reader, 8, 16, num_workers=1)
-        try:
-            full = whole.make_batch(0, 0)
-        finally:
-            whole.close()
+        for pipeline in (FFCPipeline, InstancePipeline):
+            with pytest.raises(ValueError, match="batch_size=6 must be a multiple of mesh.data=4"):
+                pipeline(reader, 6, 16, num_workers=1, data_shard=(0, 4))
+            for shard in ((0, 2), (1, 2), (0, 1)):
+                pipe = pipeline(reader, 6, 16, num_workers=1, data_shard=shard)
+                try:
+                    made[pipeline.__name__, shard] = pipe.make_batch(0, 0)
+                finally:
+                    pipe.close()
     finally:
         reader.close()
-    for key in ("x", "y"):  # each rank decodes its rows, in batch_sharding order
-        np.testing.assert_array_equal(np.concatenate([getattr(h, key) for h in halves]),
-                                      getattr(full, key))
-    for h in halves:  # the labels stay global
-        np.testing.assert_array_equal(h.x_label, full.x_label)
-        np.testing.assert_array_equal(h.y_label, full.y_label)
+    for name, keys, labels in (("FFCPipeline", ("x", "y"), ("x_label", "y_label")),
+                               ("InstancePipeline", ("images",), ("labels",))):
+        halves, full = [made[name, (i, 2)] for i in range(2)], made[name, (0, 1)]
+        for key in keys:
+            assert getattr(halves[0], key).shape[0] == 3
+            np.testing.assert_array_equal(np.concatenate([getattr(h, key) for h in halves]),
+                                          getattr(full, key))
+        for h in halves:
+            for key in labels:
+                np.testing.assert_array_equal(getattr(h, key), getattr(full, key))
 
 
 def test_mesh_data_resolves_and_refuses_another_world(monkeypatch):
@@ -712,15 +730,13 @@ def test_mesh_data_resolves_and_refuses_another_world(monkeypatch):
                                           "pool.use_fused=on"]), device="cpu")
     with pytest.raises(ValueError, match="torchrun --standalone --nproc_per_node=2"):
         Trainer(Config().apply_overrides(["model.net_type=toy", "mesh.data=2"]), device="cpu")
-    # the softmax head's data axis is refused first, also where -1 resolves above 1
-    with pytest.raises(NotImplementedError, match="softmax head's data axis"):
+    # the softmax head's data axis too (tests/test_torch_softmax_data_axis.py
+    # runs it); -1 resolves above 1 there as here
+    with pytest.raises(ValueError, match="torchrun --standalone --nproc_per_node=2"):
         Trainer(Config().apply_overrides(["model.net_type=toy", "pool.head=full_softmax",
                                           "pool.num_classes=96", "mesh.data=2"]), device="cpu")
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="softmax head's data axis"):
-        Trainer(Config().apply_overrides(["model.net_type=toy", "pool.head=full_softmax",
-                                          "pool.num_classes=96", "mesh.data=-1",
-                                          "mesh.model=2"]), device="cpu")
+    assert check_shape(-1, 2) == (2, 2)
 
 
 def _gather_on_card(rank, world, store, out_dir):

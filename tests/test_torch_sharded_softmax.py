@@ -733,10 +733,11 @@ def test_trainer_routes_at_model2(route, world2):
     assert ranks[0][f"trainer/{route}/loss"] == ranks[1][f"trainer/{route}/loss"]
 
 
-@pytest.mark.parametrize("bad", [["mesh.data=2"]])
+@pytest.mark.parametrize("bad", [["optim.optim=RMSprop"]])
 def test_trainer_refuses_unported_at_model2(bad, tmp_path):
-    """The data axis raises "not ported yet" before any process group
-    exists (routes C and E run on a mesh: tests/test_torch_dense_mesh.py)."""
+    """RMSprop raises "not ported yet" before any process group exists
+    (routes C and E run on a mesh: tests/test_torch_dense_mesh.py; the data
+    axis: tests/test_torch_softmax_data_axis.py)."""
     from vlsfr_tpu_torch.train.trainer import Trainer
 
     cfg = Config().apply_overrides(["model.net_type=toy", "pool.head=full_softmax",

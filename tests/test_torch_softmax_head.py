@@ -277,11 +277,12 @@ def test_trainer_sparse_routes_cpu_run(route, tmp_path):
     assert tms.LAUNCH_COUNTS == NO_LAUNCH
 
 
-@pytest.mark.parametrize("bad", [["mesh.data=2", "pool.classifier_dtype=bfloat16"],
-                                 ["mesh.data=2"]])
+@pytest.mark.parametrize("bad", [["optim.optim=RMSprop", "pool.classifier_dtype=bfloat16"],
+                                 ["optim.optim=RMSprop"]])
 def test_unported_options_raise(bad):
-    """Still refused, at an f32 or a bf16 classifier: the data axis (every
-    route runs on a class-sharded mesh)."""
+    """Still refused, at an f32 or a bf16 classifier: RMSprop (every route
+    runs on a class-sharded mesh and on the data axis,
+    tests/test_torch_softmax_data_axis.py)."""
     cfg = Config().apply_overrides(BASE + ROUTES["A"] + bad)
     with pytest.raises(NotImplementedError):
         create_softmax_state(create_net("toy", feat_dim=D), cfg, C, device="cpu")

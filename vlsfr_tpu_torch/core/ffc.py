@@ -56,7 +56,8 @@ from torch import nn
 
 from vlsfr_tpu_torch.config import Config
 from vlsfr_tpu_torch.core.dcp import PassIndices, StepIndices
-from vlsfr_tpu_torch.models.layers import sync_batch_norm
+# dropout_seed is re-exported
+from vlsfr_tpu_torch.models.layers import data_axis_forward, dropout_seed  # noqa: F401
 from vlsfr_tpu_torch.ops.margin import add_margin, default_hard_neg, kernel_width_ok
 from vlsfr_tpu_torch.ops.qqueue import quantize_rows
 from vlsfr_tpu_torch.ops.quant import int8_conv_inference
@@ -345,11 +346,6 @@ def check_kernel_width(cfg: Config, device) -> None:
             f"of 64 up to 512) is not ported yet")
 
 
-def dropout_seed(seed: int, data_index: int, step: int) -> int:
-    """The seed of a step's dropout draws at a data index."""
-    return int(np.random.SeedSequence([seed, data_index, step]).generate_state(1)[0])
-
-
 def make_train_step(cfg: Config, schedule, mesh=None):
     """``step(state, x, y, idx, lr_scale) -> metrics``: runs one FFC step,
     updating ``state`` in place. ``x``/``y`` are NHWC batches (numpy or
@@ -390,32 +386,9 @@ def make_train_step(cfg: Config, schedule, mesh=None):
     # the no-gradient EMA forward on int8 convs (ops/quant.py); BN stays in
     # train mode and the probe's forward is untouched
     gallery_ctx = int8_conv_inference if pool.gallery_int8 else contextlib.nullcontext
-    d, di = (1, 0) if mesh is None else (mesh.data, mesh.data_rank)
-    dropout = cfg.model.dropout > 0
-
-    def batch_norm_ctx(b: int, segments: int, dev):
-        """BatchNorm over the data group: this rank's rows of ``segments``
-        global batches of d·b rows concatenated."""
-        if d == 1:
-            return contextlib.nullcontext()
-        local = torch.arange(b, device=dev) + di * b
-        rows = torch.cat([local + j * d * b for j in range(segments)])
-        return sync_batch_norm(mesh.data_group, rows, segments * d * b)
-
-    @contextlib.contextmanager
-    def dropout_rng(dev, step_no: int):
-        """Dropout's draws (``model.dropout`` > 0) from the generators
-        seeded by (``data.seed``, this data index, the step), the
-        process's own restored after."""
-        if not dropout:
-            yield
-            return
-        seed = dropout_seed(cfg.data.seed, di, step_no)
-        with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
-            torch.random.default_generator.manual_seed(seed)
-            if dev.type == "cuda":
-                torch.cuda.manual_seed(seed)
-            yield
+    d = 1 if mesh is None else mesh.data
+    # dropout's draws (model.dropout > 0) from (data.seed, data index, step)
+    seed = cfg.data.seed if cfg.model.dropout > 0 else None
 
     def step(state: FFCState, x, y, idx: StepIndices, lr_scale: float = 1.0) -> dict:
         dev = state.queue.device
@@ -429,22 +402,23 @@ def make_train_step(cfg: Config, schedule, mesh=None):
         probe.train()
         gallery.train()
         b = x.shape[0]
-        with dropout_rng(dev, state.step):
+        # on the data axis BatchNorm over this rank's rows of the global
+        # batch (fuse_forward: of two global batches, x ⧺ y)
+        with data_axis_forward(mesh, b, dev, segments=2 if fuse_fwd else 1, seed=seed,
+                               step=state.step):
             if fuse_fwd:
                 # one 2B forward per net; BN statistics then span 2B samples
-                with batch_norm_ctx(b, 2, dev):
-                    p_xy = probe(torch.cat([x, y]))
-                    with torch.no_grad(), gallery_ctx():
-                        g_yx = gallery(torch.cat([y, x]))
+                p_xy = probe(torch.cat([x, y]))
+                with torch.no_grad(), gallery_ctx():
+                    g_yx = gallery(torch.cat([y, x]))
                 p_x, p_y, g_y, g_x = p_xy[:b], p_xy[b:], g_yx[:b], g_yx[b:]
             else:
-                with batch_norm_ctx(b, 1, dev):
-                    p_x = probe(x)
-                    with torch.no_grad(), gallery_ctx():
-                        g_y = gallery(y)
-                    p_y = probe(y)
-                    with torch.no_grad(), gallery_ctx():
-                        g_x = gallery(x)
+                p_x = probe(x)
+                with torch.no_grad(), gallery_ctx():
+                    g_y = gallery(y)
+                p_y = probe(y)
+                with torch.no_grad(), gallery_ctx():
+                    g_x = gallery(x)
         if d > 1:  # the head runs on the global batch
             p_xy = distributed.gather_rows(torch.stack([p_x, p_y], 1), mesh.data_group)
             with torch.no_grad():

@@ -32,6 +32,16 @@ def _rng(*key: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence(entropy=key))
 
 
+def shard_rows(batch_size: int, data_shard: tuple[int, int]) -> slice:
+    """Data index i's rows ``[i·B/d, (i+1)·B/d)`` of a global batch of B,
+    ``data_shard = (i, d)`` (JAX's ``batch_sharding`` order); B must split
+    evenly over d."""
+    i, d = data_shard
+    if batch_size % d:
+        raise ValueError(f"data.batch_size={batch_size} must be a multiple of mesh.data={d}")
+    return slice(i * batch_size // d, (i + 1) * batch_size // d)
+
+
 def _decode_jpeg(payload: bytes) -> np.ndarray:
     try:
         import cv2
@@ -178,11 +188,7 @@ class FFCPipeline:
                  record_limit: int | None = None, data_shard: tuple[int, int] = (0, 1)):
         if batch_size % 2:
             raise ValueError("FFC batch composition needs an even batch")
-        i, d = data_shard
-        if batch_size % (2 * d):
-            raise ValueError(f"data.batch_size={batch_size} must be a multiple of 2 x "
-                             f"mesh.data={d}")
-        self.rows = slice(i * batch_size // d, (i + 1) * batch_size // d)
+        self.rows = shard_rows(batch_size, data_shard)
         self.reader = reader
         self.batch_size = batch_size
         self.image_size = image_size
@@ -273,19 +279,23 @@ def _prefetch_iter(pipe, epoch: int, start_step: int, stop_step: int | None):
 class InstanceBatch:
     """One full-softmax step batch (host numpy, NHWC)."""
 
-    images: np.ndarray  # [B, H, W, 3] float32
-    labels: np.ndarray  # [B] int32
+    images: np.ndarray  # [B, H, W, 3] float32 (a data rank's [B/d, H, W, 3])
+    labels: np.ndarray  # [B] int32, global
     epoch: int
     step: int
 
 
 class InstancePipeline:
     """Plain (image, label) batches for full-softmax training: the shuffled
-    ``InstanceStream`` with a random flip per image."""
+    ``InstanceStream`` with a random flip per image. ``data_shard = (i,
+    d)``, as ``FFCPipeline``'s: every rank plans the same global step and
+    decodes only its rows ``[i·B/d, (i+1)·B/d)`` of ``images``; ``labels``
+    stay global."""
 
     def __init__(self, reader: MultiSourceReader, batch_size: int, image_size: int,
                  seed: int = 0, num_workers: int = 8, prefetch: int = 2,
-                 record_limit: int | None = None):
+                 record_limit: int | None = None, data_shard: tuple[int, int] = (0, 1)):
+        self.rows = shard_rows(batch_size, data_shard)
         self.reader = reader
         self.batch_size = batch_size
         self.image_size = image_size
@@ -306,9 +316,10 @@ class InstancePipeline:
 
     def make_batch(self, epoch: int, step: int) -> InstanceBatch:
         idx, flips, labels = self.batch_plan(epoch, step)
+        sl = self.rows
         imgs = list(self.pool.map(
             lambda rec, flip: normalize(decode_image(self.reader.payload(int(rec)),
-                                                     self.image_size), flip), idx, flips))
+                                                     self.image_size), flip), idx[sl], flips[sl]))
         return InstanceBatch(images=np.stack(imgs), labels=labels, epoch=epoch, step=step)
 
     def epoch_iter(self, epoch: int, start_step: int = 0, stop_step: int | None = None):

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -61,6 +62,35 @@ def sync_batch_norm(group, rows: torch.Tensor, n: int):
         yield
     finally:
         _SYNC = prev
+
+
+def dropout_seed(seed: int, data_index: int, step: int) -> int:
+    """The seed of a step's dropout draws at a data index."""
+    return int(np.random.SeedSequence([seed, data_index, step]).generate_state(1)[0])
+
+
+@contextlib.contextmanager
+def data_axis_forward(mesh, b: int, dev: torch.device, *, segments: int = 1,
+                      seed: int | None = None, step: int = 0):
+    """The context of a training step's forwards. On the data axis
+    (``mesh.data`` > 1) BatchNorm over the data group, this rank's ``b``
+    rows being its rows of ``segments`` global batches of data · b rows
+    concatenated (``sync_batch_norm``). With a dropout ``seed``, the draws
+    from the generators seeded by (seed, this data index, ``step``), the
+    process's own restored after."""
+    d, di = (1, 0) if mesh is None else (mesh.data, mesh.data_rank)
+    with contextlib.ExitStack() as stack:
+        if d > 1:
+            local = torch.arange(b, device=dev) + di * b
+            rows = torch.cat([local + j * d * b for j in range(segments)])
+            stack.enter_context(sync_batch_norm(mesh.data_group, rows, segments * d * b))
+        if seed is not None:
+            stack.enter_context(torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []))
+            s = dropout_seed(seed, di, step)
+            torch.random.default_generator.manual_seed(s)
+            if dev.type == "cuda":
+                torch.cuda.manual_seed(s)
+        yield
 
 
 def subset_rows(rows: torch.Tensor, n: int, stats_rows: int) -> tuple[torch.Tensor, int]:

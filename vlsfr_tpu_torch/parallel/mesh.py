@@ -10,10 +10,11 @@ port places global rank ``r`` of the default process group at data index
   ``P(None, "model", None)`` and ``P("model", None)``);
 * ``data`` — the global batch split over the ranks of one model index,
   rows ``[i·B/d, (i+1)·B/d)`` at data index ``i`` (JAX's ``P("data")``).
-  The FFC step gathers the embeddings over it before the head, sums the
-  gradients over it after the backward, and BatchNorm takes its
-  statistics over it (``models/layers.sync_batch_norm``); under GSPMD
-  XLA inserts these collectives itself.
+  Both training steps (``core/ffc.py``, ``train/softmax_head.py``) gather
+  the embeddings over it before the head, sum the backbone's gradients
+  over it after the backward, and take BatchNorm's statistics over it
+  (``models/layers.data_axis_forward``); under GSPMD XLA inserts these
+  collectives itself.
 """
 
 from __future__ import annotations

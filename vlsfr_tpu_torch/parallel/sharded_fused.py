@@ -1,5 +1,5 @@
 """The class-sharded fused-SGD streaming softmax head, route A (port of
-``vlsfr_tpu/parallel/sharded_fused.py``, ``data = 1``).
+``vlsfr_tpu/parallel/sharded_fused.py``).
 
 Each rank's classifier block and its momentum are updated in place inside
 the streaming backward, exactly as on one device: the block's d_w is a
@@ -9,9 +9,12 @@ partial forward and the collective merge (``sharded_margin.block_gt`` /
 ``merged_forward``), then ``margin_ce_bwd_fused_sgd`` over the block with
 the global positive rows as ``pos_rows`` (a −2 row keeps its softmax
 gradient here; the target tail runs on the owner only), then one
-all_reduce of d_emb. The data axis (JAX's all_gather of the embeddings over
-``data``) is not ported. A bf16 block (and a bf16 or f32 momentum block)
-takes the kernels' bf16 forms; the merges and d_emb stay f32.
+all_reduce of d_emb. On the data axis the caller passes the global batch
+(``train/softmax_head.py`` gathers the embeddings over ``data``, as JAX's
+head does, and the gather's backward slices d_emb back to the rank's
+rows), so every data replica of a block applies the same update. A bf16
+block (and a bf16 or f32 momentum block) takes the kernels' bf16 forms;
+the merges and d_emb stay f32.
 """
 
 from __future__ import annotations

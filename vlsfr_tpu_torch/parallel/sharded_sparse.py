@@ -1,5 +1,5 @@
 """The class-sharded sparse-d_w streaming softmax head, route D (port of
-``vlsfr_tpu/parallel/sharded_sparse.py``, ``data = 1``).
+``vlsfr_tpu/parallel/sharded_sparse.py``).
 
 Per rank, over its classifier block: the global gt (``sharded_margin.
 block_gt``); the forward with tile statistics (``margin_ce_fwd``, whose
@@ -7,7 +7,13 @@ merge adds the target term on the owner); the logsumexp merge of the
 blocks' logz and the top-k merge (one all_gather); the relevance selector
 over the block's own tiles with this rank's random draws; the sparse
 backward over the selected tiles and the exact d_emb from
-``margin_ce_bwd(grad_w=False)``; one all_reduce of d_emb.
+``margin_ce_bwd(grad_w=False)``; one all_reduce of d_emb. On the data
+axis the caller passes the global batch (``train/softmax_head.py``
+gathers it over ``data``) and the model index's draws, so every data
+replica of a block selects the same tiles and applies the same rows: JAX
+gathers the selector's inputs over ``data``, folds the model index alone
+into the key and sums the d_w rows over ``data``, the same rows summed in
+another order.
 
 JAX marks a row whose target another shard owns with the label ``1 << 30``
 and leans on three properties of its own: the kernels stream the target

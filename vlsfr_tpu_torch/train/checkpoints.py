@@ -16,9 +16,10 @@ generators. On the data axis the data replicas of a block hold it bit for
 bit: data index 0 of each model block writes it, the others write
 nothing and join the barriers, and every data index restores its model
 index's block, generators included (the step's draws need none: dropout's
-are seeded from (seed, data index, step), ``core/ffc.py``, route D's tile
-fill and route E's sampled classes from (seed, step),
-``train/softmax_head.py``), so a checkpoint resumes at any ``mesh.data``.
+are seeded from (seed, data index, step), ``models/layers.py``, route D's
+tile fill from (seed, step) and the model index, route E's sampled classes
+from (seed, step), ``train/softmax_head.py``), so a checkpoint of either
+head resumes at any ``mesh.data``.
 Everything is a tensor or a plain Python value, and ``restore`` loads with
 ``weights_only=True``: nothing is unpickled but tensors and containers.
 

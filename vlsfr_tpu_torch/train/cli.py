@@ -24,6 +24,10 @@ and ``--device`` (default ``cuda``; ``cpu`` must be asked for).
     torchrun --standalone --nproc_per_node=N -m vlsfr_tpu_torch.train \\
         --net_type ir50 --head full_softmax --batch_size 128 --synthetic \\
         --set pool.num_classes=1048576 --set mesh.model=N --set mesh.data=1
+    # either head on the data axis too: the shipped 5M-class config on 8
+    # cards (its mesh.data = -1 resolves to world // mesh.model = 2)
+    torchrun --standalone --nproc_per_node=8 -m vlsfr_tpu_torch.train \\
+        --config configs/partial_fc_ir50_5m_ids.json --synthetic
     # the 10M-identity int8 pool (int8 queue, int8 compute) on one card
     python -m vlsfr_tpu_torch.train --net_type ir50 --batch_size 128 \\
         --queue_size 10485760 --synthetic --set pool.queue_dtype=int8 \\

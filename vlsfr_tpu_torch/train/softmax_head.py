@@ -55,9 +55,29 @@ momentum and last-visit steps. Route D's random fill draws per rank; route
 E's sampled classes are the same on every rank (``sample_draws`` takes no
 rank), and each rank updates the rows of its block among them.
 
-Not ported yet, and refused: the data axis, and on a card a feature width
-the margin_ce kernels do not take (a multiple of 64 up to 512; any batch is
-taken).
+On the data axis (``mesh.data`` > 1: each rank holds rows ``[i·B/d,
+(i+1)·B/d)`` of the global batch at data index i, and the global labels)
+the step computes the global batch's step, as JAX's GSPMD step does: the
+backbone's forward takes BatchNorm statistics over the data group
+(``models/layers.data_axis_forward``, which also seeds ``model.dropout``'s
+draws by (data.seed, data index, step) on any mesh), the embeddings are gathered over it
+(``parallel/distributed.gather_rows``) and the head runs on the global
+batch, every data replica of a model block computing the same head (at
+``mesh.model = 1`` the single-device route, its draws the single-device
+ones, as JAX's route D takes ``mesh=None`` there; at ``mesh.model > 1``
+the class-sharded route, route D's draws keyed on the model index). The
+head's d_emb returns through the gather, whose backward hands each rank
+its own rows, and the backbone's gradients are summed over the data
+group before the global norm. The classifier's gradient and update are
+already the global batch's on every replica, so they are not summed
+again (JAX's route B at ``mesh.model > 1`` takes the other layout, each
+data shard's rows' d_w summed over ``data``: the same sum in another
+order); the replicas stay bit-equal. The loss's 1/B, route E's
+``num_sampled`` and its draw count are the global batch's.
+
+Refused: on a card a feature width the margin_ce kernels do not take (a
+multiple of 64 up to 512; any batch is taken), and RMSprop
+(``optim/optimizers.py``).
 """
 
 from __future__ import annotations
@@ -70,6 +90,7 @@ import torch.distributed as dist
 from torch import nn
 
 from vlsfr_tpu_torch.config import Config
+from vlsfr_tpu_torch.models.layers import data_axis_forward
 from vlsfr_tpu_torch.ops.margin import kernel_width_ok
 from vlsfr_tpu_torch.ops.margin_stream import (
     sparse_bwd_geometry,
@@ -79,6 +100,7 @@ from vlsfr_tpu_torch.ops.margin_stream import (
 )
 from vlsfr_tpu_torch.optim import make_optimizer, set_learning_rate
 from vlsfr_tpu_torch.optim.optimizers import clip_by_global_norm_, sgd_leaf_
+from vlsfr_tpu_torch.parallel import distributed
 from vlsfr_tpu_torch.parallel.partial_fc import (
     margin_softmax_loss,
     sample_classes,
@@ -179,7 +201,7 @@ def check_ported(cfg: Config, device=None) -> None:
             raise ValueError(f"pool.{name} must be float32 or bfloat16, got "
                              f"{getattr(pool, name)!r}")
     for what, on in (
-            ("mesh.data > 1 (the softmax head's data axis)", cfg.mesh.data > 1),
+            ("optim.optim='RMSprop'", cfg.optim.optim == "RMSprop"),
             (f"model.feat_dim={cfg.model.feat_dim} on the margin_ce kernels (a multiple of 64 "
              f"up to 512)", on_kernels and not kernel_width_ok(cfg.model.feat_dim))):
         if on:
@@ -251,33 +273,41 @@ def create_softmax_state(model: nn.Module, cfg: Config, num_classes: int, *, dev
 def make_softmax_train_step(cfg: Config, schedule, mesh=None):
     """``step(state, images, labels, lr_scale) -> metrics``: one step of the
     route the config selects, updating ``state`` in place. ``images`` are
-    an NHWC batch, ``labels`` class ids (numpy or tensors). With a ``mesh``
-    (``parallel/mesh.py``) the route runs class-sharded over it, on the
-    state ``create_softmax_state(..., mesh=mesh)`` makes; the config's
-    ``mesh.model > 1`` needs one."""
+    an NHWC batch (on the data axis this rank's rows of it), ``labels``
+    the global batch's class ids (numpy or tensors). With a ``mesh``
+    (``parallel/mesh.py``) the route runs class-sharded over its model
+    axis, on the state ``create_softmax_state(..., mesh=mesh)`` makes, and
+    over its data axis as the module docstring says; the config's
+    ``mesh.model > 1`` or ``mesh.data > 1`` needs one."""
     check_ported(cfg)
     streaming = _streaming_on(cfg)
     fused = _fused_update_on(cfg)
     sparse = _sparse_classifier_mode(cfg)
     c = cfg.pool.num_classes
     c0, c_local, draw_rank = 0, c, None
-    if mesh is None and cfg.mesh.model > 1:
-        raise ValueError("the class-sharded softmax head (mesh.model > 1) needs the mesh: "
-                         "make_softmax_train_step(cfg, schedule, mesh)")
-    if mesh is not None:
-        c0, c_local = mesh.class_block(c, "pool.num_classes")
-        draw_rank = mesh.rank if mesh.model > 1 else None
+    if mesh is None and (cfg.mesh.model > 1 or cfg.mesh.data > 1):
+        raise ValueError("the class-sharded softmax head (mesh.model > 1) or its data axis "
+                         "(mesh.data > 1) needs the mesh: make_softmax_train_step(cfg, schedule, "
+                         "mesh)")
+    d = 1 if mesh is None else mesh.data
+    # the head's mesh: the class-sharded route over the model group; on the
+    # data axis at mesh.model = 1 the single-device route on the gathered batch
+    head_mesh = None if mesh is None or (d > 1 and mesh.model == 1) else mesh
+    if head_mesh is not None:
+        c0, c_local = head_mesh.class_block(c, "pool.num_classes")
+        draw_rank = head_mesh.rank if head_mesh.model > 1 else None  # the model index
     loss_kw = dict(loss_type=cfg.loss.loss_type, margin=cfg.loss.margin, scale=cfg.loss.scale,
                    mask_svfc=cfg.loss.mask_svfc)
     sgd_kw = dict(momentum=cfg.optim.momentum, nesterov=cfg.optim.nesterov,
                   weight_decay=cfg.optim.weight_decay)
     fused_head, sparse_head = streaming_margin_grads_fused_sgd, streaming_sparse_margin_grads
-    if mesh is not None:
-        fused_head = partial(sharded_margin_grads_fused_sgd, mesh=mesh)
-        sparse_head = partial(sharded_sparse_margin_grads, mesh=mesh)
+    if head_mesh is not None:
+        fused_head = partial(sharded_margin_grads_fused_sgd, mesh=head_mesh)
+        sparse_head = partial(sharded_sparse_margin_grads, mesh=head_mesh)
     grad_clip = cfg.optim.grad_clip
+    seed = cfg.data.seed if cfg.model.dropout > 0 else None  # dropout's draws
     num_sampled = 0
-    if cfg.pool.sample_rate > 0:  # route E
+    if cfg.pool.sample_rate > 0:  # route E, over the global batch
         num_sampled = max(cfg.data.batch_size, int(c * cfg.pool.sample_rate))
     elif streaming and cfg.pool.sparse_update:  # route D, over this rank's block on a mesh
         tile, n_tiles = sparse_bwd_geometry(cfg.data.batch_size, cfg.model.feat_dim, c_local)
@@ -290,7 +320,7 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
         for the optimizer chain."""
         rand = sample_draws(state.step, num_sampled - emb.shape[0], c, emb.device)
         loss, metrics, rows, w_sub = sharded_sampled_loss(
-            emb, state.classifier, c0, labels, rand, c, num_sampled, mesh.group, **loss_kw)
+            emb, state.classifier, c0, labels, rand, c, num_sampled, head_mesh.group, **loss_kw)
         loss.backward()
         with torch.no_grad():
             if sparse:
@@ -302,10 +332,11 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
         return loss, metrics
 
     def head(state, emb, labels, lr, dev) -> tuple[torch.Tensor, dict]:
-        """The head's loss and metrics; the backbone's gradient is in place
-        afterwards, and on routes A and D the classifier's update too."""
+        """The head's loss and metrics on the global batch's embeddings
+        ``emb``; the backbone's gradient is in place afterwards, and on
+        routes A and D the classifier's update too."""
         b = emb.shape[0]
-        if num_sampled and mesh is not None:  # route E over the rank's block
+        if num_sampled and head_mesh is not None:  # route E over the rank's block
             return sharded_sampled_head(state, emb, labels, lr)
         if num_sampled:  # route E
             rand = sample_draws(state.step, num_sampled - b, c, dev)
@@ -324,7 +355,7 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
             return loss, dict(metrics, sampled_classes=num_sampled)
         if not (fused or sparse):  # routes B and C
             loss, metrics = margin_softmax_loss(emb, state.classifier, labels,
-                                                streaming=streaming, mesh=mesh, **loss_kw)
+                                                streaming=streaming, mesh=head_mesh, **loss_kw)
             loss.backward()
             return loss, metrics
         # routes A and D: loss = mean(ce), analytic output cotangents (no outlier rows)
@@ -345,11 +376,11 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
         metrics = {"ce": loss, "train_acc": (gt >= topk[:, 0]).float().mean()}
         if not fused:
             with torch.no_grad():  # row_idx entries >= C (padding) are dropped
-                if mesh is not None:  # the rank's rows, numbered in its block
+                if head_mesh is not None:  # the rank's rows, numbered in its block
                     row_idx = torch.where(row_idx < c, row_idx - c0, c_local)
                 sparse_sgd_rows(state.classifier, state.classifier_mom, row_idx, d_w_rows, lr=lr,
                                 last_visit=state.classifier_last, step=state.step, **sgd_kw)
-            metrics["grad_rows"] = row_idx.shape[0] * (1 if mesh is None else mesh.model)
+            metrics["grad_rows"] = row_idx.shape[0] * (1 if head_mesh is None else head_mesh.model)
         return loss, metrics
 
     def global_norm(params, classifier):
@@ -361,8 +392,8 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
         if classifier.requires_grad:
             grad = classifier.grad
             block = grad.square().sum(dtype=torch.float32)
-            if mesh is not None:
-                dist.all_reduce(block, group=mesh.group)
+            if head_mesh is not None:
+                dist.all_reduce(block, group=head_mesh.group)
             sq = sq + block.to(grad.dtype).float()
         return torch.sqrt(sq)
 
@@ -370,11 +401,19 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
         dev = state.classifier.device
         images = torch.as_tensor(images).to(dev, non_blocking=True)
         labels = torch.as_tensor(labels).to(dev, non_blocking=True).to(torch.int32)
+        b = images.shape[0]
+        if labels.shape[0] != d * b:
+            raise ValueError(f"{labels.shape[0]} labels for {b} rows a rank over mesh.data={d}: "
+                             f"the labels are the global batch's")
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         lr = float(schedule(state.step)) * float(lr_scale)
         state.backbone.train()
-        loss, metrics = head(state, state.backbone(images), labels, lr, dev)
+        with data_axis_forward(mesh, b, dev, seed=seed, step=state.step):
+            emb = state.backbone(images)
+        if d > 1:  # the head runs on the global batch; the backward hands back this rank's rows
+            emb = distributed.gather_rows(emb, mesh.data_group)
+        loss, metrics = head(state, emb, labels, lr, dev)
         # routes B, C, dense E: the classifier takes optax's leaf update
         leaf = state.classifier if state.classifier.requires_grad else None
         with torch.no_grad():
@@ -382,6 +421,8 @@ def make_softmax_train_step(cfg: Config, schedule, mesh=None):
             for p in params:
                 if p.grad is None:  # unused parameters still decay, as in optax
                     p.grad = torch.zeros_like(p)
+            if d > 1:  # each rank's rows' share of the global batch's gradient
+                distributed.sum_([p.grad for p in params], mesh.data_group)
             if leaf is not None:
                 params.append(leaf)
             if grad_clip > 0:

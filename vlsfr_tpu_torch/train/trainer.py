@@ -8,12 +8,13 @@ either head model-sharded over ``mesh.model`` ranks of a
 ``torch.distributed`` group (one process per card under ``torchrun``; the
 fused FFC head also with ``pool.force_sharded`` in one process): the FFC
 head's queue (fused or dense) or the softmax head's classifier (every
-route) split into one block per rank. The FFC head also runs on the data
-axis (``mesh.data`` > 1, or -1 for world // model; ``parallel/mesh.py``):
-each rank decodes its rows of the global batch and the step gathers,
-synchronises and sums over the data group (``core/ffc.py``). Every rank
-runs the same pipeline plan (and DCP planner; the labels stay global, as
-in JAX); only global rank 0 logs. On a mesh the softmax head's
+route) split into one block per rank. Both heads also run on the data
+axis (``mesh.data`` > 1, or -1 for world // model; ``parallel/mesh.py``),
+alone and under the model axis: each rank decodes its rows of the global
+batch and the step gathers, synchronises and sums over the data group
+(``core/ffc.py``, ``train/softmax_head.py``). Every rank runs the same
+pipeline plan (and DCP planner; the labels stay global, as in JAX); only
+global rank 0 logs. On a mesh the softmax head's
 ``pool.num_classes`` is padded up to a multiple of ``mesh.model``, as JAX
 pads it: the ghost classes are extra negatives, never targets.
 
@@ -29,8 +30,7 @@ the held-out tail of the store (``train.holdout_records``) or, with a
 warning, from the training records, and ``train.eval_bin``.
 
 What it does not run yet, and refuses rather than fakes: pretrained
-backbones and the softmax head's data axis (``pool.head='full_softmax'``
-at ``mesh.data > 1``).
+backbones (and RMSprop, ``optim/optimizers.py``).
 """
 
 from __future__ import annotations
@@ -66,19 +66,14 @@ from vlsfr_tpu_torch.utils.device import resolve_device
 from vlsfr_tpu_torch.utils.metrics import MetricsLogger, Throughput, logger
 
 
-def _refuse_unported(cfg: Config, data: int) -> None:
-    """Refuse what the port does not run yet; ``data`` is the resolved
-    data axis (``mesh.resolve_shape``)."""
+def _refuse_unported(cfg: Config) -> None:
+    """Refuse what the port does not run yet."""
     if cfg.pool.head not in ("ffc", "full_softmax"):
         raise ValueError(f"pool.head must be ffc or full_softmax, got {cfg.pool.head!r}")
     if cfg.pool.head == "full_softmax":
         check_ported(cfg)
-    for what, on in (
-            ("train.pretrained_model_path", bool(cfg.train.pretrained_model_path)),
-            ("mesh.data > 1 on the full_softmax head (the softmax head's data axis)",
-             cfg.pool.head == "full_softmax" and data > 1)):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.train.pretrained_model_path:
+        raise NotImplementedError("train.pretrained_model_path is not ported yet")
 
 
 class Trainer:
@@ -88,8 +83,8 @@ class Trainer:
     says otherwise; a sharded run on the rank's card, ``cuda:LOCAL_RANK``."""
 
     def __init__(self, cfg: Config, reader: MultiSourceReader | None = None, device=None):
+        _refuse_unported(cfg)
         data, model = resolve_shape(cfg.mesh.data, cfg.mesh.model)
-        _refuse_unported(cfg, data)
         self.cfg = cfg
         self.device = resolve_device(device)
         if cfg.pool.head == "ffc":
@@ -129,12 +124,11 @@ class Trainer:
         self.is_ffc = cfg.pool.head == "ffc"
         kw = dict(seed=cfg.data.seed, num_workers=cfg.data.num_workers,
                   prefetch=cfg.data.prefetch, record_limit=self.record_limit)
-        if self.is_ffc:
-            shard = (0, 1) if self.mesh is None else (self.mesh.data_rank, self.mesh.data)
-            self.pipeline = FFCPipeline(reader, cfg.data.batch_size, self.image_size,
-                                        data_shard=shard, **kw)
-        else:
-            self.pipeline = InstancePipeline(reader, cfg.data.batch_size, self.image_size, **kw)
+        # every rank plans the global step and decodes its data index's rows
+        shard = (0, 1) if self.mesh is None else (self.mesh.data_rank, self.mesh.data)
+        pipeline = FFCPipeline if self.is_ffc else InstancePipeline
+        self.pipeline = pipeline(reader, cfg.data.batch_size, self.image_size, data_shard=shard,
+                                 **kw)
         self.dcp = DCPManager(cfg.pool.queue_size) if self.is_ffc else None
         if not self.is_ffc:
             if cfg.pool.num_classes <= 0:
